@@ -1,0 +1,93 @@
+"""Top-level user API (counterpart of ``nlsolver_tpu.api``).
+
+    result = nlsolver_torch.minimize(fn, x0[B, n], method="de", layout="batched")
+
+This slice of the port routes only the batched Differential Evolution
+fleet (``solvers.de_batched``).  Every other method or layout raises
+``NotImplementedError`` naming the ROADMAP.md queue item that ports it.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .core import Bounds, SolverResult
+from .solvers import de_batched
+from .solvers.de import DEConfig
+
+_LAYOUTS = ("single", "batched", "fleet", "sharded", "islands")
+
+# where each route of the JAX package's API lands in ROADMAP.md Queue 1
+_NOT_YET = {
+    ("pso", "batched"): "Queue 1 item 2 (lane fleets for PSO and SANN)",
+    ("pso_batched", "batched"): "Queue 1 item 2 (lane fleets for PSO and SANN)",
+    ("sann", "batched"): "Queue 1 item 2 (lane fleets for PSO and SANN)",
+    ("sann_batched", "batched"): "Queue 1 item 2 (lane fleets for PSO and SANN)",
+    ("bfgs", "fleet"): "Queue 1 item 4 (BFGS fleet and root finders)",
+    ("bfgs_fleet", "fleet"): "Queue 1 item 4 (BFGS fleet and root finders)",
+    ("cmaes", "fleet"): "Queue 1 item 5 (CMA-ES fleet)",
+    ("cmaes_fleet", "fleet"): "Queue 1 item 5 (CMA-ES fleet)",
+}
+
+
+def _dispatch(fn, x0, method, config, bounds, generator, layout, _minimize, kwargs):
+    if layout not in _LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}; one of {_LAYOUTS}")
+    if layout == "batched" and method in ("de", "de_batched"):
+        if bounds is not None:
+            raise ValueError(
+                "the lane-axis DE engine is unbounded; bounded batches wait "
+                "for the single-instance DE solver (ROADMAP.md Queue 1 item 6)"
+            )
+        x0 = torch.as_tensor(x0)
+        if x0.ndim != 2:
+            raise ValueError(f"layout='batched' expects a 2-D x0, got {tuple(x0.shape)}")
+        cfg = config if config is not None else DEConfig()
+        return de_batched.minimize_batched(
+            fn, x0, cfg, generator=generator, _minimize=_minimize, **kwargs
+        )
+    if layout in ("sharded", "islands"):
+        where = "Queue 1 item 9 (mesh engines)"
+    elif layout == "single":
+        where = "Queue 1 item 6 (single-instance solvers and the API)"
+    else:
+        where = _NOT_YET.get(
+            (method, layout), "Queue 1 item 6 (single-instance solvers and the API)"
+        )
+    raise NotImplementedError(
+        f"method={method!r} with layout={layout!r} is not ported to "
+        f"nlsolver_torch yet; ROADMAP.md {where} ports it. Ported: "
+        "method='de' with layout='batched'"
+    )
+
+
+def minimize(
+    fn,
+    x0,
+    method: str = "nelder_mead",
+    config=None,
+    bounds: Optional[Bounds] = None,
+    *,
+    generator: Optional[torch.Generator] = None,
+    layout: str = "single",
+    **kwargs,
+) -> SolverResult:
+    """Minimize ``fn``; ``generator`` takes the place of the JAX package's
+    ``key`` and lives on ``x0``'s device."""
+    return _dispatch(fn, x0, method, config, bounds, generator, layout, True, kwargs)
+
+
+def maximize(
+    fn,
+    x0,
+    method: str = "nelder_mead",
+    config=None,
+    bounds: Optional[Bounds] = None,
+    *,
+    generator: Optional[torch.Generator] = None,
+    layout: str = "single",
+    **kwargs,
+) -> SolverResult:
+    """Maximize ``fn`` by minimizing ``-fn``; ``f_value`` is ``fn``'s own value."""
+    return _dispatch(fn, x0, method, config, bounds, generator, layout, False, kwargs)

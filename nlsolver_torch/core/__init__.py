@@ -1,0 +1,23 @@
+from .driver import drive, drive_fleet_scan, drive_scan
+from .objective import (Bounds, Objective, batch_eval, resolve_bounds, signed,
+                        with_eval_dtype)
+from .result import SolverResult, make_result
+from .utils import clamp, max_abs, std_err, where_lanes
+
+__all__ = [
+    "Bounds",
+    "Objective",
+    "SolverResult",
+    "batch_eval",
+    "clamp",
+    "drive",
+    "drive_fleet_scan",
+    "drive_scan",
+    "make_result",
+    "max_abs",
+    "resolve_bounds",
+    "signed",
+    "std_err",
+    "where_lanes",
+    "with_eval_dtype",
+]

@@ -1,0 +1,50 @@
+"""Small numeric helpers shared by all solvers (counterpart of
+``nlsolver_tpu.core.utils``)."""
+from __future__ import annotations
+
+from typing import TypeVar
+
+import torch
+
+T = TypeVar("T")
+
+
+def max_abs(x: torch.Tensor) -> torch.Tensor:
+    """Infinity norm (reference: max_abs_vec, nlsolver.h:1894-1904)."""
+    return x.abs().max()
+
+
+def std_err(scores: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Sample standard deviation of scores along ``dim`` (reference:
+    std_err, nlsolver.h:2037-2052, which divides by n-1).  Written out
+    rather than ``torch.std`` so the sums follow the JAX package's order."""
+    n = scores.shape[dim]
+    mean = scores.mean(dim=dim, keepdim=True)
+    var = ((scores - mean) ** 2).sum(dim=dim) / max(n - 1, 1)
+    return var.sqrt()
+
+
+def where_lanes(pred: torch.Tensor, on_true: T, on_false: T) -> T:
+    """Lane-wise select over a NamedTuple state (``tree_where`` of the JAX
+    package): each tensor field takes ``on_true`` where ``pred[lane]`` holds.
+
+    ``pred`` is ``[B]`` and every tensor field leads with the lane axis.
+    A field that is not a tensor (a fleet-global host counter) belongs to
+    no lane and is taken from ``on_false``, the state being advanced.
+    """
+    out = []
+    for a, b in zip(on_true, on_false):
+        if isinstance(b, torch.Tensor):
+            m = pred.reshape(pred.shape + (1,) * (b.ndim - pred.ndim))
+            out.append(torch.where(m, a, b))
+        else:
+            out.append(b)
+    return type(on_false)(*out)
+
+
+def clamp(x: torch.Tensor, lower, upper) -> torch.Tensor:
+    """Clamp to box bounds (reference: simplex_transform's std::clamp,
+    nlsolver.h:2002-2004)."""
+    lower = torch.as_tensor(lower, dtype=x.dtype, device=x.device)
+    upper = torch.as_tensor(upper, dtype=x.dtype, device=x.device)
+    return torch.clamp(x, lower, upper)

@@ -1,0 +1,192 @@
+"""One whole DE generation as one CUDA kernel (``csrc/de_fused.cu``), with
+its plain PyTorch twin.
+
+Counterpart of ``nlsolver_tpu/ops/de_fused.py:de_generation_fused``.  The
+layout is the batched engine's: agents ``[B, n, P]``, scores ``[B, P]``,
+ring-rotation partners.  The kernel also folds the lane freeze into the
+greedy select: a lane whose ``active`` flag is false comes back unchanged.
+
+``de_generation_fused`` launches the kernel for CUDA tensors and raises on
+anything it does not take; for CPU tensors it runs
+``de_generation_reference``.  The JAX kernel traced any ``fn`` into its
+body; the CUDA kernel has a registry of compiled objectives instead
+(``KERNEL_OBJECTIVES``).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Sequence
+
+import torch
+
+from ..problems import PROBLEMS
+from . import _build
+
+# objectives compiled into the kernel, by the port's function object
+KERNEL_OBJECTIVES = {
+    PROBLEMS["rastrigin"].fn: "rastrigin",
+    PROBLEMS["sphere"].fn: "sphere",
+}
+
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo(m: int, c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    # 32x32 -> 64-bit product on int64 without overflow: split m in halves
+    p0 = c * (m & 0xFFFF)
+    p1 = c * (m >> 16)
+    t = p0 + ((p1 & 0xFFFF) << 16)
+    return (p1 >> 16) + (t >> 32), t & _MASK32
+
+
+def philox4x32_10(ctr: Sequence[torch.Tensor], k0: int, k1: int):
+    """Philox4x32-10 on int64 tensors holding 32-bit words: the twin of
+    ``csrc/philox.cuh``.  Returns the four output words."""
+    c0, c1, c2, c3 = ctr
+    k0, k1 = k0 & _MASK32, k1 & _MASK32
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _PHILOX_W[0]) & _MASK32
+        k1 = (k1 + _PHILOX_W[1]) & _MASK32
+    return c0, c1, c2, c3
+
+
+def philox_draws(seed: int, generation: int, B: int, n: int, P: int,
+                 dtype: torch.dtype, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's Philox-mode draws: ``u [B, n, P]`` and ``fdim [B, P]``.
+    Counter ``(d // 4, p, b, 0)`` gives the uniforms of coordinates
+    ``d .. d+3``; counter ``(0, p, b, 1)`` gives the forced dimension."""
+    def ar(k, shape):
+        return torch.arange(k, dtype=torch.int64, device=device).reshape(shape)
+
+    G = (n + 3) // 4
+    b, p = ar(B, (B, 1, 1)), ar(P, (1, P, 1))
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    words = philox4x32_10((ar(G, (1, 1, G)), p, b, zero), seed, generation)
+    bits = torch.stack(torch.broadcast_tensors(*words), dim=-1).reshape(B, P, 4 * G)
+    u = ((bits[..., :n] >> 8).to(dtype) * 2.0**-24).permute(0, 2, 1).contiguous()
+    fbits = philox4x32_10((zero, p[..., 0], b[..., 0], zero + 1), seed, generation)[0]
+    return u, fbits.expand(B, P) % n
+
+
+def eval_columns(fn, agents: torch.Tensor) -> torch.Tensor:
+    """Score every agent column: ``[B, n, P] -> [B, P]``."""
+    return fn(agents.transpose(1, 2))
+
+
+def de_generation_reference(fn, agents, scores, offs, u, fdim, active, F, CR):
+    """Plain PyTorch twin of the kernel: one rotation DE generation.
+
+    ``offs`` are the ring offsets (partners ``(p + o_k) % P``), ``u [B, n, P]``
+    the crossover uniforms, ``fdim [B, P]`` the forced dimensions and
+    ``active [B]`` the lanes that may change.  Returns the new agents and
+    scores."""
+    o1, o2, o3 = (int(o) for o in offs)
+    a1, a2, a3 = (torch.roll(agents, -o, dims=2) for o in (o1, o2, o3))
+    donor = a1 + F * (a2 - a3)
+    dims = torch.arange(agents.shape[1], device=agents.device)[None, :, None]
+    mutate = (u < CR) | (dims == fdim[:, None, :])
+    prop = torch.where(mutate, donor, agents)
+    prop_scores = eval_columns(fn, prop)
+    accept = (prop_scores < scores) & active[:, None]
+    return (
+        torch.where(accept[:, None, :], prop, agents),
+        torch.where(accept, prop_scores, scores),
+    )
+
+
+def _check(cond: bool, what: str) -> None:
+    if not cond:
+        raise ValueError(f"de_generation_fused: {what}")
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher(name: str):
+    fn = getattr(_build.load_library(), f"de_generation_{name}_f32")
+    vp, ci, cf, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+    fn.argtypes = [vp] * 7 + [ci] * 6 + [cf, cf, cu, cu, vp]
+    fn.restype = ci
+    return fn
+
+
+def de_generation_fused(
+    fn,
+    agents: torch.Tensor,                # [B, n, P]
+    scores: torch.Tensor,                # [B, P]
+    offs: Sequence[int],                 # 3 ring offsets in [1, P)
+    active: torch.Tensor,                # [B] bool
+    *,
+    seed: int,
+    generation: int,
+    cross_prob: float = 0.9,
+    diff_weight: float = 0.8,
+    u: Optional[torch.Tensor] = None,    # [B, n, P]: injected uniforms
+    fdim: Optional[torch.Tensor] = None,  # [B, P]: injected forced dims
+):
+    """One DE generation: mutation, crossover, objective, greedy select.
+
+    Without ``u`` and ``fdim`` the draws come from Philox keyed by
+    ``(seed, generation)``; with them (both or neither) the kernel reads
+    them.  CPU tensors run the plain twin on the same draws; CUDA tensors
+    launch the kernel (float32 only) or raise."""
+    _check(agents.ndim == 3, f"agents must be [B, n, P], got {tuple(agents.shape)}")
+    B, n, P = agents.shape
+    offs = tuple(int(o) for o in offs)
+    _check(len(offs) == 3 and all(0 < o < P for o in offs),
+           f"offs must be 3 offsets in [1, {P}), got {offs}")
+    _check((u is None) == (fdim is None), "pass u and fdim together or neither")
+
+    if agents.device.type == "cpu":
+        if u is None:
+            u, fdim = philox_draws(seed, generation, B, n, P, agents.dtype, agents.device)
+        return de_generation_reference(
+            fn, agents, scores, offs, u, fdim, active, diff_weight, cross_prob
+        )
+
+    _check(agents.device.type == "cuda", f"unsupported device {agents.device}")
+    name = KERNEL_OBJECTIVES.get(fn)
+    _check(name is not None,
+           "the CUDA kernel evaluates only the objectives of its registry "
+           f"({', '.join(sorted(KERNEL_OBJECTIVES.values()))} from "
+           "nlsolver_torch.PROBLEMS); use use_fused_kernel=False for others")
+    _check(P <= 1024, f"pop size {P} exceeds one block (1024 threads)")
+    dev = agents.device
+    expect = {
+        "agents": (agents, (B, n, P), torch.float32),
+        "scores": (scores, (B, P), torch.float32),
+        "active": (active, (B,), torch.bool),
+    }
+    if u is not None:
+        fdim = fdim.to(torch.int32)
+        expect["u"] = (u, (B, n, P), torch.float32)
+        expect["fdim"] = (fdim, (B, P), torch.int32)
+    for what, (t, shape, dtype) in expect.items():
+        _check(t.device == dev, f"{what} is on {t.device}, agents on {dev}")
+        _check(tuple(t.shape) == shape, f"{what} must be {shape}, got {tuple(t.shape)}")
+        _check(t.dtype == dtype, f"{what} must be {dtype}, got {t.dtype}")
+        _check(t.is_contiguous(), f"{what} must be contiguous")
+
+    out_agents = torch.empty_like(agents)
+    out_scores = torch.empty_like(scores)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _launcher(name)(
+            agents.data_ptr(), scores.data_ptr(), active.data_ptr(),
+            None if u is None else u.data_ptr(),
+            None if fdim is None else fdim.data_ptr(),
+            out_agents.data_ptr(), out_scores.data_ptr(),
+            B, n, P, *offs, diff_weight, cross_prob,
+            seed & _MASK32, generation & _MASK32, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"de_generation_fused: CUDA launch failed (cudaError {err})")
+    de_generation_fused.launches += 1
+    return out_agents, out_scores
+
+
+de_generation_fused.launches = 0

@@ -1,0 +1,169 @@
+"""nlsolver_torch.core against nlsolver_tpu.core on the same inputs (f64)."""
+from typing import NamedTuple
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nlsolver_torch import core as tc
+from nlsolver_tpu import core as jc
+
+torch.set_num_threads(1)
+RTOL = 1e-12
+
+
+class Toy(NamedTuple):
+    x: object       # [B, 2]
+    count: object   # [B]
+    done: object    # [B]
+
+
+def _toy_step(limit):
+    # written once for both packages: only operators, no library calls
+    def step(s):
+        x = s.x + 1.0
+        count = s.count + 1
+        return Toy(x, count, count >= limit)
+    return step
+
+
+def _toy_state(rng, B=6):
+    x = rng.standard_normal((B, 2))
+    return x, np.zeros(B, np.int32), np.zeros(B, bool)
+
+
+@pytest.mark.parametrize("shape,axis", [((7,), -1), ((4, 9), 1), ((5, 3), 0)])
+def test_std_err(shape, axis):
+    s = np.random.default_rng(0).standard_normal(shape)
+    got = tc.std_err(torch.from_numpy(s), dim=axis).numpy()
+    want = np.asarray(jc.std_err(jnp.asarray(s), axis=axis))
+    np.testing.assert_allclose(got, want, rtol=RTOL)
+
+
+def test_where_lanes_matches_tree_where():
+    rng = np.random.default_rng(1)
+    a = [rng.standard_normal((5, 3, 2)), rng.integers(0, 9, 5).astype(np.int32)]
+    b = [rng.standard_normal((5, 3, 2)), rng.integers(0, 9, 5).astype(np.int32)]
+    pred = rng.random(5) < 0.5
+
+    class Pair(NamedTuple):
+        m: object
+        k: object
+
+    got = tc.where_lanes(
+        torch.from_numpy(pred), Pair(*map(torch.from_numpy, a)), Pair(*map(torch.from_numpy, b))
+    )
+    want = jc.tree_where(jnp.asarray(pred), Pair(*map(jnp.asarray, a)), Pair(*map(jnp.asarray, b)))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_where_lanes_takes_host_fields_from_advanced_state():
+    class S(NamedTuple):
+        v: object
+        generation: int
+
+    old, new = S(torch.zeros(3), 4), S(torch.ones(3), 5)
+    out = tc.where_lanes(torch.tensor([True, False, True]), old, new)
+    assert out.generation == 5
+    assert out.v.tolist() == [0.0, 1.0, 0.0]
+
+
+def test_drive_scan_freezes_finished_lanes():
+    x, count, done = _toy_state(np.random.default_rng(2))
+    limit = np.array([1, 2, 3, 5, 8, 13], np.int32)
+    j = jc.drive_scan(_toy_step(jnp.asarray(limit)), Toy(*map(jnp.asarray, (x, count, done))), 6)
+    t = tc.drive_scan(
+        _toy_step(torch.from_numpy(limit)), Toy(*map(torch.from_numpy, (x, count, done))), 6
+    )
+    np.testing.assert_allclose(t.x.numpy(), np.asarray(j.x), rtol=RTOL)
+    np.testing.assert_array_equal(t.count.numpy(), np.asarray(j.count))
+    np.testing.assert_array_equal(t.done.numpy(), np.asarray(j.done))
+    # lanes stop at their own limit, capped by the trip count
+    np.testing.assert_array_equal(t.count.numpy(), np.minimum(limit, 6))
+
+
+def test_drive_fleet_scan_runs_fixed_trips():
+    x, count, done = _toy_state(np.random.default_rng(3))
+    s = tc.drive_fleet_scan(
+        _toy_step(torch.tensor(2)), Toy(*map(torch.from_numpy, (x, count, done))), 4
+    )
+    assert s.count.tolist() == [4] * 6
+
+
+@pytest.mark.parametrize("check_every", [1, 3, 16])
+def test_drive_stops_when_every_lane_is_done(check_every):
+    x, count, done = _toy_state(np.random.default_rng(4))
+    limit = np.array([2, 4, 7, 7, 1, 5], np.int32)
+    # the JAX driver runs one instance; vmap it over the lanes
+    j = jax.vmap(lambda s, lim: jc.drive(_toy_step(lim), s))(
+        Toy(*map(jnp.asarray, (x, count, done))), jnp.asarray(limit)
+    )
+    calls = []
+
+    def step(s):
+        calls.append(1)
+        return _toy_step(torch.from_numpy(limit))(s)
+
+    t = tc.drive(step, Toy(*map(torch.from_numpy, (x, count, done))), check_every=check_every)
+    np.testing.assert_allclose(t.x.numpy(), np.asarray(j.x), rtol=RTOL)
+    np.testing.assert_array_equal(t.count.numpy(), np.asarray(j.count))
+    assert bool(t.done.all())
+    # the host looks every check_every steps: at most check_every - 1 extra
+    assert 7 <= len(calls) < 7 + check_every
+
+
+def test_drive_max_steps_caps_the_run():
+    x, count, done = _toy_state(np.random.default_rng(5))
+    t = tc.drive(
+        _toy_step(torch.tensor(100)), Toy(*map(torch.from_numpy, (x, count, done))),
+        check_every=4, max_steps=10,
+    )
+    assert t.count.tolist() == [10] * 6
+
+
+def test_make_result_matches_jax():
+    rng = np.random.default_rng(6)
+    x, f = rng.standard_normal((4, 3)), rng.standard_normal(4)
+    it, nf = rng.integers(0, 50, 4), rng.integers(0, 500, 4)
+    conv = rng.random(4) < 0.5
+    j = jc.make_result(jnp.asarray(x), jnp.asarray(f), it, nf, converged=conv)
+    t = tc.make_result(torch.from_numpy(x), torch.from_numpy(f), it, nf, converged=conv)
+    assert t._fields == j._fields
+    for name in j._fields:
+        got, want = getattr(t, name).numpy(), np.asarray(getattr(j, name))
+        assert got.dtype == want.dtype, name
+        np.testing.assert_allclose(got, want, rtol=RTOL)
+    summed = t.add(t)
+    assert summed.iterations.tolist() == (2 * it).tolist()
+
+
+def test_objective_helpers():
+    rng = np.random.default_rng(7)
+    xs = rng.standard_normal((5, 3))
+    fn = lambda x: (x * x).sum(-1)  # noqa: E731
+    t = torch.from_numpy(xs)
+    np.testing.assert_allclose(tc.batch_eval(fn, t).numpy(), (xs * xs).sum(-1), rtol=RTOL)
+    np.testing.assert_allclose(tc.signed(fn, False)(t).numpy(), -(xs * xs).sum(-1), rtol=RTOL)
+    assert tc.with_eval_dtype(fn, torch.float32)(t).dtype == torch.float64
+    with pytest.raises(ValueError, match="last axis"):
+        tc.batch_eval(lambda x: x, t)
+    lo, hi, bounded = tc.resolve_bounds(tc.Bounds(-1.0, 2.0), t)
+    jlo, jhi, jb = jc.resolve_bounds(jc.Bounds(-1.0, 2.0), jnp.asarray(xs))
+    np.testing.assert_array_equal(lo.numpy(), np.asarray(jlo))
+    np.testing.assert_array_equal(hi.numpy(), np.asarray(jhi))
+    assert bounded and jb
+    lo, hi, bounded = tc.resolve_bounds(None, t)
+    assert not bounded and bool(torch.isinf(lo).all()) and bool((hi > 0).all())
+    np.testing.assert_array_equal(
+        tc.clamp(t, -0.5, 0.5).numpy(), np.asarray(jc.clamp(jnp.asarray(xs), -0.5, 0.5))
+    )
+    assert float(tc.max_abs(t)) == float(jc.max_abs(jnp.asarray(xs)))
+
+
+def test_jax_is_cpu():
+    # the references run on the CPU in x64, the port in f64 beside them
+    assert jax.default_backend() == "cpu"
+    assert jnp.asarray(1.0).dtype == jnp.float64

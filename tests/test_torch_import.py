@@ -1,0 +1,53 @@
+"""nlsolver_torch imports and runs with JAX made unimportable."""
+import os
+import subprocess
+import sys
+import textwrap
+
+import torch
+
+torch.set_num_threads(1)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = textwrap.dedent(
+    """
+    import sys
+    sys.modules["jax"] = None          # any `import jax` now raises ImportError
+    import torch
+    torch.set_num_threads(1)
+    import nlsolver_torch as nt
+    from nlsolver_torch.solvers import de_batched
+    import nlsolver_torch.benches, nlsolver_torch.interop  # noqa: F401
+
+    fn = nt.PROBLEMS["rastrigin"].fn
+    cfg = nt.DEConfig(pop_size=8, partner_sampling="rotation", use_fused_kernel=True)
+    g = torch.Generator().manual_seed(0)
+    state = de_batched.init(fn, torch.full((4, 3), -0.5), cfg, generator=g)
+    for _ in range(3):
+        state = de_batched.step(fn, state, cfg, generator=g)
+    assert state.generation == 3 and state.iteration.tolist() == [3] * 4
+    assert not any(m == "jax" or m.startswith(("jax.", "nlsolver_tpu"))
+                   for m in sys.modules if sys.modules[m] is not None)
+    print("ok")
+    """
+)
+
+
+def test_imports_and_steps_without_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", SCRIPT], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_no_jax_import_in_package_sources():
+    pkg = os.path.join(ROOT, "nlsolver_torch")
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(dirpath, f)) as fh:
+                    src = fh.read()
+                for banned in ("import jax", "from jax", "nlsolver_tpu import",
+                               "from nlsolver_tpu"):
+                    assert banned not in src, (f, banned)
