@@ -1,13 +1,33 @@
 """nlsolver_torch: the PyTorch / CUDA port of nlsolver_tpu for NVIDIA Hopper.
 
 Ported so far: the batched Differential Evolution fleet
-(``minimize(fn, x0[B, n], method="de", layout="batched")``) and its fused
-generation kernel (``ops.de_fused``, CUDA C++ in ``csrc/``).  The package
-imports ``torch`` and never ``jax``.
+(``minimize(fn, x0[B, n], method="de", layout="batched")``) with its fused
+generation kernel (``ops.de_fused``), and nonlinear least squares (``fit``,
+``fit_batched``, ``curve_fit`` and the batch-minor ``fit_fleet``) with the
+wavefront QR / least-squares kernels (``ops.qr_wavefront``) and the
+batch-minor Cholesky solve (``ops.smallchol``); the kernels are CUDA C++
+in ``csrc/``.  The package imports ``torch`` and never ``jax``.
 """
-from .api import maximize, minimize
+from .api import (curve_fit, fit, fit_batched, fit_fleet, fit_fleet_sharded, fit_sharded,
+                  maximize, minimize)
 from .core import SolverResult
 from .problems import PROBLEMS
 from .solvers.de import DEConfig
+from .solvers.nlls import NLLSConfig
+from .solvers.nlls_fleet import NLLSFleetConfig
 
-__all__ = ["DEConfig", "PROBLEMS", "SolverResult", "maximize", "minimize"]
+__all__ = [
+    "DEConfig",
+    "NLLSConfig",
+    "NLLSFleetConfig",
+    "PROBLEMS",
+    "SolverResult",
+    "curve_fit",
+    "fit",
+    "fit_batched",
+    "fit_fleet",
+    "fit_fleet_sharded",
+    "fit_sharded",
+    "maximize",
+    "minimize",
+]

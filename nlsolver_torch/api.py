@@ -2,9 +2,12 @@
 
     result = nlsolver_torch.minimize(fn, x0[B, n], method="de", layout="batched")
 
-This slice of the port routes only the batched Differential Evolution
-fleet (``solvers.de_batched``).  Every other method or layout raises
+``minimize`` routes only the batched Differential Evolution fleet
+(``solvers.de_batched``) so far; every other method or layout raises
 ``NotImplementedError`` naming the ROADMAP.md queue item that ports it.
+Nonlinear least squares is ``fit`` / ``fit_batched`` / ``curve_fit``
+(re-exported from ``solvers.nlls``) plus ``fit_fleet``, the batch-minor
+lane fleet with its ``solve`` backends (solvers/nlls_fleet.py).
 """
 from __future__ import annotations
 
@@ -15,6 +18,8 @@ import torch
 from .core import Bounds, SolverResult
 from .solvers import de_batched
 from .solvers.de import DEConfig
+from .solvers.nlls import NLLSConfig, curve_fit, fit, fit_batched  # noqa: F401
+from .solvers.nlls_fleet import NLLSFleetConfig, fit_fleet  # noqa: F401
 
 _LAYOUTS = ("single", "batched", "fleet", "sharded", "islands")
 
@@ -91,3 +96,22 @@ def maximize(
 ) -> SolverResult:
     """Maximize ``fn`` by minimizing ``-fn``; ``f_value`` is ``fn``'s own value."""
     return _dispatch(fn, x0, method, config, bounds, generator, layout, False, kwargs)
+
+
+def _mesh_route(name: str):
+    raise NotImplementedError(
+        f"{name} is not ported to nlsolver_torch yet; ROADMAP.md Queue 1 item 9 "
+        "(mesh engines) ports it. Ported: fit_fleet on one device"
+    )
+
+
+def fit_fleet_sharded(residual_fn, X0, config=None, mesh=None, data=None):
+    """``fit_fleet`` with the lane axis sharded over a device mesh: not
+    ported yet (ROADMAP.md Queue 1 item 9)."""
+    _mesh_route("fit_fleet_sharded")
+
+
+def fit_sharded(residual_fn, x0s, config=None, mesh=None, data=None):
+    """``fit_batched`` with the fit batch sharded over a mesh: not ported
+    yet (ROADMAP.md Queue 1 item 9)."""
+    _mesh_route("fit_sharded")

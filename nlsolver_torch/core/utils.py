@@ -28,13 +28,21 @@ def where_lanes(pred: torch.Tensor, on_true: T, on_false: T) -> T:
     """Lane-wise select over a NamedTuple state (``tree_where`` of the JAX
     package): each tensor field takes ``on_true`` where ``pred[lane]`` holds.
 
-    ``pred`` is ``[B]`` and every tensor field leads with the lane axis.
-    A field that is not a tensor (a fleet-global host counter) belongs to
-    no lane and is taken from ``on_false``, the state being advanced.
+    ``pred`` is ``[B]`` (or 0-d, for one instance) and every tensor field
+    leads with the lane axis; a field that does not raises ``ValueError``
+    rather than broadcasting against the lanes (a batch-minor ``[n, B]``
+    fleet selects with its own trailing-lane helper).  A field that is not
+    a tensor (a fleet-global host counter) belongs to no lane and is taken
+    from ``on_false``, the state being advanced.
     """
     out = []
     for a, b in zip(on_true, on_false):
         if isinstance(b, torch.Tensor):
+            if tuple(b.shape[:pred.ndim]) != tuple(pred.shape):
+                raise ValueError(
+                    f"where_lanes: a field of shape {tuple(b.shape)} does not lead "
+                    f"with the lane axis of the predicate {tuple(pred.shape)}"
+                )
             m = pred.reshape(pred.shape + (1,) * (b.ndim - pred.ndim))
             out.append(torch.where(m, a, b))
         else:

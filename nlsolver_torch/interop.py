@@ -1,10 +1,12 @@
-"""Carry a batched-DE state across packages as numpy arrays.
+"""Carry solver states across packages as numpy arrays.
 
 ``de_state_from_numpy`` takes the fields of the JAX package's
 ``DEBatchState`` (for example ``{k: np.asarray(v) for k, v in
 state._asdict().items()}``) and builds the port's state; the per-lane
 ``keys`` have no counterpart and are dropped.  ``de_state_to_numpy`` gives
-the tensor fields back.  Neither imports JAX.
+the tensor fields back.  ``nlls_fleet_state_from_numpy`` and
+``nlls_fleet_state_to_numpy`` do the same for the NLLS fleet's
+``NLLSFleetState``, field for field.  None of them imports JAX.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import numpy as np
 import torch
 
 from .solvers.de_batched import DEBatchState
+from .solvers.nlls_fleet import NLLSFleetState
 
 _TENSOR_FIELDS = (
     "agents", "scores", "best_value", "iteration", "nfev", "val_no_change",
@@ -33,3 +36,16 @@ def de_state_from_numpy(
 
 def de_state_to_numpy(state: DEBatchState) -> dict:
     return {f: getattr(state, f).detach().cpu().numpy() for f in _TENSOR_FIELDS}
+
+
+def nlls_fleet_state_from_numpy(fields: dict, device) -> NLLSFleetState:
+    missing = [f for f in NLLSFleetState._fields if f not in fields]
+    if missing:
+        raise ValueError(f"NLLS fleet state is missing fields {missing}")
+    return NLLSFleetState(*(
+        torch.as_tensor(np.array(fields[f]), device=device) for f in NLLSFleetState._fields
+    ))
+
+
+def nlls_fleet_state_to_numpy(state: NLLSFleetState) -> dict:
+    return {f: getattr(state, f).detach().cpu().numpy() for f in NLLSFleetState._fields}

@@ -1,0 +1,27 @@
+from .givens import QR, givens_rotation, qr, qr_givens, validate_qr
+from .qr_parallel import backsolve_bm, least_squares_parallel, qr_parallel
+from .solve import (
+    backsolve,
+    cholesky,
+    damped_solve,
+    forwardsolve,
+    least_squares,
+    solve_cholesky,
+)
+
+__all__ = [
+    "QR",
+    "backsolve",
+    "cholesky",
+    "damped_solve",
+    "forwardsolve",
+    "givens_rotation",
+    "least_squares",
+    "qr",
+    "qr_givens",
+    "qr_parallel",
+    "least_squares_parallel",
+    "backsolve_bm",
+    "solve_cholesky",
+    "validate_qr",
+]

@@ -1,6 +1,7 @@
 """Builds the port's CUDA sources (``nlsolver_torch/csrc/*.cu``) into one
 shared library with a plain C interface, at first use, and loads it with
-``ctypes``.
+``ctypes``.  Each source compiles in its own ``nvcc`` process, all started
+together, and one more ``nvcc`` links the objects.
 
 The library goes to ``build/nlsolver_torch/lib_<digest>.so`` beside the
 package, where ``<digest>`` hashes the sources, so an edit rebuilds and an
@@ -18,9 +19,13 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nlsolver_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# the dtypes the linear-algebra kernels are built for, by launcher suffix
+DTYPE_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def sources() -> list[Path]:
@@ -52,12 +57,13 @@ def find_nvcc() -> str:
     )
 
 
-def nvcc_command(nvcc: str, srcs: list[Path], out: Path) -> list[str]:
+def nvcc_command(nvcc: str, srcs: list[Path], out: Path, compile_only: bool = False) -> list[str]:
     """The compile line: Hopper only (sm_90a), accurate math (no
-    --use_fast_math), register and spill report from ptxas."""
+    --use_fast_math), register and spill report from ptxas.  With
+    ``compile_only`` it makes one object; otherwise the shared library."""
     return [
-        nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-        "-Xptxas", "-v", "-o", str(out), *map(str, srcs),
+        nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c" if compile_only else "-shared",
+        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(out), *map(str, srcs),
     ]
 
 
@@ -68,19 +74,62 @@ def ensure_built() -> tuple[Path, str]:
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = nvcc_command(find_nvcc(), sources(), tmp)
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    nvcc = find_nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
+    tmp = out.with_name(f"{tag}.tmp.so")
+    compiles = [nvcc_command(nvcc, [src], obj, compile_only=True)
+                for src, obj in zip(sources(), objs)]
+    log = []
+
+    def finish(cmd, proc):
+        output = proc.communicate()[0]
+        log.append(output)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{output}")
+
+    procs = []
+
+    def start(cmd):
+        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+        return procs[-1]
+
+    try:
+        for cmd, proc in zip(compiles, [start(cmd) for cmd in compiles]):
+            finish(cmd, proc)
+        link = nvcc_command(nvcc, objs, tmp)
+        finish(link, start(link))
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    finally:
+        for proc in procs:  # after a failure, stop the compiles still running
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return out, proc.stdout + proc.stderr
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return out, "".join(log)
 
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     path, _ = ensure_built()
     return ctypes.CDLL(str(path))
+
+
+def check_cuda_inputs(name: str, tensors: dict) -> None:
+    """Device, dtype and contiguity rules of the CUDA kernels (shapes are
+    the caller's)."""
+    first = next(iter(tensors.values()))
+    if first.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {first.device}")
+    for what, t in tensors.items():
+        if t.device != first.device:
+            raise ValueError(f"{name}: {what} is on {t.device}, expected {first.device}")
+        if t.dtype not in DTYPE_SUFFIX:
+            raise ValueError(f"{name}: {what} must be float32 or float64, got {t.dtype}")
+        if t.dtype != first.dtype:
+            raise ValueError(f"{name}: {what} is {t.dtype}, expected {first.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")

@@ -71,6 +71,34 @@ def test_where_lanes_takes_host_fields_from_advanced_state():
     assert out.v.tolist() == [0.0, 1.0, 0.0]
 
 
+class _One(NamedTuple):
+    v: object
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (3,), (2, 4)])
+def test_where_lanes_refuses_fields_that_do_not_lead_with_the_lanes(shape):
+    """A batch-minor field ([1, B] or [n, B]) would broadcast against the
+    lanes or select along the wrong axis: it raises instead."""
+    pred = torch.tensor([True, False, True, False])
+    with pytest.raises(ValueError, match="does not lead with the lane axis"):
+        tc.where_lanes(pred, _One(torch.zeros(shape)), _One(torch.ones(shape)))
+    # one instance: a 0-d predicate selects whole fields of any shape
+    out = tc.where_lanes(torch.tensor(True), _One(torch.zeros(shape)), _One(torch.ones(shape)))
+    assert torch.equal(out.v, torch.zeros(shape))
+
+
+def test_where_lanes_selects_rows_of_a_square_field():
+    """[n, B] with n == B passes the shape check, and where_lanes takes its
+    ROWS as lanes: a batch-minor fleet selects with its own trailing-lane
+    helper (solvers/nlls_fleet.py:_lane_where), which takes the columns."""
+    from nlsolver_torch.solvers.nlls_fleet import _lane_where
+
+    pred = torch.tensor([True, False])
+    a, b = torch.zeros(2, 2), torch.ones(2, 2)
+    assert tc.where_lanes(pred, _One(a), _One(b)).v.tolist() == [[0.0, 0.0], [1.0, 1.0]]
+    assert _lane_where(pred, _One(a), _One(b)).v.tolist() == [[0.0, 1.0], [0.0, 1.0]]
+
+
 def test_drive_scan_freezes_finished_lanes():
     x, count, done = _toy_state(np.random.default_rng(2))
     limit = np.array([1, 2, 3, 5, 8, 13], np.int32)

@@ -143,8 +143,39 @@ def test_build_command_targets_hopper():
     assert "--use_fast_math" not in cmd
     assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
     names = {p.name for p in _build.sources()}
-    assert "de_fused.cu" in names
+    assert {"de_fused.cu", "qr_wavefront.cu", "smallchol.cu"} <= names
     assert len(_build.source_digest()) == 16
+    obj = _build.nvcc_command("nvcc", _build.sources()[:1], Path("a.o"), compile_only=True)
+    assert "-c" in obj and "-shared" not in obj and "arch=compute_90a,code=sm_90a" in obj
+
+
+FAKE_NVCC = """#!{python}
+import sys
+with open({log!r}, "a") as f:
+    f.write(" ".join(sys.argv[1:]) + "\\n")
+out = sys.argv[sys.argv.index("-o") + 1]
+open(out, "w").write("built")
+"""
+
+
+def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
+    import sys
+
+    log = tmp_path / "calls.txt"
+    fake = tmp_path / "nvcc"
+    fake.write_text(FAKE_NVCC.format(python=sys.executable, log=str(log)))
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(fake))
+    path, _ = _build.ensure_built()
+    calls = log.read_text().splitlines()
+    srcs = _build.sources()
+    assert len(calls) == len(srcs) + 1                  # one compile per source, one link
+    assert all("-c" in c.split() for c in calls[:-1]) and "-shared" in calls[-1].split()
+    assert {c.split()[-1] for c in calls[:-1]} == {str(s) for s in srcs}
+    assert path.read_text() == "built" and path.name == f"lib_{_build.source_digest()}.so"
+    assert sorted(p.name for p in path.parent.iterdir()) == [path.name]  # objects removed
+    assert _build.ensure_built() == (path, "")          # built once per source digest
 
 
 def test_find_nvcc_order(tmp_path, monkeypatch):

@@ -26,6 +26,19 @@ SCRIPT = textwrap.dedent(
     for _ in range(3):
         state = de_batched.step(fn, state, cfg, generator=g)
     assert state.generation == 3 and state.iteration.tolist() == [3] * 4
+
+    # the NLLS slice: linalg, the kernels' CPU routes, both solvers
+    import nlsolver_torch.linalg, nlsolver_torch.ops  # noqa: F401
+    from nlsolver_torch.ops import qr_wavefront, smallchol  # noqa: F401
+    t = torch.linspace(0.0, 2.0, 8, dtype=torch.float64)
+    ys = torch.stack([2.0 * torch.exp(-t), 1.5 * torch.exp(-0.5 * t)])
+    for solve in ("cholesky", "qr", "qr_pallas"):
+        res = nt.fit_fleet(lambda p, y: p[0] * torch.exp(-p[1] * t) - y,
+                           torch.ones(2, 2, dtype=torch.float64),
+                           nt.NLLSFleetConfig(max_iter=30, solve=solve), data=ys)
+        assert bool(res.converged.all()), solve
+    res = nt.fit(lambda x: x - 3.0, torch.zeros(2, dtype=torch.float64))
+    assert abs(float(res.x.sum()) - 6.0) < 1e-9
     assert not any(m == "jax" or m.startswith(("jax.", "nlsolver_tpu"))
                    for m in sys.modules if sys.modules[m] is not None)
     print("ok")
