@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of nlsolver_torch on one CUDA card: builds the kernels, holds
-each against its plain PyTorch twin, drives the batched-DE fleet through
-``nlsolver_torch.minimize`` and the NLLS fleet through
+each against its plain PyTorch twin, drives the batched-DE fleet and the
+BFGS fleet through ``nlsolver_torch.minimize`` and the NLLS fleet through
 ``nlsolver_torch.fit_fleet`` at full size, and times them.
 
     python3 chip_smoke.py
@@ -32,7 +32,30 @@ Phases, each fatal on failure:
      lane by lane, cholesky close to them;
  10. NLLS timing: bench_nlls_fleet per backend (median of 3 after 1
      warm-up, ABBA order), and K2a, K2b and K3 alone against their twins
+     from CUDA events, beside the one PyTorch call that computes the same
+     function (torch.linalg.qr, torch.linalg.lstsq, Cholesky solve);
+ 11. K4a (resident rank-2 update + direction) against its twin at
+     [16, 16, 65536] f32 with a third of the lanes on reset and a fifth at
+     rho = 0, at n in {1, 2, 8, 33} with a ragged B, and once in f64; K4b
+     (row-split) at [128, 128, 4096], at n = 16 where it must equal K4a
+     bit for bit, and at n = 45; K4c (leading-batch update) at
+     [65536, 16, 16] and [4096, 64, 64]; a non-contiguous and an f16 input
+     refused;
+ 12. the BFGS slice: minimize(method="bfgs", layout="fleet") on 65536
+     16-D bowls with more_thuente and with speculative, K4a launches equal
+     to the host steps, every lane halted by a tolerance before max_iter,
+     converged share at least 0.98 and 0.92, converged lanes within 5e-3
+     of their centers and every lane within 1e-2, solved share at least
+     0.999; a numpy x0 lands on the card; a Rosenbrock fleet; a wide fleet
+     (n=128, B=4096) that reaches K4b through the dispatcher; one
+     leading-batch update through ops.rank2_update_batched (K4c);
+ 13. BFGS timing: bench_bfgs_fleet per line search (median of 3 after 1
+     warm-up, ABBA order), and K4a, K4b and K4c alone against their twins
      from CUDA events.
+
+Every kernel's line also gives its bound: the larger of its compulsory
+bytes over 3.35 TB/s and its floating-point operations over 67 TFLOP/s
+(f32 outside the tensor cores), computed from the run's shapes.
 
 Prints a JSON line of kernels, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -48,6 +71,33 @@ RTOL = ATOL = 1e-5  # scores: the same terms summed in another order
 TPU_KERNEL = "nlsolver_tpu/ops/de_fused.py:110"
 FLEET_B, FLEET_M = 262144, 32  # the NLLS fleet: fits, points per fit
 SLEEP_CYCLES = 400_000_000     # a device sleep of some 0.2 s ahead of a timed chain
+BFGS_B, BFGS_N = 65536, 16     # the BFGS fleet: bowls, dimensions
+WIDE_B, WIDE_N = 4096, 128     # the wide BFGS fleet, beyond K4a's resident slab
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
+F32_FLOPS = 67e12              # H100 SXM float32 rate outside the tensor cores
+
+
+def bound(nbytes, flops):
+    """The least time the card could take, in ms, and what sets it: every
+    input byte read once and every output byte written once over the
+    memory rate, against the operations over the float32 rate."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def givens_ops(m, n, extra):
+    """Operations of the Givens wavefront on one [m, n] system: per zeroed
+    entry (i, j) some 10 for the coefficients and 6 per rotated column
+    pair, over the n - j columns of R left and ``extra`` more (Q's m
+    columns, or the right-hand side)."""
+    return sum((m - 1 - j) * (10 + 6 * (n - j + extra)) for j in range(min(n, m - 1)))
+
+
+def rank2_bound(n, b, direction=True):
+    """K4's bound in f32: H in and out, the vectors, rho (and reset); some
+    13 n^2 operations a lane with the direction, 11 n^2 without."""
+    words = 2 * n * n + (4 * n if direction else 2 * n) + 1
+    return bound(words * b * 4 + (b if direction else 0), (13 if direction else 11) * n * n * b)
 
 
 def log(msg):
@@ -367,10 +417,12 @@ def phase_qr(torch, dev):
 
 
 def reset_counts():
-    from nlsolver_torch.ops import de_fused, qr_wavefront, smallchol
+    from nlsolver_torch.ops import de_fused, qr_wavefront, rank2, smallchol
 
     for fn in (de_fused.de_generation_fused, qr_wavefront.qr_wavefront_kernel,
-               qr_wavefront.least_squares_wavefront_kernel, smallchol.solve_spd_batchminor):
+               qr_wavefront.least_squares_wavefront_kernel, smallchol.solve_spd_batchminor,
+               rank2.rank2_direction_batchminor_resident,
+               rank2.rank2_direction_batchminor_rowsplit, rank2.rank2_update_batched_kernel):
         fn.launches = 0
 
 
@@ -425,15 +477,17 @@ def phase_nlls_slice(torch, dev):
     return launches
 
 
-def time_alone(torch, fn, reps, device_only):
-    """Time of one call of ``fn`` from CUDA events over ``reps`` chained
-    calls, after warm-up.  With ``device_only`` a device sleep ahead of the
-    start event lets the host queue every call first, so the events see the
-    card's time and not the host's pace (a kernel's wrapper costs some
-    20-40 us of host time per call).  A plain twin issues more eager ops
-    than the launch queue holds, so the host paces it however long the card
-    sleeps: it is timed as a plain chain, its real cost per call."""
-    for _ in range(3):
+def time_alone(torch, fn, reps, device_only, warmup=3, strict=True):
+    """Time of one call of ``fn`` in ms, from CUDA events over ``reps``
+    chained calls, after warm-up.  With ``device_only`` a device sleep ahead
+    of the start event lets the host queue every call first, so the events
+    see the card's time and not the host's pace (a kernel's wrapper costs
+    some 20-40 us of host time per call).  A plain twin runs more eager
+    ops than the launch queue holds, so the host paces it however long the
+    card sleeps: it is timed as a plain chain, its real cost per call.  A
+    library call may wait for the card inside (an error check): with
+    ``strict=False`` the time then stands as that of a chained call."""
+    for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -446,11 +500,20 @@ def time_alone(torch, fn, reps, device_only):
     end.record()
     queued = time.perf_counter() - t0
     torch.cuda.synchronize()
-    if device_only:
+    if device_only and strict:
         slept = time.perf_counter() - t0 - start.elapsed_time(end) / 1e3
         check(queued < slept, f"the host queued for {queued:.3f} s, longer than the card "
               f"slept ({slept:.3f} s): the timing would be the host's")
     return start.elapsed_time(end) / reps
+
+
+def abba(torch, kern, kreps, plain, preps):
+    """(kernel ms, twin ms): plain, kernel, kernel, plain in one go, the
+    least of each pair; the kernel's is device time, the twin's per chained
+    call."""
+    p1, k1, k2, p2 = (time_alone(torch, f, r, device_only=f is kern) for f, r in
+                      ((plain, preps), (kern, kreps), (kern, kreps), (plain, preps)))
+    return (min(k1, k2), min(p1, p2)), (k1, k2, p1, p2)
 
 
 def phase_nlls_timing(torch, dev):
@@ -466,26 +529,43 @@ def phase_nlls_timing(torch, dev):
             f"{r['min_ms']:.3f} ms, {r['fits_per_sec']:.6g} fits/s, solved {r['solved_frac']:.6f}")
     g = torch.Generator(device=dev).manual_seed(9)
     A, y = fleet_system(torch, dev)
-    times = {"K2b": [(lambda: tqw.least_squares_wavefront_kernel(A, y), 50),
-                     (lambda: tqw.least_squares_wavefront_reference(A, y), 5)]}
+    spd = {}
     for n, b in ((2, FLEET_B), (8, 16384)):
         M = torch.randn((b, n, n), generator=g, device=dev)
-        An = (M @ M.transpose(1, 2) + 2.0 * torch.eye(n, device=dev)).permute(1, 2, 0).contiguous()
-        bn = torch.randn((n, b), generator=g, device=dev)
-        times[f"K3 n={n}"] = [(lambda An=An, bn=bn: tsc.solve_spd_batchminor(An, bn), 50),
-                              (lambda An=An, bn=bn: tsc._chol_solve_batchminor(An, bn), 5)]
+        spd[n] = ((M @ M.transpose(1, 2) + 2.0 * torch.eye(n, device=dev))
+                  .permute(1, 2, 0).contiguous(), torch.randn((n, b), generator=g, device=dev))
     Aq = torch.randn((16, 16, 4096), generator=g, device=dev)
-    times["K2a"] = [(lambda: tqw.qr_wavefront_kernel(Aq, compute_q=True), 50),
-                    (lambda: tqw.qr_wavefront_reference(Aq, compute_q=True), 5)]
+    # the one PyTorch call that computes the same function, on the same
+    # systems in the leading-batch layout the library takes
+    Al, yl = A.permute(2, 0, 1).contiguous(), y.t().contiguous()[:, :, None]
+    Aql = Aq.permute(2, 0, 1).contiguous()
+    A2l, b2l = spd[2][0].permute(2, 0, 1).contiguous(), spd[2][1].t().contiguous()[:, :, None]
+    # name: kernel and repeats, twin and repeats, library call
+    times = {
+        "K2b": (lambda: tqw.least_squares_wavefront_kernel(A, y), 50,
+                lambda: tqw.least_squares_wavefront_reference(A, y), 5,
+                lambda: torch.linalg.lstsq(Al, yl)),
+        "K3 n=2": (lambda: tsc.solve_spd_batchminor(*spd[2]), 50,
+                   lambda: tsc._chol_solve_batchminor(*spd[2]), 5,
+                   lambda: torch.cholesky_solve(b2l, torch.linalg.cholesky_ex(A2l).L)),
+        "K3 n=8": (lambda: tsc.solve_spd_batchminor(*spd[8]), 50,
+                   lambda: tsc._chol_solve_batchminor(*spd[8]), 5, None),
+        "K2a": (lambda: tqw.qr_wavefront_kernel(Aq, compute_q=True), 50,
+                lambda: tqw.qr_wavefront_reference(Aq, compute_q=True), 5,
+                lambda: torch.linalg.qr(Aql, mode="complete")),
+    }
     alone = {}
-    for name, ((kern, kreps), (plain, preps)) in times.items():
-        # ABBA: plain, kernel, kernel, plain; the least of each pair
-        p1, k1, k2, p2 = (time_alone(torch, f, r, device_only=f is kern) for f, r in
-                          ((plain, preps), (kern, kreps), (kern, kreps), (plain, preps)))
-        alone[name] = (min(k1, k2), min(p1, p2))
-        log(f"[10] {name} alone: kernel {min(k1, k2) * 1e3:.2f} us of device time, plain twin "
-            f"{min(p1, p2) * 1e3:.2f} us per chained call (CUDA events; kernel "
-            f"{k1 * 1e3:.2f}/{k2 * 1e3:.2f}, twin {p1 * 1e3:.2f}/{p2 * 1e3:.2f})")
+    for name, (kern, kreps, plain, preps, library) in times.items():
+        (k, p), (k1, k2, p1, p2) = abba(torch, kern, kreps, plain, preps)
+        lib = None
+        if library is not None:
+            lib = min(time_alone(torch, library, 5, device_only=True, strict=False)
+                      for _ in range(2))
+        alone[name] = (k, p, lib)
+        log(f"[10] {name} alone: kernel {k * 1e3:.2f} us of device time, plain twin "
+            f"{p * 1e3:.2f} us per chained call (CUDA events; kernel "
+            f"{k1 * 1e3:.2f}/{k2 * 1e3:.2f}, twin {p1 * 1e3:.2f}/{p2 * 1e3:.2f})"
+            + ("" if lib is None else f"; library call {lib * 1e3:.2f} us"))
     for solve, rs in runs.items():
         best = max(rs, key=lambda r: r["fits_per_sec"])
         log(f"[10] fleet {solve}: {best['fits_per_sec']:.6g} fits/s "
@@ -493,9 +573,256 @@ def phase_nlls_timing(torch, dev):
     return alone
 
 
-def kernel_row(name, source, replaces, launches, max_err, ms, plain_ms):
+def rank2_case(torch, dev, n, b, dtype=None, seed=11):
+    """A batch-minor update's inputs on the card: H [n, n, b] symmetric
+    positive definite, s, y, g [n, b], rho [b] in [0.1, 2) with every fifth
+    lane 0 (no curvature), reset [b] on every third lane."""
+    dtype = dtype or torch.float32
+    g = torch.Generator(device=dev).manual_seed(seed)
+    M = torch.randn((b, n, n), generator=g, device=dev, dtype=dtype)
+    H = (M @ M.transpose(1, 2) / n + torch.eye(n, device=dev, dtype=dtype))
+    s, y, grad = (torch.randn((n, b), generator=g, device=dev, dtype=dtype) for _ in range(3))
+    rho = 0.1 + 1.9 * torch.rand(b, generator=g, device=dev, dtype=dtype)
+    lane = torch.arange(b, device=dev)
+    rho[lane % 5 == 0] = 0.0
+    return H.permute(1, 2, 0).contiguous(), s, y, grad, rho, lane % 3 == 0
+
+
+def leading_batch(case):
+    """The same update's inputs in K4c's layout: H [b, n, n], s, y [b, n], rho."""
+    H, s, y, _, rho, _ = case
+    return H.permute(2, 0, 1).contiguous(), s.t().contiguous(), y.t().contiguous(), rho
+
+
+def phase_rank2(torch, dev):
+    from nlsolver_torch.ops import rank2 as tr
+
+    worst = {"K4a": 0.0, "K4b": 0.0, "K4c": 0.0}
+
+    def hold(kid, kernel, twin, args, n, label):
+        """One counted launch of ``kernel`` on ``args`` against ``twin``:
+        within KERNEL_TOL_ULPS * n * eps of the twin's largest entry (the
+        sums run in ascending order, not torch.sum's), bit for bit at n <= 2."""
+        before = kernel.launches
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        check(kernel.launches == before + 1, f"{kid} {label}: no launch counted")
+        want = twin(*args)
+        got, want = ((got,), (want,)) if torch.is_tensor(got) else (got, want)
+        notes = []
+        for what, a, b in zip(("H'", "d'"), got, want):
+            check(bool(torch.isfinite(a).all()), f"{kid} {label}: non-finite {what}")
+            err = max_diff(a, b)
+            limit = (0.0 if n <= 2 else
+                     tr.KERNEL_TOL_ULPS * n * torch.finfo(b.dtype).eps * float(b.abs().max()))
+            check(err <= limit, f"{kid} {label}: {what} differs from the twin by {err:.3e}, "
+                  f"limit {limit:.3e}")
+            worst[kid] = max(worst[kid], err)
+            notes.append(f"max |{what} - twin| {err:.3e} (limit {limit:.3e})")
+        log(f"[11] {kid} {label}: " + ", ".join(notes))
+        return got
+
+    bm_twin = tr.rank2_direction_batchminor_reference
+    resident, rowsplit = tr.rank2_direction_batchminor_resident, tr.rank2_direction_batchminor_rowsplit
+    main = rank2_case(torch, dev, BFGS_N, BFGS_B)
+    Hn, d = hold("K4a", resident, bm_twin, main, BFGS_N, f"[{BFGS_N}, {BFGS_N}, {BFGS_B}] f32")
+    H, rho, reset = main[0], main[4], main[5]
+    kept = (rho == 0) & ~reset
+    check(bool(kept.any()) and torch.equal(Hn[:, :, kept], H[:, :, kept]),
+          "K4a changed H on a lane with rho = 0 and no reset")
+    for n in (1, 2, 8, 33):
+        hold("K4a", resident, bm_twin, rank2_case(torch, dev, n, 16389), n, f"[{n}, {n}, 16389] f32")
+    hold("K4a", resident, bm_twin, rank2_case(torch, dev, 16, 4099, torch.float64), 16,
+         "[16, 16, 4099] f64")
+    hold("K4b", rowsplit, bm_twin, rank2_case(torch, dev, WIDE_N, WIDE_B), WIDE_N,
+         f"[{WIDE_N}, {WIDE_N}, {WIDE_B}] f32")
+    Hn2, d2 = hold("K4b", rowsplit, bm_twin, main, BFGS_N, f"[{BFGS_N}, {BFGS_N}, {BFGS_B}] f32")
+    check(torch.equal(Hn, Hn2) and torch.equal(d, d2),
+          "K4a and K4b differ at n = 16 (both sum in ascending order)")
+    log("[11] K4a == K4b bit for bit at n = 16")
+    hold("K4b", rowsplit, bm_twin, rank2_case(torch, dev, 45, 1001), 45, "[45, 45, 1001] f32")
+    hold("K4b", rowsplit, bm_twin, rank2_case(torch, dev, 45, 1001, torch.float64), 45,
+         "[45, 45, 1001] f64")
+    # the dispatcher: K4a while the slab fits a block's shared memory, K4b beyond
+    for n, kernel in ((40, resident), (41, rowsplit)):
+        before = kernel.launches
+        tr.rank2_direction_batchminor(*rank2_case(torch, dev, n, 257))
+        check(kernel.launches == before + 1, f"the dispatcher did not take {kernel.__name__} at n={n}")
+    batched, b_twin = tr.rank2_update_batched_kernel, tr.rank2_update_batched_reference
+    Hb = hold("K4c", batched, b_twin, leading_batch(main), BFGS_N,
+              f"[{BFGS_B}, {BFGS_N}, {BFGS_N}] f32")[0]
+    # the two layouts hold the same update off the reset lanes
+    check(torch.equal(Hb.permute(1, 2, 0)[:, :, ~reset], Hn[:, :, ~reset]),
+          "K4c differs from K4a on the same update")
+    hold("K4c", batched, b_twin, leading_batch(rank2_case(torch, dev, 64, 4096)), 64,
+         "[4096, 64, 64] f32")
+    hold("K4c", batched, b_twin, leading_batch(rank2_case(torch, dev, 33, 1001, torch.float64)), 33,
+         "[1001, 33, 33] f64")
+    small = rank2_case(torch, dev, 4, 64)
+    half = tuple(t if t.dtype == torch.bool else t.half() for t in small)
+    refused = (
+        ("non-contiguous", tr.rank2_direction_batchminor, (small[0].transpose(0, 1), *small[1:])),
+        ("f16", tr.rank2_direction_batchminor, half),
+        ("non-contiguous", tr.rank2_update_batched,
+         (small[0].permute(2, 1, 0), *leading_batch(small)[1:])),
+        ("f16", tr.rank2_update_batched, leading_batch(half)),
+    )
+    for what, fn, args in refused:
+        try:
+            fn(*args)
+        except ValueError as e:
+            log(f"[11] {fn.__name__} refuses a {what} input: {e}")
+        else:
+            check(False, f"{fn.__name__} took a {what} input")
+    return worst
+
+
+def rank2_counts():
+    from nlsolver_torch.ops import rank2 as tr
+
+    return {"K4a": tr.rank2_direction_batchminor_resident.launches,
+            "K4b": tr.rank2_direction_batchminor_rowsplit.launches,
+            "K4c": tr.rank2_update_batched_kernel.launches}
+
+
+def phase_bfgs_slice(torch, dev):
+    import numpy as np
+
+    import nlsolver_torch
+    from nlsolver_torch import BFGSFleetConfig, ops
+    from nlsolver_torch.benches import bowls_scenario
+
+    def drive(label, fn_cols, x0, cfg, kernel):
+        """One fleet through minimize, counted: ``kernel`` launched once per
+        host step, the other K4 kernels never."""
+        reset_counts()
+        t0 = time.perf_counter()
+        res = nlsolver_torch.minimize(None, x0, method="bfgs", layout="fleet", config=cfg,
+                                      fn_cols=fn_cols)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = rank2_counts()
+        # done.all() is read after every step, and the last lane to finish
+        # halts on step max(iterations) + 1
+        steps = int(res.iterations.max()) + 1
+        its = res.iterations.float()
+        log(f"[12] {label}: {wall:.3f} s, host steps {steps}, launches {counts}, iterations "
+            f"median {float(its.median()):.0f} max {int(its.max())}, converged "
+            f"{float(res.converged.float().mean()):.6f}, f max {float(res.f_value.max()):.3e}")
+        check(res.x.is_cuda and bool(torch.isfinite(res.x).all())
+              and bool(torch.isfinite(res.f_value).all()), f"{label}: x not on the card or non-finite")
+        for k, c in counts.items():
+            want = steps if k == kernel else 0
+            check(c == want, f"{label}: {k} launched {c} times, expected {want} in {steps} host steps")
+        return res, steps
+
+    launches = {}
+    fn_cols, centers, _ = bowls_scenario(BFGS_B, BFGS_N, device=dev)
+    X0 = torch.zeros(BFGS_N, BFGS_B, device=dev)
+    # least converged share per search: the shares this fleet gives (0.988174
+    # and 0.927322, the same lanes as the JAX package in f32), rounded down
+    for ls, least in (("more_thuente", 0.98), ("speculative", 0.92)):
+        res, steps = drive(f"bowls [{BFGS_N}, {BFGS_B}] {ls}", fn_cols, X0,
+                           BFGSFleetConfig(max_iter=30, linesearch=ls), "K4a")
+        err = (res.x - centers).abs().amax(dim=0)
+        off, off_conv = float(err.max()), float(err[res.converged].max())
+        share = float(res.converged.float().mean())
+        solved = float((res.f_value < 1e-4).float().mean())
+        log(f"[12] bowls {ls}: max |x - center| {off_conv:.3e} on converged lanes (limit 5e-3), "
+            f"{off:.3e} on all (limit 1e-2), converged {share:.6f} (limit {least}), solved "
+            f"{solved:.6f} (limit 0.999), function calls median "
+            f"{float(res.function_calls.float().median()):.0f}")
+        check(tuple(res.x.shape) == (BFGS_N, BFGS_B), "misshapen x")
+        # every lane halts by a tolerance, not by max_iter: grad_norm <
+        # grad_eps (``converged``; with scales >= 0.5 that puts x within 5e-3
+        # of the center), or a gradient norm that moved by less than grad_eps
+        # (the reference's second stopping rule; in f32 it stops these lanes
+        # in the JAX package too).  A lane stopped so lies within 1e-2
+        check(int(res.iterations.max()) < 30, f"bowls {ls}: a lane ran into max_iter")
+        check(share >= least, f"bowls {ls}: converged share {share} below {least}")
+        check(off_conv < 5e-3 and off < 1e-2, f"bowls {ls}: lanes off their centers")
+        check(solved >= 0.999 and float(res.f_value.max()) < 1e-3,
+              f"bowls {ls}: solved share {solved} below 0.999 or a lane far off")
+        launches.setdefault("K4a", steps)  # the default search's run
+
+    # a start that is no tensor lands on the card
+    small_cols, small_centers, _ = bowls_scenario(256, BFGS_N, seed=1, device=dev)
+    res, _ = drive("numpy x0 [16, 256]", small_cols, np.zeros((BFGS_N, 256), np.float32),
+                   BFGSFleetConfig(max_iter=30), "K4a")
+    check(float((res.x - small_centers).abs().max()) < 1.42e-2, "numpy x0: a lane is off its center")
+
+    B = 64
+    starts = torch.stack([torch.full((B,), -0.5), torch.linspace(-1.0, 1.0, B)]).to(dev)
+    res, _ = drive("Rosenbrock [2, 64]", lambda X: 100.0 * (X[0] ** 2 - X[1]) ** 2 + (X[0] - 1.0) ** 2,
+                   starts, BFGSFleetConfig(max_iter=100, grad_eps=1e-5), "K4a")
+    check(float(res.f_value.max()) < 1e-6 and float((res.x - 1.0).abs().max()) < 1e-2,
+          "the Rosenbrock fleet did not reach (1, 1)")
+
+    wide_cols, wide_centers, _ = bowls_scenario(WIDE_B, WIDE_N, seed=2, device=dev)
+    res, steps = drive(f"wide bowls [{WIDE_N}, {WIDE_B}]", wide_cols,
+                       torch.zeros(WIDE_N, WIDE_B, device=dev), BFGSFleetConfig(max_iter=30), "K4b")
+    off = float((res.x - wide_centers).abs().max())
+    log(f"[12] wide bowls: max |x - center| {off:.3e}, converged "
+        f"{float(res.converged.float().mean()):.6f}")
+    check(off < 5e-2, "the wide fleet is far off its centers")
+    launches["K4b"] = steps
+
+    # K4c's path: the public leading-batch update (no solver calls it)
+    args = leading_batch(rank2_case(torch, dev, BFGS_N, BFGS_B, seed=12))
+    reset_counts()
+    out = ops.rank2_update_batched(*args)
+    torch.cuda.synchronize()
+    counts = rank2_counts()
+    check(counts == {"K4a": 0, "K4b": 0, "K4c": 1}, f"ops.rank2_update_batched launched {counts}")
+    check(tuple(out.shape) == (BFGS_B, BFGS_N, BFGS_N) and bool(torch.isfinite(out).all()),
+          "ops.rank2_update_batched: non-finite or misshapen")
+    log(f"[12] ops.rank2_update_batched [{BFGS_B}, {BFGS_N}, {BFGS_N}]: launches {counts}")
+    launches["K4c"] = counts["K4c"]
+    return launches
+
+
+def phase_bfgs_timing(torch, dev):
+    from nlsolver_torch.benches import bench_bfgs_fleet
+    from nlsolver_torch.ops import rank2 as tr
+
+    runs = {}
+    for ls in ("more_thuente", "speculative", "speculative", "more_thuente"):
+        r = bench_bfgs_fleet(runs=3, linesearch=ls)
+        runs.setdefault(ls, []).append(r)
+        log(f"[13] {r['name']}: median {r['median_ms']:.3f} ms / {r['host_steps']} steps, "
+            f"min {r['min_ms']:.3f} ms, {r['iters_per_sec']:.6g} instance iterations/s, "
+            f"solved {r['solved_frac']:.6f}, converged {r['converged_frac']:.6f}")
+
+    main = rank2_case(torch, dev, BFGS_N, BFGS_B)
+    wide = rank2_case(torch, dev, WIDE_N, WIDE_B)
+    lead = leading_batch(main)
+    bm_twin = tr.rank2_direction_batchminor_reference
+    times = {
+        "K4a": (lambda: tr.rank2_direction_batchminor_resident(*main), lambda: bm_twin(*main)),
+        "K4b": (lambda: tr.rank2_direction_batchminor_rowsplit(*wide), lambda: bm_twin(*wide)),
+        "K4b n=16": (lambda: tr.rank2_direction_batchminor_rowsplit(*main), lambda: bm_twin(*main)),
+        "K4c": (lambda: tr.rank2_update_batched_kernel(*lead),
+                lambda: tr.rank2_update_batched_reference(*lead)),
+    }
+    alone = {}
+    for name, (kern, plain) in times.items():
+        (k, p), (k1, k2, p1, p2) = abba(torch, kern, 30, plain, 5)
+        alone[name] = (k, p, None)  # no single PyTorch call computes the update
+        log(f"[13] {name} alone: kernel {k * 1e3:.2f} us of device time, plain twin "
+            f"{p * 1e3:.2f} us per chained call (CUDA events; kernel "
+            f"{k1 * 1e3:.2f}/{k2 * 1e3:.2f}, twin {p1 * 1e3:.2f}/{p2 * 1e3:.2f})")
+    for ls, rs in runs.items():
+        best = max(rs, key=lambda r: r["iters_per_sec"])
+        log(f"[13] fleet {ls}: {best['iters_per_sec']:.6g} instance iterations/s "
+            f"({best['median_ms']:.3f} ms per run of {BFGS_B} lanes, {best['host_steps']} host steps)")
+    return alone
+
+
+def kernel_row(name, source, replaces, launches, max_err, times, bound_ms_by):
+    ms, plain_ms, library_ms = times
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+            "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms_by[0], "bound_by": bound_ms_by[1], "library_ms": library_ms}
 
 
 def main():
@@ -509,22 +836,43 @@ def main():
     max_err = phase_injected(torch, dev)
     phase_philox(torch, dev)
     launches = phase_slice(torch, dev)
-    ms, plain_ms = phase_timing(torch, dev)
+    de_times = phase_timing(torch, dev)
     chol_err = phase_smallchol(torch, dev)
     qr_err, qr_launches = phase_qr(torch, dev)
     fleet_launches = phase_nlls_slice(torch, dev)
     alone = phase_nlls_timing(torch, dev)
+    rank2_err = phase_rank2(torch, dev)
+    bfgs_launches = phase_bfgs_slice(torch, dev)
+    alone.update(phase_bfgs_timing(torch, dev))
+    m = FLEET_M + 2  # rows of the NLLS fleet's augmented system [J; sqrt(lam) I]
+    csrc, tpu = "nlsolver_torch/csrc/", "nlsolver_tpu/ops/"
     print(json.dumps({"kernels": [
-        kernel_row("de_generation_fused", "nlsolver_torch/csrc/de_fused.cu", TPU_KERNEL,
-                   launches, max_err, ms, plain_ms),
-        kernel_row("qr_wavefront_kernel", "nlsolver_torch/csrc/qr_wavefront.cu",
-                   "nlsolver_tpu/ops/qr_wavefront.py:150", qr_launches, qr_err, *alone["K2a"]),
-        kernel_row("least_squares_wavefront_kernel", "nlsolver_torch/csrc/qr_wavefront.cu",
-                   "nlsolver_tpu/ops/qr_wavefront.py:207", fleet_launches["qr_pallas"], qr_err,
-                   *alone["K2b"]),
-        kernel_row("solve_spd_batchminor", "nlsolver_torch/csrc/smallchol.cu",
-                   "nlsolver_tpu/ops/smallchol.py:101", fleet_launches["cholesky"], chol_err,
-                   *alone["K3 n=2"]),
+        # agents in and out, scores in and out, the active mask; some 30
+        # operations a coordinate (mutation, crossover, a Rastrigin term)
+        kernel_row("de_generation_fused", csrc + "de_fused.cu", TPU_KERNEL, launches, max_err,
+                   (*de_times, None),
+                   bound((2 * N * P + 2 * P) * B * 4 + B, 30 * N * P * B)),
+        # A in, R and Q out
+        kernel_row("qr_wavefront_kernel", csrc + "qr_wavefront.cu", tpu + "qr_wavefront.py:150",
+                   qr_launches, qr_err, alone["K2a"],
+                   bound(3 * 16 * 16 * 4096 * 4, givens_ops(16, 16, 16) * 4096)),
+        # A and y in, x out
+        kernel_row("least_squares_wavefront_kernel", csrc + "qr_wavefront.cu",
+                   tpu + "qr_wavefront.py:207", fleet_launches["qr_pallas"], qr_err, alone["K2b"],
+                   bound((m * 2 + m + 2) * FLEET_B * 4, givens_ops(m, 2, 1) * FLEET_B)),
+        # A and b in, x out; n^3 / 3 + 2 n^2 operations a lane at n = 2
+        kernel_row("solve_spd_batchminor", csrc + "smallchol.cu", tpu + "smallchol.py:101",
+                   fleet_launches["cholesky"], chol_err, alone["K3 n=2"],
+                   bound(8 * FLEET_B * 4, 11 * FLEET_B)),
+        kernel_row("rank2_direction_batchminor_resident", csrc + "rank2.cu", tpu + "rank2.py:280",
+                   bfgs_launches["K4a"], rank2_err["K4a"], alone["K4a"],
+                   rank2_bound(BFGS_N, BFGS_B)),
+        kernel_row("rank2_direction_batchminor_rowsplit", csrc + "rank2.cu", tpu + "rank2.py:214",
+                   bfgs_launches["K4b"], rank2_err["K4b"], alone["K4b"],
+                   rank2_bound(WIDE_N, WIDE_B)),
+        kernel_row("rank2_update_batched_kernel", csrc + "rank2.cu", tpu + "rank2.py:66",
+                   bfgs_launches["K4c"], rank2_err["K4c"], alone["K4c"],
+                   rank2_bound(BFGS_N, BFGS_B, direction=False)),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

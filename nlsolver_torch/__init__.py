@@ -2,7 +2,10 @@
 
 Ported so far: the batched Differential Evolution fleet
 (``minimize(fn, x0[B, n], method="de", layout="batched")``) with its fused
-generation kernel (``ops.de_fused``), and nonlinear least squares (``fit``,
+generation kernel (``ops.de_fused``), the batch-minor BFGS fleet
+(``minimize(fn, x0[n, B], method="bfgs", layout="fleet")``) with its line
+searches (``linesearch``) and its rank-2 update + direction kernels
+(``ops.rank2``), and nonlinear least squares (``fit``,
 ``fit_batched``, ``curve_fit`` and the batch-minor ``fit_fleet``) with the
 wavefront QR / least-squares kernels (``ops.qr_wavefront``) and the
 batch-minor Cholesky solve (``ops.smallchol``); the kernels are CUDA C++
@@ -12,11 +15,13 @@ from .api import (curve_fit, fit, fit_batched, fit_fleet, fit_fleet_sharded, fit
                   maximize, minimize)
 from .core import SolverResult
 from .problems import PROBLEMS
+from .solvers.bfgs_fleet import BFGSFleetConfig
 from .solvers.de import DEConfig
 from .solvers.nlls import NLLSConfig
 from .solvers.nlls_fleet import NLLSFleetConfig
 
 __all__ = [
+    "BFGSFleetConfig",
     "DEConfig",
     "NLLSConfig",
     "NLLSFleetConfig",

@@ -2,9 +2,15 @@
 
     result = nlsolver_torch.minimize(fn, x0[B, n], method="de", layout="batched")
 
-``minimize`` routes only the batched Differential Evolution fleet
-(``solvers.de_batched``) so far; every other method or layout raises
+    result = nlsolver_torch.minimize(fn, x0[n, B], method="bfgs", layout="fleet")
+
+``minimize`` routes the batched Differential Evolution fleet
+(``solvers.de_batched``) and the batch-minor BFGS fleet
+(``solvers.bfgs_fleet``) so far; every other method or layout raises
 ``NotImplementedError`` naming the ROADMAP.md queue item that ports it.
+Start points that are a ``torch.Tensor`` keep their device (a CPU tensor
+asks for the CPU); anything else goes to the CUDA card, and raises when
+there is none.
 Nonlinear least squares is ``fit`` / ``fit_batched`` / ``curve_fit``
 (re-exported from ``solvers.nlls``) plus ``fit_fleet``, the batch-minor
 lane fleet with its ``solve`` backends (solvers/nlls_fleet.py).
@@ -15,8 +21,9 @@ from typing import Optional
 
 import torch
 
-from .core import Bounds, SolverResult
-from .solvers import de_batched
+from .core import Bounds, SolverResult, signed
+from .solvers import bfgs_fleet, de_batched
+from .solvers.bfgs_fleet import BFGSFleetConfig
 from .solvers.de import DEConfig
 from .solvers.nlls import NLLSConfig, curve_fit, fit, fit_batched  # noqa: F401
 from .solvers.nlls_fleet import NLLSFleetConfig, fit_fleet  # noqa: F401
@@ -29,23 +36,57 @@ _NOT_YET = {
     ("pso_batched", "batched"): "Queue 1 item 2 (lane fleets for PSO and SANN)",
     ("sann", "batched"): "Queue 1 item 2 (lane fleets for PSO and SANN)",
     ("sann_batched", "batched"): "Queue 1 item 2 (lane fleets for PSO and SANN)",
-    ("bfgs", "fleet"): "Queue 1 item 4 (BFGS fleet and root finders)",
-    ("bfgs_fleet", "fleet"): "Queue 1 item 4 (BFGS fleet and root finders)",
     ("cmaes", "fleet"): "Queue 1 item 5 (CMA-ES fleet)",
     ("cmaes_fleet", "fleet"): "Queue 1 item 5 (CMA-ES fleet)",
 }
 
 
+def start_points(x0) -> torch.Tensor:
+    """Start points as a tensor: a ``torch.Tensor`` keeps its device;
+    anything else (a numpy array, a list) goes to the CUDA card."""
+    if isinstance(x0, torch.Tensor):
+        return x0
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "x0 is not a torch.Tensor and there is no CUDA card to put it on; "
+            "nlsolver_torch runs on the card unless x0 is a CPU torch.Tensor"
+        )
+    return torch.as_tensor(x0, device="cuda")
+
+
+def _bfgs_fleet(fn, x0, config, bounds, _minimize, kwargs):
+    if bounds is not None:
+        raise ValueError(
+            "the BFGS fleet is unconstrained; use method='lbfgsb' for box constraints"
+        )
+    x0 = start_points(x0)
+    if x0.ndim != 2:
+        raise ValueError(f"layout='fleet' expects a 2-D x0, got {tuple(x0.shape)}")
+    fn_cols = kwargs.pop("fn_cols", None)
+    if fn_cols is None:
+        # lift a single-point objective to the [n, B] -> [B] column form
+        fn_cols = bfgs_fleet.colwise(signed(fn, _minimize))
+    elif not _minimize:
+        # an explicit fn_cols bypasses the signed() wrapper: negate it here
+        user_cols = fn_cols
+        fn_cols = lambda X: -user_cols(X)  # noqa: E731
+    cfg = config if config is not None else BFGSFleetConfig()
+    res = bfgs_fleet.minimize_fleet(fn_cols, x0, cfg, **kwargs)
+    return res if _minimize else res._replace(f_value=-res.f_value)
+
+
 def _dispatch(fn, x0, method, config, bounds, generator, layout, _minimize, kwargs):
     if layout not in _LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; one of {_LAYOUTS}")
+    if layout == "fleet" and method in ("bfgs", "bfgs_fleet"):
+        return _bfgs_fleet(fn, x0, config, bounds, _minimize, kwargs)
     if layout == "batched" and method in ("de", "de_batched"):
         if bounds is not None:
             raise ValueError(
                 "the lane-axis DE engine is unbounded; bounded batches wait "
                 "for the single-instance DE solver (ROADMAP.md Queue 1 item 6)"
             )
-        x0 = torch.as_tensor(x0)
+        x0 = start_points(x0)
         if x0.ndim != 2:
             raise ValueError(f"layout='batched' expects a 2-D x0, got {tuple(x0.shape)}")
         cfg = config if config is not None else DEConfig()
@@ -63,7 +104,7 @@ def _dispatch(fn, x0, method, config, bounds, generator, layout, _minimize, kwar
     raise NotImplementedError(
         f"method={method!r} with layout={layout!r} is not ported to "
         f"nlsolver_torch yet; ROADMAP.md {where} ports it. Ported: "
-        "method='de' with layout='batched'"
+        "method='de' with layout='batched', method='bfgs' with layout='fleet'"
     )
 
 

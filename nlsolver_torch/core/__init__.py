@@ -2,7 +2,7 @@ from .driver import drive, drive_fleet_scan, drive_scan
 from .objective import (Bounds, Objective, batch_eval, resolve_bounds, signed,
                         with_eval_dtype)
 from .result import SolverResult, make_result
-from .utils import clamp, max_abs, std_err, where_lanes
+from .utils import clamp, lane_where, max_abs, std_err, where_lanes
 
 __all__ = [
     "Bounds",
@@ -13,6 +13,7 @@ __all__ = [
     "drive",
     "drive_fleet_scan",
     "drive_scan",
+    "lane_where",
     "make_result",
     "max_abs",
     "resolve_bounds",

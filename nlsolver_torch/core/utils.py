@@ -50,6 +50,16 @@ def where_lanes(pred: torch.Tensor, on_true: T, on_false: T) -> T:
     return type(on_false)(*out)
 
 
+def lane_where(pred: torch.Tensor, on_true: T, on_false: T) -> T:
+    """Lane-wise select over a NamedTuple state whose tensor fields END
+    with the lane axis (the batch-minor fleets: x ``[n, B]``, matrices
+    ``[n, n, B]``, per-lane scalars ``[B]``); ``pred`` is ``[B]``."""
+    def pick(a, b):
+        return torch.where(pred.reshape((1,) * (b.ndim - 1) + (-1,)), a, b)
+
+    return type(on_false)(*(pick(a, b) for a, b in zip(on_true, on_false)))
+
+
 def clamp(x: torch.Tensor, lower, upper) -> torch.Tensor:
     """Clamp to box bounds (reference: simplex_transform's std::clamp,
     nlsolver.h:2002-2004)."""

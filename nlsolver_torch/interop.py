@@ -6,13 +6,16 @@ state._asdict().items()}``) and builds the port's state; the per-lane
 ``keys`` have no counterpart and are dropped.  ``de_state_to_numpy`` gives
 the tensor fields back.  ``nlls_fleet_state_from_numpy`` and
 ``nlls_fleet_state_to_numpy`` do the same for the NLLS fleet's
-``NLLSFleetState``, field for field.  None of them imports JAX.
+``NLLSFleetState``, and ``bfgs_fleet_state_from_numpy`` and
+``bfgs_fleet_state_to_numpy`` for the BFGS fleet's ``BFGSFleetState``,
+field for field.  None of them imports JAX.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .solvers.bfgs_fleet import BFGSFleetState
 from .solvers.de_batched import DEBatchState
 from .solvers.nlls_fleet import NLLSFleetState
 
@@ -38,14 +41,28 @@ def de_state_to_numpy(state: DEBatchState) -> dict:
     return {f: getattr(state, f).detach().cpu().numpy() for f in _TENSOR_FIELDS}
 
 
-def nlls_fleet_state_from_numpy(fields: dict, device) -> NLLSFleetState:
-    missing = [f for f in NLLSFleetState._fields if f not in fields]
+def _state_from_numpy(cls, what: str, fields: dict, device):
+    missing = [f for f in cls._fields if f not in fields]
     if missing:
-        raise ValueError(f"NLLS fleet state is missing fields {missing}")
-    return NLLSFleetState(*(
-        torch.as_tensor(np.array(fields[f]), device=device) for f in NLLSFleetState._fields
-    ))
+        raise ValueError(f"{what} state is missing fields {missing}")
+    return cls(*(torch.as_tensor(np.array(fields[f]), device=device) for f in cls._fields))
+
+
+def _state_to_numpy(state) -> dict:
+    return {f: getattr(state, f).detach().cpu().numpy() for f in state._fields}
+
+
+def nlls_fleet_state_from_numpy(fields: dict, device) -> NLLSFleetState:
+    return _state_from_numpy(NLLSFleetState, "NLLS fleet", fields, device)
 
 
 def nlls_fleet_state_to_numpy(state: NLLSFleetState) -> dict:
-    return {f: getattr(state, f).detach().cpu().numpy() for f in NLLSFleetState._fields}
+    return _state_to_numpy(state)
+
+
+def bfgs_fleet_state_from_numpy(fields: dict, device) -> BFGSFleetState:
+    return _state_from_numpy(BFGSFleetState, "BFGS fleet", fields, device)
+
+
+def bfgs_fleet_state_to_numpy(state: BFGSFleetState) -> dict:
+    return _state_to_numpy(state)

@@ -5,6 +5,17 @@ from .qr_wavefront import (
     qr_wavefront_kernel,
     qr_wavefront_reference,
 )
+from .rank2 import (
+    rank2_direction_batchminor,
+    rank2_direction_batchminor_kernel,
+    rank2_direction_batchminor_reference,
+    rank2_direction_batchminor_resident,
+    rank2_direction_batchminor_rowsplit,
+    rank2_update_batched,
+    rank2_update_batched_kernel,
+    rank2_update_batched_reference,
+    rank2_update_reference,
+)
 from .smallchol import (
     solve_spd_batched,
     solve_spd_batched_kernel,
@@ -18,6 +29,15 @@ __all__ = [
     "least_squares_wavefront_reference",
     "qr_wavefront_kernel",
     "qr_wavefront_reference",
+    "rank2_direction_batchminor",
+    "rank2_direction_batchminor_kernel",
+    "rank2_direction_batchminor_reference",
+    "rank2_direction_batchminor_resident",
+    "rank2_direction_batchminor_rowsplit",
+    "rank2_update_batched",
+    "rank2_update_batched_kernel",
+    "rank2_update_batched_reference",
+    "rank2_update_reference",
     "solve_spd_batched",
     "solve_spd_batched_kernel",
     "solve_spd_batchminor",

@@ -1,0 +1,227 @@
+"""Batched BFGS rank-2 inverse-Hessian update, with the update as CUDA
+kernels (``csrc/rank2.cu``).
+
+Counterpart of ``nlsolver_tpu.ops.rank2``.  For B instances at once
+
+    H'_b = H_b - rho_b (s_b (H_b y_b)^T + (H_b y_b) s_b^T)
+               + rho_b (1 + rho_b y_b^T H_b y_b) s_b s_b^T
+
+* ``rank2_direction_batchminor(H [n, n, B], s, y, g [n, B], rho [B],
+  reset [B] bool)`` is the BFGS fleet's call site: it returns ``(H', d' =
+  -H' g)`` with the identity in place of H on ``reset`` lanes.  On CUDA
+  tensors it launches a kernel, on CPU tensors it runs the plain twin
+  ``rank2_direction_batchminor_reference``.  The kernel is K4a
+  (``rank2_direction_batchminor_resident``: one launch, H read once, its
+  slab staged in shared memory) for every n whose slab fits, and K4b
+  (``rank2_direction_batchminor_rowsplit``: Hy and the coefficient in a
+  first pass, then a row-local pass, H read twice) beyond;
+  ``rank2_direction_batchminor_kernel`` picks between them by n and dtype.
+* ``rank2_update_batched(H [B, n, n], s, y [B, n], rho [B])`` is the
+  leading-batch update alone: kernel K4c (``rank2_update_batched_kernel``)
+  on CUDA tensors, the twin ``rank2_update_batched_reference`` on CPU
+  tensors.
+* ``rank2_update_reference`` is the single-instance formulation.
+
+The kernels sum in ascending index order with every operation rounded on
+its own, which is not ``torch.sum``'s order: they agree with the twins to a
+few ulp times n relative to max|H'| and max|d'| (``KERNEL_TOL_ULPS``), and
+bit for bit where n <= 2.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+
+# shared memory a block may opt in to on sm_90, and K4a's tile of lanes
+MAX_DYNAMIC_SMEM = 232448
+RESIDENT_TILE = 32
+# kernel against twin: |diff| <= KERNEL_TOL_ULPS * n * eps * max|twin|
+KERNEL_TOL_ULPS = 2
+
+
+def rank2_update_reference(H, s, y, rho):
+    """Single-instance update: H [n, n]; s, y [n]; rho scalar."""
+    Hy = H @ y
+    yHy = torch.dot(y, Hy)
+    coef = rho * (1.0 + rho * yHy)
+    sym = torch.outer(s, Hy) + torch.outer(Hy, s)
+    return H - rho * sym + coef * torch.outer(s, s)
+
+
+def rank2_update_batched_reference(H, s, y, rho):
+    """Plain twin of K4c: [B, n, n], [B, n], [B, n], [B] -> [B, n, n]."""
+    Hy = (H * y[:, None, :]).sum(dim=2)                     # [B, n]
+    yHy = (y * Hy).sum(dim=1)                               # [B]
+    coef = rho * (1.0 + rho * yHy)
+    sym = s[:, :, None] * Hy[:, None, :] + Hy[:, :, None] * s[:, None, :]
+    return H - rho[:, None, None] * sym + coef[:, None, None] * (s[:, :, None] * s[:, None, :])
+
+
+def rank2_direction_batchminor_reference(H, s, y, g, rho, reset):
+    """Plain twin of K4a and K4b: returns (H', d' = -H' g).
+
+    H [n, n, B]; s, y, g [n, B]; rho [B]; reset [B] bool (use the identity
+    in place of H before updating)."""
+    n = H.shape[0]
+    eye = torch.eye(n, dtype=H.dtype, device=H.device)[:, :, None]
+    Heff = torch.where(reset[None, None, :], eye, H)
+    Hy = (Heff * y[None, :, :]).sum(dim=1)                  # [n, B]
+    yHy = (y * Hy).sum(dim=0)                               # [B]
+    coef = rho * (1.0 + rho * yHy)
+    sym = s[:, None, :] * Hy[None, :, :] + Hy[:, None, :] * s[None, :, :]
+    Hn = Heff - rho[None, None, :] * sym + coef[None, None, :] * (s[:, None, :] * s[None, :, :])
+    d = -(Hn * g[None, :, :]).sum(dim=1)                    # [n, B]
+    return Hn, d
+
+
+def resident_fits(n: int, dtype: torch.dtype) -> bool:
+    """Whether K4a's slab, [n, n] of H plus s, y, g and Hy for a tile of
+    ``RESIDENT_TILE`` lanes, fits a block's shared memory: n <= 40 in
+    float32, n <= 28 in float64."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return (n * n + 4 * n) * RESIDENT_TILE * itemsize <= MAX_DYNAMIC_SMEM
+
+
+def batched_fits(n: int, dtype: torch.dtype) -> bool:
+    """Whether one instance of K4c (H with padded rows, s, y, Hy) fits a
+    block's shared memory: n <= 239 in float32, n <= 168 in float64."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return (n * (n + 1) + 3 * n) * itemsize <= MAX_DYNAMIC_SMEM
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher(name: str, n_pointers: int):
+    fn = getattr(_build.load_library(), name)
+    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(name, tensors, n, B):
+    first = tensors[0]
+    with torch.cuda.device(first.device):
+        stream = torch.cuda.current_stream(first.device).cuda_stream
+        err = _launcher(f"{name}_{_build.DTYPE_SUFFIX[first.dtype]}", len(tensors))(
+            *(t.data_ptr() for t in tensors), n, B, stream
+        )
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+
+
+def _check_batchminor(name, H, s, y, g, rho, reset):
+    if H.ndim != 3 or H.shape[0] != H.shape[1] or H.shape[0] < 1:
+        raise ValueError(f"{name}: H must be [n, n, B], got {tuple(H.shape)}")
+    n, _, B = H.shape
+    for what, v in (("s", s), ("y", y), ("g", g)):
+        if tuple(v.shape) != (n, B):
+            raise ValueError(f"{name}: {what} must be [n, B]={n, B}, got {tuple(v.shape)}")
+    for what, v in (("rho", rho), ("reset", reset)):
+        if tuple(v.shape) != (B,):
+            raise ValueError(f"{name}: {what} must be [B]={(B,)}, got {tuple(v.shape)}")
+    if reset.dtype != torch.bool:
+        raise ValueError(f"{name}: reset must be bool, got {reset.dtype}")
+    return n, B
+
+
+def _check_cuda_batchminor(name, H, s, y, g, rho, reset):
+    n, B = _check_batchminor(name, H, s, y, g, rho, reset)
+    _build.check_cuda_inputs(name, {"H": H, "s": s, "y": y, "g": g, "rho": rho})
+    if reset.device != H.device:
+        raise ValueError(f"{name}: reset is on {reset.device}, expected {H.device}")
+    if not reset.is_contiguous():
+        raise ValueError(f"{name}: reset must be contiguous")
+    return n, B
+
+
+def rank2_direction_batchminor_resident(H, s, y, g, rho, reset):
+    """Kernel K4a on CUDA tensors (float32 or float64, contiguous): one
+    launch, H read once.  Raises where the slab does not fit
+    (``resident_fits``)."""
+    name = "rank2_direction_batchminor_resident"
+    n, B = _check_cuda_batchminor(name, H, s, y, g, rho, reset)
+    if not resident_fits(n, H.dtype):
+        raise ValueError(f"{name}: n={n} in {H.dtype} does not fit the shared memory of a block; "
+                         "rank2_direction_batchminor_rowsplit takes it")
+    Hn, d = torch.empty_like(H), torch.empty_like(g)
+    _launch("rank2_resident", (H, s, y, g, rho, reset, Hn, d), n, B)
+    rank2_direction_batchminor_resident.launches += 1
+    return Hn, d
+
+
+rank2_direction_batchminor_resident.launches = 0
+
+
+def rank2_direction_batchminor_rowsplit(H, s, y, g, rho, reset):
+    """Kernel K4b on CUDA tensors (float32 or float64, contiguous), any n:
+    Hy [n, B] and the coefficient [B] into scratch, then the row-local
+    update; three launches on the current stream, counted as one."""
+    name = "rank2_direction_batchminor_rowsplit"
+    n, B = _check_cuda_batchminor(name, H, s, y, g, rho, reset)
+    Hn, d = torch.empty_like(H), torch.empty_like(g)
+    Hy, coef = torch.empty_like(y), torch.empty_like(rho)
+    _launch("rank2_rowsplit", (H, s, y, g, rho, reset, Hy, coef, Hn, d), n, B)
+    rank2_direction_batchminor_rowsplit.launches += 1
+    return Hn, d
+
+
+rank2_direction_batchminor_rowsplit.launches = 0
+
+
+def rank2_direction_batchminor_kernel(H, s, y, g, rho, reset):
+    """K4a where its slab fits a block's shared memory, else K4b."""
+    if H.ndim == 3 and resident_fits(H.shape[0], H.dtype):
+        return rank2_direction_batchminor_resident(H, s, y, g, rho, reset)
+    return rank2_direction_batchminor_rowsplit(H, s, y, g, rho, reset)
+
+
+def rank2_direction_batchminor(H, s, y, g, rho, reset):
+    """(H', d' = -H' g) on the batch-minor layout: a kernel on CUDA
+    tensors, the plain twin on CPU tensors."""
+    tensors = (H, s, y, g, rho, reset)
+    if all(t.device.type == "cpu" for t in tensors):
+        _check_batchminor("rank2_direction_batchminor", *tensors)
+        return rank2_direction_batchminor_reference(*tensors)
+    return rank2_direction_batchminor_kernel(*tensors)
+
+
+def rank2_update_batched_kernel(H, s, y, rho):
+    """Kernel K4c on CUDA tensors (float32 or float64, contiguous):
+    H [B, n, n]; s, y [B, n]; rho [B] -> H' [B, n, n]."""
+    name = "rank2_update_batched_kernel"
+    B, n = _check_batched(name, H, s, y, rho)
+    _build.check_cuda_inputs(name, {"H": H, "s": s, "y": y, "rho": rho})
+    if not batched_fits(n, H.dtype):
+        raise ValueError(f"{name}: n={n} in {H.dtype} does not fit the shared memory of a block")
+    Hn = torch.empty_like(H)
+    _launch("rank2_batched", (H, s, y, rho, Hn), n, B)
+    rank2_update_batched_kernel.launches += 1
+    return Hn
+
+
+rank2_update_batched_kernel.launches = 0
+
+
+def _check_batched(name, H, s, y, rho):
+    if H.ndim != 3 or H.shape[1] != H.shape[2] or H.shape[1] < 1:
+        raise ValueError(f"{name}: H must be [B, n, n], got {tuple(H.shape)}")
+    B, n, _ = H.shape
+    for what, v in (("s", s), ("y", y)):
+        if tuple(v.shape) != (B, n):
+            raise ValueError(f"{name}: {what} must be [B, n]={B, n}, got {tuple(v.shape)}")
+    if tuple(rho.shape) != (B,):
+        raise ValueError(f"{name}: rho must be [B]={(B,)}, got {tuple(rho.shape)}")
+    return B, n
+
+
+def rank2_update_batched(H, s, y, rho):
+    """The leading-batch update: kernel K4c on CUDA tensors, the plain twin
+    on CPU tensors."""
+    tensors = (H, s, y, rho)
+    if all(t.device.type == "cpu" for t in tensors):
+        _check_batched("rank2_update_batched", *tensors)
+        return rank2_update_batched_reference(*tensors)
+    return rank2_update_batched_kernel(*tensors)

@@ -31,6 +31,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 from torch.func import jacfwd, vmap
 
+from ..core import lane_where as _lane_where
 from ..core import make_result
 from ..linalg.qr_parallel import least_squares_parallel
 from ..ops.qr_wavefront import least_squares_wavefront_kernel
@@ -73,14 +74,6 @@ class NLLSFleetState(NamedTuple):
     jev: torch.Tensor        # [B] int32
     done: torch.Tensor       # [B] bool
     converged: torch.Tensor  # [B] bool
-
-
-def _lane_where(pred, a, b):
-    """Lane-wise select over states whose fields END with the lane axis."""
-    def pick(x, y):
-        return torch.where(pred.reshape((1,) * (y.ndim - 1) + (-1,)), x, y)
-
-    return type(b)(*(pick(x, y) for x, y in zip(a, b)))
 
 
 def _residuals_bm(residual_fn, X, data):

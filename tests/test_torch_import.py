@@ -39,6 +39,14 @@ SCRIPT = textwrap.dedent(
         assert bool(res.converged.all()), solve
     res = nt.fit(lambda x: x - 3.0, torch.zeros(2, dtype=torch.float64))
     assert abs(float(res.x.sum()) - 6.0) < 1e-9
+    # the BFGS slice: line searches, the rank-2 kernels' CPU route, the api route
+    import nlsolver_torch.linesearch, nlsolver_torch.solvers.bfgs_fleet  # noqa: F401
+    from nlsolver_torch.ops import rank2  # noqa: F401
+    for ls in ("more_thuente", "speculative"):
+        res = nt.minimize(lambda x: ((x - 0.5) ** 2).sum(), torch.zeros(3, 4, dtype=torch.float64),
+                          method="bfgs", layout="fleet",
+                          config=nt.BFGSFleetConfig(max_iter=20, linesearch=ls))
+        assert float((res.x - 0.5).abs().max()) < 1e-2, ls
     assert not any(m == "jax" or m.startswith(("jax.", "nlsolver_tpu"))
                    for m in sys.modules if sys.modules[m] is not None)
     print("ok")
