@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of nlsolver_torch on one CUDA card: builds the kernels, holds
-each against its plain PyTorch twin, drives the batched-DE fleet and the
-BFGS fleet through ``nlsolver_torch.minimize`` and the NLLS fleet through
-``nlsolver_torch.fit_fleet`` at full size, and times them.
+each against its plain PyTorch twin, drives the batched-DE fleet, the BFGS
+fleet and the CMA-ES fleet through ``nlsolver_torch.minimize`` and the NLLS
+fleet through ``nlsolver_torch.fit_fleet`` at full size, and times them.
 
     python3 chip_smoke.py
 
@@ -51,7 +51,27 @@ Phases, each fatal on failure:
      leading-batch update through ops.rank2_update_batched (K4c);
  13. BFGS timing: bench_bfgs_fleet per line search (median of 3 after 1
      warm-up, ABBA order), and K4a, K4b and K4c alone against their twins
-     from CUDA events.
+     from CUDA events;
+ 14. K5 (batched Jacobi eigensolver) equal to its twin bit for bit: K5a
+     (resident) at [16, 16, 65536] f32 with 8 sweeps, [17, 17, 4096],
+     [2, 2, 65536], [8, 8, 4096] f64, [16, 16, 4099] in f32 and f64 and
+     [56, 56, 4096]; K5b (device memory) at the same shapes, equal to K5a,
+     and at [64, 64, 4096]; against torch.linalg.eigh in f64 on the same
+     matrices (eigenvalues, V diag(w) V^T - A and V^T V - I within 1e-5 in
+     f32 up to n = 16 and 1e-5 n / 16 beyond, 1e-11 in f64); a diagonal
+     matrix; the dispatcher takes K5a at n = 59 and K5b at n = 60; a
+     non-contiguous and an f16 input refused;
+ 15. the CMA-ES slice: the bench scenario (16-D Rastrigin, 65536 lanes,
+     lam = 12, 50 generations) with eigh_method="pallas", K5a launches
+     equal to the generations, and with eigen_interval=5 and
+     defer_covariance=True, launches equal to the refreshes of the
+     schedule; minimize(method="cmaes", layout="fleet") on 65536 8-D bowls
+     until every lane halts, K5a launched once per host step; a numpy x0
+     lands on the card; a bounded fleet stays in its box; wide fleets at
+     n = 56 (K5a) and n = 64 (K5b, through the dispatcher);
+ 16. CMA-ES timing: bench_cmaes_fleet per eigh_method and for the lazy
+     deferred mode (ABBA order), K5a and K5b alone against their twins from
+     CUDA events, beside torch.linalg.eigh on [B, n, n].
 
 Every kernel's line also gives its bound: the larger of its compulsory
 bytes over 3.35 TB/s and its floating-point operations over 67 TFLOP/s
@@ -73,6 +93,8 @@ FLEET_B, FLEET_M = 262144, 32  # the NLLS fleet: fits, points per fit
 SLEEP_CYCLES = 400_000_000     # a device sleep of some 0.2 s ahead of a timed chain
 BFGS_B, BFGS_N = 65536, 16     # the BFGS fleet: bowls, dimensions
 WIDE_B, WIDE_N = 4096, 128     # the wide BFGS fleet, beyond K4a's resident slab
+CMA_B, CMA_N, CMA_GENS = 65536, 16, 50   # the CMA-ES fleet: strategies, dimensions, generations
+CMA_WIDE_B = 4096              # the wide CMA-ES fleets: n = 56 (K5a's edge region), n = 64 (K5b)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOPS = 67e12              # H100 SXM float32 rate outside the tensor cores
 
@@ -98,6 +120,14 @@ def rank2_bound(n, b, direction=True):
     13 n^2 operations a lane with the direction, 11 n^2 without."""
     words = 2 * n * n + (4 * n if direction else 2 * n) + 1
     return bound(words * b * 4 + (b if direction else 0), (13 if direction else 11) * n * n * b)
+
+
+def jacobi_bound(n, b, sweeps):
+    """K5's bound in f32: A in, w and V out; per round 9 n^2 operations on
+    A's rows and the columns of A and V and some 12 n for the rotations,
+    over ``sweeps`` sweeps of n - 1 rounds (n for odd n)."""
+    rounds = n - 1 if n % 2 == 0 else n
+    return bound((2 * n * n + n) * b * 4, sweeps * rounds * (9 * n * n + 12 * n) * b)
 
 
 def log(msg):
@@ -417,9 +447,10 @@ def phase_qr(torch, dev):
 
 
 def reset_counts():
-    from nlsolver_torch.ops import de_fused, qr_wavefront, rank2, smallchol
+    from nlsolver_torch.ops import de_fused, eigh_jacobi, qr_wavefront, rank2, smallchol
 
-    for fn in (de_fused.de_generation_fused, qr_wavefront.qr_wavefront_kernel,
+    for fn in (eigh_jacobi.eigh_jacobi_resident, eigh_jacobi.eigh_jacobi_global,
+               de_fused.de_generation_fused, qr_wavefront.qr_wavefront_kernel,
                qr_wavefront.least_squares_wavefront_kernel, smallchol.solve_spd_batchminor,
                rank2.rank2_direction_batchminor_resident,
                rank2.rank2_direction_batchminor_rowsplit, rank2.rank2_update_batched_kernel):
@@ -818,6 +849,250 @@ def phase_bfgs_timing(torch, dev):
     return alone
 
 
+def phase_eigh(torch, dev):
+    from nlsolver_torch.benches import spd_fleet
+    from nlsolver_torch.linalg.eigh_qr import eigh_library_batched
+    from nlsolver_torch.linalg.jacobi import eigh_jacobi
+    from nlsolver_torch.ops import eigh_jacobi as te
+
+    f32, f64 = torch.float32, torch.float64
+    worst = {"K5a": 0.0, "K5b": 0.0}
+
+    def hold(A, sweeps, label):
+        """Both forms on ``A`` against the twin, bit for bit, then against
+        the library's f64 decomposition of the same matrices (of the first
+        1024 lanes where n >= 32: the library takes seconds there)."""
+        n, _, b = A.shape
+        tw, tV = eigh_jacobi(A, sweeps=sweeps, sort=False)
+        forms = [("K5b", te.eigh_jacobi_global)]
+        if te.resident_fits(n, A.dtype):
+            forms.insert(0, ("K5a", te.eigh_jacobi_resident))
+        for kid, kernel in forms:
+            before = kernel.launches
+            w, V = kernel(A, sweeps)
+            torch.cuda.synchronize()
+            check(kernel.launches == before + 1, f"{kid} {label}: no launch counted")
+            check(bool(torch.isfinite(w).all()) and bool(torch.isfinite(V).all()),
+                  f"{kid} {label}: non-finite output")
+            worst[kid] = max(worst[kid], max_diff(w, tw), max_diff(V, tV))
+            check(torch.equal(w, tw) and torch.equal(V, tV),
+                  f"{kid} {label}: differs from the twin: w {max_diff(w, tw):.3e}, "
+                  f"V {max_diff(V, tV):.3e}")
+        lanes = b if n < 32 else min(b, 1024)
+        Al = A[:, :, :lanes].permute(2, 0, 1).double().contiguous()
+        w_ref, _ = eigh_library_batched(Al)
+        wl, Vl = w[:, :lanes].t().double(), V[:, :, :lanes].permute(2, 0, 1).double()
+        top = float(w_ref.abs().max())
+        w_err = float((wl.sort(dim=1).values - w_ref).abs().max()) / top
+        recon = float(((Vl * wl[:, None, :]) @ Vl.transpose(1, 2) - Al).abs().max()
+                      / Al.abs().max())
+        orth = float((Vl.transpose(1, 2) @ Vl - torch.eye(n, device=dev, dtype=f64)).abs().max())
+        # f32: the JAX package's 1e-5 bar up to n = 16; an entry of V passes
+        # through n - 1 rotations a sweep, so the roundoff grows with n
+        limit = 1e-5 * max(1.0, n / 16) if A.dtype == f32 else 1e-11
+        log(f"[14] {' and '.join(k for k, _ in forms)} {label}: bit-equal to the twin; against "
+            f"torch.linalg.eigh in f64 on {lanes} lanes: max|w - w_ref|/max|w_ref| {w_err:.3e}, "
+            f"max|V diag(w) Vt - A|/max|A| {recon:.3e}, max|VtV - I| {orth:.3e} (limit {limit:g})")
+        check(w_err <= limit and recon <= limit and orth <= limit,
+              f"K5 {label}: not an eigendecomposition to {limit:g}")
+
+    cases = [(CMA_N, CMA_B, f32), (17, 4096, f32), (2, 65536, f32), (8, 4096, f64),
+             (CMA_N, 4099, f32), (CMA_N, 4099, f64), (56, CMA_WIDE_B, f32), (64, CMA_WIDE_B, f32)]
+    for n, b, dtype in cases:
+        hold(spd_fleet(b, n, device=dev, dtype=dtype), 8,
+             f"[{n}, {n}, {b}] {str(dtype)[6:]}")
+    # a diagonal matrix takes the identity rotation (apq == 0) in every round
+    d = torch.rand((8, 4096), device=dev) + 0.5
+    D = torch.diag_embed(d.t()).permute(1, 2, 0).contiguous()
+    for kernel in (te.eigh_jacobi_resident, te.eigh_jacobi_global):
+        w, V = kernel(D, 8)
+        check(torch.equal(w, d) and torch.equal(V, torch.eye(8, device=dev)[:, :, None].expand_as(V)),
+              f"{kernel.__name__} changed a diagonal matrix")
+    log("[14] a diagonal matrix comes back as it was, V = I, no NaN")
+    # the dispatcher that keeps the JAX name: K5a while the slabs fit, K5b beyond; sorted
+    for n, kernel in ((59, te.eigh_jacobi_resident), (60, te.eigh_jacobi_global)):
+        before = kernel.launches
+        out = te.eigh_jacobi_pallas(spd_fleet(64, n, device=dev))
+        check(kernel.launches == before + 1, f"the dispatcher did not take {kernel.__name__} at n={n}")
+        check(bool((out.eigenvalues.diff(dim=0) >= 0).all()), f"n={n}: eigenvalues not ascending")
+    small = spd_fleet(64, 4, device=dev)
+    for what, arg in (("non-contiguous", small.transpose(0, 1)), ("f16", small.half())):
+        try:
+            te.eigh_jacobi_pallas(arg)
+        except ValueError as e:
+            log(f"[14] eigh_jacobi_pallas refuses a {what} input: {e}")
+        else:
+            check(False, f"eigh_jacobi_pallas took a {what} input")
+    return worst
+
+
+def eigh_counts():
+    from nlsolver_torch.ops import eigh_jacobi as te
+
+    return {"K5a": te.eigh_jacobi_resident.launches, "K5b": te.eigh_jacobi_global.launches}
+
+
+def lazy_refreshes(gens, interval):
+    """Refreshes of the deferred-covariance mode in ``gens`` generations
+    with no kick: one whenever the window of ``interval`` slots is full."""
+    filled = refreshes = 0
+    for _ in range(gens):
+        if filled >= interval:
+            refreshes, filled = refreshes + 1, 0
+        filled += 1
+    return refreshes
+
+
+def phase_cmaes_slice(torch, dev):
+    import numpy as np
+
+    import nlsolver_torch
+    from nlsolver_torch import CMAESFleetConfig
+    from nlsolver_torch.benches import (bowls_scenario, rastrigin_fleet_config,
+                                        run_rastrigin_fleet)
+    from nlsolver_torch.core import Bounds
+
+    launches = {}
+    # (a) the bench scenario through init / step / drive_fleet_scan; the
+    # median limits are the JAX fleet's in f32 (tests/test_torch_cmaes_fleet.py)
+    for label, interval, defer, want, limit in (
+            ("eager", 1, False, CMA_GENS, 80.0),
+            ("interval 5, deferred", 5, True, lazy_refreshes(CMA_GENS, 5), 85.0)):
+        reset_counts()
+        t0 = time.perf_counter()
+        final = run_rastrigin_fleet(rastrigin_fleet_config("pallas", interval, defer),
+                                    CMA_B, CMA_N, CMA_GENS, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = eigh_counts()
+        med = float(final.best_value.median())
+        log(f"[15] Rastrigin [{CMA_N}, {CMA_B}] {label}: {wall:.3f} s for {CMA_GENS} generations, "
+            f"launches {counts} (expected K5a {want}), best value median {med:.4f} "
+            f"(limit {limit}), max {float(final.best_value.max()):.4f}, from 324.0")
+        check(counts == {"K5a": want, "K5b": 0}, f"{label}: launches {counts}, expected K5a {want}")
+        check(final.gen == CMA_GENS and bool((final.iteration == CMA_GENS).all()),
+              f"{label}: not every lane ran {CMA_GENS} generations")
+        check(tuple(final.best_x.shape) == (CMA_N, CMA_B) and bool(torch.isfinite(final.best_x).all())
+              and bool(torch.isfinite(final.C).all()), f"{label}: non-finite or misshapen state")
+        check(med < limit and float(final.best_value.max()) < 324.0,
+              f"{label}: the fleet did not descend as the JAX fleet does")
+        launches.setdefault("K5a", counts["K5a"])  # the eager run's
+
+    # (b) minimize until every lane halts.  The fleet's objective is one
+    # function for all lanes, so the bowls' per-lane centers enter as start
+    # points: minimizing sum(s (x - c_b)^2) from 0 is minimizing sum(s x^2)
+    # from -c_b.  Limits from the JAX fleet in f32 at B = 1024: every lane
+    # converged and below 1e-6, 97 % below 1e-9
+    _, centers, scales = bowls_scenario(CMA_B, 8, device=dev)
+    s0 = scales[:, 0].clone()
+    cfg = CMAESFleetConfig(eigh_method="pallas")
+
+    def bowl(x):
+        return (s0 * x * x).sum()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res = nlsolver_torch.minimize(bowl, -centers, method="cmaes", layout="fleet", config=cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, steps = eigh_counts(), int(res.iterations.max()) + 1
+    lam = 4 + int(3 * np.log(8))
+    solved = float((res.f_value < 1e-9).float().mean())
+    log(f"[15] minimize(method='cmaes', layout='fleet') on bowls [8, {CMA_B}]: {wall:.3f} s, host "
+        f"steps {steps}, launches {counts}, iterations median "
+        f"{float(res.iterations.float().median()):.0f} max {int(res.iterations.max())}, converged "
+        f"{float(res.converged.float().mean()):.6f}, f max {float(res.f_value.max()):.3e} (limit "
+        f"1e-6), share below 1e-9 {solved:.6f} (limit 0.97)")
+    check(res.x.is_cuda and tuple(res.x.shape) == (8, CMA_B) and bool(torch.isfinite(res.x).all()),
+          "bowls: x not on the card, misshapen or non-finite")
+    check(counts == {"K5a": steps, "K5b": 0}, f"bowls: launches {counts} in {steps} host steps")
+    check(int(res.iterations.max()) <= cfg.max_iter and bool(res.converged.all()),
+          "bowls: a lane ran into max_iter or halted unconverged")
+    check(torch.equal(res.function_calls, 1 + lam * res.iterations),
+          "bowls: function_calls is not 1 + lam * iterations")
+    check(float(res.f_value.max()) < 1e-6 and solved >= 0.97, "bowls: lanes short of the minimum")
+
+    # a start that is no tensor lands on the card
+    res = nlsolver_torch.minimize(bowl, np.full((8, 256), 0.7, np.float32), method="cmaes",
+                                  layout="fleet", config=cfg)
+    check(res.x.is_cuda and float(res.f_value.max()) < 1e-5, "numpy x0: not on the card or unsolved")
+    # the corner optimum of a bounded problem: projection repair keeps every lane in the box
+    box = Bounds(torch.zeros(2, device=dev), torch.full((2,), 4.0, device=dev))
+    res = nlsolver_torch.minimize(lambda x: ((x + 1.0) ** 2).sum(), torch.full((2, 4096), 2.0, device=dev),
+                                  method="cmaes", layout="fleet", bounds=box,
+                                  config=CMAESFleetConfig(eigh_method="pallas", max_iter=200))
+    log(f"[15] bounded fleet [2, 4096]: x in [{float(res.x.min()):.3e}, {float(res.x.max()):.3e}], "
+        f"f median {float(res.f_value.median()):.6f}")
+    check(float(res.x.min()) >= 0.0 and float(res.x.max()) <= 1e-2
+          and abs(float(res.f_value.median()) - 2.0) < 1e-2, "the bounded fleet left its box or its corner")
+
+    # (c) wide fleets: n = 56 through K5a, n = 64 through K5b
+    for n, kid in ((56, "K5a"), (64, "K5b")):
+        reset_counts()
+        t0 = time.perf_counter()
+        final = run_rastrigin_fleet(rastrigin_fleet_config("pallas"), CMA_WIDE_B, n, 5, device=dev)
+        torch.cuda.synchronize()
+        counts = eigh_counts()
+        start = 20.25 * n  # Rastrigin at -0.5 in every coordinate
+        log(f"[15] wide Rastrigin [{n}, {CMA_WIDE_B}]: {time.perf_counter() - t0:.3f} s for 5 "
+            f"generations, launches {counts}, best value median "
+            f"{float(final.best_value.median()):.2f} from {start}")
+        check(counts == {k: 5 * (k == kid) for k in counts}, f"wide n={n}: launches {counts}")
+        check(bool(torch.isfinite(final.best_value).all()) and bool(torch.isfinite(final.Bv).all())
+              and float(final.best_value.median()) < start, f"wide n={n}: non-finite or no descent")
+        launches.setdefault(kid, counts[kid])
+    return launches
+
+
+def phase_cmaes_timing(torch, dev):
+    from nlsolver_torch.benches import bench_cmaes_fleet, spd_fleet
+    from nlsolver_torch.linalg.eigh_qr import eigh_library_batched
+    from nlsolver_torch.linalg.jacobi import eigh_jacobi
+    from nlsolver_torch.ops import eigh_jacobi as te
+
+    # name: kernel, its repeats, the input; the twin and the library call run on the same input
+    shapes = {
+        "K5a": (te.eigh_jacobi_resident, 10, spd_fleet(CMA_B, CMA_N, device=dev)),
+        "K5a n=56": (te.eigh_jacobi_resident, 3, spd_fleet(CMA_WIDE_B, 56, device=dev)),
+        "K5b": (te.eigh_jacobi_global, 2, spd_fleet(CMA_WIDE_B, 64, device=dev)),
+    }
+    alone = {}
+    for name, (kernel, kreps, A) in shapes.items():
+        Al = A.permute(2, 0, 1).contiguous()
+        p1 = time_alone(torch, lambda: eigh_jacobi(A, sweeps=8, sort=False), 2, False, warmup=1)
+        k1 = time_alone(torch, lambda: kernel(A, 8), kreps, True, warmup=2)
+        k2 = time_alone(torch, lambda: kernel(A, 8), kreps, True, warmup=1)
+        p2 = time_alone(torch, lambda: eigh_jacobi(A, sweeps=8, sort=False), 2, False, warmup=0)
+        lib = time_alone(torch, lambda: eigh_library_batched(Al), 1 if A.shape[0] > 32 else 3,
+                         True, warmup=1, strict=False)
+        alone[name] = (min(k1, k2), min(p1, p2), lib)
+        log(f"[16] {name} {list(A.shape)} alone: kernel {min(k1, k2):.3f} ms of device time "
+            f"({k1:.3f}/{k2:.3f}), plain twin {min(p1, p2):.3f} ms per call ({p1:.3f}/{p2:.3f}), "
+            f"torch.linalg.eigh on {list(Al.shape)} {lib:.3f} ms")
+
+    # the fleet per eigensolver; the plain twin at a fifth of the depth (it takes 0.1 s a generation)
+    variants = {"pallas": dict(method="pallas"), "jacobi": dict(method="jacobi", iters=10, runs=2),
+                "xla": dict(method="xla"),
+                "pallas lazy5 deferred": dict(method="pallas", eigen_interval=5, defer=True)}
+    order = list(variants) + list(variants)[::-1]
+    runs = {}
+    for tag in order:
+        r = bench_cmaes_fleet(B=CMA_B, n=CMA_N, **variants[tag])
+        runs.setdefault(tag, []).append(r)
+        log(f"[16] {r['name']}: median {r['median_ms']:.3f} ms / {r['generations']} generations, "
+            f"min {r['min_ms']:.3f} ms, {r['gens_per_sec']:.6g} instance generations/s, best "
+            f"value median {r['best_median']:.3f}")
+    for tag, rs in runs.items():
+        best = max(rs, key=lambda r: r["gens_per_sec"])
+        per_gen = best["median_ms"] / best["generations"]
+        note = ""
+        if tag == "pallas":
+            note = f", K5a {alone['K5a'][0] / per_gen:.1%} of it"
+        log(f"[16] fleet {tag}: {best['gens_per_sec']:.6g} instance generations/s, "
+            f"{per_gen:.3f} ms a generation of {CMA_B} lanes{note}")
+    return alone
+
+
 def kernel_row(name, source, replaces, launches, max_err, times, bound_ms_by):
     ms, plain_ms, library_ms = times
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -825,14 +1100,7 @@ def kernel_row(name, source, replaces, launches, max_err, times, bound_ms_by):
             "bound_ms": bound_ms_by[0], "bound_by": bound_ms_by[1], "library_ms": library_ms}
 
 
-def main():
-    import torch
-
-    name = phase_device(torch)
-    dev = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    phase_build()
+def phases_earlier(torch, dev):
     max_err = phase_injected(torch, dev)
     phase_philox(torch, dev)
     launches = phase_slice(torch, dev)
@@ -846,7 +1114,7 @@ def main():
     alone.update(phase_bfgs_timing(torch, dev))
     m = FLEET_M + 2  # rows of the NLLS fleet's augmented system [J; sqrt(lam) I]
     csrc, tpu = "nlsolver_torch/csrc/", "nlsolver_tpu/ops/"
-    print(json.dumps({"kernels": [
+    return [
         # agents in and out, scores in and out, the active mask; some 30
         # operations a coordinate (mutation, crossover, a Rastrigin term)
         kernel_row("de_generation_fused", csrc + "de_fused.cu", TPU_KERNEL, launches, max_err,
@@ -873,7 +1141,32 @@ def main():
         kernel_row("rank2_update_batched_kernel", csrc + "rank2.cu", tpu + "rank2.py:66",
                    bfgs_launches["K4c"], rank2_err["K4c"], alone["K4c"],
                    rank2_bound(BFGS_N, BFGS_B, direction=False)),
-    ]}), flush=True)
+    ]
+
+
+def eigh_rows(launches, err, alone):
+    csrc, tpu = "nlsolver_torch/csrc/eigh_jacobi.cu", "nlsolver_tpu/ops/eigh_jacobi.py:213"
+    return [
+        kernel_row("eigh_jacobi_resident", csrc, tpu, launches["K5a"], err["K5a"], alone["K5a"],
+                   jacobi_bound(CMA_N, CMA_B, 8)),
+        kernel_row("eigh_jacobi_global", csrc, tpu, launches["K5b"], err["K5b"], alone["K5b"],
+                   jacobi_bound(64, CMA_WIDE_B, 8)),
+    ]
+
+
+def main():
+    import torch
+
+    name = phase_device(torch)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_build()
+    rows = phases_earlier(torch, dev)
+    eigh_err = phase_eigh(torch, dev)
+    cmaes_launches = phase_cmaes_slice(torch, dev)
+    rows += eigh_rows(cmaes_launches, eigh_err, phase_cmaes_timing(torch, dev))
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 

@@ -5,7 +5,10 @@ Ported so far: the batched Differential Evolution fleet
 generation kernel (``ops.de_fused``), the batch-minor BFGS fleet
 (``minimize(fn, x0[n, B], method="bfgs", layout="fleet")``) with its line
 searches (``linesearch``) and its rank-2 update + direction kernels
-(``ops.rank2``), and nonlinear least squares (``fit``,
+(``ops.rank2``), the batch-minor CMA-ES fleet
+(``minimize(fn, x0[n, B], method="cmaes", layout="fleet")``) with its
+batched Jacobi eigensolver kernel (``ops.eigh_jacobi``) and the
+single-instance ``solvers.cmaes``, and nonlinear least squares (``fit``,
 ``fit_batched``, ``curve_fit`` and the batch-minor ``fit_fleet``) with the
 wavefront QR / least-squares kernels (``ops.qr_wavefront``) and the
 batch-minor Cholesky solve (``ops.smallchol``); the kernels are CUDA C++
@@ -16,12 +19,16 @@ from .api import (curve_fit, fit, fit_batched, fit_fleet, fit_fleet_sharded, fit
 from .core import SolverResult
 from .problems import PROBLEMS
 from .solvers.bfgs_fleet import BFGSFleetConfig
+from .solvers.cmaes import CMAESConfig
+from .solvers.cmaes_fleet import CMAESFleetConfig
 from .solvers.de import DEConfig
 from .solvers.nlls import NLLSConfig
 from .solvers.nlls_fleet import NLLSFleetConfig
 
 __all__ = [
     "BFGSFleetConfig",
+    "CMAESConfig",
+    "CMAESFleetConfig",
     "DEConfig",
     "NLLSConfig",
     "NLLSFleetConfig",

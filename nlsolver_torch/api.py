@@ -4,10 +4,14 @@
 
     result = nlsolver_torch.minimize(fn, x0[n, B], method="bfgs", layout="fleet")
 
-``minimize`` routes the batched Differential Evolution fleet
-(``solvers.de_batched``) and the batch-minor BFGS fleet
-(``solvers.bfgs_fleet``) so far; every other method or layout raises
-``NotImplementedError`` naming the ROADMAP.md queue item that ports it.
+    result = nlsolver_torch.minimize(fn, x0[n, B], method="cmaes", layout="fleet")
+
+``minimize`` routes the engines listed in ``PORTED_ROUTES`` so far (the
+batched Differential Evolution fleet ``solvers.de_batched``, the
+batch-minor BFGS fleet ``solvers.bfgs_fleet`` and the batch-minor CMA-ES
+fleet ``solvers.cmaes_fleet``); every other method or layout raises
+``NotImplementedError`` naming the ported routes and the ROADMAP.md queue
+item that ports the one asked for.
 Start points that are a ``torch.Tensor`` keep their device (a CPU tensor
 asks for the CPU); anything else goes to the CUDA card, and raises when
 there is none.
@@ -22,8 +26,9 @@ from typing import Optional
 import torch
 
 from .core import Bounds, SolverResult, signed
-from .solvers import bfgs_fleet, de_batched
+from .solvers import bfgs_fleet, cmaes_fleet, de_batched
 from .solvers.bfgs_fleet import BFGSFleetConfig
+from .solvers.cmaes_fleet import CMAESFleetConfig
 from .solvers.de import DEConfig
 from .solvers.nlls import NLLSConfig, curve_fit, fit, fit_batched  # noqa: F401
 from .solvers.nlls_fleet import NLLSFleetConfig, fit_fleet  # noqa: F401
@@ -36,9 +41,11 @@ _NOT_YET = {
     ("pso_batched", "batched"): "Queue 1 item 2 (lane fleets for PSO and SANN)",
     ("sann", "batched"): "Queue 1 item 2 (lane fleets for PSO and SANN)",
     ("sann_batched", "batched"): "Queue 1 item 2 (lane fleets for PSO and SANN)",
-    ("cmaes", "fleet"): "Queue 1 item 5 (CMA-ES fleet)",
-    ("cmaes_fleet", "fleet"): "Queue 1 item 5 (CMA-ES fleet)",
 }
+
+# the (method, layout) routes that minimize and maximize take; the module
+# docstring and the NotImplementedError text name them from here
+PORTED_ROUTES = (("de", "batched"), ("bfgs", "fleet"), ("cmaes", "fleet"))
 
 
 def start_points(x0) -> torch.Tensor:
@@ -75,9 +82,22 @@ def _bfgs_fleet(fn, x0, config, bounds, _minimize, kwargs):
     return res if _minimize else res._replace(f_value=-res.f_value)
 
 
+def _cmaes_fleet(fn, x0, config, bounds, generator, _minimize, kwargs):
+    x0 = start_points(x0)
+    if x0.ndim != 2:
+        raise ValueError(f"layout='fleet' expects a 2-D x0, got {tuple(x0.shape)}")
+    cfg = config if config is not None else CMAESFleetConfig()
+    res = cmaes_fleet.minimize_fleet(
+        signed(fn, _minimize), x0, cfg, bounds, generator=generator, **kwargs
+    )
+    return res if _minimize else res._replace(f_value=-res.f_value)
+
+
 def _dispatch(fn, x0, method, config, bounds, generator, layout, _minimize, kwargs):
     if layout not in _LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; one of {_LAYOUTS}")
+    if layout == "fleet" and method in ("cmaes", "cmaes_fleet"):
+        return _cmaes_fleet(fn, x0, config, bounds, generator, _minimize, kwargs)
     if layout == "fleet" and method in ("bfgs", "bfgs_fleet"):
         return _bfgs_fleet(fn, x0, config, bounds, _minimize, kwargs)
     if layout == "batched" and method in ("de", "de_batched"):
@@ -104,7 +124,7 @@ def _dispatch(fn, x0, method, config, bounds, generator, layout, _minimize, kwar
     raise NotImplementedError(
         f"method={method!r} with layout={layout!r} is not ported to "
         f"nlsolver_torch yet; ROADMAP.md {where} ports it. Ported: "
-        "method='de' with layout='batched', method='bfgs' with layout='fleet'"
+        + ", ".join(f"method={m!r} with layout={lay!r}" for m, lay in PORTED_ROUTES)
     )
 
 

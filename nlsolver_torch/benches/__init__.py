@@ -1,6 +1,6 @@
 """Benchmark scenarios of the port (counterpart of
-``nlsolver_tpu.benches``): the batched-DE headline, the NLLS fleet and
-the BFGS fleet.
+``nlsolver_tpu.benches``): the batched-DE headline, the NLLS fleet, the
+BFGS fleet, the batched eigensolvers and the CMA-ES fleet.
 
 Method, as in the JAX package: a fixed-trip run so every run does the
 same work, warm-up runs, then the median of the timed runs, each fenced
@@ -17,6 +17,7 @@ import torch
 from ..core.driver import drive_fleet_scan, drive_scan
 from ..problems import PROBLEMS
 from ..solvers import bfgs_fleet as bf
+from ..solvers import cmaes_fleet as cf
 from ..solvers import de_batched as deb
 from ..solvers import nlls_fleet as nf
 from ..solvers.de import DEConfig
@@ -193,44 +194,225 @@ def unconverged_bowls(B=65536, dim=16, linesearch="more_thuente"):
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
-def profile_bfgs_fleet(B=65536, dim=16, linesearch="more_thuente", top=5):
-    """One run of ``bench_bfgs_fleet``'s fleet under ``torch.profiler``
-    (CPU and CUDA activities), after a warm-up run: wall time under the
-    profiler, device busy time (the sum of the device kernels' times) and
-    device kernel launches, in all and per host step, and the ``top``
-    kernels by device time."""
+def _profiled(run, top):
+    """One call of ``run`` under ``torch.profiler`` (CPU and CUDA
+    activities), after a warm-up call: its result, the wall time under the
+    profiler, and the device kernels' busy time, launches and ``top``
+    entries by device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if busy_us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return res, {
+        "device": torch.cuda.get_device_name(0),
+        "wall_ms": wall * 1e3,
+        "device_busy_ms": busy_us / 1e3,
+        "busy_share": busy_us / 1e6 / wall,
+        "device_launches": sum(e.count for e in kernels),
+        "top_kernels": [(e.key[:96], e.count, e.self_device_time_total / 1e3)
+                        for e in kernels[:top]],
+    }
+
+
+def profile_bfgs_fleet(B=65536, dim=16, linesearch="more_thuente", top=5):
+    """One run of ``bench_bfgs_fleet``'s fleet under ``torch.profiler``:
+    wall time under the profiler, device busy time (the sum of the device
+    kernels' times) and device kernel launches, in all and per host step,
+    and the ``top`` kernels by device time."""
     if not torch.cuda.is_available():
         raise RuntimeError("profile_bfgs_fleet measures a CUDA card; none is available")
     device = torch.device("cuda")
     fn_cols, _, _ = bowls_scenario(B, dim, device=device)
     cfg = bf.BFGSFleetConfig(max_iter=30, linesearch=linesearch)
     X0 = torch.zeros(dim, B, dtype=torch.float32, device=device)
-    bf.minimize_fleet(fn_cols, X0, cfg)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = bf.minimize_fleet(fn_cols, X0, cfg)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    launches = sum(e.count for e in kernels)
-    if busy_us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
+    res, out = _profiled(lambda: bf.minimize_fleet(fn_cols, X0, cfg), top)
     steps = int(res.iterations.max()) + 1
-    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    return {
-        "name": f"bfgs_fleet_torch_{linesearch}_profile",
-        "device": torch.cuda.get_device_name(0),
-        "host_steps": steps,
-        "wall_ms": wall * 1e3,
-        "device_busy_ms": busy_us / 1e3,
-        "busy_share": busy_us / 1e6 / wall,
-        "device_launches": launches,
-        "launches_per_step": launches / steps,
-        "top_kernels": [(e.key[:96], e.count, e.self_device_time_total / 1e3)
-                        for e in kernels[:top]],
+    return {"name": f"bfgs_fleet_torch_{linesearch}_profile", "host_steps": steps,
+            "launches_per_step": out["device_launches"] / steps, **out}
+
+
+def spd_fleet(B: int, n: int, seed: int = 0, device="cuda", dtype=torch.float32):
+    """``B`` symmetric positive definite matrices ``G G^T + 0.1 I`` with
+    G ~ N(0, 1) drawn from ``seed`` on ``device``, batch-minor ``[n, n, B]``:
+    the covariance-like inputs of the eigensolver benches."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    G = torch.randn((B, n, n), generator=g, dtype=dtype, device=device)
+    A = G @ G.transpose(1, 2) + 0.1 * torch.eye(n, dtype=dtype, device=device)
+    return A.permute(1, 2, 0).contiguous()
+
+
+def bench_eigh_batched(B=65536, n=16, runs=3, sweeps=8, reps=3):
+    """Batched small-matrix symmetric eigendecomposition head to head on
+    the CMA-ES fleet's shape, ``B`` matrices ``[n, n]`` (``spd_fleet``),
+    f32: ``torch.linalg.eigh`` on ``[B, n, n]`` (the library call, in pieces
+    of 16384 matrices), the
+    parallel-order Jacobi in plain tensor code (batch-minor), and the CUDA
+    kernel.  Each timed run decomposes the batch ``reps`` times; one
+    warm-up, then the median of ``runs``."""
+    from ..linalg.eigh_qr import eigh_library_batched
+    from ..linalg.jacobi import eigh_jacobi
+    from ..ops.eigh_jacobi import eigh_jacobi_kernel
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("bench_eigh_batched measures a CUDA card; none is available")
+    A_bm = spd_fleet(B, n)
+    A_lead = A_bm.permute(2, 0, 1).contiguous()
+    contenders = {
+        "library": lambda: eigh_library_batched(A_lead),
+        "jacobi": lambda: eigh_jacobi(A_bm, sweeps=sweeps, sort=False),
+        "kernel": lambda: eigh_jacobi_kernel(A_bm, sweeps=sweeps, sort=False),
     }
+    out = {"name": "eigh_batched_torch", "device": torch.cuda.get_device_name(0),
+           "B": B, "n": n, "sweeps": sweeps}
+    for name, decomp in contenders.items():
+        med, _ = _timed(lambda: [decomp() for _ in range(reps)], runs, warmup=1)
+        out[f"{name}_eigh_per_sec"] = B * reps / med
+        out[f"{name}_ms"] = med / reps * 1e3
+    # correctness anchor: the kernel reconstructs A to f32 precision
+    w, V = eigh_jacobi_kernel(A_bm, sweeps=sweeps, sort=False)
+    recon = torch.einsum("ikb,kb,jkb->ijb", V, w, V)
+    out["kernel_recon_rel_err"] = float((recon - A_bm).abs().max() / A_bm.abs().max())
+    return out
+
+
+def rastrigin_fleet_config(method="pallas", eigen_interval=1, defer=False):
+    """The CMA-ES fleet bench's config: every termination rule and the
+    restart kick switched off, so a fixed number of trips does fixed work."""
+    return cf.CMAESFleetConfig(
+        max_iter=1 << 30, best_value_no_change=1 << 30, f_tol=0.0, kick_tol=0.0,
+        cond_max=float("inf"), eigh_method=method, eigen_interval=eigen_interval,
+        defer_covariance=defer,
+    )
+
+
+def run_rastrigin_fleet(cfg, B=65536, n=16, iters=50, seed=0, device="cuda", dtype=torch.float32):
+    """``iters`` generations of ``B`` CMA-ES strategies on ``n``-D Rastrigin
+    from ``X0 = -0.5``; returns the final state."""
+    fn = PROBLEMS["rastrigin"].fn
+    X0 = torch.full((n, B), -0.5, dtype=dtype, device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    state = cf.init(fn, X0, cfg)
+    return cf.drive_fleet_scan(lambda s: cf.step(fn, s, cfg, generator=g), state, iters)
+
+
+def _cmaes_fleet_name(method, eigen_interval, defer):
+    tag = method if eigen_interval == 1 else f"{method}_lazy{eigen_interval}"
+    return f"cmaes_fleet_torch_{tag}" + ("_defer" if defer else "")
+
+
+def bench_cmaes_fleet(B=65536, n=16, iters=50, runs=3, method="pallas", eigen_interval=1,
+                      defer=False):
+    """The CMA-ES fleet on ``n``-D Rastrigin: ``B`` independent strategies,
+    one eigendecomposition of ``[n, n]`` per strategy per refresh (every
+    generation at ``eigen_interval=1``), f32, fixed trip.  ``method`` is the
+    eigensolver: ``pallas`` (the CUDA kernel), ``jacobi`` (plain tensor
+    code) or ``xla`` (``torch.linalg.eigh``).  One warm-up, then the median
+    of ``runs``."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("bench_cmaes_fleet measures a CUDA card; none is available")
+    cfg = rastrigin_fleet_config(method, eigen_interval, defer)
+    med, mn = _timed(lambda: run_rastrigin_fleet(cfg, B, n, iters), runs, warmup=1)
+    final = run_rastrigin_fleet(cfg, B, n, iters)
+    return {
+        "name": _cmaes_fleet_name(method, eigen_interval, defer),
+        "device": torch.cuda.get_device_name(0),
+        "instances": B,
+        "dim": n,
+        "generations": iters,
+        "gens_per_sec": B * iters / med,
+        "median_ms": med * 1e3,
+        "min_ms": mn * 1e3,
+        "best_median": float(final.best_value.median()),
+        "best_max": float(final.best_value.max()),
+    }
+
+
+def profile_cmaes_fleet(B=65536, n=16, iters=50, method="pallas", eigen_interval=1, defer=False,
+                        top=8):
+    """One run of ``bench_cmaes_fleet``'s fleet under ``torch.profiler``:
+    wall time, device busy time and device kernel launches, in all and per
+    generation, and the ``top`` kernels by device time."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_cmaes_fleet measures a CUDA card; none is available")
+    cfg = rastrigin_fleet_config(method, eigen_interval, defer)
+    _, out = _profiled(lambda: run_rastrigin_fleet(cfg, B, n, iters), top)
+    return {"name": _cmaes_fleet_name(method, eigen_interval, defer) + "_profile",
+            "generations": iters,
+            "launches_per_generation": out["device_launches"] / iters, **out}
+
+
+def _device_ms(fn, reps=3):
+    """Device time of one call of ``fn`` in ms, from CUDA events over
+    ``reps`` chained calls after one warm-up; for calls of a millisecond or
+    more, whose few microseconds of host pace do not show."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def sweep_eigh_jacobi(ns=(2, 4, 8, 16, 24, 29, 30, 42, 43, 56, 59, 60, 64, 96, 128), B=4096,
+                      sweeps=8):
+    """The size envelope of the eigensolver kernel: for each n the device
+    time of K5a (``None`` where its slabs do not fit a block) and of K5b on
+    ``spd_fleet(B, n)``, f32, with K5a's tile of lanes and the block."""
+    from ..ops import eigh_jacobi as te
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("sweep_eigh_jacobi measures a CUDA card; none is available")
+    rows = []
+    for n in ns:
+        A = spd_fleet(B, n)
+        lanes = te.resident_tile(n, A.dtype)
+        rows.append({
+            "n": n, "B": B, "sweeps": sweeps, "resident_lanes": lanes,
+            "resident_block": te.block_shape(n, lanes) if lanes else None,
+            "resident_ms": _device_ms(lambda: te.eigh_jacobi_resident(A, sweeps)) if lanes else None,
+            "global_ms": _device_ms(lambda: te.eigh_jacobi_global(A, sweeps)),
+        })
+    return rows
+
+
+def probe_eigh_jacobi_plans(n=16, B=65536, sweeps=8):
+    """The launch plans that ``ops.eigh_jacobi`` chose between, timed on
+    ``spd_fleet(B, n)``, f32: K5a with its block split pairs-first (the
+    plan in use) and columns-first, and K5b with 8 (in use), 16 and 32
+    lanes a block.  Device time in ms per plan."""
+    from ..ops import eigh_jacobi as te
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("probe_eigh_jacobi_plans measures a CUDA card; none is available")
+    A = spd_fleet(B, n)
+    out = {"n": n, "B": B, "sweeps": sweeps}
+    lanes = te.resident_tile(n, A.dtype)
+    if lanes:
+        _, rj, ru = te.block_shape(n, lanes)
+        cols_first = min(n, te.MAX_THREADS // lanes)
+        plans = {"pairs_first": (lanes, rj, ru),
+                 "columns_first": (lanes, cols_first,
+                                   max(1, min((n + 1) // 2, te.MAX_THREADS // (lanes * cols_first))))}
+        for name, block in plans.items():
+            out[f"resident_{name}_{block}"] = _device_ms(
+                lambda: te._launch("probe", A, None, None, block, True, sweeps))
+    work, coef = torch.empty_like(A), A.new_empty((2, n, B))
+    for tile in (8, 16, 32):
+        block = te.block_shape(n, tile)
+        out[f"global_lanes_{tile}_{block}"] = _device_ms(
+            lambda: te._launch("probe", A, work, coef, block, False, sweeps))
+    return out

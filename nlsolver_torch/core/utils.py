@@ -53,8 +53,12 @@ def where_lanes(pred: torch.Tensor, on_true: T, on_false: T) -> T:
 def lane_where(pred: torch.Tensor, on_true: T, on_false: T) -> T:
     """Lane-wise select over a NamedTuple state whose tensor fields END
     with the lane axis (the batch-minor fleets: x ``[n, B]``, matrices
-    ``[n, n, B]``, per-lane scalars ``[B]``); ``pred`` is ``[B]``."""
+    ``[n, n, B]``, per-lane scalars ``[B]``); ``pred`` is ``[B]``.  A field
+    with no lane axis (a host counter, a 0-d tensor) belongs to the fleet
+    and is taken from ``on_false``, the state being advanced."""
     def pick(a, b):
+        if not isinstance(b, torch.Tensor) or b.ndim == 0:
+            return b
         return torch.where(pred.reshape((1,) * (b.ndim - 1) + (-1,)), a, b)
 
     return type(on_false)(*(pick(a, b) for a, b in zip(on_true, on_false)))

@@ -8,7 +8,11 @@ the tensor fields back.  ``nlls_fleet_state_from_numpy`` and
 ``nlls_fleet_state_to_numpy`` do the same for the NLLS fleet's
 ``NLLSFleetState``, and ``bfgs_fleet_state_from_numpy`` and
 ``bfgs_fleet_state_to_numpy`` for the BFGS fleet's ``BFGSFleetState``,
-field for field.  None of them imports JAX.
+field for field.  ``cmaes_fleet_state_from_numpy`` and
+``cmaes_fleet_state_to_numpy`` carry the CMA-ES fleet's ``CMAESFleetState``:
+the JAX state's ``key`` has no counterpart and is dropped (the port's
+``step`` takes its draws or a generator), and its counters ``gen`` and
+``filled`` become host ints.  None of them imports JAX.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import numpy as np
 import torch
 
 from .solvers.bfgs_fleet import BFGSFleetState
+from .solvers.cmaes_fleet import CMAESFleetState
 from .solvers.de_batched import DEBatchState
 from .solvers.nlls_fleet import NLLSFleetState
 
@@ -66,3 +71,24 @@ def bfgs_fleet_state_from_numpy(fields: dict, device) -> BFGSFleetState:
 
 def bfgs_fleet_state_to_numpy(state: BFGSFleetState) -> dict:
     return _state_to_numpy(state)
+
+
+_CMAES_HOST_INTS = ("gen", "filled")
+
+
+def cmaes_fleet_state_from_numpy(fields: dict, device) -> CMAESFleetState:
+    missing = [f for f in CMAESFleetState._fields if f not in fields]
+    if missing:
+        raise ValueError(f"CMA-ES fleet state is missing fields {missing}")
+    return CMAESFleetState(**{
+        f: int(fields[f]) if f in _CMAES_HOST_INTS
+        else torch.as_tensor(np.array(fields[f]), device=device)
+        for f in CMAESFleetState._fields
+    })
+
+
+def cmaes_fleet_state_to_numpy(state: CMAESFleetState) -> dict:
+    return {
+        f: np.int32(v) if f in _CMAES_HOST_INTS else v.detach().cpu().numpy()
+        for f, v in state._asdict().items()
+    }

@@ -1,4 +1,10 @@
 from .de_fused import de_generation_fused, de_generation_reference
+from .eigh_jacobi import (
+    eigh_jacobi_global,
+    eigh_jacobi_kernel,
+    eigh_jacobi_pallas,
+    eigh_jacobi_resident,
+)
 from .qr_wavefront import (
     least_squares_wavefront_kernel,
     least_squares_wavefront_reference,
@@ -25,6 +31,10 @@ from .smallchol import (
 __all__ = [
     "de_generation_fused",
     "de_generation_reference",
+    "eigh_jacobi_global",
+    "eigh_jacobi_kernel",
+    "eigh_jacobi_pallas",
+    "eigh_jacobi_resident",
     "least_squares_wavefront_kernel",
     "least_squares_wavefront_reference",
     "qr_wavefront_kernel",

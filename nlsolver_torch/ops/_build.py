@@ -26,6 +26,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nlsolver_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # the dtypes the linear-algebra kernels are built for, by launcher suffix
 DTYPE_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# dynamic shared memory a block may opt in to on sm_90 (227 KB)
+MAX_DYNAMIC_SMEM = 232448
 
 
 def sources() -> list[Path]:

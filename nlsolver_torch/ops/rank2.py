@@ -35,9 +35,9 @@ import functools
 import torch
 
 from . import _build
+from ._build import MAX_DYNAMIC_SMEM
 
-# shared memory a block may opt in to on sm_90, and K4a's tile of lanes
-MAX_DYNAMIC_SMEM = 232448
+# K4a's tile of lanes
 RESIDENT_TILE = 32
 # kernel against twin: |diff| <= KERNEL_TOL_ULPS * n * eps * max|twin|
 KERNEL_TOL_ULPS = 2

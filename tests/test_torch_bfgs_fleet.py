@@ -272,8 +272,8 @@ def test_api_route_refuses_bounds_shapes_and_unported_methods():
         nt.minimize(sphere, X0, method="bfgs", layout="fleet", bounds=(-1.0, 1.0))
     with pytest.raises(ValueError, match="expects a 2-D x0"):
         nt.minimize(sphere, X0[0], method="bfgs", layout="fleet")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        nt.minimize(sphere, X0, method="cmaes", layout="fleet")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        nt.minimize(sphere, X0, method="cmaes", layout="sharded")
     with pytest.raises(NotImplementedError, match="method='bfgs' with layout='fleet'"):
         nt.minimize(sphere, X0, method="bfgs", layout="single")
 

@@ -47,6 +47,20 @@ SCRIPT = textwrap.dedent(
                           method="bfgs", layout="fleet",
                           config=nt.BFGSFleetConfig(max_iter=20, linesearch=ls))
         assert float((res.x - 0.5).abs().max()) < 1e-2, ls
+    # the CMA-ES slice: the Jacobi eigensolver, its kernel's CPU route, both solvers
+    import nlsolver_torch.solvers.cmaes, nlsolver_torch.solvers.cmaes_fleet  # noqa: F401
+    from nlsolver_torch.linalg import eigh
+    from nlsolver_torch.ops import eigh_jacobi  # noqa: F401
+    S = torch.tensor([[2.0, 1.0], [1.0, 2.0]], dtype=torch.float64)
+    for method in ("xla", "jacobi", "qr"):
+        assert float((eigh(S, method=method).eigenvalues.sort().values
+                      - torch.tensor([1.0, 3.0], dtype=torch.float64)).abs().max()) < 1e-9, method
+    assert eigh(S[:, :, None].contiguous(), method="pallas").eigenvalues.shape == (2, 1)
+    for method in ("jacobi", "pallas", "xla"):
+        res = nt.minimize(lambda x: ((x - 0.5) ** 2).sum(), torch.zeros(3, 4, dtype=torch.float64),
+                          method="cmaes", layout="fleet",
+                          config=nt.CMAESFleetConfig(max_iter=150, eigh_method=method))
+        assert float((res.x - 0.5).abs().max()) < 1e-3, method
     assert not any(m == "jax" or m.startswith(("jax.", "nlsolver_tpu"))
                    for m in sys.modules if sys.modules[m] is not None)
     print("ok")

@@ -1,0 +1,276 @@
+"""The parallel-order Jacobi eigensolver of nlsolver_torch (``linalg.jacobi``,
+``linalg.eigh_qr``, ``ops.eigh_jacobi``) against nlsolver_tpu: the schedule,
+the rotation, ``eigh_jacobi`` against the jnp Jacobi and against the Pallas
+kernel in interpret mode (f64), the ``eigh`` dispatcher, the kernel's
+shared-memory plan, the shapes refused, and kernel K5 against its twin (on
+a card only).
+
+Tolerances: eigenvalues rtol 1e-12 (relative to the largest), eigenvectors
+atol 1e-10: the two packages run the same operations in the same order, and
+differ where PyTorch's CPU sqrt is an ulp off XLA's, over 10 sweeps.
+
+JAX is imported only inside the tests that compare with it, so that the
+card's tests run where JAX is not installed:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_jacobi_eigh.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from nlsolver_torch import linalg as tl
+from nlsolver_torch.linalg import jacobi as tj
+from nlsolver_torch.ops import eigh_jacobi as te
+
+torch.set_num_threads(1)
+
+
+def sym(rng, n, b=None, dtype=np.float64):
+    """Symmetric matrices, batch-minor [n, n, b] (or one [n, n])."""
+    shape = (n, n) if b is None else (b, n, n)
+    A = rng.standard_normal(shape).astype(dtype)
+    A = (A + np.swapaxes(A, -1, -2)) / 2
+    return A if b is None else np.ascontiguousarray(np.moveaxis(A, 0, -1))
+
+
+def _close(got, want, w_scale=None):
+    """(w, V) against the reference's: w rtol 1e-12 of the largest
+    eigenvalue, V atol 1e-10."""
+    w, V = got
+    jw, jV = (np.asarray(x) for x in want)
+    scale = float(np.abs(jw).max()) if w_scale is None else w_scale
+    np.testing.assert_allclose(w.numpy(), jw, rtol=0, atol=1e-12 * scale)
+    np.testing.assert_allclose(V.numpy(), jV, rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("n", [2, 3, 8, 15, 16, 17])
+def test_schedule_equals_jax(n):
+    from nlsolver_tpu.linalg.jacobi import round_robin_schedule
+
+    ours, theirs = tj.round_robin_schedule(n), round_robin_schedule(n)
+    assert len(ours) == len(theirs) == (n - 1 if n % 2 == 0 else n)
+    for a, b in zip(ours, theirs):
+        for x, y in zip(a, b):
+            assert x.dtype == y.dtype and np.array_equal(x, y)
+    # the kernel's table is the same schedule: the pairs, then the bye row
+    units = tj.schedule_tables(n)
+    assert units.dtype == np.int32 and units.shape == (len(ours), (n + 1) // 2, 2)
+    for r, (ps, qs, perm, _) in enumerate(ours):
+        k = len(ps)
+        assert np.array_equal(units[r, :k, 0], ps) and np.array_equal(units[r, :k, 1], qs)
+        rows = sorted(units[r].reshape(-1).tolist())
+        assert sorted(set(rows)) == list(range(n))         # every row once (the bye twice)
+        for p, q in units[r, k:]:
+            assert p == q and perm[p] == p
+
+
+def test_rotation_matches_jax_and_is_the_identity_at_zero():
+    import jax.numpy as jnp
+    from nlsolver_tpu.linalg.jacobi import _rotation
+
+    rng = np.random.default_rng(1)
+    app, aqq, apq = (rng.standard_normal(4000) for _ in range(3))
+    apq[::7] = 0.0                       # the identity branch
+    app[3::7] = aqq[3::7]                # theta == 0
+    apq[5::7] *= 1e-200                  # a huge theta
+    c, s = tj._rotation(*(torch.from_numpy(x) for x in (app, aqq, apq)))
+    jc, js = _rotation(jnp.asarray(app), jnp.asarray(aqq), jnp.asarray(apq), jnp.float64)
+    np.testing.assert_allclose(c.numpy(), np.asarray(jc), rtol=1e-14, atol=0)
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-14, atol=1e-300)
+    assert torch.isfinite(c).all() and torch.isfinite(s).all()
+    assert torch.equal(c[::7], torch.ones_like(c[::7])) and not s[::7].any()
+    # the rotation zeroes apq: (c, s) diagonalize [[app, apq], [apq, aqq]]
+    off = (c * c - s * s) * torch.from_numpy(apq) + c * s * torch.from_numpy(app - aqq)
+    assert float(off.abs().max()) < 1e-12
+
+
+@pytest.mark.parametrize("sort", [True, False])
+@pytest.mark.parametrize("n", [2, 3, 5, 8])
+def test_eigh_jacobi_matches_jax_single_and_batchminor(n, sort):
+    import jax
+    import jax.numpy as jnp
+    from nlsolver_tpu.linalg.jacobi import eigh_jacobi
+
+    rng = np.random.default_rng(n)
+    A, Abm = sym(rng, n), sym(rng, n, 24)
+    jfn = jax.jit(lambda X: eigh_jacobi(X, sort=sort))
+    _close(tj.eigh_jacobi(torch.from_numpy(A), sort=sort), jfn(jnp.asarray(A)))
+    got = tj.eigh_jacobi(torch.from_numpy(Abm), sort=sort)
+    _close(got, jfn(jnp.asarray(Abm)))
+    assert got.eigenvalues.shape == (n, 24) and got.eigenvectors.shape == (n, n, 24)
+    if sort:
+        w0 = np.linalg.eigh(np.moveaxis(Abm, -1, 0))[0].T
+        np.testing.assert_allclose(got.eigenvalues.numpy(), w0, rtol=0, atol=1e-10)
+
+
+def test_eigh_jacobi_under_vmap_equals_batchminor():
+    """``torch.func.vmap`` over a leading axis runs the same operations as
+    the trailing-batch form: equal to it, and to JAX's vmap."""
+    import jax
+    import jax.numpy as jnp
+    from nlsolver_tpu.linalg.jacobi import eigh_jacobi
+
+    n, B = 6, 16
+    Abm = sym(np.random.default_rng(0), n, B)
+    lead = torch.from_numpy(np.ascontiguousarray(np.moveaxis(Abm, -1, 0)))
+    wv, Vv = torch.func.vmap(tj.eigh_jacobi)(lead)
+    w, V = tj.eigh_jacobi(torch.from_numpy(Abm))
+    np.testing.assert_allclose(wv.numpy(), w.numpy().T, rtol=0, atol=1e-13)
+    np.testing.assert_allclose(Vv.numpy(), np.moveaxis(V.numpy(), -1, 0), rtol=0, atol=1e-13)
+    _close((wv, Vv), jax.jit(jax.vmap(eigh_jacobi))(jnp.asarray(lead.numpy())))
+
+
+@pytest.mark.parametrize("n,B", [(4, 32), (8, 16), (5, 24)])
+def test_twin_matches_the_pallas_kernel_in_interpret_mode(n, B):
+    """K5's twin, through the entry point that keeps the JAX name, against
+    the TPU kernel as the JAX package's own tests run it on the CPU."""
+    import jax.numpy as jnp
+    from nlsolver_tpu.ops.eigh_jacobi import eigh_jacobi_pallas
+
+    Abm = sym(np.random.default_rng(n), n, B)
+    for sort in (True, False):
+        got = te.eigh_jacobi_pallas(torch.from_numpy(Abm), sort=sort, tile=B, interpret=True)
+        _close(got, eigh_jacobi_pallas(jnp.asarray(Abm), sort=sort, tile=B, interpret=True))
+    # reconstruction on a few instances
+    w, V = (x.numpy() for x in got)
+    for b in (0, B // 2, B - 1):
+        assert np.abs((V[..., b] * w[:, b][None]) @ V[..., b].T - Abm[..., b]).max() < 1e-10
+
+
+def test_f32_meets_the_1e_5_bar_against_lapack():
+    """The JAX package's bar in the fleet's dtype: eigenvalues within 1e-5
+    of the largest against an f64 LAPACK decomposition."""
+    B, n = 64, 16
+    Abm = sym(np.random.default_rng(7), n, B, dtype=np.float32)
+    w, V = tj.eigh_jacobi(torch.from_numpy(Abm))
+    w0 = np.linalg.eigh(np.moveaxis(Abm, -1, 0).astype(np.float64))[0].T
+    assert np.abs(w.numpy() - w0).max() / np.abs(w0).max() < 1e-5
+    VtV = torch.einsum("ikb,ilb->klb", V, V)
+    assert float((VtV - torch.eye(n)[:, :, None]).abs().max()) < 1e-5
+
+
+def test_eigh_dispatcher_methods():
+    import jax.numpy as jnp
+    from nlsolver_tpu.linalg import eigh
+
+    rng = np.random.default_rng(3)
+    A, Abm = sym(rng, 6), sym(rng, 6, 16)
+    tA = torch.from_numpy(A)
+    w_x = tl.eigh(tA, method="xla").eigenvalues
+    w_j = tl.eigh(tA, method="jacobi").eigenvalues
+    np.testing.assert_allclose(w_x.numpy(), w_j.numpy(), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(w_x.numpy(), np.asarray(eigh(jnp.asarray(A), method="xla")[0]),
+                               rtol=0, atol=1e-10)
+    w_p = tl.eigh(torch.from_numpy(Abm), method="pallas", interpret=True, tile=16)
+    w_jb = tl.eigh(torch.from_numpy(Abm), method="jacobi")
+    assert torch.equal(w_p.eigenvalues, w_jb.eigenvalues)      # on the CPU: the twin itself
+    assert torch.equal(w_p.eigenvectors, w_jb.eigenvectors)
+    _close(w_p, eigh(jnp.asarray(Abm), method="pallas", interpret=True, tile=16))
+    # the parity path: iterated QR finds the same spectrum, in its own order
+    S = A @ A.T + np.eye(6)
+    got = tl.eigh(torch.from_numpy(S), method="qr", max_iter=200)
+    want = eigh(jnp.asarray(S), method="qr", max_iter=200)
+    np.testing.assert_allclose(got.eigenvalues.numpy(), np.asarray(want.eigenvalues),
+                               rtol=1e-9, atol=0)
+    np.testing.assert_allclose(np.sort(got.eigenvalues.numpy()), np.linalg.eigvalsh(S), rtol=1e-6)
+    with pytest.raises(ValueError, match="eigh method"):
+        tl.eigh(tA, method="nope")
+    with pytest.raises(ValueError, match=r"expected \[n, n, \*batch\]"):
+        tj.eigh_jacobi(torch.zeros(3, 4))
+
+
+def test_eigh_qr_stops_early_on_a_diagonal_matrix():
+    d = torch.tensor([3.0, 1.0, 2.0], dtype=torch.float64)
+    w, V = tl.eigh_qr(torch.diag(d))
+    assert torch.equal(w, d) and torch.equal(V, torch.eye(3, dtype=torch.float64))
+
+
+def test_resident_plan_fits_a_block():
+    """K5a's tile of lanes: 32 while A, V, c and s fit the 232448 bytes a
+    block may opt in to, halved down to one 32-byte sector of lanes, and
+    nothing beyond n = 59; small n get more lanes, up to 256 threads."""
+    f32, f64 = torch.float32, torch.float64
+    assert [te.resident_tile(n, f32) for n in (4, 16, 29, 30, 42, 43, 56, 59, 60)] == \
+        [32, 32, 32, 16, 16, 8, 8, 8, 0]
+    assert [te.resident_tile(n, f64) for n in (4, 16, 20, 21, 29, 30, 42, 43, 59, 60)] == \
+        [32, 32, 32, 16, 16, 8, 8, 4, 4, 0]
+    assert te.resident_tile(2, f32) == 128 and te.resident_tile(1, f64) == 256
+    for dtype in (f32, f64):
+        size = torch.empty((), dtype=dtype).element_size()
+        for n in range(1, 80):
+            lanes = te.resident_tile(n, dtype)
+            assert te.resident_fits(n, dtype) == (lanes > 0) == (n <= 59)
+            if lanes:
+                assert (2 * n * n + 2 * n) * lanes * size <= te.MAX_DYNAMIC_SMEM
+                assert lanes * size >= te.SECTOR_BYTES
+                tb, rj, ru = te.block_shape(n, lanes)
+                assert tb == lanes and 1 <= rj <= n and 1 <= ru <= (n + 1) // 2
+                assert tb * rj * ru <= te.MAX_THREADS
+    assert te.block_shape(16, 32) == (32, 4, 8) and te.block_shape(64, 8) == (8, 4, 32)
+
+
+def test_wrappers_refuse_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match=r"expected \[n, n, B\]"):
+        te.eigh_jacobi_pallas(torch.zeros(3, 4, 5))
+    with pytest.raises(ValueError, match=r"expected \[n, n, B\]"):
+        te.eigh_jacobi_pallas(torch.zeros(3, 3))
+    with pytest.raises(ValueError, match="sweeps"):
+        te.eigh_jacobi_pallas(torch.zeros(3, 3, 2), sweeps=-1)
+    # the kernel's own wrappers never run on a CPU tensor
+    for kernel in (te.eigh_jacobi_kernel, te.eigh_jacobi_resident, te.eigh_jacobi_global):
+        with pytest.raises(ValueError, match="unsupported device"):
+            kernel(torch.zeros(3, 3, 2))
+    assert te.eigh_jacobi_resident.launches == 0 and te.eigh_jacobi_global.launches == 0
+
+
+def _on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: pytest -m gpu tests/test_torch_jacobi_eigh.py)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,B", [(2, 1000), (3, 257), (8, 4096), (16, 4099), (17, 333),
+                                 (33, 130), (56, 64), (64, 40)])
+def test_kernel_equals_twin_on_card(n, B, dtype):
+    """K5a and K5b against the twin, bit for bit, and through the
+    dispatcher that keeps the JAX name."""
+    dev = _on_card()
+    A = torch.from_numpy(sym(np.random.default_rng(n), n, B)).to(dev, dtype)
+    tw, tV = tj.eigh_jacobi(A, sweeps=6, sort=False)
+    before = te.eigh_jacobi_global.launches
+    w, V = te.eigh_jacobi_global(A, sweeps=6)
+    torch.cuda.synchronize()
+    assert te.eigh_jacobi_global.launches == before + 1
+    assert torch.equal(w, tw) and torch.equal(V, tV)
+    if te.resident_fits(n, dtype):
+        before = te.eigh_jacobi_resident.launches
+        got = te.eigh_jacobi_pallas(A, sweeps=6, sort=False)
+        torch.cuda.synchronize()
+        assert te.eigh_jacobi_resident.launches == before + 1
+        assert torch.equal(got.eigenvalues, tw) and torch.equal(got.eigenvectors, tV)
+    else:
+        with pytest.raises(ValueError, match="does not fit the shared memory"):
+            te.eigh_jacobi_resident(A, sweeps=6)
+
+
+@pytest.mark.gpu
+def test_kernel_sorted_spectrum_and_refusals_on_card():
+    dev = _on_card()
+    n, B = 12, 500
+    A64 = torch.from_numpy(sym(np.random.default_rng(5), n, B)).to(dev)
+    got = te.eigh_jacobi_pallas(A64)
+    w0 = torch.linalg.eigh(A64.permute(2, 0, 1))[0].t()
+    assert float((got.eigenvalues - w0).abs().max()) < 1e-10
+    recon = torch.einsum("ikb,kb,jkb->ijb", got.eigenvectors, got.eigenvalues, got.eigenvectors)
+    assert float((recon - A64).abs().max()) < 1e-10
+    # a diagonal matrix takes the identity rotation everywhere: no NaN
+    D = torch.diag_embed(torch.rand(B, n, device=dev)).permute(1, 2, 0).contiguous()
+    w, V = te.eigh_jacobi_resident(D, sweeps=3)
+    assert torch.equal(w, torch.diagonal(D, dim1=0, dim2=1).t())
+    assert torch.equal(V, torch.eye(n, device=dev)[:, :, None].expand(n, n, B))
+    with pytest.raises(ValueError, match="contiguous"):
+        te.eigh_jacobi_pallas(A64.transpose(0, 1))
+    with pytest.raises(ValueError, match="float32 or float64"):
+        te.eigh_jacobi_pallas(A64.half())
