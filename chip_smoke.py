@@ -52,26 +52,32 @@ Phases, each fatal on failure:
  13. BFGS timing: bench_bfgs_fleet per line search (median of 3 after 1
      warm-up, ABBA order), and K4a, K4b and K4c alone against their twins
      from CUDA events;
- 14. K5 (batched Jacobi eigensolver) equal to its twin bit for bit: K5a
-     (resident) at [16, 16, 65536] f32 with 8 sweeps, [17, 17, 4096],
-     [2, 2, 65536], [8, 8, 4096] f64, [16, 16, 4099] in f32 and f64 and
-     [56, 56, 4096]; K5b (device memory) at the same shapes, equal to K5a,
-     and at [64, 64, 4096]; against torch.linalg.eigh in f64 on the same
-     matrices (eigenvalues, V diag(w) V^T - A and V^T V - I within 1e-5 in
-     f32 up to n = 16 and 1e-5 n / 16 beyond, 1e-11 in f64); a diagonal
-     matrix; the dispatcher takes K5a at n = 59 and K5b at n = 60; a
-     non-contiguous and an f16 input refused;
+ 14. K5 (batched Jacobi eigensolver) equal to its twin bit for bit in all
+     three forms: K5r (registers) at [16, 16, 65536] f32 with 8 sweeps,
+     [17, 17, 4096], [2, 2, 65536], [8, 8, 4096] f64, [16, 16, 4099] in f32
+     and f64, [31, 31, 512] and [32, 32, 512]; K5a (shared memory) at the
+     same shapes, at [56, 56, 4096], [64, 64, 4096] and at its edge
+     [169, 169, 64]; K5b (device memory) at all of these up to n = 64 and at
+     [170, 170, 256], the first n that K5a refuses; against
+     torch.linalg.eigh in f64 on the same matrices (eigenvalues,
+     V diag(w) V^T - A and V^T V - I within 1e-5 in f32 up to n = 16 and
+     1e-5 n / 16 beyond, 1e-11 in f64); a diagonal matrix; the dispatcher
+     takes K5r at n = 32, K5a at 33 and 169, K5b at 170 (f32), K5r at 16
+     and K5a at 17 (f64); a non-contiguous and an f16 input refused;
  15. the CMA-ES slice: the bench scenario (16-D Rastrigin, 65536 lanes,
-     lam = 12, 50 generations) with eigh_method="pallas", K5a launches
+     lam = 12, 50 generations) with eigh_method="pallas", K5r launches
      equal to the generations, and with eigen_interval=5 and
      defer_covariance=True, launches equal to the refreshes of the
      schedule; minimize(method="cmaes", layout="fleet") on 65536 8-D bowls
-     until every lane halts, K5a launched once per host step; a numpy x0
+     until every lane halts, K5r launched once per host step; a numpy x0
      lands on the card; a bounded fleet stays in its box; wide fleets at
-     n = 56 (K5a) and n = 64 (K5b, through the dispatcher);
+     n = 56 and n = 64 (K5a) and a short one at n = 170 (K5b), each through
+     the dispatcher;
  16. CMA-ES timing: bench_cmaes_fleet per eigh_method and for the lazy
-     deferred mode (ABBA order), K5a and K5b alone against their twins from
-     CUDA events, beside torch.linalg.eigh on [B, n, n].
+     deferred mode (ABBA order); K5r and K5a at [16, 16, 65536], K5a at
+     [56, 56, 4096] and [64, 64, 4096] and K5b at [64, 64, 4096] alone
+     against their twins from CUDA events, beside torch.linalg.eigh on
+     [B, n, n].
 
 Every kernel's line also gives its bound: the larger of its compulsory
 bytes over 3.35 TB/s and its floating-point operations over 67 TFLOP/s
@@ -94,7 +100,8 @@ SLEEP_CYCLES = 400_000_000     # a device sleep of some 0.2 s ahead of a timed c
 BFGS_B, BFGS_N = 65536, 16     # the BFGS fleet: bowls, dimensions
 WIDE_B, WIDE_N = 4096, 128     # the wide BFGS fleet, beyond K4a's resident slab
 CMA_B, CMA_N, CMA_GENS = 65536, 16, 50   # the CMA-ES fleet: strategies, dimensions, generations
-CMA_WIDE_B = 4096              # the wide CMA-ES fleets: n = 56 (K5a's edge region), n = 64 (K5b)
+CMA_WIDE_B = 4096              # the wide CMA-ES fleets: n = 56 and n = 64 (K5a)
+CMA_EDGE_N, CMA_EDGE_B = 170, 256  # the first n that K5a refuses in f32 (K5b), a few seconds' worth
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOPS = 67e12              # H100 SXM float32 rate outside the tensor cores
 
@@ -159,9 +166,28 @@ def phase_build():
     path, out = _build.ensure_built()
     _build.load_library()
     log(f"[2] built {path.name} in {time.perf_counter() - t0:.2f} s")
+    # ptxas names a kernel, then its stack frame and spills, then its registers.
+    # The register form of K5 is one kernel per width and parity: a summary
+    # line, and no word of theirs may live in local memory
+    entry, k5r, main = "", [], None
     for line in out.splitlines():
-        if "registers" in line or "spill" in line:
+        if "Compiling entry function" in line:
+            entry = line
+        elif "eigh_jacobi_registers_kernel" in entry:
+            if "spill" in line:
+                check("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" in line,
+                      f"a register kernel of K5 uses local memory: {entry.strip()} {line.strip()}")
+            elif "Used" in line:
+                k5r.append(int(line.split("Used")[1].split()[0]))
+                if f"IfLi{CMA_N}ELb0E" in entry:  # <float, the fleet's n, even>
+                    main = k5r[-1]
+        elif "registers" in line or "spill" in line:
             log(f"[2] ptxas: {line.strip()}")
+    if out:
+        check(len(k5r) > 0, "ptxas reported no register kernel of K5")
+        log(f"[2] ptxas: eigh_jacobi_registers_kernel, {len(k5r)} kernels (float32 and float64, "
+            f"every even width, both parities of n): {min(k5r)} to {max(k5r)} registers a "
+            f"thread, {main} at n = {CMA_N} in float32, 0 bytes of stack frame, 0 bytes spilled")
 
 
 def phase_injected(torch, dev):
@@ -449,7 +475,8 @@ def phase_qr(torch, dev):
 def reset_counts():
     from nlsolver_torch.ops import de_fused, eigh_jacobi, qr_wavefront, rank2, smallchol
 
-    for fn in (eigh_jacobi.eigh_jacobi_resident, eigh_jacobi.eigh_jacobi_global,
+    for fn in (eigh_jacobi.eigh_jacobi_registers, eigh_jacobi.eigh_jacobi_resident,
+               eigh_jacobi.eigh_jacobi_global,
                de_fused.de_generation_fused, qr_wavefront.qr_wavefront_kernel,
                qr_wavefront.least_squares_wavefront_kernel, smallchol.solve_spd_batchminor,
                rank2.rank2_direction_batchminor_resident,
@@ -856,17 +883,19 @@ def phase_eigh(torch, dev):
     from nlsolver_torch.ops import eigh_jacobi as te
 
     f32, f64 = torch.float32, torch.float64
-    worst = {"K5a": 0.0, "K5b": 0.0}
+    worst = {"K5r": 0.0, "K5a": 0.0, "K5b": 0.0}
 
-    def hold(A, sweeps, label):
-        """Both forms on ``A`` against the twin, bit for bit, then against
-        the library's f64 decomposition of the same matrices (of the first
-        1024 lanes where n >= 32: the library takes seconds there)."""
+    def hold(A, sweeps, label, with_global=True):
+        """Every form that takes ``A`` against the twin, bit for bit, then
+        against the library's f64 decomposition of the same matrices (of the
+        first 1024 lanes where n >= 32: the library takes seconds there)."""
         n, _, b = A.shape
         tw, tV = eigh_jacobi(A, sweeps=sweeps, sort=False)
-        forms = [("K5b", te.eigh_jacobi_global)]
+        forms = [("K5r", te.eigh_jacobi_registers)] if te.registers_fit(n, A.dtype) else []
         if te.resident_fits(n, A.dtype):
-            forms.insert(0, ("K5a", te.eigh_jacobi_resident))
+            forms.append(("K5a", te.eigh_jacobi_resident))
+        if with_global:
+            forms.append(("K5b", te.eigh_jacobi_global))
         for kid, kernel in forms:
             before = kernel.launches
             w, V = kernel(A, sweeps)
@@ -896,25 +925,35 @@ def phase_eigh(torch, dev):
         check(w_err <= limit and recon <= limit and orth <= limit,
               f"K5 {label}: not an eigendecomposition to {limit:g}")
 
+    edge = next(n for n in range(2, 1024) if not te.resident_fits(n, f32))
+    check(edge == CMA_EDGE_N, f"K5a's range in f32 ends at n = {edge - 1}, expected {CMA_EDGE_N - 1}")
     cases = [(CMA_N, CMA_B, f32), (17, 4096, f32), (2, 65536, f32), (8, 4096, f64),
-             (CMA_N, 4099, f32), (CMA_N, 4099, f64), (56, CMA_WIDE_B, f32), (64, CMA_WIDE_B, f32)]
+             (CMA_N, 4099, f32), (CMA_N, 4099, f64), (31, 512, f32), (32, 512, f32),
+             (56, CMA_WIDE_B, f32), (64, CMA_WIDE_B, f32), (edge - 1, 64, f32),
+             (edge, CMA_EDGE_B, f32)]
     for n, b, dtype in cases:
-        hold(spd_fleet(b, n, device=dev, dtype=dtype), 8,
-             f"[{n}, {n}, {b}] {str(dtype)[6:]}")
+        hold(spd_fleet(b, n, device=dev, dtype=dtype), 8, f"[{n}, {n}, {b}] {str(dtype)[6:]}",
+             with_global=n <= 64 or n == edge)
     # a diagonal matrix takes the identity rotation (apq == 0) in every round
     d = torch.rand((8, 4096), device=dev) + 0.5
     D = torch.diag_embed(d.t()).permute(1, 2, 0).contiguous()
-    for kernel in (te.eigh_jacobi_resident, te.eigh_jacobi_global):
+    for kernel in (te.eigh_jacobi_registers, te.eigh_jacobi_resident, te.eigh_jacobi_global):
         w, V = kernel(D, 8)
         check(torch.equal(w, d) and torch.equal(V, torch.eye(8, device=dev)[:, :, None].expand_as(V)),
               f"{kernel.__name__} changed a diagonal matrix")
     log("[14] a diagonal matrix comes back as it was, V = I, no NaN")
-    # the dispatcher that keeps the JAX name: K5a while the slabs fit, K5b beyond; sorted
-    for n, kernel in ((59, te.eigh_jacobi_resident), (60, te.eigh_jacobi_global)):
+    # the dispatcher that keeps the JAX name: K5r while a lane fits its
+    # threads' registers, K5a while the slabs fit a block, K5b beyond; sorted
+    for n, dtype, kernel in ((32, f32, te.eigh_jacobi_registers), (33, f32, te.eigh_jacobi_resident),
+                             (edge - 1, f32, te.eigh_jacobi_resident),
+                             (edge, f32, te.eigh_jacobi_global),
+                             (16, f64, te.eigh_jacobi_registers), (17, f64, te.eigh_jacobi_resident)):
         before = kernel.launches
-        out = te.eigh_jacobi_pallas(spd_fleet(64, n, device=dev))
-        check(kernel.launches == before + 1, f"the dispatcher did not take {kernel.__name__} at n={n}")
+        out = te.eigh_jacobi_pallas(spd_fleet(64, n, device=dev, dtype=dtype))
+        check(kernel.launches == before + 1,
+              f"the dispatcher did not take {kernel.__name__} at n={n} in {dtype}")
         check(bool((out.eigenvalues.diff(dim=0) >= 0).all()), f"n={n}: eigenvalues not ascending")
+    log(f"[14] the dispatcher takes K5r up to n = 32 (16 in f64), K5a up to {edge - 1}, K5b beyond")
     small = spd_fleet(64, 4, device=dev)
     for what, arg in (("non-contiguous", small.transpose(0, 1)), ("f16", small.half())):
         try:
@@ -929,7 +968,13 @@ def phase_eigh(torch, dev):
 def eigh_counts():
     from nlsolver_torch.ops import eigh_jacobi as te
 
-    return {"K5a": te.eigh_jacobi_resident.launches, "K5b": te.eigh_jacobi_global.launches}
+    return {"K5r": te.eigh_jacobi_registers.launches, "K5a": te.eigh_jacobi_resident.launches,
+            "K5b": te.eigh_jacobi_global.launches}
+
+
+def only(kid, launches):
+    """The launch counts of a run that went through form ``kid`` alone."""
+    return {k: launches * (k == kid) for k in ("K5r", "K5a", "K5b")}
 
 
 def lazy_refreshes(gens, interval):
@@ -967,16 +1012,16 @@ def phase_cmaes_slice(torch, dev):
         counts = eigh_counts()
         med = float(final.best_value.median())
         log(f"[15] Rastrigin [{CMA_N}, {CMA_B}] {label}: {wall:.3f} s for {CMA_GENS} generations, "
-            f"launches {counts} (expected K5a {want}), best value median {med:.4f} "
+            f"launches {counts} (expected K5r {want}), best value median {med:.4f} "
             f"(limit {limit}), max {float(final.best_value.max()):.4f}, from 324.0")
-        check(counts == {"K5a": want, "K5b": 0}, f"{label}: launches {counts}, expected K5a {want}")
+        check(counts == only("K5r", want), f"{label}: launches {counts}, expected K5r {want}")
         check(final.gen == CMA_GENS and bool((final.iteration == CMA_GENS).all()),
               f"{label}: not every lane ran {CMA_GENS} generations")
         check(tuple(final.best_x.shape) == (CMA_N, CMA_B) and bool(torch.isfinite(final.best_x).all())
               and bool(torch.isfinite(final.C).all()), f"{label}: non-finite or misshapen state")
         check(med < limit and float(final.best_value.max()) < 324.0,
               f"{label}: the fleet did not descend as the JAX fleet does")
-        launches.setdefault("K5a", counts["K5a"])  # the eager run's
+        launches.setdefault("K5r", counts["K5r"])  # the eager run's
 
     # (b) minimize until every lane halts.  The fleet's objective is one
     # function for all lanes, so the bowls' per-lane centers enter as start
@@ -1005,7 +1050,7 @@ def phase_cmaes_slice(torch, dev):
         f"1e-6), share below 1e-9 {solved:.6f} (limit 0.97)")
     check(res.x.is_cuda and tuple(res.x.shape) == (8, CMA_B) and bool(torch.isfinite(res.x).all()),
           "bowls: x not on the card, misshapen or non-finite")
-    check(counts == {"K5a": steps, "K5b": 0}, f"bowls: launches {counts} in {steps} host steps")
+    check(counts == only("K5r", steps), f"bowls: launches {counts} in {steps} host steps")
     check(int(res.iterations.max()) <= cfg.max_iter and bool(res.converged.all()),
           "bowls: a lane ran into max_iter or halted unconverged")
     check(torch.equal(res.function_calls, 1 + lam * res.iterations),
@@ -1026,21 +1071,22 @@ def phase_cmaes_slice(torch, dev):
     check(float(res.x.min()) >= 0.0 and float(res.x.max()) <= 1e-2
           and abs(float(res.f_value.median()) - 2.0) < 1e-2, "the bounded fleet left its box or its corner")
 
-    # (c) wide fleets: n = 56 through K5a, n = 64 through K5b
-    for n, kid in ((56, "K5a"), (64, "K5b")):
+    # (c) wide fleets: n = 56 and n = 64 through K5a; beyond its range, K5b
+    for n, b, gens, kid in ((56, CMA_WIDE_B, 5, "K5a"), (64, CMA_WIDE_B, 5, "K5a"),
+                            (CMA_EDGE_N, CMA_EDGE_B, 2, "K5b")):
         reset_counts()
         t0 = time.perf_counter()
-        final = run_rastrigin_fleet(rastrigin_fleet_config("pallas"), CMA_WIDE_B, n, 5, device=dev)
+        final = run_rastrigin_fleet(rastrigin_fleet_config("pallas"), b, n, gens, device=dev)
         torch.cuda.synchronize()
         counts = eigh_counts()
         start = 20.25 * n  # Rastrigin at -0.5 in every coordinate
-        log(f"[15] wide Rastrigin [{n}, {CMA_WIDE_B}]: {time.perf_counter() - t0:.3f} s for 5 "
+        log(f"[15] wide Rastrigin [{n}, {b}]: {time.perf_counter() - t0:.3f} s for {gens} "
             f"generations, launches {counts}, best value median "
             f"{float(final.best_value.median()):.2f} from {start}")
-        check(counts == {k: 5 * (k == kid) for k in counts}, f"wide n={n}: launches {counts}")
+        check(counts == only(kid, gens), f"wide n={n}: launches {counts}")
         check(bool(torch.isfinite(final.best_value).all()) and bool(torch.isfinite(final.Bv).all())
               and float(final.best_value.median()) < start, f"wide n={n}: non-finite or no descent")
-        launches.setdefault(kid, counts[kid])
+        launches[kid] = counts[kid]  # K5a: the n = 64 run's
     return launches
 
 
@@ -1050,25 +1096,33 @@ def phase_cmaes_timing(torch, dev):
     from nlsolver_torch.linalg.jacobi import eigh_jacobi
     from nlsolver_torch.ops import eigh_jacobi as te
 
-    # name: kernel, its repeats, the input; the twin and the library call run on the same input
-    shapes = {
-        "K5a": (te.eigh_jacobi_resident, 10, spd_fleet(CMA_B, CMA_N, device=dev)),
-        "K5a n=56": (te.eigh_jacobi_resident, 3, spd_fleet(CMA_WIDE_B, 56, device=dev)),
-        "K5b": (te.eigh_jacobi_global, 2, spd_fleet(CMA_WIDE_B, 64, device=dev)),
-    }
+    # per input: the forms timed on it (name, kernel, repeats); the twin and
+    # the library call run once on the same input
+    inputs = [
+        (spd_fleet(CMA_B, CMA_N, device=dev),
+         [("K5r", te.eigh_jacobi_registers, 10), ("K5a n=16", te.eigh_jacobi_resident, 10)]),
+        (spd_fleet(CMA_WIDE_B, 56, device=dev), [("K5a n=56", te.eigh_jacobi_resident, 3)]),
+        (spd_fleet(CMA_WIDE_B, 64, device=dev),
+         [("K5a", te.eigh_jacobi_resident, 3), ("K5b", te.eigh_jacobi_global, 2)]),
+    ]
     alone = {}
-    for name, (kernel, kreps, A) in shapes.items():
+    for A, forms in inputs:
         Al = A.permute(2, 0, 1).contiguous()
         p1 = time_alone(torch, lambda: eigh_jacobi(A, sweeps=8, sort=False), 2, False, warmup=1)
-        k1 = time_alone(torch, lambda: kernel(A, 8), kreps, True, warmup=2)
-        k2 = time_alone(torch, lambda: kernel(A, 8), kreps, True, warmup=1)
+        ks = {name: [time_alone(torch, lambda: kernel(A, 8), kreps, True, warmup=2)]
+              for name, kernel, kreps in forms}
+        for name, kernel, kreps in reversed(forms):
+            ks[name].append(time_alone(torch, lambda: kernel(A, 8), kreps, True, warmup=1))
         p2 = time_alone(torch, lambda: eigh_jacobi(A, sweeps=8, sort=False), 2, False, warmup=0)
         lib = time_alone(torch, lambda: eigh_library_batched(Al), 1 if A.shape[0] > 32 else 3,
                          True, warmup=1, strict=False)
-        alone[name] = (min(k1, k2), min(p1, p2), lib)
-        log(f"[16] {name} {list(A.shape)} alone: kernel {min(k1, k2):.3f} ms of device time "
-            f"({k1:.3f}/{k2:.3f}), plain twin {min(p1, p2):.3f} ms per call ({p1:.3f}/{p2:.3f}), "
-            f"torch.linalg.eigh on {list(Al.shape)} {lib:.3f} ms")
+        for name, (k1, k2) in ks.items():
+            alone[name] = (min(k1, k2), min(p1, p2), lib)
+            log(f"[16] {name} {list(A.shape)} alone: kernel {min(k1, k2):.3f} ms of device time "
+                f"({k1:.3f}/{k2:.3f}), plain twin {min(p1, p2):.3f} ms per call ({p1:.3f}/{p2:.3f}), "
+                f"torch.linalg.eigh on {list(Al.shape)} {lib:.3f} ms")
+    log(f"[16] [16, 16, {CMA_B}]: the register form {alone['K5r'][0]:.3f} ms, the shared-memory "
+        f"form {alone['K5a n=16'][0]:.3f} ms, {alone['K5a n=16'][0] / alone['K5r'][0]:.2f} times")
 
     # the fleet per eigensolver; the plain twin at a fifth of the depth (it takes 0.1 s a generation)
     variants = {"pallas": dict(method="pallas"), "jacobi": dict(method="jacobi", iters=10, runs=2),
@@ -1087,7 +1141,7 @@ def phase_cmaes_timing(torch, dev):
         per_gen = best["median_ms"] / best["generations"]
         note = ""
         if tag == "pallas":
-            note = f", K5a {alone['K5a'][0] / per_gen:.1%} of it"
+            note = f", K5r {alone['K5r'][0] / per_gen:.1%} of it"
         log(f"[16] fleet {tag}: {best['gens_per_sec']:.6g} instance generations/s, "
             f"{per_gen:.3f} ms a generation of {CMA_B} lanes{note}")
     return alone
@@ -1147,8 +1201,10 @@ def phases_earlier(torch, dev):
 def eigh_rows(launches, err, alone):
     csrc, tpu = "nlsolver_torch/csrc/eigh_jacobi.cu", "nlsolver_tpu/ops/eigh_jacobi.py:213"
     return [
-        kernel_row("eigh_jacobi_resident", csrc, tpu, launches["K5a"], err["K5a"], alone["K5a"],
+        kernel_row("eigh_jacobi_registers", csrc, tpu, launches["K5r"], err["K5r"], alone["K5r"],
                    jacobi_bound(CMA_N, CMA_B, 8)),
+        kernel_row("eigh_jacobi_resident", csrc, tpu, launches["K5a"], err["K5a"], alone["K5a"],
+                   jacobi_bound(64, CMA_WIDE_B, 8)),
         kernel_row("eigh_jacobi_global", csrc, tpu, launches["K5b"], err["K5b"], alone["K5b"],
                    jacobi_bound(64, CMA_WIDE_B, 8)),
     ]

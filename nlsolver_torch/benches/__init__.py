@@ -367,10 +367,12 @@ def _device_ms(fn, reps=3):
     return start.elapsed_time(end) / reps
 
 
-def sweep_eigh_jacobi(ns=(2, 4, 8, 16, 24, 29, 30, 42, 43, 56, 59, 60, 64, 96, 128), B=4096,
-                      sweeps=8):
+def sweep_eigh_jacobi(ns=(8, 16, 24, 29, 30, 31, 32, 42, 43, 52, 53, 54, 55, 56, 57, 58, 59, 60,
+                           61, 62, 63, 64, 84, 85, 120, 169, 170), B=4096, sweeps=8,
+                      global_up_to=64):
     """The size envelope of the eigensolver kernel: for each n the device
-    time of K5a (``None`` where its slabs do not fit a block) and of K5b on
+    time of the register form and of K5a (``None`` where n does not fit)
+    and of K5b (for n <= ``global_up_to`` and wherever K5a takes none) on
     ``spd_fleet(B, n)``, f32, with K5a's tile of lanes and the block."""
     from ..ops import eigh_jacobi as te
 
@@ -380,36 +382,47 @@ def sweep_eigh_jacobi(ns=(2, 4, 8, 16, 24, 29, 30, 42, 43, 56, 59, 60, 64, 96, 1
     for n in ns:
         A = spd_fleet(B, n)
         lanes = te.resident_tile(n, A.dtype)
+        fits = te.registers_fit(n, A.dtype)
         rows.append({
             "n": n, "B": B, "sweeps": sweeps, "resident_lanes": lanes,
             "resident_block": te.block_shape(n, lanes) if lanes else None,
+            "registers_ms": _device_ms(lambda: te.eigh_jacobi_registers(A, sweeps)) if fits else None,
             "resident_ms": _device_ms(lambda: te.eigh_jacobi_resident(A, sweeps)) if lanes else None,
-            "global_ms": _device_ms(lambda: te.eigh_jacobi_global(A, sweeps)),
+            "global_ms": (_device_ms(lambda: te.eigh_jacobi_global(A, sweeps))
+                          if n <= global_up_to or not lanes else None),
         })
     return rows
 
 
 def probe_eigh_jacobi_plans(n=16, B=65536, sweeps=8):
     """The launch plans that ``ops.eigh_jacobi`` chose between, timed on
-    ``spd_fleet(B, n)``, f32: K5a with its block split pairs-first (the
-    plan in use) and columns-first, and K5b with 8 (in use), 16 and 32
-    lanes a block.  Device time in ms per plan."""
+    ``spd_fleet(B, n)``, f32: the register form where it takes n; K5a with
+    its tile of lanes and its block split pairs-first (the plan in use),
+    columns-first and with half the lanes, and, where
+    the tile is under 32 lanes, with the leading dimension left at n; K5b
+    with 8 (in use), 16 and 32 lanes a block.  Device time in ms per plan."""
     from ..ops import eigh_jacobi as te
 
     if not torch.cuda.is_available():
         raise RuntimeError("probe_eigh_jacobi_plans measures a CUDA card; none is available")
     A = spd_fleet(B, n)
     out = {"n": n, "B": B, "sweeps": sweeps}
+    if te.registers_fit(n, A.dtype):
+        out["registers"] = _device_ms(lambda: te.eigh_jacobi_registers(A, sweeps))
     lanes = te.resident_tile(n, A.dtype)
     if lanes:
-        _, rj, ru = te.block_shape(n, lanes)
         cols_first = min(n, te.MAX_THREADS // lanes)
-        plans = {"pairs_first": (lanes, rj, ru),
+        plans = {"pairs_first": te.block_shape(n, lanes),
                  "columns_first": (lanes, cols_first,
                                    max(1, min((n + 1) // 2, te.MAX_THREADS // (lanes * cols_first))))}
+        if lanes > 1:
+            plans["half_the_lanes"] = te.block_shape(n, lanes // 2)
         for name, block in plans.items():
             out[f"resident_{name}_{block}"] = _device_ms(
                 lambda: te._launch("probe", A, None, None, block, True, sweeps))
+        if te.leading_dim(n, lanes) != n:
+            out["resident_unpadded"] = _device_ms(lambda: te._launch(
+                "probe", A, None, None, te.block_shape(n, lanes), True, sweeps, ldn=n))
     work, coef = torch.empty_like(A), A.new_empty((2, n, B))
     for tile in (8, 16, 32):
         block = te.block_shape(n, tile)

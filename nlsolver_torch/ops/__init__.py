@@ -3,6 +3,7 @@ from .eigh_jacobi import (
     eigh_jacobi_global,
     eigh_jacobi_kernel,
     eigh_jacobi_pallas,
+    eigh_jacobi_registers,
     eigh_jacobi_resident,
 )
 from .qr_wavefront import (
@@ -34,6 +35,7 @@ __all__ = [
     "eigh_jacobi_global",
     "eigh_jacobi_kernel",
     "eigh_jacobi_pallas",
+    "eigh_jacobi_registers",
     "eigh_jacobi_resident",
     "least_squares_wavefront_kernel",
     "least_squares_wavefront_reference",

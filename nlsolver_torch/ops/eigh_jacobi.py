@@ -11,14 +11,18 @@ fleet, which needs thousands of small eigendecompositions per generation.
   ``linalg.jacobi.eigh_jacobi`` on CPU tensors.  ``tile`` and ``interpret``
   tuned and emulated the TPU kernel; they are taken and do nothing here.
 * ``eigh_jacobi_kernel`` is the kernel on CUDA tensors (float32 or
-  float64, contiguous), in two forms.  K5a, ``eigh_jacobi_resident``: A and
-  V of a tile of lanes stay in shared memory for all sweeps, one read of A
-  and one write of w and V; it takes n <= 59 (``resident_fits``).  K5b,
-  ``eigh_jacobi_global``: the same code on a working copy in device memory,
-  any n.  The kernel form has no pad lanes, no rule on B and no fallback to
-  the twin: a shape that neither form takes raises.
+  float64, contiguous), in three forms, chosen by n and dtype alone.
+  ``eigh_jacobi_registers``: a lane's A and V stay in the registers of a
+  few threads of one warp, the players of the tournament move between them
+  by warp shuffles, no barrier and no shared memory; n <= 32 in float32,
+  n <= 16 in float64 (``registers_fit``).  K5a, ``eigh_jacobi_resident``:
+  A and V of a tile of lanes stay in shared memory for all sweeps, one
+  read of A and one write of w and V; n <= 169 in float32, n <= 119 in
+  float64 (``resident_fits``).  K5b, ``eigh_jacobi_global``: K5a's code on
+  a working copy in device memory, any n.  No form has pad lanes, a rule
+  on B or a fallback to the twin: a shape that none takes raises.
 
-Both forms compute through round-to-nearest intrinsics in the twin's order
+All forms compute through round-to-nearest intrinsics in the twin's order
 of operations, and a Jacobi round has no sum longer than two terms, so on
 a card they equal the twin, and each other, bit for bit.  The ascending
 sort, where asked for, is ``torch.argsort`` outside the kernel.
@@ -28,6 +32,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from ..linalg.eigh_qr import Eigh
@@ -35,38 +40,54 @@ from ..linalg.jacobi import eigh_jacobi, schedule_tables, sort_spectrum
 from . import _build
 from ._build import MAX_DYNAMIC_SMEM
 
-# a block's thread limit, and the bytes of one device-memory sector (the
-# narrowest tile of lanes)
+# a block's thread limit, a warp's threads (and shared-memory banks), and
+# the bytes of one device-memory sector (K5b's tile of lanes)
 MAX_THREADS = 1024
+WARP = 32
 SECTOR_BYTES = 32
+# the register form: the most players (n, or n + 1 for odd n) it is built for
+REGISTER_MAX_PLAYERS = {torch.float32: 32, torch.float64: 16}
 
 
 def _itemsize(dtype: torch.dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
 
 
+def leading_dim(n: int, lanes: int) -> int:
+    """Leading dimension of K5a's [n, n] slabs: n while a warp is 32 lanes
+    of one row; odd (``n | 1``) where a block has fewer lanes and a warp
+    spans several rows of the column pass, ``ld * lanes`` words apart,
+    which an odd ld puts on different banks."""
+    return n if lanes >= WARP else n | 1
+
+
 def _slab_bytes(n: int, lanes: int, itemsize: int) -> int:
-    """K5a's shared memory: A and V [n, n] and the coefficients c, s [n]."""
-    return (2 * n * n + 2 * n) * lanes * itemsize
+    """K5a's shared memory: A and V [n, ld] and the coefficients c, s [n]."""
+    return (2 * n * leading_dim(n, lanes) + 2 * n) * lanes * itemsize
 
 
 def block_shape(n: int, lanes: int) -> tuple[int, int, int]:
     """The block (lanes, RJ, RU): RU threads over a round's pairs first (on
     an H100 a thread that walks more columns of its pair ran [16, 16, 65536]
     in 3.4 ms where the opposite split took 5.2), then RJ over the columns
-    (or rows) of a lane's matrix, at most ``MAX_THREADS``."""
-    ru = max(1, min((n + 1) // 2, MAX_THREADS // lanes, 64))
+    (or rows) of a lane's matrix, at most ``MAX_THREADS``.  With fewer than
+    32 lanes RJ is a multiple of ``32 / lanes``, so that a warp is whole
+    rows of one pair."""
+    span = max(1, WARP // lanes)
+    ru = max(1, min((n + 1) // 2, MAX_THREADS // (lanes * span), 64))
     rj = max(1, min(n, MAX_THREADS // (lanes * ru)))
+    if rj > span:
+        rj -= rj % span
     return lanes, rj, ru
 
 
 def resident_tile(n: int, dtype: torch.dtype) -> int:
-    """Lanes of one block of K5a: 32, halved down to one sector of lanes
-    until A, V, c and s fit a block's shared memory (0: they never do), and
-    doubled for a small n until a block has 256 threads."""
+    """Lanes of one block of K5a: 32, halved down to one lane until A, V,
+    c and s fit a block's shared memory (0: they never do), and doubled
+    for a small n until a block has 256 threads."""
     itemsize = _itemsize(dtype)
-    lanes, least = 32, SECTOR_BYTES // itemsize
-    while lanes > least and _slab_bytes(n, lanes, itemsize) > MAX_DYNAMIC_SMEM:
+    lanes = WARP
+    while lanes > 1 and _slab_bytes(n, lanes, itemsize) > MAX_DYNAMIC_SMEM:
         lanes //= 2
     if _slab_bytes(n, lanes, itemsize) > MAX_DYNAMIC_SMEM:
         return 0
@@ -77,17 +98,64 @@ def resident_tile(n: int, dtype: torch.dtype) -> int:
 
 
 def resident_fits(n: int, dtype: torch.dtype) -> bool:
-    """Whether K5a takes n: n <= 59 in float32 (32 lanes a block up to
-    n = 29, 16 to 42, 8 beyond) and in float64 (32 lanes up to n = 20, 16
-    to 29, 8 to 42, 4 beyond)."""
+    """Whether K5a takes n: n <= 169 in float32 (32 lanes a block up to
+    n = 29, 16 to 41, 8 to 59, 4 to 84, 2 to 119, 1 beyond) and n <= 119
+    in float64 (32 lanes up to n = 20, 16 to 29, 8 to 41, 4 to 59, 2 to
+    84, 1 beyond)."""
     return resident_tile(n, dtype) > 0
 
 
+def register_seating(n: int) -> np.ndarray:
+    """Who sits where in the register form: int ``[rounds, m / 2, 2]``, the
+    players on top and at the bottom of every slot in every round, for m =
+    n players (n + 1 for odd n, the dummy player being n).  Slots stay
+    paired as positions (i, m - 1 - i); after a round the data of the
+    players moves as ``linalg.jacobi.round_robin_schedule`` rotates them:
+    slot 0's top stays, slot 1's top takes slot 0's bottom, every other top
+    takes its left neighbour's, every bottom its right neighbour's, and the
+    last slot's bottom takes that slot's top."""
+    m = n + n % 2
+    h = m // 2
+    top, bottom = list(range(h)), list(range(m - 1, h - 1, -1))
+    seats = np.zeros((m - 1, h, 2), np.int64)
+    for r in range(m - 1):
+        seats[r, :, 0], seats[r, :, 1] = top, bottom
+        if h > 1:
+            top, bottom = [top[0], bottom[0]] + top[1:-1], bottom[1:] + [top[-1]]
+    return seats
+
+
 @functools.lru_cache(maxsize=None)
-def _launcher(suffix: str):
-    fn = getattr(_build.load_library(), f"eigh_jacobi_{suffix}")
+def register_masks(n: int) -> np.ndarray:
+    """The seating as the kernel reads it, one uint32 a round: bit j where
+    slot j's top player is the lower index of its pair (the lower takes
+    -s), bit 16 + j where slot j holds the bye of an odd n (its real player
+    then counts as the lower)."""
+    seats = register_seating(n)
+    if seats.shape[1] > 16:
+        raise ValueError(f"register_masks: n={n} has more than 16 slots")
+    masks = np.zeros(seats.shape[0], np.uint32)
+    for r, slots in enumerate(seats):
+        for j, (t, b) in enumerate(slots):
+            masks[r] |= np.uint32(int(t < b) << j | int(max(t, b) >= n) << (16 + j))
+    return masks
+
+
+def registers_fit(n: int, dtype: torch.dtype) -> bool:
+    """Whether the register form takes n: n <= 32 in float32, n <= 16 in
+    float64 (a thread's 4 (n + n % 2) entries fill 128 registers there)."""
+    return n + n % 2 <= REGISTER_MAX_PLAYERS.get(dtype, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher(suffix: str, registers: bool = False):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 6 + [ci, ci, ci, ctypes.c_int64, ci, ci, ci, ci, vp]
+    if registers:
+        fn = getattr(_build.load_library(), f"eigh_jacobi_registers_{suffix}")
+        fn.argtypes = [vp] * 4 + [ci, ci, ctypes.c_int64, vp]
+    else:
+        fn = getattr(_build.load_library(), f"eigh_jacobi_{suffix}")
+        fn.argtypes = [vp] * 6 + [ci, ci, ci, ci, ctypes.c_int64, ci, ci, ci, ci, vp]
     fn.restype = ci
     return fn
 
@@ -95,6 +163,11 @@ def _launcher(suffix: str):
 @functools.lru_cache(maxsize=None)
 def _units(n: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(schedule_tables(n), device=device).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _masks(n: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(register_masks(n).view(np.int32), device=device).contiguous()
 
 
 def _check(name: str, A: torch.Tensor, sweeps: int) -> tuple[int, int]:
@@ -105,21 +178,52 @@ def _check(name: str, A: torch.Tensor, sweeps: int) -> tuple[int, int]:
     return A.shape[0], A.shape[2]
 
 
-def _launch(name, A, work, coef, block, resident: bool, sweeps: int):
+def _launch(name, A, work, coef, block, resident: bool, sweeps: int, ldn=None):
+    """K5a (``resident``) or K5b on ``A`` with the block ``(lanes, RJ, RU)``;
+    ``ldn`` overrides K5a's leading dimension (the benches' probe)."""
     n, B = A.shape[0], A.shape[2]
     w, V = A.new_empty((n, B)), torch.empty_like(A)
     if B == 0:
         return w, V
     units = _units(n, A.device)
+    if ldn is None:
+        ldn = leading_dim(n, block[0]) if resident else n
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         err = _launcher(_build.DTYPE_SUFFIX[A.dtype])(
             *(None if t is None else t.data_ptr() for t in (A, work, coef, w, V, units)),
-            n, units.shape[0], sweeps, B, *block, int(resident), stream,
+            n, ldn, units.shape[0], sweeps, B, *block, int(resident), stream,
         )
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
     return w, V
+
+
+def eigh_jacobi_registers(A: torch.Tensor, sweeps: int = 10):
+    """The register form on a CUDA tensor ``A [n, n, B]``: ``(w [n, B],
+    V [n, n, B])``, unsorted.  Raises where a lane does not fit the
+    registers of its threads (``registers_fit``)."""
+    name = "eigh_jacobi_registers"
+    n, B = _check(name, A, sweeps)
+    _build.check_cuda_inputs(name, {"A": A})
+    if not registers_fit(n, A.dtype):
+        raise ValueError(f"{name}: n={n} in {A.dtype} does not fit the registers of a warp's "
+                         "threads; eigh_jacobi_resident takes it")
+    w, V = A.new_empty((n, B)), torch.empty_like(A)
+    if B > 0:
+        masks = _masks(n, A.device)
+        with torch.cuda.device(A.device):
+            stream = torch.cuda.current_stream(A.device).cuda_stream
+            err = _launcher(_build.DTYPE_SUFFIX[A.dtype], registers=True)(
+                A.data_ptr(), w.data_ptr(), V.data_ptr(), masks.data_ptr(), n, sweeps, B, stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+    eigh_jacobi_registers.launches += 1
+    return w, V
+
+
+eigh_jacobi_registers.launches = 0
 
 
 def eigh_jacobi_resident(A: torch.Tensor, sweeps: int = 10):
@@ -160,9 +264,12 @@ eigh_jacobi_global.launches = 0
 
 
 def eigh_jacobi_kernel(A: torch.Tensor, sweeps: int = 10, sort: bool = True) -> Eigh:
-    """The kernel on a CUDA tensor: K5a where its slabs fit a block's
-    shared memory, else K5b; the sort outside it."""
-    if A.ndim == 3 and resident_fits(A.shape[0], A.dtype):
+    """The kernel on a CUDA tensor: the register form where a lane fits the
+    registers of its threads, K5a where its slabs fit a block's shared
+    memory, else K5b; the sort outside it."""
+    if A.ndim == 3 and registers_fit(A.shape[0], A.dtype):
+        w, V = eigh_jacobi_registers(A, sweeps)
+    elif A.ndim == 3 and resident_fits(A.shape[0], A.dtype):
         w, V = eigh_jacobi_resident(A, sweeps)
     else:
         w, V = eigh_jacobi_global(A, sweeps)

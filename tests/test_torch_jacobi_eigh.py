@@ -1,9 +1,10 @@
 """The parallel-order Jacobi eigensolver of nlsolver_torch (``linalg.jacobi``,
 ``linalg.eigh_qr``, ``ops.eigh_jacobi``) against nlsolver_tpu: the schedule,
 the rotation, ``eigh_jacobi`` against the jnp Jacobi and against the Pallas
-kernel in interpret mode (f64), the ``eigh`` dispatcher, the kernel's
-shared-memory plan, the shapes refused, and kernel K5 against its twin (on
-a card only).
+kernel in interpret mode (f64), the ``eigh`` dispatcher, the seating plan of
+the kernel's register form and an emulation of its data movement, the
+kernel's shared-memory plan, the shapes refused, and the three forms of
+kernel K5 against their twin (on a card only).
 
 Tolerances: eigenvalues rtol 1e-12 (relative to the largest), eigenvectors
 atol 1e-10: the two packages run the same operations in the same order, and
@@ -187,26 +188,164 @@ def test_eigh_qr_stops_early_on_a_diagonal_matrix():
 
 def test_resident_plan_fits_a_block():
     """K5a's tile of lanes: 32 while A, V, c and s fit the 232448 bytes a
-    block may opt in to, halved down to one 32-byte sector of lanes, and
-    nothing beyond n = 59; small n get more lanes, up to 256 threads."""
+    block may opt in to, halved down to one lane, and nothing beyond
+    n = 169 (119 in f64); under 32 lanes the slabs' leading dimension is
+    odd; small n get more lanes, up to 256 threads."""
     f32, f64 = torch.float32, torch.float64
-    assert [te.resident_tile(n, f32) for n in (4, 16, 29, 30, 42, 43, 56, 59, 60)] == \
-        [32, 32, 32, 16, 16, 8, 8, 8, 0]
-    assert [te.resident_tile(n, f64) for n in (4, 16, 20, 21, 29, 30, 42, 43, 59, 60)] == \
-        [32, 32, 32, 16, 16, 8, 8, 4, 4, 0]
+    ns = (4, 16, 29, 30, 41, 42, 59, 60, 64, 84, 85, 119, 120, 169, 170)
+    assert [te.resident_tile(n, f32) for n in ns] == \
+        [32, 32, 32, 16, 16, 8, 8, 4, 4, 4, 2, 2, 1, 1, 0]
+    assert [te.resident_tile(n, f64) for n in (4, 16, 20, 21, 29, 30, 41, 42, 59, 60, 84, 85,
+                                               119, 120)] == \
+        [32, 32, 32, 16, 16, 8, 8, 4, 4, 2, 2, 1, 1, 0]
     assert te.resident_tile(2, f32) == 128 and te.resident_tile(1, f64) == 256
-    for dtype in (f32, f64):
+    assert [te.leading_dim(n, 32) for n in (16, 29)] == [16, 29]
+    assert [te.leading_dim(n, lanes) for n, lanes in ((30, 16), (56, 8), (59, 8), (64, 4),
+                                                      (119, 2), (120, 1))] == \
+        [31, 57, 59, 65, 119, 121]
+    for dtype, edge in ((f32, 169), (f64, 119)):
         size = torch.empty((), dtype=dtype).element_size()
-        for n in range(1, 80):
+        for n in range(1, 200):
             lanes = te.resident_tile(n, dtype)
-            assert te.resident_fits(n, dtype) == (lanes > 0) == (n <= 59)
+            assert te.resident_fits(n, dtype) == (lanes > 0) == (n <= edge)
             if lanes:
-                assert (2 * n * n + 2 * n) * lanes * size <= te.MAX_DYNAMIC_SMEM
-                assert lanes * size >= te.SECTOR_BYTES
+                ld = te.leading_dim(n, lanes)
+                assert ld in (n, n + 1) and (lanes >= 32 or ld % 2 == 1)
+                assert te._slab_bytes(n, lanes, size) == (2 * n * ld + 2 * n) * lanes * size
+                assert te._slab_bytes(n, lanes, size) <= te.MAX_DYNAMIC_SMEM
+                # one lane more a block would not fit, unless a warp is full
+                assert lanes >= 32 or te._slab_bytes(n, 2 * lanes, size) > te.MAX_DYNAMIC_SMEM
                 tb, rj, ru = te.block_shape(n, lanes)
-                assert tb == lanes and 1 <= rj <= n and 1 <= ru <= (n + 1) // 2
+                assert tb == lanes and 1 <= rj <= n and 1 <= ru <= min((n + 1) // 2, 64)
                 assert tb * rj * ru <= te.MAX_THREADS
+                # under 32 lanes a warp is whole rows of one pair
+                span = 32 // lanes if lanes < 32 else 1
+                assert rj % span == 0 or rj == n
     assert te.block_shape(16, 32) == (32, 4, 8) and te.block_shape(64, 8) == (8, 4, 32)
+    assert te.block_shape(64, 4) == (4, 8, 32) and te.block_shape(169, 1) == (1, 32, 32)
+
+
+@pytest.mark.parametrize("n,dtype,fits", [(1, torch.float32, True), (16, torch.float32, True),
+                                          (31, torch.float32, True), (32, torch.float32, True),
+                                          (33, torch.float32, False), (15, torch.float64, True),
+                                          (16, torch.float64, True), (17, torch.float64, False),
+                                          (8, torch.float16, False)])
+def test_registers_fit(n, dtype, fits):
+    """The register form takes n <= 32 in f32 and n <= 16 in f64: four
+    columns of n (or n + 1) entries are at most 128 registers a thread."""
+    assert te.registers_fit(n, dtype) is fits
+    words = torch.empty((), dtype=dtype).element_size() // 4
+    assert fits == (dtype in te.REGISTER_MAX_PLAYERS and 4 * (n + n % 2) * words <= 128)
+
+
+@pytest.mark.parametrize("n", range(2, 34))
+def test_register_seating_plays_the_schedule(n):
+    """The register form moves the players, not the indices: in every round
+    the slots of ``register_seating`` hold the ordered pairs of
+    ``schedule_tables`` (the bye of an odd n beside the dummy player n),
+    the seats change hands as the docstring says, the masks name the lower
+    player and the bye, and after a sweep every player is home."""
+    seats, units = te.register_seating(n), tj.schedule_tables(n)
+    m = n + n % 2
+    assert seats.shape == (len(units), m // 2, 2)
+    assert seats[0].tolist() == [[i, m - 1 - i] for i in range(m // 2)]
+    for r, slots in enumerate(seats):
+        assert sorted(slots.reshape(-1).tolist()) == list(range(m))       # every player once
+        pairs = {(min(t, b), max(t, b)) if max(t, b) < n else (min(t, b),) * 2 for t, b in slots}
+        assert pairs == {(int(p), int(q)) for p, q in units[r]}
+        nxt = seats[(r + 1) % len(seats)]                                 # a sweep comes home
+        top, bottom = slots[:, 0].tolist(), slots[:, 1].tolist()
+        if m > 2:
+            assert nxt[:, 0].tolist() == [top[0], bottom[0]] + top[1:-1]
+            assert nxt[:, 1].tolist() == bottom[1:] + [top[-1]]
+    if n <= 32:
+        masks = te.register_masks(n)
+        assert masks.dtype == np.uint32 and masks.shape == (len(units),)
+        for r, slots in enumerate(seats):
+            for j, (t, b) in enumerate(slots):
+                assert bool(masks[r] >> j & 1) == (t < b)
+                assert bool(masks[r] >> (16 + j) & 1) == (max(t, b) >= n)
+        assert int(masks.max()) >> 16 == 0 or n % 2 == 1                  # a bye only for odd n
+    else:
+        with pytest.raises(ValueError, match="more than 16 slots"):
+            te.register_masks(n)
+
+
+def emulate_registers(A, sweeps):
+    """The register form's data movement in plain tensors: slot s keeps the
+    columns of its two players (``at[s]``, ``ab[s]`` of A with the rows in
+    the order of the positions, tops then bottoms; ``vt[s]``, ``vb[s]`` of V
+    with the rows in their own order), a round rotates rows and columns in
+    place from ``register_masks``, then the players' data moves one seat
+    on; the dummy player of an odd n is a zero row and column."""
+    n, B = A.shape[0], A.shape[2]
+    m = n + n % 2
+    h = m // 2
+    masks = te.register_masks(n)
+    A = (A + A.transpose(0, 1)) / 2
+    pos = list(range(h)) + list(range(m - 1, h - 1, -1))     # register e holds position pos[e]
+    P = torch.zeros((m, m, B), dtype=A.dtype)
+    P[:n, :n] = A
+    at = [[P[pos[e], s].clone() for e in range(m)] for s in range(h)]
+    ab = [[P[pos[e], m - 1 - s].clone() for e in range(m)] for s in range(h)]
+    one, zero = torch.ones(B, dtype=A.dtype), torch.zeros(B, dtype=A.dtype)
+    vt = [[one if r == s else zero for r in range(n)] for s in range(h)]
+    vb = [[one if r == m - 1 - s else zero for r in range(n)] for s in range(h)]
+
+    def rot(x, y, c, st, sb, bye):
+        px, py = (x, y) if bye else (y, x)
+        return c * x + st * px, c * y + sb * py
+
+    for _ in range(sweeps):
+        for rd in range(m - 1):
+            mask = int(masks[rd])
+            coef = []
+            for s in range(h):
+                top_lo, bye = bool(mask >> s & 1), bool(mask >> (16 + s) & 1)
+                tt, bt, tb, bb = at[s][s], at[s][h + s], ab[s][s], ab[s][h + s]
+                c, sn = tj._rotation(*((tt, bb, tb) if top_lo else (bb, tt, bt)))
+                if bye:
+                    coef.append((one, zero, zero, True))
+                else:
+                    coef.append((c, -sn if top_lo else sn, sn if top_lo else -sn, False))
+            for j in range(h):                                # rows: slot j's pair, everywhere
+                for s in range(h):
+                    for col in (at[s], ab[s]):
+                        col[j], col[h + j] = rot(col[j], col[h + j], *coef[j])
+            for s in range(h):                                # columns: the slot's own pair
+                for e in range(m):
+                    at[s][e], ab[s][e] = rot(at[s][e], ab[s][e], *coef[s])
+                for r in range(n):
+                    vt[s][r], vb[s][r] = rot(vt[s][r], vb[s][r], *coef[s])
+            if h == 1:
+                continue
+            for s in range(h):                                # A's rows follow the players
+                for col in (at[s], ab[s]):
+                    col[:] = ([col[0], col[h]] + col[1:h - 1]
+                              + [col[h + j + 1] for j in range(h - 1)] + [col[h - 1]])
+            for tops, bots in ((at, ab), (vt, vb)):           # and so do the columns
+                tops[:], bots[:] = [tops[0], bots[0]] + tops[1:h - 1], bots[1:] + [tops[h - 1]]
+    w, V = torch.zeros((n, B), dtype=A.dtype), torch.zeros((n, n, B), dtype=A.dtype)
+    for s in range(h):
+        for p, d, col in ((s, at[s][s], vt[s]), (m - 1 - s, ab[s][h + s], vb[s])):
+            if p < n:
+                w[p], V[:, p] = d, torch.stack(col)
+    return w, V
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [2, 3, 8, 15, 16, 17, 32])
+def test_register_data_movement_equals_twin(n, dtype):
+    """Moving the players' data between fixed slots, as the register form
+    does, is the twin's computation bit for bit; a diagonal lane keeps
+    c = 1, s = 0 throughout."""
+    A = torch.from_numpy(sym(np.random.default_rng(n), n, 6)).to(dtype)
+    A[:, :, 2] = torch.diag(torch.arange(1.0, n + 1)).to(dtype)
+    for sweeps in (0, 1, 3):
+        w, V = emulate_registers(A, sweeps)
+        tw, tV = tj.eigh_jacobi(A, sweeps=sweeps, sort=False)
+        assert torch.equal(w, tw) and torch.equal(V, tV)
+    assert torch.equal(V[:, :, 2], torch.eye(n, dtype=dtype))
 
 
 def test_wrappers_refuse_what_the_kernel_does_not_take():
@@ -217,10 +356,12 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="sweeps"):
         te.eigh_jacobi_pallas(torch.zeros(3, 3, 2), sweeps=-1)
     # the kernel's own wrappers never run on a CPU tensor
-    for kernel in (te.eigh_jacobi_kernel, te.eigh_jacobi_resident, te.eigh_jacobi_global):
+    kernels = (te.eigh_jacobi_kernel, te.eigh_jacobi_registers, te.eigh_jacobi_resident,
+               te.eigh_jacobi_global)
+    for kernel in kernels:
         with pytest.raises(ValueError, match="unsupported device"):
             kernel(torch.zeros(3, 3, 2))
-    assert te.eigh_jacobi_resident.launches == 0 and te.eigh_jacobi_global.launches == 0
+    assert all(kernel.launches == 0 for kernel in kernels[1:])
 
 
 def _on_card():
@@ -232,27 +373,34 @@ def _on_card():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n,B", [(2, 1000), (3, 257), (8, 4096), (16, 4099), (17, 333),
-                                 (33, 130), (56, 64), (64, 40)])
+                                 (31, 70), (32, 70), (33, 130), (56, 64), (64, 40), (84, 16),
+                                 (120, 5), (170, 3)])
 def test_kernel_equals_twin_on_card(n, B, dtype):
-    """K5a and K5b against the twin, bit for bit, and through the
-    dispatcher that keeps the JAX name."""
+    """The three forms against the twin, bit for bit, each where it takes
+    n, and through the dispatcher that keeps the JAX name; at the first n
+    that K5a refuses in f32 (120 in f64), K5b alone."""
     dev = _on_card()
     A = torch.from_numpy(sym(np.random.default_rng(n), n, B)).to(dev, dtype)
     tw, tV = tj.eigh_jacobi(A, sweeps=6, sort=False)
-    before = te.eigh_jacobi_global.launches
-    w, V = te.eigh_jacobi_global(A, sweeps=6)
-    torch.cuda.synchronize()
-    assert te.eigh_jacobi_global.launches == before + 1
-    assert torch.equal(w, tw) and torch.equal(V, tV)
-    if te.resident_fits(n, dtype):
-        before = te.eigh_jacobi_resident.launches
-        got = te.eigh_jacobi_pallas(A, sweeps=6, sort=False)
+    forms = [(te.eigh_jacobi_registers, te.registers_fit(n, dtype), "does not fit the registers"),
+             (te.eigh_jacobi_resident, te.resident_fits(n, dtype), "does not fit the shared memory"),
+             (te.eigh_jacobi_global, True, None)]
+    taken = next(kernel for kernel, fits, _ in forms if fits)
+    for kernel, fits, refusal in forms:
+        before = kernel.launches
+        if not fits:
+            with pytest.raises(ValueError, match=refusal):
+                kernel(A, sweeps=6)
+            continue
+        w, V = kernel(A, sweeps=6)
         torch.cuda.synchronize()
-        assert te.eigh_jacobi_resident.launches == before + 1
-        assert torch.equal(got.eigenvalues, tw) and torch.equal(got.eigenvectors, tV)
-    else:
-        with pytest.raises(ValueError, match="does not fit the shared memory"):
-            te.eigh_jacobi_resident(A, sweeps=6)
+        assert kernel.launches == before + 1
+        assert torch.equal(w, tw) and torch.equal(V, tV)
+    before = taken.launches
+    got = te.eigh_jacobi_pallas(A, sweeps=6, sort=False)
+    torch.cuda.synchronize()
+    assert taken.launches == before + 1
+    assert torch.equal(got.eigenvalues, tw) and torch.equal(got.eigenvectors, tV)
 
 
 @pytest.mark.gpu
@@ -267,9 +415,10 @@ def test_kernel_sorted_spectrum_and_refusals_on_card():
     assert float((recon - A64).abs().max()) < 1e-10
     # a diagonal matrix takes the identity rotation everywhere: no NaN
     D = torch.diag_embed(torch.rand(B, n, device=dev)).permute(1, 2, 0).contiguous()
-    w, V = te.eigh_jacobi_resident(D, sweeps=3)
-    assert torch.equal(w, torch.diagonal(D, dim1=0, dim2=1).t())
-    assert torch.equal(V, torch.eye(n, device=dev)[:, :, None].expand(n, n, B))
+    for kernel in (te.eigh_jacobi_registers, te.eigh_jacobi_resident, te.eigh_jacobi_global):
+        w, V = kernel(D, sweeps=3)
+        assert torch.equal(w, torch.diagonal(D, dim1=0, dim2=1).t())
+        assert torch.equal(V, torch.eye(n, device=dev)[:, :, None].expand(n, n, B))
     with pytest.raises(ValueError, match="contiguous"):
         te.eigh_jacobi_pallas(A64.transpose(0, 1))
     with pytest.raises(ValueError, match="float32 or float64"):
