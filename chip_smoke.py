@@ -53,17 +53,23 @@ Phases, each fatal on failure:
      warm-up, ABBA order), and K4a, K4b and K4c alone against their twins
      from CUDA events;
  14. K5 (batched Jacobi eigensolver) equal to its twin bit for bit in all
-     three forms: K5r (registers) at [16, 16, 65536] f32 with 8 sweeps,
+     four forms: K5r (registers) at [16, 16, 65536] f32 with 8 sweeps,
      [17, 17, 4096], [2, 2, 65536], [8, 8, 4096] f64, [16, 16, 4099] in f32
      and f64, [31, 31, 512] and [32, 32, 512]; K5a (shared memory) at the
      same shapes, at [56, 56, 4096], [64, 64, 4096] and at its edge
-     [169, 169, 64]; K5b (device memory) at all of these up to n = 64 and at
-     [170, 170, 256], the first n that K5a refuses; against
-     torch.linalg.eigh in f64 on the same matrices (eigenvalues,
-     V diag(w) V^T - A and V^T V - I within 1e-5 in f32 up to n = 16 and
-     1e-5 n / 16 beyond, 1e-11 in f64); a diagonal matrix; the dispatcher
-     takes K5r at n = 32, K5a at 33 and 169, K5b at 170 (f32), K5r at 16
-     and K5a at 17 (f64); a non-contiguous and an f16 input refused;
+     [169, 169, 64]; K5b (device memory) at all of these up to n = 64;
+     K5c (a cluster's shared memory) at [169, 169, 64] and at the wide
+     fleets' shapes past K5a, [170, 170, 256] (with K5b there) and [300,
+     300, 256] (clusters of 4); against torch.linalg.eigh in f64 on the
+     same matrices (eigenvalues, V diag(w) V^T - A and V^T V - I within
+     1e-5 in f32 up to n = 16 and 1e-5 n / 16 beyond, 1e-11 in f64); K5b
+     at its fleet's [473, 473, 16] with 2 sweeps; K5c at the first and
+     last n of each cluster size (f32: 170, 238, 239, 336, 337, 472; f64:
+     120, 167, 168, 236, 237, 329) and K5b at 330 in f64 on 4 lanes with 2
+     sweeps; the clusters the card holds at once; a diagonal matrix; the
+     dispatcher takes K5r at n = 32, K5a at 33 and 169, K5c at 170 and
+     472, K5b at 473 (f32), K5r at 16, K5a at 17 and 119, K5c at 120 and
+     329, K5b at 330 (f64); a non-contiguous and an f16 input refused;
  15. the CMA-ES slice: the bench scenario (16-D Rastrigin, 65536 lanes,
      lam = 12, 50 generations) with eigh_method="pallas", K5r launches
      equal to the generations, and with eigen_interval=5 and
@@ -71,13 +77,14 @@ Phases, each fatal on failure:
      schedule; minimize(method="cmaes", layout="fleet") on 65536 8-D bowls
      until every lane halts, K5r launched once per host step; a numpy x0
      lands on the card; a bounded fleet stays in its box; wide fleets at
-     n = 56 and n = 64 (K5a) and a short one at n = 170 (K5b), each through
-     the dispatcher;
+     n = 56 and n = 64 (K5a), short ones at n = 170 and n = 300 (K5c, with
+     clusters of 2 and 4) and one generation at n = 473 with 2 sweeps
+     (K5b), each through the dispatcher;
  16. CMA-ES timing: bench_cmaes_fleet per eigh_method and for the lazy
      deferred mode (ABBA order); K5r and K5a at [16, 16, 65536], K5a at
-     [56, 56, 4096] and [64, 64, 4096] and K5b at [64, 64, 4096] alone
-     against their twins from CUDA events, beside torch.linalg.eigh on
-     [B, n, n].
+     [56, 56, 4096] and [64, 64, 4096], K5c at [170, 170, 256] and K5b at
+     [473, 473, 16] with 2 sweeps (the shapes each serves) alone against
+     their twins from CUDA events, beside torch.linalg.eigh on [B, n, n].
 
 Every kernel's line also gives its bound: the larger of its compulsory
 bytes over 3.35 TB/s and its floating-point operations over 67 TFLOP/s
@@ -87,6 +94,7 @@ Prints a JSON line of kernels, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 when there is no CUDA card or anything fails.
 """
+import dataclasses
 import json
 import subprocess
 import sys
@@ -101,7 +109,9 @@ BFGS_B, BFGS_N = 65536, 16     # the BFGS fleet: bowls, dimensions
 WIDE_B, WIDE_N = 4096, 128     # the wide BFGS fleet, beyond K4a's resident slab
 CMA_B, CMA_N, CMA_GENS = 65536, 16, 50   # the CMA-ES fleet: strategies, dimensions, generations
 CMA_WIDE_B = 4096              # the wide CMA-ES fleets: n = 56 and n = 64 (K5a)
-CMA_EDGE_N, CMA_EDGE_B = 170, 256  # the first n that K5a refuses in f32 (K5b), a few seconds' worth
+CMA_EDGE_N, CMA_EDGE_B = 170, 256  # the first n that K5a refuses in f32 (K5c), the fleet's B there
+CMA_C4_N = 300                 # a wide fleet on clusters of 4 CTAs
+K5B_N, K5B_B, K5B_SWEEPS = 473, 16, 2  # the first n that K5c refuses in f32, few lanes and sweeps
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOPS = 67e12              # H100 SXM float32 rate outside the tensor cores
 
@@ -476,7 +486,7 @@ def reset_counts():
     from nlsolver_torch.ops import de_fused, eigh_jacobi, qr_wavefront, rank2, smallchol
 
     for fn in (eigh_jacobi.eigh_jacobi_registers, eigh_jacobi.eigh_jacobi_resident,
-               eigh_jacobi.eigh_jacobi_global,
+               eigh_jacobi.eigh_jacobi_cluster, eigh_jacobi.eigh_jacobi_global,
                de_fused.de_generation_fused, qr_wavefront.qr_wavefront_kernel,
                qr_wavefront.least_squares_wavefront_kernel, smallchol.solve_spd_batchminor,
                rank2.rank2_direction_batchminor_resident,
@@ -883,20 +893,19 @@ def phase_eigh(torch, dev):
     from nlsolver_torch.ops import eigh_jacobi as te
 
     f32, f64 = torch.float32, torch.float64
-    worst = {"K5r": 0.0, "K5a": 0.0, "K5b": 0.0}
+    forms = {"K5r": te.eigh_jacobi_registers, "K5a": te.eigh_jacobi_resident,
+             "K5c": te.eigh_jacobi_cluster, "K5b": te.eigh_jacobi_global}
+    worst = dict.fromkeys(forms, 0.0)
 
-    def hold(A, sweeps, label, with_global=True):
-        """Every form that takes ``A`` against the twin, bit for bit, then
-        against the library's f64 decomposition of the same matrices (of the
-        first 1024 lanes where n >= 32: the library takes seconds there)."""
+    def hold(A, sweeps, label, kids, library=True):
+        """The forms ``kids`` on ``A`` against the twin, bit for bit, then
+        (with ``library``) against the library's f64 decomposition of the
+        same matrices (of the first 1024 lanes where n >= 32: the library
+        takes seconds there)."""
         n, _, b = A.shape
         tw, tV = eigh_jacobi(A, sweeps=sweeps, sort=False)
-        forms = [("K5r", te.eigh_jacobi_registers)] if te.registers_fit(n, A.dtype) else []
-        if te.resident_fits(n, A.dtype):
-            forms.append(("K5a", te.eigh_jacobi_resident))
-        if with_global:
-            forms.append(("K5b", te.eigh_jacobi_global))
-        for kid, kernel in forms:
+        for kid in kids:
+            kernel = forms[kid]
             before = kernel.launches
             w, V = kernel(A, sweeps)
             torch.cuda.synchronize()
@@ -907,6 +916,9 @@ def phase_eigh(torch, dev):
             check(torch.equal(w, tw) and torch.equal(V, tV),
                   f"{kid} {label}: differs from the twin: w {max_diff(w, tw):.3e}, "
                   f"V {max_diff(V, tV):.3e}")
+        if not library:
+            log(f"[14] {' and '.join(kids)} {label}, {sweeps} sweeps: bit-equal to the twin")
+            return
         lanes = b if n < 32 else min(b, 1024)
         Al = A[:, :, :lanes].permute(2, 0, 1).double().contiguous()
         w_ref, _ = eigh_library_batched(Al)
@@ -919,41 +931,82 @@ def phase_eigh(torch, dev):
         # f32: the JAX package's 1e-5 bar up to n = 16; an entry of V passes
         # through n - 1 rotations a sweep, so the roundoff grows with n
         limit = 1e-5 * max(1.0, n / 16) if A.dtype == f32 else 1e-11
-        log(f"[14] {' and '.join(k for k, _ in forms)} {label}: bit-equal to the twin; against "
+        log(f"[14] {' and '.join(kids)} {label}: bit-equal to the twin; against "
             f"torch.linalg.eigh in f64 on {lanes} lanes: max|w - w_ref|/max|w_ref| {w_err:.3e}, "
             f"max|V diag(w) Vt - A|/max|A| {recon:.3e}, max|VtV - I| {orth:.3e} (limit {limit:g})")
         check(w_err <= limit and recon <= limit and orth <= limit,
               f"K5 {label}: not an eigendecomposition to {limit:g}")
 
-    edge = next(n for n in range(2, 1024) if not te.resident_fits(n, f32))
+    # the first n that K5a refuses, where the dispatcher turns to K5c
+    first = {dtype: next(n for n in range(2, 1024) if not te.resident_fits(n, dtype))
+             for dtype in (f32, f64)}
+    edge = first[f32]
     check(edge == CMA_EDGE_N, f"K5a's range in f32 ends at n = {edge - 1}, expected {CMA_EDGE_N - 1}")
+    check(te.cluster_plan(CMA_C4_N, f32)[0] == 4 and not te.cluster_fits(K5B_N, f32)
+          and te.cluster_fits(K5B_N - 1, f32), "the wide fleets' n left their forms' ranges")
+    # every form at the shapes that the main path (phase 15) runs it at: K5c
+    # at the wide fleets' [170, 170, 256] and [300, 300, 256] with 8 sweeps,
+    # K5b at [473, 473, 16] with 2
     cases = [(CMA_N, CMA_B, f32), (17, 4096, f32), (2, 65536, f32), (8, 4096, f64),
              (CMA_N, 4099, f32), (CMA_N, 4099, f64), (31, 512, f32), (32, 512, f32),
              (56, CMA_WIDE_B, f32), (64, CMA_WIDE_B, f32), (edge - 1, 64, f32),
-             (edge, CMA_EDGE_B, f32)]
+             (edge, CMA_EDGE_B, f32), (CMA_C4_N, CMA_EDGE_B, f32)]
     for n, b, dtype in cases:
-        hold(spd_fleet(b, n, device=dev, dtype=dtype), 8, f"[{n}, {n}, {b}] {str(dtype)[6:]}",
-             with_global=n <= 64 or n == edge)
+        kids = [k for k, fits in (("K5r", te.registers_fit(n, dtype)),
+                                  ("K5a", te.resident_fits(n, dtype)),
+                                  ("K5c", n >= edge - 1), ("K5b", n <= 64 or n == edge)) if fits]
+        C = te.cluster_plan(n, dtype)[0]
+        hold(spd_fleet(b, n, device=dev, dtype=dtype), 8,
+             f"[{n}, {n}, {b}] {str(dtype)[6:]}" + (f" (C = {C})" if "K5c" in kids else ""), kids)
+    hold(spd_fleet(K5B_B, K5B_N, device=dev), K5B_SWEEPS, f"[{K5B_N}, {K5B_N}, {K5B_B}] float32",
+         ["K5b"], library=False)
+    # each cluster size at its first and last n, and K5b where K5c ends in
+    # float64: few lanes and sweeps
+    ranges = {}
+    for dtype in (f32, f64):
+        sizes = [te.cluster_plan(n, dtype)[0] for n in range(first[dtype], 1024)]
+        ends = [first[dtype] + i for i, c in enumerate(sizes)
+                if i + 1 == len(sizes) or sizes[i + 1] != c]
+        ranges[dtype] = ends
+        firsts = [first[dtype]] + [e + 1 for e in ends[:-2]]
+        for n in sorted(set(firsts + ends[:-1])):
+            hold(spd_fleet(4, n, device=dev, dtype=dtype), 2,
+                 f"[{n}, {n}, 4] {str(dtype)[6:]} (C = {te.cluster_plan(n, dtype)[0]})", ["K5c"],
+                 library=False)
+    first_b = ranges[f64][-2] + 1
+    hold(spd_fleet(4, first_b, device=dev, dtype=f64), 2, f"[{first_b}, {first_b}, 4] float64",
+         ["K5b"], library=False)
+    check(ranges[f32][:-1] == [238, 336, 472] and ranges[f64][:-1] == [167, 236, 329],
+          f"K5c's cluster sizes end at {ranges[f32][:-1]} (f32), {ranges[f64][:-1]} (f64)")
+    log("[14] K5c's clusters held at once (cudaOccupancyMaxActiveClusters; dtype, C, bytes a "
+        f"CTA): {te.CLUSTER_OCCUPANCY}")
     # a diagonal matrix takes the identity rotation (apq == 0) in every round
     d = torch.rand((8, 4096), device=dev) + 0.5
     D = torch.diag_embed(d.t()).permute(1, 2, 0).contiguous()
-    for kernel in (te.eigh_jacobi_registers, te.eigh_jacobi_resident, te.eigh_jacobi_global):
+    for kernel in forms.values():
         w, V = kernel(D, 8)
         check(torch.equal(w, d) and torch.equal(V, torch.eye(8, device=dev)[:, :, None].expand_as(V)),
               f"{kernel.__name__} changed a diagonal matrix")
     log("[14] a diagonal matrix comes back as it was, V = I, no NaN")
     # the dispatcher that keeps the JAX name: K5r while a lane fits its
-    # threads' registers, K5a while the slabs fit a block, K5b beyond; sorted
-    for n, dtype, kernel in ((32, f32, te.eigh_jacobi_registers), (33, f32, te.eigh_jacobi_resident),
-                             (edge - 1, f32, te.eigh_jacobi_resident),
-                             (edge, f32, te.eigh_jacobi_global),
-                             (16, f64, te.eigh_jacobi_registers), (17, f64, te.eigh_jacobi_resident)):
+    # threads' registers, K5a while the slabs fit a block, K5c while they
+    # fit a cluster, K5b beyond; sorted
+    takes = []
+    for dtype in (f32, f64):
+        last = ranges[dtype][-2]
+        reg = max(n for n in range(1, 64) if te.registers_fit(n, dtype))
+        takes += [(reg, dtype, "K5r"), (reg + 1, dtype, "K5a"), (first[dtype] - 1, dtype, "K5a"),
+                  (first[dtype], dtype, "K5c"), (last, dtype, "K5c"), (last + 1, dtype, "K5b")]
+    for n, dtype, kid in takes:
+        kernel = forms[kid]
         before = kernel.launches
-        out = te.eigh_jacobi_pallas(spd_fleet(64, n, device=dev, dtype=dtype))
+        out = te.eigh_jacobi_pallas(spd_fleet(4 if n > 169 else 64, n, device=dev, dtype=dtype),
+                                    sweeps=2 if n > 169 else 10)
         check(kernel.launches == before + 1,
               f"the dispatcher did not take {kernel.__name__} at n={n} in {dtype}")
         check(bool((out.eigenvalues.diff(dim=0) >= 0).all()), f"n={n}: eigenvalues not ascending")
-    log(f"[14] the dispatcher takes K5r up to n = 32 (16 in f64), K5a up to {edge - 1}, K5b beyond")
+    log("[14] the dispatcher takes " + ", ".join(f"{kid} at n = {n} ({str(dt)[6:]})"
+                                                 for n, dt, kid in takes))
     small = spd_fleet(64, 4, device=dev)
     for what, arg in (("non-contiguous", small.transpose(0, 1)), ("f16", small.half())):
         try:
@@ -969,12 +1022,12 @@ def eigh_counts():
     from nlsolver_torch.ops import eigh_jacobi as te
 
     return {"K5r": te.eigh_jacobi_registers.launches, "K5a": te.eigh_jacobi_resident.launches,
-            "K5b": te.eigh_jacobi_global.launches}
+            "K5c": te.eigh_jacobi_cluster.launches, "K5b": te.eigh_jacobi_global.launches}
 
 
 def only(kid, launches):
     """The launch counts of a run that went through form ``kid`` alone."""
-    return {k: launches * (k == kid) for k in ("K5r", "K5a", "K5b")}
+    return {k: launches * (k == kid) for k in ("K5r", "K5a", "K5c", "K5b")}
 
 
 def lazy_refreshes(gens, interval):
@@ -1071,22 +1124,28 @@ def phase_cmaes_slice(torch, dev):
     check(float(res.x.min()) >= 0.0 and float(res.x.max()) <= 1e-2
           and abs(float(res.f_value.median()) - 2.0) < 1e-2, "the bounded fleet left its box or its corner")
 
-    # (c) wide fleets: n = 56 and n = 64 through K5a; beyond its range, K5b
-    for n, b, gens, kid in ((56, CMA_WIDE_B, 5, "K5a"), (64, CMA_WIDE_B, 5, "K5a"),
-                            (CMA_EDGE_N, CMA_EDGE_B, 2, "K5b")):
+    # (c) wide fleets: n = 56 and n = 64 through K5a; beyond its range K5c
+    # (clusters of 2 at n = 170, of 4 at n = 300); beyond K5c's, K5b (one
+    # generation with 2 sweeps: it takes some seconds a sweep there)
+    for n, b, gens, kid, sweeps in ((56, CMA_WIDE_B, 5, "K5a", 8), (64, CMA_WIDE_B, 5, "K5a", 8),
+                                    (CMA_EDGE_N, CMA_EDGE_B, 2, "K5c", 8),
+                                    (CMA_C4_N, CMA_EDGE_B, 2, "K5c", 8),
+                                    (K5B_N, K5B_B, 1, "K5b", K5B_SWEEPS)):
+        cfg = dataclasses.replace(rastrigin_fleet_config("pallas"), sweeps=sweeps)
         reset_counts()
         t0 = time.perf_counter()
-        final = run_rastrigin_fleet(rastrigin_fleet_config("pallas"), b, n, gens, device=dev)
+        final = run_rastrigin_fleet(cfg, b, n, gens, device=dev)
         torch.cuda.synchronize()
         counts = eigh_counts()
         start = 20.25 * n  # Rastrigin at -0.5 in every coordinate
-        log(f"[15] wide Rastrigin [{n}, {b}]: {time.perf_counter() - t0:.3f} s for {gens} "
-            f"generations, launches {counts}, best value median "
+        log(f"[15] wide Rastrigin [{n}, {b}], {sweeps} sweeps: {time.perf_counter() - t0:.3f} s for "
+            f"{gens} generations, launches {counts}, best value median "
             f"{float(final.best_value.median()):.2f} from {start}")
         check(counts == only(kid, gens), f"wide n={n}: launches {counts}")
         check(bool(torch.isfinite(final.best_value).all()) and bool(torch.isfinite(final.Bv).all())
               and float(final.best_value.median()) < start, f"wide n={n}: non-finite or no descent")
-        launches[kid] = counts[kid]  # K5a: the n = 64 run's
+        if kid != "K5c" or n == CMA_EDGE_N:  # K5a: the n = 64 run's; K5c: the n = 170 run's
+            launches[kid] = counts[kid]
     return launches
 
 
@@ -1096,31 +1155,36 @@ def phase_cmaes_timing(torch, dev):
     from nlsolver_torch.linalg.jacobi import eigh_jacobi
     from nlsolver_torch.ops import eigh_jacobi as te
 
-    # per input: the forms timed on it (name, kernel, repeats); the twin and
-    # the library call run once on the same input
+    # per input and sweeps: the forms timed on it (name, kernel, repeats);
+    # the twin and the library call run once on the same input.  Each form
+    # at a shape it serves: K5c at the CMA-ES fleet's B past K5a, K5b where
+    # K5c ends, on a few lanes and sweeps (it takes some seconds a sweep there)
     inputs = [
-        (spd_fleet(CMA_B, CMA_N, device=dev),
+        (spd_fleet(CMA_B, CMA_N, device=dev), 8,
          [("K5r", te.eigh_jacobi_registers, 10), ("K5a n=16", te.eigh_jacobi_resident, 10)]),
-        (spd_fleet(CMA_WIDE_B, 56, device=dev), [("K5a n=56", te.eigh_jacobi_resident, 3)]),
-        (spd_fleet(CMA_WIDE_B, 64, device=dev),
-         [("K5a", te.eigh_jacobi_resident, 3), ("K5b", te.eigh_jacobi_global, 2)]),
+        (spd_fleet(CMA_WIDE_B, 56, device=dev), 8, [("K5a n=56", te.eigh_jacobi_resident, 3)]),
+        (spd_fleet(CMA_WIDE_B, 64, device=dev), 8, [("K5a", te.eigh_jacobi_resident, 3)]),
+        (spd_fleet(CMA_EDGE_B, CMA_EDGE_N, device=dev), 8, [("K5c", te.eigh_jacobi_cluster, 3)]),
+        (spd_fleet(K5B_B, K5B_N, device=dev), K5B_SWEEPS, [("K5b", te.eigh_jacobi_global, 1)]),
     ]
     alone = {}
-    for A, forms in inputs:
+    for A, sweeps, forms in inputs:
         Al = A.permute(2, 0, 1).contiguous()
-        p1 = time_alone(torch, lambda: eigh_jacobi(A, sweeps=8, sort=False), 2, False, warmup=1)
-        ks = {name: [time_alone(torch, lambda: kernel(A, 8), kreps, True, warmup=2)]
+        p1 = time_alone(torch, lambda: eigh_jacobi(A, sweeps=sweeps, sort=False), 2, False,
+                        warmup=1)
+        ks = {name: [time_alone(torch, lambda: kernel(A, sweeps), kreps, True, warmup=2)]
               for name, kernel, kreps in forms}
         for name, kernel, kreps in reversed(forms):
-            ks[name].append(time_alone(torch, lambda: kernel(A, 8), kreps, True, warmup=1))
-        p2 = time_alone(torch, lambda: eigh_jacobi(A, sweeps=8, sort=False), 2, False, warmup=0)
+            ks[name].append(time_alone(torch, lambda: kernel(A, sweeps), kreps, True, warmup=1))
+        p2 = time_alone(torch, lambda: eigh_jacobi(A, sweeps=sweeps, sort=False), 2, False,
+                        warmup=0)
         lib = time_alone(torch, lambda: eigh_library_batched(Al), 1 if A.shape[0] > 32 else 3,
                          True, warmup=1, strict=False)
         for name, (k1, k2) in ks.items():
             alone[name] = (min(k1, k2), min(p1, p2), lib)
-            log(f"[16] {name} {list(A.shape)} alone: kernel {min(k1, k2):.3f} ms of device time "
-                f"({k1:.3f}/{k2:.3f}), plain twin {min(p1, p2):.3f} ms per call ({p1:.3f}/{p2:.3f}), "
-                f"torch.linalg.eigh on {list(Al.shape)} {lib:.3f} ms")
+            log(f"[16] {name} {list(A.shape)}, {sweeps} sweeps, alone: kernel {min(k1, k2):.3f} ms "
+                f"of device time ({k1:.3f}/{k2:.3f}), plain twin {min(p1, p2):.3f} ms per call "
+                f"({p1:.3f}/{p2:.3f}), torch.linalg.eigh on {list(Al.shape)} {lib:.3f} ms")
     log(f"[16] [16, 16, {CMA_B}]: the register form {alone['K5r'][0]:.3f} ms, the shared-memory "
         f"form {alone['K5a n=16'][0]:.3f} ms, {alone['K5a n=16'][0] / alone['K5r'][0]:.2f} times")
 
@@ -1205,8 +1269,10 @@ def eigh_rows(launches, err, alone):
                    jacobi_bound(CMA_N, CMA_B, 8)),
         kernel_row("eigh_jacobi_resident", csrc, tpu, launches["K5a"], err["K5a"], alone["K5a"],
                    jacobi_bound(64, CMA_WIDE_B, 8)),
+        kernel_row("eigh_jacobi_cluster", csrc, tpu, launches["K5c"], err["K5c"], alone["K5c"],
+                   jacobi_bound(CMA_EDGE_N, CMA_EDGE_B, 8)),
         kernel_row("eigh_jacobi_global", csrc, tpu, launches["K5b"], err["K5b"], alone["K5b"],
-                   jacobi_bound(64, CMA_WIDE_B, 8)),
+                   jacobi_bound(K5B_N, K5B_B, K5B_SWEEPS)),
     ]
 
 

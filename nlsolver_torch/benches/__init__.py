@@ -368,12 +368,16 @@ def _device_ms(fn, reps=3):
 
 
 def sweep_eigh_jacobi(ns=(8, 16, 24, 29, 30, 31, 32, 42, 43, 52, 53, 54, 55, 56, 57, 58, 59, 60,
-                           61, 62, 63, 64, 84, 85, 120, 169, 170), B=4096, sweeps=8,
-                      global_up_to=64):
+                           61, 62, 63, 64, 84, 85, 120, 150, 169, 170, 200, 238, 239, 300, 336,
+                           337, 472), B=4096, sweeps=8, global_up_to=64, cluster_from=120,
+                      global_ns=(473,), global_B=16, global_sweeps=2):
     """The size envelope of the eigensolver kernel: for each n the device
-    time of the register form and of K5a (``None`` where n does not fit)
-    and of K5b (for n <= ``global_up_to`` and wherever K5a takes none) on
-    ``spd_fleet(B, n)``, f32, with K5a's tile of lanes and the block."""
+    time of the register form and of K5a (``None`` where n does not fit),
+    of K5c from ``cluster_from`` on (with its cluster size C) and of K5b for
+    n <= ``global_up_to`` on ``spd_fleet(B, n)``, f32, with K5a's tile of
+    lanes and the block; then K5b alone on ``global_ns`` past K5c's range,
+    on ``global_B`` lanes with ``global_sweeps`` sweeps (it takes seconds a
+    sweep there).  Past n = 169 one timed call follows the warm-up."""
     from ..ops import eigh_jacobi as te
 
     if not torch.cuda.is_available():
@@ -383,24 +387,36 @@ def sweep_eigh_jacobi(ns=(8, 16, 24, 29, 30, 31, 32, 42, 43, 52, 53, 54, 55, 56,
         A = spd_fleet(B, n)
         lanes = te.resident_tile(n, A.dtype)
         fits = te.registers_fit(n, A.dtype)
+        C = te.cluster_plan(n, A.dtype)[0] if n >= cluster_from else 0
         rows.append({
             "n": n, "B": B, "sweeps": sweeps, "resident_lanes": lanes,
             "resident_block": te.block_shape(n, lanes) if lanes else None,
             "registers_ms": _device_ms(lambda: te.eigh_jacobi_registers(A, sweeps)) if fits else None,
             "resident_ms": _device_ms(lambda: te.eigh_jacobi_resident(A, sweeps)) if lanes else None,
+            "cluster_C": C or None,
+            "cluster_ms": (_device_ms(lambda: te.eigh_jacobi_cluster(A, sweeps),
+                                      reps=1 if n > 169 else 3) if C else None),
             "global_ms": (_device_ms(lambda: te.eigh_jacobi_global(A, sweeps))
-                          if n <= global_up_to or not lanes else None),
+                          if n <= global_up_to else None),
         })
+    for n in global_ns:
+        A = spd_fleet(global_B, n)
+        rows.append({"n": n, "B": global_B, "sweeps": global_sweeps,
+                     "global_ms": _device_ms(lambda: te.eigh_jacobi_global(A, global_sweeps),
+                                             reps=1)})
     return rows
 
 
-def probe_eigh_jacobi_plans(n=16, B=65536, sweeps=8):
+def probe_eigh_jacobi_plans(n=16, B=65536, sweeps=8, global_tiles=(8, 16, 32)):
     """The launch plans that ``ops.eigh_jacobi`` chose between, timed on
     ``spd_fleet(B, n)``, f32: the register form where it takes n; K5a with
     its tile of lanes and its block split pairs-first (the plan in use),
     columns-first and with half the lanes, and, where
-    the tile is under 32 lanes, with the leading dimension left at n; K5b
-    with 8 (in use), 16 and 32 lanes a block.  Device time in ms per plan."""
+    the tile is under 32 lanes, with the leading dimension left at n; K5c
+    where it takes n with its cluster of C CTAs and every larger one, and
+    with its barriers alone (no arithmetic: what the cluster barriers
+    cost), beside the clusters the card holds at once; K5b with
+    ``global_tiles`` lanes a block (8 in use).  Device time in ms per plan."""
     from ..ops import eigh_jacobi as te
 
     if not torch.cuda.is_available():
@@ -423,8 +439,15 @@ def probe_eigh_jacobi_plans(n=16, B=65536, sweeps=8):
         if te.leading_dim(n, lanes) != n:
             out["resident_unpadded"] = _device_ms(lambda: te._launch(
                 "probe", A, None, None, te.block_shape(n, lanes), True, sweeps, ldn=n))
+    C = te.cluster_plan(n, A.dtype)[0]
+    for size in (c for c in te.CLUSTER_SIZES if C and c >= C):
+        out[f"cluster_C{size}"] = _device_ms(lambda: te._launch_cluster("probe", A, sweeps, size))
+        out[f"cluster_C{size}_clusters_at_once"] = te.cluster_occupancy(A.dtype, n, size)
+    if C:
+        out[f"cluster_C{C}_barriers"] = _device_ms(
+            lambda: te._launch_cluster("probe", A, sweeps, C, barriers=True))
     work, coef = torch.empty_like(A), A.new_empty((2, n, B))
-    for tile in (8, 16, 32):
+    for tile in global_tiles:
         block = te.block_shape(n, tile)
         out[f"global_lanes_{tile}_{block}"] = _device_ms(
             lambda: te._launch("probe", A, work, coef, block, False, sweeps))

@@ -1,10 +1,13 @@
 // Batched symmetric eigendecomposition by parallel-order cyclic Jacobi for
-// Hopper (sm_90a), one computation in three forms:
+// Hopper (sm_90a), one computation in four forms:
 //
 //   K5r  registers  A and V of a lane live in the registers of a few threads
 //                   of one warp; n <= 32 in float32, n <= 16 in float64
 //   K5a  resident   A and V of a tile of lanes live in shared memory;
 //                   n <= 169 in float32, n <= 119 in float64
+//   K5c  cluster    A and V of one lane live in the shared memory of a
+//                   thread-block cluster of 2, 4 or 8 CTAs, split by rows;
+//                   n <= 472 in float32, n <= 329 in float64
 //   K5b  global     A's working copy and V live in device memory, any n
 //
 // They replace nlsolver_tpu/ops/eigh_jacobi.py: eigh_jacobi_pallas (_kernel,
@@ -87,12 +90,55 @@
 // the threads at either end keep or turn a column).  W is a template
 // parameter, one kernel for every even W and parity of n, so that every
 // index is known to the compiler and nothing is padded.
+//
+// K5c.  Past n = 169 one lane's A and V (2 n (n|1) words) outgrow the
+// 232448 bytes of shared memory one block may opt in to, and K5b, which
+// sends every round through L2 or device memory, ran 10.4 times slower at
+// n = 170 than K5a at 169.  A cluster of C CTAs on neighbouring SMs holds
+// one lane instead: CTA k keeps rows [k R, (k + 1) R) of A and of V, R =
+// ceil(n / C), with K5a's odd leading dimension ld = n | 1, and reads and
+// writes the other CTAs' rows through distributed shared memory (DSMEM).
+// C is the least of 2, 4, 8 for which (2 R ld + 4 n) words fit: the slabs,
+// and c and s of every player in 2 n of the 4 n words kept beside them.
+// The units of a round are sorted by the CTA that rotates them
+// (ops/eigh_jacobi.py: cluster_schedule): a unit whose rows share an owner
+// goes to it, the others to the less loaded of their two owners.  A round,
+// with the cluster barriers that its data needs:
+//   1. each CTA forms (c, s) of its units from A[p][p], A[q][q], A[p][q]
+//      (one or two of them remote) and writes them into every CTA; a
+//      block barrier, since the same threads then turn those rows;
+//   2. rows: the CTA that rotates a unit reads both of its rows, the
+//      remote one through DSMEM, and then writes both, as rotate_pair
+//      does; cluster barrier: rows and coefficients are in place;
+//   3. columns of A and V, local in every CTA, on its own rows; cluster
+//      barrier: the next round reads and writes other CTAs' rows.
+// That is two cluster barriers a round.  The alternative, every CTA
+// forming every rotation itself from remote entries, needs a third between
+// steps 1 and 2 (no row may turn while a partner still reads it): on an
+// H100 at [170, 170, 4096] with 8 sweeps it took 638.9 ms where this took
+// 582.2, and it was dropped.  The benches' probe times the kernel built
+// with its barriers alone (no kArithmetic: 120.6 ms there, 0.7 us a
+// barrier).  What bounds K5c is not the crossbar, as in K5a, but a round's
+// chain, the row pass most: it moves 2 n words through DSMEM for each unit
+// whose rows have different owners, half the units at C = 2, at a
+// fraction of the crossbar's rate.  Reading 8 entries at once, spreading
+// units over warps, turning local units through plain shared-memory
+// addresses and aligned barriers were no faster, nor were larger clusters
+// or smaller blocks that put more CTAs on an SM (n = 170, 238, 300, 472).  The last round's barrier is also the
+// one after which no CTA touches another's shared memory, so a CTA may
+// exit.  Lane b's input and output are 4-byte gathers at (i n + j) B + b,
+// one lane a cluster: 3 n^2 + n accesses a lane, each its own 32-byte
+// sector, 11.4 GB of sectors at [170, 170, 4096], a few ms at L2's rate
+// against the rounds' hundreds.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "rn_math.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -259,6 +305,169 @@ int launch(const void* A, void* work, void* coef, void* wout, void* Vout, const 
         static_cast<const T*>(A), static_cast<T*>(work), static_cast<T*>(coef),
         static_cast<T*>(wout), static_cast<T*>(Vout), un, n, ldn, rounds, sweeps, B);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// entries of a row a thread of K5c's row pass reads before it writes any
+// (float64 takes 2: 4 spilled registers under the 64 a thread may have)
+template <typename T>
+constexpr int kRowBatch = sizeof(T) == 4 ? 4 : 2;
+
+// K5c.  One lane b = blockIdx.x / C a cluster; CTA k holds entry (i, j) of
+// A at a[(i - k R) ld + j] for i in [k R, k R + R) (and V likewise), c and
+// s of player i at cv[i], sv[i].  units [rounds][ceil(n/2)][2] is sorted by
+// the rotating CTA; CTA k forms and rotates units [starts[rd][k],
+// starts[rd][k + 1]) and writes their (c, s) into every CTA.  Without
+// kArithmetic only the barriers run: the benches' probe of what they cost.
+template <typename T, bool kArithmetic>
+__global__ void __launch_bounds__(1024)
+    eigh_jacobi_cluster_kernel(const T* __restrict__ A, T* __restrict__ wout,
+                               T* __restrict__ Vout, const int* __restrict__ units,
+                               const int* __restrict__ starts, int n, int R, int ld, int rounds,
+                               int sweeps, int64_t B) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int k = static_cast<int>(cluster.block_rank());
+  const int RJ = blockDim.y, RU = blockDim.z;
+  const int rj = threadIdx.y, ru = threadIdx.z;
+  const int t = ru * RJ + rj, NT = RJ * RU;
+  const int nu = (n + 1) / 2;
+  const int64_t b = blockIdx.x / C;
+  const int lo = k * R, rows = max(0, min(R, n - lo));
+
+  T* a = reinterpret_cast<T*>(smem_raw);
+  T* v = a + static_cast<size_t>(R) * ld;
+  T* cv = v + static_cast<size_t>(R) * ld;
+  T* sv = cv + n;
+  // row i of A in its owner's shared memory, through the cluster's window
+  const auto row = [&](int i) -> T* {
+    const int o = i / R;
+    return cluster.map_shared_rank(a, o) + static_cast<size_t>(i - o * R) * ld;
+  };
+  // (c, s) of unit (p, q) into the coefficients at cm, sm; a bye keeps c = 1, s = 0
+  const auto form = [&](int p, int q, T* cm, T* sm) {
+    T c = T(1), s = T(0);
+    if (p != q) {
+      const T* rp = row(p);
+      rotation(rp[p], row(q)[q], rp[q], c, s);
+    }
+    cm[p] = c;
+    sm[p] = p != q ? -s : s;
+    if (p != q) {
+      cm[q] = c;
+      sm[q] = s;
+    }
+  };
+
+  for (int e = t; e < rows * n; e += NT) {
+    const int i = e / n, j = e - i * n, gi = lo + i;
+    const T x = A[(static_cast<int64_t>(gi) * n + j) * B + b];
+    const T y = A[(static_cast<int64_t>(j) * n + gi) * B + b];
+    a[i * ld + j] = rn::mul(rn::add(x, y), T(0.5));
+    v[i * ld + j] = T(gi == j);
+  }
+  // every CTA of the cluster runs and holds its rows before any is read
+  cluster.sync();
+
+  for (int sweep = 0; sweep < sweeps; ++sweep) {
+    for (int rd = 0; rd < rounds; ++rd) {
+      const int* un = units + static_cast<size_t>(rd) * nu * 2;
+      const int mine0 = __ldg(starts + rd * (C + 1) + k);
+      const int mine1 = __ldg(starts + rd * (C + 1) + k + 1);
+      if (kArithmetic)
+        for (int u = mine0 + t; u < mine1; u += NT) {
+          const int p = __ldg(un + 2 * u), q = __ldg(un + 2 * u + 1);
+          form(p, q, cv, sv);
+          for (int m = 0; m < C; ++m)
+            if (m != k) {
+              T *cm = cluster.map_shared_rank(cv, m), *sm = cluster.map_shared_rank(sv, m);
+              cm[p] = cv[p];
+              sm[p] = sv[p];
+              cm[q] = cv[q];
+              sm[q] = sv[q];
+            }
+        }
+      __syncthreads();  // this CTA's rotations are formed before its rows turn
+      // a thread reads kRowBatch entries of both rows before it writes any
+      if (kArithmetic)
+        for (int u = mine0 + ru; u < mine1; u += RU) {
+          const int p = __ldg(un + 2 * u), q = __ldg(un + 2 * u + 1);
+          const T cp = cv[p], sp = sv[p], cq = cv[q], sq = sv[q];
+          T *rp = row(p), *rq = row(q);
+          for (int j0 = rj; j0 < n; j0 += kRowBatch<T> * RJ) {
+            T x[kRowBatch<T>], y[kRowBatch<T>];
+#pragma unroll
+            for (int m = 0; m < kRowBatch<T>; ++m) {
+              const int j = min(j0 + m * RJ, n - 1);
+              x[m] = rp[j];
+              y[m] = rq[j];
+            }
+#pragma unroll
+            for (int m = 0; m < kRowBatch<T>; ++m) {
+              const int j = j0 + m * RJ;
+              if (j >= n) break;
+              rp[j] = rn::add(rn::mul(cp, x[m]), rn::mul(sp, y[m]));
+              if (p != q) rq[j] = rn::add(rn::mul(cq, y[m]), rn::mul(sq, x[m]));
+            }
+          }
+        }
+      cluster.sync();  // rows turned and coefficients delivered in every CTA
+      if (kArithmetic)
+        for (int u = ru; u < nu; u += RU) {
+          const int p = __ldg(un + 2 * u), q = __ldg(un + 2 * u + 1);
+          const T cp = cv[p], sp = sv[p], cq = cv[q], sq = sv[q];
+          for (int i = rj; i < rows; i += RJ) {
+            rotate_pair(a + i * ld + p, a + i * ld + q, p != q, cp, sp, cq, sq);
+            rotate_pair(v + i * ld + p, v + i * ld + q, p != q, cp, sp, cq, sq);
+          }
+        }
+      cluster.sync();  // columns turned before the next round reads or writes a partner's rows
+    }
+  }
+
+  for (int i = t; i < rows; i += NT)
+    wout[static_cast<int64_t>(lo + i) * B + b] = a[i * ld + lo + i];
+  for (int e = t; e < rows * n; e += NT) {
+    const int i = e / n, j = e - i * n;
+    Vout[(static_cast<int64_t>(lo + i) * n + j) * B + b] = v[i * ld + j];
+  }
+}
+
+// K5c's launch, or with ``clusters`` the number of its clusters the card
+// holds at once (cudaOccupancyMaxActiveClusters) in place of a launch
+template <typename T, bool kArithmetic>
+int launch_cluster(const void* A, void* wout, void* Vout, const void* units, const void* starts,
+                 int n, int R, int ld, int C, int rounds, int sweeps, int64_t B, int rj, int ru,
+                 cudaStream_t st, int* clusters) {
+  if (n < 1 || R < 1 || static_cast<int64_t>(C) * R < n || ld < n || B < 1 || rj < 1 || ru < 1 ||
+      rj * ru > 1024 || (C != 2 && C != 4 && C != 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = (2 * static_cast<size_t>(R) * ld + 4 * static_cast<size_t>(n)) * sizeof(T);
+  if (bytes > static_cast<size_t>(kMaxDynamicSmem)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = eigh_jacobi_cluster_kernel<T, kArithmetic>;
+  if (bytes > static_cast<size_t>(kOptInAbove)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(B * C));
+  cfg.blockDim = dim3(1, rj, ru);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (clusters) return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg));
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(A), static_cast<T*>(wout), static_cast<T*>(Vout),
+      static_cast<const int*>(units), static_cast<const int*>(starts), n, R, ld, rounds, sweeps, B);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -461,7 +670,12 @@ int launch_registers(const void* A, void* wout, void* Vout, const void* masks, i
 // (tb lanes, rj, ru).  With resident != 0 the slabs live in shared memory
 // with leading dimension ldn and work and coef are unused; else ldn == n,
 // and work [n, n, B] and coef [2, n, B] are scratch in device memory.
-// The registers form takes masks uint32 [rounds].  All return cudaGetLastError().
+// The registers form takes masks uint32 [rounds].  The cluster form (K5c)
+// takes the units sorted by the rotating CTA, starts int32 [rounds][C + 1],
+// its plan (C, R, ld) and a block (1, rj, ru); its occupancy entry point
+// writes the clusters the card holds at once, and its barriers entry point
+// (the benches' probe: w and V are garbage) runs its barriers alone.
+// All return cudaGetLastError().
 #define EIGH_JACOBI_ENTRY_POINT(T, SUFFIX, MAXW)                                                     \
   extern "C" int eigh_jacobi_##SUFFIX(const void* A, void* work, void* coef, void* wout,        \
                                       void* Vout, const void* units, int n, int ldn,            \
@@ -477,6 +691,25 @@ int launch_registers(const void* A, void* wout, void* Vout, const void* masks, i
     if (n < 1 || width > MAXW) return static_cast<int>(cudaErrorInvalidValue);                  \
     return launch_registers<T, MAXW>(A, wout, Vout, masks, n, sweeps, B, width,                 \
                                      static_cast<cudaStream_t>(stream));                        \
+  }                                                                                             \
+  extern "C" int eigh_jacobi_cluster_##SUFFIX(const void* A, void* wout, void* Vout,            \
+                                              const void* units, const void* starts, int n,     \
+                                              int R, int ld, int C, int rounds, int sweeps,     \
+                                              int64_t B, int rj, int ru, void* stream) {        \
+    return launch_cluster<T, true>(A, wout, Vout, units, starts, n, R, ld, C, rounds, sweeps, B, \
+                                   rj, ru, static_cast<cudaStream_t>(stream), nullptr);         \
+  }                                                                                             \
+  extern "C" int eigh_jacobi_cluster_occupancy_##SUFFIX(int n, int R, int ld, int C, int rj,    \
+                                                        int ru, int* clusters) {                \
+    if (!clusters) return static_cast<int>(cudaErrorInvalidValue);                              \
+    return launch_cluster<T, true>(nullptr, nullptr, nullptr, nullptr, nullptr, n, R, ld, C, 0, \
+                                   0, 1, rj, ru, nullptr, clusters);                            \
+  }                                                                                             \
+  extern "C" int eigh_jacobi_cluster_barriers_##SUFFIX(                                         \
+      const void* A, void* wout, void* Vout, const void* units, const void* starts, int n, int R, \
+      int ld, int C, int rounds, int sweeps, int64_t B, int rj, int ru, void* stream) {         \
+    return launch_cluster<T, false>(A, wout, Vout, units, starts, n, R, ld, C, rounds, sweeps,  \
+                                    B, rj, ru, static_cast<cudaStream_t>(stream), nullptr);     \
   }
 
 // a thread's 4 W words of entries are 128 registers at W = 32 in float32 and

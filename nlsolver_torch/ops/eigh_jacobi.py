@@ -11,16 +11,21 @@ fleet, which needs thousands of small eigendecompositions per generation.
   ``linalg.jacobi.eigh_jacobi`` on CPU tensors.  ``tile`` and ``interpret``
   tuned and emulated the TPU kernel; they are taken and do nothing here.
 * ``eigh_jacobi_kernel`` is the kernel on CUDA tensors (float32 or
-  float64, contiguous), in three forms, chosen by n and dtype alone.
+  float64, contiguous), in four forms, chosen by n and dtype alone.
   ``eigh_jacobi_registers``: a lane's A and V stay in the registers of a
   few threads of one warp, the players of the tournament move between them
   by warp shuffles, no barrier and no shared memory; n <= 32 in float32,
   n <= 16 in float64 (``registers_fit``).  K5a, ``eigh_jacobi_resident``:
   A and V of a tile of lanes stay in shared memory for all sweeps, one
   read of A and one write of w and V; n <= 169 in float32, n <= 119 in
-  float64 (``resident_fits``).  K5b, ``eigh_jacobi_global``: K5a's code on
-  a working copy in device memory, any n.  No form has pad lanes, a rule
-  on B or a fallback to the twin: a shape that none takes raises.
+  float64 (``resident_fits``).  K5c, ``eigh_jacobi_cluster``: one lane's
+  A and V split by rows over the shared memory of a thread-block cluster
+  of 2, 4 or 8 CTAs; n <= 472 in float32, n <= 329 in float64
+  (``cluster_fits``), taken where K5a refuses n.  K5b,
+  ``eigh_jacobi_global``: K5a's code on a working copy in device memory,
+  any n.  No form has pad lanes, a rule on B or a fallback to the twin or
+  to another form: a shape that none takes raises, and so does a failed
+  build or launch.
 
 All forms compute through round-to-nearest intrinsics in the twin's order
 of operations, and a Jacobi round has no sum longer than two terms, so on
@@ -47,6 +52,16 @@ WARP = 32
 SECTOR_BYTES = 32
 # the register form: the most players (n, or n + 1 for odd n) it is built for
 REGISTER_MAX_PLAYERS = {torch.float32: 32, torch.float64: 16}
+# K5c: the CTAs a cluster may have (8 is the portable most).  The dispatcher
+# gives K5c only the n that K5a refuses: K5a was faster wherever both take n
+# (on an H100 at B = 4096, 8 sweeps, ms, K5a / K5c: float32 n = 120 97.9 /
+# 273.8, 150 184.6 / 479.6, 169 261.1 / 583.6; float64 n = 100 92.8 /
+# 246.8, 119 135.1 / 324.2)
+CLUSTER_SIZES = (2, 4, 8)
+# K5c's block (1, 32, 32): a warp turns 32 columns of a unit's two rows, or
+# 32 rows of a unit's two columns; on an H100 8 or 16 warps a CTA, with more
+# CTAs an SM, were slower at every n and C measured (PERF.md)
+CLUSTER_BLOCK = (1, 32, 32)
 
 
 def _itemsize(dtype: torch.dtype) -> int:
@@ -105,6 +120,58 @@ def resident_fits(n: int, dtype: torch.dtype) -> bool:
     return resident_tile(n, dtype) > 0
 
 
+def _cluster_bytes(n: int, rows: int, itemsize: int) -> int:
+    """K5c's shared memory a CTA: its ``rows`` of A and V [rows, n | 1],
+    and 4 n words beside them (c and s of every player take 2 n)."""
+    return (2 * rows * (n | 1) + 4 * n) * itemsize
+
+
+def cluster_plan(n: int, dtype: torch.dtype) -> tuple[int, int, int]:
+    """K5c's cluster for n: ``(C, R, ld)``, the least C of ``CLUSTER_SIZES``
+    whose CTAs hold R = ceil(n / C) rows each of A and V, leading dimension
+    ld = n | 1 (odd, so that the column pass's threads fall on different
+    banks), in a block's shared memory; ``(0, 0, 0)`` where 8 do not.  C = 2
+    up to n = 238 in float32, 4 to 336, 8 to 472; in float64 2 to 167, 4 to
+    236, 8 to 329."""
+    itemsize = _itemsize(dtype)
+    for C in CLUSTER_SIZES:
+        rows = -(-n // C)
+        if _cluster_bytes(n, rows, itemsize) <= MAX_DYNAMIC_SMEM:
+            return C, rows, n | 1
+    return 0, 0, 0
+
+
+def cluster_fits(n: int, dtype: torch.dtype) -> bool:
+    """Whether K5c takes n: n <= 472 in float32, n <= 329 in float64."""
+    return cluster_plan(n, dtype)[0] > 0
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_schedule(n: int, C: int) -> tuple[np.ndarray, np.ndarray]:
+    """Who rotates what in K5c, a cluster of C CTAs with R = ceil(n / C)
+    rows each (row i is CTA i // R's local row i % R): ``units`` int32
+    ``[rounds, ceil(n/2), 2]``, each round of ``schedule_tables(n)`` sorted
+    by the CTA that forms and rotates the unit, and ``starts`` int32
+    ``[rounds, C + 1]``, CTA k's units being ``starts[r, k]:starts[r, k +
+    1]``.  A unit whose two rows share an owner goes to it; the others, in
+    the table's order, to whichever of their two owners has fewer units so
+    far (the lower rank on a tie)."""
+    R = -(-n // C)
+    table = schedule_tables(n)
+    units, starts = np.empty_like(table), np.zeros((len(table), C + 1), np.int32)
+    for r, pairs in enumerate(table):
+        owners = pairs // R
+        who = np.where(owners[:, 0] == owners[:, 1], owners[:, 0], -1)
+        load = np.bincount(who[who >= 0], minlength=C)
+        for u in np.flatnonzero(who < 0):
+            lo, hi = owners[u]
+            who[u] = lo if load[lo] <= load[hi] else hi
+            load[who[u]] += 1
+        units[r] = pairs[np.argsort(who, kind="stable")]
+        starts[r, 1:] = np.cumsum(load)
+    return units, starts
+
+
 def register_seating(n: int) -> np.ndarray:
     """Who sits where in the register form: int ``[rounds, m / 2, 2]``, the
     players on top and at the bottom of every slot in every round, for m =
@@ -148,9 +215,19 @@ def registers_fit(n: int, dtype: torch.dtype) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher(suffix: str, registers: bool = False):
+def _launcher(suffix: str, registers: bool = False, cluster: str = ""):
+    """The C entry point: K5a / K5b, the register form, or K5c's
+    ``cluster`` entry: "launch", "barriers" (the benches' probe) or
+    "occupancy"."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    if registers:
+    if cluster in ("launch", "barriers"):
+        entry = "" if cluster == "launch" else "_barriers"
+        fn = getattr(_build.load_library(), f"eigh_jacobi_cluster{entry}_{suffix}")
+        fn.argtypes = [vp] * 5 + [ci] * 6 + [ctypes.c_int64, ci, ci, vp]
+    elif cluster == "occupancy":
+        fn = getattr(_build.load_library(), f"eigh_jacobi_cluster_occupancy_{suffix}")
+        fn.argtypes = [ci] * 6 + [ctypes.POINTER(ci)]
+    elif registers:
         fn = getattr(_build.load_library(), f"eigh_jacobi_registers_{suffix}")
         fn.argtypes = [vp] * 4 + [ci, ci, ctypes.c_int64, vp]
     else:
@@ -168,6 +245,11 @@ def _units(n: int, device: torch.device) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _masks(n: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(register_masks(n).view(np.int32), device=device).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_tables(n: int, C: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    return tuple(torch.as_tensor(t, device=device).contiguous() for t in cluster_schedule(n, C))
 
 
 def _check(name: str, A: torch.Tensor, sweeps: int) -> tuple[int, int]:
@@ -235,13 +317,78 @@ def eigh_jacobi_resident(A: torch.Tensor, sweeps: int = 10):
     lanes = resident_tile(n, A.dtype)
     if lanes == 0:
         raise ValueError(f"{name}: n={n} in {A.dtype} does not fit the shared memory of a block; "
-                         "eigh_jacobi_global takes it")
+                         "eigh_jacobi_cluster takes it")
     out = _launch(name, A, None, None, block_shape(n, lanes), True, sweeps)
     eigh_jacobi_resident.launches += 1
     return out
 
 
 eigh_jacobi_resident.launches = 0
+
+
+# the clusters the card held at once, by (dtype, C, bytes a CTA), as
+# cudaOccupancyMaxActiveClusters reported before the first such launch
+CLUSTER_OCCUPANCY: dict = {}
+
+
+def cluster_occupancy(dtype: torch.dtype, n: int, C: int) -> int:
+    """K5c's clusters of C CTAs that the current card holds at once for n
+    (``cudaOccupancyMaxActiveClusters``), asked once per plan and kept in
+    ``CLUSTER_OCCUPANCY``; raises where it is 0 or the query fails."""
+    rows = -(-n // C)
+    key = (str(dtype)[6:], C, _cluster_bytes(n, rows, _itemsize(dtype)))
+    if key not in CLUSTER_OCCUPANCY:
+        found = ctypes.c_int(0)
+        err = _launcher(_build.DTYPE_SUFFIX[dtype], cluster="occupancy")(
+            n, rows, n | 1, C, CLUSTER_BLOCK[1], CLUSTER_BLOCK[2], ctypes.byref(found))
+        if err != 0 or found.value < 1:
+            raise RuntimeError(f"eigh_jacobi_cluster: the card holds no cluster of {C} CTAs "
+                               f"with {key[2]} bytes of shared memory each (cudaError {err}, "
+                               f"{found.value} clusters)")
+        CLUSTER_OCCUPANCY[key] = found.value
+    return CLUSTER_OCCUPANCY[key]
+
+
+def _launch_cluster(name, A, sweeps: int, C: int, barriers: bool = False):
+    """K5c on ``A`` with a cluster of C CTAs; the benches' probe may ask
+    for more than ``cluster_plan``'s, and for the kernel that runs its
+    ``barriers`` alone (its w and V are garbage)."""
+    n, B = A.shape[0], A.shape[2]
+    w, V = A.new_empty((n, B)), torch.empty_like(A)
+    if B == 0:
+        return w, V
+    rows = -(-n // C)
+    cluster_occupancy(A.dtype, n, C)
+    units, starts = _cluster_tables(n, C, A.device)
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        entry = "barriers" if barriers else "launch"
+        err = _launcher(_build.DTYPE_SUFFIX[A.dtype], cluster=entry)(
+            A.data_ptr(), w.data_ptr(), V.data_ptr(), units.data_ptr(), starts.data_ptr(),
+            n, rows, n | 1, C, units.shape[0], sweeps, B, *CLUSTER_BLOCK[1:], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+    return w, V
+
+
+def eigh_jacobi_cluster(A: torch.Tensor, sweeps: int = 10):
+    """Kernel K5c on a CUDA tensor ``A [n, n, B]``: ``(w [n, B], V [n, n,
+    B])``, unsorted; one lane a cluster of ``cluster_plan(n)`` CTAs, each
+    holding its rows of A and V in shared memory for all sweeps.  Raises
+    where 8 CTAs cannot hold a lane (``cluster_fits``)."""
+    name = "eigh_jacobi_cluster"
+    n, _ = _check(name, A, sweeps)
+    if A.dtype in _build.DTYPE_SUFFIX and not cluster_fits(n, A.dtype):
+        raise ValueError(f"{name}: n={n} in {A.dtype} does not fit the shared memory of a "
+                         "cluster of 8 CTAs; eigh_jacobi_global takes it")
+    _build.check_cuda_inputs(name, {"A": A})
+    out = _launch_cluster(name, A, sweeps, cluster_plan(n, A.dtype)[0])
+    eigh_jacobi_cluster.launches += 1
+    return out
+
+
+eigh_jacobi_cluster.launches = 0
 
 
 def eigh_jacobi_global(A: torch.Tensor, sweeps: int = 10):
@@ -266,11 +413,14 @@ eigh_jacobi_global.launches = 0
 def eigh_jacobi_kernel(A: torch.Tensor, sweeps: int = 10, sort: bool = True) -> Eigh:
     """The kernel on a CUDA tensor: the register form where a lane fits the
     registers of its threads, K5a where its slabs fit a block's shared
-    memory, else K5b; the sort outside it."""
-    if A.ndim == 3 and registers_fit(A.shape[0], A.dtype):
+    memory, K5c where they fit a cluster's, else K5b; the sort outside it."""
+    n, _ = _check("eigh_jacobi_kernel", A, sweeps)
+    if registers_fit(n, A.dtype):
         w, V = eigh_jacobi_registers(A, sweeps)
-    elif A.ndim == 3 and resident_fits(A.shape[0], A.dtype):
+    elif resident_fits(n, A.dtype):
         w, V = eigh_jacobi_resident(A, sweeps)
+    elif cluster_fits(n, A.dtype):
+        w, V = eigh_jacobi_cluster(A, sweeps)
     else:
         w, V = eigh_jacobi_global(A, sweeps)
     return sort_spectrum(w, V) if sort else Eigh(eigenvalues=w, eigenvectors=V)

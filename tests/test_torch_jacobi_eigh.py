@@ -3,8 +3,9 @@
 the rotation, ``eigh_jacobi`` against the jnp Jacobi and against the Pallas
 kernel in interpret mode (f64), the ``eigh`` dispatcher, the seating plan of
 the kernel's register form and an emulation of its data movement, the
-kernel's shared-memory plan, the shapes refused, and the three forms of
-kernel K5 against their twin (on a card only).
+kernel's shared-memory plan, the cluster form's plan and an emulation of its
+ownership of rows, the shapes refused, and the four forms of kernel K5
+against their twin (on a card only).
 
 Tolerances: eigenvalues rtol 1e-12 (relative to the largest), eigenvectors
 atol 1e-10: the two packages run the same operations in the same order, and
@@ -348,6 +349,146 @@ def test_register_data_movement_equals_twin(n, dtype):
     assert torch.equal(V[:, :, 2], torch.eye(n, dtype=dtype))
 
 
+def test_cluster_plan_fits_a_cluster():
+    """K5c's plan: the least C of 2, 4, 8 whose CTAs hold R = ceil(n / C)
+    rows of A and V [R, n | 1] and 4 n words in the 232448 bytes a block may
+    opt in to; C = 2 up to n = 238 in f32 (167 in f64), 4 to 336 (236), 8
+    to 472 (329), nothing beyond; at the end of each C's range one more row
+    a CTA would not fit, and the next smaller C never does."""
+    for dtype, ends in ((torch.float32, (238, 336, 472)), (torch.float64, (167, 236, 329))):
+        size = torch.empty((), dtype=dtype).element_size()
+        for n in range(1, 601):
+            C, R, ld = te.cluster_plan(n, dtype)
+            want = next((c for c, end in zip(te.CLUSTER_SIZES, ends) if n <= end), 0)
+            assert C == want and te.cluster_fits(n, dtype) == (C > 0), (n, dtype)
+            if not C:
+                assert (R, ld) == (0, 0)
+                assert te._cluster_bytes(n, -(-n // 8), size) > te.MAX_DYNAMIC_SMEM
+                continue
+            assert R == -(-n // C) and ld == n | 1 and ld % 2 == 1
+            assert te._cluster_bytes(n, R, size) == (2 * R * ld + 4 * n) * size
+            assert te._cluster_bytes(n, R, size) <= te.MAX_DYNAMIC_SMEM
+            if C > 2:
+                assert te._cluster_bytes(n, -(-n // (C // 2)), size) > te.MAX_DYNAMIC_SMEM
+            if n in ends:
+                assert te._cluster_bytes(n, R + 1, size) > te.MAX_DYNAMIC_SMEM
+    # K5c's range starts where K5a's ends: no n between them falls to K5b
+    for dtype, first in ((torch.float32, 170), (torch.float64, 120)):
+        assert te.resident_fits(first - 1, dtype) and not te.resident_fits(first, dtype)
+        assert te.cluster_fits(first - 1, dtype) and te.cluster_fits(first, dtype)
+
+
+@pytest.mark.parametrize("C", [2, 4, 8])
+@pytest.mark.parametrize("n", [2, 3, 8, 17, 33, 170, 171])
+def test_cluster_schedule_splits_every_round(n, C):
+    """Every round of ``cluster_schedule`` is the round of ``schedule_tables``
+    reordered by the CTA that rotates each unit; a CTA rotates only units
+    one of whose rows it owns, and every unit whose rows it owns both."""
+    units, starts = te.cluster_schedule(n, C)
+    table = tj.schedule_tables(n)
+    R = -(-n // C)
+    assert units.dtype == starts.dtype == np.int32
+    assert units.shape == table.shape and starts.shape == (len(table), C + 1)
+    for r in range(len(table)):
+        assert sorted(map(tuple, units[r].tolist())) == sorted(map(tuple, table[r].tolist()))
+        assert starts[r, 0] == 0 and starts[r, -1] == len(table[r])
+        assert (np.diff(starts[r]) >= 0).all()
+        for k in range(C):
+            for p, q in units[r, starts[r, k]:starts[r, k + 1]]:
+                assert k in (p // R, q // R)
+                if p // R == q // R:
+                    assert k == p // R
+
+
+def emulate_cluster(A, sweeps, C):
+    """K5c's ownership in plain tensors: CTA k holds rows [k R, k R + R) of A
+    and V as ``a[k], v[k]`` [R, n | 1, B] (row i of A is ``a[i // R][i %
+    R]``) and c, s of every player as ``cv[k], sv[k]`` [n, B].  A round: each
+    CTA forms (c, s) of the units ``cluster_schedule`` gives it and writes
+    them into every CTA; it turns both rows of those units, reading both
+    before writing either; then every CTA turns the columns of its own rows
+    of A and V with its own coefficients."""
+    n, B = A.shape[0], A.shape[2]
+    R, ld = -(-n // C), n | 1
+    units, starts = te.cluster_schedule(n, C)
+    a = [torch.zeros((R, ld, B), dtype=A.dtype) for _ in range(C)]
+    v = [torch.zeros((R, ld, B), dtype=A.dtype) for _ in range(C)]
+    cv = [torch.zeros((n, B), dtype=A.dtype) for _ in range(C)]
+    sv = [torch.zeros((n, B), dtype=A.dtype) for _ in range(C)]
+    rows = [max(0, min(R, n - k * R)) for k in range(C)]
+    for k in range(C):
+        for i in range(rows[k]):
+            gi = k * R + i
+            a[k][i, :n] = (A[gi] + A[:, gi]) * 0.5
+            v[k][i, gi] = 1.0
+    one, zero = torch.ones(B, dtype=A.dtype), torch.zeros(B, dtype=A.dtype)
+
+    def row(i):
+        return a[i // R][i % R]
+
+    for _ in range(sweeps):
+        for rd in range(units.shape[0]):
+            mine = [units[rd, starts[rd, k]:starts[rd, k + 1]].tolist() for k in range(C)]
+            for k in range(C):
+                for p, q in mine[k]:
+                    c, s = tj._rotation(row(p)[p], row(q)[q], row(p)[q]) if p != q else (one, zero)
+                    for m in range(C):
+                        cv[m][p], sv[m][p] = c, (-s if p != q else s)
+                        if p != q:
+                            cv[m][q], sv[m][q] = c, s
+            for k in range(C):
+                for p, q in mine[k]:
+                    x, y = row(p)[:n].clone(), row(q)[:n].clone()
+                    row(p)[:n] = cv[k][p] * x + sv[k][p] * y
+                    if p != q:
+                        row(q)[:n] = cv[k][q] * y + sv[k][q] * x
+            for k in range(C):
+                for p, q in units[rd].tolist():
+                    for M in (a[k], v[k]):
+                        x, y = M[:rows[k], p].clone(), M[:rows[k], q].clone()
+                        M[:rows[k], p] = cv[k][p] * x + sv[k][p] * y
+                        if p != q:
+                            M[:rows[k], q] = cv[k][q] * y + sv[k][q] * x
+    w, V = torch.zeros((n, B), dtype=A.dtype), torch.zeros((n, n, B), dtype=A.dtype)
+    for k in range(C):
+        for i in range(rows[k]):
+            w[k * R + i], V[k * R + i] = a[k][i, k * R + i], v[k][i, :n]
+    return w, V
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("C", [2, 4, 8])
+@pytest.mark.parametrize("n", [3, 8, 17, 33])
+def test_cluster_ownership_equals_twin(n, C, dtype):
+    """Splitting a lane's rows over the CTAs of a cluster, as K5c does, is
+    the twin's computation bit for bit (a CTA may own no row: n = 3 with C
+    = 4 or 8); a diagonal lane keeps c = 1, s = 0 throughout."""
+    A = torch.from_numpy(sym(np.random.default_rng(n + C), n, 6)).to(dtype)
+    A[:, :, 2] = torch.diag(torch.arange(1.0, n + 1)).to(dtype)
+    for sweeps in (0, 1, 3):
+        w, V = emulate_cluster(A, sweeps, C)
+        tw, tV = tj.eigh_jacobi(A, sweeps=sweeps, sort=False)
+        assert torch.equal(w, tw) and torch.equal(V, tV)
+    assert torch.equal(V[:, :, 2], torch.eye(n, dtype=dtype))
+
+
+def test_cluster_range_on_the_cpu_matches_jax():
+    """At n = 171, K5c's range, the port's entry point on a CPU tensor (the
+    twin) against the JAX package's, which takes its jnp Jacobi there (8
+    lanes: its planner finds no VMEM tile), in f64.  Eight sweeps, so that
+    both have converged: after one, an ulp of difference in a sqrt has grown
+    to 3e-12 of the largest eigenvalue over the 171 rounds; after eight the
+    two agree to 8e-14 (w) and 6e-13 (V)."""
+    import jax.numpy as jnp
+    from nlsolver_tpu.ops.eigh_jacobi import eigh_jacobi_pallas, plan_tiles
+
+    n, B, sweeps = 171, 8, 8
+    assert not plan_tiles(n, B, 128, 8)[2]
+    Abm = sym(np.random.default_rng(n), n, B)
+    got = te.eigh_jacobi_pallas(torch.from_numpy(Abm), sweeps=sweeps)
+    _close(got, eigh_jacobi_pallas(jnp.asarray(Abm), sweeps=sweeps))
+
+
 def test_wrappers_refuse_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match=r"expected \[n, n, B\]"):
         te.eigh_jacobi_pallas(torch.zeros(3, 4, 5))
@@ -357,10 +498,14 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
         te.eigh_jacobi_pallas(torch.zeros(3, 3, 2), sweeps=-1)
     # the kernel's own wrappers never run on a CPU tensor
     kernels = (te.eigh_jacobi_kernel, te.eigh_jacobi_registers, te.eigh_jacobi_resident,
-               te.eigh_jacobi_global)
+               te.eigh_jacobi_global, te.eigh_jacobi_cluster)
     for kernel in kernels:
         with pytest.raises(ValueError, match="unsupported device"):
             kernel(torch.zeros(3, 3, 2))
+    # K5c refuses an n that 8 CTAs cannot hold, before it looks at the device
+    for n, dtype in ((473, torch.float32), (330, torch.float64)):
+        with pytest.raises(ValueError, match="does not fit the shared memory of a cluster"):
+            te.eigh_jacobi_cluster(torch.zeros(n, n, 1, dtype=dtype))
     assert all(kernel.launches == 0 for kernel in kernels[1:])
 
 
@@ -370,34 +515,56 @@ def _on_card():
     return torch.device("cuda")
 
 
+def _taken(n, dtype):
+    """The form the dispatcher gives n: K5r, K5a, K5c, K5b, each where the
+    ones before it refuse n."""
+    if te.registers_fit(n, dtype):
+        return te.eigh_jacobi_registers
+    if te.resident_fits(n, dtype):
+        return te.eigh_jacobi_resident
+    return te.eigh_jacobi_cluster if te.cluster_fits(n, dtype) else te.eigh_jacobi_global
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n,B", [(2, 1000), (3, 257), (8, 4096), (16, 4099), (17, 333),
                                  (31, 70), (32, 70), (33, 130), (56, 64), (64, 40), (84, 16),
-                                 (120, 5), (170, 3)])
+                                 (120, 5), (168, 2), (170, 3), (238, 2), (239, 2), (336, 2),
+                                 (337, 1), (472, 1), (330, 1), (473, 1)])
 def test_kernel_equals_twin_on_card(n, B, dtype):
-    """The three forms against the twin, bit for bit, each where it takes
-    n, and through the dispatcher that keeps the JAX name; at the first n
-    that K5a refuses in f32 (120 in f64), K5b alone."""
+    """The four forms against the twin, bit for bit, each where it takes n
+    (K5c also with every larger cluster), and through the dispatcher that
+    keeps the JAX name; the
+    edges of K5c's clusters in f32 (238 / 239, 336 / 337, 472 / 473) and
+    f64 (167 / 168, 236 / 237, 329 / 330); K5b alone beyond."""
     dev = _on_card()
+    sweeps = 6 if n <= 170 else 2
     A = torch.from_numpy(sym(np.random.default_rng(n), n, B)).to(dev, dtype)
-    tw, tV = tj.eigh_jacobi(A, sweeps=6, sort=False)
+    tw, tV = tj.eigh_jacobi(A, sweeps=sweeps, sort=False)
     forms = [(te.eigh_jacobi_registers, te.registers_fit(n, dtype), "does not fit the registers"),
-             (te.eigh_jacobi_resident, te.resident_fits(n, dtype), "does not fit the shared memory"),
+             (te.eigh_jacobi_resident, te.resident_fits(n, dtype),
+              "does not fit the shared memory of a block"),
+             (te.eigh_jacobi_cluster, te.cluster_fits(n, dtype),
+              "does not fit the shared memory of a cluster"),
              (te.eigh_jacobi_global, True, None)]
-    taken = next(kernel for kernel, fits, _ in forms if fits)
+    taken = _taken(n, dtype)
     for kernel, fits, refusal in forms:
         before = kernel.launches
         if not fits:
             with pytest.raises(ValueError, match=refusal):
-                kernel(A, sweeps=6)
+                kernel(A, sweeps=sweeps)
             continue
-        w, V = kernel(A, sweeps=6)
+        w, V = kernel(A, sweeps=sweeps)
         torch.cuda.synchronize()
         assert kernel.launches == before + 1
         assert torch.equal(w, tw) and torch.equal(V, tV)
+    C = te.cluster_plan(n, dtype)[0]
+    for larger in (c for c in te.CLUSTER_SIZES if c > C > 0):
+        w, V = te._launch_cluster("probe", A, sweeps, larger)
+        torch.cuda.synchronize()
+        assert torch.equal(w, tw) and torch.equal(V, tV), larger
     before = taken.launches
-    got = te.eigh_jacobi_pallas(A, sweeps=6, sort=False)
+    got = te.eigh_jacobi_pallas(A, sweeps=sweeps, sort=False)
     torch.cuda.synchronize()
     assert taken.launches == before + 1
     assert torch.equal(got.eigenvalues, tw) and torch.equal(got.eigenvectors, tV)
@@ -415,7 +582,8 @@ def test_kernel_sorted_spectrum_and_refusals_on_card():
     assert float((recon - A64).abs().max()) < 1e-10
     # a diagonal matrix takes the identity rotation everywhere: no NaN
     D = torch.diag_embed(torch.rand(B, n, device=dev)).permute(1, 2, 0).contiguous()
-    for kernel in (te.eigh_jacobi_registers, te.eigh_jacobi_resident, te.eigh_jacobi_global):
+    for kernel in (te.eigh_jacobi_registers, te.eigh_jacobi_resident, te.eigh_jacobi_cluster,
+                   te.eigh_jacobi_global):
         w, V = kernel(D, sweeps=3)
         assert torch.equal(w, torch.diagonal(D, dim1=0, dim2=1).t())
         assert torch.equal(V, torch.eye(n, device=dev)[:, :, None].expand(n, n, B))
