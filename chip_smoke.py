@@ -9,31 +9,42 @@ fleet through ``nlsolver_torch.fit_fleet`` at full size, and times them.
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc over nlsolver_torch/csrc for sm_90a, one process per source;
-  3. K1 against its twin on injected draws, B=8192, n=10, P=64, f32,
-     5 generations, Rastrigin and sphere, a third of the lanes frozen;
+     no register kernel of K5 or K2b may spill or keep a stack frame;
+  3. K1 in both forms against its twin on injected draws, B=8192, n=10,
+     P=64, f32, 5 generations, Rastrigin and sphere, a third of the lanes
+     frozen; both forms at the edges of the staged form's plan (n = 16 and
+     17 at P = 64, n * P no multiple of 4, n = 28 and 29 at P = 1024) and the
+     dispatcher's choice there;
   4. K1's Philox draws: crossover share, forced dimension, seeds, and
-     bit-equality with the twin fed the Python Philox;
+     bit-equality of both forms with the twin fed the Python Philox;
   5. the DE slice: minimize(rastrigin, x0[8192, 10], method="de",
-     layout="batched") through K1, launches counted; then the default
-     DEConfig() route on 1024 lanes;
+     layout="batched") through K1's staged form, launches counted; the
+     default DEConfig() route on 1024 lanes; a wide fleet (16 instances,
+     n=29, P=1024) through the global form;
   6. DE timing: the fleet for 200 generations through K1 and through the
-     plain step (median of 5 after 2 warm-ups), and K1 alone against its
-     twin from CUDA events;
+     plain step (median of 5 after 2 warm-ups), and each form of K1 alone
+     behind a device sleep against its twin from CUDA events;
   7. K3 (batch-minor Cholesky solve) bit-equal to its twin on SPD systems,
      n=2 at B=262144 and n in {1, 8, 16, 33} at B=16384, f32, and once in
      f64; the residual small; a non-contiguous and an f16 input refused;
-  8. K2b (wavefront least squares) bit-equal to its twin on the NLLS
-     fleet's augmented system [J; sqrt(lam) I] at [34, 2, 262144] and on
-     random systems; K2a (wavefront QR with Q) bit-equal to its twin and a
-     factorization; linalg.qr(method="pallas") launches K2a once;
+  8. K2b (wavefront least squares) in its three forms (registers, shared
+     memory, device memory) bit-equal to its twin on the NLLS fleet's
+     augmented system [J; sqrt(lam) I] at [34, 2, 262144] in f32 and f64 and
+     on random systems, each form at the first and last n it takes, square
+     and with one row more, and the dispatcher's choice at each boundary;
+     K2a (wavefront QR with Q) bit-equal to its twin and a factorization;
+     linalg.qr(method="pallas") launches K2a once;
   9. the NLLS slice: fit_fleet on 262144 exp-decay fits through
-     solve="qr_pallas" (K2b), "cholesky" (K3) and "qr" (plain), launches
-     counted; solved share, recovered parameters, qr_pallas equal to qr
-     lane by lane, cholesky close to them;
+     solve="qr_pallas" (K2b's register form), "cholesky" (K3) and "qr"
+     (plain), launches counted; solved share, recovered parameters,
+     qr_pallas equal to qr lane by lane, cholesky close to them; Chebyshev
+     fits of 12 and 30 coefficients through K2b's shared-memory and
+     device-memory forms;
  10. NLLS timing: bench_nlls_fleet per backend (median of 3 after 1
-     warm-up, ABBA order), and K2a, K2b and K3 alone against their twins
-     from CUDA events, beside the one PyTorch call that computes the same
-     function (torch.linalg.qr, torch.linalg.lstsq, Cholesky solve);
+     warm-up, ABBA order), and K2a, each form of K2b and K3 alone against
+     their twins from CUDA events, beside the one PyTorch call that
+     computes the same function (torch.linalg.qr, torch.linalg.lstsq,
+     Cholesky solve);
  11. K4a (resident rank-2 update + direction) against its twin at
      [16, 16, 65536] f32 with a third of the lanes on reset and a fifth at
      rho = 0, at n in {1, 2, 8, 33} with a ragged B, and once in f64; K4b
@@ -101,12 +112,14 @@ import sys
 import time
 
 B, N, P = 8192, 10, 64
+DE_WIDE = (16, 29, 1024, 20)   # a DE fleet past K1's staged form: instances, n, P, generations
 RTOL = ATOL = 1e-5  # scores: the same terms summed in another order
 TPU_KERNEL = "nlsolver_tpu/ops/de_fused.py:110"
 FLEET_B, FLEET_M = 262144, 32  # the NLLS fleet: fits, points per fit
-SLEEP_CYCLES = 400_000_000     # a device sleep of some 0.2 s ahead of a timed chain
 BFGS_B, BFGS_N = 65536, 16     # the BFGS fleet: bowls, dimensions
 WIDE_B, WIDE_N = 4096, 128     # the wide BFGS fleet, beyond K4a's resident slab
+CHEB_SHARED = (12, 32, 16384)  # Chebyshev NLLS fleets: coefficients, points, fits; through
+CHEB_GLOBAL = (30, 48, 4096)   # K2b's shared-memory and device-memory forms (float32)
 CMA_B, CMA_N, CMA_GENS = 65536, 16, 50   # the CMA-ES fleet: strategies, dimensions, generations
 CMA_WIDE_B = 4096              # the wide CMA-ES fleets: n = 56 and n = 64 (K5a)
 CMA_EDGE_N, CMA_EDGE_B = 170, 256  # the first n that K5a refuses in f32 (K5c), the fleet's B there
@@ -114,6 +127,17 @@ CMA_C4_N = 300                 # a wide fleet on clusters of 4 CTAs
 K5B_N, K5B_B, K5B_SWEEPS = 473, 16, 2  # the first n that K5c refuses in f32, few lanes and sweeps
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOPS = 67e12              # H100 SXM float32 rate outside the tensor cores
+
+
+# the SM clock's maximum in MHz (nvidia-smi), read in phase 1 for the issue floors
+FLOORS = {}
+
+
+def issue_floor(instructions, threads):
+    """The least time in ms in which the card issues ``instructions`` a
+    thread for ``threads`` threads: 4 warp-instructions a clock on each of
+    its 132 SMs at the SM clock's maximum."""
+    return instructions * -(-threads // 32) / (4 * 132 * FLOORS["mhz"] * 1e6) * 1e3
 
 
 def bound(nbytes, flops):
@@ -130,6 +154,17 @@ def givens_ops(m, n, extra):
     pair, over the n - j columns of R left and ``extra`` more (Q's m
     columns, or the right-hand side)."""
     return sum((m - 1 - j) * (10 + 6 * (n - j + extra)) for j in range(min(n, m - 1)))
+
+
+def de_bound(b, n, p):
+    """K1's bound: agents and scores in and out, the active mask; 30
+    floating-point operations a coordinate."""
+    return bound((2 * n * p + 2 * p) * b * 4 + b, 30 * n * p * b)
+
+
+def lstsq_bound(m, n, b):
+    """K2b's bound in f32: A and y in, x out; givens_ops a lane."""
+    return bound((m * n + m + n) * b * 4, givens_ops(m, n, 1) * b)
 
 
 def rank2_bound(n, b, direction=True):
@@ -166,38 +201,94 @@ def phase_device(torch):
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     log(f"[1] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(f"[1] nvidia-smi: {smi.stdout.strip()}")
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True, timeout=60)
+    check(clock.returncode == 0, f"nvidia-smi failed: {clock.stderr.strip()}")
+    FLOORS["mhz"] = float(clock.stdout.split()[0])
     return name
 
 
 def phase_build():
+    from nlsolver_torch.benches import issue_instructions, sass_functions
     from nlsolver_torch.ops import _build
 
     t0 = time.perf_counter()
     path, out = _build.ensure_built()
     _build.load_library()
     log(f"[2] built {path.name} in {time.perf_counter() - t0:.2f} s")
+    # the issue floors of K1's staged form at the headline (no loop on a
+    # lane's path at n = 10) and K2b's register form at the NLLS fleet (its
+    # stage loop where every column rotates runs m - 2 n + 1 = 31 times)
+    sass = sass_functions(path)
+    m = FLEET_M + 2
+    for kid, key, trips, threads in (("K1s", ("de_staged_kernel", "Rastrigin", f"Li{N}E"), 0, B * P),
+                                     ("K2b-r", ("least_squares_registers_kernelIfLi2E",), m - 3, FLEET_B)):
+        name = next(k for k in sass if all(part in k for part in key))
+        count, hot = issue_instructions(sass[name], trips)
+        FLOORS[kid] = issue_floor(count, threads)
+        log(f"[2] issue floor of {kid}: {count} SASS instructions a thread on the shortest path "
+            f"({len(sass[name])} in the kernel; hot loop body {hot} x {trips}), {threads} threads, "
+            f"{FLOORS['mhz']:.0f} MHz: {FLOORS[kid] * 1e3:.2f} us")
     # ptxas names a kernel, then its stack frame and spills, then its registers.
-    # The register form of K5 is one kernel per width and parity: a summary
-    # line, and no word of theirs may live in local memory
-    entry, k5r, main = "", [], None
+    # The register forms of K5 and K2b are one kernel per width (K5r also per
+    # parity): no word of theirs may live in local memory
+    import re
+
+    import torch
+
+    from nlsolver_torch.ops.qr_wavefront import REGISTER_MAX_N
+
+    entries = []  # [short name, stack and spill line, registers line]
     for line in out.splitlines():
         if "Compiling entry function" in line:
-            entry = line
-        elif "eigh_jacobi_registers_kernel" in entry:
-            if "spill" in line:
-                check("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" in line,
-                      f"a register kernel of K5 uses local memory: {entry.strip()} {line.strip()}")
-            elif "Used" in line:
-                k5r.append(int(line.split("Used")[1].split()[0]))
-                if f"IfLi{CMA_N}ELb0E" in entry:  # <float, the fleet's n, even>
-                    main = k5r[-1]
-        elif "registers" in line or "spill" in line:
-            log(f"[2] ptxas: {line.strip()}")
+            mangled = line.split("'")[1]
+            # the identifier after the anonymous namespace, then its template arguments
+            m_id = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+            short = mangled
+            if m_id:
+                at = m_id.end()
+                size = int(m_id.group(1))
+                short = mangled[at:at + size] + " " + mangled[at + size:].split("Ev")[0]
+            entries.append([short, "", ""])
+        elif entries and "spill" in line:
+            entries[-1][1] = line.strip()
+        elif entries and "Used" in line:
+            entries[-1][2] = line.strip()
+    kinds = {"eigh_jacobi_registers_kernel": ("K5r", f"IfLi{CMA_N}ELb0E"),  # <float, n, even>
+             "least_squares_registers_kernel": ("K2b", "IfLi2E")}         # <float, the fleet's n>
+    used, main, local = {"K5r": [], "K2b": []}, {}, []
+    for short, spill, regs in entries:
+        kind = next((v for k, v in kinds.items() if short.startswith(k)), None)
+        count = int(regs.split("Used")[1].split()[0]) if "Used" in regs else -1
+        if kind is None or kind[0] == "K2b":
+            log(f"[2] ptxas: {short}: {count} registers; {spill}")
+        if kind is None:
+            continue
+        used[kind[0]].append(count)
+        if kind[1] in short:
+            main[kind[0]] = count
+        if "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" not in spill:
+            local.append(f"{short}: {spill}")
     if out:
+        check(not local, "register kernels of K5 or K2b use local memory: " + "; ".join(local))
+        k5r, k2b = used["K5r"], used["K2b"]
         check(len(k5r) > 0, "ptxas reported no register kernel of K5")
+        check(len(k2b) == sum(REGISTER_MAX_N.values()),
+              f"ptxas reported {len(k2b)} register kernels of K2b, expected one per n and dtype")
         log(f"[2] ptxas: eigh_jacobi_registers_kernel, {len(k5r)} kernels (float32 and float64, "
             f"every even width, both parities of n): {min(k5r)} to {max(k5r)} registers a "
-            f"thread, {main} at n = {CMA_N} in float32, 0 bytes of stack frame, 0 bytes spilled")
+            f"thread, {main.get('K5r')} at n = {CMA_N} in float32, 0 bytes of stack frame, "
+            "0 bytes spilled")
+        log(f"[2] ptxas: least_squares_registers_kernel, {len(k2b)} kernels (n = 1 to "
+            f"{REGISTER_MAX_N[torch.float32]} in float32, 1 to {REGISTER_MAX_N[torch.float64]} in "
+            f"float64): {min(k2b)} to {max(k2b)} registers a thread, {main.get('K2b')} at n = 2 "
+            "in float32, 0 bytes of stack frame, 0 bytes spilled")
+
+
+def de_forms():
+    from nlsolver_torch.ops import de_fused as tdf
+
+    return {"K1s": tdf.de_generation_staged, "K1g": tdf.de_generation_global}
 
 
 def phase_injected(torch, dev):
@@ -207,6 +298,37 @@ def phase_injected(torch, dev):
 
     F, CR = 0.8, 0.9
     worst = 0.0
+    forms = de_forms()
+
+    def hold(fn, agents, scores, offs, active, u, fdim, kids, label):
+        """Each form of ``kids`` on injected draws against the twin: the
+        proposals bit-equal where the accept masks agree, the scores within
+        RTOL / ATOL, frozen lanes unchanged.  Returns the first form's
+        result and the twin's, and the lanes whose masks differ."""
+        nonlocal worst
+        twin = tdf.de_generation_reference(fn, agents, scores, offs, u, fdim, active, F, CR)
+        first, differ = None, 0
+        for kid in kids:
+            before = forms[kid].launches
+            ka, ks = forms[kid](fn, agents, scores, offs, active, seed=0, generation=0, u=u,
+                                fdim=fdim)
+            torch.cuda.synchronize()
+            check(forms[kid].launches == before + 1, f"{kid} {label}: no launch counted")
+            same = (ks < scores) == (twin[1] < scores)
+            check(torch.equal(ka[same[:, None, :].expand_as(ka)],
+                              twin[0][same[:, None, :].expand_as(ka)]),
+                  f"{kid} {label}: agents differ where the accept masks agree")
+            check(torch.allclose(ks[same], twin[1][same], rtol=RTOL, atol=ATOL),
+                  f"{kid} {label}: scores differ")
+            near = (twin[1] - scores).abs() <= ATOL + RTOL * scores.abs()
+            check(bool(near[~same].all()), f"{kid} {label}: accept masks differ off a tie")
+            check(torch.equal(ka[~active], agents[~active])
+                  and torch.equal(ks[~active], scores[~active]), f"{kid} {label}: a frozen lane changed")
+            worst = max(worst, float((ks - twin[1])[same & active[:, None]].abs().max()))
+            first = first or (ka, ks)
+            differ = max(differ, int((~same).sum()))
+        return first, twin, differ
+
     for name in ("rastrigin", "sphere"):
         fn = PROBLEMS[name].fn
         g = torch.Generator(device=dev).manual_seed(1)
@@ -218,36 +340,36 @@ def phase_injected(torch, dev):
             u = torch.rand((B, N, P), generator=g, device=dev)
             fdim = torch.randint(0, N, (B, P), generator=g, device=dev)
             offs = ring_offsets(P, 1, gen)
-
-            def both(s):
-                k = tdf.de_generation_fused(fn, agents, s, offs, active, seed=0,
-                                            generation=gen, u=u, fdim=fdim)
-                torch.cuda.synchronize()
-                return k, tdf.de_generation_reference(fn, agents, s, offs, u, fdim,
-                                                      active, F, CR)
-
             # every proposal accepted: proposals bit-equal, scores close
-            (pk, psk), (pt, pst) = both(inf)
+            (pk, _), (pt, _), _ = hold(fn, agents, inf, offs, active, u, fdim, list(forms),
+                                       f"{name} gen {gen}, all accepted")
             check(torch.equal(pk, pt), f"{name} gen {gen}: proposals differ")
-            check(torch.allclose(psk[active], pst[active], rtol=RTOL, atol=ATOL),
-                  f"{name} gen {gen}: proposal scores differ")
-            worst = max(worst, float((psk - pst)[active].abs().max()))
-
-            (ka, ks), (ta, ts) = both(scores)
-            same = (ks < scores) == (ts < scores)
-            check(torch.equal(ka[same[:, None, :].expand_as(ka)],
-                              ta[same[:, None, :].expand_as(ta)]),
-                  f"{name} gen {gen}: agents differ where the accept masks agree")
-            check(torch.allclose(ks[same], ts[same], rtol=RTOL, atol=ATOL),
-                  f"{name} gen {gen}: scores differ")
-            near = (pst - scores).abs() <= ATOL + RTOL * scores.abs()
-            check(bool(near[~same].all()), f"{name} gen {gen}: accept masks differ off a tie")
-            check(torch.equal(ka[~active], agents[~active])
-                  and torch.equal(ks[~active], scores[~active]),
-                  f"{name} gen {gen}: a frozen lane changed")
+            (ka, ks), _, differ = hold(fn, agents, scores, offs, active, u, fdim, list(forms),
+                                       f"{name} gen {gen}")
             log(f"[3] {name} gen {gen}: accepted {int((ks < scores).sum())}, "
-                f"masks differ at {int((~same).sum())}")
+                f"masks differ at {differ}")
             agents, scores = ka, ks
+    # the forms at the edges of the staged one's plan, and the dispatcher's
+    # choice: the proposal in registers up to n = 16 and in shared memory
+    # beyond, the slab staged by plain loads where n * P is no multiple of
+    # 4, the last n that one block holds at P = 1024, the global form past it
+    g = torch.Generator(device=dev).manual_seed(4)
+    for n, p, b in ((16, 64, 999), (17, 64, 999), (3, 7, 5000), (28, 1024, 9), (29, 1024, 9)):
+        fn = PROBLEMS["rastrigin"].fn
+        agents = (torch.rand((b, n, p), generator=g, device=dev) - 0.5) * 5.0
+        scores = tdf.eval_columns(fn, agents)
+        active = torch.arange(b, device=dev) % 3 != 0
+        u = torch.rand((b, n, p), generator=g, device=dev)
+        fdim = torch.randint(0, n, (b, p), generator=g, device=dev)
+        offs = (1, p // 3 + 1, p - 1)
+        kids = ["K1s", "K1g"] if tdf.staged_plan(n, p) else ["K1g"]
+        hold(fn, agents, scores, offs, active, u, fdim, kids, f"[{b}, {n}, {p}]")
+        before = forms[kids[0]].launches
+        tdf.de_generation_fused(fn, agents, scores, offs, active, seed=0, generation=0)
+        check(forms[kids[0]].launches == before + 1,
+              f"the dispatcher did not take {kids[0]} at n={n}, P={p}")
+        log(f"[3] {' and '.join(kids)} [{b}, {n}, {p}] (plan {tdf.staged_plan(n, p)}): "
+            f"equal to the twin; the dispatcher takes {kids[0]}")
     log(f"[3] kernel == twin on injected draws; max |score diff| {worst:.3e}")
     return worst
 
@@ -275,9 +397,10 @@ def phase_philox(torch, dev):
     check(not torch.equal(masks[0], masks[1]), "two seeds gave the same masks")
     u, fdim = tdf.philox_draws(11, 3, B, N, P, torch.float32, dev)
     twin, _ = tdf.de_generation_reference(fn, agents, inf, offs, u, fdim, active, 0.8, 0.9)
-    out, _ = tdf.de_generation_fused(fn, agents, inf, offs, active, seed=11, generation=3)
-    check(torch.equal(out, twin), "kernel's Philox draws differ from the Python Philox")
-    log("[4] Philox mode ok; bit-equal to the twin on the Python Philox draws")
+    for kid, form in de_forms().items():
+        out, _ = form(fn, agents, inf, offs, active, seed=11, generation=3)
+        check(torch.equal(out, twin), f"{kid}'s Philox draws differ from the Python Philox")
+    log("[4] Philox mode ok; K1s and K1g bit-equal to the twin on the Python Philox draws")
 
 
 def phase_slice(torch, dev):
@@ -290,17 +413,19 @@ def phase_slice(torch, dev):
     x0 = torch.full((B, N), -0.5, device=dev)
     cfg = DEConfig(pop_size=P, partner_sampling="rotation", use_fused_kernel=True,
                    max_iter=200, eps=0.0, best_value_no_change=1 << 30)
-    tdf.de_generation_fused.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     res = nlsolver_torch.minimize(fn, x0, method="de", layout="batched", config=cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = tdf.de_generation_fused.launches
+    counts = {kid: f.launches for kid, f in de_forms().items()}
     # max_iter generations advance the lanes; one more sees the limit and
     # freezes the fleet
     generations = cfg.max_iter + 1
-    log(f"[5] minimize: {wall:.3f} s, kernel launches {launches}, generations {generations}")
-    check(launches == generations, f"{launches} launches for {generations} generations")
+    log(f"[5] minimize: {wall:.3f} s, kernel launches {counts}, generations {generations}")
+    check(counts == {"K1s": generations, "K1g": 0},
+          f"launches {counts} for {generations} generations (K1s expected)")
+    launches = {"K1s": counts["K1s"]}
     check(bool((res.iterations == cfg.max_iter).all()), "not every lane ran max_iter")
     check(tuple(res.x.shape) == (B, N) and bool(torch.isfinite(res.x).all())
           and bool(torch.isfinite(res.f_value).all()), "non-finite or misshapen result")
@@ -324,44 +449,52 @@ def phase_slice(torch, dev):
     log(f"[5] default DEConfig() route, 1024 lanes: converged {int(res.converged.sum())}, "
         f"iterations max {int(res.iterations.max())}, f max {float(res.f_value.max()):.4g}")
     check(bool(res.converged.all()), "a lane of the default route did not converge")
+
+    # a wide population past the staged form's plan: DE_WIDE's fleet
+    # through the global form
+    b, n, p, gens = DE_WIDE
+    cfg = DEConfig(pop_size=p, partner_sampling="rotation", use_fused_kernel=True,
+                   max_iter=gens, eps=0.0, best_value_no_change=1 << 30)
+    check(tdf.staged_plan(n, p) is None, f"the staged form takes n={n}, P={p}")
+    reset_counts()
+    x0 = torch.full((b, n), -0.5, device=dev)
+    res = nlsolver_torch.minimize(fn, x0, method="de", layout="batched", config=cfg)
+    torch.cuda.synchronize()
+    counts = {kid: f.launches for kid, f in de_forms().items()}
+    start = float(fn(x0[:1])[0])
+    log(f"[5] wide fleet [{b}, {n}], P={p}, {gens} generations: launches {counts}, best f median "
+        f"{float(res.f_value.median()):.4g} from {start:.4g}")
+    check(counts == {"K1s": 0, "K1g": gens + 1}, f"wide fleet: launches {counts}")
+    check(bool(torch.isfinite(res.f_value).all()) and float(res.f_value.max()) < start,
+          "the wide fleet did not descend")
+    launches["K1g"] = counts["K1g"]
     return launches
 
 
-def time_kernel_alone(torch, dev, reps=200):
+def de_case(torch, dev, b, n, p, kernel):
+    """(kernel call, twin call) of one DE generation on ``b`` instances of
+    ``p`` agents in [-0.5, 0.5)^n, scored: ``kernel`` on Philox draws, the
+    twin on draws from torch.rand as the plain step makes them."""
     from nlsolver_torch import PROBLEMS
     from nlsolver_torch.ops import de_fused as tdf
 
     fn = PROBLEMS["rastrigin"].fn
     g = torch.Generator(device=dev).manual_seed(3)
-    agents0 = torch.rand((B, N, P), generator=g, device=dev) - 0.5
-    scores0 = tdf.eval_columns(fn, agents0)
-    active = torch.ones(B, dtype=torch.bool, device=dev)
+    agents = torch.rand((b, n, p), generator=g, device=dev) - 0.5
+    scores = tdf.eval_columns(fn, agents)
+    active = torch.ones(b, dtype=torch.bool, device=dev)
+    offs = (5, p // 2 - 2, p - 14)
 
-    def kernel(a, s, i):
-        return tdf.de_generation_fused(fn, a, s, (5, 30, 50), active, seed=1, generation=i)
+    def plain():
+        u = torch.rand((b, n, p), generator=g, device=dev)
+        fdim = torch.randint(0, n, (b, p), generator=g, device=dev)
+        tdf.de_generation_reference(fn, agents, scores, offs, u, fdim, active, 0.8, 0.9)
 
-    def plain(a, s, i):
-        u = torch.rand((B, N, P), generator=g, device=dev)
-        fdim = torch.randint(0, N, (B, P), generator=g, device=dev)
-        return tdf.de_generation_reference(fn, a, s, (5, 30, 50), u, fdim, active, 0.8, 0.9)
-
-    out = {}
-    for name, f in (("plain", plain), ("kernel", kernel), ("kernel", kernel), ("plain", plain)):
-        a, s = agents0, scores0
-        for i in range(10):
-            a, s = f(a, s, i)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for i in range(reps):
-            a, s = f(a, s, i)
-        end.record()
-        torch.cuda.synchronize()
-        out.setdefault(name, []).append(start.elapsed_time(end))
-    return {k: min(v) for k, v in out.items()}, reps
+    return (lambda: kernel(fn, agents, scores, offs, active, seed=1, generation=0)), plain
 
 
 def phase_timing(torch, dev):
-    from nlsolver_torch.benches import bench_de_batched
+    from nlsolver_torch.benches import bench_de_batched, profile_de_batched
 
     runs = {}
     for fused in (False, True, True, False):
@@ -369,15 +502,31 @@ def phase_timing(torch, dev):
         runs.setdefault(fused, []).append(r)
         log(f"[6] {r['name']}: median {r['median_ms']:.3f} ms / 200 gens, min "
             f"{r['min_ms']:.3f} ms, {r['iters_per_sec']:.6g} instance generations/s")
-    alone, reps = time_kernel_alone(torch, dev)
-    log(f"[6] kernel alone: {alone['kernel']:.3f} ms for {reps} generations, "
-        f"{alone['kernel'] / reps * 1e3:.2f} us/generation; plain twin "
-        f"{alone['plain'] / reps * 1e3:.2f} us/generation (CUDA events, min of 2)")
+    # each form alone behind a device sleep, the twin as a plain chain: the
+    # staged form at the headline's shape, the global form there too (the
+    # form every shape took before the staged one) and at DE_WIDE's
+    forms, alone = de_forms(), {}
+    b, n, p, _ = DE_WIDE
+    for name, kid, shape, reps in (("K1s", "K1s", (B, N, P), 200), ("K1g n=10", "K1g", (B, N, P), 200),
+                                   ("K1g", "K1g", (b, n, p), 50)):
+        kern, plain = de_case(torch, dev, *shape, forms[kid])
+        (k, pl), (k1, k2, p1, p2) = abba(torch, kern, reps, plain, 10)
+        alone[name] = (k, pl, None)  # no single PyTorch call computes a generation
+        log(f"[6] {name} alone at {list(shape)}: kernel {k * 1e3:.2f} us of device time, plain twin "
+            f"{pl * 1e3:.2f} us per chained call (CUDA events; kernel {k1 * 1e3:.2f}/"
+            f"{k2 * 1e3:.2f}, twin {p1 * 1e3:.2f}/{p2 * 1e3:.2f})")
     for fused, label in ((True, "kernel path"), (False, "plain path")):
         best = max(runs[fused], key=lambda r: r["iters_per_sec"])
         log(f"[6] {label}: {best['iters_per_sec']:.6g} instance generations/s, "
             f"{best['median_ms'] / 200 * 1e3:.2f} us/generation end to end")
-    return alone["kernel"] / reps, alone["plain"] / reps
+    # the cross-check: K1's device time a launch as torch.profiler records it
+    # inside the headline fleet
+    prof = profile_de_batched()
+    check(prof.get("k1_launches") == 200, f"the profiled fleet shows K1 launches {prof.get('k1_launches')}")
+    log(f"[6] profiled fleet: K1 {prof['k1_us']:.2f} us a launch in the trace, device busy "
+        f"{prof['device_busy_ms']:.3f} of {prof['wall_ms']:.3f} ms ({prof['busy_share']:.1%}), "
+        f"{prof['launches_per_generation']:.2f} device launches a generation")
+    return alone
 
 
 def max_diff(a, b):
@@ -419,17 +568,44 @@ def phase_smallchol(torch, dev):
     return worst
 
 
-def fleet_system(torch, dev):
-    """The NLLS fleet's first augmented system at full size: [J; sqrt(lam) I]
-    and [r; 0] at X0 = ones, lam = lambda0."""
-    from nlsolver_torch.benches import expfit_scenario
+def first_system(torch, dev, scenario, n, X0_value):
+    """A fleet's first augmented system: [J; sqrt(lam) I] and [r; 0] at X0,
+    lam = lambda0, for ``scenario``'s (residual, ys, truth)."""
     from nlsolver_torch.solvers import nlls_fleet as nf
 
-    residual, ys, _ = expfit_scenario(FLEET_B, FLEET_M, device=dev)
-    X0 = torch.ones(2, FLEET_B, device=dev)
-    r, J = nf._residuals_bm(residual, X0, ys)
-    lam = torch.full((FLEET_B,), nf.NLLSFleetConfig().lambda0, device=dev)
+    residual, ys, _ = scenario
+    B = ys.shape[0]
+    r, J = nf._residuals_bm(residual, torch.full((n, B), X0_value, device=dev), ys)
+    lam = torch.full((B,), nf.NLLSFleetConfig().lambda0, device=dev)
     return nf._augmented(r, J, lam)
+
+
+def fleet_system(torch, dev):
+    """The NLLS fleet's first augmented system at full size, [34, 2, 262144]."""
+    from nlsolver_torch.benches import expfit_scenario
+
+    return first_system(torch, dev, expfit_scenario(FLEET_B, FLEET_M, device=dev), 2, 1.0)
+
+
+def chebyshev_system(torch, dev, n, m, b):
+    """The first augmented system of a Chebyshev fleet, [m + n, n, b]."""
+    from nlsolver_torch.benches import chebyshev_scenario
+
+    return first_system(torch, dev, chebyshev_scenario(b, n, m, device=dev), n, 0.0)
+
+
+def lstsq_forms():
+    from nlsolver_torch.ops import qr_wavefront as tqw
+
+    return {"K2b-r": tqw.least_squares_wavefront_registers,
+            "K2b-s": tqw.least_squares_wavefront_shared,
+            "K2b-g": tqw.least_squares_wavefront_global}
+
+
+def lstsq_takes(kid, n, dtype):
+    from nlsolver_torch.ops import qr_wavefront as tqw
+
+    return {"K2b-r": tqw.registers_fit, "K2b-s": tqw.shared_fits}.get(kid, lambda n, d: True)(n, dtype)
 
 
 def phase_qr(torch, dev):
@@ -438,19 +614,50 @@ def phase_qr(torch, dev):
 
     g = torch.Generator(device=dev).manual_seed(8)
     worst = 0.0
-    systems = [("fleet", *fleet_system(torch, dev))]
-    for m, n, b in ((32, 8, 4096), (64, 16, 4096), (34, 2, 300)):
-        systems.append(("random", torch.randn((m, n, b), generator=g, device=dev),
-                        torch.randn((m, b), generator=g, device=dev)))
-    for what, A, y in systems:
-        x = tqw.least_squares_wavefront_kernel(A, y)
-        torch.cuda.synchronize()
+    forms = lstsq_forms()
+
+    def hold(kids, A, y, label):
+        """Each K2b form of ``kids`` on (A, y), counted, bit for bit
+        against the twin."""
+        nonlocal worst
         twin = tqw.least_squares_wavefront_reference(A, y)
-        check(torch.equal(x, twin), f"K2b differs from its twin at {tuple(A.shape)}: "
-              f"max |diff| {max_diff(x, twin):.3e}")
-        worst = max(worst, max_diff(x, twin))
-        check(bool(torch.isfinite(x).all()), "K2b gave a non-finite x")
-        log(f"[8] K2b {what} {tuple(A.shape)}: bit-equal to the twin")
+        for kid in kids:
+            kernel = forms[kid]
+            before = kernel.launches
+            x = kernel(A, y)
+            torch.cuda.synchronize()
+            check(kernel.launches == before + 1, f"{kid} {label}: no launch counted")
+            check(bool(torch.isfinite(x).all()), f"{kid} {label}: non-finite x")
+            check(torch.equal(x, twin), f"{kid} differs from the twin at {label}: "
+                  f"max |diff| {max_diff(x, twin):.3e}")
+            worst = max(worst, max_diff(x, twin))
+        log(f"[8] {' and '.join(kids)} {label}: bit-equal to the twin")
+
+    # the NLLS fleet's first system, every form, in float32 and float64
+    A, y = fleet_system(torch, dev)
+    for dtype in (torch.float32, torch.float64):
+        hold(list(forms), A.to(dtype), y.to(dtype), f"fleet {tuple(A.shape)} {str(dtype)[6:]}")
+    for m, n, b in ((32, 8, 4096), (64, 16, 4096), (34, 2, 300)):
+        A, y = (torch.randn((m, n, b), generator=g, device=dev),
+                torch.randn((m, b), generator=g, device=dev))
+        hold([k for k in forms if lstsq_takes(k, n, A.dtype)], A, y, f"random {(m, n, b)}")
+    # each form at the first and last n it takes, square and with one row
+    # more; the dispatcher's choice at each boundary
+    for dtype in (torch.float32, torch.float64):
+        reg, shared = tqw.REGISTER_MAX_N[dtype], max(n for n in range(1, 64) if tqw.shared_fits(n, dtype))
+        edges = {"K2b-r": (1, reg), "K2b-s": (reg + 1, shared), "K2b-g": (shared + 1, shared + 8)}
+        for kid, ns in edges.items():
+            for n in ns:
+                for m in (n, n + 1):
+                    A, y = (torch.randn((m, n, 999), generator=g, device=dev, dtype=dtype),
+                            torch.randn((m, 999), generator=g, device=dev, dtype=dtype))
+                    hold([kid], A, y, f"[{m}, {n}, 999] {str(dtype)[6:]}")
+                    before = forms[kid].launches
+                    tqw.least_squares_wavefront_kernel(A, y)
+                    check(forms[kid].launches == before + 1,
+                          f"the dispatcher did not take {kid} at n={n} in {dtype}")
+        log(f"[8] the dispatcher takes K2b-r for n <= {reg}, K2b-s for {reg + 1} <= n <= {shared}, "
+            f"K2b-g beyond ({str(dtype)[6:]})")
     for m, n, b in ((16, 16, 4096), (32, 8, 4096)):
         A = torch.randn((m, n, b), generator=g, device=dev)
         R, Q = tqw.qr_wavefront_kernel(A, compute_q=True)
@@ -487,54 +694,71 @@ def reset_counts():
 
     for fn in (eigh_jacobi.eigh_jacobi_registers, eigh_jacobi.eigh_jacobi_resident,
                eigh_jacobi.eigh_jacobi_cluster, eigh_jacobi.eigh_jacobi_global,
-               de_fused.de_generation_fused, qr_wavefront.qr_wavefront_kernel,
-               qr_wavefront.least_squares_wavefront_kernel, smallchol.solve_spd_batchminor,
+               de_fused.de_generation_staged, de_fused.de_generation_global,
+               qr_wavefront.qr_wavefront_kernel,
+               qr_wavefront.least_squares_wavefront_registers,
+               qr_wavefront.least_squares_wavefront_shared,
+               qr_wavefront.least_squares_wavefront_global, smallchol.solve_spd_batchminor,
                rank2.rank2_direction_batchminor_resident,
                rank2.rank2_direction_batchminor_rowsplit, rank2.rank2_update_batched_kernel):
         fn.launches = 0
 
 
-def phase_nlls_slice(torch, dev):
-    import nlsolver_torch
-    from nlsolver_torch.benches import expfit_scenario
+def nlls_counts():
     from nlsolver_torch.ops import qr_wavefront as tqw
     from nlsolver_torch.ops import smallchol as tsc
+
+    return {"K2a": tqw.qr_wavefront_kernel.launches,
+            **{kid: f.launches for kid, f in lstsq_forms().items()},
+            "K3": tsc.solve_spd_batchminor.launches}
+
+
+def fit_counted(torch, residual, X0, cfg, ys, kernel, label):
+    """One NLLS fleet through fit_fleet: ``kernel`` launched once per host
+    step, the other solve kernels never.  Returns the result and launches."""
+    import nlsolver_torch
     from nlsolver_torch.solvers.nlls_fleet import CHECK_EVERY
 
+    reset_counts()
+    t0 = time.perf_counter()
+    out = nlsolver_torch.fit_fleet(residual, X0, cfg, data=ys)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = nlls_counts()
+    # the host loop reads done.all() every CHECK_EVERY steps; the last lane
+    # to finish halts on step iterations + 1
+    steps = -(-(int(out.iterations.max()) + 1) // CHECK_EVERY) * CHECK_EVERY
+    log(f"[9] {label}: {wall:.3f} s, host steps {steps}, launches {counts}, iterations median "
+        f"{float(out.iterations.float().median()):.0f} max {int(out.iterations.max())}")
+    for k in counts:  # one launch per host step of this backend's kernel, none of the others
+        want = steps if k == kernel else 0
+        check(counts[k] == want, f"{label}: {k} launched {counts[k]} times, "
+              f"expected {want} in {steps} host steps")
+    return out, steps
+
+
+def phase_nlls_slice(torch, dev):
+    import nlsolver_torch
+    from nlsolver_torch.benches import chebyshev_scenario, expfit_scenario
+
     residual, ys, truth = expfit_scenario(FLEET_B, FLEET_M, device=dev)
-    kernel_of = {"qr_pallas": "K2b", "cholesky": "K3", "qr": None}
+    kernel_of = {"qr_pallas": "K2b-r", "cholesky": "K3", "qr": None}
     res, launches = {}, {}
     for solve, kernel in kernel_of.items():
         cfg = nlsolver_torch.NLLSFleetConfig(max_iter=30, solve=solve)
-        X0 = torch.ones(2, FLEET_B, device=dev)
-        reset_counts()
-        t0 = time.perf_counter()
-        out = nlsolver_torch.fit_fleet(residual, X0, cfg, data=ys)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = {"K2a": tqw.qr_wavefront_kernel.launches,
-                  "K2b": tqw.least_squares_wavefront_kernel.launches,
-                  "K3": tsc.solve_spd_batchminor.launches}
-        # the host loop reads done.all() every CHECK_EVERY steps; the last
-        # lane to finish halts on step iterations + 1
-        steps = -(-(int(out.iterations.max()) + 1) // CHECK_EVERY) * CHECK_EVERY
+        out, steps = fit_counted(torch, residual, torch.ones(2, FLEET_B, device=dev), cfg, ys,
+                                 kernel, f"fit_fleet {solve}")
         solved = float((out.f_value < 1e-6).float().mean())
         err = (out.x - truth).abs()
-        log(f"[9] fit_fleet {solve}: {wall:.3f} s, host steps {steps}, launches {counts}, "
-            f"iterations median {float(out.iterations.float().median()):.0f} max "
-            f"{int(out.iterations.max())}, solved {solved:.6f}, median |p-truth| "
+        log(f"[9] fit_fleet {solve}: solved {solved:.6f}, median |p-truth| "
             f"{float(err.median()):.3e}, max {float(err.max()):.3e}")
         check(out.x.shape == (2, FLEET_B) and bool(torch.isfinite(out.x).all()),
               f"{solve}: non-finite or misshapen x")
         check(solved >= 0.999, f"{solve}: solved share {solved} below 0.999")
         check(float(err.median()) <= 1e-3, f"{solve}: median |p - truth| above 1e-3")
-        for k in counts:  # one launch per host step of this backend's kernel, none of the others
-            want = steps if k == kernel else 0
-            check(counts[k] == want, f"{solve}: {k} launched {counts[k]} times, "
-                  f"expected {want} in {steps} host steps")
         res[solve] = out
         if kernel is not None:
-            launches[solve] = counts[kernel]
+            launches[kernel] = steps
     same_it = torch.equal(res["qr_pallas"].iterations, res["qr"].iterations)
     same_x = torch.equal(res["qr_pallas"].x, res["qr"].x)
     log(f"[9] qr_pallas against qr: iterations equal on every lane {same_it}, x equal {same_x}")
@@ -542,50 +766,37 @@ def phase_nlls_slice(torch, dev):
     d = (res["cholesky"].x - res["qr"].x).abs()
     log(f"[9] cholesky against qr: max |dx| {float(d.max()):.3e}, median {float(d.median()):.3e}")
     check(float(d.max()) <= 1e-4, "the cholesky fleet's fits differ from the qr fleet's by over 1e-4")
+    # wide fleets past the register form: Chebyshev fits of CHEB_SHARED
+    # and CHEB_GLOBAL coefficients through K2b's shared and device-memory forms
+    for (n, m, b), kernel in ((CHEB_SHARED, "K2b-s"), (CHEB_GLOBAL, "K2b-g")):
+        residual, ys, truth = chebyshev_scenario(b, n, m, device=dev)
+        cfg = nlsolver_torch.NLLSFleetConfig(max_iter=30, solve="qr_pallas")
+        out, steps = fit_counted(torch, residual, torch.zeros(n, b, device=dev), cfg, ys, kernel,
+                                 f"Chebyshev fits [{n}, {b}], {m} points")
+        solved = float((out.f_value < 1e-6).float().mean())
+        err = float((out.x - truth).abs().max())
+        log(f"[9] Chebyshev fits [{n}, {b}]: solved {solved:.6f}, max |c - truth| {err:.3e}")
+        check(bool(torch.isfinite(out.x).all()) and solved >= 0.999 and err <= 1e-4,
+              f"the Chebyshev fleet at n={n} did not recover its coefficients")
+        launches[kernel] = steps
     return launches
-
-
-def time_alone(torch, fn, reps, device_only, warmup=3, strict=True):
-    """Time of one call of ``fn`` in ms, from CUDA events over ``reps``
-    chained calls, after warm-up.  With ``device_only`` a device sleep ahead
-    of the start event lets the host queue every call first, so the events
-    see the card's time and not the host's pace (a kernel's wrapper costs
-    some 20-40 us of host time per call).  A plain twin runs more eager
-    ops than the launch queue holds, so the host paces it however long the
-    card sleeps: it is timed as a plain chain, its real cost per call.  A
-    library call may wait for the card inside (an error check): with
-    ``strict=False`` the time then stands as that of a chained call."""
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    if device_only:
-        torch.cuda._sleep(SLEEP_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    queued = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    if device_only and strict:
-        slept = time.perf_counter() - t0 - start.elapsed_time(end) / 1e3
-        check(queued < slept, f"the host queued for {queued:.3f} s, longer than the card "
-              f"slept ({slept:.3f} s): the timing would be the host's")
-    return start.elapsed_time(end) / reps
 
 
 def abba(torch, kern, kreps, plain, preps):
     """(kernel ms, twin ms): plain, kernel, kernel, plain in one go, the
-    least of each pair; the kernel's is device time, the twin's per chained
-    call."""
-    p1, k1, k2, p2 = (time_alone(torch, f, r, device_only=f is kern) for f, r in
+    least of each pair (``benches.device_ms``).  The kernel's is device time
+    behind a device sleep; a plain twin runs more eager ops than the launch
+    queue holds, so the host paces it however long the card sleeps: it is
+    timed as a plain chain, its real cost per call."""
+    from nlsolver_torch.benches import device_ms
+
+    p1, k1, k2, p2 = (device_ms(f, r, sleep=f is kern) for f, r in
                       ((plain, preps), (kern, kreps), (kern, kreps), (plain, preps)))
     return (min(k1, k2), min(p1, p2)), (k1, k2, p1, p2)
 
 
 def phase_nlls_timing(torch, dev):
-    from nlsolver_torch.benches import bench_nlls_fleet
+    from nlsolver_torch.benches import bench_nlls_fleet, device_ms
     from nlsolver_torch.ops import qr_wavefront as tqw
     from nlsolver_torch.ops import smallchol as tsc
 
@@ -605,14 +816,26 @@ def phase_nlls_timing(torch, dev):
     Aq = torch.randn((16, 16, 4096), generator=g, device=dev)
     # the one PyTorch call that computes the same function, on the same
     # systems in the leading-batch layout the library takes
-    Al, yl = A.permute(2, 0, 1).contiguous(), y.t().contiguous()[:, :, None]
     Aql = Aq.permute(2, 0, 1).contiguous()
     A2l, b2l = spd[2][0].permute(2, 0, 1).contiguous(), spd[2][1].t().contiguous()[:, :, None]
+    forms = lstsq_forms()
+
+    def lstsq_case(kid, A, y, kreps):
+        Al, yl = A.permute(2, 0, 1).contiguous(), y.t().contiguous()[:, :, None]
+        return (lambda: forms[kid](A, y), kreps,
+                lambda: tqw.least_squares_wavefront_reference(A, y), 3,
+                lambda: torch.linalg.lstsq(Al, yl))
+
+    # K2b: each form at the NLLS fleet's system, then the shared and device-
+    # memory forms at the Chebyshev fleets' systems they serve
+    sys_s, sys_g = (chebyshev_system(torch, dev, *shape) for shape in (CHEB_SHARED, CHEB_GLOBAL))
     # name: kernel and repeats, twin and repeats, library call
     times = {
-        "K2b": (lambda: tqw.least_squares_wavefront_kernel(A, y), 50,
-                lambda: tqw.least_squares_wavefront_reference(A, y), 5,
-                lambda: torch.linalg.lstsq(Al, yl)),
+        "K2b-r": lstsq_case("K2b-r", A, y, 50),
+        "K2b-s n=2": lstsq_case("K2b-s", A, y, 50),
+        "K2b-g n=2": lstsq_case("K2b-g", A, y, 50),
+        "K2b-s": lstsq_case("K2b-s", *sys_s, 20),
+        "K2b-g": lstsq_case("K2b-g", *sys_g, 5),
         "K3 n=2": (lambda: tsc.solve_spd_batchminor(*spd[2]), 50,
                    lambda: tsc._chol_solve_batchminor(*spd[2]), 5,
                    lambda: torch.cholesky_solve(b2l, torch.linalg.cholesky_ex(A2l).L)),
@@ -627,8 +850,9 @@ def phase_nlls_timing(torch, dev):
         (k, p), (k1, k2, p1, p2) = abba(torch, kern, kreps, plain, preps)
         lib = None
         if library is not None:
-            lib = min(time_alone(torch, library, 5, device_only=True, strict=False)
-                      for _ in range(2))
+            # a library call may wait for the card inside (an error check):
+            # its time then stands as that of a chained call
+            lib = min(device_ms(library, 5, strict=False) for _ in range(2))
         alone[name] = (k, p, lib)
         log(f"[10] {name} alone: kernel {k * 1e3:.2f} us of device time, plain twin "
             f"{p * 1e3:.2f} us per chained call (CUDA events; kernel "
@@ -1150,7 +1374,7 @@ def phase_cmaes_slice(torch, dev):
 
 
 def phase_cmaes_timing(torch, dev):
-    from nlsolver_torch.benches import bench_cmaes_fleet, spd_fleet
+    from nlsolver_torch.benches import bench_cmaes_fleet, device_ms, spd_fleet
     from nlsolver_torch.linalg.eigh_qr import eigh_library_batched
     from nlsolver_torch.linalg.jacobi import eigh_jacobi
     from nlsolver_torch.ops import eigh_jacobi as te
@@ -1170,16 +1394,14 @@ def phase_cmaes_timing(torch, dev):
     alone = {}
     for A, sweeps, forms in inputs:
         Al = A.permute(2, 0, 1).contiguous()
-        p1 = time_alone(torch, lambda: eigh_jacobi(A, sweeps=sweeps, sort=False), 2, False,
-                        warmup=1)
-        ks = {name: [time_alone(torch, lambda: kernel(A, sweeps), kreps, True, warmup=2)]
+        p1 = device_ms(lambda: eigh_jacobi(A, sweeps=sweeps, sort=False), 2, warmup=1, sleep=False)
+        ks = {name: [device_ms(lambda: kernel(A, sweeps), kreps, warmup=2)]
               for name, kernel, kreps in forms}
         for name, kernel, kreps in reversed(forms):
-            ks[name].append(time_alone(torch, lambda: kernel(A, sweeps), kreps, True, warmup=1))
-        p2 = time_alone(torch, lambda: eigh_jacobi(A, sweeps=sweeps, sort=False), 2, False,
-                        warmup=0)
-        lib = time_alone(torch, lambda: eigh_library_batched(Al), 1 if A.shape[0] > 32 else 3,
-                         True, warmup=1, strict=False)
+            ks[name].append(device_ms(lambda: kernel(A, sweeps), kreps, warmup=1))
+        p2 = device_ms(lambda: eigh_jacobi(A, sweeps=sweeps, sort=False), 2, warmup=0, sleep=False)
+        lib = device_ms(lambda: eigh_library_batched(Al), 1 if A.shape[0] > 32 else 3, warmup=1,
+                        strict=False)
         for name, (k1, k2) in ks.items():
             alone[name] = (min(k1, k2), min(p1, p2), lib)
             log(f"[16] {name} {list(A.shape)}, {sweeps} sweeps, alone: kernel {min(k1, k2):.3f} ms "
@@ -1211,17 +1433,20 @@ def phase_cmaes_timing(torch, dev):
     return alone
 
 
-def kernel_row(name, source, replaces, launches, max_err, times, bound_ms_by):
+def kernel_row(name, source, replaces, launches, max_err, times, bound_ms_by, issue_ms=None):
+    """One entry of the kernels line; ``issue_ms``, where phase 2 found it,
+    is the floor of the kernel's instruction issue beside its bound."""
     ms, plain_ms, library_ms = times
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms_by[0], "bound_by": bound_ms_by[1], "library_ms": library_ms}
+            "bound_ms": bound_ms_by[0], "bound_by": bound_ms_by[1], "library_ms": library_ms,
+            "issue_ms": issue_ms}
 
 
 def phases_earlier(torch, dev):
     max_err = phase_injected(torch, dev)
     phase_philox(torch, dev)
-    launches = phase_slice(torch, dev)
+    de_launches = phase_slice(torch, dev)
     de_times = phase_timing(torch, dev)
     chol_err = phase_smallchol(torch, dev)
     qr_err, qr_launches = phase_qr(torch, dev)
@@ -1232,23 +1457,33 @@ def phases_earlier(torch, dev):
     alone.update(phase_bfgs_timing(torch, dev))
     m = FLEET_M + 2  # rows of the NLLS fleet's augmented system [J; sqrt(lam) I]
     csrc, tpu = "nlsolver_torch/csrc/", "nlsolver_tpu/ops/"
+    k2b = tpu + "qr_wavefront.py:207"
     return [
-        # agents in and out, scores in and out, the active mask; some 30
-        # operations a coordinate (mutation, crossover, a Rastrigin term)
-        kernel_row("de_generation_fused", csrc + "de_fused.cu", TPU_KERNEL, launches, max_err,
-                   (*de_times, None),
-                   bound((2 * N * P + 2 * P) * B * 4 + B, 30 * N * P * B)),
+        # agents in and out, scores in and out, the active mask; 30
+        # floating-point operations a coordinate (mutation, crossover, a
+        # Rastrigin term with its cosine as one), which leaves out the cosine's
+        # range reduction and Philox's integer rounds (see the issue floors)
+        kernel_row("de_generation_staged", csrc + "de_fused.cu", TPU_KERNEL, de_launches["K1s"],
+                   max_err, de_times["K1s"], de_bound(B, N, P), FLOORS["K1s"]),
+        kernel_row("de_generation_global", csrc + "de_fused.cu", TPU_KERNEL, de_launches["K1g"],
+                   max_err, de_times["K1g"], de_bound(*DE_WIDE[:3])),
         # A in, R and Q out
         kernel_row("qr_wavefront_kernel", csrc + "qr_wavefront.cu", tpu + "qr_wavefront.py:150",
                    qr_launches, qr_err, alone["K2a"],
                    bound(3 * 16 * 16 * 4096 * 4, givens_ops(16, 16, 16) * 4096)),
-        # A and y in, x out
-        kernel_row("least_squares_wavefront_kernel", csrc + "qr_wavefront.cu",
-                   tpu + "qr_wavefront.py:207", fleet_launches["qr_pallas"], qr_err, alone["K2b"],
-                   bound((m * 2 + m + 2) * FLEET_B * 4, givens_ops(m, 2, 1) * FLEET_B)),
+        # A and y in, x out; each form at the fleet it serves
+        kernel_row("least_squares_wavefront_registers", csrc + "qr_wavefront.cu", k2b,
+                   fleet_launches["K2b-r"], qr_err, alone["K2b-r"], lstsq_bound(m, 2, FLEET_B),
+                   FLOORS["K2b-r"]),
+        kernel_row("least_squares_wavefront_shared", csrc + "qr_wavefront.cu", k2b,
+                   fleet_launches["K2b-s"], qr_err, alone["K2b-s"],
+                   lstsq_bound(CHEB_SHARED[1] + CHEB_SHARED[0], *CHEB_SHARED[::2])),
+        kernel_row("least_squares_wavefront_global", csrc + "qr_wavefront.cu", k2b,
+                   fleet_launches["K2b-g"], qr_err, alone["K2b-g"],
+                   lstsq_bound(CHEB_GLOBAL[1] + CHEB_GLOBAL[0], *CHEB_GLOBAL[::2])),
         # A and b in, x out; n^3 / 3 + 2 n^2 operations a lane at n = 2
         kernel_row("solve_spd_batchminor", csrc + "smallchol.cu", tpu + "smallchol.py:101",
-                   fleet_launches["cholesky"], chol_err, alone["K3 n=2"],
+                   fleet_launches["K3"], chol_err, alone["K3 n=2"],
                    bound(8 * FLEET_B * 4, 11 * FLEET_B)),
         kernel_row("rank2_direction_batchminor_resident", csrc + "rank2.cu", tpu + "rank2.py:280",
                    bfgs_launches["K4a"], rank2_err["K4a"], alone["K4a"],

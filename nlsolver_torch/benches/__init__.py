@@ -23,6 +23,130 @@ from ..solvers import nlls_fleet as nf
 from ..solvers.de import DEConfig
 
 
+# a device sleep of some 0.2 s (torch.cuda._sleep cycles) ahead of a timed chain
+SLEEP_CYCLES = 400_000_000
+
+
+def device_ms(fn, reps, warmup=3, sleep=True, strict=True):
+    """Time of one call of ``fn`` in ms, from CUDA events over ``reps``
+    chained calls after ``warmup``.  With ``sleep`` a device sleep ahead of
+    the start event lets the host queue every call first, so the events see
+    the card's time and not the host's pace (a kernel's wrapper costs some
+    20-40 us of host time a call); with ``strict`` it raises where the host
+    queued for longer than the card slept.  Without ``sleep`` it times a
+    plain chain, the real cost a call of eager code that the host paces."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if sleep:
+        torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    queued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    if sleep and strict:
+        slept = time.perf_counter() - t0 - start.elapsed_time(end) / 1e3
+        if queued >= slept:
+            raise RuntimeError(f"the host queued for {queued:.3f} s, longer than the card slept "
+                               f"({slept:.3f} s): the timing would be the host's")
+    return start.elapsed_time(end) / reps
+
+
+def sass_functions(library) -> dict:
+    """Each kernel of a built library as ``cuobjdump -sass`` lists it: its
+    mangled name to its instructions ``[(address, text)]`` up to the branch
+    to itself that ends its body (the out-of-line subroutines after it, the
+    slow paths of division and square root, are left out), NOPs dropped."""
+    import re
+    import shutil
+    import subprocess
+
+    from ..ops._build import find_nvcc
+
+    tool = shutil.which("cuobjdump") or str(__import__("pathlib").Path(find_nvcc()).with_name("cuobjdump"))
+    text = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for part in re.split(r"\n\s*Function : ", text)[1:]:
+        name, body = part.split("\n", 1)
+        ins = []
+        for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body):
+            addr, op = int(m.group(1), 16), m.group(2).strip()
+            if op.startswith("NOP"):
+                continue
+            if re.fullmatch(rf"BRA (?:0x)?{addr:x}", op) or op == f"BRA 0x{addr:x}":
+                break
+            ins.append((addr, op))
+        out[name.strip()] = ins
+    return out
+
+
+def issue_instructions(ins, trips: int) -> tuple[int, int]:
+    """A floor on the instructions one thread issues in a kernel: the
+    shortest path through its SASS from entry to exit, where a conditional
+    branch may go either way (a lane takes the cheaper arm of each, and no
+    slow path), early exits are not taken, and each loop counts ``trips``
+    passes of the shortest path through its body for the loop whose body
+    costs most, and none for the others.  Returns (instructions, the hot
+    loop's body).  Predicated instructions count: they issue either way."""
+    import re
+
+    n = len(ins)
+    index = {addr: i for i, (addr, _) in enumerate(ins)}
+
+    def target(op):
+        m = re.search(r"BRA(?:\.\w+)*\s+(?:!?U?P\d,\s*)?(?:`\(\.L_x_\d+\)\s*)?0x([0-9a-f]+)", op)
+        return index.get(int(m.group(1), 16)) if m else None
+
+    loops = []  # (header, last) of each backward branch
+    for i, (_, op) in enumerate(ins):
+        t = target(op) if "BRA" in op else None
+        if t is not None and t <= i:
+            loops.append((t, i))
+    inside = [False] * n
+    for h, e in loops:
+        for i in range(h, e + 1):
+            inside[i] = True
+
+    def shortest(start, stop, free):
+        """Shortest forward path from ``start`` to ``stop`` (inclusive);
+        instructions where ``free`` is true cost nothing."""
+        inf = float("inf")
+        cost = [inf] * (n + 1)
+        cost[start] = 0
+        for i in range(start, min(stop, n - 1) + 1):
+            if cost[i] == inf:
+                continue
+            here = cost[i] + (0 if free[i] else 1)
+            op = ins[i][1]
+            conditional = op.startswith("@")
+            body = op.split(None, 1)[1] if conditional else op
+            nxt = []
+            if body.startswith("EXIT"):
+                nxt = [i + 1] if conditional else [n]
+            elif body.startswith("BRA"):
+                t = target(op)
+                if t is not None and t > i:
+                    nxt.append(t)
+                if conditional or t is None or t <= i:
+                    nxt.append(i + 1)
+            else:
+                nxt = [i + 1]
+            for j in nxt:
+                j = j if j <= stop + 1 else n  # leaving the region is no way through it
+                cost[j] = min(cost[j], here)
+        return cost[n] if stop >= n - 1 else cost[stop + 1]
+
+    outside = shortest(0, n - 1, inside)
+    bodies = [shortest(h, e, [False] * n) for h, e in loops]
+    hot = max(bodies, default=0)
+    return int(outside + trips * hot), int(hot)
+
+
 def _timed(run, runs=5, warmup=2):
     for _ in range(warmup):
         run()
@@ -72,6 +196,73 @@ def bench_de_batched(B=8192, dim=10, pop=64, iters=200, runs=5, fused: bool = Fa
     }
 
 
+def probe_de_fused(B=8192, dim=10, pop=64, reps=200):
+    """Where kernel K1's time goes, at the DE headline's shape: its device
+    time a launch in us (``device_ms`` behind a device sleep, the least of
+    two) per objective (``rastrigin``, an accurate ``cosf`` a coordinate;
+    ``sphere``), per source of draws (``philox`` in the kernel; ``injected``
+    u and fdim read from device memory) and per accepted share (``none``:
+    every lane frozen, each agent copied back; ``all``: every score +inf,
+    each proposal accepted and written back; ``headline``: the scores of the
+    agents themselves, as the fleet's first generation sees them); for each
+    of K1's forms, ``staged`` and ``global``."""
+    from ..ops import de_fused as tdf
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("probe_de_fused measures a CUDA card; none is available")
+    device = torch.device("cuda")
+    g = torch.Generator(device=device).manual_seed(3)
+    agents = (torch.rand((B, dim, pop), generator=g, device=device) - 0.5) * 5.0
+    u, fdim = tdf.philox_draws(1, 0, B, dim, pop, torch.float32, device)
+    fdim = fdim.to(torch.int32).contiguous()
+    every = torch.ones(B, dtype=torch.bool, device=device)
+    inf = torch.full((B, pop), float("inf"), device=device)
+    out = {"B": B, "dim": dim, "pop": pop}
+    for name in ("rastrigin", "sphere"):
+        fn = PROBLEMS[name].fn
+        scores = tdf.eval_columns(fn, agents)
+        shares = {"none": (scores, ~every), "all": (inf, every), "headline": (scores, every)}
+        for draws in ("philox", "injected"):
+            extra = {} if draws == "philox" else {"u": u, "fdim": fdim}
+            for share, (s, active) in shares.items():
+                for form in ("staged", "global"):
+                    kernel = getattr(tdf, f"de_generation_{form}")
+
+                    def launch():
+                        kernel(fn, agents, s, (5, 30, 50), active, seed=1, generation=0, **extra)
+                    out[f"{form}_{name}_{draws}_{share}_us"] = 1e3 * min(
+                        device_ms(launch, reps) for _ in range(2))
+    return out
+
+
+def profile_de_batched(B=8192, dim=10, pop=64, iters=200, fused=True, top=5):
+    """One run of ``bench_de_batched``'s fleet under ``torch.profiler``:
+    wall time, device busy time and device kernel launches, in all and per
+    generation, the ``top`` kernels by device time and, on the kernel path,
+    K1's device time a launch in us as the trace records it."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_de_batched measures a CUDA card; none is available")
+    device = torch.device("cuda")
+    fn = PROBLEMS["rastrigin"].fn
+    x0 = torch.full((B, dim), -0.5, dtype=torch.float32, device=device)
+    cfg = DEConfig(pop_size=pop, max_iter=1 << 30, best_value_no_change=1 << 30, eps=0.0,
+                   partner_sampling="rotation", use_fused_kernel=fused)
+
+    def run():
+        g = torch.Generator(device=device).manual_seed(0)
+        state = deb.init(fn, x0, cfg, generator=g)
+        return drive_scan(lambda s: deb.step(fn, s, cfg, generator=g), state, iters)
+
+    _, out = _profiled(run, top)
+    res = {"name": "de_batched_torch_" + ("fused" if fused else "plain") + "_profile",
+           "generations": iters, "launches_per_generation": out["device_launches"] / iters, **out}
+    k1 = [(count, ms) for key, count, ms in out["top_kernels"]
+          if "de_generation_kernel" in key or "de_staged_kernel" in key]
+    if k1:
+        res["k1_launches"], res["k1_us"] = k1[0][0], k1[0][1] / k1[0][0] * 1e3
+    return res
+
+
 def expfit_scenario(B: int, m: int = 32, seed: int = 0, device="cuda", dtype=torch.float32):
     """The NLLS fleet's scenario (the JAX package's config #5): ``B`` curves
     ``y = a exp(-k t)`` on ``t = linspace(0, 2, m)``, amplitudes a ~ U[1, 3]
@@ -88,6 +279,28 @@ def expfit_scenario(B: int, m: int = 32, seed: int = 0, device="cuda", dtype=tor
         return p[0] * torch.exp(-p[1] * t) - y_i
 
     return residual, ys, torch.stack([amps, rates])
+
+
+def chebyshev_scenario(B: int, n: int, m: int = 32, seed: int = 0, device="cuda",
+                       dtype=torch.float32):
+    """A wide NLLS fleet: ``B`` series of ``m`` samples at the Chebyshev
+    nodes of [-1, 1], each the sum of the first ``n`` Chebyshev polynomials
+    with coefficients ~ N(0, 1) drawn from ``seed`` on ``device``.  Fitting
+    the coefficients is linear in them and well conditioned (the basis is
+    orthogonal on the nodes), so Levenberg-Marquardt recovers them in a few
+    steps; the augmented systems are ``[m + n, n, B]``.  Returns
+    ``(residual, ys [B, m], truth [n, B])`` as ``expfit_scenario`` does."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    k = torch.arange(m, dtype=dtype, device=device)
+    theta = torch.pi * (k + 0.5) / m
+    basis = torch.cos(torch.arange(n, dtype=dtype, device=device)[:, None] * theta[None, :])  # [n, m]
+    coefs = torch.randn((n, B), generator=g, dtype=dtype, device=device)
+    ys = (basis.t() @ coefs).t().contiguous()
+
+    def residual(p, y_i):
+        return p @ basis - y_i
+
+    return residual, ys, coefs
 
 
 def bench_nlls_fleet(B=262144, m=32, runs=3, solve="qr_pallas", steps=32):
@@ -353,18 +566,9 @@ def profile_cmaes_fleet(B=65536, n=16, iters=50, method="pallas", eigen_interval
 
 
 def _device_ms(fn, reps=3):
-    """Device time of one call of ``fn`` in ms, from CUDA events over
-    ``reps`` chained calls after one warm-up; for calls of a millisecond or
-    more, whose few microseconds of host pace do not show."""
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    """``device_ms`` of a plain chain after one warm-up: for calls of a
+    millisecond or more, whose few microseconds of host pace do not show."""
+    return device_ms(fn, reps, warmup=1, sleep=False)
 
 
 def sweep_eigh_jacobi(ns=(8, 16, 24, 29, 30, 31, 32, 42, 43, 52, 53, 54, 55, 56, 57, 58, 59, 60,

@@ -12,13 +12,27 @@
 //
 // What bounds it: one generation must read the agents and scores and write
 // them back, (2*B*n*P + 2*B*P) * 4 bytes: 46.1 MB at B=8192, n=10, P=64,
-// about 14 us at the H100's 3.35 TB/s.  It computes B*P*n = 5.2 M accurate
-// cosines (Rastrigin) and, in Philox mode, B*P*(ceil(n/4)+1) Philox blocks,
-// each a few hundred instructions per thread, which is of the same order.
-// The design moves nothing else: the partner reads of a block's instances
-// hit L1, the proposal lives in registers and is recomputed (not stored)
-// for the write-back of an accepted agent, and the lane freeze is folded
-// into the accept select, so a frozen lane costs one copy.
+// about 14 us at the H100's 3.35 TB/s.  It also computes B*P*n accurate
+// cosines (Rastrigin: some 40 instructions each with the range reduction)
+// and, in Philox mode, B*P*(ceil(n/4)+1) Philox blocks of some 60 integer
+// instructions each.
+//
+// Two forms, chosen by shape in ops/de_fused.py:
+//   * de_staged_kernel: a block's instances are contiguous, per_block * n *
+//     P floats, and one bulk asynchronous copy (cp.async.bulk, Hopper's 1-D
+//     TMA, completing on an mbarrier) stages them in shared memory while the
+//     threads draw their crossover masks; the partner reads and the write-
+//     back of a rejected agent then come from shared memory.  The proposal
+//     is kept from the score pass, in registers for n <= kRegisterMaxN (one
+//     kernel per n) and in shared memory beyond, so an accepted agent is
+//     written with no second pass.  Where the slab is not 16-byte aligned or
+//     sized (n * P % 4 != 0, or a view's offset), the threads stage it with
+//     plain coalesced loads instead of the bulk copy.
+//   * de_generation_kernel: the agents read through L1 from device memory,
+//     the proposal recomputed for the write-back of an accepted agent; for
+//     populations whose slab does not fit a block's shared memory.
+// The lane freeze is folded into the accept select, so a frozen lane costs
+// one copy.
 //
 // Arithmetic: the donor is rounded step by step as PyTorch's eager
 // a1 + F * (a2 - a3) rounds it (no FMA contraction), and each objective
@@ -152,6 +166,145 @@ __global__ void de_generation_kernel(
   }
 }
 
+// the staged form's most n with the proposal in registers
+constexpr int kRegisterMaxN = 16;
+
+__device__ inline uint32_t smem_address(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// whether coordinate d of agent (b, p) mutates: u < CR or d == fdim
+__device__ inline bool mutates(const float u4[4], int j, int d, int fdim, float CR) {
+  return u4[j] < CR || d == fdim;
+}
+
+template <class Obj, int NR>
+__global__ void __launch_bounds__(1024)
+    de_staged_kernel(const float* __restrict__ agents, const float* __restrict__ scores,
+                     const bool* __restrict__ active, Draws draws,
+                     float* __restrict__ out_agents, float* __restrict__ out_scores,
+                     int B, int n, int P, int o1, int o2, int o3, float F, float CR,
+                     int bulk) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t staged;  // the bulk copy's mbarrier
+  const int per_block = blockDim.x / P, t = threadIdx.x;
+  const int p = t % P, local = t / P;
+  const long long b0 = static_cast<long long>(blockIdx.x) * per_block;
+  const int count = static_cast<int>(min(static_cast<long long>(per_block), B - b0));
+  const int words = count * n * P;
+  float* slab = reinterpret_cast<float*>(smem);  // [count][n][P]
+  const float* src = agents + b0 * n * P;
+  if (bulk) {
+    if (t == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_address(&staged)));
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    if (t == 0) {
+      const uint32_t bytes = static_cast<uint32_t>(words) * 4u;
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   ::"r"(smem_address(&staged)), "r"(bytes) : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+          ::"r"(smem_address(slab)), "l"(src), "r"(bytes), "r"(smem_address(&staged))
+          : "memory");
+    }
+  } else {
+    for (int i = t; i < words; i += blockDim.x) slab[i] = src[i];
+    __syncthreads();
+  }
+  if (local >= count) return;  // no barrier follows
+  const long long b = b0 + local;
+  const int q1 = (p + o1) % P, q2 = (p + o2) % P, q3 = (p + o3) % P;
+  const int fdim = draw_fdim(draws, b, n, P, p);
+  const bool live = active[b];
+  const float s = scores[b * P + p];
+  float* out = out_agents + b * n * P;
+  const float* A = slab + static_cast<long long>(local) * n * P;
+  auto donor = [&](int d) {
+    const float* row = A + d * P;
+    return __fadd_rn(row[q1], __fmul_rn(F, __fsub_rn(row[q2], row[q3])));
+  };
+  auto wait_staged = [&]() {
+    if (!bulk) return;
+    uint32_t done = 0;
+    while (!done) {
+      asm volatile(
+          "{\n .reg .pred ready;\n"
+          " mbarrier.try_wait.parity.shared::cta.b64 ready, [%1], 0;\n"
+          " selp.u32 %0, 1, 0, ready;\n}"
+          : "=r"(done) : "r"(smem_address(&staged)) : "memory");
+    }
+  };
+  float acc = 0.0f;
+  if constexpr (NR > 0) {
+    // the crossover mask while the copy is in flight, then the proposal in
+    // registers
+    uint32_t mask = 0;
+#pragma unroll
+    for (int d0 = 0; d0 < NR; d0 += 4) {
+      float u4[4];
+      draw_u4(draws, b, NR, P, p, d0, u4);
+#pragma unroll
+      for (int j = 0; j < 4 && d0 + j < NR; ++j)
+        mask |= static_cast<uint32_t>(mutates(u4, j, d0 + j, fdim, CR)) << (d0 + j);
+    }
+    wait_staged();
+    float prop[NR];
+#pragma unroll
+    for (int d = 0; d < NR; ++d) {
+      prop[d] = (mask >> d & 1u) ? donor(d) : A[d * P + p];
+      acc = __fadd_rn(acc, Obj::term(prop[d]));
+    }
+    const float prop_score = Obj::finish(acc, NR);
+    const bool accept = live && prop_score < s;
+    out_scores[b * P + p] = accept ? prop_score : s;
+#pragma unroll
+    for (int d = 0; d < NR; ++d) out[d * P + p] = accept ? prop[d] : A[d * P + p];
+  } else {
+    // the proposal in shared memory past the slabs, [d][thread]
+    float* prop = slab + static_cast<long long>(per_block) * n * P + t;
+    const int stride = blockDim.x;
+    wait_staged();
+    for (int d0 = 0; d0 < n; d0 += 4) {
+      float u4[4];
+      draw_u4(draws, b, n, P, p, d0, u4);
+      for (int j = 0; j < 4 && d0 + j < n; ++j) {
+        const int d = d0 + j;
+        const float v = mutates(u4, j, d, fdim, CR) ? donor(d) : A[d * P + p];
+        prop[d * stride] = v;
+        acc = __fadd_rn(acc, Obj::term(v));
+      }
+    }
+    const float prop_score = Obj::finish(acc, n);
+    const bool accept = live && prop_score < s;
+    out_scores[b * P + p] = accept ? prop_score : s;
+    for (int d = 0; d < n; ++d) out[static_cast<long long>(d) * P + p] = accept ? prop[d * stride] : A[d * P + p];
+  }
+}
+
+template <class Obj, int NR>
+int launch_staged(const float* agents, const float* scores, const bool* active,
+                  const Draws& draws, float* out_agents, float* out_scores, int B,
+                  int n, int P, int o1, int o2, int o3, float F, float CR,
+                  int per_block, int smem, int bulk, cudaStream_t stream) {
+  if constexpr (NR > 0) {
+    if (n != NR) {
+      return launch_staged<Obj, NR - 1>(agents, scores, active, draws, out_agents,
+                                        out_scores, B, n, P, o1, o2, o3, F, CR,
+                                        per_block, smem, bulk, stream);
+    }
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      de_staged_kernel<Obj, NR>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (B + per_block - 1) / per_block;
+  de_staged_kernel<Obj, NR><<<blocks, per_block * P, smem, stream>>>(
+      agents, scores, active, draws, out_agents, out_scores, B, n, P, o1, o2, o3, F, CR,
+      bulk);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <class Obj>
 int launch(const void* agents, const void* scores, const void* active,
            const void* u, const void* fdim, void* out_agents,
@@ -188,3 +341,27 @@ int launch(const void* agents, const void* scores, const void* active,
 
 NLSOLVER_DE_LAUNCHER(rastrigin, Rastrigin)
 NLSOLVER_DE_LAUNCHER(sphere, Sphere)
+
+// The staged form: ``per_block`` instances a block, ``smem`` bytes of dynamic
+// shared memory (their slabs, and their proposals where n > kRegisterMaxN),
+// ``bulk`` non-zero to stage them with one bulk copy.  Returns
+// cudaGetLastError().
+#define NLSOLVER_DE_STAGED_LAUNCHER(NAME, OBJ)                                 \
+  extern "C" int de_staged_##NAME##_f32(                                       \
+      const void* agents, const void* scores, const void* active,              \
+      const void* u, const void* fdim, void* out_agents, void* out_scores,     \
+      int B, int n, int P, int o1, int o2, int o3, float F, float CR,          \
+      uint32_t seed, uint32_t generation, int per_block, int smem, int bulk,   \
+      void* stream) {                                                          \
+    const Draws draws{static_cast<const float*>(u),                            \
+                      static_cast<const int*>(fdim), seed, generation};        \
+    return launch_staged<OBJ, kRegisterMaxN>(                                  \
+        static_cast<const float*>(agents), static_cast<const float*>(scores),  \
+        static_cast<const bool*>(active), draws,                               \
+        static_cast<float*>(out_agents), static_cast<float*>(out_scores), B,   \
+        n, P, o1, o2, o3, F, CR, per_block, smem, bulk,                        \
+        static_cast<cudaStream_t>(stream));                                    \
+  }
+
+NLSOLVER_DE_STAGED_LAUNCHER(rastrigin, Rastrigin)
+NLSOLVER_DE_STAGED_LAUNCHER(sphere, Sphere)

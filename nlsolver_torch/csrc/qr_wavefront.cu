@@ -6,25 +6,36 @@
 // x = argmin ||A x - y|| for A [m, n, B], y [m, B]; the rotations thread y
 // and the back-substitution runs in the kernel, so only x is written).
 //
-// Design: one thread per lane b.  Element (i, j) of lane b lies at
+// Layout: one thread per lane b.  Element (i, j) of lane b lies at
 // (i * cols + j) * B + b, so neighbouring threads touch neighbouring
-// addresses and every load and store coalesces without a transpose.  The
-// thread walks the schedule in stage order: entry (i, j), i > j, is zeroed
-// at stage k = m - 1 - i + 2 j by rotating rows (i - 1, i); for stage k the
-// columns are j = max(0, k - m + 2) .. min(n - 1, k / 2), recomputed here in
-// closed form, so no schedule table is passed.  The row pairs of a stage are
-// disjoint, so one thread doing them one after another computes what the
-// twin's whole-stage tensor ops compute.
+// addresses and every load and store coalesces without a transpose.  Entry
+// (i, j), i > j, is zeroed at stage k = m - 1 - i + 2 j by rotating rows
+// (i - 1, i); for stage k the columns are j = max(0, k - m + 2) .. min(n -
+// 1, k / 2), in closed form, so no schedule table is passed.  The row pairs
+// of a stage are disjoint, so one thread doing them one after another
+// computes what the twin's whole-stage tensor ops compute.
 //
-// What bounds it: K2b at [34, 2, 262144] f32 must read A and y and write
-// x, about 109 MB, some 33 us at 3.35 TB/s.  It measures about 240 us on an
-// H100 (PERF.md), five times a plain copy of A: the per-lane working copy
-// of R and Q^T y (the scratch the wrapper allocates, 70 words a lane)
-// is read and written about 330 times a lane across the stages, and at
-// 256 threads a block that overflows L1 into L2.  Keeping R in registers
-// for small m n is the lever.  The working set lives in global memory, so
-// the kernel has no fast-memory envelope: every m >= n and every B is
-// taken, with no fallback and no padding lanes.  K2a also writes Q^T
+// K2b, the sliding window.  At stage k the rotation of column j acts on rows
+// (m - 2 - k + 2 j, m - 1 - k + 2 j): rows (2 j, 2 j + 1) of a window whose
+// row 0 is row m - 2 - k of the system.  A row enters the window at stage k
+// as row m - 2 - k and is finished once it has left window row 2 n - 1, so
+// only 2 n rows of n + 1 words (R's columns, then Q^T y) are live at a
+// stage, and A and y are read once, row by row, one stage ahead, and only x
+// is written: 109 MB at [34, 2, 262144] in f32, some 33 us at 3.35 TB/s.
+// Three forms, chosen by n and dtype in ops/qr_wavefront.py:
+//   * least_squares_registers_kernel<T, N>: the window in the thread's
+//     registers.  Every index is a compile-time constant (a register array
+//     takes no runtime index), so the window shifts by one row a stage by
+//     register moves; the active columns of a stage are a uniform branch.
+//   * least_squares_shared_kernel<T>: the same window as a ring of 2 n + 1
+//     rows in shared memory, laid out [row][word][lane] with lanes the
+//     fastest index, so a warp's accesses fall in distinct banks; the spare
+//     row takes the next stage's row by cp.async while this stage rotates.
+//   * qr_wavefront_kernel<T, false, true>: a working copy of [A | y] in
+//     device memory (the scratch R and qty the wrapper allocates), read and
+//     written some 330 times a lane at [34, 2]; every n, for n past the
+//     shared-memory form's.
+// K2a (qr_wavefront_kernel, no kSolve) writes all of R and, with Q, Q^T
 // [m, m, B]; with few lanes (4096 at [16, 16]) it fills a fraction of the
 // card and is bound by each thread's chain of dependent rotations.
 //
@@ -33,12 +44,14 @@
 // coefficients as givens.py computes its selected branch, a rotation as
 // (c * x) + (s * y) with -s on row q, the back-substitution in the twin's
 // order, through the _rn intrinsics so that no FMA contraction creeps in.
-// The kernel is then bit-equal to the twin.  K2a rotates all n columns of a
-// row pair, as the twin does, so that R is bit-equal below the diagonal
+// Every kernel is then bit-equal to the twin.  K2a rotates all n columns of
+// a row pair, as the twin does, so that R is bit-equal below the diagonal
 // too; K2b rotates columns j .. n - 1 only, since the columns left of j
 // hold zeroed entries that x never reads.
 
 #include <cuda_runtime.h>
+
+#include <cuda_pipeline.h>
 
 #include <cstdint>
 
@@ -49,10 +62,7 @@ namespace {
 template <typename T>
 __device__ inline void givens(T a, T b, T& c, T& s) {
   const T aa = rn::abs(a), ab = rn::abs(b);
-  if (aa == T(0) && ab == T(0)) {
-    c = T(1);
-    s = T(0);
-  } else if (aa >= ab) {
+  if (aa >= ab) {
     const T t = rn::div(b, a);
     const T u = rn::mul(rn::sign(a), rn::sqrt(rn::add(T(1), rn::mul(t, t))));
     c = rn::div(T(1), u);
@@ -62,6 +72,11 @@ __device__ inline void givens(T a, T b, T& c, T& s) {
     const T u = rn::mul(rn::sign(b), rn::sqrt(rn::add(T(1), rn::mul(t, t))));
     c = rn::div(t, u);
     s = rn::div(T(1), u);
+  }
+  // a = b = 0 (the branch above then made NaNs): the identity, a select
+  if (aa == T(0) && ab == T(0)) {
+    c = T(1);
+    s = T(0);
   }
 }
 
@@ -122,11 +137,167 @@ __global__ void qr_wavefront_kernel(const T* __restrict__ A,
   }
 }
 
+constexpr int kThreads = 256;
+
+// The register form's most n, by word size (ops/qr_wavefront.py's
+// REGISTER_MAX_N): the window is 2 n (n + 1) words a thread
+constexpr int kRegisterMaxN32 = 8, kRegisterMaxN64 = 5;
+
+// row r of [A | y] of lane b into a window row
+template <typename T, int N>
+__device__ __forceinline__ void load_row(const T* __restrict__ A, const T* __restrict__ y,
+                                         int r, int64_t B, int64_t b, T (&row)[N + 1]) {
+#pragma unroll
+  for (int c = 0; c < N; ++c) row[c] = A[(static_cast<int64_t>(r) * N + c) * B + b];
+  row[N] = y[static_cast<int64_t>(r) * B + b];
+}
+
+// Stage k of the register window: shift row m - 2 - k in (fetched a stage
+// ahead into ``next``), fetch the next stage's row, rotate.  kEvery: every
+// column j is active (2 N - 2 <= k <= m - 2), so no column is guarded.
+template <typename T, int N, bool kEvery>
+__device__ __forceinline__ void window_stage(const T* __restrict__ A, const T* __restrict__ y,
+                                             int m, int k, int64_t B, int64_t b,
+                                             T (&win)[2 * N][N + 1], T (&next)[N + 1]) {
+#pragma unroll
+  for (int w = 2 * N - 1; w > 0; --w)
+#pragma unroll
+    for (int c = 0; c <= N; ++c) win[w][c] = win[w - 1][c];
+#pragma unroll
+  for (int c = 0; c <= N; ++c) win[0][c] = next[c];
+  if (k <= m - 3) load_row<T, N>(A, y, m - 3 - k, B, b, next);  // in flight
+  const int j_lo = max(0, k - m + 2), j_hi = min(N - 1, k / 2);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    if (kEvery || (j >= j_lo && j <= j_hi)) {
+      T c, s;
+      givens(win[2 * j][j], win[2 * j + 1][j], c, s);
+#pragma unroll
+      for (int col = j; col <= N; ++col) {
+        const T vp = win[2 * j][col], vq = win[2 * j + 1][col];
+        win[2 * j][col] = rn::add(rn::mul(c, vp), rn::mul(s, vq));
+        win[2 * j + 1][col] = rn::add(rn::mul(c, vq), rn::mul(-s, vp));
+      }
+    }
+  }
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads, 1)
+    least_squares_registers_kernel(const T* __restrict__ A,
+                                   const T* __restrict__ y,
+                                   T* __restrict__ x, int m, int64_t B) {
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  // window rows 0 .. 2 N - 1; word N of a row is (Q^T y)
+  T win[2 * N][N + 1], next[N + 1];
+#pragma unroll
+  for (int c = 0; c <= N; ++c) {
+    next[c] = T(0);
+#pragma unroll
+    for (int w = 0; w < 2 * N; ++w) win[w][c] = T(0);
+  }
+  // before stage 0 window row 0 is row m - 1; every stage shifts one in
+  load_row<T, N>(A, y, m - 1, B, b, win[0]);
+  if (m >= 2) load_row<T, N>(A, y, m - 2, B, b, next);
+  // the ramp where some columns wait, the stages where every column
+  // rotates, the ramp where the first columns are done
+  const int stages = m + N - 2, s0 = min(2 * N - 2, stages), s1 = max(s0, min(m - 1, stages));
+  int k = 0;
+#pragma unroll 1
+  for (; k < s0; ++k) window_stage<T, N, false>(A, y, m, k, B, b, win, next);
+#pragma unroll 1
+  for (; k < s1; ++k) window_stage<T, N, true>(A, y, m, k, B, b, win, next);
+#pragma unroll 1
+  for (; k < stages; ++k) window_stage<T, N, false>(A, y, m, k, B, b, win, next);
+  // after the last stage row i of the system is window row N - 1 + i:
+  // R[:N, :N] x = (Q^T y)[:N], in the twin's order
+  T xs[N];
+#pragma unroll
+  for (int i = N - 1; i >= 0; --i) {
+    T acc = win[N - 1 + i][N];
+#pragma unroll
+    for (int j = i + 1; j < N; ++j) acc = rn::sub(acc, rn::mul(win[N - 1 + i][j], xs[j]));
+    xs[i] = rn::div(acc, win[N - 1 + i][i]);
+    x[static_cast<int64_t>(i) * B + b] = xs[i];
+  }
+}
+
+template <typename T>
+__device__ inline void fetch_row(T* ring, const T* A, const T* y, int r, int n,
+                                 int slot, int lanes, int t, int64_t B,
+                                 int64_t b) {
+  T* row = ring + static_cast<int64_t>(slot) * (n + 1) * lanes + t;
+  for (int c = 0; c < n; ++c)
+    __pipeline_memcpy_async(row + c * lanes, A + (static_cast<int64_t>(r) * n + c) * B + b,
+                            sizeof(T));
+  __pipeline_memcpy_async(row + n * lanes, y + static_cast<int64_t>(r) * B + b, sizeof(T));
+  __pipeline_commit();
+}
+
+// One thread per lane; a block's lanes share the dynamic shared memory, a
+// ring of 2 n + 1 rows of n + 1 words each, [row][word][lane].  Row r of the
+// system lives in ring row r % (2 n + 1); a thread touches only its own
+// words, so no barrier is needed.
+template <typename T>
+__global__ void least_squares_shared_kernel(const T* __restrict__ A,
+                                            const T* __restrict__ y,
+                                            T* __restrict__ x, int m, int n,
+                                            int64_t B) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);
+  const int lanes = blockDim.x, t = threadIdx.x, slots = 2 * n + 1;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * lanes + t;
+  if (b >= B) return;
+  auto at = [&](int r, int c) -> T& {
+    return ring[(static_cast<int64_t>(r % slots) * (n + 1) + c) * lanes + t];
+  };
+  fetch_row(ring, A, y, m - 1, n, (m - 1) % slots, lanes, t, B, b);
+  if (m >= 2) fetch_row(ring, A, y, m - 2, n, (m - 2) % slots, lanes, t, B, b);
+  __pipeline_wait_prior(0);
+  for (int k = 0; k <= m + n - 3; ++k) {
+    // the next stage's row goes to the ring row that the row leaving the
+    // window this stage held
+    if (k <= m - 3) fetch_row(ring, A, y, m - 3 - k, n, (m - 3 - k) % slots, lanes, t, B, b);
+    const int j_hi = min(n - 1, k / 2);
+    for (int j = max(0, k - m + 2); j <= j_hi; ++j) {
+      const int p = m - 2 - k + 2 * j;
+      T c, s;
+      givens(at(p, j), at(p + 1, j), c, s);
+      for (int col = j; col <= n; ++col) {
+        const T vp = at(p, col), vq = at(p + 1, col);
+        at(p, col) = rn::add(rn::mul(c, vp), rn::mul(s, vq));
+        at(p + 1, col) = rn::add(rn::mul(c, vq), rn::mul(-s, vp));
+      }
+    }
+    __pipeline_wait_prior(0);
+  }
+  // rows 0 .. n - 1 sit in ring rows 0 .. n - 1; x[j] replaces (Q^T y)[j]
+  // once found, in the twin's order
+  for (int i = n - 1; i >= 0; --i) {
+    T acc = at(i, n);
+    for (int j = i + 1; j < n; ++j) acc = rn::sub(acc, rn::mul(at(i, j), at(j, n)));
+    at(i, n) = rn::div(acc, at(i, i));
+    x[static_cast<int64_t>(i) * B + b] = at(i, n);
+  }
+}
+
+template <typename T, int N>
+int launch_registers(const T* A, const T* y, T* x, int m, int n, int64_t B,
+                     cudaStream_t s) {
+  if constexpr (N > 1) {
+    if (n < N) return launch_registers<T, N - 1>(A, y, x, m, n, B, s);
+  }
+  if (n != N) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = static_cast<unsigned>((B + kThreads - 1) / kThreads);
+  least_squares_registers_kernel<T, N><<<blocks, kThreads, 0, s>>>(A, y, x, m, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const void* A, const void* y, void* R, void* Qt, void* qty,
            void* x, int m, int n, int64_t B, int compute_q, int solve,
            void* stream) {
-  constexpr int kThreads = 256;
   const unsigned blocks = static_cast<unsigned>((B + kThreads - 1) / kThreads);
   auto s = static_cast<cudaStream_t>(stream);
   const T* a = static_cast<const T*>(A);
@@ -163,3 +334,32 @@ int launch(const void* A, const void* y, void* R, void* Qt, void* qty,
 
 NLSOLVER_QR_LAUNCHER(f32, float)
 NLSOLVER_QR_LAUNCHER(f64, double)
+
+// K2b's register form, n = 1 .. kRegisterMaxN, and its shared-memory form
+// with ``lanes`` threads a block and ``smem`` bytes of dynamic shared memory:
+// A [m, n, B], y [m, B] -> x [n, B].  Return cudaGetLastError().
+#define NLSOLVER_LSQ_LAUNCHERS(SUFFIX, T, MAXN)                                \
+  extern "C" int least_squares_registers_##SUFFIX(                             \
+      const void* A, const void* y, void* x, int m, int n, int64_t B,          \
+      void* stream) {                                                          \
+    return launch_registers<T, MAXN>(                                          \
+        static_cast<const T*>(A), static_cast<const T*>(y),                    \
+        static_cast<T*>(x), m, n, B, static_cast<cudaStream_t>(stream));       \
+  }                                                                            \
+  extern "C" int least_squares_shared_##SUFFIX(                                \
+      const void* A, const void* y, void* x, int m, int n, int64_t B,          \
+      int lanes, int smem, void* stream) {                                     \
+    cudaError_t err = cudaFuncSetAttribute(                                    \
+        least_squares_shared_kernel<T>,                                        \
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);                    \
+    if (err != cudaSuccess) return static_cast<int>(err);                      \
+    const unsigned blocks = static_cast<unsigned>((B + lanes - 1) / lanes);    \
+    least_squares_shared_kernel<T><<<blocks, lanes, smem,                      \
+                                     static_cast<cudaStream_t>(stream)>>>(     \
+        static_cast<const T*>(A), static_cast<const T*>(y),                    \
+        static_cast<T*>(x), m, n, B);                                          \
+    return static_cast<int>(cudaGetLastError());                               \
+  }
+
+NLSOLVER_LSQ_LAUNCHERS(f32, float, kRegisterMaxN32)
+NLSOLVER_LSQ_LAUNCHERS(f64, double, kRegisterMaxN64)

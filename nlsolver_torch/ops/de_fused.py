@@ -6,11 +6,19 @@ layout is the batched engine's: agents ``[B, n, P]``, scores ``[B, P]``,
 ring-rotation partners.  The kernel also folds the lane freeze into the
 greedy select: a lane whose ``active`` flag is false comes back unchanged.
 
-``de_generation_fused`` launches the kernel for CUDA tensors and raises on
+``de_generation_fused`` launches a kernel for CUDA tensors and raises on
 anything it does not take; for CPU tensors it runs
 ``de_generation_reference``.  The JAX kernel traced any ``fn`` into its
 body; the CUDA kernel has a registry of compiled objectives instead
 (``KERNEL_OBJECTIVES``).
+
+The kernel comes in two forms, chosen by n and P alone
+(``staged_plan``): ``de_generation_staged`` stages a block's instances in
+shared memory with one bulk asynchronous copy and keeps each proposal from
+the score pass (in registers for n <= 16, in shared memory beyond), for
+every population whose slab fits a block; ``de_generation_global`` reads
+the agents from device memory and recomputes an accepted proposal for its
+write-back, for the rest.  Both give the same proposals and scores.
 """
 from __future__ import annotations
 
@@ -22,12 +30,20 @@ import torch
 
 from ..problems import PROBLEMS
 from . import _build
+from ._build import MAX_DYNAMIC_SMEM
 
 # objectives compiled into the kernel, by the port's function object
 KERNEL_OBJECTIVES = {
     PROBLEMS["rastrigin"].fn: "rastrigin",
     PROBLEMS["sphere"].fn: "sphere",
 }
+
+# the staged form: its proposal in registers up to this n (csrc/de_fused.cu's
+# kRegisterMaxN), the threads a block aims at, and the dynamic shared memory a
+# block may take beside its 8-byte mbarrier
+STAGED_REGISTER_MAX_N = 16
+STAGED_THREADS = 256
+STAGED_SMEM = MAX_DYNAMIC_SMEM - 16
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -105,13 +121,137 @@ def _check(cond: bool, what: str) -> None:
         raise ValueError(f"de_generation_fused: {what}")
 
 
+def staged_plan(n: int, P: int) -> Optional[tuple[int, int]]:
+    """``(instances a block, bytes of dynamic shared memory)`` of the staged
+    form for n coordinates and P agents: about STAGED_THREADS threads, as
+    many instances as fit, each a slab of n * P floats (and as many again
+    for the proposals where n > STAGED_REGISTER_MAX_N).  None where one
+    instance does not fit a block: the global form takes it."""
+    if P > 1024 or n < 1:
+        return None
+    words = n * P * (1 if n <= STAGED_REGISTER_MAX_N else 2)
+    per_block = max(1, STAGED_THREADS // P)
+    while per_block > 1 and per_block * words * 4 > STAGED_SMEM:
+        per_block -= 1
+    return (per_block, per_block * words * 4) if words * 4 <= STAGED_SMEM else None
+
+
 @functools.lru_cache(maxsize=None)
-def _launcher(name: str):
-    fn = getattr(_build.load_library(), f"de_generation_{name}_f32")
+def _launcher(name: str, staged: bool):
+    form = "staged" if staged else "generation"
+    fn = getattr(_build.load_library(), f"de_{form}_{name}_f32")
     vp, ci, cf, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
-    fn.argtypes = [vp] * 7 + [ci] * 6 + [cf, cf, cu, cu, vp]
+    fn.argtypes = [vp] * 7 + [ci] * 6 + [cf, cf, cu, cu] + ([ci] * 3 if staged else []) + [vp]
     fn.restype = ci
     return fn
+
+
+def _check_common(agents, offs, u, fdim):
+    _check(agents.ndim == 3, f"agents must be [B, n, P], got {tuple(agents.shape)}")
+    B, n, P = agents.shape
+    offs = tuple(int(o) for o in offs)
+    _check(len(offs) == 3 and all(0 < o < P for o in offs),
+           f"offs must be 3 offsets in [1, {P}), got {offs}")
+    _check((u is None) == (fdim is None), "pass u and fdim together or neither")
+    return B, n, P, offs
+
+
+def _twin(fn, agents, scores, offs, active, seed, generation, cross_prob, diff_weight, u, fdim):
+    """The CPU route: the plain twin on the injected draws, or on the
+    kernel's Philox draws replayed."""
+    B, n, P = agents.shape
+    if u is None:
+        u, fdim = philox_draws(seed, generation, B, n, P, agents.dtype, agents.device)
+    return de_generation_reference(fn, agents, scores, offs, u, fdim, active, diff_weight,
+                                   cross_prob)
+
+
+def _launch(form: str, fn, agents, scores, offs, active, seed, generation, cross_prob,
+            diff_weight, u, fdim):
+    """K1's ``form`` ("staged" or "global"): the twin on CPU tensors; on
+    CUDA tensors the inputs checked and the kernel launched.  Returns the
+    new agents and scores and whether a kernel was launched."""
+    name = f"de_generation_{form}"
+    B, n, P, offs = _check_common(agents, offs, u, fdim)
+    if agents.device.type == "cpu":
+        return (*_twin(fn, agents, scores, offs, active, seed, generation, cross_prob,
+                       diff_weight, u, fdim), False)
+    _check(agents.device.type == "cuda", f"unsupported device {agents.device}")
+    objective = KERNEL_OBJECTIVES.get(fn)
+    _check(objective is not None,
+           "the CUDA kernel evaluates only the objectives of its registry "
+           f"({', '.join(sorted(KERNEL_OBJECTIVES.values()))} from "
+           "nlsolver_torch.PROBLEMS); use use_fused_kernel=False for others")
+    _check(P <= 1024, f"pop size {P} exceeds one block (1024 threads)")
+    plan = staged_plan(n, P)
+    _check(form == "global" or plan is not None,
+           f"{name}: n={n}, P={P} does not fit a block's shared memory; "
+           "de_generation_global takes it")
+    dev = agents.device
+    expect = {
+        "agents": (agents, (B, n, P), torch.float32),
+        "scores": (scores, (B, P), torch.float32),
+        "active": (active, (B,), torch.bool),
+    }
+    if u is not None:
+        fdim = fdim.to(torch.int32)
+        expect["u"] = (u, (B, n, P), torch.float32)
+        expect["fdim"] = (fdim, (B, P), torch.int32)
+    for what, (t, shape, dtype) in expect.items():
+        _check(t.device == dev, f"{what} is on {t.device}, agents on {dev}")
+        _check(tuple(t.shape) == shape, f"{what} must be {shape}, got {tuple(t.shape)}")
+        _check(t.dtype == dtype, f"{what} must be {dtype}, got {t.dtype}")
+        _check(t.is_contiguous(), f"{what} must be contiguous")
+
+    out_agents = torch.empty_like(agents)
+    out_scores = torch.empty_like(scores)
+    if B == 0:
+        return out_agents, out_scores, False
+    extra = ()
+    if form == "staged":
+        # one bulk copy a block where every slab is 16-byte aligned and sized
+        bulk = (n * P) % 4 == 0 and agents.data_ptr() % 16 == 0
+        extra = (*plan, int(bulk))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _launcher(objective, form == "staged")(
+            agents.data_ptr(), scores.data_ptr(), active.data_ptr(),
+            None if u is None else u.data_ptr(),
+            None if fdim is None else fdim.data_ptr(),
+            out_agents.data_ptr(), out_scores.data_ptr(),
+            B, n, P, *offs, diff_weight, cross_prob,
+            seed & _MASK32, generation & _MASK32, *extra, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+    return out_agents, out_scores, True
+
+
+def de_generation_staged(fn, agents, scores, offs, active, *, seed: int, generation: int,
+                         cross_prob: float = 0.9, diff_weight: float = 0.8,
+                         u: Optional[torch.Tensor] = None, fdim: Optional[torch.Tensor] = None):
+    """K1's staged form: a block's instances staged in shared memory by one
+    bulk copy, the proposal kept from the score pass.  CPU tensors run the
+    twin; on a card it raises where one instance does not fit a block
+    (``staged_plan``)."""
+    out_agents, out_scores, launched = _launch(
+        "staged", fn, agents, scores, offs, active, seed, generation, cross_prob, diff_weight,
+        u, fdim)
+    de_generation_staged.launches += launched
+    return out_agents, out_scores
+
+
+def de_generation_global(fn, agents, scores, offs, active, *, seed: int, generation: int,
+                         cross_prob: float = 0.9, diff_weight: float = 0.8,
+                         u: Optional[torch.Tensor] = None, fdim: Optional[torch.Tensor] = None):
+    """K1's device-memory form, any n and P <= 1024: the agents read through
+    L1, an accepted proposal recomputed for its write-back.  CPU tensors run
+    the twin."""
+    out_agents, out_scores, launched = _launch(
+        "global", fn, agents, scores, offs, active, seed, generation, cross_prob, diff_weight,
+        u, fdim)
+    de_generation_global.launches += launched
+    return out_agents, out_scores
 
 
 def de_generation_fused(
@@ -133,60 +273,16 @@ def de_generation_fused(
     Without ``u`` and ``fdim`` the draws come from Philox keyed by
     ``(seed, generation)``; with them (both or neither) the kernel reads
     them.  CPU tensors run the plain twin on the same draws; CUDA tensors
-    launch the kernel (float32 only) or raise."""
-    _check(agents.ndim == 3, f"agents must be [B, n, P], got {tuple(agents.shape)}")
-    B, n, P = agents.shape
-    offs = tuple(int(o) for o in offs)
-    _check(len(offs) == 3 and all(0 < o < P for o in offs),
-           f"offs must be 3 offsets in [1, {P}), got {offs}")
-    _check((u is None) == (fdim is None), "pass u and fdim together or neither")
-
+    launch the staged form where ``staged_plan`` fits, else the global form
+    (float32 only), or raise."""
+    _, n, P, offs = _check_common(agents, offs, u, fdim)
     if agents.device.type == "cpu":
-        if u is None:
-            u, fdim = philox_draws(seed, generation, B, n, P, agents.dtype, agents.device)
-        return de_generation_reference(
-            fn, agents, scores, offs, u, fdim, active, diff_weight, cross_prob
-        )
-
-    _check(agents.device.type == "cuda", f"unsupported device {agents.device}")
-    name = KERNEL_OBJECTIVES.get(fn)
-    _check(name is not None,
-           "the CUDA kernel evaluates only the objectives of its registry "
-           f"({', '.join(sorted(KERNEL_OBJECTIVES.values()))} from "
-           "nlsolver_torch.PROBLEMS); use use_fused_kernel=False for others")
-    _check(P <= 1024, f"pop size {P} exceeds one block (1024 threads)")
-    dev = agents.device
-    expect = {
-        "agents": (agents, (B, n, P), torch.float32),
-        "scores": (scores, (B, P), torch.float32),
-        "active": (active, (B,), torch.bool),
-    }
-    if u is not None:
-        fdim = fdim.to(torch.int32)
-        expect["u"] = (u, (B, n, P), torch.float32)
-        expect["fdim"] = (fdim, (B, P), torch.int32)
-    for what, (t, shape, dtype) in expect.items():
-        _check(t.device == dev, f"{what} is on {t.device}, agents on {dev}")
-        _check(tuple(t.shape) == shape, f"{what} must be {shape}, got {tuple(t.shape)}")
-        _check(t.dtype == dtype, f"{what} must be {dtype}, got {t.dtype}")
-        _check(t.is_contiguous(), f"{what} must be contiguous")
-
-    out_agents = torch.empty_like(agents)
-    out_scores = torch.empty_like(scores)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _launcher(name)(
-            agents.data_ptr(), scores.data_ptr(), active.data_ptr(),
-            None if u is None else u.data_ptr(),
-            None if fdim is None else fdim.data_ptr(),
-            out_agents.data_ptr(), out_scores.data_ptr(),
-            B, n, P, *offs, diff_weight, cross_prob,
-            seed & _MASK32, generation & _MASK32, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"de_generation_fused: CUDA launch failed (cudaError {err})")
-    de_generation_fused.launches += 1
-    return out_agents, out_scores
+        return _twin(fn, agents, scores, offs, active, seed, generation, cross_prob,
+                     diff_weight, u, fdim)
+    form = de_generation_staged if staged_plan(n, P) is not None else de_generation_global
+    return form(fn, agents, scores, offs, active, seed=seed, generation=generation,
+                cross_prob=cross_prob, diff_weight=diff_weight, u=u, fdim=fdim)
 
 
-de_generation_fused.launches = 0
+de_generation_staged.launches = 0
+de_generation_global.launches = 0

@@ -5,9 +5,20 @@ Counterpart of ``nlsolver_tpu.ops.qr_wavefront``: ``qr_wavefront_kernel``
 replaces ``qr_wavefront_pallas`` (K2a) and ``least_squares_wavefront_kernel``
 replaces ``least_squares_wavefront_pallas`` (K2b).  Layout batch-minor,
 A ``[m, n, B]``.  CPU tensors run the twins (``linalg.qr_parallel``); CUDA
-tensors launch the kernel (float32 or float64, contiguous) or raise.  The
+tensors launch a kernel (float32 or float64, contiguous) or raise.  The
 JAX kernels' fallback to the jnp wavefront when VMEM is short, and their
-padding lanes, have no counterpart: the kernel takes every m >= n and B.
+padding lanes, have no counterpart: K2a and K2b take every m >= n and B.
+
+K2b keeps only the 2 n rows of the system that a stage of the wavefront
+touches, a window that slides down one row a stage, and comes in three
+forms, chosen by n and dtype alone (``least_squares_wavefront_kernel``):
+``least_squares_wavefront_registers`` holds the window in a thread's
+registers (n <= 8 in float32, 5 in float64: ``registers_fit``);
+``least_squares_wavefront_shared`` holds it in shared memory, 32 lanes a
+block (n <= 29 in float32, 20 in float64: ``shared_fits``);
+``least_squares_wavefront_global`` works on a copy of the system in device
+memory, any n.  The first two read A and y once and write only x.  All
+three are bit-equal to the twin; a failed build or launch raises.
 """
 from __future__ import annotations
 
@@ -18,6 +29,14 @@ import torch
 
 from ..linalg.qr_parallel import least_squares_parallel, qr_parallel
 from . import _build
+from ._build import MAX_DYNAMIC_SMEM
+
+# K2b's register form: the most n it is built for (csrc/qr_wavefront.cu's
+# kRegisterMaxN32 / kRegisterMaxN64); its window is 2 n (n + 1) words a thread
+REGISTER_MAX_N = {torch.float32: 8, torch.float64: 5}
+# K2b's shared-memory form: lanes (threads) a block
+SHARED_LANES = 32
+
 
 def qr_wavefront_reference(A: torch.Tensor, compute_q: bool = False):
     """Plain twin of K2a: ``(R [m, n, B], Q [m, m, B] | None)``."""
@@ -30,11 +49,31 @@ def least_squares_wavefront_reference(A: torch.Tensor, y: torch.Tensor) -> torch
     return least_squares_parallel(A, y)
 
 
+def registers_fit(n: int, dtype: torch.dtype) -> bool:
+    """Whether K2b's register form takes n in ``dtype``."""
+    return 1 <= n <= REGISTER_MAX_N.get(dtype, 0)
+
+
+def shared_bytes(n: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of a block of K2b's shared-memory form: a ring
+    of 2 n + 1 rows of n + 1 words for each of its lanes."""
+    return (2 * n + 1) * (n + 1) * SHARED_LANES * torch.empty((), dtype=dtype).element_size()
+
+
+def shared_fits(n: int, dtype: torch.dtype) -> bool:
+    """Whether K2b's shared-memory form takes n in ``dtype``."""
+    return dtype in _build.DTYPE_SUFFIX and n >= 1 and shared_bytes(n, dtype) <= MAX_DYNAMIC_SMEM
+
+
 @functools.lru_cache(maxsize=None)
-def _launcher(suffix: str):
-    fn = getattr(_build.load_library(), f"qr_wavefront_{suffix}")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 6 + [ci, ci, ctypes.c_int64, ci, ci, vp]
+def _launcher(entry: str, suffix: str):
+    """The C entry point: ``qr_wavefront`` (K2a and K2b's global form),
+    ``least_squares_registers`` or ``least_squares_shared``."""
+    fn = getattr(_build.load_library(), f"{entry}_{suffix}")
+    vp, ci, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    fn.argtypes = {"qr_wavefront": [vp] * 6 + [ci, ci, i64, ci, ci, vp],
+                   "least_squares_registers": [vp] * 3 + [ci, ci, i64, vp],
+                   "least_squares_shared": [vp] * 3 + [ci, ci, i64, ci, ci, vp]}[entry]
     fn.restype = ci
     return fn
 
@@ -43,7 +82,7 @@ def _launch(A, y, R, Qt, qty, x, compute_q: bool, solve: bool) -> None:
     m, n, B = A.shape
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = _launcher(_build.DTYPE_SUFFIX[A.dtype])(
+        err = _launcher("qr_wavefront", _build.DTYPE_SUFFIX[A.dtype])(
             *(None if t is None else t.data_ptr() for t in (A, y, R, Qt, qty, x)),
             m, n, B, int(compute_q), int(solve), stream,
         )
@@ -74,23 +113,101 @@ def qr_wavefront_kernel(A: torch.Tensor, compute_q: bool = False):
     return R, (Qt.transpose(0, 1) if compute_q else None)
 
 
-def least_squares_wavefront_kernel(A: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """``min_x ||A x - y||`` per lane for ``A [m, n, B]``, ``y [m, B]``:
-    the rotations thread y (implicit Q^T y) and the back-substitution runs
-    in the kernel; only ``x [n, B]`` is written.  CUDA tensors run kernel
-    K2b; CPU tensors its twin."""
-    _check_shape(A, "least_squares_wavefront_kernel")
+def _check_lstsq(name: str, A: torch.Tensor, y: torch.Tensor) -> tuple[int, int, int]:
+    _check_shape(A, name)
     m, n, B = A.shape
     if tuple(y.shape) != (m, B):
         raise ValueError(f"rhs must be [m, B]={m, B}, got {tuple(y.shape)}")
-    if A.device.type == "cpu" and y.device.type == "cpu":
-        return least_squares_wavefront_reference(A, y)
-    _build.check_cuda_inputs("least_squares_wavefront_kernel", {"A": A, "y": y})
-    R, qty, x = torch.empty_like(A), torch.empty_like(y), A.new_empty((n, B))
-    _launch(A, y, R, None, qty, x, False, True)
-    least_squares_wavefront_kernel.launches += 1
+    return m, n, B
+
+
+def _launch_window(name: str, entry: str, A, y, *extra) -> torch.Tensor:
+    """K2b's register or shared-memory form on ``A``, ``y``: ``x [n, B]``."""
+    m, n, B = A.shape
+    x = A.new_empty((n, B))
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        err = _launcher(entry, _build.DTYPE_SUFFIX[A.dtype])(
+            A.data_ptr(), y.data_ptr(), x.data_ptr(), m, n, B, *extra, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
     return x
 
 
+def least_squares_wavefront_registers(A: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """K2b's register form: ``min_x ||A x - y||`` per lane for ``A [m, n,
+    B]``, ``y [m, B]``, one thread a lane holding the wavefront's window of
+    2 n rows in its registers; only ``x [n, B]`` is written.  CPU tensors run
+    the twin; on a card it raises where n does not fit (``registers_fit``)."""
+    name = "least_squares_wavefront_registers"
+    m, n, B = _check_lstsq(name, A, y)
+    if A.device.type == "cpu" and y.device.type == "cpu":
+        return least_squares_wavefront_reference(A, y)
+    _build.check_cuda_inputs(name, {"A": A, "y": y})
+    if not registers_fit(n, A.dtype):
+        raise ValueError(f"{name}: n={n} in {A.dtype} does not fit a thread's registers; "
+                         "least_squares_wavefront_shared takes it")
+    if B == 0:
+        return A.new_empty((n, 0))
+    x = _launch_window(name, "least_squares_registers", A, y)
+    least_squares_wavefront_registers.launches += 1
+    return x
+
+
+def least_squares_wavefront_shared(A: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """K2b's shared-memory form: the window of the register form as a ring
+    of 2 n + 1 rows in shared memory, ``SHARED_LANES`` lanes a block; only
+    ``x [n, B]`` is written.  CPU tensors run the twin; on a card it raises
+    where a block's ring does not fit (``shared_fits``)."""
+    name = "least_squares_wavefront_shared"
+    m, n, B = _check_lstsq(name, A, y)
+    if A.device.type == "cpu" and y.device.type == "cpu":
+        return least_squares_wavefront_reference(A, y)
+    _build.check_cuda_inputs(name, {"A": A, "y": y})
+    if not shared_fits(n, A.dtype):
+        raise ValueError(f"{name}: n={n} in {A.dtype} does not fit a block's shared memory; "
+                         "least_squares_wavefront_global takes it")
+    if B == 0:
+        return A.new_empty((n, 0))
+    x = _launch_window(name, "least_squares_shared", A, y, SHARED_LANES, shared_bytes(n, A.dtype))
+    least_squares_wavefront_shared.launches += 1
+    return x
+
+
+def least_squares_wavefront_global(A: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """K2b's device-memory form, any n: the rotations run on a working copy
+    of A and y (scratch ``R``, ``qty``) in device memory.  CPU tensors run
+    the twin."""
+    name = "least_squares_wavefront_global"
+    m, n, B = _check_lstsq(name, A, y)
+    if A.device.type == "cpu" and y.device.type == "cpu":
+        return least_squares_wavefront_reference(A, y)
+    _build.check_cuda_inputs(name, {"A": A, "y": y})
+    if B == 0:
+        return A.new_empty((n, 0))
+    R, qty, x = torch.empty_like(A), torch.empty_like(y), A.new_empty((n, B))
+    _launch(A, y, R, None, qty, x, False, True)
+    least_squares_wavefront_global.launches += 1
+    return x
+
+
+def least_squares_wavefront_kernel(A: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``min_x ||A x - y||`` per lane for ``A [m, n, B]``, ``y [m, B]``: the
+    rotations thread y (implicit Q^T y) and the back-substitution runs in
+    the kernel; only ``x [n, B]`` is written.  CUDA tensors run K2b in the
+    register form where n fits it, else the shared-memory form, else the
+    device-memory form; CPU tensors its twin."""
+    m, n, B = _check_lstsq("least_squares_wavefront_kernel", A, y)
+    if A.device.type == "cpu" and y.device.type == "cpu":
+        return least_squares_wavefront_reference(A, y)
+    if registers_fit(n, A.dtype):
+        return least_squares_wavefront_registers(A, y)
+    if shared_fits(n, A.dtype):
+        return least_squares_wavefront_shared(A, y)
+    return least_squares_wavefront_global(A, y)
+
+
 qr_wavefront_kernel.launches = 0
-least_squares_wavefront_kernel.launches = 0
+least_squares_wavefront_registers.launches = 0
+least_squares_wavefront_shared.launches = 0
+least_squares_wavefront_global.launches = 0

@@ -86,20 +86,42 @@ def _fleet(seed, dtype=torch.float64, device="cpu", b=B, n=N, p=P):
 def test_wrapper_on_cpu_runs_the_twin():
     agents, scores, active, u, fdim = _fleet(2)
     fn = nt.PROBLEMS["rastrigin"].fn
-    before = tdf.de_generation_fused.launches
-    got = tdf.de_generation_fused(fn, agents, scores, (1, 6, 11), active,
-                                  seed=3, generation=4, u=u, fdim=fdim)
-    want = tdf.de_generation_reference(fn, agents, scores, (1, 6, 11), u, fdim, active, 0.8, 0.9)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-    # without injected draws the CPU route replays the kernel's Philox draws
+    forms = (tdf.de_generation_staged, tdf.de_generation_global)
+    before = [f.launches for f in forms]
     pu, pf = tdf.philox_draws(3, 4, B, N, P, agents.dtype, "cpu")
-    got = tdf.de_generation_fused(fn, agents, scores, (1, 6, 11), active, seed=3, generation=4)
-    want = tdf.de_generation_reference(fn, agents, scores, (1, 6, 11), pu, pf, active, 0.8, 0.9)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    for wrapper in (tdf.de_generation_fused,) + forms:
+        got = wrapper(fn, agents, scores, (1, 6, 11), active, seed=3, generation=4, u=u, fdim=fdim)
+        want = tdf.de_generation_reference(fn, agents, scores, (1, 6, 11), u, fdim, active,
+                                           0.8, 0.9)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        # without injected draws the CPU route replays the kernel's Philox draws
+        got = wrapper(fn, agents, scores, (1, 6, 11), active, seed=3, generation=4)
+        want = tdf.de_generation_reference(fn, agents, scores, (1, 6, 11), pu, pf, active,
+                                           0.8, 0.9)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
     # the twin is not a launch
-    assert tdf.de_generation_fused.launches == before
+    assert [f.launches for f in forms] == before
+
+
+def test_staged_plan():
+    # the headline's 4 instances of 10 x 64 agents a block; 16 x 1024 fits one
+    # instance's slab; past n = 16 the proposals take as much again
+    assert tdf.staged_plan(10, 64) == (4, 10 * 64 * 4 * 4)
+    assert tdf.staged_plan(16, 64) == (4, 16 * 64 * 4 * 4)
+    assert tdf.staged_plan(17, 64) == (4, 17 * 64 * 4 * 4 * 2)
+    assert tdf.staged_plan(16, 1024) == (1, 16 * 1024 * 4)
+    assert tdf.staged_plan(28, 1024) == (1, 28 * 1024 * 4 * 2)
+    assert tdf.staged_plan(29, 1024) is None and tdf.staged_plan(60, 1024) is None
+    assert tdf.staged_plan(3, 7) == (36, 36 * 3 * 7 * 4)
+    assert tdf.staged_plan(10, 1025) is None
+    # every plan fits a block: its threads and its shared memory
+    for n in range(1, 300, 7):
+        for p in (4, 7, 64, 100, 256, 1000):
+            plan = tdf.staged_plan(n, p)
+            if plan is not None:
+                assert plan[0] * p <= 1024 and plan[1] <= tdf.STAGED_SMEM
 
 
 def test_wrapper_rejects_bad_input():
@@ -205,3 +227,66 @@ def test_kernel_matches_twin_on_card(problem):
     same = ((got[1] < scores) == (want[1] < scores))[:, None, :].expand_as(agents)
     assert torch.equal(got[0][same], want[0][same])
     assert torch.equal(got[0][~active], agents[~active])
+
+
+# (n, P, b): the staged form with the proposal in registers (n = 10, 16), in
+# shared memory (n = 17, and P = 1024 at n = 28, its last fit), staged by
+# plain loads (n * P = 21 is no multiple of 4); the global form where the
+# slab does not fit (n = 29, P = 1024)
+FORM_SHAPES = [(10, 64, 257), (16, 64, 33), (17, 64, 33), (28, 1024, 3), (3, 7, 101),
+               (29, 1024, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("problem", ["rastrigin", "sphere"])
+@pytest.mark.parametrize("n,p,b", FORM_SHAPES)
+def test_forms_match_twin_on_card(problem, n, p, b):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: pytest -m gpu tests/test_torch_de_fused.py)")
+    fn = nt.PROBLEMS[problem].fn
+    agents, scores, active, u, fdim = _fleet(5, torch.float32, "cuda", b=b, n=n, p=p)
+    offs = (1, p // 3 + 1, p - 1) if p > 3 else (1, 2, 2)
+    want = tdf.de_generation_reference(fn, agents, scores, offs, u, fdim, active, 0.8, 0.9)
+    staged = tdf.staged_plan(n, p) is not None
+    forms = [tdf.de_generation_global] + ([tdf.de_generation_staged] if staged else [])
+    chosen = forms[-1]
+    before = chosen.launches
+    outs = [tdf.de_generation_fused(fn, agents, scores, offs, active, seed=1, generation=2,
+                                    u=u, fdim=fdim)]
+    assert chosen.launches == before + 1  # the dispatcher's choice
+    outs += [f(fn, agents, scores, offs, active, seed=1, generation=2, u=u, fdim=fdim)
+             for f in forms]
+    torch.cuda.synchronize()
+    inf = torch.full_like(scores, float("inf"))
+    for got in outs:
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5)
+        same = ((got[1] < scores) == (want[1] < scores))[:, None, :].expand_as(agents)
+        assert torch.equal(got[0][same], want[0][same])
+        assert torch.equal(got[0][~active], agents[~active])
+    # every proposal accepted: the proposals themselves bit-equal, and the
+    # two forms equal on the Philox draws too
+    all_in = [f(fn, agents, inf, offs, torch.ones_like(active), seed=1, generation=2, u=u,
+                fdim=fdim)[0] for f in forms]
+    want_all = tdf.de_generation_reference(fn, agents, inf, offs, u, fdim,
+                                           torch.ones_like(active), 0.8, 0.9)[0]
+    assert all(torch.equal(a, want_all) for a in all_in)
+    philox = [f(fn, agents, scores, offs, active, seed=5, generation=7) for f in forms]
+    assert all(torch.equal(x[0], philox[0][0]) and torch.equal(x[1], philox[0][1])
+               for x in philox)
+
+
+def test_issue_floor_takes_the_cheaper_arm_and_counts_the_hot_loop():
+    from nlsolver_torch.benches import issue_instructions
+
+    # entry (2), an early exit not taken, a branch around a slow arm of 3,
+    # a loop of 4 (the hot one), a loop of 2, the end
+    sass = ["S2R R0, SR_TID.X", "ISETP.GE.AND P0, PT, R0, c[0x0][0x170], PT", "@P0 EXIT",
+            "@P1 BRA 0x70", "FADD R1, R1, R2", "FMUL R1, R1, R2", "CALL.REL.NOINC 0x200",
+            "FADD R3, R1, R1", "FMUL R3, R3, R3", "IADD3 R4, R4, 0x1, RZ", "@P2 BRA 0x70",
+            "MOV R5, R3", "@P3 BRA 0xb0", "STG.E [R6.64], R3", "EXIT"]
+    ins = [(16 * i, op) for i, op in enumerate(sass)]
+    count, hot = issue_instructions(ins, trips=5)
+    # the way through: 3 + the branch + 5 x 4 (loop) + 0 (second loop, none) + 2
+    assert hot == 4
+    assert count == 4 + 5 * 4 + 2
+    assert issue_instructions(ins, trips=0) == (6, 4)

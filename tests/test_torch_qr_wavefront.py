@@ -57,15 +57,96 @@ def test_cpu_route_matches_jax_wavefront_f64(m, n, B):
     assert none is None and torch.equal(R_only, R)
 
 
+LSTSQ_FORMS = (tqw.least_squares_wavefront_registers, tqw.least_squares_wavefront_shared,
+               tqw.least_squares_wavefront_global)
+
+
+def _counts():
+    return [f.launches for f in (tqw.qr_wavefront_kernel,) + LSTSQ_FORMS]
+
+
 def test_cpu_route_is_the_twin_and_no_launch():
     A, y = (torch.from_numpy(a) for a in _system(2, 9, 4, 7))
-    before = (tqw.qr_wavefront_kernel.launches, tqw.least_squares_wavefront_kernel.launches)
-    assert torch.equal(tqw.least_squares_wavefront_kernel(A, y),
-                       tqw.least_squares_wavefront_reference(A, y))
+    before = _counts()
+    twin = tqw.least_squares_wavefront_reference(A, y)
+    for solve in (tqw.least_squares_wavefront_kernel,) + LSTSQ_FORMS:
+        assert torch.equal(solve(A, y), twin)
     R, Q = tqw.qr_wavefront_kernel(A, compute_q=True)
     tR, tQ = tqw.qr_wavefront_reference(A, compute_q=True)
     assert torch.equal(R, tR) and torch.equal(Q, tQ)
-    assert (tqw.qr_wavefront_kernel.launches, tqw.least_squares_wavefront_kernel.launches) == before
+    assert _counts() == before
+
+
+def window_emulation(A, y):
+    """K2b's sliding window in plain torch ops, in the kernel's order: before
+    stage 0 window row 0 holds row m - 1 of [A | y]; each stage k shifts row
+    m - 2 - k in at window row 0 (the row at window row 2 n - 1 is finished
+    and drops out), then rotates window rows (2 j, 2 j + 1) over columns j ..
+    n - 1 and the right-hand side for each of the stage's columns j.  After
+    the last stage rows 0 .. n - 1 sit at window rows n - 1 .. 2 n - 2."""
+    from nlsolver_torch.linalg.givens import givens_rotation
+    from nlsolver_torch.linalg.qr_parallel import backsolve_bm
+
+    m, n = A.shape[0], A.shape[1]
+    W = 2 * n
+
+    def row(r):
+        return (A[r].clone(), y[r].clone()) if 0 <= r < m else None
+
+    win = [row(m - 1)] + [None] * (W - 1)
+    for k in range(m + n - 2):
+        win = [row(m - 2 - k)] + win[:W - 1]
+        for j in range(max(0, k - m + 2), min(n - 1, k // 2) + 1):
+            (rp, yp), (rq, yq) = win[2 * j], win[2 * j + 1]
+            c, s = givens_rotation(rp[j], rq[j])
+            for col in range(j, n):
+                vp, vq = rp[col].clone(), rq[col].clone()
+                rp[col], rq[col] = c * vp + s * vq, c * vq + (-s) * vp
+            vp, vq = yp.clone(), yq.clone()
+            yp.copy_(c * vp + s * vq)
+            yq.copy_(c * vq + (-s) * vp)
+    rows = win[n - 1:2 * n - 1]
+    return backsolve_bm(torch.stack([r for r, _ in rows]), torch.stack([q for _, q in rows]))
+
+
+WINDOW_SHAPES = [(34, 2), (16, 16), (12, 5), (10, 3), (32, 8), (5, 4), (3, 3)]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("m,n", WINDOW_SHAPES)
+def test_window_order_equals_twin_and_jax(m, n, dtype):
+    from nlsolver_tpu.ops.qr_wavefront import least_squares_wavefront_pallas
+
+    A, y = _system(4, m, n, 64, dtype)
+    # a dominant diagonal keeps the square systems well conditioned, so
+    # that float32 x differs from the JAX kernel's by rounding alone
+    A[np.arange(n), np.arange(n)] += np.asarray(2 * n, dtype)
+    x = window_emulation(torch.from_numpy(A), torch.from_numpy(y))
+    assert torch.equal(x, tqw.least_squares_wavefront_reference(torch.from_numpy(A),
+                                                                torch.from_numpy(y)))
+    jx = np.asarray(least_squares_wavefront_pallas(A, y, interpret=True))
+    if dtype == np.float32:
+        np.testing.assert_allclose(x.numpy(), jx, atol=1e-5)
+    else:
+        np.testing.assert_allclose(x.numpy(), jx, rtol=1e-12, atol=1e-13)
+
+
+def test_window_order_edges():
+    # m = n = 1 has no stage; m = n + 1 and square m = n end where the
+    # window's last rows are the system's first
+    for m, n in ((1, 1), (2, 1), (4, 3), (6, 6)):
+        A, y = (torch.from_numpy(a) for a in _system(5, m, n, 17))
+        assert torch.equal(window_emulation(A, y), tqw.least_squares_wavefront_reference(A, y))
+
+
+def test_form_limits():
+    f32, f64 = torch.float32, torch.float64
+    assert [n for n in range(1, 40) if tqw.registers_fit(n, f32)] == list(range(1, 9))
+    assert [n for n in range(1, 40) if tqw.registers_fit(n, f64)] == list(range(1, 6))
+    assert [n for n in range(1, 40) if tqw.shared_fits(n, f32)] == list(range(1, 30))
+    assert [n for n in range(1, 40) if tqw.shared_fits(n, f64)] == list(range(1, 21))
+    assert not tqw.registers_fit(2, torch.float16) and not tqw.shared_fits(2, torch.float16)
+    assert tqw.shared_bytes(29, f32) <= 232448 < tqw.shared_bytes(30, f32)
 
 
 def test_shape_and_device_errors():
@@ -103,6 +184,51 @@ def test_kernels_bit_equal_to_twins_on_card(dtype, m, n, B):
     assert torch.equal(x, tqw.least_squares_wavefront_reference(A, y))
     tR, tQ = tqw.qr_wavefront_reference(A, compute_q=True)
     assert torch.equal(R, tR) and torch.equal(Q, tQ)
+
+
+def _form_cases():
+    """(form, m, n, dtype): each K2b form at the first and last n it takes
+    (the global form at the first n past the shared one's and at n = 40),
+    at square m = n and at m = n + 1, and at the NLLS fleet's [34, 2]."""
+    cases = []
+    for dtype, reg, shared in ((torch.float32, 8, 29), (torch.float64, 5, 20)):
+        for form, ns in (("registers", (1, reg)), ("shared", (reg + 1, shared)),
+                         ("global", (shared + 1, 40))):
+            cases += [(form, m, n, dtype) for n in ns for m in (n, n + 1)]
+        cases.append(("registers", 34, 2, dtype))
+    return cases
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form,m,n,dtype", _form_cases())
+def test_each_form_bit_equal_to_twin_on_card(form, m, n, dtype):
+    dev = _on_card()
+    A, y = (torch.from_numpy(a).to(dev, dtype) for a in _system(6, m, n, 300))
+    kernel = getattr(tqw, f"least_squares_wavefront_{form}")
+    before = kernel.launches
+    x = tqw.least_squares_wavefront_kernel(A, y)  # the dispatcher's choice
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(x, tqw.least_squares_wavefront_reference(A, y))
+    # every form that takes n gives the same bits
+    for other in LSTSQ_FORMS:
+        if other is tqw.least_squares_wavefront_global or (
+                other is tqw.least_squares_wavefront_shared and tqw.shared_fits(n, dtype)) or (
+                other is tqw.least_squares_wavefront_registers and tqw.registers_fit(n, dtype)):
+            assert torch.equal(other(A, y), x)
+
+
+@pytest.mark.gpu
+def test_forms_refuse_what_they_do_not_take_on_card():
+    dev = _on_card()
+    A, y = torch.randn(12, 9, 64, device=dev), torch.randn(12, 64, device=dev)
+    with pytest.raises(ValueError, match="registers"):
+        tqw.least_squares_wavefront_registers(A, y)
+    A, y = torch.randn(32, 30, 64, device=dev), torch.randn(32, 64, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        tqw.least_squares_wavefront_shared(A, y)
+    x = tqw.least_squares_wavefront_kernel(A[:, :, :0].contiguous(), y[:, :0].contiguous())
+    assert x.shape == (30, 0)
 
 
 @pytest.mark.gpu
