@@ -9,17 +9,19 @@ fleet through ``nlsolver_torch.fit_fleet`` at full size, and times them.
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc over nlsolver_torch/csrc for sm_90a, one process per source;
-     no register kernel of K5 or K2b may spill or keep a stack frame;
+     no register kernel of K5 or K2b may spill or keep a stack frame; the
+     issue floors of K1's staged and K2b's register form from their SASS;
   3. K1 in both forms against its twin on injected draws, B=8192, n=10,
      P=64, f32, 5 generations, Rastrigin and sphere, a third of the lanes
      frozen; both forms at the edges of the staged form's plan (n = 16 and
-     17 at P = 64, n * P no multiple of 4, n = 28 and 29 at P = 1024) and the
-     dispatcher's choice there;
+     17 at P = 64, n * P no multiple of 4, n = 28 and 29 at P = 1024, the
+     latter at the wide fleet's 256 instances) and the dispatcher's choice
+     there;
   4. K1's Philox draws: crossover share, forced dimension, seeds, and
      bit-equality of both forms with the twin fed the Python Philox;
   5. the DE slice: minimize(rastrigin, x0[8192, 10], method="de",
      layout="batched") through K1's staged form, launches counted; the
-     default DEConfig() route on 1024 lanes; a wide fleet (16 instances,
+     default DEConfig() route on 1024 lanes; a wide fleet (256 instances,
      n=29, P=1024) through the global form;
   6. DE timing: the fleet for 200 generations through K1 and through the
      plain step (median of 5 after 2 warm-ups), and each form of K1 alone
@@ -29,9 +31,11 @@ Phases, each fatal on failure:
      f64; the residual small; a non-contiguous and an f16 input refused;
   8. K2b (wavefront least squares) in its three forms (registers, shared
      memory, device memory) bit-equal to its twin on the NLLS fleet's
-     augmented system [J; sqrt(lam) I] at [34, 2, 262144] in f32 and f64 and
-     on random systems, each form at the first and last n it takes, square
-     and with one row more, and the dispatcher's choice at each boundary;
+     augmented system [J; sqrt(lam) I] at [34, 2, 262144] in f32 and f64,
+     the shared and device-memory forms on the Chebyshev fleets' first
+     systems, [44, 12, 16384] and [78, 30, 4096], and on random systems,
+     each form at the first and last n it takes, square and with one row
+     more, and the dispatcher's choice at each boundary;
      K2a (wavefront QR with Q) bit-equal to its twin and a factorization;
      linalg.qr(method="pallas") launches K2a once;
   9. the NLLS slice: fit_fleet on 262144 exp-decay fits through
@@ -41,7 +45,8 @@ Phases, each fatal on failure:
      fits of 12 and 30 coefficients through K2b's shared-memory and
      device-memory forms;
  10. NLLS timing: bench_nlls_fleet per backend (median of 3 after 1
-     warm-up, ABBA order), and K2a, each form of K2b and K3 alone against
+     warm-up, ABBA order), and K2a, each form of K2b (the device-memory
+     form also on the shared form's Chebyshev system) and K3 alone against
      their twins from CUDA events, beside the one PyTorch call that
      computes the same function (torch.linalg.qr, torch.linalg.lstsq,
      Cholesky solve);
@@ -99,7 +104,9 @@ Phases, each fatal on failure:
 
 Every kernel's line also gives its bound: the larger of its compulsory
 bytes over 3.35 TB/s and its floating-point operations over 67 TFLOP/s
-(f32 outside the tensor cores), computed from the run's shapes.
+(f32 outside the tensor cores), computed from the run's shapes; K1's
+staged and K2b's register form also the floor of their instruction issue
+(``issue_ms``), which must lie below their time.
 
 Prints a JSON line of kernels, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -112,7 +119,7 @@ import sys
 import time
 
 B, N, P = 8192, 10, 64
-DE_WIDE = (16, 29, 1024, 20)   # a DE fleet past K1's staged form: instances, n, P, generations
+DE_WIDE = (256, 29, 1024, 20)  # a DE fleet past K1's staged form: instances, n, P, generations
 RTOL = ATOL = 1e-5  # scores: the same terms summed in another order
 TPU_KERNEL = "nlsolver_tpu/ops/de_fused.py:110"
 FLEET_B, FLEET_M = 262144, 32  # the NLLS fleet: fits, points per fit
@@ -216,19 +223,30 @@ def phase_build():
     path, out = _build.ensure_built()
     _build.load_library()
     log(f"[2] built {path.name} in {time.perf_counter() - t0:.2f} s")
-    # the issue floors of K1's staged form at the headline (no loop on a
-    # lane's path at n = 10) and K2b's register form at the NLLS fleet (its
-    # stage loop where every column rotates runs m - 2 n + 1 = 31 times)
+    # the issue floors of the timed launches (benches.issue_instructions).
+    # K1's staged form at the headline, Rastrigin on Philox draws (the
+    # kernel built for them): at n = 10 a lane passes back through no loop.
+    # K2b's register form at the NLLS fleet, m = 34, n = 2: its three stage
+    # loops, the ramp where column 1 waits, the stages where every column
+    # rotates and the ramp where column 0 is done, run 2 n - 2, m - 2 n + 1
+    # and n - 1 stages, so their backward branches are taken at least 1, 30
+    # and 0 times
     sass = sass_functions(path)
     m = FLEET_M + 2
-    for kid, key, trips, threads in (("K1s", ("de_staged_kernel", "Rastrigin", f"Li{N}E"), 0, B * P),
-                                     ("K2b-r", ("least_squares_registers_kernelIfLi2E",), m - 3, FLEET_B)):
+    for kid, key, back, threads in (
+            ("K1s", ("de_staged_kernel", "Rastrigin", f"Li{N}ELb1E"), (), B * P),
+            ("K2b-r", ("least_squares_registers_kernelIfLi2E",), (1, m - 4, 0), FLEET_B)):
         name = next(k for k in sass if all(part in k for part in key))
-        count, hot = issue_instructions(sass[name], trips)
+        way, bodies = issue_instructions(sass[name])
+        if kid == "K2b-r":
+            check(len(bodies) == len(back) and None not in bodies and bodies[1] == max(bodies),
+                  f"K2b-r's SASS has loops {bodies}, expected 3, the unguarded one the dearest")
+        count = way + sum(t * body for t, body in zip(back, bodies))
         FLOORS[kid] = issue_floor(count, threads)
-        log(f"[2] issue floor of {kid}: {count} SASS instructions a thread on the shortest path "
-            f"({len(sass[name])} in the kernel; hot loop body {hot} x {trips}), {threads} threads, "
-            f"{FLOORS['mhz']:.0f} MHz: {FLOORS[kid] * 1e3:.2f} us")
+        log(f"[2] issue floor of {kid}: {count} SASS instructions a thread ({len(sass[name])} in "
+            f"the kernel; {way} on its shortest way through, loop bodies {bodies} taken again "
+            f"{list(back)} times), {threads} threads, {FLOORS['mhz']:.0f} MHz: "
+            f"{FLOORS[kid] * 1e3:.2f} us")
     # ptxas names a kernel, then its stack frame and spills, then its registers.
     # The register forms of K5 and K2b are one kernel per width (K5r also per
     # parity): no word of theirs may live in local memory
@@ -353,8 +371,10 @@ def phase_injected(torch, dev):
     # choice: the proposal in registers up to n = 16 and in shared memory
     # beyond, the slab staged by plain loads where n * P is no multiple of
     # 4, the last n that one block holds at P = 1024, the global form past it
+    # at the wide fleet's shape (phase 5)
     g = torch.Generator(device=dev).manual_seed(4)
-    for n, p, b in ((16, 64, 999), (17, 64, 999), (3, 7, 5000), (28, 1024, 9), (29, 1024, 9)):
+    wide = (DE_WIDE[1], DE_WIDE[2], DE_WIDE[0])
+    for n, p, b in ((16, 64, 999), (17, 64, 999), (3, 7, 5000), (28, 1024, 9), wide):
         fn = PROBLEMS["rastrigin"].fn
         agents = (torch.rand((b, n, p), generator=g, device=dev) - 0.5) * 5.0
         scores = tdf.eval_columns(fn, agents)
@@ -637,6 +657,11 @@ def phase_qr(torch, dev):
     A, y = fleet_system(torch, dev)
     for dtype in (torch.float32, torch.float64):
         hold(list(forms), A.to(dtype), y.to(dtype), f"fleet {tuple(A.shape)} {str(dtype)[6:]}")
+    # the Chebyshev fleets' first systems (phase 9), each through the forms
+    # that time it in phase 10
+    for shape, kids in ((CHEB_SHARED, ["K2b-s", "K2b-g"]), (CHEB_GLOBAL, ["K2b-g"])):
+        A, y = chebyshev_system(torch, dev, *shape)
+        hold(kids, A, y, f"Chebyshev fleet {tuple(A.shape)} float32")
     for m, n, b in ((32, 8, 4096), (64, 16, 4096), (34, 2, 300)):
         A, y = (torch.randn((m, n, b), generator=g, device=dev),
                 torch.randn((m, b), generator=g, device=dev))
@@ -827,7 +852,8 @@ def phase_nlls_timing(torch, dev):
                 lambda: torch.linalg.lstsq(Al, yl))
 
     # K2b: each form at the NLLS fleet's system, then the shared and device-
-    # memory forms at the Chebyshev fleets' systems they serve
+    # memory forms at the Chebyshev fleets' systems they serve, and the
+    # device-memory form beside the shared one on the latter's
     sys_s, sys_g = (chebyshev_system(torch, dev, *shape) for shape in (CHEB_SHARED, CHEB_GLOBAL))
     # name: kernel and repeats, twin and repeats, library call
     times = {
@@ -835,6 +861,7 @@ def phase_nlls_timing(torch, dev):
         "K2b-s n=2": lstsq_case("K2b-s", A, y, 50),
         "K2b-g n=2": lstsq_case("K2b-g", A, y, 50),
         "K2b-s": lstsq_case("K2b-s", *sys_s, 20),
+        "K2b-g n=12": lstsq_case("K2b-g", *sys_s, 20),
         "K2b-g": lstsq_case("K2b-g", *sys_g, 5),
         "K3 n=2": (lambda: tsc.solve_spd_batchminor(*spd[2]), 50,
                    lambda: tsc._chol_solve_batchminor(*spd[2]), 5,
@@ -1455,6 +1482,12 @@ def phases_earlier(torch, dev):
     rank2_err = phase_rank2(torch, dev)
     bfgs_launches = phase_bfgs_slice(torch, dev)
     alone.update(phase_bfgs_timing(torch, dev))
+    # an issue floor above the time measured would be no floor: the model
+    # (4 warp-instructions a clock an SM) held against the card
+    for kid, times in (("K1s", de_times["K1s"]), ("K2b-r", alone["K2b-r"])):
+        log(f"[10] {kid}: {times[0] * 1e3:.2f} us of device time against its issue floor "
+            f"{FLOORS[kid] * 1e3:.2f} us")
+        check(FLOORS[kid] <= times[0], f"{kid}'s issue floor lies above its time")
     m = FLEET_M + 2  # rows of the NLLS fleet's augmented system [J; sqrt(lam) I]
     csrc, tpu = "nlsolver_torch/csrc/", "nlsolver_tpu/ops/"
     k2b = tpu + "qr_wavefront.py:207"

@@ -85,15 +85,19 @@ def sass_functions(library) -> dict:
     return out
 
 
-def issue_instructions(ins, trips: int) -> tuple[int, int]:
-    """A floor on the instructions one thread issues in a kernel: the
-    shortest path through its SASS from entry to exit, where a conditional
-    branch may go either way (a lane takes the cheaper arm of each, and no
-    slow path), early exits are not taken, and each loop counts ``trips``
-    passes of the shortest path through its body for the loop whose body
-    costs most, and none for the others.  Returns (instructions, the hot
-    loop's body).  Predicated instructions count: they issue either way."""
+def issue_instructions(ins) -> tuple[int, list]:
+    """A floor on the instructions one thread issues in a kernel, from its
+    SASS ``ins`` (``sass_functions``): the fewest instructions on a way
+    through its control flow from entry to an exit, and for each backward
+    branch (in address order) the fewest from its target to it, both ends
+    counted (None where no way leads there).  Every instruction on a way
+    counts, predicated ones too (they issue either way); a conditional
+    branch may go either way, and early exits are not taken.  A run's way,
+    with each pass back through a loop cut out, is still a way, and each cut
+    pass costs at least that loop's body: so a launch that takes loop i's
+    backward branch t_i times issues at least ``way + sum(t_i * body_i)``."""
     import re
+    from collections import deque
 
     n = len(ins)
     index = {addr: i for i, (addr, _) in enumerate(ins)}
@@ -102,49 +106,42 @@ def issue_instructions(ins, trips: int) -> tuple[int, int]:
         m = re.search(r"BRA(?:\.\w+)*\s+(?:!?U?P\d,\s*)?(?:`\(\.L_x_\d+\)\s*)?0x([0-9a-f]+)", op)
         return index.get(int(m.group(1), 16)) if m else None
 
-    loops = []  # (header, last) of each backward branch
-    for i, (_, op) in enumerate(ins):
-        t = target(op) if "BRA" in op else None
-        if t is not None and t <= i:
-            loops.append((t, i))
-    inside = [False] * n
+    def successors(i):
+        op = ins[i][1]
+        conditional = op.startswith("@")
+        body = op.split(None, 1)[1] if conditional else op
+        if body.startswith("EXIT"):
+            return [i + 1] if conditional else []
+        if body.startswith("BRA"):
+            t = target(op)
+            if t is None:
+                return [i + 1]
+            return [t, i + 1] if conditional else [t]
+        return [i + 1]
+
+    def fewest(start):
+        """Instructions issued before each one on the fewest-instruction way
+        from ``start`` (breadth first: every instruction costs one)."""
+        before = [None] * n
+        before[start] = 0
+        queue = deque([start])
+        while queue:
+            i = queue.popleft()
+            for j in successors(i):
+                if j < n and before[j] is None:
+                    before[j] = before[i] + 1
+                    queue.append(j)
+        return before
+
+    loops = [(target(op), i) for i, (_, op) in enumerate(ins)
+             if "BRA" in op and target(op) is not None and target(op) <= i]
+    entry = fewest(0)
+    way = min(entry[i] + 1 for i, (_, op) in enumerate(ins) if op == "EXIT" and entry[i] is not None)
+    bodies = []
     for h, e in loops:
-        for i in range(h, e + 1):
-            inside[i] = True
-
-    def shortest(start, stop, free):
-        """Shortest forward path from ``start`` to ``stop`` (inclusive);
-        instructions where ``free`` is true cost nothing."""
-        inf = float("inf")
-        cost = [inf] * (n + 1)
-        cost[start] = 0
-        for i in range(start, min(stop, n - 1) + 1):
-            if cost[i] == inf:
-                continue
-            here = cost[i] + (0 if free[i] else 1)
-            op = ins[i][1]
-            conditional = op.startswith("@")
-            body = op.split(None, 1)[1] if conditional else op
-            nxt = []
-            if body.startswith("EXIT"):
-                nxt = [i + 1] if conditional else [n]
-            elif body.startswith("BRA"):
-                t = target(op)
-                if t is not None and t > i:
-                    nxt.append(t)
-                if conditional or t is None or t <= i:
-                    nxt.append(i + 1)
-            else:
-                nxt = [i + 1]
-            for j in nxt:
-                j = j if j <= stop + 1 else n  # leaving the region is no way through it
-                cost[j] = min(cost[j], here)
-        return cost[n] if stop >= n - 1 else cost[stop + 1]
-
-    outside = shortest(0, n - 1, inside)
-    bodies = [shortest(h, e, [False] * n) for h, e in loops]
-    hot = max(bodies, default=0)
-    return int(outside + trips * hot), int(hot)
+        before = fewest(h)[e]
+        bodies.append(None if before is None else before + 1)
+    return way, bodies
 
 
 def _timed(run, runs=5, warmup=2):
@@ -333,6 +330,37 @@ def bench_nlls_fleet(B=262144, m=32, runs=3, solve="qr_pallas", steps=32):
         "min_ms": mn * 1e3,
         "solved_frac": float((final.cost < 1e-6).float().mean()),
     }
+
+
+def sweep_least_squares(ns=(2, 8, 9, 12, 16, 20, 24, 29), Bs=(4096, 16384, 65536), rows=32,
+                        reps=5):
+    """K2b's forms across their range in f32: for each n and B, the device
+    time in ms of each form that takes n (``registers``, ``shared``,
+    ``global``; behind a device sleep, the least of two) and of
+    ``torch.linalg.lstsq`` on the same systems, ``[rows + n, n, B]`` with
+    entries ~ N(0, 1), the shape of a Chebyshev fit's augmented system."""
+    from ..ops import qr_wavefront as tqw
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("sweep_least_squares measures a CUDA card; none is available")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    forms = {"registers": (tqw.least_squares_wavefront_registers, tqw.registers_fit),
+             "shared": (tqw.least_squares_wavefront_shared, tqw.shared_fits),
+             "global": (tqw.least_squares_wavefront_global, lambda n, dtype: True)}
+    out = []
+    for n in ns:
+        for B in Bs:
+            A = torch.randn((rows + n, n, B), generator=g, device="cuda")
+            y = torch.randn((rows + n, B), generator=g, device="cuda")
+            Al, yl = A.permute(2, 0, 1).contiguous(), y.t().contiguous()[:, :, None]
+            row = {"n": n, "B": B, "m": rows + n}
+            for name, (kernel, takes) in forms.items():
+                row[f"{name}_ms"] = (min(device_ms(lambda: kernel(A, y), reps) for _ in range(2))
+                                     if takes(n, A.dtype) else None)
+            row["lstsq_ms"] = min(device_ms(lambda: torch.linalg.lstsq(Al, yl), reps, strict=False)
+                                  for _ in range(2))
+            out.append(row)
+    return out
 
 
 def bowls_scenario(B: int, dim: int = 16, seed: int = 0, device="cuda", dtype=torch.float32):

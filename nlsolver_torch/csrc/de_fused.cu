@@ -41,7 +41,9 @@
 //
 // Random draws: injected (u [B, n, P] f32 and fdim [B, P] i32 pointers,
 // for testing) or Philox4x32-10 keyed by (seed, generation) and countered
-// by (d / 4, p, b, stream): u = (bits >> 8) * 2^-24, fdim = bits % n.
+// by (d / 4, p, b, stream): u = (bits >> 8) * 2^-24, fdim = bits % n.  The
+// staged form is built once for each source of draws, so its Philox kernel
+// holds no injected arm.
 
 #include <cuda_runtime.h>
 
@@ -178,15 +180,18 @@ __device__ inline bool mutates(const float u4[4], int j, int d, int fdim, float 
   return u4[j] < CR || d == fdim;
 }
 
-template <class Obj, int NR>
+template <class Obj, int NR, bool kPhilox>
 __global__ void __launch_bounds__(1024)
     de_staged_kernel(const float* __restrict__ agents, const float* __restrict__ scores,
-                     const bool* __restrict__ active, Draws draws,
+                     const bool* __restrict__ active, Draws given,
                      float* __restrict__ out_agents, float* __restrict__ out_scores,
                      int B, int n, int P, int o1, int o2, int o3, float F, float CR,
                      int bulk) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t staged;  // the bulk copy's mbarrier
+  // Philox draws as a compile-time fact, so that this kernel holds no
+  // injected arm (a reading of its SASS then follows the Philox path)
+  const Draws draws = kPhilox ? Draws{nullptr, nullptr, given.seed, given.generation} : given;
   const int per_block = blockDim.x / P, t = threadIdx.x;
   const int p = t % P, local = t / P;
   const long long b0 = static_cast<long long>(blockIdx.x) * per_block;
@@ -283,23 +288,23 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-template <class Obj, int NR>
+template <class Obj, int NR, bool kPhilox>
 int launch_staged(const float* agents, const float* scores, const bool* active,
                   const Draws& draws, float* out_agents, float* out_scores, int B,
                   int n, int P, int o1, int o2, int o3, float F, float CR,
                   int per_block, int smem, int bulk, cudaStream_t stream) {
   if constexpr (NR > 0) {
     if (n != NR) {
-      return launch_staged<Obj, NR - 1>(agents, scores, active, draws, out_agents,
-                                        out_scores, B, n, P, o1, o2, o3, F, CR,
-                                        per_block, smem, bulk, stream);
+      return launch_staged<Obj, NR - 1, kPhilox>(agents, scores, active, draws, out_agents,
+                                                 out_scores, B, n, P, o1, o2, o3, F, CR,
+                                                 per_block, smem, bulk, stream);
     }
   }
   const cudaError_t err = cudaFuncSetAttribute(
-      de_staged_kernel<Obj, NR>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      de_staged_kernel<Obj, NR, kPhilox>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (B + per_block - 1) / per_block;
-  de_staged_kernel<Obj, NR><<<blocks, per_block * P, smem, stream>>>(
+  de_staged_kernel<Obj, NR, kPhilox><<<blocks, per_block * P, smem, stream>>>(
       agents, scores, active, draws, out_agents, out_scores, B, n, P, o1, o2, o3, F, CR,
       bulk);
   return static_cast<int>(cudaGetLastError());
@@ -325,6 +330,30 @@ int launch(const void* agents, const void* scores, const void* active,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the staged form on untyped arguments: the Philox kernel where u (and
+// with it fdim) is null, the injected-draws kernel otherwise
+template <class Obj>
+int launch_staged_draws(const void* agents, const void* scores, const void* active,
+                        const void* u, const void* fdim, void* out_agents,
+                        void* out_scores, int B, int n, int P, int o1, int o2, int o3,
+                        float F, float CR, uint32_t seed, uint32_t generation,
+                        int per_block, int smem, int bulk, void* stream) {
+  const Draws draws{static_cast<const float*>(u), static_cast<const int*>(fdim), seed,
+                    generation};
+  const auto* a = static_cast<const float*>(agents);
+  const auto* sc = static_cast<const float*>(scores);
+  const auto* act = static_cast<const bool*>(active);
+  auto* oa = static_cast<float*>(out_agents);
+  auto* os = static_cast<float*>(out_scores);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (u == nullptr) {
+    return launch_staged<Obj, kRegisterMaxN, true>(a, sc, act, draws, oa, os, B, n, P, o1,
+                                                   o2, o3, F, CR, per_block, smem, bulk, st);
+  }
+  return launch_staged<Obj, kRegisterMaxN, false>(a, sc, act, draws, oa, os, B, n, P, o1, o2,
+                                                  o3, F, CR, per_block, smem, bulk, st);
+}
+
 }  // namespace
 
 // One launcher per registry objective, float32.  Returns cudaGetLastError().
@@ -344,7 +373,8 @@ NLSOLVER_DE_LAUNCHER(sphere, Sphere)
 
 // The staged form: ``per_block`` instances a block, ``smem`` bytes of dynamic
 // shared memory (their slabs, and their proposals where n > kRegisterMaxN),
-// ``bulk`` non-zero to stage them with one bulk copy.  Returns
+// ``bulk`` non-zero to stage them with one bulk copy; one kernel for Philox
+// draws (u and fdim null) and one for injected draws.  Returns
 // cudaGetLastError().
 #define NLSOLVER_DE_STAGED_LAUNCHER(NAME, OBJ)                                 \
   extern "C" int de_staged_##NAME##_f32(                                       \
@@ -353,14 +383,10 @@ NLSOLVER_DE_LAUNCHER(sphere, Sphere)
       int B, int n, int P, int o1, int o2, int o3, float F, float CR,          \
       uint32_t seed, uint32_t generation, int per_block, int smem, int bulk,   \
       void* stream) {                                                          \
-    const Draws draws{static_cast<const float*>(u),                            \
-                      static_cast<const int*>(fdim), seed, generation};        \
-    return launch_staged<OBJ, kRegisterMaxN>(                                  \
-        static_cast<const float*>(agents), static_cast<const float*>(scores),  \
-        static_cast<const bool*>(active), draws,                               \
-        static_cast<float*>(out_agents), static_cast<float*>(out_scores), B,   \
-        n, P, o1, o2, o3, F, CR, per_block, smem, bulk,                        \
-        static_cast<cudaStream_t>(stream));                                    \
+    return launch_staged_draws<OBJ>(agents, scores, active, u, fdim,           \
+                                    out_agents, out_scores, B, n, P, o1, o2,   \
+                                    o3, F, CR, seed, generation, per_block,    \
+                                    smem, bulk, stream);                       \
   }
 
 NLSOLVER_DE_STAGED_LAUNCHER(rastrigin, Rastrigin)

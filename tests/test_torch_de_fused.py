@@ -285,8 +285,16 @@ def test_issue_floor_takes_the_cheaper_arm_and_counts_the_hot_loop():
             "FADD R3, R1, R1", "FMUL R3, R3, R3", "IADD3 R4, R4, 0x1, RZ", "@P2 BRA 0x70",
             "MOV R5, R3", "@P3 BRA 0xb0", "STG.E [R6.64], R3", "EXIT"]
     ins = [(16 * i, op) for i, op in enumerate(sass)]
-    count, hot = issue_instructions(ins, trips=5)
-    # the way through: 3 + the branch + 5 x 4 (loop) + 0 (second loop, none) + 2
-    assert hot == 4
-    assert count == 4 + 5 * 4 + 2
-    assert issue_instructions(ins, trips=0) == (6, 4)
+    way, bodies = issue_instructions(ins)
+    # the fewest: 3 + the branch, one pass of each loop, 2; a pass of each
+    # loop alone
+    assert (way, bodies) == (4 + 4 + 2 + 2, [4, 2])
+    # 5 passes of the hot loop (4 backward branches) and one of the other
+    assert way + 4 * bodies[0] + 0 * bodies[1] == 4 + 5 * 4 + 2 + 2
+    # a slow path placed after the exit that jumps back (a wait's retry):
+    # a way through it counts its instructions, and its jump back is no loop
+    # that the code after the jump's target leads into
+    sass = ["@!P0 BRA 0x40", "FADD R1, R1, R2", "FMUL R1, R1, R2", "EXIT",
+            "SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [R0], RZ", "@!P0 BRA 0x40", "BRA 0x10"]
+    ins = [(16 * i, op) for i, op in enumerate(sass)]
+    assert issue_instructions(ins) == (4, [2, None])
