@@ -9,8 +9,9 @@ fleet through ``nlsolver_torch.fit_fleet`` at full size, and times them.
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc over nlsolver_torch/csrc for sm_90a, one process per source;
-     no register kernel of K5 or K2b may spill or keep a stack frame; the
-     issue floors of K1's staged and K2b's register form from their SASS;
+     no register kernel of K5 or K2b, and no kernel of K2b's warp form, may
+     spill or keep a stack frame; the issue floors of K1's staged form and
+     K2b's register and warp forms from their SASS;
   3. K1 in both forms against its twin on injected draws, B=8192, n=10,
      P=64, f32, 5 generations, Rastrigin and sphere, a third of the lanes
      frozen; both forms at the edges of the staged form's plan (n = 16 and
@@ -29,27 +30,28 @@ Phases, each fatal on failure:
   7. K3 (batch-minor Cholesky solve) bit-equal to its twin on SPD systems,
      n=2 at B=262144 and n in {1, 8, 16, 33} at B=16384, f32, and once in
      f64; the residual small; a non-contiguous and an f16 input refused;
-  8. K2b (wavefront least squares) in its three forms (registers, shared
-     memory, device memory) bit-equal to its twin on the NLLS fleet's
-     augmented system [J; sqrt(lam) I] at [34, 2, 262144] in f32 and f64,
-     the shared and device-memory forms on the Chebyshev fleets' first
-     systems, [44, 12, 16384] and [78, 30, 4096], and on random systems,
-     each form at the first and last n it takes, square and with one row
-     more, and the dispatcher's choice at each boundary;
+  8. K2b (wavefront least squares) in its four forms (registers, shared
+     memory, a warp a lane, device memory) bit-equal to its twin on the NLLS
+     fleet's augmented system [J; sqrt(lam) I] at [34, 2, 262144] in f32 and
+     f64, the shared, warp and device-memory forms on the Chebyshev fleets'
+     first systems, [44, 12, 16384], [78, 30, 4096] and [248, 120, 256] in
+     f64, and on random systems, each form at the first and last n it takes
+     (the device-memory form at the first), square and with one row more,
+     and the dispatcher's choice at each boundary;
      K2a (wavefront QR with Q) bit-equal to its twin and a factorization;
      linalg.qr(method="pallas") launches K2a once;
   9. the NLLS slice: fit_fleet on 262144 exp-decay fits through
      solve="qr_pallas" (K2b's register form), "cholesky" (K3) and "qr"
      (plain), launches counted; solved share, recovered parameters,
      qr_pallas equal to qr lane by lane, cholesky close to them; Chebyshev
-     fits of 12 and 30 coefficients through K2b's shared-memory and
-     device-memory forms;
+     fits of 12 and 30 coefficients through K2b's shared-memory and warp
+     forms, and of 120 in f64 through its device-memory form;
  10. NLLS timing: bench_nlls_fleet per backend (median of 3 after 1
      warm-up, ABBA order), and K2a, each form of K2b (the device-memory
-     form also on the shared form's Chebyshev system) and K3 alone against
-     their twins from CUDA events, beside the one PyTorch call that
-     computes the same function (torch.linalg.qr, torch.linalg.lstsq,
-     Cholesky solve);
+     form also on the shared form's Chebyshev system, and beside the warp
+     form on the 30-coefficient one) and K3 alone against their twins from
+     CUDA events, beside the one PyTorch call that computes the same
+     function (torch.linalg.qr, torch.linalg.lstsq, Cholesky solve);
  11. K4a (resident rank-2 update + direction) against its twin at
      [16, 16, 65536] f32 with a third of the lanes on reset and a fifth at
      rho = 0, at n in {1, 2, 8, 33} with a ragged B, and once in f64; K4b
@@ -105,8 +107,8 @@ Phases, each fatal on failure:
 Every kernel's line also gives its bound: the larger of its compulsory
 bytes over 3.35 TB/s and its floating-point operations over 67 TFLOP/s
 (f32 outside the tensor cores), computed from the run's shapes; K1's
-staged and K2b's register form also the floor of their instruction issue
-(``issue_ms``), which must lie below their time.
+staged and K2b's register and warp forms also the floor of their
+instruction issue (``issue_ms``), which must lie below their time.
 
 Prints a JSON line of kernels, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -126,7 +128,8 @@ FLEET_B, FLEET_M = 262144, 32  # the NLLS fleet: fits, points per fit
 BFGS_B, BFGS_N = 65536, 16     # the BFGS fleet: bowls, dimensions
 WIDE_B, WIDE_N = 4096, 128     # the wide BFGS fleet, beyond K4a's resident slab
 CHEB_SHARED = (12, 32, 16384)  # Chebyshev NLLS fleets: coefficients, points, fits; through
-CHEB_GLOBAL = (30, 48, 4096)   # K2b's shared-memory and device-memory forms (float32)
+CHEB_WARP = (30, 48, 4096)     # K2b's shared-memory and warp forms (float32), and past the
+CHEB_GLOBAL = (120, 128, 256)  # warp form's range in float64 through its device-memory form
 CMA_B, CMA_N, CMA_GENS = 65536, 16, 50   # the CMA-ES fleet: strategies, dimensions, generations
 CMA_WIDE_B = 4096              # the wide CMA-ES fleets: n = 56 and n = 64 (K5a)
 CMA_EDGE_N, CMA_EDGE_B = 170, 256  # the first n that K5a refuses in f32 (K5c), the fleet's B there
@@ -215,6 +218,33 @@ def phase_device(torch):
     return name
 
 
+def warp_floor(ins, m, n, b):
+    """The issue floor of K2b's warp form on [m, n, b], n < 32 (one word a
+    thread a row), from its SASS ``ins``: its stage loop, the one loop that
+    holds a block barrier, passes back m + n - 3 times, and its rotation
+    loop, the one loop within it that stores to shared memory, once less
+    than the stage's columns every stage; every other loop is counted on no
+    pass back.  Returns (instructions, way, stage body, rotation body)."""
+    from nlsolver_torch.benches import backward_branches, issue_instructions
+
+    way, bodies = issue_instructions(ins)
+    spans = backward_branches(ins)
+
+    def opcodes(h, e):
+        return {op.split()[1 if op.startswith("@") else 0].split(".")[0] for _, op in ins[h:e + 1]}
+
+    stage = [i for i, (h, e) in enumerate(spans) if "BAR" in opcodes(h, e) and bodies[i]]
+    check(len(stage) == 1, f"K2b-w's SASS has loops {bodies}, {len(stage)} with a block barrier")
+    h0, e0 = spans[stage[0]]
+    turn = [i for i, (h, e) in enumerate(spans) if h0 < h and e < e0 and "STS" in opcodes(h, e)
+            and "BAR" not in opcodes(h, e) and bodies[i]]
+    check(len(turn) == 1, f"K2b-w's SASS has loops {bodies}, {len(turn)} rotation loops")
+    stages = m + n - 2
+    passes = sum(max(0, min(n - 1, k // 2) - max(0, k - m + 2)) for k in range(stages))
+    body_s, body_t = bodies[stage[0]], bodies[turn[0]]
+    return way + (stages - 1) * body_s + passes * body_t, way, body_s, body_t
+
+
 def phase_build():
     from nlsolver_torch.benches import issue_instructions, sass_functions
     from nlsolver_torch.ops import _build
@@ -247,6 +277,16 @@ def phase_build():
             f"the kernel; {way} on its shortest way through, loop bodies {bodies} taken again "
             f"{list(back)} times), {threads} threads, {FLOORS['mhz']:.0f} MHz: "
             f"{FLOORS[kid] * 1e3:.2f} us")
+    # K2b's warp form at the Chebyshev fleet of CHEB_WARP coefficients, a
+    # warp a lane
+    n, pts, b = CHEB_WARP
+    name = next(k for k in sass if "least_squares_warp_kernelIfLi1E" in k)
+    count, way, body_s, body_t = warp_floor(sass[name], pts + n, n, b)
+    FLOORS["K2b-w"] = issue_floor(count, 32 * b)
+    log(f"[2] issue floor of K2b-w: {count} SASS instructions a warp ({len(sass[name])} in the "
+        f"kernel; {way} on its shortest way through, the stage loop's body {body_s} and the "
+        f"rotation loop's {body_t}), {b} warps, {FLOORS['mhz']:.0f} MHz: "
+        f"{FLOORS['K2b-w'] * 1e3:.2f} us")
     # ptxas names a kernel, then its stack frame and spills, then its registers.
     # The register forms of K5 and K2b are one kernel per width (K5r also per
     # parity): no word of theirs may live in local memory
@@ -254,7 +294,7 @@ def phase_build():
 
     import torch
 
-    from nlsolver_torch.ops.qr_wavefront import REGISTER_MAX_N
+    from nlsolver_torch.ops.qr_wavefront import REGISTER_MAX_N, warp_fits
 
     entries = []  # [short name, stack and spill line, registers line]
     for line in out.splitlines():
@@ -273,12 +313,13 @@ def phase_build():
         elif entries and "Used" in line:
             entries[-1][2] = line.strip()
     kinds = {"eigh_jacobi_registers_kernel": ("K5r", f"IfLi{CMA_N}ELb0E"),  # <float, n, even>
-             "least_squares_registers_kernel": ("K2b", "IfLi2E")}         # <float, the fleet's n>
-    used, main, local = {"K5r": [], "K2b": []}, {}, []
+             "least_squares_registers_kernel": ("K2b", "IfLi2E"),         # <float, the fleet's n>
+             "least_squares_warp_kernel": ("K2b-w", "IfLi1E")}            # <float, a word a row>
+    used, main, local = {"K5r": [], "K2b": [], "K2b-w": []}, {}, []
     for short, spill, regs in entries:
         kind = next((v for k, v in kinds.items() if short.startswith(k)), None)
         count = int(regs.split("Used")[1].split()[0]) if "Used" in regs else -1
-        if kind is None or kind[0] == "K2b":
+        if kind is None or kind[0] != "K5r":
             log(f"[2] ptxas: {short}: {count} registers; {spill}")
         if kind is None:
             continue
@@ -288,11 +329,17 @@ def phase_build():
         if "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" not in spill:
             local.append(f"{short}: {spill}")
     if out:
-        check(not local, "register kernels of K5 or K2b use local memory: " + "; ".join(local))
-        k5r, k2b = used["K5r"], used["K2b"]
+        check(not local, "register kernels of K5 or K2b, or K2b's warp form, use local memory: "
+              + "; ".join(local))
+        k5r, k2b, k2bw = used["K5r"], used["K2b"], used["K2b-w"]
         check(len(k5r) > 0, "ptxas reported no register kernel of K5")
         check(len(k2b) == sum(REGISTER_MAX_N.values()),
               f"ptxas reported {len(k2b)} register kernels of K2b, expected one per n and dtype")
+        # one kernel of the warp form per dtype and words a thread a row
+        words = [-(-(max(n for n in range(1, 512) if warp_fits(n, dt)) + 1) // 32)
+                 for dt in (torch.float32, torch.float64)]
+        check(len(k2bw) == sum(words),
+              f"ptxas reported {len(k2bw)} kernels of K2b's warp form, expected {sum(words)}")
         log(f"[2] ptxas: eigh_jacobi_registers_kernel, {len(k5r)} kernels (float32 and float64, "
             f"every even width, both parities of n): {min(k5r)} to {max(k5r)} registers a "
             f"thread, {main.get('K5r')} at n = {CMA_N} in float32, 0 bytes of stack frame, "
@@ -301,6 +348,10 @@ def phase_build():
             f"{REGISTER_MAX_N[torch.float32]} in float32, 1 to {REGISTER_MAX_N[torch.float64]} in "
             f"float64): {min(k2b)} to {max(k2b)} registers a thread, {main.get('K2b')} at n = 2 "
             "in float32, 0 bytes of stack frame, 0 bytes spilled")
+        log(f"[2] ptxas: least_squares_warp_kernel, {len(k2bw)} kernels (1 to {words[0]} words a "
+            f"thread a row in float32, 1 to {words[1]} in float64): {min(k2bw)} to {max(k2bw)} "
+            f"registers a thread, {main.get('K2b-w')} at one word in float32, 0 bytes of stack "
+            "frame, 0 bytes spilled")
 
 
 def de_forms():
@@ -595,8 +646,8 @@ def first_system(torch, dev, scenario, n, X0_value):
 
     residual, ys, _ = scenario
     B = ys.shape[0]
-    r, J = nf._residuals_bm(residual, torch.full((n, B), X0_value, device=dev), ys)
-    lam = torch.full((B,), nf.NLLSFleetConfig().lambda0, device=dev)
+    r, J = nf._residuals_bm(residual, torch.full((n, B), X0_value, device=dev, dtype=ys.dtype), ys)
+    lam = torch.full((B,), nf.NLLSFleetConfig().lambda0, device=dev, dtype=ys.dtype)
     return nf._augmented(r, J, lam)
 
 
@@ -607,11 +658,12 @@ def fleet_system(torch, dev):
     return first_system(torch, dev, expfit_scenario(FLEET_B, FLEET_M, device=dev), 2, 1.0)
 
 
-def chebyshev_system(torch, dev, n, m, b):
+def chebyshev_system(torch, dev, n, m, b, dtype=None):
     """The first augmented system of a Chebyshev fleet, [m + n, n, b]."""
     from nlsolver_torch.benches import chebyshev_scenario
 
-    return first_system(torch, dev, chebyshev_scenario(b, n, m, device=dev), n, 0.0)
+    scenario = chebyshev_scenario(b, n, m, device=dev, dtype=dtype or torch.float32)
+    return first_system(torch, dev, scenario, n, 0.0)
 
 
 def lstsq_forms():
@@ -619,13 +671,15 @@ def lstsq_forms():
 
     return {"K2b-r": tqw.least_squares_wavefront_registers,
             "K2b-s": tqw.least_squares_wavefront_shared,
+            "K2b-w": tqw.least_squares_wavefront_warp,
             "K2b-g": tqw.least_squares_wavefront_global}
 
 
 def lstsq_takes(kid, n, dtype):
     from nlsolver_torch.ops import qr_wavefront as tqw
 
-    return {"K2b-r": tqw.registers_fit, "K2b-s": tqw.shared_fits}.get(kid, lambda n, d: True)(n, dtype)
+    return {"K2b-r": tqw.registers_fit, "K2b-s": tqw.shared_fits,
+            "K2b-w": tqw.warp_fits}.get(kid, lambda n, d: True)(n, dtype)
 
 
 def phase_qr(torch, dev):
@@ -658,19 +712,25 @@ def phase_qr(torch, dev):
     for dtype in (torch.float32, torch.float64):
         hold(list(forms), A.to(dtype), y.to(dtype), f"fleet {tuple(A.shape)} {str(dtype)[6:]}")
     # the Chebyshev fleets' first systems (phase 9), each through the forms
-    # that time it in phase 10
-    for shape, kids in ((CHEB_SHARED, ["K2b-s", "K2b-g"]), (CHEB_GLOBAL, ["K2b-g"])):
-        A, y = chebyshev_system(torch, dev, *shape)
-        hold(kids, A, y, f"Chebyshev fleet {tuple(A.shape)} float32")
-    for m, n, b in ((32, 8, 4096), (64, 16, 4096), (34, 2, 300)):
+    # that time it in phase 10 and the form its fleet runs
+    for shape, kids, dtype in ((CHEB_SHARED, ["K2b-s", "K2b-g"], torch.float32),
+                               (CHEB_WARP, ["K2b-w", "K2b-g"], torch.float32),
+                               (CHEB_GLOBAL, ["K2b-g"], torch.float64)):
+        A, y = chebyshev_system(torch, dev, *shape, dtype)
+        hold(kids, A, y, f"Chebyshev fleet {tuple(A.shape)} {str(dtype)[6:]}")
+    for m, n, b in ((32, 8, 4096), (64, 16, 4096), (34, 2, 300), (70, 40, 999)):
         A, y = (torch.randn((m, n, b), generator=g, device=dev),
                 torch.randn((m, b), generator=g, device=dev))
         hold([k for k in forms if lstsq_takes(k, n, A.dtype)], A, y, f"random {(m, n, b)}")
     # each form at the first and last n it takes, square and with one row
-    # more; the dispatcher's choice at each boundary
+    # more (the device-memory form at its first); the dispatcher's choice at
+    # each boundary
     for dtype in (torch.float32, torch.float64):
-        reg, shared = tqw.REGISTER_MAX_N[dtype], max(n for n in range(1, 64) if tqw.shared_fits(n, dtype))
-        edges = {"K2b-r": (1, reg), "K2b-s": (reg + 1, shared), "K2b-g": (shared + 1, shared + 8)}
+        reg = tqw.REGISTER_MAX_N[dtype]
+        shared = max(n for n in range(1, 64) if tqw.shared_fits(n, dtype))
+        warp = max(n for n in range(1, 512) if tqw.warp_fits(n, dtype))
+        edges = {"K2b-r": (1, reg), "K2b-s": (reg + 1, shared), "K2b-w": (shared + 1, warp),
+                 "K2b-g": (warp + 1,)}
         for kid, ns in edges.items():
             for n in ns:
                 for m in (n, n + 1):
@@ -682,7 +742,7 @@ def phase_qr(torch, dev):
                     check(forms[kid].launches == before + 1,
                           f"the dispatcher did not take {kid} at n={n} in {dtype}")
         log(f"[8] the dispatcher takes K2b-r for n <= {reg}, K2b-s for {reg + 1} <= n <= {shared}, "
-            f"K2b-g beyond ({str(dtype)[6:]})")
+            f"K2b-w for {shared + 1} <= n <= {warp}, K2b-g beyond ({str(dtype)[6:]})")
     for m, n, b in ((16, 16, 4096), (32, 8, 4096)):
         A = torch.randn((m, n, b), generator=g, device=dev)
         R, Q = tqw.qr_wavefront_kernel(A, compute_q=True)
@@ -723,6 +783,7 @@ def reset_counts():
                qr_wavefront.qr_wavefront_kernel,
                qr_wavefront.least_squares_wavefront_registers,
                qr_wavefront.least_squares_wavefront_shared,
+               qr_wavefront.least_squares_wavefront_warp,
                qr_wavefront.least_squares_wavefront_global, smallchol.solve_spd_batchminor,
                rank2.rank2_direction_batchminor_resident,
                rank2.rank2_direction_batchminor_rowsplit, rank2.rank2_update_batched_kernel):
@@ -792,15 +853,21 @@ def phase_nlls_slice(torch, dev):
     log(f"[9] cholesky against qr: max |dx| {float(d.max()):.3e}, median {float(d.median()):.3e}")
     check(float(d.max()) <= 1e-4, "the cholesky fleet's fits differ from the qr fleet's by over 1e-4")
     # wide fleets past the register form: Chebyshev fits of CHEB_SHARED
-    # and CHEB_GLOBAL coefficients through K2b's shared and device-memory forms
-    for (n, m, b), kernel in ((CHEB_SHARED, "K2b-s"), (CHEB_GLOBAL, "K2b-g")):
-        residual, ys, truth = chebyshev_scenario(b, n, m, device=dev)
+    # and CHEB_WARP coefficients through K2b's shared and warp forms, and of
+    # CHEB_GLOBAL in float64, past the warp form's range, through its
+    # device-memory form
+    for (n, m, b), kernel, dtype in ((CHEB_SHARED, "K2b-s", torch.float32),
+                                     (CHEB_WARP, "K2b-w", torch.float32),
+                                     (CHEB_GLOBAL, "K2b-g", torch.float64)):
+        residual, ys, truth = chebyshev_scenario(b, n, m, device=dev, dtype=dtype)
         cfg = nlsolver_torch.NLLSFleetConfig(max_iter=30, solve="qr_pallas")
-        out, steps = fit_counted(torch, residual, torch.zeros(n, b, device=dev), cfg, ys, kernel,
-                                 f"Chebyshev fits [{n}, {b}], {m} points")
+        out, steps = fit_counted(torch, residual, torch.zeros(n, b, device=dev, dtype=dtype), cfg,
+                                 ys, kernel, f"Chebyshev fits [{n}, {b}], {m} points, "
+                                 f"{str(dtype)[6:]}")
         solved = float((out.f_value < 1e-6).float().mean())
         err = float((out.x - truth).abs().max())
-        log(f"[9] Chebyshev fits [{n}, {b}]: solved {solved:.6f}, max |c - truth| {err:.3e}")
+        log(f"[9] Chebyshev fits [{n}, {b}] {str(dtype)[6:]}: solved {solved:.6f}, "
+            f"max |c - truth| {err:.3e}")
         check(bool(torch.isfinite(out.x).all()) and solved >= 0.999 and err <= 1e-4,
               f"the Chebyshev fleet at n={n} did not recover its coefficients")
         launches[kernel] = steps
@@ -851,18 +918,24 @@ def phase_nlls_timing(torch, dev):
                 lambda: tqw.least_squares_wavefront_reference(A, y), 3,
                 lambda: torch.linalg.lstsq(Al, yl))
 
-    # K2b: each form at the NLLS fleet's system, then the shared and device-
-    # memory forms at the Chebyshev fleets' systems they serve, and the
-    # device-memory form beside the shared one on the latter's
-    sys_s, sys_g = (chebyshev_system(torch, dev, *shape) for shape in (CHEB_SHARED, CHEB_GLOBAL))
+    # K2b: each form at the NLLS fleet's system, then the shared and warp
+    # forms at the Chebyshev fleets' systems they serve, with the device-
+    # memory form beside each (its row keeps the 30-coefficient system's
+    # time), and the device-memory form at the float64 fleet's
+    sys_s, sys_w = (chebyshev_system(torch, dev, *shape) for shape in (CHEB_SHARED, CHEB_WARP))
+    sys_g = chebyshev_system(torch, dev, *CHEB_GLOBAL, torch.float64)
     # name: kernel and repeats, twin and repeats, library call
     times = {
         "K2b-r": lstsq_case("K2b-r", A, y, 50),
         "K2b-s n=2": lstsq_case("K2b-s", A, y, 50),
+        "K2b-w n=2": lstsq_case("K2b-w", A, y, 50),
         "K2b-g n=2": lstsq_case("K2b-g", A, y, 50),
         "K2b-s": lstsq_case("K2b-s", *sys_s, 20),
+        "K2b-w n=12": lstsq_case("K2b-w", *sys_s, 20),
         "K2b-g n=12": lstsq_case("K2b-g", *sys_s, 20),
-        "K2b-g": lstsq_case("K2b-g", *sys_g, 5),
+        "K2b-w": lstsq_case("K2b-w", *sys_w, 20),
+        "K2b-g": lstsq_case("K2b-g", *sys_w, 5),
+        "K2b-g f64 n=120": lstsq_case("K2b-g", *sys_g, 3),
         "K3 n=2": (lambda: tsc.solve_spd_batchminor(*spd[2]), 50,
                    lambda: tsc._chol_solve_batchminor(*spd[2]), 5,
                    lambda: torch.cholesky_solve(b2l, torch.linalg.cholesky_ex(A2l).L)),
@@ -1377,7 +1450,8 @@ def phase_cmaes_slice(torch, dev):
 
     # (c) wide fleets: n = 56 and n = 64 through K5a; beyond its range K5c
     # (clusters of 2 at n = 170, of 4 at n = 300); beyond K5c's, K5b (one
-    # generation with 2 sweeps: it takes some seconds a sweep there)
+    # generation with 2 sweeps: the twin it is held against takes a quarter
+    # of a second a sweep there)
     for n, b, gens, kid, sweeps in ((56, CMA_WIDE_B, 5, "K5a", 8), (64, CMA_WIDE_B, 5, "K5a", 8),
                                     (CMA_EDGE_N, CMA_EDGE_B, 2, "K5c", 8),
                                     (CMA_C4_N, CMA_EDGE_B, 2, "K5c", 8),
@@ -1409,7 +1483,7 @@ def phase_cmaes_timing(torch, dev):
     # per input and sweeps: the forms timed on it (name, kernel, repeats);
     # the twin and the library call run once on the same input.  Each form
     # at a shape it serves: K5c at the CMA-ES fleet's B past K5a, K5b where
-    # K5c ends, on a few lanes and sweeps (it takes some seconds a sweep there)
+    # K5c ends, on a few lanes and sweeps
     inputs = [
         (spd_fleet(CMA_B, CMA_N, device=dev), 8,
          [("K5r", te.eigh_jacobi_registers, 10), ("K5a n=16", te.eigh_jacobi_resident, 10)]),
@@ -1484,7 +1558,8 @@ def phases_earlier(torch, dev):
     alone.update(phase_bfgs_timing(torch, dev))
     # an issue floor above the time measured would be no floor: the model
     # (4 warp-instructions a clock an SM) held against the card
-    for kid, times in (("K1s", de_times["K1s"]), ("K2b-r", alone["K2b-r"])):
+    for kid, times in (("K1s", de_times["K1s"]), ("K2b-r", alone["K2b-r"]),
+                       ("K2b-w", alone["K2b-w"])):
         log(f"[10] {kid}: {times[0] * 1e3:.2f} us of device time against its issue floor "
             f"{FLOORS[kid] * 1e3:.2f} us")
         check(FLOORS[kid] <= times[0], f"{kid}'s issue floor lies above its time")
@@ -1511,9 +1586,14 @@ def phases_earlier(torch, dev):
         kernel_row("least_squares_wavefront_shared", csrc + "qr_wavefront.cu", k2b,
                    fleet_launches["K2b-s"], qr_err, alone["K2b-s"],
                    lstsq_bound(CHEB_SHARED[1] + CHEB_SHARED[0], *CHEB_SHARED[::2])),
+        kernel_row("least_squares_wavefront_warp", csrc + "qr_wavefront.cu", k2b,
+                   fleet_launches["K2b-w"], qr_err, alone["K2b-w"],
+                   lstsq_bound(CHEB_WARP[1] + CHEB_WARP[0], *CHEB_WARP[::2]), FLOORS["K2b-w"]),
+        # launched by the float64 fleet past the warp form's range; timed,
+        # as before, on the 30-coefficient system beside the warp form
         kernel_row("least_squares_wavefront_global", csrc + "qr_wavefront.cu", k2b,
                    fleet_launches["K2b-g"], qr_err, alone["K2b-g"],
-                   lstsq_bound(CHEB_GLOBAL[1] + CHEB_GLOBAL[0], *CHEB_GLOBAL[::2])),
+                   lstsq_bound(CHEB_WARP[1] + CHEB_WARP[0], *CHEB_WARP[::2])),
         # A and b in, x out; n^3 / 3 + 2 n^2 operations a lane at n = 2
         kernel_row("solve_spd_batchminor", csrc + "smallchol.cu", tpu + "smallchol.py:101",
                    fleet_launches["K3"], chol_err, alone["K3 n=2"],

@@ -9,6 +9,7 @@ is no CPU fallback.
 """
 from __future__ import annotations
 
+import functools
 import statistics
 import time
 
@@ -85,6 +86,27 @@ def sass_functions(library) -> dict:
     return out
 
 
+def branch_targets(ins) -> list:
+    """For each instruction of a kernel's SASS ``ins`` (``sass_functions``)
+    the index it branches to: None where it is no branch, or where the
+    target lies outside the kernel's body."""
+    import re
+
+    index = {addr: i for i, (addr, _) in enumerate(ins)}
+    out = []
+    for _, op in ins:
+        m = re.search(r"BRA(?:\.\w+)*\s+(?:!?U?P\d,\s*)?(?:`\(\.L_x_\d+\)\s*)?0x([0-9a-f]+)", op)
+        out.append(index.get(int(m.group(1), 16)) if m else None)
+    return out
+
+
+def backward_branches(ins) -> list:
+    """The loops of a kernel's SASS ``ins``: ``(target, branch)``, the
+    indices of each branch that jumps back (or to itself) and of where it
+    lands, in address order."""
+    return [(t, i) for i, t in enumerate(branch_targets(ins)) if t is not None and t <= i]
+
+
 def issue_instructions(ins) -> tuple[int, list]:
     """A floor on the instructions one thread issues in a kernel, from its
     SASS ``ins`` (``sass_functions``): the fewest instructions on a way
@@ -96,15 +118,10 @@ def issue_instructions(ins) -> tuple[int, list]:
     with each pass back through a loop cut out, is still a way, and each cut
     pass costs at least that loop's body: so a launch that takes loop i's
     backward branch t_i times issues at least ``way + sum(t_i * body_i)``."""
-    import re
     from collections import deque
 
     n = len(ins)
-    index = {addr: i for i, (addr, _) in enumerate(ins)}
-
-    def target(op):
-        m = re.search(r"BRA(?:\.\w+)*\s+(?:!?U?P\d,\s*)?(?:`\(\.L_x_\d+\)\s*)?0x([0-9a-f]+)", op)
-        return index.get(int(m.group(1), 16)) if m else None
+    targets = branch_targets(ins)
 
     def successors(i):
         op = ins[i][1]
@@ -113,7 +130,7 @@ def issue_instructions(ins) -> tuple[int, list]:
         if body.startswith("EXIT"):
             return [i + 1] if conditional else []
         if body.startswith("BRA"):
-            t = target(op)
+            t = targets[i]
             if t is None:
                 return [i + 1]
             return [t, i + 1] if conditional else [t]
@@ -133,8 +150,7 @@ def issue_instructions(ins) -> tuple[int, list]:
                     queue.append(j)
         return before
 
-    loops = [(target(op), i) for i, (_, op) in enumerate(ins)
-             if "BRA" in op and target(op) is not None and target(op) <= i]
+    loops = backward_branches(ins)
     entry = fewest(0)
     way = min(entry[i] + 1 for i, (_, op) in enumerate(ins) if op == "EXIT" and entry[i] is not None)
     bodies = []
@@ -332,13 +348,15 @@ def bench_nlls_fleet(B=262144, m=32, runs=3, solve="qr_pallas", steps=32):
     }
 
 
-def sweep_least_squares(ns=(2, 8, 9, 12, 16, 20, 24, 29), Bs=(4096, 16384, 65536), rows=32,
-                        reps=5):
+def sweep_least_squares(ns=(2, 8, 9, 12, 16, 20, 24, 29, 30, 40, 64, 100, 169),
+                        Bs=(4096, 16384, 65536), rows=32, reps=5, warp_from=9, global_up_to=64):
     """K2b's forms across their range in f32: for each n and B, the device
     time in ms of each form that takes n (``registers``, ``shared``,
-    ``global``; behind a device sleep, the least of two) and of
+    ``warp`` from n = ``warp_from`` on, ``global`` up to n =
+    ``global_up_to``; behind a device sleep, the least of two) and of
     ``torch.linalg.lstsq`` on the same systems, ``[rows + n, n, B]`` with
-    entries ~ N(0, 1), the shape of a Chebyshev fit's augmented system."""
+    entries ~ N(0, 1), the shape of a Chebyshev fit's augmented system.
+    Past n = 64 one timed call, and one pair of calls of lstsq."""
     from ..ops import qr_wavefront as tqw
 
     if not torch.cuda.is_available():
@@ -346,20 +364,47 @@ def sweep_least_squares(ns=(2, 8, 9, 12, 16, 20, 24, 29), Bs=(4096, 16384, 65536
     g = torch.Generator(device="cuda").manual_seed(0)
     forms = {"registers": (tqw.least_squares_wavefront_registers, tqw.registers_fit),
              "shared": (tqw.least_squares_wavefront_shared, tqw.shared_fits),
-             "global": (tqw.least_squares_wavefront_global, lambda n, dtype: True)}
+             "warp": (tqw.least_squares_wavefront_warp,
+                      lambda n, dtype: n >= warp_from and tqw.warp_fits(n, dtype)),
+             "global": (tqw.least_squares_wavefront_global, lambda n, dtype: n <= global_up_to)}
     out = []
     for n in ns:
         for B in Bs:
             A = torch.randn((rows + n, n, B), generator=g, device="cuda")
             y = torch.randn((rows + n, B), generator=g, device="cuda")
             Al, yl = A.permute(2, 0, 1).contiguous(), y.t().contiguous()[:, :, None]
+            r = reps if n <= 64 else 1
             row = {"n": n, "B": B, "m": rows + n}
             for name, (kernel, takes) in forms.items():
-                row[f"{name}_ms"] = (min(device_ms(lambda: kernel(A, y), reps) for _ in range(2))
+                row[f"{name}_ms"] = (min(device_ms(lambda: kernel(A, y), r) for _ in range(2))
                                      if takes(n, A.dtype) else None)
-            row["lstsq_ms"] = min(device_ms(lambda: torch.linalg.lstsq(Al, yl), reps, strict=False)
-                                  for _ in range(2))
+            row["lstsq_ms"] = min(device_ms(lambda: torch.linalg.lstsq(Al, yl), r, strict=False,
+                                            warmup=1 if n > 64 else 3) for _ in range(2))
             out.append(row)
+    return out
+
+
+def probe_least_squares_warp(n=30, m=78, B=4096, lanes=(1, 2, 4, 8), reps=20):
+    """K2b's warp form with each number of ``lanes`` (warps) a block whose
+    rings fit, on ``[m, n, B]`` ~ N(0, 1), f32: device time in ms behind a
+    device sleep, the least of two, each result bit-equal to the default's."""
+    from ..ops import qr_wavefront as tqw
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("probe_least_squares_warp measures a CUDA card; none is available")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    A = torch.randn((m, n, B), generator=g, device="cuda")
+    y = torch.randn((m, B), generator=g, device="cuda")
+    want = tqw.least_squares_wavefront_warp(A, y)
+    out = {"n": n, "m": m, "B": B, "default_lanes": tqw.warp_lanes(n, A.dtype)}
+    for w in lanes:
+        if w * tqw.warp_bytes(n, A.dtype) > tqw.MAX_DYNAMIC_SMEM:
+            continue
+        got = tqw.least_squares_wavefront_warp(A, y, lanes=w)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"probe_least_squares_warp: {w} lanes a block differ")
+        run = functools.partial(tqw.least_squares_wavefront_warp, A, y, lanes=w)
+        out[f"lanes_{w}_ms"] = min(device_ms(run, reps) for _ in range(2))
     return out
 
 
@@ -602,14 +647,17 @@ def _device_ms(fn, reps=3):
 def sweep_eigh_jacobi(ns=(8, 16, 24, 29, 30, 31, 32, 42, 43, 52, 53, 54, 55, 56, 57, 58, 59, 60,
                            61, 62, 63, 64, 84, 85, 120, 150, 169, 170, 200, 238, 239, 300, 336,
                            337, 472), B=4096, sweeps=8, global_up_to=64, cluster_from=120,
-                      global_ns=(473,), global_B=16, global_sweeps=2):
+                      global_ns=(473, 600, 800), global_Bs=(4, 16, 64), global_sweeps=2,
+                      beside_cluster=(472, 16)):
     """The size envelope of the eigensolver kernel: for each n the device
     time of the register form and of K5a (``None`` where n does not fit),
     of K5c from ``cluster_from`` on (with its cluster size C) and of K5b for
     n <= ``global_up_to`` on ``spd_fleet(B, n)``, f32, with K5a's tile of
-    lanes and the block; then K5b alone on ``global_ns`` past K5c's range,
-    on ``global_B`` lanes with ``global_sweeps`` sweeps (it takes seconds a
-    sweep there).  Past n = 169 one timed call follows the warm-up."""
+    lanes and the block.  Past n = 169 one timed call follows the warm-up.
+    Then K5b past K5c's range, on ``global_ns`` x ``global_Bs`` with
+    ``global_sweeps`` sweeps, beside ``torch.linalg.eigh`` on the same
+    matrices, and K5b beside K5c and eigh at ``beside_cluster`` (n, B)."""
+    from ..linalg.eigh_qr import eigh_library_batched
     from ..ops import eigh_jacobi as te
 
     if not torch.cuda.is_available():
@@ -631,15 +679,23 @@ def sweep_eigh_jacobi(ns=(8, 16, 24, 29, 30, 31, 32, 42, 43, 52, 53, 54, 55, 56,
             "global_ms": (_device_ms(lambda: te.eigh_jacobi_global(A, sweeps))
                           if n <= global_up_to else None),
         })
-    for n in global_ns:
-        A = spd_fleet(global_B, n)
-        rows.append({"n": n, "B": global_B, "sweeps": global_sweeps,
-                     "global_ms": _device_ms(lambda: te.eigh_jacobi_global(A, global_sweeps),
-                                             reps=1)})
+    cases = [(n, b, False) for n in global_ns for b in global_Bs]
+    if beside_cluster:
+        cases.append((*beside_cluster, True))
+    for n, b, cluster in cases:
+        A = spd_fleet(b, n)
+        Al = A.permute(2, 0, 1).contiguous()
+        rows.append({
+            "n": n, "B": b, "sweeps": global_sweeps,
+            "global_ms": _device_ms(lambda: te.eigh_jacobi_global(A, global_sweeps)),
+            "cluster_ms": (_device_ms(lambda: te.eigh_jacobi_cluster(A, global_sweeps), reps=1)
+                           if cluster else None),
+            "eigh_ms": _device_ms(lambda: eigh_library_batched(Al), reps=1),
+        })
     return rows
 
 
-def probe_eigh_jacobi_plans(n=16, B=65536, sweeps=8, global_tiles=(8, 16, 32)):
+def probe_eigh_jacobi_plans(n=16, B=65536, sweeps=8, global_threads=(256, 512, 1024)):
     """The launch plans that ``ops.eigh_jacobi`` chose between, timed on
     ``spd_fleet(B, n)``, f32: the register form where it takes n; K5a with
     its tile of lanes and its block split pairs-first (the plan in use),
@@ -647,8 +703,10 @@ def probe_eigh_jacobi_plans(n=16, B=65536, sweeps=8, global_tiles=(8, 16, 32)):
     the tile is under 32 lanes, with the leading dimension left at n; K5c
     where it takes n with its cluster of C CTAs and every larger one, and
     with its barriers alone (no arithmetic: what the cluster barriers
-    cost), beside the clusters the card holds at once; K5b with
-    ``global_tiles`` lanes a block (8 in use).  Device time in ms per plan."""
+    cost), beside the clusters the card holds at once; K5b with blocks of
+    each of ``global_threads`` (512 in use), as one cooperative launch (in
+    use) and as one launch a phase, beside the grid each had.  Device time
+    in ms per plan."""
     from ..ops import eigh_jacobi as te
 
     if not torch.cuda.is_available():
@@ -667,10 +725,10 @@ def probe_eigh_jacobi_plans(n=16, B=65536, sweeps=8, global_tiles=(8, 16, 32)):
             plans["half_the_lanes"] = te.block_shape(n, lanes // 2)
         for name, block in plans.items():
             out[f"resident_{name}_{block}"] = _device_ms(
-                lambda: te._launch("probe", A, None, None, block, True, sweeps))
+                lambda: te._launch("probe", A, block, sweeps))
         if te.leading_dim(n, lanes) != n:
             out["resident_unpadded"] = _device_ms(lambda: te._launch(
-                "probe", A, None, None, te.block_shape(n, lanes), True, sweeps, ldn=n))
+                "probe", A, te.block_shape(n, lanes), sweeps, ldn=n))
     C = te.cluster_plan(n, A.dtype)[0]
     for size in (c for c in te.CLUSTER_SIZES if C and c >= C):
         out[f"cluster_C{size}"] = _device_ms(lambda: te._launch_cluster("probe", A, sweeps, size))
@@ -678,9 +736,11 @@ def probe_eigh_jacobi_plans(n=16, B=65536, sweeps=8, global_tiles=(8, 16, 32)):
     if C:
         out[f"cluster_C{C}_barriers"] = _device_ms(
             lambda: te._launch_cluster("probe", A, sweeps, C, barriers=True))
-    work, coef = torch.empty_like(A), A.new_empty((2, n, B))
-    for tile in global_tiles:
-        block = te.block_shape(n, tile)
-        out[f"global_lanes_{tile}_{block}"] = _device_ms(
-            lambda: te._launch("probe", A, work, coef, block, False, sweeps))
+    sms = torch.cuda.get_device_properties(A.device).multi_processor_count
+    for threads in global_threads:
+        plan = te.global_plan(n, B, sms, te.global_occupancy(A.dtype, threads), threads)
+        for cooperative in (True, False):
+            way = "cooperative" if cooperative else "launch_a_phase"
+            out[f"global_{threads}_{way}_{plan.blocks}_blocks"] = _device_ms(
+                lambda: te._launch_global("probe", A, sweeps, threads, cooperative))
     return out

@@ -8,7 +8,8 @@
 //   K5c  cluster    A and V of one lane live in the shared memory of a
 //                   thread-block cluster of 2, 4 or 8 CTAs, split by rows;
 //                   n <= 472 in float32, n <= 329 in float64
-//   K5b  global     A's working copy and V live in device memory, any n
+//   K5b  global     A's working copy and V live in device memory, any n;
+//                   a round's phases spread over the whole card
 //
 // They replace nlsolver_tpu/ops/eigh_jacobi.py: eigh_jacobi_pallas (_kernel,
 // _round).  Per lane b of A [n, n, B] (batch-minor, element (i, j) of lane b
@@ -34,7 +35,7 @@
 // operations; without FMAs the floor set by the instruction rate is about twice
 // the operations bound.
 //
-// K5a and K5b.  The schedule is the table that the twin builds, int32
+// K5a.  The schedule is the table that the twin builds, int32
 // [rounds][ceil(n/2)][2], a (p, q) for each pair and (r, r) for the bye row
 // of an odd n, which keeps c = 1, s = 0.  K5a stages the [n, n] slabs of A
 // and V, and the [n] coefficients c and s, of TB lanes in shared memory for
@@ -53,10 +54,30 @@
 // pass, ld TB words apart: the slabs' leading dimension ld is then odd
 // (n | 1), so that those rows fall on different banks at every n.  And TB
 // halves from 32 down to one lane until the slabs fit the 232448 bytes a
-// block may opt in to, which is what ends the range at n = 169.  K5b runs the
-// same code on a working copy of A, on V's output itself and on a
-// coefficient scratch in device memory, lane stride B: any n, every round
-// through L2 or HBM.
+// block may opt in to, which is what ends the range at n = 169.
+//
+// K5b, past K5c's n = 472 (329 in f64), serves few lanes of a large n (16
+// at n = 473 in the CMA-ES fleet): a block per sector of lanes would leave
+// two blocks on 132 SMs.  So a round's three phases are spread over every
+// SM of the card, and a grid-wide barrier separates them: one cooperative
+// launch for all phases, its grid as many blocks as the card holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the SMs, fewer
+// where a phase has fewer items), or, for the benches' probe, one launch a
+// phase.  The working copy of A, V (built in
+// its output) and the coefficients c, s [2][n][B] stay in device memory;
+// at [473, 473, 16] A and V are 28.6 MB and stay in the 50 MB L2.  In each
+// phase a thread walks items f = g, g + G, .. (g its index in the grid, G
+// the grid's threads), lanes the fastest digit, so that a warp's accesses
+// are neighbouring words:
+//   1. (unit u, lane b): (c, s) from A[p][p], A[q][q], A[p][q];
+//   2. (u, column j, b): rows p and q at column j, both read, then both
+//      written;
+//   3. (u, row i, b): columns p and q at row i, of A and of V.
+// No two items of a phase touch one entry, so no entry is read after its
+// partner was rewritten within a phase.  What bounds it is L2 bandwidth
+// (a round moves A twice and V once, in and out: some 86 MB at [473, 473,
+// 16]) and the three grid barriers a round; the operations of 2 sweeps
+// there take 0.46 ms at the card's float32 rate.
 //
 // K5r.  At n = 16 a lane's A and V are 512 words: they fit the registers of
 // 8 threads, and only a design that moves fewer words through the crossbar
@@ -171,13 +192,12 @@ __device__ inline void rotate_pair(T* xp, T* yp, bool pair, T cp, T sp, T cq, T 
   if (pair) *yp = rn::add(rn::mul(cq, y), rn::mul(sq, x));
 }
 
-// K5a (kResident) and K5b: entry (i, j) of a lane's slab at
-// base[(i ldn + j) ld + lane]
-template <typename T, bool kResident>
+// K5a: entry (i, j) of a lane's slab at base[(i ldn + j) TB + lane]
+template <typename T>
 __global__ void __launch_bounds__(1024)
-    eigh_jacobi_kernel(const T* __restrict__ A, T* __restrict__ work, T* __restrict__ coef,
-                       T* __restrict__ wout, T* __restrict__ Vout, const int* __restrict__ units,
-                       int n, int ldn, int rounds, int sweeps, int64_t B) {
+    eigh_jacobi_kernel(const T* __restrict__ A, T* __restrict__ wout, T* __restrict__ Vout,
+                       const int* __restrict__ units, int n, int ldn, int rounds, int sweeps,
+                       int64_t B) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int TB = blockDim.x, RJ = blockDim.y, RU = blockDim.z;
   const int tb = threadIdx.x, rj = threadIdx.y, ru = threadIdx.z;
@@ -186,23 +206,11 @@ __global__ void __launch_bounds__(1024)
   const int64_t b = static_cast<int64_t>(blockIdx.x) * TB + tb;
   const bool live = b < B;
 
-  T *a, *v, *cv, *sv;
-  int64_t ld, lane;
-  if (kResident) {
-    a = reinterpret_cast<T*>(smem_raw);
-    v = a + static_cast<size_t>(n) * ldn * TB;
-    cv = v + static_cast<size_t>(n) * ldn * TB;
-    sv = cv + n * TB;
-    ld = TB;
-    lane = tb;
-  } else {
-    a = work;
-    v = Vout;
-    cv = coef;
-    sv = coef + static_cast<int64_t>(n) * B;
-    ld = B;
-    lane = b;
-  }
+  T* a = reinterpret_cast<T*>(smem_raw);
+  T* v = a + static_cast<size_t>(n) * ldn * TB;
+  T* cv = v + static_cast<size_t>(n) * ldn * TB;
+  T* sv = cv + n * TB;
+  const int64_t ld = TB, lane = tb;
 
   if (live) {
     for (int e = t; e < nn; e += NT) {
@@ -269,43 +277,165 @@ __global__ void __launch_bounds__(1024)
   if (!live) return;
   for (int i = t; i < n; i += NT)
     wout[static_cast<int64_t>(i) * B + b] = a[(static_cast<int64_t>(i) * ldn + i) * ld + lane];
-  if (kResident)
-    for (int e = t; e < nn; e += NT) {
-      const int i = e / n, j = e - i * n;
-      Vout[static_cast<int64_t>(e) * B + b] = v[(static_cast<int64_t>(i) * ldn + j) * ld + lane];
-    }
+  for (int e = t; e < nn; e += NT) {
+    const int i = e / n, j = e - i * n;
+    Vout[static_cast<int64_t>(e) * B + b] = v[(static_cast<int64_t>(i) * ldn + j) * ld + lane];
+  }
 }
 
 template <typename T>
-int launch(const void* A, void* work, void* coef, void* wout, void* Vout, const void* units, int n,
-           int ldn, int rounds, int sweeps, int64_t B, int tb, int rj, int ru, int resident,
-           void* stream) {
+int launch(const void* A, void* wout, void* Vout, const void* units, int n, int ldn, int rounds,
+           int sweeps, int64_t B, int tb, int rj, int ru, void* stream) {
   if (n < 1 || ldn < n || tb < 1 || rj < 1 || ru < 1 || tb * rj * ru > 1024 || ru > 64)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned blocks = static_cast<unsigned>((B + tb - 1) / tb);
   const dim3 block(tb, rj, ru);
-  const int* un = static_cast<const int*>(units);
-  if (resident) {
-    const size_t bytes =
-        (2 * static_cast<size_t>(n) * ldn + 2 * static_cast<size_t>(n)) * tb * sizeof(T);
-    if (bytes > static_cast<size_t>(kMaxDynamicSmem)) return static_cast<int>(cudaErrorInvalidValue);
-    if (bytes > static_cast<size_t>(kOptInAbove)) {
-      const cudaError_t err =
-          cudaFuncSetAttribute(eigh_jacobi_kernel<T, true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    eigh_jacobi_kernel<T, true><<<blocks, block, bytes, st>>>(
-        static_cast<const T*>(A), nullptr, nullptr, static_cast<T*>(wout), static_cast<T*>(Vout),
-        un, n, ldn, rounds, sweeps, B);
-  } else {
-    if (ldn != n) return static_cast<int>(cudaErrorInvalidValue);
-    eigh_jacobi_kernel<T, false><<<blocks, block, 0, st>>>(
-        static_cast<const T*>(A), static_cast<T*>(work), static_cast<T*>(coef),
-        static_cast<T*>(wout), static_cast<T*>(Vout), un, n, ldn, rounds, sweeps, B);
+  const size_t bytes =
+      (2 * static_cast<size_t>(n) * ldn + 2 * static_cast<size_t>(n)) * tb * sizeof(T);
+  if (bytes > static_cast<size_t>(kMaxDynamicSmem)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bytes > static_cast<size_t>(kOptInAbove)) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(eigh_jacobi_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  eigh_jacobi_kernel<T><<<blocks, block, bytes, st>>>(
+      static_cast<const T*>(A), static_cast<T*>(wout), static_cast<T*>(Vout),
+      static_cast<const int*>(units), n, ldn, rounds, sweeps, B);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K5b: the items of a phase, f = (u * mid + j) * B + b over u < outer, j <
+// mid, b < B, walked by a thread from its global index g in steps of the
+// grid's threads, the stride kept split into its three digits so that a
+// step costs two compares and no division
+struct Walk {
+  int64_t b;
+  int j, u;
+  int64_t db;
+  int dj, du;
+  __device__ Walk(int64_t g, int64_t stride, int mid, int64_t B) {
+    b = g % B;
+    const int64_t r = g / B;
+    j = static_cast<int>(r % mid);
+    u = static_cast<int>(r / mid);
+    db = stride % B;
+    const int64_t rs = stride / B;
+    dj = static_cast<int>(rs % mid);
+    du = static_cast<int>(rs / mid);
+  }
+  __device__ void next(int mid, int64_t B) {
+    b += db;
+    j += dj;
+    u += du;
+    if (b >= B) {
+      b -= B;
+      ++j;
+    }
+    if (j >= mid) {
+      j -= mid;
+      ++u;
+    }
+  }
+};
+
+// K5b's phases: 0 reads A (symmetrized) into the working copy and sets V =
+// I; 3 r + 1, 3 r + 2, 3 r + 3 are round r's coefficients, rows and
+// columns; 3 R + 1 (R rounds in all) writes w
+template <typename T>
+__device__ __forceinline__ void global_phase(int ph, const T* __restrict__ A, T* __restrict__ a,
+                                             T* __restrict__ cv, T* __restrict__ wout,
+                                             T* __restrict__ v, const int* __restrict__ units,
+                                             int n, int rounds, int total, int64_t B, int64_t g,
+                                             int64_t stride) {
+  const int nu = (n + 1) / 2;
+  T* sv = cv + static_cast<int64_t>(n) * B;
+  auto at = [&](int i, int j, int64_t b) { return (static_cast<int64_t>(i) * n + j) * B + b; };
+  if (ph == 0) {
+    for (Walk w(g, stride, n, B); w.u < n; w.next(n, B)) {
+      const int64_t e = at(w.u, w.j, w.b);
+      a[e] = rn::mul(rn::add(A[e], A[at(w.j, w.u, w.b)]), T(0.5));
+      v[e] = T(w.u == w.j);
+    }
+    return;
+  }
+  if (ph == total - 1) {
+    for (Walk w(g, stride, 1, B); w.u < n; w.next(1, B))
+      wout[static_cast<int64_t>(w.u) * B + w.b] = a[at(w.u, w.u, w.b)];
+    return;
+  }
+  const int kind = (ph - 1) % 3;
+  const int* un = units + static_cast<size_t>((ph - 1) / 3 % rounds) * nu * 2;
+  if (kind == 0) {
+    for (Walk w(g, stride, 1, B); w.u < nu; w.next(1, B)) {
+      const int p = __ldg(un + 2 * w.u), q = __ldg(un + 2 * w.u + 1);
+      T c = T(1), s = T(0);
+      if (p != q) rotation(a[at(p, p, w.b)], a[at(q, q, w.b)], a[at(p, q, w.b)], c, s);
+      cv[p * B + w.b] = c;
+      sv[p * B + w.b] = p != q ? -s : s;
+      if (p != q) {
+        cv[q * B + w.b] = c;
+        sv[q * B + w.b] = s;
+      }
+    }
+    return;
+  }
+  for (Walk w(g, stride, n, B); w.u < nu; w.next(n, B)) {
+    const int p = __ldg(un + 2 * w.u), q = __ldg(un + 2 * w.u + 1);
+    const T cp = cv[p * B + w.b], sp = sv[p * B + w.b];
+    const T cq = cv[q * B + w.b], sq = sv[q * B + w.b];
+    if (kind == 1) {  // rows p and q, column j
+      rotate_pair(a + at(p, w.j, w.b), a + at(q, w.j, w.b), p != q, cp, sp, cq, sq);
+    } else {  // columns p and q, row j, of A and V
+      rotate_pair(a + at(w.j, p, w.b), a + at(w.j, q, w.b), p != q, cp, sp, cq, sq);
+      rotate_pair(v + at(w.j, p, w.b), v + at(w.j, q, w.b), p != q, cp, sp, cq, sq);
+    }
+  }
+}
+
+// K5b over the whole card: phases [first, last) of ``total``; with
+// ``cooperative`` (a cooperative launch whose blocks are all resident) a
+// grid-wide barrier separates them, else the host launches one a phase
+template <typename T>
+__global__ void __launch_bounds__(1024)
+    eigh_jacobi_global_kernel(const T* __restrict__ A, T* __restrict__ work, T* __restrict__ coef,
+                              T* __restrict__ wout, T* __restrict__ Vout,
+                              const int* __restrict__ units, int n, int rounds, int total,
+                              int64_t B, int first, int last, int cooperative) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  for (int ph = first; ph < last; ++ph) {
+    global_phase(ph, A, work, coef, wout, Vout, units, n, rounds, total, B, g, stride);
+    if (cooperative && ph + 1 < last) cg::this_grid().sync();
+  }
+}
+
+template <typename T>
+int launch_global(const void* A, void* work, void* coef, void* wout, void* Vout,
+                  const void* units, int n, int rounds, int sweeps, int64_t B, int blocks,
+                  int threads, int cooperative, cudaStream_t st) {
+  if (n < 1 || blocks < 1 || threads < 32 || threads > 1024 || threads % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int total = 3 * rounds * sweeps + 2;  // non-const: its address goes to the launch
+  const T* a = static_cast<const T*>(A);
+  T *wk = static_cast<T*>(work), *cf = static_cast<T*>(coef), *w = static_cast<T*>(wout),
+    *v = static_cast<T*>(Vout);
+  const int* un = static_cast<const int*>(units);
+  if (cooperative) {
+    int first = 0, last = total, coop = 1;
+    void* args[] = {&a, &wk, &cf, &w, &v, &un, &n, &rounds, &total, &B, &first, &last, &coop};
+    return static_cast<int>(cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(eigh_jacobi_global_kernel<T>), dim3(blocks), dim3(threads),
+        args, 0, st));
+  }
+  for (int ph = 0; ph < total; ++ph) {
+    eigh_jacobi_global_kernel<T><<<blocks, threads, 0, st>>>(a, wk, cf, w, v, un, n, rounds,
+                                                             total, B, ph, ph + 1, 0);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaSuccess);
 }
 
 // entries of a row a thread of K5c's row pass reads before it writes any
@@ -666,10 +796,11 @@ int launch_registers(const void* A, void* wout, void* Vout, const void* masks, i
 
 }  // namespace
 
-// A, Vout [n, n, B]; wout [n, B]; units int32 [rounds, ceil(n/2), 2]; block
-// (tb lanes, rj, ru).  With resident != 0 the slabs live in shared memory
-// with leading dimension ldn and work and coef are unused; else ldn == n,
-// and work [n, n, B] and coef [2, n, B] are scratch in device memory.
+// A, Vout [n, n, B]; wout [n, B]; units int32 [rounds, ceil(n/2), 2].  K5a
+// takes a block (tb lanes, rj, ru) and its slabs' leading dimension ldn.
+// K5b takes the scratch work [n, n, B] and coef [2, n, B], ``blocks`` of
+// ``threads``, and runs as one cooperative launch or as one launch a phase;
+// its occupancy entry point writes the blocks of ``threads`` an SM holds.
 // The registers form takes masks uint32 [rounds].  The cluster form (K5c)
 // takes the units sorted by the rotating CTA, starts int32 [rounds][C + 1],
 // its plan (C, R, ld) and a block (1, rj, ru); its occupancy entry point
@@ -677,12 +808,22 @@ int launch_registers(const void* A, void* wout, void* Vout, const void* masks, i
 // (the benches' probe: w and V are garbage) runs its barriers alone.
 // All return cudaGetLastError().
 #define EIGH_JACOBI_ENTRY_POINT(T, SUFFIX, MAXW)                                                     \
-  extern "C" int eigh_jacobi_##SUFFIX(const void* A, void* work, void* coef, void* wout,        \
-                                      void* Vout, const void* units, int n, int ldn,            \
-                                      int rounds, int sweeps, int64_t B, int tb, int rj,        \
-                                      int ru, int resident, void* stream) {                     \
-    return launch<T>(A, work, coef, wout, Vout, units, n, ldn, rounds, sweeps, B, tb, rj, ru,   \
-                     resident, stream);                                                         \
+  extern "C" int eigh_jacobi_##SUFFIX(const void* A, void* wout, void* Vout, const void* units, \
+                                      int n, int ldn, int rounds, int sweeps, int64_t B, int tb, \
+                                      int rj, int ru, void* stream) {                           \
+    return launch<T>(A, wout, Vout, units, n, ldn, rounds, sweeps, B, tb, rj, ru, stream);      \
+  }                                                                                             \
+  extern "C" int eigh_jacobi_global_##SUFFIX(const void* A, void* work, void* coef, void* wout, \
+                                             void* Vout, const void* units, int n, int rounds,  \
+                                             int sweeps, int64_t B, int blocks, int threads,    \
+                                             int cooperative, void* stream) {                   \
+    return launch_global<T>(A, work, coef, wout, Vout, units, n, rounds, sweeps, B, blocks,     \
+                            threads, cooperative, static_cast<cudaStream_t>(stream));           \
+  }                                                                                             \
+  extern "C" int eigh_jacobi_global_occupancy_##SUFFIX(int threads, int* blocks) {              \
+    if (!blocks) return static_cast<int>(cudaErrorInvalidValue);                                \
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(                      \
+        blocks, eigh_jacobi_global_kernel<T>, threads, 0));                                     \
   }                                                                                             \
   extern "C" int eigh_jacobi_registers_##SUFFIX(const void* A, void* wout, void* Vout,          \
                                                 const void* masks, int n, int sweeps,           \

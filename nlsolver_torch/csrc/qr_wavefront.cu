@@ -22,7 +22,7 @@
 // only 2 n rows of n + 1 words (R's columns, then Q^T y) are live at a
 // stage, and A and y are read once, row by row, one stage ahead, and only x
 // is written: 109 MB at [34, 2, 262144] in f32, some 33 us at 3.35 TB/s.
-// Three forms, chosen by n and dtype in ops/qr_wavefront.py:
+// Four forms, chosen by n and dtype in ops/qr_wavefront.py:
 //   * least_squares_registers_kernel<T, N>: the window in the thread's
 //     registers.  Every index is a compile-time constant (a register array
 //     takes no runtime index), so the window shifts by one row a stage by
@@ -31,10 +31,14 @@
 //     rows in shared memory, laid out [row][word][lane] with lanes the
 //     fastest index, so a warp's accesses fall in distinct banks; the spare
 //     row takes the next stage's row by cp.async while this stage rotates.
+//   * least_squares_warp_kernel<T, Q>: one warp a lane, the window as a
+//     ring of 2 n + 1 rows in shared memory, one ring a warp (below);
+//     n <= 169 in f32, 119 in f64 (Q = ceil((n + 1) / 32) words a thread
+//     a row; a warp's ring and 2 n coefficients fit 232448 bytes).
 //   * qr_wavefront_kernel<T, false, true>: a working copy of [A | y] in
 //     device memory (the scratch R and qty the wrapper allocates), read and
 //     written some 330 times a lane at [34, 2]; every n, for n past the
-//     shared-memory form's.
+//     warp form's.
 // K2a (qr_wavefront_kernel, no kSolve) writes all of R and, with Q, Q^T
 // [m, m, B]; with few lanes (4096 at [16, 16]) it fills a fraction of the
 // card and is bound by each thread's chain of dependent rotations.
@@ -282,6 +286,161 @@ __global__ void least_squares_shared_kernel(const T* __restrict__ A,
   }
 }
 
+// K2b-w, one warp a lane.  Replaces least_squares_wavefront_pallas
+// (nlsolver_tpu/ops/qr_wavefront.py:168) for n past the shared form's.
+// What bounds it: the latency of each lane's chain of dependent stages (a
+// stage reads the pivots the one before wrote), and, with one thread a
+// lane, the few threads that chain leaves an SM: 4096 lanes are one warp
+// an SM, each lane some 1900 zeroings in a row at [78, 30].  A warp a lane
+// spreads a stage over 32 threads, so a lane's chain is its stages, not
+// its zeroings:
+//   * thread t owns columns t, t + 32, .. (Q of them) of the window, and
+//     column n, Q^T y; the window is the sliding one of the shared form, a
+//     ring of 2 n + 1 rows of n + 1 words, one ring a warp, the column
+//     index fastest, so a warp's accesses fall in distinct banks;
+//   * the row pairs of a stage are disjoint, so each thread that owns an
+//     active pivot column j forms givens(win[2 j][j], win[2 j + 1][j])
+//     from the pivots before the stage, all at once, into the warp's row
+//     of 2 n coefficients in shared memory, and after a warp barrier every
+//     thread turns its own columns col >= j by the stage's rotations in
+//     ascending j, each (c, s) read by all threads at one address (faster
+//     on an H100 than passing (c, s) by shuffle from the thread that owns
+//     column j).  A thread writes only its own columns, so no other
+//     barrier orders the stage within the warp;
+//   * entry (i, c) of lane b lies at (i n + c) B + b, so a warp that read
+//     its own lane's row alone would touch n + 1 sectors for as many
+//     words.  A block holds W consecutive lanes, one warp each, and its
+//     threads fetch the next row of all W lanes together, a stage ahead,
+//     by cp.async into the warps' rings: W lanes of a column are W
+//     neighbouring words.  One block barrier a stage makes the row
+//     visible and keeps a fetch off a ring row still in use;
+//   * the back-substitution runs in the twin's order in the warp's first
+//     thread, and the block writes x of its W lanes together.
+// What bounds it then is the rotation loop's issue: some 30 instructions a
+// thread a rotation (ring indices, the guard), of which the turn is 10.
+// Every value goes through the twin's operations in its order, so the
+// result is bit-equal to the twin's.
+template <typename T, int Q>
+__global__ void least_squares_warp_kernel(const T* __restrict__ A, const T* __restrict__ y,
+                                          T* __restrict__ x, int m, int n, int64_t B) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int W = blockDim.x >> 5, shift = __ffs(W) - 1;  // lanes a block, a power of two
+  const int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
+  const int cols = n + 1, slots = 2 * n + 1;
+  const int ring_words = slots * cols;
+  T* rings = reinterpret_cast<T*>(smem);
+  T* ring = rings + warp * ring_words;
+  // (c, s) of the stage's pivot columns, one pair a column, after the rings
+  T* coef = rings + W * ring_words + warp * 2 * n;
+  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * W;
+  const bool live = b0 + warp < B;
+
+  // row r of [A | y] of the block's lanes into their rings, ring row r % slots
+  auto fetch = [&](int r) {
+    T* row = rings + (r % slots) * cols;
+    for (int e = threadIdx.x; e < (cols << shift); e += blockDim.x) {
+      const int c = e >> shift, w = e & (W - 1);
+      const int64_t b = b0 + w;
+      if (b < B) {
+        const T* src = c < n ? A + (static_cast<int64_t>(r) * n + c) * B + b
+                             : y + static_cast<int64_t>(r) * B + b;
+        __pipeline_memcpy_async(row + w * ring_words + c, src, sizeof(T));
+      }
+    }
+    __pipeline_commit();
+  };
+
+  fetch(m - 1);
+  if (m >= 2) fetch(m - 2);
+  __pipeline_wait_prior(0);
+  __syncthreads();
+#pragma unroll 1
+  for (int k = 0; k <= m + n - 3; ++k) {
+    // the next stage's row, into the ring row of the row that left the
+    // window after the last stage
+    if (k <= m - 3) fetch(m - 3 - k);
+    if (live) {
+      const int j_lo = max(0, k - m + 2), j_hi = min(n - 1, k / 2);
+      // ring row of window row 0, system row m - 2 - k (> -slots)
+      int s0 = (m - 2 - k) % slots;
+      if (s0 < 0) s0 += slots;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const int j = t + 32 * q;
+        if (j >= j_lo && j <= j_hi) {
+          int rp = s0 + 2 * j;
+          if (rp >= slots) rp -= slots;
+          const int rq = rp + 1 == slots ? 0 : rp + 1;
+          givens(ring[rp * cols + j], ring[rq * cols + j], coef[2 * j], coef[2 * j + 1]);
+        }
+      }
+      __syncwarp();
+      int rp = s0 + 2 * j_lo;
+      if (rp >= slots) rp -= slots;
+#pragma unroll 1
+      for (int j = j_lo; j <= j_hi; ++j) {
+        const int rq = rp + 1 == slots ? 0 : rp + 1;
+        const T c = coef[2 * j], s = coef[2 * j + 1];
+        T* xp = ring + rp * cols;
+        T* xq = ring + rq * cols;
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          const int col = t + 32 * q;
+          if (col >= j && col <= n) {
+            const T vp = xp[col], vq = xq[col];
+            xp[col] = rn::add(rn::mul(c, vp), rn::mul(s, vq));
+            xq[col] = rn::add(rn::mul(c, vq), rn::mul(-s, vp));
+          }
+        }
+        rp = rq + 1 == slots ? 0 : rq + 1;
+      }
+    }
+    __pipeline_wait_prior(0);
+    __syncthreads();
+  }
+  // rows 0 .. n - 1 sit in ring rows 0 .. n - 1; x[i] replaces (Q^T y)[i]
+  // once found, in the twin's order
+  if (live && t == 0) {
+#pragma unroll 1
+    for (int i = n - 1; i >= 0; --i) {
+      const T* row = ring + i * cols;
+      T acc = row[n];
+      for (int j = i + 1; j < n; ++j) acc = rn::sub(acc, rn::mul(row[j], ring[j * cols + n]));
+      ring[i * cols + n] = rn::div(acc, row[i]);
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < (n << shift); e += blockDim.x) {
+    const int i = e >> shift, w = e & (W - 1);
+    if (b0 + w < B) x[static_cast<int64_t>(i) * B + b0 + w] = rings[w * ring_words + i * cols + n];
+  }
+}
+
+// K2b-w's words a thread a row, Q, by word size: (2 n + 1)(n + 1) + 2 n
+// words of one warp's ring and coefficients fit 232448 bytes up to n = 169
+// in f32 and 119 in f64
+constexpr int kWarpMaxQ32 = 6, kWarpMaxQ64 = 4;
+constexpr int kMaxDynamicSmem = 232448;
+
+template <typename T, int Q>
+int launch_warp(const T* A, const T* y, T* x, int m, int n, int64_t B, int lanes,
+                cudaStream_t s) {
+  if constexpr (Q > 1) {
+    if (n + 1 <= 32 * (Q - 1)) return launch_warp<T, Q - 1>(A, y, x, m, n, B, lanes, s);
+  }
+  const int64_t smem = static_cast<int64_t>(lanes) * ((2 * n + 1) * (n + 1) + 2 * n) * sizeof(T);
+  if (n < 1 || m < n || n + 1 > 32 * Q || lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) ||
+      smem > kMaxDynamicSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      least_squares_warp_kernel<T, Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned blocks = static_cast<unsigned>((B + lanes - 1) / lanes);
+  least_squares_warp_kernel<T, Q><<<blocks, 32 * lanes, smem, s>>>(A, y, x, m, n, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int N>
 int launch_registers(const T* A, const T* y, T* x, int m, int n, int64_t B,
                      cudaStream_t s) {
@@ -335,10 +494,19 @@ int launch(const void* A, const void* y, void* R, void* Qt, void* qty,
 NLSOLVER_QR_LAUNCHER(f32, float)
 NLSOLVER_QR_LAUNCHER(f64, double)
 
-// K2b's register form, n = 1 .. kRegisterMaxN, and its shared-memory form
-// with ``lanes`` threads a block and ``smem`` bytes of dynamic shared memory:
-// A [m, n, B], y [m, B] -> x [n, B].  Return cudaGetLastError().
-#define NLSOLVER_LSQ_LAUNCHERS(SUFFIX, T, MAXN)                                \
+// K2b's register form, n = 1 .. kRegisterMaxN, its shared-memory form
+// with ``lanes`` threads a block and ``smem`` bytes of dynamic shared memory,
+// and its warp form with ``lanes`` warps a block (a power of two, 1 .. 32,
+// whose rings fit 232448 bytes): A [m, n, B], y [m, B] -> x [n, B].
+// Return cudaGetLastError().
+#define NLSOLVER_LSQ_LAUNCHERS(SUFFIX, T, MAXN, MAXQ)                          \
+  extern "C" int least_squares_warp_##SUFFIX(                                  \
+      const void* A, const void* y, void* x, int m, int n, int64_t B,          \
+      int lanes, void* stream) {                                               \
+    return launch_warp<T, MAXQ>(                                               \
+        static_cast<const T*>(A), static_cast<const T*>(y),                    \
+        static_cast<T*>(x), m, n, B, lanes, static_cast<cudaStream_t>(stream)); \
+  }                                                                            \
   extern "C" int least_squares_registers_##SUFFIX(                             \
       const void* A, const void* y, void* x, int m, int n, int64_t B,          \
       void* stream) {                                                          \
@@ -361,5 +529,5 @@ NLSOLVER_QR_LAUNCHER(f64, double)
     return static_cast<int>(cudaGetLastError());                               \
   }
 
-NLSOLVER_LSQ_LAUNCHERS(f32, float, kRegisterMaxN32)
-NLSOLVER_LSQ_LAUNCHERS(f64, double, kRegisterMaxN64)
+NLSOLVER_LSQ_LAUNCHERS(f32, float, kRegisterMaxN32, kWarpMaxQ32)
+NLSOLVER_LSQ_LAUNCHERS(f64, double, kRegisterMaxN64, kWarpMaxQ64)

@@ -22,10 +22,11 @@ fleet, which needs thousands of small eigendecompositions per generation.
   A and V split by rows over the shared memory of a thread-block cluster
   of 2, 4 or 8 CTAs; n <= 472 in float32, n <= 329 in float64
   (``cluster_fits``), taken where K5a refuses n.  K5b,
-  ``eigh_jacobi_global``: K5a's code on a working copy in device memory,
-  any n.  No form has pad lanes, a rule on B or a fallback to the twin or
-  to another form: a shape that none takes raises, and so does a failed
-  build or launch.
+  ``eigh_jacobi_global``: a working copy of A in device memory, any n, each
+  round's three phases spread over every SM of the card with a grid-wide
+  barrier between them (``global_plan``).  No form has pad lanes, a rule
+  on B or a fallback to the twin or to another form: a shape that none
+  takes raises, and so does a failed build or launch.
 
 All forms compute through round-to-nearest intrinsics in the twin's order
 of operations, and a Jacobi round has no sum longer than two terms, so on
@@ -36,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -45,11 +47,15 @@ from ..linalg.jacobi import eigh_jacobi, schedule_tables, sort_spectrum
 from . import _build
 from ._build import MAX_DYNAMIC_SMEM
 
-# a block's thread limit, a warp's threads (and shared-memory banks), and
-# the bytes of one device-memory sector (K5b's tile of lanes)
+# a block's thread limit and a warp's threads (and shared-memory banks)
 MAX_THREADS = 1024
 WARP = 32
-SECTOR_BYTES = 32
+# K5b: threads a block, and its barriers: one cooperative launch with a
+# grid-wide barrier between phases (True), or one launch a phase.  On an
+# H100 at [473, 473, 16] with 2 sweeps the cooperative launch was the
+# faster at 256, 512 and 1024 threads a block, and 512 the fastest of them
+GLOBAL_THREADS = 512
+GLOBAL_COOPERATIVE = True
 # the register form: the most players (n, or n + 1 for odd n) it is built for
 REGISTER_MAX_PLAYERS = {torch.float32: 32, torch.float64: 16}
 # K5c: the CTAs a cluster may have (8 is the portable most).  The dispatcher
@@ -172,6 +178,42 @@ def cluster_schedule(n: int, C: int) -> tuple[np.ndarray, np.ndarray]:
     return units, starts
 
 
+class GlobalPlan(NamedTuple):
+    """K5b's launch: ``blocks`` of ``threads``; a phase's items are walked
+    by thread g = block * threads + t as g, g + blocks * threads, .."""
+    blocks: int
+    threads: int
+
+
+def global_items(n: int, B: int) -> dict:
+    """Items of each kind of K5b's phases, ``(outer, mid)``: item f = (u *
+    mid + j) * B + b for u < outer, j < mid, b < B.  "init": entry (i, j)
+    of every lane; "coef": (unit, lane); "rows": (unit, column, lane);
+    "cols": (unit, row, lane); "w": (i, lane)."""
+    nu = (n + 1) // 2
+    return {"init": (n, n), "coef": (nu, 1), "rows": (nu, n), "cols": (nu, n), "w": (n, 1)}
+
+
+def global_plan(n: int, B: int, sms: int, per_sm: int, threads: int = GLOBAL_THREADS
+                ) -> GlobalPlan:
+    """K5b's grid for n and B on a card of ``sms`` SMs that holds
+    ``per_sm`` blocks of ``threads`` each at once: every block resident (a
+    cooperative launch needs it), no more blocks than the largest phase has
+    items for."""
+    most = max(outer * mid * B for outer, mid in global_items(n, B).values())
+    return GlobalPlan(max(1, min(sms * per_sm, -(-most // threads))), threads)
+
+
+def global_walk(plan: GlobalPlan, n: int, B: int, kind: str) -> np.ndarray:
+    """The items of a phase of ``kind`` as K5b's threads walk them: int64
+    ``[steps, G]`` (G = blocks * threads), entry [s, g] the item f that
+    thread g takes at its step s, -1 where it has none left."""
+    outer, mid = global_items(n, B)[kind]
+    total, G = outer * mid * B, plan.blocks * plan.threads
+    f = np.arange(max(1, -(-total // G)))[:, None] * G + np.arange(G)[None, :]
+    return np.where(f < total, f, -1)
+
+
 def register_seating(n: int) -> np.ndarray:
     """Who sits where in the register form: int ``[rounds, m / 2, 2]``, the
     players on top and at the bottom of every slot in every round, for m =
@@ -215,12 +257,18 @@ def registers_fit(n: int, dtype: torch.dtype) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher(suffix: str, registers: bool = False, cluster: str = ""):
-    """The C entry point: K5a / K5b, the register form, or K5c's
-    ``cluster`` entry: "launch", "barriers" (the benches' probe) or
-    "occupancy"."""
+def _launcher(suffix: str, registers: bool = False, cluster: str = "", glob: str = ""):
+    """The C entry point: K5a, the register form, K5c's ``cluster`` entry
+    ("launch", "barriers": the benches' probe, or "occupancy"), or K5b's
+    ``glob`` entry ("launch" or "occupancy")."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    if cluster in ("launch", "barriers"):
+    if glob == "launch":
+        fn = getattr(_build.load_library(), f"eigh_jacobi_global_{suffix}")
+        fn.argtypes = [vp] * 6 + [ci, ci, ci, ctypes.c_int64, ci, ci, ci, vp]
+    elif glob == "occupancy":
+        fn = getattr(_build.load_library(), f"eigh_jacobi_global_occupancy_{suffix}")
+        fn.argtypes = [ci, ctypes.POINTER(ci)]
+    elif cluster in ("launch", "barriers"):
         entry = "" if cluster == "launch" else "_barriers"
         fn = getattr(_build.load_library(), f"eigh_jacobi_cluster{entry}_{suffix}")
         fn.argtypes = [vp] * 5 + [ci] * 6 + [ctypes.c_int64, ci, ci, vp]
@@ -232,7 +280,7 @@ def _launcher(suffix: str, registers: bool = False, cluster: str = ""):
         fn.argtypes = [vp] * 4 + [ci, ci, ctypes.c_int64, vp]
     else:
         fn = getattr(_build.load_library(), f"eigh_jacobi_{suffix}")
-        fn.argtypes = [vp] * 6 + [ci, ci, ci, ci, ctypes.c_int64, ci, ci, ci, ci, vp]
+        fn.argtypes = [vp] * 4 + [ci, ci, ci, ci, ctypes.c_int64, ci, ci, ci, vp]
     fn.restype = ci
     return fn
 
@@ -260,21 +308,21 @@ def _check(name: str, A: torch.Tensor, sweeps: int) -> tuple[int, int]:
     return A.shape[0], A.shape[2]
 
 
-def _launch(name, A, work, coef, block, resident: bool, sweeps: int, ldn=None):
-    """K5a (``resident``) or K5b on ``A`` with the block ``(lanes, RJ, RU)``;
-    ``ldn`` overrides K5a's leading dimension (the benches' probe)."""
+def _launch(name, A, block, sweeps: int, ldn=None):
+    """K5a on ``A`` with the block ``(lanes, RJ, RU)``; ``ldn`` overrides its
+    leading dimension (the benches' probe)."""
     n, B = A.shape[0], A.shape[2]
     w, V = A.new_empty((n, B)), torch.empty_like(A)
     if B == 0:
         return w, V
     units = _units(n, A.device)
     if ldn is None:
-        ldn = leading_dim(n, block[0]) if resident else n
+        ldn = leading_dim(n, block[0])
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         err = _launcher(_build.DTYPE_SUFFIX[A.dtype])(
-            *(None if t is None else t.data_ptr() for t in (A, work, coef, w, V, units)),
-            n, ldn, units.shape[0], sweeps, B, *block, int(resident), stream,
+            A.data_ptr(), w.data_ptr(), V.data_ptr(), units.data_ptr(),
+            n, ldn, units.shape[0], sweeps, B, *block, stream,
         )
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
@@ -318,7 +366,7 @@ def eigh_jacobi_resident(A: torch.Tensor, sweeps: int = 10):
     if lanes == 0:
         raise ValueError(f"{name}: n={n} in {A.dtype} does not fit the shared memory of a block; "
                          "eigh_jacobi_cluster takes it")
-    out = _launch(name, A, None, None, block_shape(n, lanes), True, sweeps)
+    out = _launch(name, A, block_shape(n, lanes), sweeps)
     eigh_jacobi_resident.launches += 1
     return out
 
@@ -391,18 +439,61 @@ def eigh_jacobi_cluster(A: torch.Tensor, sweeps: int = 10):
 eigh_jacobi_cluster.launches = 0
 
 
+# blocks of a K5b block's threads that an SM of the current card holds at
+# once, by (dtype, threads), as cudaOccupancyMaxActiveBlocksPerMultiprocessor
+# reported before the first such launch
+GLOBAL_OCCUPANCY: dict = {}
+
+
+def global_occupancy(dtype: torch.dtype, threads: int) -> int:
+    """K5b's blocks of ``threads`` that an SM holds at once, asked once and
+    kept in ``GLOBAL_OCCUPANCY``; raises where it is 0 or the query fails."""
+    key = (str(dtype)[6:], threads)
+    if key not in GLOBAL_OCCUPANCY:
+        found = ctypes.c_int(0)
+        err = _launcher(_build.DTYPE_SUFFIX[dtype], glob="occupancy")(threads, ctypes.byref(found))
+        if err != 0 or found.value < 1:
+            raise RuntimeError(f"eigh_jacobi_global: an SM holds no block of {threads} threads "
+                               f"(cudaError {err}, {found.value} blocks)")
+        GLOBAL_OCCUPANCY[key] = found.value
+    return GLOBAL_OCCUPANCY[key]
+
+
+def _launch_global(name, A, sweeps: int, threads: int = GLOBAL_THREADS,
+                   cooperative: bool = GLOBAL_COOPERATIVE):
+    """K5b on ``A`` with ``global_plan``'s grid of blocks of ``threads``, as
+    one cooperative launch or as one launch a phase (the benches' probe
+    times both)."""
+    n, B = A.shape[0], A.shape[2]
+    w, V = A.new_empty((n, B)), torch.empty_like(A)
+    if B == 0:
+        return w, V
+    sms = torch.cuda.get_device_properties(A.device).multi_processor_count
+    with torch.cuda.device(A.device):
+        plan = global_plan(n, B, sms, global_occupancy(A.dtype, threads), threads)
+        work, coef = torch.empty_like(A), A.new_empty((2, n, B))
+        units = _units(n, A.device)
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        err = _launcher(_build.DTYPE_SUFFIX[A.dtype], glob="launch")(
+            A.data_ptr(), work.data_ptr(), coef.data_ptr(), w.data_ptr(), V.data_ptr(),
+            units.data_ptr(), n, units.shape[0], sweeps, B, plan.blocks, plan.threads,
+            int(cooperative), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+    return w, V
+
+
 def eigh_jacobi_global(A: torch.Tensor, sweeps: int = 10):
     """Kernel K5b on a CUDA tensor ``A [n, n, B]``, any n: the working copy
     of A ``[n, n, B]`` and the coefficients ``[2, n, B]`` are scratch in
-    device memory and V is built in its output.  A block takes one sector
-    of lanes: its working copy stays small, so more rounds hit L2 (on an
-    H100 [56, 56, 4096] took 48 ms so and 66 ms with 32 lanes a block)."""
+    device memory and V is built in its output; each round's phases are
+    spread over every SM of the card (``global_plan``), a grid-wide barrier
+    between them, all in one cooperative launch."""
     name = "eigh_jacobi_global"
-    n, B = _check(name, A, sweeps)
+    _check(name, A, sweeps)
     _build.check_cuda_inputs(name, {"A": A})
-    lanes = SECTOR_BYTES // _itemsize(A.dtype)
-    work, coef = torch.empty_like(A), A.new_empty((2, n, B))
-    out = _launch(name, A, work, coef, block_shape(n, lanes), False, sweeps)
+    out = _launch_global(name, A, sweeps)
     eigh_jacobi_global.launches += 1
     return out
 

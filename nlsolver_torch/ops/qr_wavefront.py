@@ -10,15 +10,19 @@ JAX kernels' fallback to the jnp wavefront when VMEM is short, and their
 padding lanes, have no counterpart: K2a and K2b take every m >= n and B.
 
 K2b keeps only the 2 n rows of the system that a stage of the wavefront
-touches, a window that slides down one row a stage, and comes in three
+touches, a window that slides down one row a stage, and comes in four
 forms, chosen by n and dtype alone (``least_squares_wavefront_kernel``):
 ``least_squares_wavefront_registers`` holds the window in a thread's
 registers (n <= 8 in float32, 5 in float64: ``registers_fit``);
 ``least_squares_wavefront_shared`` holds it in shared memory, 32 lanes a
 block (n <= 29 in float32, 20 in float64: ``shared_fits``);
+``least_squares_wavefront_warp`` gives a lane a warp, the window's columns
+over its threads, in shared memory (n <= 169 in float32, 119 in float64:
+``warp_fits``; the dispatcher's from n = 30 and 21);
 ``least_squares_wavefront_global`` works on a copy of the system in device
-memory, any n.  The first two read A and y once and write only x.  All
-three are bit-equal to the twin; a failed build or launch raises.
+memory, any n.  The first three read A and y once and write only x.  All
+four are bit-equal to the twin; a failed build or launch, or an n that a
+form does not take, raises.
 """
 from __future__ import annotations
 
@@ -36,6 +40,10 @@ from ._build import MAX_DYNAMIC_SMEM
 REGISTER_MAX_N = {torch.float32: 8, torch.float64: 5}
 # K2b's shared-memory form: lanes (threads) a block
 SHARED_LANES = 32
+# K2b's warp form: the most lanes (warps) a block; fewer where their rings
+# do not fit a block's shared memory (``warp_lanes``).  On an H100 at [78,
+# 30, 4096] 1, 2, 4 and 8 took 0.511, 0.503, 0.502 and 0.498 ms
+WARP_LANES = 8
 
 
 def qr_wavefront_reference(A: torch.Tensor, compute_q: bool = False):
@@ -65,15 +73,47 @@ def shared_fits(n: int, dtype: torch.dtype) -> bool:
     return dtype in _build.DTYPE_SUFFIX and n >= 1 and shared_bytes(n, dtype) <= MAX_DYNAMIC_SMEM
 
 
+def warp_bytes(n: int, dtype: torch.dtype) -> int:
+    """Shared memory of one warp (one lane) of K2b's warp form: a ring of
+    2 n + 1 rows of n + 1 words, and (c, s) of a stage's n pivots."""
+    return ((2 * n + 1) * (n + 1) + 2 * n) * torch.empty((), dtype=dtype).element_size()
+
+
+def warp_fits(n: int, dtype: torch.dtype) -> bool:
+    """Whether K2b's warp form takes n in ``dtype``: one warp's ring fits
+    a block's shared memory, n <= 169 in float32 and 119 in float64."""
+    return dtype in _build.DTYPE_SUFFIX and n >= 1 and warp_bytes(n, dtype) <= MAX_DYNAMIC_SMEM
+
+
+def warp_lanes(n: int, dtype: torch.dtype, most: int = WARP_LANES) -> int:
+    """Lanes (warps) a block of K2b's warp form: ``most`` (a power of
+    two), halved until their rings fit a block's shared memory."""
+    lanes = most
+    while lanes > 1 and lanes * warp_bytes(n, dtype) > MAX_DYNAMIC_SMEM:
+        lanes //= 2
+    return lanes
+
+
+def least_squares_form(n: int, dtype: torch.dtype) -> str:
+    """The form of K2b that the dispatcher gives n in ``dtype``: the first
+    of "registers", "shared" and "warp" that takes it, else "global"."""
+    for form, fits in (("registers", registers_fit), ("shared", shared_fits), ("warp", warp_fits)):
+        if fits(n, dtype):
+            return form
+    return "global"
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher(entry: str, suffix: str):
     """The C entry point: ``qr_wavefront`` (K2a and K2b's global form),
-    ``least_squares_registers`` or ``least_squares_shared``."""
+    ``least_squares_registers``, ``least_squares_shared`` or
+    ``least_squares_warp``."""
     fn = getattr(_build.load_library(), f"{entry}_{suffix}")
     vp, ci, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     fn.argtypes = {"qr_wavefront": [vp] * 6 + [ci, ci, i64, ci, ci, vp],
                    "least_squares_registers": [vp] * 3 + [ci, ci, i64, vp],
-                   "least_squares_shared": [vp] * 3 + [ci, ci, i64, ci, ci, vp]}[entry]
+                   "least_squares_shared": [vp] * 3 + [ci, ci, i64, ci, ci, vp],
+                   "least_squares_warp": [vp] * 3 + [ci, ci, i64, ci, vp]}[entry]
     fn.restype = ci
     return fn
 
@@ -122,7 +162,8 @@ def _check_lstsq(name: str, A: torch.Tensor, y: torch.Tensor) -> tuple[int, int,
 
 
 def _launch_window(name: str, entry: str, A, y, *extra) -> torch.Tensor:
-    """K2b's register or shared-memory form on ``A``, ``y``: ``x [n, B]``."""
+    """K2b's register, shared-memory or warp form on ``A``, ``y``: ``x
+    [n, B]``."""
     m, n, B = A.shape
     x = A.new_empty((n, B))
     with torch.cuda.device(A.device):
@@ -166,7 +207,7 @@ def least_squares_wavefront_shared(A: torch.Tensor, y: torch.Tensor) -> torch.Te
     _build.check_cuda_inputs(name, {"A": A, "y": y})
     if not shared_fits(n, A.dtype):
         raise ValueError(f"{name}: n={n} in {A.dtype} does not fit a block's shared memory; "
-                         "least_squares_wavefront_global takes it")
+                         "least_squares_wavefront_warp takes it")
     if B == 0:
         return A.new_empty((n, 0))
     x = _launch_window(name, "least_squares_shared", A, y, SHARED_LANES, shared_bytes(n, A.dtype))
@@ -174,10 +215,33 @@ def least_squares_wavefront_shared(A: torch.Tensor, y: torch.Tensor) -> torch.Te
     return x
 
 
+def least_squares_wavefront_warp(A: torch.Tensor, y: torch.Tensor, lanes: int | None = None
+                                 ) -> torch.Tensor:
+    """K2b's warp form: a warp a lane, thread t holding columns t, t + 32,
+    .. of the window's ring of 2 n + 1 rows in shared memory, each stage's
+    rotations formed at once and read from shared memory; a block's ``lanes``
+    warps (``warp_lanes`` by default) fetch their lanes' rows together; only
+    ``x [n, B]`` is written.  CPU tensors run the twin; on a card it raises
+    where one warp's ring does not fit a block (``warp_fits``)."""
+    name = "least_squares_wavefront_warp"
+    m, n, B = _check_lstsq(name, A, y)
+    if A.device.type == "cpu" and y.device.type == "cpu":
+        return least_squares_wavefront_reference(A, y)
+    _build.check_cuda_inputs(name, {"A": A, "y": y})
+    if not warp_fits(n, A.dtype):
+        raise ValueError(f"{name}: n={n} in {A.dtype} does not fit a block's shared memory; "
+                         "least_squares_wavefront_global takes it")
+    if B == 0:
+        return A.new_empty((n, 0))
+    x = _launch_window(name, "least_squares_warp", A, y, lanes or warp_lanes(n, A.dtype))
+    least_squares_wavefront_warp.launches += 1
+    return x
+
+
 def least_squares_wavefront_global(A: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """K2b's device-memory form, any n: the rotations run on a working copy
-    of A and y (scratch ``R``, ``qty``) in device memory.  CPU tensors run
-    the twin."""
+    """K2b's device-memory form, any n (the dispatcher's past the warp
+    form's): the rotations run on a working copy of A and y (scratch ``R``,
+    ``qty``) in device memory.  CPU tensors run the twin."""
     name = "least_squares_wavefront_global"
     m, n, B = _check_lstsq(name, A, y)
     if A.device.type == "cpu" and y.device.type == "cpu":
@@ -196,18 +260,18 @@ def least_squares_wavefront_kernel(A: torch.Tensor, y: torch.Tensor) -> torch.Te
     rotations thread y (implicit Q^T y) and the back-substitution runs in
     the kernel; only ``x [n, B]`` is written.  CUDA tensors run K2b in the
     register form where n fits it, else the shared-memory form, else the
-    device-memory form; CPU tensors its twin."""
+    warp form, else the device-memory form; CPU tensors its twin."""
     m, n, B = _check_lstsq("least_squares_wavefront_kernel", A, y)
     if A.device.type == "cpu" and y.device.type == "cpu":
         return least_squares_wavefront_reference(A, y)
-    if registers_fit(n, A.dtype):
-        return least_squares_wavefront_registers(A, y)
-    if shared_fits(n, A.dtype):
-        return least_squares_wavefront_shared(A, y)
-    return least_squares_wavefront_global(A, y)
+    forms = {"registers": least_squares_wavefront_registers,
+             "shared": least_squares_wavefront_shared,
+             "warp": least_squares_wavefront_warp, "global": least_squares_wavefront_global}
+    return forms[least_squares_form(n, A.dtype)](A, y)
 
 
 qr_wavefront_kernel.launches = 0
 least_squares_wavefront_registers.launches = 0
 least_squares_wavefront_shared.launches = 0
+least_squares_wavefront_warp.launches = 0
 least_squares_wavefront_global.launches = 0

@@ -4,8 +4,9 @@ the rotation, ``eigh_jacobi`` against the jnp Jacobi and against the Pallas
 kernel in interpret mode (f64), the ``eigh`` dispatcher, the seating plan of
 the kernel's register form and an emulation of its data movement, the
 kernel's shared-memory plan, the cluster form's plan and an emulation of its
-ownership of rows, the shapes refused, and the four forms of kernel K5
-against their twin (on a card only).
+ownership of rows, the device-memory form's plan over the whole card and an
+emulation of its phases, the shapes refused, and the four forms of kernel
+K5 against their twin (on a card only).
 
 Tolerances: eigenvalues rtol 1e-12 (relative to the largest), eigenvectors
 atol 1e-10: the two packages run the same operations in the same order, and
@@ -472,6 +473,115 @@ def test_cluster_ownership_equals_twin(n, C, dtype):
     assert torch.equal(V[:, :, 2], torch.eye(n, dtype=dtype))
 
 
+@pytest.mark.parametrize("B", [3, 16])
+@pytest.mark.parametrize("n", [2, 9, 33, 64])
+def test_global_plan_touches_each_entry_once_a_phase(n, B):
+    """K5b's plan: in each phase of each round the threads' walks cover
+    every item (lane, pair, column) exactly once, and no two items of a
+    phase touch one entry, so that no entry is read after its partner was
+    rewritten within the phase; on the whole card (132 SMs, 3 blocks an
+    SM) and on a grid of two blocks, where every thread walks many items."""
+    table = tj.schedule_tables(n).astype(np.int64)
+    for sms, per_sm in ((132, 3), (2, 1)):
+        plan = te.global_plan(n, B, sms, per_sm)
+        assert 1 <= plan.blocks <= sms * per_sm and plan.threads == te.GLOBAL_THREADS
+        items = te.global_items(n, B)
+        for kind, (outer, mid) in items.items():
+            walk = te.global_walk(plan, n, B, kind)
+            f = walk[walk >= 0]
+            assert walk.shape[1] == plan.blocks * plan.threads
+            assert np.array_equal(np.sort(f), np.arange(outer * mid * B))
+        for kind in ("rows", "cols"):
+            f = te.global_walk(plan, n, B, kind)
+            f = f[f >= 0]
+            b, j, u = f % B, f // B % n, f // B // n
+            for units in table:
+                p, q = units[u, 0], units[u, 1]
+                pair = p != q
+                if kind == "rows":
+                    touched = [(p * n + j) * B + b, ((q * n + j) * B + b)[pair]]
+                else:
+                    touched = [(j * n + p) * B + b, ((j * n + q) * B + b)[pair]]
+                touched = np.concatenate(touched)
+                assert len(np.unique(touched)) == len(touched)
+        f = te.global_walk(plan, n, B, "coef")
+        f = f[f >= 0]
+        b, u = f % B, f // B
+        for units in table:
+            p, q = units[u, 0], units[u, 1]
+            written = np.concatenate([p * B + b, (q * B + b)[p != q]])
+            assert len(np.unique(written)) == len(written)
+
+
+def emulate_global(A, sweeps, plan):
+    """K5b in plain tensors: the working copy ``a``, V ``v`` and the
+    coefficients flat, entry (i, j) of lane b at (i n + j) B + b; every
+    phase runs its threads' walks (``global_walk``) step by step, a step's
+    items at once (no two touch one entry), with the kernel's operations:
+    A symmetrized and V = I; per round (c, s) of every (unit, lane), the
+    rows p and q at each (column, lane), then the columns p and q of A and
+    V at each (row, lane); w from the diagonal."""
+    n, B = A.shape[0], A.shape[2]
+    table = torch.from_numpy(tj.schedule_tables(n).astype(np.int64))
+    src = A.reshape(-1)
+    a, v = torch.empty(n * n * B, dtype=A.dtype), torch.empty(n * n * B, dtype=A.dtype)
+    cv, sv = torch.empty(n * B, dtype=A.dtype), torch.empty(n * B, dtype=A.dtype)
+
+    def steps(kind, mid):
+        for f in te.global_walk(plan, n, B, kind):
+            f = torch.from_numpy(f[f >= 0])
+            yield f % B, f // B % mid, f // B // mid
+
+    def at(i, j, b):
+        return (i * n + j) * B + b
+
+    for b, j, i in steps("init", n):
+        a[at(i, j, b)] = (src[at(i, j, b)] + src[at(j, i, b)]) * 0.5
+        v[at(i, j, b)] = (i == j).to(A.dtype)
+    for r in range(sweeps * len(table)):
+        units = table[r % len(table)]
+        for b, _, u in steps("coef", 1):
+            p, q = units[u, 0], units[u, 1]
+            pair = p != q
+            c, s = tj._rotation(a[at(p, p, b)], a[at(q, q, b)], a[at(p, q, b)])
+            c, s = torch.where(pair, c, 1.0).to(A.dtype), torch.where(pair, s, 0.0).to(A.dtype)
+            cv[p * B + b], sv[p * B + b] = c, torch.where(pair, -s, s)
+            cv[(q * B + b)[pair]], sv[(q * B + b)[pair]] = c[pair], s[pair]
+        for kind in ("rows", "cols"):
+            for b, j, u in steps(kind, n):
+                p, q = units[u, 0], units[u, 1]
+                pair = p != q
+                cp, sp, cq, sq = cv[p * B + b], sv[p * B + b], cv[q * B + b], sv[q * B + b]
+                rows = kind == "rows"
+                for M in (a,) if rows else (a, v):
+                    ep, eq = (at(p, j, b), at(q, j, b)) if rows else (at(j, p, b), at(j, q, b))
+                    x, y = M[ep], M[eq]
+                    M[ep] = cp * x + sp * y
+                    M[eq[pair]] = (cq * y + sq * x)[pair]
+    w = torch.empty(n * B, dtype=A.dtype)
+    for b, _, i in steps("w", 1):
+        w[i * B + b] = a[at(i, i, b)]
+    return w.reshape(n, B), v.reshape(n, n, B)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [3, 16])
+@pytest.mark.parametrize("n", [9, 33, 64])
+def test_global_phases_equal_twin(n, B, dtype):
+    """Running K5b's phases in its plan's order, step by step, on a grid
+    of two blocks of 512 threads (so that a thread walks several items a
+    phase) is the twin's computation bit for bit; a diagonal lane keeps c
+    = 1, s = 0 throughout."""
+    A = torch.from_numpy(sym(np.random.default_rng(n + B), n, B)).to(dtype)
+    A[:, :, 1] = torch.diag(torch.arange(1.0, n + 1)).to(dtype)
+    plan = te.global_plan(n, B, 2, 1)
+    for sweeps in (0, 1, 2):
+        w, V = emulate_global(A, sweeps, plan)
+        tw, tV = tj.eigh_jacobi(A, sweeps=sweeps, sort=False)
+        assert torch.equal(w, tw) and torch.equal(V, tV)
+    assert torch.equal(V[:, :, 1], torch.eye(n, dtype=dtype))
+
+
 def test_cluster_range_on_the_cpu_matches_jax():
     """At n = 171, K5c's range, the port's entry point on a CPU tensor (the
     twin) against the JAX package's, which takes its jnp Jacobi there (8
@@ -530,13 +640,14 @@ def _taken(n, dtype):
 @pytest.mark.parametrize("n,B", [(2, 1000), (3, 257), (8, 4096), (16, 4099), (17, 333),
                                  (31, 70), (32, 70), (33, 130), (56, 64), (64, 40), (84, 16),
                                  (120, 5), (168, 2), (170, 3), (238, 2), (239, 2), (336, 2),
-                                 (337, 1), (472, 1), (330, 1), (473, 1)])
+                                 (337, 1), (472, 1), (330, 1), (473, 1), (330, 16), (473, 16)])
 def test_kernel_equals_twin_on_card(n, B, dtype):
     """The four forms against the twin, bit for bit, each where it takes n
     (K5c also with every larger cluster), and through the dispatcher that
     keeps the JAX name; the
     edges of K5c's clusters in f32 (238 / 239, 336 / 337, 472 / 473) and
-    f64 (167 / 168, 236 / 237, 329 / 330); K5b alone beyond."""
+    f64 (167 / 168, 236 / 237, 329 / 330); K5b alone beyond, also on
+    the 16 lanes of the CMA-ES fleet at n = 473 (and at f64's 330)."""
     dev = _on_card()
     sweeps = 6 if n <= 170 else 2
     A = torch.from_numpy(sym(np.random.default_rng(n), n, B)).to(dev, dtype)
@@ -591,3 +702,20 @@ def test_kernel_sorted_spectrum_and_refusals_on_card():
         te.eigh_jacobi_pallas(A64.transpose(0, 1))
     with pytest.raises(ValueError, match="float32 or float64"):
         te.eigh_jacobi_pallas(A64.half())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,B", [(9, 3), (64, 4096), (473, 16)])
+def test_global_launch_plans_equal_twin_on_card(n, B, dtype):
+    """K5b's grid of blocks of 256, 512 and 1024 threads, as one
+    cooperative launch and as one launch a phase (the benches' probe), the
+    twin's bits every time."""
+    dev = _on_card()
+    A = torch.from_numpy(sym(np.random.default_rng(n), n, B)).to(dev, dtype)
+    tw, tV = tj.eigh_jacobi(A, sweeps=2, sort=False)
+    for threads in (256, 512, 1024):
+        for cooperative in (True, False):
+            w, V = te._launch_global("probe", A, 2, threads, cooperative)
+            torch.cuda.synchronize()
+            assert torch.equal(w, tw) and torch.equal(V, tV), (threads, cooperative)

@@ -1,6 +1,7 @@
 """Kernels K2a and K2b of nlsolver_torch (``ops.qr_wavefront``): the CPU
 route (the plain twins) against the JAX package's Pallas kernels in
-interpret mode and its jnp wavefront, the shapes the kernel takes and
+interpret mode and its jnp wavefront, plain-tensor emulations of the
+order of K2b's window and warp forms, the shapes each form takes and
 refuses, and the CUDA kernels against their twins (on a card only).
 
 JAX is imported only inside the tests that compare with it, so that the
@@ -58,7 +59,7 @@ def test_cpu_route_matches_jax_wavefront_f64(m, n, B):
 
 
 LSTSQ_FORMS = (tqw.least_squares_wavefront_registers, tqw.least_squares_wavefront_shared,
-               tqw.least_squares_wavefront_global)
+               tqw.least_squares_wavefront_warp, tqw.least_squares_wavefront_global)
 
 
 def _counts():
@@ -131,6 +132,79 @@ def test_window_order_equals_twin_and_jax(m, n, dtype):
         np.testing.assert_allclose(x.numpy(), jx, rtol=1e-12, atol=1e-13)
 
 
+def warp_emulation(A, y):
+    """K2b's warp form in plain torch ops: the window as a ring of 2 n + 1
+    rows (ring row r % (2 n + 1) holds row r of [A | y]), a row fetched a
+    stage ahead into the ring row of the row that left the window; at each
+    stage every (c, s) is formed first from the pivots before the stage (the
+    kernel's row of coefficients), then the rotations are applied in
+    ascending j, each to the columns j .. n as they are dealt over 32
+    threads (thread t holds columns t, t + 32, ..).  The ring starts as NaN,
+    so a read of a row never fetched shows."""
+    from nlsolver_torch.linalg.givens import givens_rotation
+    from nlsolver_torch.linalg.qr_parallel import backsolve_bm
+
+    m, n, B = A.shape
+    slots, Q = 2 * n + 1, -(-(n + 1) // 32)
+    ring = torch.full((slots, n + 1, B), float("nan"), dtype=A.dtype)
+
+    def fetch(r):
+        ring[r % slots, :n], ring[r % slots, n] = A[r], y[r]
+
+    fetch(m - 1)
+    if m >= 2:
+        fetch(m - 2)
+    for k in range(m + n - 2):
+        if k <= m - 3:
+            fetch(m - 3 - k)
+        j_lo, j_hi = max(0, k - m + 2), min(n - 1, k // 2)
+        js = list(range(j_lo, j_hi + 1))
+        rp = [(m - 2 - k + 2 * j) % slots for j in js]
+        rq = [(m - 1 - k + 2 * j) % slots for j in js]
+        cs = [givens_rotation(ring[p, j], ring[q, j]) for j, p, q in zip(js, rp, rq)]
+        for j, p, q, (c, s) in zip(js, rp, rq, cs):
+            cols = [t + 32 * q2 for t in range(32) for q2 in range(Q) if j <= t + 32 * q2 <= n]
+            assert sorted(cols) == list(range(j, n + 1))
+            vp, vq = ring[p, cols].clone(), ring[q, cols].clone()
+            ring[p, cols], ring[q, cols] = c * vp + s * vq, c * vq + (-s) * vp
+    return backsolve_bm(ring[:n, :n], ring[:n, n])
+
+
+WARP_SHAPES = [(78, 30), (40, 35), (32, 31), (1, 1), (35, 35), (36, 35)]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("m,n", WARP_SHAPES)
+def test_warp_order_equals_twin(m, n, dtype):
+    """The warp form's order (every rotation of a stage formed at once,
+    columns dealt over 32 threads, two words a thread from n = 32) is the
+    twin's bit for bit; (78, 30) is the Chebyshev fleet's system, (35, 35)
+    and (36, 35) square and with one row more at two words a thread."""
+    A, y = _system(7, m, n, 16, dtype)
+    A[np.arange(n), np.arange(n)] += np.asarray(2 * n, dtype)
+    x = warp_emulation(torch.from_numpy(A), torch.from_numpy(y))
+    assert torch.equal(x, tqw.least_squares_wavefront_reference(torch.from_numpy(A),
+                                                                torch.from_numpy(y)))
+
+
+# the JAX kernel in interpret mode takes 17 s at (16, 16) and 150 s at
+# (32, 31) on one CPU; the larger shapes reach it through the twin, which
+# the tests above hold against it
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("m,n", [(1, 1), (10, 9)])
+def test_warp_order_matches_jax_pallas_interpret(m, n, dtype):
+    from nlsolver_tpu.ops.qr_wavefront import least_squares_wavefront_pallas
+
+    A, y = _system(9, m, n, 16, dtype)
+    A[np.arange(n), np.arange(n)] += np.asarray(2 * n, dtype)
+    x = warp_emulation(torch.from_numpy(A), torch.from_numpy(y))
+    jx = np.asarray(least_squares_wavefront_pallas(A, y, interpret=True))
+    if dtype == np.float32:
+        np.testing.assert_allclose(x.numpy(), jx, atol=1e-5)
+    else:
+        np.testing.assert_allclose(x.numpy(), jx, rtol=1e-12, atol=1e-13)
+
+
 def test_window_order_edges():
     # m = n = 1 has no stage; m = n + 1 and square m = n end where the
     # window's last rows are the system's first
@@ -147,6 +221,23 @@ def test_form_limits():
     assert [n for n in range(1, 40) if tqw.shared_fits(n, f64)] == list(range(1, 21))
     assert not tqw.registers_fit(2, torch.float16) and not tqw.shared_fits(2, torch.float16)
     assert tqw.shared_bytes(29, f32) <= 232448 < tqw.shared_bytes(30, f32)
+    # the warp form: one warp's ring of (2 n + 1)(n + 1) words and its 2 n
+    # coefficients in a block; 8 lanes a block, halved where they do not fit
+    assert [n for n in range(1, 300) if tqw.warp_fits(n, f32)] == list(range(1, 170))
+    assert [n for n in range(1, 300) if tqw.warp_fits(n, f64)] == list(range(1, 120))
+    assert tqw.warp_bytes(169, f32) == (339 * 170 + 338) * 4 <= 232448 < tqw.warp_bytes(170, f32)
+    assert tqw.warp_bytes(119, f64) == (239 * 120 + 238) * 8 <= 232448 < tqw.warp_bytes(120, f64)
+    assert not tqw.warp_fits(2, torch.float16) and not tqw.warp_fits(0, f32)
+    for dtype, edges in ((f32, (59, 60, 83, 84, 119, 120)), (f64, (41, 42, 59, 60, 83, 84))):
+        assert [tqw.warp_lanes(n, dtype) for n in edges] == [8, 4, 4, 2, 2, 1]
+        assert all(tqw.warp_lanes(n, dtype) * tqw.warp_bytes(n, dtype) <= 232448
+                   for n in range(1, 170) if tqw.warp_fits(n, dtype))
+    # the dispatcher's four ranges, by n and dtype alone
+    for dtype, ends in ((f32, (8, 29, 169)), (f64, (5, 20, 119))):
+        forms = [tqw.least_squares_form(n, dtype) for n in range(1, 200)]
+        want = ["registers"] * ends[0] + ["shared"] * (ends[1] - ends[0]) + \
+            ["warp"] * (ends[2] - ends[1]) + ["global"] * (199 - ends[2])
+        assert forms == want
 
 
 def test_shape_and_device_errors():
@@ -188,12 +279,12 @@ def test_kernels_bit_equal_to_twins_on_card(dtype, m, n, B):
 
 def _form_cases():
     """(form, m, n, dtype): each K2b form at the first and last n it takes
-    (the global form at the first n past the shared one's and at n = 40),
-    at square m = n and at m = n + 1, and at the NLLS fleet's [34, 2]."""
+    (the global form at the first n past the warp one's), at square m = n
+    and at m = n + 1, and at the NLLS fleet's [34, 2]."""
     cases = []
-    for dtype, reg, shared in ((torch.float32, 8, 29), (torch.float64, 5, 20)):
+    for dtype, reg, shared, warp in ((torch.float32, 8, 29, 169), (torch.float64, 5, 20, 119)):
         for form, ns in (("registers", (1, reg)), ("shared", (reg + 1, shared)),
-                         ("global", (shared + 1, 40))):
+                         ("warp", (shared + 1, warp)), ("global", (warp + 1,))):
             cases += [(form, m, n, dtype) for n in ns for m in (n, n + 1)]
         cases.append(("registers", 34, 2, dtype))
     return cases
@@ -211,10 +302,11 @@ def test_each_form_bit_equal_to_twin_on_card(form, m, n, dtype):
     assert kernel.launches == before + 1
     assert torch.equal(x, tqw.least_squares_wavefront_reference(A, y))
     # every form that takes n gives the same bits
+    takes = {tqw.least_squares_wavefront_registers: tqw.registers_fit,
+             tqw.least_squares_wavefront_shared: tqw.shared_fits,
+             tqw.least_squares_wavefront_warp: tqw.warp_fits}
     for other in LSTSQ_FORMS:
-        if other is tqw.least_squares_wavefront_global or (
-                other is tqw.least_squares_wavefront_shared and tqw.shared_fits(n, dtype)) or (
-                other is tqw.least_squares_wavefront_registers and tqw.registers_fit(n, dtype)):
+        if takes.get(other, lambda n, dtype: True)(n, dtype):
             assert torch.equal(other(A, y), x)
 
 
@@ -229,6 +321,9 @@ def test_forms_refuse_what_they_do_not_take_on_card():
         tqw.least_squares_wavefront_shared(A, y)
     x = tqw.least_squares_wavefront_kernel(A[:, :, :0].contiguous(), y[:, :0].contiguous())
     assert x.shape == (30, 0)
+    A, y = torch.randn(170, 170, 4, device=dev), torch.randn(170, 4, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        tqw.least_squares_wavefront_warp(A, y)
 
 
 @pytest.mark.gpu
@@ -241,3 +336,40 @@ def test_kernel_refuses_what_it_does_not_take_on_card():
         tqw.qr_wavefront_kernel(torch.randn(10, 64, 3, device=dev).transpose(1, 2))
     with pytest.raises(ValueError, match="is on cpu"):
         tqw.least_squares_wavefront_kernel(A, y.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n,B", [(78, 30, 4096), (40, 35, 333), (9, 9, 5), (21, 21, 70)])
+def test_warp_form_bit_equal_with_every_block_on_card(dtype, m, n, B):
+    """K2b-w on the Chebyshev fleet's [78, 30, 4096], at two words a thread
+    (n = 35), inside the shared form's range and at f64's first n, with 1,
+    2, 4 and 8 lanes a block and a ragged last block: the twin's bits."""
+    dev = _on_card()
+    A, y = (torch.from_numpy(a).to(dev, dtype) for a in _system(8, m, n, B))
+    twin = tqw.least_squares_wavefront_reference(A, y)
+    for lanes in (1, 2, 4, 8):
+        before = tqw.least_squares_wavefront_warp.launches
+        x = tqw.least_squares_wavefront_warp(A, y, lanes=lanes)
+        torch.cuda.synchronize()
+        assert tqw.least_squares_wavefront_warp.launches == before + 1
+        assert torch.equal(x, twin), lanes
+
+
+def test_backward_branches_find_nested_loops():
+    """The loops that K2b-w's issue floor tells apart (``chip_smoke.py``): a
+    stage loop holding a barrier and, inside it, a loop that stores to
+    shared memory; a branch forward and one past the body are no loops."""
+    from nlsolver_torch.benches import backward_branches, branch_targets, issue_instructions
+
+    sass = ["S2R R0, SR_TID.X", "@P0 BRA 0xa0", "LDS R1, [R0]", "FMUL R1, R1, R1",
+            "STS [R0], R1", "@P1 BRA 0x20", "BAR.SYNC.DEFER_BLOCKING 0x0", "@P2 BRA 0x10",
+            "BRA 0x400", "EXIT", "STG.E [R2.64], R1", "EXIT"]
+    ins = [(16 * i, op) for i, op in enumerate(sass)]
+    assert branch_targets(ins) == [None, 10, None, None, None, 2, None, 1, None, None, None, None]
+    assert backward_branches(ins) == [(2, 5), (1, 7)]
+    way, bodies = issue_instructions(ins)
+    # the way jumps past both loops; a pass of the inner loop is its 4
+    # instructions, of the outer its guard, one pass of the inner loop, the
+    # barrier and its own branch
+    assert (way, bodies) == (4, [4, 7])
