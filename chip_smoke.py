@@ -10,8 +10,8 @@ Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc over nlsolver_torch/csrc for sm_90a, one process per source;
      no register kernel of K5 or K2b, and no kernel of K2b's warp form, may
-     spill or keep a stack frame; the issue floors of K1's staged form and
-     K2b's register and warp forms from their SASS;
+     spill or keep a stack frame; the issue floors of K1's staged form, K2b's
+     register and warp forms, K2a's warp form and K4b-c from their SASS;
   3. K1 in both forms against its twin on injected draws, B=8192, n=10,
      P=64, f32, 5 generations, Rastrigin and sphere, a third of the lanes
      frozen; both forms at the edges of the staged form's plan (n = 16 and
@@ -38,8 +38,12 @@ Phases, each fatal on failure:
      f64, and on random systems, each form at the first and last n it takes
      (the device-memory form at the first), square and with one row more,
      and the dispatcher's choice at each boundary;
-     K2a (wavefront QR with Q) bit-equal to its twin and a factorization;
-     linalg.qr(method="pallas") launches K2a once;
+     K2a (wavefront QR) in its warp form (K2a-w) and its device-memory form
+     bit-equal to its twin at [16, 16, 4096] and [32, 8, 4096] with Q, and
+     a factorization; K2a-w at its last square shape and its last with one
+     row more, with and without Q, in f32 and f64, K2a at the first shapes
+     past them, each through the dispatcher; linalg.qr(method="pallas")
+     launches K2a-w once at [16, 16, 4096] and K2a once at [170, 170, 32];
   9. the NLLS slice: fit_fleet on 262144 exp-decay fits through
      solve="qr_pallas" (K2b's register form), "cholesky" (K3) and "qr"
      (plain), launches counted; solved share, recovered parameters,
@@ -47,29 +51,33 @@ Phases, each fatal on failure:
      fits of 12 and 30 coefficients through K2b's shared-memory and warp
      forms, and of 120 in f64 through its device-memory form;
  10. NLLS timing: bench_nlls_fleet per backend (median of 3 after 1
-     warm-up, ABBA order), and K2a, each form of K2b (the device-memory
+     warm-up, ABBA order), and K2a in both forms, each form of K2b (the device-memory
      form also on the shared form's Chebyshev system, and beside the warp
      form on the 30-coefficient one) and K3 alone against their twins from
      CUDA events, beside the one PyTorch call that computes the same
      function (torch.linalg.qr, torch.linalg.lstsq, Cholesky solve);
  11. K4a (resident rank-2 update + direction) against its twin at
      [16, 16, 65536] f32 with a third of the lanes on reset and a fifth at
-     rho = 0, at n in {1, 2, 8, 33} with a ragged B, and once in f64; K4b
-     (row-split) at [128, 128, 4096], at n = 16 where it must equal K4a
-     bit for bit, and at n = 45; K4c (leading-batch update) at
-     [65536, 16, 16] and [4096, 64, 64]; a non-contiguous and an f16 input
-     refused;
+     rho = 0, at n in {1, 2, 8, 33} with a ragged B, and once in f64; K4b-c
+     (the update over a thread-block cluster) at [128, 128, 4096] and at the
+     first and last n of its range in f32 and f64 (B = 1001 and 4096), each
+     equal to K4b (row-split) bit for bit; K4b at n = 16 where it must equal
+     K4a bit for bit, at n = 45 and at the first n past K4b-c's range; the
+     dispatcher's choice at both ends of K4b-c's range; K4c (leading-batch
+     update) at [65536, 16, 16] and [4096, 64, 64]; a non-contiguous and an
+     f16 input refused;
  12. the BFGS slice: minimize(method="bfgs", layout="fleet") on 65536
      16-D bowls with more_thuente and with speculative, K4a launches equal
      to the host steps, every lane halted by a tolerance before max_iter,
      converged share at least 0.98 and 0.92, converged lanes within 5e-3
      of their centers and every lane within 1e-2, solved share at least
      0.999; a numpy x0 lands on the card; a Rosenbrock fleet; a wide fleet
-     (n=128, B=4096) that reaches K4b through the dispatcher; one
-     leading-batch update through ops.rank2_update_batched (K4c);
+     (n=128, B=4096) that reaches K4b-c through the dispatcher, and one past
+     K4b-c's range (n=225, B=256) that reaches K4b; one leading-batch update
+     through ops.rank2_update_batched (K4c);
  13. BFGS timing: bench_bfgs_fleet per line search (median of 3 after 1
-     warm-up, ABBA order), and K4a, K4b and K4c alone against their twins
-     from CUDA events;
+     warm-up, ABBA order), and K4a, K4b-c, K4b and K4c alone against their
+     twins from CUDA events;
  14. K5 (batched Jacobi eigensolver) equal to its twin bit for bit in all
      four forms: K5r (registers) at [16, 16, 65536] f32 with 8 sweeps,
      [17, 17, 4096], [2, 2, 65536], [8, 8, 4096] f64, [16, 16, 4099] in f32
@@ -107,8 +115,8 @@ Phases, each fatal on failure:
 Every kernel's line also gives its bound: the larger of its compulsory
 bytes over 3.35 TB/s and its floating-point operations over 67 TFLOP/s
 (f32 outside the tensor cores), computed from the run's shapes; K1's
-staged and K2b's register and warp forms also the floor of their
-instruction issue (``issue_ms``), which must lie below their time.
+staged form, K2b's register and warp forms, K2a-w and K4b-c also the floor
+of their instruction issue (``issue_ms``), which must lie below their time.
 
 Prints a JSON line of kernels, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -126,7 +134,8 @@ RTOL = ATOL = 1e-5  # scores: the same terms summed in another order
 TPU_KERNEL = "nlsolver_tpu/ops/de_fused.py:110"
 FLEET_B, FLEET_M = 262144, 32  # the NLLS fleet: fits, points per fit
 BFGS_B, BFGS_N = 65536, 16     # the BFGS fleet: bowls, dimensions
-WIDE_B, WIDE_N = 4096, 128     # the wide BFGS fleet, beyond K4a's resident slab
+WIDE_B, WIDE_N = 4096, 128     # the wide BFGS fleet, beyond K4a's resident slab (K4b-c)
+WIDE_K4B_B, WIDE_K4B_N = 256, 225  # a wide BFGS fleet past K4b-c's range in f32 (K4b)
 CHEB_SHARED = (12, 32, 16384)  # Chebyshev NLLS fleets: coefficients, points, fits; through
 CHEB_WARP = (30, 48, 4096)     # K2b's shared-memory and warp forms (float32), and past the
 CHEB_GLOBAL = (120, 128, 256)  # warp form's range in float64 through its device-memory form
@@ -218,6 +227,11 @@ def phase_device(torch):
     return name
 
 
+def loop_opcodes(ins, h, e):
+    """The opcodes (no modifiers) of SASS ``ins`` from index h to e."""
+    return [op.split()[1 if op.startswith("@") else 0].split(".")[0] for _, op in ins[h:e + 1]]
+
+
 def warp_floor(ins, m, n, b):
     """The issue floor of K2b's warp form on [m, n, b], n < 32 (one word a
     thread a row), from its SASS ``ins``: its stage loop, the one loop that
@@ -231,7 +245,7 @@ def warp_floor(ins, m, n, b):
     spans = backward_branches(ins)
 
     def opcodes(h, e):
-        return {op.split()[1 if op.startswith("@") else 0].split(".")[0] for _, op in ins[h:e + 1]}
+        return set(loop_opcodes(ins, h, e))
 
     stage = [i for i, (h, e) in enumerate(spans) if "BAR" in opcodes(h, e) and bodies[i]]
     check(len(stage) == 1, f"K2b-w's SASS has loops {bodies}, {len(stage)} with a block barrier")
@@ -243,6 +257,62 @@ def warp_floor(ins, m, n, b):
     passes = sum(max(0, min(n - 1, k // 2) - max(0, k - m + 2)) for k in range(stages))
     body_s, body_t = bodies[stage[0]], bodies[turn[0]]
     return way + (stages - 1) * body_s + passes * body_t, way, body_s, body_t
+
+
+def qr_warp_floor(ins, m, n):
+    """The issue floor of K2a-w on [m, n] with Q, m + n <= 32 (one column
+    a thread a row), from its SASS ``ins``: its stage loop, the one loop
+    that holds another, passes back m + n - 3 times, and its rotation loop,
+    the one loop within it, once less than the stage's rotations every
+    stage; every other loop is counted on no pass back.  Returns
+    (instructions a warp, way, stage body, rotation body)."""
+    from nlsolver_torch.benches import backward_branches, issue_instructions
+
+    way, bodies = issue_instructions(ins)
+    spans = backward_branches(ins)
+    live = [i for i, b in enumerate(bodies) if b]
+    inside = {i: [j for j in live if j != i and spans[i][0] <= spans[j][0]
+                  and spans[j][1] <= spans[i][1]] for i in live}
+    outer = [i for i in live if inside[i]]
+    check(len(outer) == 1 and len(inside[outer[0]]) == 1,
+          f"K2a-w's SASS has loops {bodies}, {len(outer)} holding others")
+    body_s, body_t = bodies[outer[0]], bodies[inside[outer[0]][0]]
+    stages = m + n - 2
+    passes = sum(max(0, min(n - 1, k // 2) - max(0, k - m + 2)) for k in range(stages))
+    return way + (stages - 1) * body_s + passes * body_t, way, body_s, body_t
+
+
+def cluster_floor(ins, n):
+    """The issue floor of K4b-c on n rows a lane, a thread a row and lane,
+    from its SASS ``ins`` (float32): every iteration of its sums over j (Hy
+    and y^T Hy, 2 n a thread: the innermost loops that add (FADD) what they
+    read from shared memory and store nothing) and of its row updates (n a
+    thread: the innermost loops that store to shared memory and add) costs
+    at least the least instructions an iteration of its kind's loops take
+    (a loop's body over its FADDs, or its STSs, one an iteration); one pass
+    of each loop is left to the way through.  Returns (instructions a
+    thread, way, [(kind, body, iterations a pass)])."""
+    from nlsolver_torch.benches import backward_branches, issue_instructions
+
+    way, bodies = issue_instructions(ins)
+    spans = backward_branches(ins)
+    live = [i for i, b in enumerate(bodies) if b]
+    innermost = [i for i in live if not any(j != i and spans[i][0] <= spans[j][0]
+                                            and spans[j][1] <= spans[i][1] for j in live)]
+    kinds = {"sum": [], "row": []}
+    for i in innermost:
+        ops = loop_opcodes(ins, *spans[i])
+        if "FADD" in ops and "LDS" in ops and not {"STS", "STG", "LDGSTS", "LD"} & set(ops):
+            kinds["sum"].append((bodies[i], ops.count("FADD")))
+        elif "FADD" in ops and "FMUL" in ops and "STS" in ops and not {"STG", "LDGSTS"} & set(ops):
+            kinds["row"].append((bodies[i], ops.count("STS")))
+    check(kinds["sum"] and kinds["row"], f"K4b-c's SASS has no loops of each kind: {kinds}")
+    count = way
+    for kind, iterations in (("sum", 2 * n), ("row", n)):
+        loops = kinds[kind]
+        cheapest = min(body / per for body, per in loops)
+        count += max(0, iterations - sum(per for _, per in loops)) * cheapest
+    return int(count), way, kinds
 
 
 def phase_build():
@@ -287,6 +357,23 @@ def phase_build():
         f"kernel; {way} on its shortest way through, the stage loop's body {body_s} and the "
         f"rotation loop's {body_t}), {b} warps, {FLOORS['mhz']:.0f} MHz: "
         f"{FLOORS['K2b-w'] * 1e3:.2f} us")
+    # K2a-w at the timed [16, 16, 4096] with Q, a warp a lane (one column a
+    # thread); K4b-c at the wide fleet's [128, 128, 4096], a thread a row
+    # and lane, 16-byte copies
+    name = next(k for k in sass if "qr_warp_kernelIfLb1ELi1E" in k)
+    count, way, body_s, body_t = qr_warp_floor(sass[name], 16, 16)
+    FLOORS["K2a-w"] = issue_floor(count, 32 * 4096)
+    log(f"[2] issue floor of K2a-w: {count} SASS instructions a warp ({len(sass[name])} in the "
+        f"kernel; {way} on its shortest way through, the stage loop's body {body_s} and the "
+        f"rotation loop's {body_t}), 4096 warps, {FLOORS['mhz']:.0f} MHz: "
+        f"{FLOORS['K2a-w'] * 1e3:.2f} us")
+    name = next(k for k in sass if "rank2_cluster_kernelIfLi4E" in k)
+    count, way, kinds = cluster_floor(sass[name], WIDE_N)
+    FLOORS["K4b-c"] = issue_floor(count, WIDE_N * WIDE_B)
+    log(f"[2] issue floor of K4b-c: {count} SASS instructions a thread ({len(sass[name])} in the "
+        f"kernel; {way} on its shortest way through; loops (body, iterations a pass) of the sums "
+        f"{kinds['sum']} and the row updates {kinds['row']}), {WIDE_N * WIDE_B} threads, "
+        f"{FLOORS['mhz']:.0f} MHz: {FLOORS['K4b-c'] * 1e3:.2f} us")
     # ptxas names a kernel, then its stack frame and spills, then its registers.
     # The register forms of K5 and K2b are one kernel per width (K5r also per
     # parity): no word of theirs may live in local memory
@@ -743,35 +830,79 @@ def phase_qr(torch, dev):
                           f"the dispatcher did not take {kid} at n={n} in {dtype}")
         log(f"[8] the dispatcher takes K2b-r for n <= {reg}, K2b-s for {reg + 1} <= n <= {shared}, "
             f"K2b-w for {shared + 1} <= n <= {warp}, K2b-g beyond ({str(dtype)[6:]})")
+    # K2a in both forms, bit for bit against the twin, and a factorization
+    qr_forms = qr_forms_of()
+
+    def hold_qr(kid, qr, A, compute_q, label):
+        """One counted launch of K2a's form ``kid`` through ``qr`` (the form
+        itself, or the dispatcher) against the twin."""
+        nonlocal worst
+        tR, tQ = tqw.qr_wavefront_reference(A, compute_q)
+        before = qr_forms[kid].launches
+        R, Q = qr(A, compute_q=compute_q)
+        torch.cuda.synchronize()
+        check(qr_forms[kid].launches == before + 1, f"{kid} {label}: no launch counted")
+        check(torch.equal(R, tR) and (not compute_q or torch.equal(Q, tQ)),
+              f"{kid} differs from its twin at {label}: R {max_diff(R, tR):.3e}"
+              + (f", Q {max_diff(Q, tQ):.3e}" if compute_q else ""))
+        worst = max(worst, max_diff(R, tR), max_diff(Q, tQ) if compute_q else 0.0)
+        return R, Q
+
     for m, n, b in ((16, 16, 4096), (32, 8, 4096)):
         A = torch.randn((m, n, b), generator=g, device=dev)
-        R, Q = tqw.qr_wavefront_kernel(A, compute_q=True)
-        torch.cuda.synchronize()
-        tR, tQ = tqw.qr_wavefront_reference(A, compute_q=True)
-        check(torch.equal(R, tR) and torch.equal(Q, tQ),
-              f"K2a differs from its twin at {(m, n, b)}: R {max_diff(R, tR):.3e}, "
-              f"Q {max_diff(Q, tQ):.3e}")
-        worst = max(worst, max_diff(R, tR), max_diff(Q, tQ))
+        hold_qr("K2a", qr_forms["K2a"], A, True, f"{(m, n, b)}")
+        R, Q = hold_qr("K2a-w", qr_forms["K2a-w"], A, True, f"{(m, n, b)}")
         eye = torch.eye(m, device=dev)[:, :, None]
         qtq = float((torch.einsum("ikb,ilb->klb", Q, Q) - eye).abs().max())
         rec = float((torch.einsum("ikb,kjb->ijb", Q, R) - A).abs().max() / A.abs().max())
         sub = torch.tril(torch.ones(m, n, device=dev, dtype=torch.bool), -1)
         tri = float(R[sub].abs().max())
-        log(f"[8] K2a {(m, n, b)}: bit-equal to the twin; max|QtQ-I| {qtq:.3e}, "
+        log(f"[8] K2a-w and K2a {(m, n, b)}: bit-equal to the twin; max|QtQ-I| {qtq:.3e}, "
             f"max|QR-A|/max|A| {rec:.3e}, max|tril(R)| {tri:.3e}")
         check(qtq <= 1e-5 and rec <= 1e-5 and tri <= 1e-4, "K2a is not a QR factorization")
-    # K2a's path: the qr dispatcher, counted
-    A = torch.randn((16, 16, 4096), generator=g, device=dev)
-    tqw.qr_wavefront_kernel.launches = 0
-    out = linalg.qr(A, method="pallas")
-    torch.cuda.synchronize()
-    launches = tqw.qr_wavefront_kernel.launches
-    check(launches == 1, f"linalg.qr(method='pallas') launched K2a {launches} times")
-    check(float(linalg.validate_qr(
-        linalg.QR(out.Q.permute(2, 0, 1), out.R.permute(2, 0, 1)), A.permute(2, 0, 1))) < 1e-4,
-        "linalg.qr(method='pallas') does not reconstruct A")
-    log(f"[8] linalg.qr(A[16, 16, 4096], method='pallas'): K2a launches {launches}")
+    # K2a-w at its last square shape and its last with one row more, with Q
+    # (and without), a zero column among the random ones; K2a at the first
+    # shapes past them, on one warp of lanes (a thread a lane there takes
+    # some 0.8 s); the dispatcher's choice at each
+    for dtype in (torch.float32, torch.float64):
+        for q in (True, False):
+            sq = max(n for n in range(1, 300) if tqw.qr_warp_fits(n, n, dtype, q))
+            tall = max(n for n in range(1, 300) if tqw.qr_warp_fits(n + 1, n, dtype, q))
+            shapes = [("K2a-w", sq, sq), ("K2a-w", tall + 1, tall)]
+            if q:
+                shapes += [("K2a", sq + 1, sq + 1), ("K2a", tall + 2, tall + 1)]
+            for kid, m, n in shapes:
+                A = torch.randn((m, n, 32), generator=g, device=dev, dtype=dtype)
+                A[:, n // 2] = 0.0
+                hold_qr(kid, tqw.qr_wavefront_kernel, A, q,
+                        f"[{m}, {n}, 32] {str(dtype)[6:]}{' with Q' if q else ''}, the dispatcher")
+            log(f"[8] K2a-w bit-equal to the twin at [{sq}, {sq}] and [{tall + 1}, {tall}] "
+                f"{str(dtype)[6:]}{' with Q' if q else ''}"
+                + (f", K2a at [{sq + 1}, {sq + 1}] and [{tall + 2}, {tall + 1}]" if q else "")
+                + "; the dispatcher takes each")
+    # K2a's path: linalg.qr(method="pallas"), counted; through K2a-w at the
+    # timed shape, through the device-memory form past K2a-w's range
+    launches = {}
+    for kid, (m, n, b) in (("K2a-w", (16, 16, 4096)), ("K2a", (170, 170, 32))):
+        A = torch.randn((m, n, b), generator=g, device=dev)
+        reset_counts()
+        out = linalg.qr(A, method="pallas")
+        torch.cuda.synchronize()
+        counts = {k: f.launches for k, f in qr_forms.items()}
+        check(counts == {k: int(k == kid) for k in qr_forms},
+              f"linalg.qr(A[{m}, {n}, {b}], method='pallas') launched {counts}")
+        check(float(linalg.validate_qr(
+            linalg.QR(out.Q.permute(2, 0, 1), out.R.permute(2, 0, 1)), A.permute(2, 0, 1))) < 1e-4,
+            f"linalg.qr(A[{m}, {n}, {b}], method='pallas') does not reconstruct A")
+        log(f"[8] linalg.qr(A[{m}, {n}, {b}], method='pallas'): launches {counts}")
+        launches[kid] = counts[kid]
     return worst, launches
+
+
+def qr_forms_of():
+    from nlsolver_torch.ops import qr_wavefront as tqw
+
+    return {"K2a-w": tqw.qr_wavefront_warp, "K2a": tqw.qr_wavefront_global}
 
 
 def reset_counts():
@@ -780,12 +911,12 @@ def reset_counts():
     for fn in (eigh_jacobi.eigh_jacobi_registers, eigh_jacobi.eigh_jacobi_resident,
                eigh_jacobi.eigh_jacobi_cluster, eigh_jacobi.eigh_jacobi_global,
                de_fused.de_generation_staged, de_fused.de_generation_global,
-               qr_wavefront.qr_wavefront_kernel,
+               qr_wavefront.qr_wavefront_warp, qr_wavefront.qr_wavefront_global,
                qr_wavefront.least_squares_wavefront_registers,
                qr_wavefront.least_squares_wavefront_shared,
                qr_wavefront.least_squares_wavefront_warp,
                qr_wavefront.least_squares_wavefront_global, smallchol.solve_spd_batchminor,
-               rank2.rank2_direction_batchminor_resident,
+               rank2.rank2_direction_batchminor_resident, rank2.rank2_direction_batchminor_cluster,
                rank2.rank2_direction_batchminor_rowsplit, rank2.rank2_update_batched_kernel):
         fn.launches = 0
 
@@ -794,7 +925,7 @@ def nlls_counts():
     from nlsolver_torch.ops import qr_wavefront as tqw
     from nlsolver_torch.ops import smallchol as tsc
 
-    return {"K2a": tqw.qr_wavefront_kernel.launches,
+    return {**{kid: f.launches for kid, f in qr_forms_of().items()},
             **{kid: f.launches for kid, f in lstsq_forms().items()},
             "K3": tsc.solve_spd_batchminor.launches}
 
@@ -941,9 +1072,12 @@ def phase_nlls_timing(torch, dev):
                    lambda: torch.cholesky_solve(b2l, torch.linalg.cholesky_ex(A2l).L)),
         "K3 n=8": (lambda: tsc.solve_spd_batchminor(*spd[8]), 50,
                    lambda: tsc._chol_solve_batchminor(*spd[8]), 5, None),
-        "K2a": (lambda: tqw.qr_wavefront_kernel(Aq, compute_q=True), 50,
+        "K2a": (lambda: tqw.qr_wavefront_global(Aq, compute_q=True), 50,
                 lambda: tqw.qr_wavefront_reference(Aq, compute_q=True), 5,
                 lambda: torch.linalg.qr(Aql, mode="complete")),
+        "K2a-w": (lambda: tqw.qr_wavefront_warp(Aq, compute_q=True), 50,
+                  lambda: tqw.qr_wavefront_reference(Aq, compute_q=True), 5,
+                  lambda: torch.linalg.qr(Aql, mode="complete")),
     }
     alone = {}
     for name, (kern, kreps, plain, preps, library) in times.items():
@@ -989,7 +1123,7 @@ def leading_batch(case):
 def phase_rank2(torch, dev):
     from nlsolver_torch.ops import rank2 as tr
 
-    worst = {"K4a": 0.0, "K4b": 0.0, "K4c": 0.0}
+    worst = {"K4a": 0.0, "K4b-c": 0.0, "K4b": 0.0, "K4c": 0.0}
 
     def hold(kid, kernel, twin, args, n, label):
         """One counted launch of ``kernel`` on ``args`` against ``twin``:
@@ -1014,8 +1148,14 @@ def phase_rank2(torch, dev):
         log(f"[11] {kid} {label}: " + ", ".join(notes))
         return got
 
+    def same_bits(kid, got, want, label):
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"{kid} and K4b differ at {label} (both take K4b's sums in its order)")
+        log(f"[11] {kid} == K4b bit for bit at {label}")
+
     bm_twin = tr.rank2_direction_batchminor_reference
     resident, rowsplit = tr.rank2_direction_batchminor_resident, tr.rank2_direction_batchminor_rowsplit
+    cluster = tr.rank2_direction_batchminor_cluster
     main = rank2_case(torch, dev, BFGS_N, BFGS_B)
     Hn, d = hold("K4a", resident, bm_twin, main, BFGS_N, f"[{BFGS_N}, {BFGS_N}, {BFGS_B}] f32")
     H, rho, reset = main[0], main[4], main[5]
@@ -1026,8 +1166,11 @@ def phase_rank2(torch, dev):
         hold("K4a", resident, bm_twin, rank2_case(torch, dev, n, 16389), n, f"[{n}, {n}, 16389] f32")
     hold("K4a", resident, bm_twin, rank2_case(torch, dev, 16, 4099, torch.float64), 16,
          "[16, 16, 4099] f64")
-    hold("K4b", rowsplit, bm_twin, rank2_case(torch, dev, WIDE_N, WIDE_B), WIDE_N,
-         f"[{WIDE_N}, {WIDE_N}, {WIDE_B}] f32")
+    # K4b-c and K4b at the wide fleet's shape, bit for bit alike
+    wide = rank2_case(torch, dev, WIDE_N, WIDE_B)
+    label = f"[{WIDE_N}, {WIDE_N}, {WIDE_B}] f32"
+    same_bits("K4b-c", hold("K4b-c", cluster, bm_twin, wide, WIDE_N, label),
+              hold("K4b", rowsplit, bm_twin, wide, WIDE_N, label), label)
     Hn2, d2 = hold("K4b", rowsplit, bm_twin, main, BFGS_N, f"[{BFGS_N}, {BFGS_N}, {BFGS_B}] f32")
     check(torch.equal(Hn, Hn2) and torch.equal(d, d2),
           "K4a and K4b differ at n = 16 (both sum in ascending order)")
@@ -1035,11 +1178,32 @@ def phase_rank2(torch, dev):
     hold("K4b", rowsplit, bm_twin, rank2_case(torch, dev, 45, 1001), 45, "[45, 45, 1001] f32")
     hold("K4b", rowsplit, bm_twin, rank2_case(torch, dev, 45, 1001, torch.float64), 45,
          "[45, 45, 1001] f64")
-    # the dispatcher: K4a while the slab fits a block's shared memory, K4b beyond
-    for n, kernel in ((40, resident), (41, rowsplit)):
-        before = kernel.launches
-        tr.rank2_direction_batchminor(*rank2_case(torch, dev, n, 257))
-        check(kernel.launches == before + 1, f"the dispatcher did not take {kernel.__name__} at n={n}")
+    # K4b-c at the first and last n of its range with B = 1001 (one-word
+    # copies) and 4096, K4b at the first n past it, in float32 and float64;
+    # the dispatcher: K4a while the slab fits a block's shared memory, K4b-c
+    # while a CTA's rows fit, K4b beyond
+    forms = {"resident": ("K4a", resident), "cluster": ("K4b-c", cluster),
+             "rowsplit": ("K4b", rowsplit)}
+    for dtype in (torch.float32, torch.float64):
+        first = min(n for n in range(1, 512) if tr.direction_form(n, dtype) == "cluster")
+        last = max(n for n in range(1, 512) if tr.direction_form(n, dtype) == "cluster")
+        kind = str(dtype)[6:]
+        for n, b in ((first, 1001), (last, 1001), (last, 4096)):
+            case = rank2_case(torch, dev, n, b, dtype)
+            label = f"[{n}, {n}, {b}] {kind}"
+            same_bits("K4b-c", hold("K4b-c", cluster, bm_twin, case, n, label),
+                      hold("K4b", rowsplit, bm_twin, case, n, label), label)
+        for n in (first - 1, first, last, last + 1):
+            kid, kernel = forms[tr.direction_form(n, dtype)]
+            check(kid == ("K4b-c" if first <= n <= last else "K4a" if n < first else "K4b"),
+                  f"direction_form({n}, {dtype}) is {kid}")
+            before = kernel.launches
+            tr.rank2_direction_batchminor(*rank2_case(torch, dev, n, 257, dtype))
+            check(kernel.launches == before + 1, f"the dispatcher did not take {kid} at n={n}")
+        hold("K4b", rowsplit, bm_twin, rank2_case(torch, dev, last + 1, 257, dtype), last + 1,
+             f"[{last + 1}, {last + 1}, 257] {kind}")
+        log(f"[11] the dispatcher takes K4a up to n = {first - 1}, K4b-c for n = {first} to "
+            f"{last}, K4b from {last + 1} ({kind})")
     batched, b_twin = tr.rank2_update_batched_kernel, tr.rank2_update_batched_reference
     Hb = hold("K4c", batched, b_twin, leading_batch(main), BFGS_N,
               f"[{BFGS_B}, {BFGS_N}, {BFGS_N}] f32")[0]
@@ -1073,6 +1237,7 @@ def rank2_counts():
     from nlsolver_torch.ops import rank2 as tr
 
     return {"K4a": tr.rank2_direction_batchminor_resident.launches,
+            "K4b-c": tr.rank2_direction_batchminor_cluster.launches,
             "K4b": tr.rank2_direction_batchminor_rowsplit.launches,
             "K4c": tr.rank2_update_batched_kernel.launches}
 
@@ -1150,14 +1315,17 @@ def phase_bfgs_slice(torch, dev):
     check(float(res.f_value.max()) < 1e-6 and float((res.x - 1.0).abs().max()) < 1e-2,
           "the Rosenbrock fleet did not reach (1, 1)")
 
-    wide_cols, wide_centers, _ = bowls_scenario(WIDE_B, WIDE_N, seed=2, device=dev)
-    res, steps = drive(f"wide bowls [{WIDE_N}, {WIDE_B}]", wide_cols,
-                       torch.zeros(WIDE_N, WIDE_B, device=dev), BFGSFleetConfig(max_iter=30), "K4b")
-    off = float((res.x - wide_centers).abs().max())
-    log(f"[12] wide bowls: max |x - center| {off:.3e}, converged "
-        f"{float(res.converged.float().mean()):.6f}")
-    check(off < 5e-2, "the wide fleet is far off its centers")
-    launches["K4b"] = steps
+    # wide fleets: through K4b-c at WIDE_N, through K4b at the first n
+    # past K4b-c's range
+    for n, b, kid in ((WIDE_N, WIDE_B, "K4b-c"), (WIDE_K4B_N, WIDE_K4B_B, "K4b")):
+        wide_cols, wide_centers, _ = bowls_scenario(b, n, seed=2, device=dev)
+        res, steps = drive(f"wide bowls [{n}, {b}]", wide_cols, torch.zeros(n, b, device=dev),
+                           BFGSFleetConfig(max_iter=30), kid)
+        off = float((res.x - wide_centers).abs().max())
+        log(f"[12] wide bowls [{n}, {b}]: max |x - center| {off:.3e}, converged "
+            f"{float(res.converged.float().mean()):.6f}")
+        check(off < 5e-2, f"the wide fleet [{n}, {b}] is far off its centers")
+        launches[kid] = steps
 
     # K4c's path: the public leading-batch update (no solver calls it)
     args = leading_batch(rank2_case(torch, dev, BFGS_N, BFGS_B, seed=12))
@@ -1165,7 +1333,8 @@ def phase_bfgs_slice(torch, dev):
     out = ops.rank2_update_batched(*args)
     torch.cuda.synchronize()
     counts = rank2_counts()
-    check(counts == {"K4a": 0, "K4b": 0, "K4c": 1}, f"ops.rank2_update_batched launched {counts}")
+    check(counts == {"K4a": 0, "K4b-c": 0, "K4b": 0, "K4c": 1},
+          f"ops.rank2_update_batched launched {counts}")
     check(tuple(out.shape) == (BFGS_B, BFGS_N, BFGS_N) and bool(torch.isfinite(out).all()),
           "ops.rank2_update_batched: non-finite or misshapen")
     log(f"[12] ops.rank2_update_batched [{BFGS_B}, {BFGS_N}, {BFGS_N}]: launches {counts}")
@@ -1192,6 +1361,7 @@ def phase_bfgs_timing(torch, dev):
     times = {
         "K4a": (lambda: tr.rank2_direction_batchminor_resident(*main), lambda: bm_twin(*main)),
         "K4b": (lambda: tr.rank2_direction_batchminor_rowsplit(*wide), lambda: bm_twin(*wide)),
+        "K4b-c": (lambda: tr.rank2_direction_batchminor_cluster(*wide), lambda: bm_twin(*wide)),
         "K4b n=16": (lambda: tr.rank2_direction_batchminor_rowsplit(*main), lambda: bm_twin(*main)),
         "K4c": (lambda: tr.rank2_update_batched_kernel(*lead),
                 lambda: tr.rank2_update_batched_reference(*lead)),
@@ -1559,7 +1729,8 @@ def phases_earlier(torch, dev):
     # an issue floor above the time measured would be no floor: the model
     # (4 warp-instructions a clock an SM) held against the card
     for kid, times in (("K1s", de_times["K1s"]), ("K2b-r", alone["K2b-r"]),
-                       ("K2b-w", alone["K2b-w"])):
+                       ("K2b-w", alone["K2b-w"]), ("K2a-w", alone["K2a-w"]),
+                       ("K4b-c", alone["K4b-c"])):
         log(f"[10] {kid}: {times[0] * 1e3:.2f} us of device time against its issue floor "
             f"{FLOORS[kid] * 1e3:.2f} us")
         check(FLOORS[kid] <= times[0], f"{kid}'s issue floor lies above its time")
@@ -1575,9 +1746,13 @@ def phases_earlier(torch, dev):
                    max_err, de_times["K1s"], de_bound(B, N, P), FLOORS["K1s"]),
         kernel_row("de_generation_global", csrc + "de_fused.cu", TPU_KERNEL, de_launches["K1g"],
                    max_err, de_times["K1g"], de_bound(*DE_WIDE[:3])),
-        # A in, R and Q out
-        kernel_row("qr_wavefront_kernel", csrc + "qr_wavefront.cu", tpu + "qr_wavefront.py:150",
-                   qr_launches, qr_err, alone["K2a"],
+        # A in, R and Q out; both forms timed at [16, 16, 4096], the device-
+        # memory form launched on its path past the warp form's range
+        kernel_row("qr_wavefront_warp", csrc + "qr_wavefront.cu", tpu + "qr_wavefront.py:150",
+                   qr_launches["K2a-w"], qr_err, alone["K2a-w"],
+                   bound(3 * 16 * 16 * 4096 * 4, givens_ops(16, 16, 16) * 4096), FLOORS["K2a-w"]),
+        kernel_row("qr_wavefront_global", csrc + "qr_wavefront.cu", tpu + "qr_wavefront.py:150",
+                   qr_launches["K2a"], qr_err, alone["K2a"],
                    bound(3 * 16 * 16 * 4096 * 4, givens_ops(16, 16, 16) * 4096)),
         # A and y in, x out; each form at the fleet it serves
         kernel_row("least_squares_wavefront_registers", csrc + "qr_wavefront.cu", k2b,
@@ -1601,6 +1776,11 @@ def phases_earlier(torch, dev):
         kernel_row("rank2_direction_batchminor_resident", csrc + "rank2.cu", tpu + "rank2.py:280",
                    bfgs_launches["K4a"], rank2_err["K4a"], alone["K4a"],
                    rank2_bound(BFGS_N, BFGS_B)),
+        # both timed at the wide fleet's [128, 128, 4096]; K4b launched by
+        # the fleet past K4b-c's range
+        kernel_row("rank2_direction_batchminor_cluster", csrc + "rank2.cu", tpu + "rank2.py:214",
+                   bfgs_launches["K4b-c"], rank2_err["K4b-c"], alone["K4b-c"],
+                   rank2_bound(WIDE_N, WIDE_B), FLOORS["K4b-c"]),
         kernel_row("rank2_direction_batchminor_rowsplit", csrc + "rank2.cu", tpu + "rank2.py:214",
                    bfgs_launches["K4b"], rank2_err["K4b"], alone["K4b"],
                    rank2_bound(WIDE_N, WIDE_B)),

@@ -1,6 +1,7 @@
 """Benchmark scenarios of the port (counterpart of
 ``nlsolver_tpu.benches``): the batched-DE headline, the NLLS fleet, the
-BFGS fleet, the batched eigensolvers and the CMA-ES fleet.
+BFGS fleet, the batched eigensolvers and the CMA-ES fleet, and the probes
+and sweeps of the kernels' forms.
 
 Method, as in the JAX package: a fixed-trip run so every run does the
 same work, warm-up runs, then the median of the timed runs, each fenced
@@ -408,6 +409,77 @@ def probe_least_squares_warp(n=30, m=78, B=4096, lanes=(1, 2, 4, 8), reps=20):
     return out
 
 
+def rank2_scenario(n: int, B: int, seed: int = 0, device="cuda", dtype=torch.float32):
+    """A batch-minor BFGS update on the card: H [n, n, B] symmetric positive
+    definite, s, y, g [n, B] ~ N(0, 1), rho [B] in [0.1, 2), reset on every
+    third lane."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    M = torch.randn((B, n, n), generator=g, device=device, dtype=dtype)
+    H = (M @ M.transpose(1, 2) / n + torch.eye(n, device=device, dtype=dtype)).permute(1, 2, 0)
+    s, y, grad = (torch.randn((n, B), generator=g, device=device, dtype=dtype) for _ in range(3))
+    rho = 0.1 + 1.9 * torch.rand(B, generator=g, device=device, dtype=dtype)
+    return H.contiguous(), s, y, grad, rho, torch.arange(B, device=device) % 3 == 0
+
+
+def probe_rank2_cluster(n=128, B=4096, sizes=(2, 4, 8, 16), lanes=(4, 8, 16, 32), reps=30):
+    """K4b-c with each cluster of ``sizes`` CTAs and tile of ``lanes`` lanes
+    that takes n (``cluster_takes``), on ``rank2_scenario(n, B)``, f32:
+    device time in ms behind a device sleep, the least of two, each result
+    bit-equal to K4b's; K4b beside them."""
+    from ..ops import rank2 as tr
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("probe_rank2_cluster measures a CUDA card; none is available")
+    case = rank2_scenario(n, B)
+    want = tr.rank2_direction_batchminor_rowsplit(*case)
+    out = {"n": n, "B": B, "default": (tr.CLUSTER_SIZE, tr.CLUSTER_LANES),
+           "rowsplit_ms": min(device_ms(lambda: tr.rank2_direction_batchminor_rowsplit(*case), reps)
+                              for _ in range(2))}
+    for size in sizes:
+        for tile in lanes:
+            if not tr.cluster_takes(n, case[0].dtype, size, tile):
+                continue
+            run = functools.partial(tr.rank2_direction_batchminor_cluster, *case, size=size,
+                                    lanes=tile)
+            got = run()
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise RuntimeError(f"probe_rank2_cluster: {size} CTAs, {tile} lanes differ from K4b")
+            out[f"C{size}_TB{tile}_ms"] = min(device_ms(run, reps) for _ in range(2))
+    return out
+
+
+def sweep_qr(ns=(4, 8, 16, 32, 64), Bs=(1024, 4096, 16384, 65536), reps=5, global_up_to=32):
+    """K2a's forms with Q across shapes, f32, ``A [n, n, B]`` ~ N(0, 1): the
+    device time in ms of the warp form, of the device-memory form (up to n =
+    ``global_up_to``) and of ``torch.linalg.qr`` (complete, on ``[B, n,
+    n]``), each behind a device sleep, the least of two; the warp form's R
+    and Q bit-equal to the device-memory form's."""
+    from ..ops import qr_wavefront as tqw
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("sweep_qr measures a CUDA card; none is available")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for n in ns:
+        for B in Bs:
+            A = torch.randn((n, n, B), generator=g, device="cuda")
+            Al = A.permute(2, 0, 1).contiguous()
+            row = {"n": n, "B": B, "lanes": tqw.qr_warp_lanes(n, n, A.dtype, True)}
+            warp = functools.partial(tqw.qr_wavefront_warp, A, compute_q=True)
+            row["warp_ms"] = min(device_ms(warp, reps) for _ in range(2))
+            row["global_ms"] = None
+            if n <= global_up_to:
+                glob = functools.partial(tqw.qr_wavefront_global, A, compute_q=True)
+                (R, Q), (gR, gQ) = warp(), glob()
+                if not (torch.equal(R, gR) and torch.equal(Q, gQ)):
+                    raise RuntimeError(f"sweep_qr: the forms differ at n={n}, B={B}")
+                row["global_ms"] = min(device_ms(glob, reps) for _ in range(2))
+            row["library_ms"] = min(device_ms(lambda: torch.linalg.qr(Al, mode="complete"), reps,
+                                              strict=False) for _ in range(2))
+            rows.append(row)
+    return rows
+
+
 def bowls_scenario(B: int, dim: int = 16, seed: int = 0, device="cuda", dtype=torch.float32):
     """The BFGS fleet's scenario (the JAX package's config #4a): ``B``
     anisotropic bowls ``f_b(x) = sum(scales_b * (x - centers_b)**2)`` with
@@ -428,8 +500,8 @@ def bench_bfgs_fleet(B=65536, dim=16, runs=5, linesearch="more_thuente"):
     """The BFGS fleet on ``B`` bowls (``bowls_scenario``), f32,
     ``max_iter=30``, from ``X0 = zeros(dim, B)``, run until every lane
     halts.  ``linesearch`` is ``more_thuente`` or ``speculative``; the
-    rank-2 update + direction runs through kernel K4a (K4b where ``dim`` is
-    too large for it).  One warm-up, then the median of ``runs``."""
+    rank-2 update + direction runs through kernel K4a (K4b-c or K4b where
+    ``dim`` is too large for it).  One warm-up, then the median of ``runs``."""
     if not torch.cuda.is_available():
         raise RuntimeError("bench_bfgs_fleet measures a CUDA card; none is available")
     device = torch.device("cuda")

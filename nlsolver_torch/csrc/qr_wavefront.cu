@@ -39,9 +39,13 @@
 //     device memory (the scratch R and qty the wrapper allocates), read and
 //     written some 330 times a lane at [34, 2]; every n, for n past the
 //     warp form's.
-// K2a (qr_wavefront_kernel, no kSolve) writes all of R and, with Q, Q^T
-// [m, m, B]; with few lanes (4096 at [16, 16]) it fills a fraction of the
-// card and is bound by each thread's chain of dependent rotations.
+// K2a comes in two forms, chosen by (m, n), dtype and Q in
+// ops/qr_wavefront.py: qr_warp_kernel<T, kQ, Q> (K2a-w, below) gives a
+// lane a warp and keeps its [R | Q^T] in shared memory; past its range
+// qr_wavefront_kernel (no kSolve) writes all of R and, with Q, Q^T [m, m,
+// B] in device memory, a thread a lane: with few lanes (4096 at [16, 16])
+// it fills a fraction of the card and is bound by each thread's chain of
+// dependent rotations.
 //
 // Arithmetic: each step is rounded as the plain PyTorch twin
 // (nlsolver_torch/linalg/qr_parallel.py) rounds it: the Givens
@@ -441,6 +445,137 @@ int launch_warp(const T* A, const T* y, T* x, int m, int n, int64_t B, int lanes
   return static_cast<int>(cudaGetLastError());
 }
 
+// K2a-w, one warp a lane.  Replaces qr_wavefront_pallas
+// (nlsolver_tpu/ops/qr_wavefront.py:114) where a lane's [R | Q^T] fits a
+// block's shared memory.  What bounds K2a with a thread a lane: each
+// lane's chain of some m n rotations, every one a round trip of two rows
+// of R and of Q^T through L2, with 4096 lanes on 16 of the 132 SMs.  K2b-w's
+// scheme applied to the QR:
+//   * a lane's [R | Q^T] is one m x (n + m) array (m x n without Q), in
+//     the warp's shared memory, [row][column]; thread t owns columns t,
+//     t + 32, .., so a warp's accesses fall in distinct banks;
+//   * at each of the m + n - 2 stages the threads owning the stage's pivot
+//     columns j form every (c, s) at once from R[p, j] and R[q, j], into a
+//     row of 2 n coefficients; after a warp barrier every thread turns its
+//     own columns of every row pair of the stage, all n columns of R, as
+//     the twin does, so that R is bit-equal below the diagonal too, and all
+//     m columns of Q^T.  A second warp barrier keeps the next stage's
+//     coefficients off the row until every thread has read it; a thread
+//     forms a pivot only from columns it turned itself;
+//   * a block's W lanes (one warp each) fetch A entry by entry together, W
+//     neighbouring words an entry, by cp.async, and store R and Q^T the
+//     same way; a warp's words are odd in number, so the W words of an
+//     entry fall in distinct banks.
+// A warp needs m (n + m) + 2 n words (m n + 2 n without Q): m = n <= 169 in
+// f32 and 120 in f64 with Q.  One kernel per Q = ceil(columns / 32), the
+// words a thread a row, so a thread's columns unroll.  Every value goes
+// through the twin's operations in its order, so R and Q equal the twin's
+// bit for bit.
+template <typename T, bool kQ, int Q>
+__global__ void qr_warp_kernel(const T* __restrict__ A, T* __restrict__ R, T* __restrict__ Qt,
+                               int m, int n, int64_t B) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int W = blockDim.x >> 5, shift = __ffs(W) - 1;  // lanes a block, a power of two
+  const int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
+  const int cols = kQ ? n + m : n;
+  const int words = (m * cols + 2 * n) | 1;
+  T* all = reinterpret_cast<T*>(smem);
+  T* X = all + warp * words;
+  T* coef = X + m * cols;  // (c, s) of pivot column j at 2 j, 2 j + 1
+  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * W;
+  const bool live = b0 + warp < B;
+
+  for (int e = threadIdx.x; e < (m * n) << shift; e += blockDim.x) {
+    const int at = e >> shift, w = e & (W - 1);
+    if (b0 + w < B) {
+      const int i = at / n, c = at - i * n;
+      __pipeline_memcpy_async(all + w * words + i * cols + c,
+                              A + static_cast<int64_t>(at) * B + b0 + w, sizeof(T));
+    }
+  }
+  __pipeline_commit();
+  if (kQ)
+    for (int e = t; e < m * m; e += 32) {
+      const int i = e / m, j = e - i * m;
+      X[i * cols + n + j] = T(i == j);
+    }
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  if (live) {
+#pragma unroll 1
+    for (int k = 0; k <= m + n - 3; ++k) {
+      const int j_lo = max(0, k - m + 2), j_hi = min(n - 1, k / 2);
+      // the rotation of column j turns rows (p, p + 1), p = m - 2 - k + 2 j
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const int j = t + 32 * q;
+        if (j >= j_lo && j <= j_hi) {
+          const T* xp = X + (m - 2 - k + 2 * j) * cols;
+          givens(xp[j], xp[cols + j], coef[2 * j], coef[2 * j + 1]);
+        }
+      }
+      __syncwarp();
+#pragma unroll 1
+      for (int j = j_lo; j <= j_hi; ++j) {
+        const T c = coef[2 * j], s = coef[2 * j + 1];
+        T* xp = X + (m - 2 - k + 2 * j) * cols;
+        T* xq = xp + cols;
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          const int col = t + 32 * q;
+          if (col < cols) {
+            const T vp = xp[col], vq = xq[col];
+            xp[col] = rn::add(rn::mul(c, vp), rn::mul(s, vq));
+            xq[col] = rn::add(rn::mul(c, vq), rn::mul(-s, vp));
+          }
+        }
+      }
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < (m * n) << shift; e += blockDim.x) {
+    const int at = e >> shift, w = e & (W - 1);
+    if (b0 + w < B) {
+      const int i = at / n, c = at - i * n;
+      R[static_cast<int64_t>(at) * B + b0 + w] = all[w * words + i * cols + c];
+    }
+  }
+  if (kQ)
+    for (int e = threadIdx.x; e < (m * m) << shift; e += blockDim.x) {
+      const int at = e >> shift, w = e & (W - 1);
+      if (b0 + w < B) {
+        const int i = at / m, j = at - i * m;
+        Qt[static_cast<int64_t>(at) * B + b0 + w] = all[w * words + i * cols + n + j];
+      }
+    }
+}
+
+// K2a-w's words a thread a row, Q = ceil(cols / 32), by word size and by
+// whether Q^T is formed: the widest arrays that fit 232448 bytes, m = n =
+// 169 with Q in f32 (338 columns) and 120 in f64 (240), n = 240 and 169
+// without
+constexpr int kQrWarpMaxQ32 = 11, kQrWarpMaxQ64 = 8, kQrWarpMaxR32 = 8, kQrWarpMaxR64 = 6;
+
+template <typename T, bool kQ, int Q>
+int launch_qr_warp(const T* A, T* R, T* Qt, int m, int n, int64_t B, int lanes, cudaStream_t s) {
+  const int cols = kQ ? n + m : n;
+  if constexpr (Q > 1) {
+    if (cols <= 32 * (Q - 1)) return launch_qr_warp<T, kQ, Q - 1>(A, R, Qt, m, n, B, lanes, s);
+  }
+  const int64_t smem = static_cast<int64_t>(lanes) * ((m * cols + 2 * n) | 1) * sizeof(T);
+  if (n < 1 || m < n || B < 1 || cols > 32 * Q || lanes < 1 || lanes > 32 ||
+      (lanes & (lanes - 1)) || smem > kMaxDynamicSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(qr_warp_kernel<T, kQ, Q>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned blocks = static_cast<unsigned>((B + lanes - 1) / lanes);
+  qr_warp_kernel<T, kQ, Q><<<blocks, 32 * lanes, smem, s>>>(A, R, Qt, m, n, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int N>
 int launch_registers(const T* A, const T* y, T* x, int m, int n, int64_t B,
                      cudaStream_t s) {
@@ -493,6 +628,25 @@ int launch(const void* A, const void* y, void* R, void* Qt, void* qty,
 
 NLSOLVER_QR_LAUNCHER(f32, float)
 NLSOLVER_QR_LAUNCHER(f64, double)
+
+// K2a-w, ``lanes`` warps a block (a power of two, 1 .. 32, whose arrays
+// fit 232448 bytes): A [m, n, B] -> R [m, n, B] (+ Q^T [m, m, B] when
+// compute_q).  Returns cudaGetLastError().
+#define NLSOLVER_QR_WARP_LAUNCHER(SUFFIX, T, MAXQ, MAXR)                             \
+  extern "C" int qr_wavefront_warp_##SUFFIX(const void* A, void* R, void* Qt, int m, \
+                                            int n, int64_t B, int compute_q,         \
+                                            int lanes, void* stream) {               \
+    const T* a = static_cast<const T*>(A);                                           \
+    const auto st = static_cast<cudaStream_t>(stream);                               \
+    if (compute_q)                                                                   \
+      return launch_qr_warp<T, true, MAXQ>(a, static_cast<T*>(R), static_cast<T*>(Qt), \
+                                           m, n, B, lanes, st);                      \
+    return launch_qr_warp<T, false, MAXR>(a, static_cast<T*>(R), nullptr, m, n, B,  \
+                                          lanes, st);                                \
+  }
+
+NLSOLVER_QR_WARP_LAUNCHER(f32, float, kQrWarpMaxQ32, kQrWarpMaxR32)
+NLSOLVER_QR_WARP_LAUNCHER(f64, double, kQrWarpMaxQ64, kQrWarpMaxR64)
 
 // K2b's register form, n = 1 .. kRegisterMaxN, its shared-memory form
 // with ``lanes`` threads a block and ``smem`` bytes of dynamic shared memory,

@@ -1,17 +1,19 @@
-// BFGS rank-2 inverse-Hessian update for Hopper (sm_90a), three kernels:
+// BFGS rank-2 inverse-Hessian update for Hopper (sm_90a), four kernels:
 //
-//   K4a  rank2_resident   batch-minor update + next direction, H read once
-//   K4b  rank2_rowsplit   the same for n too large for one resident slab
-//   K4c  rank2_batched    the update alone on the leading-batch layout
+//   K4a    rank2_resident   batch-minor update + next direction, H read once
+//   K4b-c  rank2_cluster    the same for n past K4a's slab, over a cluster
+//   K4b    rank2_rowsplit   the same for n past K4b-c's, H read twice
+//   K4c    rank2_batched    the update alone on the leading-batch layout
 //
 // They replace nlsolver_tpu/ops/rank2.py: rank2_direction_batchminor_pallas
 // (_bm_kernel), rank2_direction_batchminor_pallas_rowtiled
-// (_bm_rowtiled_kernel) and rank2_update_batched_pallas (_kernel).  Per lane b
+// (_bm_rowtiled_kernel; K4b-c and K4b) and rank2_update_batched_pallas
+// (_kernel).  Per lane b
 //
 //   Heff = I where reset[b] else H
 //   Hy   = Heff y,   coef = rho (1 + rho y^T Hy)
 //   H'   = Heff - rho (s Hy^T + Hy s^T) + coef s s^T
-//   d'   = -H' g                                   (K4a and K4b only)
+//   d'   = -H' g                                   (K4a, K4b-c and K4b)
 //
 // What bounds them: bytes.  Each lane moves 2 n^2 + 4 n words (H in and out,
 // s, y, g in, d' out) against some 13 n^2 floating-point operations, far
@@ -29,6 +31,25 @@
 // them and accumulates d'.  H is read once and written once.  The slab and
 // the four vectors need (n^2 + 4 n) TB words: with TB = 32 and the 232448
 // bytes a block may opt in to, n <= 40 in f32 and n <= 28 in f64.
+//
+// K4b-c: K4a's slab split by rows over a thread-block cluster of C CTAs.
+// The cluster takes a tile of TB lanes (TB = 8 f32 lanes are one 32-byte
+// sector of an entry); CTA k stages rows k R .. k R + R - 1 (R = ceil(n /
+// C)) of the tile's H and all of s, y, g in its shared memory by 16-byte
+// cp.async (4-byte ones where B or a pointer leaves a lane group
+// unaligned), skipping a group whose lanes all reset, the whole slab in
+// flight at once in two chunks of columns; thread (lane, row) sums Hy over
+// each chunk as it lands (a reset lane's row takes the identity in
+// place).  A cluster barrier, then each CTA gathers the rest of Hy [n, TB]
+// from its peers through distributed shared memory: n TB words, not H.
+// Every CTA sums y^T Hy itself in ascending i, so the coefficient is the
+// same in each, and forms its rows of H' in place, chunk by chunk, each
+// chunk leaving by 16-byte stores while the next is formed.  H is read once
+// and written once, where K4b reads it twice; the sums are K4b's, in its
+// order, so K4b-c equals K4b bit for bit.  A row of the slab is n | 1
+// entries long (odd), so the four rows a warp reads at once fall in
+// distinct banks.  The slab and vectors need (R (n | 1) + 4 n) TB words a
+// CTA: at TB = 8 and C = 8, n <= 224 in f32 and n <= 152 in f64.
 //
 // K4b: any n.  Three launches on one stream: Hy [n, B] by threads (i, b)
 // over a 2-D grid of (lane tile, row block); coef [B] by one thread a lane;
@@ -49,11 +70,16 @@
 // which is not torch.sum's order, so the kernels agree with the twins to a
 // few ulp times n, and bit for bit where n <= 2.
 
+#include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "rn_math.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -239,6 +265,229 @@ int launch_rowsplit(const void* H, const void* s, const void* y, const void* g, 
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------- K4b-c
+
+// The cluster barrier in its two halves: a CTA arrives once it has read
+// what it needs of its peers' shared memory, and waits before it exits, so
+// that no CTA leaves while a peer may still read its Hy
+__device__ inline void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" : : : "memory");
+}
+__device__ inline void cluster_wait() { asm volatile("barrier.cluster.wait;\n" : : : "memory"); }
+
+// 16 bytes of W words, or one word: a lane group's unit of copy
+template <typename T, int W>
+using LaneGroup = typename std::conditional<W * sizeof(T) == 16, uint4, T>::type;
+
+// Calls f(i, j) for this thread's share of the entries i < rows, j0 <= j <
+// j1: the flat index i (j1 - j0) + j - j0 from t / per in steps of NT /
+// per, carried without a division a step
+template <typename F>
+__device__ inline void walk_entries(int t, int per, int NT, int rows, int j0, int j1, F&& f) {
+  const int width = j1 - j0;
+  if (width <= 0) return;
+  const int first = t / per, stride = NT / per;
+  const int di = stride / width, dj = stride - di * width;
+  int i = first / width, j = first - i * width;
+  while (i < rows) {
+    f(i, j0 + j);
+    i += di;
+    j += dj;
+    if (j >= width) {
+      j -= width;
+      ++i;
+    }
+  }
+}
+
+// the columns come in kChunks chunks: chunk c + 1 of the slab is in flight
+// while Hy sums over chunk c, and H' of chunk c is stored while the rows of
+// chunk c + 1 are formed
+constexpr int kChunks = 2;
+constexpr int kMaxCluster = 16;
+constexpr int kGather = 8;
+constexpr int kClusterThreads = 256;  // the most threads a CTA: a row and lane each
+
+// One cluster of C CTAs a tile of TB = blockDim.x lanes; thread (tb, r) of
+// CTA k owns row k R + r of its lane (RT = blockDim.y >= R).  W: lanes a
+// copy moves (16 bytes, or one word).
+template <typename T, int W>
+__global__ void __launch_bounds__(kClusterThreads)
+    rank2_cluster_kernel(const T* __restrict__ H, const T* __restrict__ s,
+                         const T* __restrict__ y, const T* __restrict__ g,
+                         const T* __restrict__ rho, const uint8_t* __restrict__ reset,
+                         T* __restrict__ Hout, T* __restrict__ dout, int n, int R, int64_t B) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int k = static_cast<int>(cluster.block_rank());
+  const int TB = blockDim.x, RT = blockDim.y;
+  const int tb = threadIdx.x, r = threadIdx.y;
+  const int t = r * TB + tb, NT = TB * RT;
+  const int ld = n | 1;
+  const int lo = k * R, rows = max(0, min(R, n - lo)), gi = lo + r;
+  const bool mine = r < rows;  // this thread owns row gi
+  const int64_t b0 = static_cast<int64_t>(blockIdx.x / C) * TB, b = b0 + tb;
+  const bool live = b < B;
+  const bool rst = live && reset[b] != 0;
+  T* sH = reinterpret_cast<T*>(smem_raw);           // [R][ld][TB], row lo + i at i
+  T* ss = sH + static_cast<size_t>(R) * ld * TB;    // [n][TB] each
+  T* sy = ss + n * TB;
+  T* sg = sy + n * TB;
+  T* sHy = sg + n * TB;
+  T* hrow = sH + static_cast<size_t>(r) * ld * TB + tb;  // row gi of this lane, stride TB
+  const auto chunk = [n](int ch) { return ch * n / kChunks; };
+
+  // the lanes whose H is read, bit tb: each warp holds every lane of the
+  // tile (TB divides 32), the last one perhaps fewer than 32 threads
+  const int first = t & ~31;
+  const unsigned warp_mask = NT - first >= 32 ? 0xffffffffu : (1u << (NT - first)) - 1u;
+  const unsigned wanted = __ballot_sync(warp_mask, live && !rst);
+  const int per = TB / W, c = t % per;  // lane groups an entry, and this thread's
+  const bool group_live = b0 + c * W < B;
+  const bool group_wanted = (wanted >> (c * W)) & ((1u << W) - 1u);
+  // this thread's lane group of entry (lo + i, j): in the slab, in H and H'
+  const auto slab = [&](int i, int j) {
+    return sH + (static_cast<size_t>(i) * ld + j) * TB + c * W;
+  };
+  const auto dram = [&](int i, int j) {
+    return (static_cast<int64_t>(lo + i) * n + j) * B + b0 + c * W;
+  };
+  for (int q = t; q < n * per; q += NT) {
+    const int j = q / per, cq = q - j * per;
+    if (b0 + cq * W < B) {
+      const int64_t from = static_cast<int64_t>(j) * B + b0 + cq * W;
+      const int to = j * TB + cq * W;
+      __pipeline_memcpy_async(ss + to, s + from, W * sizeof(T));
+      __pipeline_memcpy_async(sy + to, y + from, W * sizeof(T));
+      __pipeline_memcpy_async(sg + to, g + from, W * sizeof(T));
+    }
+  }
+  for (int ch = 0; ch < kChunks; ++ch) {
+    if (group_wanted)
+      walk_entries(t, per, NT, rows, chunk(ch), chunk(ch + 1), [&](int i, int j) {
+        __pipeline_memcpy_async(slab(i, j), H + dram(i, j), W * sizeof(T));
+      });
+    __pipeline_commit();
+  }
+
+  // Hy of this CTA's rows chunk by chunk, in ascending j; a reset lane's
+  // row takes the identity once its chunk has landed
+  T acc = T(0);
+#pragma unroll
+  for (int ch = 0; ch < kChunks; ++ch) {
+    __pipeline_wait_prior(kChunks - 1 - ch);
+    __syncthreads();
+    if (mine) {
+      const int j0 = chunk(ch), j1 = chunk(ch + 1);
+      if (rst)
+        for (int j = j0; j < j1; ++j) hrow[j * TB] = T(gi == j);
+      for (int j = j0; j < j1; ++j) acc = rn::add(acc, rn::mul(hrow[j * TB], sy[j * TB + tb]));
+    }
+  }
+  if (mine) sHy[gi * TB + tb] = acc;
+  // every CTA holds its rows of Hy, and every CTA of the cluster runs
+  cluster.sync();
+  // the other CTAs' rows of Hy, kGather loads in flight before any store
+  for (int o0 = 0; o0 < C; o0 += kGather) {
+    T got[kGather];
+    const int span = R * TB;
+#pragma unroll
+    for (int u = 0; u < kGather; ++u) {
+      const int o = o0 + u, q = o * span + t;
+      if (o < C && o != k && t < span && q < n * TB) got[u] = cluster.map_shared_rank(sHy, o)[q];
+    }
+#pragma unroll
+    for (int u = 0; u < kGather; ++u) {
+      const int o = o0 + u, q = o * span + t;
+      if (o < C && o != k && t < span && q < n * TB) sHy[q] = got[u];
+    }
+  }
+  cluster_arrive();
+  __syncthreads();
+  T yHy = T(0);
+  for (int i = 0; i < n; ++i) yHy = rn::add(yHy, rn::mul(sy[i * TB + tb], sHy[i * TB + tb]));
+  const T rb = live ? rho[b] : T(0);
+  const T cb = coefficient(rb, yHy);
+
+  // H' in place of Heff and d', chunk by chunk in ascending j; each chunk
+  // of H' leaves by 16-byte stores while the next is formed
+  acc = T(0);
+  const T si = mine ? ss[gi * TB + tb] : T(0), hyi = mine ? sHy[gi * TB + tb] : T(0);
+  for (int ch = 0; ch < kChunks; ++ch) {
+    const int j0 = chunk(ch), j1 = chunk(ch + 1);
+    if (mine)
+      for (int j = j0; j < j1; ++j) {
+        const T hn = updated(hrow[j * TB], rb, cb, si, ss[j * TB + tb], hyi, sHy[j * TB + tb]);
+        hrow[j * TB] = hn;
+        acc = rn::add(acc, rn::mul(hn, sg[j * TB + tb]));
+      }
+    __syncthreads();
+    if (group_live)
+      walk_entries(t, per, NT, rows, j0, j1, [&](int i, int j) {
+        *reinterpret_cast<LaneGroup<T, W>*>(Hout + dram(i, j)) =
+            *reinterpret_cast<const LaneGroup<T, W>*>(slab(i, j));
+      });
+  }
+  if (live && mine) dout[static_cast<int64_t>(gi) * B + b] = -acc;
+  cluster_wait();
+}
+
+template <typename T, int W>
+int launch_cluster_width(const void* H, const void* s, const void* y, const void* g,
+                         const void* rho, const void* reset, void* Hout, void* dout, int n,
+                         int64_t B, int C, int TB, cudaStream_t st) {
+  const int R = (n + C - 1) / C;
+  // a thread a row and lane, in whole warps where the rows allow
+  const int step = TB < 32 ? 32 / TB : 1;
+  const int RT = (R + step - 1) / step * step;
+  if (RT * TB > kClusterThreads) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes =
+      (static_cast<size_t>(R) * (n | 1) + 4 * static_cast<size_t>(n)) * TB * sizeof(T);
+  if (bytes > static_cast<size_t>(kMaxDynamicSmem)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = rank2_cluster_kernel<T, W>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (C > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((B + TB - 1) / TB * C));
+  cfg.blockDim = dim3(TB, RT);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(H), static_cast<const T*>(s),
+                           static_cast<const T*>(y), static_cast<const T*>(g),
+                           static_cast<const T*>(rho), static_cast<const uint8_t*>(reset),
+                           static_cast<T*>(Hout), static_cast<T*>(dout), n, R, B);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 16-byte copies where every lane group of 16 bytes is whole and aligned
+template <typename T>
+int launch_cluster(const void* H, const void* s, const void* y, const void* g, const void* rho,
+                   const void* reset, void* Hout, void* dout, int n, int64_t B, int C, int TB,
+                   void* stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (n < 1 || B < 1 || C < 1 || C > kMaxCluster || TB < kVec || TB > 32 || (TB & (TB - 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B % kVec == 0 && aligned(H) && aligned(s) && aligned(y) && aligned(g) && aligned(Hout))
+    return launch_cluster_width<T, kVec>(H, s, y, g, rho, reset, Hout, dout, n, B, C, TB, st);
+  return launch_cluster_width<T, 1>(H, s, y, g, rho, reset, Hout, dout, n, B, C, TB, st);
+}
+
 // ---------------------------------------------------------------- K4c
 
 template <typename T>
@@ -304,13 +553,20 @@ int launch_batched(const void* H, const void* s, const void* y, const void* rho,
 // Batch-minor: H, Hout [n, n, B]; s, y, g, dout [n, B]; rho [B]; reset [B]
 // bytes (non-zero: use the identity for H).  Leading-batch: H, Hout
 // [B, n, n]; s, y [B, n]; rho [B].  Hy [n, B] and coef [B] are scratch.
-// Each returns cudaGetLastError().
+// The cluster form takes C CTAs a cluster (1 .. 16) and TB lanes a tile (a
+// power of two, 1 .. 32).  Each returns cudaGetLastError().
 #define RANK2_ENTRY_POINTS(T, SUFFIX)                                                         \
   extern "C" int rank2_resident_##SUFFIX(const void* H, const void* s, const void* y,         \
                                          const void* g, const void* rho, const void* reset,   \
                                          void* Hout, void* dout, int n, int64_t B,            \
                                          void* stream) {                                      \
     return launch_resident<T>(H, s, y, g, rho, reset, Hout, dout, n, B, stream);              \
+  }                                                                                           \
+  extern "C" int rank2_cluster_##SUFFIX(const void* H, const void* s, const void* y,          \
+                                        const void* g, const void* rho, const void* reset,    \
+                                        void* Hout, void* dout, int n, int64_t B, int C,      \
+                                        int TB, void* stream) {                               \
+    return launch_cluster<T>(H, s, y, g, rho, reset, Hout, dout, n, B, C, TB, stream);        \
   }                                                                                           \
   extern "C" int rank2_rowsplit_##SUFFIX(const void* H, const void* s, const void* y,         \
                                          const void* g, const void* rho, const void* reset,   \

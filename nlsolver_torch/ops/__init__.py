@@ -9,11 +9,14 @@ from .eigh_jacobi import (
 from .qr_wavefront import (
     least_squares_wavefront_kernel,
     least_squares_wavefront_reference,
+    qr_wavefront_global,
     qr_wavefront_kernel,
     qr_wavefront_reference,
+    qr_wavefront_warp,
 )
 from .rank2 import (
     rank2_direction_batchminor,
+    rank2_direction_batchminor_cluster,
     rank2_direction_batchminor_kernel,
     rank2_direction_batchminor_reference,
     rank2_direction_batchminor_resident,
@@ -39,9 +42,12 @@ __all__ = [
     "eigh_jacobi_resident",
     "least_squares_wavefront_kernel",
     "least_squares_wavefront_reference",
+    "qr_wavefront_global",
     "qr_wavefront_kernel",
     "qr_wavefront_reference",
+    "qr_wavefront_warp",
     "rank2_direction_batchminor",
+    "rank2_direction_batchminor_cluster",
     "rank2_direction_batchminor_kernel",
     "rank2_direction_batchminor_reference",
     "rank2_direction_batchminor_resident",

@@ -9,6 +9,13 @@ tensors launch a kernel (float32 or float64, contiguous) or raise.  The
 JAX kernels' fallback to the jnp wavefront when VMEM is short, and their
 padding lanes, have no counterpart: K2a and K2b take every m >= n and B.
 
+K2a comes in two forms, chosen by (m, n), dtype and whether Q is formed
+(``qr_form``): ``qr_wavefront_warp`` (K2a-w) gives a lane a warp and keeps
+its ``[R | Q^T]`` in shared memory (``qr_warp_fits``: m = n <= 169 in
+float32 and 120 in float64 with Q, 240 and 169 without);
+``qr_wavefront_global`` works in device memory, a thread a lane, any
+shape.  Both are bit-equal to the twin.
+
 K2b keeps only the 2 n rows of the system that a stage of the wavefront
 touches, a window that slides down one row a stage, and comes in four
 forms, chosen by n and dtype alone (``least_squares_wavefront_kernel``):
@@ -44,6 +51,9 @@ SHARED_LANES = 32
 # do not fit a block's shared memory (``warp_lanes``).  On an H100 at [78,
 # 30, 4096] 1, 2, 4 and 8 took 0.511, 0.503, 0.502 and 0.498 ms
 WARP_LANES = 8
+# K2a's warp form: the most lanes (warps) a block; fewer where their arrays
+# do not fit a block's shared memory (``qr_warp_lanes``)
+QR_WARP_LANES = 8
 
 
 def qr_wavefront_reference(A: torch.Tensor, compute_q: bool = False):
@@ -103,14 +113,45 @@ def least_squares_form(n: int, dtype: torch.dtype) -> str:
     return "global"
 
 
+def qr_warp_bytes(m: int, n: int, dtype: torch.dtype, compute_q: bool) -> int:
+    """Shared memory of one warp (one lane) of K2a's warp form: its m x (n +
+    m) array [R | Q^T] (m x n without Q) and (c, s) of a stage's n pivots,
+    in an odd number of words."""
+    cols = n + m if compute_q else n
+    return ((m * cols + 2 * n) | 1) * torch.empty((), dtype=dtype).element_size()
+
+
+def qr_warp_fits(m: int, n: int, dtype: torch.dtype, compute_q: bool) -> bool:
+    """Whether K2a's warp form takes [m, n] in ``dtype``: one warp's array
+    fits a block's shared memory."""
+    return (dtype in _build.DTYPE_SUFFIX and 1 <= n <= m
+            and qr_warp_bytes(m, n, dtype, compute_q) <= MAX_DYNAMIC_SMEM)
+
+
+def qr_warp_lanes(m: int, n: int, dtype: torch.dtype, compute_q: bool) -> int:
+    """Lanes (warps) a block of K2a's warp form: ``QR_WARP_LANES``, halved
+    until their arrays fit a block's shared memory."""
+    lanes = QR_WARP_LANES
+    while lanes > 1 and lanes * qr_warp_bytes(m, n, dtype, compute_q) > MAX_DYNAMIC_SMEM:
+        lanes //= 2
+    return lanes
+
+
+def qr_form(m: int, n: int, dtype: torch.dtype, compute_q: bool) -> str:
+    """The form of K2a that the dispatcher gives [m, n] in ``dtype``:
+    "warp" where it fits, else "global"."""
+    return "warp" if qr_warp_fits(m, n, dtype, compute_q) else "global"
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher(entry: str, suffix: str):
-    """The C entry point: ``qr_wavefront`` (K2a and K2b's global form),
-    ``least_squares_registers``, ``least_squares_shared`` or
-    ``least_squares_warp``."""
+    """The C entry point: ``qr_wavefront`` (K2a's and K2b's device-memory
+    forms), ``qr_wavefront_warp``, ``least_squares_registers``,
+    ``least_squares_shared`` or ``least_squares_warp``."""
     fn = getattr(_build.load_library(), f"{entry}_{suffix}")
     vp, ci, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     fn.argtypes = {"qr_wavefront": [vp] * 6 + [ci, ci, i64, ci, ci, vp],
+                   "qr_wavefront_warp": [vp] * 3 + [ci, ci, i64, ci, ci, vp],
                    "least_squares_registers": [vp] * 3 + [ci, ci, i64, vp],
                    "least_squares_shared": [vp] * 3 + [ci, ci, i64, ci, ci, vp],
                    "least_squares_warp": [vp] * 3 + [ci, ci, i64, ci, vp]}[entry]
@@ -137,20 +178,63 @@ def _check_shape(A: torch.Tensor, name: str) -> None:
         raise ValueError(f"need m >= n, got {tuple(A.shape)}")
 
 
-def qr_wavefront_kernel(A: torch.Tensor, compute_q: bool = False):
-    """Batched QR of ``A [m, n, B]``: ``(R [m, n, B], Q [m, m, B] | None)``,
-    the schedule and rotations of ``linalg.qr_parallel``.  CUDA tensors run
-    kernel K2a; CPU tensors its twin."""
-    _check_shape(A, "qr_wavefront_kernel")
+def qr_wavefront_warp(A: torch.Tensor, compute_q: bool = False):
+    """K2a's warp form: a warp a lane, thread t holding columns t, t + 32,
+    .. of the lane's [R | Q^T] in shared memory, each stage's rotations
+    formed at once; a block's warps (``qr_warp_lanes``) fetch A and store R
+    and Q^T together.  Returns ``(R [m, n, B],
+    Q [m, m, B] | None)``.  CPU tensors run the twin; on a card it raises
+    where one warp's array does not fit a block (``qr_warp_fits``)."""
+    name = "qr_wavefront_warp"
+    _check_shape(A, name)
     if A.device.type == "cpu":
         return qr_wavefront_reference(A, compute_q)
-    _build.check_cuda_inputs("qr_wavefront_kernel", {"A": A})
+    _build.check_cuda_inputs(name, {"A": A})
+    m, n, B = A.shape
+    if not qr_warp_fits(m, n, A.dtype, compute_q):
+        raise ValueError(f"{name}: [{m}, {n}] in {A.dtype} does not fit a block's shared memory; "
+                         "qr_wavefront_global takes it")
+    R = torch.empty_like(A)
+    Qt = A.new_empty((m, m, B)) if compute_q else None
+    if B:
+        with torch.cuda.device(A.device):
+            stream = torch.cuda.current_stream(A.device).cuda_stream
+            err = _launcher("qr_wavefront_warp", _build.DTYPE_SUFFIX[A.dtype])(
+                A.data_ptr(), R.data_ptr(), None if Qt is None else Qt.data_ptr(), m, n, B,
+                int(compute_q), qr_warp_lanes(m, n, A.dtype, compute_q), stream)
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+        qr_wavefront_warp.launches += 1
+    return R, (Qt.transpose(0, 1) if compute_q else None)
+
+
+def qr_wavefront_global(A: torch.Tensor, compute_q: bool = False):
+    """K2a's device-memory form, any shape (the dispatcher's past the warp
+    form's): a thread a lane works on R and Q^T in device memory.  Returns
+    ``(R [m, n, B], Q [m, m, B] | None)``.  CPU tensors run the twin."""
+    _check_shape(A, "qr_wavefront_global")
+    if A.device.type == "cpu":
+        return qr_wavefront_reference(A, compute_q)
+    _build.check_cuda_inputs("qr_wavefront_global", {"A": A})
     m, n, B = A.shape
     R = torch.empty_like(A)
     Qt = A.new_empty((m, m, B)) if compute_q else None
     _launch(A, None, R, Qt, None, None, compute_q, False)
-    qr_wavefront_kernel.launches += 1
+    qr_wavefront_global.launches += 1
     return R, (Qt.transpose(0, 1) if compute_q else None)
+
+
+def qr_wavefront_kernel(A: torch.Tensor, compute_q: bool = False):
+    """Batched QR of ``A [m, n, B]``: ``(R [m, n, B], Q [m, m, B] | None)``,
+    the schedule and rotations of ``linalg.qr_parallel``.  CUDA tensors run
+    K2a in its warp form where [m, n] fits it, else in device memory
+    (``qr_form``); CPU tensors its twin."""
+    _check_shape(A, "qr_wavefront_kernel")
+    if A.device.type == "cpu":
+        return qr_wavefront_reference(A, compute_q)
+    m, n, _ = A.shape
+    form = {"warp": qr_wavefront_warp, "global": qr_wavefront_global}
+    return form[qr_form(m, n, A.dtype, compute_q)](A, compute_q)
 
 
 def _check_lstsq(name: str, A: torch.Tensor, y: torch.Tensor) -> tuple[int, int, int]:
@@ -270,7 +354,8 @@ def least_squares_wavefront_kernel(A: torch.Tensor, y: torch.Tensor) -> torch.Te
     return forms[least_squares_form(n, A.dtype)](A, y)
 
 
-qr_wavefront_kernel.launches = 0
+qr_wavefront_warp.launches = 0
+qr_wavefront_global.launches = 0
 least_squares_wavefront_registers.launches = 0
 least_squares_wavefront_shared.launches = 0
 least_squares_wavefront_warp.launches = 0

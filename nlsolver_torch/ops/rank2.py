@@ -12,10 +12,16 @@ Counterpart of ``nlsolver_tpu.ops.rank2``.  For B instances at once
   tensors it launches a kernel, on CPU tensors it runs the plain twin
   ``rank2_direction_batchminor_reference``.  The kernel is K4a
   (``rank2_direction_batchminor_resident``: one launch, H read once, its
-  slab staged in shared memory) for every n whose slab fits, and K4b
+  slab staged in shared memory) for every n whose slab fits a block
+  (``resident_fits``: n <= 40 in float32, 28 in float64), K4b-c
+  (``rank2_direction_batchminor_cluster``: the slab split by rows over a
+  thread-block cluster, Hy gathered through distributed shared memory, H
+  read once) for every n whose rows fit a cluster (``cluster_fits``: n <=
+  224 in float32, 152 in float64), and K4b
   (``rank2_direction_batchminor_rowsplit``: Hy and the coefficient in a
   first pass, then a row-local pass, H read twice) beyond;
-  ``rank2_direction_batchminor_kernel`` picks between them by n and dtype.
+  ``rank2_direction_batchminor_kernel`` picks by n and dtype alone
+  (``direction_form``).
 * ``rank2_update_batched(H [B, n, n], s, y [B, n], rho [B])`` is the
   leading-batch update alone: kernel K4c (``rank2_update_batched_kernel``)
   on CUDA tensors, the twin ``rank2_update_batched_reference`` on CPU
@@ -25,7 +31,8 @@ Counterpart of ``nlsolver_tpu.ops.rank2``.  For B instances at once
 The kernels sum in ascending index order with every operation rounded on
 its own, which is not ``torch.sum``'s order: they agree with the twins to a
 few ulp times n relative to max|H'| and max|d'| (``KERNEL_TOL_ULPS``), and
-bit for bit where n <= 2.
+bit for bit where n <= 2.  K4b-c takes K4b's steps and equals it bit for
+bit.
 """
 from __future__ import annotations
 
@@ -39,6 +46,12 @@ from ._build import MAX_DYNAMIC_SMEM
 
 # K4a's tile of lanes
 RESIDENT_TILE = 32
+# K4b-c: lanes a cluster takes (8 float32 lanes of an entry are one 32-byte
+# sector) and CTAs a cluster
+CLUSTER_LANES = 8
+CLUSTER_SIZE = 8
+# K4b-c's most threads a CTA (csrc/rank2.cu's kClusterThreads)
+CLUSTER_THREADS = 256
 # kernel against twin: |diff| <= KERNEL_TOL_ULPS * n * eps * max|twin|
 KERNEL_TOL_ULPS = 2
 
@@ -86,6 +99,41 @@ def resident_fits(n: int, dtype: torch.dtype) -> bool:
     return (n * n + 4 * n) * RESIDENT_TILE * itemsize <= MAX_DYNAMIC_SMEM
 
 
+def cluster_bytes(n: int, dtype: torch.dtype, size: int = CLUSTER_SIZE,
+                  lanes: int = CLUSTER_LANES) -> int:
+    """Dynamic shared memory of a CTA of K4b-c: its ceil(n / ``size``) rows
+    of H, each n | 1 entries long (odd, against bank conflicts), and s, y,
+    g and Hy [n], for ``lanes`` lanes."""
+    rows = -(-n // size)
+    return (rows * (n | 1) + 4 * n) * lanes * torch.empty((), dtype=dtype).element_size()
+
+
+def cluster_takes(n: int, dtype: torch.dtype, size: int, lanes: int) -> bool:
+    """Whether a cluster of ``size`` CTAs and a tile of ``lanes`` lanes (a
+    power of two, 16 bytes or more, up to 32) takes n in ``dtype``: a CTA's
+    rows fit its shared memory and, a thread a row and lane,
+    ``CLUSTER_THREADS`` threads."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return (dtype in _build.DTYPE_SUFFIX and n >= 1 and 1 <= size <= 16
+            and 16 // itemsize <= lanes <= 32 and lanes & (lanes - 1) == 0
+            and cluster_bytes(n, dtype, size, lanes) <= MAX_DYNAMIC_SMEM
+            and -(-n // size) * lanes <= CLUSTER_THREADS)
+
+
+def cluster_fits(n: int, dtype: torch.dtype) -> bool:
+    """Whether K4b-c takes n in ``dtype`` at ``CLUSTER_SIZE`` CTAs and
+    ``CLUSTER_LANES`` lanes: n <= 224 in float32 and n <= 152 in float64."""
+    return cluster_takes(n, dtype, CLUSTER_SIZE, CLUSTER_LANES)
+
+
+def direction_form(n: int, dtype: torch.dtype) -> str:
+    """The kernel the dispatcher gives n in ``dtype``: "resident" (K4a),
+    "cluster" (K4b-c) or "rowsplit" (K4b), the first that takes it."""
+    if resident_fits(n, dtype):
+        return "resident"
+    return "cluster" if cluster_fits(n, dtype) else "rowsplit"
+
+
 def batched_fits(n: int, dtype: torch.dtype) -> bool:
     """Whether one instance of K4c (H with padded rows, s, y, Hy) fits a
     block's shared memory: n <= 239 in float32, n <= 168 in float64."""
@@ -98,6 +146,15 @@ def _launcher(name: str, n_pointers: int):
     fn = getattr(_build.load_library(), name)
     fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_launcher(suffix: str):
+    fn = getattr(_build.load_library(), f"rank2_cluster_{suffix}")
+    ci = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ci, ctypes.c_int64, ci, ci, ctypes.c_void_p]
+    fn.restype = ci
     return fn
 
 
@@ -155,6 +212,32 @@ def rank2_direction_batchminor_resident(H, s, y, g, rho, reset):
 rank2_direction_batchminor_resident.launches = 0
 
 
+def rank2_direction_batchminor_cluster(H, s, y, g, rho, reset, size=CLUSTER_SIZE,
+                                       lanes=CLUSTER_LANES):
+    """Kernel K4b-c on CUDA tensors (float32 or float64, contiguous): a
+    cluster of ``size`` CTAs a tile of ``lanes`` lanes, each CTA holding
+    ceil(n / ``size``) rows of H in its shared memory; one launch, H read
+    once.  Raises where the rows do not fit (``cluster_bytes``)."""
+    name = "rank2_direction_batchminor_cluster"
+    n, B = _check_cuda_batchminor(name, H, s, y, g, rho, reset)
+    if not cluster_takes(n, H.dtype, size, lanes):
+        raise ValueError(f"{name}: n={n} in {H.dtype} does not fit the shared memory or threads "
+                         f"of a CTA of a cluster of {size} with {lanes} lanes; "
+                         "rank2_direction_batchminor_rowsplit takes it")
+    Hn, d = torch.empty_like(H), torch.empty_like(g)
+    with torch.cuda.device(H.device):
+        stream = torch.cuda.current_stream(H.device).cuda_stream
+        err = _cluster_launcher(_build.DTYPE_SUFFIX[H.dtype])(
+            *(t.data_ptr() for t in (H, s, y, g, rho, reset, Hn, d)), n, B, size, lanes, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+    rank2_direction_batchminor_cluster.launches += 1
+    return Hn, d
+
+
+rank2_direction_batchminor_cluster.launches = 0
+
+
 def rank2_direction_batchminor_rowsplit(H, s, y, g, rho, reset):
     """Kernel K4b on CUDA tensors (float32 or float64, contiguous), any n:
     Hy [n, B] and the coefficient [B] into scratch, then the row-local
@@ -172,10 +255,12 @@ rank2_direction_batchminor_rowsplit.launches = 0
 
 
 def rank2_direction_batchminor_kernel(H, s, y, g, rho, reset):
-    """K4a where its slab fits a block's shared memory, else K4b."""
-    if H.ndim == 3 and resident_fits(H.shape[0], H.dtype):
-        return rank2_direction_batchminor_resident(H, s, y, g, rho, reset)
-    return rank2_direction_batchminor_rowsplit(H, s, y, g, rho, reset)
+    """K4a where its slab fits a block's shared memory, else K4b-c where
+    its rows fit a cluster's, else K4b (``direction_form``)."""
+    form = direction_form(H.shape[0], H.dtype) if H.ndim == 3 else "rowsplit"
+    return {"resident": rank2_direction_batchminor_resident,
+            "cluster": rank2_direction_batchminor_cluster,
+            "rowsplit": rank2_direction_batchminor_rowsplit}[form](H, s, y, g, rho, reset)
 
 
 def rank2_direction_batchminor(H, s, y, g, rho, reset):

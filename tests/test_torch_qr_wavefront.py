@@ -1,8 +1,9 @@
 """Kernels K2a and K2b of nlsolver_torch (``ops.qr_wavefront``): the CPU
 route (the plain twins) against the JAX package's Pallas kernels in
 interpret mode and its jnp wavefront, plain-tensor emulations of the
-order of K2b's window and warp forms, the shapes each form takes and
-refuses, and the CUDA kernels against their twins (on a card only).
+order of K2a's warp form and of K2b's window and warp forms, the shapes
+each form takes and refuses, and the CUDA kernels against their twins (on
+a card only).
 
 JAX is imported only inside the tests that compare with it, so that the
 card's tests run where JAX is not installed:
@@ -62,8 +63,11 @@ LSTSQ_FORMS = (tqw.least_squares_wavefront_registers, tqw.least_squares_wavefron
                tqw.least_squares_wavefront_warp, tqw.least_squares_wavefront_global)
 
 
+QR_FORMS = (tqw.qr_wavefront_warp, tqw.qr_wavefront_global)
+
+
 def _counts():
-    return [f.launches for f in (tqw.qr_wavefront_kernel,) + LSTSQ_FORMS]
+    return [f.launches for f in QR_FORMS + LSTSQ_FORMS]
 
 
 def test_cpu_route_is_the_twin_and_no_launch():
@@ -72,10 +76,82 @@ def test_cpu_route_is_the_twin_and_no_launch():
     twin = tqw.least_squares_wavefront_reference(A, y)
     for solve in (tqw.least_squares_wavefront_kernel,) + LSTSQ_FORMS:
         assert torch.equal(solve(A, y), twin)
-    R, Q = tqw.qr_wavefront_kernel(A, compute_q=True)
     tR, tQ = tqw.qr_wavefront_reference(A, compute_q=True)
-    assert torch.equal(R, tR) and torch.equal(Q, tQ)
+    for qr in (tqw.qr_wavefront_kernel,) + QR_FORMS:
+        R, Q = qr(A, compute_q=True)
+        assert torch.equal(R, tR) and torch.equal(Q, tQ)
     assert _counts() == before
+
+
+def qr_warp_emulation(A, compute_q):
+    """K2a's warp form in plain torch ops: a lane's [R | Q^T] as one m x (n
+    + m) array (m x n without Q); at each stage every (c, s) is formed first
+    from the pivots before the stage (the kernel's row of coefficients),
+    then each of 32 threads turns its own columns (t, t + 32, ..) of every
+    row pair of the stage, all n columns of R and all m of Q^T."""
+    from nlsolver_torch.linalg.givens import givens_rotation
+
+    m, n, B = A.shape
+    cols = n + m if compute_q else n
+    X = torch.full((m, cols, B), float("nan"), dtype=A.dtype)
+    X[:, :n] = A
+    if compute_q:
+        X[:, n:] = torch.eye(m, dtype=A.dtype)[:, :, None]
+    for k in range(m + n - 2):
+        js = range(max(0, k - m + 2), min(n - 1, k // 2) + 1)
+        ps = [m - 2 - k + 2 * j for j in js]
+        cs = [givens_rotation(X[p, j], X[p + 1, j]) for j, p in zip(js, ps)]
+        for t in range(32):
+            mine = list(range(t, cols, 32))
+            for p, (c, s) in zip(ps, cs):
+                vp, vq = X[p, mine].clone(), X[p + 1, mine].clone()
+                X[p, mine], X[p + 1, mine] = c * vp + s * vq, c * vq + (-s) * vp
+    return X[:, :n], (X[:, n:].transpose(0, 1) if compute_q else None)
+
+
+# square and tall, one and two columns a thread (n + m past 32), m = n = 1
+QR_WARP_SHAPES = [(16, 16), (32, 8), (7, 3), (20, 19), (1, 1), (2, 1), (5, 5)]
+
+
+@pytest.mark.parametrize("deficient", [False, True])
+@pytest.mark.parametrize("compute_q", [True, False])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("m,n", QR_WARP_SHAPES)
+def test_qr_warp_order_equals_twin(m, n, dtype, compute_q, deficient):
+    """K2a-w's order (a stage's coefficients first, then the columns dealt
+    over 32 threads) is the twin's bit for bit, R below the diagonal and Q
+    included; a zero column makes a = b = 0, the identity select."""
+    A = torch.from_numpy(_system(10, m, n, 8, dtype)[0])
+    if deficient:
+        A[:, n // 2] = 0.0
+    R, Q = qr_warp_emulation(A, compute_q)
+    tR, tQ = tqw.qr_wavefront_reference(A, compute_q)
+    assert torch.equal(R, tR)
+    assert (Q is None and tQ is None) if not compute_q else torch.equal(Q, tQ)
+
+
+def test_qr_warp_limits():
+    """K2a-w's range, worked out from 232448 bytes a warp: m (n + m) + 2 n
+    words with Q, m n + 2 n without, in an odd number of words; 8 lanes a
+    block, halved where they do not fit; the dispatcher's two forms."""
+    f32, f64 = torch.float32, torch.float64
+    assert tqw.qr_warp_bytes(16, 16, f32, True) == (16 * 32 + 32 + 1) * 4
+    assert tqw.qr_warp_bytes(32, 8, f64, False) == (32 * 8 + 16 + 1) * 8
+    for dtype, q, square, tall in ((f32, True, 169, 169), (f64, True, 120, 119),
+                                   (f32, False, 240, 239), (f64, False, 169, 168)):
+        assert max(n for n in range(1, 300) if tqw.qr_warp_fits(n, n, dtype, q)) == square
+        assert max(n for n in range(1, 300) if tqw.qr_warp_fits(n + 1, n, dtype, q)) == tall
+        assert tqw.qr_form(square, square, dtype, q) == "warp"
+        assert tqw.qr_form(square + 1, square + 1, dtype, q) == "global"
+        assert tqw.qr_form(tall + 1, tall, dtype, q) == "warp"
+        assert tqw.qr_form(tall + 2, tall + 1, dtype, q) == "global"
+    assert tqw.qr_warp_fits(58000, 1, f32, False) and not tqw.qr_warp_fits(4, 5, f32, True)
+    assert not tqw.qr_warp_fits(4, 4, torch.float16, True)
+    assert [tqw.qr_warp_lanes(m, m, f32, True) for m in (59, 60, 84, 85, 120, 121)] == \
+        [8, 4, 4, 2, 2, 1]
+    assert all(tqw.qr_warp_lanes(m, n, dt, q) * tqw.qr_warp_bytes(m, n, dt, q) <= 232448
+               for m in range(1, 170) for n in (1, m // 2 + 1, m) for dt in (f32, f64)
+               for q in (True, False) if tqw.qr_warp_fits(m, n, dt, q))
 
 
 def window_emulation(A, y):
@@ -373,3 +449,60 @@ def test_backward_branches_find_nested_loops():
     # instructions, of the outer its guard, one pass of the inner loop, the
     # barrier and its own branch
     assert (way, bodies) == (4, [4, 7])
+
+
+def _qr_warp_cases():
+    """(m, n, B, dtype, compute_q): the timed [16, 16, 4096] and [32, 8,
+    4096], and K2a-w's last square shape and last shape with one row more
+    in float32 and float64, with and without Q."""
+    cases = [(16, 16, 4096, torch.float32, True), (32, 8, 4096, torch.float32, True),
+             (16, 16, 1001, torch.float64, False)]
+    for dtype, q, square, tall in ((torch.float32, True, 169, 169), (torch.float64, True, 120, 119),
+                                   (torch.float32, False, 240, 239),
+                                   (torch.float64, False, 169, 168)):
+        cases += [(square, square, 33, dtype, q), (tall + 1, tall, 33, dtype, q)]
+    return cases
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,B,dtype,compute_q", _qr_warp_cases())
+def test_qr_warp_form_bit_equal_to_twin_on_card(m, n, B, dtype, compute_q):
+    """K2a-w, the dispatcher's choice up to its edges, with a zero column:
+    the twin's R and Q bit for bit."""
+    dev = _on_card()
+    A = torch.from_numpy(_system(11, m, n, B)[0]).to(dev, dtype)
+    A[:, n // 2] = 0.0
+    before = tqw.qr_wavefront_warp.launches
+    R, Q = tqw.qr_wavefront_kernel(A, compute_q=compute_q)
+    torch.cuda.synchronize()
+    assert tqw.qr_wavefront_warp.launches == before + 1
+    tR, tQ = tqw.qr_wavefront_reference(A, compute_q)
+    assert torch.equal(R, tR) and (not compute_q or torch.equal(Q, tQ))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,dtype", [(170, 170, torch.float32), (171, 170, torch.float32),
+                                       (121, 121, torch.float64), (121, 120, torch.float64)])
+def test_qr_global_form_past_the_warp_form_on_card(m, n, dtype):
+    """K2a in device memory where K2a-w's array no longer fits (with Q),
+    the dispatcher's choice there: the twin's bits."""
+    dev = _on_card()
+    A = torch.from_numpy(_system(12, m, n, 32)[0]).to(dev, dtype)
+    before = tqw.qr_wavefront_global.launches
+    R, Q = tqw.qr_wavefront_kernel(A, compute_q=True)
+    torch.cuda.synchronize()
+    assert tqw.qr_wavefront_global.launches == before + 1
+    tR, tQ = tqw.qr_wavefront_reference(A, compute_q=True)
+    assert torch.equal(R, tR) and torch.equal(Q, tQ)
+
+
+@pytest.mark.gpu
+def test_qr_warp_form_refuses_what_it_does_not_take_on_card():
+    dev = _on_card()
+    A = torch.randn(16, 16, 64, device=dev)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        tqw.qr_wavefront_warp(A.half(), compute_q=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        tqw.qr_wavefront_warp(A.transpose(0, 1), compute_q=True)
+    with pytest.raises(ValueError, match="shared memory"):
+        tqw.qr_wavefront_warp(torch.zeros(170, 170, 4, device=dev), compute_q=True)
