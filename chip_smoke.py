@@ -9,9 +9,10 @@ fleet through ``nlsolver_torch.fit_fleet`` at full size, and times them.
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc over nlsolver_torch/csrc for sm_90a, one process per source;
-     no register kernel of K5 or K2b, and no kernel of K2b's warp form, may
-     spill or keep a stack frame; the issue floors of K1's staged form, K2b's
-     register and warp forms, K2a's warp form and K4b-c from their SASS;
+     no register kernel of K5, K2b or K3 (one per n and dtype each), and no
+     kernel of K2b's warp form, may spill or keep a stack frame; the issue
+     floors of K1's staged form, K2b's register and warp forms, K2a's warp
+     form, K4b-c and K3's register and warp forms from their SASS;
   3. K1 in both forms against its twin on injected draws, B=8192, n=10,
      P=64, f32, 5 generations, Rastrigin and sphere, a third of the lanes
      frozen; both forms at the edges of the staged form's plan (n = 16 and
@@ -27,9 +28,17 @@ Phases, each fatal on failure:
   6. DE timing: the fleet for 200 generations through K1 and through the
      plain step (median of 5 after 2 warm-ups), and each form of K1 alone
      behind a device sleep against its twin from CUDA events;
-  7. K3 (batch-minor Cholesky solve) bit-equal to its twin on SPD systems,
-     n=2 at B=262144 and n in {1, 8, 16, 33} at B=16384, f32, and once in
-     f64; the residual small; a non-contiguous and an f16 input refused;
+  7. K3 (batch-minor Cholesky solve) in its three forms (registers, a warp
+     a lane, device memory) bit-equal to its twin on SPD systems by direct
+     call, each form that takes n, at n in {1, 2, 8, 12, 16, 30, 33} at
+     B=16384 in f32 and n=8 in f64, at the shapes phase 10 times ([2, 2,
+     262144], [12, 12, 16384], [30, 30, 4096]) and on the first damped
+     normal equations of the exp fleet and the two Chebyshev fleets of
+     phase 9; the dispatcher's choice at each edge of K3-r's and K3-w's
+     ranges, its x bit-equal to the twin; its path past K3-w's range, [240,
+     240, 16] in f64 through K3-g, launches counted, x bit-equal to the twin
+     and the residual |Ax - b| / |b| below 1e-12; a
+     non-contiguous and an f16 input refused;
   8. K2b (wavefront least squares) in its four forms (registers, shared
      memory, a warp a lane, device memory) bit-equal to its twin on the NLLS
      fleet's augmented system [J; sqrt(lam) I] at [34, 2, 262144] in f32 and
@@ -45,17 +54,22 @@ Phases, each fatal on failure:
      past them, each through the dispatcher; linalg.qr(method="pallas")
      launches K2a-w once at [16, 16, 4096] and K2a once at [170, 170, 32];
   9. the NLLS slice: fit_fleet on 262144 exp-decay fits through
-     solve="qr_pallas" (K2b's register form), "cholesky" (K3) and "qr"
-     (plain), launches counted; solved share, recovered parameters,
-     qr_pallas equal to qr lane by lane, cholesky close to them; Chebyshev
-     fits of 12 and 30 coefficients through K2b's shared-memory and warp
-     forms, and of 120 in f64 through its device-memory form;
+     solve="qr_pallas" (K2b's register form), "cholesky" (K3's register
+     form) and "qr" (plain), launches counted; solved share, recovered
+     parameters, qr_pallas equal to qr lane by lane, cholesky close to them;
+     Chebyshev fits of 12 and 30 coefficients through K2b's shared-memory
+     and warp forms, and of 120 in f64 through its device-memory form; the
+     same fits of 12 and 30 coefficients through solve="cholesky" (K3 in
+     the form its plan names, K3-w at 30), K3 launched once a host step;
+     numpy start points and data land on the card;
  10. NLLS timing: bench_nlls_fleet per backend (median of 3 after 1
      warm-up, ABBA order), and K2a in both forms, each form of K2b (the device-memory
      form also on the shared form's Chebyshev system, and beside the warp
-     form on the 30-coefficient one) and K3 alone against their twins from
-     CUDA events, beside the one PyTorch call that computes the same
-     function (torch.linalg.qr, torch.linalg.lstsq, Cholesky solve);
+     form on the 30-coefficient one) and K3's forms (K3-r at [2, 2,
+     262144], the planned form at [12, 12, 16384], K3-w at [30, 30, 4096],
+     K3-g beside each) alone against their twins from CUDA events, beside
+     the one PyTorch call that computes the same function (torch.linalg.qr,
+     torch.linalg.lstsq, Cholesky factor and solve);
  11. K4a (resident rank-2 update + direction) against its twin at
      [16, 16, 65536] f32 with a third of the lanes on reset and a fifth at
      rho = 0, at n in {1, 2, 8, 33} with a ragged B, and once in f64; K4b-c
@@ -115,8 +129,9 @@ Phases, each fatal on failure:
 Every kernel's line also gives its bound: the larger of its compulsory
 bytes over 3.35 TB/s and its floating-point operations over 67 TFLOP/s
 (f32 outside the tensor cores), computed from the run's shapes; K1's
-staged form, K2b's register and warp forms, K2a-w and K4b-c also the floor
-of their instruction issue (``issue_ms``), which must lie below their time.
+staged form, K2b's register and warp forms, K2a-w, K4b-c and K3's register
+and warp forms also the floor of their instruction issue (``issue_ms``),
+which must lie below their time.
 
 Prints a JSON line of kernels, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -139,6 +154,7 @@ WIDE_K4B_B, WIDE_K4B_N = 256, 225  # a wide BFGS fleet past K4b-c's range in f32
 CHEB_SHARED = (12, 32, 16384)  # Chebyshev NLLS fleets: coefficients, points, fits; through
 CHEB_WARP = (30, 48, 4096)     # K2b's shared-memory and warp forms (float32), and past the
 CHEB_GLOBAL = (120, 128, 256)  # warp form's range in float64 through its device-memory form
+K3G_N, K3G_B = 240, 16         # an SPD solve past K3-w's range in float64 (K3-g)
 CMA_B, CMA_N, CMA_GENS = 65536, 16, 50   # the CMA-ES fleet: strategies, dimensions, generations
 CMA_WIDE_B = 4096              # the wide CMA-ES fleets: n = 56 and n = 64 (K5a)
 CMA_EDGE_N, CMA_EDGE_B = 170, 256  # the first n that K5a refuses in f32 (K5c), the fleet's B there
@@ -184,6 +200,12 @@ def de_bound(b, n, p):
 def lstsq_bound(m, n, b):
     """K2b's bound in f32: A and y in, x out; givens_ops a lane."""
     return bound((m * n + m + n) * b * 4, givens_ops(m, n, 1) * b)
+
+
+def spd_bound(n, b):
+    """K3's bound in f32: A's lower triangle and b in, x out; n^3 / 3 + 2 n^2
+    operations a lane."""
+    return bound((n * (n + 1) // 2 + 2 * n) * b * 4, (n ** 3 / 3 + 2 * n * n) * b)
 
 
 def rank2_bound(n, b, direction=True):
@@ -315,7 +337,59 @@ def cluster_floor(ins, n):
     return int(count), way, kinds
 
 
+def spd_warp_floor(ins, n, b, lanes):
+    """The issue floor of K3-w on [n, n, b] with ``lanes`` warps a block,
+    from its SASS ``ins``: every warp passes back through its fetch loop
+    (the outer loop that holds LDGSTS) once less than the 32-entry strides
+    of the n (n + 3) / 2 entries it takes, through its step loop (the outer
+    loop with a warp barrier) n - 1 times, and each step through the
+    trailing update's two loops (those in it that add: FADD; the one that
+    holds a loop walks the rows past the table's 32) once less than thread
+    0's passes through each; warp 0 of each block passes back through the
+    back solve's row loop (the outer loop after the step loop that holds
+    two) n - 1 times and through its four-term loop (the first of the two)
+    once less than row i's whole passes.  Every other loop is counted on no
+    pass back.  Returns (warp-instructions in all, way, {loop: body})."""
+    from nlsolver_torch.benches import backward_branches, issue_instructions
+
+    way, bodies = issue_instructions(ins)
+    spans = backward_branches(ins)
+    live = [i for i, body in enumerate(bodies) if body]
+    inside = {i: [k for k in live if k != i and spans[i][0] <= spans[k][0]
+                  and spans[k][1] <= spans[i][1]] for i in live}
+    outer = [i for i in live if not any(i in inside[k] for k in live)]
+    fetch = [i for i in outer if "LDGSTS" in loop_opcodes(ins, *spans[i])]
+    step = [i for i in outer if any(".DIV" in op for _, op in ins[spans[i][0]:spans[i][1] + 1])]
+    check(len(fetch) == 1 and len(step) == 1, f"K3-w's SASS has outer loops {outer}: "
+          f"{len(fetch)} fetching, {len(step)} with a warp barrier")
+    adds = [k for k in inside[step[0]] if "FADD" in loop_opcodes(ins, *spans[k])]
+    table = [k for k in adds if not inside[k]]
+    walk = [k for k in adds if inside[k]]
+    back = [i for i in outer if spans[i][0] > spans[step[0]][1] and len(inside[i]) == 2]
+    check(len(table) == 1 and len(walk) == 1 and len(back) == 1,
+          f"K3-w's SASS: {len(table)} and {len(walk)} trailing loops, {len(back)} back solves")
+    four = min(inside[back[0]], key=lambda k: spans[k][0])
+    rows32 = 32 * 33 // 2  # the table's entries; thread 0 walks on from the next stride, 544
+    passes = [0, 0]
+    for j in range(n):
+        count = (n - j) * (n - j + 1) // 2 - 1
+        passes[0] += max(0, -(-min(count, rows32) // 32) - 1)
+        passes[1] += max(0, -(-(count - rows32 - 16) // 32) - 1)
+    entries = n * (n + 3) // 2
+    per_warp = (way + max(0, -(-(entries - 31) // 32) - 1) * bodies[fetch[0]]
+                + (n - 1) * bodies[step[0]] + passes[0] * bodies[table[0]]
+                + passes[1] * bodies[walk[0]])
+    per_block = ((n - 1) * bodies[back[0]]
+                 + sum(max(0, (n - 1 - i) // 4 - 1) for i in range(n)) * bodies[four])
+    count = per_warp * b + per_block * -(-b // lanes)
+    return count, way, {"fetch": bodies[fetch[0]], "step": bodies[step[0]],
+                        "table": bodies[table[0]], "walk": bodies[walk[0]],
+                        "back": bodies[back[0]], "four terms": bodies[four]}
+
+
 def phase_build():
+    import torch
+
     from nlsolver_torch.benches import issue_instructions, sass_functions
     from nlsolver_torch.ops import _build
 
@@ -333,9 +407,11 @@ def phase_build():
     # and 0 times
     sass = sass_functions(path)
     m = FLEET_M + 2
+    # K3-r at the NLLS fleet, n = 2: no loop
     for kid, key, back, threads in (
             ("K1s", ("de_staged_kernel", "Rastrigin", f"Li{N}ELb1E"), (), B * P),
-            ("K2b-r", ("least_squares_registers_kernelIfLi2E",), (1, m - 4, 0), FLEET_B)):
+            ("K2b-r", ("least_squares_registers_kernelIfLi2E",), (1, m - 4, 0), FLEET_B),
+            ("K3-r", ("chol_registers_kernelIfLi2E",), (), FLEET_B)):
         name = next(k for k in sass if all(part in k for part in key))
         way, bodies = issue_instructions(sass[name])
         if kid == "K2b-r":
@@ -357,6 +433,16 @@ def phase_build():
         f"kernel; {way} on its shortest way through, the stage loop's body {body_s} and the "
         f"rotation loop's {body_t}), {b} warps, {FLOORS['mhz']:.0f} MHz: "
         f"{FLOORS['K2b-w'] * 1e3:.2f} us")
+    # K3-w at the Chebyshev fleet of CHEB_WARP coefficients, a warp a lane
+    from nlsolver_torch.ops.smallchol import warp_lanes
+
+    n, b = CHEB_WARP[0], CHEB_WARP[2]
+    name = next(k for k in sass if "chol_warp_kernelIfE" in k)
+    count, way, loops = spd_warp_floor(sass[name], n, b, warp_lanes(n, torch.float32))
+    FLOORS["K3-w"] = issue_floor(count, 32)
+    log(f"[2] issue floor of K3-w: {count} SASS warp-instructions at [{n}, {n}, {b}] "
+        f"({len(sass[name])} in the kernel; {way} on its shortest way through, loop bodies "
+        f"{loops}), {FLOORS['mhz']:.0f} MHz: {FLOORS['K3-w'] * 1e3:.2f} us")
     # K2a-w at the timed [16, 16, 4096] with Q, a warp a lane (one column a
     # thread); K4b-c at the wide fleet's [128, 128, 4096], a thread a row
     # and lane, 16-byte copies
@@ -375,13 +461,12 @@ def phase_build():
         f"{kinds['sum']} and the row updates {kinds['row']}), {WIDE_N * WIDE_B} threads, "
         f"{FLOORS['mhz']:.0f} MHz: {FLOORS['K4b-c'] * 1e3:.2f} us")
     # ptxas names a kernel, then its stack frame and spills, then its registers.
-    # The register forms of K5 and K2b are one kernel per width (K5r also per
-    # parity): no word of theirs may live in local memory
+    # The register forms of K5, K2b and K3 are one kernel per width (K5r also
+    # per parity): no word of theirs may live in local memory
     import re
 
-    import torch
-
     from nlsolver_torch.ops.qr_wavefront import REGISTER_MAX_N, warp_fits
+    from nlsolver_torch.ops.smallchol import REGISTER_MAX_N as SPD_REGISTER_MAX_N
 
     entries = []  # [short name, stack and spill line, registers line]
     for line in out.splitlines():
@@ -401,8 +486,9 @@ def phase_build():
             entries[-1][2] = line.strip()
     kinds = {"eigh_jacobi_registers_kernel": ("K5r", f"IfLi{CMA_N}ELb0E"),  # <float, n, even>
              "least_squares_registers_kernel": ("K2b", "IfLi2E"),         # <float, the fleet's n>
-             "least_squares_warp_kernel": ("K2b-w", "IfLi1E")}            # <float, a word a row>
-    used, main, local = {"K5r": [], "K2b": [], "K2b-w": []}, {}, []
+             "least_squares_warp_kernel": ("K2b-w", "IfLi1E"),            # <float, a word a row>
+             "chol_registers_kernel": ("K3-r", "IfLi2E")}                 # <float, the fleet's n>
+    used, main, local = {"K5r": [], "K2b": [], "K2b-w": [], "K3-r": []}, {}, []
     for short, spill, regs in entries:
         kind = next((v for k, v in kinds.items() if short.startswith(k)), None)
         count = int(regs.split("Used")[1].split()[0]) if "Used" in regs else -1
@@ -416,9 +502,11 @@ def phase_build():
         if "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" not in spill:
             local.append(f"{short}: {spill}")
     if out:
-        check(not local, "register kernels of K5 or K2b, or K2b's warp form, use local memory: "
-              + "; ".join(local))
-        k5r, k2b, k2bw = used["K5r"], used["K2b"], used["K2b-w"]
+        check(not local, "register kernels of K5, K2b or K3, or K2b's warp form, use local "
+              "memory: " + "; ".join(local))
+        k5r, k2b, k2bw, k3r = used["K5r"], used["K2b"], used["K2b-w"], used["K3-r"]
+        check(len(k3r) == sum(SPD_REGISTER_MAX_N.values()),
+              f"ptxas reported {len(k3r)} register kernels of K3, expected one per n and dtype")
         check(len(k5r) > 0, "ptxas reported no register kernel of K5")
         check(len(k2b) == sum(REGISTER_MAX_N.values()),
               f"ptxas reported {len(k2b)} register kernels of K2b, expected one per n and dtype")
@@ -435,6 +523,11 @@ def phase_build():
             f"{REGISTER_MAX_N[torch.float32]} in float32, 1 to {REGISTER_MAX_N[torch.float64]} in "
             f"float64): {min(k2b)} to {max(k2b)} registers a thread, {main.get('K2b')} at n = 2 "
             "in float32, 0 bytes of stack frame, 0 bytes spilled")
+        log(f"[2] ptxas: chol_registers_kernel, {len(k3r)} kernels (n = 1 to "
+            f"{SPD_REGISTER_MAX_N[torch.float32]} in float32, 1 to "
+            f"{SPD_REGISTER_MAX_N[torch.float64]} in float64): {min(k3r)} to {max(k3r)} registers "
+            f"a thread, {main.get('K3-r')} at n = 2 in float32, 0 bytes of stack frame, 0 bytes "
+            "spilled")
         log(f"[2] ptxas: least_squares_warp_kernel, {len(k2bw)} kernels (1 to {words[0]} words a "
             f"thread a row in float32, 1 to {words[1]} in float64): {min(k2bw)} to {max(k2bw)} "
             f"registers a thread, {main.get('K2b-w')} at one word in float32, 0 bytes of stack "
@@ -691,29 +784,126 @@ def max_diff(a, b):
     return float((a - b).abs().max()) if a.numel() else 0.0
 
 
-def phase_smallchol(torch, dev):
+def spd_forms():
     from nlsolver_torch.ops import smallchol as tsc
 
-    g = torch.Generator(device=dev).manual_seed(7)
-    worst = 0.0
-    cases = [(2, FLEET_B, torch.float32)] + [(n, 16384, torch.float32) for n in (1, 8, 16, 33)]
-    for n, b, dtype in cases + [(8, 16384, torch.float64)]:
-        M = torch.randn((b, n, n), generator=g, device=dev, dtype=dtype)
-        A_std = M @ M.transpose(1, 2) + 2.0 * torch.eye(n, device=dev, dtype=dtype)
-        A = A_std.permute(1, 2, 0).contiguous()              # [n, n, B]
-        rhs = torch.randn((n, b), generator=g, device=dev, dtype=dtype)
-        tsc.solve_spd_batchminor.launches = 0
+    return {"K3-r": tsc.solve_spd_registers, "K3-w": tsc.solve_spd_warp,
+            "K3-g": tsc.solve_spd_batchminor_global}
+
+
+K3_OF_PLAN = {"registers": "K3-r", "warp": "K3-w", "global": "K3-g"}
+
+
+def spd_takes(kid, n, dtype):
+    from nlsolver_torch.ops import smallchol as tsc
+
+    return {"K3-r": tsc.registers_fit, "K3-w": tsc.warp_fits}.get(kid, lambda n, d: True)(n, dtype)
+
+
+def spd_case(torch, dev, n, b, dtype=None, seed=7):
+    """``b`` SPD systems M M^T + 2 I, batch-minor [n, n, b], and b [n, b]."""
+    from nlsolver_torch.benches import spd_systems
+
+    return spd_systems(n, b, seed=seed, device=dev, dtype=dtype or torch.float32)
+
+
+def normal_system(torch, dev, scenario, n, X0_value):
+    """A fleet's first damped normal equations at X0: J^T J + lam I and
+    J^T r, lam = lambda0, for ``scenario``'s (residual, ys, truth): the
+    systems its cholesky backend hands K3."""
+    from nlsolver_torch.solvers import nlls_fleet as nf
+
+    residual, ys, _ = scenario
+    B = ys.shape[0]
+    r, J = nf._residuals_bm(residual, torch.full((n, B), X0_value, device=dev, dtype=ys.dtype), ys)
+    lam = nf.NLLSFleetConfig().lambda0
+    eye = torch.eye(n, device=dev, dtype=ys.dtype)[:, :, None]
+    A = torch.einsum("mib,mjb->ijb", J, J) + lam * eye
+    return A.contiguous(), torch.einsum("mib,mb->ib", J, r).contiguous()
+
+
+def phase_smallchol(torch, dev):
+    """K3's forms bit for bit against the twin, the dispatcher's choice at
+    each boundary, its path past K3-w's range, refusals.  Returns the
+    largest difference from the twin per form and K3-g's launches on its
+    path."""
+    from nlsolver_torch.benches import chebyshev_scenario, expfit_scenario
+    from nlsolver_torch.ops import smallchol as tsc
+
+    forms = spd_forms()
+    worst = dict.fromkeys(forms, 0.0)
+
+    def hold(kids, A, rhs, label):
+        twin = tsc._chol_solve_batchminor(A, rhs)
+        for kid in kids:
+            before = forms[kid].launches
+            x = forms[kid](A, rhs)
+            torch.cuda.synchronize()
+            check(forms[kid].launches == before + 1, f"{kid} {label}: no launch counted")
+            check(torch.equal(x, twin), f"{kid} differs from the twin at {label}: "
+                  f"max |diff| {max_diff(x, twin):.3e}")
+            worst[kid] = max(worst[kid], max_diff(x, twin))
+        res = (torch.einsum("ijb,jb->ib", A, twin) - rhs).abs().max() / rhs.abs().max()
+        log(f"[7] {' and '.join(kids)} {label}: bit-equal to the twin; max |Ax-b|/max|b| "
+            f"{float(res):.3e}")
+        check(float(res) < (1e-3 if A.dtype == torch.float32 else 1e-10), "K3 residual too large")
+
+    # by direct call, every form that takes n
+    cases = [(n, 16384, torch.float32) for n in (1, 2, 8, 12, 16, 30, 33)]
+    cases.append((8, 16384, torch.float64))
+    for n, b, dtype in cases:
+        A, rhs = spd_case(torch, dev, n, b, dtype)
+        hold([k for k in forms if spd_takes(k, n, dtype)], A, rhs,
+             f"[{n}, {n}, {b}] {str(dtype)[6:]}")
+    # the shapes phase 10 times, and the fleets' first systems through the
+    # forms that time them there and the form each fleet runs
+    for n, b in ((2, FLEET_B), (12, 16384), (30, 4096)):
+        A, rhs = spd_case(torch, dev, n, b)
+        hold([k for k in forms if spd_takes(k, n, A.dtype)], A, rhs, f"[{n}, {n}, {b}] float32")
+    systems = [("the exp fleet's", expfit_scenario(FLEET_B, FLEET_M, device=dev), 2, 1.0)]
+    systems += [(f"Chebyshev fleet [{n}, {b}]'s", chebyshev_scenario(b, n, m, device=dev), n, 0.0)
+                for n, m, b in (CHEB_SHARED, CHEB_WARP)]
+    for what, scenario, n, x0 in systems:
+        A, rhs = normal_system(torch, dev, scenario, n, x0)
+        hold([k for k in forms if spd_takes(k, n, A.dtype)], A, rhs,
+             f"{what} first normal equations {tuple(A.shape)}")
+    # the dispatcher's choice at the edges of each form's range, its x the
+    # twin's
+    def dispatch(kid, A, rhs, label):
+        twin = tsc._chol_solve_batchminor(A, rhs).cpu()
+        reset_counts()
         x = tsc.solve_spd_batchminor(A, rhs)
         torch.cuda.synchronize()
-        check(tsc.solve_spd_batchminor.launches == 1, "K3 did not launch")
-        twin = tsc._chol_solve_batchminor(A, rhs)
-        check(torch.equal(x, twin), f"K3 differs from its twin at n={n}, B={b}, {dtype}: "
-              f"max |diff| {max_diff(x, twin):.3e}")
-        worst = max(worst, max_diff(x, twin))
-        res = (torch.einsum("ijb,jb->ib", A, x) - rhs).abs().max() / rhs.abs().max()
-        log(f"[7] K3 n={n} B={b} {str(dtype)[6:]}: bit-equal to the twin; "
-            f"max |Ax-b|/max|b| {float(res):.3e}")
-        check(float(res) < (1e-4 if dtype == torch.float32 else 1e-12), "K3 residual too large")
+        counts = {k: f.launches for k, f in forms.items()}
+        check(counts == {k: int(k == kid) for k in forms},
+              f"solve_spd_batchminor({label}) launched {counts}, not {kid} once")
+        check(torch.equal(x.cpu(), twin), f"solve_spd_batchminor({label}) through {kid} differs "
+              f"from the twin: max |diff| {max_diff(x.cpu(), twin):.3e}")
+        worst[kid] = max(worst[kid], max_diff(x.cpu(), twin))
+        return x, counts
+
+    for dtype in (torch.float32, torch.float64):
+        reg = tsc.REGISTER_MAX_N[dtype]
+        warp = max(n for n in range(1, 400) if tsc.warp_fits(n, dtype))
+        for n, kid in ((1, "K3-r"), (reg, "K3-r"), (reg + 1, "K3-w")):
+            A, rhs = spd_case(torch, dev, n, 999, dtype)
+            hold([kid], A, rhs, f"[{n}, {n}, 999] {str(dtype)[6:]}")
+            dispatch(kid, A, rhs, f"[{n}, {n}, 999] {str(dtype)[6:]}")
+        check(tsc.plan(warp, dtype) == "warp" and tsc.plan(warp + 1, dtype) == "global",
+              f"the plan does not end K3-w at n={warp} in {dtype}")
+        log(f"[7] the dispatcher takes K3-r for n <= {reg}, K3-w for {reg + 1} <= n <= {warp}, "
+            f"K3-g beyond ({str(dtype)[6:]}, B = 999), each bit-equal to the twin")
+    # K3-g's path: the dispatcher past K3-w's range in float64, counted and
+    # held bit for bit against the twin on the card (some 4.6 million eager
+    # ops; in host memory it would not serve, as the host's float64
+    # torch.sqrt may be off by an ulp where the card's is not)
+    n, b = K3G_N, K3G_B
+    A, rhs = spd_case(torch, dev, n, b, torch.float64)
+    x, counts = dispatch("K3-g", A, rhs, f"[{n}, {n}, {b}] float64")
+    res = float(((torch.einsum("ijb,jb->ib", A, x) - rhs).norm(dim=0) / rhs.norm(dim=0)).max())
+    log(f"[7] solve_spd_batchminor([{n}, {n}, {b}] float64): launches {counts}; bit-equal to "
+        f"the twin; max over lanes of |Ax-b|/|b| {res:.3e}")
+    check(bool(torch.isfinite(x).all()) and res < 1e-12, "K3-g's residual above 1e-12")
     A32 = torch.eye(3, device=dev).reshape(3, 3, 1).expand(3, 3, 64).contiguous()
     for what, args in (("non-contiguous", (A32.transpose(0, 1), torch.ones(3, 64, device=dev))),
                        ("f16", (A32.half(), torch.ones(3, 64, device=dev).half()))):
@@ -723,7 +913,7 @@ def phase_smallchol(torch, dev):
             log(f"[7] K3 refuses a {what} input: {e}")
         else:
             check(False, f"K3 took a {what} input")
-    return worst
+    return worst, counts["K3-g"]
 
 
 def first_system(torch, dev, scenario, n, X0_value):
@@ -915,19 +1105,17 @@ def reset_counts():
                qr_wavefront.least_squares_wavefront_registers,
                qr_wavefront.least_squares_wavefront_shared,
                qr_wavefront.least_squares_wavefront_warp,
-               qr_wavefront.least_squares_wavefront_global, smallchol.solve_spd_batchminor,
+               qr_wavefront.least_squares_wavefront_global, smallchol.solve_spd_registers,
+               smallchol.solve_spd_warp, smallchol.solve_spd_batchminor_global,
                rank2.rank2_direction_batchminor_resident, rank2.rank2_direction_batchminor_cluster,
                rank2.rank2_direction_batchminor_rowsplit, rank2.rank2_update_batched_kernel):
         fn.launches = 0
 
 
 def nlls_counts():
-    from nlsolver_torch.ops import qr_wavefront as tqw
-    from nlsolver_torch.ops import smallchol as tsc
-
     return {**{kid: f.launches for kid, f in qr_forms_of().items()},
             **{kid: f.launches for kid, f in lstsq_forms().items()},
-            "K3": tsc.solve_spd_batchminor.launches}
+            **{kid: f.launches for kid, f in spd_forms().items()}}
 
 
 def fit_counted(torch, residual, X0, cfg, ys, kernel, label):
@@ -955,11 +1143,15 @@ def fit_counted(torch, residual, X0, cfg, ys, kernel, label):
 
 
 def phase_nlls_slice(torch, dev):
+    import numpy as np
+
     import nlsolver_torch
     from nlsolver_torch.benches import chebyshev_scenario, expfit_scenario
 
+    from nlsolver_torch.ops import smallchol as tsc
+
     residual, ys, truth = expfit_scenario(FLEET_B, FLEET_M, device=dev)
-    kernel_of = {"qr_pallas": "K2b-r", "cholesky": "K3", "qr": None}
+    kernel_of = {"qr_pallas": "K2b-r", "cholesky": "K3-r", "qr": None}
     res, launches = {}, {}
     for solve, kernel in kernel_of.items():
         cfg = nlsolver_torch.NLLSFleetConfig(max_iter=30, solve=solve)
@@ -1002,6 +1194,31 @@ def phase_nlls_slice(torch, dev):
         check(bool(torch.isfinite(out.x).all()) and solved >= 0.999 and err <= 1e-4,
               f"the Chebyshev fleet at n={n} did not recover its coefficients")
         launches[kernel] = steps
+    # the same Chebyshev fits through the default backend, the damped normal
+    # equations solved by K3 in the form its plan names (K3-r at 12
+    # coefficients, K3-w at 30)
+    for n, m, b in (CHEB_SHARED, CHEB_WARP):
+        residual, ys, truth = chebyshev_scenario(b, n, m, device=dev)
+        kernel = K3_OF_PLAN[tsc.plan(n, torch.float32)]
+        cfg = nlsolver_torch.NLLSFleetConfig(max_iter=30, solve="cholesky")
+        out, steps = fit_counted(torch, residual, torch.zeros(n, b, device=dev), cfg, ys, kernel,
+                                 f"Chebyshev fits [{n}, {b}], {m} points, cholesky")
+        solved = float((out.f_value < 1e-6).float().mean())
+        err = float((out.x - truth).abs().max())
+        log(f"[9] Chebyshev fits [{n}, {b}] cholesky ({kernel}): solved {solved:.6f}, "
+            f"max |c - truth| {err:.3e}")
+        check(bool(torch.isfinite(out.x).all()) and solved >= 0.999 and err <= 1e-4,
+              f"the cholesky Chebyshev fleet at n={n} did not recover its coefficients")
+        launches[f"K3 n={n}"] = steps
+    # start points and data given as numpy arrays land on the card
+    residual, ys, truth = expfit_scenario(1024, FLEET_M, device=dev)
+    out = nlsolver_torch.fit_fleet(residual, np.ones((2, 1024), np.float32),
+                                   nlsolver_torch.NLLSFleetConfig(max_iter=30),
+                                   data=ys.cpu().numpy())
+    log(f"[9] fit_fleet with numpy X0 and data: x on {out.x.device}, max |p-truth| "
+        f"{float((out.x - truth).abs().max()):.3e}")
+    check(out.x.device.type == "cuda" and float((out.x - truth).abs().max()) <= 1e-3,
+          "fit_fleet did not put numpy start points on the card")
     return launches
 
 
@@ -1031,17 +1248,21 @@ def phase_nlls_timing(torch, dev):
             f"{r['min_ms']:.3f} ms, {r['fits_per_sec']:.6g} fits/s, solved {r['solved_frac']:.6f}")
     g = torch.Generator(device=dev).manual_seed(9)
     A, y = fleet_system(torch, dev)
-    spd = {}
-    for n, b in ((2, FLEET_B), (8, 16384)):
-        M = torch.randn((b, n, n), generator=g, device=dev)
-        spd[n] = ((M @ M.transpose(1, 2) + 2.0 * torch.eye(n, device=dev))
-                  .permute(1, 2, 0).contiguous(), torch.randn((n, b), generator=g, device=dev))
     Aq = torch.randn((16, 16, 4096), generator=g, device=dev)
     # the one PyTorch call that computes the same function, on the same
     # systems in the leading-batch layout the library takes
     Aql = Aq.permute(2, 0, 1).contiguous()
-    A2l, b2l = spd[2][0].permute(2, 0, 1).contiguous(), spd[2][1].t().contiguous()[:, :, None]
     forms = lstsq_forms()
+    k3 = spd_forms()
+
+    def spd_timing(kid, n, b, kreps):
+        """K3's form ``kid`` on SPD systems [n, n, b] (seed 9), its twin,
+        Cholesky factor and solve of the library on [b, n, n]."""
+        As, bs = spd_case(torch, dev, n, b, seed=9)
+        Al, bl = As.permute(2, 0, 1).contiguous(), bs.t().contiguous()[:, :, None]
+        return (lambda: k3[kid](As, bs), kreps,
+                lambda: tsc._chol_solve_batchminor(As, bs), 3 if n > 8 else 5,
+                lambda: torch.cholesky_solve(bl, torch.linalg.cholesky_ex(Al).L))
 
     def lstsq_case(kid, A, y, kreps):
         Al, yl = A.permute(2, 0, 1).contiguous(), y.t().contiguous()[:, :, None]
@@ -1067,11 +1288,15 @@ def phase_nlls_timing(torch, dev):
         "K2b-w": lstsq_case("K2b-w", *sys_w, 20),
         "K2b-g": lstsq_case("K2b-g", *sys_w, 5),
         "K2b-g f64 n=120": lstsq_case("K2b-g", *sys_g, 3),
-        "K3 n=2": (lambda: tsc.solve_spd_batchminor(*spd[2]), 50,
-                   lambda: tsc._chol_solve_batchminor(*spd[2]), 5,
-                   lambda: torch.cholesky_solve(b2l, torch.linalg.cholesky_ex(A2l).L)),
-        "K3 n=8": (lambda: tsc.solve_spd_batchminor(*spd[8]), 50,
-                   lambda: tsc._chol_solve_batchminor(*spd[8]), 5, None),
+        # K3: K3-r at the exp fleet's shape, the planned form at the 12-
+        # coefficient Chebyshev fleet's, K3-w at the 30-coefficient one's,
+        # each beside K3-g (the form every shape took before the others)
+        "K3-r": spd_timing("K3-r", 2, FLEET_B, 50),
+        "K3-g n=2": spd_timing("K3-g", 2, FLEET_B, 50),
+        "K3 n=12": spd_timing(K3_OF_PLAN[tsc.plan(12, torch.float32)], 12, 16384, 50),
+        "K3-g n=12": spd_timing("K3-g", 12, 16384, 20),
+        "K3-w": spd_timing("K3-w", 30, 4096, 20),
+        "K3-g n=30": spd_timing("K3-g", 30, 4096, 5),
         "K2a": (lambda: tqw.qr_wavefront_global(Aq, compute_q=True), 50,
                 lambda: tqw.qr_wavefront_reference(Aq, compute_q=True), 5,
                 lambda: torch.linalg.qr(Aql, mode="complete")),
@@ -1092,6 +1317,10 @@ def phase_nlls_timing(torch, dev):
             f"{p * 1e3:.2f} us per chained call (CUDA events; kernel "
             f"{k1 * 1e3:.2f}/{k2 * 1e3:.2f}, twin {p1 * 1e3:.2f}/{p2 * 1e3:.2f})"
             + ("" if lib is None else f"; library call {lib * 1e3:.2f} us"))
+    for new, old in (("K3-r", "K3-g n=2"), ("K3 n=12", "K3-g n=12"), ("K3-w", "K3-g n=30")):
+        log(f"[10] {new}: {alone[new][0] * 1e3:.2f} us against K3-g's {alone[old][0] * 1e3:.2f} "
+            f"us at the same shape ({alone[old][0] / alone[new][0]:.2f}x), the library call's "
+            f"{alone[new][2] * 1e3:.2f} us")
     for solve, rs in runs.items():
         best = max(rs, key=lambda r: r["fits_per_sec"])
         log(f"[10] fleet {solve}: {best['fits_per_sec']:.6g} fits/s "
@@ -1719,7 +1948,7 @@ def phases_earlier(torch, dev):
     phase_philox(torch, dev)
     de_launches = phase_slice(torch, dev)
     de_times = phase_timing(torch, dev)
-    chol_err = phase_smallchol(torch, dev)
+    chol_err, k3g_launches = phase_smallchol(torch, dev)
     qr_err, qr_launches = phase_qr(torch, dev)
     fleet_launches = phase_nlls_slice(torch, dev)
     alone = phase_nlls_timing(torch, dev)
@@ -1730,7 +1959,8 @@ def phases_earlier(torch, dev):
     # (4 warp-instructions a clock an SM) held against the card
     for kid, times in (("K1s", de_times["K1s"]), ("K2b-r", alone["K2b-r"]),
                        ("K2b-w", alone["K2b-w"]), ("K2a-w", alone["K2a-w"]),
-                       ("K4b-c", alone["K4b-c"])):
+                       ("K4b-c", alone["K4b-c"]), ("K3-r", alone["K3-r"]),
+                       ("K3-w", alone["K3-w"])):
         log(f"[10] {kid}: {times[0] * 1e3:.2f} us of device time against its issue floor "
             f"{FLOORS[kid] * 1e3:.2f} us")
         check(FLOORS[kid] <= times[0], f"{kid}'s issue floor lies above its time")
@@ -1769,10 +1999,18 @@ def phases_earlier(torch, dev):
         kernel_row("least_squares_wavefront_global", csrc + "qr_wavefront.cu", k2b,
                    fleet_launches["K2b-g"], qr_err, alone["K2b-g"],
                    lstsq_bound(CHEB_WARP[1] + CHEB_WARP[0], *CHEB_WARP[::2])),
-        # A and b in, x out; n^3 / 3 + 2 n^2 operations a lane at n = 2
-        kernel_row("solve_spd_batchminor", csrc + "smallchol.cu", tpu + "smallchol.py:101",
-                   fleet_launches["K3"], chol_err, alone["K3 n=2"],
-                   bound(8 * FLEET_B * 4, 11 * FLEET_B)),
+        # A's lower triangle and b in, x out; each form at the fleet it
+        # serves, K3-g (launched on its path past K3-w's range) timed at the
+        # exp fleet's shape as before
+        kernel_row("solve_spd_registers", csrc + "smallchol.cu", tpu + "smallchol.py:101",
+                   fleet_launches["K3-r"], chol_err["K3-r"], alone["K3-r"],
+                   spd_bound(2, FLEET_B), FLOORS["K3-r"]),
+        kernel_row("solve_spd_warp", csrc + "smallchol.cu", tpu + "smallchol.py:101",
+                   fleet_launches[f"K3 n={CHEB_WARP[0]}"], chol_err["K3-w"], alone["K3-w"],
+                   spd_bound(CHEB_WARP[0], CHEB_WARP[2]), FLOORS["K3-w"]),
+        kernel_row("solve_spd_batchminor_global", csrc + "smallchol.cu",
+                   tpu + "smallchol.py:101", k3g_launches, chol_err["K3-g"], alone["K3-g n=2"],
+                   spd_bound(2, FLEET_B)),
         kernel_row("rank2_direction_batchminor_resident", csrc + "rank2.cu", tpu + "rank2.py:280",
                    bfgs_launches["K4a"], rank2_err["K4a"], alone["K4a"],
                    rank2_bound(BFGS_N, BFGS_B)),

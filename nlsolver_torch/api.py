@@ -25,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from .core import Bounds, SolverResult, signed
+from .core import Bounds, SolverResult, signed, start_points
 from .solvers import bfgs_fleet, cmaes_fleet, de_batched
 from .solvers.bfgs_fleet import BFGSFleetConfig
 from .solvers.cmaes_fleet import CMAESFleetConfig
@@ -46,19 +46,6 @@ _NOT_YET = {
 # the (method, layout) routes that minimize and maximize take; the module
 # docstring and the NotImplementedError text name them from here
 PORTED_ROUTES = (("de", "batched"), ("bfgs", "fleet"), ("cmaes", "fleet"))
-
-
-def start_points(x0) -> torch.Tensor:
-    """Start points as a tensor: a ``torch.Tensor`` keeps its device;
-    anything else (a numpy array, a list) goes to the CUDA card."""
-    if isinstance(x0, torch.Tensor):
-        return x0
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "x0 is not a torch.Tensor and there is no CUDA card to put it on; "
-            "nlsolver_torch runs on the card unless x0 is a CPU torch.Tensor"
-        )
-    return torch.as_tensor(x0, device="cuda")
 
 
 def _bfgs_fleet(fn, x0, config, bounds, _minimize, kwargs):

@@ -409,6 +409,80 @@ def probe_least_squares_warp(n=30, m=78, B=4096, lanes=(1, 2, 4, 8), reps=20):
     return out
 
 
+def spd_systems(n: int, B: int, seed: int = 0, device="cuda", dtype=torch.float32):
+    """``B`` SPD systems ``A = M M^T + 2 I``, M ~ N(0, 1), batch-minor
+    ``[n, n, B]``, and right-hand sides ``b [n, B]`` ~ N(0, 1), drawn from
+    ``seed`` on ``device``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    M = torch.randn((B, n, n), generator=g, device=device, dtype=dtype)
+    A = (M @ M.transpose(1, 2) + 2.0 * torch.eye(n, device=device, dtype=dtype))
+    del M
+    return (A.permute(1, 2, 0).contiguous(),
+            torch.randn((n, B), generator=g, device=device, dtype=dtype))
+
+
+def sweep_spd_solve(ns=(1, 2, 4, 8, 12, 16, 20, 24, 30, 48, 64),
+                    Bs=(4096, 16384, 65536, 262144), reps=5, global_work=8e9):
+    """K3's forms across shapes in f32 on ``spd_systems(n, B)``: the device
+    time in ms of K3-r where it takes n, K3-w, K3-g where n^3 B <=
+    ``global_work`` (past it a launch takes seconds) and of
+    ``torch.linalg.cholesky_ex`` + ``torch.cholesky_solve`` on ``[B, n, n]``,
+    each behind a device sleep, the least of two; the forms' x equal bit for
+    bit, and the dispatcher's plan beside them."""
+    from ..ops import smallchol as tsc
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("sweep_spd_solve measures a CUDA card; none is available")
+    forms = {"registers": (tsc.solve_spd_registers, tsc.registers_fit),
+             "warp": (tsc.solve_spd_warp, tsc.warp_fits),
+             "global": (tsc.solve_spd_batchminor_global,
+                        lambda n, dtype: n ** 3 * B <= global_work)}
+    rows = []
+    for n in ns:
+        for B in Bs:
+            A, b = spd_systems(n, B)
+            row = {"n": n, "B": B, "plan": tsc.plan(n, A.dtype)}
+            xs = {}
+            for name, (kernel, takes) in forms.items():
+                row[f"{name}_ms"] = None
+                if takes(n, A.dtype):
+                    xs[name] = kernel(A, b)
+                    row[f"{name}_ms"] = min(device_ms(lambda: kernel(A, b), reps)
+                                            for _ in range(2))
+            first = next(iter(xs.values()))
+            if not all(torch.equal(x, first) for x in xs.values()):
+                raise RuntimeError(f"sweep_spd_solve: the forms differ at n={n}, B={B}")
+            del xs, first
+            Al, bl = A.permute(2, 0, 1).contiguous(), b.t().contiguous()[:, :, None]
+            row["library_ms"] = min(device_ms(
+                lambda: torch.cholesky_solve(bl, torch.linalg.cholesky_ex(Al).L), reps,
+                strict=False) for _ in range(2))
+            del A, b, Al, bl
+            rows.append(row)
+    return rows
+
+
+def probe_spd_warp(n=30, B=4096, lanes=(1, 2, 4, 8, 16, 32), reps=20):
+    """K3-w with each number of ``lanes`` (warps) a block whose triangles
+    fit, on ``spd_systems(n, B)``, f32: device time in ms behind a device
+    sleep, the least of two, each result bit-equal to the default's."""
+    from ..ops import smallchol as tsc
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("probe_spd_warp measures a CUDA card; none is available")
+    A, b = spd_systems(n, B)
+    want = tsc.solve_spd_warp(A, b)
+    out = {"n": n, "B": B, "default_lanes": tsc.warp_lanes(n, A.dtype)}
+    for w in lanes:
+        if tsc.warp_block_bytes(n, A.dtype, w) > tsc.MAX_DYNAMIC_SMEM:
+            continue
+        run = functools.partial(tsc.solve_spd_warp, A, b, lanes=w)
+        if not torch.equal(run(), want):
+            raise RuntimeError(f"probe_spd_warp: {w} lanes a block differ")
+        out[f"lanes_{w}_ms"] = min(device_ms(run, reps) for _ in range(2))
+    return out
+
+
 def rank2_scenario(n: int, B: int, seed: int = 0, device="cuda", dtype=torch.float32):
     """A batch-minor BFGS update on the card: H [n, n, B] symmetric positive
     definite, s, y, g [n, B] ~ N(0, 1), rho [B] in [0.1, 2), reset on every

@@ -2,7 +2,7 @@ from .driver import drive, drive_fleet_scan, drive_scan
 from .objective import (Bounds, Objective, batch_eval, resolve_bounds, signed,
                         with_eval_dtype)
 from .result import SolverResult, make_result
-from .utils import clamp, lane_where, max_abs, std_err, where_lanes
+from .utils import clamp, lane_where, max_abs, start_points, std_err, where_lanes
 
 __all__ = [
     "Bounds",
@@ -18,6 +18,7 @@ __all__ = [
     "max_abs",
     "resolve_bounds",
     "signed",
+    "start_points",
     "std_err",
     "where_lanes",
     "with_eval_dtype",

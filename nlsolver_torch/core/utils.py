@@ -70,3 +70,17 @@ def clamp(x: torch.Tensor, lower, upper) -> torch.Tensor:
     lower = torch.as_tensor(lower, dtype=x.dtype, device=x.device)
     upper = torch.as_tensor(upper, dtype=x.dtype, device=x.device)
     return torch.clamp(x, lower, upper)
+
+
+def start_points(x0, name: str = "x0") -> torch.Tensor:
+    """Start points (or per-lane data) as a tensor: a ``torch.Tensor`` keeps
+    its device; anything else (a numpy array, a list) goes to the CUDA
+    card, and raises ``RuntimeError`` when there is none."""
+    if isinstance(x0, torch.Tensor):
+        return x0
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{name} is not a torch.Tensor and there is no CUDA card to put it on; "
+            f"nlsolver_torch runs on the card unless {name} is a CPU torch.Tensor"
+        )
+    return torch.as_tensor(x0, device="cuda")

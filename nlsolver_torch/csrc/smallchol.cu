@@ -1,33 +1,48 @@
 // Batched small SPD solve, batch-minor layout, for Hopper (sm_90a):
-// Cholesky-Banachiewicz factorization, forward and back substitution.
+// Cholesky factorization, forward and back substitution.
 //
 // Replaces nlsolver_tpu/ops/smallchol.py: solve_spd_batched_pallas, whose
 // body (_chol_solve_batchminor) also serves the NLLS fleet's default
-// cholesky backend through solve_spd_batchminor.  Here the kernel serves
-// that call site directly: A [n, n, B], b [n, B] -> x [n, B].
+// cholesky backend through solve_spd_batchminor.  Here the kernels serve
+// that call site directly: A [n, n, B], b [n, B] -> x [n, B].  Element
+// (i, j) of lane b lies at (i * n + j) * B + b, so neighbouring lanes lie
+// at neighbouring addresses and every access coalesces without a
+// transpose.  Only the lower triangle of A is read.
 //
-// Design: one thread per lane b.  Element (i, j) of lane b lies at
-// (i * n + j) * B + b, so neighbouring threads touch neighbouring addresses
-// and every load and store coalesces without a transpose.  L lives in a
-// batch-minor scratch of n (n + 1) / 2 rows (row i of L packed at
-// i (i + 1) / 2), allocated by the wrapper; the forward solve writes z into
-// x and the back solve overwrites it in place, from the last row up.  Any
-// n >= 1 is taken.
-//
-// What bounds it: the compulsory traffic, (n^2 + 2 n) B words, 8.4 MB at
-// n = 2, B = 262144 in f32, some 2.5 us at 3.35 TB/s; the scratch adds
-// n (n + 1) / 2 B words written and read, mostly from L2.  The n^3 / 3
-// multiply-adds per lane stay far below the card's arithmetic for the
-// fleet's small n.  It measures about 7 us of device time there on an
-// H100 (PERF.md), while its Python wrapper costs several times that in
-// host time per call.
+// What bounds them: the compulsory traffic, (n (n + 1) / 2 + 2 n) B words
+// (7.3 MB at n = 2, B = 262144 in f32, some 2.2 us at 3.35 TB/s), against
+// some (n^3 / 3 + 2 n^2) B operations.  At the fleet's small n that is
+// bytes, but the work of a lane is a serial chain of dependent roundings
+// (about n^3 / 6 multiply-subtracts, n (n + 1) / 2 divisions and square
+// roots, then n (n - 1) / 2 steps of the back solve), so what holds a
+// kernel back is how much of that chain waits on memory and how many
+// chains the card runs at once.  Three forms, chosen by n and dtype in
+// ops/smallchol.py (``plan``):
+//   * chol_registers_kernel<T, N> (K3-r): one thread a lane, L, z and x
+//     in registers.  Every index is a compile-time constant, so nothing goes
+//     through memory but the reads of A and b, all issued up front, and
+//     the one write of x.  One kernel per n and dtype.
+//   * chol_warp_kernel<T> (K3-w): one warp a lane, the lane's packed lower
+//     triangle and its right-hand side in shared memory (below).  Its
+//     instruction issue bounds it: some 2.4 times the floor of it at
+//     [30, 30, 4096], most of it the trailing update and the per-step
+//     column work (PERF.md).
+//   * chol_global_kernel<T> (K3-g): one thread a lane, L in a batch-minor
+//     scratch of n (n + 1) / 2 rows in device memory; any n, for n past
+//     K3-w's.  Every l(i, k) is a load from device memory.
 //
 // Arithmetic: each operation is rounded as the plain PyTorch twin
 // (nlsolver_torch/linalg/solve.py:_solve_spd_unrolled, imported by
 // ops/smallchol.py as _chol_solve_batchminor) rounds it, in its order,
-// through the _rn intrinsics, so the kernel is bit-equal to it.
+// through the _rn intrinsics, so every form is bit-equal to it: entry
+// (i, j) of L is A[i, j] less L[i][k] L[j][k] for k = 0 .. j - 1 in
+// ascending k, then its square root or its quotient by L[j][j]; z[i] is
+// b[i] less L[i][k] z[k] in ascending k, over L[i][i]; x[i] is z[i] less
+// L[k][i] x[k] for k = i + 1 .. n - 1 in ascending k, over L[i][i].
 
 #include <cuda_runtime.h>
+
+#include <cuda_pipeline.h>
 
 #include <cstdint>
 
@@ -35,10 +50,248 @@
 
 namespace {
 
+constexpr int kThreads = 256;
+constexpr int64_t kMaxDynamicSmem = 232448;
+// K3-w's table of (r, c) for the packed entries of a triangle's first 32
+// rows (ops/smallchol.py's WARP_TABLE_BYTES: 2 bytes an entry)
+constexpr int kTableEntries = 32 * 33 / 2;
+
+// K3-r's most n, by word size (ops/smallchol.py's REGISTER_MAX_N): a
+// lane's n (n + 3) / 2 words stay in registers with no local memory (phase
+// 2 of chip_smoke.py checks ptxas's report)
+constexpr int kRegisterMaxN32 = 19, kRegisterMaxN64 = 13;
+
+// K3-r's loads: volatile, so they are issued in program order, all of them
+// before the first hold; a hold makes its value live in a register at that
+// point, so no operation starts before every load has been issued.  (Left
+// to itself the compiler sinks each load to its first use, and the loads'
+// latencies add up along the chain: three times the time at n = 12 on an
+// H100, PERF.md.)
+__device__ __forceinline__ void load_nc(const float* p, float& v) {
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
+}
+__device__ __forceinline__ void load_nc(const double* p, double& v) {
+  asm volatile("ld.global.nc.f64 %0, [%1];" : "=d"(v) : "l"(p));
+}
+__device__ __forceinline__ void hold(float& v) { asm volatile("" : "+f"(v)); }
+__device__ __forceinline__ void hold(double& v) { asm volatile("" : "+d"(v)); }
+
+// K3-r: lane b in thread b.  Row i of L packed at i (i + 1) / 2; the loads
+// of A's lower triangle and of b are all issued before the first
+// operation, then L overwrites A, z overwrites b and x overwrites z, in
+// registers.
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+    chol_registers_kernel(const T* __restrict__ A, const T* __restrict__ rhs,
+                          T* __restrict__ x, int64_t B) {
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  T L[N * (N + 1) / 2], z[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j <= i; ++j)
+      load_nc(A + (static_cast<int64_t>(i) * N + j) * B + b, L[i * (i + 1) / 2 + j]);
+    load_nc(rhs + static_cast<int64_t>(i) * B + b, z[i]);
+  }
+#pragma unroll
+  for (int e = 0; e < N * (N + 1) / 2; ++e) hold(L[e]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) hold(z[i]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      T acc = L[i * (i + 1) / 2 + j];
+#pragma unroll
+      for (int k = 0; k < j; ++k)
+        acc = rn::sub(acc, rn::mul(L[i * (i + 1) / 2 + k], L[j * (j + 1) / 2 + k]));
+      L[i * (i + 1) / 2 + j] = i == j ? rn::sqrt(acc) : rn::div(acc, L[j * (j + 1) / 2 + j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    T acc = z[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) acc = rn::sub(acc, rn::mul(L[i * (i + 1) / 2 + k], z[k]));
+    z[i] = rn::div(acc, L[i * (i + 1) / 2 + i]);
+  }
+#pragma unroll
+  for (int i = N - 1; i >= 0; --i) {
+    T acc = z[i];
+#pragma unroll
+    for (int k = i + 1; k < N; ++k) acc = rn::sub(acc, rn::mul(L[k * (k + 1) / 2 + i], z[k]));
+    z[i] = rn::div(acc, L[i * (i + 1) / 2 + i]);
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[static_cast<int64_t>(i) * B + b] = z[i];
+}
+
+// K3-w, one warp a lane.  What holds the thread-a-lane forms back past a
+// few n: one chain of some n^3 / 6 dependent steps a lane, and few lanes
+// to hide it (4096 lanes are 128 warps on 132 SMs).  Here a warp shares a
+// lane's work:
+//   * the lane's rows 0 .. n of a packed triangle in the warp's shared
+//     memory: rows 0 .. n - 1 hold A's lower triangle, row n (n words, at
+//     n (n + 1) / 2) holds b; then a column buffer of n + 1 words.  The
+//     words a warp takes are odd in number, so the W lanes of a block fall
+//     in distinct banks;
+//   * the block's W lanes fetch their triangles together by cp.async, W
+//     neighbouring words an entry (128 bytes in f32 at W = 32), and
+//     store x the same way;
+//   * the factorization is right-looking: at step j every thread takes
+//     L[j][j] = sqrt(S[j][j]) itself (the same bits in each), the threads
+//     divide column j below it, rows j + 1 .. n, into L's column and the
+//     column buffer, and after a warp barrier update the trailing triangle,
+//     S[i][l] -= L[i][j] L[l][j] for j < l <= i, l < n, its entries dealt
+//     to the 32 threads in packed order (t, t + 32, ..), so every thread
+//     gets the same count to within one whatever the row lengths (a row a
+//     thread would leave the warp on the longest row, twice the mean).  In
+//     rows shorter than the warp a thread's next entry lies rows further
+//     on, so their (row, column) come from a block-wide table of the first
+//     32 rows' entries; past them a thread steps to the next row at most
+//     once.  Row n is b: its column j is z[j] = (b[j] less L[j][k] z[k]) /
+//     L[j][j], so the forward solve rides the factorization as one more
+//     row.  Each
+//     entry still gets its subtractions in ascending k, then its square
+//     root or division: the twin's roundings in the twin's order;
+//   * the back solve runs row by row, x[i] = (z[i] less L[k][i] x[k] for k
+//     = i + 1 .. n - 1 ascending) / L[i][i], from shared memory, x over z
+//     in row n: subtracting in ascending k, x[i] waits on x[i + 1] for its
+//     first step, so its n (n - 1) / 2 steps form one chain, and the
+//     column-oriented order that would spread it over a warp subtracts in
+//     descending k and is not the twin's.  So after a block barrier thread
+//     w of warp 0 runs lane w's chain: the block issues it once for its W
+//     lanes, not once a lane.
+// A warp needs n (n + 1) / 2 + 2 n + 1 words, a block 1056 bytes more for
+// the table: n <= 337 in f32, 238 in f64.
 template <typename T>
-__global__ void chol_solve_kernel(const T* __restrict__ A,
-                                  const T* __restrict__ rhs, T* L, T* x, int n,
-                                  int64_t B) {
+__global__ void chol_warp_kernel(const T* __restrict__ A, const T* __restrict__ rhs,
+                                 T* __restrict__ x, int n, int64_t B) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int W = blockDim.x >> 5, shift = __ffs(W) - 1;  // lanes a block, a power of two
+  const int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
+  const int tri = n * (n + 1) / 2, words = (tri + 2 * n + 1) | 1;
+  T* all = reinterpret_cast<T*>(smem);
+  T* S = all + warp * words;  // row i at i (i + 1) / 2, i = 0 .. n
+  T* col = S + tri + n;
+  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * W;
+  // (r, c) of packed entry e = r (r + 1) / 2 + c of a triangle's first 32
+  // rows, r in the low byte, after the block's lanes
+  unsigned short* rc = reinterpret_cast<unsigned short*>(all + W * words);
+  for (int e = threadIdx.x; e < kTableEntries; e += blockDim.x) {
+    int r = 0;
+    while ((r + 1) * (r + 2) / 2 <= e) ++r;
+    rc[e] = static_cast<unsigned short>(r | (e - r * (r + 1) / 2) << 8);
+  }
+
+  {
+    // entry `at` of the packed rows 0 .. n and lane w: thread k of the
+    // block fetches entries k / W, k / W + 32, .. of lane k % W
+    const int w = threadIdx.x & (W - 1);
+    int at = threadIdx.x >> shift, i = 0, j = at;
+    while (j > i) j -= ++i;
+    for (; at < tri + n; at += 32) {
+      if (b0 + w < B) {
+        const T* src = i < n ? A + (static_cast<int64_t>(i) * n + j) * B
+                             : rhs + static_cast<int64_t>(j) * B;
+        __pipeline_memcpy_async(all + w * words + at, src + b0 + w, sizeof(T));
+      }
+      j += 32;
+      while (j > i) j -= ++i;
+    }
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  if (b0 + warp < B) {
+#pragma unroll 1
+    for (int j = 0; j < n; ++j) {
+      T* sj = S + j * (j + 1) / 2;
+      const T d = rn::sqrt(sj[j]);
+      {
+        int i = j + 1 + t;
+        T* si = S + i * (i + 1) / 2 + j;
+#pragma unroll 1
+        for (; i <= n; si += 32 * i + 528, i += 32) {  // i (i + 1) / 2 to (i + 32) (i + 33) / 2
+          const T v = rn::div(*si, d);
+          *si = v;
+          col[i] = v;
+        }
+      }
+      __syncwarp();
+      if (t == 0) sj[j] = d;
+      // trailing entry e = r (r + 1) / 2 + c is (i, l) = (a + r, a + c),
+      // a = j + 1; the last row (i = n) stops at l = n - 1.  S[i][l] lies
+      // at a (a + 1) / 2 + a + r a + e.  Rows r < 32 hold fewer entries
+      // than the warp: their (r, c) come from the table; from row 32 on a
+      // thread's next entry, 32 on, lies in its row or the next
+      const int a = j + 1, count = (n - j) * (n - j + 1) / 2 - 1;
+      T* s0 = S + a * (a + 1) / 2 + a;
+      const T* ca = col + a;
+      int e = t;
+#pragma unroll 1
+      for (; e < min(count, kTableEntries); e += 32) {
+        const int v = rc[e], r = v & 0xff;
+        T* p = s0 + r * a + e;
+        *p = rn::sub(*p, rn::mul(ca[r], ca[v >> 8]));
+      }
+      int r = 32, c = e - kTableEntries;
+#pragma unroll 1
+      for (; e < count; e += 32, c += 32) {
+        while (c > r) c -= ++r;
+        T* p = s0 + r * a + e;
+        *p = rn::sub(*p, rn::mul(ca[r], ca[c]));
+      }
+      __syncwarp();
+    }
+  }
+  // the back solve, thread w of warp 0 for lane w of the block: the chain
+  // of one lane issues once for W lanes.  Four terms a pass are fetched
+  // before they are subtracted, still in ascending k
+  __syncthreads();
+  if (threadIdx.x < W && b0 + threadIdx.x < B) {
+    const T* L = all + threadIdx.x * words;
+    T* z = all + threadIdx.x * words + tri;
+#pragma unroll 1
+    for (int i = n - 1; i >= 0; --i) {
+      T acc = z[i];
+      int k = i + 1;
+      const T* l = L + k * (k + 1) / 2 + i;  // L[k][i]; L[k + 1][i] is k + 1 words on
+#pragma unroll 1
+      for (; k + 4 <= n; k += 4) {
+        const T* l1 = l + k + 1;
+        const T* l2 = l1 + k + 2;
+        const T* l3 = l2 + k + 3;
+        const T v0 = *l, v1 = *l1, v2 = *l2, v3 = *l3;
+        const T x0 = z[k], x1 = z[k + 1], x2 = z[k + 2], x3 = z[k + 3];
+        acc = rn::sub(acc, rn::mul(v0, x0));
+        acc = rn::sub(acc, rn::mul(v1, x1));
+        acc = rn::sub(acc, rn::mul(v2, x2));
+        acc = rn::sub(acc, rn::mul(v3, x3));
+        l = l3 + k + 4;
+      }
+#pragma unroll 1
+      for (; k < n; ++k) {
+        acc = rn::sub(acc, rn::mul(*l, z[k]));
+        l += k + 1;
+      }
+      z[i] = rn::div(acc, L[i * (i + 1) / 2 + i]);
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < n << shift; e += blockDim.x) {
+    const int i = e >> shift, w = e & (W - 1);
+    if (b0 + w < B) x[static_cast<int64_t>(i) * B + b0 + w] = all[w * words + tri + i];
+  }
+}
+
+// K3-g: one thread a lane, L in the batch-minor scratch (row i of L packed
+// at i (i + 1) / 2), z written into x and overwritten in place by the back
+// solve, from the last row up.
+template <typename T>
+__global__ void chol_global_kernel(const T* __restrict__ A, const T* __restrict__ rhs, T* L,
+                                   T* x, int n, int64_t B) {
   const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (b >= B) return;
   auto l = [&](int i, int j) -> T& {
@@ -53,13 +306,11 @@ __global__ void chol_solve_kernel(const T* __restrict__ A,
       l(i, j) = i == j ? rn::sqrt(acc) : rn::div(acc, l(j, j));
     }
   }
-  // forward solve L z = rhs, z into x
   for (int i = 0; i < n; ++i) {
     T acc = rhs[static_cast<int64_t>(i) * B + b];
     for (int k = 0; k < i; ++k) acc = rn::sub(acc, rn::mul(l(i, k), v(x, k)));
     v(x, i) = rn::div(acc, l(i, i));
   }
-  // back solve L^T x = z, in place
   for (int i = n - 1; i >= 0; --i) {
     T acc = v(x, i);
     for (int k = i + 1; k < n; ++k) acc = rn::sub(acc, rn::mul(l(k, i), v(x, k)));
@@ -67,12 +318,40 @@ __global__ void chol_solve_kernel(const T* __restrict__ A,
   }
 }
 
-template <typename T>
-int launch(const void* A, const void* b, void* L, void* x, int n, int64_t B,
-           void* stream) {
-  constexpr int kThreads = 256;
+template <typename T, int N>
+int launch_registers(const void* A, const void* b, void* x, int n, int64_t B, void* stream) {
+  if constexpr (N > 1) {
+    if (n < N) return launch_registers<T, N - 1>(A, b, x, n, B, stream);
+  }
+  if (n != N || B < 1) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned blocks = static_cast<unsigned>((B + kThreads - 1) / kThreads);
-  chol_solve_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  chol_registers_kernel<T, N><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(A), static_cast<const T*>(b), static_cast<T*>(x), B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_warp(const void* A, const void* b, void* x, int n, int64_t B, int lanes,
+                void* stream) {
+  const int64_t smem = static_cast<int64_t>(lanes) * ((n * (n + 1) / 2 + 2 * n + 1) | 1) *
+                           sizeof(T) + kTableEntries * sizeof(unsigned short);
+  if (n < 1 || B < 1 || lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) ||
+      smem > kMaxDynamicSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      chol_warp_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned blocks = static_cast<unsigned>((B + lanes - 1) / lanes);
+  chol_warp_kernel<T><<<blocks, 32 * lanes, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(A), static_cast<const T*>(b), static_cast<T*>(x), n, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_global(const void* A, const void* b, void* L, void* x, int n, int64_t B,
+                  void* stream) {
+  const unsigned blocks = static_cast<unsigned>((B + kThreads - 1) / kThreads);
+  chol_global_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(A), static_cast<const T*>(b), static_cast<T*>(L),
       static_cast<T*>(x), n, B);
   return static_cast<int>(cudaGetLastError());
@@ -80,14 +359,22 @@ int launch(const void* A, const void* b, void* L, void* x, int n, int64_t B,
 
 }  // namespace
 
-// A [n, n, B], b [n, B] -> x [n, B]; L is scratch of n (n + 1) / 2 * B.
-// Returns cudaGetLastError().
-extern "C" int chol_solve_batchminor_f32(const void* A, const void* b, void* L,
-                                         void* x, int n, int64_t B, void* stream) {
-  return launch<float>(A, b, L, x, n, B, stream);
-}
+// A [n, n, B], b [n, B] -> x [n, B].  K3-r, n = 1 .. its most; K3-w with
+// ``lanes`` warps a block (a power of two, 1 .. 32, whose triangles fit
+// 232448 bytes); K3-g with L, scratch of n (n + 1) / 2 * B words.  Each returns cudaGetLastError().
+#define NLSOLVER_CHOL_LAUNCHERS(SUFFIX, T, MAXN)                                           \
+  extern "C" int chol_solve_registers_##SUFFIX(const void* A, const void* b, void* x, int n, \
+                                               int64_t B, void* stream) {                    \
+    return launch_registers<T, MAXN>(A, b, x, n, B, stream);                                 \
+  }                                                                                          \
+  extern "C" int chol_solve_warp_##SUFFIX(const void* A, const void* b, void* x, int n,      \
+                                          int64_t B, int lanes, void* stream) {              \
+    return launch_warp<T>(A, b, x, n, B, lanes, stream);                                     \
+  }                                                                                          \
+  extern "C" int chol_solve_batchminor_##SUFFIX(const void* A, const void* b, void* L,       \
+                                                void* x, int n, int64_t B, void* stream) {   \
+    return launch_global<T>(A, b, L, x, n, B, stream);                                       \
+  }
 
-extern "C" int chol_solve_batchminor_f64(const void* A, const void* b, void* L,
-                                         void* x, int n, int64_t B, void* stream) {
-  return launch<double>(A, b, L, x, n, B, stream);
-}
+NLSOLVER_CHOL_LAUNCHERS(f32, float, kRegisterMaxN32)
+NLSOLVER_CHOL_LAUNCHERS(f64, double, kRegisterMaxN64)

@@ -30,9 +30,10 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch.func import jacfwd, vmap
+from torch.utils._pytree import tree_map
 
 from ..core import lane_where as _lane_where
-from ..core import make_result
+from ..core import make_result, start_points
 from ..linalg.qr_parallel import least_squares_parallel
 from ..ops.qr_wavefront import least_squares_wavefront_kernel
 from ..ops.smallchol import solve_spd_batchminor
@@ -194,11 +195,16 @@ def fit_fleet(
     residual_fn: Callable,
     X0: torch.Tensor,                  # [n, B] batch-minor start points
     config: NLLSFleetConfig = NLLSFleetConfig(),
-    data: Optional[object] = None,     # per-instance tensor or tuple, leading dim B
+    data: Optional[object] = None,     # per-instance pytree, leaves leading with B
 ):
     """Minimize ``||residual_fn(x_b, data_b)||^2`` for every lane b.
 
-    Returns a SolverResult with per-lane fields; ``x`` stays [n, B]."""
+    ``X0`` and the leaves of ``data`` that are no ``torch.Tensor`` (numpy
+    arrays, lists) go to the CUDA card, as ``minimize``'s start points do,
+    and raise ``RuntimeError`` without one.  Returns a SolverResult with
+    per-lane fields; ``x`` stays [n, B]."""
+    X0 = start_points(X0, "X0")
+    data = tree_map(lambda d: d if d is None else start_points(d, "data"), data)
     state = init(residual_fn, X0, config, data)
     while not bool(state.done.all()):
         for _ in range(CHECK_EVERY):

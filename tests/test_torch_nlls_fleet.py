@@ -161,3 +161,60 @@ def test_interop_round_trip(expfit):
         assert a.dtype == b.dtype and torch.equal(a, b)
     with pytest.raises(ValueError, match="missing fields"):
         nlls_fleet_state_from_numpy({"x": np.zeros((2, 3))}, "cpu")
+
+
+def test_chebyshev_fleet_through_cholesky_matches_jax_lane_by_lane():
+    """A fleet of series in a polynomial basis, 12 Chebyshev coefficients
+    from 32 samples at the Chebyshev nodes (``benches.chebyshev_scenario``'s
+    fits, drawn with numpy), through the default backend: the twin of K3
+    past K3's n = 2 exp fits; f64, B = 16."""
+    n, m, B = 12, 32, 16
+    rng = np.random.default_rng(3)
+    theta = np.pi * (np.arange(m) + 0.5) / m
+    basis = np.cos(np.arange(n)[:, None] * theta[None, :])            # [n, m]
+    coefs = rng.standard_normal((n, B))
+    ys = np.ascontiguousarray((basis.T @ coefs).T)                     # [B, m]
+    tb, jb = torch.from_numpy(basis), jnp.asarray(basis)
+    tcfg, jcfg = _configs("cholesky", max_iter=30)
+    got = nt.fit_fleet(lambda p, y: p @ tb - y, torch.zeros(n, B, dtype=torch.float64), tcfg,
+                       data=torch.from_numpy(ys))
+    want = jax.jit(lambda X, d: jnf.fit_fleet(lambda p, y: p @ jb - y, X, jcfg, data=d))(
+        jnp.zeros((n, B)), ys)
+    for field in ("iterations", "function_calls", "gradient_calls", "converged"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(), np.asarray(getattr(want, field)),
+                                      err_msg=field)
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(got.x.numpy(), coefs, atol=1e-6)
+
+
+def test_numpy_start_points_need_a_card(expfit):
+    """X0 and data that are no torch.Tensor go to the card as minimize's
+    start points do; without one fit_fleet raises the start points' error,
+    not a vmap error."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: tests/test_torch_smallchol.py::"
+                    "test_fit_fleet_numpy_start_points_land_on_the_card covers it")
+    tres, _, ys, _, _ = expfit
+    with pytest.raises(RuntimeError, match="X0 is not a torch.Tensor and there is no CUDA card"):
+        nt.fit_fleet(tres, np.ones((2, ys.shape[0])), tnf.NLLSFleetConfig(max_iter=3),
+                     data=torch.from_numpy(ys))
+    with pytest.raises(RuntimeError, match="data is not a torch.Tensor and there is no CUDA card"):
+        nt.fit_fleet(tres, torch.ones(2, ys.shape[0], dtype=torch.float64),
+                     tnf.NLLSFleetConfig(max_iter=3), data=ys)
+
+
+
+def test_pytree_data_of_cpu_tensors(expfit):
+    """data may be any pytree whose leaves lead with B (a dict, nested
+    tuples): its CPU tensors stay where they are and the fleet equals the
+    one given the bare tensor; a numpy leaf goes the start points' way."""
+    tres, _, ys, _, _ = expfit
+    cfg, y = tnf.NLLSFleetConfig(max_iter=30), torch.from_numpy(ys)
+    X0 = torch.ones(2, ys.shape[0], dtype=torch.float64)
+    want = nt.fit_fleet(tres, X0, cfg, data=y)
+    got = nt.fit_fleet(lambda p, d: tres(p, d["y"]) * d["w"][0][0], X0, cfg,
+                       data={"y": y, "w": ((torch.ones_like(y[:, 0]),),)})
+    assert torch.equal(got.x, want.x) and torch.equal(got.iterations, want.iterations)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="data is not a torch.Tensor and there is no CUDA"):
+            nt.fit_fleet(tres, X0, cfg, data={"y": ys})
