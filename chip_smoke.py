@@ -10,7 +10,8 @@ Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc over nlsolver_torch/csrc for sm_90a, one process per source;
      no register kernel of K5, K2b or K3 (one per n and dtype each), and no
-     kernel of K2b's warp form, may spill or keep a stack frame; the issue
+     kernel of K2b's warp form or of the cluster forms of K2b and K3, may
+     spill or keep a stack frame; the issue
      floors of K1's staged form, K2b's register and warp forms, K2a's warp
      form, K4b-c and K3's register and warp forms from their SASS;
   3. K1 in both forms against its twin on injected draws, B=8192, n=10,
@@ -28,25 +29,30 @@ Phases, each fatal on failure:
   6. DE timing: the fleet for 200 generations through K1 and through the
      plain step (median of 5 after 2 warm-ups), and each form of K1 alone
      behind a device sleep against its twin from CUDA events;
-  7. K3 (batch-minor Cholesky solve) in its three forms (registers, a warp
-     a lane, device memory) bit-equal to its twin on SPD systems by direct
-     call, each form that takes n, at n in {1, 2, 8, 12, 16, 30, 33} at
-     B=16384 in f32 and n=8 in f64, at the shapes phase 10 times ([2, 2,
-     262144], [12, 12, 16384], [30, 30, 4096]) and on the first damped
-     normal equations of the exp fleet and the two Chebyshev fleets of
-     phase 9; the dispatcher's choice at each edge of K3-r's and K3-w's
-     ranges, its x bit-equal to the twin; its path past K3-w's range, [240,
-     240, 16] in f64 through K3-g, launches counted, x bit-equal to the twin
-     and the residual |Ax - b| / |b| below 1e-12; a
+  7. K3 (batch-minor Cholesky solve) in its four forms (registers, a warp
+     a lane, a cluster a lane, device memory) bit-equal to its twin on SPD
+     systems by direct call, each form that takes n, at n in {1, 2, 8, 12,
+     16, 30, 33} at B=16384 in f32 and n=8 in f64, at the shapes phase 10
+     times ([2, 2, 262144], [12, 12, 16384], [30, 30, 4096]) and on the
+     first damped normal equations of the exp fleet and the two Chebyshev
+     fleets of phase 9; the dispatcher's choice at each edge of K3-r's,
+     K3-w's and K3-c's ranges in f32 and f64, its x bit-equal to the twin
+     (past n = 64 to chol_solve_right_looking, the twin's operations in its
+     order as whole blocks); its path past K3-w's range, [240, 240, 16] in
+     f64 through K3-c (clusters of 8), launches counted, x bit-equal to
+     chol_solve_right_looking and the residual |Ax - b| / |b| below 1e-12;
+     past K3-c's range, [654, 654, 2] in f64 through K3-g, counted, bit-equal, timed once; a
      non-contiguous and an f16 input refused;
-  8. K2b (wavefront least squares) in its four forms (registers, shared
-     memory, a warp a lane, device memory) bit-equal to its twin on the NLLS
-     fleet's augmented system [J; sqrt(lam) I] at [34, 2, 262144] in f32 and
-     f64, the shared, warp and device-memory forms on the Chebyshev fleets'
-     first systems, [44, 12, 16384], [78, 30, 4096] and [248, 120, 256] in
-     f64, and on random systems, each form at the first and last n it takes
-     (the device-memory form at the first), square and with one row more,
-     and the dispatcher's choice at each boundary;
+  8. K2b (wavefront least squares) in its five forms (registers, shared
+     memory, a warp a lane, a cluster a lane, device memory) bit-equal to
+     its twin on the NLLS fleet's augmented system [J; sqrt(lam) I] at [34,
+     2, 262144] in f32 and f64, the shared, warp, cluster and device-memory
+     forms on the Chebyshev fleets' first systems, [44, 12, 16384], [78,
+     30, 4096] and [248, 120, 256] in f64, and on random systems, each form
+     but the device-memory one at the first and last n it takes, square and
+     with one row more, and the dispatcher's choice at each boundary; past
+     the cluster form's range, [331, 330, 2] in f64 through the dispatcher
+     to the device-memory form, counted, bit-equal, timed once;
      K2a (wavefront QR) in its warp form (K2a-w) and its device-memory form
      bit-equal to its twin at [16, 16, 4096] and [32, 8, 4096] with Q, and
      a factorization; K2a-w at its last square shape and its last with one
@@ -58,18 +64,20 @@ Phases, each fatal on failure:
      form) and "qr" (plain), launches counted; solved share, recovered
      parameters, qr_pallas equal to qr lane by lane, cholesky close to them;
      Chebyshev fits of 12 and 30 coefficients through K2b's shared-memory
-     and warp forms, and of 120 in f64 through its device-memory form; the
+     and warp forms, and of 120 in f64 through its cluster form; the
      same fits of 12 and 30 coefficients through solve="cholesky" (K3 in
      the form its plan names, K3-w at 30), K3 launched once a host step;
      numpy start points and data land on the card;
  10. NLLS timing: bench_nlls_fleet per backend (median of 3 after 1
-     warm-up, ABBA order), and K2a in both forms, each form of K2b (the device-memory
-     form also on the shared form's Chebyshev system, and beside the warp
-     form on the 30-coefficient one) and K3's forms (K3-r at [2, 2,
+     warm-up, ABBA order), and K2a in both forms (the device-memory form at
+     its path's [170, 170, 32]), each form of K2b (the device-memory form
+     also on the shared and warp forms' Chebyshev systems, and beside the
+     cluster form on the float64 fleet's) and K3's forms (K3-r at [2, 2,
      262144], the planned form at [12, 12, 16384], K3-w at [30, 30, 4096],
-     K3-g beside each) alone against their twins from CUDA events, beside
-     the one PyTorch call that computes the same function (torch.linalg.qr,
-     torch.linalg.lstsq, Cholesky factor and solve);
+     K3-c at [240, 240, 16] f64, K3-g beside each) alone against their
+     twins from CUDA events, beside the one PyTorch call that computes the
+     same function (torch.linalg.qr, torch.linalg.lstsq, Cholesky factor
+     and solve);
  11. K4a (resident rank-2 update + direction) against its twin at
      [16, 16, 65536] f32 with a third of the lanes on reset and a fifth at
      rho = 0, at n in {1, 2, 8, 33} with a ragged B, and once in f64; K4b-c
@@ -90,8 +98,9 @@ Phases, each fatal on failure:
      K4b-c's range (n=225, B=256) that reaches K4b; one leading-batch update
      through ops.rank2_update_batched (K4c);
  13. BFGS timing: bench_bfgs_fleet per line search (median of 3 after 1
-     warm-up, ABBA order), and K4a, K4b-c, K4b and K4c alone against their
-     twins from CUDA events;
+     warm-up, ABBA order), and K4a, K4b-c, K4b (at its path's [225, 225,
+     256] and beside K4b-c) and K4c alone against their twins from CUDA
+     events;
  14. K5 (batched Jacobi eigensolver) equal to its twin bit for bit in all
      four forms: K5r (registers) at [16, 16, 65536] f32 with 8 sweeps,
      [17, 17, 4096], [2, 2, 65536], [8, 8, 4096] f64, [16, 16, 4099] in f32
@@ -128,7 +137,8 @@ Phases, each fatal on failure:
 
 Every kernel's line also gives its bound: the larger of its compulsory
 bytes over 3.35 TB/s and its floating-point operations over 67 TFLOP/s
-(f32 outside the tensor cores), computed from the run's shapes; K1's
+(f32 outside the tensor cores; f64 too, the FP64 tensor cores' rate),
+computed from the run's shapes; K1's
 staged form, K2b's register and warp forms, K2a-w, K4b-c and K3's register
 and warp forms also the floor of their instruction issue (``issue_ms``),
 which must lie below their time.
@@ -153,7 +163,7 @@ WIDE_B, WIDE_N = 4096, 128     # the wide BFGS fleet, beyond K4a's resident slab
 WIDE_K4B_B, WIDE_K4B_N = 256, 225  # a wide BFGS fleet past K4b-c's range in f32 (K4b)
 CHEB_SHARED = (12, 32, 16384)  # Chebyshev NLLS fleets: coefficients, points, fits; through
 CHEB_WARP = (30, 48, 4096)     # K2b's shared-memory and warp forms (float32), and past the
-CHEB_GLOBAL = (120, 128, 256)  # warp form's range in float64 through its device-memory form
+CHEB_CLUSTER = (120, 128, 256)  # warp form's range in float64 through its cluster form
 K3G_N, K3G_B = 240, 16         # an SPD solve past K3-w's range in float64 (K3-g)
 CMA_B, CMA_N, CMA_GENS = 65536, 16, 50   # the CMA-ES fleet: strategies, dimensions, generations
 CMA_WIDE_B = 4096              # the wide CMA-ES fleets: n = 56 and n = 64 (K5a)
@@ -162,10 +172,13 @@ CMA_C4_N = 300                 # a wide fleet on clusters of 4 CTAs
 K5B_N, K5B_B, K5B_SWEEPS = 473, 16, 2  # the first n that K5c refuses in f32, few lanes and sweeps
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOPS = 67e12              # H100 SXM float32 rate outside the tensor cores
+F64_FLOPS = 67e12              # H100 SXM float64 rate of the tensor cores (DMMA)
 
 
 # the SM clock's maximum in MHz (nvidia-smi), read in phase 1 for the issue floors
 FLOORS = {}
+# the seconds each phase took, by its number (phase)
+PHASE_SECONDS = {}
 
 
 def issue_floor(instructions, threads):
@@ -175,11 +188,13 @@ def issue_floor(instructions, threads):
     return instructions * -(-threads // 32) / (4 * 132 * FLOORS["mhz"] * 1e6) * 1e3
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, f64=False):
     """The least time the card could take, in ms, and what sets it: every
     input byte read once and every output byte written once over the
-    memory rate, against the operations over the float32 rate."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    memory rate, against the operations over the float32 (``f64``: the
+    float64) rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / (F64_FLOPS if f64 else F32_FLOPS) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -197,15 +212,16 @@ def de_bound(b, n, p):
     return bound((2 * n * p + 2 * p) * b * 4 + b, 30 * n * p * b)
 
 
-def lstsq_bound(m, n, b):
-    """K2b's bound in f32: A and y in, x out; givens_ops a lane."""
-    return bound((m * n + m + n) * b * 4, givens_ops(m, n, 1) * b)
+def lstsq_bound(m, n, b, f64=False):
+    """K2b's bound in f32 (or f64): A and y in, x out; givens_ops a lane."""
+    return bound((m * n + m + n) * b * (8 if f64 else 4), givens_ops(m, n, 1) * b, f64)
 
 
-def spd_bound(n, b):
-    """K3's bound in f32: A's lower triangle and b in, x out; n^3 / 3 + 2 n^2
-    operations a lane."""
-    return bound((n * (n + 1) // 2 + 2 * n) * b * 4, (n ** 3 / 3 + 2 * n * n) * b)
+def spd_bound(n, b, f64=False):
+    """K3's bound in f32 (or f64): A's lower triangle and b in, x out; n^3 /
+    3 + 2 n^2 operations a lane."""
+    return bound((n * (n + 1) // 2 + 2 * n) * b * (8 if f64 else 4),
+                 (n ** 3 / 3 + 2 * n * n) * b, f64)
 
 
 def rank2_bound(n, b, direction=True):
@@ -225,6 +241,14 @@ def jacobi_bound(n, b, sweeps):
 
 def log(msg):
     print(msg, flush=True)
+
+
+def phase(number, fn, *args):
+    """Runs phase ``number`` (``fn(*args)``) and keeps the seconds it took."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[number] = round(time.perf_counter() - t0, 1)
+    return out
 
 
 def check(cond, msg):
@@ -487,8 +511,11 @@ def phase_build():
     kinds = {"eigh_jacobi_registers_kernel": ("K5r", f"IfLi{CMA_N}ELb0E"),  # <float, n, even>
              "least_squares_registers_kernel": ("K2b", "IfLi2E"),         # <float, the fleet's n>
              "least_squares_warp_kernel": ("K2b-w", "IfLi1E"),            # <float, a word a row>
-             "chol_registers_kernel": ("K3-r", "IfLi2E")}                 # <float, the fleet's n>
-    used, main, local = {"K5r": [], "K2b": [], "K2b-w": [], "K3-r": []}, {}, []
+             "chol_registers_kernel": ("K3-r", "IfLi2E"),                 # <float, the fleet's n>
+             "least_squares_cluster_kernel": ("K2b-c", "IdE"),            # <double>, its fleet's
+             "chol_cluster_kernel": ("K3-c", "IdE")}                      # <double>, its path's
+    used, main, local = {"K5r": [], "K2b": [], "K2b-w": [], "K3-r": [], "K2b-c": [],
+                         "K3-c": []}, {}, []
     for short, spill, regs in entries:
         kind = next((v for k, v in kinds.items() if short.startswith(k)), None)
         count = int(regs.split("Used")[1].split()[0]) if "Used" in regs else -1
@@ -502,8 +529,14 @@ def phase_build():
         if "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" not in spill:
             local.append(f"{short}: {spill}")
     if out:
-        check(not local, "register kernels of K5, K2b or K3, or K2b's warp form, use local "
-              "memory: " + "; ".join(local))
+        check(not local, "register kernels of K5, K2b or K3, or K2b's warp or cluster form or "
+              "K3's cluster form, use local memory: " + "; ".join(local))
+        for kid in ("K2b-c", "K3-c"):
+            check(len(used[kid]) == 2, f"ptxas reported {len(used[kid])} kernels of {kid}, "
+                  "expected one per dtype")
+            log(f"[2] ptxas: {kid}, {len(used[kid])} kernels (float32, float64): "
+                f"{min(used[kid])} to {max(used[kid])} registers a thread, {main.get(kid)} in "
+                "float64, 0 bytes of stack frame, 0 bytes spilled")
         k5r, k2b, k2bw, k3r = used["K5r"], used["K2b"], used["K2b-w"], used["K3-r"]
         check(len(k3r) == sum(SPD_REGISTER_MAX_N.values()),
               f"ptxas reported {len(k3r)} register kernels of K3, expected one per n and dtype")
@@ -788,16 +821,17 @@ def spd_forms():
     from nlsolver_torch.ops import smallchol as tsc
 
     return {"K3-r": tsc.solve_spd_registers, "K3-w": tsc.solve_spd_warp,
-            "K3-g": tsc.solve_spd_batchminor_global}
+            "K3-c": tsc.solve_spd_cluster, "K3-g": tsc.solve_spd_batchminor_global}
 
 
-K3_OF_PLAN = {"registers": "K3-r", "warp": "K3-w", "global": "K3-g"}
+K3_OF_PLAN = {"registers": "K3-r", "warp": "K3-w", "cluster": "K3-c", "global": "K3-g"}
 
 
 def spd_takes(kid, n, dtype):
     from nlsolver_torch.ops import smallchol as tsc
 
-    return {"K3-r": tsc.registers_fit, "K3-w": tsc.warp_fits}.get(kid, lambda n, d: True)(n, dtype)
+    return {"K3-r": tsc.registers_fit, "K3-w": tsc.warp_fits,
+            "K3-c": tsc.cluster_fits}.get(kid, lambda n, d: True)(n, dtype)
 
 
 def spd_case(torch, dev, n, b, dtype=None, seed=7):
@@ -824,9 +858,10 @@ def normal_system(torch, dev, scenario, n, X0_value):
 
 def phase_smallchol(torch, dev):
     """K3's forms bit for bit against the twin, the dispatcher's choice at
-    each boundary, its path past K3-w's range, refusals.  Returns the
-    largest difference from the twin per form and K3-g's launches on its
-    path."""
+    each boundary, its path past K3-w's range (K3-c) and past K3-c's (K3-g),
+    refusals.  Returns the largest difference from the twin per form, the
+    launches of K3-c and K3-g on their paths and the time in ms of the
+    twin's order (chol_solve_right_looking) at K3-c's path."""
     from nlsolver_torch.benches import chebyshev_scenario, expfit_scenario
     from nlsolver_torch.ops import smallchol as tsc
 
@@ -868,11 +903,21 @@ def phase_smallchol(torch, dev):
         hold([k for k in forms if spd_takes(k, n, A.dtype)], A, rhs,
              f"{what} first normal equations {tuple(A.shape)}")
     # the dispatcher's choice at the edges of each form's range, its x the
-    # twin's
+    # twin's; past n = 64 the twin's eager ops (some n^3 / 6) would take
+    # minutes, and chol_solve_right_looking, the twin's operations in its
+    # order as whole trailing blocks (tests/test_torch_smallchol.py holds it
+    # bit-equal to the twin, on the card at K3-c's path too), stands in for it
     def dispatch(kid, A, rhs, label):
-        twin = tsc._chol_solve_batchminor(A, rhs).cpu()
+        n = A.shape[0]
+        t0 = time.perf_counter()
+        twin = (tsc._chol_solve_batchminor if n <= 64
+                else tsc.chol_solve_right_looking)(A, rhs).cpu()
+        twin_ms = (time.perf_counter() - t0) * 1e3
         reset_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
         x = tsc.solve_spd_batchminor(A, rhs)
+        end.record()
         torch.cuda.synchronize()
         counts = {k: f.launches for k, f in forms.items()}
         check(counts == {k: int(k == kid) for k in forms},
@@ -880,30 +925,48 @@ def phase_smallchol(torch, dev):
         check(torch.equal(x.cpu(), twin), f"solve_spd_batchminor({label}) through {kid} differs "
               f"from the twin: max |diff| {max_diff(x.cpu(), twin):.3e}")
         worst[kid] = max(worst[kid], max_diff(x.cpu(), twin))
-        return x, counts
+        return x, counts, twin_ms, start.elapsed_time(end)
 
     for dtype in (torch.float32, torch.float64):
+        kind = str(dtype)[6:]
         reg = tsc.REGISTER_MAX_N[dtype]
         warp = max(n for n in range(1, 400) if tsc.warp_fits(n, dtype))
+        last = max(n for n in range(1, 1000) if tsc.cluster_fits(n, dtype))
         for n, kid in ((1, "K3-r"), (reg, "K3-r"), (reg + 1, "K3-w")):
             A, rhs = spd_case(torch, dev, n, 999, dtype)
-            hold([kid], A, rhs, f"[{n}, {n}, 999] {str(dtype)[6:]}")
-            dispatch(kid, A, rhs, f"[{n}, {n}, 999] {str(dtype)[6:]}")
-        check(tsc.plan(warp, dtype) == "warp" and tsc.plan(warp + 1, dtype) == "global",
-              f"the plan does not end K3-w at n={warp} in {dtype}")
+            hold([kid], A, rhs, f"[{n}, {n}, 999] {kind}")
+            dispatch(kid, A, rhs, f"[{n}, {n}, 999] {kind}")
+        # the ends of K3-w's and K3-c's ranges on a few lanes (clusters of
+        # 8 there)
+        for n, kid in ((warp, "K3-w"), (warp + 1, "K3-c"), (last, "K3-c")):
+            A, rhs = spd_case(torch, dev, n, 3, dtype)
+            _, _, _, ms = dispatch(kid, A, rhs, f"[{n}, {n}, 3] {kind}")
+            log(f"[7] solve_spd_batchminor([{n}, {n}, 3] {kind}) through {kid}: bit-equal to "
+                f"the twin, {ms:.3f} ms")
+        check(tsc.plan(last + 1, dtype) == "global", f"the plan does not end K3-c at n={last}")
         log(f"[7] the dispatcher takes K3-r for n <= {reg}, K3-w for {reg + 1} <= n <= {warp}, "
-            f"K3-g beyond ({str(dtype)[6:]}, B = 999), each bit-equal to the twin")
-    # K3-g's path: the dispatcher past K3-w's range in float64, counted and
-    # held bit for bit against the twin on the card (some 4.6 million eager
-    # ops; in host memory it would not serve, as the host's float64
-    # torch.sqrt may be off by an ulp where the card's is not)
+            f"K3-c for {warp + 1} <= n <= {last}, K3-g beyond ({kind}), each bit-equal to the twin")
+    # K3-c's path: the dispatcher past K3-w's range in float64, counted and
+    # held bit for bit against the twin's order on the card (the twin's
+    # square roots taken there: the host's float64 torch.sqrt may be off by
+    # an ulp where the card's is not)
     n, b = K3G_N, K3G_B
     A, rhs = spd_case(torch, dev, n, b, torch.float64)
-    x, counts = dispatch("K3-g", A, rhs, f"[{n}, {n}, {b}] float64")
+    x, counts, twin_ms, _ = dispatch("K3-c", A, rhs, f"[{n}, {n}, {b}] float64")
     res = float(((torch.einsum("ijb,jb->ib", A, x) - rhs).norm(dim=0) / rhs.norm(dim=0)).max())
     log(f"[7] solve_spd_batchminor([{n}, {n}, {b}] float64): launches {counts}; bit-equal to "
-        f"the twin; max over lanes of |Ax-b|/|b| {res:.3e}")
-    check(bool(torch.isfinite(x).all()) and res < 1e-12, "K3-g's residual above 1e-12")
+        f"the twin's order (chol_solve_right_looking, {twin_ms:.0f} ms); max over lanes of "
+        f"|Ax-b|/|b| {res:.3e}")
+    check(bool(torch.isfinite(x).all()) and res < 1e-12, "K3-c's residual above 1e-12")
+    launches = {"K3-c": counts["K3-c"]}
+    # K3-g's path: the first n past K3-c's range in float64, on 2 lanes,
+    # through the dispatcher, timed once
+    n = max(k for k in range(1, 1000) if tsc.cluster_fits(k, torch.float64)) + 1
+    A, rhs = spd_case(torch, dev, n, 2, torch.float64)
+    _, counts, _, ms = dispatch("K3-g", A, rhs, f"[{n}, {n}, 2] float64")
+    log(f"[7] solve_spd_batchminor([{n}, {n}, 2] float64) through K3-g: bit-equal to the twin, "
+        f"{ms:.3f} ms")
+    launches["K3-g"] = counts["K3-g"]
     A32 = torch.eye(3, device=dev).reshape(3, 3, 1).expand(3, 3, 64).contiguous()
     for what, args in (("non-contiguous", (A32.transpose(0, 1), torch.ones(3, 64, device=dev))),
                        ("f16", (A32.half(), torch.ones(3, 64, device=dev).half()))):
@@ -913,7 +976,7 @@ def phase_smallchol(torch, dev):
             log(f"[7] K3 refuses a {what} input: {e}")
         else:
             check(False, f"K3 took a {what} input")
-    return worst, counts["K3-g"]
+    return worst, launches, twin_ms
 
 
 def first_system(torch, dev, scenario, n, X0_value):
@@ -949,14 +1012,15 @@ def lstsq_forms():
     return {"K2b-r": tqw.least_squares_wavefront_registers,
             "K2b-s": tqw.least_squares_wavefront_shared,
             "K2b-w": tqw.least_squares_wavefront_warp,
+            "K2b-c": tqw.least_squares_wavefront_cluster,
             "K2b-g": tqw.least_squares_wavefront_global}
 
 
 def lstsq_takes(kid, n, dtype):
     from nlsolver_torch.ops import qr_wavefront as tqw
 
-    return {"K2b-r": tqw.registers_fit, "K2b-s": tqw.shared_fits,
-            "K2b-w": tqw.warp_fits}.get(kid, lambda n, d: True)(n, dtype)
+    return {"K2b-r": tqw.registers_fit, "K2b-s": tqw.shared_fits, "K2b-w": tqw.warp_fits,
+            "K2b-c": tqw.cluster_fits}.get(kid, lambda n, d: True)(n, dtype)
 
 
 def phase_qr(torch, dev):
@@ -992,7 +1056,7 @@ def phase_qr(torch, dev):
     # that time it in phase 10 and the form its fleet runs
     for shape, kids, dtype in ((CHEB_SHARED, ["K2b-s", "K2b-g"], torch.float32),
                                (CHEB_WARP, ["K2b-w", "K2b-g"], torch.float32),
-                               (CHEB_GLOBAL, ["K2b-g"], torch.float64)):
+                               (CHEB_CLUSTER, ["K2b-c", "K2b-g"], torch.float64)):
         A, y = chebyshev_system(torch, dev, *shape, dtype)
         hold(kids, A, y, f"Chebyshev fleet {tuple(A.shape)} {str(dtype)[6:]}")
     for m, n, b in ((32, 8, 4096), (64, 16, 4096), (34, 2, 300), (70, 40, 999)):
@@ -1000,26 +1064,52 @@ def phase_qr(torch, dev):
                 torch.randn((m, b), generator=g, device=dev))
         hold([k for k in forms if lstsq_takes(k, n, A.dtype)], A, y, f"random {(m, n, b)}")
     # each form at the first and last n it takes, square and with one row
-    # more (the device-memory form at its first); the dispatcher's choice at
+    # more (the cluster form's last on 33 lanes); the dispatcher's choice at
     # each boundary
     for dtype in (torch.float32, torch.float64):
         reg = tqw.REGISTER_MAX_N[dtype]
         shared = max(n for n in range(1, 64) if tqw.shared_fits(n, dtype))
         warp = max(n for n in range(1, 512) if tqw.warp_fits(n, dtype))
+        last = max(n for n in range(1, 512) if tqw.cluster_fits(n, dtype))
         edges = {"K2b-r": (1, reg), "K2b-s": (reg + 1, shared), "K2b-w": (shared + 1, warp),
-                 "K2b-g": (warp + 1,)}
+                 "K2b-c": (warp + 1, last)}
         for kid, ns in edges.items():
             for n in ns:
                 for m in (n, n + 1):
-                    A, y = (torch.randn((m, n, 999), generator=g, device=dev, dtype=dtype),
-                            torch.randn((m, 999), generator=g, device=dev, dtype=dtype))
-                    hold([kid], A, y, f"[{m}, {n}, 999] {str(dtype)[6:]}")
+                    b = 33 if n == last else 999
+                    A, y = (torch.randn((m, n, b), generator=g, device=dev, dtype=dtype),
+                            torch.randn((m, b), generator=g, device=dev, dtype=dtype))
+                    hold([kid], A, y, f"[{m}, {n}, {b}] {str(dtype)[6:]}"
+                         + (f" (C = {tqw.cluster_plan(n, dtype, b)[0]})" if kid == "K2b-c" else ""))
                     before = forms[kid].launches
                     tqw.least_squares_wavefront_kernel(A, y)
                     check(forms[kid].launches == before + 1,
                           f"the dispatcher did not take {kid} at n={n} in {dtype}")
+        check(tqw.least_squares_form(last + 1, dtype) == "global",
+              f"the dispatcher does not end K2b-c at n={last} in {dtype}")
         log(f"[8] the dispatcher takes K2b-r for n <= {reg}, K2b-s for {reg + 1} <= n <= {shared}, "
-            f"K2b-w for {shared + 1} <= n <= {warp}, K2b-g beyond ({str(dtype)[6:]})")
+            f"K2b-w for {shared + 1} <= n <= {warp}, K2b-c for {warp + 1} <= n <= {last}, K2b-g "
+            f"beyond ({str(dtype)[6:]})")
+    # K2b-g's path: the first n past K2b-c's range in float64, square, on 2
+    # lanes, through the dispatcher, timed once (a thread a lane: seconds)
+    n = max(k for k in range(1, 512) if tqw.cluster_fits(k, torch.float64)) + 1
+    A, y = (torch.randn((n, n, 2), generator=g, device=dev, dtype=torch.float64),
+            torch.randn((n, 2), generator=g, device=dev, dtype=torch.float64))
+    twin = tqw.least_squares_wavefront_reference(A, y)
+    reset_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    x = tqw.least_squares_wavefront_kernel(A, y)
+    end.record()
+    torch.cuda.synchronize()
+    counts = {k: f.launches for k, f in forms.items()}
+    check(counts == {k: int(k == "K2b-g") for k in forms},
+          f"least_squares_wavefront_kernel([{n}, {n}, 2] float64) launched {counts}")
+    check(torch.equal(x, twin), f"K2b-g differs from the twin at [{n}, {n}, 2] float64: "
+          f"max |diff| {max_diff(x, twin):.3e}")
+    log(f"[8] least_squares_wavefront_kernel([{n}, {n}, 2] float64) through K2b-g: bit-equal to "
+        f"the twin, {start.elapsed_time(end):.3f} ms")
+    k2bg_launches = counts["K2b-g"]
     # K2a in both forms, bit for bit against the twin, and a factorization
     qr_forms = qr_forms_of()
 
@@ -1086,6 +1176,7 @@ def phase_qr(torch, dev):
             f"linalg.qr(A[{m}, {n}, {b}], method='pallas') does not reconstruct A")
         log(f"[8] linalg.qr(A[{m}, {n}, {b}], method='pallas'): launches {counts}")
         launches[kid] = counts[kid]
+    launches["K2b-g"] = k2bg_launches
     return worst, launches
 
 
@@ -1105,8 +1196,10 @@ def reset_counts():
                qr_wavefront.least_squares_wavefront_registers,
                qr_wavefront.least_squares_wavefront_shared,
                qr_wavefront.least_squares_wavefront_warp,
+               qr_wavefront.least_squares_wavefront_cluster,
                qr_wavefront.least_squares_wavefront_global, smallchol.solve_spd_registers,
-               smallchol.solve_spd_warp, smallchol.solve_spd_batchminor_global,
+               smallchol.solve_spd_warp, smallchol.solve_spd_cluster,
+               smallchol.solve_spd_batchminor_global,
                rank2.rank2_direction_batchminor_resident, rank2.rank2_direction_batchminor_cluster,
                rank2.rank2_direction_batchminor_rowsplit, rank2.rank2_update_batched_kernel):
         fn.launches = 0
@@ -1177,11 +1270,11 @@ def phase_nlls_slice(torch, dev):
     check(float(d.max()) <= 1e-4, "the cholesky fleet's fits differ from the qr fleet's by over 1e-4")
     # wide fleets past the register form: Chebyshev fits of CHEB_SHARED
     # and CHEB_WARP coefficients through K2b's shared and warp forms, and of
-    # CHEB_GLOBAL in float64, past the warp form's range, through its
-    # device-memory form
+    # CHEB_CLUSTER in float64, past the warp form's range, through its
+    # cluster form
     for (n, m, b), kernel, dtype in ((CHEB_SHARED, "K2b-s", torch.float32),
                                      (CHEB_WARP, "K2b-w", torch.float32),
-                                     (CHEB_GLOBAL, "K2b-g", torch.float64)):
+                                     (CHEB_CLUSTER, "K2b-c", torch.float64)):
         residual, ys, truth = chebyshev_scenario(b, n, m, device=dev, dtype=dtype)
         cfg = nlsolver_torch.NLLSFleetConfig(max_iter=30, solve="qr_pallas")
         out, steps = fit_counted(torch, residual, torch.zeros(n, b, device=dev, dtype=dtype), cfg,
@@ -1222,20 +1315,29 @@ def phase_nlls_slice(torch, dev):
     return launches
 
 
-def abba(torch, kern, kreps, plain, preps):
+def abba(torch, kern, kreps, plain, preps, warmup=3):
     """(kernel ms, twin ms): plain, kernel, kernel, plain in one go, the
     least of each pair (``benches.device_ms``).  The kernel's is device time
     behind a device sleep; a plain twin runs more eager ops than the launch
     queue holds, so the host paces it however long the card sleeps: it is
-    timed as a plain chain, its real cost per call."""
+    timed as a plain chain, its real cost per call.  A twin given as a
+    number of ms (one timed where its launch was held against it) is not
+    run again."""
     from nlsolver_torch.benches import device_ms
 
-    p1, k1, k2, p2 = (device_ms(f, r, sleep=f is kern) for f, r in
+    if not callable(plain):
+        k1, k2 = (device_ms(kern, kreps, warmup=warmup) for _ in range(2))
+        return (min(k1, k2), plain), (k1, k2, plain, plain)
+    p1, k1, k2, p2 = (device_ms(f, r, warmup=warmup, sleep=f is kern) for f, r in
                       ((plain, preps), (kern, kreps), (kern, kreps), (plain, preps)))
     return (min(k1, k2), min(p1, p2)), (k1, k2, p1, p2)
 
 
-def phase_nlls_timing(torch, dev):
+def phase_nlls_timing(torch, dev, spd_twin_ms):
+    """NLLS fleets per backend, and K2a, K2b and K3 alone against their
+    twins and library calls; ``spd_twin_ms`` is the time at K3-c's path of
+    the twin's order as whole trailing blocks (chol_solve_right_looking),
+    taken in phase 7."""
     from nlsolver_torch.benches import bench_nlls_fleet, device_ms
     from nlsolver_torch.ops import qr_wavefront as tqw
     from nlsolver_torch.ops import smallchol as tsc
@@ -1255,27 +1357,32 @@ def phase_nlls_timing(torch, dev):
     forms = lstsq_forms()
     k3 = spd_forms()
 
-    def spd_timing(kid, n, b, kreps):
-        """K3's form ``kid`` on SPD systems [n, n, b] (seed 9), its twin,
-        Cholesky factor and solve of the library on [b, n, n]."""
-        As, bs = spd_case(torch, dev, n, b, seed=9)
+    def spd_timing(kid, n, b, kreps, dtype=torch.float32, twin=None):
+        """K3's form ``kid`` on SPD systems [n, n, b] (seed 9), its twin (or
+        the twin's time ``twin``), Cholesky factor and solve of the library
+        on [b, n, n]."""
+        As, bs = spd_case(torch, dev, n, b, dtype, seed=9)
         Al, bl = As.permute(2, 0, 1).contiguous(), bs.t().contiguous()[:, :, None]
         return (lambda: k3[kid](As, bs), kreps,
-                lambda: tsc._chol_solve_batchminor(As, bs), 3 if n > 8 else 5,
+                twin if twin is not None else (lambda: tsc._chol_solve_batchminor(As, bs)),
+                3 if n > 8 else 5,
                 lambda: torch.cholesky_solve(bl, torch.linalg.cholesky_ex(Al).L))
 
-    def lstsq_case(kid, A, y, kreps):
+    def lstsq_case(kid, A, y, kreps, preps=3):
         Al, yl = A.permute(2, 0, 1).contiguous(), y.t().contiguous()[:, :, None]
         return (lambda: forms[kid](A, y), kreps,
-                lambda: tqw.least_squares_wavefront_reference(A, y), 3,
+                lambda: tqw.least_squares_wavefront_reference(A, y), preps,
                 lambda: torch.linalg.lstsq(Al, yl))
 
-    # K2b: each form at the NLLS fleet's system, then the shared and warp
-    # forms at the Chebyshev fleets' systems they serve, with the device-
-    # memory form beside each (its row keeps the 30-coefficient system's
-    # time), and the device-memory form at the float64 fleet's
+    # K2b: each form at the NLLS fleet's system, then the shared, warp and
+    # cluster forms at the Chebyshev fleets' systems they serve, with the
+    # device-memory form beside each (its row takes the float64 fleet's
+    # time, where K2b-c took its place)
     sys_s, sys_w = (chebyshev_system(torch, dev, *shape) for shape in (CHEB_SHARED, CHEB_WARP))
-    sys_g = chebyshev_system(torch, dev, *CHEB_GLOBAL, torch.float64)
+    sys_c = chebyshev_system(torch, dev, *CHEB_CLUSTER, torch.float64)
+    # K2a past its warp form's range, at linalg.qr's [170, 170, 32] (phase 8)
+    A170 = torch.randn((170, 170, 32), generator=g, device=dev)
+    A170l = A170.permute(2, 0, 1).contiguous()
     # name: kernel and repeats, twin and repeats, library call
     times = {
         "K2b-r": lstsq_case("K2b-r", A, y, 50),
@@ -1286,8 +1393,9 @@ def phase_nlls_timing(torch, dev):
         "K2b-w n=12": lstsq_case("K2b-w", *sys_s, 20),
         "K2b-g n=12": lstsq_case("K2b-g", *sys_s, 20),
         "K2b-w": lstsq_case("K2b-w", *sys_w, 20),
-        "K2b-g": lstsq_case("K2b-g", *sys_w, 5),
-        "K2b-g f64 n=120": lstsq_case("K2b-g", *sys_g, 3),
+        "K2b-g n=30": lstsq_case("K2b-g", *sys_w, 5),
+        "K2b-c": lstsq_case("K2b-c", *sys_c, 10, preps=1),
+        "K2b-g": lstsq_case("K2b-g", *sys_c, 1, preps=1),
         # K3: K3-r at the exp fleet's shape, the planned form at the 12-
         # coefficient Chebyshev fleet's, K3-w at the 30-coefficient one's,
         # each beside K3-g (the form every shape took before the others)
@@ -1297,16 +1405,25 @@ def phase_nlls_timing(torch, dev):
         "K3-g n=12": spd_timing("K3-g", 12, 16384, 20),
         "K3-w": spd_timing("K3-w", 30, 4096, 20),
         "K3-g n=30": spd_timing("K3-g", 30, 4096, 5),
-        "K2a": (lambda: tqw.qr_wavefront_global(Aq, compute_q=True), 50,
-                lambda: tqw.qr_wavefront_reference(Aq, compute_q=True), 5,
-                lambda: torch.linalg.qr(Aql, mode="complete")),
+        # K3-c at its path's [240, 240, 16] f64 (phase 7), beside K3-g
+        "K3-c": spd_timing("K3-c", K3G_N, K3G_B, 20, torch.float64, spd_twin_ms),
+        "K3-g": spd_timing("K3-g", K3G_N, K3G_B, 1, torch.float64, spd_twin_ms),
+        "K2a n=16": (lambda: tqw.qr_wavefront_global(Aq, compute_q=True), 50,
+                     lambda: tqw.qr_wavefront_reference(Aq, compute_q=True), 5,
+                     lambda: torch.linalg.qr(Aql, mode="complete")),
+        "K2a": (lambda: tqw.qr_wavefront_global(A170, compute_q=True), 1,
+                lambda: tqw.qr_wavefront_reference(A170, compute_q=True), 1,
+                lambda: torch.linalg.qr(A170l, mode="complete")),
         "K2a-w": (lambda: tqw.qr_wavefront_warp(Aq, compute_q=True), 50,
                   lambda: tqw.qr_wavefront_reference(Aq, compute_q=True), 5,
                   lambda: torch.linalg.qr(Aql, mode="complete")),
     }
     alone = {}
     for name, (kern, kreps, plain, preps, library) in times.items():
-        (k, p), (k1, k2, p1, p2) = abba(torch, kern, kreps, plain, preps)
+        # the forms that take a tenth of a second and more, launched in
+        # phases 7 and 8 already: no warm-up
+        slow = name in ("K2b-c", "K2b-g", "K3-g", "K2a")
+        (k, p), (k1, k2, p1, p2) = abba(torch, kern, kreps, plain, preps, 0 if slow else 3)
         lib = None
         if library is not None:
             # a library call may wait for the card inside (an error check):
@@ -1317,10 +1434,16 @@ def phase_nlls_timing(torch, dev):
             f"{p * 1e3:.2f} us per chained call (CUDA events; kernel "
             f"{k1 * 1e3:.2f}/{k2 * 1e3:.2f}, twin {p1 * 1e3:.2f}/{p2 * 1e3:.2f})"
             + ("" if lib is None else f"; library call {lib * 1e3:.2f} us"))
-    for new, old in (("K3-r", "K3-g n=2"), ("K3 n=12", "K3-g n=12"), ("K3-w", "K3-g n=30")):
-        log(f"[10] {new}: {alone[new][0] * 1e3:.2f} us against K3-g's {alone[old][0] * 1e3:.2f} "
-            f"us at the same shape ({alone[old][0] / alone[new][0]:.2f}x), the library call's "
-            f"{alone[new][2] * 1e3:.2f} us")
+    for new, old in (("K3-r", "K3-g n=2"), ("K3 n=12", "K3-g n=12"), ("K3-w", "K3-g n=30"),
+                     ("K3-c", "K3-g"), ("K2b-c", "K2b-g")):
+        log(f"[10] {new}: {alone[new][0] * 1e3:.2f} us against {old.split()[0]}'s "
+            f"{alone[old][0] * 1e3:.2f} us at the same shape ({alone[old][0] / alone[new][0]:.2f}x), "
+            f"the library call's {alone[new][2] * 1e3:.2f} us")
+    # the rows past their forms' old shapes, each against its library call
+    for name in ("K2a", "K2b-g", "K3-g", "K2b-c", "K3-c"):
+        k, _, lib = alone[name]
+        log(f"[10] {name} at its path's shape: {k:.3f} ms, the library call {lib:.3f} ms, "
+            f"{k / lib:.2f}x")
     for solve, rs in runs.items():
         best = max(rs, key=lambda r: r["fits_per_sec"])
         log(f"[10] fleet {solve}: {best['fits_per_sec']:.6g} fits/s "
@@ -1585,11 +1708,16 @@ def phase_bfgs_timing(torch, dev):
 
     main = rank2_case(torch, dev, BFGS_N, BFGS_B)
     wide = rank2_case(torch, dev, WIDE_N, WIDE_B)
+    past = rank2_case(torch, dev, WIDE_K4B_N, WIDE_K4B_B)
     lead = leading_batch(main)
     bm_twin = tr.rank2_direction_batchminor_reference
+    # K4b at its path's [225, 225, 256] (phase 12) and beside K4b-c at [128,
+    # 128, 4096]
     times = {
         "K4a": (lambda: tr.rank2_direction_batchminor_resident(*main), lambda: bm_twin(*main)),
-        "K4b": (lambda: tr.rank2_direction_batchminor_rowsplit(*wide), lambda: bm_twin(*wide)),
+        "K4b": (lambda: tr.rank2_direction_batchminor_rowsplit(*past), lambda: bm_twin(*past)),
+        "K4b n=128": (lambda: tr.rank2_direction_batchminor_rowsplit(*wide),
+                      lambda: bm_twin(*wide)),
         "K4b-c": (lambda: tr.rank2_direction_batchminor_cluster(*wide), lambda: bm_twin(*wide)),
         "K4b n=16": (lambda: tr.rank2_direction_batchminor_rowsplit(*main), lambda: bm_twin(*main)),
         "K4c": (lambda: tr.rank2_update_batched_kernel(*lead),
@@ -1944,17 +2072,17 @@ def kernel_row(name, source, replaces, launches, max_err, times, bound_ms_by, is
 
 
 def phases_earlier(torch, dev):
-    max_err = phase_injected(torch, dev)
-    phase_philox(torch, dev)
-    de_launches = phase_slice(torch, dev)
-    de_times = phase_timing(torch, dev)
-    chol_err, k3g_launches = phase_smallchol(torch, dev)
-    qr_err, qr_launches = phase_qr(torch, dev)
-    fleet_launches = phase_nlls_slice(torch, dev)
-    alone = phase_nlls_timing(torch, dev)
-    rank2_err = phase_rank2(torch, dev)
-    bfgs_launches = phase_bfgs_slice(torch, dev)
-    alone.update(phase_bfgs_timing(torch, dev))
+    max_err = phase(3, phase_injected, torch, dev)
+    phase(4, phase_philox, torch, dev)
+    de_launches = phase(5, phase_slice, torch, dev)
+    de_times = phase(6, phase_timing, torch, dev)
+    chol_err, k3_launches, spd_twin_ms = phase(7, phase_smallchol, torch, dev)
+    qr_err, qr_launches = phase(8, phase_qr, torch, dev)
+    fleet_launches = phase(9, phase_nlls_slice, torch, dev)
+    alone = phase(10, phase_nlls_timing, torch, dev, spd_twin_ms)
+    rank2_err = phase(11, phase_rank2, torch, dev)
+    bfgs_launches = phase(12, phase_bfgs_slice, torch, dev)
+    alone.update(phase(13, phase_bfgs_timing, torch, dev))
     # an issue floor above the time measured would be no floor: the model
     # (4 warp-instructions a clock an SM) held against the card
     for kid, times in (("K1s", de_times["K1s"]), ("K2b-r", alone["K2b-r"]),
@@ -1976,14 +2104,14 @@ def phases_earlier(torch, dev):
                    max_err, de_times["K1s"], de_bound(B, N, P), FLOORS["K1s"]),
         kernel_row("de_generation_global", csrc + "de_fused.cu", TPU_KERNEL, de_launches["K1g"],
                    max_err, de_times["K1g"], de_bound(*DE_WIDE[:3])),
-        # A in, R and Q out; both forms timed at [16, 16, 4096], the device-
-        # memory form launched on its path past the warp form's range
+        # A in, R and Q out; each form at its path's shape, the device-
+        # memory form's past the warp form's range
         kernel_row("qr_wavefront_warp", csrc + "qr_wavefront.cu", tpu + "qr_wavefront.py:150",
                    qr_launches["K2a-w"], qr_err, alone["K2a-w"],
                    bound(3 * 16 * 16 * 4096 * 4, givens_ops(16, 16, 16) * 4096), FLOORS["K2a-w"]),
         kernel_row("qr_wavefront_global", csrc + "qr_wavefront.cu", tpu + "qr_wavefront.py:150",
                    qr_launches["K2a"], qr_err, alone["K2a"],
-                   bound(3 * 16 * 16 * 4096 * 4, givens_ops(16, 16, 16) * 4096)),
+                   bound(3 * 170 * 170 * 32 * 4, givens_ops(170, 170, 170) * 32)),
         # A and y in, x out; each form at the fleet it serves
         kernel_row("least_squares_wavefront_registers", csrc + "qr_wavefront.cu", k2b,
                    fleet_launches["K2b-r"], qr_err, alone["K2b-r"], lstsq_bound(m, 2, FLEET_B),
@@ -1994,34 +2122,41 @@ def phases_earlier(torch, dev):
         kernel_row("least_squares_wavefront_warp", csrc + "qr_wavefront.cu", k2b,
                    fleet_launches["K2b-w"], qr_err, alone["K2b-w"],
                    lstsq_bound(CHEB_WARP[1] + CHEB_WARP[0], *CHEB_WARP[::2]), FLOORS["K2b-w"]),
-        # launched by the float64 fleet past the warp form's range; timed,
-        # as before, on the 30-coefficient system beside the warp form
+        # the float64 fleet past the warp form's range; the device-memory
+        # form launched past the cluster form's range, timed on the float64
+        # fleet's system beside it
+        kernel_row("least_squares_wavefront_cluster", csrc + "qr_wavefront.cu", k2b,
+                   fleet_launches["K2b-c"], qr_err, alone["K2b-c"],
+                   lstsq_bound(CHEB_CLUSTER[1] + CHEB_CLUSTER[0], *CHEB_CLUSTER[::2], True)),
         kernel_row("least_squares_wavefront_global", csrc + "qr_wavefront.cu", k2b,
-                   fleet_launches["K2b-g"], qr_err, alone["K2b-g"],
-                   lstsq_bound(CHEB_WARP[1] + CHEB_WARP[0], *CHEB_WARP[::2])),
+                   qr_launches["K2b-g"], qr_err, alone["K2b-g"],
+                   lstsq_bound(CHEB_CLUSTER[1] + CHEB_CLUSTER[0], *CHEB_CLUSTER[::2], True)),
         # A's lower triangle and b in, x out; each form at the fleet it
-        # serves, K3-g (launched on its path past K3-w's range) timed at the
-        # exp fleet's shape as before
+        # serves, K3-c at its path past K3-w's range, K3-g (launched past
+        # K3-c's range) timed on K3-c's path beside it
         kernel_row("solve_spd_registers", csrc + "smallchol.cu", tpu + "smallchol.py:101",
                    fleet_launches["K3-r"], chol_err["K3-r"], alone["K3-r"],
                    spd_bound(2, FLEET_B), FLOORS["K3-r"]),
         kernel_row("solve_spd_warp", csrc + "smallchol.cu", tpu + "smallchol.py:101",
                    fleet_launches[f"K3 n={CHEB_WARP[0]}"], chol_err["K3-w"], alone["K3-w"],
                    spd_bound(CHEB_WARP[0], CHEB_WARP[2]), FLOORS["K3-w"]),
+        kernel_row("solve_spd_cluster", csrc + "smallchol.cu", tpu + "smallchol.py:101",
+                   k3_launches["K3-c"], chol_err["K3-c"], alone["K3-c"],
+                   spd_bound(K3G_N, K3G_B, True)),
         kernel_row("solve_spd_batchminor_global", csrc + "smallchol.cu",
-                   tpu + "smallchol.py:101", k3g_launches, chol_err["K3-g"], alone["K3-g n=2"],
-                   spd_bound(2, FLEET_B)),
+                   tpu + "smallchol.py:101", k3_launches["K3-g"], chol_err["K3-g"], alone["K3-g"],
+                   spd_bound(K3G_N, K3G_B, True)),
         kernel_row("rank2_direction_batchminor_resident", csrc + "rank2.cu", tpu + "rank2.py:280",
                    bfgs_launches["K4a"], rank2_err["K4a"], alone["K4a"],
                    rank2_bound(BFGS_N, BFGS_B)),
-        # both timed at the wide fleet's [128, 128, 4096]; K4b launched by
-        # the fleet past K4b-c's range
+        # each at the wide fleet it serves: K4b-c at [128, 128, 4096], K4b
+        # past K4b-c's range at [225, 225, 256]
         kernel_row("rank2_direction_batchminor_cluster", csrc + "rank2.cu", tpu + "rank2.py:214",
                    bfgs_launches["K4b-c"], rank2_err["K4b-c"], alone["K4b-c"],
                    rank2_bound(WIDE_N, WIDE_B), FLOORS["K4b-c"]),
         kernel_row("rank2_direction_batchminor_rowsplit", csrc + "rank2.cu", tpu + "rank2.py:214",
                    bfgs_launches["K4b"], rank2_err["K4b"], alone["K4b"],
-                   rank2_bound(WIDE_N, WIDE_B)),
+                   rank2_bound(WIDE_K4B_N, WIDE_K4B_B)),
         kernel_row("rank2_update_batched_kernel", csrc + "rank2.cu", tpu + "rank2.py:66",
                    bfgs_launches["K4c"], rank2_err["K4c"], alone["K4c"],
                    rank2_bound(BFGS_N, BFGS_B, direction=False)),
@@ -2045,15 +2180,18 @@ def eigh_rows(launches, err, alone):
 def main():
     import torch
 
-    name = phase_device(torch)
+    start = time.perf_counter()
+    name = phase(1, phase_device, torch)
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_build()
+    phase(2, phase_build)
     rows = phases_earlier(torch, dev)
-    eigh_err = phase_eigh(torch, dev)
-    cmaes_launches = phase_cmaes_slice(torch, dev)
-    rows += eigh_rows(cmaes_launches, eigh_err, phase_cmaes_timing(torch, dev))
+    eigh_err = phase(14, phase_eigh, torch, dev)
+    cmaes_launches = phase(15, phase_cmaes_slice, torch, dev)
+    rows += eigh_rows(cmaes_launches, eigh_err, phase(16, phase_cmaes_timing, torch, dev))
+    print(f"seconds a phase: {PHASE_SECONDS}; {time.perf_counter() - start:.1f} s in all",
+          flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

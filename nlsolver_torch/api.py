@@ -81,8 +81,25 @@ def _cmaes_fleet(fn, x0, config, bounds, generator, _minimize, kwargs):
 
 
 def _dispatch(fn, x0, method, config, bounds, generator, layout, _minimize, kwargs):
+    # the single-instance multistart options, which only layout="single" runs
+    restarts = kwargs.pop("restarts", 1)
+    kwargs.pop("restart_spread", None)
+    kwargs.pop("restart_sampler", None)
     if layout not in _LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; one of {_LAYOUTS}")
+    if restarts > 1 and layout != "single":
+        raise ValueError(
+            "restarts= is the single-instance multistart meta-driver; "
+            f"layout={layout!r} is already multi-instance — run it with "
+            "more lanes instead"
+        )
+    if layout == "fleet" and method not in ("cmaes", "cmaes_fleet", "bfgs", "bfgs_fleet"):
+        raise ValueError(
+            f"layout='fleet' supports method='bfgs' (batch-minor lane "
+            f"fleet) and method='cmaes' (lane-parallel CMA-ES "
+            f"strategies), got {method!r}; other methods batch via "
+            f"layout='batched'"
+        )
     if layout == "fleet" and method in ("cmaes", "cmaes_fleet"):
         return _cmaes_fleet(fn, x0, config, bounds, generator, _minimize, kwargs)
     if layout == "fleet" and method in ("bfgs", "bfgs_fleet"):

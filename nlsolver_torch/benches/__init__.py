@@ -350,14 +350,17 @@ def bench_nlls_fleet(B=262144, m=32, runs=3, solve="qr_pallas", steps=32):
 
 
 def sweep_least_squares(ns=(2, 8, 9, 12, 16, 20, 24, 29, 30, 40, 64, 100, 169),
-                        Bs=(4096, 16384, 65536), rows=32, reps=5, warp_from=9, global_up_to=64):
+                        Bs=(4096, 16384, 65536), rows=32, reps=5, warp_from=9, global_up_to=64,
+                        cluster_ns=(64, 120, 169, 170, 240, 330, 471), cluster_Bs=(256, 4096)):
     """K2b's forms across their range in f32: for each n and B, the device
     time in ms of each form that takes n (``registers``, ``shared``,
     ``warp`` from n = ``warp_from`` on, ``global`` up to n =
     ``global_up_to``; behind a device sleep, the least of two) and of
     ``torch.linalg.lstsq`` on the same systems, ``[rows + n, n, B]`` with
     entries ~ N(0, 1), the shape of a Chebyshev fit's augmented system.
-    Past n = 64 one timed call, and one pair of calls of lstsq."""
+    Past n = 64 one timed call, and one pair of calls of lstsq.  Then the
+    cluster form (its plan's cluster) beside lstsq, and beside the warp
+    form where it takes n, at each of ``cluster_ns`` and ``cluster_Bs``."""
     from ..ops import qr_wavefront as tqw
 
     if not torch.cuda.is_available():
@@ -381,6 +384,25 @@ def sweep_least_squares(ns=(2, 8, 9, 12, 16, 20, 24, 29, 30, 40, 64, 100, 169),
                                      if takes(n, A.dtype) else None)
             row["lstsq_ms"] = min(device_ms(lambda: torch.linalg.lstsq(Al, yl), r, strict=False,
                                             warmup=1 if n > 64 else 3) for _ in range(2))
+            out.append(row)
+    for n in cluster_ns:
+        for B in cluster_Bs:
+            A = torch.randn((rows + n, n, B), generator=g, device="cuda")
+            y = torch.randn((rows + n, B), generator=g, device="cuda")
+            Al, yl = A.permute(2, 0, 1).contiguous(), y.t().contiguous()[:, :, None]
+            row = {"n": n, "B": B, "m": rows + n, "C": tqw.cluster_plan(n, A.dtype, B)[0]}
+            x = tqw.least_squares_wavefront_cluster(A, y)
+            row["warp_ms"] = None
+            if tqw.warp_fits(n, A.dtype):
+                if not torch.equal(tqw.least_squares_wavefront_warp(A, y), x):
+                    raise RuntimeError(f"sweep_least_squares: the forms differ at n={n}, B={B}")
+                row["warp_ms"] = min(device_ms(lambda: tqw.least_squares_wavefront_warp(A, y), 2,
+                                               warmup=1) for _ in range(2))
+            row["cluster_ms"] = min(device_ms(lambda: tqw.least_squares_wavefront_cluster(A, y), 2,
+                                              warmup=1) for _ in range(2))
+            row["lstsq_ms"] = min(device_ms(lambda: torch.linalg.lstsq(Al, yl), 2, strict=False,
+                                            warmup=1) for _ in range(2))
+            del A, y, Al, yl, x
             out.append(row)
     return out
 
@@ -409,6 +431,70 @@ def probe_least_squares_warp(n=30, m=78, B=4096, lanes=(1, 2, 4, 8), reps=20):
     return out
 
 
+def probe_least_squares_cluster(n=120, m=248, B=256, dtype=torch.float64, sizes=(2, 4, 8),
+                                groups=(1, 2, 4, 8), reps=3):
+    """K2b's cluster form with each cluster size that holds the ring and
+    each number of ``groups`` of threads a CTA, on ``[m, n, B]`` ~ N(0, 1):
+    device time in ms behind a device sleep, the least of two, each result
+    bit-equal to the twin's; ``torch.linalg.lstsq`` on the same systems
+    beside them."""
+    from ..ops import qr_wavefront as tqw
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("probe_least_squares_cluster measures a CUDA card; none is available")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    A = torch.randn((m, n, B), generator=g, device="cuda", dtype=dtype)
+    y = torch.randn((m, B), generator=g, device="cuda", dtype=dtype)
+    want = tqw.least_squares_wavefront_reference(A, y)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {"n": n, "m": m, "B": B, "plan": tqw.cluster_plan(n, dtype, B, sms)}
+    for size in sizes:
+        if tqw.cluster_bytes(n, dtype, size) > tqw.MAX_DYNAMIC_SMEM:
+            continue
+        for grp in groups:
+            if tqw.cluster_columns(n, size) * grp < 64:
+                continue  # a CTA needs two warps
+            run = functools.partial(tqw.least_squares_wavefront_cluster, A, y, size=size,
+                                    _groups=grp)
+            if not torch.equal(run(), want):
+                raise RuntimeError(f"probe_least_squares_cluster: C={size}, G={grp} differ")
+            out[f"C{size}_G{grp}_ms"] = min(device_ms(run, reps, warmup=1) for _ in range(2))
+    Al, yl = A.permute(2, 0, 1).contiguous(), y.t().contiguous()[:, :, None]
+    out["lstsq_ms"] = min(device_ms(lambda: torch.linalg.lstsq(Al, yl), reps, strict=False)
+                          for _ in range(2))
+    return out
+
+
+def probe_spd_cluster(n=240, B=16, dtype=torch.float64, sizes=(2, 4, 8),
+                      threads=(128, 256, 512), reps=5):
+    """K3-c with each cluster size that holds the rows and each number of
+    ``threads`` a CTA, on ``spd_systems(n, B)``: device time in ms behind a
+    device sleep, the least of two, each result bit-equal to the twin's
+    (as ``chol_solve_right_looking`` gives it);
+    ``cholesky_ex`` + ``cholesky_solve`` on the same systems beside them."""
+    from ..ops import smallchol as tsc
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("probe_spd_cluster measures a CUDA card; none is available")
+    A, b = spd_systems(n, B, dtype=dtype)
+    want = tsc.chol_solve_right_looking(A, b)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {"n": n, "B": B, "plan": tsc.cluster_plan(n, dtype, B, sms)}
+    for size in sizes:
+        if tsc.cluster_bytes(n, dtype, size) > tsc.MAX_DYNAMIC_SMEM:
+            continue
+        for t in threads:
+            run = functools.partial(tsc.solve_spd_cluster, A, b, size=size, _threads=t)
+            if not torch.equal(run(), want):
+                raise RuntimeError(f"probe_spd_cluster: C={size}, {t} threads differ")
+            out[f"C{size}_T{t}_ms"] = min(device_ms(run, reps) for _ in range(2))
+    Al, bl = A.permute(2, 0, 1).contiguous(), b.t().contiguous()[:, :, None]
+    out["library_ms"] = min(device_ms(
+        lambda: torch.cholesky_solve(bl, torch.linalg.cholesky_ex(Al).L), reps, strict=False)
+        for _ in range(2))
+    return out
+
+
 def spd_systems(n: int, B: int, seed: int = 0, device="cuda", dtype=torch.float32):
     """``B`` SPD systems ``A = M M^T + 2 I``, M ~ N(0, 1), batch-minor
     ``[n, n, B]``, and right-hand sides ``b [n, B]`` ~ N(0, 1), drawn from
@@ -422,13 +508,16 @@ def spd_systems(n: int, B: int, seed: int = 0, device="cuda", dtype=torch.float3
 
 
 def sweep_spd_solve(ns=(1, 2, 4, 8, 12, 16, 20, 24, 30, 48, 64),
-                    Bs=(4096, 16384, 65536, 262144), reps=5, global_work=8e9):
+                    Bs=(4096, 16384, 65536, 262144), reps=5, global_work=8e9,
+                    cluster_ns=(64, 120, 238, 239, 337, 338, 500, 645), cluster_Bs=(16, 256)):
     """K3's forms across shapes in f32 on ``spd_systems(n, B)``: the device
     time in ms of K3-r where it takes n, K3-w, K3-g where n^3 B <=
     ``global_work`` (past it a launch takes seconds) and of
     ``torch.linalg.cholesky_ex`` + ``torch.cholesky_solve`` on ``[B, n, n]``,
     each behind a device sleep, the least of two; the forms' x equal bit for
-    bit, and the dispatcher's plan beside them."""
+    bit, and the dispatcher's plan beside them.  Then K3-c (the cluster its
+    plan gives B lanes) in f64 beside K3-w where it takes n and the library,
+    at each of ``cluster_ns`` and ``cluster_Bs``."""
     from ..ops import smallchol as tsc
 
     if not torch.cuda.is_available():
@@ -458,6 +547,27 @@ def sweep_spd_solve(ns=(1, 2, 4, 8, 12, 16, 20, 24, 30, 48, 64),
                 lambda: torch.cholesky_solve(bl, torch.linalg.cholesky_ex(Al).L), reps,
                 strict=False) for _ in range(2))
             del A, b, Al, bl
+            rows.append(row)
+    f64 = torch.float64
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n in cluster_ns:
+        for B in cluster_Bs:
+            A, b = spd_systems(n, B, dtype=f64)
+            row = {"n": n, "B": B, "dtype": "float64", "plan": tsc.plan(n, f64),
+                   "C": tsc.cluster_plan(n, f64, B, sms), "warp_ms": None}
+            x = tsc.solve_spd_cluster(A, b)
+            if tsc.warp_fits(n, f64):
+                if not torch.equal(tsc.solve_spd_warp(A, b), x):
+                    raise RuntimeError(f"sweep_spd_solve: the forms differ at n={n}, B={B}")
+                row["warp_ms"] = min(device_ms(lambda: tsc.solve_spd_warp(A, b), reps)
+                                     for _ in range(2))
+            row["cluster_ms"] = min(device_ms(lambda: tsc.solve_spd_cluster(A, b), reps)
+                                    for _ in range(2))
+            Al, bl = A.permute(2, 0, 1).contiguous(), b.t().contiguous()[:, :, None]
+            row["library_ms"] = min(device_ms(
+                lambda: torch.cholesky_solve(bl, torch.linalg.cholesky_ex(Al).L), reps,
+                strict=False) for _ in range(2))
+            del A, b, Al, bl, x
             rows.append(row)
     return rows
 
@@ -552,6 +662,47 @@ def sweep_qr(ns=(4, 8, 16, 32, 64), Bs=(1024, 4096, 16384, 65536), reps=5, globa
                                               strict=False) for _ in range(2))
             rows.append(row)
     return rows
+
+
+def probe_path_rows(reps=1):
+    """The device-memory forms of K2a, K2b and K3 and the three-pass K4b at
+    the shapes their paths run them at, each beside the one PyTorch call
+    that computes the same function: K2a with Q on ``[170, 170, 32]`` f32
+    (``torch.linalg.qr``, complete, on ``[32, 170, 170]``), K2b on ``[248,
+    120, 256]`` f64 (``torch.linalg.lstsq``), K3 on ``spd_systems(240, 16)``
+    f64 (``cholesky_ex`` + ``cholesky_solve``), K4b on ``rank2_scenario(225,
+    256)`` f32 (no such call).  Inputs ~ N(0, 1) but where named; ms behind
+    a device sleep, the least of two."""
+    from ..ops import qr_wavefront as tqw
+    from ..ops import rank2 as tr
+    from ..ops import smallchol as tsc
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("probe_path_rows measures a CUDA card; none is available")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    f64 = torch.float64
+    Aq = torch.randn((170, 170, 32), generator=g, device="cuda")
+    Aql = Aq.permute(2, 0, 1).contiguous()
+    A2 = torch.randn((248, 120, 256), generator=g, device="cuda", dtype=f64)
+    y2 = torch.randn((248, 256), generator=g, device="cuda", dtype=f64)
+    A2l, y2l = A2.permute(2, 0, 1).contiguous(), y2.t().contiguous()[:, :, None]
+    A3, b3 = spd_systems(240, 16, dtype=f64)
+    A3l, b3l = A3.permute(2, 0, 1).contiguous(), b3.t().contiguous()[:, :, None]
+    H = rank2_scenario(225, 256)
+    rows = {"K2a": (lambda: tqw.qr_wavefront_global(Aq, compute_q=True),
+                    lambda: torch.linalg.qr(Aql, mode="complete")),
+            "K2b-g": (lambda: tqw.least_squares_wavefront_global(A2, y2),
+                      lambda: torch.linalg.lstsq(A2l, y2l)),
+            "K3-g": (lambda: tsc.solve_spd_batchminor_global(A3, b3),
+                     lambda: torch.cholesky_solve(b3l, torch.linalg.cholesky_ex(A3l).L)),
+            "K4b": (lambda: tr.rank2_direction_batchminor_rowsplit(*H), None)}
+    out = {}
+    for name, (kernel, library) in rows.items():
+        k = min(device_ms(kernel, reps, warmup=1) for _ in range(2))
+        lib = (None if library is None else
+               min(device_ms(library, 3, strict=False) for _ in range(2)))
+        out[name] = {"ms": k, "library_ms": lib}
+    return out
 
 
 def bowls_scenario(B: int, dim: int = 16, seed: int = 0, device="cuda", dtype=torch.float32):

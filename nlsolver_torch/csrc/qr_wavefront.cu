@@ -22,7 +22,7 @@
 // only 2 n rows of n + 1 words (R's columns, then Q^T y) are live at a
 // stage, and A and y are read once, row by row, one stage ahead, and only x
 // is written: 109 MB at [34, 2, 262144] in f32, some 33 us at 3.35 TB/s.
-// Four forms, chosen by n and dtype in ops/qr_wavefront.py:
+// Five forms, chosen by n and dtype in ops/qr_wavefront.py:
 //   * least_squares_registers_kernel<T, N>: the window in the thread's
 //     registers.  Every index is a compile-time constant (a register array
 //     takes no runtime index), so the window shifts by one row a stage by
@@ -35,10 +35,13 @@
 //     ring of 2 n + 1 rows in shared memory, one ring a warp (below);
 //     n <= 169 in f32, 119 in f64 (Q = ceil((n + 1) / 32) words a thread
 //     a row; a warp's ring and 2 n coefficients fit 232448 bytes).
+//   * least_squares_cluster_kernel<T>: one lane a thread-block cluster of
+//     2, 4 or 8 CTAs, the ring's columns split over them (below); n <= 471
+//     in f32, 329 in f64, past the warp form's.
 //   * qr_wavefront_kernel<T, false, true>: a working copy of [A | y] in
 //     device memory (the scratch R and qty the wrapper allocates), read and
 //     written some 330 times a lane at [34, 2]; every n, for n past the
-//     warp form's.
+//     cluster form's.
 // K2a comes in two forms, chosen by (m, n), dtype and Q in
 // ops/qr_wavefront.py: qr_warp_kernel<T, kQ, Q> (K2a-w, below) gives a
 // lane a warp and keeps its [R | Q^T] in shared memory; past its range
@@ -57,6 +60,7 @@
 // too; K2b rotates columns j .. n - 1 only, since the columns left of j
 // hold zeroed entries that x never reads.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cuda_pipeline.h>
@@ -64,6 +68,8 @@
 #include <cstdint>
 
 #include "rn_math.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -445,6 +451,199 @@ int launch_warp(const T* A, const T* y, T* x, int m, int n, int64_t B, int lanes
   return static_cast<int>(cudaGetLastError());
 }
 
+// K2b-c, one lane a thread-block cluster.  Replaces
+// least_squares_wavefront_pallas (nlsolver_tpu/ops/qr_wavefront.py:168) for
+// n past K2b-w's, where one lane's ring of (2 n + 1)(n + 1) words no longer
+// fits an SM (233 KB at n = 120 in f64).  What bounds the device-memory
+// form there: one thread carries a lane's whole chain of some m n
+// rotations, each a round trip of two rows through L2, and 256 lanes are
+// 256 threads on 132 SMs (408998 us at [248, 120, 256] f64, 21x lstsq).
+// K2b-w's scheme with the ring's columns split over the C CTAs of a
+// cluster:
+//   * column c of the ring (c = n is Q^T y) lives in CTA c % C at local
+//     column c / C, so as the pivot j moves right every CTA keeps about
+//     as many active columns as the others; thread (tc, g) of a CTA holds
+//     local column tc, and of each stage's rotations the g-th, (g + G)-th,
+//     .. of G groups (the row pairs of a stage are disjoint, so any thread
+//     may turn any pair);
+//   * at each stage the owner of pivot column j (group 0) forms (c, s) from
+//     its own ring and stores the pair into the coefficient row of every
+//     CTA of the cluster (distributed shared memory); one cluster barrier
+//     follows, then every CTA turns its own columns col >= j by the stage's
+//     rotations.  The coefficient rows alternate by the stage's parity, so
+//     one barrier a stage is enough: a CTA writes row (k + 1) & 1 only past
+//     barrier k, when every CTA has read it for stage k - 1.  Only the
+//     coefficients cross SMs in the rotation loop;
+//   * each CTA fetches its own columns of the next row of [A | y], a stage
+//     ahead, by cp.async into the ring row that left the window, as K2b-w;
+//   * after the last stage rows 0 .. n - 1 of R sit in ring rows 0 .. n -
+//     1, spread over the cluster.  The back-substitution runs in the twin's
+//     order in CTA 0, from the last row: its second warp gathers row i - 1's
+//     finished entries from every CTA (one remote load a thread, all in
+//     flight at once) into the dead coefficient rows while its first warp
+//     forms row i's products with x there and its first thread subtracts
+//     them in the twin's order; the other CTAs wait at a last barrier.
+// Every value goes through the twin's operations in its order, so x is the
+// twin's bit for bit.
+template <typename T>
+__global__ void __launch_bounds__(1024)
+    least_squares_cluster_kernel(const T* __restrict__ A, const T* __restrict__ y,
+                                 T* __restrict__ x, int m, int n, int64_t B) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int G = blockDim.y, g = threadIdx.y, tc = threadIdx.x;
+  const int slots = 2 * n + 1, Lc = (n + C) / C;  // local columns of CTA 0, the most
+  const int64_t b = blockIdx.x / C;
+  T* ring = reinterpret_cast<T*>(smem);  // [slots][Lc]
+  T* coef = ring + slots * Lc;           // [2][2 n] (and 2): (c, s) of pivot j at 2 j, 2 j + 1
+  const int c = rank + C * tc;           // this thread's column of the system
+  const bool owns = tc < Lc && c <= n;
+  T* mine = ring + tc;
+
+  // row r of [A | y] into ring row r % slots, this thread's column (group 0)
+  auto fetch = [&](int r) {
+    if (owns && g == 0) {
+      const T* src = c < n ? A + (static_cast<int64_t>(r) * n + c) * B + b
+                           : y + static_cast<int64_t>(r) * B + b;
+      __pipeline_memcpy_async(mine + (r % slots) * Lc, src, sizeof(T));
+    }
+    __pipeline_commit();
+  };
+
+  fetch(m - 1);
+  if (m >= 2) fetch(m - 2);
+  __pipeline_wait_prior(0);
+  // every CTA runs before any writes into another's shared memory
+  cluster.sync();
+#pragma unroll 1
+  for (int k = 0; k <= m + n - 3; ++k) {
+    if (k <= m - 3) fetch(m - 3 - k);
+    const int j_lo = max(0, k - m + 2), j_hi = min(n - 1, k / 2);
+    // ring row of window row 0, system row m - 2 - k (> -slots)
+    int s0 = (m - 2 - k) % slots;
+    if (s0 < 0) s0 += slots;
+    T* buf = coef + (k & 1) * 2 * n;
+    if (owns && g == 0 && c >= j_lo && c <= j_hi) {
+      int rp = s0 + 2 * c;
+      if (rp >= slots) rp -= slots;
+      const int rq = rp + 1 == slots ? 0 : rp + 1;
+      T cc, ss;
+      givens(mine[rp * Lc], mine[rq * Lc], cc, ss);
+      for (int r = 0; r < C; ++r) {
+        T* dst = cluster.map_shared_rank(buf, r);
+        dst[2 * c] = cc;
+        dst[2 * c + 1] = ss;
+      }
+    }
+    cluster.sync();  // the stage's coefficients in every CTA
+    if (owns) {
+      // this thread's rotations: j_lo + g, j_lo + g + G, .. up to its column,
+      // two at a time (their row pairs are disjoint), loads before stores
+      const int j_end = min(j_hi, c);
+      int j = j_lo + g;
+#pragma unroll 1
+      for (; j + G <= j_end; j += 2 * G) {
+        const int j2 = j + G;
+        int p1 = s0 + 2 * j, p2 = s0 + 2 * j2;
+        if (p1 >= slots) p1 -= slots;
+        if (p2 >= slots) p2 -= slots;
+        const int q1 = p1 + 1 == slots ? 0 : p1 + 1, q2 = p2 + 1 == slots ? 0 : p2 + 1;
+        const T c1 = buf[2 * j], s1 = buf[2 * j + 1], c2 = buf[2 * j2], s2 = buf[2 * j2 + 1];
+        const T vp1 = mine[p1 * Lc], vq1 = mine[q1 * Lc];
+        const T vp2 = mine[p2 * Lc], vq2 = mine[q2 * Lc];
+        mine[p1 * Lc] = rn::add(rn::mul(c1, vp1), rn::mul(s1, vq1));
+        mine[q1 * Lc] = rn::add(rn::mul(c1, vq1), rn::mul(-s1, vp1));
+        mine[p2 * Lc] = rn::add(rn::mul(c2, vp2), rn::mul(s2, vq2));
+        mine[q2 * Lc] = rn::add(rn::mul(c2, vq2), rn::mul(-s2, vp2));
+      }
+      if (j <= j_end) {
+        int p = s0 + 2 * j;
+        if (p >= slots) p -= slots;
+        const int q = p + 1 == slots ? 0 : p + 1;
+        const T cj = buf[2 * j], sj = buf[2 * j + 1];
+        const T vp = mine[p * Lc], vq = mine[q * Lc];
+        mine[p * Lc] = rn::add(rn::mul(cj, vp), rn::mul(sj, vq));
+        mine[q * Lc] = rn::add(rn::mul(cj, vq), rn::mul(-sj, vp));
+      }
+    }
+    // the next row landed; the next stage's pivots and rows are turned
+    // (by any group of this CTA)
+    __pipeline_wait_prior(0);
+    __syncthreads();
+  }
+  // R final in every CTA; R[:n, :n] x = (Q^T y)[:n] in CTA 0, in the twin's
+  // order: x in coef[0, n); row i's entries i .. n (R[i][i], R[i][col], (Q^T
+  // y)[i]) gathered by the second warp into coef[n + (i & 1) (n + 1) + col]
+  // while the first turns row i + 1's into the products R[i + 1][col] x[col]
+  // in place and its first thread subtracts them in ascending col
+  cluster.sync();
+  const int lin = g * blockDim.x + tc, warp = lin >> 5, lane = lin & 31;
+  if (rank == 0 && warp < 2) {
+    T* xs = coef;
+    auto gather = [&](int i) {
+      T* row = coef + n + (i & 1) * (n + 1);
+      for (int col = i + lane; col <= n; col += 32)
+        row[col] = cluster.map_shared_rank(ring, col % C)[i * Lc + col / C];
+    };
+    if (warp == 1) gather(n - 1);
+#pragma unroll 1
+    for (int i = n - 1; i >= 0; --i) {
+      // row i gathered; the first warp done with row i + 1
+      asm volatile("bar.sync 1, 64;\n" ::: "memory");
+      if (warp == 1) {
+        if (i > 0) gather(i - 1);
+      } else {
+        T* row = coef + n + (i & 1) * (n + 1);
+        for (int col = i + 1 + lane; col < n; col += 32) row[col] = rn::mul(row[col], xs[col]);
+        __syncwarp();
+        if (lane == 0) {
+          T acc = row[n];
+          for (int col = i + 1; col < n; ++col) acc = rn::sub(acc, row[col]);
+          xs[i] = rn::div(acc, row[i]);
+          x[static_cast<int64_t>(i) * B + b] = xs[i];
+        }
+        __syncwarp();
+      }
+    }
+  }
+  cluster.sync();  // no CTA leaves while CTA 0 reads its ring
+}
+
+// K2b-c's launch: C CTAs a lane (2, 4 or 8), threads (columns, groups) a
+// CTA, the column threads a multiple of 32 that covers CTA 0's columns, at
+// least two warps (the back-substitution takes two)
+template <typename T>
+int launch_cluster(const T* A, const T* y, T* x, int m, int n, int64_t B, int C, int columns,
+                   int groups, cudaStream_t st) {
+  const int Lc = (n + C) / C;
+  const int64_t smem = (static_cast<int64_t>(2 * n + 1) * Lc + 4 * n + 2) * sizeof(T);
+  if (n < 1 || m < n || B < 1 || (C != 2 && C != 4 && C != 8) || columns < Lc ||
+      columns % 32 || groups < 1 || columns * groups < 64 || columns * groups > 1024 ||
+      smem > kMaxDynamicSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = least_squares_cluster_kernel<T>;
+  const cudaError_t set = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (set != cudaSuccess) return static_cast<int>(set);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(B * C));
+  cfg.blockDim = dim3(columns, groups);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, A, y, x, m, n, B);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // K2a-w, one warp a lane.  Replaces qr_wavefront_pallas
 // (nlsolver_tpu/ops/qr_wavefront.py:114) where a lane's [R | Q^T] fits a
 // block's shared memory.  What bounds K2a with a thread a lane: each
@@ -682,6 +881,20 @@ NLSOLVER_QR_WARP_LAUNCHER(f64, double, kQrWarpMaxQ64, kQrWarpMaxR64)
         static_cast<T*>(x), m, n, B);                                          \
     return static_cast<int>(cudaGetLastError());                               \
   }
+
+// K2b-c: A [m, n, B], y [m, B] -> x [n, B], ``size`` CTAs a lane (2, 4 or
+// 8), ``columns`` x ``groups`` threads a CTA.  Returns cudaGetLastError().
+#define NLSOLVER_LSQ_CLUSTER_LAUNCHER(SUFFIX, T)                                         \
+  extern "C" int least_squares_cluster_##SUFFIX(const void* A, const void* y, void* x,   \
+                                                int m, int n, int64_t B, int size,       \
+                                                int columns, int groups, void* stream) { \
+    return launch_cluster<T>(static_cast<const T*>(A), static_cast<const T*>(y),         \
+                             static_cast<T*>(x), m, n, B, size, columns, groups,         \
+                             static_cast<cudaStream_t>(stream));                         \
+  }
+
+NLSOLVER_LSQ_CLUSTER_LAUNCHER(f32, float)
+NLSOLVER_LSQ_CLUSTER_LAUNCHER(f64, double)
 
 NLSOLVER_LSQ_LAUNCHERS(f32, float, kRegisterMaxN32, kWarpMaxQ32)
 NLSOLVER_LSQ_LAUNCHERS(f64, double, kRegisterMaxN64, kWarpMaxQ64)

@@ -16,7 +16,7 @@
 // (about n^3 / 6 multiply-subtracts, n (n + 1) / 2 divisions and square
 // roots, then n (n - 1) / 2 steps of the back solve), so what holds a
 // kernel back is how much of that chain waits on memory and how many
-// chains the card runs at once.  Three forms, chosen by n and dtype in
+// chains the card runs at once.  Four forms, chosen by n and dtype in
 // ops/smallchol.py (``plan``):
 //   * chol_registers_kernel<T, N> (K3-r): one thread a lane, L, z and x
 //     in registers.  Every index is a compile-time constant, so nothing goes
@@ -27,9 +27,12 @@
 //     instruction issue bounds it: some 2.4 times the floor of it at
 //     [30, 30, 4096], most of it the trailing update and the per-step
 //     column work (PERF.md).
+//   * chol_cluster_kernel<T> (K3-c): one lane a thread-block cluster of 2,
+//     4 or 8 CTAs, K3-w's packed rows split over their shared memory
+//     (below); n <= 927 in f32, 645 in f64, past K3-w's.
 //   * chol_global_kernel<T> (K3-g): one thread a lane, L in a batch-minor
 //     scratch of n (n + 1) / 2 rows in device memory; any n, for n past
-//     K3-w's.  Every l(i, k) is a load from device memory.
+//     K3-c's.  Every l(i, k) is a load from device memory.
 //
 // Arithmetic: each operation is rounded as the plain PyTorch twin
 // (nlsolver_torch/linalg/solve.py:_solve_spd_unrolled, imported by
@@ -40,6 +43,7 @@
 // b[i] less L[i][k] z[k] in ascending k, over L[i][i]; x[i] is z[i] less
 // L[k][i] x[k] for k = i + 1 .. n - 1 in ascending k, over L[i][i].
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cuda_pipeline.h>
@@ -47,6 +51,8 @@
 #include <cstdint>
 
 #include "rn_math.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -286,6 +292,211 @@ __global__ void chol_warp_kernel(const T* __restrict__ A, const T* __restrict__ 
   }
 }
 
+// K3-c, one lane a thread-block cluster.  Replaces solve_spd_batched_pallas
+// (nlsolver_tpu/ops/smallchol.py:89) for n past K3-w's, where one lane's
+// packed triangle no longer fits an SM (233 KB at n = 240 in f64).  What
+// bounds K3-g there: one thread carries a lane's chain of some n^3 / 6
+// dependent multiply-subtracts, each with two loads from L2, and 16 lanes
+// are 16 threads on 132 SMs (184.5 ms at [240, 240, 16] f64, 254x the
+// library's Cholesky factor and solve).  K3-w's right-looking scheme with
+// the packed rows 0 .. n (b as row n) split over the C CTAs of a cluster:
+//   * row i lives in CTA i % C, packed with the CTA's other rows (local row
+//     l = i / C at l (r + 1) + C l (l - 1) / 2 in CTA r), so as step j moves
+//     down every CTA keeps about as many trailing rows as the others; every
+//     CTA also keeps the diagonal of all rows, updated as its owner updates
+//     it (the same operations in the same order), so that each takes
+//     sqrt(S[j][j]) from its own shared memory;
+//   * column j of L (and z[j], row n's entry) is formed a step ahead: right
+//     past the barrier of step j - 1 each CTA subtracts that step's product
+//     from the column-j entries of its own rows, divides them by d =
+//     sqrt(S[j][j]) and stores each quotient into the column row j % 3 of
+//     every CTA (distributed shared memory); then it arrives at the cluster
+//     barrier of step j, and only then subtracts col[i] col[l] of step j - 1
+//     from the rest of its trailing rows (a warp a row, the entries over its
+//     threads) and from its diagonal, and waits at the barrier.  So the
+//     barrier's latency hides behind the trailing update, and the chain from
+//     one column to the next is one update, a square root, a division and a
+//     store into each CTA.  A CTA writes column row (j + 1) % 3 only past
+//     the barrier of step j, which every CTA reaches after it has read row
+//     (j - 2) % 3 for the last time: three rows, one barrier a step;
+//   * the back solve runs in CTA 0 in the twin's order, from the last i: its
+//     second warp gathers L[k][i - 1] (k = i - 1 .. n - 1) and z[i - 1] from
+//     the CTAs that hold them (one remote load a thread, all in flight at
+//     once) while its first warp forms the products L[k][i] x[k] of the
+//     gathered column i and its first thread subtracts them in ascending k.
+// Every value goes through the twin's operations in its order, so x is the
+// twin's bit for bit.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+template <typename T>
+__global__ void __launch_bounds__(1024)
+    chol_cluster_kernel(const T* __restrict__ A, const T* __restrict__ rhs,
+                        T* __restrict__ x, int n, int words, int64_t B) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int t = threadIdx.x, NT = blockDim.x, lane = t & 31, warp = t >> 5, W = NT >> 5;
+  const int64_t b = blockIdx.x / C;
+  T* S = reinterpret_cast<T*>(smem);  // this CTA's rows, packed: ``words`` words
+  T* diag = S + words;                // S[i][i] of every row i < n
+  T* col = diag + n;                  // [3][n + 1]: column j in row j % 3
+  const int rows = rank <= n ? (n - rank) / C + 1 : 0;  // rows rank, rank + C, .. <= n
+  // local row l of CTA r (row r + C l) starts at word l (r + 1) + C l (l - 1) / 2
+  auto start = [&](int r, int l) { return l * (r + 1) + C * l * (l - 1) / 2; };
+  // the first of this CTA's local rows past row j
+  auto after = [&](int j) { return j + 1 - rank <= 0 ? 0 : (j + 1 - rank + C - 1) / C; };
+
+  {
+    // the CTA's packed rows (row n from b, n words): entry e, as local row l
+    // and column c, by thread e % NT
+    auto width = [&](int l) { return min(rank + C * l + 1, n); };
+    int l = 0, c = t;
+    while (l < rows && c >= width(l)) c -= width(l), ++l;
+    for (int e = t; l < rows; e += NT) {
+      const int i = rank + C * l;
+      const T* src = i < n ? A + (static_cast<int64_t>(i) * n + c) * B
+                           : rhs + static_cast<int64_t>(c) * B;
+      __pipeline_memcpy_async(S + e, src + b, sizeof(T));
+      c += NT;
+      while (l < rows && c >= width(l)) c -= width(l), ++l;
+    }
+    for (int i = t; i < n; i += NT)
+      __pipeline_memcpy_async(diag + i, A + (static_cast<int64_t>(i) * n + i) * B + b,
+                              sizeof(T));
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  // every CTA runs before any writes into another's shared memory
+  cluster.sync();
+  {
+    // column 0
+    const T d = rn::sqrt(diag[0]);
+    for (int l = after(0) + t; l < rows; l += NT) {
+      T* e = S + start(rank, l);
+      const T v = rn::div(*e, d);
+      *e = v;
+      for (int r = 0; r < C; ++r) cluster.map_shared_rank(col, r)[rank + C * l] = v;
+    }
+    if (t == 0 && rank == 0) S[0] = d;
+  }
+  cluster_arrive();
+  cluster_wait();
+#pragma unroll 1
+  for (int j = 0; j < n; ++j) {
+    const T* cj = col + (j % 3) * (n + 1);
+    const int j1 = j + 1, l1 = after(j1);
+    if (j1 < n) {
+      // column j + 1 a step ahead: step j's product off its entries, then
+      // the division by its diagonal's square root
+      T* cn = col + (j1 % 3) * (n + 1);
+      const T c1 = cj[j1];
+      const T d = rn::sqrt(rn::sub(diag[j1], rn::mul(c1, c1)));
+      for (int l = l1 + t; l < rows; l += NT) {
+        const int i = rank + C * l;
+        T* e = S + start(rank, l) + j1;
+        const T v = rn::div(rn::sub(*e, rn::mul(cj[i], c1)), d);
+        *e = v;
+        for (int r = 0; r < C; ++r) cluster.map_shared_rank(cn, r)[i] = v;
+      }
+      if (t == 0 && j1 % C == rank) S[start(rank, j1 / C) + j1] = d;
+    }
+    cluster_arrive();  // column j + 1 in every CTA once all have arrived
+    // the rest of step j: rows past j + 1, columns j + 2 .. min(i, n - 1)
+    for (int l = l1 + warp; l < rows; l += W) {
+      const int i = rank + C * l, end = min(i, n - 1);
+      T* row = S + start(rank, l);
+      const T ci = cj[i];
+#pragma unroll 4
+      for (int c = j + 2 + lane; c <= end; c += 32) row[c] = rn::sub(row[c], rn::mul(ci, cj[c]));
+    }
+    for (int i = j + 2 + t; i < n; i += NT) diag[i] = rn::sub(diag[i], rn::mul(cj[i], cj[i]));
+    __syncthreads();
+    cluster_wait();
+  }
+  // L and z final in every CTA; the back solve in CTA 0: x in col[0, n), the
+  // gathered column i in col[n + (i & 1) (n + 1) + k], k = i .. n (L[i][i],
+  // L[k][i], z[i]), which the first warp turns into the products L[k][i]
+  // x[k] in place
+  if (rank == 0 && warp < 2) {
+    T* xs = col;
+    auto gather = [&](int i) {
+      T* g = col + n + (i & 1) * (n + 1);
+      for (int k = i + lane; k <= n; k += 32) {
+        const int r = k % C;
+        g[k] = cluster.map_shared_rank(S, r)[start(r, k / C) + i];
+      }
+    };
+    if (warp == 1) gather(n - 1);
+#pragma unroll 1
+    for (int i = n - 1; i >= 0; --i) {
+      // column i gathered; the first warp done with column i + 1
+      asm volatile("bar.sync 1, 64;\n" ::: "memory");
+      if (warp == 1) {
+        if (i > 0) gather(i - 1);
+      } else {
+        T* g = col + n + (i & 1) * (n + 1);
+        for (int k = i + 1 + lane; k < n; k += 32) g[k] = rn::mul(g[k], xs[k]);
+        __syncwarp();
+        if (lane == 0) {
+          T acc = g[n];
+          for (int k = i + 1; k < n; ++k) acc = rn::sub(acc, g[k]);
+          xs[i] = rn::div(acc, g[i]);
+          x[static_cast<int64_t>(i) * B + b] = xs[i];
+        }
+        __syncwarp();
+      }
+    }
+  }
+  cluster.sync();  // no CTA leaves while CTA 0 reads its rows
+}
+
+// K3-c's launch: C CTAs a lane (2, 4 or 8) of ``threads`` threads (a
+// multiple of 32, at least 64: the back solve takes two warps), ``words``
+// the most words of packed rows a CTA holds
+template <typename T>
+int launch_cluster(const void* A, const void* b, void* x, int n, int64_t B, int C, int threads,
+                   void* stream) {
+  if (n < 1 || B < 1 || (C != 2 && C != 4 && C != 8) || threads < 64 || threads > 1024 ||
+      threads % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int words = 0;
+  for (int r = 0; r < C && r <= n; ++r) {
+    int w = 0;
+    for (int i = r; i <= n; i += C) w += i < n ? i + 1 : n;
+    words = w > words ? w : words;
+  }
+  const int64_t smem = (static_cast<int64_t>(words) + n + 3 * (n + 1)) * sizeof(T);
+  if (smem > kMaxDynamicSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = chol_cluster_kernel<T>;
+  const cudaError_t set = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (set != cudaSuccess) return static_cast<int>(set);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(B * C));
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(A),
+                                             static_cast<const T*>(b), static_cast<T*>(x), n,
+                                             words, B);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // K3-g: one thread a lane, L in the batch-minor scratch (row i of L packed
 // at i (i + 1) / 2), z written into x and overwritten in place by the back
 // solve, from the last row up.
@@ -361,7 +572,9 @@ int launch_global(const void* A, const void* b, void* L, void* x, int n, int64_t
 
 // A [n, n, B], b [n, B] -> x [n, B].  K3-r, n = 1 .. its most; K3-w with
 // ``lanes`` warps a block (a power of two, 1 .. 32, whose triangles fit
-// 232448 bytes); K3-g with L, scratch of n (n + 1) / 2 * B words.  Each returns cudaGetLastError().
+// 232448 bytes); K3-c with ``size`` CTAs a lane (2, 4 or 8) of ``threads``
+// threads; K3-g with L, scratch of n (n + 1) / 2 * B words.  Each returns
+// cudaGetLastError().
 #define NLSOLVER_CHOL_LAUNCHERS(SUFFIX, T, MAXN)                                           \
   extern "C" int chol_solve_registers_##SUFFIX(const void* A, const void* b, void* x, int n, \
                                                int64_t B, void* stream) {                    \
@@ -370,6 +583,11 @@ int launch_global(const void* A, const void* b, void* L, void* x, int n, int64_t
   extern "C" int chol_solve_warp_##SUFFIX(const void* A, const void* b, void* x, int n,      \
                                           int64_t B, int lanes, void* stream) {              \
     return launch_warp<T>(A, b, x, n, B, lanes, stream);                                     \
+  }                                                                                          \
+  extern "C" int chol_solve_cluster_##SUFFIX(const void* A, const void* b, void* x, int n,   \
+                                             int64_t B, int size, int threads,               \
+                                             void* stream) {                                 \
+    return launch_cluster<T>(A, b, x, n, B, size, threads, stream);                          \
   }                                                                                          \
   extern "C" int chol_solve_batchminor_##SUFFIX(const void* A, const void* b, void* L,       \
                                                 void* x, int n, int64_t B, void* stream) {   \

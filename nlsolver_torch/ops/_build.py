@@ -28,6 +28,33 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 DTYPE_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 # dynamic shared memory a block may opt in to on sm_90 (227 KB)
 MAX_DYNAMIC_SMEM = 232448
+# an SM of an H100: the shared memory its CTAs share (each also reserves 1
+# KB) and its threads; the card's SMs, the default of the cluster plans
+SM_SHARED, SM_THREADS, SMS = 233472, 2048, 132
+
+
+def lanes_at_once(size: int, cta_bytes: int, cta_threads: int, sms: int = SMS) -> int:
+    """Lanes of a kernel that gives a lane a cluster of ``size`` CTAs, each
+    of ``cta_bytes`` bytes of shared memory and ``cta_threads`` threads,
+    that ``sms`` SMs run at once: the CTAs an SM holds by either, over size."""
+    return sms * min(SM_SHARED // (cta_bytes + 1024), SM_THREADS // cta_threads) // size
+
+
+def cluster_size(sizes, cta_bytes, cta_threads, lanes=None, sms=SMS) -> int:
+    """The cluster of the sizes ``sizes`` (CTAs a lane, ascending) whose CTAs
+    of ``cta_bytes(C)`` bytes of shared memory fit a block and that runs the
+    most of ``lanes`` lanes at once on ``sms`` SMs (``lanes_at_once`` with
+    ``cta_threads(C)`` threads; the least such C), doubled (to at most the
+    largest size) while ``lanes`` clusters of twice as many CTAs still find
+    an SM each; 0 where no size fits."""
+    fits = [c for c in sizes if cta_bytes(c) <= MAX_DYNAMIC_SMEM]
+    if not fits:
+        return 0
+    size = max(fits, key=lambda c: (
+        min(lanes or 1 << 40, lanes_at_once(c, cta_bytes(c), cta_threads(c), sms)), -c))
+    while lanes and size < sizes[-1] and lanes * 2 * size <= sms:
+        size *= 2
+    return size
 
 
 def sources() -> list[Path]:

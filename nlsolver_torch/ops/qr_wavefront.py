@@ -17,7 +17,7 @@ float32 and 120 in float64 with Q, 240 and 169 without);
 shape.  Both are bit-equal to the twin.
 
 K2b keeps only the 2 n rows of the system that a stage of the wavefront
-touches, a window that slides down one row a stage, and comes in four
+touches, a window that slides down one row a stage, and comes in five
 forms, chosen by n and dtype alone (``least_squares_wavefront_kernel``):
 ``least_squares_wavefront_registers`` holds the window in a thread's
 registers (n <= 8 in float32, 5 in float64: ``registers_fit``);
@@ -26,10 +26,13 @@ block (n <= 29 in float32, 20 in float64: ``shared_fits``);
 ``least_squares_wavefront_warp`` gives a lane a warp, the window's columns
 over its threads, in shared memory (n <= 169 in float32, 119 in float64:
 ``warp_fits``; the dispatcher's from n = 30 and 21);
-``least_squares_wavefront_global`` works on a copy of the system in device
-memory, any n.  The first three read A and y once and write only x.  All
-four are bit-equal to the twin; a failed build or launch, or an n that a
-form does not take, raises.
+``least_squares_wavefront_cluster`` gives a lane a thread-block cluster of
+2, 4 or 8 CTAs, the window's columns split over their shared memory (n <=
+471 in float32, 329 in float64: ``cluster_fits``; the dispatcher's from n
+= 170 and 120); ``least_squares_wavefront_global`` works on a copy of the
+system in device memory, any n.  The first four read A and y once and
+write only x.  All five are bit-equal to the twin; a failed build or
+launch, or an n that a form does not take, raises.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ import torch
 
 from ..linalg.qr_parallel import least_squares_parallel, qr_parallel
 from . import _build
-from ._build import MAX_DYNAMIC_SMEM
+from ._build import MAX_DYNAMIC_SMEM, SMS
 
 # K2b's register form: the most n it is built for (csrc/qr_wavefront.cu's
 # kRegisterMaxN32 / kRegisterMaxN64); its window is 2 n (n + 1) words a thread
@@ -54,6 +57,12 @@ WARP_LANES = 8
 # K2a's warp form: the most lanes (warps) a block; fewer where their arrays
 # do not fit a block's shared memory (``qr_warp_lanes``)
 QR_WARP_LANES = 8
+# K2b's cluster form: the cluster sizes it takes (CTAs a lane), and the
+# groups of a CTA's threads that share out a stage's rotations.  On an H100
+# at [248, 120, 256] f64 groups of 2, 4 and 8 took 3.23, 2.84 and 2.80 ms
+# with clusters of 4 (2: 3.82, 3.34, 3.32; 8: 4.10, 3.75, 4.99)
+CLUSTER_SIZES = (2, 4, 8)
+CLUSTER_GROUPS = 4
 
 
 def qr_wavefront_reference(A: torch.Tensor, compute_q: bool = False):
@@ -104,10 +113,59 @@ def warp_lanes(n: int, dtype: torch.dtype, most: int = WARP_LANES) -> int:
     return lanes
 
 
+def cluster_bytes(n: int, dtype: torch.dtype, size: int) -> int:
+    """Shared memory of one CTA of K2b's cluster form with ``size`` CTAs a
+    lane: its columns of the ring, 2 n + 1 rows of ceil((n + 1) / size)
+    words (CTA 0 holds the most), and two rows of 2 n coefficients and two
+    words (the back-substitution's two gathered rows and x take 3 n + 2)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return ((2 * n + 1) * -(-(n + 1) // size) + 4 * n + 2) * itemsize
+
+
+def cluster_columns(n: int, size: int) -> int:
+    """Column threads a CTA of K2b's cluster form: the least multiple of 32
+    that covers CTA 0's ceil((n + 1) / size) columns."""
+    return 32 * -(-(-(-(n + 1) // size)) // 32)
+
+
+def cluster_lanes(n: int, dtype: torch.dtype, size: int, sms: int = SMS) -> int:
+    """Lanes of K2b's cluster form with ``size`` CTAs a lane that a card of
+    ``sms`` H100 SMs runs at once: the CTAs an SM holds by shared memory and
+    by threads (``CLUSTER_GROUPS`` groups of column threads), over size."""
+    return _build.lanes_at_once(size, cluster_bytes(n, dtype, size),
+                                cluster_columns(n, size) * CLUSTER_GROUPS, sms)
+
+
+def cluster_plan(n: int, dtype: torch.dtype, lanes: int | None = None,
+                 sms: int = SMS) -> tuple[int, int]:
+    """K2b's cluster form for n in ``dtype``: ``(C, T)``, C of
+    ``CLUSTER_SIZES`` whose CTA's slice of the ring fits a block's shared
+    memory and that runs the most of ``lanes`` lanes at once (``cluster_lanes``;
+    the least such C), doubled (to at most 8) while ``lanes`` clusters of
+    twice as many CTAs still find an SM each, and T = ``cluster_columns(n,
+    C)`` column threads a CTA; ``(0, 0)`` where 8 CTAs do not hold the ring
+    (n > 471 in float32, 329 in float64).  On an H100 at [248, 120, 256] f64
+    clusters of 2, 4 and 8 took 3.34, 2.84 and 3.75 ms (66, 99 and 99 lanes
+    at once); the least C that fits, 2, was the slowest."""
+    if dtype not in _build.DTYPE_SUFFIX or n < 1:
+        return 0, 0
+    size = _build.cluster_size(CLUSTER_SIZES, lambda c: cluster_bytes(n, dtype, c),
+                               lambda c: cluster_columns(n, c) * CLUSTER_GROUPS, lanes, sms)
+    return (size, cluster_columns(n, size)) if size else (0, 0)
+
+
+def cluster_fits(n: int, dtype: torch.dtype) -> bool:
+    """Whether K2b's cluster form takes n in ``dtype``: n <= 471 in float32,
+    329 in float64."""
+    return cluster_plan(n, dtype)[0] > 0
+
+
 def least_squares_form(n: int, dtype: torch.dtype) -> str:
     """The form of K2b that the dispatcher gives n in ``dtype``: the first
-    of "registers", "shared" and "warp" that takes it, else "global"."""
-    for form, fits in (("registers", registers_fit), ("shared", shared_fits), ("warp", warp_fits)):
+    of "registers", "shared", "warp" and "cluster" that takes it, else
+    "global"."""
+    for form, fits in (("registers", registers_fit), ("shared", shared_fits), ("warp", warp_fits),
+                       ("cluster", cluster_fits)):
         if fits(n, dtype):
             return form
     return "global"
@@ -147,14 +205,16 @@ def qr_form(m: int, n: int, dtype: torch.dtype, compute_q: bool) -> str:
 def _launcher(entry: str, suffix: str):
     """The C entry point: ``qr_wavefront`` (K2a's and K2b's device-memory
     forms), ``qr_wavefront_warp``, ``least_squares_registers``,
-    ``least_squares_shared`` or ``least_squares_warp``."""
+    ``least_squares_shared``, ``least_squares_warp`` or
+    ``least_squares_cluster``."""
     fn = getattr(_build.load_library(), f"{entry}_{suffix}")
     vp, ci, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     fn.argtypes = {"qr_wavefront": [vp] * 6 + [ci, ci, i64, ci, ci, vp],
                    "qr_wavefront_warp": [vp] * 3 + [ci, ci, i64, ci, ci, vp],
                    "least_squares_registers": [vp] * 3 + [ci, ci, i64, vp],
                    "least_squares_shared": [vp] * 3 + [ci, ci, i64, ci, ci, vp],
-                   "least_squares_warp": [vp] * 3 + [ci, ci, i64, ci, vp]}[entry]
+                   "least_squares_warp": [vp] * 3 + [ci, ci, i64, ci, vp],
+                   "least_squares_cluster": [vp] * 3 + [ci, ci, i64, ci, ci, ci, vp]}[entry]
     fn.restype = ci
     return fn
 
@@ -322,8 +382,38 @@ def least_squares_wavefront_warp(A: torch.Tensor, y: torch.Tensor, lanes: int | 
     return x
 
 
+def least_squares_wavefront_cluster(A: torch.Tensor, y: torch.Tensor, size: int | None = None,
+                                    _groups: int | None = None) -> torch.Tensor:
+    """K2b's cluster form: a lane a thread-block cluster of ``size`` CTAs
+    (``cluster_plan`` for B lanes and the card's SMs by default), column c
+    of the window's ring of 2 n + 1 rows in CTA c % size's shared memory;
+    each stage's rotations formed at once by the pivot columns' owners and
+    stored into every CTA, one cluster barrier a stage, each CTA's
+    ``CLUSTER_GROUPS`` groups of threads sharing out the rotations; only
+    ``x [n, B]`` is written.  ``_groups`` sets another count of groups (a
+    CTA needs two warps or more) for the tests and probes only.  CPU tensors run the twin; on a card it raises
+    where ``size`` CTAs do not hold the ring (``cluster_fits``)."""
+    name = "least_squares_wavefront_cluster"
+    m, n, B = _check_lstsq(name, A, y)
+    if A.device.type == "cpu" and y.device.type == "cpu":
+        return least_squares_wavefront_reference(A, y)
+    _build.check_cuda_inputs(name, {"A": A, "y": y})
+    if size is None:
+        sms = torch.cuda.get_device_properties(A.device).multi_processor_count
+        size = cluster_plan(n, A.dtype, B, sms)[0]
+    if size not in CLUSTER_SIZES or cluster_bytes(n, A.dtype, size) > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"{name}: n={n} in {A.dtype} does not fit a cluster of {size or 8} "
+                         "CTAs' shared memory; least_squares_wavefront_global takes it")
+    if B == 0:
+        return A.new_empty((n, 0))
+    x = _launch_window(name, "least_squares_cluster", A, y, size, cluster_columns(n, size),
+                       _groups or CLUSTER_GROUPS)
+    least_squares_wavefront_cluster.launches += 1
+    return x
+
+
 def least_squares_wavefront_global(A: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """K2b's device-memory form, any n (the dispatcher's past the warp
+    """K2b's device-memory form, any n (the dispatcher's past the cluster
     form's): the rotations run on a working copy of A and y (scratch ``R``,
     ``qty``) in device memory.  CPU tensors run the twin."""
     name = "least_squares_wavefront_global"
@@ -344,13 +434,15 @@ def least_squares_wavefront_kernel(A: torch.Tensor, y: torch.Tensor) -> torch.Te
     rotations thread y (implicit Q^T y) and the back-substitution runs in
     the kernel; only ``x [n, B]`` is written.  CUDA tensors run K2b in the
     register form where n fits it, else the shared-memory form, else the
-    warp form, else the device-memory form; CPU tensors its twin."""
+    warp form, else the cluster form, else the device-memory form; CPU
+    tensors its twin."""
     m, n, B = _check_lstsq("least_squares_wavefront_kernel", A, y)
     if A.device.type == "cpu" and y.device.type == "cpu":
         return least_squares_wavefront_reference(A, y)
     forms = {"registers": least_squares_wavefront_registers,
              "shared": least_squares_wavefront_shared,
-             "warp": least_squares_wavefront_warp, "global": least_squares_wavefront_global}
+             "warp": least_squares_wavefront_warp, "cluster": least_squares_wavefront_cluster,
+             "global": least_squares_wavefront_global}
     return forms[least_squares_form(n, A.dtype)](A, y)
 
 
@@ -359,4 +451,5 @@ qr_wavefront_global.launches = 0
 least_squares_wavefront_registers.launches = 0
 least_squares_wavefront_shared.launches = 0
 least_squares_wavefront_warp.launches = 0
+least_squares_wavefront_cluster.launches = 0
 least_squares_wavefront_global.launches = 0

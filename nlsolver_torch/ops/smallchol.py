@@ -21,6 +21,9 @@ work over the fleet.
     triangle and right-hand side in shared memory, factored right-looking
     with the forward solve as one more row (``warp_fits``: n <= 337 in
     float32, 238 in float64);
+  - ``solve_spd_cluster`` (K3-c): a lane a thread-block cluster of 2, 4 or 8
+    CTAs, K3-w's packed rows split over their shared memory, row i in CTA i
+    % C (``cluster_fits``: n <= 927 in float32, 645 in float64);
   - ``solve_spd_batchminor_global`` (K3-g): a thread a lane, L in a scratch
     in device memory, any n.
 
@@ -40,7 +43,7 @@ import torch
 
 from ..linalg.solve import _solve_spd_unrolled as _chol_solve_batchminor
 from . import _build
-from ._build import MAX_DYNAMIC_SMEM
+from ._build import MAX_DYNAMIC_SMEM, SMS
 
 # K3-r: the most n it is built for (csrc/smallchol.cu's kRegisterMaxN32 /
 # kRegisterMaxN64)
@@ -52,6 +55,12 @@ WARP_LANES = 32
 # K3-w's table of (r, c) for a triangle's first 32 rows (csrc/smallchol.cu's
 # kTableEntries, 2 bytes an entry)
 WARP_TABLE_BYTES = 32 * 33 // 2 * 2
+# K3-c: the cluster sizes it takes (CTAs a lane), and threads a CTA.  On an
+# H100, 256 and 512 threads took 0.696 and 0.679 ms at [240, 240, 16] f64
+# with clusters of 8, and 2.50 and 3.54 ms at [239, 239, 256] with clusters
+# of 4 (the plan's there; 3.53 and 3.08 with 2, 3.72 and 5.98 with 8)
+CLUSTER_SIZES = (2, 4, 8)
+CLUSTER_THREADS = 256
 
 
 def registers_fit(n: int, dtype: torch.dtype) -> bool:
@@ -88,31 +97,106 @@ def warp_lanes(n: int, dtype: torch.dtype, most: int = WARP_LANES) -> int:
     return lanes
 
 
+def cluster_words(n: int, size: int) -> int:
+    """Words of packed rows that the fullest CTA of K3-c holds with ``size``
+    CTAs a lane: rows r, r + size, .. <= n of CTA r, row i < n of i + 1
+    words, row n (b) of n."""
+    return max(sum(i + 1 if i < n else n for i in range(r, n + 1, size))
+               for r in range(min(size, n + 1)))
+
+
+def cluster_bytes(n: int, dtype: torch.dtype, size: int) -> int:
+    """Shared memory of one CTA of K3-c with ``size`` CTAs a lane: its
+    packed rows, the diagonal of all n rows, and three column rows of n + 1
+    words."""
+    return (cluster_words(n, size) + 4 * n + 3) * torch.empty((), dtype=dtype).element_size()
+
+
+def cluster_lanes(n: int, dtype: torch.dtype, size: int, sms: int = SMS) -> int:
+    """Lanes of K3-c with ``size`` CTAs a lane that a card of ``sms`` H100
+    SMs runs at once: the CTAs an SM holds by shared memory and by threads
+    (``CLUSTER_THREADS``), over size."""
+    return _build.lanes_at_once(size, cluster_bytes(n, dtype, size), CLUSTER_THREADS, sms)
+
+
+def cluster_plan(n: int, dtype: torch.dtype, lanes: int | None = None, sms: int = SMS) -> int:
+    """K3-c's cluster size for n in ``dtype``: C of ``CLUSTER_SIZES`` whose
+    CTAs hold the packed rows and that runs the most of ``lanes`` lanes at
+    once (``cluster_lanes``; the least such C), doubled (to at most 8) while
+    ``lanes`` clusters of twice as many CTAs still find an SM each; 0 where 8
+    CTAs do not hold them.  The sizes that hold the rows: 2 up to n = 472 in
+    float32, 4 to 663, 8 to 927; in float64 2 to 331, 4 to 463, 8 to 645."""
+    if dtype not in _build.DTYPE_SUFFIX or n < 1:
+        return 0
+    return _build.cluster_size(CLUSTER_SIZES, lambda c: cluster_bytes(n, dtype, c),
+                               lambda c: CLUSTER_THREADS, lanes, sms)
+
+
+def cluster_fits(n: int, dtype: torch.dtype) -> bool:
+    """Whether K3-c takes n in ``dtype``: n <= 927 in float32, 645 in
+    float64."""
+    return cluster_plan(n, dtype) > 0
+
+
 def plan(n: int, dtype: torch.dtype) -> str:
     """The form of K3 that the dispatcher gives order n in ``dtype``, the
-    first that takes it: "registers" (K3-r), "warp" (K3-w), "global" (K3-g).
-    On an H100 K3-r is the fastest form wherever it fits, and K3-w past it
-    at every B of ``benches.sweep_spd_solve`` but one point, [20, 20,
-    262144] in float32, which no path runs.  Raises ``ValueError`` where
-    no form takes the order (n < 1, a dtype other than float32 and
-    float64)."""
+    first that takes it: "registers" (K3-r), "warp" (K3-w), "cluster"
+    (K3-c), "global" (K3-g).  On an H100 K3-r is the fastest form wherever
+    it fits, and K3-w past it at every B of ``benches.sweep_spd_solve`` but
+    one point, [20, 20, 262144] in float32, which no path runs.  Raises
+    ``ValueError`` where no form takes the order (n < 1, a dtype other than
+    float32 and float64)."""
     if dtype not in _build.DTYPE_SUFFIX:
         raise ValueError(f"solve_spd_batchminor: A must be float32 or float64, got {dtype}")
     if n < 1:
         raise ValueError(f"solve_spd_batchminor: no form takes n={n}")
     if registers_fit(n, dtype):
         return "registers"
-    return "warp" if warp_fits(n, dtype) else "global"
+    if warp_fits(n, dtype):
+        return "warp"
+    return "cluster" if cluster_fits(n, dtype) else "global"
+
+
+def chol_solve_right_looking(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The twin's solve with each entry's operations in the twin's order,
+    arranged as K3-w and K3-c arrange them: factored right-looking as whole
+    trailing blocks on A's device (n steps of a few tensor ops, where the
+    twin takes some n^3 / 6 scalar ones), b as row n, then the back solve,
+    one chain a lane in the twin's order, on the host (a multiply, a
+    subtraction and a division round there as on the card).  Bit-equal to
+    the twin; a reference for orders too large for the twin's eager ops.
+    A [n, n, B], b [n, B] -> x [n, B] on A's device."""
+    import numpy as np
+
+    n, _, B = A.shape
+    S = A.new_zeros((n + 1, n + 1, B))
+    S[:n, :n] = A
+    S[n, :n] = b
+    for j in range(n):
+        d = torch.sqrt(S[j, j])
+        S[j + 1:, j] = S[j + 1:, j] / d
+        S[j, j] = d
+        col = S[j + 1:, j]
+        S[j + 1:, j + 1:] = S[j + 1:, j + 1:] - col[:, None] * col[None, :]
+    L = S[:, :n].cpu().numpy()
+    x = np.empty((n, B), L.dtype)
+    for i in reversed(range(n)):
+        acc = L[n, i]
+        for k in range(i + 1, n):
+            acc = acc - L[k, i] * x[k]
+        x[i] = acc / L[i, i]
+    return torch.from_numpy(x).to(A.device)
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher(entry: str, suffix: str):
-    """The C entry point: ``chol_solve_registers``, ``chol_solve_warp`` or
-    ``chol_solve_batchminor`` (K3-g)."""
+    """The C entry point: ``chol_solve_registers``, ``chol_solve_warp``,
+    ``chol_solve_cluster`` or ``chol_solve_batchminor`` (K3-g)."""
     fn = getattr(_build.load_library(), f"{entry}_{suffix}")
     vp, ci, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     fn.argtypes = {"chol_solve_registers": [vp] * 3 + [ci, i64, vp],
                    "chol_solve_warp": [vp] * 3 + [ci, i64, ci, vp],
+                   "chol_solve_cluster": [vp] * 3 + [ci, i64, ci, ci, vp],
                    "chol_solve_batchminor": [vp] * 4 + [ci, i64, vp]}[entry]
     fn.restype = ci
     return fn
@@ -188,10 +272,39 @@ def solve_spd_warp(A: torch.Tensor, b: torch.Tensor, lanes: int | None = None) -
     return x
 
 
+def solve_spd_cluster(A: torch.Tensor, b: torch.Tensor, size: int | None = None,
+                      _threads: int | None = None) -> torch.Tensor:
+    """K3-c: A [n, n, B], b [n, B] -> x [n, B], a lane a thread-block cluster
+    of ``size`` CTAs (``cluster_plan`` for B lanes and the card's SMs by
+    default) of ``CLUSTER_THREADS`` threads, row i of the packed triangle (b
+    as row n) in CTA i % size's shared memory, factored right-looking with
+    each column formed a step ahead and one cluster barrier a step, the back
+    solve in CTA 0.  CPU tensors run the twin; on a card it raises where
+    ``size`` CTAs do not hold the rows (``cluster_fits``).  ``_threads``
+    sets another count of threads a CTA (at least 64) for the tests and
+    probes only."""
+    name = "solve_spd_cluster"
+    n, B = _check(name, A, b)
+    if A.device.type == "cpu" and b.device.type == "cpu":
+        return _chol_solve_batchminor(A, b)
+    _build.check_cuda_inputs(name, {"A": A, "b": b})
+    if size is None:
+        sms = torch.cuda.get_device_properties(A.device).multi_processor_count
+        size = cluster_plan(n, A.dtype, B, sms)
+    if size not in CLUSTER_SIZES or cluster_bytes(n, A.dtype, size) > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"{name}: n={n} in {A.dtype} does not fit a cluster of {size or 8} "
+                         "CTAs' shared memory; solve_spd_batchminor_global takes it")
+    if B == 0:
+        return torch.empty_like(b)
+    x = _launch(name, "chol_solve_cluster", A, b, size, _threads or CLUSTER_THREADS)
+    solve_spd_cluster.launches += 1
+    return x
+
+
 def solve_spd_batchminor_global(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K3-g: A [n, n, B], b [n, B] -> x [n, B], a thread a lane with L in a
     scratch of n (n + 1) / 2 rows in device memory, allocated for this
-    launch; any n (the dispatcher's past K3-w's range).  CPU tensors run
+    launch; any n (the dispatcher's past K3-c's range).  CPU tensors run
     the twin."""
     name = "solve_spd_batchminor_global"
     n, B = _check(name, A, b)
@@ -214,12 +327,13 @@ def solve_spd_batchminor(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return _chol_solve_batchminor(A, b)
     _build.check_cuda_inputs("solve_spd_batchminor", {"A": A, "b": b})
     forms = {"registers": solve_spd_registers, "warp": solve_spd_warp,
-             "global": solve_spd_batchminor_global}
+             "cluster": solve_spd_cluster, "global": solve_spd_batchminor_global}
     return forms[plan(n, A.dtype)](A, b)
 
 
 solve_spd_registers.launches = 0
 solve_spd_warp.launches = 0
+solve_spd_cluster.launches = 0
 solve_spd_batchminor_global.launches = 0
 
 

@@ -1,7 +1,7 @@
 """Kernels K2a and K2b of nlsolver_torch (``ops.qr_wavefront``): the CPU
 route (the plain twins) against the JAX package's Pallas kernels in
 interpret mode and its jnp wavefront, plain-tensor emulations of the
-order of K2a's warp form and of K2b's window and warp forms, the shapes
+order of K2a's warp form and of K2b's window, warp and cluster forms, the shapes
 each form takes and refuses, and the CUDA kernels against their twins (on
 a card only).
 
@@ -60,7 +60,8 @@ def test_cpu_route_matches_jax_wavefront_f64(m, n, B):
 
 
 LSTSQ_FORMS = (tqw.least_squares_wavefront_registers, tqw.least_squares_wavefront_shared,
-               tqw.least_squares_wavefront_warp, tqw.least_squares_wavefront_global)
+               tqw.least_squares_wavefront_warp, tqw.least_squares_wavefront_cluster,
+               tqw.least_squares_wavefront_global)
 
 
 QR_FORMS = (tqw.qr_wavefront_warp, tqw.qr_wavefront_global)
@@ -281,6 +282,138 @@ def test_warp_order_matches_jax_pallas_interpret(m, n, dtype):
         np.testing.assert_allclose(x.numpy(), jx, rtol=1e-12, atol=1e-13)
 
 
+def cluster_emulation(A, y, C, groups=1):
+    """K2b's cluster form in plain torch ops, in the kernel's order: column
+    c of the ring of 2 n + 1 rows (c = n is Q^T y) lives in CTA c % C at
+    local column c // C, each CTA's ring starting as NaN so that a read of a
+    word never fetched shows; a CTA fetches only its own columns of a row, a
+    stage ahead.  At each stage the owner of pivot column j forms (c, s)
+    from its own ring and stores it into the coefficient row of stage
+    parity k % 2 of every CTA; then every CTA turns its own columns col >=
+    j by the stage's rotations read from its own coefficient row, the
+    rotations dealt over ``groups`` groups of threads (g takes j_lo + g,
+    j_lo + g + groups, ..).  The back-substitution gathers row i's entries i
+    .. n from every CTA's ring row i and runs the twin's chain on them."""
+    from nlsolver_torch.linalg.givens import givens_rotation
+
+    m, n, B = A.shape
+    slots, Lc = 2 * n + 1, -(-(n + 1) // C)
+    rings = [torch.full((slots, Lc, B), float("nan"), dtype=A.dtype) for _ in range(C)]
+    coef = [torch.full((2, 2 * n, B), float("nan"), dtype=A.dtype) for _ in range(C)]
+    mine = [[c for c in range(k, n + 1, C)] for k in range(C)]
+
+    def fetch(r):
+        for k in range(C):
+            for c in mine[k]:
+                rings[k][r % slots, c // C] = A[r, c] if c < n else y[r]
+
+    fetch(m - 1)
+    if m >= 2:
+        fetch(m - 2)
+    for k in range(m + n - 2):
+        if k <= m - 3:
+            fetch(m - 3 - k)
+        j_lo, j_hi = max(0, k - m + 2), min(n - 1, k // 2)
+        s0 = (m - 2 - k) % slots
+        for j in range(j_lo, j_hi + 1):
+            ring = rings[j % C]
+            rp = (s0 + 2 * j) % slots
+            cs = givens_rotation(ring[rp, j // C], ring[(rp + 1) % slots, j // C])
+            for buf in coef:
+                buf[k % 2, 2 * j], buf[k % 2, 2 * j + 1] = cs
+        for kk in range(C):
+            ring, buf = rings[kk], coef[kk]
+            for g in range(groups):
+                for j in range(j_lo + g, j_hi + 1, groups):
+                    cols = [c // C for c in mine[kk] if c >= j]
+                    if not cols:
+                        continue
+                    rp = (s0 + 2 * j) % slots
+                    rq = (rp + 1) % slots
+                    c, s = buf[k % 2, 2 * j], buf[k % 2, 2 * j + 1]
+                    vp, vq = ring[rp, cols].clone(), ring[rq, cols].clone()
+                    ring[rp, cols], ring[rq, cols] = c * vp + s * vq, c * vq + (-s) * vp
+    xs = [None] * n
+    for i in range(n - 1, -1, -1):
+        row = {col: rings[col % C][i, col // C] for col in range(i, n + 1)}
+        acc = row[n]
+        for col in range(i + 1, n):
+            acc = acc - row[col] * xs[col]
+        xs[i] = acc / row[i]
+    return torch.stack(xs, dim=0)
+
+
+# square and with one row more, one and two rows of the cluster's CTAs
+# short of a column (n + 1 no multiple of C), n < C, m = n = 1
+CLUSTER_SHAPES = [(12, 9), (20, 17), (9, 9), (10, 9), (1, 1), (5, 4), (3, 2)]
+
+
+@pytest.mark.parametrize("deficient", [False, True])
+@pytest.mark.parametrize("C,groups", [(2, 1), (4, 3)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("m,n", CLUSTER_SHAPES)
+def test_cluster_order_equals_twin(m, n, dtype, C, groups, deficient):
+    """K2b-c's order (columns interleaved over C CTAs, each stage's
+    coefficients formed by the pivots' owners into every CTA's row of the
+    stage's parity, the rotations dealt over groups of threads, the
+    back-substitution on gathered rows) is the twin's bit for bit; a zero
+    column makes a = b = 0, the identity select."""
+    A, y = _system(13, m, n, 16, dtype)
+    A[np.arange(n), np.arange(n)] += np.asarray(2 * n, dtype)
+    A, y = torch.from_numpy(A), torch.from_numpy(y)
+    if deficient and n > 1:
+        A[:, n // 2] = 0.0
+    x = cluster_emulation(A, y, C, groups)
+    # a zero column leaves R singular: x holds infinities and NaNs, each where the twin's are
+    torch.testing.assert_close(x, tqw.least_squares_wavefront_reference(A, y), rtol=0, atol=0,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("C", [2, 4])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("m,n", [(1, 1), (10, 9)])
+def test_cluster_order_matches_jax_pallas_interpret(m, n, dtype, C):
+    from nlsolver_tpu.ops.qr_wavefront import least_squares_wavefront_pallas
+
+    A, y = _system(9, m, n, 16, dtype)
+    A[np.arange(n), np.arange(n)] += np.asarray(2 * n, dtype)
+    x = cluster_emulation(torch.from_numpy(A), torch.from_numpy(y), C)
+    jx = np.asarray(least_squares_wavefront_pallas(A, y, interpret=True))
+    if dtype == np.float32:
+        np.testing.assert_allclose(x.numpy(), jx, atol=1e-5)
+    else:
+        np.testing.assert_allclose(x.numpy(), jx, rtol=1e-12, atol=1e-13)
+
+
+def test_cluster_limits():
+    """K2b-c's range, worked out from 232448 bytes a CTA: (2 n + 1)
+    ceil((n + 1) / C) words of ring and 4 n + 2 of coefficients, C of 2, 4 and 8
+    (2 up to n = 237 in f32 and 167 in f64, 4 to 335 and 235, 8 to 471 and
+    329); a multiple of 32 column threads that covers CTA 0's columns; the
+    plan's C the one that runs the most lanes at once, grown for few
+    lanes."""
+    f32, f64 = torch.float32, torch.float64
+    assert tqw.cluster_bytes(120, f64, 2) == (241 * 61 + 482) * 8
+    for dtype, ends in ((f32, (237, 335, 471)), (f64, (167, 235, 329))):
+        for size, last in zip((2, 4, 8), ends):
+            assert tqw.cluster_bytes(last, dtype, size) <= 232448 < \
+                tqw.cluster_bytes(last + 1, dtype, size)
+        assert tqw.cluster_fits(ends[-1], dtype) and not tqw.cluster_fits(ends[-1] + 1, dtype)
+        assert tqw.cluster_plan(ends[-1] + 1, dtype) == (0, 0)
+        for n in range(1, ends[-1] + 1):
+            C, T = tqw.cluster_plan(n, dtype)
+            assert tqw.cluster_bytes(n, dtype, C) <= 232448
+            assert T % 32 == 0 and T - 32 < -(-(n + 1) // C) <= T
+            assert all(tqw.cluster_lanes(n, dtype, C) >= tqw.cluster_lanes(n, dtype, c)
+                       for c in (2, 4, 8) if tqw.cluster_bytes(n, dtype, c) <= 232448)
+    # the float64 fleet's [248, 120, 256]: 66, 99 and 99 lanes at once
+    assert [tqw.cluster_lanes(120, f64, c) for c in (2, 4, 8)] == [66, 99, 99]
+    assert tqw.cluster_plan(120, f64, 256) == (4, 32) == tqw.cluster_plan(120, f64)
+    assert tqw.cluster_plan(120, f64, 16) == (8, 32) and tqw.cluster_plan(120, f64, 33) == (4, 32)
+    assert tqw.cluster_plan(471, f32) == (8, 64) and tqw.cluster_plan(237, f32) == (2, 128)
+    assert tqw.cluster_plan(4, torch.float16) == (0, 0) and tqw.cluster_plan(0, f32) == (0, 0)
+
+
 def test_window_order_edges():
     # m = n = 1 has no stage; m = n + 1 and square m = n end where the
     # window's last rows are the system's first
@@ -308,12 +441,18 @@ def test_form_limits():
         assert [tqw.warp_lanes(n, dtype) for n in edges] == [8, 4, 4, 2, 2, 1]
         assert all(tqw.warp_lanes(n, dtype) * tqw.warp_bytes(n, dtype) <= 232448
                    for n in range(1, 170) if tqw.warp_fits(n, dtype))
-    # the dispatcher's four ranges, by n and dtype alone
-    for dtype, ends in ((f32, (8, 29, 169)), (f64, (5, 20, 119))):
-        forms = [tqw.least_squares_form(n, dtype) for n in range(1, 200)]
+    # the dispatcher's five ranges, by n and dtype alone
+    for dtype, ends in ((f32, (8, 29, 169, 471)), (f64, (5, 20, 119, 329))):
+        forms = [tqw.least_squares_form(n, dtype) for n in range(1, 600)]
         want = ["registers"] * ends[0] + ["shared"] * (ends[1] - ends[0]) + \
-            ["warp"] * (ends[2] - ends[1]) + ["global"] * (199 - ends[2])
+            ["warp"] * (ends[2] - ends[1]) + ["cluster"] * (ends[3] - ends[2]) + \
+            ["global"] * (599 - ends[3])
         assert forms == want
+        # the edges: the last n of K2b-w, the first and last of K2b-c, the
+        # first of K2b-g
+        assert [tqw.least_squares_form(n, dtype) for n in (ends[2], ends[2] + 1, ends[3],
+                                                            ends[3] + 1)] == \
+            ["warp", "cluster", "cluster", "global"]
 
 
 def test_shape_and_device_errors():
@@ -355,12 +494,14 @@ def test_kernels_bit_equal_to_twins_on_card(dtype, m, n, B):
 
 def _form_cases():
     """(form, m, n, dtype): each K2b form at the first and last n it takes
-    (the global form at the first n past the warp one's), at square m = n
+    (the global form at the first n past the cluster one's), at square m = n
     and at m = n + 1, and at the NLLS fleet's [34, 2]."""
     cases = []
-    for dtype, reg, shared, warp in ((torch.float32, 8, 29, 169), (torch.float64, 5, 20, 119)):
+    for dtype, reg, shared, warp, cluster in ((torch.float32, 8, 29, 169, 471),
+                                              (torch.float64, 5, 20, 119, 329)):
         for form, ns in (("registers", (1, reg)), ("shared", (reg + 1, shared)),
-                         ("warp", (shared + 1, warp)), ("global", (warp + 1,))):
+                         ("warp", (shared + 1, warp)), ("cluster", (warp + 1, cluster)),
+                         ("global", (cluster + 1,))):
             cases += [(form, m, n, dtype) for n in ns for m in (n, n + 1)]
         cases.append(("registers", 34, 2, dtype))
     return cases
@@ -380,7 +521,8 @@ def test_each_form_bit_equal_to_twin_on_card(form, m, n, dtype):
     # every form that takes n gives the same bits
     takes = {tqw.least_squares_wavefront_registers: tqw.registers_fit,
              tqw.least_squares_wavefront_shared: tqw.shared_fits,
-             tqw.least_squares_wavefront_warp: tqw.warp_fits}
+             tqw.least_squares_wavefront_warp: tqw.warp_fits,
+             tqw.least_squares_wavefront_cluster: tqw.cluster_fits}
     for other in LSTSQ_FORMS:
         if takes.get(other, lambda n, dtype: True)(n, dtype):
             assert torch.equal(other(A, y), x)
@@ -400,6 +542,12 @@ def test_forms_refuse_what_they_do_not_take_on_card():
     A, y = torch.randn(170, 170, 4, device=dev), torch.randn(170, 4, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
         tqw.least_squares_wavefront_warp(A, y)
+    A, y = torch.randn(472, 472, 2, device=dev), torch.randn(472, 2, device=dev)
+    with pytest.raises(ValueError, match="cluster"):
+        tqw.least_squares_wavefront_cluster(A, y)
+    with pytest.raises(ValueError, match="cluster"):
+        tqw.least_squares_wavefront_cluster(A[:400, :400].contiguous(), y[:400].contiguous(),
+                                            size=4)
 
 
 @pytest.mark.gpu
@@ -430,6 +578,29 @@ def test_warp_form_bit_equal_with_every_block_on_card(dtype, m, n, B):
         torch.cuda.synchronize()
         assert tqw.least_squares_wavefront_warp.launches == before + 1
         assert torch.equal(x, twin), lanes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("m,n,B", [(248, 120, 256), (170, 170, 33), (9, 9, 5), (40, 35, 70)])
+def test_cluster_form_bit_equal_with_every_plan_on_card(dtype, m, n, B):
+    """K2b-c on the f64 Chebyshev fleet's [248, 120, 256], at f32's first n,
+    and inside the warp form's range, with every cluster size that holds the
+    ring and 1, 2, 4 and 8 groups of threads: the twin's bits."""
+    dev = _on_card()
+    A, y = (torch.from_numpy(a).to(dev, dtype) for a in _system(14, m, n, B))
+    twin = tqw.least_squares_wavefront_reference(A, y)
+    for size in (2, 4, 8):
+        if tqw.cluster_bytes(n, dtype, size) > 232448:
+            continue
+        for groups in (1, 2, 4, 8):
+            if tqw.cluster_columns(n, size) * groups < 64:
+                continue  # the back-substitution takes two warps
+            before = tqw.least_squares_wavefront_cluster.launches
+            x = tqw.least_squares_wavefront_cluster(A, y, size=size, _groups=groups)
+            torch.cuda.synchronize()
+            assert tqw.least_squares_wavefront_cluster.launches == before + 1
+            assert torch.equal(x, twin), (size, groups)
 
 
 def test_backward_branches_find_nested_loops():

@@ -1,8 +1,9 @@
 """Kernel K3 of nlsolver_torch (``ops.smallchol``): the batch-minor
 Cholesky twin against the JAX package's ``solve_spd_batchminor`` and its
-Pallas kernel in interpret mode, the standard-layout solves, a plain-tensor
-emulation of K3-w's order (right-looking, the forward solve as one more
-row, the back solve row by row) bit-equal to the twin, the dispatcher's
+Pallas kernel in interpret mode, the standard-layout solves, plain-tensor
+emulations of K3-w's order (right-looking, the forward solve as one more
+row, the back solve row by row) and of K3-c's (the rows split over a
+cluster's CTAs) bit-equal to the twin, the dispatcher's
 plan, the shapes refused, and each CUDA form against the twin and
 ``fit_fleet``'s default backend given numpy start points (on a card
 only).
@@ -68,7 +69,7 @@ def test_standard_layout_solve_matches_jax():
 
 
 FORMS = {"registers": tsc.solve_spd_registers, "warp": tsc.solve_spd_warp,
-         "global": tsc.solve_spd_batchminor_global}
+         "cluster": tsc.solve_spd_cluster, "global": tsc.solve_spd_batchminor_global}
 
 
 def _launches():
@@ -131,6 +132,129 @@ def test_warp_order_bit_equal_to_twin(n, dtype):
         1e-3 if dtype == torch.float32 else 1e-10)
 
 
+def emulate_cluster(A, b, C):
+    """K3-c's order on plain tensors: rows 0 .. n of the triangle (b as row
+    n), row i held by CTA i % C alone (every other CTA's copy of it is NaN,
+    so a read of a row a CTA does not hold shows), each CTA with its own
+    copy of the diagonal and its own three column rows.  Column 0 is
+    divided first; at step j every CTA forms column j + 1 a step ahead
+    (step j's product off the column-(j + 1) entries of its rows past j +
+    1, the square root of its diagonal's entry less its own product, the
+    quotients stored into column row (j + 1) % 3 of every CTA), then
+    subtracts col[i] col[l] of step j from the rest of its rows, j + 1 < l
+    <= min(i, n - 1), and from its diagonal past j + 1.  The back solve
+    gathers L[k][i] and z[i] from the CTAs that hold them, forms the
+    products with x, and subtracts them in ascending k."""
+    n, _, B = A.shape
+    S = [A.new_full((n + 1, n + 1, B), float("nan")) for _ in range(C)]
+    for i in range(n + 1):
+        S[i % C][i, :n] = A[i] if i < n else b
+    diag = [A[torch.arange(n), torch.arange(n)].clone() for _ in range(C)]
+    col = [A.new_full((3, n + 1, B), float("nan")) for _ in range(C)]
+
+    def push(j, i, v):
+        for buf in col:
+            buf[j % 3, i] = v
+
+    for k in range(C):
+        d = torch.sqrt(diag[k][0])
+        for i in range(k, n + 1, C):
+            if i > 0:
+                S[k][i, 0] = S[k][i, 0] / d
+                push(0, i, S[k][i, 0])
+        if k == 0:
+            S[k][0, 0] = d
+    for j in range(n):
+        for k in range(C):
+            cj = col[k][j % 3]
+            if j + 1 < n:
+                d = torch.sqrt(diag[k][j + 1] - cj[j + 1] * cj[j + 1])
+                for i in range(k, n + 1, C):
+                    if i > j + 1:
+                        S[k][i, j + 1] = (S[k][i, j + 1] - cj[i] * cj[j + 1]) / d
+                        push(j + 1, i, S[k][i, j + 1])
+                if (j + 1) % C == k:
+                    S[k][j + 1, j + 1] = d
+        for k in range(C):
+            cj = col[k][j % 3]
+            for i in range(k, n + 1, C):
+                if i > j + 1:
+                    end = min(i, n - 1)
+                    S[k][i, j + 2:end + 1] = S[k][i, j + 2:end + 1] - cj[i] * cj[j + 2:end + 1]
+            diag[k][j + 2:] = diag[k][j + 2:] - cj[j + 2:n] * cj[j + 2:n]
+    x = [None] * n
+    for i in reversed(range(n)):
+        g = {k: S[k % C][k, i] for k in range(i, n + 1)}
+        acc = g[n]
+        for k in range(i + 1, n):
+            acc = acc - g[k] * x[k]
+        x[i] = acc / g[i]
+    return torch.stack(x, dim=0)
+
+
+@pytest.mark.parametrize("C", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 3, 8, 13, 30])
+def test_cluster_order_bit_equal_to_twin(n, dtype, C):
+    """K3-c's order with clusters of 2 and 4 (n < C leaves CTAs without a
+    row) is the twin's bit for bit, and it solves the systems."""
+    A, b = (torch.from_numpy(a).to(dtype) for a in _spd_batchminor(40 + n, n, 17))
+    got = emulate_cluster(A, b, C)
+    assert torch.equal(got, tsc._chol_solve_batchminor(A, b))
+    assert float((torch.einsum("ijb,jb->ib", A, got) - b).abs().max()) < (
+        1e-3 if dtype == torch.float32 else 1e-10)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 9, 30])
+def test_right_looking_reference_bit_equal_to_twin(n, dtype):
+    """The reference that holds the large forms on the card where the
+    twin's eager ops would take minutes: the twin's bits."""
+    A, b = (torch.from_numpy(a).to(dtype) for a in _spd_batchminor(60 + n, n, 9))
+    assert torch.equal(tsc.chol_solve_right_looking(A, b), tsc._chol_solve_batchminor(A, b))
+
+
+@pytest.mark.parametrize("C", [2, 4])
+def test_cluster_order_matches_jax_pallas_interpret(C):
+    from nlsolver_tpu.ops.smallchol import solve_spd_batched_pallas
+
+    A, b = _spd_batchminor(15, 6, 128, np.float32)
+    A_std, b_std = np.ascontiguousarray(A.transpose(2, 0, 1)), np.ascontiguousarray(b.T)
+    want = np.asarray(solve_spd_batched_pallas(A_std, b_std, tile=128, interpret=True))
+    got = emulate_cluster(torch.from_numpy(A), torch.from_numpy(b), C)
+    np.testing.assert_allclose(got.numpy().T, want, atol=1e-4)
+
+
+def test_cluster_form_range():
+    """K3-c's CTA holds its packed rows, the diagonal and three column rows
+    within a block's shared memory: 2, 4 or 8 CTAs, n <= 927 in f32 and 645
+    in f64; the plan takes the size that runs the most lanes at once, and
+    with few lanes the cluster grows while twice as many CTAs still find an
+    SM each."""
+    f32, f64 = torch.float32, torch.float64
+    assert tsc.cluster_words(240, 2) == sum(range(1, 241, 2)) + 240
+    assert tsc.cluster_words(3, 4) == 3 and tsc.cluster_words(1, 8) == 1
+    for dtype, ends in ((f32, (472, 663, 927)), (f64, (331, 463, 645))):
+        for size, last in zip((2, 4, 8), ends):
+            assert tsc.cluster_bytes(last, dtype, size) <= tsc.MAX_DYNAMIC_SMEM < \
+                tsc.cluster_bytes(last + 1, dtype, size)
+        assert not tsc.cluster_fits(ends[-1] + 1, dtype) and tsc.cluster_fits(ends[-1], dtype)
+        for n in range(1, ends[-1] + 1, 7):
+            C = tsc.cluster_plan(n, dtype)
+            assert tsc.cluster_bytes(n, dtype, C) <= tsc.MAX_DYNAMIC_SMEM
+            assert all(tsc.cluster_lanes(n, dtype, C) >= tsc.cluster_lanes(n, dtype, c)
+                       for c in (2, 4, 8) if tsc.cluster_bytes(n, dtype, c) <= tsc.MAX_DYNAMIC_SMEM)
+    # 256 lanes at n = 239 and 337 in f64: 66, 99, 99 lanes at once and 0, 33, 49
+    assert [tsc.cluster_lanes(239, f64, c) for c in (2, 4, 8)] == [66, 99, 99]
+    assert [tsc.cluster_lanes(337, f64, c) for c in (4, 8)] == [33, 49]
+    assert tsc.cluster_plan(239, f64, 256) == 4 and tsc.cluster_plan(337, f64, 256) == 8
+    # the path's [240, 240, 16] in f64: 16 clusters of 8 on 132 SMs
+    assert [tsc.cluster_plan(240, f64, lanes) for lanes in (16, 17, 33, 66, 67, 4096)] == \
+        [8, 4, 4, 2, 4, 4]
+    assert tsc.cluster_plan(500, f64, 16) == 8 and tsc.cluster_plan(650, f64, 16) == 0
+    assert tsc.cluster_plan(4, torch.float16) == 0 and tsc.cluster_plan(0, f32) == 0
+
+
 def test_kernel_ranges_match_the_source():
     """The register form's most n in csrc/smallchol.cu is the module's."""
     import re
@@ -159,11 +283,13 @@ def test_warp_form_range():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_plan_takes_each_form_in_its_range(dtype):
-    """The first form that takes n: K3-r, then K3-w, then K3-g."""
+    """The first form that takes n: K3-r, then K3-w, then K3-c, then K3-g."""
     reg = tsc.REGISTER_MAX_N[dtype]
     warp = max(n for n in range(1, 400) if tsc.warp_fits(n, dtype))
+    cluster = max(n for n in range(1, 1000) if tsc.cluster_fits(n, dtype))
     want = {1: "registers", 2: "registers", reg: "registers", reg + 1: "warp", 30: "warp",
-            warp: "warp", warp + 1: "global", 600: "global"}
+            warp: "warp", warp + 1: "cluster", cluster: "cluster", cluster + 1: "global",
+            1200: "global"}
     assert {n: tsc.plan(n, dtype) for n in want} == want
     assert all(tsc.plan(n, dtype) == ("registers" if tsc.registers_fit(n, dtype) else "warp")
                for n in range(1, warp + 1))
@@ -239,8 +365,49 @@ def test_forms_refuse_what_they_do_not_take_on_card():
             tsc.solve_spd_warp(A, b)
         before = _launches()
         x = tsc.solve_spd_batchminor(A, b)
+        assert _launches()["cluster"] == before["cluster"] + 1
+        assert torch.equal(x, b)
+        n = max(k for k in range(1, 1000) if tsc.cluster_fits(k, dtype)) + 1
+        A, b = torch.eye(n, device=dev, dtype=dtype)[:, :, None], torch.ones(n, 1, device=dev,
+                                                                              dtype=dtype)
+        with pytest.raises(ValueError, match="cluster"):
+            tsc.solve_spd_cluster(A, b)
+        before = _launches()
+        x = tsc.solve_spd_batchminor(A, b)
         assert _launches()["global"] == before["global"] + 1
         assert torch.equal(x, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, B, dtype", [(240, 16, torch.float64), (239, 33, torch.float64),
+                                         (338, 5, torch.float32), (40, 70, torch.float32),
+                                         (3, 9, torch.float64)])
+def test_cluster_form_bit_equal_with_every_size_on_card(n, B, dtype):
+    """K3-c at its path's [240, 240, 16] f64, at the first n of its range in
+    both dtypes and below it, with every cluster size that holds the rows and
+    64, 256 and 512 threads a CTA: the twin's bits."""
+    dev = _on_card()
+    A, b = (torch.from_numpy(a).to(dev, dtype) for a in _spd_batchminor(n + 7, n, B))
+    twin = tsc._chol_solve_batchminor(A, b)
+    for size in tsc.CLUSTER_SIZES:
+        if tsc.cluster_bytes(n, dtype, size) > tsc.MAX_DYNAMIC_SMEM:
+            continue
+        for threads in (64, 256, 512):
+            before = tsc.solve_spd_cluster.launches
+            x = tsc.solve_spd_cluster(A, b, size=size, _threads=threads)
+            torch.cuda.synchronize()
+            assert tsc.solve_spd_cluster.launches == before + 1
+            assert torch.equal(x, twin), (size, threads)
+
+
+@pytest.mark.gpu
+def test_right_looking_reference_bit_equal_to_twin_on_card():
+    """At K3-c's path, [240, 240, 16] in f64, the reference that holds it in
+    the smoke run gives the twin's bits on the card too (the twin's eager
+    ops take most of a minute there)."""
+    dev = _on_card()
+    A, b = (torch.from_numpy(a).to(dev) for a in _spd_batchminor(247, 240, 16))
+    assert torch.equal(tsc.chol_solve_right_looking(A, b), tsc._chol_solve_batchminor(A, b))
 
 
 @pytest.mark.gpu
