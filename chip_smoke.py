@@ -10,8 +10,8 @@ Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc over nlsolver_torch/csrc for sm_90a, one process per source;
      no register kernel of K5, K2b or K3 (one per n and dtype each), and no
-     kernel of K2b's warp form or of the cluster forms of K2b and K3, may
-     spill or keep a stack frame; the issue
+     kernel of K2b's warp form or of the cluster and distributed forms of K2b
+     and K3, may spill or keep a stack frame; the issue
      floors of K1's staged form, K2b's register and warp forms, K2a's warp
      form, K4b-c and K3's register and warp forms from their SASS;
   3. K1 in both forms against its twin on injected draws, B=8192, n=10,
@@ -29,30 +29,38 @@ Phases, each fatal on failure:
   6. DE timing: the fleet for 200 generations through K1 and through the
      plain step (median of 5 after 2 warm-ups), and each form of K1 alone
      behind a device sleep against its twin from CUDA events;
-  7. K3 (batch-minor Cholesky solve) in its four forms (registers, a warp
-     a lane, a cluster a lane, device memory) bit-equal to its twin on SPD
+  7. K3 (batch-minor Cholesky solve) in its five forms (registers, a warp
+     a lane, a cluster a lane, a lane over the whole card, device memory)
+     bit-equal to its twin on SPD
      systems by direct call, each form that takes n, at n in {1, 2, 8, 12,
      16, 30, 33} at B=16384 in f32 and n=8 in f64, at the shapes phase 10
      times ([2, 2, 262144], [12, 12, 16384], [30, 30, 4096]) and on the
      first damped normal equations of the exp fleet and the two Chebyshev
      fleets of phase 9; the dispatcher's choice at each edge of K3-r's,
-     K3-w's and K3-c's ranges in f32 and f64, its x bit-equal to the twin
-     (past n = 64 to chol_solve_right_looking, the twin's operations in its
-     order as whole blocks); its path past K3-w's range, [240, 240, 16] in
-     f64 through K3-c (clusters of 8), launches counted, x bit-equal to
+     K3-w's and K3-c's ranges and at the first n of K3-d's in f32 and f64,
+     its x bit-equal to the twin (past n = 64 to chol_solve_right_looking,
+     the twin's operations in its order as whole blocks), and K3-d's last n
+     by the plan alone; its path past K3-w's range, [240, 240, 16] in f64
+     through K3-c (clusters of 8), launches counted, x bit-equal to
      chol_solve_right_looking and the residual |Ax - b| / |b| below 1e-12;
-     past K3-c's range, [654, 654, 2] in f64 through K3-g, counted, bit-equal, timed once; a
-     non-contiguous and an f16 input refused;
-  8. K2b (wavefront least squares) in its five forms (registers, shared
-     memory, a warp a lane, a cluster a lane, device memory) bit-equal to
+     past K3-c's range, [646, 646, 2] in f64 through K3-d (66 CTAs a lane),
+     counted, bit-equal; K3-g, past K3-d's range, by a direct call on the
+     same systems, counted, bit-equal, timed once; a non-contiguous and an
+     f16 input refused;
+  8. K2b (wavefront least squares) in its six forms (registers, shared
+     memory, a warp a lane, a cluster a lane, a lane over the whole card,
+     device memory) bit-equal to
      its twin on the NLLS fleet's augmented system [J; sqrt(lam) I] at [34,
      2, 262144] in f32 and f64, the shared, warp, cluster and device-memory
      forms on the Chebyshev fleets' first systems, [44, 12, 16384], [78,
      30, 4096] and [248, 120, 256] in f64, and on random systems, each form
      but the device-memory one at the first and last n it takes, square and
      with one row more, and the dispatcher's choice at each boundary; past
-     the cluster form's range, [331, 330, 2] in f64 through the dispatcher
-     to the device-memory form, counted, bit-equal, timed once;
+     the cluster form's range, [330, 330, 2] in f64 through the dispatcher
+     to the distributed form (66 CTAs a lane), counted, bit-equal, and its
+     first n in f32 the same way, its last n by the dispatcher's choice
+     alone; the device-memory form, past the distributed form's range, by a
+     direct call on the same f64 systems, counted, bit-equal, timed once;
      K2a (wavefront QR) in its warp form (K2a-w) and its device-memory form
      bit-equal to its twin at [16, 16, 4096] and [32, 8, 4096] with Q, and
      a factorization; K2a-w at its last square shape and its last with one
@@ -77,7 +85,9 @@ Phases, each fatal on failure:
      K3-c at [240, 240, 16] f64, K3-g beside each) alone against their
      twins from CUDA events, beside the one PyTorch call that computes the
      same function (torch.linalg.qr, torch.linalg.lstsq, Cholesky factor
-     and solve);
+     and solve); K2b-g at [330, 330, 2] f64 and K3-g at [646, 646, 2] f64
+     (the first n past the cluster forms' ranges), and beside each the form
+     that takes those shapes now, K2b-d and K3-d;
  11. K4a (resident rank-2 update + direction) against its twin at
      [16, 16, 65536] f32 with a third of the lanes on reset and a fifth at
      rho = 0, at n in {1, 2, 8, 33} with a ragged B, and once in f64; K4b-c
@@ -164,7 +174,8 @@ WIDE_K4B_B, WIDE_K4B_N = 256, 225  # a wide BFGS fleet past K4b-c's range in f32
 CHEB_SHARED = (12, 32, 16384)  # Chebyshev NLLS fleets: coefficients, points, fits; through
 CHEB_WARP = (30, 48, 4096)     # K2b's shared-memory and warp forms (float32), and past the
 CHEB_CLUSTER = (120, 128, 256)  # warp form's range in float64 through its cluster form
-K3G_N, K3G_B = 240, 16         # an SPD solve past K3-w's range in float64 (K3-g)
+K3G_N, K3G_B = 240, 16         # an SPD solve past K3-w's range in float64 (K3-c)
+K3D_N, K2BD_N = 646, 330       # the first n past K3-c's and K2b-c's ranges in float64 (K3-d, K2b-d)
 CMA_B, CMA_N, CMA_GENS = 65536, 16, 50   # the CMA-ES fleet: strategies, dimensions, generations
 CMA_WIDE_B = 4096              # the wide CMA-ES fleets: n = 56 and n = 64 (K5a)
 CMA_EDGE_N, CMA_EDGE_B = 170, 256  # the first n that K5a refuses in f32 (K5c), the fleet's B there
@@ -513,9 +524,11 @@ def phase_build():
              "least_squares_warp_kernel": ("K2b-w", "IfLi1E"),            # <float, a word a row>
              "chol_registers_kernel": ("K3-r", "IfLi2E"),                 # <float, the fleet's n>
              "least_squares_cluster_kernel": ("K2b-c", "IdE"),            # <double>, its fleet's
-             "chol_cluster_kernel": ("K3-c", "IdE")}                      # <double>, its path's
+             "chol_cluster_kernel": ("K3-c", "IdE"),                      # <double>, its path's
+             "least_squares_distributed_kernel": ("K2b-d", "IdE"),        # <double>, its path's
+             "chol_distributed_kernel": ("K3-d", "IdE")}                  # <double>, its path's
     used, main, local = {"K5r": [], "K2b": [], "K2b-w": [], "K3-r": [], "K2b-c": [],
-                         "K3-c": []}, {}, []
+                         "K3-c": [], "K2b-d": [], "K3-d": []}, {}, []
     for short, spill, regs in entries:
         kind = next((v for k, v in kinds.items() if short.startswith(k)), None)
         count = int(regs.split("Used")[1].split()[0]) if "Used" in regs else -1
@@ -529,9 +542,10 @@ def phase_build():
         if "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" not in spill:
             local.append(f"{short}: {spill}")
     if out:
-        check(not local, "register kernels of K5, K2b or K3, or K2b's warp or cluster form or "
-              "K3's cluster form, use local memory: " + "; ".join(local))
-        for kid in ("K2b-c", "K3-c"):
+        check(not local, "register kernels of K5, K2b or K3, or K2b's warp, cluster or "
+              "distributed form or K3's cluster or distributed form, use local memory: "
+              + "; ".join(local))
+        for kid in ("K2b-c", "K3-c", "K2b-d", "K3-d"):
             check(len(used[kid]) == 2, f"ptxas reported {len(used[kid])} kernels of {kid}, "
                   "expected one per dtype")
             log(f"[2] ptxas: {kid}, {len(used[kid])} kernels (float32, float64): "
@@ -813,6 +827,18 @@ def phase_timing(torch, dev):
     return alone
 
 
+def last_fitting(fits, n):
+    """The last order that ``fits`` takes, from ``n`` on, which it takes (it
+    takes every order up to its last), by bisection."""
+    hi = 2 * n
+    while fits(hi):
+        n, hi = hi, 2 * hi
+    while hi - n > 1:
+        mid = (n + hi) // 2
+        n, hi = (mid, hi) if fits(mid) else (n, mid)
+    return n
+
+
 def max_diff(a, b):
     return float((a - b).abs().max()) if a.numel() else 0.0
 
@@ -821,17 +847,19 @@ def spd_forms():
     from nlsolver_torch.ops import smallchol as tsc
 
     return {"K3-r": tsc.solve_spd_registers, "K3-w": tsc.solve_spd_warp,
-            "K3-c": tsc.solve_spd_cluster, "K3-g": tsc.solve_spd_batchminor_global}
+            "K3-c": tsc.solve_spd_cluster, "K3-d": tsc.solve_spd_distributed,
+            "K3-g": tsc.solve_spd_batchminor_global}
 
 
-K3_OF_PLAN = {"registers": "K3-r", "warp": "K3-w", "cluster": "K3-c", "global": "K3-g"}
+K3_OF_PLAN = {"registers": "K3-r", "warp": "K3-w", "cluster": "K3-c", "distributed": "K3-d",
+              "global": "K3-g"}
 
 
 def spd_takes(kid, n, dtype):
     from nlsolver_torch.ops import smallchol as tsc
 
-    return {"K3-r": tsc.registers_fit, "K3-w": tsc.warp_fits,
-            "K3-c": tsc.cluster_fits}.get(kid, lambda n, d: True)(n, dtype)
+    return {"K3-r": tsc.registers_fit, "K3-w": tsc.warp_fits, "K3-c": tsc.cluster_fits,
+            "K3-d": tsc.distributed_fits}.get(kid, lambda n, d: True)(n, dtype)
 
 
 def spd_case(torch, dev, n, b, dtype=None, seed=7):
@@ -858,10 +886,11 @@ def normal_system(torch, dev, scenario, n, X0_value):
 
 def phase_smallchol(torch, dev):
     """K3's forms bit for bit against the twin, the dispatcher's choice at
-    each boundary, its path past K3-w's range (K3-c) and past K3-c's (K3-g),
-    refusals.  Returns the largest difference from the twin per form, the
-    launches of K3-c and K3-g on their paths and the time in ms of the
-    twin's order (chol_solve_right_looking) at K3-c's path."""
+    each boundary, its path past K3-w's range (K3-c) and past K3-c's (K3-d),
+    K3-g by a direct call there, refusals.  Returns the largest difference
+    from the twin per form, the launches of K3-c, K3-d and K3-g on their
+    paths and the times in ms of the twin's order (chol_solve_right_looking)
+    at K3-c's and K3-d's paths."""
     from nlsolver_torch.benches import chebyshev_scenario, expfit_scenario
     from nlsolver_torch.ops import smallchol as tsc
 
@@ -932,20 +961,23 @@ def phase_smallchol(torch, dev):
         reg = tsc.REGISTER_MAX_N[dtype]
         warp = max(n for n in range(1, 400) if tsc.warp_fits(n, dtype))
         last = max(n for n in range(1, 1000) if tsc.cluster_fits(n, dtype))
+        far = last_fitting(lambda n: tsc.distributed_fits(n, dtype), last + 1)
         for n, kid in ((1, "K3-r"), (reg, "K3-r"), (reg + 1, "K3-w")):
             A, rhs = spd_case(torch, dev, n, 999, dtype)
             hold([kid], A, rhs, f"[{n}, {n}, 999] {kind}")
             dispatch(kid, A, rhs, f"[{n}, {n}, 999] {kind}")
-        # the ends of K3-w's and K3-c's ranges on a few lanes (clusters of
-        # 8 there)
-        for n, kid in ((warp, "K3-w"), (warp + 1, "K3-c"), (last, "K3-c")):
+        # the ends of K3-w's and K3-c's ranges and K3-d's first n on a few
+        # lanes (clusters of 8 there, 44 CTAs a lane past them)
+        for n, kid in ((warp, "K3-w"), (warp + 1, "K3-c"), (last, "K3-c"), (last + 1, "K3-d")):
             A, rhs = spd_case(torch, dev, n, 3, dtype)
             _, _, _, ms = dispatch(kid, A, rhs, f"[{n}, {n}, 3] {kind}")
             log(f"[7] solve_spd_batchminor([{n}, {n}, 3] {kind}) through {kid}: bit-equal to "
                 f"the twin, {ms:.3f} ms")
-        check(tsc.plan(last + 1, dtype) == "global", f"the plan does not end K3-c at n={last}")
+        check(tsc.plan(far, dtype) == "distributed" and tsc.plan(far + 1, dtype) == "global",
+              f"the plan does not end K3-d at n={far} in {kind}")
         log(f"[7] the dispatcher takes K3-r for n <= {reg}, K3-w for {reg + 1} <= n <= {warp}, "
-            f"K3-c for {warp + 1} <= n <= {last}, K3-g beyond ({kind}), each bit-equal to the twin")
+            f"K3-c for {warp + 1} <= n <= {last}, K3-d for {last + 1} <= n <= {far} (by the "
+            f"plan past {last + 1}), K3-g beyond ({kind}), each bit-equal to the twin")
     # K3-c's path: the dispatcher past K3-w's range in float64, counted and
     # held bit for bit against the twin's order on the card (the twin's
     # square roots taken there: the host's float64 torch.sqrt may be off by
@@ -959,13 +991,32 @@ def phase_smallchol(torch, dev):
         f"|Ax-b|/|b| {res:.3e}")
     check(bool(torch.isfinite(x).all()) and res < 1e-12, "K3-c's residual above 1e-12")
     launches = {"K3-c": counts["K3-c"]}
-    # K3-g's path: the first n past K3-c's range in float64, on 2 lanes,
-    # through the dispatcher, timed once
-    n = max(k for k in range(1, 1000) if tsc.cluster_fits(k, torch.float64)) + 1
+    # K3-d's path: the first n past K3-c's range in float64, on 2 lanes,
+    # through the dispatcher
+    n = K3D_N
+    check(tsc.cluster_fits(n - 1, torch.float64) and not tsc.cluster_fits(n, torch.float64),
+          f"K3-c's range in float64 does not end at n={n - 1}")
     A, rhs = spd_case(torch, dev, n, 2, torch.float64)
-    _, counts, _, ms = dispatch("K3-g", A, rhs, f"[{n}, {n}, 2] float64")
-    log(f"[7] solve_spd_batchminor([{n}, {n}, 2] float64) through K3-g: bit-equal to the twin, "
-        f"{ms:.3f} ms")
+    x, counts, far_twin_ms, ms = dispatch("K3-d", A, rhs, f"[{n}, {n}, 2] float64")
+    log(f"[7] solve_spd_batchminor([{n}, {n}, 2] float64): launches {counts}; through K3-d ("
+        f"{tsc.distributed_plan(n, torch.float64, 2)} CTAs a lane) bit-equal to the twin's order "
+        f"(chol_solve_right_looking, {far_twin_ms:.0f} ms), {ms:.3f} ms")
+    launches["K3-d"] = counts["K3-d"]
+    # K3-g, the dispatcher's past K3-d's range (minutes a lane there), by a
+    # direct call on the same systems, counted, timed once
+    reset_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    xg = tsc.solve_spd_batchminor_global(A, rhs)
+    end.record()
+    torch.cuda.synchronize()
+    counts = {k: f.launches for k, f in forms.items()}
+    check(counts == {k: int(k == "K3-g") for k in forms},
+          f"solve_spd_batchminor_global([{n}, {n}, 2] float64) launched {counts}")
+    check(torch.equal(xg, x), f"K3-g differs from the twin at [{n}, {n}, 2] float64: "
+          f"max |diff| {max_diff(xg, x):.3e}")
+    log(f"[7] solve_spd_batchminor_global([{n}, {n}, 2] float64) (K3-g): bit-equal to the "
+        f"twin, {start.elapsed_time(end):.3f} ms")
     launches["K3-g"] = counts["K3-g"]
     A32 = torch.eye(3, device=dev).reshape(3, 3, 1).expand(3, 3, 64).contiguous()
     for what, args in (("non-contiguous", (A32.transpose(0, 1), torch.ones(3, 64, device=dev))),
@@ -976,7 +1027,7 @@ def phase_smallchol(torch, dev):
             log(f"[7] K3 refuses a {what} input: {e}")
         else:
             check(False, f"K3 took a {what} input")
-    return worst, launches, twin_ms
+    return worst, launches, {"K3-c": twin_ms, "K3-d": far_twin_ms}
 
 
 def first_system(torch, dev, scenario, n, X0_value):
@@ -1013,6 +1064,7 @@ def lstsq_forms():
             "K2b-s": tqw.least_squares_wavefront_shared,
             "K2b-w": tqw.least_squares_wavefront_warp,
             "K2b-c": tqw.least_squares_wavefront_cluster,
+            "K2b-d": tqw.least_squares_wavefront_distributed,
             "K2b-g": tqw.least_squares_wavefront_global}
 
 
@@ -1020,7 +1072,8 @@ def lstsq_takes(kid, n, dtype):
     from nlsolver_torch.ops import qr_wavefront as tqw
 
     return {"K2b-r": tqw.registers_fit, "K2b-s": tqw.shared_fits, "K2b-w": tqw.warp_fits,
-            "K2b-c": tqw.cluster_fits}.get(kid, lambda n, d: True)(n, dtype)
+            "K2b-c": tqw.cluster_fits,
+            "K2b-d": tqw.distributed_fits}.get(kid, lambda n, d: True)(n, dtype)
 
 
 def phase_qr(torch, dev):
@@ -1085,31 +1138,50 @@ def phase_qr(torch, dev):
                     tqw.least_squares_wavefront_kernel(A, y)
                     check(forms[kid].launches == before + 1,
                           f"the dispatcher did not take {kid} at n={n} in {dtype}")
-        check(tqw.least_squares_form(last + 1, dtype) == "global",
-              f"the dispatcher does not end K2b-c at n={last} in {dtype}")
+        far = last_fitting(lambda n: tqw.distributed_fits(n, dtype), last + 1)
+        check(tqw.least_squares_form(far, dtype) == "distributed"
+              and tqw.least_squares_form(far + 1, dtype) == "global",
+              f"the dispatcher does not end K2b-d at n={far} in {dtype}")
         log(f"[8] the dispatcher takes K2b-r for n <= {reg}, K2b-s for {reg + 1} <= n <= {shared}, "
-            f"K2b-w for {shared + 1} <= n <= {warp}, K2b-c for {warp + 1} <= n <= {last}, K2b-g "
-            f"beyond ({str(dtype)[6:]})")
-    # K2b-g's path: the first n past K2b-c's range in float64, square, on 2
-    # lanes, through the dispatcher, timed once (a thread a lane: seconds)
-    n = max(k for k in range(1, 512) if tqw.cluster_fits(k, torch.float64)) + 1
-    A, y = (torch.randn((n, n, 2), generator=g, device=dev, dtype=torch.float64),
-            torch.randn((n, 2), generator=g, device=dev, dtype=torch.float64))
-    twin = tqw.least_squares_wavefront_reference(A, y)
-    reset_counts()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    x = tqw.least_squares_wavefront_kernel(A, y)
-    end.record()
-    torch.cuda.synchronize()
-    counts = {k: f.launches for k, f in forms.items()}
-    check(counts == {k: int(k == "K2b-g") for k in forms},
-          f"least_squares_wavefront_kernel([{n}, {n}, 2] float64) launched {counts}")
-    check(torch.equal(x, twin), f"K2b-g differs from the twin at [{n}, {n}, 2] float64: "
-          f"max |diff| {max_diff(x, twin):.3e}")
-    log(f"[8] least_squares_wavefront_kernel([{n}, {n}, 2] float64) through K2b-g: bit-equal to "
-        f"the twin, {start.elapsed_time(end):.3f} ms")
-    k2bg_launches = counts["K2b-g"]
+            f"K2b-w for {shared + 1} <= n <= {warp}, K2b-c for {warp + 1} <= n <= {last}, K2b-d "
+            f"for {last + 1} <= n <= {far}, K2b-g beyond ({str(dtype)[6:]})")
+
+    def path(A, y, twin, kid, label):
+        """One counted launch of ``kid`` on (A, y) through the dispatcher
+        (K2b-g: by a direct call, minutes a lane at its first n), bit for
+        bit against the twin's ``twin``; its launches."""
+        reset_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        x = (forms[kid] if kid == "K2b-g" else tqw.least_squares_wavefront_kernel)(A, y)
+        end.record()
+        torch.cuda.synchronize()
+        counts = {k: f.launches for k, f in forms.items()}
+        check(counts == {k: int(k == kid) for k in forms}, f"{kid} {label}: launched {counts}")
+        check(torch.equal(x, twin), f"{kid} differs from the twin at {label}: "
+              f"max |diff| {max_diff(x, twin):.3e}")
+        log(f"[8] {kid} {label}: launches {counts}, bit-equal to the twin, "
+            f"{start.elapsed_time(end):.3f} ms")
+        return counts[kid]
+
+    # K2b-d's path: the first n past K2b-c's range, square, on 2 lanes,
+    # through the dispatcher, in float64 and in float32; K2b-g past K2b-d's
+    # range, by a direct call on the float64 systems, timed once (a thread a
+    # lane: seconds)
+    path_launches = {}
+    for dtype, kids in ((torch.float32, ("K2b-d",)), (torch.float64, ("K2b-d", "K2b-g"))):
+        n = max(k for k in range(1, 512) if tqw.cluster_fits(k, dtype)) + 1
+        check(dtype == torch.float32 or n == K2BD_N, f"K2b-c's range in float64 ends at n={n - 1}")
+        A, y = (torch.randn((n, n, 2), generator=g, device=dev, dtype=dtype),
+                torch.randn((n, 2), generator=g, device=dev, dtype=dtype))
+        t0 = time.perf_counter()
+        twin = tqw.least_squares_wavefront_reference(A, y)
+        torch.cuda.synchronize()
+        twin_ms = (time.perf_counter() - t0) * 1e3
+        for kid in kids:
+            path_launches[kid] = path(A, y, twin, kid, f"[{n}, {n}, 2] {str(dtype)[6:]}" + (
+                f" ({tqw.distributed_plan(n, dtype, 2)} CTAs a lane)" if kid == "K2b-d" else ""))
+    log(f"[8] the twin at [{n}, {n}, 2] float64: {twin_ms:.0f} ms")
     # K2a in both forms, bit for bit against the twin, and a factorization
     qr_forms = qr_forms_of()
 
@@ -1176,8 +1248,8 @@ def phase_qr(torch, dev):
             f"linalg.qr(A[{m}, {n}, {b}], method='pallas') does not reconstruct A")
         log(f"[8] linalg.qr(A[{m}, {n}, {b}], method='pallas'): launches {counts}")
         launches[kid] = counts[kid]
-    launches["K2b-g"] = k2bg_launches
-    return worst, launches
+    launches.update(path_launches)
+    return worst, launches, twin_ms
 
 
 def qr_forms_of():
@@ -1197,9 +1269,10 @@ def reset_counts():
                qr_wavefront.least_squares_wavefront_shared,
                qr_wavefront.least_squares_wavefront_warp,
                qr_wavefront.least_squares_wavefront_cluster,
+               qr_wavefront.least_squares_wavefront_distributed,
                qr_wavefront.least_squares_wavefront_global, smallchol.solve_spd_registers,
                smallchol.solve_spd_warp, smallchol.solve_spd_cluster,
-               smallchol.solve_spd_batchminor_global,
+               smallchol.solve_spd_distributed, smallchol.solve_spd_batchminor_global,
                rank2.rank2_direction_batchminor_resident, rank2.rank2_direction_batchminor_cluster,
                rank2.rank2_direction_batchminor_rowsplit, rank2.rank2_update_batched_kernel):
         fn.launches = 0
@@ -1333,11 +1406,12 @@ def abba(torch, kern, kreps, plain, preps, warmup=3):
     return (min(k1, k2), min(p1, p2)), (k1, k2, p1, p2)
 
 
-def phase_nlls_timing(torch, dev, spd_twin_ms):
+def phase_nlls_timing(torch, dev, spd_twin_ms, lstsq_twin_ms):
     """NLLS fleets per backend, and K2a, K2b and K3 alone against their
-    twins and library calls; ``spd_twin_ms`` is the time at K3-c's path of
-    the twin's order as whole trailing blocks (chol_solve_right_looking),
-    taken in phase 7."""
+    twins and library calls; ``spd_twin_ms`` holds the times at K3-c's and
+    K3-d's paths of the twin's order as whole trailing blocks
+    (chol_solve_right_looking), taken in phase 7, ``lstsq_twin_ms`` the
+    twin's at K2b-d's path, taken in phase 8."""
     from nlsolver_torch.benches import bench_nlls_fleet, device_ms
     from nlsolver_torch.ops import qr_wavefront as tqw
     from nlsolver_torch.ops import smallchol as tsc
@@ -1368,11 +1442,11 @@ def phase_nlls_timing(torch, dev, spd_twin_ms):
                 3 if n > 8 else 5,
                 lambda: torch.cholesky_solve(bl, torch.linalg.cholesky_ex(Al).L))
 
-    def lstsq_case(kid, A, y, kreps, preps=3):
+    def lstsq_case(kid, A, y, kreps, preps=3, twin=None):
         Al, yl = A.permute(2, 0, 1).contiguous(), y.t().contiguous()[:, :, None]
         return (lambda: forms[kid](A, y), kreps,
-                lambda: tqw.least_squares_wavefront_reference(A, y), preps,
-                lambda: torch.linalg.lstsq(Al, yl))
+                twin if twin is not None else (lambda: tqw.least_squares_wavefront_reference(A, y)),
+                preps, lambda: torch.linalg.lstsq(Al, yl))
 
     # K2b: each form at the NLLS fleet's system, then the shared, warp and
     # cluster forms at the Chebyshev fleets' systems they serve, with the
@@ -1380,6 +1454,11 @@ def phase_nlls_timing(torch, dev, spd_twin_ms):
     # time, where K2b-c took its place)
     sys_s, sys_w = (chebyshev_system(torch, dev, *shape) for shape in (CHEB_SHARED, CHEB_WARP))
     sys_c = chebyshev_system(torch, dev, *CHEB_CLUSTER, torch.float64)
+    # K2b-d and K2b-g at the first n past K2b-c's range, [330, 330, 2] f64
+    # (phase 8)
+    n = K2BD_N
+    sys_d = (torch.randn((n, n, 2), generator=g, device=dev, dtype=torch.float64),
+             torch.randn((n, 2), generator=g, device=dev, dtype=torch.float64))
     # K2a past its warp form's range, at linalg.qr's [170, 170, 32] (phase 8)
     A170 = torch.randn((170, 170, 32), generator=g, device=dev)
     A170l = A170.permute(2, 0, 1).contiguous()
@@ -1395,7 +1474,10 @@ def phase_nlls_timing(torch, dev, spd_twin_ms):
         "K2b-w": lstsq_case("K2b-w", *sys_w, 20),
         "K2b-g n=30": lstsq_case("K2b-g", *sys_w, 5),
         "K2b-c": lstsq_case("K2b-c", *sys_c, 10, preps=1),
-        "K2b-g": lstsq_case("K2b-g", *sys_c, 1, preps=1),
+        "K2b-g n=120": lstsq_case("K2b-g", *sys_c, 1, preps=1),
+        # K2b-g at its first n past K2b-c's range, and K2b-d, which takes it
+        "K2b-g": lstsq_case("K2b-g", *sys_d, 1, twin=lstsq_twin_ms),
+        "K2b-d": lstsq_case("K2b-d", *sys_d, 10, twin=lstsq_twin_ms),
         # K3: K3-r at the exp fleet's shape, the planned form at the 12-
         # coefficient Chebyshev fleet's, K3-w at the 30-coefficient one's,
         # each beside K3-g (the form every shape took before the others)
@@ -1406,8 +1488,12 @@ def phase_nlls_timing(torch, dev, spd_twin_ms):
         "K3-w": spd_timing("K3-w", 30, 4096, 20),
         "K3-g n=30": spd_timing("K3-g", 30, 4096, 5),
         # K3-c at its path's [240, 240, 16] f64 (phase 7), beside K3-g
-        "K3-c": spd_timing("K3-c", K3G_N, K3G_B, 20, torch.float64, spd_twin_ms),
-        "K3-g": spd_timing("K3-g", K3G_N, K3G_B, 1, torch.float64, spd_twin_ms),
+        "K3-c": spd_timing("K3-c", K3G_N, K3G_B, 20, torch.float64, spd_twin_ms["K3-c"]),
+        "K3-g n=240": spd_timing("K3-g", K3G_N, K3G_B, 1, torch.float64, spd_twin_ms["K3-c"]),
+        # K3-g at its first n past K3-c's range, [646, 646, 2] f64, and K3-d,
+        # which takes it (phase 7)
+        "K3-g": spd_timing("K3-g", K3D_N, 2, 1, torch.float64, spd_twin_ms["K3-d"]),
+        "K3-d": spd_timing("K3-d", K3D_N, 2, 10, torch.float64, spd_twin_ms["K3-d"]),
         "K2a n=16": (lambda: tqw.qr_wavefront_global(Aq, compute_q=True), 50,
                      lambda: tqw.qr_wavefront_reference(Aq, compute_q=True), 5,
                      lambda: torch.linalg.qr(Aql, mode="complete")),
@@ -1422,7 +1508,7 @@ def phase_nlls_timing(torch, dev, spd_twin_ms):
     for name, (kern, kreps, plain, preps, library) in times.items():
         # the forms that take a tenth of a second and more, launched in
         # phases 7 and 8 already: no warm-up
-        slow = name in ("K2b-c", "K2b-g", "K3-g", "K2a")
+        slow = name in ("K2b-c", "K2b-g n=120", "K2b-g", "K3-g n=240", "K3-g", "K2a")
         (k, p), (k1, k2, p1, p2) = abba(torch, kern, kreps, plain, preps, 0 if slow else 3)
         lib = None
         if library is not None:
@@ -1435,12 +1521,13 @@ def phase_nlls_timing(torch, dev, spd_twin_ms):
             f"{k1 * 1e3:.2f}/{k2 * 1e3:.2f}, twin {p1 * 1e3:.2f}/{p2 * 1e3:.2f})"
             + ("" if lib is None else f"; library call {lib * 1e3:.2f} us"))
     for new, old in (("K3-r", "K3-g n=2"), ("K3 n=12", "K3-g n=12"), ("K3-w", "K3-g n=30"),
-                     ("K3-c", "K3-g"), ("K2b-c", "K2b-g")):
+                     ("K3-c", "K3-g n=240"), ("K2b-c", "K2b-g n=120"), ("K3-d", "K3-g"),
+                     ("K2b-d", "K2b-g")):
         log(f"[10] {new}: {alone[new][0] * 1e3:.2f} us against {old.split()[0]}'s "
             f"{alone[old][0] * 1e3:.2f} us at the same shape ({alone[old][0] / alone[new][0]:.2f}x), "
             f"the library call's {alone[new][2] * 1e3:.2f} us")
     # the rows past their forms' old shapes, each against its library call
-    for name in ("K2a", "K2b-g", "K3-g", "K2b-c", "K3-c"):
+    for name in ("K2a", "K2b-g", "K3-g", "K2b-c", "K3-c", "K2b-d", "K3-d"):
         k, _, lib = alone[name]
         log(f"[10] {name} at its path's shape: {k:.3f} ms, the library call {lib:.3f} ms, "
             f"{k / lib:.2f}x")
@@ -2077,9 +2164,9 @@ def phases_earlier(torch, dev):
     de_launches = phase(5, phase_slice, torch, dev)
     de_times = phase(6, phase_timing, torch, dev)
     chol_err, k3_launches, spd_twin_ms = phase(7, phase_smallchol, torch, dev)
-    qr_err, qr_launches = phase(8, phase_qr, torch, dev)
+    qr_err, qr_launches, lstsq_twin_ms = phase(8, phase_qr, torch, dev)
     fleet_launches = phase(9, phase_nlls_slice, torch, dev)
-    alone = phase(10, phase_nlls_timing, torch, dev, spd_twin_ms)
+    alone = phase(10, phase_nlls_timing, torch, dev, spd_twin_ms, lstsq_twin_ms)
     rank2_err = phase(11, phase_rank2, torch, dev)
     bfgs_launches = phase(12, phase_bfgs_slice, torch, dev)
     alone.update(phase(13, phase_bfgs_timing, torch, dev))
@@ -2122,18 +2209,22 @@ def phases_earlier(torch, dev):
         kernel_row("least_squares_wavefront_warp", csrc + "qr_wavefront.cu", k2b,
                    fleet_launches["K2b-w"], qr_err, alone["K2b-w"],
                    lstsq_bound(CHEB_WARP[1] + CHEB_WARP[0], *CHEB_WARP[::2]), FLOORS["K2b-w"]),
-        # the float64 fleet past the warp form's range; the device-memory
-        # form launched past the cluster form's range, timed on the float64
-        # fleet's system beside it
+        # the float64 fleet past the warp form's range; past the cluster
+        # form's range the distributed form through the dispatcher and the
+        # device-memory form by a direct call, both at [330, 330, 2] f64
         kernel_row("least_squares_wavefront_cluster", csrc + "qr_wavefront.cu", k2b,
                    fleet_launches["K2b-c"], qr_err, alone["K2b-c"],
                    lstsq_bound(CHEB_CLUSTER[1] + CHEB_CLUSTER[0], *CHEB_CLUSTER[::2], True)),
+        kernel_row("least_squares_wavefront_distributed", csrc + "qr_wavefront.cu", k2b,
+                   qr_launches["K2b-d"], qr_err, alone["K2b-d"],
+                   lstsq_bound(K2BD_N, K2BD_N, 2, True)),
         kernel_row("least_squares_wavefront_global", csrc + "qr_wavefront.cu", k2b,
                    qr_launches["K2b-g"], qr_err, alone["K2b-g"],
-                   lstsq_bound(CHEB_CLUSTER[1] + CHEB_CLUSTER[0], *CHEB_CLUSTER[::2], True)),
+                   lstsq_bound(K2BD_N, K2BD_N, 2, True)),
         # A's lower triangle and b in, x out; each form at the fleet it
-        # serves, K3-c at its path past K3-w's range, K3-g (launched past
-        # K3-c's range) timed on K3-c's path beside it
+        # serves, K3-c at its path past K3-w's range, past K3-c's range K3-d
+        # through the dispatcher and K3-g by a direct call, both at [646,
+        # 646, 2] f64
         kernel_row("solve_spd_registers", csrc + "smallchol.cu", tpu + "smallchol.py:101",
                    fleet_launches["K3-r"], chol_err["K3-r"], alone["K3-r"],
                    spd_bound(2, FLEET_B), FLOORS["K3-r"]),
@@ -2143,9 +2234,11 @@ def phases_earlier(torch, dev):
         kernel_row("solve_spd_cluster", csrc + "smallchol.cu", tpu + "smallchol.py:101",
                    k3_launches["K3-c"], chol_err["K3-c"], alone["K3-c"],
                    spd_bound(K3G_N, K3G_B, True)),
+        kernel_row("solve_spd_distributed", csrc + "smallchol.cu", tpu + "smallchol.py:101",
+                   k3_launches["K3-d"], chol_err["K3-d"], alone["K3-d"], spd_bound(K3D_N, 2, True)),
         kernel_row("solve_spd_batchminor_global", csrc + "smallchol.cu",
                    tpu + "smallchol.py:101", k3_launches["K3-g"], chol_err["K3-g"], alone["K3-g"],
-                   spd_bound(K3G_N, K3G_B, True)),
+                   spd_bound(K3D_N, 2, True)),
         kernel_row("rank2_direction_batchminor_resident", csrc + "rank2.cu", tpu + "rank2.py:280",
                    bfgs_launches["K4a"], rank2_err["K4a"], alone["K4a"],
                    rank2_bound(BFGS_N, BFGS_B)),

@@ -495,6 +495,116 @@ def probe_spd_cluster(n=240, B=16, dtype=torch.float64, sizes=(2, 4, 8),
     return out
 
 
+def _sizes(least, sizes, sms):
+    """The CTAs a lane a probe of a distributed form tries: ``sizes`` (by
+    default the fewest that hold a lane, 16, 33, 66 and the card's SMs),
+    those that hold it."""
+    sizes = sizes or (least, 16, 33, 66, sms)
+    return sorted({p for p in sizes if p >= least})
+
+
+def probe_spd_distributed(n=646, B=2, dtype=torch.float64, sizes=None, threads=(128, 256, 512),
+                          reps=3):
+    """K3-d on ``spd_systems(n, B)`` with each number of CTAs a lane of
+    ``_sizes`` (``threads`` threads a CTA at the plan's), each result
+    bit-equal to ``chol_solve_right_looking``; at the plan's P also the
+    kernel without its back solve and with its barriers alone (its probe
+    modes), which split its time into barriers, the rest of the
+    factorization and the back solve; ``cholesky_ex`` + ``cholesky_solve``
+    on the same systems beside them.  Device time in ms behind a device
+    sleep, the least of two."""
+    from ..ops import smallchol as tsc
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("probe_spd_distributed measures a CUDA card; none is available")
+    A, b = spd_systems(n, B, dtype=dtype)
+    want = tsc.chol_solve_right_looking(A, b)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = tsc.distributed_plan(n, dtype, B, sms)
+    out = {"n": n, "B": B, "plan": plan}
+    for size in _sizes(tsc.distributed_least(n, dtype, sms), sizes, sms):
+        for t in (threads if size == plan else (tsc.DISTRIBUTED_THREADS,)):
+            run = functools.partial(tsc.solve_spd_distributed, A, b, size=size, _threads=t)
+            if not torch.equal(run(), want):
+                raise RuntimeError(f"probe_spd_distributed: P={size}, {t} threads differ")
+            out[f"P{size}_T{t}_ms"] = min(device_ms(run, reps, warmup=1) for _ in range(2))
+    for mode, what in ((1, "no_back_solve"), (2, "barriers")):
+        run = functools.partial(tsc.solve_spd_distributed, A, b, _mode=mode)
+        out[f"{what}_ms"] = min(device_ms(run, reps, warmup=1) for _ in range(2))
+    Al, bl = A.permute(2, 0, 1).contiguous(), b.t().contiguous()[:, :, None]
+    out["library_ms"] = min(device_ms(
+        lambda: torch.cholesky_solve(bl, torch.linalg.cholesky_ex(Al).L), reps, strict=False)
+        for _ in range(2))
+    return out
+
+
+def probe_least_squares_distributed(n=330, m=330, B=2, dtype=torch.float64, sizes=None, reps=3):
+    """K2b-d on ``[m, n, B]`` ~ N(0, 1) with each number of CTAs a lane of
+    ``_sizes`` (at the plan's P also half and twice its groups of threads),
+    each result bit-equal to the twin's; at the plan's P also the kernel
+    without its back-substitution and with its barriers alone (its probe
+    modes); ``torch.linalg.lstsq`` on the same systems beside them.  Device
+    time in ms behind a device sleep, the least of two."""
+    from ..ops import qr_wavefront as tqw
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("probe_least_squares_distributed measures a CUDA card; none is "
+                           "available")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    A = torch.randn((m, n, B), generator=g, device="cuda", dtype=dtype)
+    y = torch.randn((m, B), generator=g, device="cuda", dtype=dtype)
+    want = tqw.least_squares_wavefront_reference(A, y)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = tqw.distributed_plan(n, dtype, B, sms)
+    out = {"n": n, "m": m, "B": B, "plan": plan}
+    for size in _sizes(tqw.distributed_least(n, dtype, sms), sizes, sms):
+        G = tqw.distributed_groups(n, size)
+        columns = -(-(n + 1) // size)
+        for grp in ({G // 2, G, 2 * G} if size == plan else {G}):
+            if not 64 <= grp * columns <= 1024:
+                continue
+            run = functools.partial(tqw.least_squares_wavefront_distributed, A, y, size=size,
+                                    _groups=grp)
+            if not torch.equal(run(), want):
+                raise RuntimeError(f"probe_least_squares_distributed: P={size}, G={grp} differ")
+            out[f"P{size}_G{grp}_ms"] = min(device_ms(run, reps, warmup=1) for _ in range(2))
+    for mode, what in ((1, "no_back_solve"), (2, "barriers")):
+        run = functools.partial(tqw.least_squares_wavefront_distributed, A, y, _mode=mode)
+        out[f"{what}_ms"] = min(device_ms(run, reps, warmup=1) for _ in range(2))
+    Al, yl = A.permute(2, 0, 1).contiguous(), y.t().contiguous()[:, :, None]
+    out["lstsq_ms"] = min(device_ms(lambda: torch.linalg.lstsq(Al, yl), reps, strict=False)
+                          for _ in range(2))
+    return out
+
+
+def probe_chain_latency(n=8192, reps=3):
+    """Clocks a step of one thread's chain of dependent rounded f64
+    subtractions (``csrc/chain_probe.cu``), the chain of a back solve's row
+    in the twins' order: from a register (the subtraction's latency), one
+    word of shared memory a step, unrolled by 8 and by 16 (K2b-d's and
+    K3-d's back solves), with the product formed in the chain, eight words
+    a pass loaded a pass ahead, and a division a step; the last of
+    ``reps`` runs, from the SM's clock."""
+    import ctypes
+
+    from ..ops import _build
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("probe_chain_latency measures a CUDA card; none is available")
+    fn = _build.load_library().chain_probe_f64
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    words = torch.rand(2 * n, dtype=torch.float64, device="cuda")
+    out = torch.empty(8, dtype=torch.float64, device="cuda")
+    for _ in range(reps):
+        err = fn(words.data_ptr(), out.data_ptr(), n, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"probe_chain_latency: CUDA launch failed (cudaError {err})")
+    names = ("register", "shared_word", "unrolled_8", "unrolled_16", "product_inline",
+             "eight_ahead", "division")
+    return dict(zip(names, out[:7].tolist()))
+
+
 def spd_systems(n: int, B: int, seed: int = 0, device="cuda", dtype=torch.float32):
     """``B`` SPD systems ``A = M M^T + 2 I``, M ~ N(0, 1), batch-minor
     ``[n, n, B]``, and right-hand sides ``b [n, B]`` ~ N(0, 1), drawn from
@@ -668,9 +778,10 @@ def probe_path_rows(reps=1):
     """The device-memory forms of K2a, K2b and K3 and the three-pass K4b at
     the shapes their paths run them at, each beside the one PyTorch call
     that computes the same function: K2a with Q on ``[170, 170, 32]`` f32
-    (``torch.linalg.qr``, complete, on ``[32, 170, 170]``), K2b on ``[248,
-    120, 256]`` f64 (``torch.linalg.lstsq``), K3 on ``spd_systems(240, 16)``
-    f64 (``cholesky_ex`` + ``cholesky_solve``), K4b on ``rank2_scenario(225,
+    (``torch.linalg.qr``, complete, on ``[32, 170, 170]``), K2b on ``[330,
+    330, 2]`` f64, the first n past K2b-c's range (``torch.linalg.lstsq``),
+    K3 on ``spd_systems(646, 2)`` f64, the first n past K3-c's range
+    (``cholesky_ex`` + ``cholesky_solve``), K4b on ``rank2_scenario(225,
     256)`` f32 (no such call).  Inputs ~ N(0, 1) but where named; ms behind
     a device sleep, the least of two."""
     from ..ops import qr_wavefront as tqw
@@ -683,10 +794,10 @@ def probe_path_rows(reps=1):
     f64 = torch.float64
     Aq = torch.randn((170, 170, 32), generator=g, device="cuda")
     Aql = Aq.permute(2, 0, 1).contiguous()
-    A2 = torch.randn((248, 120, 256), generator=g, device="cuda", dtype=f64)
-    y2 = torch.randn((248, 256), generator=g, device="cuda", dtype=f64)
+    A2 = torch.randn((330, 330, 2), generator=g, device="cuda", dtype=f64)
+    y2 = torch.randn((330, 2), generator=g, device="cuda", dtype=f64)
     A2l, y2l = A2.permute(2, 0, 1).contiguous(), y2.t().contiguous()[:, :, None]
-    A3, b3 = spd_systems(240, 16, dtype=f64)
+    A3, b3 = spd_systems(646, 2, dtype=f64)
     A3l, b3l = A3.permute(2, 0, 1).contiguous(), b3.t().contiguous()[:, :, None]
     H = rank2_scenario(225, 256)
     rows = {"K2a": (lambda: tqw.qr_wavefront_global(Aq, compute_q=True),

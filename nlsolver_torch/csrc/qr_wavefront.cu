@@ -22,7 +22,7 @@
 // only 2 n rows of n + 1 words (R's columns, then Q^T y) are live at a
 // stage, and A and y are read once, row by row, one stage ahead, and only x
 // is written: 109 MB at [34, 2, 262144] in f32, some 33 us at 3.35 TB/s.
-// Five forms, chosen by n and dtype in ops/qr_wavefront.py:
+// Six forms, chosen by n and dtype in ops/qr_wavefront.py:
 //   * least_squares_registers_kernel<T, N>: the window in the thread's
 //     registers.  Every index is a compile-time constant (a register array
 //     takes no runtime index), so the window shifts by one row a stage by
@@ -38,10 +38,16 @@
 //   * least_squares_cluster_kernel<T>: one lane a thread-block cluster of
 //     2, 4 or 8 CTAs, the ring's columns split over them (below); n <= 471
 //     in f32, 329 in f64, past the warp form's.
+//   * least_squares_distributed_kernel<T>: one lane over P CTAs of the
+//     whole card, the ring's columns split over them, a stage's
+//     coefficients through device memory, one barrier in device memory a
+//     stage, one cooperative launch (below); past the cluster form's n, as
+//     far as 132 CTAs hold the ring (ops/qr_wavefront.py's
+//     distributed_fits).
 //   * qr_wavefront_kernel<T, false, true>: a working copy of [A | y] in
 //     device memory (the scratch R and qty the wrapper allocates), read and
 //     written some 330 times a lane at [34, 2]; every n, for n past the
-//     cluster form's.
+//     distributed form's.
 // K2a comes in two forms, chosen by (m, n), dtype and Q in
 // ops/qr_wavefront.py: qr_warp_kernel<T, kQ, Q> (K2a-w, below) gives a
 // lane a warp and keeps its [R | Q^T] in shared memory; past its range
@@ -67,6 +73,7 @@
 
 #include <cstdint>
 
+#include "lane_barrier.cuh"
 #include "rn_math.cuh"
 
 namespace cg = cooperative_groups;
@@ -644,6 +651,238 @@ int launch_cluster(const T* A, const T* y, T* x, int m, int n, int64_t B, int C,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K2b-d, one lane over P CTAs of the whole card.  Replaces
+// least_squares_wavefront_pallas (nlsolver_tpu/ops/qr_wavefront.py:168) for
+// n past K2b-c's, where 8 CTAs' shared memory no longer holds one lane's
+// ring (1.75 MB at n = 330 in f64).  What bounds the device-memory form
+// there: one thread carries a lane's chain of some m n rotations, each a
+// round trip of two rows through L2, and 2 lanes are 2 threads on 132 SMs
+// (1.28 s at [330, 330, 2] f64).  K2b-c's scheme over any number P of CTAs,
+// with device memory in place of distributed shared memory:
+//   * column c of the ring (c = n is Q^T y) lives in CTA c % P at local
+//     column c / P; thread (tc, g) of a CTA holds local column tc and takes
+//     the g-th, (g + G)-th, .. of a stage's rotations, as in K2b-c;
+//   * at each stage the owner of pivot column j forms (c, s) from its own
+//     ring and stores the pair into the team's coefficient row of the
+//     stage's parity in device memory; one barrier in device memory
+//     (lane_barrier.cuh) follows, then every CTA copies the stage's
+//     coefficients from L2 into its shared memory and turns its own columns
+//     col >= j by the stage's rotations.  A CTA writes row (k + 1) & 1 only
+//     past barrier k, when every CTA has copied it for stage k - 1, so two
+//     rows and one barrier a stage are enough;
+//   * each CTA fetches its own columns of the next row of [A | y], a stage
+//     ahead, by cp.async into the ring row that left the window;
+//   * after the last stage each CTA stores its columns of R's rows 0 .. n -
+//     1 and of Q^T y into the team's store in device memory (row i's
+//     columns i .. n at i (n + 1) - i (i - 1) / 2), and past one more
+//     barrier CTA 0 runs the back-substitution from it in the twin's order:
+//     its warps past the first fetch row i - 1 from L2, and form its
+//     products R[i - 1][col] x[col] but the first, while its first thread
+//     runs row i's chain.  The team's next lane writes the store only past
+//     its own last stage, which CTA 0 reaches after this solve;
+//   * every CTA of a team is resident by one cooperative launch, and a
+//     grid of ``teams`` teams walks the lanes, team g taking lanes g, g +
+//     teams, ..
+// ``mode`` 1 skips the back-substitution and 2 runs the barriers alone
+// (the benches' probe of what each costs).  Every value goes through the
+// twin's operations in its order, so x is the twin's bit for bit.
+template <typename T>
+__global__ void __launch_bounds__(1024)
+    least_squares_distributed_kernel(const T* __restrict__ A, const T* __restrict__ y,
+                                     T* __restrict__ x, T* coef, T* Rstore, unsigned* counts,
+                                     int m, int n, int P, int64_t B, int mode) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int G = blockDim.y, g = threadIdx.y, tc = threadIdx.x;
+  const int lin = g * blockDim.x + tc, NT = blockDim.x * G, warp = lin >> 5, lane = lin & 31;
+  const int teams = static_cast<int>(gridDim.x) / P, team = blockIdx.x / P;
+  const int rank = blockIdx.x % P;
+  const int slots = 2 * n + 1, Lc = (n + P) / P;  // local columns of CTA 0, the most
+  T* ring = reinterpret_cast<T*>(smem);  // [slots][Lc]
+  T* cs = ring + slots * Lc;             // the stage's (c, s) of pivot j at 2 j, 2 j + 1
+  T* tcoef = coef + static_cast<int64_t>(team) * 4 * n;  // [2][2 n], by the stage's parity
+  T* Rg = Rstore + static_cast<int64_t>(team) * (static_cast<int64_t>(n) * (n + 3) / 2);
+  unsigned* count = counts + team;
+  unsigned epoch = 0;
+  const int c = rank + P * tc;  // this thread's column of the system
+  const bool owns = tc < Lc && c <= n;
+  T* mine = ring + tc;
+  // R[i][col] of the store at row(i)[col], col = i .. n (col = n: Q^T y)
+  auto row = [&](int i) {
+    return Rg + static_cast<int64_t>(i) * (n + 1) - static_cast<int64_t>(i) * (i - 1) / 2 - i;
+  };
+  auto barrier = [&]() {
+    lane::arrive(count);
+    lane::wait(count, ++epoch * static_cast<unsigned>(P));
+  };
+
+#pragma unroll 1
+  for (int64_t b = team; b < B; b += teams) {
+    if (mode == 2) {
+#pragma unroll 1
+      for (int k = 0; k < m + n - 1; ++k) barrier();
+      continue;
+    }
+    // row r of [A | y] into ring row r % slots, this thread's column (group 0)
+    auto fetch = [&](int r) {
+      if (owns && g == 0) {
+        const T* src = c < n ? A + (static_cast<int64_t>(r) * n + c) * B + b
+                             : y + static_cast<int64_t>(r) * B + b;
+        __pipeline_memcpy_async(mine + (r % slots) * Lc, src, sizeof(T));
+      }
+      __pipeline_commit();
+    };
+
+    fetch(m - 1);
+    if (m >= 2) fetch(m - 2);
+    __pipeline_wait_prior(0);
+    __syncthreads();
+#pragma unroll 1
+    for (int k = 0; k <= m + n - 3; ++k) {
+      if (k <= m - 3) fetch(m - 3 - k);
+      const int j_lo = max(0, k - m + 2), j_hi = min(n - 1, k / 2);
+      // ring row of window row 0, system row m - 2 - k (> -slots)
+      int s0 = (m - 2 - k) % slots;
+      if (s0 < 0) s0 += slots;
+      T* gk = tcoef + (k & 1) * 2 * n;
+      if (owns && g == 0 && c >= j_lo && c <= j_hi) {
+        int rp = s0 + 2 * c;
+        if (rp >= slots) rp -= slots;
+        const int rq = rp + 1 == slots ? 0 : rp + 1;
+        T cc, ss;
+        givens(mine[rp * Lc], mine[rq * Lc], cc, ss);
+        __stcg(gk + 2 * c, cc);
+        __stcg(gk + 2 * c + 1, ss);
+      }
+      barrier();  // the stage's coefficients in the store
+      for (int e = 2 * j_lo + lin; e <= 2 * j_hi + 1; e += NT) cs[e] = __ldcg(gk + e);
+      __syncthreads();
+      if (owns) {
+        // this thread's rotations: j_lo + g, j_lo + g + G, .. up to its
+        // column, two at a time (their row pairs are disjoint), loads
+        // before stores
+        const int j_end = min(j_hi, c);
+        int j = j_lo + g;
+#pragma unroll 1
+        for (; j + G <= j_end; j += 2 * G) {
+          const int j2 = j + G;
+          int p1 = s0 + 2 * j, p2 = s0 + 2 * j2;
+          if (p1 >= slots) p1 -= slots;
+          if (p2 >= slots) p2 -= slots;
+          const int q1 = p1 + 1 == slots ? 0 : p1 + 1, q2 = p2 + 1 == slots ? 0 : p2 + 1;
+          const T c1 = cs[2 * j], s1 = cs[2 * j + 1], c2 = cs[2 * j2], s2 = cs[2 * j2 + 1];
+          const T vp1 = mine[p1 * Lc], vq1 = mine[q1 * Lc];
+          const T vp2 = mine[p2 * Lc], vq2 = mine[q2 * Lc];
+          mine[p1 * Lc] = rn::add(rn::mul(c1, vp1), rn::mul(s1, vq1));
+          mine[q1 * Lc] = rn::add(rn::mul(c1, vq1), rn::mul(-s1, vp1));
+          mine[p2 * Lc] = rn::add(rn::mul(c2, vp2), rn::mul(s2, vq2));
+          mine[q2 * Lc] = rn::add(rn::mul(c2, vq2), rn::mul(-s2, vp2));
+        }
+        if (j <= j_end) {
+          int p = s0 + 2 * j;
+          if (p >= slots) p -= slots;
+          const int q = p + 1 == slots ? 0 : p + 1;
+          const T cj = cs[2 * j], sj = cs[2 * j + 1];
+          const T vp = mine[p * Lc], vq = mine[q * Lc];
+          mine[p * Lc] = rn::add(rn::mul(cj, vp), rn::mul(sj, vq));
+          mine[q * Lc] = rn::add(rn::mul(cj, vq), rn::mul(-sj, vp));
+        }
+      }
+      // the next row landed; the next stage's pivots and rows are turned
+      // (by any group of this CTA)
+      __pipeline_wait_prior(0);
+      __syncthreads();
+    }
+    // R's rows 0 .. n - 1 sit in ring rows 0 .. n - 1: this CTA's columns
+    // of them into the store
+    if (owns)
+      for (int i = g; i < n && i <= c; i += G) __stcg(row(i) + c, mine[i * Lc]);
+    barrier();
+    // R[:n, :n] x = (Q^T y)[:n] in CTA 0, in the twin's order: x in cs[0,
+    // n), row i gathered into r = cs[n + (i & 1) (n + 1) ..] by the warps
+    // past the first while the first thread runs row i + 1's chain: r[i] =
+    // R[i][i], r[i + 1] = R[i][i + 1], r[col] = R[i][col] x[col] for col > i
+    // + 1 (those x known by then), r[n] = (Q^T y)[i].  The chain forms only
+    // R[i][i + 1] x[i + 1] itself
+    if (mode == 0 && rank == 0) {
+      T* xs = cs;
+      auto gather = [&](int i) {
+        T* r = cs + n + (i & 1) * (n + 1);
+        const T* gi = row(i);
+        for (int col = i + lin - 32; col <= n; col += NT - 32) {
+          const T v = __ldcg(gi + col);
+          r[col] = col > i + 1 && col < n ? rn::mul(v, xs[col]) : v;
+        }
+      };
+      if (warp > 0) gather(n - 1);
+#pragma unroll 1
+      for (int i = n - 1; i >= 0; --i) {
+        __syncthreads();  // row i gathered, x[i + 1] in place
+        if (warp > 0) {
+          if (i > 0) gather(i - 1);
+        } else if (lane == 0) {
+          const T* r = cs + n + (i & 1) * (n + 1);
+          T acc = r[n];
+          if (i + 1 < n) acc = rn::sub(acc, rn::mul(r[i + 1], xs[i + 1]));
+          xs[i] = rn::div(rn::sub_each(acc, r, i + 2, n), r[i]);
+          x[static_cast<int64_t>(i) * B + b] = xs[i];
+        }
+      }
+    }
+  }
+}
+
+// K2b-d's shared memory a CTA with P CTAs a lane: its columns of the ring,
+// 2 n + 1 rows of ceil((n + 1) / P) words (CTA 0 holds the most), and 3 n +
+// 2 words, a stage's 2 n coefficients or the back-substitution's x and two
+// rows (ops/qr_wavefront.py's distributed_bytes)
+template <typename T>
+int64_t lsq_distributed_smem(int n, int P) {
+  return (static_cast<int64_t>(2 * n + 1) * ((n + P) / P) + 3 * n + 2) * sizeof(T);
+}
+
+// K2b-d: blocks of (ceil((n + 1) / P), groups) threads an SM holds at once
+// with P CTAs a lane, into ``blocks``
+template <typename T>
+int lsq_distributed_occupancy(int n, int P, int groups, int* blocks) {
+  const int64_t smem = lsq_distributed_smem<T>(n, P);
+  const int columns = (n + P) / P;
+  if (n < 1 || P < 1 || groups < 1 || columns * groups < 64 || columns * groups > 1024 ||
+      !blocks || smem > kMaxDynamicSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = least_squares_distributed_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, columns * groups,
+                                                      static_cast<size_t>(smem));
+  return static_cast<int>(err);
+}
+
+// K2b-d's launch: ``teams`` teams of P CTAs of (ceil((n + 1) / P), groups)
+// threads in one cooperative launch; coef 4 n words a team, R its store of
+// n (n + 3) / 2 words a team, counts one zeroed counter a team
+template <typename T>
+int launch_distributed(const T* A, const T* y, T* x, T* coef, T* R, unsigned* counts, int m,
+                       int n, int64_t B, int P, int teams, int groups, int mode,
+                       cudaStream_t st) {
+  const int64_t smem = lsq_distributed_smem<T>(n, P);
+  const int columns = (n + P) / P;
+  if (n < 1 || m < n || B < 1 || P < 1 || teams < 1 || groups < 1 || columns * groups < 64 ||
+      columns * groups > 1024 || mode < 0 || mode > 2 || smem > kMaxDynamicSmem ||
+      static_cast<int64_t>(teams) * P > (1 << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = least_squares_distributed_kernel<T>;
+  const cudaError_t set = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (set != cudaSuccess) return static_cast<int>(set);
+  void* args[] = {&A, &y, &x, &coef, &R, &counts, &m, &n, &P, &B, &mode};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel), dim3(static_cast<unsigned>(teams * P)),
+      dim3(columns, groups), args, static_cast<size_t>(smem), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // K2a-w, one warp a lane.  Replaces qr_wavefront_pallas
 // (nlsolver_tpu/ops/qr_wavefront.py:114) where a lane's [R | Q^T] fits a
 // block's shared memory.  What bounds K2a with a thread a lane: each
@@ -895,6 +1134,29 @@ NLSOLVER_QR_WARP_LAUNCHER(f64, double, kQrWarpMaxQ64, kQrWarpMaxR64)
 
 NLSOLVER_LSQ_CLUSTER_LAUNCHER(f32, float)
 NLSOLVER_LSQ_CLUSTER_LAUNCHER(f64, double)
+
+// K2b-d: A [m, n, B], y [m, B] -> x [n, B], ``size`` CTAs a lane of
+// (ceil((n + 1) / size), ``groups``) threads, in ``teams`` teams (coef, 4 n
+// words a team; R, its store of n (n + 3) / 2 words a team; counts, one
+// zeroed counter a team; ``mode`` 0, or the probe's 1 and 2), and its
+// occupancy, the blocks an SM holds, into ``blocks``.  Return
+// cudaGetLastError() (the occupancy entry, the occupancy query's error).
+#define NLSOLVER_LSQ_DISTRIBUTED_LAUNCHERS(SUFFIX, T)                                          \
+  extern "C" int least_squares_distributed_##SUFFIX(                                           \
+      const void* A, const void* y, void* x, void* coef, void* R, void* counts, int m, int n,  \
+      int64_t B, int size, int teams, int groups, int mode, void* stream) {                    \
+    return launch_distributed<T>(static_cast<const T*>(A), static_cast<const T*>(y),           \
+                                 static_cast<T*>(x), static_cast<T*>(coef), static_cast<T*>(R), \
+                                 static_cast<unsigned*>(counts), m, n, B, size, teams, groups, \
+                                 mode, static_cast<cudaStream_t>(stream));                     \
+  }                                                                                            \
+  extern "C" int least_squares_distributed_occupancy_##SUFFIX(int n, int size, int groups,     \
+                                                              int* blocks) {                   \
+    return lsq_distributed_occupancy<T>(n, size, groups, blocks);                              \
+  }
+
+NLSOLVER_LSQ_DISTRIBUTED_LAUNCHERS(f32, float)
+NLSOLVER_LSQ_DISTRIBUTED_LAUNCHERS(f64, double)
 
 NLSOLVER_LSQ_LAUNCHERS(f32, float, kRegisterMaxN32, kWarpMaxQ32)
 NLSOLVER_LSQ_LAUNCHERS(f64, double, kRegisterMaxN64, kWarpMaxQ64)

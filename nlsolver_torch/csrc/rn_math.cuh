@@ -23,6 +23,19 @@ __device__ inline double div(double a, double b) { return __ddiv_rn(a, b); }
 __device__ inline double sqrt(double a) { return __dsqrt_rn(a); }
 __device__ inline double abs(double a) { return fabs(a); }
 
+// acc less g[k] for k = lo .. hi - 1, one rounded subtraction each in
+// ascending k (the twins' order of a back solve's row); unrolled by 16, so
+// that the loads of shared memory are issued ahead of the subtractions
+// that wait on them (on an H100, 9.7 clocks a step in f64 against the 8.4
+// of the subtraction's latency; unrolled by 8, 11.4; a word a step, 44:
+// benches.probe_chain_latency)
+template <typename T>
+__device__ inline T sub_each(T acc, const T* g, int lo, int hi) {
+#pragma unroll 16
+  for (int k = lo; k < hi; ++k) acc = sub(acc, g[k]);
+  return acc;
+}
+
 // torch.sign: 1, -1 or 0
 template <typename T>
 __device__ inline T sign(T a) {

@@ -16,7 +16,7 @@
 // (about n^3 / 6 multiply-subtracts, n (n + 1) / 2 divisions and square
 // roots, then n (n - 1) / 2 steps of the back solve), so what holds a
 // kernel back is how much of that chain waits on memory and how many
-// chains the card runs at once.  Four forms, chosen by n and dtype in
+// chains the card runs at once.  Five forms, chosen by n and dtype in
 // ops/smallchol.py (``plan``):
 //   * chol_registers_kernel<T, N> (K3-r): one thread a lane, L, z and x
 //     in registers.  Every index is a compile-time constant, so nothing goes
@@ -30,9 +30,14 @@
 //   * chol_cluster_kernel<T> (K3-c): one lane a thread-block cluster of 2,
 //     4 or 8 CTAs, K3-w's packed rows split over their shared memory
 //     (below); n <= 927 in f32, 645 in f64, past K3-w's.
+//   * chol_distributed_kernel<T> (K3-d): one lane over P CTAs of the whole
+//     card, K3-c's rows over their shared memory, the columns of L through
+//     a store in device memory, a barrier in device memory a step, one
+//     cooperative launch (below); past K3-c's n, as far as 132 CTAs hold
+//     the rows (ops/smallchol.py's distributed_fits).
 //   * chol_global_kernel<T> (K3-g): one thread a lane, L in a batch-minor
 //     scratch of n (n + 1) / 2 rows in device memory; any n, for n past
-//     K3-c's.  Every l(i, k) is a load from device memory.
+//     K3-d's.  Every l(i, k) is a load from device memory.
 //
 // Arithmetic: each operation is rounded as the plain PyTorch twin
 // (nlsolver_torch/linalg/solve.py:_solve_spd_unrolled, imported by
@@ -50,6 +55,7 @@
 
 #include <cstdint>
 
+#include "lane_barrier.cuh"
 #include "rn_math.cuh"
 
 namespace cg = cooperative_groups;
@@ -497,6 +503,251 @@ int launch_cluster(const void* A, const void* b, void* x, int n, int64_t B, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+// K3-d, one lane over P CTAs of the whole card.  Replaces
+// solve_spd_batched_pallas (nlsolver_tpu/ops/smallchol.py:89) for n past
+// K3-c's, where 8 CTAs' shared memory no longer holds one lane's packed
+// triangle (1.67 MB at n = 646 in f64).  What bounds K3-g there: one
+// thread carries a lane's chain of some n^3 / 6 dependent multiply-subtracts,
+// each with two loads from L2, and 2 lanes are 2 threads on 132 SMs (3.27 s
+// at [646, 646, 2] f64).  K3-c's scheme over any number P of CTAs, with
+// device memory in place of distributed shared memory:
+//   * row i of the packed rows 0 .. n (b as row n) lives in CTA i % P's
+//     shared memory, K3-c's layout with C = P, and every CTA keeps the
+//     diagonal of all rows, updated as its owner updates it;
+//   * the columns of L travel through a per-team store in device memory,
+//     packed by column (column j, rows j .. n, z[j] in row n, at j (n + 1)
+//     - j (j - 1) / 2): right past the barrier of step j - 1 each CTA
+//     copies column j's rows j + 1 .. n from L2 into its shared memory,
+//     forms column j + 1 of its own rows (step j's product off, then the
+//     division by sqrt(S[j+1][j+1])) and stores it into the column store
+//     once; then it arrives at the team's barrier of step j, subtracts
+//     step j's products from the rest of its trailing rows and its
+//     diagonal, and waits.  Each column is written once, so no column row
+//     is reused and nothing else leaves a CTA during the factorization;
+//   * the barrier is lane_barrier.cuh's: a counter a team in device
+//     memory, every CTA of the team resident by a cooperative launch;
+//   * the column store holds all of L once the last barrier has passed, and
+//     CTA 0 of the team runs the back solve from it in the twin's order:
+//     its warps past the first fetch column i - 1 from L2, and form its
+//     products L[k][i - 1] x[k] but the first, while its first thread runs
+//     column i's chain, subtracting in ascending k.  Its n (n - 1) / 2
+//     dependent subtractions are this form's floor (8.4 clocks each in f64
+//     on an H100); a last barrier keeps the next lane's first column out of
+//     the store until the solve has read it;
+//   * a grid of ``teams`` teams of P CTAs walks the lanes, team g taking
+//     lanes g, g + teams, ..
+// ``mode`` 1 skips the back solve and 2 runs the barriers alone (the
+// benches' probe of what each costs).  Every value goes through the twin's
+// operations in its order, so x is the twin's bit for bit.
+template <typename T>
+__global__ void __launch_bounds__(1024)
+    chol_distributed_kernel(const T* __restrict__ A, const T* __restrict__ rhs,
+                            T* __restrict__ x, T* Lstore, unsigned* counts, int n, int P,
+                            int words, int64_t B, int mode) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t = threadIdx.x, NT = blockDim.x, lane = t & 31, warp = t >> 5, W = NT >> 5;
+  const int teams = static_cast<int>(gridDim.x) / P, team = blockIdx.x / P;
+  const int rank = blockIdx.x % P;
+  T* S = reinterpret_cast<T*>(smem);  // this CTA's rows, packed: ``words`` words
+  T* diag = S + words;                // S[i][i] of every row i < n
+  T* col = diag + n;                  // column j at col[i], i = j + 1 .. n
+  T* Lg = Lstore + static_cast<int64_t>(team) * (static_cast<int64_t>(n) * (n + 3) / 2);
+  unsigned* count = counts + team;
+  unsigned epoch = 0;
+  const int rows = rank <= n ? (n - rank) / P + 1 : 0;  // rows rank, rank + P, .. <= n
+  // local row l (row rank + P l) starts at word l (rank + 1) + P l (l - 1) / 2
+  auto start = [&](int l) { return l * (rank + 1) + P * l * (l - 1) / 2; };
+  // the first of this CTA's local rows past row j
+  auto after = [&](int j) { return j + 1 - rank <= 0 ? 0 : (j + 1 - rank + P - 1) / P; };
+  // L[i][j] of the column store at column(j)[i], i = j .. n
+  auto column = [&](int j) {
+    return Lg + static_cast<int64_t>(j) * (n + 1) - static_cast<int64_t>(j) * (j - 1) / 2 - j;
+  };
+  auto barrier = [&]() {
+    lane::arrive(count);
+    lane::wait(count, ++epoch * static_cast<unsigned>(P));
+  };
+
+#pragma unroll 1
+  for (int64_t b = team; b < B; b += teams) {
+    if (mode == 2) {
+#pragma unroll 1
+      for (int j = 0; j < n + 2; ++j) barrier();
+      continue;
+    }
+    {
+      // the CTA's packed rows (row n from b, n words): entry e, as local row
+      // l and column c, by thread e % NT; the diagonal of every row
+      auto width = [&](int l) { return min(rank + P * l + 1, n); };
+      int l = 0, c = t;
+      while (l < rows && c >= width(l)) c -= width(l), ++l;
+      for (int e = t; l < rows; e += NT) {
+        const int i = rank + P * l;
+        const T* src = i < n ? A + (static_cast<int64_t>(i) * n + c) * B
+                             : rhs + static_cast<int64_t>(c) * B;
+        __pipeline_memcpy_async(S + e, src + b, sizeof(T));
+        c += NT;
+        while (l < rows && c >= width(l)) c -= width(l), ++l;
+      }
+      for (int i = t; i < n; i += NT)
+        __pipeline_memcpy_async(diag + i, A + (static_cast<int64_t>(i) * n + i) * B + b,
+                                sizeof(T));
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    {
+      // column 0
+      const T d = rn::sqrt(diag[0]);
+      T* g0 = column(0);
+      for (int l = after(0) + t; l < rows; l += NT) {
+        T* e = S + start(l);
+        const T v = rn::div(*e, d);
+        *e = v;
+        __stcg(g0 + rank + P * l, v);
+      }
+      if (t == 0 && rank == 0) {
+        S[0] = d;
+        __stcg(g0, d);
+      }
+    }
+    barrier();
+#pragma unroll 1
+    for (int j = 0; j < n; ++j) {
+      // column j's rows j + 1 .. n, stored before the barrier just passed
+      const T* gj = column(j);
+      for (int i = j + 1 + t; i <= n; i += NT) col[i] = __ldcg(gj + i);
+      __syncthreads();
+      const int j1 = j + 1, l1 = after(j1);
+      if (j1 < n) {
+        // column j + 1 a step ahead: step j's product off its entries, then
+        // the division by its diagonal's square root
+        const T c1 = col[j1];
+        const T d = rn::sqrt(rn::sub(diag[j1], rn::mul(c1, c1)));
+        T* g1 = column(j1);
+        for (int l = l1 + t; l < rows; l += NT) {
+          const int i = rank + P * l;
+          T* e = S + start(l) + j1;
+          const T v = rn::div(rn::sub(*e, rn::mul(col[i], c1)), d);
+          *e = v;
+          __stcg(g1 + i, v);
+        }
+        if (t == 0 && j1 % P == rank) {
+          S[start(j1 / P) + j1] = d;
+          __stcg(g1 + j1, d);
+        }
+      }
+      lane::arrive(count);  // column j + 1 in the store once all have arrived
+      // the rest of step j: rows past j + 1, columns j + 2 .. min(i, n - 1)
+      for (int l = l1 + warp; l < rows; l += W) {
+        const int i = rank + P * l, end = min(i, n - 1);
+        T* row = S + start(l);
+        const T ci = col[i];
+#pragma unroll 4
+        for (int c = j + 2 + lane; c <= end; c += 32) row[c] = rn::sub(row[c], rn::mul(ci, col[c]));
+      }
+      for (int i = j + 2 + t; i < n; i += NT) diag[i] = rn::sub(diag[i], rn::mul(col[i], col[i]));
+      lane::wait(count, ++epoch * static_cast<unsigned>(P));
+    }
+    // L and z whole in the store; the back solve in CTA 0, over its rows,
+    // which the store has made dead: x in S[0, n), column i gathered into
+    // g = S[n + (i & 1) (n + 1) ..] by the warps past the first while the
+    // first thread runs column i + 1's chain: g[i] = L[i][i], g[i + 1] =
+    // L[i + 1][i], g[k] = L[k][i] x[k] for k > i + 1 (those x known by
+    // then), g[n] = z[i].  The chain forms only L[i + 1][i] x[i + 1] itself
+    if (mode == 0 && rank == 0) {
+      T* xs = S;
+      auto gather = [&](int i) {
+        T* g = S + n + (i & 1) * (n + 1);
+        const T* gi = column(i);
+        for (int k = i + t - 32; k <= n; k += NT - 32) {
+          const T v = __ldcg(gi + k);
+          g[k] = k > i + 1 && k < n ? rn::mul(v, xs[k]) : v;
+        }
+      };
+      if (warp > 0) gather(n - 1);
+#pragma unroll 1
+      for (int i = n - 1; i >= 0; --i) {
+        __syncthreads();  // column i gathered, x[i + 1] in place
+        if (warp > 0) {
+          if (i > 0) gather(i - 1);
+        } else if (t == 0) {
+          const T* g = S + n + (i & 1) * (n + 1);
+          T acc = g[n];
+          if (i + 1 < n) acc = rn::sub(acc, rn::mul(g[i + 1], xs[i + 1]));
+          xs[i] = rn::div(rn::sub_each(acc, g, i + 2, n), g[i]);
+          x[static_cast<int64_t>(i) * B + b] = xs[i];
+        }
+      }
+    }
+    barrier();  // the store is free for the team's next lane
+  }
+}
+
+// K3-d's shared memory a CTA with P CTAs a lane: ``words``, the most words
+// of packed rows a CTA holds (K3-c's layout with C = P), the diagonal and a
+// column of n + 1 words, and at least the back solve's 3 n + 2 words
+// (ops/smallchol.py's distributed_bytes)
+template <typename T>
+int64_t distributed_smem(int n, int P, int* words) {
+  int most = 0;
+  for (int r = 0; r < P && r <= n; ++r) {
+    int w = 0;
+    for (int i = r; i <= n; i += P) w += i < n ? i + 1 : n;
+    most = w > most ? w : most;
+  }
+  *words = most;
+  const int64_t need = static_cast<int64_t>(most) + 2 * n + 1;
+  return (need > 3 * n + 2 ? need : 3 * n + 2) * sizeof(T);
+}
+
+// K3-d: blocks of ``threads`` (a multiple of 32, at least 64) an SM holds
+// at once with P CTAs a lane, into ``blocks``
+template <typename T>
+int distributed_occupancy(int n, int P, int threads, int* blocks) {
+  int words = 0;
+  const int64_t smem = distributed_smem<T>(n, P, &words);
+  if (n < 1 || P < 1 || threads < 64 || threads > 1024 || threads % 32 || !blocks ||
+      smem > kMaxDynamicSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = chol_distributed_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads,
+                                                      static_cast<size_t>(smem));
+  return static_cast<int>(err);
+}
+
+// K3-d's launch: ``teams`` teams of P CTAs of ``threads`` threads in one
+// cooperative launch; L the column store of n (n + 3) / 2 words a team,
+// counts one zeroed counter a team
+template <typename T>
+int launch_distributed(const void* A, const void* b, void* x, void* L, void* counts, int n,
+                       int64_t B, int P, int teams, int threads, int mode, void* stream) {
+  int words = 0;
+  const int64_t smem = distributed_smem<T>(n, P, &words);
+  if (n < 1 || B < 1 || P < 1 || teams < 1 || threads < 64 || threads > 1024 ||
+      threads % 32 || mode < 0 || mode > 2 || smem > kMaxDynamicSmem ||
+      static_cast<int64_t>(teams) * P > (1 << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = chol_distributed_kernel<T>;
+  const cudaError_t set = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const T* a = static_cast<const T*>(A);
+  const T* r = static_cast<const T*>(b);
+  T* xx = static_cast<T*>(x);
+  T* l = static_cast<T*>(L);
+  unsigned* c = static_cast<unsigned*>(counts);
+  void* args[] = {&a, &r, &xx, &l, &c, &n, &P, &words, &B, &mode};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel), dim3(static_cast<unsigned>(teams * P)),
+      dim3(threads), args, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // K3-g: one thread a lane, L in the batch-minor scratch (row i of L packed
 // at i (i + 1) / 2), z written into x and overwritten in place by the back
 // solve, from the last row up.
@@ -573,8 +824,12 @@ int launch_global(const void* A, const void* b, void* L, void* x, int n, int64_t
 // A [n, n, B], b [n, B] -> x [n, B].  K3-r, n = 1 .. its most; K3-w with
 // ``lanes`` warps a block (a power of two, 1 .. 32, whose triangles fit
 // 232448 bytes); K3-c with ``size`` CTAs a lane (2, 4 or 8) of ``threads``
-// threads; K3-g with L, scratch of n (n + 1) / 2 * B words.  Each returns
-// cudaGetLastError().
+// threads; K3-d with ``size`` CTAs a lane of ``threads`` threads, in
+// ``teams`` teams (L, its column store of n (n + 3) / 2 words a team;
+// counts, one zeroed counter a team; ``mode`` 0, or the probe's 1 and 2),
+// and its occupancy, the blocks an SM holds, into ``blocks``; K3-g with L,
+// scratch of n (n + 1) / 2 * B words.  Each returns cudaGetLastError()
+// (the occupancy entry, the occupancy query's error).
 #define NLSOLVER_CHOL_LAUNCHERS(SUFFIX, T, MAXN)                                           \
   extern "C" int chol_solve_registers_##SUFFIX(const void* A, const void* b, void* x, int n, \
                                                int64_t B, void* stream) {                    \
@@ -588,6 +843,17 @@ int launch_global(const void* A, const void* b, void* L, void* x, int n, int64_t
                                              int64_t B, int size, int threads,               \
                                              void* stream) {                                 \
     return launch_cluster<T>(A, b, x, n, B, size, threads, stream);                          \
+  }                                                                                          \
+  extern "C" int chol_solve_distributed_##SUFFIX(const void* A, const void* b, void* x,      \
+                                                 void* L, void* counts, int n, int64_t B,    \
+                                                 int size, int teams, int threads, int mode, \
+                                                 void* stream) {                             \
+    return launch_distributed<T>(A, b, x, L, counts, n, B, size, teams, threads, mode,       \
+                                 stream);                                                    \
+  }                                                                                          \
+  extern "C" int chol_solve_distributed_occupancy_##SUFFIX(int n, int size, int threads,     \
+                                                           int* blocks) {                    \
+    return distributed_occupancy<T>(n, size, threads, blocks);                               \
   }                                                                                          \
   extern "C" int chol_solve_batchminor_##SUFFIX(const void* A, const void* b, void* L,       \
                                                 void* x, int n, int64_t B, void* stream) {   \

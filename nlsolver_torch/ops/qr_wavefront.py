@@ -17,7 +17,7 @@ float32 and 120 in float64 with Q, 240 and 169 without);
 shape.  Both are bit-equal to the twin.
 
 K2b keeps only the 2 n rows of the system that a stage of the wavefront
-touches, a window that slides down one row a stage, and comes in five
+touches, a window that slides down one row a stage, and comes in six
 forms, chosen by n and dtype alone (``least_squares_wavefront_kernel``):
 ``least_squares_wavefront_registers`` holds the window in a thread's
 registers (n <= 8 in float32, 5 in float64: ``registers_fit``);
@@ -29,10 +29,14 @@ over its threads, in shared memory (n <= 169 in float32, 119 in float64:
 ``least_squares_wavefront_cluster`` gives a lane a thread-block cluster of
 2, 4 or 8 CTAs, the window's columns split over their shared memory (n <=
 471 in float32, 329 in float64: ``cluster_fits``; the dispatcher's from n
-= 170 and 120); ``least_squares_wavefront_global`` works on a copy of the
-system in device memory, any n.  The first four read A and y once and
-write only x.  All five are bit-equal to the twin; a failed build or
-launch, or an n that a form does not take, raises.
+= 170 and 120); ``least_squares_wavefront_distributed`` spreads a lane
+over P CTAs of the whole card, the window's columns over their shared
+memory and a stage's rotations through device memory, in one cooperative
+launch (n <= 1847 in float32, 1262 in float64: ``distributed_fits``; the
+dispatcher's from n = 472 and 330); ``least_squares_wavefront_global``
+works on a copy of the system in device memory, any n.  The first five
+read A and y once and write only x.  All six are bit-equal to the twin; a
+failed build or launch, or an n that a form does not take, raises.
 """
 from __future__ import annotations
 
@@ -63,6 +67,9 @@ QR_WARP_LANES = 8
 # with clusters of 4 (2: 3.82, 3.34, 3.32; 8: 4.10, 3.75, 4.99)
 CLUSTER_SIZES = (2, 4, 8)
 CLUSTER_GROUPS = 4
+# K2b's distributed form: threads a CTA, about (its columns times the
+# groups that share out a stage's rotations)
+DISTRIBUTED_THREADS = 256
 
 
 def qr_wavefront_reference(A: torch.Tensor, compute_q: bool = False):
@@ -160,12 +167,63 @@ def cluster_fits(n: int, dtype: torch.dtype) -> bool:
     return cluster_plan(n, dtype)[0] > 0
 
 
+def distributed_bytes(n: int, dtype: torch.dtype, size: int) -> int:
+    """Shared memory of one CTA of K2b's distributed form with ``size`` CTAs
+    a lane: its columns of the ring, 2 n + 1 rows of ceil((n + 1) / size)
+    words (CTA 0 holds the most), and 3 n + 2 words, a stage's 2 n
+    coefficients or the back-substitution's x and two rows."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return ((2 * n + 1) * -(-(n + 1) // size) + 3 * n + 2) * itemsize
+
+
+def distributed_least(n: int, dtype: torch.dtype, sms: int = SMS) -> int:
+    """The fewest CTAs, at most ``sms``, whose slices of K2b's distributed
+    form hold the ring of n columns in ``dtype`` within a block's shared
+    memory (``distributed_bytes``); 0 where ``sms`` CTAs do not hold it."""
+    if dtype not in _build.DTYPE_SUFFIX or n < 1:
+        return 0
+    cap = MAX_DYNAMIC_SMEM // torch.empty((), dtype=dtype).element_size() - (3 * n + 2)
+    if cap < 2 * n + 1:
+        return 0
+    # ceil((n + 1) / size) local columns of 2 n + 1 words must fit cap
+    size = -(-(n + 1) // (cap // (2 * n + 1)))
+    return size if size <= sms else 0
+
+
+def distributed_fits(n: int, dtype: torch.dtype, sms: int = SMS) -> bool:
+    """Whether K2b's distributed form takes n in ``dtype`` on a card of
+    ``sms`` SMs: n <= 1847 in float32, 1262 in float64 on an H100's 132."""
+    return distributed_least(n, dtype, sms) > 0
+
+
+def distributed_plan(n: int, dtype: torch.dtype, lanes: int | None = None,
+                     sms: int = SMS) -> int:
+    """K2b's distributed form's CTAs a lane, P, for n in ``dtype`` and
+    ``lanes`` lanes: the fewest whose slices hold the ring
+    (``distributed_least``), spread to ``sms // lanes`` (at most n + 1, a
+    column each) where few lanes leave SMs idle; 0 where ``sms`` CTAs do not
+    hold the ring."""
+    least = distributed_least(n, dtype, sms)
+    if not least or not lanes:
+        return least
+    return max(least, min(n + 1, sms // lanes))
+
+
+def distributed_groups(n: int, size: int) -> int:
+    """Groups of threads a CTA of K2b's distributed form, G, that share out a
+    stage's rotations, each of one thread a local column: about
+    ``DISTRIBUTED_THREADS`` threads, at least two warps (the
+    back-substitution takes two), at most 1024."""
+    columns = -(-(n + 1) // size)
+    return min(1024 // columns, max(-(-64 // columns), DISTRIBUTED_THREADS // columns))
+
+
 def least_squares_form(n: int, dtype: torch.dtype) -> str:
     """The form of K2b that the dispatcher gives n in ``dtype``: the first
-    of "registers", "shared", "warp" and "cluster" that takes it, else
-    "global"."""
+    of "registers", "shared", "warp", "cluster" and "distributed" that
+    takes it, else "global"."""
     for form, fits in (("registers", registers_fit), ("shared", shared_fits), ("warp", warp_fits),
-                       ("cluster", cluster_fits)):
+                       ("cluster", cluster_fits), ("distributed", distributed_fits)):
         if fits(n, dtype):
             return form
     return "global"
@@ -205,8 +263,9 @@ def qr_form(m: int, n: int, dtype: torch.dtype, compute_q: bool) -> str:
 def _launcher(entry: str, suffix: str):
     """The C entry point: ``qr_wavefront`` (K2a's and K2b's device-memory
     forms), ``qr_wavefront_warp``, ``least_squares_registers``,
-    ``least_squares_shared``, ``least_squares_warp`` or
-    ``least_squares_cluster``."""
+    ``least_squares_shared``, ``least_squares_warp``,
+    ``least_squares_cluster`` or ``least_squares_distributed`` (and its
+    ``_occupancy``)."""
     fn = getattr(_build.load_library(), f"{entry}_{suffix}")
     vp, ci, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     fn.argtypes = {"qr_wavefront": [vp] * 6 + [ci, ci, i64, ci, ci, vp],
@@ -214,7 +273,10 @@ def _launcher(entry: str, suffix: str):
                    "least_squares_registers": [vp] * 3 + [ci, ci, i64, vp],
                    "least_squares_shared": [vp] * 3 + [ci, ci, i64, ci, ci, vp],
                    "least_squares_warp": [vp] * 3 + [ci, ci, i64, ci, vp],
-                   "least_squares_cluster": [vp] * 3 + [ci, ci, i64, ci, ci, ci, vp]}[entry]
+                   "least_squares_cluster": [vp] * 3 + [ci, ci, i64, ci, ci, ci, vp],
+                   "least_squares_distributed": [vp] * 6 + [ci, ci, i64, ci, ci, ci, ci, vp],
+                   "least_squares_distributed_occupancy": [ci, ci, ci, ctypes.POINTER(ci)]
+                   }[entry]
     fn.restype = ci
     return fn
 
@@ -412,8 +474,71 @@ def least_squares_wavefront_cluster(A: torch.Tensor, y: torch.Tensor, size: int 
     return x
 
 
+def distributed_occupancy(dtype: torch.dtype, n: int, size: int, groups: int) -> int:
+    """CTAs of K2b's distributed form (``size`` CTAs a lane, ``groups``
+    groups of threads) that an SM of the current card holds at once, from
+    the CUDA occupancy query."""
+    found = ctypes.c_int(0)
+    err = _launcher("least_squares_distributed_occupancy", _build.DTYPE_SUFFIX[dtype])(
+        n, size, groups, ctypes.byref(found))
+    if err != 0:
+        raise RuntimeError("least_squares_wavefront_distributed: occupancy query failed "
+                           f"(cudaError {err})")
+    return found.value
+
+
+def least_squares_wavefront_distributed(A: torch.Tensor, y: torch.Tensor,
+                                        size: int | None = None, _groups: int | None = None,
+                                        _mode: int = 0) -> torch.Tensor:
+    """K2b's distributed form: a lane over ``size`` CTAs (``distributed_plan``
+    for B lanes and the card's SMs by default), column c of the window's
+    ring of 2 n + 1 rows in CTA c % size's shared memory; each stage's
+    rotations formed by the pivot columns' owners into device memory, one
+    barrier in device memory a stage, each CTA's ``distributed_groups``
+    groups of threads sharing out the rotations; the back-substitution in
+    the lane's first CTA; one cooperative launch of as many teams of
+    ``size`` CTAs as the card holds at once (at most B), each team walking
+    its share of the lanes; only ``x [n, B]`` is written.  CPU tensors run
+    the twin; on a card it raises where ``size`` CTAs do not hold the ring
+    (``distributed_fits``) or the card cannot hold them at once.
+    ``_groups`` (a CTA needs two warps or more) and ``_mode`` (1: no
+    back-substitution, x left unwritten; 2: the barriers alone) are for the
+    tests and probes only."""
+    name = "least_squares_wavefront_distributed"
+    m, n, B = _check_lstsq(name, A, y)
+    if A.device.type == "cpu" and y.device.type == "cpu":
+        return least_squares_wavefront_reference(A, y)
+    _build.check_cuda_inputs(name, {"A": A, "y": y})
+    sms = torch.cuda.get_device_properties(A.device).multi_processor_count
+    if size is None:
+        size = distributed_plan(n, A.dtype, B, sms)
+    if size < 1 or distributed_bytes(n, A.dtype, size) > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"{name}: n={n} in {A.dtype} does not fit {size or sms} CTAs' shared "
+                         "memory; least_squares_wavefront_global takes it")
+    if B == 0:
+        return A.new_empty((n, 0))
+    groups = _groups or distributed_groups(n, size)
+    x = A.new_empty((n, B))
+    with torch.cuda.device(A.device):
+        teams = min(B, distributed_occupancy(A.dtype, n, size, groups) * sms // size)
+        if teams < 1:
+            raise ValueError(f"{name}: the card does not hold {size} CTAs of {groups} groups at "
+                             f"once for n={n} in {A.dtype}")
+        coef = A.new_empty((teams, 4 * n))
+        store = A.new_empty((teams, n * (n + 3) // 2))
+        counts = torch.zeros(teams, dtype=torch.int32, device=A.device)
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        err = _launcher("least_squares_distributed", _build.DTYPE_SUFFIX[A.dtype])(
+            A.data_ptr(), y.data_ptr(), x.data_ptr(), coef.data_ptr(), store.data_ptr(),
+            counts.data_ptr(), m, n, B, size, teams, groups, _mode, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+    least_squares_wavefront_distributed.launches += 1
+    return x
+
+
 def least_squares_wavefront_global(A: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """K2b's device-memory form, any n (the dispatcher's past the cluster
+    """K2b's device-memory form, any n (the dispatcher's past the distributed
     form's): the rotations run on a working copy of A and y (scratch ``R``,
     ``qty``) in device memory.  CPU tensors run the twin."""
     name = "least_squares_wavefront_global"
@@ -434,14 +559,15 @@ def least_squares_wavefront_kernel(A: torch.Tensor, y: torch.Tensor) -> torch.Te
     rotations thread y (implicit Q^T y) and the back-substitution runs in
     the kernel; only ``x [n, B]`` is written.  CUDA tensors run K2b in the
     register form where n fits it, else the shared-memory form, else the
-    warp form, else the cluster form, else the device-memory form; CPU
-    tensors its twin."""
+    warp form, else the cluster form, else the distributed form, else the
+    device-memory form; CPU tensors its twin."""
     m, n, B = _check_lstsq("least_squares_wavefront_kernel", A, y)
     if A.device.type == "cpu" and y.device.type == "cpu":
         return least_squares_wavefront_reference(A, y)
     forms = {"registers": least_squares_wavefront_registers,
              "shared": least_squares_wavefront_shared,
              "warp": least_squares_wavefront_warp, "cluster": least_squares_wavefront_cluster,
+             "distributed": least_squares_wavefront_distributed,
              "global": least_squares_wavefront_global}
     return forms[least_squares_form(n, A.dtype)](A, y)
 
@@ -452,4 +578,5 @@ least_squares_wavefront_registers.launches = 0
 least_squares_wavefront_shared.launches = 0
 least_squares_wavefront_warp.launches = 0
 least_squares_wavefront_cluster.launches = 0
+least_squares_wavefront_distributed.launches = 0
 least_squares_wavefront_global.launches = 0

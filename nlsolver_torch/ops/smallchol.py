@@ -24,6 +24,10 @@ work over the fleet.
   - ``solve_spd_cluster`` (K3-c): a lane a thread-block cluster of 2, 4 or 8
     CTAs, K3-w's packed rows split over their shared memory, row i in CTA i
     % C (``cluster_fits``: n <= 927 in float32, 645 in float64);
+  - ``solve_spd_distributed`` (K3-d): a lane over P CTAs of the whole card,
+    K3-c's rows over their shared memory, the columns of L through device
+    memory, one barrier in device memory a step, one cooperative launch
+    (``distributed_fits``: n <= 3599 in float32, 2457 in float64);
   - ``solve_spd_batchminor_global`` (K3-g): a thread a lane, L in a scratch
     in device memory, any n.
 
@@ -61,6 +65,10 @@ WARP_TABLE_BYTES = 32 * 33 // 2 * 2
 # of 4 (the plan's there; 3.53 and 3.08 with 2, 3.72 and 5.98 with 8)
 CLUSTER_SIZES = (2, 4, 8)
 CLUSTER_THREADS = 256
+# K3-d: threads a CTA.  On an H100, 128, 256 and 512 took 2.85, 2.58 and
+# 2.51 ms at [646, 646, 2] f64 with 66 CTAs a lane, 25.9, 19.9 and 17.5 at
+# [700, 700, 64] with 9
+DISTRIBUTED_THREADS = 512
 
 
 def registers_fit(n: int, dtype: torch.dtype) -> bool:
@@ -138,14 +146,57 @@ def cluster_fits(n: int, dtype: torch.dtype) -> bool:
     return cluster_plan(n, dtype) > 0
 
 
+def distributed_bytes(n: int, dtype: torch.dtype, size: int) -> int:
+    """Shared memory of one CTA of K3-d with ``size`` CTAs a lane: its
+    packed rows (K3-c's layout, ``cluster_words``), the diagonal of all n
+    rows and a column of n + 1 words; at least the 3 n + 2 words of the back
+    solve, which reuses the first CTA's rows."""
+    words = max(cluster_words(n, size) + 2 * n + 1, 3 * n + 2)
+    return words * torch.empty((), dtype=dtype).element_size()
+
+
+def distributed_least(n: int, dtype: torch.dtype, sms: int = SMS) -> int:
+    """The fewest CTAs, at most ``sms``, whose slices of K3-d hold the
+    packed rows of order n in ``dtype`` within a block's shared memory
+    (``distributed_bytes``); 0 where ``sms`` CTAs do not hold them."""
+    if dtype not in _build.DTYPE_SUFFIX or n < 1:
+        return 0
+    cap = MAX_DYNAMIC_SMEM // torch.empty((), dtype=dtype).element_size() - (2 * n + 1)
+    if cap < 1:
+        return 0
+    # no CTA holds less than its share of the n (n + 3) / 2 words
+    for size in range(max(1, -(-(n * (n + 3) // 2) // cap)), sms + 1):
+        if distributed_bytes(n, dtype, size) <= MAX_DYNAMIC_SMEM:
+            return size
+    return 0
+
+
+def distributed_fits(n: int, dtype: torch.dtype, sms: int = SMS) -> bool:
+    """Whether K3-d takes n in ``dtype`` on a card of ``sms`` SMs: n <= 3599
+    in float32, 2457 in float64 on an H100's 132."""
+    return distributed_least(n, dtype, sms) > 0
+
+
+def distributed_plan(n: int, dtype: torch.dtype, lanes: int | None = None,
+                     sms: int = SMS) -> int:
+    """K3-d's CTAs a lane, P, for order n in ``dtype`` and ``lanes`` lanes:
+    the fewest whose slices hold the rows (``distributed_least``), spread to
+    ``sms // lanes`` (at most n + 1, a row each) where few lanes leave SMs
+    idle; 0 where ``sms`` CTAs do not hold the rows."""
+    least = distributed_least(n, dtype, sms)
+    if not least or not lanes:
+        return least
+    return max(least, min(n + 1, sms // lanes))
+
+
 def plan(n: int, dtype: torch.dtype) -> str:
     """The form of K3 that the dispatcher gives order n in ``dtype``, the
     first that takes it: "registers" (K3-r), "warp" (K3-w), "cluster"
-    (K3-c), "global" (K3-g).  On an H100 K3-r is the fastest form wherever
-    it fits, and K3-w past it at every B of ``benches.sweep_spd_solve`` but
-    one point, [20, 20, 262144] in float32, which no path runs.  Raises
-    ``ValueError`` where no form takes the order (n < 1, a dtype other than
-    float32 and float64)."""
+    (K3-c), "distributed" (K3-d), "global" (K3-g).  On an H100 K3-r is the
+    fastest form wherever it fits, and K3-w past it at every B of
+    ``benches.sweep_spd_solve`` but one point, [20, 20, 262144] in float32,
+    which no path runs.  Raises ``ValueError`` where no form takes the
+    order (n < 1, a dtype other than float32 and float64)."""
     if dtype not in _build.DTYPE_SUFFIX:
         raise ValueError(f"solve_spd_batchminor: A must be float32 or float64, got {dtype}")
     if n < 1:
@@ -154,7 +205,9 @@ def plan(n: int, dtype: torch.dtype) -> str:
         return "registers"
     if warp_fits(n, dtype):
         return "warp"
-    return "cluster" if cluster_fits(n, dtype) else "global"
+    if cluster_fits(n, dtype):
+        return "cluster"
+    return "distributed" if distributed_fits(n, dtype) else "global"
 
 
 def chol_solve_right_looking(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -191,12 +244,15 @@ def chol_solve_right_looking(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _launcher(entry: str, suffix: str):
     """The C entry point: ``chol_solve_registers``, ``chol_solve_warp``,
-    ``chol_solve_cluster`` or ``chol_solve_batchminor`` (K3-g)."""
+    ``chol_solve_cluster``, ``chol_solve_distributed`` (and its
+    ``_occupancy``) or ``chol_solve_batchminor`` (K3-g)."""
     fn = getattr(_build.load_library(), f"{entry}_{suffix}")
     vp, ci, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     fn.argtypes = {"chol_solve_registers": [vp] * 3 + [ci, i64, vp],
                    "chol_solve_warp": [vp] * 3 + [ci, i64, ci, vp],
                    "chol_solve_cluster": [vp] * 3 + [ci, i64, ci, ci, vp],
+                   "chol_solve_distributed": [vp] * 5 + [ci, i64, ci, ci, ci, ci, vp],
+                   "chol_solve_distributed_occupancy": [ci, ci, ci, ctypes.POINTER(ci)],
                    "chol_solve_batchminor": [vp] * 4 + [ci, i64, vp]}[entry]
     fn.restype = ci
     return fn
@@ -301,10 +357,68 @@ def solve_spd_cluster(A: torch.Tensor, b: torch.Tensor, size: int | None = None,
     return x
 
 
+def distributed_occupancy(dtype: torch.dtype, n: int, size: int,
+                          threads: int = DISTRIBUTED_THREADS) -> int:
+    """CTAs of K3-d (``size`` CTAs a lane, ``threads`` threads each) that an
+    SM of the current card holds at once, from the CUDA occupancy query."""
+    found = ctypes.c_int(0)
+    err = _launcher("chol_solve_distributed_occupancy", _build.DTYPE_SUFFIX[dtype])(
+        n, size, threads, ctypes.byref(found))
+    if err != 0:
+        raise RuntimeError(f"solve_spd_distributed: occupancy query failed (cudaError {err})")
+    return found.value
+
+
+def solve_spd_distributed(A: torch.Tensor, b: torch.Tensor, size: int | None = None,
+                          _threads: int | None = None, _mode: int = 0) -> torch.Tensor:
+    """K3-d: A [n, n, B], b [n, B] -> x [n, B], a lane over ``size`` CTAs
+    (``distributed_plan`` for B lanes and the card's SMs by default) of
+    ``DISTRIBUTED_THREADS`` threads, row i of the packed triangle (b as row
+    n) in CTA i % size's shared memory, each column of L formed a step ahead
+    into a store in device memory, one barrier in device memory a step, the
+    back solve in the lane's first CTA; one cooperative launch of as many
+    teams of ``size`` CTAs as the card holds at once (at most B), each team
+    walking its share of the lanes.  CPU tensors run the twin; on a card it
+    raises where ``size`` CTAs do not hold the rows
+    (``distributed_fits``) or the card cannot hold them at once.
+    ``_threads`` (at least 64) and ``_mode`` (1: no back solve, x left
+    unwritten; 2: the barriers alone) are for the tests and probes only."""
+    name = "solve_spd_distributed"
+    n, B = _check(name, A, b)
+    if A.device.type == "cpu" and b.device.type == "cpu":
+        return _chol_solve_batchminor(A, b)
+    _build.check_cuda_inputs(name, {"A": A, "b": b})
+    sms = torch.cuda.get_device_properties(A.device).multi_processor_count
+    if size is None:
+        size = distributed_plan(n, A.dtype, B, sms)
+    if size < 1 or distributed_bytes(n, A.dtype, size) > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"{name}: n={n} in {A.dtype} does not fit {size or sms} CTAs' shared "
+                         "memory; solve_spd_batchminor_global takes it")
+    if B == 0:
+        return torch.empty_like(b)
+    threads = _threads or DISTRIBUTED_THREADS
+    x = torch.empty_like(b)
+    with torch.cuda.device(A.device):
+        teams = min(B, distributed_occupancy(A.dtype, n, size, threads) * sms // size)
+        if teams < 1:
+            raise ValueError(f"{name}: the card does not hold {size} CTAs of {threads} threads "
+                             f"at once for n={n} in {A.dtype}")
+        store = A.new_empty((teams, n * (n + 3) // 2))
+        counts = torch.zeros(teams, dtype=torch.int32, device=A.device)
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        err = _launcher("chol_solve_distributed", _build.DTYPE_SUFFIX[A.dtype])(
+            A.data_ptr(), b.data_ptr(), x.data_ptr(), store.data_ptr(), counts.data_ptr(), n, B,
+            size, teams, threads, _mode, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+    solve_spd_distributed.launches += 1
+    return x
+
+
 def solve_spd_batchminor_global(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K3-g: A [n, n, B], b [n, B] -> x [n, B], a thread a lane with L in a
     scratch of n (n + 1) / 2 rows in device memory, allocated for this
-    launch; any n (the dispatcher's past K3-c's range).  CPU tensors run
+    launch; any n (the dispatcher's past K3-d's range).  CPU tensors run
     the twin."""
     name = "solve_spd_batchminor_global"
     n, B = _check(name, A, b)
@@ -327,13 +441,15 @@ def solve_spd_batchminor(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return _chol_solve_batchminor(A, b)
     _build.check_cuda_inputs("solve_spd_batchminor", {"A": A, "b": b})
     forms = {"registers": solve_spd_registers, "warp": solve_spd_warp,
-             "cluster": solve_spd_cluster, "global": solve_spd_batchminor_global}
+             "cluster": solve_spd_cluster, "distributed": solve_spd_distributed,
+             "global": solve_spd_batchminor_global}
     return forms[plan(n, A.dtype)](A, b)
 
 
 solve_spd_registers.launches = 0
 solve_spd_warp.launches = 0
 solve_spd_cluster.launches = 0
+solve_spd_distributed.launches = 0
 solve_spd_batchminor_global.launches = 0
 
 

@@ -1,9 +1,9 @@
 """Kernels K2a and K2b of nlsolver_torch (``ops.qr_wavefront``): the CPU
 route (the plain twins) against the JAX package's Pallas kernels in
 interpret mode and its jnp wavefront, plain-tensor emulations of the
-order of K2a's warp form and of K2b's window, warp and cluster forms, the shapes
-each form takes and refuses, and the CUDA kernels against their twins (on
-a card only).
+order of K2a's warp form and of K2b's window, warp, cluster and
+distributed forms, the shapes each form takes and refuses, and the CUDA
+kernels against their twins (on a card only).
 
 JAX is imported only inside the tests that compare with it, so that the
 card's tests run where JAX is not installed:
@@ -61,7 +61,7 @@ def test_cpu_route_matches_jax_wavefront_f64(m, n, B):
 
 LSTSQ_FORMS = (tqw.least_squares_wavefront_registers, tqw.least_squares_wavefront_shared,
                tqw.least_squares_wavefront_warp, tqw.least_squares_wavefront_cluster,
-               tqw.least_squares_wavefront_global)
+               tqw.least_squares_wavefront_distributed, tqw.least_squares_wavefront_global)
 
 
 QR_FORMS = (tqw.qr_wavefront_warp, tqw.qr_wavefront_global)
@@ -414,6 +414,143 @@ def test_cluster_limits():
     assert tqw.cluster_plan(4, torch.float16) == (0, 0) and tqw.cluster_plan(0, f32) == (0, 0)
 
 
+def distributed_emulation(A, y, P, groups=1):
+    """K2b's distributed form in plain torch ops, in the kernel's order:
+    column c of the ring (c = n is Q^T y) in CTA c % P at local column c //
+    P, each CTA's ring starting as NaN; a CTA fetches only its own columns
+    of a row, a stage ahead.  At each stage the owner of pivot column j
+    forms (c, s) from its own ring into the team's coefficient row of
+    parity k % 2 in device memory (NaN until written); past the barrier
+    every CTA copies the stage's pairs j_lo .. j_hi into its own shared row
+    (NaN elsewhere) and turns its own columns col >= j by them, the
+    rotations dealt over ``groups`` groups of threads.  After the last
+    stage each CTA stores its columns of R's rows 0 .. n - 1 into the
+    team's store (NaN until written), and the back-substitution reads the
+    store in the twin's order."""
+    from nlsolver_torch.linalg.givens import givens_rotation
+
+    m, n, B = A.shape
+    nan = float("nan")
+    slots, Lc = 2 * n + 1, -(-(n + 1) // P)
+    rings = [torch.full((slots, Lc, B), nan, dtype=A.dtype) for _ in range(P)]
+    coef = torch.full((2, 2 * n, B), nan, dtype=A.dtype)
+    mine = [[c for c in range(k, n + 1, P)] for k in range(P)]
+
+    def fetch(r):
+        for k in range(P):
+            for c in mine[k]:
+                rings[k][r % slots, c // P] = A[r, c] if c < n else y[r]
+
+    fetch(m - 1)
+    if m >= 2:
+        fetch(m - 2)
+    for k in range(m + n - 2):
+        if k <= m - 3:
+            fetch(m - 3 - k)
+        j_lo, j_hi = max(0, k - m + 2), min(n - 1, k // 2)
+        s0 = (m - 2 - k) % slots
+        coef[k % 2] = nan  # what the stage before left there is never read
+        for j in range(j_lo, j_hi + 1):
+            ring = rings[j % P]
+            rp = (s0 + 2 * j) % slots
+            coef[k % 2, 2 * j], coef[k % 2, 2 * j + 1] = givens_rotation(
+                ring[rp, j // P], ring[(rp + 1) % slots, j // P])
+        for kk in range(P):
+            ring = rings[kk]
+            cs = torch.full((2 * n, B), nan, dtype=A.dtype)
+            cs[2 * j_lo:2 * j_hi + 2] = coef[k % 2, 2 * j_lo:2 * j_hi + 2]
+            for g in range(groups):
+                for j in range(j_lo + g, j_hi + 1, groups):
+                    cols = [c // P for c in mine[kk] if c >= j]
+                    if not cols:
+                        continue
+                    rp = (s0 + 2 * j) % slots
+                    rq = (rp + 1) % slots
+                    c, s = cs[2 * j], cs[2 * j + 1]
+                    vp, vq = ring[rp, cols].clone(), ring[rq, cols].clone()
+                    ring[rp, cols], ring[rq, cols] = c * vp + s * vq, c * vq + (-s) * vp
+    store = torch.full((n, n + 1, B), nan, dtype=A.dtype)
+    for kk in range(P):
+        for c in mine[kk]:
+            for i in range(min(c, n - 1) + 1):
+                store[i, c] = rings[kk][i, c // P]
+    xs = [None] * n
+    for i in range(n - 1, -1, -1):
+        acc = store[i, n]
+        for col in range(i + 1, n):
+            acc = acc - store[i, col] * xs[col]
+        xs[i] = acc / store[i, i]
+    return torch.stack(xs, dim=0)
+
+
+@pytest.mark.parametrize("deficient", [False, True])
+@pytest.mark.parametrize("P,groups", [(3, 1), (5, 3), (12, 2)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("m,n", CLUSTER_SHAPES)
+def test_distributed_order_equals_twin(m, n, dtype, P, groups, deficient):
+    """K2b-d's order (columns interleaved over 3, 5 and 12 CTAs, more than a
+    cluster holds and not a power of two; each stage's coefficients through
+    the team's row of the stage's parity in device memory, copied by every
+    CTA past the barrier; the rotations dealt over groups of threads; the
+    back-substitution from the store) is the twin's bit for bit; a zero
+    column makes a = b = 0, the identity select."""
+    A, y = _system(17, m, n, 8, dtype)
+    A[np.arange(n), np.arange(n)] += np.asarray(2 * n, dtype)
+    A, y = torch.from_numpy(A), torch.from_numpy(y)
+    if deficient and n > 1:
+        A[:, n // 2] = 0.0
+    x = distributed_emulation(A, y, P, groups)
+    torch.testing.assert_close(x, tqw.least_squares_wavefront_reference(A, y), rtol=0, atol=0,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_distributed_order_matches_jax_pallas_interpret(dtype):
+    from nlsolver_tpu.ops.qr_wavefront import least_squares_wavefront_pallas
+
+    A, y = _system(10, 11, 9, 16, dtype)
+    A[np.arange(9), np.arange(9)] += np.asarray(18, dtype)
+    x = distributed_emulation(torch.from_numpy(A), torch.from_numpy(y), 5)
+    jx = np.asarray(least_squares_wavefront_pallas(A, y, interpret=True))
+    if dtype == np.float32:
+        np.testing.assert_allclose(x.numpy(), jx, atol=1e-5)
+    else:
+        np.testing.assert_allclose(x.numpy(), jx, rtol=1e-12, atol=1e-13)
+
+
+def test_distributed_limits():
+    """K2b-d's range, worked out from 232448 bytes a CTA: (2 n + 1)
+    ceil((n + 1) / P) words of ring and 3 n + 2 of coefficients (or the
+    back-substitution's), P up to the card's 132 SMs: from the end of
+    K2b-c's range to n = 1847 in f32 and 1262 in f64; the plan takes the
+    fewest CTAs that hold the ring, spread over the card's SMs where few
+    lanes leave them idle; about 256 threads a CTA, at least two warps."""
+    f32, f64 = torch.float32, torch.float64
+    assert tqw.distributed_bytes(330, f64, 66) == (661 * 6 + 992) * 8
+    for dtype, (first, last) in ((f32, (472, 1847)), (f64, (330, 1262))):
+        assert not tqw.cluster_fits(first, dtype) and tqw.cluster_fits(first - 1, dtype)
+        assert tqw.distributed_fits(first, dtype) and tqw.distributed_fits(last, dtype)
+        assert not tqw.distributed_fits(last + 1, dtype)
+        assert tqw.distributed_least(last + 1, dtype) == 0
+        assert tqw.distributed_bytes(last, dtype, 132) <= 232448 < \
+            tqw.distributed_bytes(last + 1, dtype, 132)
+        for n in range(1, last + 1, 13):
+            P = tqw.distributed_least(n, dtype)
+            assert tqw.distributed_bytes(n, dtype, P) <= 232448
+            assert P == 1 or tqw.distributed_bytes(n, dtype, P - 1) > 232448
+            G = tqw.distributed_groups(n, P)
+            columns = -(-(n + 1) // P)
+            assert 64 <= columns * G <= 1024 and (columns * G <= 256 or columns * G < 64 + columns)
+        assert not tqw.distributed_fits(last, dtype, sms=100)
+    # the path's [330, 330, 2] in f64: 66 CTAs of 6 columns and 42 groups
+    assert tqw.distributed_least(330, f64) == 8 and tqw.distributed_least(472, f32) == 9
+    assert [tqw.distributed_plan(330, f64, lanes) for lanes in (1, 2, 3, 16, 17, 64)] == \
+        [132, 66, 44, 8, 8, 8]
+    assert tqw.distributed_groups(330, 66) == 42 and tqw.distributed_groups(1, 2) == 256
+    assert tqw.distributed_plan(2, f64, 1) == 3 and tqw.distributed_plan(1263, f64, 2) == 0
+    assert tqw.distributed_plan(4, torch.float16) == 0 and tqw.distributed_plan(0, f32) == 0
+
+
 def test_window_order_edges():
     # m = n = 1 has no stage; m = n + 1 and square m = n end where the
     # window's last rows are the system's first
@@ -441,18 +578,19 @@ def test_form_limits():
         assert [tqw.warp_lanes(n, dtype) for n in edges] == [8, 4, 4, 2, 2, 1]
         assert all(tqw.warp_lanes(n, dtype) * tqw.warp_bytes(n, dtype) <= 232448
                    for n in range(1, 170) if tqw.warp_fits(n, dtype))
-    # the dispatcher's five ranges, by n and dtype alone
-    for dtype, ends in ((f32, (8, 29, 169, 471)), (f64, (5, 20, 119, 329))):
-        forms = [tqw.least_squares_form(n, dtype) for n in range(1, 600)]
+    # the dispatcher's six ranges, by n and dtype alone
+    for dtype, ends in ((f32, (8, 29, 169, 471, 1847)), (f64, (5, 20, 119, 329, 1262))):
+        forms = [tqw.least_squares_form(n, dtype) for n in range(1, 2000)]
         want = ["registers"] * ends[0] + ["shared"] * (ends[1] - ends[0]) + \
             ["warp"] * (ends[2] - ends[1]) + ["cluster"] * (ends[3] - ends[2]) + \
-            ["global"] * (599 - ends[3])
+            ["distributed"] * (ends[4] - ends[3]) + ["global"] * (1999 - ends[4])
         assert forms == want
-        # the edges: the last n of K2b-w, the first and last of K2b-c, the
-        # first of K2b-g
+        # the edges: the last n of K2b-w, the first and last of K2b-c and of
+        # K2b-d, the first of K2b-g
         assert [tqw.least_squares_form(n, dtype) for n in (ends[2], ends[2] + 1, ends[3],
-                                                            ends[3] + 1)] == \
-            ["warp", "cluster", "cluster", "global"]
+                                                            ends[3] + 1, ends[4],
+                                                            ends[4] + 1)] == \
+            ["warp", "cluster", "cluster", "distributed", "distributed", "global"]
 
 
 def test_shape_and_device_errors():
@@ -494,14 +632,15 @@ def test_kernels_bit_equal_to_twins_on_card(dtype, m, n, B):
 
 def _form_cases():
     """(form, m, n, dtype): each K2b form at the first and last n it takes
-    (the global form at the first n past the cluster one's), at square m = n
-    and at m = n + 1, and at the NLLS fleet's [34, 2]."""
+    (the distributed form at the first n past the cluster one's; the global
+    form there too, by direct call), at square m = n and at m = n + 1, and
+    at the NLLS fleet's [34, 2]."""
     cases = []
     for dtype, reg, shared, warp, cluster in ((torch.float32, 8, 29, 169, 471),
                                               (torch.float64, 5, 20, 119, 329)):
         for form, ns in (("registers", (1, reg)), ("shared", (reg + 1, shared)),
                          ("warp", (shared + 1, warp)), ("cluster", (warp + 1, cluster)),
-                         ("global", (cluster + 1,))):
+                         ("distributed", (cluster + 1,))):
             cases += [(form, m, n, dtype) for n in ns for m in (n, n + 1)]
         cases.append(("registers", 34, 2, dtype))
     return cases
@@ -522,7 +661,8 @@ def test_each_form_bit_equal_to_twin_on_card(form, m, n, dtype):
     takes = {tqw.least_squares_wavefront_registers: tqw.registers_fit,
              tqw.least_squares_wavefront_shared: tqw.shared_fits,
              tqw.least_squares_wavefront_warp: tqw.warp_fits,
-             tqw.least_squares_wavefront_cluster: tqw.cluster_fits}
+             tqw.least_squares_wavefront_cluster: tqw.cluster_fits,
+             tqw.least_squares_wavefront_distributed: tqw.distributed_fits}
     for other in LSTSQ_FORMS:
         if takes.get(other, lambda n, dtype: True)(n, dtype):
             assert torch.equal(other(A, y), x)
@@ -548,6 +688,14 @@ def test_forms_refuse_what_they_do_not_take_on_card():
     with pytest.raises(ValueError, match="cluster"):
         tqw.least_squares_wavefront_cluster(A[:400, :400].contiguous(), y[:400].contiguous(),
                                             size=4)
+    with pytest.raises(ValueError, match="CTAs' shared memory"):
+        tqw.least_squares_wavefront_distributed(A, y, size=tqw.distributed_least(472, A.dtype) - 1)
+    # past K2b-d's range the dispatcher names K2b-g and K2b-d refuses
+    A, y = torch.zeros(1263, 1263, 2, device=dev, dtype=torch.float64), torch.zeros(
+        1263, 2, device=dev, dtype=torch.float64)
+    assert tqw.least_squares_form(1263, torch.float64) == "global"
+    with pytest.raises(ValueError, match="CTAs' shared memory"):
+        tqw.least_squares_wavefront_distributed(A, y)
 
 
 @pytest.mark.gpu
@@ -601,6 +749,40 @@ def test_cluster_form_bit_equal_with_every_plan_on_card(dtype, m, n, B):
             torch.cuda.synchronize()
             assert tqw.least_squares_wavefront_cluster.launches == before + 1
             assert torch.equal(x, twin), (size, groups)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("m,n,B", [(330, 330, 2), (473, 472, 2), (400, 400, 64), (20, 17, 5),
+                                   (40, 35, 70)])
+def test_distributed_form_bit_equal_with_every_plan_on_card(dtype, m, n, B):
+    """K2b-d at f64's path [330, 330, 2], at f32's first n with one row
+    more, on 64 lanes (several waves of teams) and below its range, a zero
+    column in the last two, with 3, 5, 12, 66 and 132 CTAs a lane where they
+    hold the ring, and half, the plan's and twice the plan's groups of
+    threads at the plan's P: the twin's bits."""
+    dev = _on_card()
+    A, y = (torch.from_numpy(a).to(dev, dtype) for a in _system(15, m, n, B))
+    if n < 64:
+        A[:, n // 2] = 0.0
+    twin = tqw.least_squares_wavefront_reference(A, y)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    least, plan = tqw.distributed_least(n, dtype, sms), tqw.distributed_plan(n, dtype, B, sms)
+    if not least:
+        pytest.skip(f"n={n} does not fit {sms} CTAs in {dtype}")
+    for size in sorted({least, plan, 3, 5, 12, 66, 132}):
+        if size < least or size > sms:
+            continue
+        G, columns = tqw.distributed_groups(n, size), -(-(n + 1) // size)
+        for groups in ({G // 2, G, 2 * G} if size == plan else {G}):
+            if not 64 <= groups * columns <= 1024:
+                continue
+            before = tqw.least_squares_wavefront_distributed.launches
+            x = tqw.least_squares_wavefront_distributed(A, y, size=size, _groups=groups)
+            torch.cuda.synchronize()
+            assert tqw.least_squares_wavefront_distributed.launches == before + 1
+            torch.testing.assert_close(x, twin, rtol=0, atol=0, equal_nan=True,
+                                       msg=f"P={size}, G={groups}")
 
 
 def test_backward_branches_find_nested_loops():

@@ -2,9 +2,10 @@
 Cholesky twin against the JAX package's ``solve_spd_batchminor`` and its
 Pallas kernel in interpret mode, the standard-layout solves, plain-tensor
 emulations of K3-w's order (right-looking, the forward solve as one more
-row, the back solve row by row) and of K3-c's (the rows split over a
-cluster's CTAs) bit-equal to the twin, the dispatcher's
-plan, the shapes refused, and each CUDA form against the twin and
+row, the back solve row by row), of K3-c's (the rows split over a
+cluster's CTAs) and of K3-d's (the rows split over any number of CTAs, the
+columns through a store in device memory) bit-equal to the twin, the
+dispatcher's plan, the shapes refused, and each CUDA form against the twin and
 ``fit_fleet``'s default backend given numpy start points (on a card
 only).
 
@@ -69,7 +70,8 @@ def test_standard_layout_solve_matches_jax():
 
 
 FORMS = {"registers": tsc.solve_spd_registers, "warp": tsc.solve_spd_warp,
-         "cluster": tsc.solve_spd_cluster, "global": tsc.solve_spd_batchminor_global}
+         "cluster": tsc.solve_spd_cluster, "distributed": tsc.solve_spd_distributed,
+         "global": tsc.solve_spd_batchminor_global}
 
 
 def _launches():
@@ -255,6 +257,129 @@ def test_cluster_form_range():
     assert tsc.cluster_plan(4, torch.float16) == 0 and tsc.cluster_plan(0, f32) == 0
 
 
+def emulate_distributed(A, b, P):
+    """K3-d's order on plain tensors: row i of rows 0 .. n (b as row n) in
+    CTA i % P, every CTA a copy of the diagonal; the columns of L through a
+    store in device memory that holds NaN until a CTA writes an entry once.
+    Right past the barrier of step j - 1 each CTA copies column j's rows j +
+    1 .. n from the store into its own column buffer (NaN elsewhere, so a
+    read of a word never copied shows), forms column j + 1 of its own rows
+    into the store (step j's product off, the division by the square root
+    of its diagonal), then subtracts step j's products from the rest of its
+    rows and its diagonal; the back solve reads the store in the twin's
+    order."""
+    n, _, B = A.shape
+    nan = float("nan")
+    S = [A.new_full((n + 1, n, B), nan) for _ in range(P)]
+    for i in range(n + 1):
+        S[i % P][i, :min(i + 1, n)] = A[i, :i + 1] if i < n else b
+    diag = [A[torch.arange(n), torch.arange(n)].clone() for _ in range(P)]
+    store = A.new_full((n + 1, n, B), nan)  # L[i][j], z[j] in row n
+
+    def put(i, j, v):
+        assert torch.isnan(store[i, j]).all(), f"L[{i}][{j}] stored twice"
+        store[i, j] = v
+
+    for k in range(P):
+        d = torch.sqrt(diag[k][0])
+        for i in range(k, n + 1, P):
+            if i > 0:
+                S[k][i, 0] = S[k][i, 0] / d
+                put(i, 0, S[k][i, 0])
+        if k == 0:
+            S[k][0, 0] = d
+            put(0, 0, d)
+    for j in range(n):
+        cols = []
+        for k in range(P):
+            col = A.new_full((n + 1, B), nan)
+            col[j + 1:] = store[j + 1:, j]
+            cols.append(col)
+        for k, col in enumerate(cols):
+            if j + 1 < n:
+                c1 = col[j + 1]
+                d = torch.sqrt(diag[k][j + 1] - c1 * c1)
+                for i in range(k, n + 1, P):
+                    if i > j + 1:
+                        S[k][i, j + 1] = (S[k][i, j + 1] - col[i] * c1) / d
+                        put(i, j + 1, S[k][i, j + 1])
+                if (j + 1) % P == k:
+                    S[k][j + 1, j + 1] = d
+                    put(j + 1, j + 1, d)
+        for k, col in enumerate(cols):
+            for i in range(k, n + 1, P):
+                if i > j + 1:
+                    end = min(i, n - 1)
+                    S[k][i, j + 2:end + 1] = S[k][i, j + 2:end + 1] - col[i] * col[j + 2:end + 1]
+            diag[k][j + 2:] = diag[k][j + 2:] - col[j + 2:n] * col[j + 2:n]
+    x = [None] * n
+    for i in reversed(range(n)):
+        acc = store[n, i]
+        for k in range(i + 1, n):
+            acc = acc - store[k, i] * x[k]
+        x[i] = acc / store[i, i]
+    return torch.stack(x, dim=0)
+
+
+@pytest.mark.parametrize("P", [3, 5, 12])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 4, 13, 30])
+def test_distributed_order_bit_equal_to_twin(n, dtype, P):
+    """K3-d's order over 3, 5 and 12 CTAs (more than a cluster holds, and
+    not a power of two; n < P leaves CTAs without a row) is the twin's bit
+    for bit, and it solves the systems."""
+    A, b = (torch.from_numpy(a).to(dtype) for a in _spd_batchminor(70 + n, n, 11))
+    got = emulate_distributed(A, b, P)
+    assert torch.equal(got, tsc._chol_solve_batchminor(A, b))
+    assert float((torch.einsum("ijb,jb->ib", A, got) - b).abs().max()) < (
+        1e-3 if dtype == torch.float32 else 1e-10)
+
+
+def test_distributed_order_matches_jax_pallas_interpret():
+    from nlsolver_tpu.ops.smallchol import solve_spd_batched_pallas
+
+    A, b = _spd_batchminor(16, 7, 128, np.float32)
+    A_std, b_std = np.ascontiguousarray(A.transpose(2, 0, 1)), np.ascontiguousarray(b.T)
+    want = np.asarray(solve_spd_batched_pallas(A_std, b_std, tile=128, interpret=True))
+    got = emulate_distributed(torch.from_numpy(A), torch.from_numpy(b), 5)
+    np.testing.assert_allclose(got.numpy().T, want, atol=1e-4)
+
+
+# K3-d's range on an H100's 132 SMs: (first, last) n by dtype, past K3-c's
+DISTRIBUTED_RANGE = {torch.float32: (928, 3599), torch.float64: (646, 2457)}
+
+
+def test_distributed_form_range():
+    """K3-d's CTA holds its packed rows (K3-c's layout over P CTAs), the
+    diagonal and a column, at least the back solve's 3 n + 2 words, within
+    a block's shared memory; its range runs from K3-c's end to the last n
+    that 132 CTAs hold; the plan takes the fewest CTAs that hold the rows,
+    spread over the card's SMs where few lanes leave them idle."""
+    f32, f64 = torch.float32, torch.float64
+    assert tsc.distributed_bytes(646, f64, 66) == (tsc.cluster_words(646, 66) + 1293) * 8
+    assert tsc.distributed_bytes(3, f32, 12) == 11 * 4  # the back solve's words
+    for dtype, (first, last) in DISTRIBUTED_RANGE.items():
+        assert not tsc.cluster_fits(first, dtype) and tsc.cluster_fits(first - 1, dtype)
+        assert tsc.distributed_fits(first, dtype) and tsc.distributed_fits(last, dtype)
+        assert not tsc.distributed_fits(last + 1, dtype)
+        assert tsc.distributed_least(last, dtype) == 132
+        assert tsc.distributed_bytes(last, dtype, 132) <= tsc.MAX_DYNAMIC_SMEM < \
+            tsc.distributed_bytes(last + 1, dtype, 132)
+        for n in (1, 30, first, 1000, last):
+            P = tsc.distributed_least(n, dtype)
+            assert tsc.distributed_bytes(n, dtype, P) <= tsc.MAX_DYNAMIC_SMEM
+            assert P == 1 or tsc.distributed_bytes(n, dtype, P - 1) > tsc.MAX_DYNAMIC_SMEM
+        # fewer SMs hold less
+        assert not tsc.distributed_fits(last, dtype, sms=131)
+    # the path's [646, 646, 2] in f64: 66 CTAs a lane; many lanes: the fewest
+    assert tsc.distributed_least(646, f64) == 8 and tsc.distributed_least(928, f32) == 8
+    assert [tsc.distributed_plan(646, f64, lanes) for lanes in (1, 2, 3, 16, 17, 64)] == \
+        [132, 66, 44, 8, 8, 8]
+    assert tsc.distributed_plan(700, f64, 64) == 9 and tsc.distributed_plan(5, f64, 1) == 6
+    assert tsc.distributed_plan(2458, f64, 2) == 0 and tsc.distributed_plan(4, torch.float16) == 0
+    assert tsc.distributed_plan(0, f32) == 0
+
+
 def test_kernel_ranges_match_the_source():
     """The register form's most n in csrc/smallchol.cu is the module's."""
     import re
@@ -283,13 +408,15 @@ def test_warp_form_range():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_plan_takes_each_form_in_its_range(dtype):
-    """The first form that takes n: K3-r, then K3-w, then K3-c, then K3-g."""
+    """The first form that takes n: K3-r, then K3-w, then K3-c, then K3-d,
+    then K3-g."""
     reg = tsc.REGISTER_MAX_N[dtype]
     warp = max(n for n in range(1, 400) if tsc.warp_fits(n, dtype))
     cluster = max(n for n in range(1, 1000) if tsc.cluster_fits(n, dtype))
+    last = DISTRIBUTED_RANGE[dtype][1]
     want = {1: "registers", 2: "registers", reg: "registers", reg + 1: "warp", 30: "warp",
-            warp: "warp", warp + 1: "cluster", cluster: "cluster", cluster + 1: "global",
-            1200: "global"}
+            warp: "warp", warp + 1: "cluster", cluster: "cluster", cluster + 1: "distributed",
+            1200: "distributed", last: "distributed", last + 1: "global", 5000: "global"}
     assert {n: tsc.plan(n, dtype) for n in want} == want
     assert all(tsc.plan(n, dtype) == ("registers" if tsc.registers_fit(n, dtype) else "warp")
                for n in range(1, warp + 1))
@@ -374,8 +501,18 @@ def test_forms_refuse_what_they_do_not_take_on_card():
             tsc.solve_spd_cluster(A, b)
         before = _launches()
         x = tsc.solve_spd_batchminor(A, b)
-        assert _launches()["global"] == before["global"] + 1
+        assert _launches()["distributed"] == before["distributed"] + 1
         assert torch.equal(x, b)
+        with pytest.raises(ValueError, match="CTAs' shared memory"):
+            tsc.solve_spd_distributed(A, b, size=tsc.distributed_least(n, dtype) - 1)
+        # past K3-d's range the plan names K3-g and K3-d refuses (K3-g's
+        # thread a lane would take minutes there)
+        n = DISTRIBUTED_RANGE[dtype][1] + 1
+        A, b = torch.eye(n, device=dev, dtype=dtype)[:, :, None], torch.ones(n, 1, device=dev,
+                                                                              dtype=dtype)
+        assert tsc.plan(n, dtype) == "global"
+        with pytest.raises(ValueError, match="CTAs' shared memory"):
+            tsc.solve_spd_distributed(A, b)
 
 
 @pytest.mark.gpu
@@ -397,6 +534,32 @@ def test_cluster_form_bit_equal_with_every_size_on_card(n, B, dtype):
             x = tsc.solve_spd_cluster(A, b, size=size, _threads=threads)
             torch.cuda.synchronize()
             assert tsc.solve_spd_cluster.launches == before + 1
+            assert torch.equal(x, twin), (size, threads)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, B, dtype", [(646, 2, torch.float64), (928, 2, torch.float32),
+                                         (700, 64, torch.float64), (40, 5, torch.float64),
+                                         (13, 70, torch.float32)])
+def test_distributed_form_bit_equal_with_every_size_on_card(n, B, dtype):
+    """K3-d at its path's [646, 646, 2] f64, at the first n of its range in
+    f32, on 64 lanes (several waves of teams), and below its range, with 3,
+    5, 12, 66 and 132 CTAs a lane where they hold the rows and 64, 256 and
+    512 threads a CTA at the plan's: the twin's bits (past n = 64 as
+    ``chol_solve_right_looking`` gives them)."""
+    dev = _on_card()
+    A, b = (torch.from_numpy(a).to(dev, dtype) for a in _spd_batchminor(n + 9, n, B))
+    twin = (tsc._chol_solve_batchminor if n <= 64 else tsc.chol_solve_right_looking)(A, b)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    least, plan = tsc.distributed_least(n, dtype, sms), tsc.distributed_plan(n, dtype, B, sms)
+    for size in sorted({least, plan, 3, 5, 12, 66, 132}):
+        if size < least or size > sms:
+            continue
+        for threads in ((64, 256, 512) if size == plan else (256,)):
+            before = tsc.solve_spd_distributed.launches
+            x = tsc.solve_spd_distributed(A, b, size=size, _threads=threads)
+            torch.cuda.synchronize()
+            assert tsc.solve_spd_distributed.launches == before + 1
             assert torch.equal(x, twin), (size, threads)
 
 
