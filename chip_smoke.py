@@ -10,8 +10,8 @@ Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc over nlsolver_torch/csrc for sm_90a, one process per source;
      no register kernel of K5, K2b or K3 (one per n and dtype each), and no
-     kernel of K2b's warp form or of the cluster and distributed forms of K2b
-     and K3, may spill or keep a stack frame; the issue
+     kernel of K2b's warp form or of the cluster and distributed forms of K2b,
+     K3 and K2a, may spill or keep a stack frame; the issue
      floors of K1's staged form, K2b's register and warp forms, K2a's warp
      form, K4b-c and K3's register and warp forms from their SASS;
   3. K1 in both forms against its twin on injected draws, B=8192, n=10,
@@ -62,11 +62,17 @@ Phases, each fatal on failure:
      alone; the device-memory form, past the distributed form's range, by a
      direct call on the same f64 systems, counted, bit-equal, timed once;
      K2a (wavefront QR) in its warp form (K2a-w) and its device-memory form
-     bit-equal to its twin at [16, 16, 4096] and [32, 8, 4096] with Q, and
-     a factorization; K2a-w at its last square shape and its last with one
-     row more, with and without Q, in f32 and f64, K2a at the first shapes
-     past them, each through the dispatcher; linalg.qr(method="pallas")
-     launches K2a-w once at [16, 16, 4096] and K2a once at [170, 170, 32];
+     (K2a-g) bit-equal to its twin at [16, 16, 4096] and [32, 8, 4096] with
+     Q, and a factorization; K2a-w, its cluster form (K2a-c) and its form
+     over P CTAs of the card (K2a-d) at the first and last square shapes
+     of their ranges and with one row more, with and without Q, in f32 and
+     f64, a zero column, each through the dispatcher (K2a-w and K2a-c on
+     32 lanes, K2a-d on 2), and the dispatcher's end of K2a-d;
+     linalg.qr(method="pallas") launches K2a-w once at [16, 16, 4096],
+     K2a-c once at [170, 170, 32] and K2a-d once at [333, 333, 2] f64, the
+     first square shape past K2a-c's range, and no other form of K2a, each
+     reconstructing A within 1e-4; K2a-g by a direct call at [170, 170, 32],
+     counted, bit-equal;
   9. the NLLS slice: fit_fleet on 262144 exp-decay fits through
      solve="qr_pallas" (K2b's register form), "cholesky" (K3's register
      form) and "qr" (plain), launches counted; solved share, recovered
@@ -77,8 +83,10 @@ Phases, each fatal on failure:
      the form its plan names, K3-w at 30), K3 launched once a host step;
      numpy start points and data land on the card;
  10. NLLS timing: bench_nlls_fleet per backend (median of 3 after 1
-     warm-up, ABBA order), and K2a in both forms (the device-memory form at
-     its path's [170, 170, 32]), each form of K2b (the device-memory form
+     warm-up, ABBA order), and K2a in its four forms (K2a-w at [16, 16,
+     4096], K2a-c and K2a-g at linalg.qr's [170, 170, 32], K2a-d at [333,
+     333, 2] f64 beside K2a-g there, timed once with no warm-up, and the
+     twin, timed once), each form of K2b (the device-memory form
      also on the shared and warp forms' Chebyshev systems, and beside the
      cluster form on the float64 fleet's) and K3's forms (K3-r at [2, 2,
      262144], the planned form at [12, 12, 16384], K3-w at [30, 30, 4096],
@@ -176,6 +184,7 @@ CHEB_WARP = (30, 48, 4096)     # K2b's shared-memory and warp forms (float32), a
 CHEB_CLUSTER = (120, 128, 256)  # warp form's range in float64 through its cluster form
 K3G_N, K3G_B = 240, 16         # an SPD solve past K3-w's range in float64 (K3-c)
 K3D_N, K2BD_N = 646, 330       # the first n past K3-c's and K2b-c's ranges in float64 (K3-d, K2b-d)
+K2AD_N = 333                   # the first square m = n past K2a-c's range in float64 with Q (K2a-d)
 CMA_B, CMA_N, CMA_GENS = 65536, 16, 50   # the CMA-ES fleet: strategies, dimensions, generations
 CMA_WIDE_B = 4096              # the wide CMA-ES fleets: n = 56 and n = 64 (K5a)
 CMA_EDGE_N, CMA_EDGE_B = 170, 256  # the first n that K5a refuses in f32 (K5c), the fleet's B there
@@ -526,9 +535,11 @@ def phase_build():
              "least_squares_cluster_kernel": ("K2b-c", "IdE"),            # <double>, its fleet's
              "chol_cluster_kernel": ("K3-c", "IdE"),                      # <double>, its path's
              "least_squares_distributed_kernel": ("K2b-d", "IdE"),        # <double>, its path's
-             "chol_distributed_kernel": ("K3-d", "IdE")}                  # <double>, its path's
+             "chol_distributed_kernel": ("K3-d", "IdE"),                  # <double>, its path's
+             "qr_cluster_kernel": ("K2a-c", "IfE"),                       # <float>, its path's
+             "qr_distributed_kernel": ("K2a-d", "IdE")}                   # <double>, its path's
     used, main, local = {"K5r": [], "K2b": [], "K2b-w": [], "K3-r": [], "K2b-c": [],
-                         "K3-c": [], "K2b-d": [], "K3-d": []}, {}, []
+                         "K3-c": [], "K2b-d": [], "K3-d": [], "K2a-c": [], "K2a-d": []}, {}, []
     for short, spill, regs in entries:
         kind = next((v for k, v in kinds.items() if short.startswith(k)), None)
         count = int(regs.split("Used")[1].split()[0]) if "Used" in regs else -1
@@ -542,15 +553,16 @@ def phase_build():
         if "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" not in spill:
             local.append(f"{short}: {spill}")
     if out:
-        check(not local, "register kernels of K5, K2b or K3, or K2b's warp, cluster or "
-              "distributed form or K3's cluster or distributed form, use local memory: "
-              + "; ".join(local))
-        for kid in ("K2b-c", "K3-c", "K2b-d", "K3-d"):
+        check(not local, "register kernels of K5, K2b or K3, or the warp, cluster or "
+              "distributed form of K2b, the cluster or distributed form of K2a or K3, use local "
+              "memory: " + "; ".join(local))
+        for kid in ("K2b-c", "K3-c", "K2b-d", "K3-d", "K2a-c", "K2a-d"):
             check(len(used[kid]) == 2, f"ptxas reported {len(used[kid])} kernels of {kid}, "
                   "expected one per dtype")
             log(f"[2] ptxas: {kid}, {len(used[kid])} kernels (float32, float64): "
                 f"{min(used[kid])} to {max(used[kid])} registers a thread, {main.get(kid)} in "
-                "float64, 0 bytes of stack frame, 0 bytes spilled")
+                f"{'float32' if kid == 'K2a-c' else 'float64'}, 0 bytes of stack frame, 0 bytes "
+                "spilled")
         k5r, k2b, k2bw, k3r = used["K5r"], used["K2b"], used["K2b-w"], used["K3-r"]
         check(len(k3r) == sum(SPD_REGISTER_MAX_N.values()),
               f"ptxas reported {len(k3r)} register kernels of K3, expected one per n and dtype")
@@ -1182,7 +1194,7 @@ def phase_qr(torch, dev):
             path_launches[kid] = path(A, y, twin, kid, f"[{n}, {n}, 2] {str(dtype)[6:]}" + (
                 f" ({tqw.distributed_plan(n, dtype, 2)} CTAs a lane)" if kid == "K2b-d" else ""))
     log(f"[8] the twin at [{n}, {n}, 2] float64: {twin_ms:.0f} ms")
-    # K2a in both forms, bit for bit against the twin, and a factorization
+    # K2a-w and K2a-g, bit for bit against the twin, and a factorization
     qr_forms = qr_forms_of()
 
     def hold_qr(kid, qr, A, compute_q, label):
@@ -1202,60 +1214,92 @@ def phase_qr(torch, dev):
 
     for m, n, b in ((16, 16, 4096), (32, 8, 4096)):
         A = torch.randn((m, n, b), generator=g, device=dev)
-        hold_qr("K2a", qr_forms["K2a"], A, True, f"{(m, n, b)}")
+        hold_qr("K2a-g", qr_forms["K2a-g"], A, True, f"{(m, n, b)}")
         R, Q = hold_qr("K2a-w", qr_forms["K2a-w"], A, True, f"{(m, n, b)}")
         eye = torch.eye(m, device=dev)[:, :, None]
         qtq = float((torch.einsum("ikb,ilb->klb", Q, Q) - eye).abs().max())
         rec = float((torch.einsum("ikb,kjb->ijb", Q, R) - A).abs().max() / A.abs().max())
         sub = torch.tril(torch.ones(m, n, device=dev, dtype=torch.bool), -1)
         tri = float(R[sub].abs().max())
-        log(f"[8] K2a-w and K2a {(m, n, b)}: bit-equal to the twin; max|QtQ-I| {qtq:.3e}, "
+        log(f"[8] K2a-w and K2a-g {(m, n, b)}: bit-equal to the twin; max|QtQ-I| {qtq:.3e}, "
             f"max|QR-A|/max|A| {rec:.3e}, max|tril(R)| {tri:.3e}")
         check(qtq <= 1e-5 and rec <= 1e-5 and tri <= 1e-4, "K2a is not a QR factorization")
-    # K2a-w at its last square shape and its last with one row more, with Q
-    # (and without), a zero column among the random ones; K2a at the first
-    # shapes past them, on one warp of lanes (a thread a lane there takes
-    # some 0.8 s); the dispatcher's choice at each
+    # each form of K2a at the first and last square shapes that the
+    # dispatcher gives it and its first and last with one row more, with
+    # and without Q, a zero column among the random ones, in float32 and
+    # float64, through the dispatcher: K2a-w and K2a-c on 32 lanes, K2a-d on
+    # 2; the dispatcher ends K2a-d where K2a-g (a thread a lane, seconds)
+    # takes over
     for dtype in (torch.float32, torch.float64):
         for q in (True, False):
-            sq = max(n for n in range(1, 300) if tqw.qr_warp_fits(n, n, dtype, q))
-            tall = max(n for n in range(1, 300) if tqw.qr_warp_fits(n + 1, n, dtype, q))
-            shapes = [("K2a-w", sq, sq), ("K2a-w", tall + 1, tall)]
-            if q:
-                shapes += [("K2a", sq + 1, sq + 1), ("K2a", tall + 2, tall + 1)]
-            for kid, m, n in shapes:
-                A = torch.randn((m, n, 32), generator=g, device=dev, dtype=dtype)
-                A[:, n // 2] = 0.0
-                hold_qr(kid, tqw.qr_wavefront_kernel, A, q,
-                        f"[{m}, {n}, 32] {str(dtype)[6:]}{' with Q' if q else ''}, the dispatcher")
-            log(f"[8] K2a-w bit-equal to the twin at [{sq}, {sq}] and [{tall + 1}, {tall}] "
-                f"{str(dtype)[6:]}{' with Q' if q else ''}"
-                + (f", K2a at [{sq + 1}, {sq + 1}] and [{tall + 2}, {tall + 1}]" if q else "")
-                + "; the dispatcher takes each")
-    # K2a's path: linalg.qr(method="pallas"), counted; through K2a-w at the
-    # timed shape, through the device-memory form past K2a-w's range
+            ends = {}
+            for kid, form, b in (("K2a-w", "warp", 32), ("K2a-c", "cluster", 32),
+                                 ("K2a-d", "distributed", 2)):
+                shapes = qr_form_edges(form, dtype, q)
+                ends[kid] = shapes
+                for m, n in shapes:
+                    A = torch.randn((m, n, b), generator=g, device=dev, dtype=dtype)
+                    A[:, n // 2] = 0.0
+                    hold_qr(kid, tqw.qr_wavefront_kernel, A, q,
+                            f"[{m}, {n}, {b}] {str(dtype)[6:]}{' with Q' if q else ''}, the "
+                            "dispatcher")
+            last = ends["K2a-d"][1][0]
+            check(tqw.qr_form(last + 1, last + 1, dtype, q) == "global",
+                  f"the dispatcher does not end K2a-d at [{last}, {last}] in {dtype}")
+            log(f"[8] {str(dtype)[6:]}{' with Q' if q else ''}: bit-equal to the twin through the "
+                "dispatcher, each form at its first and last square shape and with one row more: "
+                + "; ".join(f"{kid} {[list(e) for e in shapes]}" for kid, shapes in ends.items())
+                + f"; K2a-g from [{last + 1}, {last + 1}]")
+    # K2a's path: linalg.qr(method="pallas"), counted, through K2a-w at the
+    # timed shape, K2a-c past K2a-w's range, K2a-d at the first square shape
+    # past K2a-c's in float64; K2a-g by a direct call at K2a-c's shape
     launches = {}
-    for kid, (m, n, b) in (("K2a-w", (16, 16, 4096)), ("K2a", (170, 170, 32))):
-        A = torch.randn((m, n, b), generator=g, device=dev)
+    n = max(k for k in range(1, 512) if tqw.qr_cluster_fits(k, k, torch.float64, True)) + 1
+    check(n == K2AD_N, f"K2a-c's range in float64 with Q ends at [{n - 1}, {n - 1}]")
+    for kid, (m, n, b), dtype in (("K2a-w", (16, 16, 4096), torch.float32),
+                                  ("K2a-c", (170, 170, 32), torch.float32),
+                                  ("K2a-d", (K2AD_N, K2AD_N, 2), torch.float64),
+                                  ("K2a-g", (170, 170, 32), torch.float32)):
+        A = torch.randn((m, n, b), generator=g, device=dev, dtype=dtype)
         reset_counts()
-        out = linalg.qr(A, method="pallas")
+        if kid == "K2a-g":
+            tR, tQ = tqw.qr_wavefront_reference(A, True)
+            out = linalg.QR(*reversed(qr_forms[kid](A, compute_q=True)))
+            check(torch.equal(out.R, tR) and torch.equal(out.Q, tQ),
+                  f"K2a-g differs from its twin at [{m}, {n}, {b}]")
+        else:
+            out = linalg.qr(A, method="pallas")
         torch.cuda.synchronize()
         counts = {k: f.launches for k, f in qr_forms.items()}
         check(counts == {k: int(k == kid) for k in qr_forms},
-              f"linalg.qr(A[{m}, {n}, {b}], method='pallas') launched {counts}")
-        check(float(linalg.validate_qr(
-            linalg.QR(out.Q.permute(2, 0, 1), out.R.permute(2, 0, 1)), A.permute(2, 0, 1))) < 1e-4,
-            f"linalg.qr(A[{m}, {n}, {b}], method='pallas') does not reconstruct A")
-        log(f"[8] linalg.qr(A[{m}, {n}, {b}], method='pallas'): launches {counts}")
+              f"{kid} [{m}, {n}, {b}]: launched {counts}")
+        err = float(linalg.validate_qr(
+            linalg.QR(out.Q.permute(2, 0, 1), out.R.permute(2, 0, 1)), A.permute(2, 0, 1)))
+        check(err < 1e-4, f"{kid} [{m}, {n}, {b}] does not reconstruct A ({err:.3e})")
+        log(f"[8] " + ("K2a-g by a direct call" if kid == "K2a-g" else "linalg.qr")
+            + f"(A[{m}, {n}, {b}] {str(dtype)[6:]}): launches {counts}, max|QR - A| {err:.3e}"
+            + (", bit-equal to the twin" if kid == "K2a-g" else ""))
         launches[kid] = counts[kid]
     launches.update(path_launches)
     return worst, launches, twin_ms
 
 
+def qr_form_edges(form, dtype, compute_q):
+    """(m, n): the first and last square shapes that the dispatcher gives
+    K2a's ``form``, and its first and last with one row more."""
+    from nlsolver_torch.ops import qr_wavefront as tqw
+
+    square = [n for n in range(1, 2700) if tqw.qr_form(n, n, dtype, compute_q) == form]
+    tall = [n for n in range(1, 2700) if tqw.qr_form(n + 1, n, dtype, compute_q) == form]
+    return [(square[0], square[0]), (square[-1], square[-1]), (tall[0] + 1, tall[0]),
+            (tall[-1] + 1, tall[-1])]
+
+
 def qr_forms_of():
     from nlsolver_torch.ops import qr_wavefront as tqw
 
-    return {"K2a-w": tqw.qr_wavefront_warp, "K2a": tqw.qr_wavefront_global}
+    return {"K2a-w": tqw.qr_wavefront_warp, "K2a-c": tqw.qr_wavefront_cluster,
+            "K2a-d": tqw.qr_wavefront_distributed, "K2a-g": tqw.qr_wavefront_global}
 
 
 def reset_counts():
@@ -1264,7 +1308,8 @@ def reset_counts():
     for fn in (eigh_jacobi.eigh_jacobi_registers, eigh_jacobi.eigh_jacobi_resident,
                eigh_jacobi.eigh_jacobi_cluster, eigh_jacobi.eigh_jacobi_global,
                de_fused.de_generation_staged, de_fused.de_generation_global,
-               qr_wavefront.qr_wavefront_warp, qr_wavefront.qr_wavefront_global,
+               qr_wavefront.qr_wavefront_warp, qr_wavefront.qr_wavefront_cluster,
+               qr_wavefront.qr_wavefront_distributed, qr_wavefront.qr_wavefront_global,
                qr_wavefront.least_squares_wavefront_registers,
                qr_wavefront.least_squares_wavefront_shared,
                qr_wavefront.least_squares_wavefront_warp,
@@ -1459,9 +1504,22 @@ def phase_nlls_timing(torch, dev, spd_twin_ms, lstsq_twin_ms):
     n = K2BD_N
     sys_d = (torch.randn((n, n, 2), generator=g, device=dev, dtype=torch.float64),
              torch.randn((n, 2), generator=g, device=dev, dtype=torch.float64))
-    # K2a past its warp form's range, at linalg.qr's [170, 170, 32] (phase 8)
+    # K2a past its warp form's range: K2a-c and K2a-g at linalg.qr's [170,
+    # 170, 32], K2a-d and K2a-g at the first square shape past K2a-c's
+    # range in float64, [333, 333, 2] (phase 8)
     A170 = torch.randn((170, 170, 32), generator=g, device=dev)
     A170l = A170.permute(2, 0, 1).contiguous()
+    A333 = torch.randn((K2AD_N, K2AD_N, 2), generator=g, device=dev, dtype=torch.float64)
+    A333l = A333.permute(2, 0, 1).contiguous()
+    # the twin at [333, 333, 2] f64 takes a second or more a call: timed
+    # once here, beside K2a-d and K2a-g
+    t0 = time.perf_counter()
+    tqw.qr_wavefront_reference(A333, compute_q=True)
+    torch.cuda.synchronize()
+    twin333_ms = (time.perf_counter() - t0) * 1e3
+    # K2a-g's float64 kernel loaded ahead: a first launch's lazy load would
+    # wait out the device sleep
+    tqw.qr_wavefront_global(A333[:2, :2, :1].contiguous(), compute_q=True)
     # name: kernel and repeats, twin and repeats, library call
     times = {
         "K2b-r": lstsq_case("K2b-r", A, y, 50),
@@ -1494,12 +1552,19 @@ def phase_nlls_timing(torch, dev, spd_twin_ms, lstsq_twin_ms):
         # which takes it (phase 7)
         "K3-g": spd_timing("K3-g", K3D_N, 2, 1, torch.float64, spd_twin_ms["K3-d"]),
         "K3-d": spd_timing("K3-d", K3D_N, 2, 10, torch.float64, spd_twin_ms["K3-d"]),
-        "K2a n=16": (lambda: tqw.qr_wavefront_global(Aq, compute_q=True), 50,
-                     lambda: tqw.qr_wavefront_reference(Aq, compute_q=True), 5,
-                     lambda: torch.linalg.qr(Aql, mode="complete")),
-        "K2a": (lambda: tqw.qr_wavefront_global(A170, compute_q=True), 1,
-                lambda: tqw.qr_wavefront_reference(A170, compute_q=True), 1,
-                lambda: torch.linalg.qr(A170l, mode="complete")),
+        "K2a-g n=16": (lambda: tqw.qr_wavefront_global(Aq, compute_q=True), 50,
+                       lambda: tqw.qr_wavefront_reference(Aq, compute_q=True), 5,
+                       lambda: torch.linalg.qr(Aql, mode="complete")),
+        "K2a-c": (lambda: tqw.qr_wavefront_cluster(A170, compute_q=True), 20,
+                  lambda: tqw.qr_wavefront_reference(A170, compute_q=True), 1,
+                  lambda: torch.linalg.qr(A170l, mode="complete")),
+        "K2a-g": (lambda: tqw.qr_wavefront_global(A170, compute_q=True), 1,
+                  lambda: tqw.qr_wavefront_reference(A170, compute_q=True), 1,
+                  lambda: torch.linalg.qr(A170l, mode="complete")),
+        "K2a-d": (lambda: tqw.qr_wavefront_distributed(A333, compute_q=True), 10, twin333_ms, 1,
+                  lambda: torch.linalg.qr(A333l, mode="complete")),
+        "K2a-g n=333": (lambda: tqw.qr_wavefront_global(A333, compute_q=True), 1, twin333_ms, 1,
+                        lambda: torch.linalg.qr(A333l, mode="complete")),
         "K2a-w": (lambda: tqw.qr_wavefront_warp(Aq, compute_q=True), 50,
                   lambda: tqw.qr_wavefront_reference(Aq, compute_q=True), 5,
                   lambda: torch.linalg.qr(Aql, mode="complete")),
@@ -1507,9 +1572,14 @@ def phase_nlls_timing(torch, dev, spd_twin_ms, lstsq_twin_ms):
     alone = {}
     for name, (kern, kreps, plain, preps, library) in times.items():
         # the forms that take a tenth of a second and more, launched in
-        # phases 7 and 8 already: no warm-up
-        slow = name in ("K2b-c", "K2b-g n=120", "K2b-g", "K3-g n=240", "K3-g", "K2a")
-        (k, p), (k1, k2, p1, p2) = abba(torch, kern, kreps, plain, preps, 0 if slow else 3)
+        # phases 7 and 8 already: no warm-up; K2a-g at [333, 333, 2] f64,
+        # seconds a launch, timed once
+        slow = name in ("K2b-c", "K2b-g n=120", "K2b-g", "K3-g n=240", "K3-g", "K2a-g")
+        if name == "K2a-g n=333":
+            k1 = k2 = k = device_ms(kern, 1, warmup=0)
+            p1 = p2 = p = plain
+        else:
+            (k, p), (k1, k2, p1, p2) = abba(torch, kern, kreps, plain, preps, 0 if slow else 3)
         lib = None
         if library is not None:
             # a library call may wait for the card inside (an error check):
@@ -1522,12 +1592,13 @@ def phase_nlls_timing(torch, dev, spd_twin_ms, lstsq_twin_ms):
             + ("" if lib is None else f"; library call {lib * 1e3:.2f} us"))
     for new, old in (("K3-r", "K3-g n=2"), ("K3 n=12", "K3-g n=12"), ("K3-w", "K3-g n=30"),
                      ("K3-c", "K3-g n=240"), ("K2b-c", "K2b-g n=120"), ("K3-d", "K3-g"),
-                     ("K2b-d", "K2b-g")):
+                     ("K2b-d", "K2b-g"), ("K2a-c", "K2a-g"), ("K2a-d", "K2a-g n=333")):
         log(f"[10] {new}: {alone[new][0] * 1e3:.2f} us against {old.split()[0]}'s "
             f"{alone[old][0] * 1e3:.2f} us at the same shape ({alone[old][0] / alone[new][0]:.2f}x), "
             f"the library call's {alone[new][2] * 1e3:.2f} us")
     # the rows past their forms' old shapes, each against its library call
-    for name in ("K2a", "K2b-g", "K3-g", "K2b-c", "K3-c", "K2b-d", "K3-d"):
+    for name in ("K2a-g", "K2a-g n=333", "K2b-g", "K3-g", "K2b-c", "K3-c", "K2b-d", "K3-d",
+                 "K2a-c", "K2a-d"):
         k, _, lib = alone[name]
         log(f"[10] {name} at its path's shape: {k:.3f} ms, the library call {lib:.3f} ms, "
             f"{k / lib:.2f}x")
@@ -2148,14 +2219,19 @@ def phase_cmaes_timing(torch, dev):
     return alone
 
 
-def kernel_row(name, source, replaces, launches, max_err, times, bound_ms_by, issue_ms=None):
+def kernel_row(name, source, replaces, launches, max_err, times, bound_ms_by, issue_ms=None,
+               shape=None):
     """One entry of the kernels line; ``issue_ms``, where phase 2 found it,
-    is the floor of the kernel's instruction issue beside its bound."""
+    is the floor of the kernel's instruction issue beside its bound, and
+    ``shape``, where given, the shape the row was timed at."""
     ms, plain_ms, library_ms = times
-    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms_by[0], "bound_by": bound_ms_by[1], "library_ms": library_ms,
-            "issue_ms": issue_ms}
+    row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+           "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms_by[0], "bound_by": bound_ms_by[1], "library_ms": library_ms,
+           "issue_ms": issue_ms}
+    if shape is not None:
+        row["shape"] = shape
+    return row
 
 
 def phases_earlier(torch, dev):
@@ -2191,14 +2267,26 @@ def phases_earlier(torch, dev):
                    max_err, de_times["K1s"], de_bound(B, N, P), FLOORS["K1s"]),
         kernel_row("de_generation_global", csrc + "de_fused.cu", TPU_KERNEL, de_launches["K1g"],
                    max_err, de_times["K1g"], de_bound(*DE_WIDE[:3])),
-        # A in, R and Q out; each form at its path's shape, the device-
-        # memory form's past the warp form's range
+        # A in, R and Q out; each form at its path's shape: K2a-w at [16, 16,
+        # 4096], K2a-c past its range at linalg.qr's [170, 170, 32], K2a-d
+        # past K2a-c's range at [333, 333, 2] f64, K2a-g by a direct call at
+        # [170, 170, 32]
         kernel_row("qr_wavefront_warp", csrc + "qr_wavefront.cu", tpu + "qr_wavefront.py:150",
                    qr_launches["K2a-w"], qr_err, alone["K2a-w"],
-                   bound(3 * 16 * 16 * 4096 * 4, givens_ops(16, 16, 16) * 4096), FLOORS["K2a-w"]),
+                   bound(3 * 16 * 16 * 4096 * 4, givens_ops(16, 16, 16) * 4096), FLOORS["K2a-w"],
+                   shape="[16, 16, 4096] f32 with Q"),
+        kernel_row("qr_wavefront_cluster", csrc + "qr_wavefront.cu", tpu + "qr_wavefront.py:150",
+                   qr_launches["K2a-c"], qr_err, alone["K2a-c"],
+                   bound(3 * 170 * 170 * 32 * 4, givens_ops(170, 170, 170) * 32),
+                   shape="[170, 170, 32] f32 with Q"),
+        kernel_row("qr_wavefront_distributed", csrc + "qr_wavefront.cu",
+                   tpu + "qr_wavefront.py:150", qr_launches["K2a-d"], qr_err, alone["K2a-d"],
+                   bound(3 * K2AD_N * K2AD_N * 2 * 8, givens_ops(K2AD_N, K2AD_N, K2AD_N) * 2, True),
+                   shape=f"[{K2AD_N}, {K2AD_N}, 2] f64 with Q"),
         kernel_row("qr_wavefront_global", csrc + "qr_wavefront.cu", tpu + "qr_wavefront.py:150",
-                   qr_launches["K2a"], qr_err, alone["K2a"],
-                   bound(3 * 170 * 170 * 32 * 4, givens_ops(170, 170, 170) * 32)),
+                   qr_launches["K2a-g"], qr_err, alone["K2a-g"],
+                   bound(3 * 170 * 170 * 32 * 4, givens_ops(170, 170, 170) * 32),
+                   shape="[170, 170, 32] f32 with Q, a direct call"),
         # A and y in, x out; each form at the fleet it serves
         kernel_row("least_squares_wavefront_registers", csrc + "qr_wavefront.cu", k2b,
                    fleet_launches["K2b-r"], qr_err, alone["K2b-r"], lstsq_bound(m, 2, FLEET_B),

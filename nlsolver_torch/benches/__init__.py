@@ -577,6 +577,88 @@ def probe_least_squares_distributed(n=330, m=330, B=2, dtype=torch.float64, size
     return out
 
 
+def _qr_library(A):
+    """``torch.linalg.qr`` (complete) on batch-minor ``A``'s lanes as ``[B,
+    m, n]``."""
+    Al = A.permute(2, 0, 1).contiguous()
+    return lambda: torch.linalg.qr(Al, mode="complete")
+
+
+def probe_qr_cluster(m=170, n=170, B=32, dtype=torch.float32, sizes=(2, 4, 8),
+                     groups=(1, 2, 4, 8), reps=5):
+    """K2a's cluster form with Q on ``[m, n, B]`` ~ N(0, 1) with each cluster
+    size that holds the array and each number of ``groups`` of threads a
+    CTA, each result bit-equal to the twin's; at the plan's C and groups also
+    the kernel without its rotations and with its cluster barriers alone
+    (its probe modes), which split a stage into the barrier, the pivots and
+    their stores, and the rotations; ``torch.linalg.qr`` on the same
+    matrices beside them.  Device time in ms behind a device sleep, the
+    least of two."""
+    from ..ops import qr_wavefront as tqw
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("probe_qr_cluster measures a CUDA card; none is available")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    A = torch.randn((m, n, B), generator=g, device="cuda", dtype=dtype)
+    want = tqw.qr_wavefront_reference(A, True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = tqw.qr_cluster_plan(m, n, dtype, True, B, sms)[0]
+    out = {"m": m, "n": n, "B": B, "plan": plan,
+           "groups": tqw.QR_CLUSTER_GROUPS}
+    for size in sizes:
+        if tqw.qr_cluster_bytes(m, n, dtype, True, size) > tqw.MAX_DYNAMIC_SMEM:
+            continue
+        for grp in groups:
+            if tqw.qr_cluster_columns(m, n, True, size) * grp > 1024:
+                continue
+            run = functools.partial(tqw.qr_wavefront_cluster, A, True, size=size, _groups=grp)
+            R, Q = run()
+            if not (torch.equal(R, want[0]) and torch.equal(Q, want[1])):
+                raise RuntimeError(f"probe_qr_cluster: C={size}, G={grp} differ")
+            out[f"C{size}_G{grp}_ms"] = min(device_ms(run, reps, warmup=1) for _ in range(2))
+    for mode, what in ((1, "no_rotations"), (2, "barriers")):
+        run = functools.partial(tqw.qr_wavefront_cluster, A, True, _mode=mode)
+        out[f"{what}_ms"] = min(device_ms(run, reps, warmup=1) for _ in range(2))
+    out["library_ms"] = min(device_ms(_qr_library(A), reps, strict=False) for _ in range(2))
+    return out
+
+
+def probe_qr_distributed(m=333, n=333, B=2, dtype=torch.float64, sizes=None, reps=3):
+    """K2a's distributed form with Q on ``[m, n, B]`` ~ N(0, 1) with each
+    number of CTAs a lane of ``_sizes`` (at the plan's P also half and twice
+    its groups of threads), each result bit-equal to the twin's; at the
+    plan's P also the kernel without its rotations and with its barriers
+    alone (its probe modes); ``torch.linalg.qr`` on the same matrices beside
+    them.  Device time in ms behind a device sleep, the least of two."""
+    from ..ops import qr_wavefront as tqw
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("probe_qr_distributed measures a CUDA card; none is available")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    A = torch.randn((m, n, B), generator=g, device="cuda", dtype=dtype)
+    want = tqw.qr_wavefront_reference(A, True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = tqw.qr_distributed_plan(m, n, dtype, True, B, sms)
+    out = {"m": m, "n": n, "B": B, "plan": plan}
+    for size in _sizes(tqw.qr_distributed_least(m, n, dtype, True, sms), sizes, sms):
+        G = tqw.qr_distributed_groups(m, n, True, size)
+        columns = -(-tqw.qr_columns(m, n, True) // size)
+        for grp in ({max(1, G // 2), G, 2 * G} if size == plan else {G}):
+            if grp * columns > 1024:
+                continue
+            run = functools.partial(tqw.qr_wavefront_distributed, A, True, size=size,
+                                    _groups=grp)
+            R, Q = run()
+            if not (torch.equal(R, want[0]) and torch.equal(Q, want[1])):
+                raise RuntimeError(f"probe_qr_distributed: P={size}, G={grp} differ")
+            out[f"P{size}_G{grp}_ms"] = min(device_ms(run, reps, warmup=1) for _ in range(2))
+    for mode, what in ((1, "no_rotations"), (2, "barriers")):
+        run = functools.partial(tqw.qr_wavefront_distributed, A, True, _mode=mode)
+        out[f"{what}_ms"] = min(device_ms(run, reps, warmup=1) for _ in range(2))
+    out["library_ms"] = min(device_ms(_qr_library(A), reps, strict=False) for _ in range(2))
+    return out
+
+
 def probe_chain_latency(n=8192, reps=3):
     """Clocks a step of one thread's chain of dependent rounded f64
     subtractions (``csrc/chain_probe.cu``), the chain of a back solve's row
@@ -774,42 +856,102 @@ def sweep_qr(ns=(4, 8, 16, 32, 64), Bs=(1024, 4096, 16384, 65536), reps=5, globa
     return rows
 
 
-def probe_path_rows(reps=1):
+# (n, B, dtype) of ``sweep_qr_past_warp``: K2a-c on linalg.qr's path and
+# with many lanes, at its f32 end; K2a-d on its f64 path, with many lanes,
+# within its range and at its ends
+QR_PAST_WARP = ((170, 32, torch.float32), (170, 256, torch.float32), (170, 4096, torch.float32),
+                (300, 32, torch.float32), (472, 32, torch.float32), (200, 256, torch.float64),
+                (333, 2, torch.float64), (333, 64, torch.float64), (800, 2, torch.float64),
+                (1320, 2, torch.float64), (1874, 2, torch.float32))
+
+
+def sweep_qr_past_warp(cases=QR_PAST_WARP, reps=3):
+    """K2a with Q past its warp form's range, on ``A [n, n, B]`` ~ N(0, 1)
+    for each (n, B, dtype) of ``cases``: the form the dispatcher gives it
+    (``qr_form``) and its device time in ms, and ``torch.linalg.qr``
+    (complete, on ``[B, n, n]``), each behind a device sleep, the least of
+    two; the form's R and Q bit-equal to the twin's."""
+    from ..ops import qr_wavefront as tqw
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("sweep_qr_past_warp measures a CUDA card; none is available")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for n, B, dtype in cases:
+        A = torch.randn((n, n, B), generator=g, device="cuda", dtype=dtype)
+        run = functools.partial(tqw.qr_wavefront_kernel, A, compute_q=True)
+        (R, Q), (tR, tQ) = run(), tqw.qr_wavefront_reference(A, True)
+        if not (torch.equal(R, tR) and torch.equal(Q, tQ)):
+            raise RuntimeError(f"sweep_qr_past_warp: [{n}, {n}, {B}] {dtype} differs from the twin")
+        del R, Q, tR, tQ
+        row = {"n": n, "B": B, "dtype": str(dtype)[6:], "form": tqw.qr_form(n, n, dtype, True)}
+        row["ms"] = min(device_ms(run, reps, warmup=1) for _ in range(2))
+        row["library_ms"] = min(device_ms(_qr_library(A), max(1, reps // 2), warmup=1,
+                                          strict=False) for _ in range(2))
+        rows.append(row)
+    return rows
+
+
+def probe_path_rows(reps=1, only=None, warmup=1):
     """The device-memory forms of K2a, K2b and K3 and the three-pass K4b at
     the shapes their paths run them at, each beside the one PyTorch call
     that computes the same function: K2a with Q on ``[170, 170, 32]`` f32
-    (``torch.linalg.qr``, complete, on ``[32, 170, 170]``), K2b on ``[330,
-    330, 2]`` f64, the first n past K2b-c's range (``torch.linalg.lstsq``),
-    K3 on ``spd_systems(646, 2)`` f64, the first n past K3-c's range
-    (``cholesky_ex`` + ``cholesky_solve``), K4b on ``rank2_scenario(225,
-    256)`` f32 (no such call).  Inputs ~ N(0, 1) but where named; ms behind
-    a device sleep, the least of two."""
+    (``torch.linalg.qr``, complete, on ``[32, 170, 170]``) and, as "K2a
+    n=333", on ``[333, 333, 2]`` f64, the first square shape past K2a-c's
+    range with Q, K2b on ``[330, 330, 2]`` f64, the first n past K2b-c's
+    range (``torch.linalg.lstsq``), K3 on ``spd_systems(646, 2)`` f64, the
+    first n past K3-c's range (``cholesky_ex`` + ``cholesky_solve``), K4b on
+    ``rank2_scenario(225, 256)`` f32 (no such call).  ``only`` names the
+    rows to time (all by default).  Inputs ~ N(0, 1) but where named; ms
+    behind a device sleep, the least of two, each after ``warmup`` calls."""
+    from ..ops import _build
     from ..ops import qr_wavefront as tqw
     from ..ops import rank2 as tr
     from ..ops import smallchol as tsc
 
     if not torch.cuda.is_available():
         raise RuntimeError("probe_path_rows measures a CUDA card; none is available")
+    _build.load_library()  # built ahead, so that no first call times the build
     g = torch.Generator(device="cuda").manual_seed(0)
     f64 = torch.float64
-    Aq = torch.randn((170, 170, 32), generator=g, device="cuda")
-    Aql = Aq.permute(2, 0, 1).contiguous()
-    A2 = torch.randn((330, 330, 2), generator=g, device="cuda", dtype=f64)
-    y2 = torch.randn((330, 2), generator=g, device="cuda", dtype=f64)
-    A2l, y2l = A2.permute(2, 0, 1).contiguous(), y2.t().contiguous()[:, :, None]
-    A3, b3 = spd_systems(646, 2, dtype=f64)
-    A3l, b3l = A3.permute(2, 0, 1).contiguous(), b3.t().contiguous()[:, :, None]
-    H = rank2_scenario(225, 256)
-    rows = {"K2a": (lambda: tqw.qr_wavefront_global(Aq, compute_q=True),
-                    lambda: torch.linalg.qr(Aql, mode="complete")),
-            "K2b-g": (lambda: tqw.least_squares_wavefront_global(A2, y2),
-                      lambda: torch.linalg.lstsq(A2l, y2l)),
-            "K3-g": (lambda: tsc.solve_spd_batchminor_global(A3, b3),
-                     lambda: torch.cholesky_solve(b3l, torch.linalg.cholesky_ex(A3l).L)),
-            "K4b": (lambda: tr.rank2_direction_batchminor_rowsplit(*H), None)}
+
+    def qr_row(m, B, dtype):
+        A = torch.randn((m, m, B), generator=g, device="cuda", dtype=dtype)
+        Al = A.permute(2, 0, 1).contiguous()
+        # the kernel loaded and R's and Q's blocks cached ahead: a first
+        # launch (the module's lazy load) or allocation may wait for the
+        # card, the device sleep included
+        tqw.qr_wavefront_global(A[:2, :2, :1].contiguous(), compute_q=True)
+        torch.empty(2 * A.numel(), dtype=dtype, device="cuda")
+        return (lambda: tqw.qr_wavefront_global(A, compute_q=True),
+                lambda: torch.linalg.qr(Al, mode="complete"))
+
+    def lstsq_row():
+        A2 = torch.randn((330, 330, 2), generator=g, device="cuda", dtype=f64)
+        y2 = torch.randn((330, 2), generator=g, device="cuda", dtype=f64)
+        A2l, y2l = A2.permute(2, 0, 1).contiguous(), y2.t().contiguous()[:, :, None]
+        return (lambda: tqw.least_squares_wavefront_global(A2, y2),
+                lambda: torch.linalg.lstsq(A2l, y2l))
+
+    def spd_row():
+        A3, b3 = spd_systems(646, 2, dtype=f64)
+        A3l, b3l = A3.permute(2, 0, 1).contiguous(), b3.t().contiguous()[:, :, None]
+        return (lambda: tsc.solve_spd_batchminor_global(A3, b3),
+                lambda: torch.cholesky_solve(b3l, torch.linalg.cholesky_ex(A3l).L))
+
+    def rank2_row():
+        H = rank2_scenario(225, 256)
+        return lambda: tr.rank2_direction_batchminor_rowsplit(*H), None
+
+    rows = {"K2a": lambda: qr_row(170, 32, torch.float32),
+            "K2a n=333": lambda: qr_row(333, 2, f64),
+            "K2b-g": lstsq_row, "K3-g": spd_row, "K4b": rank2_row}
     out = {}
-    for name, (kernel, library) in rows.items():
-        k = min(device_ms(kernel, reps, warmup=1) for _ in range(2))
+    for name, make in rows.items():
+        if only is not None and name not in only:
+            continue
+        kernel, library = make()
+        k = min(device_ms(kernel, reps, warmup=warmup) for _ in range(2))
         lib = (None if library is None else
                min(device_ms(library, 3, strict=False) for _ in range(2)))
         out[name] = {"ms": k, "library_ms": lib}

@@ -48,13 +48,15 @@
 //     device memory (the scratch R and qty the wrapper allocates), read and
 //     written some 330 times a lane at [34, 2]; every n, for n past the
 //     distributed form's.
-// K2a comes in two forms, chosen by (m, n), dtype and Q in
+// K2a comes in four forms, chosen by (m, n), dtype and Q in
 // ops/qr_wavefront.py: qr_warp_kernel<T, kQ, Q> (K2a-w, below) gives a
 // lane a warp and keeps its [R | Q^T] in shared memory; past its range
-// qr_wavefront_kernel (no kSolve) writes all of R and, with Q, Q^T [m, m,
-// B] in device memory, a thread a lane: with few lanes (4096 at [16, 16])
-// it fills a fraction of the card and is bound by each thread's chain of
-// dependent rotations.
+// qr_cluster_kernel<T> (K2a-c) splits the array's columns over the shared
+// memory of a thread-block cluster of 2, 4 or 8 CTAs, and past that
+// qr_distributed_kernel<T> (K2a-d) over P CTAs of the whole card, as far as
+// 132 CTAs hold it; beyond, qr_wavefront_kernel (no kSolve) writes all of
+// R and, with Q, Q^T [m, m, B] in device memory, a thread a lane, bound by
+// each thread's chain of dependent rotations through L2.
 //
 // Arithmetic: each step is rounded as the plain PyTorch twin
 // (nlsolver_torch/linalg/qr_parallel.py) rounds it: the Givens
@@ -1014,6 +1016,310 @@ int launch_qr_warp(const T* A, T* R, T* Qt, int m, int n, int64_t B, int lanes, 
   return static_cast<int>(cudaGetLastError());
 }
 
+// a CTA's share of a stage of K2a-c and K2a-d: rotations j0, j0 + G, .. up
+// to j_hi of the stage whose pivot pair j turns rows (p0 + 2 j, p0 + 2 j +
+// 1), on the local column ``mine`` of a [m][Lc] array, two at a time (their
+// row pairs are disjoint), loads before stores; (c, s) of pivot j at cs[2
+// j], cs[2 j + 1]
+template <typename T>
+__device__ __forceinline__ void turn_column(T* mine, const T* cs, int Lc, int p0, int j0, int j_hi,
+                                            int G) {
+  int j = j0;
+#pragma unroll 1
+  for (; j + G <= j_hi; j += 2 * G) {
+    const int j2 = j + G;
+    T* x1 = mine + (p0 + 2 * j) * Lc;
+    T* x2 = mine + (p0 + 2 * j2) * Lc;
+    const T c1 = cs[2 * j], s1 = cs[2 * j + 1], c2 = cs[2 * j2], s2 = cs[2 * j2 + 1];
+    const T vp1 = x1[0], vq1 = x1[Lc], vp2 = x2[0], vq2 = x2[Lc];
+    x1[0] = rn::add(rn::mul(c1, vp1), rn::mul(s1, vq1));
+    x1[Lc] = rn::add(rn::mul(c1, vq1), rn::mul(-s1, vp1));
+    x2[0] = rn::add(rn::mul(c2, vp2), rn::mul(s2, vq2));
+    x2[Lc] = rn::add(rn::mul(c2, vq2), rn::mul(-s2, vp2));
+  }
+  if (j <= j_hi) {
+    T* x = mine + (p0 + 2 * j) * Lc;
+    const T c = cs[2 * j], s = cs[2 * j + 1];
+    const T vp = x[0], vq = x[Lc];
+    x[0] = rn::add(rn::mul(c, vp), rn::mul(s, vq));
+    x[Lc] = rn::add(rn::mul(c, vq), rn::mul(-s, vp));
+  }
+}
+
+// column c of a lane's [A | I] (c < n: A's column c, by cp.async; else Q^T's
+// identity column c - n) into the local column ``mine`` of a [m][Lc] array,
+// rows g, g + G, ..
+template <typename T>
+__device__ __forceinline__ void load_column(T* mine, const T* __restrict__ A, int m, int n, int c,
+                                            int Lc, int g, int G, int64_t B, int64_t b) {
+  if (c < n) {
+    for (int i = g; i < m; i += G)
+      __pipeline_memcpy_async(mine + i * Lc, A + (static_cast<int64_t>(i) * n + c) * B + b,
+                              sizeof(T));
+  } else {
+    for (int i = g; i < m; i += G) mine[i * Lc] = T(i == c - n);
+  }
+  __pipeline_commit();
+}
+
+// column c of a lane's finished [R | Q^T] from the local column ``mine``
+// into R [m, n, B] (c < n) or Q^T [m, m, B], rows g, g + G, ..
+template <typename T>
+__device__ __forceinline__ void store_column(const T* mine, T* __restrict__ R, T* __restrict__ Qt,
+                                             int m, int n, int c, int Lc, int g, int G, int64_t B,
+                                             int64_t b) {
+  for (int i = g; i < m; i += G) {
+    const T v = mine[i * Lc];
+    if (c < n)
+      R[(static_cast<int64_t>(i) * n + c) * B + b] = v;
+    else
+      Qt[(static_cast<int64_t>(i) * m + c - n) * B + b] = v;
+  }
+}
+
+// K2a-c, one lane a thread-block cluster.  Replaces qr_wavefront_pallas
+// (nlsolver_tpu/ops/qr_wavefront.py:114) past K2a-w's range, where one
+// lane's [R | Q^T] no longer fits an SM (232564 bytes at [170, 170] in f32
+// with Q).  What bounds the device-memory form there: one thread carries a
+// lane's chain of some m n rotations, each a round trip of two rows of n +
+// m words through L2, and 32 lanes are 32 threads on 132 SMs (809 ms at
+// [170, 170, 32] f32 with Q, 46x torch.linalg.qr).  K2b-c's scheme on
+// K2a-w's resident array:
+//   * column c of the lane's m x (n + m) array [R | Q^T] (m x n without Q)
+//     lives in CTA c % C at local column c / C, [row][local column], so
+//     every CTA holds about as many columns as the others; A's columns are
+//     fetched once by cp.async and Q^T's identity is formed in place;
+//   * at each of the m + n - 2 stages the owner of pivot column j (group
+//     0) forms (c, s) from its own column and stores the pair into the
+//     coefficient row of the stage's parity of every CTA of the cluster
+//     (distributed shared memory); one cluster barrier follows, then each
+//     CTA's G groups of threads share out the stage's row pairs (g takes
+//     j_lo + g, j_lo + g + G, ..) over its local columns, all n columns of
+//     R, as the twin does, so that R is bit-equal below the diagonal too,
+//     and all m columns of Q^T.  A CTA writes row (k + 1) & 1 only past
+//     barrier k, when every CTA has read it for stage k - 1, so one barrier
+//     a stage is enough; a block barrier ends the stage, so that the next
+//     pivots see every group's turns;
+//   * each CTA stores its columns of R and Q^T at the end.
+// ``mode`` 1 skips the rotations and 2 runs the cluster barriers alone (the
+// benches' probe of what a stage costs).  Every value goes through the
+// twin's operations in its order, so R and Q equal the twin's bit for bit.
+template <typename T>
+__global__ void __launch_bounds__(1024)
+    qr_cluster_kernel(const T* __restrict__ A, T* __restrict__ R, T* __restrict__ Qt, int m,
+                      int n, int64_t B, int compute_q, int mode) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int G = blockDim.y, g = threadIdx.y, tc = threadIdx.x;
+  const int cols = compute_q ? n + m : n, Lc = (cols + C - 1) / C;  // CTA 0's columns, the most
+  const int64_t b = blockIdx.x / C;
+  T* X = reinterpret_cast<T*>(smem);  // [m][Lc]
+  T* coef = X + m * Lc;               // [2][2 n]: (c, s) of pivot j at 2 j, 2 j + 1
+  const int c = rank + C * tc;        // this thread's column of [R | Q^T]
+  const bool owns = tc < Lc && c < cols;
+  T* mine = X + tc;
+
+  if (owns && mode != 2) load_column(mine, A, m, n, c, Lc, g, G, B, b);
+  __pipeline_wait_prior(0);
+  // the lane's array in place; every CTA runs before any writes into another's
+  cluster.sync();
+#pragma unroll 1
+  for (int k = 0; k <= m + n - 3; ++k) {
+    if (mode == 2) {
+      cluster.sync();
+      continue;
+    }
+    const int j_lo = max(0, k - m + 2), j_hi = min(n - 1, k / 2);
+    const int p0 = m - 2 - k;  // pivot j turns rows (p0 + 2 j, p0 + 2 j + 1)
+    T* buf = coef + (k & 1) * 2 * n;
+    if (owns && g == 0 && c >= j_lo && c <= j_hi) {
+      T cc, ss;
+      givens(mine[(p0 + 2 * c) * Lc], mine[(p0 + 2 * c + 1) * Lc], cc, ss);
+      for (int r = 0; r < C; ++r) {
+        T* dst = cluster.map_shared_rank(buf, r);
+        dst[2 * c] = cc;
+        dst[2 * c + 1] = ss;
+      }
+    }
+    cluster.sync();  // the stage's coefficients in every CTA
+    if (owns && mode == 0) turn_column(mine, buf, Lc, p0, j_lo + g, j_hi, G);
+    __syncthreads();
+  }
+  if (owns && mode != 2) store_column(mine, R, Qt, m, n, c, Lc, g, G, B, b);
+}
+
+// K2a-c's launch: C CTAs a lane (2, 4 or 8), threads (columns, groups) a
+// CTA, the column threads a multiple of 32 that covers CTA 0's columns
+template <typename T>
+int launch_qr_cluster(const T* A, T* R, T* Qt, int m, int n, int64_t B, int compute_q, int C,
+                      int columns, int groups, int mode, cudaStream_t st) {
+  const int cols = compute_q ? n + m : n, Lc = (cols + C - 1) / C;
+  const int64_t smem = (static_cast<int64_t>(m) * Lc + 4 * n) * sizeof(T);
+  if (n < 1 || m < n || B < 1 || (C != 2 && C != 4 && C != 8) || columns < Lc ||
+      columns % 32 || groups < 1 || columns * groups > 1024 || mode < 0 || mode > 2 ||
+      smem > kMaxDynamicSmem || B * C > (int64_t{1} << 31) - 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = qr_cluster_kernel<T>;
+  const cudaError_t set = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (set != cudaSuccess) return static_cast<int>(set);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(B * C));
+  cfg.blockDim = dim3(columns, groups);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, A, R, Qt, m, n, B, compute_q, mode);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2a-d, one lane over P CTAs of the whole card.  Replaces
+// qr_wavefront_pallas (nlsolver_tpu/ops/qr_wavefront.py:114) past K2a-c's
+// range, where 8 CTAs' shared memory no longer holds one lane's [R | Q^T]
+// (1.78 MB at [333, 333] in f64 with Q).  What bounds the device-memory
+// form there: one thread carries a lane's chain of some m n rotations,
+// each a round trip of two rows through L2, and 2 lanes are 2 threads on
+// 132 SMs.  K2a-c's scheme over any number P of CTAs, with device memory in
+// place of distributed shared memory, as K2b-d without its
+// back-substitution:
+//   * column c of [R | Q^T] lives in CTA c % P at local column c / P;
+//     thread (tc, g) of a CTA holds local column tc and takes the g-th,
+//     (g + G)-th, .. of a stage's rotations;
+//   * at each stage the owner of pivot column j forms (c, s) from its own
+//     column and stores the pair into the team's coefficient row in device
+//     memory; one barrier in device memory (lane_barrier.cuh) follows, then
+//     every CTA copies the stage's coefficients from L2 into its shared
+//     memory and turns its own columns by them.  The row is chosen by the
+//     parity of the barriers the team has passed, which runs on from one
+//     lane to the next: a CTA writes a row only past the barrier after
+//     every CTA copied it, so two rows and one barrier a stage are enough,
+//     and no barrier sits between two lanes;
+//   * each CTA stores its columns of R and Q^T at the end of a lane;
+//   * every CTA of a team is resident by one cooperative launch, and a grid
+//     of ``teams`` teams walks the lanes, team g taking lanes g, g + teams,
+//     ..
+// ``mode`` 1 skips the rotations and 2 runs the barriers alone (the
+// benches' probe of what a stage costs).  Every value goes through the
+// twin's operations in its order, so R and Q equal the twin's bit for bit.
+// (With __launch_bounds__(1024) alone ptxas held the float kernel to 32
+// registers and spilled; a minimum of one block an SM lifts that.)
+template <typename T>
+__global__ void __launch_bounds__(1024, 1)
+    qr_distributed_kernel(const T* __restrict__ A, T* __restrict__ R, T* __restrict__ Qt,
+                          T* coef, unsigned* counts, int m, int n, int P, int64_t B,
+                          int compute_q, int mode) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int G = blockDim.y, g = threadIdx.y, tc = threadIdx.x;
+  const int lin = g * blockDim.x + tc, NT = blockDim.x * G;
+  const int teams = static_cast<int>(gridDim.x) / P, team = blockIdx.x / P;
+  const int rank = blockIdx.x % P;
+  const int cols = compute_q ? n + m : n, Lc = (cols + P - 1) / P;  // CTA 0's columns, the most
+  T* X = reinterpret_cast<T*>(smem);  // [m][Lc]
+  T* cs = X + m * Lc;                 // the stage's (c, s) of pivot j at 2 j, 2 j + 1
+  T* tcoef = coef + static_cast<int64_t>(team) * 4 * n;  // [2][2 n], by the barriers' parity
+  unsigned* count = counts + team;
+  unsigned epoch = 0;
+  const int c = rank + P * tc;  // this thread's column of [R | Q^T]
+  const bool owns = tc < Lc && c < cols;
+  T* mine = X + tc;
+  auto barrier = [&]() {
+    lane::arrive(count);
+    lane::wait(count, ++epoch * static_cast<unsigned>(P));
+  };
+
+#pragma unroll 1
+  for (int64_t b = team; b < B; b += teams) {
+    if (mode == 2) {
+#pragma unroll 1
+      for (int k = 0; k <= m + n - 3; ++k) barrier();
+      continue;
+    }
+    if (owns) load_column(mine, A, m, n, c, Lc, g, G, B, b);
+    __pipeline_wait_prior(0);
+    __syncthreads();
+#pragma unroll 1
+    for (int k = 0; k <= m + n - 3; ++k) {
+      const int j_lo = max(0, k - m + 2), j_hi = min(n - 1, k / 2);
+      const int p0 = m - 2 - k;  // pivot j turns rows (p0 + 2 j, p0 + 2 j + 1)
+      T* gk = tcoef + (epoch & 1) * 2 * n;
+      if (owns && g == 0 && c >= j_lo && c <= j_hi) {
+        T cc, ss;
+        givens(mine[(p0 + 2 * c) * Lc], mine[(p0 + 2 * c + 1) * Lc], cc, ss);
+        __stcg(gk + 2 * c, cc);
+        __stcg(gk + 2 * c + 1, ss);
+      }
+      barrier();  // the stage's coefficients in the store
+      for (int e = 2 * j_lo + lin; e <= 2 * j_hi + 1; e += NT) cs[e] = __ldcg(gk + e);
+      __syncthreads();
+      if (owns && mode == 0) turn_column(mine, cs, Lc, p0, j_lo + g, j_hi, G);
+      __syncthreads();
+    }
+    if (owns) store_column(mine, R, Qt, m, n, c, Lc, g, G, B, b);
+    __syncthreads();  // the next lane's columns overwrite these
+  }
+}
+
+// K2a-d's shared memory a CTA with P CTAs a lane: its columns of [R | Q^T],
+// m rows of ceil(cols / P) words (CTA 0 holds the most), and a stage's 2 n
+// coefficients (ops/qr_wavefront.py's qr_distributed_bytes)
+template <typename T>
+int64_t qr_distributed_smem(int m, int n, int compute_q, int P) {
+  const int cols = compute_q ? n + m : n;
+  return (static_cast<int64_t>(m) * ((cols + P - 1) / P) + 2 * n) * sizeof(T);
+}
+
+// K2a-d: blocks of (ceil(cols / P), groups) threads an SM holds at once
+// with P CTAs a lane, into ``blocks``
+template <typename T>
+int qr_distributed_occupancy(int m, int n, int compute_q, int P, int groups, int* blocks) {
+  const int64_t smem = qr_distributed_smem<T>(m, n, compute_q, P);
+  const int columns = ((compute_q ? n + m : n) + P - 1) / P;
+  if (n < 1 || m < n || P < 1 || groups < 1 || columns * groups > 1024 || !blocks ||
+      smem > kMaxDynamicSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = qr_distributed_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, columns * groups,
+                                                      static_cast<size_t>(smem));
+  return static_cast<int>(err);
+}
+
+// K2a-d's launch: ``teams`` teams of P CTAs of (ceil(cols / P), groups)
+// threads in one cooperative launch; coef 4 n words a team, counts one
+// zeroed counter a team
+template <typename T>
+int launch_qr_distributed(const T* A, T* R, T* Qt, T* coef, unsigned* counts, int m, int n,
+                          int64_t B, int compute_q, int P, int teams, int groups, int mode,
+                          cudaStream_t st) {
+  const int64_t smem = qr_distributed_smem<T>(m, n, compute_q, P);
+  const int columns = ((compute_q ? n + m : n) + P - 1) / P;
+  if (n < 1 || m < n || B < 1 || P < 1 || teams < 1 || groups < 1 || columns * groups > 1024 ||
+      mode < 0 || mode > 2 || smem > kMaxDynamicSmem ||
+      static_cast<int64_t>(teams) * P > (1 << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = qr_distributed_kernel<T>;
+  const cudaError_t set = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (set != cudaSuccess) return static_cast<int>(set);
+  void* args[] = {&A, &R, &Qt, &coef, &counts, &m, &n, &P, &B, &compute_q, &mode};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel), dim3(static_cast<unsigned>(teams * P)),
+      dim3(columns, groups), args, static_cast<size_t>(smem), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int N>
 int launch_registers(const T* A, const T* y, T* x, int m, int n, int64_t B,
                      cudaStream_t s) {
@@ -1085,6 +1391,38 @@ NLSOLVER_QR_LAUNCHER(f64, double)
 
 NLSOLVER_QR_WARP_LAUNCHER(f32, float, kQrWarpMaxQ32, kQrWarpMaxR32)
 NLSOLVER_QR_WARP_LAUNCHER(f64, double, kQrWarpMaxQ64, kQrWarpMaxR64)
+
+// K2a-c: A [m, n, B] -> R [m, n, B] (+ Q^T [m, m, B] when compute_q),
+// ``size`` CTAs a lane (2, 4 or 8), ``columns`` x ``groups`` threads a CTA
+// (``mode`` 0, or the probe's 1 and 2).  K2a-d: the same, ``size`` CTAs a
+// lane of (ceil(cols / size), ``groups``) threads, in ``teams`` teams (coef,
+// 4 n words a team; counts, one zeroed counter a team), and its occupancy,
+// the blocks an SM holds, into ``blocks``.  Return cudaGetLastError() (the
+// occupancy entry, the occupancy query's error).
+#define NLSOLVER_QR_SPREAD_LAUNCHERS(SUFFIX, T)                                                 \
+  extern "C" int qr_wavefront_cluster_##SUFFIX(const void* A, void* R, void* Qt, int m, int n,  \
+                                               int64_t B, int compute_q, int size, int columns, \
+                                               int groups, int mode, void* stream) {            \
+    return launch_qr_cluster<T>(static_cast<const T*>(A), static_cast<T*>(R),                  \
+                                static_cast<T*>(Qt), m, n, B, compute_q, size, columns,         \
+                                groups, mode, static_cast<cudaStream_t>(stream));               \
+  }                                                                                             \
+  extern "C" int qr_wavefront_distributed_##SUFFIX(                                             \
+      const void* A, void* R, void* Qt, void* coef, void* counts, int m, int n, int64_t B,      \
+      int compute_q, int size, int teams, int groups, int mode, void* stream) {                 \
+    return launch_qr_distributed<T>(static_cast<const T*>(A), static_cast<T*>(R),              \
+                                    static_cast<T*>(Qt), static_cast<T*>(coef),                 \
+                                    static_cast<unsigned*>(counts), m, n, B, compute_q, size,   \
+                                    teams, groups, mode, static_cast<cudaStream_t>(stream));    \
+  }                                                                                             \
+  extern "C" int qr_wavefront_distributed_occupancy_##SUFFIX(int m, int n, int compute_q,       \
+                                                             int size, int groups,              \
+                                                             int* blocks) {                     \
+    return qr_distributed_occupancy<T>(m, n, compute_q, size, groups, blocks);                  \
+  }
+
+NLSOLVER_QR_SPREAD_LAUNCHERS(f32, float)
+NLSOLVER_QR_SPREAD_LAUNCHERS(f64, double)
 
 // K2b's register form, n = 1 .. kRegisterMaxN, its shared-memory form
 // with ``lanes`` threads a block and ``smem`` bytes of dynamic shared memory,

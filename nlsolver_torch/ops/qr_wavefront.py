@@ -9,12 +9,20 @@ tensors launch a kernel (float32 or float64, contiguous) or raise.  The
 JAX kernels' fallback to the jnp wavefront when VMEM is short, and their
 padding lanes, have no counterpart: K2a and K2b take every m >= n and B.
 
-K2a comes in two forms, chosen by (m, n), dtype and whether Q is formed
+K2a comes in four forms, chosen by (m, n), dtype and whether Q is formed
 (``qr_form``): ``qr_wavefront_warp`` (K2a-w) gives a lane a warp and keeps
 its ``[R | Q^T]`` in shared memory (``qr_warp_fits``: m = n <= 169 in
 float32 and 120 in float64 with Q, 240 and 169 without);
+``qr_wavefront_cluster`` (K2a-c) gives a lane a thread-block cluster of 2,
+4 or 8 CTAs, the array's columns split over their shared memory
+(``qr_cluster_fits``: m = n <= 472 in float32 and 332 in float64 with Q,
+664 and 464 without); ``qr_wavefront_distributed`` (K2a-d) spreads a lane
+over P CTAs of the whole card, a stage's rotations through device memory,
+in one cooperative launch (``qr_distributed_fits``: m = n <= 1874 in
+float32 and 1320 in float64 with Q, 2640 and 1816 without);
 ``qr_wavefront_global`` works in device memory, a thread a lane, any
-shape.  Both are bit-equal to the twin.
+shape.  All four are bit-equal to the twin; a failed build or launch, or a
+shape that a form does not take, raises.
 
 K2b keeps only the 2 n rows of the system that a stage of the wavefront
 touches, a window that slides down one row a stage, and comes in six
@@ -70,6 +78,14 @@ CLUSTER_GROUPS = 4
 # K2b's distributed form: threads a CTA, about (its columns times the
 # groups that share out a stage's rotations)
 DISTRIBUTED_THREADS = 256
+# K2a's cluster form: the groups of a CTA's threads that share out a stage's
+# rotations (a CTA's columns need at most 256 column threads wherever a
+# cluster holds the array, so 1024 threads at most).  On an H100 at [170,
+# 170, 32] f32 with Q and clusters of 4 CTAs, 1, 2, 4 and 8 groups took
+# 0.878, 0.734, 0.638 and 0.720 ms
+QR_CLUSTER_GROUPS = 4
+# K2a's distributed form: threads a CTA, about (its columns times the groups)
+QR_DISTRIBUTED_THREADS = 256
 
 
 def qr_wavefront_reference(A: torch.Tensor, compute_q: bool = False):
@@ -253,16 +269,120 @@ def qr_warp_lanes(m: int, n: int, dtype: torch.dtype, compute_q: bool) -> int:
     return lanes
 
 
+def qr_columns(m: int, n: int, compute_q: bool) -> int:
+    """Columns of a lane's array in K2a: [R | Q^T], n + m, or R alone, n."""
+    return n + m if compute_q else n
+
+
+def qr_cluster_bytes(m: int, n: int, dtype: torch.dtype, compute_q: bool, size: int) -> int:
+    """Shared memory of one CTA of K2a's cluster form with ``size`` CTAs a
+    lane: its columns of the m x (n + m) array [R | Q^T] (m x n without Q),
+    m rows of ceil(cols / size) words (CTA 0 holds the most), and two rows
+    of 2 n coefficients."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return (m * -(-qr_columns(m, n, compute_q) // size) + 4 * n) * itemsize
+
+
+def qr_cluster_columns(m: int, n: int, compute_q: bool, size: int) -> int:
+    """Column threads a CTA of K2a's cluster form: the least multiple of 32
+    that covers CTA 0's ceil(cols / size) columns."""
+    return 32 * -(-(-(-qr_columns(m, n, compute_q) // size)) // 32)
+
+
+def qr_cluster_plan(m: int, n: int, dtype: torch.dtype, compute_q: bool,
+                    lanes: int | None = None, sms: int = SMS) -> tuple[int, int]:
+    """K2a's cluster form for [m, n] in ``dtype``: ``(C, T)``, C of
+    ``CLUSTER_SIZES`` whose CTA's slice of the array fits a block's shared
+    memory and that runs the most of ``lanes`` lanes at once on ``sms`` SMs
+    (the least such C), doubled (to at most 8) while ``lanes`` clusters of
+    twice as many CTAs still find an SM each, and T =
+    ``qr_cluster_columns`` column threads a CTA; ``(0, 0)`` where 8 CTAs do
+    not hold the array (m = n > 472 in float32, 332 in float64 with Q)."""
+    if dtype not in _build.DTYPE_SUFFIX or not 1 <= n <= m:
+        return 0, 0
+    size = _build.cluster_size(
+        CLUSTER_SIZES, lambda c: qr_cluster_bytes(m, n, dtype, compute_q, c),
+        lambda c: qr_cluster_columns(m, n, compute_q, c) * QR_CLUSTER_GROUPS,
+        lanes, sms)
+    return (size, qr_cluster_columns(m, n, compute_q, size)) if size else (0, 0)
+
+
+def qr_cluster_fits(m: int, n: int, dtype: torch.dtype, compute_q: bool) -> bool:
+    """Whether K2a's cluster form takes [m, n] in ``dtype``: 8 CTAs hold
+    the array, m = n <= 472 in float32 and 332 in float64 with Q, 664 and
+    464 without."""
+    return qr_cluster_plan(m, n, dtype, compute_q)[0] > 0
+
+
+def qr_distributed_bytes(m: int, n: int, dtype: torch.dtype, compute_q: bool, size: int) -> int:
+    """Shared memory of one CTA of K2a's distributed form with ``size`` CTAs
+    a lane: its columns of the array, m rows of ceil(cols / size) words
+    (CTA 0 holds the most), and a stage's 2 n coefficients."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return (m * -(-qr_columns(m, n, compute_q) // size) + 2 * n) * itemsize
+
+
+def qr_distributed_least(m: int, n: int, dtype: torch.dtype, compute_q: bool,
+                         sms: int = SMS) -> int:
+    """The fewest CTAs, at most ``sms``, whose slices of K2a's distributed
+    form hold the array of [m, n] in ``dtype`` within a block's shared
+    memory (``qr_distributed_bytes``); 0 where ``sms`` CTAs do not hold it."""
+    if dtype not in _build.DTYPE_SUFFIX or not 1 <= n <= m:
+        return 0
+    cap = MAX_DYNAMIC_SMEM // torch.empty((), dtype=dtype).element_size() - 2 * n
+    if cap < m:
+        return 0
+    # ceil(cols / size) local columns of m words must fit cap
+    size = -(-qr_columns(m, n, compute_q) // (cap // m))
+    return size if size <= sms else 0
+
+
+def qr_distributed_fits(m: int, n: int, dtype: torch.dtype, compute_q: bool,
+                        sms: int = SMS) -> bool:
+    """Whether K2a's distributed form takes [m, n] in ``dtype`` on a card of
+    ``sms`` SMs: m = n <= 1874 in float32 and 1320 in float64 with Q, 2640
+    and 1816 without, on an H100's 132."""
+    return qr_distributed_least(m, n, dtype, compute_q, sms) > 0
+
+
+def qr_distributed_plan(m: int, n: int, dtype: torch.dtype, compute_q: bool,
+                        lanes: int | None = None, sms: int = SMS) -> int:
+    """K2a's distributed form's CTAs a lane, P, for [m, n] in ``dtype`` and
+    ``lanes`` lanes: the fewest whose slices hold the array
+    (``qr_distributed_least``), spread to ``sms // lanes`` (at most a column
+    each) where few lanes leave SMs idle; 0 where ``sms`` CTAs do not hold
+    it."""
+    least = qr_distributed_least(m, n, dtype, compute_q, sms)
+    if not least or not lanes:
+        return least
+    return max(least, min(qr_columns(m, n, compute_q), sms // lanes))
+
+
+def qr_distributed_groups(m: int, n: int, compute_q: bool, size: int) -> int:
+    """Groups of threads a CTA of K2a's distributed form, G, that share out
+    a stage's rotations, each of one thread a local column: about
+    ``QR_DISTRIBUTED_THREADS`` threads, one group where a CTA holds more
+    columns (at most 341 wherever ``size`` CTAs hold the array)."""
+    return max(1, QR_DISTRIBUTED_THREADS // -(-qr_columns(m, n, compute_q) // size))
+
+
 def qr_form(m: int, n: int, dtype: torch.dtype, compute_q: bool) -> str:
-    """The form of K2a that the dispatcher gives [m, n] in ``dtype``:
-    "warp" where it fits, else "global"."""
-    return "warp" if qr_warp_fits(m, n, dtype, compute_q) else "global"
+    """The form of K2a that the dispatcher gives [m, n] in ``dtype``: the
+    first of "warp", "cluster" and "distributed" that takes it, else
+    "global"."""
+    for form, fits in (("warp", qr_warp_fits), ("cluster", qr_cluster_fits),
+                       ("distributed", qr_distributed_fits)):
+        if fits(m, n, dtype, compute_q):
+            return form
+    return "global"
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher(entry: str, suffix: str):
     """The C entry point: ``qr_wavefront`` (K2a's and K2b's device-memory
-    forms), ``qr_wavefront_warp``, ``least_squares_registers``,
+    forms), ``qr_wavefront_warp``, ``qr_wavefront_cluster``,
+    ``qr_wavefront_distributed`` (and its ``_occupancy``),
+    ``least_squares_registers``,
     ``least_squares_shared``, ``least_squares_warp``,
     ``least_squares_cluster`` or ``least_squares_distributed`` (and its
     ``_occupancy``)."""
@@ -270,6 +390,9 @@ def _launcher(entry: str, suffix: str):
     vp, ci, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     fn.argtypes = {"qr_wavefront": [vp] * 6 + [ci, ci, i64, ci, ci, vp],
                    "qr_wavefront_warp": [vp] * 3 + [ci, ci, i64, ci, ci, vp],
+                   "qr_wavefront_cluster": [vp] * 3 + [ci, ci, i64] + [ci] * 5 + [vp],
+                   "qr_wavefront_distributed": [vp] * 5 + [ci, ci, i64] + [ci] * 5 + [vp],
+                   "qr_wavefront_distributed_occupancy": [ci] * 5 + [ctypes.POINTER(ci)],
                    "least_squares_registers": [vp] * 3 + [ci, ci, i64, vp],
                    "least_squares_shared": [vp] * 3 + [ci, ci, i64, ci, ci, vp],
                    "least_squares_warp": [vp] * 3 + [ci, ci, i64, ci, vp],
@@ -330,10 +453,115 @@ def qr_wavefront_warp(A: torch.Tensor, compute_q: bool = False):
     return R, (Qt.transpose(0, 1) if compute_q else None)
 
 
+def qr_wavefront_cluster(A: torch.Tensor, compute_q: bool = False, size: int | None = None,
+                         _groups: int | None = None, _mode: int = 0):
+    """K2a's cluster form: a lane a thread-block cluster of ``size`` CTAs
+    (``qr_cluster_plan`` for B lanes and the card's SMs by default), column c
+    of the lane's [R | Q^T] in CTA c % size's shared memory; each stage's
+    rotations formed at once by the pivot columns' owners and stored into
+    every CTA, one cluster barrier a stage, each CTA's groups of threads
+    (``QR_CLUSTER_GROUPS``) sharing out the rotations over its columns.
+    Returns ``(R [m, n, B], Q [m, m, B] | None)``.  CPU tensors run the
+    twin; on a card it raises where ``size`` CTAs do not hold the array
+    (``qr_cluster_fits``).  ``_groups`` and ``_mode`` (1: no rotations, 2: the
+    cluster barriers alone; R and Q then hold no factorization) are for the
+    tests and probes only."""
+    name = "qr_wavefront_cluster"
+    _check_shape(A, name)
+    if A.device.type == "cpu":
+        return qr_wavefront_reference(A, compute_q)
+    _build.check_cuda_inputs(name, {"A": A})
+    m, n, B = A.shape
+    if size is None:
+        sms = torch.cuda.get_device_properties(A.device).multi_processor_count
+        size = qr_cluster_plan(m, n, A.dtype, compute_q, B, sms)[0]
+    if size not in CLUSTER_SIZES or qr_cluster_bytes(m, n, A.dtype, compute_q,
+                                                     size) > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"{name}: [{m}, {n}] in {A.dtype} does not fit a cluster of {size or 8} "
+                         "CTAs' shared memory; qr_wavefront_distributed takes it")
+    R = torch.empty_like(A)
+    Qt = A.new_empty((m, m, B)) if compute_q else None
+    if B:
+        with torch.cuda.device(A.device):
+            stream = torch.cuda.current_stream(A.device).cuda_stream
+            err = _launcher("qr_wavefront_cluster", _build.DTYPE_SUFFIX[A.dtype])(
+                A.data_ptr(), R.data_ptr(), None if Qt is None else Qt.data_ptr(), m, n, B,
+                int(compute_q), size, qr_cluster_columns(m, n, compute_q, size),
+                _groups or QR_CLUSTER_GROUPS, _mode, stream)
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+        qr_wavefront_cluster.launches += 1
+    return R, (Qt.transpose(0, 1) if compute_q else None)
+
+
+def qr_distributed_occupancy(dtype: torch.dtype, m: int, n: int, compute_q: bool, size: int,
+                             groups: int) -> int:
+    """CTAs of K2a's distributed form (``size`` CTAs a lane, ``groups``
+    groups of threads) that an SM of the current card holds at once, from
+    the CUDA occupancy query."""
+    found = ctypes.c_int(0)
+    err = _launcher("qr_wavefront_distributed_occupancy", _build.DTYPE_SUFFIX[dtype])(
+        m, n, int(compute_q), size, groups, ctypes.byref(found))
+    if err != 0:
+        raise RuntimeError(f"qr_wavefront_distributed: occupancy query failed (cudaError {err})")
+    return found.value
+
+
+def qr_wavefront_distributed(A: torch.Tensor, compute_q: bool = False, size: int | None = None,
+                             _groups: int | None = None, _mode: int = 0):
+    """K2a's distributed form: a lane over ``size`` CTAs
+    (``qr_distributed_plan`` for B lanes and the card's SMs by default),
+    column c of the lane's [R | Q^T] in CTA c % size's shared memory; each
+    stage's rotations formed by the pivot columns' owners into device
+    memory, one barrier in device memory a stage, each CTA's
+    ``qr_distributed_groups`` groups of threads sharing out the rotations;
+    one cooperative launch of as many teams of ``size`` CTAs as the card
+    holds at once (at most B), each team walking its share of the lanes.
+    Returns ``(R [m, n, B], Q [m, m, B] | None)``.  CPU tensors run the
+    twin; on a card it raises where ``size`` CTAs do not hold the array
+    (``qr_distributed_fits``) or the card cannot hold them at once.
+    ``_groups`` and ``_mode`` (1: no rotations, 2: the barriers alone; R and
+    Q then hold no factorization) are for the tests and probes only."""
+    name = "qr_wavefront_distributed"
+    _check_shape(A, name)
+    if A.device.type == "cpu":
+        return qr_wavefront_reference(A, compute_q)
+    _build.check_cuda_inputs(name, {"A": A})
+    m, n, B = A.shape
+    sms = torch.cuda.get_device_properties(A.device).multi_processor_count
+    if size is None:
+        size = qr_distributed_plan(m, n, A.dtype, compute_q, B, sms)
+    if size < 1 or qr_distributed_bytes(m, n, A.dtype, compute_q, size) > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"{name}: [{m}, {n}] in {A.dtype} does not fit {size or sms} CTAs' "
+                         "shared memory; qr_wavefront_global takes it")
+    R = torch.empty_like(A)
+    Qt = A.new_empty((m, m, B)) if compute_q else None
+    if B:
+        groups = _groups or qr_distributed_groups(m, n, compute_q, size)
+        with torch.cuda.device(A.device):
+            teams = min(B, qr_distributed_occupancy(A.dtype, m, n, compute_q, size, groups)
+                        * sms // size)
+            if teams < 1:
+                raise ValueError(f"{name}: the card does not hold {size} CTAs of {groups} groups "
+                                 f"at once for [{m}, {n}] in {A.dtype}")
+            coef = A.new_empty((teams, 4 * n))
+            counts = torch.zeros(teams, dtype=torch.int32, device=A.device)
+            stream = torch.cuda.current_stream(A.device).cuda_stream
+            err = _launcher("qr_wavefront_distributed", _build.DTYPE_SUFFIX[A.dtype])(
+                A.data_ptr(), R.data_ptr(), None if Qt is None else Qt.data_ptr(),
+                coef.data_ptr(), counts.data_ptr(), m, n, B, int(compute_q), size, teams, groups,
+                _mode, stream)
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+        qr_wavefront_distributed.launches += 1
+    return R, (Qt.transpose(0, 1) if compute_q else None)
+
+
 def qr_wavefront_global(A: torch.Tensor, compute_q: bool = False):
-    """K2a's device-memory form, any shape (the dispatcher's past the warp
-    form's): a thread a lane works on R and Q^T in device memory.  Returns
-    ``(R [m, n, B], Q [m, m, B] | None)``.  CPU tensors run the twin."""
+    """K2a's device-memory form, any shape (the dispatcher's past the
+    distributed form's): a thread a lane works on R and Q^T in device
+    memory.  Returns ``(R [m, n, B], Q [m, m, B] | None)``.  CPU tensors
+    run the twin."""
     _check_shape(A, "qr_wavefront_global")
     if A.device.type == "cpu":
         return qr_wavefront_reference(A, compute_q)
@@ -349,13 +577,15 @@ def qr_wavefront_global(A: torch.Tensor, compute_q: bool = False):
 def qr_wavefront_kernel(A: torch.Tensor, compute_q: bool = False):
     """Batched QR of ``A [m, n, B]``: ``(R [m, n, B], Q [m, m, B] | None)``,
     the schedule and rotations of ``linalg.qr_parallel``.  CUDA tensors run
-    K2a in its warp form where [m, n] fits it, else in device memory
-    (``qr_form``); CPU tensors its twin."""
+    K2a in its warp form where [m, n] fits it, else its cluster form, else
+    its distributed form, else in device memory (``qr_form``); CPU tensors
+    its twin."""
     _check_shape(A, "qr_wavefront_kernel")
     if A.device.type == "cpu":
         return qr_wavefront_reference(A, compute_q)
     m, n, _ = A.shape
-    form = {"warp": qr_wavefront_warp, "global": qr_wavefront_global}
+    form = {"warp": qr_wavefront_warp, "cluster": qr_wavefront_cluster,
+            "distributed": qr_wavefront_distributed, "global": qr_wavefront_global}
     return form[qr_form(m, n, A.dtype, compute_q)](A, compute_q)
 
 
@@ -573,6 +803,8 @@ def least_squares_wavefront_kernel(A: torch.Tensor, y: torch.Tensor) -> torch.Te
 
 
 qr_wavefront_warp.launches = 0
+qr_wavefront_cluster.launches = 0
+qr_wavefront_distributed.launches = 0
 qr_wavefront_global.launches = 0
 least_squares_wavefront_registers.launches = 0
 least_squares_wavefront_shared.launches = 0

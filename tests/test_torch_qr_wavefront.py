@@ -1,9 +1,9 @@
 """Kernels K2a and K2b of nlsolver_torch (``ops.qr_wavefront``): the CPU
 route (the plain twins) against the JAX package's Pallas kernels in
 interpret mode and its jnp wavefront, plain-tensor emulations of the
-order of K2a's warp form and of K2b's window, warp, cluster and
-distributed forms, the shapes each form takes and refuses, and the CUDA
-kernels against their twins (on a card only).
+order of K2a's warp, cluster and distributed forms and of K2b's window,
+warp, cluster and distributed forms, the shapes each form takes and
+refuses, and the CUDA kernels against their twins (on a card only).
 
 JAX is imported only inside the tests that compare with it, so that the
 card's tests run where JAX is not installed:
@@ -64,7 +64,8 @@ LSTSQ_FORMS = (tqw.least_squares_wavefront_registers, tqw.least_squares_wavefron
                tqw.least_squares_wavefront_distributed, tqw.least_squares_wavefront_global)
 
 
-QR_FORMS = (tqw.qr_wavefront_warp, tqw.qr_wavefront_global)
+QR_FORMS = (tqw.qr_wavefront_warp, tqw.qr_wavefront_cluster, tqw.qr_wavefront_distributed,
+            tqw.qr_wavefront_global)
 
 
 def _counts():
@@ -134,7 +135,8 @@ def test_qr_warp_order_equals_twin(m, n, dtype, compute_q, deficient):
 def test_qr_warp_limits():
     """K2a-w's range, worked out from 232448 bytes a warp: m (n + m) + 2 n
     words with Q, m n + 2 n without, in an odd number of words; 8 lanes a
-    block, halved where they do not fit; the dispatcher's two forms."""
+    block, halved where they do not fit; past it the dispatcher's cluster
+    form."""
     f32, f64 = torch.float32, torch.float64
     assert tqw.qr_warp_bytes(16, 16, f32, True) == (16 * 32 + 32 + 1) * 4
     assert tqw.qr_warp_bytes(32, 8, f64, False) == (32 * 8 + 16 + 1) * 8
@@ -143,9 +145,9 @@ def test_qr_warp_limits():
         assert max(n for n in range(1, 300) if tqw.qr_warp_fits(n, n, dtype, q)) == square
         assert max(n for n in range(1, 300) if tqw.qr_warp_fits(n + 1, n, dtype, q)) == tall
         assert tqw.qr_form(square, square, dtype, q) == "warp"
-        assert tqw.qr_form(square + 1, square + 1, dtype, q) == "global"
+        assert tqw.qr_form(square + 1, square + 1, dtype, q) == "cluster"
         assert tqw.qr_form(tall + 1, tall, dtype, q) == "warp"
-        assert tqw.qr_form(tall + 2, tall + 1, dtype, q) == "global"
+        assert tqw.qr_form(tall + 2, tall + 1, dtype, q) == "cluster"
     assert tqw.qr_warp_fits(58000, 1, f32, False) and not tqw.qr_warp_fits(4, 5, f32, True)
     assert not tqw.qr_warp_fits(4, 4, torch.float16, True)
     assert [tqw.qr_warp_lanes(m, m, f32, True) for m in (59, 60, 84, 85, 120, 121)] == \
@@ -153,6 +155,301 @@ def test_qr_warp_limits():
     assert all(tqw.qr_warp_lanes(m, n, dt, q) * tqw.qr_warp_bytes(m, n, dt, q) <= 232448
                for m in range(1, 170) for n in (1, m // 2 + 1, m) for dt in (f32, f64)
                for q in (True, False) if tqw.qr_warp_fits(m, n, dt, q))
+
+
+def _qr_columns(A, compute_q):
+    """The lane's m x (n + m) array [A | I] (m x n without Q), [m, cols, B]."""
+    m, n, B = A.shape
+    if not compute_q:
+        return A.clone()
+    eye = torch.eye(m, dtype=A.dtype)[:, :, None].expand(m, m, B)
+    return torch.cat([A, eye], dim=1)
+
+
+def _split_columns(X, parts):
+    """Column c of X [m, cols, B] into part c % parts at local column c //
+    parts: [parts, m, Lc, B], NaN where a part holds fewer columns."""
+    m, cols, B = X.shape
+    Lc = -(-cols // parts)
+    out = torch.full((parts, m, Lc, B), float("nan"), dtype=X.dtype)
+    for c in range(cols):
+        out[c % parts, :, c // parts] = X[:, c]
+    return out
+
+
+def _join_columns(Xs, cols, n, compute_q):
+    """The inverse of ``_split_columns``, as (R, Q | None)."""
+    parts = Xs.shape[0]
+    X = torch.stack([Xs[c % parts, :, c // parts] for c in range(cols)], dim=1)
+    return X[:, :n], (X[:, n:].transpose(0, 1) if compute_q else None)
+
+
+def _turn(Xs, cs, p, j):
+    """Every part turns its local columns of rows (p, p + 1) by pivot j's
+    (c, s) from its own coefficients cs [parts, 2 n, B]."""
+    c, s = cs[:, 2 * j, None], cs[:, 2 * j + 1, None]
+    vp, vq = Xs[:, p].clone(), Xs[:, p + 1].clone()
+    Xs[:, p], Xs[:, p + 1] = c * vp + s * vq, c * vq + (-s) * vp
+
+
+def qr_cluster_emulation(A, compute_q, C, groups=1):
+    """K2a's cluster form in plain torch ops, in the kernel's order: column c
+    of the lane's [A | I] (m x n without Q) in CTA c % C at local column c //
+    C.  At each stage the owner of pivot column j forms (c, s) from its own
+    column and stores it into the coefficient row of stage parity k % 2 of
+    every CTA (the row poisoned with NaN first: what the stage before the
+    last left there is never read); then every CTA turns all its local
+    columns by the stage's rotations read from its own row, dealt over
+    ``groups`` groups of threads (g takes j_lo + g, j_lo + g + groups, ..)."""
+    from nlsolver_torch.linalg.givens import givens_rotation
+
+    m, n, B = A.shape
+    cols = n + m if compute_q else n
+    Xs = _split_columns(_qr_columns(A, compute_q), C)
+    coef = torch.full((C, 2, 2 * n, B), float("nan"), dtype=A.dtype)
+    for k in range(m + n - 2):
+        j_lo, j_hi = max(0, k - m + 2), min(n - 1, k // 2)
+        p0 = m - 2 - k
+        coef[:, k % 2] = float("nan")
+        for j in range(j_lo, j_hi + 1):
+            own = Xs[j % C]
+            cs = givens_rotation(own[p0 + 2 * j, j // C], own[p0 + 2 * j + 1, j // C])
+            coef[:, k % 2, 2 * j], coef[:, k % 2, 2 * j + 1] = cs
+        for g in range(groups):
+            for j in range(j_lo + g, j_hi + 1, groups):
+                _turn(Xs, coef[:, k % 2], p0 + 2 * j, j)
+    return _join_columns(Xs, cols, n, compute_q)
+
+
+def qr_distributed_emulation(A, compute_q, P, groups=1, teams=1):
+    """K2a's distributed form in plain torch ops, in the kernel's order:
+    column c of the lane's [A | I] in CTA c % P at local column c // P;
+    ``teams`` teams walk the lanes, team t taking lanes t, t + teams, .., so
+    the lanes go in rounds of ``teams``.  At each stage the owner of pivot
+    column j forms (c, s) from its own column into its team's coefficient
+    row in device memory, the row chosen by the parity of the barriers the
+    team has passed, which runs on from one lane to the next (the row
+    poisoned with NaN first: what the stage before the last left there is
+    never read); past the barrier every CTA copies the stage's pairs j_lo ..
+    j_hi into its own shared row (NaN elsewhere) and turns all its local
+    columns by them, dealt over ``groups`` groups of threads."""
+    from nlsolver_torch.linalg.givens import givens_rotation
+
+    m, n, B = A.shape
+    cols = n + m if compute_q else n
+    nan = float("nan")
+    R, Q = torch.empty_like(A), torch.empty((m, m, B), dtype=A.dtype) if compute_q else None
+    store = torch.full((2, 2 * n, teams), nan, dtype=A.dtype)  # a team's rows, by parity
+    epoch = 0
+    for first in range(0, B, teams):
+        lanes = slice(first, min(B, first + teams))
+        Xs = _split_columns(_qr_columns(A[:, :, lanes], compute_q), P)
+        rows = store[:, :, :Xs.shape[-1]]
+        for k in range(m + n - 2):
+            j_lo, j_hi = max(0, k - m + 2), min(n - 1, k // 2)
+            p0 = m - 2 - k
+            row = rows[epoch % 2]
+            row[:] = nan
+            for j in range(j_lo, j_hi + 1):
+                own = Xs[j % P]
+                row[2 * j], row[2 * j + 1] = givens_rotation(own[p0 + 2 * j, j // P],
+                                                             own[p0 + 2 * j + 1, j // P])
+            epoch += 1  # the barrier
+            cs = torch.full((P,) + row.shape, nan, dtype=A.dtype)
+            cs[:, 2 * j_lo:2 * j_hi + 2] = row[2 * j_lo:2 * j_hi + 2]
+            for g in range(groups):
+                for j in range(j_lo + g, j_hi + 1, groups):
+                    _turn(Xs, cs, p0 + 2 * j, j)
+        R[:, :, lanes], Ql = _join_columns(Xs, cols, n, compute_q)
+        if compute_q:
+            Q[:, :, lanes] = Ql
+    return R, Q
+
+
+# square and with one row more, n below the cluster's CTAs, n + m no
+# multiple of C or P, m = n = 1 (no stage), m = 2 (one), a tall [5, 3]
+QR_SPREAD_SHAPES = [(12, 12), (12, 11), (9, 9), (1, 1), (2, 1), (5, 3)]
+
+
+def _hold_qr_order(R, Q, A, compute_q):
+    tR, tQ = tqw.qr_wavefront_reference(A, compute_q)
+    assert torch.equal(R, tR)
+    assert (Q is None and tQ is None) if not compute_q else torch.equal(Q, tQ)
+
+
+@pytest.mark.parametrize("deficient", [False, True])
+@pytest.mark.parametrize("C,groups", [(2, 1), (4, 3), (8, 2)])
+@pytest.mark.parametrize("compute_q", [True, False])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("m,n", QR_SPREAD_SHAPES)
+def test_qr_cluster_order_equals_twin(m, n, dtype, compute_q, C, groups, deficient):
+    """K2a-c's order (columns of [R | Q^T] interleaved over C CTAs, each
+    stage's coefficients formed by the pivots' owners into every CTA's row
+    of the stage's parity, the rotations dealt over groups of threads) is
+    the twin's bit for bit, R below the diagonal and Q included; a zero
+    column makes a = b = 0, the identity select."""
+    A = torch.from_numpy(_system(18, m, n, 6, dtype)[0])
+    if deficient:
+        A[:, n // 2] = 0.0
+    _hold_qr_order(*qr_cluster_emulation(A, compute_q, C, groups), A, compute_q)
+
+
+@pytest.mark.parametrize("deficient", [False, True])
+@pytest.mark.parametrize("P,groups,teams", [(3, 1, 1), (5, 3, 2), (12, 2, 4)])
+@pytest.mark.parametrize("compute_q", [True, False])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("m,n", QR_SPREAD_SHAPES)
+def test_qr_distributed_order_equals_twin(m, n, dtype, compute_q, P, groups, teams, deficient):
+    """K2a-d's order (columns of [R | Q^T] interleaved over 3, 5 and 12 CTAs,
+    more than a cluster holds and not a power of two; each stage's
+    coefficients through the team's row of the barriers' parity in device
+    memory, copied by every CTA past the barrier, the parity running on
+    over a team's lanes; the rotations dealt over groups of threads) is the
+    twin's bit for bit; a zero column makes a = b = 0, the identity select."""
+    A = torch.from_numpy(_system(19, m, n, 5, dtype)[0])
+    if deficient:
+        A[:, n // 2] = 0.0
+    _hold_qr_order(*qr_distributed_emulation(A, compute_q, P, groups, teams), A, compute_q)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_qr_spread_orders_match_jax(dtype):
+    """K2a-c's and K2a-d's orders against the JAX package: its Pallas kernel
+    in interpret mode, and in float64 its jitted wavefront, with Q."""
+    import jax
+    from nlsolver_tpu.linalg.qr_parallel import qr_parallel
+    from nlsolver_tpu.ops.qr_wavefront import qr_wavefront_pallas
+
+    A = _system(20, 7, 6, 8, dtype)[0]
+    jR, jQ = (np.asarray(a) for a in qr_wavefront_pallas(A, compute_q=True, interpret=True))
+    want = jax.jit(qr_parallel)(A) if dtype == np.float64 else None
+    for R, Q in (qr_cluster_emulation(torch.from_numpy(A), True, 4, 2),
+                 qr_distributed_emulation(torch.from_numpy(A), True, 5, 2, 3)):
+        if dtype == np.float32:
+            np.testing.assert_allclose(R.numpy(), jR, atol=1e-5)
+            np.testing.assert_allclose(Q.numpy(), jQ, atol=1e-5)
+        else:
+            for r, q in ((jR, jQ), (np.asarray(want.R), np.asarray(want.Q))):
+                # the annihilated entries hold rounding residue: absolute slack for them
+                np.testing.assert_allclose(R.numpy(), r, rtol=1e-12, atol=1e-13)
+                np.testing.assert_allclose(Q.numpy(), q, rtol=1e-12, atol=1e-13)
+
+
+# the last square m = n of K2a-c with clusters of 2, 4 and 8 CTAs, and of
+# K2a-d on 132 CTAs, with and without Q; past the warp form's
+QR_CLUSTER_ENDS = {(torch.float32, True): (239, 336, 472), (torch.float64, True): (168, 236, 332),
+                   (torch.float32, False): (336, 472, 664), (torch.float64, False): (236, 332, 464)}
+QR_DISTRIBUTED_END = {(torch.float32, True): 1874, (torch.float64, True): 1320,
+                      (torch.float32, False): 2640, (torch.float64, False): 1816}
+
+
+@pytest.mark.parametrize("dtype,compute_q", list(QR_CLUSTER_ENDS))
+def test_qr_cluster_limits(dtype, compute_q):
+    """K2a-c's range, worked out from 232448 bytes a CTA: m ceil(cols / C)
+    words of [R | Q^T] (cols = n + m, or n without Q) and 4 n of
+    coefficients, C of 2, 4 and 8; a multiple of 32 column threads that
+    covers CTA 0's columns, at most 1024 threads; the plan's C the one that
+    runs the most lanes at once, grown for few lanes."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    for size, last in zip((2, 4, 8), QR_CLUSTER_ENDS[dtype, compute_q]):
+        cols = 2 * last if compute_q else last
+        assert tqw.qr_cluster_bytes(last, last, dtype, compute_q, size) == \
+            (last * -(-cols // size) + 4 * last) * itemsize <= 232448 < \
+            tqw.qr_cluster_bytes(last + 1, last + 1, dtype, compute_q, size)
+    last = QR_CLUSTER_ENDS[dtype, compute_q][-1]
+    assert tqw.qr_cluster_fits(last, last, dtype, compute_q)
+    assert not tqw.qr_cluster_fits(last + 1, last + 1, dtype, compute_q)
+    # with one row more: one column less with Q (a row of Q^T more), the same n without
+    tall = last - 1 if compute_q else last
+    assert tqw.qr_cluster_fits(tall + 1, tall, dtype, compute_q)
+    assert not tqw.qr_cluster_fits(tall + 2, tall + 1, dtype, compute_q)
+    assert tqw.qr_cluster_plan(last + 1, last + 1, dtype, compute_q) == (0, 0)
+    for m in range(1, last + 1, 7):
+        for n in (1, m // 2 + 1, m):
+            C, T = tqw.qr_cluster_plan(m, n, dtype, compute_q)
+            local = -(-tqw.qr_columns(m, n, compute_q) // C)
+            assert tqw.qr_cluster_bytes(m, n, dtype, compute_q, C) <= 232448
+            assert T % 32 == 0 and T - 32 < local <= T
+            assert tqw.QR_CLUSTER_GROUPS * T <= 1024
+    assert tqw.qr_cluster_plan(4, 4, torch.float16, compute_q) == (0, 0)
+    assert tqw.qr_cluster_plan(3, 4, dtype, compute_q) == (0, 0)
+
+
+def test_qr_cluster_plans():
+    """The plans at linalg.qr's [170, 170] in float32 with Q: clusters of 2,
+    4 and 8 all run 2 and 32 lanes at once, so the least, 2, doubles while
+    the lanes' clusters still find an SM each (2 lanes: 8; 32 lanes: 4,
+    128 CTAs); 4096 lanes take the C that runs the most at once (66, 99 and
+    115 lanes: 8)."""
+    f32, f64 = torch.float32, torch.float64
+    assert tqw.qr_cluster_bytes(170, 170, f32, True, 4) == (170 * 85 + 680) * 4
+    assert [tqw.qr_cluster_plan(170, 170, f32, True, lanes)[0] for lanes in (2, 32, 4096)] == \
+        [8, 4, 8]
+    assert tqw.qr_cluster_plan(170, 170, f32, True, 32) == (4, 96)
+    assert tqw.qr_cluster_columns(170, 170, True, 2) == 192
+    assert [tqw.qr_cluster_plan(121, 121, f64, True, lanes)[0] for lanes in (2, 32, 4096)] == \
+        [8, 4, 4]
+    assert [tqw.qr_cluster_plan(472, 472, f32, True, lanes) for lanes in (2, 32, 4096)] == \
+        [(8, 128)] * 3
+
+
+@pytest.mark.parametrize("dtype,compute_q", list(QR_DISTRIBUTED_END))
+def test_qr_distributed_limits(dtype, compute_q):
+    """K2a-d's range, worked out from 232448 bytes a CTA: m ceil(cols / P)
+    words of [R | Q^T] and 2 n of coefficients, P up to the card's 132 SMs:
+    from the end of K2a-c's range on; the least P that holds the array,
+    about 256 threads a CTA."""
+    first, last = QR_CLUSTER_ENDS[dtype, compute_q][-1] + 1, QR_DISTRIBUTED_END[dtype, compute_q]
+    assert not tqw.qr_cluster_fits(first, first, dtype, compute_q)
+    assert tqw.qr_distributed_fits(first, first, dtype, compute_q)
+    assert tqw.qr_distributed_fits(last, last, dtype, compute_q)
+    assert not tqw.qr_distributed_fits(last + 1, last + 1, dtype, compute_q)
+    assert tqw.qr_distributed_least(last + 1, last + 1, dtype, compute_q) == 0
+    assert tqw.qr_distributed_bytes(last, last, dtype, compute_q, 132) <= 232448 < \
+        tqw.qr_distributed_bytes(last + 1, last + 1, dtype, compute_q, 132)
+    for m in range(1, last + 1, 41):
+        for n in (1, m // 3 + 1, m):
+            P = tqw.qr_distributed_least(m, n, dtype, compute_q)
+            assert tqw.qr_distributed_bytes(m, n, dtype, compute_q, P) <= 232448
+            assert P == 1 or tqw.qr_distributed_bytes(m, n, dtype, compute_q, P - 1) > 232448
+            columns = -(-tqw.qr_columns(m, n, compute_q) // P)
+            G = tqw.qr_distributed_groups(m, n, compute_q, P)
+            assert 1 <= columns * G <= 1024 and (columns * G <= 256 or G == 1)
+    assert not tqw.qr_distributed_fits(last, last, dtype, compute_q, sms=100)
+    assert tqw.qr_distributed_plan(4, 4, torch.float16, compute_q) == 0
+    assert tqw.qr_distributed_plan(3, 4, dtype, compute_q) == 0
+
+
+def test_qr_distributed_plans():
+    """The plans at K2a-d's path, [333, 333] in float64 with Q: the least P
+    that holds the array is 8; few lanes spread over the card's SMs (1 lane:
+    132 CTAs, 2: 66, 32: the least), 11 columns and 23 groups a CTA at 66."""
+    f32, f64 = torch.float32, torch.float64
+    assert tqw.qr_distributed_bytes(333, 333, f64, True, 66) == (333 * 11 + 666) * 8
+    assert tqw.qr_distributed_least(333, 333, f64, True) == 8
+    assert [tqw.qr_distributed_plan(333, 333, f64, True, lanes) for lanes in
+            (None, 1, 2, 32, 4096)] == [8, 132, 66, 8, 8]
+    assert tqw.qr_distributed_groups(333, 333, True, 66) == 23
+    assert tqw.qr_distributed_plan(473, 473, f32, True, 2) == 66
+    assert tqw.qr_distributed_plan(2, 2, f32, True, 1) == 4  # a column a CTA at most
+
+
+@pytest.mark.parametrize("dtype,compute_q", list(QR_DISTRIBUTED_END))
+def test_qr_form_hands_over_at_each_end(dtype, compute_q):
+    """The dispatcher's four ranges over square m = n, and its choice at each
+    end, square and with one row more."""
+    warp = max(n for n in range(1, 300) if tqw.qr_warp_fits(n, n, dtype, compute_q))
+    cluster, dist = QR_CLUSTER_ENDS[dtype, compute_q][-1], QR_DISTRIBUTED_END[dtype, compute_q]
+    forms = [tqw.qr_form(n, n, dtype, compute_q) for n in range(1, dist + 3)]
+    assert forms == ["warp"] * warp + ["cluster"] * (cluster - warp) + \
+        ["distributed"] * (dist - cluster) + ["global"] * 2
+    for last, form, after in ((warp, "warp", "cluster"), (cluster, "cluster", "distributed"),
+                              (dist, "distributed", "global")):
+        assert tqw.qr_form(last, last, dtype, compute_q) == form
+        assert tqw.qr_form(last + 1, last + 1, dtype, compute_q) == after
+        tall = max(n for n in range(last - 2, last + 1)
+                   if tqw.qr_form(n + 1, n, dtype, compute_q) == form)
+        assert tqw.qr_form(tall + 2, tall + 1, dtype, compute_q) == after
 
 
 def window_emulation(A, y):
@@ -837,16 +1134,132 @@ def test_qr_warp_form_bit_equal_to_twin_on_card(m, n, B, dtype, compute_q):
 @pytest.mark.parametrize("m,n,dtype", [(170, 170, torch.float32), (171, 170, torch.float32),
                                        (121, 121, torch.float64), (121, 120, torch.float64)])
 def test_qr_global_form_past_the_warp_form_on_card(m, n, dtype):
-    """K2a in device memory where K2a-w's array no longer fits (with Q),
-    the dispatcher's choice there: the twin's bits."""
+    """K2a in device memory, by a direct call, where K2a-w's array no longer
+    fits (with Q) and the dispatcher hands the shape to K2a-c: the twin's
+    bits."""
     dev = _on_card()
     A = torch.from_numpy(_system(12, m, n, 32)[0]).to(dev, dtype)
+    assert tqw.qr_form(m, n, dtype, True) == "cluster"
     before = tqw.qr_wavefront_global.launches
-    R, Q = tqw.qr_wavefront_kernel(A, compute_q=True)
+    R, Q = tqw.qr_wavefront_global(A, compute_q=True)
     torch.cuda.synchronize()
     assert tqw.qr_wavefront_global.launches == before + 1
     tR, tQ = tqw.qr_wavefront_reference(A, compute_q=True)
     assert torch.equal(R, tR) and torch.equal(Q, tQ)
+
+
+def _qr_form_edges(form, dtype, compute_q):
+    """(m, n): the first and last square shapes that the dispatcher gives
+    K2a's ``form``, and its first and last with one row more."""
+    hi = QR_DISTRIBUTED_END[dtype, compute_q] + 2
+    square = [n for n in range(1, hi) if tqw.qr_form(n, n, dtype, compute_q) == form]
+    tall = [n for n in range(1, hi) if tqw.qr_form(n + 1, n, dtype, compute_q) == form]
+    return [(square[0], square[0]), (square[-1], square[-1]), (tall[0] + 1, tall[0]),
+            (tall[-1] + 1, tall[-1])]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["cluster", "distributed"])
+@pytest.mark.parametrize("dtype,compute_q", list(QR_DISTRIBUTED_END))
+def test_qr_spread_forms_at_their_edges_on_card(form, dtype, compute_q):
+    """K2a-c on 32 lanes and K2a-d on 2, through the dispatcher, at the
+    first and last square shapes of their ranges and with one row more, a
+    zero column among the random ones: one launch each, the twin's R and Q
+    bit for bit."""
+    dev = _on_card()
+    kernel = getattr(tqw, f"qr_wavefront_{form}")
+    B = 32 if form == "cluster" else 2
+    for m, n in _qr_form_edges(form, dtype, compute_q):
+        A = torch.from_numpy(_system(21, m, n, B)[0]).to(dev, dtype)
+        A[:, n // 2] = 0.0
+        before = kernel.launches
+        R, Q = tqw.qr_wavefront_kernel(A, compute_q=compute_q)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1, (m, n)
+        tR, tQ = tqw.qr_wavefront_reference(A, compute_q)
+        assert torch.equal(R, tR) and (not compute_q or torch.equal(Q, tQ)), (m, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n,B,compute_q", [(170, 170, 32, True), (171, 170, 33, True),
+                                             (9, 9, 5, True), (40, 35, 70, False),
+                                             (121, 121, 7, True)])
+def test_qr_cluster_form_bit_equal_with_every_plan_on_card(m, n, B, compute_q, dtype):
+    """K2a-c at linalg.qr's [170, 170, 32], with one row more on a ragged
+    B, below the warp form's edge and at float64's first shape, a zero
+    column below n = 64, with every cluster size that holds the array and
+    1, 2, 4 and 8 groups of threads: the twin's bits."""
+    dev = _on_card()
+    A = torch.from_numpy(_system(22, m, n, B)[0]).to(dev, dtype)
+    if n < 64:
+        A[:, n // 2] = 0.0
+    tR, tQ = tqw.qr_wavefront_reference(A, compute_q)
+    for size in (2, 4, 8):
+        if tqw.qr_cluster_bytes(m, n, dtype, compute_q, size) > 232448:
+            continue
+        for groups in (1, 2, 4, 8):
+            if tqw.qr_cluster_columns(m, n, compute_q, size) * groups > 1024:
+                continue
+            before = tqw.qr_wavefront_cluster.launches
+            R, Q = tqw.qr_wavefront_cluster(A, compute_q, size=size, _groups=groups)
+            torch.cuda.synchronize()
+            assert tqw.qr_wavefront_cluster.launches == before + 1
+            assert torch.equal(R, tR) and (not compute_q or torch.equal(Q, tQ)), (size, groups)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("m,n,B,compute_q", [(333, 333, 2, True), (473, 472, 2, True),
+                                             (200, 180, 64, True), (20, 17, 5, False),
+                                             (40, 35, 70, True)])
+def test_qr_distributed_form_bit_equal_with_every_plan_on_card(m, n, B, compute_q, dtype):
+    """K2a-d at float64's path [333, 333, 2], at float32's first shape with
+    one row more, on 64 lanes (several lanes a team) and below its range, a
+    zero column below n = 64, with 3, 5, 12, 66 and 132 CTAs a lane where
+    they hold the array, and half, the plan's and twice the plan's groups of
+    threads at the plan's P: the twin's bits."""
+    dev = _on_card()
+    A = torch.from_numpy(_system(23, m, n, B)[0]).to(dev, dtype)
+    if n < 64:
+        A[:, n // 2] = 0.0
+    tR, tQ = tqw.qr_wavefront_reference(A, compute_q)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    least = tqw.qr_distributed_least(m, n, dtype, compute_q, sms)
+    plan = tqw.qr_distributed_plan(m, n, dtype, compute_q, B, sms)
+    for size in sorted({least, plan, 3, 5, 12, 66, 132}):
+        if size < least or size > sms:
+            continue
+        G = tqw.qr_distributed_groups(m, n, compute_q, size)
+        columns = -(-tqw.qr_columns(m, n, compute_q) // size)
+        for groups in ({max(1, G // 2), G, 2 * G} if size == plan else {G}):
+            if groups * columns > 1024:
+                continue
+            before = tqw.qr_wavefront_distributed.launches
+            R, Q = tqw.qr_wavefront_distributed(A, compute_q, size=size, _groups=groups)
+            torch.cuda.synchronize()
+            assert tqw.qr_wavefront_distributed.launches == before + 1
+            assert torch.equal(R, tR) and (not compute_q or torch.equal(Q, tQ)), (size, groups)
+
+
+@pytest.mark.gpu
+def test_qr_spread_forms_refuse_what_they_do_not_take_on_card():
+    dev = _on_card()
+    A = torch.zeros(473, 473, 2, device=dev)
+    with pytest.raises(ValueError, match="cluster"):
+        tqw.qr_wavefront_cluster(A, compute_q=True)
+    with pytest.raises(ValueError, match="cluster of 2"):
+        tqw.qr_wavefront_cluster(A[:240, :240].contiguous(), compute_q=True, size=2)
+    with pytest.raises(ValueError, match="CTAs' shared memory"):
+        tqw.qr_wavefront_distributed(A, compute_q=True,
+                                     size=tqw.qr_distributed_least(473, 473, A.dtype, True) - 1)
+    # past K2a-d's range the dispatcher names K2a-g and K2a-d refuses
+    A = torch.zeros(1321, 1321, 1, device=dev, dtype=torch.float64)
+    assert tqw.qr_form(1321, 1321, torch.float64, True) == "global"
+    with pytest.raises(ValueError, match="CTAs' shared memory"):
+        tqw.qr_wavefront_distributed(A, compute_q=True)
+    R, Q = tqw.qr_wavefront_cluster(torch.zeros(200, 200, 0, device=dev), compute_q=True)
+    assert R.shape == (200, 200, 0) and Q.shape == (200, 200, 0)
 
 
 @pytest.mark.gpu
