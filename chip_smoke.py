@@ -13,22 +13,28 @@ Phases, each fatal on failure:
      kernel of K2b's warp form or of the cluster and distributed forms of K2b,
      K3 and K2a, may spill or keep a stack frame; the issue
      floors of K1's staged form, K2b's register and warp forms, K2a's warp
-     form, K4b-c and K3's register and warp forms from their SASS;
-  3. K1 in both forms against its twin on injected draws, B=8192, n=10,
-     P=64, f32, 5 generations, Rastrigin and sphere, a third of the lanes
-     frozen; both forms at the edges of the staged form's plan (n = 16 and
-     17 at P = 64, n * P no multiple of 4, n = 28 and 29 at P = 1024, the
-     latter at the wide fleet's 256 instances) and the dispatcher's choice
-     there;
+     form, K4b-c and K3's register and warp forms from their SASS, and of
+     K1c, K1g, K4b-t and K4b (benches.issue_floors);
+  3. K1 in its three forms against its twin on injected draws, B=8192,
+     n=10, P=64, f32, 5 generations, Rastrigin and sphere, a third of the
+     lanes frozen; the forms at the edges of the staged form's plan (n = 16
+     and 17 at P = 64, n * P no multiple of 4, n = 28 at P = 1024), the
+     cluster form (K1c) past it at the wide fleet's [256, 29, 1024], at the
+     last n its largest cluster takes ([3, 453, 1024]) and with rows staged
+     by plain loads (P = 1022), its proposals bit-equal to the twin's and
+     its agents and scores to the global form's (K1g), K1g past it (n =
+     454), and the dispatcher's choice at each;
   4. K1's Philox draws: crossover share, forced dimension, seeds, and
-     bit-equality of both forms with the twin fed the Python Philox;
+     bit-equality of every form with the twin fed the Python Philox, K1c
+     also at [256, 29, 1024] and [3, 453, 1024] and bit-equal to K1g;
   5. the DE slice: minimize(rastrigin, x0[8192, 10], method="de",
      layout="batched") through K1's staged form, launches counted; the
      default DEConfig() route on 1024 lanes; a wide fleet (256 instances,
-     n=29, P=1024) through the global form;
+     n=29, P=1024) through the cluster form, K1g once by a direct call;
   6. DE timing: the fleet for 200 generations through K1 and through the
      plain step (median of 5 after 2 warm-ups), and each form of K1 alone
-     behind a device sleep against its twin from CUDA events;
+     behind a device sleep against its twin from CUDA events (K1c and K1g
+     at the wide fleet's shape);
   7. K3 (batch-minor Cholesky solve) in its five forms (registers, a warp
      a lane, a cluster a lane, a lane over the whole card, device memory)
      bit-equal to its twin on SPD
@@ -101,24 +107,31 @@ Phases, each fatal on failure:
      rho = 0, at n in {1, 2, 8, 33} with a ragged B, and once in f64; K4b-c
      (the update over a thread-block cluster) at [128, 128, 4096] and at the
      first and last n of its range in f32 and f64 (B = 1001 and 4096), each
-     equal to K4b (row-split) bit for bit; K4b at n = 16 where it must equal
-     K4a bit for bit, at n = 45 and at the first n past K4b-c's range; the
-     dispatcher's choice at both ends of K4b-c's range; K4c (leading-batch
-     update) at [65536, 16, 16] and [4096, 64, 64]; a non-contiguous and an
-     f16 input refused;
+     equal to K4b (row-split) bit for bit; K4b-t (a cluster of 16 whose rows
+     are streamed twice, the second read hinted to L2) at the first n past
+     K4b-c's range ([225, 225, 256] in f32, 153 in f64), at n = 304 and 305,
+     at n = 320, at the dispatcher's last n and at its plan's last n, each
+     equal to K4b bit for bit;
+     K4b at n = 16 where it must equal K4a bit for bit, at n = 45 and at
+     the first n past K4b-t's range; the dispatcher's choice at both ends of
+     K4b-c's range and of K4b-t's on 5, 256 and 4096 lanes (it shrinks as B
+     grows); K4c (leading-batch update) at [65536, 16,
+     16] and [4096, 64, 64]; a non-contiguous and an f16 input refused;
  12. the BFGS slice: minimize(method="bfgs", layout="fleet") on 65536
      16-D bowls with more_thuente and with speculative, K4a launches equal
      to the host steps, every lane halted by a tolerance before max_iter,
      converged share at least 0.98 and 0.92, converged lanes within 5e-3
      of their centers and every lane within 1e-2, solved share at least
      0.999; a numpy x0 lands on the card; a Rosenbrock fleet; a wide fleet
-     (n=128, B=4096) that reaches K4b-c through the dispatcher, and one past
-     K4b-c's range (n=225, B=256) that reaches K4b; one leading-batch update
-     through ops.rank2_update_batched (K4c);
+     (n=128, B=4096) that reaches K4b-c through the dispatcher, and two past
+     K4b-c's range (n=225 and n=320, B=256) that reach K4b-t; K4b once by a
+     direct call at [225, 225, 256];
+     one leading-batch update through ops.rank2_update_batched (K4c);
  13. BFGS timing: bench_bfgs_fleet per line search (median of 3 after 1
-     warm-up, ABBA order), and K4a, K4b-c, K4b (at its path's [225, 225,
-     256] and beside K4b-c) and K4c alone against their twins from CUDA
-     events;
+     warm-up, ABBA order), and K4a, K4b-c (at [128, 128, 4096], and on
+     clusters of 16 at [225, 225, 256]), K4b-t and K4b (at [225, 225, 256]
+     and [320, 320, 256], and K4b beside K4b-c) and K4c alone against their
+     twins from CUDA events;
  14. K5 (batched Jacobi eigensolver) equal to its twin bit for bit in all
      four forms: K5r (registers) at [16, 16, 65536] f32 with 8 sweeps,
      [17, 17, 4096], [2, 2, 65536], [8, 8, 4096] f64, [16, 16, 4099] in f32
@@ -157,15 +170,16 @@ Every kernel's line also gives its bound: the larger of its compulsory
 bytes over 3.35 TB/s and its floating-point operations over 67 TFLOP/s
 (f32 outside the tensor cores; f64 too, the FP64 tensor cores' rate),
 computed from the run's shapes; K1's
-staged form, K2b's register and warp forms, K2a-w, K4b-c and K3's register
-and warp forms also the floor of their instruction issue (``issue_ms``),
-which must lie below their time.
+staged, cluster and global forms, K2b's register and warp forms, K2a-w,
+K4b-c, K4b-t, K4b and K3's register and warp forms also the floor of their
+instruction issue (``issue_ms``), which must lie below their time.
 
 Prints a JSON line of kernels, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 when there is no CUDA card or anything fails.
 """
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -178,7 +192,8 @@ TPU_KERNEL = "nlsolver_tpu/ops/de_fused.py:110"
 FLEET_B, FLEET_M = 262144, 32  # the NLLS fleet: fits, points per fit
 BFGS_B, BFGS_N = 65536, 16     # the BFGS fleet: bowls, dimensions
 WIDE_B, WIDE_N = 4096, 128     # the wide BFGS fleet, beyond K4a's resident slab (K4b-c)
-WIDE_K4B_B, WIDE_K4B_N = 256, 225  # a wide BFGS fleet past K4b-c's range in f32 (K4b)
+WIDE_K4B_B, WIDE_K4B_N = 256, 225  # a wide BFGS fleet past K4b-c's range in f32 (K4b-t)
+STREAM_N = 320                 # a wide BFGS fleet past a cluster of 16's rows (B = WIDE_K4B_B)
 CHEB_SHARED = (12, 32, 16384)  # Chebyshev NLLS fleets: coefficients, points, fits; through
 CHEB_WARP = (30, 48, 4096)     # K2b's shared-memory and warp forms (float32), and past the
 CHEB_CLUSTER = (120, 128, 256)  # warp form's range in float64 through its cluster form
@@ -434,7 +449,7 @@ def spd_warp_floor(ins, n, b, lanes):
 def phase_build():
     import torch
 
-    from nlsolver_torch.benches import issue_instructions, sass_functions
+    from nlsolver_torch.benches import floor_plans, issue_floors, issue_instructions, sass_functions
     from nlsolver_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -504,6 +519,20 @@ def phase_build():
         f"kernel; {way} on its shortest way through; loops (body, iterations a pass) of the sums "
         f"{kinds['sum']} and the row updates {kinds['row']}), {WIDE_N * WIDE_B} threads, "
         f"{FLOORS['mhz']:.0f} MHz: {FLOORS['K4b-c'] * 1e3:.2f} us")
+    # K1c and K1g at the wide DE fleet's shape, K4b-t and K4b at [225, 225,
+    # 256]: the fewest instructions on a way through each launch that
+    # passes the marked instructions a thread must issue
+    # (benches.floor_plans, benches.unit_floor)
+    plans = floor_plans(WIDE_K4B_N, WIDE_K4B_B, DE_WIDE[:3])
+    t1 = time.perf_counter()
+    floors = issue_floors(("K1c", "K1g", "K4b-t", "K4b"), plans, path, FLOORS["mhz"])
+    for kid, floor in floors.items():
+        FLOORS[kid] = floor["us"] / 1e3
+        log(f"[2] issue floor of {kid}: " + "; ".join(
+            f"{x['kernel']} {x['instructions']} SASS instructions a thread ({x['in_kernel']} in "
+            f"the kernel; {x['units']} marked), {x['threads']} threads" for x in floor["launches"])
+            + f"; {FLOORS['mhz']:.0f} MHz: {floor['us']:.2f} us")
+    log(f"[2] the four floors above took {time.perf_counter() - t1:.1f} s")
     # ptxas names a kernel, then its stack frame and spills, then its registers.
     # The register forms of K5, K2b and K3 are one kernel per width (K5r also
     # per parity): no word of theirs may live in local memory
@@ -596,7 +625,8 @@ def phase_build():
 def de_forms():
     from nlsolver_torch.ops import de_fused as tdf
 
-    return {"K1s": tdf.de_generation_staged, "K1g": tdf.de_generation_global}
+    return {"K1s": tdf.de_generation_staged, "K1c": tdf.de_generation_cluster,
+            "K1g": tdf.de_generation_global}
 
 
 def phase_injected(torch, dev):
@@ -660,11 +690,15 @@ def phase_injected(torch, dev):
     # the forms at the edges of the staged one's plan, and the dispatcher's
     # choice: the proposal in registers up to n = 16 and in shared memory
     # beyond, the slab staged by plain loads where n * P is no multiple of
-    # 4, the last n that one block holds at P = 1024, the global form past it
-    # at the wide fleet's shape (phase 5)
+    # 4, the last n that one block holds at P = 1024, the cluster form past
+    # it at the wide fleet's shape (phase 5) and at the last n its largest
+    # cluster takes, CTAs' rows staged by plain loads (P = 1022), the global
+    # form past the cluster form
     g = torch.Generator(device=dev).manual_seed(4)
     wide = (DE_WIDE[1], DE_WIDE[2], DE_WIDE[0])
-    for n, p, b in ((16, 64, 999), (17, 64, 999), (3, 7, 5000), (28, 1024, 9), wide):
+    forms_of = {"staged": ["K1s", "K1g"], "cluster": ["K1c", "K1g"], "global": ["K1g"]}
+    for n, p, b in ((16, 64, 999), (17, 64, 999), (3, 7, 5000), (28, 1024, 9), wide,
+                    (453, 1024, 3), (40, 1022, 5), (454, 1024, 2)):
         fn = PROBLEMS["rastrigin"].fn
         agents = (torch.rand((b, n, p), generator=g, device=dev) - 0.5) * 5.0
         scores = tdf.eval_columns(fn, agents)
@@ -672,14 +706,29 @@ def phase_injected(torch, dev):
         u = torch.rand((b, n, p), generator=g, device=dev)
         fdim = torch.randint(0, n, (b, p), generator=g, device=dev)
         offs = (1, p // 3 + 1, p - 1)
-        kids = ["K1s", "K1g"] if tdf.staged_plan(n, p) else ["K1g"]
-        hold(fn, agents, scores, offs, active, u, fdim, kids, f"[{b}, {n}, {p}]")
+        kids = forms_of[tdf.generation_form(n, p)]
+        (ka, ks), _, _ = hold(fn, agents, scores, offs, active, u, fdim, kids, f"[{b}, {n}, {p}]")
+        if kids[0] == "K1c":
+            # every proposal accepted: the proposals bit-equal to the twin's,
+            # and agents and scores bit-equal to K1g's (the same sums)
+            inf = torch.full_like(scores, float("inf"))
+            every = torch.ones_like(active)
+            twin = tdf.de_generation_reference(fn, agents, inf, offs, u, fdim, every, F, CR)[0]
+            got = tdf.de_generation_cluster(fn, agents, inf, offs, every, seed=0, generation=0,
+                                            u=u, fdim=fdim)[0]
+            check(torch.equal(got, twin), f"K1c [{b}, {n}, {p}]: proposals differ from the twin")
+            glob = tdf.de_generation_global(fn, agents, scores, offs, active, seed=0, generation=0,
+                                            u=u, fdim=fdim)
+            check(torch.equal(ka, glob[0]) and torch.equal(ks, glob[1]),
+                  f"K1c [{b}, {n}, {p}]: agents or scores differ from K1g")
         before = forms[kids[0]].launches
         tdf.de_generation_fused(fn, agents, scores, offs, active, seed=0, generation=0)
         check(forms[kids[0]].launches == before + 1,
               f"the dispatcher did not take {kids[0]} at n={n}, P={p}")
-        log(f"[3] {' and '.join(kids)} [{b}, {n}, {p}] (plan {tdf.staged_plan(n, p)}): "
-            f"equal to the twin; the dispatcher takes {kids[0]}")
+        plan = tdf.staged_plan(n, p) if kids[0] == "K1s" else tdf.cluster_plan(n, p)
+        log(f"[3] {' and '.join(kids)} [{b}, {n}, {p}] (plan {plan}): equal to the twin"
+            f"{', K1c to K1g bit for bit' if kids[0] == 'K1c' else ''}; the dispatcher takes "
+            f"{kids[0]}")
     log(f"[3] kernel == twin on injected draws; max |score diff| {worst:.3e}")
     return worst
 
@@ -710,7 +759,23 @@ def phase_philox(torch, dev):
     for kid, form in de_forms().items():
         out, _ = form(fn, agents, inf, offs, active, seed=11, generation=3)
         check(torch.equal(out, twin), f"{kid}'s Philox draws differ from the Python Philox")
-    log("[4] Philox mode ok; K1s and K1g bit-equal to the twin on the Python Philox draws")
+    # K1c at the first shape past the staged form (the wide fleet's) and at
+    # the last n its largest cluster takes: its proposals the twin's on the
+    # Python Philox draws, its agents and scores K1g's
+    for b, n, p in ((DE_WIDE[0], DE_WIDE[1], DE_WIDE[2]), (3, 453, 1024)):
+        agents = torch.rand((b, n, p), generator=g, device=dev) - 0.5
+        scores = tdf.eval_columns(fn, agents)
+        every, inf = torch.ones(b, dtype=torch.bool, device=dev), torch.full_like(scores, float("inf"))
+        u, fdim = tdf.philox_draws(11, 3, b, n, p, torch.float32, dev)
+        twin, _ = tdf.de_generation_reference(fn, agents, inf, offs, u, fdim, every, 0.8, 0.9)
+        got, _ = tdf.de_generation_cluster(fn, agents, inf, offs, every, seed=11, generation=3)
+        check(torch.equal(got, twin), f"K1c [{b}, {n}, {p}]: Philox proposals differ from the twin")
+        got = tdf.de_generation_cluster(fn, agents, scores, offs, every, seed=11, generation=3)
+        want = tdf.de_generation_global(fn, agents, scores, offs, every, seed=11, generation=3)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"K1c [{b}, {n}, {p}]: Philox generation differs from K1g")
+    log("[4] Philox mode ok; K1s, K1c and K1g bit-equal to the twin on the Python Philox draws "
+        "(K1c also at [256, 29, 1024] and [3, 453, 1024], and to K1g there)")
 
 
 def phase_slice(torch, dev):
@@ -733,7 +798,7 @@ def phase_slice(torch, dev):
     # freezes the fleet
     generations = cfg.max_iter + 1
     log(f"[5] minimize: {wall:.3f} s, kernel launches {counts}, generations {generations}")
-    check(counts == {"K1s": generations, "K1g": 0},
+    check(counts == {"K1s": generations, "K1c": 0, "K1g": 0},
           f"launches {counts} for {generations} generations (K1s expected)")
     launches = {"K1s": counts["K1s"]}
     check(bool((res.iterations == cfg.max_iter).all()), "not every lane ran max_iter")
@@ -761,7 +826,8 @@ def phase_slice(torch, dev):
     check(bool(res.converged.all()), "a lane of the default route did not converge")
 
     # a wide population past the staged form's plan: DE_WIDE's fleet
-    # through the global form
+    # through the cluster form; K1g, the form it took before, by a direct
+    # call on its last agents
     b, n, p, gens = DE_WIDE
     cfg = DEConfig(pop_size=p, partner_sampling="rotation", use_fused_kernel=True,
                    max_iter=gens, eps=0.0, best_value_no_change=1 << 30)
@@ -774,10 +840,17 @@ def phase_slice(torch, dev):
     start = float(fn(x0[:1])[0])
     log(f"[5] wide fleet [{b}, {n}], P={p}, {gens} generations: launches {counts}, best f median "
         f"{float(res.f_value.median()):.4g} from {start:.4g}")
-    check(counts == {"K1s": 0, "K1g": gens + 1}, f"wide fleet: launches {counts}")
+    check(counts == {"K1s": 0, "K1c": gens + 1, "K1g": 0}, f"wide fleet: launches {counts}")
     check(bool(torch.isfinite(res.f_value).all()) and float(res.f_value.max()) < start,
           "the wide fleet did not descend")
-    launches["K1g"] = counts["K1g"]
+    launches["K1c"] = counts["K1c"]
+    agents = torch.rand((b, n, p), generator=torch.Generator(device=dev).manual_seed(5),
+                        device=dev) - 0.5
+    tdf.de_generation_global(fn, agents, tdf.eval_columns(fn, agents), (5, p // 2 - 2, p - 14),
+                             torch.ones(b, dtype=torch.bool, device=dev), seed=1, generation=0)
+    torch.cuda.synchronize()
+    launches["K1g"] = tdf.de_generation_global.launches
+    check(launches["K1g"] == 1, f"K1g's direct call counted {launches['K1g']}")
     return launches
 
 
@@ -814,11 +887,13 @@ def phase_timing(torch, dev):
             f"{r['min_ms']:.3f} ms, {r['iters_per_sec']:.6g} instance generations/s")
     # each form alone behind a device sleep, the twin as a plain chain: the
     # staged form at the headline's shape, the global form there too (the
-    # form every shape took before the staged one) and at DE_WIDE's
+    # form every shape took before the staged one), the cluster form at
+    # DE_WIDE's and the global form beside it (the form that shape took
+    # before the cluster one)
     forms, alone = de_forms(), {}
     b, n, p, _ = DE_WIDE
     for name, kid, shape, reps in (("K1s", "K1s", (B, N, P), 200), ("K1g n=10", "K1g", (B, N, P), 200),
-                                   ("K1g", "K1g", (b, n, p), 50)):
+                                   ("K1c", "K1c", (b, n, p), 50), ("K1g", "K1g", (b, n, p), 50)):
         kern, plain = de_case(torch, dev, *shape, forms[kid])
         (k, pl), (k1, k2, p1, p2) = abba(torch, kern, reps, plain, 10)
         alone[name] = (k, pl, None)  # no single PyTorch call computes a generation
@@ -1307,7 +1382,8 @@ def reset_counts():
 
     for fn in (eigh_jacobi.eigh_jacobi_registers, eigh_jacobi.eigh_jacobi_resident,
                eigh_jacobi.eigh_jacobi_cluster, eigh_jacobi.eigh_jacobi_global,
-               de_fused.de_generation_staged, de_fused.de_generation_global,
+               de_fused.de_generation_staged, de_fused.de_generation_cluster,
+               de_fused.de_generation_global,
                qr_wavefront.qr_wavefront_warp, qr_wavefront.qr_wavefront_cluster,
                qr_wavefront.qr_wavefront_distributed, qr_wavefront.qr_wavefront_global,
                qr_wavefront.least_squares_wavefront_registers,
@@ -1319,7 +1395,8 @@ def reset_counts():
                smallchol.solve_spd_warp, smallchol.solve_spd_cluster,
                smallchol.solve_spd_distributed, smallchol.solve_spd_batchminor_global,
                rank2.rank2_direction_batchminor_resident, rank2.rank2_direction_batchminor_cluster,
-               rank2.rank2_direction_batchminor_rowsplit, rank2.rank2_update_batched_kernel):
+               rank2.rank2_direction_batchminor_streamed, rank2.rank2_direction_batchminor_rowsplit,
+               rank2.rank2_update_batched_kernel):
         fn.launches = 0
 
 
@@ -1633,16 +1710,18 @@ def leading_batch(case):
 def phase_rank2(torch, dev):
     from nlsolver_torch.ops import rank2 as tr
 
-    worst = {"K4a": 0.0, "K4b-c": 0.0, "K4b": 0.0, "K4c": 0.0}
+    worst = {"K4a": 0.0, "K4b-c": 0.0, "K4b-t": 0.0, "K4b": 0.0, "K4c": 0.0}
 
     def hold(kid, kernel, twin, args, n, label):
-        """One counted launch of ``kernel`` on ``args`` against ``twin``:
-        within KERNEL_TOL_ULPS * n * eps of the twin's largest entry (the
-        sums run in ascending order, not torch.sum's), bit for bit at n <= 2."""
-        before = kernel.launches
+        """One counted launch of ``kernel`` (or of the wrapper a partial
+        binds) on ``args`` against ``twin``: within KERNEL_TOL_ULPS * n * eps
+        of the twin's largest entry (the sums run in ascending order, not
+        torch.sum's), bit for bit at n <= 2."""
+        counted = getattr(kernel, "func", kernel)
+        before = counted.launches
         got = kernel(*args)
         torch.cuda.synchronize()
-        check(kernel.launches == before + 1, f"{kid} {label}: no launch counted")
+        check(counted.launches == before + 1, f"{kid} {label}: no launch counted")
         want = twin(*args)
         got, want = ((got,), (want,)) if torch.is_tensor(got) else (got, want)
         notes = []
@@ -1665,7 +1744,7 @@ def phase_rank2(torch, dev):
 
     bm_twin = tr.rank2_direction_batchminor_reference
     resident, rowsplit = tr.rank2_direction_batchminor_resident, tr.rank2_direction_batchminor_rowsplit
-    cluster = tr.rank2_direction_batchminor_cluster
+    cluster, streamed = tr.rank2_direction_batchminor_cluster, tr.rank2_direction_batchminor_streamed
     main = rank2_case(torch, dev, BFGS_N, BFGS_B)
     Hn, d = hold("K4a", resident, bm_twin, main, BFGS_N, f"[{BFGS_N}, {BFGS_N}, {BFGS_B}] f32")
     H, rho, reset = main[0], main[4], main[5]
@@ -1689,31 +1768,53 @@ def phase_rank2(torch, dev):
     hold("K4b", rowsplit, bm_twin, rank2_case(torch, dev, 45, 1001, torch.float64), 45,
          "[45, 45, 1001] f64")
     # K4b-c at the first and last n of its range with B = 1001 (one-word
-    # copies) and 4096, K4b at the first n past it, in float32 and float64;
-    # the dispatcher: K4a while the slab fits a block's shared memory, K4b-c
-    # while a CTA's rows fit, K4b beyond
+    # copies) and 4096, in float32 and float64; K4b-t at the first n past
+    # it (the wide fleet's [225, 225, 256] in float32), at n = 304 and 305
+    # (where a cluster of 16 could hold every row and where it no longer
+    # could), at the second wide fleet's n = 320, at the dispatcher's last n
+    # on 256 lanes and at the last n its plan takes, each bit-equal to K4b;
+    # the dispatcher on 5, 256 and 4096 lanes: K4a while the slab fits a
+    # block's shared memory, K4b-c while a CTA's rows fit, K4b-t to
+    # streamed_last(dtype, B), K4b beyond
     forms = {"resident": ("K4a", resident), "cluster": ("K4b-c", cluster),
-             "rowsplit": ("K4b", rowsplit)}
+             "streamed": ("K4b-t", streamed), "rowsplit": ("K4b", rowsplit)}
     for dtype in (torch.float32, torch.float64):
-        first = min(n for n in range(1, 512) if tr.direction_form(n, dtype) == "cluster")
-        last = max(n for n in range(1, 512) if tr.direction_form(n, dtype) == "cluster")
+        ns = range(1, 2048)
+        first = min(n for n in ns if tr.direction_form(n, dtype, 1) == "cluster")
+        last = max(n for n in ns if tr.direction_form(n, dtype, 1) == "cluster")
+        most = max(n for n in ns if tr.streamed_plan(n, dtype))  # by a direct call past the end
         kind = str(dtype)[6:]
         for n, b in ((first, 1001), (last, 1001), (last, 4096)):
             case = rank2_case(torch, dev, n, b, dtype)
             label = f"[{n}, {n}, {b}] {kind}"
             same_bits("K4b-c", hold("K4b-c", cluster, bm_twin, case, n, label),
                       hold("K4b", rowsplit, bm_twin, case, n, label), label)
-        for n in (first - 1, first, last, last + 1):
-            kid, kernel = forms[tr.direction_form(n, dtype)]
-            check(kid == ("K4b-c" if first <= n <= last else "K4a" if n < first else "K4b"),
-                  f"direction_form({n}, {dtype}) is {kid}")
-            before = kernel.launches
-            tr.rank2_direction_batchminor(*rank2_case(torch, dev, n, 257, dtype))
-            check(kernel.launches == before + 1, f"the dispatcher did not take {kid} at n={n}")
-        hold("K4b", rowsplit, bm_twin, rank2_case(torch, dev, last + 1, 257, dtype), last + 1,
-             f"[{last + 1}, {last + 1}, 257] {kind}")
+        end = max(last, tr.streamed_last(dtype, WIDE_K4B_B))
+        for n, b in sorted({(last + 1, WIDE_K4B_B), (304, 257), (305, 257), (STREAM_N, WIDE_K4B_B),
+                            (end, 5), (most, 5)}):
+            case = rank2_case(torch, dev, n, b, dtype)
+            label = f"[{n}, {n}, {b}] {kind} (chunk {tr.streamed_plan(n, dtype)})"
+            same_bits("K4b-t", hold("K4b-t", streamed, bm_twin, case, n, label),
+                      hold("K4b", rowsplit, bm_twin, case, n, label), label)
+        ends = {}
+        for b in (5, WIDE_K4B_B, 4096):
+            end = ends[b] = max(last, tr.streamed_last(dtype, b))
+            for n in sorted({first - 1, first, last, last + 1, end, end + 1}):
+                kid, kernel = forms[tr.direction_form(n, dtype, b)]
+                want = ("K4a" if n < first else "K4b-c" if n <= last else "K4b-t" if n <= end
+                        else "K4b")
+                check(kid == want, f"direction_form({n}, {dtype}, {b}) is {kid}, not {want}")
+                before = kernel.launches
+                tr.rank2_direction_batchminor(*rank2_case(torch, dev, n, b, dtype))
+                check(kernel.launches == before + 1,
+                      f"the dispatcher did not take {kid} at n={n}, B={b}")
+        end = ends[5]
+        hold("K4b", rowsplit, bm_twin, rank2_case(torch, dev, end + 1, 5, dtype), end + 1,
+             f"[{end + 1}, {end + 1}, 5] {kind}")
         log(f"[11] the dispatcher takes K4a up to n = {first - 1}, K4b-c for n = {first} to "
-            f"{last}, K4b from {last + 1} ({kind})")
+            f"{last}, K4b-t past it to n = "
+            + ", ".join(f"{e if e > last else 'none'} on {b} lanes" for b, e in ends.items())
+            + f" (its plan to {most}), K4b beyond ({kind})")
     batched, b_twin = tr.rank2_update_batched_kernel, tr.rank2_update_batched_reference
     Hb = hold("K4c", batched, b_twin, leading_batch(main), BFGS_N,
               f"[{BFGS_B}, {BFGS_N}, {BFGS_N}] f32")[0]
@@ -1748,6 +1849,7 @@ def rank2_counts():
 
     return {"K4a": tr.rank2_direction_batchminor_resident.launches,
             "K4b-c": tr.rank2_direction_batchminor_cluster.launches,
+            "K4b-t": tr.rank2_direction_batchminor_streamed.launches,
             "K4b": tr.rank2_direction_batchminor_rowsplit.launches,
             "K4c": tr.rank2_update_batched_kernel.launches}
 
@@ -1825,25 +1927,34 @@ def phase_bfgs_slice(torch, dev):
     check(float(res.f_value.max()) < 1e-6 and float((res.x - 1.0).abs().max()) < 1e-2,
           "the Rosenbrock fleet did not reach (1, 1)")
 
-    # wide fleets: through K4b-c at WIDE_N, through K4b at the first n
-    # past K4b-c's range
-    for n, b, kid in ((WIDE_N, WIDE_B, "K4b-c"), (WIDE_K4B_N, WIDE_K4B_B, "K4b")):
+    # wide fleets: through K4b-c at WIDE_N, through K4b-t at the first n
+    # past K4b-c's range and at STREAM_N, past what a cluster of 16 could
+    # hold
+    for n, b, kid in ((WIDE_N, WIDE_B, "K4b-c"), (WIDE_K4B_N, WIDE_K4B_B, "K4b-t"),
+                      (STREAM_N, WIDE_K4B_B, "K4b-t n=320")):
         wide_cols, wide_centers, _ = bowls_scenario(b, n, seed=2, device=dev)
         res, steps = drive(f"wide bowls [{n}, {b}]", wide_cols, torch.zeros(n, b, device=dev),
-                           BFGSFleetConfig(max_iter=30), kid)
+                           BFGSFleetConfig(max_iter=30), kid.split()[0])
         off = float((res.x - wide_centers).abs().max())
         log(f"[12] wide bowls [{n}, {b}]: max |x - center| {off:.3e}, converged "
             f"{float(res.converged.float().mean()):.6f}")
         check(off < 5e-2, f"the wide fleet [{n}, {b}] is far off its centers")
         launches[kid] = steps
 
+    # K4b, the form the first wide fleet's n took before K4b-t, by a direct
+    # call at its shape
+    reset_counts()
+    ops.rank2_direction_batchminor_rowsplit(*rank2_case(torch, dev, WIDE_K4B_N, WIDE_K4B_B))
+    torch.cuda.synchronize()
+    launches["K4b"] = rank2_counts()["K4b"]
+    check(launches["K4b"] == 1, f"K4b's direct call counted {launches['K4b']}")
     # K4c's path: the public leading-batch update (no solver calls it)
     args = leading_batch(rank2_case(torch, dev, BFGS_N, BFGS_B, seed=12))
     reset_counts()
     out = ops.rank2_update_batched(*args)
     torch.cuda.synchronize()
     counts = rank2_counts()
-    check(counts == {"K4a": 0, "K4b-c": 0, "K4b": 0, "K4c": 1},
+    check(counts == {"K4a": 0, "K4b-c": 0, "K4b-t": 0, "K4b": 0, "K4c": 1},
           f"ops.rank2_update_batched launched {counts}")
     check(tuple(out.shape) == (BFGS_B, BFGS_N, BFGS_N) and bool(torch.isfinite(out).all()),
           "ops.rank2_update_batched: non-finite or misshapen")
@@ -1867,13 +1978,21 @@ def phase_bfgs_timing(torch, dev):
     main = rank2_case(torch, dev, BFGS_N, BFGS_B)
     wide = rank2_case(torch, dev, WIDE_N, WIDE_B)
     past = rank2_case(torch, dev, WIDE_K4B_N, WIDE_K4B_B)
+    far = rank2_case(torch, dev, STREAM_N, WIDE_K4B_B)
     lead = leading_batch(main)
     bm_twin = tr.rank2_direction_batchminor_reference
-    # K4b at its path's [225, 225, 256] (phase 12) and beside K4b-c at [128,
-    # 128, 4096]
+    # K4b-t at the wide fleets' [225, 225, 256] and [320, 320, 256] (phase
+    # 12), K4b (the form before) and K4b-c on clusters of 16 (the widening
+    # alone) beside it; K4b beside K4b-c at [128, 128, 4096]
     times = {
         "K4a": (lambda: tr.rank2_direction_batchminor_resident(*main), lambda: bm_twin(*main)),
+        "K4b-t": (lambda: tr.rank2_direction_batchminor_streamed(*past), lambda: bm_twin(*past)),
         "K4b": (lambda: tr.rank2_direction_batchminor_rowsplit(*past), lambda: bm_twin(*past)),
+        "K4b-c C=16": (lambda: tr.rank2_direction_batchminor_cluster(*past, size=16, lanes=8),
+                       lambda: bm_twin(*past)),
+        "K4b-t n=320": (lambda: tr.rank2_direction_batchminor_streamed(*far),
+                        lambda: bm_twin(*far)),
+        "K4b n=320": (lambda: tr.rank2_direction_batchminor_rowsplit(*far), lambda: bm_twin(*far)),
         "K4b n=128": (lambda: tr.rank2_direction_batchminor_rowsplit(*wide),
                       lambda: bm_twin(*wide)),
         "K4b-c": (lambda: tr.rank2_direction_batchminor_cluster(*wide), lambda: bm_twin(*wide)),
@@ -2248,10 +2367,11 @@ def phases_earlier(torch, dev):
     alone.update(phase(13, phase_bfgs_timing, torch, dev))
     # an issue floor above the time measured would be no floor: the model
     # (4 warp-instructions a clock an SM) held against the card
-    for kid, times in (("K1s", de_times["K1s"]), ("K2b-r", alone["K2b-r"]),
+    for kid, times in (("K1s", de_times["K1s"]), ("K1c", de_times["K1c"]),
+                       ("K1g", de_times["K1g"]), ("K2b-r", alone["K2b-r"]),
                        ("K2b-w", alone["K2b-w"]), ("K2a-w", alone["K2a-w"]),
-                       ("K4b-c", alone["K4b-c"]), ("K3-r", alone["K3-r"]),
-                       ("K3-w", alone["K3-w"])):
+                       ("K4b-c", alone["K4b-c"]), ("K4b-t", alone["K4b-t"]),
+                       ("K4b", alone["K4b"]), ("K3-r", alone["K3-r"]), ("K3-w", alone["K3-w"])):
         log(f"[10] {kid}: {times[0] * 1e3:.2f} us of device time against its issue floor "
             f"{FLOORS[kid] * 1e3:.2f} us")
         check(FLOORS[kid] <= times[0], f"{kid}'s issue floor lies above its time")
@@ -2265,8 +2385,14 @@ def phases_earlier(torch, dev):
         # range reduction and Philox's integer rounds (see the issue floors)
         kernel_row("de_generation_staged", csrc + "de_fused.cu", TPU_KERNEL, de_launches["K1s"],
                    max_err, de_times["K1s"], de_bound(B, N, P), FLOORS["K1s"]),
+        # the wide fleet's [256, 29, 1024] through the cluster form, the
+        # global form there by a direct call
+        kernel_row("de_generation_cluster", csrc + "de_fused.cu", TPU_KERNEL, de_launches["K1c"],
+                   max_err, de_times["K1c"], de_bound(*DE_WIDE[:3]), FLOORS["K1c"],
+                   shape="[256, 29, 1024]"),
         kernel_row("de_generation_global", csrc + "de_fused.cu", TPU_KERNEL, de_launches["K1g"],
-                   max_err, de_times["K1g"], de_bound(*DE_WIDE[:3])),
+                   max_err, de_times["K1g"], de_bound(*DE_WIDE[:3]), FLOORS["K1g"],
+                   shape="[256, 29, 1024], a direct call"),
         # A in, R and Q out; each form at its path's shape: K2a-w at [16, 16,
         # 4096], K2a-c past its range at linalg.qr's [170, 170, 32], K2a-d
         # past K2a-c's range at [333, 333, 2] f64, K2a-g by a direct call at
@@ -2330,14 +2456,20 @@ def phases_earlier(torch, dev):
         kernel_row("rank2_direction_batchminor_resident", csrc + "rank2.cu", tpu + "rank2.py:280",
                    bfgs_launches["K4a"], rank2_err["K4a"], alone["K4a"],
                    rank2_bound(BFGS_N, BFGS_B)),
-        # each at the wide fleet it serves: K4b-c at [128, 128, 4096], K4b
-        # past K4b-c's range at [225, 225, 256]
+        # each at the wide fleet it serves: K4b-c at [128, 128, 4096], K4b-t
+        # past K4b-c's range at [225, 225, 256]; K4b, the form there before,
+        # by a direct call at that shape
         kernel_row("rank2_direction_batchminor_cluster", csrc + "rank2.cu", tpu + "rank2.py:214",
                    bfgs_launches["K4b-c"], rank2_err["K4b-c"], alone["K4b-c"],
-                   rank2_bound(WIDE_N, WIDE_B), FLOORS["K4b-c"]),
+                   rank2_bound(WIDE_N, WIDE_B), FLOORS["K4b-c"], shape="[128, 128, 4096] f32"),
+        kernel_row("rank2_direction_batchminor_streamed", csrc + "rank2.cu", tpu + "rank2.py:214",
+                   bfgs_launches["K4b-t"], rank2_err["K4b-t"], alone["K4b-t"],
+                   rank2_bound(WIDE_K4B_N, WIDE_K4B_B), FLOORS["K4b-t"],
+                   shape="[225, 225, 256] f32"),
         kernel_row("rank2_direction_batchminor_rowsplit", csrc + "rank2.cu", tpu + "rank2.py:214",
                    bfgs_launches["K4b"], rank2_err["K4b"], alone["K4b"],
-                   rank2_bound(WIDE_K4B_N, WIDE_K4B_B)),
+                   rank2_bound(WIDE_K4B_N, WIDE_K4B_B), FLOORS["K4b"],
+                   shape="[225, 225, 256] f32, a direct call"),
         kernel_row("rank2_update_batched_kernel", csrc + "rank2.cu", tpu + "rank2.py:66",
                    bfgs_launches["K4c"], rank2_err["K4c"], alone["K4c"],
                    rank2_bound(BFGS_N, BFGS_B, direction=False)),

@@ -108,6 +108,24 @@ def backward_branches(ins) -> list:
     return [(t, i) for i, t in enumerate(branch_targets(ins)) if t is not None and t <= i]
 
 
+def _successors(ins, targets, i):
+    """The instructions that may follow instruction i of SASS ``ins`` (its
+    ``branch_targets`` in ``targets``): a conditional branch either way, an
+    unconditional one to its target, an early (conditional) exit not taken,
+    none after an unconditional exit."""
+    op = ins[i][1]
+    conditional = op.startswith("@")
+    body = op.split(None, 1)[1] if conditional else op
+    if body.startswith("EXIT"):
+        return [i + 1] if conditional else []
+    if body.startswith("BRA"):
+        t = targets[i]
+        if t is None:
+            return [i + 1]
+        return [t, i + 1] if conditional else [t]
+    return [i + 1]
+
+
 def issue_instructions(ins) -> tuple[int, list]:
     """A floor on the instructions one thread issues in a kernel, from its
     SASS ``ins`` (``sass_functions``): the fewest instructions on a way
@@ -124,19 +142,6 @@ def issue_instructions(ins) -> tuple[int, list]:
     n = len(ins)
     targets = branch_targets(ins)
 
-    def successors(i):
-        op = ins[i][1]
-        conditional = op.startswith("@")
-        body = op.split(None, 1)[1] if conditional else op
-        if body.startswith("EXIT"):
-            return [i + 1] if conditional else []
-        if body.startswith("BRA"):
-            t = targets[i]
-            if t is None:
-                return [i + 1]
-            return [t, i + 1] if conditional else [t]
-        return [i + 1]
-
     def fewest(start):
         """Instructions issued before each one on the fewest-instruction way
         from ``start`` (breadth first: every instruction costs one)."""
@@ -145,7 +150,7 @@ def issue_instructions(ins) -> tuple[int, list]:
         queue = deque([start])
         while queue:
             i = queue.popleft()
-            for j in successors(i):
+            for j in _successors(ins, targets, i):
                 if j < n and before[j] is None:
                     before[j] = before[i] + 1
                     queue.append(j)
@@ -159,6 +164,131 @@ def issue_instructions(ins) -> tuple[int, list]:
         before = fewest(h)[e]
         bodies.append(None if before is None else before + 1)
     return way, bodies
+
+
+def opcode(op) -> str:
+    """The opcode of a SASS instruction's text, without its predicate and
+    modifiers: ``@P0 FADD.FTZ R1, R2, R3`` -> ``FADD``."""
+    return op.split()[1 if op.startswith("@") else 0].split(".")[0]
+
+
+def unit_floor(ins, is_unit, units: int):
+    """A floor on the instructions one thread issues in a kernel whose run
+    issues at least ``units`` instructions that ``is_unit`` marks (an
+    instruction's text -> bool; say, the FADD of each term of a sum a
+    thread takes): the fewest instructions on a way through the control
+    flow of its SASS ``ins``, from entry to an unconditional exit, that
+    passes ``units`` marked instructions, each loop taken as often as that
+    needs (breadth first over the instruction and the marks passed, capped
+    at ``units``).  As in ``issue_instructions``, a conditional branch may
+    go either way, early exits are not taken and predicated instructions
+    count.  None where no way passes that many."""
+    n = len(ins)
+    targets = branch_targets(ins)
+    marks = [int(bool(is_unit(op))) for _, op in ins]
+    nexts = [[j for j in _successors(ins, targets, i) if j < n] for i in range(n)]
+    exits = [op == "EXIT" for _, op in ins]
+    # state (instruction i, marks passed) as i * (units + 1) + passed,
+    # walked breadth first a layer (one more instruction) at a time
+    width = units + 1
+    seen = bytearray(n * width)
+    layer = [min(units, marks[0])]
+    seen[layer[0]] = 1
+    issued = 1
+    while layer:
+        following = []
+        for state in layer:
+            i, done = divmod(state, width)
+            if done == units and exits[i]:
+                return issued
+            for j in nexts[i]:
+                nxt = j * width + min(units, done + marks[j])
+                if not seen[nxt]:
+                    seen[nxt] = 1
+                    following.append(nxt)
+        layer = following
+        issued += 1
+    return None
+
+
+def sm_clock_mhz() -> float:
+    """The card's SM clock at its maximum in MHz (nvidia-smi)."""
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return float(out.split()[0])
+
+
+def issue_ms(instructions, threads, mhz) -> float:
+    """The least time in ms in which the card issues ``instructions`` a
+    thread for ``threads`` threads: 4 warp-instructions a clock on each of
+    its 132 SMs at ``mhz``."""
+    return instructions * -(-threads // 32) / (4 * 132 * mhz * 1e6) * 1e3
+
+
+def _is_fadd(op):
+    return opcode(op) == "FADD"
+
+
+def _is_stg(op):
+    return opcode(op) == "STG"
+
+
+def _is_rastrigin_term(op):
+    # a Rastrigin term's 2 pi x, one FMUL by the float 2 pi a coordinate
+    return opcode(op) == "FMUL" and "6.28318" in op
+
+
+def floor_plans(n_rank2=225, b_rank2=256, de=(256, 29, 1024)) -> dict:
+    """Each issue floor the kernels line and the probes give, by kernel
+    id: a list of (parts of the kernel's mangled name, marks, units a
+    thread, threads) for its launches at the path's shape, the units
+    those of ``unit_floor``.  K4b (three kernels at ``[n_rank2, n_rank2,
+    b_rank2]`` f32): Hy's sum over j, n FADDs a thread (n b threads); the
+    coefficient's sum and its 1 + rho y^T Hy, n + 1 a lane; the rows' n
+    stores of H' and one of d', n + 1 STGs a thread.  K1g and K1c (Rastrigin
+    at ``de`` = [B, n, P], Philox draws): a 2 pi x a coordinate, n a
+    thread, B P threads.  K4b-t (one kernel, f32, 16-byte copies): a
+    thread's Hy (n FADDs) and row of H' (4 n: the symmetric term, the rho
+    term, the coefficient's and d''s sum), 5 n FADDs, n b threads (y^T Hy,
+    n more, runs in one thread a lane)."""
+    n, b = n_rank2, b_rank2
+    B, dn, P = de
+    return {
+        "K4b": [(("rank2_hy_kernelIf",), _is_fadd, n, n * b),
+                (("rank2_coef_kernelIf",), _is_fadd, n + 1, b),
+                (("rank2_rows_kernelIf",), _is_stg, n + 1, n * b)],
+        "K1g": [(("de_generation_kernel", "Rastrigin"), _is_rastrigin_term, dn, B * P)],
+        "K1c": [(("de_cluster_kernel", "Rastrigin", "Lb1E"), _is_rastrigin_term, dn, B * P)],
+        "K4b-t": [(("rank2_streamed_kernelIfLi4E",), _is_fadd, 5 * n, n * b)],
+    }
+
+
+def issue_floors(only=("K4b", "K1g"), plans=None, library=None, mhz=None) -> dict:
+    """The issue floor of each kernel id of ``only`` (``floor_plans``) from
+    the built library's SASS: for each of its launches the instructions a
+    thread issues at the least (``unit_floor``), and the floor in us of all
+    its launches at the SM clock's maximum."""
+    from ..ops import _build
+
+    plans = plans or floor_plans()
+    library = library or _build.ensure_built()[0]
+    mhz = mhz or sm_clock_mhz()
+    sass = sass_functions(library)
+    out = {}
+    for kid in only:
+        parts, us = [], 0.0
+        for key, mark, units, threads in plans[kid]:
+            name = next(k for k in sass if all(part in k for part in key))
+            count = unit_floor(sass[name], mark, units)
+            if count is None:
+                raise RuntimeError(f"issue_floors: no way through {name} passes {units} marks")
+            parts.append({"kernel": key[0], "instructions": count, "in_kernel": len(sass[name]),
+                          "units": units, "threads": threads})
+            us += 1e3 * issue_ms(count, threads, mhz)
+        out[kid] = {"us": us, "mhz": mhz, "launches": parts}
+    return out
 
 
 def _timed(run, runs=5, warmup=2):
@@ -210,6 +340,20 @@ def bench_de_batched(B=8192, dim=10, pop=64, iters=200, runs=5, fused: bool = Fa
     }
 
 
+def de_scenario(B: int, n: int, P: int, seed: int = 3, device="cuda"):
+    """One DE generation's inputs on the card: Rastrigin, ``B`` instances of
+    ``P`` agents in [-0.5, 0.5)^n with their own scores, every lane active,
+    ring offsets (5, P / 2 - 2, P - 14).  Returns (fn, agents, scores,
+    offs, active)."""
+    from ..ops import de_fused as tdf
+
+    fn = PROBLEMS["rastrigin"].fn
+    g = torch.Generator(device=device).manual_seed(seed)
+    agents = torch.rand((B, n, P), generator=g, device=device) - 0.5
+    active = torch.ones(B, dtype=torch.bool, device=device)
+    return fn, agents, tdf.eval_columns(fn, agents), (5, P // 2 - 2, P - 14), active
+
+
 def probe_de_fused(B=8192, dim=10, pop=64, reps=200):
     """Where kernel K1's time goes, at the DE headline's shape: its device
     time a launch in us (``device_ms`` behind a device sleep, the least of
@@ -246,6 +390,59 @@ def probe_de_fused(B=8192, dim=10, pop=64, reps=200):
                         kernel(fn, agents, s, (5, 30, 50), active, seed=1, generation=0, **extra)
                     out[f"{form}_{name}_{draws}_{share}_us"] = 1e3 * min(
                         device_ms(launch, reps) for _ in range(2))
+    return out
+
+
+def probe_de_cluster(B=256, n=29, P=1024, reps=50):
+    """Where K1c's time goes at ``de_scenario(B, n, P)`` (the wide DE
+    fleet's shape): its device time a launch in us (``device_ms`` behind a
+    device sleep, the least of two) at the plan's cluster and at every other
+    size of ``CLUSTER_SIZES`` that takes n and P, each on Philox draws
+    bit-equal to K1g; per objective (``rastrigin``, an accurate ``cosf`` a
+    coordinate; ``sphere``), source of draws (``philox``; ``injected``) and
+    accepted share (``none``: every lane frozen; ``all``: every score +inf;
+    ``own``: the agents' own scores); at each size probe mode 1 (the copies,
+    barriers and write-back alone) and mode 2 (the partners read from the
+    CTA's own slab, no distributed shared memory); K1g beside it."""
+    from ..ops import de_fused as tdf
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("probe_de_cluster measures a CUDA card; none is available")
+    fn, agents, scores, offs, active = de_scenario(B, n, P)
+    u, fdim = tdf.philox_draws(1, 0, B, n, P, torch.float32, agents.device)
+    fdim = fdim.to(torch.int32).contiguous()
+    inf = torch.full_like(scores, float("inf"))
+
+    def timed(kernel, objective=fn, s=scores, act=active, **kw):
+        def launch():
+            kernel(objective, agents, s, offs, act, seed=1, generation=0, **kw)
+        return 1e3 * min(device_ms(launch, reps) for _ in range(2))
+
+    out = {"B": B, "n": n, "P": P, "plan": tdf.cluster_plan(n, P),
+           "global_us": timed(tdf.de_generation_global), "cluster_us": timed(tdf.de_generation_cluster)}
+    want = tdf.de_generation_global(fn, agents, scores, offs, active, seed=1, generation=0)
+    sizes = tdf.CLUSTER_SIZES
+    try:
+        for size in sizes:
+            tdf.CLUSTER_SIZES = (size,)
+            if tdf.cluster_plan(n, P) is None:
+                continue
+            got = tdf.de_generation_cluster(fn, agents, scores, offs, active, seed=1, generation=0)
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise RuntimeError(f"probe_de_cluster: {size} CTAs differ from K1g")
+            out[f"C{size}_us"] = timed(tdf.de_generation_cluster)
+            for mode in (1, 2):
+                out[f"C{size}_mode{mode}_us"] = timed(tdf.de_generation_cluster, _mode=mode)
+    finally:
+        tdf.CLUSTER_SIZES = sizes
+    for name in ("rastrigin", "sphere"):
+        objective = PROBLEMS[name].fn
+        own = tdf.eval_columns(objective, agents)
+        shares = {"none": (own, ~active), "all": (inf, active), "own": (own, active)}
+        for draws, kw in (("philox", {}), ("injected", {"u": u, "fdim": fdim})):
+            for share, (s, act) in shares.items():
+                out[f"{name}_{draws}_{share}_us"] = timed(tdf.de_generation_cluster, objective, s,
+                                                         act, **kw)
     return out
 
 
@@ -824,6 +1021,116 @@ def probe_rank2_cluster(n=128, B=4096, sizes=(2, 4, 8, 16), lanes=(4, 8, 16, 32)
     return out
 
 
+# (CTAs a cluster, lanes a tile, columns a chunk) of K4b-t that
+# ``probe_rank2_streamed`` times beside its default plan (None: the plan's):
+# clusters of 16, 8 and 4 in chunks of 16 to 64 columns, and tiles of 16
+# lanes
+STREAMED_PROBE_PLANS = ((16, None, 16), (16, None, 32), (16, None, 64), (8, None, 32),
+                        (4, None, 32), (16, 16, 32))
+
+
+def probe_rank2_streamed(n=225, B=256, plans=STREAMED_PROBE_PLANS, reps=30):
+    """K4b-t on ``rank2_scenario(n, B)`` f32 at its default plan
+    (``streamed_plan``) and at each (CTAs, lanes, chunk) of ``plans`` that
+    fits, each bit-equal to K4b and each also in probe mode 1 (the copies,
+    cluster barrier, gather and stores without the arithmetic) and mode 2
+    (no L2 hints); K4b-c on clusters of 16 where it takes n, and K4b.
+    Device time in ms behind a device sleep, the least of two."""
+    from ..ops import rank2 as tr
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("probe_rank2_streamed measures a CUDA card; none is available")
+    case = rank2_scenario(n, B)
+    dtype = case[0].dtype
+    want = tr.rank2_direction_batchminor_rowsplit(*case)
+
+    def timed(run):
+        return min(device_ms(run, reps) for _ in range(2))
+
+    out = {"n": n, "B": B, "default": tr.streamed_plan(n, dtype),
+           "rowsplit_ms": timed(lambda: tr.rank2_direction_batchminor_rowsplit(*case))}
+    if tr.cluster_takes(n, dtype, 16, 8):
+        out["cluster_C16_ms"] = timed(
+            lambda: tr.rank2_direction_batchminor_cluster(*case, size=16, lanes=8))
+    for size, lanes, chunk in ((tr.STREAMED_SIZE, None, None), *plans):
+        plan = tr.streamed_plan(n, dtype, size, lanes, chunk)
+        if plan is None:
+            continue
+        run = functools.partial(tr.rank2_direction_batchminor_streamed, *case, size=size,
+                                lanes=lanes, chunk=plan)
+        got = run()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise RuntimeError(f"probe_rank2_streamed: C={size}, chunk {plan} differs from K4b")
+        key = f"C{size}_TB{lanes or tr.streamed_lanes(dtype)}_chunk{plan}"
+        out[key + "_ms"] = timed(run)
+        for mode in (1, 2):
+            out[key + f"_mode{mode}_ms"] = timed(functools.partial(run, _mode=mode))
+    return out
+
+
+# n of ``sweep_rank2_streamed`` by dtype: from the first n past K4b-c's
+# range to the last that K4b-t's plan takes
+STREAMED_SWEEP = {torch.float32: (225, 256, 320, 384, 448, 512, 640, 768, 896, 1024),
+                  torch.float64: (153, 200, 256, 320, 384, 512, 640, 768, 1024, 1280, 1415)}
+
+
+def sweep_rank2_streamed(ns=STREAMED_SWEEP, Bs=(256, 2048), reps=5, most_bytes=8 << 30,
+                         detail=True, stop_after=None):
+    """K4b-t against K4b over n and B (``rank2_scenario(n, B)``, each dtype
+    of ``ns``; a shape whose H passes ``most_bytes`` left out): device time
+    in ms behind a device sleep, the least of two, of K4b-t at its default
+    plan and of K4b, each K4b-t result bit-equal to K4b; ``speedup`` K4b's
+    time over K4b-t's.  With ``detail`` also K4b-t in probe mode 2 (H read
+    without the L2 hints) and one ``copy_`` of H (read once, written once:
+    the card's memory rate at this size), ``twice_TBps`` the rate K4b-t
+    would reach if it read H from device memory twice (3 |H| over its time)
+    and ``copy_TBps`` the copy's 2 |H| over its time: where the first passes
+    the second, some of the second read came from L2.  With ``stop_after``
+    a (dtype, B) stops after that many n in a row where K4b was faster."""
+    from ..ops import rank2 as tr
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("sweep_rank2_streamed measures a CUDA card; none is available")
+
+    def timed(run):
+        return min(device_ms(run, reps, warmup=1) for _ in range(2))
+
+    rows = []
+    for dtype, sizes in ns.items():
+        for B in Bs:
+            lost = 0
+            for n in sizes:
+                size = n * n * B * torch.empty((), dtype=dtype).element_size()
+                if size > most_bytes or tr.streamed_plan(n, dtype) is None:
+                    continue
+                case = rank2_scenario(n, B, dtype=dtype)
+                H = case[0]
+                run = functools.partial(tr.rank2_direction_batchminor_streamed, *case)
+                got, want = run(), tr.rank2_direction_batchminor_rowsplit(*case)
+                if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                    raise RuntimeError(f"sweep_rank2_streamed: K4b-t differs from K4b at "
+                                       f"[{n}, {n}, {B}] {dtype}")
+                del got, want
+                row = {"dtype": str(dtype)[6:], "n": n, "B": B, "chunk": tr.streamed_plan(n, dtype),
+                       "H_MB": size / 1e6, "streamed_ms": timed(run),
+                       "rowsplit_ms": timed(lambda: tr.rank2_direction_batchminor_rowsplit(*case))}
+                row["speedup"] = row["rowsplit_ms"] / row["streamed_ms"]
+                if detail:
+                    copy = torch.empty_like(H)
+                    row["nohint_ms"] = timed(functools.partial(run, _mode=2))
+                    row["copy_ms"] = timed(lambda: copy.copy_(H))
+                    row["twice_TBps"] = 3 * size / row["streamed_ms"] / 1e9
+                    row["copy_TBps"] = 2 * size / row["copy_ms"] / 1e9
+                    del copy
+                rows.append(row)
+                del case, H, run
+                torch.cuda.empty_cache()
+                lost = lost + 1 if row["speedup"] < 1 else 0
+                if stop_after and lost >= stop_after:
+                    break
+    return rows
+
+
 def sweep_qr(ns=(4, 8, 16, 32, 64), Bs=(1024, 4096, 16384, 65536), reps=5, global_up_to=32):
     """K2a's forms with Q across shapes, f32, ``A [n, n, B]`` ~ N(0, 1): the
     device time in ms of the warp form, of the device-memory form (up to n =
@@ -901,10 +1208,12 @@ def probe_path_rows(reps=1, only=None, warmup=1):
     range with Q, K2b on ``[330, 330, 2]`` f64, the first n past K2b-c's
     range (``torch.linalg.lstsq``), K3 on ``spd_systems(646, 2)`` f64, the
     first n past K3-c's range (``cholesky_ex`` + ``cholesky_solve``), K4b on
-    ``rank2_scenario(225, 256)`` f32 (no such call).  ``only`` names the
+    ``rank2_scenario(225, 256)`` f32 and K1g on ``de_scenario(256, 29,
+    1024)``, the wide DE fleet's shape, on Philox draws (no such call).  ``only`` names the
     rows to time (all by default).  Inputs ~ N(0, 1) but where named; ms
     behind a device sleep, the least of two, each after ``warmup`` calls."""
     from ..ops import _build
+    from ..ops import de_fused as tdf
     from ..ops import qr_wavefront as tqw
     from ..ops import rank2 as tr
     from ..ops import smallchol as tsc
@@ -943,9 +1252,14 @@ def probe_path_rows(reps=1, only=None, warmup=1):
         H = rank2_scenario(225, 256)
         return lambda: tr.rank2_direction_batchminor_rowsplit(*H), None
 
+    def de_row():
+        fn, agents, scores, offs, active = de_scenario(256, 29, 1024)
+        return (lambda: tdf.de_generation_global(fn, agents, scores, offs, active, seed=1,
+                                                 generation=0)), None
+
     rows = {"K2a": lambda: qr_row(170, 32, torch.float32),
             "K2a n=333": lambda: qr_row(333, 2, f64),
-            "K2b-g": lstsq_row, "K3-g": spd_row, "K4b": rank2_row}
+            "K2b-g": lstsq_row, "K3-g": spd_row, "K4b": rank2_row, "K1g": de_row}
     out = {}
     for name, make in rows.items():
         if only is not None and name not in only:

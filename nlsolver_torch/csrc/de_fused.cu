@@ -17,7 +17,7 @@
 // and, in Philox mode, B*P*(ceil(n/4)+1) Philox blocks of some 60 integer
 // instructions each.
 //
-// Two forms, chosen by shape in ops/de_fused.py:
+// Three forms, chosen by shape in ops/de_fused.py:
 //   * de_staged_kernel: a block's instances are contiguous, per_block * n *
 //     P floats, and one bulk asynchronous copy (cp.async.bulk, Hopper's 1-D
 //     TMA, completing on an mbarrier) stages them in shared memory while the
@@ -28,9 +28,14 @@
 //     written with no second pass.  Where the slab is not 16-byte aligned or
 //     sized (n * P % 4 != 0, or a view's offset), the threads stage it with
 //     plain coalesced loads instead of the bulk copy.
+//   * de_cluster_kernel (K1c): one instance over a thread-block cluster of
+//     2-16 CTAs, each staging its agents' rows by bulk copies, the
+//     partners read from their owners' shared memory (distributed shared
+//     memory), the proposal kept; for instances past one block whose
+//     slabs fit a cluster.
 //   * de_generation_kernel: the agents read through L1 from device memory,
 //     the proposal recomputed for the write-back of an accepted agent; for
-//     populations whose slab does not fit a block's shared memory.
+//     populations whose slab does not fit a cluster's shared memory.
 // The lane freeze is folded into the accept select, so a frozen lane costs
 // one copy.
 //
@@ -45,11 +50,14 @@
 // staged form is built once for each source of draws, so its Philox kernel
 // holds no injected arm.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "philox.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -174,6 +182,12 @@ constexpr int kRegisterMaxN = 16;
 __device__ inline uint32_t smem_address(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+// the cluster barrier in its two halves
+__device__ inline void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" : : : "memory");
+}
+__device__ inline void cluster_wait() { asm volatile("barrier.cluster.wait;\n" : : : "memory"); }
 
 // whether coordinate d of agent (b, p) mutates: u < CR or d == fdim
 __device__ inline bool mutates(const float u4[4], int j, int d, int fdim, float CR) {
@@ -330,6 +344,196 @@ int launch(const void* agents, const void* scores, const void* active,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K1c: one instance over a thread-block cluster of C CTAs.  CTA k owns the
+// agents k cols .. k cols + cols - 1 (cols = P / C), a thread each, and
+// stages their n rows in its shared memory by bulk copies completing on an
+// mbarrier (plain loads where a row is not 16-byte aligned or sized) while
+// its threads draw the crossover mask of their first 32 coordinates.  After
+// a cluster barrier a partner (p + o) % P is read from its owner's shared
+// memory (distributed shared memory), the proposal is kept in the CTA's
+// shared memory beside the slab, and Philox runs once an agent: an accepted
+// agent is written from the kept proposal.  A CTA leaves only after its
+// peers have read its slab (the barrier's second half).  Probe modes: 1
+// leaves out the proposals (the copies, barriers and write-back alone), 2
+// reads each partner from the CTA's own slab in place of its owner's.
+template <class Obj, bool kPhilox>
+__global__ void __launch_bounds__(1024)
+    de_cluster_kernel(const float* __restrict__ agents, const float* __restrict__ scores,
+                      const bool* __restrict__ active, Draws given,
+                      float* __restrict__ out_agents, float* __restrict__ out_scores, int n,
+                      int P, int o1, int o2, int o3, float F, float CR, int bulk, int mode) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t staged;  // the bulk copies' mbarrier
+  cg::cluster_group cluster = cg::this_cluster();
+  const Draws draws = kPhilox ? Draws{nullptr, nullptr, given.seed, given.generation} : given;
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int k = static_cast<int>(cluster.block_rank());
+  const int cols = blockDim.x, t = threadIdx.x, p = k * cols + t;
+  const long long b = blockIdx.x / C;
+  float* slab = reinterpret_cast<float*>(smem);  // [n][cols]: this CTA's agents
+  float* prop = slab + static_cast<long long>(n) * cols;  // [n][cols]: their proposals
+  const float* src = agents + b * n * P + static_cast<long long>(k) * cols;
+  if (bulk) {
+    if (t == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_address(&staged)));
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    if (t == 0) {
+      const uint32_t row = static_cast<uint32_t>(cols) * 4u;
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   ::"r"(smem_address(&staged)), "r"(row * static_cast<uint32_t>(n)) : "memory");
+      for (int d = 0; d < n; ++d)
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+            ::"r"(smem_address(slab + static_cast<long long>(d) * cols)),
+            "l"(src + static_cast<long long>(d) * P), "r"(row), "r"(smem_address(&staged))
+            : "memory");
+    }
+  } else {
+    for (int d = 0; d < n; ++d) slab[d * cols + t] = src[static_cast<long long>(d) * P + t];
+  }
+  const int fdim = draw_fdim(draws, b, n, P, p);
+  const bool live = active[b];
+  const float s = scores[b * P + p];
+  // the mask of coordinates 0 .. 31 while the slab lands
+  uint32_t mask = 0;
+  const int early = mode == 1 ? 0 : min(n, 32);
+  for (int d0 = 0; d0 < early; d0 += 4) {
+    float u4[4];
+    draw_u4(draws, b, n, P, p, d0, u4);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (d0 + j < early) mask |= static_cast<uint32_t>(mutates(u4, j, d0 + j, fdim, CR)) << (d0 + j);
+  }
+  if (bulk) {
+    uint32_t done = 0;
+    while (!done) {
+      asm volatile(
+          "{\n .reg .pred ready;\n"
+          " mbarrier.try_wait.parity.shared::cta.b64 ready, [%1], 0;\n"
+          " selp.u32 %0, 1, 0, ready;\n}"
+          : "=r"(done) : "r"(smem_address(&staged)) : "memory");
+    }
+  }
+  cluster.sync();  // every CTA's slab staged, and seen by its peers
+  const int q1 = (p + o1) % P, q2 = (p + o2) % P, q3 = (p + o3) % P;
+  const bool local = mode == 2;
+  const float* A1 = local ? slab + q1 % cols : cluster.map_shared_rank(slab, q1 / cols) + q1 % cols;
+  const float* A2 = local ? slab + q2 % cols : cluster.map_shared_rank(slab, q2 / cols) + q2 % cols;
+  const float* A3 = local ? slab + q3 % cols : cluster.map_shared_rank(slab, q3 / cols) + q3 % cols;
+  const float* own = slab + t;
+  // the partners of four coordinates in registers, loaded a group ahead of
+  // the proposals' stores (which the compiler may not pass: the partners'
+  // pointers may alias them)
+  float a1[4], a2[4], a3[4], a0[4];
+  const auto load = [&](int d0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const long long at = static_cast<long long>(min(d0 + j, n - 1)) * cols;
+      a1[j] = A1[at];
+      a2[j] = A2[at];
+      a3[j] = A3[at];
+      a0[j] = own[at];
+    }
+  };
+  float acc = 0.0f;
+  const int coords = mode == 1 ? 0 : n;
+  if (coords > 0) load(0);
+  for (int d0 = 0; d0 < coords; d0 += 4) {
+    float x1[4], x2[4], x3[4], x0[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x1[j] = a1[j];
+      x2[j] = a2[j];
+      x3[j] = a3[j];
+      x0[j] = a0[j];
+    }
+    if (d0 + 4 < coords) load(d0 + 4);
+    uint32_t bits = mask >> (d0 & 31);
+    if (d0 >= 32) {  // past the first 32: drawn here, still once an agent
+      float u4[4];
+      draw_u4(draws, b, n, P, p, d0, u4);
+      bits = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bits |= static_cast<uint32_t>(mutates(u4, j, d0 + j, fdim, CR)) << j;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int d = d0 + j;
+      if (d >= n) break;
+      const float v = (bits >> j & 1u) ? __fadd_rn(x1[j], __fmul_rn(F, __fsub_rn(x2[j], x3[j])))
+                                       : x0[j];
+      prop[static_cast<long long>(d) * cols + t] = v;
+      acc = __fadd_rn(acc, Obj::term(v));
+    }
+  }
+  cluster_arrive();  // this CTA reads no peer any more
+  const float prop_score = Obj::finish(acc, n);
+  const bool accept = live && prop_score < s && mode != 1;
+  out_scores[b * P + p] = accept ? prop_score : s;
+  float* out = out_agents + b * n * P + p;
+  for (int d = 0; d < n; ++d) {
+    const long long at = static_cast<long long>(d) * cols + t;
+    out[static_cast<long long>(d) * P] = accept ? prop[at] : slab[at];
+  }
+  cluster_wait();  // no peer reads this CTA's slab any more
+}
+
+template <class Obj, bool kPhilox>
+int launch_cluster(const float* agents, const float* scores, const bool* active,
+                   const Draws& draws, float* out_agents, float* out_scores, int B, int n, int P,
+                   int o1, int o2, int o3, float F, float CR, int C, int smem, int bulk,
+                   int mode, cudaStream_t stream) {
+  const auto kernel = de_cluster_kernel<Obj, kPhilox>;
+  if (C < 2 || C > 16 || P % C != 0 || P / C > 1024) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (C > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(B) * C);
+  cfg.blockDim = dim3(P / C);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, agents, scores, active, draws, out_agents, out_scores, n,
+                           P, o1, o2, o3, F, CR, bulk, mode);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1c on untyped arguments: the Philox kernel where u (and with it fdim) is
+// null, the injected-draws kernel otherwise
+template <class Obj>
+int launch_cluster_draws(const void* agents, const void* scores, const void* active,
+                         const void* u, const void* fdim, void* out_agents, void* out_scores,
+                         int B, int n, int P, int o1, int o2, int o3, float F, float CR,
+                         uint32_t seed, uint32_t generation, int C, int smem, int bulk,
+                         int mode, void* stream) {
+  const Draws draws{static_cast<const float*>(u), static_cast<const int*>(fdim), seed,
+                    generation};
+  const auto* a = static_cast<const float*>(agents);
+  const auto* sc = static_cast<const float*>(scores);
+  const auto* act = static_cast<const bool*>(active);
+  auto* oa = static_cast<float*>(out_agents);
+  auto* os = static_cast<float*>(out_scores);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (u == nullptr)
+    return launch_cluster<Obj, true>(a, sc, act, draws, oa, os, B, n, P, o1, o2, o3, F, CR, C,
+                                     smem, bulk, mode, st);
+  return launch_cluster<Obj, false>(a, sc, act, draws, oa, os, B, n, P, o1, o2, o3, F, CR, C,
+                                    smem, bulk, mode, st);
+}
+
 // the staged form on untyped arguments: the Philox kernel where u (and
 // with it fdim) is null, the injected-draws kernel otherwise
 template <class Obj>
@@ -391,3 +595,24 @@ NLSOLVER_DE_LAUNCHER(sphere, Sphere)
 
 NLSOLVER_DE_STAGED_LAUNCHER(rastrigin, Rastrigin)
 NLSOLVER_DE_STAGED_LAUNCHER(sphere, Sphere)
+
+// K1c: ``C`` CTAs a cluster an instance, ``smem`` bytes of dynamic shared
+// memory (a CTA's slab and proposals), ``bulk`` non-zero to stage each row
+// with a bulk copy, ``mode`` a probe mode (0: the generation); one kernel
+// for Philox draws (u and fdim null) and one for injected draws.  Returns
+// cudaGetLastError().
+#define NLSOLVER_DE_CLUSTER_LAUNCHER(NAME, OBJ)                                \
+  extern "C" int de_cluster_##NAME##_f32(                                      \
+      const void* agents, const void* scores, const void* active,              \
+      const void* u, const void* fdim, void* out_agents, void* out_scores,     \
+      int B, int n, int P, int o1, int o2, int o3, float F, float CR,          \
+      uint32_t seed, uint32_t generation, int C, int smem, int bulk,           \
+      int mode, void* stream) {                                                \
+    return launch_cluster_draws<OBJ>(agents, scores, active, u, fdim,          \
+                                     out_agents, out_scores, B, n, P, o1, o2,  \
+                                     o3, F, CR, seed, generation, C, smem,     \
+                                     bulk, mode, stream);                      \
+  }
+
+NLSOLVER_DE_CLUSTER_LAUNCHER(rastrigin, Rastrigin)
+NLSOLVER_DE_CLUSTER_LAUNCHER(sphere, Sphere)

@@ -1,19 +1,20 @@
-// BFGS rank-2 inverse-Hessian update for Hopper (sm_90a), four kernels:
+// BFGS rank-2 inverse-Hessian update for Hopper (sm_90a), five kernels:
 //
 //   K4a    rank2_resident   batch-minor update + next direction, H read once
 //   K4b-c  rank2_cluster    the same for n past K4a's slab, over a cluster
-//   K4b    rank2_rowsplit   the same for n past K4b-c's, H read twice
+//   K4b-t  rank2_streamed   the same for n past K4b-c's, rows streamed twice
+//   K4b    rank2_rowsplit   the same for n past K4b-t's, H read twice
 //   K4c    rank2_batched    the update alone on the leading-batch layout
 //
 // They replace nlsolver_tpu/ops/rank2.py: rank2_direction_batchminor_pallas
 // (_bm_kernel), rank2_direction_batchminor_pallas_rowtiled
-// (_bm_rowtiled_kernel; K4b-c and K4b) and rank2_update_batched_pallas
+// (_bm_rowtiled_kernel; K4b-c, K4b-t and K4b) and rank2_update_batched_pallas
 // (_kernel).  Per lane b
 //
 //   Heff = I where reset[b] else H
 //   Hy   = Heff y,   coef = rho (1 + rho y^T Hy)
 //   H'   = Heff - rho (s Hy^T + Hy s^T) + coef s s^T
-//   d'   = -H' g                                   (K4a, K4b-c and K4b)
+//   d'   = -H' g                                   (K4a, K4b-c, K4b-t, K4b)
 //
 // What bounds them: bytes.  Each lane moves 2 n^2 + 4 n words (H in and out,
 // s, y, g in, d' out) against some 13 n^2 floating-point operations, far
@@ -51,6 +52,19 @@
 // distinct banks.  The slab and vectors need (R (n | 1) + 4 n) TB words a
 // CTA: at TB = 8 and C = 8, n <= 224 in f32 and n <= 152 in f64.
 //
+// K4b-t: K4b-c's cluster grown to 16 CTAs a tile of one 32-byte sector (8
+// float32 or 4 float64 lanes), whose rows need not fit its shared memory:
+// a CTA streams its rows twice through a ring of kRing chunks of CW columns
+// by 16-byte cp.async, the first pass summing their Hy under an L2
+// evict-last policy, the second forming H' and d' from the same chunks read
+// again under evict-first, so that the second read may find them in L2.
+// The cluster barrier and Hy's gather sit between the passes, and one
+// thread a lane sums y^T Hy.  The sums are K4b's in its order, so K4b-t
+// equals K4b (and K4b-c) bit for bit.  Its plan (ops/rank2.py:
+// streamed_plan) takes n <= 1024 in float32 (512 threads a CTA, a row and
+// lane each) and 1415 in float64; the dispatcher gives it the n where it
+// measured faster than K4b (streamed_fits).
+
 // K4b: any n.  Three launches on one stream: Hy [n, B] by threads (i, b)
 // over a 2-D grid of (lane tile, row block); coef [B] by one thread a lane;
 // then the 2-D grid again, thread (i, b) forming row i of H' and d'[i] from
@@ -488,6 +502,258 @@ int launch_cluster(const void* H, const void* s, const void* y, const void* g, c
   return launch_cluster_width<T, 1>(H, s, y, g, rho, reset, Hout, dout, n, B, C, TB, st);
 }
 
+// ---------------------------------------------------------------- K4b-t
+
+// the chunks of columns in flight, and the most threads a CTA (a row and
+// lane each)
+constexpr int kRing = 2;
+constexpr int kStreamThreads = 512;
+
+// L2 policies: a row's first read marked to stay for its second, which
+// marks it to go; evict-normal for probe mode 2, as a plain load
+__device__ inline uint64_t l2_evict_last() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+__device__ inline uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+__device__ inline uint64_t l2_evict_normal() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// W words of T from device to shared memory by cp.async under an L2 policy
+template <typename T, int W>
+__device__ inline void copy_hinted(T* dst, const T* src, uint64_t policy) {
+  const uint32_t to = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if constexpr (W * sizeof(T) == 16) {
+    asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n"
+                 ::"r"(to), "l"(src), "l"(policy) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global.L2::cache_hint [%0], [%1], %2, %3;\n"
+                 ::"r"(to), "l"(src), "n"(static_cast<int>(W * sizeof(T))), "l"(policy)
+                 : "memory");
+  }
+}
+
+// One row's H' in place and its d' sum carried on, over columns j0 .. j1 -
+// 1: h points at column j0 of the row (this lane, entries TB apart), ss, sHy
+// and sg at this lane's s, Hy and g, each entry the identity's where
+// ``eye``; the sums run in ascending j.
+template <typename T>
+__device__ inline T row_update(T* h, int j0, int j1, int gi, bool eye, T rb, T cb, T si, T hyi,
+                               const T* ss, const T* sHy, const T* sg, int TB, T acc) {
+  for (int j = j0; j < j1; ++j) {
+    const T hn = updated(eye ? T(gi == j) : h[(j - j0) * TB], rb, cb, si, ss[j * TB], hyi,
+                         sHy[j * TB]);
+    h[(j - j0) * TB] = hn;
+    acc = rn::add(acc, rn::mul(hn, sg[j * TB]));
+  }
+  return acc;
+}
+
+// K4b-c's cluster with C up to 16, whose CTA streams its R rows twice
+// through a ring of kRing chunks of CW columns: the first pass sums their Hy
+// (the reads marked evict-last in L2), the second forms their H' and d'
+// (the reads marked evict-first).  Between the passes the cluster barrier
+// and Hy gathered from the peers, and y^T Hy summed once a lane.  Every sum
+// is K4b's, in its order.  Probe modes: 1 leaves out the arithmetic (the
+// sums and H'), so that H goes out as it came in; 2 reads H without the L2
+// hints.
+template <typename T, int W>
+__global__ void __launch_bounds__(kStreamThreads)
+    rank2_streamed_kernel(const T* __restrict__ H, const T* __restrict__ s,
+                          const T* __restrict__ y, const T* __restrict__ g,
+                          const T* __restrict__ rho, const uint8_t* __restrict__ reset,
+                          T* __restrict__ Hout, T* __restrict__ dout, int n, int R, int CW,
+                          int mode, int64_t B) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int k = static_cast<int>(cluster.block_rank());
+  const int TB = blockDim.x, RT = blockDim.y;
+  const int tb = threadIdx.x, r = threadIdx.y;
+  const int t = r * TB + tb, NT = TB * RT;
+  const int ldc = CW | 1;
+  const int lo = k * R, rows = max(0, min(R, n - lo)), gi = lo + r;
+  const bool mine = r < rows, arith = mode != 1;
+  const int64_t b0 = static_cast<int64_t>(blockIdx.x / C) * TB, b = b0 + tb;
+  const bool live = b < B;
+  const bool rst = live && reset[b] != 0;
+  T* ring = reinterpret_cast<T*>(smem_raw);                     // [kRing][R][ldc][TB]
+  T* ss = ring + static_cast<size_t>(kRing) * R * ldc * TB;     // [n][TB] each
+  T* sy = ss + n * TB;
+  T* sg = sy + n * TB;
+  T* sHy = sg + n * TB;
+  T* scoef = sHy + n * TB;                                      // [TB]
+  const int chunks = (n + CW - 1) / CW;
+
+  const int first = t & ~31;
+  const unsigned warp_mask = NT - first >= 32 ? 0xffffffffu : (1u << (NT - first)) - 1u;
+  const unsigned wanted = __ballot_sync(warp_mask, live && !rst);
+  const int per = TB / W, c = t % per;
+  const bool group_live = b0 + c * W < B;
+  const bool group_wanted = (wanted >> (c * W)) & ((1u << W) - 1u);
+  const auto dram = [&](int i, int j) {  // row lo + i
+    return (static_cast<int64_t>(lo + i) * n + j) * B + b0 + c * W;
+  };
+  // row i's column j0 + jj of the chunk in slot u, lane 0
+  const auto ring_at = [&](int u, int i, int jj) {
+    return ring + ((static_cast<size_t>(u) * R + i) * ldc + jj) * TB;
+  };
+  const bool hinted = mode != 2;
+  const uint64_t keep = hinted ? l2_evict_last() : l2_evict_normal();
+  const uint64_t drop = hinted ? l2_evict_first() : l2_evict_normal();
+  // chunk q into slot q % kRing; a group a call, empty past the last chunk,
+  // so that every thread counts the same groups
+  const auto fetch = [&](int q, uint64_t policy) {
+    if (q < chunks && group_wanted) {
+      const int j0 = q * CW, j1 = min(n, j0 + CW);
+      walk_entries(t, per, NT, rows, j0, j1, [&](int i, int j) {
+        copy_hinted<T, W>(ring_at(q % kRing, i, j - j0) + c * W, H + dram(i, j), policy);
+      });
+    }
+    __pipeline_commit();
+  };
+  for (int q = t; q < n * per; q += NT) {  // s, y, g: in the first chunk's group
+    const int j = q / per, cq = q - j * per;
+    if (b0 + cq * W < B) {
+      const int64_t from = static_cast<int64_t>(j) * B + b0 + cq * W;
+      const int to = j * TB + cq * W;
+      __pipeline_memcpy_async(ss + to, s + from, W * sizeof(T));
+      __pipeline_memcpy_async(sy + to, y + from, W * sizeof(T));
+      __pipeline_memcpy_async(sg + to, g + from, W * sizeof(T));
+    }
+  }
+  for (int q = 0; q < kRing; ++q) fetch(q, keep);
+
+  // the first pass: Hy in ascending j, a reset lane's row the identity
+  T acc = T(0);
+  for (int q = 0; q < chunks; ++q) {
+    __pipeline_wait_prior(kRing - 1);
+    __syncthreads();
+    if (mine && arith) {
+      const int j0 = q * CW, j1 = min(n, j0 + CW);
+      const T* row = ring_at(q % kRing, r, 0) + tb;
+      for (int j = j0; j < j1; ++j) {
+        const T h = rst ? T(gi == j) : row[(j - j0) * TB];
+        acc = rn::add(acc, rn::mul(h, sy[j * TB + tb]));
+      }
+    }
+    __syncthreads();
+    fetch(q + kRing, keep);
+  }
+  for (int q = 0; q < kRing; ++q) fetch(q, drop);  // the second pass's first chunks
+  if (mine) sHy[gi * TB + tb] = acc;
+  cluster.sync();
+  for (int o0 = 0; o0 < C; o0 += kGather) {
+    T got[kGather];
+    const int span = R * TB;
+#pragma unroll
+    for (int u = 0; u < kGather; ++u) {
+      const int o = o0 + u, q = o * span + t;
+      if (o < C && o != k && t < span && q < n * TB) got[u] = cluster.map_shared_rank(sHy, o)[q];
+    }
+#pragma unroll
+    for (int u = 0; u < kGather; ++u) {
+      const int o = o0 + u, q = o * span + t;
+      if (o < C && o != k && t < span && q < n * TB) sHy[q] = got[u];
+    }
+  }
+  cluster_arrive();
+  __syncthreads();
+  const T rb = live ? rho[b] : T(0);
+  if (r == 0) {  // y^T Hy once a lane, in ascending i
+    T yHy = T(0);
+    for (int i = 0; i < n; ++i) yHy = rn::add(yHy, rn::mul(sy[i * TB + tb], sHy[i * TB + tb]));
+    scoef[tb] = coefficient(rb, yHy);
+  }
+  __syncthreads();
+  const T cb = scoef[tb];
+
+  // the second pass: H' in place in the ring, stored chunk by chunk
+  acc = T(0);
+  const T si = mine ? ss[gi * TB + tb] : T(0), hyi = mine ? sHy[gi * TB + tb] : T(0);
+  for (int q = 0; q < chunks; ++q) {
+    const int j0 = q * CW, j1 = min(n, j0 + CW);
+    __pipeline_wait_prior(kRing - 1);
+    __syncthreads();
+    if (mine && arith)
+      acc = row_update(ring_at(q % kRing, r, 0) + tb, j0, j1, gi, rst, rb, cb, si, hyi, ss + tb,
+                       sHy + tb, sg + tb, TB, acc);
+    __syncthreads();
+    if (group_live)
+      walk_entries(t, per, NT, rows, j0, j1, [&](int i, int j) {
+        *reinterpret_cast<LaneGroup<T, W>*>(Hout + dram(i, j)) =
+            *reinterpret_cast<const LaneGroup<T, W>*>(ring_at(q % kRing, i, j - j0) + c * W);
+      });
+    __syncthreads();
+    fetch(q + kRing, drop);
+  }
+  if (live && mine) dout[static_cast<int64_t>(gi) * B + b] = -acc;
+  cluster_wait();
+}
+
+template <typename T, int W>
+int launch_streamed_width(const void* H, const void* s, const void* y, const void* g,
+                          const void* rho, const void* reset, void* Hout, void* dout, int n,
+                          int64_t B, int C, int TB, int CW, int mode, cudaStream_t st) {
+  const int R = (n + C - 1) / C;
+  const int step = TB < 32 ? 32 / TB : 1;
+  const int RT = (R + step - 1) / step * step;
+  if (CW < 1 || CW > n || RT * TB > kStreamThreads) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes =
+      (static_cast<size_t>(kRing) * R * (CW | 1) + 4 * static_cast<size_t>(n) + 1) * TB * sizeof(T);
+  if (bytes > static_cast<size_t>(kMaxDynamicSmem)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = rank2_streamed_kernel<T, W>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (C > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((B + TB - 1) / TB * C));
+  cfg.blockDim = dim3(TB, RT);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(H), static_cast<const T*>(s),
+                           static_cast<const T*>(y), static_cast<const T*>(g),
+                           static_cast<const T*>(rho), static_cast<const uint8_t*>(reset),
+                           static_cast<T*>(Hout), static_cast<T*>(dout), n, R, CW, mode, B);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_streamed(const void* H, const void* s, const void* y, const void* g, const void* rho,
+                    const void* reset, void* Hout, void* dout, int n, int64_t B, int C, int TB,
+                    int CW, int mode, void* stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (n < 1 || B < 1 || C < 1 || C > kMaxCluster || TB < kVec || TB > 32 || (TB & (TB - 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B % kVec == 0 && aligned(H) && aligned(s) && aligned(y) && aligned(g) && aligned(Hout))
+    return launch_streamed_width<T, kVec>(H, s, y, g, rho, reset, Hout, dout, n, B, C, TB, CW,
+                                          mode, st);
+  return launch_streamed_width<T, 1>(H, s, y, g, rho, reset, Hout, dout, n, B, C, TB, CW, mode,
+                                     st);
+}
+
 // ---------------------------------------------------------------- K4c
 
 template <typename T>
@@ -554,7 +820,8 @@ int launch_batched(const void* H, const void* s, const void* y, const void* rho,
 // bytes (non-zero: use the identity for H).  Leading-batch: H, Hout
 // [B, n, n]; s, y [B, n]; rho [B].  Hy [n, B] and coef [B] are scratch.
 // The cluster form takes C CTAs a cluster (1 .. 16) and TB lanes a tile (a
-// power of two, 1 .. 32).  Each returns cudaGetLastError().
+// power of two, 1 .. 32); the streamed form C, TB, CW columns a chunk and a
+// probe mode (0: the update).  Each returns cudaGetLastError().
 #define RANK2_ENTRY_POINTS(T, SUFFIX)                                                         \
   extern "C" int rank2_resident_##SUFFIX(const void* H, const void* s, const void* y,         \
                                          const void* g, const void* rho, const void* reset,   \
@@ -567,6 +834,13 @@ int launch_batched(const void* H, const void* s, const void* y, const void* rho,
                                         void* Hout, void* dout, int n, int64_t B, int C,      \
                                         int TB, void* stream) {                               \
     return launch_cluster<T>(H, s, y, g, rho, reset, Hout, dout, n, B, C, TB, stream);        \
+  }                                                                                           \
+  extern "C" int rank2_streamed_##SUFFIX(const void* H, const void* s, const void* y,         \
+                                         const void* g, const void* rho, const void* reset,   \
+                                         void* Hout, void* dout, int n, int64_t B, int C,     \
+                                         int TB, int CW, int mode, void* stream) {            \
+    return launch_streamed<T>(H, s, y, g, rho, reset, Hout, dout, n, B, C, TB, CW, mode,      \
+                              stream);                                                        \
   }                                                                                           \
   extern "C" int rank2_rowsplit_##SUFFIX(const void* H, const void* s, const void* y,         \
                                          const void* g, const void* rho, const void* reset,   \

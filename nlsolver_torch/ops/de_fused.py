@@ -12,13 +12,17 @@ anything it does not take; for CPU tensors it runs
 body; the CUDA kernel has a registry of compiled objectives instead
 (``KERNEL_OBJECTIVES``).
 
-The kernel comes in two forms, chosen by n and P alone
-(``staged_plan``): ``de_generation_staged`` stages a block's instances in
-shared memory with one bulk asynchronous copy and keeps each proposal from
-the score pass (in registers for n <= 16, in shared memory beyond), for
-every population whose slab fits a block; ``de_generation_global`` reads
-the agents from device memory and recomputes an accepted proposal for its
-write-back, for the rest.  Both give the same proposals and scores.
+The kernel comes in three forms, chosen by n and P alone:
+``de_generation_staged`` (K1s) stages a block's instances in shared memory
+with one bulk asynchronous copy and keeps each proposal from the score pass
+(in registers for n <= 16, in shared memory beyond), for every population
+whose slab fits a block (``staged_plan``); ``de_generation_cluster`` (K1c)
+stages one instance over the shared memory of a thread-block cluster of 2,
+4, 8 or 16 CTAs, reads the partners through distributed shared memory and
+keeps the proposals beside the slab, where ``cluster_plan`` fits (n <= 226
+at P = 1024 on 8 CTAs, up to 453 on 16); ``de_generation_global`` (K1g)
+reads the agents from device memory and recomputes an accepted proposal for
+its write-back, for the rest.  All give the same proposals and scores.
 """
 from __future__ import annotations
 
@@ -136,12 +140,52 @@ def staged_plan(n: int, P: int) -> Optional[tuple[int, int]]:
     return (per_block, per_block * words * 4) if words * 4 <= STAGED_SMEM else None
 
 
+# the clusters K1c takes, CTAs an instance (16 by the non-portable size),
+# and the agents (threads) a CTA its plan aims at
+CLUSTER_SIZES = (2, 4, 8, 16)
+CLUSTER_AGENTS = 128
+
+
+def cluster_plan(n: int, P: int) -> Optional[tuple[int, int]]:
+    """``(CTAs a cluster, bytes of dynamic shared memory a CTA)`` of K1c for n
+    coordinates and P agents: of the sizes of ``CLUSTER_SIZES`` that divide
+    P and whose CTA's share of the instance, P / C agents' slab and
+    proposals (2 n P / C floats), fits its shared memory, the fewest CTAs
+    of at most ``CLUSTER_AGENTS`` agents each (several CTAs an SM: on an
+    H100, 49.97 us against 56.20 on clusters of 2 at [256, 29, 1024]), or
+    the most CTAs where none is that small.  None where no cluster takes it (P > 1024,
+    or n past 453 at P = 1024): the global form takes it."""
+    if P > 1024 or n < 1:
+        return None
+    fits = [size for size in CLUSTER_SIZES
+            if P % size == 0 and 2 * n * (P // size) * 4 <= STAGED_SMEM]
+    if not fits:
+        return None
+    size = next((c for c in fits if P // c <= CLUSTER_AGENTS), fits[-1])
+    return size, 2 * n * (P // size) * 4
+
+
+# C entry points by form: de_<form>_<objective>_f32 and the ints after the
+# draws' key (staged: instances a block, bytes, bulk; cluster: CTAs, bytes,
+# bulk, probe mode)
+_ENTRY = {"staged": ("staged", 3), "cluster": ("cluster", 4), "global": ("generation", 0)}
+
+
+def generation_form(n: int, P: int) -> str:
+    """The form the dispatcher gives n and P: "staged" (K1s) where
+    ``staged_plan`` fits, else "cluster" (K1c) where ``cluster_plan`` fits,
+    else "global" (K1g)."""
+    if staged_plan(n, P) is not None:
+        return "staged"
+    return "cluster" if cluster_plan(n, P) is not None else "global"
+
+
 @functools.lru_cache(maxsize=None)
-def _launcher(name: str, staged: bool):
-    form = "staged" if staged else "generation"
-    fn = getattr(_build.load_library(), f"de_{form}_{name}_f32")
+def _launcher(name: str, form: str):
+    entry, extra = _ENTRY[form]
+    fn = getattr(_build.load_library(), f"de_{entry}_{name}_f32")
     vp, ci, cf, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
-    fn.argtypes = [vp] * 7 + [ci] * 6 + [cf, cf, cu, cu] + ([ci] * 3 if staged else []) + [vp]
+    fn.argtypes = [vp] * 7 + [ci] * 6 + [cf, cf, cu, cu] + [ci] * extra + [vp]
     fn.restype = ci
     return fn
 
@@ -167,10 +211,10 @@ def _twin(fn, agents, scores, offs, active, seed, generation, cross_prob, diff_w
 
 
 def _launch(form: str, fn, agents, scores, offs, active, seed, generation, cross_prob,
-            diff_weight, u, fdim):
-    """K1's ``form`` ("staged" or "global"): the twin on CPU tensors; on
-    CUDA tensors the inputs checked and the kernel launched.  Returns the
-    new agents and scores and whether a kernel was launched."""
+            diff_weight, u, fdim, _mode=0):
+    """K1's ``form`` ("staged", "cluster" or "global"): the twin on CPU
+    tensors; on CUDA tensors the inputs checked and the kernel launched.
+    Returns the new agents and scores and whether a kernel was launched."""
     name = f"de_generation_{form}"
     B, n, P, offs = _check_common(agents, offs, u, fdim)
     if agents.device.type == "cpu":
@@ -183,10 +227,10 @@ def _launch(form: str, fn, agents, scores, offs, active, seed, generation, cross
            f"({', '.join(sorted(KERNEL_OBJECTIVES.values()))} from "
            "nlsolver_torch.PROBLEMS); use use_fused_kernel=False for others")
     _check(P <= 1024, f"pop size {P} exceeds one block (1024 threads)")
-    plan = staged_plan(n, P)
-    _check(form == "global" or plan is not None,
-           f"{name}: n={n}, P={P} does not fit a block's shared memory; "
-           "de_generation_global takes it")
+    plan = () if form == "global" else (staged_plan if form == "staged" else cluster_plan)(n, P)
+    _check(plan is not None,
+           f"{name}: n={n}, P={P} does not fit the shared memory of a "
+           f"{'block' if form == 'staged' else 'cluster'}; de_generation_global takes it")
     dev = agents.device
     expect = {
         "agents": (agents, (B, n, P), torch.float32),
@@ -212,9 +256,13 @@ def _launch(form: str, fn, agents, scores, offs, active, seed, generation, cross
         # one bulk copy a block where every slab is 16-byte aligned and sized
         bulk = (n * P) % 4 == 0 and agents.data_ptr() % 16 == 0
         extra = (*plan, int(bulk))
+    elif form == "cluster":
+        # a bulk copy a row where every CTA's row is 16-byte aligned and sized
+        bulk = P % 4 == 0 and (P // plan[0]) % 4 == 0 and agents.data_ptr() % 16 == 0
+        extra = (*plan, int(bulk), _mode)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _launcher(objective, form == "staged")(
+        err = _launcher(objective, form)(
             agents.data_ptr(), scores.data_ptr(), active.data_ptr(),
             None if u is None else u.data_ptr(),
             None if fdim is None else fdim.data_ptr(),
@@ -238,6 +286,24 @@ def de_generation_staged(fn, agents, scores, offs, active, *, seed: int, generat
         "staged", fn, agents, scores, offs, active, seed, generation, cross_prob, diff_weight,
         u, fdim)
     de_generation_staged.launches += launched
+    return out_agents, out_scores
+
+
+def de_generation_cluster(fn, agents, scores, offs, active, *, seed: int, generation: int,
+                          cross_prob: float = 0.9, diff_weight: float = 0.8,
+                          u: Optional[torch.Tensor] = None, fdim: Optional[torch.Tensor] = None,
+                          _mode: int = 0):
+    """K1's cluster form: one instance over a thread-block cluster of the
+    CTAs ``cluster_plan`` names, each staging its agents' rows by bulk
+    copies, the partners read through distributed shared memory, the
+    proposal kept.  CPU tensors run the twin; on a card it raises where no
+    cluster takes n and P.  ``_mode`` (for tests and probes): 1 leaves out
+    the proposals, every agent kept; 2 reads each partner from the CTA's
+    own slab (no distributed shared memory), a proposal no twin computes."""
+    out_agents, out_scores, launched = _launch(
+        "cluster", fn, agents, scores, offs, active, seed, generation, cross_prob, diff_weight,
+        u, fdim, _mode)
+    de_generation_cluster.launches += launched
     return out_agents, out_scores
 
 
@@ -273,16 +339,17 @@ def de_generation_fused(
     Without ``u`` and ``fdim`` the draws come from Philox keyed by
     ``(seed, generation)``; with them (both or neither) the kernel reads
     them.  CPU tensors run the plain twin on the same draws; CUDA tensors
-    launch the staged form where ``staged_plan`` fits, else the global form
-    (float32 only), or raise."""
+    launch the form ``generation_form`` names (float32 only), or raise."""
     _, n, P, offs = _check_common(agents, offs, u, fdim)
     if agents.device.type == "cpu":
         return _twin(fn, agents, scores, offs, active, seed, generation, cross_prob,
                      diff_weight, u, fdim)
-    form = de_generation_staged if staged_plan(n, P) is not None else de_generation_global
+    form = {"staged": de_generation_staged, "cluster": de_generation_cluster,
+            "global": de_generation_global}[generation_form(n, P)]
     return form(fn, agents, scores, offs, active, seed=seed, generation=generation,
                 cross_prob=cross_prob, diff_weight=diff_weight, u=u, fdim=fdim)
 
 
 de_generation_staged.launches = 0
+de_generation_cluster.launches = 0
 de_generation_global.launches = 0

@@ -17,10 +17,14 @@ Counterpart of ``nlsolver_tpu.ops.rank2``.  For B instances at once
   (``rank2_direction_batchminor_cluster``: the slab split by rows over a
   thread-block cluster, Hy gathered through distributed shared memory, H
   read once) for every n whose rows fit a cluster (``cluster_fits``: n <=
-  224 in float32, 152 in float64), and K4b
-  (``rank2_direction_batchminor_rowsplit``: Hy and the coefficient in a
-  first pass, then a row-local pass, H read twice) beyond;
-  ``rank2_direction_batchminor_kernel`` picks by n and dtype alone
+  224 in float32, 152 in float64), K4b-t
+  (``rank2_direction_batchminor_streamed``: a cluster of 16 CTAs whose
+  rows are streamed twice through shared memory, the first read marked to
+  stay in L2 for the second) where it measured faster than K4b
+  (``streamed_fits``: n up to ``streamed_last(dtype, B)``, which falls as
+  B grows), and K4b (``rank2_direction_batchminor_rowsplit``: Hy and the
+  coefficient in a first pass, then a row-local pass, H read twice)
+  beyond; ``rank2_direction_batchminor_kernel`` picks by n, dtype and B
   (``direction_form``).
 * ``rank2_update_batched(H [B, n, n], s, y [B, n], rho [B])`` is the
   leading-batch update alone: kernel K4c (``rank2_update_batched_kernel``)
@@ -31,13 +35,14 @@ Counterpart of ``nlsolver_tpu.ops.rank2``.  For B instances at once
 The kernels sum in ascending index order with every operation rounded on
 its own, which is not ``torch.sum``'s order: they agree with the twins to a
 few ulp times n relative to max|H'| and max|d'| (``KERNEL_TOL_ULPS``), and
-bit for bit where n <= 2.  K4b-c takes K4b's steps and equals it bit for
-bit.
+bit for bit where n <= 2.  K4b-c and K4b-t take K4b's steps and equal it
+bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -52,6 +57,20 @@ CLUSTER_LANES = 8
 CLUSTER_SIZE = 8
 # K4b-c's most threads a CTA (csrc/rank2.cu's kClusterThreads)
 CLUSTER_THREADS = 256
+# K4b-t (csrc/rank2.cu's kRing and kStreamThreads): CTAs a cluster, chunks
+# of a streamed row's columns in flight, the most threads a CTA, and the
+# columns of a chunk of the default plan
+STREAMED_SIZE = 16
+STREAMED_RING = 2
+STREAMED_THREADS = 512
+STREAMED_CHUNK = 32
+# the last n the dispatcher gives K4b-t, by dtype: (most lanes, last n)
+# for B up to each bound in turn, none past the last bound.  On an H100 K4b
+# measured faster at the next n of the sweep (a step of 32) for B at each
+# bound; beyond the last, from the first n past K4b-c's range
+# (``benches.sweep_rank2_streamed``)
+STREAMED_LAST = {torch.float32: ((64, 1024), (256, 512), (1024, 320), (16384, 225)),
+                 torch.float64: ((16, 1415), (64, 992), (256, 352), (1024, 192))}
 # kernel against twin: |diff| <= KERNEL_TOL_ULPS * n * eps * max|twin|
 KERNEL_TOL_ULPS = 2
 
@@ -126,12 +145,77 @@ def cluster_fits(n: int, dtype: torch.dtype) -> bool:
     return cluster_takes(n, dtype, CLUSTER_SIZE, CLUSTER_LANES)
 
 
-def direction_form(n: int, dtype: torch.dtype) -> str:
-    """The kernel the dispatcher gives n in ``dtype``: "resident" (K4a),
-    "cluster" (K4b-c) or "rowsplit" (K4b), the first that takes it."""
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def streamed_lanes(dtype: torch.dtype) -> int:
+    """K4b-t's tile of lanes: one 32-byte sector of an entry, 8 float32 or
+    4 float64 lanes."""
+    return 32 // _itemsize(dtype)
+
+
+def streamed_bytes(n: int, dtype: torch.dtype, size: int, lanes: int, chunk: int) -> int:
+    """Dynamic shared memory of a CTA of K4b-t: a ring of ``STREAMED_RING``
+    chunks of its ceil(n / ``size``) rows, ``chunk`` | 1 columns each, s,
+    y, g and Hy [n] and the lanes' coefficients, for ``lanes`` lanes."""
+    rows = -(-n // size)
+    return (STREAMED_RING * rows * (chunk | 1) + 4 * n + 1) * lanes * _itemsize(dtype)
+
+
+def _streamed_threads(n: int, size: int, lanes: int) -> int:
+    """Threads a CTA of K4b-t: a row and lane each, in whole warps."""
+    rows, step = -(-n // size), max(1, 32 // lanes)
+    return -(-rows // step) * step * lanes
+
+
+def streamed_plan(n: int, dtype: torch.dtype, size: int = STREAMED_SIZE,
+                  lanes: Optional[int] = None, chunk: Optional[int] = None) -> Optional[int]:
+    """The columns of a chunk of K4b-t for n in ``dtype`` on clusters of
+    ``size`` CTAs and tiles of ``lanes`` lanes (``streamed_lanes`` by
+    default): ``STREAMED_CHUNK`` or as many as the shared memory leaves,
+    down to a quarter of that; a ``chunk`` given is taken as it is.  None
+    where nothing fits: a CTA's threads (a row and lane each) or its shared
+    memory."""
+    lanes = lanes or streamed_lanes(dtype)
+    itemsize = _itemsize(dtype)
+    if not (dtype in _build.DTYPE_SUFFIX and n >= 1 and 1 <= size <= 16
+            and 16 // itemsize <= lanes <= 32 and lanes & (lanes - 1) == 0
+            and _streamed_threads(n, size, lanes) <= STREAMED_THREADS):
+        return None
+    if chunk is None:
+        # the widest odd row of a ring slot that fits, at most STREAMED_CHUNK
+        room = MAX_DYNAMIC_SMEM // (lanes * itemsize) - 4 * n - 1
+        most = room // (STREAMED_RING * -(-n // size))
+        chunk = min(n, STREAMED_CHUNK, most if most % 2 else most - 1)
+        if chunk < min(n, STREAMED_CHUNK // 4):  # too narrow to stream through
+            return None
+    fits = streamed_bytes(n, dtype, size, lanes, chunk) <= MAX_DYNAMIC_SMEM
+    return chunk if 1 <= chunk <= n and fits else None
+
+
+def streamed_last(dtype: torch.dtype, B: int) -> int:
+    """The last n the dispatcher gives K4b-t for B lanes in ``dtype``
+    (``STREAMED_LAST``): 0 past its largest B."""
+    return next((last for most, last in STREAMED_LAST[dtype] if B <= most), 0)
+
+
+def streamed_fits(n: int, dtype: torch.dtype, B: int) -> bool:
+    """Whether the dispatcher gives n in ``dtype`` on B lanes to K4b-t:
+    its default plan fits and n is at most ``streamed_last(dtype, B)``."""
+    return dtype in STREAMED_LAST and n <= streamed_last(dtype, B) and \
+        streamed_plan(n, dtype) is not None
+
+
+def direction_form(n: int, dtype: torch.dtype, B: int) -> str:
+    """The kernel the dispatcher gives n in ``dtype`` on B lanes:
+    "resident" (K4a), "cluster" (K4b-c), "streamed" (K4b-t) or "rowsplit"
+    (K4b), the first that takes it."""
     if resident_fits(n, dtype):
         return "resident"
-    return "cluster" if cluster_fits(n, dtype) else "rowsplit"
+    if cluster_fits(n, dtype):
+        return "cluster"
+    return "streamed" if streamed_fits(n, dtype, B) else "rowsplit"
 
 
 def batched_fits(n: int, dtype: torch.dtype) -> bool:
@@ -238,6 +322,49 @@ def rank2_direction_batchminor_cluster(H, s, y, g, rho, reset, size=CLUSTER_SIZE
 rank2_direction_batchminor_cluster.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _streamed_launcher(suffix: str):
+    fn = getattr(_build.load_library(), f"rank2_streamed_{suffix}")
+    ci = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ci, ctypes.c_int64] + [ci] * 4 + [ctypes.c_void_p]
+    fn.restype = ci
+    return fn
+
+
+def rank2_direction_batchminor_streamed(H, s, y, g, rho, reset, size=STREAMED_SIZE, lanes=None,
+                                        chunk=None, _mode=0):
+    """Kernel K4b-t on CUDA tensors (float32 or float64, contiguous): a
+    cluster of ``size`` CTAs a tile of ``lanes`` lanes (``streamed_lanes``
+    by default), each CTA streaming its ceil(n / ``size``) rows of H twice
+    through its shared memory in chunks of ``chunk`` columns
+    (``streamed_plan`` by default), the first read marked to stay in L2 for
+    the second; one launch.  Raises where the plan does not fit.  ``_mode``
+    (for tests and probes): 1 leaves out the arithmetic (the copies,
+    barriers and stores alone, H' then H), 2 reads H without the L2
+    hints."""
+    name = "rank2_direction_batchminor_streamed"
+    n, B = _check_cuda_batchminor(name, H, s, y, g, rho, reset)
+    lanes = lanes or streamed_lanes(H.dtype)
+    plan = streamed_plan(n, H.dtype, size, lanes, chunk)
+    if plan is None:
+        raise ValueError(f"{name}: n={n} in {H.dtype} with chunk={chunk} does not fit the shared "
+                         f"memory or threads of a CTA of a cluster of {size} with {lanes} lanes; "
+                         f"rank2_direction_batchminor_rowsplit takes it")
+    Hn, d = torch.empty_like(H), torch.empty_like(g)
+    with torch.cuda.device(H.device):
+        stream = torch.cuda.current_stream(H.device).cuda_stream
+        err = _streamed_launcher(_build.DTYPE_SUFFIX[H.dtype])(
+            *(t.data_ptr() for t in (H, s, y, g, rho, reset, Hn, d)), n, B, size, lanes, plan,
+            _mode, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+    rank2_direction_batchminor_streamed.launches += 1
+    return Hn, d
+
+
+rank2_direction_batchminor_streamed.launches = 0
+
+
 def rank2_direction_batchminor_rowsplit(H, s, y, g, rho, reset):
     """Kernel K4b on CUDA tensors (float32 or float64, contiguous), any n:
     Hy [n, B] and the coefficient [B] into scratch, then the row-local
@@ -256,10 +383,12 @@ rank2_direction_batchminor_rowsplit.launches = 0
 
 def rank2_direction_batchminor_kernel(H, s, y, g, rho, reset):
     """K4a where its slab fits a block's shared memory, else K4b-c where
-    its rows fit a cluster's, else K4b (``direction_form``)."""
-    form = direction_form(H.shape[0], H.dtype) if H.ndim == 3 else "rowsplit"
+    its rows fit a cluster's, else K4b-t where it measured faster than K4b,
+    else K4b (``direction_form``)."""
+    form = direction_form(H.shape[0], H.dtype, H.shape[2]) if H.ndim == 3 else "rowsplit"
     return {"resident": rank2_direction_batchminor_resident,
             "cluster": rank2_direction_batchminor_cluster,
+            "streamed": rank2_direction_batchminor_streamed,
             "rowsplit": rank2_direction_batchminor_rowsplit}[form](H, s, y, g, rho, reset)
 
 

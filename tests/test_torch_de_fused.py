@@ -86,7 +86,7 @@ def _fleet(seed, dtype=torch.float64, device="cpu", b=B, n=N, p=P):
 def test_wrapper_on_cpu_runs_the_twin():
     agents, scores, active, u, fdim = _fleet(2)
     fn = nt.PROBLEMS["rastrigin"].fn
-    forms = (tdf.de_generation_staged, tdf.de_generation_global)
+    forms = (tdf.de_generation_staged, tdf.de_generation_cluster, tdf.de_generation_global)
     before = [f.launches for f in forms]
     pu, pf = tdf.philox_draws(3, 4, B, N, P, agents.dtype, "cpu")
     for wrapper in (tdf.de_generation_fused,) + forms:
@@ -122,6 +122,114 @@ def test_staged_plan():
             plan = tdf.staged_plan(n, p)
             if plan is not None:
                 assert plan[0] * p <= 1024 and plan[1] <= tdf.STAGED_SMEM
+
+
+def test_cluster_plan():
+    # the fewest CTAs of at most 128 agents each whose slab and proposals
+    # (2 n P / C floats) fit a CTA: 8 at the wide fleet's shape and up to n
+    # = 226 at P = 1024, 16 up to 453, none beyond
+    assert (tdf.CLUSTER_SIZES, tdf.CLUSTER_AGENTS) == ((2, 4, 8, 16), 128)
+    assert tdf.cluster_plan(29, 1024) == (8, 2 * 29 * 128 * 4)
+    assert tdf.cluster_plan(226, 1024) == (8, 231424)
+    assert tdf.cluster_plan(227, 1024) == (16, 2 * 227 * 64 * 4)
+    assert tdf.cluster_plan(453, 1024) == (16, 231936)
+    assert tdf.cluster_plan(454, 1024) is None and tdf.cluster_plan(10, 1025) is None
+    assert tdf.cluster_plan(57, 512) == (4, 2 * 57 * 128 * 4)
+    assert tdf.cluster_plan(114, 256) == (2, 2 * 114 * 128 * 4)
+    # no size of at most 128 agents divides P = 1022: the fewest CTAs that fit
+    assert tdf.cluster_plan(40, 1022) == (2, 2 * 40 * 511 * 4)
+    assert tdf.cluster_plan(200, 1022) is None
+    for n in range(1, 500, 11):
+        for p in (7, 64, 100, 256, 1000, 1022, 1024):
+            plan = tdf.cluster_plan(n, p)
+            if plan is not None:
+                assert p % plan[0] == 0 and plan[1] == 2 * n * (p // plan[0]) * 4
+                assert plan[1] <= tdf.STAGED_SMEM and p // plan[0] <= 1024
+
+
+def test_generation_form_hands_over():
+    # the staged form while one instance fits a block, the cluster form
+    # while it fits a cluster, the global form beyond
+    forms = [tdf.generation_form(n, 1024) for n in range(1, 500)]
+    assert forms == ["staged"] * 28 + ["cluster"] * (453 - 28) + ["global"] * (499 - 453)
+    forms = [tdf.generation_form(n, 64) for n in range(1, 800)]
+    assert forms == ["staged"] * 453 + ["cluster"] * (799 - 453)
+    assert tdf.generation_form(10, 64) == "staged" and tdf.generation_form(29, 1022) == "cluster"
+
+
+def cluster_emulation(fn, agents, scores, offs, u, fdim, active, F, CR, size):
+    """K1c's partition in plain torch ops: CTA k of a cluster of ``size``
+    holds the agents k P / C .. (k + 1) P / C - 1 of each instance in its
+    own slab; agent p's partner (p + o) % P is read from the slab of its
+    owner, CTA q // (P / C), at the owner's column q % (P / C); each
+    coordinate mutates where u < CR or d is the forced dimension."""
+    B, n, P = agents.shape
+    cols = P // size
+    slabs = [agents[:, :, k * cols:(k + 1) * cols].clone() for k in range(size)]
+    p = torch.arange(P)
+    dims = torch.arange(n)[None, :, None]
+    partners = []
+    for o in offs:
+        q = (p + o) % P
+        owner, col = q // cols, q % cols
+        partners.append(torch.stack([slabs[int(w)][:, :, int(c)] for w, c in zip(owner, col)],
+                                    dim=2))
+    a1, a2, a3 = partners
+    own = torch.cat(slabs, dim=2)
+    mutate = (u < CR) | (dims == fdim[:, None, :])
+    prop = torch.where(mutate, a1 + F * (a2 - a3), own)
+    prop_scores = tdf.eval_columns(fn, prop)
+    accept = (prop_scores < scores) & active[:, None]
+    return torch.where(accept[:, None, :], prop, own), torch.where(accept, prop_scores, scores)
+
+
+@pytest.mark.parametrize("size", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("problem", ["rastrigin", "sphere"])
+def test_cluster_partition_equals_twin(problem, size):
+    """K1c's partition (owner CTA and local column of each partner) gives
+    the twin's agents and scores bit for bit, every proposal accepted and
+    with the fleet's own scores, on each cluster size."""
+    fn = nt.PROBLEMS[problem].fn
+    agents, scores, active, u, fdim = _fleet(9, b=5, n=7, p=32)
+    offs = (3, 17, 30)
+    inf = torch.full_like(scores, float("inf"))
+    for s in (scores, inf):
+        got = cluster_emulation(fn, agents, s, offs, u, fdim, active, 0.8, 0.9, size)
+        want = tdf.de_generation_reference(fn, agents, s, offs, u, fdim, active, 0.8, 0.9)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("problem", ["rastrigin", "sphere"])
+def test_cluster_partition_equals_jax_rotation_step(problem):
+    """K1c's partition on JAX's own draws and offsets, over clusters of 2
+    and 4, against the JAX engine's XLA rotation step, as the twin is held
+    (``test_reference_equals_jax_rotation_step``)."""
+    import jax
+    import jax.numpy as jnp
+    from nlsolver_tpu.problems import PROBLEMS as JP
+    from nlsolver_tpu.solvers import de_batched as jdeb
+
+    frozen = np.arange(B) % 3 == 0
+    j, cfg = _jax_fleet(problem, frozen)
+    split = jax.vmap(lambda k: jax.random.split(k, 4))(j.keys)
+    u = jax.vmap(lambda k: jax.random.uniform(k, (N, P), dtype=jnp.float64))(split[:, 2])
+    fdim = jax.vmap(lambda k: jax.random.randint(k, (P,), 0, N))(split[:, 1])
+    third = P // 3
+    ko = jax.random.fold_in(j.keys[0], j.iteration[0])
+    offs = [int(jax.random.randint(jax.random.fold_in(ko, i), (), lo, hi))
+            for i, (lo, hi) in enumerate(((1, third + 1), (third + 1, 2 * third + 1),
+                                          (2 * third + 1, P)), 1)]
+    new = jdeb.step(JP[problem].fn, j, cfg)
+    active = torch.tensor(~np.asarray(new.done))
+    for size in (2, 4):
+        agents, scores = cluster_emulation(
+            nt.PROBLEMS[problem].fn, torch.tensor(np.asarray(j.agents)),
+            torch.tensor(np.asarray(j.scores)), offs, torch.tensor(np.asarray(u)),
+            torch.tensor(np.asarray(fdim)), active, cfg.differential_weight, cfg.crossover_prob,
+            size)
+        np.testing.assert_allclose(agents.numpy(), np.asarray(new.agents), rtol=RTOL)
+        np.testing.assert_allclose(scores.numpy(), np.asarray(new.scores), rtol=RTOL)
+        np.testing.assert_array_equal(agents.numpy()[frozen], np.asarray(j.agents)[frozen])
 
 
 def test_wrapper_rejects_bad_input():
@@ -231,10 +339,14 @@ def test_kernel_matches_twin_on_card(problem):
 
 # (n, P, b): the staged form with the proposal in registers (n = 10, 16), in
 # shared memory (n = 17, and P = 1024 at n = 28, its last fit), staged by
-# plain loads (n * P = 21 is no multiple of 4); the global form where the
-# slab does not fit (n = 29, P = 1024)
+# plain loads (n * P = 21 is no multiple of 4); the cluster form past it
+# (n = 29, P = 1024 on 8 CTAs, the wide fleet's, to 226; on 16 from 227 to
+# 453; 4 CTAs at P = 512, 2 at P = 256; P = 1022 on 2, whose CTAs' rows
+# are no multiple of 16 bytes, staged by plain loads); the global form past
+# the cluster form (n = 454, P = 1024)
 FORM_SHAPES = [(10, 64, 257), (16, 64, 33), (17, 64, 33), (28, 1024, 3), (3, 7, 101),
-               (29, 1024, 3)]
+               (29, 1024, 3), (226, 1024, 2), (227, 1024, 2), (453, 1024, 2), (57, 512, 3),
+               (114, 256, 5), (40, 1022, 3), (454, 1024, 2)]
 
 
 @pytest.mark.gpu
@@ -247,8 +359,9 @@ def test_forms_match_twin_on_card(problem, n, p, b):
     agents, scores, active, u, fdim = _fleet(5, torch.float32, "cuda", b=b, n=n, p=p)
     offs = (1, p // 3 + 1, p - 1) if p > 3 else (1, 2, 2)
     want = tdf.de_generation_reference(fn, agents, scores, offs, u, fdim, active, 0.8, 0.9)
-    staged = tdf.staged_plan(n, p) is not None
-    forms = [tdf.de_generation_global] + ([tdf.de_generation_staged] if staged else [])
+    form = tdf.generation_form(n, p)
+    forms = [tdf.de_generation_global] + ([] if form == "global" else
+                                          [getattr(tdf, f"de_generation_{form}")])
     chosen = forms[-1]
     before = chosen.launches
     outs = [tdf.de_generation_fused(fn, agents, scores, offs, active, seed=1, generation=2,
@@ -298,3 +411,61 @@ def test_issue_floor_takes_the_cheaper_arm_and_counts_the_hot_loop():
             "SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [R0], RZ", "@!P0 BRA 0x40", "BRA 0x10"]
     ins = [(16 * i, op) for i, op in enumerate(sass)]
     assert issue_instructions(ins) == (4, [2, None])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,p,b", [(29, 1024, 256), (453, 1024, 3)])
+def test_cluster_form_bit_equal_to_twin_on_card(n, p, b):
+    """K1c at the wide fleet's [256, 29, 1024] and at the last n its largest
+    cluster takes: proposals and scores bit-equal to the twin's on injected
+    draws and on the Python Philox draws (every proposal accepted, so the
+    agents out are the proposals), and bit-equal to K1g."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: pytest -m gpu tests/test_torch_de_fused.py)")
+    fn = nt.PROBLEMS["rastrigin"].fn
+    agents, scores, active, u, fdim = _fleet(6, torch.float32, "cuda", b=b, n=n, p=p)
+    fdim = fdim.to(torch.int32)
+    every = torch.ones_like(active)
+    inf = torch.full_like(scores, float("inf"))
+    offs = (5, p // 2 - 2, p - 14)
+    pu, pf = tdf.philox_draws(9, 4, b, n, p, torch.float32, "cuda")
+    for draws, (uu, ff) in (({"u": u, "fdim": fdim}, (u, fdim)), ({}, (pu, pf))):
+        before = tdf.de_generation_cluster.launches
+        got = tdf.de_generation_cluster(fn, agents, inf, offs, every, seed=9, generation=4, **draws)
+        assert tdf.de_generation_cluster.launches == before + 1
+        twin = tdf.de_generation_reference(fn, agents, inf, offs, uu, ff, every, 0.8, 0.9)
+        glob = tdf.de_generation_global(fn, agents, inf, offs, every, seed=9, generation=4, **draws)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], twin[0]) and torch.equal(got[0], glob[0])
+        assert torch.equal(got[1], glob[1])
+        torch.testing.assert_close(got[1], twin[1], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [2, 4, 8, 16])
+def test_cluster_form_every_size_on_card(size, monkeypatch):
+    """Each cluster size at n = 29, P = 1024 (the plan's is 8): the same
+    agents and scores as K1g, bit for bit, on Philox draws."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: pytest -m gpu tests/test_torch_de_fused.py)")
+    fn = nt.PROBLEMS["rastrigin"].fn
+    agents, scores, active, _, _ = _fleet(7, torch.float32, "cuda", b=64, n=29, p=1024)
+    monkeypatch.setattr(tdf, "CLUSTER_SIZES", (size,))
+    assert tdf.cluster_plan(29, 1024)[0] == size
+    got = tdf.de_generation_cluster(fn, agents, scores, (5, 510, 1010), active, seed=3,
+                                    generation=1)
+    want = tdf.de_generation_global(fn, agents, scores, (5, 510, 1010), active, seed=3,
+                                    generation=1)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_cluster_form_refuses_what_it_does_not_take_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: pytest -m gpu tests/test_torch_de_fused.py)")
+    fn = nt.PROBLEMS["rastrigin"].fn
+    agents, scores, active, _, _ = _fleet(8, torch.float32, "cuda", b=2, n=454, p=1024)
+    with pytest.raises(ValueError, match="does not fit the shared memory of a cluster"):
+        tdf.de_generation_cluster(fn, agents, scores, (5, 510, 1010), active, seed=0,
+                                  generation=0)

@@ -119,7 +119,8 @@ def test_cpu_routes_are_the_twins_and_errors():
     case = _t(*_batchminor_case(7, 3, 5))
     H, s, y, g, rho, reset = case
     counters = (tr.rank2_direction_batchminor_resident, tr.rank2_direction_batchminor_cluster,
-                tr.rank2_direction_batchminor_rowsplit, tr.rank2_update_batched_kernel)
+                tr.rank2_direction_batchminor_streamed, tr.rank2_direction_batchminor_rowsplit,
+                tr.rank2_update_batched_kernel)
     before = [f.launches for f in counters]
     Hn, d = tr.rank2_direction_batchminor(*case)
     tH, td = tr.rank2_direction_batchminor_reference(*case)
@@ -283,7 +284,8 @@ def test_cluster_order_within_twin_and_jax_rowtiled(n, dtype):
 def test_cluster_envelope_and_dispatcher():
     """K4b-c's range, worked out from 232448 bytes a CTA: ceil(n / 8) rows
     of n | 1 words and four vectors, 8 lanes, and 256 threads, a row and
-    lane each; the dispatcher's three ranges by n and dtype alone."""
+    lane each; the dispatcher's four ranges by n, dtype and B (K4b-t past
+    K4b-c's up to streamed_last, K4b past it)."""
     f32, f64 = torch.float32, torch.float64
     assert (tr.CLUSTER_SIZE, tr.CLUSTER_LANES, tr.CLUSTER_THREADS) == (8, 8, 256)
     assert tr.cluster_bytes(128, f32) == (16 * 129 + 512) * 8 * 4 == 82432
@@ -302,9 +304,167 @@ def test_cluster_envelope_and_dispatcher():
                      (16, 32)}
     assert tr.cluster_takes(40, f64, 4, 2) and not tr.cluster_takes(40, f64, 4, 1)
     for dtype, ends in ((f32, (40, 224)), (f64, (28, 152))):
-        forms = [tr.direction_form(n, dtype) for n in range(1, 300)]
-        assert forms == ["resident"] * ends[0] + ["cluster"] * (ends[1] - ends[0]) + \
-            ["rowsplit"] * (299 - ends[1])
+        for B in (1, 256, 257, 4096, 16385):
+            end = max(ends[1], tr.streamed_last(dtype, B))
+            forms = [tr.direction_form(n, dtype, B) for n in range(1, 1500)]
+            assert forms == ["resident"] * ends[0] + ["cluster"] * (ends[1] - ends[0]) + \
+                ["streamed"] * (end - ends[1]) + ["rowsplit"] * (1499 - end)
+
+
+def streamed_emulation(H, s, y, g, rho, reset, size, chunk, group):
+    """K4b-t in plain torch ops, in the kernel's order.  CTA k of a cluster
+    of ``size`` owns rows k R .. k R + R - 1 (R = ceil(n / size)) and
+    streams them in chunks of ``chunk`` columns twice, each copy starting as
+    NaN and filled lane group by lane group of ``group`` lanes, a group
+    whose lanes all reset left out (a reset lane takes the identity in place
+    of what it read).  The first pass sums Hy of the CTA's rows, the CTA's
+    copy of Hy takes its peers' rows, y^T Hy runs once over it in ascending
+    i, and the second pass forms the rows' H' and d' from a fresh copy,
+    chunk by chunk in ascending j."""
+    n, _, B = H.shape
+    R = -(-n // size)
+    fetched = (~reset).reshape(-1, group).any(dim=1).repeat_interleave(group) \
+        if B % group == 0 else ~reset
+    nan = float("nan")
+    eye = torch.eye(n, dtype=H.dtype)
+
+    def copy(i, j0, j1):
+        """Rows i of H, columns j0 .. j1 - 1, as a CTA's shared memory holds
+        them: NaN where not fetched, the identity on reset lanes."""
+        got = torch.full((len(i), j1 - j0, B), nan, dtype=H.dtype)
+        got[:, :, fetched] = H[i][:, j0:j1][:, :, fetched]
+        got[:, :, reset] = eye[i][:, j0:j1, None]
+        return got
+
+    ctas = []
+    for k in range(size):
+        rows = list(range(k * R, min(n, k * R + R)))
+        Hy = torch.full((n, B), nan, dtype=H.dtype)
+        accs = [torch.zeros_like(rho) for _ in rows]
+        for j0 in range(0, n, chunk) if rows else ():
+            ring = copy(rows, j0, min(n, j0 + chunk))
+            for a in range(len(rows)):
+                for j in range(j0, min(n, j0 + chunk)):
+                    accs[a] = accs[a] + ring[a, j - j0] * y[j]
+        for a, i in enumerate(rows):
+            Hy[i] = accs[a]
+        ctas.append((rows, Hy))
+    Hn, d = torch.full_like(H, nan), torch.full_like(g, nan)
+    for k, (rows, own) in enumerate(ctas):
+        Hy = own.clone()
+        for i in range(n):
+            if i // R != k:
+                Hy[i] = ctas[i // R][1][i]
+        yHy = torch.zeros_like(rho)
+        for i in range(n):
+            yHy = yHy + y[i] * Hy[i]
+        coef = rho * (1.0 + rho * yHy)
+        accs = [torch.zeros_like(rho) for _ in rows]
+        for j0 in range(0, n, chunk) if rows else ():
+            ring = copy(rows, j0, min(n, j0 + chunk))
+            for a, i in enumerate(rows):
+                for j in range(j0, min(n, j0 + chunk)):
+                    hn = (ring[a, j - j0] - rho * (s[i] * Hy[j] + Hy[i] * s[j])) + \
+                        coef * (s[i] * s[j])
+                    Hn[i, j] = hn
+                    accs[a] = accs[a] + hn * g[j]
+        for a, i in enumerate(rows):
+            d[i] = -accs[a]
+    return Hn, d
+
+
+# (n, CTAs a cluster, columns a chunk, B): chunks that split the columns
+# evenly and not, a chunk of every column, CTAs with fewer rows than R (n =
+# 13 over 4: R = 4, the last CTA has 1) or none (n = 9 over 8), one CTA, a
+# chunk of one column, B no multiple of a lane group (one-word copies)
+STREAMED_CASES = [(12, 4, 5, 24), (12, 4, 12, 24), (9, 8, 3, 16), (13, 4, 4, 21),
+                  (16, 2, 16, 8), (6, 1, 1, 12), (10, 2, 7, 10), (13, 4, 6, 16)]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n,size,chunk,B", STREAMED_CASES)
+def test_streamed_order_equals_ascending_reference(n, size, chunk, B, dtype):
+    """K4b-t's order (rows streamed twice over the cluster, Hy gathered,
+    y^T Hy once a lane) is K4b's ascending order bit for bit; no NaN of a
+    copy that was left out reaches H' or d'."""
+    case = _cluster_case(n, B, dtype)
+    group = 16 // np.dtype(dtype).itemsize
+    Hn, d = streamed_emulation(*case, size=size, chunk=chunk, group=group)
+    want_H, want_d = ascending_reference(*case)
+    assert torch.equal(Hn, want_H) and torch.equal(d, want_d)
+    assert not torch.isnan(Hn).any() and not torch.isnan(d).any()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n", [16, 24])
+def test_streamed_order_within_twin_and_jax_rowtiled(n, dtype):
+    """K4b-t's order, the rows streamed in chunks of 5 columns over
+    clusters of 4, against the twin and against the JAX package's row-tiled
+    kernel in interpret mode (tile=32, tile_r=8, which divides n): within
+    KERNEL_TOL_ULPS * n * eps of their largest entries."""
+    from nlsolver_tpu.ops.rank2 import rank2_direction_batchminor_pallas_rowtiled
+
+    case = _t(*_batchminor_case(23, n, 64, dtype))
+    got = streamed_emulation(*case, size=4, chunk=5, group=16 // np.dtype(dtype).itemsize)
+    jax_out = rank2_direction_batchminor_pallas_rowtiled(
+        *(a.numpy() for a in case), tile=32, tile_r=8, interpret=True)
+    for want in (tr.rank2_direction_batchminor_reference(*case),
+                 tuple(torch.from_numpy(np.asarray(a)) for a in jax_out)):
+        for a, b in zip(got, want):
+            tol = tr.KERNEL_TOL_ULPS * n * torch.finfo(b.dtype).eps * float(b.abs().max())
+            assert float((a - b).abs().max()) <= tol
+
+
+def test_streamed_plan_and_residency_edges():
+    """K4b-t's plan, worked out from 232448 bytes a CTA: chunks of 32
+    columns (a ring of two chunks of R = ceil(n / 16) rows, 33 words a row,
+    four vectors and the coefficients, 8 float32 or 4 float64 lanes: 32
+    bytes an entry in both), narrower near the end of the range, which 512
+    threads a CTA (a row and lane each) end at n = 1024 in float32 and the
+    shared memory at 1415 in float64; the residency edge, n = 304, the last
+    where a cluster of 16 could hold every row (K4b-c on 16 CTAs), streamed
+    alike on both sides; the dispatcher stops at streamed_last(dtype, B)."""
+    f32, f64 = torch.float32, torch.float64
+    assert (tr.STREAMED_SIZE, tr.STREAMED_RING, tr.STREAMED_THREADS, tr.STREAMED_CHUNK) == \
+        (16, 2, 512, 32)
+    assert (tr.streamed_lanes(f32), tr.streamed_lanes(f64)) == (8, 4)
+    for dtype, last, end in ((f32, 1024, 23), (f64, 1415, 9)):
+        lanes = tr.streamed_lanes(dtype)
+        for n in (153, 225, 304, 305, 320):
+            assert tr.streamed_plan(n, dtype) == 32
+        assert tr.cluster_takes(304, dtype, 16, lanes) and not tr.cluster_takes(305, dtype, 16, lanes)
+        assert tr.streamed_bytes(320, dtype, 16, lanes, 32) == (2 * 20 * 33 + 4 * 320 + 1) * 32
+        assert tr.streamed_plan(last, dtype) == end
+        assert tr.streamed_plan(last + 1, dtype) is None
+        assert all(tr.streamed_plan(n, dtype) for n in range(1, last + 1))
+        # the widest chunk narrows where a ring of 32 columns leaves the
+        # shared memory: the first n below 32 takes the widest odd chunk
+        # that fits, and one more column pair would not
+        wide = max(n for n in range(1, last + 1) if tr.streamed_plan(n, dtype) == 32)
+        chunk = tr.streamed_plan(wide + 1, dtype)
+        assert chunk < 32 and tr.streamed_bytes(wide + 1, dtype, 16, lanes, chunk) <= 232448 < \
+            tr.streamed_bytes(wide + 1, dtype, 16, lanes, chunk + 2)
+        # the dispatcher: K4b-t to streamed_last, within what the plan takes,
+        # the last n falling as B grows, none past the largest B measured
+        bounds = [most for most, _ in tr.STREAMED_LAST[dtype]]
+        assert bounds == sorted(bounds)
+        stops = [tr.streamed_last(dtype, B) for B in bounds]
+        assert stops == sorted(stops, reverse=True) and stops[0] <= last
+        for most, stop in tr.STREAMED_LAST[dtype]:
+            for B in (most, most // 2 + 1):
+                assert tr.streamed_last(dtype, B) == stop
+                assert tr.streamed_fits(stop, dtype, B) == (stop > 0)
+                assert not tr.streamed_fits(stop + 1, dtype, B)
+        assert tr.streamed_last(dtype, bounds[-1] + 1) == 0
+        assert not tr.streamed_fits(225, dtype, bounds[-1] + 1)
+    # a chunk given is taken as it is, or refused
+    assert tr.streamed_plan(225, f32, chunk=211) == 211
+    assert tr.streamed_plan(225, f32, chunk=7) == 7
+    assert tr.streamed_plan(225, f32, chunk=212) is None  # 233312 bytes
+    assert tr.streamed_plan(225, f32, chunk=226) is None
+    assert tr.streamed_plan(64, f32, size=1, lanes=32) is None    # 2048 threads
+    assert tr.streamed_plan(64, torch.float16) is None
+    assert tr.streamed_plan(64, f64, size=4, lanes=1) is None     # under 16 bytes a copy
 
 
 def _on_card():
@@ -423,17 +583,23 @@ def test_cluster_kernel_bit_equal_to_rowsplit_on_card(n, B, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,dtype", [(225, torch.float32), (153, torch.float64)])
 def test_rowsplit_past_the_cluster_form_on_card(n, dtype):
-    """Past K4b-c's range the dispatcher takes K4b, within tolerance of the
-    twin."""
+    """Past K4b-c's range the dispatcher takes K4b-t, K4b's bits; past
+    K4b-t's range (the n past streamed_last on 5 lanes) K4b; each within
+    tolerance of the twin."""
     dev = _on_card()
-    case = _cluster_on_card(n, 97, dtype, dev)
-    before = tr.rank2_direction_batchminor_rowsplit.launches
-    Hn, d = tr.rank2_direction_batchminor(*case)
-    torch.cuda.synchronize()
-    assert tr.rank2_direction_batchminor_rowsplit.launches == before + 1
-    tH, td = tr.rank2_direction_batchminor_reference(*case)
-    _assert_within(Hn, tH, n, "H'")
-    _assert_within(d, td, n, "d'")
+    past = tr.streamed_last(dtype, 5) + 1
+    for m, B, kernel in ((n, 97, tr.rank2_direction_batchminor_streamed),
+                         (past, 5, tr.rank2_direction_batchminor_rowsplit)):
+        case = _cluster_on_card(m, B, dtype, dev)
+        before = kernel.launches
+        Hn, d = tr.rank2_direction_batchminor(*case)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        wH, wd = tr.rank2_direction_batchminor_rowsplit(*case)
+        assert torch.equal(Hn, wH) and torch.equal(d, wd)
+        tH, td = tr.rank2_direction_batchminor_reference(*case)
+        _assert_within(Hn, tH, m, "H'")
+        _assert_within(d, td, m, "d'")
 
 
 @pytest.mark.gpu
@@ -465,3 +631,79 @@ def test_cluster_kernel_refuses_what_it_does_not_take_on_card():
         v = torch.zeros(225, 8, device=dev)
         cluster(big, v, v, v, torch.zeros(8, device=dev),
                 torch.zeros(8, dtype=torch.bool, device=dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,B,dtype", [
+    (225, 256, torch.float32), (225, 1001, torch.float32), (153, 1001, torch.float64),
+    (304, 256, torch.float32), (305, 256, torch.float32), (320, 256, torch.float32),
+    (305, 98, torch.float64), (1024, 24, torch.float32), (1415, 6, torch.float64)])
+def test_streamed_kernel_bit_equal_to_rowsplit_on_card(n, B, dtype):
+    """K4b-t through the dispatcher at the wide fleet's [225, 225, 256], at
+    the first n of its range in float64, at n = 304 and 305, at the second
+    wide fleet's n = 320, and by a direct call where the dispatcher stops
+    short of the plan's last n in float32 and float64: K4b's bits (reset
+    lanes' H is NaN), the twin within tolerance."""
+    dev = _on_card()
+    case = _cluster_on_card(n, B, dtype, dev)
+    before = tr.rank2_direction_batchminor_streamed.launches
+    Hn, d = (tr.rank2_direction_batchminor if tr.streamed_fits(n, dtype, B)
+             else tr.rank2_direction_batchminor_streamed)(*case)
+    torch.cuda.synchronize()
+    assert tr.rank2_direction_batchminor_streamed.launches == before + 1
+    wH, wd = tr.rank2_direction_batchminor_rowsplit(*case)
+    assert torch.equal(Hn, wH) and torch.equal(d, wd)
+    tH, td = tr.rank2_direction_batchminor_reference(*case)
+    _assert_within(Hn, tH, n, "H'")
+    _assert_within(d, td, n, "d'")
+
+
+# (n, B, dtype, size, lanes, chunk): small n in chunks that split the
+# columns evenly and not, a chunk of every column, CTAs with fewer rows than
+# R (n = 50 over 16), one CTA, ragged tiles, one-word copies (B odd),
+# float64's 16-byte groups of 2; the wide fleet's n = 225 in one chunk of
+# 211 columns (the widest that fits) and in chunks of 7, clusters of 8 at
+# 225, n = 304 and 305 (the last n and the first past where a cluster of
+# 16 could hold every row)
+STREAMED_PLANS = [
+    (50, 1003, torch.float32, 4, 8, 7), (50, 1003, torch.float32, 4, 8, 50),
+    (50, 1003, torch.float32, 16, 8, 3), (50, 1003, torch.float32, 2, 8, 16),
+    (50, 1003, torch.float32, 8, 4, 5), (50, 1000, torch.float32, 16, 32, 9),
+    (50, 1000, torch.float32, 16, 8, 50), (33, 1000, torch.float32, 1, 8, 11),
+    (50, 999, torch.float64, 4, 2, 11), (64, 1000, torch.float64, 8, 4, 64),
+    (225, 256, torch.float32, 16, 8, 211), (225, 256, torch.float32, 8, 8, 64),
+    (304, 256, torch.float32, 16, 8, 7), (305, 256, torch.float32, 16, 8, 123),
+    (153, 99, torch.float64, 16, 4, 153)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,B,dtype,size,lanes,chunk", STREAMED_PLANS)
+def test_streamed_plans_bit_equal_on_card(n, B, dtype, size, lanes, chunk):
+    """K4b-t with a plan given: K4b's bits in H' and d', and in probe mode 2
+    (no L2 hints) too."""
+    dev = _on_card()
+    case = _cluster_on_card(n, B, dtype, dev)
+    wH, wd = tr.rank2_direction_batchminor_rowsplit(*case)
+    for mode in (0, 2):
+        Hn, d = tr.rank2_direction_batchminor_streamed(*case, size=size, lanes=lanes, chunk=chunk,
+                                                       _mode=mode)
+        torch.cuda.synchronize()
+        assert torch.equal(Hn, wH) and torch.equal(d, wd)
+
+
+@pytest.mark.gpu
+def test_streamed_kernel_refuses_what_it_does_not_take_on_card():
+    dev = _on_card()
+    H, s, y, g, rho, reset = _cluster_on_card(64, 64, torch.float32, dev)
+    streamed = tr.rank2_direction_batchminor_streamed
+    with pytest.raises(ValueError, match="float32 or float64"):
+        streamed(H.half(), s.half(), y.half(), g.half(), rho.half(), reset)
+    with pytest.raises(ValueError, match="contiguous"):
+        streamed(H.transpose(0, 1), s, y, g, rho, reset)
+    with pytest.raises(ValueError, match="does not fit"):
+        streamed(H, s, y, g, rho, reset, size=1, lanes=32)  # 2048 threads
+    with pytest.raises(ValueError, match="does not fit"):
+        big = torch.zeros(1025, 1025, 8, device=dev)
+        v = torch.zeros(1025, 8, device=dev)
+        streamed(big, v, v, v, torch.zeros(8, device=dev),
+                 torch.zeros(8, dtype=torch.bool, device=dev))
