@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of nlsolver_torch on one CUDA card: builds the kernels, holds
 each against its plain PyTorch twin, drives the batched-DE fleet, the BFGS
-fleet and the CMA-ES fleet through ``nlsolver_torch.minimize`` and the NLLS
-fleet through ``nlsolver_torch.fit_fleet`` at full size, and times them.
+fleet, the CMA-ES fleet and the PSO and SANN lane fleets through
+``nlsolver_torch.minimize``, the NLLS fleet through
+``nlsolver_torch.fit_fleet`` and the root finders through
+``nlsolver_torch.root`` at full size, and times them.
 
     python3 chip_smoke.py
 
@@ -165,6 +167,29 @@ Phases, each fatal on failure:
      [56, 56, 4096] and [64, 64, 4096], K5c at [170, 170, 256] and K5b at
      [473, 473, 16] with 2 sweeps (the shapes each serves) alone against
      their twins from CUDA events, beside torch.linalg.eigh on [B, n, n].
+ 17. the root finders (no kernel): nt.root with every method, and
+     false_position's reference variant, on 103072 lanes of a cos(x) - c x + d
+     in float32 and float64: the bench problem (cos(x) - c x on [0, 2], c
+     from 0.1 to 1.9, 100000 lanes), 1024 lanes of it on [3, 5] (no root),
+     1024 decreasing d - x on [0, 3] and 1024 increasing c x - cos(x);
+     bracketed and NaN x exactly on the unbracketed lanes, 2 calls there,
+     every converged lane's |f(x)| within its finder's tolerance, the first
+     4096 lanes against the same call on the host (ROOT_DX, and the share
+     of lanes whose counters may differ), Brent on 2,000,000 lanes; no
+     kernel launched;
+ 18. root-finder timing: bench_rootfinder_batch (Brent and ITP at B =
+     100000, f32: roots/s, trips a run, host time a trip), one Brent run
+     under torch.profiler (wall against device busy time a trip);
+ 19. the PSO and SANN slice (no kernel): minimize(method="pso" and "sann",
+     layout="batched") on a small fleet until every lane halts, the 100-D
+     Rastrigin fleets for 200 iterations at B = 256 and 8192, a bounded PSO
+     fleet that stays in its box at its corner, numpy start points landing
+     on the card, and init plus 5 steps on the card against the host on the
+     same injected draws in float64 (vanilla, accelerated and clamped PSO,
+     both SANN Metropolis modes; rtol 1e-10, atol 1e-12, counters equal);
+ 20. PSO and SANN timing: bench_pso_sann_100d at B = 256 and 8192 (PSO on
+     Rastrigin and Ackley, SANN on Rastrigin, 200 iterations), each fleet
+     traced over 20 iterations (wall against device busy time).
 
 Every kernel's line also gives its bound: the larger of its compulsory
 bytes over 3.35 TB/s and its floating-point operations over 67 TFLOP/s
@@ -1377,27 +1402,37 @@ def qr_forms_of():
             "K2a-d": tqw.qr_wavefront_distributed, "K2a-g": tqw.qr_wavefront_global}
 
 
-def reset_counts():
+def kernel_wrappers():
+    """Every kernel's wrapper, each with its ``launches`` count."""
     from nlsolver_torch.ops import de_fused, eigh_jacobi, qr_wavefront, rank2, smallchol
 
-    for fn in (eigh_jacobi.eigh_jacobi_registers, eigh_jacobi.eigh_jacobi_resident,
-               eigh_jacobi.eigh_jacobi_cluster, eigh_jacobi.eigh_jacobi_global,
-               de_fused.de_generation_staged, de_fused.de_generation_cluster,
-               de_fused.de_generation_global,
-               qr_wavefront.qr_wavefront_warp, qr_wavefront.qr_wavefront_cluster,
-               qr_wavefront.qr_wavefront_distributed, qr_wavefront.qr_wavefront_global,
-               qr_wavefront.least_squares_wavefront_registers,
-               qr_wavefront.least_squares_wavefront_shared,
-               qr_wavefront.least_squares_wavefront_warp,
-               qr_wavefront.least_squares_wavefront_cluster,
-               qr_wavefront.least_squares_wavefront_distributed,
-               qr_wavefront.least_squares_wavefront_global, smallchol.solve_spd_registers,
-               smallchol.solve_spd_warp, smallchol.solve_spd_cluster,
-               smallchol.solve_spd_distributed, smallchol.solve_spd_batchminor_global,
-               rank2.rank2_direction_batchminor_resident, rank2.rank2_direction_batchminor_cluster,
-               rank2.rank2_direction_batchminor_streamed, rank2.rank2_direction_batchminor_rowsplit,
-               rank2.rank2_update_batched_kernel):
+    return (eigh_jacobi.eigh_jacobi_registers, eigh_jacobi.eigh_jacobi_resident,
+            eigh_jacobi.eigh_jacobi_cluster, eigh_jacobi.eigh_jacobi_global,
+            de_fused.de_generation_staged, de_fused.de_generation_cluster,
+            de_fused.de_generation_global,
+            qr_wavefront.qr_wavefront_warp, qr_wavefront.qr_wavefront_cluster,
+            qr_wavefront.qr_wavefront_distributed, qr_wavefront.qr_wavefront_global,
+            qr_wavefront.least_squares_wavefront_registers,
+            qr_wavefront.least_squares_wavefront_shared,
+            qr_wavefront.least_squares_wavefront_warp,
+            qr_wavefront.least_squares_wavefront_cluster,
+            qr_wavefront.least_squares_wavefront_distributed,
+            qr_wavefront.least_squares_wavefront_global, smallchol.solve_spd_registers,
+            smallchol.solve_spd_warp, smallchol.solve_spd_cluster,
+            smallchol.solve_spd_distributed, smallchol.solve_spd_batchminor_global,
+            rank2.rank2_direction_batchminor_resident, rank2.rank2_direction_batchminor_cluster,
+            rank2.rank2_direction_batchminor_streamed, rank2.rank2_direction_batchminor_rowsplit,
+            rank2.rank2_update_batched_kernel)
+
+
+def reset_counts():
+    for fn in kernel_wrappers():
         fn.launches = 0
+
+
+def launched():
+    """The kernels launched since the last ``reset_counts``."""
+    return {fn.__name__: fn.launches for fn in kernel_wrappers() if fn.launches}
 
 
 def nlls_counts():
@@ -2338,6 +2373,340 @@ def phase_cmaes_timing(torch, dev):
     return alone
 
 
+# the root finders (phase 17): their labels, methods and keyword arguments
+ROOT_CASES = (("bisection", "bisection", {}), ("false_position", "false_position", {}),
+              ("false_position_reference", "false_position", {"variant": "reference"}),
+              ("brent", "brent", {}), ("ridders", "ridders", {}), ("tiruneh", "tiruneh", {}),
+              ("itp", "itp", {}), ("chandrupatla", "chandrupatla", {}))
+# in float32 the bench's 1e-6 where a default tolerance lies below what
+# float32 resolves near the roots (some 6e-8): Brent and ITP would run to
+# max_iter, Chandrupatla to its 1e-300 guard
+ROOT_F32_KW = {"brent": {"tol": 1e-6}, "ridders": {"tol": 1e-6, "eps": 1e-6},
+               "tiruneh": {"tol": 1e-6}, "itp": {"tol": 1e-6, "eps": 1e-6},
+               "chandrupatla": {"eps_m": 1e-6, "eps_a": 1e-6}}
+ROOT_B, ROOT_EXTRA, ROOT_CPU, ROOT_BIG = 100000, 1024, 4096, 2_000_000
+# card against host on the first ROOT_CPU lanes (PERF.md section 5):
+# |x_card - x_cpu| on every lane within twice the distance from the root at
+# which the finder may stop at these tolerances, |f'| >= 1 at every root
+# here: the f-tolerance (bisection, false position, Brent, Ridders' eps), the
+# interval tolerance (Brent, Ridders: its new point within tol of an end),
+# Chandrupatla's bracket below 2 (2 eps_m |x| + eps_a); tiruneh returns the
+# oldest point of its window (2e-3: the JAX comparison's worst in f32 with
+# headroom); ITP is held on the lanes that both converge (a bracket below
+# 2 eps, or f(xt) == 0), since on a lane that runs to max_iter its
+# reference variant returns the midpoint of a bracket whose far end stalled
+# where the last bit of the early trips put it, and those lanes are held
+# inside their brackets; the reference variant of false_position loses its
+# bracket by design and is held to 1e-6.
+ROOT_DX = {
+    "float64": {"bisection": 2e-6, "false_position": 2e-6, "false_position_reference": 1e-6,
+                "brent": 2e-12, "ridders": 2e-12, "tiruneh": 2e-6, "itp": 5e-12,
+                "chandrupatla": 2e-9},
+    "float32": {"bisection": 2e-6, "false_position": 2e-6, "false_position_reference": 1e-6,
+                "brent": 2e-6, "ridders": 4e-6, "tiruneh": 2e-3, "itp": 5e-6,
+                "chandrupatla": 1.2e-5},
+}
+# The lanes (of ROOT_CPU) whose iterations, calls or converged flag differ
+# between card and host, as read on an NVIDIA H100 80GB HBM3 at 700.00 W,
+# torch 2.11.0+cu128 (PERF.md section 5): the last bit of cos (and of the
+# host's sqrt, log2 and pow) decides a stopping test only where f sits
+# within an ulp of it, except ITP's, whose test is f(xt) == 0 exactly; in
+# float32 Ridders' step takes a sqrt that the host does not round
+# correctly on some inputs.  The limit: twice the reading, at least 8
+# lanes, at most 0.3 of them.
+ROOT_COUNTS_READ = {
+    "float32": {"bisection": 9, "false_position": 1, "ridders": 183, "itp": 498,
+                "chandrupatla": 7},
+    "float64": {"itp": 831},
+}
+ROOT_COUNTS_DIFFER = {tag: {label: min(max(2 * read.get(label, 0), 8), ROOT_CPU * 3 // 10)
+                            for label, _, _ in ROOT_CASES}
+                      for tag, read in ROOT_COUNTS_READ.items()}
+PSO_SANN_BS, PSO_SANN_DIM, PSO_SANN_ITERS = (256, 8192), 100, 200   # config #3's fleets
+
+
+def root_lanes(torch, dev, dtype):
+    """The bench problem's ROOT_B lanes, cos(x) - c x on [0, 2], then
+    ROOT_EXTRA each of it on [3, 5] (no root), of d - x on [0, 3]
+    (decreasing, tests/test_scalar.py's) and of c x - cos(x) on [0, 2]
+    (increasing): the coefficients (a, c, d) of a cos(x) - c x + d and the
+    brackets, on ``dev``."""
+    n, e = ROOT_B, ROOT_EXTRA
+    lin = lambda k, lo, hi: torch.linspace(lo, hi, k, dtype=torch.float64)   # noqa: E731
+    c = torch.cat([lin(n, 0.1, 1.9), lin(e, 0.1, 1.9), torch.ones(e, dtype=torch.float64),
+                   -lin(e, 0.1, 1.9)])
+    a = torch.cat([torch.ones(n + e), torch.zeros(e), -torch.ones(e)]).double()
+    d = torch.cat([torch.zeros(n + e), lin(e, 0.5, 1.5), torch.zeros(e)]).double()
+    lo = torch.cat([torch.zeros(n), torch.full((e,), 3.0), torch.zeros(2 * e)]).double()
+    hi = torch.cat([torch.full((n,), 2.0), torch.full((e,), 5.0), torch.full((e,), 3.0),
+                    torch.full((e,), 2.0)]).double()
+    return [v.to(device=dev, dtype=dtype) for v in (a, c, d, lo, hi)]
+
+
+def run_root(nt, method, kw, lanes):
+    a, c, d, lo, hi = lanes
+    fn = lambda x: a * x.cos() - c * x + d   # noqa: E731
+    if method == "tiruneh":
+        return fn, nt.root(fn, method=method, x_k=(lo, (lo + hi) / 2, hi), **kw)
+    return fn, nt.root(fn, lo, hi, method=method, **kw)
+
+
+def phase_roots(torch, dev):
+    """nt.root with every method on the bench problem and the extra lanes,
+    in float32 and float64; the card against the host; Brent on 2e6 lanes."""
+    import nlsolver_torch as nt
+
+    n, e = ROOT_B, ROOT_EXTRA
+    unbracketed = torch.zeros(n + 3 * e, dtype=torch.bool)
+    unbracketed[n:n + e] = True
+    reset_counts()
+    for dtype in (torch.float32, torch.float64):
+        tag = str(dtype).split(".")[1]
+        lanes = root_lanes(torch, dev, dtype)
+        host = [v[:ROOT_CPU].cpu() for v in lanes]
+        for label, method, kw in ROOT_CASES:
+            kw = {**kw, **(ROOT_F32_KW.get(label, {}) if dtype == torch.float32 else {})}
+            t0 = time.perf_counter()
+            fn, res = run_root(nt, method, kw, lanes)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            br, x = res.bracketed.cpu(), res.x.cpu()
+            check(res.x.is_cuda and res.x.dtype == dtype and tuple(res.x.shape) == (n + 3 * e,),
+                  f"root {label} {tag}: x misshapen or off the card")
+            if method == "tiruneh":
+                check(bool(br.all()) and bool(torch.isfinite(x[:n]).all()),
+                      f"root {label} {tag}: a bench lane non-finite")
+            else:
+                check(torch.equal(~br, unbracketed) and torch.equal(torch.isnan(x), unbracketed),
+                      f"root {label} {tag}: bracketed or NaN x off the unbracketed lanes")
+                check(bool((res.function_calls.cpu()[unbracketed] == 2).all()),
+                      f"root {label} {tag}: an unbracketed lane made more than 2 calls")
+            conv = res.converged
+            resid = fn(res.x).abs()[conv]
+            bound = root_residual_bound(label, kw)
+            worst = float(resid.max()) if bool(conv.any()) else 0.0
+            check(worst <= bound, f"root {label} {tag}: a converged lane's |f(x)| {worst:.3e} "
+                                  f"above {bound:.1e}")
+            _, ref = run_root(nt, method, kw, host)
+            same = ((res.iterations[:ROOT_CPU].cpu() == ref.iterations)
+                    & (res.function_calls[:ROOT_CPU].cpu() == ref.function_calls)
+                    & (res.converged[:ROOT_CPU].cpu() == ref.converged))
+            dx = (x[:ROOT_CPU] - ref.x).abs()
+            dx_same = float(dx[same].max()) if bool(same.any()) else 0.0
+            held = torch.ones_like(same)
+            if label == "itp":
+                held = res.converged[:ROOT_CPU].cpu() & ref.converged
+                lo, hi = host[3], host[4]
+                inside = all(bool(((v >= lo) & (v <= hi))[~unbracketed[:ROOT_CPU]].all())
+                             for v in (x[:ROOT_CPU], ref.x))
+                check(inside, f"root itp {tag}: an x outside its bracket")
+            dx_held = float(dx[held].max())
+            differ = int((~same).sum())
+            limit = ROOT_COUNTS_DIFFER[tag][label]
+            log(f"[17] root {label} {tag}: {wall * 1e3:.1f} ms for {n + 3 * e} lanes, iterations "
+                f"max {int(res.iterations.max())}, converged {float(conv.float().mean()):.4f}, "
+                f"worst |f(x)| of a converged lane {worst:.3e} (limit {bound:.1e}); against the "
+                f"host on {ROOT_CPU} lanes: counters differ on {differ} (limit {limit}), "
+                f"|dx| max {float(dx.max()):.3e}, {dx_held:.3e} on the lanes held (limit "
+                f"{ROOT_DX[tag][label]:.1e}), {dx_same:.3e} where the counters agree")
+            check(torch.equal(br[:ROOT_CPU], ref.bracketed), f"root {label} {tag}: bracketed "
+                                                             f"differs from the host's")
+            check(differ <= limit and dx_held <= ROOT_DX[tag][label],
+                  f"root {label} {tag}: the card and the host differ past the limits")
+    # a run on 2e6 lanes of the bench problem completes
+    c = torch.linspace(0.1, 1.9, ROOT_BIG, device=dev)
+    t0 = time.perf_counter()
+    res = nt.root(lambda x: x.cos() - c * x, torch.zeros(ROOT_BIG, device=dev), 2.0,
+                  method="brent", tol=1e-6)
+    torch.cuda.synchronize()
+    conv = float(res.converged.float().mean())
+    log(f"[17] root brent float32 on {ROOT_BIG} lanes: {time.perf_counter() - t0:.3f} s, "
+        f"iterations max {int(res.iterations.max())}, converged {conv:.6f}")
+    check(bool(res.bracketed.all()) and bool(torch.isfinite(res.x).all()) and conv > 0.99,
+          "root brent on 2e6 lanes: a lane unbracketed, non-finite or short of converged")
+    check(not launched(), f"the root finders launched kernels: {launched()}")
+
+
+def root_residual_bound(label, kw):
+    """The |f(x)| a converged lane may have: the f-tolerance of its
+    finder's converged test; ITP's lanes that converge on a bracket below
+    2 eps, 2 eps times the steepest slope of the lanes (2.9), rounded up."""
+    eps = {"bisection": kw.get("eps", 1e-6), "false_position": kw.get("eps", 1e-6),
+           "false_position_reference": kw.get("eps", 1e-6), "brent": kw.get("tol", 1e-12),
+           "ridders": kw.get("eps", 1e-12), "tiruneh": kw.get("tol", 1e-12),
+           "itp": 6 * kw.get("eps", 1e-12), "chandrupatla": kw.get("eps_a", 2e-10)}
+    return eps[label]
+
+
+def phase_root_timing(torch, dev):
+    from nlsolver_torch.benches import bench_rootfinder_batch, profile_rootfinder_batch
+
+    r = bench_rootfinder_batch()
+    for m in ("brent", "itp"):
+        log(f"[18] bench_rootfinder_batch {m}: {r[f'{m}_roots_per_sec']:.6g} roots/s "
+            f"(median {r[f'{m}_median_ms']:.3f} ms, min {r[f'{m}_min_ms']:.3f}) on "
+            f"{r['instances']} lanes, {r[f'{m}_trips']} trips, {r[f'{m}_host_ms_per_trip']:.4f} ms "
+            f"a trip, iterations max {r[f'{m}_iterations_max']}, converged "
+            f"{r[f'{m}_converged_share']:.4f}, worst |f(x)| converged "
+            f"{r[f'{m}_max_residual_converged']:.3e}")
+        check(r[f"{m}_converged_share"] > 0.8 and r[f"{m}_max_residual_converged"] < 1e-5,
+              f"bench_rootfinder_batch {m}: short of converged")
+    # one run traced: Brent's (ITP's 204 trips trace for seconds and tell the same)
+    p = profile_rootfinder_batch(method="brent")
+    log(f"[18] profile brent: wall {p['wall_ms']:.3f} ms / device busy {p['device_busy_ms']:.3f} "
+        f"ms ({p['busy_share']:.1%}), {p['trips']} trips: {p['wall_ms_per_trip']:.4f} ms of "
+        f"wall and {p['device_busy_ms_per_trip']:.4f} of device a trip, "
+        f"{p['launches_per_trip']:.1f} launches a trip; top {p['top_kernels'][:3]}")
+    return r
+
+
+def pso_state_close(torch, a, b, rtol, atol):
+    """How close two fleet states are: the largest |a - b| / (atol + rtol
+    |b|) over the floating fields (at most 1 where they agree), and whether
+    the counters and flags are equal."""
+    worst, ok = 0.0, True
+    for f, u in a._asdict().items():
+        v = getattr(b, f).to(u.device)
+        if u.is_floating_point():
+            worst = max(worst, float(((u - v).abs() / (atol + rtol * v.abs())).max()))
+        else:
+            ok &= torch.equal(u, v)
+    return worst, ok
+
+
+def phase_pso_sann_slice(torch, dev):
+    import numpy as np
+
+    import nlsolver_torch as nt
+    from nlsolver_torch.solvers import pso_batched as psb
+    from nlsolver_torch.solvers import sann_batched as snb
+
+    reset_counts()
+    sphere, rastrigin = nt.PROBLEMS["sphere"].fn, nt.PROBLEMS["rastrigin"].fn
+    # (a) small fleets until every lane halts
+    x0 = torch.full((1024, 4), 0.5, device=dev)
+    t0 = time.perf_counter()
+    res = nt.minimize(sphere, x0, method="pso", layout="batched",
+                      config=nt.PSOConfig(n_particles=16))
+    wall = time.perf_counter() - t0
+    log(f"[19] minimize(sphere, x0[1024, 4], method='pso', layout='batched'): {wall:.3f} s, "
+        f"iterations median {float(res.iterations.float().median()):.0f} max "
+        f"{int(res.iterations.max())}, converged {float(res.converged.float().mean()):.4f}, "
+        f"f median {float(res.f_value.median()):.3e} max {float(res.f_value.max()):.3e}")
+    check(res.x.is_cuda and bool(res.converged.all()) and float(res.f_value.median()) < 1e-6
+          and float(res.f_value.max()) < 0.05, "PSO small fleet: unconverged or short of 0")
+    res = nt.minimize(sphere, x0, method="sann", layout="batched", config=nt.SANNConfig(max_iter=100))
+    log(f"[19] minimize(sphere, x0[1024, 4], method='sann', layout='batched', max_iter=100): "
+        f"f median {float(res.f_value.median()):.4f} from 1.0")
+    check(bool((res.iterations == 100).all()) and bool(res.converged.all())
+          and bool((res.function_calls == 1 + 100 * 9).all()) and float(res.f_value.median()) < 0.5,
+          "SANN small fleet: counters off or no descent")
+    # (b) the 100-D fleets of config #3 through minimize
+    pcfg = nt.PSOConfig(n_particles=32, max_iter=PSO_SANN_ITERS, best_value_no_change=1 << 30,
+                        eps=0.0)
+    scfg = nt.SANNConfig(max_iter=PSO_SANN_ITERS)
+    start = 20.25 * PSO_SANN_DIM   # Rastrigin at -0.5 in every coordinate
+    for B in PSO_SANN_BS:
+        x0 = torch.full((B, PSO_SANN_DIM), -0.5, device=dev)
+        for method, cfg in (("pso", pcfg), ("sann", scfg)):
+            t0 = time.perf_counter()
+            res = nt.minimize(rastrigin, x0, method=method, layout="batched", config=cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            log(f"[19] minimize(rastrigin, x0[{B}, {PSO_SANN_DIM}], method={method!r}, "
+                f"layout='batched'), {PSO_SANN_ITERS} iterations: {wall:.3f} s, best value median "
+                f"{float(res.f_value.median()):.2f} max {float(res.f_value.max()):.2f} from {start}")
+            check(tuple(res.x.shape) == (B, PSO_SANN_DIM) and bool(torch.isfinite(res.x).all())
+                  and bool((res.iterations == PSO_SANN_ITERS).all())
+                  and float(res.f_value.max()) < start, f"{method} [{B}, 100]: no descent")
+    # (c) a bounded PSO fleet stays in its box, at its corner nearest the minimum
+    res = nt.minimize(lambda x: sphere(x - 2.0), torch.full((1024, 8), 0.5, device=dev),
+                      method="pso", layout="batched", config=nt.PSOConfig(n_particles=16),
+                      bounds=nt.Bounds(-1.0, 0.5))
+    log(f"[19] bounded PSO [1024, 8] in [-1, 0.5]: x in [{float(res.x.min()):.4f}, "
+        f"{float(res.x.max()):.4f}], f median {float(res.f_value.median()):.6f} (corner 18)")
+    check(float(res.x.min()) >= -1.0 and float(res.x.max()) <= 0.5
+          and abs(float(res.f_value.median()) - 18.0) < 1e-3, "bounded PSO left its box or corner")
+    # (d) numpy start points land on the card
+    for method, cfg in (("pso", nt.PSOConfig(max_iter=50)), ("sann", nt.SANNConfig(max_iter=5))):
+        res = nt.minimize(sphere, np.full((64, 4), 0.5, np.float32), method=method,
+                          layout="batched", config=cfg)
+        check(res.x.is_cuda and res.f_value.is_cuda, f"numpy x0: {method} not on the card")
+    # (e) the card against the host for 5 steps on the same injected draws, f64
+    B, n, P = 256, PSO_SANN_DIM, 32
+    g = torch.Generator().manual_seed(5)
+    x0 = torch.rand((B, n), generator=g, dtype=torch.float64) + 0.5
+    for mode in ("vanilla", "accelerated", "clamped"):
+        cfg = nt.PSOConfig(n_particles=P, accelerated=mode == "accelerated", max_iter=4,
+                           best_value_no_change=1 << 30, eps=0.0)
+        lo, hi = (torch.full((n, B), -1.0, dtype=torch.float64),
+                  torch.full((n, B), 1.2, dtype=torch.float64)) if mode == "clamped" \
+            else psb._derived_bounds(x0.T)
+        init = psb.PSOInitDraws(*(torch.rand((n, P, B), generator=g, dtype=torch.float64)
+                                  for _ in range(2)))
+        steps = [psb.PSODraws(torch.randn((n, P, B), generator=g, dtype=torch.float64))
+                 if cfg.accelerated else
+                 psb.PSODraws(*(torch.rand((n, P, B), generator=g, dtype=torch.float64)
+                                for _ in range(2))) for _ in range(5)]
+        states = []
+        for where in ("cpu", dev):
+            to = lambda t: t if t is None else t.to(where)   # noqa: E731
+            s = psb.init(rastrigin, x0.to(where), cfg, lo.to(where), hi.to(where),
+                         draws=psb.PSOInitDraws(*map(to, init)))
+            for d in steps:
+                s = psb.step(rastrigin, s, cfg, lo.to(where), hi.to(where), mode == "clamped",
+                             draws=psb.PSODraws(*map(to, d)))
+            states.append(s)
+        worst, ok = pso_state_close(torch, states[1], states[0], 1e-10, 1e-12)
+        log(f"[19] PSO {mode} [{n}, {P}, {B}] f64, 5 steps, card against host on the same "
+            f"draws: largest |card - host| / (1e-12 + 1e-10 |host|) {worst:.3e} (limit 1), "
+            f"counters equal {ok}")
+        check(worst <= 1 and ok and bool(states[1].done.all()),
+              f"PSO {mode}: the card and the host differ")
+    for vs_best in (False, True):
+        cfg = nt.SANNConfig(max_iter=4, metropolis_vs_best=vs_best)
+        steps = [snb.SANNDraws(torch.randn((9, n, B), generator=g, dtype=torch.float64),
+                               torch.rand((9, B), generator=g, dtype=torch.float64))
+                 for _ in range(5)]
+        states = []
+        for where in ("cpu", dev):
+            s = snb.init(rastrigin, x0.to(where), cfg)
+            for d in steps:
+                s = snb.step(rastrigin, s, cfg, draws=snb.SANNDraws(d.noise.to(where),
+                                                                    d.u.to(where)))
+            states.append(s)
+        worst, ok = pso_state_close(torch, states[1], states[0], 1e-10, 1e-12)
+        log(f"[19] SANN metropolis_vs_best={vs_best} [{n}, {B}] f64, 5 steps, card against "
+            f"host: largest |card - host| / (1e-12 + 1e-10 |host|) {worst:.3e} (limit 1), "
+            f"counters equal {ok}")
+        check(worst <= 1 and ok, f"SANN vs_best={vs_best}: the card and the host differ")
+    check(not launched(), f"the PSO and SANN fleets launched kernels: {launched()}")
+
+
+def phase_pso_sann_timing(torch, dev):
+    from nlsolver_torch.benches import bench_pso_sann_100d, profile_pso_sann_100d
+
+    out = {}
+    for B in PSO_SANN_BS:
+        r = bench_pso_sann_100d(B=B, dim=PSO_SANN_DIM, iters=PSO_SANN_ITERS)
+        # traced over 20 iterations: the tracer takes seconds over the 44000
+        # launches of a 200-iteration SANN run, and an iteration's figures are the same
+        prof = profile_pso_sann_100d(B=B, dim=PSO_SANN_DIM, iters=20)
+        for name in ("pso_rastrigin", "pso_ackley", "sann_rastrigin"):
+            rate = r[f"{name}_{PSO_SANN_DIM}d_iters_per_sec"]
+            p = prof[name]
+            log(f"[20] bench_pso_sann_100d B={B} {name}: {rate:.6g} instance iterations/s "
+                f"(median {r[f'{name}_median_ms']:.3f} ms for {PSO_SANN_ITERS} iterations, min "
+                f"{r[f'{name}_min_ms']:.3f}), best value median {r[f'{name}_best_median']:.3f}; "
+                f"profile of 20 iterations: wall {p['wall_ms_per_iteration']:.4f} ms / device busy "
+                f"{p['device_busy_ms_per_iteration']:.4f} ms an iteration ({p['busy_share']:.1%}), "
+                f"{p['launches_per_iteration']:.1f} launches an iteration; top {p['top_kernels'][:3]}")
+            check(rate > 0 and r[f"{name}_best_median"] < 20.25 * PSO_SANN_DIM,
+                  f"bench_pso_sann_100d {name} B={B}: no descent")
+            out[(B, name)] = rate
+    return out
+
+
 def kernel_row(name, source, replaces, launches, max_err, times, bound_ms_by, issue_ms=None,
                shape=None):
     """One entry of the kernels line; ``issue_ms``, where phase 2 found it,
@@ -2503,6 +2872,10 @@ def main():
     eigh_err = phase(14, phase_eigh, torch, dev)
     cmaes_launches = phase(15, phase_cmaes_slice, torch, dev)
     rows += eigh_rows(cmaes_launches, eigh_err, phase(16, phase_cmaes_timing, torch, dev))
+    phase(17, phase_roots, torch, dev)
+    phase(18, phase_root_timing, torch, dev)
+    phase(19, phase_pso_sann_slice, torch, dev)
+    phase(20, phase_pso_sann_timing, torch, dev)
     print(f"seconds a phase: {PHASE_SECONDS}; {time.perf_counter() - start:.1f} s in all",
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -11,12 +11,15 @@ batched Jacobi eigensolver kernel (``ops.eigh_jacobi``) and the
 single-instance ``solvers.cmaes``, and nonlinear least squares (``fit``,
 ``fit_batched``, ``curve_fit`` and the batch-minor ``fit_fleet``) with the
 wavefront QR / least-squares kernels (``ops.qr_wavefront``) and the
-batch-minor Cholesky solve (``ops.smallchol``); the kernels are CUDA C++
-in ``csrc/``.  The package imports ``torch`` and never ``jax``.
+batch-minor Cholesky solve (``ops.smallchol``); the lane fleets of PSO and
+SANN (``minimize(fn, x0[B, n], method="pso" | "sann", layout="batched")``)
+and the seven 1-D root finders (``root(fn, lower[B], upper[B])``), which
+carry no kernel.  The kernels are CUDA C++ in ``csrc/``.  The package
+imports ``torch`` and never ``jax``.
 """
 from .api import (curve_fit, fit, fit_batched, fit_fleet, fit_fleet_sharded, fit_sharded,
-                  maximize, minimize)
-from .core import SolverResult
+                  maximize, minimize, root, root_methods)
+from .core import Bounds, SolverResult
 from .problems import PROBLEMS
 from .solvers.bfgs_fleet import BFGSFleetConfig
 from .solvers.cmaes import CMAESConfig
@@ -24,15 +27,22 @@ from .solvers.cmaes_fleet import CMAESFleetConfig
 from .solvers.de import DEConfig
 from .solvers.nlls import NLLSConfig
 from .solvers.nlls_fleet import NLLSFleetConfig
+from .solvers.pso import PSOConfig
+from .solvers.rootfind import RootResult
+from .solvers.sann import SANNConfig
 
 __all__ = [
     "BFGSFleetConfig",
+    "Bounds",
     "CMAESConfig",
     "CMAESFleetConfig",
     "DEConfig",
     "NLLSConfig",
     "NLLSFleetConfig",
     "PROBLEMS",
+    "PSOConfig",
+    "RootResult",
+    "SANNConfig",
     "SolverResult",
     "curve_fit",
     "fit",
@@ -42,4 +52,6 @@ __all__ = [
     "fit_sharded",
     "maximize",
     "minimize",
+    "root",
+    "root_methods",
 ]

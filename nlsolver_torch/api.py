@@ -6,12 +6,20 @@
 
     result = nlsolver_torch.minimize(fn, x0[n, B], method="cmaes", layout="fleet")
 
+    result = nlsolver_torch.minimize(fn, x0[B, n], method="pso", layout="batched")
+
+    result = nlsolver_torch.minimize(fn, x0[B, n], method="sann", layout="batched")
+
+    result = nlsolver_torch.root(fn, lower[B], upper[B], method="brent")
+
 ``minimize`` routes the engines listed in ``PORTED_ROUTES`` so far (the
 batched Differential Evolution fleet ``solvers.de_batched``, the
-batch-minor BFGS fleet ``solvers.bfgs_fleet`` and the batch-minor CMA-ES
-fleet ``solvers.cmaes_fleet``); every other method or layout raises
-``NotImplementedError`` naming the ported routes and the ROADMAP.md queue
-item that ports the one asked for.
+batch-minor BFGS fleet ``solvers.bfgs_fleet``, the batch-minor CMA-ES
+fleet ``solvers.cmaes_fleet`` and the lane fleets of PSO and SANN,
+``solvers.pso_batched`` and ``solvers.sann_batched``); every other method
+or layout raises ``NotImplementedError`` naming the ported routes and the
+ROADMAP.md queue item that ports the one asked for.  ``root`` runs the
+seven 1-D root finders of ``solvers.rootfind`` on lane tensors.
 Start points that are a ``torch.Tensor`` keep their device (a CPU tensor
 asks for the CPU); anything else goes to the CUDA card, and raises when
 there is none.
@@ -26,26 +34,21 @@ from typing import Optional
 import torch
 
 from .core import Bounds, SolverResult, signed, start_points
-from .solvers import bfgs_fleet, cmaes_fleet, de_batched
+from .solvers import bfgs_fleet, cmaes_fleet, de_batched, pso_batched, rootfind, sann_batched
 from .solvers.bfgs_fleet import BFGSFleetConfig
 from .solvers.cmaes_fleet import CMAESFleetConfig
 from .solvers.de import DEConfig
 from .solvers.nlls import NLLSConfig, curve_fit, fit, fit_batched  # noqa: F401
 from .solvers.nlls_fleet import NLLSFleetConfig, fit_fleet  # noqa: F401
+from .solvers.pso import PSOConfig
+from .solvers.sann import SANNConfig
 
 _LAYOUTS = ("single", "batched", "fleet", "sharded", "islands")
 
-# where each route of the JAX package's API lands in ROADMAP.md Queue 1
-_NOT_YET = {
-    ("pso", "batched"): "Queue 1 item 2 (lane fleets for PSO and SANN)",
-    ("pso_batched", "batched"): "Queue 1 item 2 (lane fleets for PSO and SANN)",
-    ("sann", "batched"): "Queue 1 item 2 (lane fleets for PSO and SANN)",
-    ("sann_batched", "batched"): "Queue 1 item 2 (lane fleets for PSO and SANN)",
-}
-
 # the (method, layout) routes that minimize and maximize take; the module
 # docstring and the NotImplementedError text name them from here
-PORTED_ROUTES = (("de", "batched"), ("bfgs", "fleet"), ("cmaes", "fleet"))
+PORTED_ROUTES = (("de", "batched"), ("bfgs", "fleet"), ("cmaes", "fleet"), ("pso", "batched"),
+                 ("sann", "batched"))
 
 
 def _bfgs_fleet(fn, x0, config, bounds, _minimize, kwargs):
@@ -80,6 +83,17 @@ def _cmaes_fleet(fn, x0, config, bounds, generator, _minimize, kwargs):
     return res if _minimize else res._replace(f_value=-res.f_value)
 
 
+# layout="batched": the lane-axis engine and its default config, by method
+_BATCHED = {
+    "de": (de_batched, DEConfig),
+    "de_batched": (de_batched, DEConfig),
+    "pso": (pso_batched, PSOConfig),
+    "pso_batched": (pso_batched, PSOConfig),
+    "sann": (sann_batched, SANNConfig),
+    "sann_batched": (sann_batched, SANNConfig),
+}
+
+
 def _dispatch(fn, x0, method, config, bounds, generator, layout, _minimize, kwargs):
     # the single-instance multistart options, which only layout="single" runs
     restarts = kwargs.pop("restarts", 1)
@@ -104,27 +118,19 @@ def _dispatch(fn, x0, method, config, bounds, generator, layout, _minimize, kwar
         return _cmaes_fleet(fn, x0, config, bounds, generator, _minimize, kwargs)
     if layout == "fleet" and method in ("bfgs", "bfgs_fleet"):
         return _bfgs_fleet(fn, x0, config, bounds, _minimize, kwargs)
-    if layout == "batched" and method in ("de", "de_batched"):
-        if bounds is not None:
-            raise ValueError(
-                "the lane-axis DE engine is unbounded; bounded batches wait "
-                "for the single-instance DE solver (ROADMAP.md Queue 1 item 6)"
-            )
+    if layout == "batched" and method in _BATCHED:
         x0 = start_points(x0)
         if x0.ndim != 2:
             raise ValueError(f"layout='batched' expects a 2-D x0, got {tuple(x0.shape)}")
-        cfg = config if config is not None else DEConfig()
-        return de_batched.minimize_batched(
-            fn, x0, cfg, generator=generator, _minimize=_minimize, **kwargs
+        engine, default = _BATCHED[method]
+        cfg = config if config is not None else default()
+        return engine.minimize_batched(
+            fn, x0, cfg, bounds, generator=generator, _minimize=_minimize, **kwargs
         )
     if layout in ("sharded", "islands"):
         where = "Queue 1 item 9 (mesh engines)"
-    elif layout == "single":
-        where = "Queue 1 item 6 (single-instance solvers and the API)"
     else:
-        where = _NOT_YET.get(
-            (method, layout), "Queue 1 item 6 (single-instance solvers and the API)"
-        )
+        where = "Queue 1 item 6 (single-instance solvers and the API)"
     raise NotImplementedError(
         f"method={method!r} with layout={layout!r} is not ported to "
         f"nlsolver_torch yet; ROADMAP.md {where} ports it. Ported: "
@@ -161,6 +167,41 @@ def maximize(
 ) -> SolverResult:
     """Maximize ``fn`` by minimizing ``-fn``; ``f_value`` is ``fn``'s own value."""
     return _dispatch(fn, x0, method, config, bounds, generator, layout, False, kwargs)
+
+
+_ROOT_METHODS = (
+    "bisection",
+    "false_position",
+    "brent",
+    "ridders",
+    "tiruneh",
+    "itp",
+    "chandrupatla",
+)
+
+
+def root(fn, lower=None, upper=None, method: str = "brent", **kwargs) -> rootfind.RootResult:
+    """Find a root of ``fn`` in every lane (nlsolver::rootfinder,
+    nlsolver.h:3923-4319).
+
+    ``fn`` maps a lane tensor to a lane tensor elementwise; bracketing
+    methods take ``lower`` / ``upper``, which broadcast to the lane shape;
+    ``tiruneh`` takes its 3-point history as ``x_k=`` instead.  Returns a
+    ``RootResult`` of lane tensors."""
+    if method not in _ROOT_METHODS:
+        raise ValueError(
+            f"unknown root method {method!r}; available: {', '.join(_ROOT_METHODS)}"
+        )
+    finder = getattr(rootfind, method)
+    if method == "tiruneh":
+        if lower is not None or upper is not None:
+            raise ValueError("tiruneh takes x_k=(a, b, c), not lower/upper")
+        return finder(fn, **kwargs)
+    return finder(fn, lower, upper, **kwargs)
+
+
+def root_methods():
+    return list(_ROOT_METHODS)
 
 
 def _mesh_route(name: str):

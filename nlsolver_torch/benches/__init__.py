@@ -1,7 +1,8 @@
 """Benchmark scenarios of the port (counterpart of
 ``nlsolver_tpu.benches``): the batched-DE headline, the NLLS fleet, the
-BFGS fleet, the batched eigensolvers and the CMA-ES fleet, and the probes
-and sweeps of the kernels' forms.
+BFGS fleet, the batched eigensolvers, the CMA-ES fleet, the batched root
+finders and the PSO and SANN lane fleets, and the probes and sweeps of the
+kernels' forms.
 
 Method, as in the JAX package: a fixed-trip run so every run does the
 same work, warm-up runs, then the median of the timed runs, each fenced
@@ -22,7 +23,12 @@ from ..solvers import bfgs_fleet as bf
 from ..solvers import cmaes_fleet as cf
 from ..solvers import de_batched as deb
 from ..solvers import nlls_fleet as nf
+from ..solvers import pso_batched as psb
+from ..solvers import rootfind
+from ..solvers import sann_batched as snb
 from ..solvers.de import DEConfig
+from ..solvers.pso import PSOConfig
+from ..solvers.sann import SANNConfig
 
 
 # a device sleep of some 0.2 s (torch.cuda._sleep cycles) ahead of a timed chain
@@ -1607,4 +1613,139 @@ def probe_eigh_jacobi_plans(n=16, B=65536, sweeps=8, global_threads=(256, 512, 1
             way = "cooperative" if cooperative else "launch_a_phase"
             out[f"global_{threads}_{way}_{plan.blocks}_blocks"] = _device_ms(
                 lambda: te._launch_global("probe", A, sweeps, threads, cooperative))
+    return out
+
+
+def rootfinder_scenario(B=100000):
+    """The JAX package's config #4b: ``B`` lanes on the card of f(x) =
+    cos(x) - c x in f32, c from 0.1 to 1.9, each bracketed by [0, 2].
+    Returns ``fn``, ``lower``, ``upper`` and a list whose one entry counts
+    ``fn``'s calls: a finder calls it twice before its loop and once
+    (Ridders twice) a trip."""
+    c = torch.linspace(0.1, 1.9, B, dtype=torch.float32, device="cuda")
+    calls = [0]
+
+    def fn(x):
+        calls[0] += 1
+        return torch.cos(x) - c * x
+
+    return fn, torch.zeros(B, dtype=torch.float32, device="cuda"), 2.0, calls
+
+
+ROOT_BENCH_FINDERS = {   # the JAX bench's two finders and tolerances
+    "brent": lambda fn, lo, hi: rootfind.brent(fn, lo, hi, tol=1e-6),
+    "itp": lambda fn, lo, hi: rootfind.itp(fn, lo, hi, tol=1e-6, eps=1e-6),
+}
+
+
+def bench_rootfinder_batch(B=100000, runs=5):
+    """Config #4b: Brent and ITP over ``B`` bracketed scalar roots, f32,
+    the median of ``runs`` after 2 warm-ups, fenced by
+    ``torch.cuda.synchronize()``.  Also the host loop's trips a run (the
+    objective's calls less the two before the loop), the converged share
+    and the largest |f(x)| of a converged lane."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("bench_rootfinder_batch measures a CUDA card; none is available")
+    fn, lower, upper, calls = rootfinder_scenario(B)
+    out = {"name": "rootfinder_batch_torch", "device": torch.cuda.get_device_name(0),
+           "instances": B, "check_every": rootfind.CHECK_EVERY}
+    for name, finder in ROOT_BENCH_FINDERS.items():
+        med, mn = _timed(lambda: finder(fn, lower, upper).x, runs)
+        calls[0] = 0
+        res = finder(fn, lower, upper)
+        trips = calls[0] - 2
+        conv = res.converged
+        resid = fn(res.x).abs()
+        out.update({
+            f"{name}_roots_per_sec": B / med,
+            f"{name}_median_ms": med * 1e3,
+            f"{name}_min_ms": mn * 1e3,
+            f"{name}_trips": trips,
+            f"{name}_host_ms_per_trip": med * 1e3 / trips,
+            f"{name}_iterations_max": int(res.iterations.max()),
+            f"{name}_converged_share": float(conv.float().mean()),
+            f"{name}_max_residual_converged": float(resid[conv].max()) if bool(conv.any()) else None,
+        })
+    return out
+
+
+def profile_rootfinder_batch(B=100000, method="brent", top=5):
+    """One run of ``bench_rootfinder_batch``'s ``method`` under
+    ``torch.profiler``: wall and device busy time, in all and a trip, and
+    the device launches a trip."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_rootfinder_batch measures a CUDA card; none is available")
+    fn, lower, upper, calls = rootfinder_scenario(B)
+    finder = ROOT_BENCH_FINDERS[method]
+    calls[0] = 0
+    _, out = _profiled(lambda: finder(fn, lower, upper), top)
+    trips = calls[0] // 2 - 2       # _profiled runs it twice: a warm-up, then the traced run
+    return {"name": f"rootfinder_batch_torch_{method}_profile", "instances": B, "trips": trips,
+            "wall_ms_per_trip": out["wall_ms"] / trips,
+            "device_busy_ms_per_trip": out["device_busy_ms"] / trips,
+            "launches_per_trip": out["device_launches"] / trips, **out}
+
+
+def pso_sann_fleets(B=256, dim=100, iters=200):
+    """The JAX package's config #3, its lane-fleet arm, in f32 on the
+    card: runs of ``iters`` iterations from ``x0 = -0.5`` of B PSO
+    instances (32 particles, every termination rule off) on Rastrigin and
+    on Ackley, and of B SANN chains on Rastrigin.  Returns ``{name:
+    run}``; a run returns the fleet's best values ``[B]``."""
+    x0 = torch.full((B, dim), -0.5, dtype=torch.float32, device="cuda")
+    pcfg = PSOConfig(n_particles=32, max_iter=1 << 30, best_value_no_change=1 << 30, eps=0.0)
+    scfg = SANNConfig(max_iter=1 << 30)
+
+    def pso(fn):
+        def run():
+            g = torch.Generator(device="cuda").manual_seed(0)
+            lower, upper = psb._derived_bounds(x0.T)
+            state = psb.init(fn, x0, pcfg, lower, upper, generator=g)
+            return drive_fleet_scan(lambda s: psb.step(fn, s, pcfg, generator=g), state,
+                                    iters).swarm_best_value
+        return run
+
+    def sann(fn):
+        def run():
+            g = torch.Generator(device="cuda").manual_seed(0)
+            state = snb.init(fn, x0, scfg)
+            return drive_fleet_scan(lambda s: snb.step(fn, s, scfg, generator=g), state,
+                                    iters).best_value
+        return run
+
+    return {"pso_rastrigin": pso(PROBLEMS["rastrigin"].fn), "pso_ackley": pso(PROBLEMS["ackley"].fn),
+            "sann_rastrigin": sann(PROBLEMS["rastrigin"].fn)}
+
+
+def bench_pso_sann_100d(B=256, dim=100, iters=200, runs=5):
+    """Config #3's lane-fleet arm: instance iterations per second of each
+    fleet of ``pso_sann_fleets`` (the median of ``runs`` after 2 warm-ups),
+    and the median best value after ``iters`` iterations.  The row-layout
+    arm of the JAX bench waits for the single-instance solvers."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("bench_pso_sann_100d measures a CUDA card; none is available")
+    out = {"name": "pso_sann_100d_torch_fast", "device": torch.cuda.get_device_name(0),
+           "instances": B, "dim": dim, "iterations": iters, "engine": "lane_fleet"}
+    for name, run in pso_sann_fleets(B, dim, iters).items():
+        med, mn = _timed(run, runs)
+        best = run()
+        out[f"{name}_{dim}d_iters_per_sec"] = B * iters / med
+        out[f"{name}_median_ms"] = med * 1e3
+        out[f"{name}_min_ms"] = mn * 1e3
+        out[f"{name}_best_median"] = float(best.median())
+    return out
+
+
+def profile_pso_sann_100d(B=256, dim=100, iters=200, top=5):
+    """One run of each fleet of ``bench_pso_sann_100d`` under
+    ``torch.profiler``: wall against device busy time, in all and an
+    iteration, and the device launches an iteration."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_pso_sann_100d measures a CUDA card; none is available")
+    out = {}
+    for name, run in pso_sann_fleets(B, dim, iters).items():
+        _, prof = _profiled(run, top)
+        out[name] = {"instances": B, "wall_ms_per_iteration": prof["wall_ms"] / iters,
+                     "device_busy_ms_per_iteration": prof["device_busy_ms"] / iters,
+                     "launches_per_iteration": prof["device_launches"] / iters, **prof}
     return out

@@ -12,7 +12,12 @@ field for field.  ``cmaes_fleet_state_from_numpy`` and
 ``cmaes_fleet_state_to_numpy`` carry the CMA-ES fleet's ``CMAESFleetState``:
 the JAX state's ``key`` has no counterpart and is dropped (the port's
 ``step`` takes its draws or a generator), and its counters ``gen`` and
-``filled`` become host ints.  None of them imports JAX.
+``filled`` become host ints.  ``pso_batch_state_from_numpy`` /
+``pso_batch_state_to_numpy`` and ``sann_batch_state_from_numpy`` /
+``sann_batch_state_to_numpy`` carry the PSO and SANN lane fleets'
+``PSOBatchState`` and ``SANNBatchState`` field for field; like
+``de_state_from_numpy`` they drop the per-lane ``keys``.  None of them
+imports JAX.
 """
 from __future__ import annotations
 
@@ -23,6 +28,8 @@ from .solvers.bfgs_fleet import BFGSFleetState
 from .solvers.cmaes_fleet import CMAESFleetState
 from .solvers.de_batched import DEBatchState
 from .solvers.nlls_fleet import NLLSFleetState
+from .solvers.pso_batched import PSOBatchState
+from .solvers.sann_batched import SANNBatchState
 
 _TENSOR_FIELDS = (
     "agents", "scores", "best_value", "iteration", "nfev", "val_no_change",
@@ -92,3 +99,19 @@ def cmaes_fleet_state_to_numpy(state: CMAESFleetState) -> dict:
         f: np.int32(v) if f in _CMAES_HOST_INTS else v.detach().cpu().numpy()
         for f, v in state._asdict().items()
     }
+
+
+def pso_batch_state_from_numpy(fields: dict, device) -> PSOBatchState:
+    return _state_from_numpy(PSOBatchState, "PSO fleet", fields, device)
+
+
+def pso_batch_state_to_numpy(state: PSOBatchState) -> dict:
+    return _state_to_numpy(state)
+
+
+def sann_batch_state_from_numpy(fields: dict, device) -> SANNBatchState:
+    return _state_from_numpy(SANNBatchState, "SANN fleet", fields, device)
+
+
+def sann_batch_state_to_numpy(state: SANNBatchState) -> dict:
+    return _state_to_numpy(state)

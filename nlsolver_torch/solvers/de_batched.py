@@ -27,7 +27,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..core import SolverResult, drive, make_result, signed, std_err
+from ..core import Bounds, SolverResult, drive, make_result, signed, std_err
 from ..ops.de_fused import de_generation_fused, eval_columns
 from ..random.sampling import distinct_indices
 from .de import DEConfig
@@ -221,18 +221,25 @@ def minimize_batched(
     fn,
     x0: torch.Tensor,                  # [B, n]
     config: DEConfig = DEConfig(),
+    bounds: Optional[Bounds] = None,
     *,
     generator: Optional[torch.Generator] = None,
     check_every: int = 16,
     _minimize: bool = True,
 ) -> SolverResult:
-    """Run the fleet until every lane is done.
+    """Run the fleet until every lane is done.  The fleet is unbounded:
+    ``bounds`` raises ``ValueError``.
 
     ``generator`` (on ``x0``'s device) draws the initial agents and the
     plain path's randomness; its initial seed keys the ring offsets and the
     kernel's Philox.  The driver looks at ``done`` on the host once every
     ``check_every`` generations, and never runs more than
     ``max_iter + 1`` generations: by then every lane has stopped."""
+    if bounds is not None:
+        raise ValueError(
+            "the lane-axis DE engine is unbounded; bounded batches wait "
+            "for the single-instance DE solver (ROADMAP.md Queue 1 item 6)"
+        )
     if generator is None:
         generator = torch.Generator(device=x0.device).manual_seed(0)
     sfn = signed(fn, _minimize)

@@ -2,7 +2,9 @@
 refuses, with the same exception type: a fleet layout for a method that
 has none, and the single-instance multistart options (``restarts``) with a
 multi-instance layout.  Both packages get the same arguments; the start
-points are a numpy array for JAX and a CPU tensor for the port."""
+points are a numpy array for JAX and a CPU tensor for the port.
+``nlsolver_torch.root`` refuses what ``nlsolver_tpu.root`` refuses, word
+for word: an unknown method, and ``tiruneh`` given ``lower`` / ``upper``."""
 import numpy as np
 import pytest
 import torch
@@ -55,3 +57,31 @@ def test_restarts_of_one_run_a_batched_fleet():
                       restart_spread=10.0, restart_sampler="uniform")
     assert res.x.shape == (4, 2) and bool(torch.isfinite(res.f_value).all())
     assert int(res.iterations.max()) <= 20
+
+
+ROOT_CASES = [
+    # (method, lower, upper, extra keyword arguments)
+    ("newton", 0.0, 2.0, {}),
+    ("tiruneh", 0.0, 2.0, {}),
+    ("tiruneh", 0.0, None, {}),
+    ("tiruneh", None, 2.0, {"x_k": (0.0, 0.5, 1.0)}),
+]
+
+
+@pytest.mark.parametrize("method,lower,upper,kwargs", ROOT_CASES)
+def test_root_refusals_match_the_reference(method, lower, upper, kwargs):
+    def fn(x):
+        return x - 1.0
+
+    def cpu(v):
+        return v if v is None else torch.tensor(v, dtype=torch.float64)
+
+    want, want_msg = _raised(lambda: nj.root(fn, lower, upper, method=method, **kwargs))
+    got, got_msg = _raised(lambda: nt.root(fn, cpu(lower), cpu(upper), method=method, **kwargs))
+    assert want is ValueError, want_msg
+    assert got is want, got_msg
+    assert got_msg == want_msg
+
+
+def test_root_methods_match_the_reference():
+    assert nt.root_methods() == nj.root_methods()

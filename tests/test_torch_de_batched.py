@@ -194,8 +194,8 @@ def test_route_rejects_bounds_and_unported_methods():
     fn = nt.PROBLEMS["sphere"].fn
     with pytest.raises(ValueError, match="unbounded"):
         nt.minimize(fn, x0, method="de", layout="batched", bounds=(-1.0, 1.0))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        nt.minimize(fn, x0, method="pso", layout="batched")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        nt.minimize(fn, x0, method="nelder_mead", layout="batched")
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         nt.minimize(fn, x0[0], method="nelder_mead")
     with pytest.raises(ValueError, match="layout"):

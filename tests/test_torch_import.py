@@ -61,6 +61,18 @@ SCRIPT = textwrap.dedent(
                           method="cmaes", layout="fleet",
                           config=nt.CMAESFleetConfig(max_iter=150, eigh_method=method))
         assert float((res.x - 0.5).abs().max()) < 1e-3, method
+    # the root finders and the PSO and SANN lane fleets
+    c = torch.linspace(0.1, 1.9, 6, dtype=torch.float64)
+    for method in nt.root_methods():
+        kw = {"x_k": (torch.zeros(6, dtype=torch.float64), 0.5, 1.0)} if method == "tiruneh" \
+            else {"lower": torch.zeros(6, dtype=torch.float64), "upper": 2.0}
+        res = nt.root(lambda x: torch.cos(x) - c * x, method=method, **kw)
+        assert res.x.shape == (6,) and bool(res.bracketed.all()), method
+    for method, cfg in (("pso", nt.PSOConfig(max_iter=20)), ("sann", nt.SANNConfig(max_iter=5))):
+        res = nt.minimize(nt.PROBLEMS["sphere"].fn, torch.full((4, 3), 0.5, dtype=torch.float64),
+                          method=method, layout="batched", config=cfg,
+                          generator=torch.Generator().manual_seed(0))
+        assert res.x.shape == (4, 3) and bool(torch.isfinite(res.f_value).all()), method
     assert not any(m == "jax" or m.startswith(("jax.", "nlsolver_tpu"))
                    for m in sys.modules if sys.modules[m] is not None)
     print("ok")
