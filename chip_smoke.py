@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of nlsolver_torch on one CUDA card: builds the kernels, holds
 each against its plain PyTorch twin, drives the batched-DE fleet, the BFGS
-fleet, the CMA-ES fleet and the PSO and SANN lane fleets through
-``nlsolver_torch.minimize``, the NLLS fleet through
+fleet, the CMA-ES fleet, the PSO and SANN lane fleets and the
+single-instance solvers on lanes through ``nlsolver_torch.minimize``, the
+NLLS fleet through
 ``nlsolver_torch.fit_fleet`` and the root finders through
 ``nlsolver_torch.root`` at full size, and times them.
 
@@ -189,7 +190,22 @@ Phases, each fatal on failure:
      both SANN Metropolis modes; rtol 1e-10, atol 1e-12, counters equal);
  20. PSO and SANN timing: bench_pso_sann_100d at B = 256 and 8192 (PSO on
      Rastrigin and Ackley, SANN on Rastrigin, 200 iterations), each fleet
-     traced over 20 iterations (wall against device busy time).
+     traced over 20 iterations (wall against device busy time);
+ 21. the single-instance solvers on lane tensors: minimize(method="bfgs",
+     layout="batched") on config #4a's 10000 16-D bowls (f32, max_iter=30,
+     the centers and scales through data=), K4c launched once a host step
+     and no other kernel, solved share at least 0.999, its first 2048
+     lanes against the same call on the host; lbfgs, lbfgsb (in a box that
+     binds), gd, cgd, lm and coordinate on 1024 of the bowls, each to its
+     minimum, and on 256 in f64 against the host (counters equal but
+     coordinate's function calls, which are reported); brent on 1024 1-D
+     bowls and on 256 in f64 against the host; F2: the SANN, PSO and plain
+     DE routes on Rosenbrock written on one point at B = n = 2, f_value
+     the objective at x;
+ 22. timing: bench_bfgs_batch (median of 5 after 2 warm-ups) beside
+     bench_bfgs_fleet on the same 10000 bowls, profile_bfgs_batch, and K4c
+     alone at the batch's [10000, 16, 16] against its twin behind a device
+     sleep.
 
 Every kernel's line also gives its bound: the larger of its compulsory
 bytes over 3.35 TB/s and its floating-point operations over 67 TFLOP/s
@@ -2707,6 +2723,194 @@ def phase_pso_sann_timing(torch, dev):
     return out
 
 
+# the single-instance solvers on lane tensors (phase 21): config #4a's
+# batch, lanes of it held against the host, and lanes for the other methods
+BATCH_B = 10000
+BATCH_CPU = 2048
+LANE_B = 1024
+LANE_CPU = 256
+# card against host on the same lanes, f32: |x_card - x_host| within
+# 2e-3 (the stopping rules leave x within some 5e-3 of the minimum, and a
+# last-bit difference moves where inside that a lane stops), and the share
+# of lanes whose iterations, calls or converged flag differ at most
+# LANES_DIFFER
+LANE_DX = 2e-3
+# in float64, a few ulps grown over the run
+LANE_DX64 = 1e-8
+LANES_DIFFER = 0.05
+
+
+def lane_methods(nt):
+    """(method, config, bounds) of phase 21's other methods on bowls."""
+    return (("lbfgs", nt.LBFGSConfig(max_iter=100, grad_eps=1e-4), None),
+            ("lbfgsb", nt.LBFGSBConfig(max_iter=100, pg_eps=1e-4), nt.Bounds(-0.5, 0.5)),
+            ("gd", nt.GDConfig(alpha=0.1, max_iter=300, grad_eps=1e-3), None),
+            ("cgd", nt.CGDConfig(), None),
+            ("lm", nt.LMConfig(), None),
+            # a bracket of 5 reaches every center in the first sweep of a
+            # separable bowl, and the next sweeps find no more progress
+            ("coordinate", nt.CoordinateDescentConfig(bracket=5.0), None))
+
+
+def card_against_host(torch, label, res, ref, lanes):
+    """|x| and |f| of the card's first ``lanes`` lanes against the host's
+    run of them, and the share of those lanes whose counters differ.
+    Coordinate descent's function calls count the trips of its Brent
+    searches, whose stopping tests compare values of f that agree to an
+    ulp: they are reported, not held."""
+    dx = float((res.x[:lanes].cpu() - ref.x).abs().max())
+    df = float((res.f_value[:lanes].cpu() - ref.f_value).abs().max())
+    same = torch.ones(lanes, dtype=torch.bool)
+    for f in ("iterations", "function_calls", "gradient_calls", "hessian_calls", "converged"):
+        if f == "function_calls" and label.startswith("coordinate"):
+            calls = float((res.function_calls[:lanes].cpu() != ref.function_calls).float().mean())
+            log(f"[21] {label}: lanes whose function calls differ {calls:.4f}")
+            continue
+        same &= getattr(res, f)[:lanes].cpu() == getattr(ref, f)
+    share = 1.0 - float(same.float().mean())
+    limit = LANE_DX if res.x.dtype == torch.float32 else LANE_DX64
+    log(f"[21] {label}, card against host on {lanes} lanes: max |dx| {dx:.3e} (limit {limit}), "
+        f"max |df| {df:.3e}, lanes whose counters differ {share:.4f} (limit {LANES_DIFFER})")
+    check(dx <= limit and share <= LANES_DIFFER, f"{label}: the card and the host differ")
+
+
+def rosen_point(x):
+    """Rosenbrock written on one point, as JAX users write it."""
+    return 100.0 * (x[1] - x[0] ** 2) ** 2 + (1.0 - x[0]) ** 2
+
+
+def phase_lane_solvers(torch, dev):
+    """The single-instance solvers on lane tensors through nt.minimize:
+    config #4a's batch through BFGS with K4c counted, the other methods on
+    bowls, Brent on a batch of 1-D functions, every one against the host;
+    the F2 repair on the SANN, PSO and plain DE routes."""
+    import nlsolver_torch as nt
+    from nlsolver_torch.benches import bowls_lanes
+    from nlsolver_torch.ops import rank2 as tr
+
+    # (a) config #4a: 10000 16-D bowls through BFGS, f32, max_iter=30
+    fn, data = bowls_lanes(BATCH_B, BFGS_N, device=dev)
+    x0 = torch.zeros(BATCH_B, BFGS_N, device=dev)
+    cfg = nt.BFGSConfig(max_iter=30)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = nt.minimize(fn, x0, method="bfgs", layout="batched", config=cfg, data=data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launched()
+    steps = int(res.iterations.max()) + 1
+    solved = float((res.f_value < 1e-4).float().mean())
+    log(f"[21] minimize(bowls, x0[{BATCH_B}, {BFGS_N}], method='bfgs', layout='batched'): "
+        f"{wall:.3f} s, host steps {steps}, launches {counts}, iterations median "
+        f"{float(res.iterations.float().median()):.0f} max {int(res.iterations.max())}, converged "
+        f"{float(res.converged.float().mean()):.6f}, solved {solved:.6f} (limit 0.999)")
+    check(res.x.is_cuda and tuple(res.x.shape) == (BATCH_B, BFGS_N)
+          and bool(torch.isfinite(res.f_value).all()), "bfgs batch: x misshapen or off the card")
+    check(counts == {"rank2_update_batched_kernel": steps},
+          f"bfgs batch: expected K4c once per host step ({steps}), launched {counts}")
+    check(solved >= 0.999, f"bfgs batch: solved share {solved} below 0.999")
+    host = tuple(d[:BATCH_CPU].cpu() for d in data)
+    ref = nt.minimize(fn, x0[:BATCH_CPU].cpu(), method="bfgs", layout="batched", config=cfg,
+                      data=host)
+    card_against_host(torch, "bfgs batch", res, ref, BATCH_CPU)
+    launches = {"K4c batch": tr.rank2_update_batched_kernel.launches}
+
+    # (b) the other methods on LANE_B of the bowls, each to its minimum
+    # (the bowls are separable: the bounded minimum is the clipped center);
+    # then LANE_CPU lanes in float64 on the card against the host, where
+    # the stopping rules do not sit at float32's last bit (L-BFGS-B's factr
+    # test is one float32 ulp of f)
+    centers = data[0][:LANE_B]
+    sub = tuple(d[:LANE_B] for d in data)
+    sub64 = tuple(d[:LANE_CPU].double() for d in data)
+    for method, mcfg, bounds in lane_methods(nt):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = nt.minimize(fn, x0[:LANE_B], method=method, layout="batched", config=mcfg,
+                          bounds=bounds, data=sub)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want = centers if bounds is None else centers.clamp(-0.5, 0.5)
+        off = float((res.x - want).abs().max())
+        log(f"[21] {method} [{LANE_B}, {BFGS_N}] f32: {wall:.3f} s, iterations max "
+            f"{int(res.iterations.max())}, converged {float(res.converged.float().mean()):.4f}, "
+            f"max |x - minimum| {off:.3e} (limit 1e-2), launches {launched()}")
+        check(off < 1e-2 and not launched(), f"{method}: off its minimum, or a kernel launched")
+        x64 = x0[:LANE_CPU].double()
+        res = nt.minimize(fn, x64, method=method, layout="batched", config=mcfg, bounds=bounds,
+                          data=sub64)
+        ref = nt.minimize(fn, x64.cpu(), method=method, layout="batched", config=mcfg,
+                          bounds=bounds, data=tuple(d.cpu() for d in sub64))
+        card_against_host(torch, f"{method} f64", res, ref, LANE_CPU)
+    # Brent on a batch of 1-D bowls s (t - c)^2
+    c, s = centers[:, 0].contiguous(), data[1][:LANE_B, 0].contiguous()
+    bcfg = nt.BrentConfig(tol=1e-6, eps=1e-6)  # what float32 resolves near the minima
+    res = nt.minimize(lambda t: s * (t - c) ** 2, x0[:LANE_B, :1], method="brent",
+                      layout="batched", config=bcfg)
+    off = float((res.x - c).abs().max())
+    log(f"[21] brent on {LANE_B} 1-D bowls: max |x - c| {off:.3e} (limit 1e-3), iterations max "
+        f"{int(res.iterations.max())}")
+    check(off < 1e-3, "brent: a lane off its minimum")
+    cc, sc = c[:LANE_CPU].double(), s[:LANE_CPU].double()
+    res = nt.minimize(lambda t: sc * (t - cc) ** 2, x0[:LANE_CPU, :1].double(), method="brent",
+                      layout="batched")
+    cc, sc = cc.cpu(), sc.cpu()
+    ref = nt.minimize(lambda t: sc * (t - cc) ** 2, x0[:LANE_CPU, :1].double().cpu(),
+                      method="brent", layout="batched")
+    card_against_host(torch, "brent f64", res, ref, LANE_CPU)
+
+    # (c) F2: a single-point objective at B = n = 2 on the three batched
+    # engines that score through vmap, each lane's f_value held to the
+    # objective at its returned x
+    x2 = torch.tensor([[-1.2, 1.0], [0.5, -0.5]], device=dev)
+    for method, fcfg in (("sann", nt.SANNConfig(max_iter=50)),
+                         ("pso", nt.PSOConfig(max_iter=50)),
+                         ("de", nt.DEConfig(max_iter=50))):
+        res = nt.minimize(rosen_point, x2, method=method, layout="batched", config=fcfg)
+        true = torch.stack([rosen_point(res.x[b]) for b in range(2)])
+        err = float(((res.f_value - true).abs() / true.abs().clamp(min=1e-6)).max())
+        log(f"[21] F2 {method} at B = n = 2: f_value {res.f_value.tolist()}, f(x) {true.tolist()}, "
+            f"largest relative difference {err:.3e} (limit 1e-5)")
+        check(err <= 1e-5, f"F2 {method}: f_value is not the objective at x")
+    return launches
+
+
+def phase_lane_solvers_timing(torch, dev):
+    """bench_bfgs_batch beside bench_bfgs_fleet on the same 10000 bowls;
+    K4c alone at the batch's [10000, 16, 16] against its twin."""
+    from nlsolver_torch.benches import bench_bfgs_batch, bench_bfgs_fleet, profile_bfgs_batch
+    from nlsolver_torch.ops import rank2 as tr
+
+    r = bench_bfgs_batch(B=BATCH_B, dim=BFGS_N, runs=5, warmup=2)
+    log(f"[22] {r['name']}: median {r['median_ms']:.3f} ms / {r['host_steps']} host steps, min "
+        f"{r['min_ms']:.3f} ms, {r['iters_per_sec']:.6g} instance iterations/s, solved "
+        f"{r['solved_frac']:.6f}, converged {r['converged_frac']:.6f}, K4c launches a run "
+        f"{r['k4c_launches']}")
+    check(r["k4c_launches"] == r["host_steps"] and r["solved_frac"] >= 0.999,
+          "bench_bfgs_batch: K4c not once a host step, or short of solved")
+    f = bench_bfgs_fleet(B=BATCH_B, dim=BFGS_N, runs=3)
+    log(f"[22] {f['name']} on the same {BATCH_B} bowls: median {f['median_ms']:.3f} ms / "
+        f"{f['host_steps']} host steps, {f['iters_per_sec']:.6g} instance iterations/s; the "
+        f"batch runs at {r['iters_per_sec'] / f['iters_per_sec']:.3f} of the fleet's rate")
+    p = profile_bfgs_batch(B=BATCH_B, dim=BFGS_N)
+    log(f"[22] profile_bfgs_batch: wall {p['wall_ms']:.3f} ms, device busy "
+        f"{p['device_busy_ms']:.3f} ms ({p['busy_share']:.1%}), {p['launches_per_step']:.1f} "
+        f"launches a host step over {p['host_steps']}; top {p['top_kernels'][:4]}")
+    args = leading_batch(rank2_case(torch, dev, BFGS_N, BATCH_B, seed=21))
+    want = tr.rank2_update_batched_reference(*args)
+    err = max_diff(tr.rank2_update_batched_kernel(*args), want)
+    limit = tr.KERNEL_TOL_ULPS * BFGS_N * torch.finfo(want.dtype).eps * float(want.abs().max())
+    (k, pl), (k1, k2, p1, p2) = abba(torch, lambda: tr.rank2_update_batched_kernel(*args), 30,
+                                     lambda: tr.rank2_update_batched_reference(*args), 5)
+    bnd = rank2_bound(BFGS_N, BATCH_B, direction=False)
+    log(f"[22] K4c alone at [{BATCH_B}, {BFGS_N}, {BFGS_N}] f32: kernel {k * 1e3:.2f} us of "
+        f"device time (bound {bnd[0] * 1e3:.2f} us by {bnd[1]}), plain twin {pl * 1e3:.2f} us "
+        f"(kernel {k1 * 1e3:.2f}/{k2 * 1e3:.2f}, twin {p1 * 1e3:.2f}/{p2 * 1e3:.2f}); max |kernel "
+        f"- twin| {err:.3e} (limit {limit:.3e})")
+    check(err <= limit, f"K4c at the batch's shape: |kernel - twin| {err:.3e} above {limit:.3e}")
+    return {"K4c batch": (k, pl, None), "err": err, "bench": r, "fleet": f}
+
+
 def kernel_row(name, source, replaces, launches, max_err, times, bound_ms_by, issue_ms=None,
                shape=None):
     """One entry of the kernels line; ``issue_ms``, where phase 2 found it,
@@ -2876,6 +3080,15 @@ def main():
     phase(18, phase_root_timing, torch, dev)
     phase(19, phase_pso_sann_slice, torch, dev)
     phase(20, phase_pso_sann_timing, torch, dev)
+    batch_launches = phase(21, phase_lane_solvers, torch, dev)
+    batch = phase(22, phase_lane_solvers_timing, torch, dev)
+    # K4c on the single-instance BFGS's path (phase 21), beside its row
+    # above at the public update's [65536, 16, 16]
+    rows.append(kernel_row("rank2_update_batched_kernel", "nlsolver_torch/csrc/rank2.cu",
+                           "nlsolver_tpu/ops/rank2.py:66", batch_launches["K4c batch"],
+                           batch["err"], batch["K4c batch"],
+                           rank2_bound(BFGS_N, BATCH_B, direction=False),
+                           shape=f"[{BATCH_B}, {BFGS_N}, {BFGS_N}] f32, bench_bfgs_batch's path"))
     print(f"seconds a phase: {PHASE_SECONDS}; {time.perf_counter() - start:.1f} s in all",
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -14,17 +14,32 @@ wavefront QR / least-squares kernels (``ops.qr_wavefront``) and the
 batch-minor Cholesky solve (``ops.smallchol``); the lane fleets of PSO and
 SANN (``minimize(fn, x0[B, n], method="pso" | "sann", layout="batched")``)
 and the seven 1-D root finders (``root(fn, lower[B], upper[B])``), which
-carry no kernel.  The kernels are CUDA C++ in ``csrc/``.  The package
+carry no kernel; and the single-instance solvers with derivatives (BFGS,
+L-BFGS, L-BFGS-B, GD, CGD, LM) and the Brent-based ones (Brent,
+coordinate descent) on lane tensors
+(``minimize(fn, x0[n], method="bfgs")``, ``layout="batched"`` for
+``x0[B, n]``), with their derivative providers (``deriv``) and the Armijo
+search; BFGS's update runs the leading-batch rank-2 kernel on the card.
+The kernels are CUDA C++ in ``csrc/``.  The package
 imports ``torch`` and never ``jax``.
 """
 from .api import (curve_fit, fit, fit_batched, fit_fleet, fit_fleet_sharded, fit_sharded,
                   maximize, minimize, root, root_methods)
 from .core import Bounds, SolverResult
 from .problems import PROBLEMS
+from .deriv import Deriv
+from .solvers.bfgs import BFGSConfig
 from .solvers.bfgs_fleet import BFGSFleetConfig
+from .solvers.brent import BrentConfig
+from .solvers.cgd import CGDConfig
 from .solvers.cmaes import CMAESConfig
 from .solvers.cmaes_fleet import CMAESFleetConfig
+from .solvers.coordinate import CoordinateDescentConfig
 from .solvers.de import DEConfig
+from .solvers.gd import GDConfig
+from .solvers.lbfgs import LBFGSConfig
+from .solvers.lbfgsb import LBFGSBConfig
+from .solvers.lm import LMConfig
 from .solvers.nlls import NLLSConfig
 from .solvers.nlls_fleet import NLLSFleetConfig
 from .solvers.pso import PSOConfig
@@ -32,11 +47,20 @@ from .solvers.rootfind import RootResult
 from .solvers.sann import SANNConfig
 
 __all__ = [
+    "BFGSConfig",
     "BFGSFleetConfig",
     "Bounds",
+    "BrentConfig",
+    "CGDConfig",
     "CMAESConfig",
     "CMAESFleetConfig",
+    "CoordinateDescentConfig",
     "DEConfig",
+    "Deriv",
+    "GDConfig",
+    "LBFGSBConfig",
+    "LBFGSConfig",
+    "LMConfig",
     "NLLSConfig",
     "NLLSFleetConfig",
     "PROBLEMS",

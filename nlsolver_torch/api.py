@@ -10,16 +10,27 @@
 
     result = nlsolver_torch.minimize(fn, x0[B, n], method="sann", layout="batched")
 
+    result = nlsolver_torch.minimize(fn, x0[n], method="bfgs")
+
+    result = nlsolver_torch.minimize(fn, x0[B, n], method="bfgs", layout="batched")
+
     result = nlsolver_torch.root(fn, lower[B], upper[B], method="brent")
 
 ``minimize`` routes the engines listed in ``PORTED_ROUTES`` so far (the
 batched Differential Evolution fleet ``solvers.de_batched``, the
 batch-minor BFGS fleet ``solvers.bfgs_fleet``, the batch-minor CMA-ES
-fleet ``solvers.cmaes_fleet`` and the lane fleets of PSO and SANN,
-``solvers.pso_batched`` and ``solvers.sann_batched``); every other method
-or layout raises ``NotImplementedError`` naming the ported routes and the
-ROADMAP.md queue item that ports the one asked for.  ``root`` runs the
-seven 1-D root finders of ``solvers.rootfind`` on lane tensors.
+fleet ``solvers.cmaes_fleet``, the lane fleets of PSO and SANN,
+``solvers.pso_batched`` and ``solvers.sann_batched``, and the
+single-instance solvers with derivatives and their Brent-based kin,
+``bfgs``, ``lbfgs``, ``lbfgsb``, ``gd``, ``cgd``, ``lm``, ``brent`` and
+``coordinate``, under ``layout="single"`` (one point ``x0 [n]``) and
+``layout="batched"`` (``x0 [B, n]``, every lane at once, as the JAX
+package's ``vmap`` of the single solver)); every other method or layout
+raises ``NotImplementedError`` naming the ported routes and the ROADMAP.md
+queue item that ports the one asked for.  The single-point objective of
+these routes may take per-lane data: ``data=`` (a tensor or tuple of
+tensors with the lane axis leading) makes it ``fn(x, data_b)``.  ``root``
+runs the seven 1-D root finders of ``solvers.rootfind`` on lane tensors.
 Start points that are a ``torch.Tensor`` keep their device (a CPU tensor
 asks for the CPU); anything else goes to the CUDA card, and raises when
 there is none.
@@ -34,7 +45,8 @@ from typing import Optional
 import torch
 
 from .core import Bounds, SolverResult, signed, start_points
-from .solvers import bfgs_fleet, cmaes_fleet, de_batched, pso_batched, rootfind, sann_batched
+from .solvers import (bfgs, bfgs_fleet, brent, cgd, cmaes_fleet, coordinate, de_batched, gd, lbfgs,
+                      lbfgsb, lm, pso_batched, rootfind, sann_batched)
 from .solvers.bfgs_fleet import BFGSFleetConfig
 from .solvers.cmaes_fleet import CMAESFleetConfig
 from .solvers.de import DEConfig
@@ -45,10 +57,16 @@ from .solvers.sann import SANNConfig
 
 _LAYOUTS = ("single", "batched", "fleet", "sharded", "islands")
 
+# the single-instance solvers on lane tensors, by method: each takes
+# layout="single" (minimize, x0 [n]) and layout="batched"
+# (minimize_batched, x0 [B, n])
+_LANE_SOLVERS = {"bfgs": bfgs, "lbfgs": lbfgs, "lbfgsb": lbfgsb, "gd": gd, "cgd": cgd, "lm": lm,
+                 "brent": brent, "coordinate": coordinate}
 # the (method, layout) routes that minimize and maximize take; the module
 # docstring and the NotImplementedError text name them from here
-PORTED_ROUTES = (("de", "batched"), ("bfgs", "fleet"), ("cmaes", "fleet"), ("pso", "batched"),
-                 ("sann", "batched"))
+PORTED_ROUTES = ((("de", "batched"), ("bfgs", "fleet"), ("cmaes", "fleet"), ("pso", "batched"),
+                  ("sann", "batched"))
+                 + tuple((m, lay) for m in _LANE_SOLVERS for lay in ("single", "batched")))
 
 
 def _bfgs_fleet(fn, x0, config, bounds, _minimize, kwargs):
@@ -94,6 +112,20 @@ _BATCHED = {
 }
 
 
+def _lane_solver(fn, x0, method, config, bounds, generator, layout, _minimize, restarts, kwargs):
+    if restarts > 1:
+        raise NotImplementedError(
+            "restarts= (the single-instance multistart) is not ported to nlsolver_torch yet; "
+            "ROADMAP.md Queue 1 item 6 (single-instance solvers and the API) ports it")
+    mod = _LANE_SOLVERS[method]
+    if method == "gd":
+        kwargs = dict(kwargs, generator=generator)
+    if config is not None:
+        kwargs = dict(kwargs, config=config)
+    run = mod.minimize if layout == "single" else mod.minimize_batched
+    return run(fn, x0, bounds=bounds, _minimize=_minimize, **kwargs)
+
+
 def _dispatch(fn, x0, method, config, bounds, generator, layout, _minimize, kwargs):
     # the single-instance multistart options, which only layout="single" runs
     restarts = kwargs.pop("restarts", 1)
@@ -118,6 +150,9 @@ def _dispatch(fn, x0, method, config, bounds, generator, layout, _minimize, kwar
         return _cmaes_fleet(fn, x0, config, bounds, generator, _minimize, kwargs)
     if layout == "fleet" and method in ("bfgs", "bfgs_fleet"):
         return _bfgs_fleet(fn, x0, config, bounds, _minimize, kwargs)
+    if layout in ("single", "batched") and method in _LANE_SOLVERS:
+        return _lane_solver(fn, x0, method, config, bounds, generator, layout, _minimize,
+                            restarts, kwargs)
     if layout == "batched" and method in _BATCHED:
         x0 = start_points(x0)
         if x0.ndim != 2:

@@ -17,7 +17,9 @@ import time
 
 import torch
 
+from .. import api
 from ..core.driver import drive_fleet_scan, drive_scan
+from ..ops.rank2 import rank2_update_batched_kernel
 from ..problems import PROBLEMS
 from ..solvers import bfgs_fleet as bf
 from ..solvers import cmaes_fleet as cf
@@ -26,6 +28,7 @@ from ..solvers import nlls_fleet as nf
 from ..solvers import pso_batched as psb
 from ..solvers import rootfind
 from ..solvers import sann_batched as snb
+from ..solvers.bfgs import BFGSConfig
 from ..solvers.de import DEConfig
 from ..solvers.pso import PSOConfig
 from ..solvers.sann import SANNConfig
@@ -1749,3 +1752,76 @@ def profile_pso_sann_100d(B=256, dim=100, iters=200, top=5):
                      "device_busy_ms_per_iteration": prof["device_busy_ms"] / iters,
                      "launches_per_iteration": prof["device_launches"] / iters, **prof}
     return out
+
+
+def bowls_lanes(B: int, dim: int = 16, seed: int = 0, device="cuda", dtype=torch.float32):
+    """``bowls_scenario``'s bowls on lane tensors, the layout of the
+    single-instance solvers: ``(fn, data)`` with ``fn(x [dim], (c, s)) =
+    sum(s * (x - c)**2)`` for one lane and ``data = (centers [B, dim],
+    scales [B, dim])``, the same draws as the fleet's, so both benches solve
+    the same bowls."""
+    _, centers, scales = bowls_scenario(B, dim, seed, device, dtype)
+
+    def fn(x, d):
+        c, s = d
+        return (s * (x - c) ** 2).sum()
+
+    return fn, (centers.T.contiguous(), scales.T.contiguous())
+
+
+def bench_bfgs_batch(B=10000, dim=16, runs=5, warmup=2):
+    """Config #4a through the single-instance BFGS on lane tensors:
+    ``minimize(fn, zeros[B, dim], method="bfgs", layout="batched")`` on
+    ``B`` bowls (``bowls_lanes``), f32, ``max_iter=30``, run until every
+    lane halts; its rank-2 update is kernel K4c, one launch a host step.
+    The median of ``runs`` after ``warmup`` runs; iterations per second
+    count every lane's iterations, and ``solved_frac`` is the share of
+    lanes with f < 1e-4 (the JAX bench's)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("bench_bfgs_batch measures a CUDA card; none is available")
+
+    device = torch.device("cuda")
+    fn, data = bowls_lanes(B, dim, device=device)
+    cfg = BFGSConfig(max_iter=30)
+    x0 = torch.zeros(B, dim, dtype=torch.float32, device=device)
+
+    def run():
+        return api.minimize(fn, x0, method="bfgs", config=cfg, layout="batched", data=data)
+
+    med, mn = _timed(run, runs, warmup=warmup)
+    before = rank2_update_batched_kernel.launches
+    res = run()
+    launches = rank2_update_batched_kernel.launches - before
+    total_iters = int(res.iterations.sum())
+    return {
+        "name": "bfgs_batch_torch",
+        "device": torch.cuda.get_device_name(0),
+        "instances": B,
+        "dim": dim,
+        # the last lane to finish halts on step max(iterations) + 1
+        "host_steps": int(res.iterations.max()) + 1,
+        "k4c_launches": launches,
+        "total_iterations": total_iters,
+        "iters_per_sec": total_iters / med,
+        "median_ms": med * 1e3,
+        "min_ms": mn * 1e3,
+        "solved_frac": float((res.f_value < 1e-4).float().mean()),
+        "converged_frac": float(res.converged.float().mean()),
+    }
+
+
+def profile_bfgs_batch(B=10000, dim=16, top=5):
+    """One run of ``bench_bfgs_batch``'s batch under ``torch.profiler``:
+    wall time against device busy time, and device launches, in all and a
+    host step."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_bfgs_batch measures a CUDA card; none is available")
+
+    device = torch.device("cuda")
+    fn, data = bowls_lanes(B, dim, device=device)
+    x0 = torch.zeros(B, dim, dtype=torch.float32, device=device)
+    res, out = _profiled(lambda: api.minimize(fn, x0, method="bfgs", config=BFGSConfig(max_iter=30),
+                                              layout="batched", data=data), top)
+    steps = int(res.iterations.max()) + 1
+    return {"name": "bfgs_batch_torch_profile", "host_steps": steps,
+            "launches_per_step": out["device_launches"] / steps, **out}

@@ -1,10 +1,15 @@
 """Objective-function handling (counterpart of
 ``nlsolver_tpu.core.objective``).
 
-An objective is a callable ``f(x[..., n]) -> [...]`` that reduces over the
-last axis, so one call scores a whole batch; this takes the place of the
-JAX package's ``vmap`` over single points.  Maximization is minimization
-of ``-f``.
+An objective is a callable ``f(x[n]) -> scalar`` on one point, as in the
+JAX package: it may index coordinates (``x[0]``, ``x[1]``) or reduce over
+them (``x.sum()``, ``x.sum(-1)``, ``x[..., i]``).  Every solver of the port
+scores a batch of points through ``torch.func.vmap`` of it, with the axes
+the JAX package's ``jax.vmap`` uses, and takes gradients and Hessians with
+``torch.func.grad`` and ``torch.func.hessian`` under the same ``vmap``, so
+``fn`` must be written in torch operations that ``torch.func`` can batch
+(no ``.item()``, no Python branch on a value).  Maximization is
+minimization of ``-f``.
 """
 from __future__ import annotations
 
@@ -12,6 +17,7 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
+from torch.func import vmap
 
 Objective = Callable[[torch.Tensor], torch.Tensor]
 
@@ -43,12 +49,13 @@ def with_eval_dtype(fn: Objective, dtype: torch.dtype) -> Objective:
 
 
 def batch_eval(fn: Objective, xs: torch.Tensor) -> torch.Tensor:
-    """Evaluate ``fn`` over a batch of points ``[B, n] -> [B]``."""
-    out = fn(xs)
+    """Evaluate ``fn`` over a batch of points ``[B, n] -> [B]``: ``vmap``
+    over the leading axis, so ``fn`` sees one point, the last axis."""
+    out = vmap(fn)(xs)
     if out.shape != xs.shape[:-1]:
         raise ValueError(
-            f"objective must reduce over the last axis: {tuple(xs.shape)} "
-            f"gave {tuple(out.shape)}"
+            f"objective must map one point, the last axis, to a scalar: "
+            f"{tuple(xs.shape)} gave {tuple(out.shape)}"
         )
     return out
 

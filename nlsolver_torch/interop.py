@@ -16,15 +16,27 @@ the JAX state's ``key`` has no counterpart and is dropped (the port's
 ``pso_batch_state_to_numpy`` and ``sann_batch_state_from_numpy`` /
 ``sann_batch_state_to_numpy`` carry the PSO and SANN lane fleets'
 ``PSOBatchState`` and ``SANNBatchState`` field for field; like
-``de_state_from_numpy`` they drop the per-lane ``keys``.  None of them
-imports JAX.
+``de_state_from_numpy`` they drop the per-lane ``keys``.  The states of
+the single-instance solvers on lane tensors carry the fields of the JAX
+state under ``jax.vmap`` (a leading lane axis): ``bfgs_state_*``,
+``lbfgs_state_*``, ``lbfgsb_state_*``, ``gd_state_*`` (the JAX state's
+per-lane ``key`` has no counterpart and is dropped: ``gd.step`` takes its
+draws or a generator), ``cgd_state_*``, ``lm_state_*`` and ``cd_state_*``
+(coordinate descent).  None of them imports JAX.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .solvers.bfgs import BFGSState
 from .solvers.bfgs_fleet import BFGSFleetState
+from .solvers.cgd import CGDState
+from .solvers.coordinate import CDState
+from .solvers.gd import GDState
+from .solvers.lbfgs import LBFGSState
+from .solvers.lbfgsb import LBFGSBState
+from .solvers.lm import LMState
 from .solvers.cmaes_fleet import CMAESFleetState
 from .solvers.de_batched import DEBatchState
 from .solvers.nlls_fleet import NLLSFleetState
@@ -114,4 +126,61 @@ def sann_batch_state_from_numpy(fields: dict, device) -> SANNBatchState:
 
 
 def sann_batch_state_to_numpy(state: SANNBatchState) -> dict:
+    return _state_to_numpy(state)
+
+
+def bfgs_state_from_numpy(fields: dict, device) -> BFGSState:
+    return _state_from_numpy(BFGSState, "BFGS", fields, device)
+
+
+def bfgs_state_to_numpy(state: BFGSState) -> dict:
+    return _state_to_numpy(state)
+
+
+def lbfgs_state_from_numpy(fields: dict, device) -> LBFGSState:
+    return _state_from_numpy(LBFGSState, "L-BFGS", fields, device)
+
+
+def lbfgs_state_to_numpy(state: LBFGSState) -> dict:
+    return _state_to_numpy(state)
+
+
+def lbfgsb_state_from_numpy(fields: dict, device) -> LBFGSBState:
+    return _state_from_numpy(LBFGSBState, "L-BFGS-B", fields, device)
+
+
+def lbfgsb_state_to_numpy(state: LBFGSBState) -> dict:
+    return _state_to_numpy(state)
+
+
+def gd_state_from_numpy(fields: dict, device) -> GDState:
+    """The JAX ``GDState``'s fields less its ``key``, which is dropped."""
+    return _state_from_numpy(GDState, "GD", fields, device)
+
+
+def gd_state_to_numpy(state: GDState) -> dict:
+    return _state_to_numpy(state)
+
+
+def cgd_state_from_numpy(fields: dict, device) -> CGDState:
+    return _state_from_numpy(CGDState, "CGD", fields, device)
+
+
+def cgd_state_to_numpy(state: CGDState) -> dict:
+    return _state_to_numpy(state)
+
+
+def lm_state_from_numpy(fields: dict, device) -> LMState:
+    return _state_from_numpy(LMState, "LM", fields, device)
+
+
+def lm_state_to_numpy(state: LMState) -> dict:
+    return _state_to_numpy(state)
+
+
+def cd_state_from_numpy(fields: dict, device) -> CDState:
+    return _state_from_numpy(CDState, "coordinate descent", fields, device)
+
+
+def cd_state_to_numpy(state: CDState) -> dict:
     return _state_to_numpy(state)

@@ -324,7 +324,7 @@ def more_thuente(fn, grad_fn, x, f0, g0, direction, alpha0, alpha_max=STPMAX) ->
     return _result(alpha0, dginit, s)
 
 
-def more_thuente_fleet(fn_cols, grad_cols, X, f0, G0, D, alpha0) -> MTResult:
+def more_thuente_fleet(fn_cols, grad_cols, X, f0, G0, D, alpha0, alpha_max=STPMAX) -> MTResult:
     """Batch-minor fleet variant of :func:`more_thuente`: one line search
     per LANE, the fleet on the trailing axis, so every scalar of the
     recurrence is a ``[B]`` vector and every point a column of ``X``.
@@ -332,17 +332,21 @@ def more_thuente_fleet(fn_cols, grad_cols, X, f0, G0, D, alpha0) -> MTResult:
     fn_cols:  ``[n, B] -> [B]`` objective on columns.
     grad_cols: ``[n, B] -> [n, B]`` gradients of each column.
     X ``[n, B]``, f0 ``[B]``, G0/D ``[n, B]``; alpha0 scalar or ``[B]``.
+    alpha_max: the bound on each lane's step, scalar or ``[B]`` (the
+    ``alpha_max`` of :func:`more_thuente`, with which L-BFGS-B stops each
+    lane's search at its box).  Lane by lane this is :func:`more_thuente`
+    under ``vmap``, the single-instance solvers' search on lane tensors.
 
     Lanes that carry an info code are frozen; the loop runs until every
     lane has one, which takes at most ``MAXFEV`` trips.
     """
     dtype, dev = X.dtype, X.device
     B = X.shape[-1]
-    alpha0 = torch.as_tensor(alpha0, dtype=dtype, device=dev).expand(B)
+    stpmax = torch.as_tensor(alpha_max, dtype=dtype, device=dev).expand(B)
+    alpha0 = torch.minimum(torch.as_tensor(alpha0, dtype=dtype, device=dev).expand(B), stpmax)
     dginit = (G0 * D).sum(dim=0)                 # [B]
     dgtest = FTOL * dginit
-    stpmax = torch.as_tensor(STPMAX, dtype=dtype, device=dev)
-    s = _initial(alpha0, f0, dginit, torch.full((B,), STPMAX - STPMIN, dtype=dtype, device=dev))
+    s = _initial(alpha0, f0, dginit, stpmax - STPMIN)
     for _ in range(MAXFEV):
         active = s.info == 0                     # [B]
         stp, stmin, stmax = _trial_step(s, stpmax)

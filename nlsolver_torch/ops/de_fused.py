@@ -31,6 +31,7 @@ import functools
 from typing import Optional, Sequence
 
 import torch
+from torch.func import vmap
 
 from ..problems import PROBLEMS
 from . import _build
@@ -95,8 +96,12 @@ def philox_draws(seed: int, generation: int, B: int, n: int, P: int,
 
 
 def eval_columns(fn, agents: torch.Tensor) -> torch.Tensor:
-    """Score every agent column: ``[B, n, P] -> [B, P]``."""
-    return fn(agents.transpose(1, 2))
+    """Score every agent column: ``[B, n, P] -> [B, P]``, ``fn`` on one
+    point ``[n]`` through ``vmap``, as the JAX engine's ``_eval_columns``
+    does; one ``vmap`` over the B P points, not one inside another, for the
+    host's sake."""
+    B, n, P = agents.shape
+    return vmap(fn)(agents.transpose(1, 2).reshape(B * P, n)).reshape(B, P)
 
 
 def de_generation_reference(fn, agents, scores, offs, u, fdim, active, F, CR):

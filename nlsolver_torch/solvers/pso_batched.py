@@ -25,6 +25,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.func import vmap
 
 from ..core import Bounds, SolverResult, make_result, signed, std_err
 from .pso import PSOConfig, _derived_bounds  # noqa: F401  (shape-agnostic)
@@ -60,8 +61,12 @@ class PSODraws(NamedTuple):
 
 
 def eval_columns(fn, A: torch.Tensor) -> torch.Tensor:
-    """Score every particle column: ``[n, P, B] -> [P, B]``."""
-    return fn(A.permute(1, 2, 0))
+    """Score every particle column: ``[n, P, B] -> [P, B]``, ``fn`` on one
+    point ``[n]`` through ``vmap``, as the JAX engine's ``_eval_cols`` does;
+    one ``vmap`` over the P B columns, not one inside another, for the
+    host's sake."""
+    n, P, B = A.shape
+    return vmap(fn, in_dims=1)(A.reshape(n, P * B)).reshape(P, B)
 
 
 def _swarm_best(values: torch.Tensor, positions: torch.Tensor):

@@ -22,6 +22,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.func import vmap
 
 from ..core import Bounds, SolverResult, make_result, signed
 from .sann import E_MINUS_1, SANNConfig
@@ -49,8 +50,9 @@ class SANNDraws(NamedTuple):
 
 
 def eval_columns(fn, X: torch.Tensor) -> torch.Tensor:
-    """Score every chain point: ``[n, B] -> [B]``."""
-    return fn(X.T)
+    """Score every chain point: ``[n, B] -> [B]``, ``fn`` on one point
+    ``[n]`` through ``vmap`` (the JAX engine's ``_eval_cols``)."""
+    return vmap(fn, in_dims=1)(X)
 
 
 def init(fn, x0: torch.Tensor, config: SANNConfig) -> SANNBatchState:

@@ -5,6 +5,7 @@ multi-instance layout.  Both packages get the same arguments; the start
 points are a numpy array for JAX and a CPU tensor for the port.
 ``nlsolver_torch.root`` refuses what ``nlsolver_tpu.root`` refuses, word
 for word: an unknown method, and ``tiruneh`` given ``lower`` / ``upper``."""
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -85,3 +86,113 @@ def test_root_refusals_match_the_reference(method, lower, upper, kwargs):
 
 def test_root_methods_match_the_reference():
     assert nt.root_methods() == nj.root_methods()
+
+
+# the single-instance solvers on lane tensors: (method, config of the port,
+# config of the JAX package, bounds)
+def _lane_methods():
+    import nlsolver_tpu.solvers.gd as jgd
+
+    return [
+        ("bfgs", None, None, None),
+        ("lbfgs", None, None, (-2.0, 0.3)),
+        ("lbfgsb", None, None, (-2.0, 0.3)),
+        ("gd", nt.GDConfig(alpha=0.1), jgd.GDConfig(alpha=0.1), None),
+        ("cgd", None, None, None),
+        ("lm", None, None, None),
+        ("coordinate", None, None, None),
+    ]
+
+
+def _bowl(x):
+    return (1.5 * (x - 0.5) ** 2).sum()
+
+
+def _fields(res):
+    return {f: np.asarray(getattr(res, f)) for f in res._fields}
+
+
+@pytest.mark.parametrize("layout", ["single", "batched"])
+def test_lane_solver_routes_run_their_modules(layout):
+    """``minimize`` and ``maximize`` with each of the eight methods under
+    ``layout="single"`` (x0 [n]) and ``"batched"`` (x0 [B, n]) give what
+    the solver module gives; ``maximize`` flips f_value back."""
+    import importlib
+
+    x0 = torch.linspace(-1.0, 1.0, 12, dtype=torch.float64).reshape(4, 3)
+    x0 = x0[1] if layout == "single" else x0
+    for method, cfg, _, box in _lane_methods():
+        mod = importlib.import_module(f"nlsolver_torch.solvers.{method}")
+        bounds = None if box is None else nt.Bounds(*box)
+        kw = {} if cfg is None else {"config": cfg}
+        run = mod.minimize if layout == "single" else mod.minimize_batched
+        want = _fields(run(_bowl, x0, bounds=bounds, **kw))
+        got = _fields(nt.minimize(_bowl, x0, method=method, layout=layout, bounds=bounds, **kw))
+        up = _fields(nt.maximize(lambda x: -_bowl(x), x0, method=method, layout=layout,
+                                 bounds=bounds, **kw))
+        for f in want:
+            np.testing.assert_array_equal(got[f], want[f], err_msg=f"{method} {f}")
+            np.testing.assert_allclose(up[f], -want[f] if f == "f_value" else want[f],
+                                       rtol=1e-12, atol=1e-15, err_msg=f"{method} {f}")
+        assert got["x"].shape == tuple(x0.shape), method
+    c = torch.tensor([0.25, -1.5, 3.0, 0.0], dtype=torch.float64)
+    lanes = (4, 1) if layout == "batched" else (1,)
+    cc = c if layout == "batched" else c[0]
+    res = nt.minimize(lambda t: (t - cc) ** 2, torch.zeros(lanes, dtype=torch.float64),
+                      method="brent", layout=layout)
+    np.testing.assert_allclose(res.x.numpy(), cc.numpy(), atol=1e-7)
+
+
+@pytest.mark.parametrize("layout", ["single", "batched"])
+@pytest.mark.parametrize("verb", ["minimize", "maximize"])
+def test_lane_solver_routes_match_the_reference(layout, verb):
+    """The API of both packages on BFGS and L-BFGS-B (with a box), each
+    lane's counters equal and x within 1e-9."""
+    x0 = np.linspace(-1.0, 1.0, 12).reshape(4, 3)
+    x0 = x0[1] if layout == "single" else x0
+    sign = 1.0 if verb == "minimize" else -1.0
+
+    def jfn(x):
+        return sign * jnp.sum((x - 0.5) ** 2 * jnp.arange(1.0, 4.0))
+
+    def tfn(x):
+        return sign * ((x - 0.5) ** 2 * torch.arange(1.0, 4.0, dtype=x.dtype)).sum()
+
+    for method, box in (("bfgs", None), ("lbfgsb", (-2.0, 0.3))):
+        jb = None if box is None else nj.Bounds(*box)
+        tb = None if box is None else nt.Bounds(*box)
+        want = _fields(getattr(nj, verb)(jfn, x0, method=method, layout=layout, bounds=jb))
+        got = _fields(getattr(nt, verb)(tfn, torch.from_numpy(x0), method=method, layout=layout,
+                                        bounds=tb))
+        for f in ("iterations", "function_calls", "gradient_calls", "converged"):
+            np.testing.assert_array_equal(got[f], want[f], err_msg=f"{method} {f}")
+        np.testing.assert_allclose(got["x"], want["x"], atol=1e-9)
+        np.testing.assert_allclose(got["f_value"], want["f_value"], rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("method", ["bfgs", "gd", "cgd", "lm", "coordinate"])
+def test_unconstrained_routes_refuse_what_the_reference_ignores(method):
+    """The JAX package takes bounds= for these methods and ignores them;
+    the port refuses them (ROADMAP.md, faults in the JAX package)."""
+    x0 = np.zeros(3)
+    got, msg = _raised(lambda: nt.minimize(_sphere, torch.from_numpy(x0), method=method,
+                                           bounds=nt.Bounds(-1.0, 1.0)))
+    assert got is ValueError and "takes no bounds" in msg
+    got, msg = _raised(lambda: nt.minimize(_sphere, torch.zeros(2, 3, dtype=torch.float64),
+                                           method=method, layout="batched",
+                                           bounds=nt.Bounds(-1.0, 1.0)))
+    assert got is ValueError and "takes no bounds" in msg
+
+
+def test_ported_routes_and_what_is_left():
+    """The eight methods are ported under both layouts; single routes of
+    other methods, and the multistart, still name Queue 1 item 6."""
+    from nlsolver_torch.api import PORTED_ROUTES
+
+    for method in ("bfgs", "lbfgs", "lbfgsb", "gd", "cgd", "lm", "brent", "coordinate"):
+        assert (method, "single") in PORTED_ROUTES and (method, "batched") in PORTED_ROUTES
+    for call in (lambda: nt.minimize(_sphere, torch.zeros(2, dtype=torch.float64)),
+                 lambda: nt.minimize(_sphere, torch.zeros(2, dtype=torch.float64), method="bfgs",
+                                     restarts=3)):
+        got, msg = _raised(call)
+        assert got is NotImplementedError and "Queue 1 item 6" in msg

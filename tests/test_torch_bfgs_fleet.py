@@ -275,6 +275,9 @@ def test_api_route_refuses_bounds_shapes_and_unported_methods():
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         nt.minimize(sphere, X0, method="cmaes", layout="sharded")
     with pytest.raises(NotImplementedError, match="method='bfgs' with layout='fleet'"):
+        nt.minimize(sphere, X0[0], method="nelder_mead", layout="single")
+    # layout="single" of bfgs is ported: it takes one start point [n]
+    with pytest.raises(ValueError, match="a single start point is"):
         nt.minimize(sphere, X0, method="bfgs", layout="single")
 
 

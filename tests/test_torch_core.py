@@ -195,3 +195,43 @@ def test_jax_is_cpu():
     # the references run on the CPU in x64, the port in f64 beside them
     assert jax.default_backend() == "cpu"
     assert jnp.asarray(1.0).dtype == jnp.float64
+
+
+def test_objective_contract_takes_what_jax_users_write():
+    """``batch_eval`` scores a batch through vmap, so every single-point
+    objective a JAX user writes works, each point seen alone: indexing
+    (x[0], x[1]), slices, reductions with and without an axis, a dot, a
+    norm, the shape, a where, and the problems' registry; at B = n too,
+    where a whole-batch call of x[0] would return a row."""
+    from nlsolver_torch import PROBLEMS
+
+    objectives = {
+        "index": (lambda x: 100.0 * (x[1] - x[0] ** 2) ** 2 + (1.0 - x[0]) ** 2,
+                  lambda x: 100.0 * (x[1] - x[0] ** 2) ** 2 + (1.0 - x[0]) ** 2),
+        "slices": (lambda x: ((x[1:] - x[:-1] ** 2) ** 2).sum(),
+                   lambda x: jnp.sum((x[1:] - x[:-1] ** 2) ** 2)),
+        "sum": (lambda x: x.sum(), lambda x: jnp.sum(x)),
+        "sum_last": (lambda x: (x * x).sum(-1), lambda x: jnp.sum(x * x, axis=-1)),
+        "ellipsis": (lambda x: x[..., 0] * x[..., 1], lambda x: x[..., 0] * x[..., 1]),
+        "dot": (lambda x: x @ x, lambda x: x @ x),
+        "norm": (lambda x: torch.linalg.norm(x), lambda x: jnp.linalg.norm(x)),
+        "shape": (lambda x: x.shape[0] * x.max(), lambda x: x.shape[0] * jnp.max(x)),
+        "where": (lambda x: torch.where(x[0] > 0, x[1], -x[1]),
+                  lambda x: jnp.where(x[0] > 0, x[1], -x[1])),
+    }
+    rng = np.random.default_rng(3)
+    for shape in ((2, 2), (5, 3)):
+        xs = rng.standard_normal(shape)
+        t = torch.from_numpy(xs)
+        for name, (tf, jf) in objectives.items():
+            got = tc.batch_eval(tf, t).numpy()
+            want = np.asarray(jax.vmap(jf)(jnp.asarray(xs)))
+            assert got.shape == shape[:1], name
+            np.testing.assert_allclose(got, want, rtol=1e-12, err_msg=name)
+            np.testing.assert_allclose(got, [float(tf(row)) for row in t], rtol=1e-15,
+                                       err_msg=name)
+        for name, prob in PROBLEMS.items():
+            if prob.dim in (0, shape[1]):
+                got = tc.batch_eval(prob.fn, t).numpy()
+                np.testing.assert_allclose(got, [float(prob.fn(row)) for row in t], rtol=1e-15,
+                                           err_msg=name)

@@ -234,3 +234,36 @@ def test_interop_round_trip_drops_keys():
         assert v.dtype == fields[k].dtype
     with pytest.raises(ValueError, match="missing"):
         de_state_from_numpy({"agents": fields["agents"]}, "cpu")
+
+
+def test_single_point_objective_at_b_equal_n_matches_jax():
+    """F2: an objective written on one point, Rosenbrock through x[0] and
+    x[1], at B = n = 2 through the plain step.  Called on a whole batch,
+    x[0] would be a row of agents with the [B] shape of a lane result and
+    the wrong values; scored through vmap as in JAX, every state matches
+    the JAX engine's on its own draws."""
+    def jrosen(x):
+        return 100.0 * (x[1] - x[0] ** 2) ** 2 + (1.0 - x[0]) ** 2
+
+    def trosen(x):
+        return 100.0 * (x[1] - x[0] ** 2) ** 2 + (1.0 - x[0]) ** 2
+
+    b = n = 2
+    x0 = np.random.default_rng(5).uniform(-1.5, 1.5, (b, n))
+    kw = dict(pop_size=P, max_iter=6)
+    jcfg, tcfg = JConfig(**kw), TConfig(**kw)
+    keys = jax.random.split(jax.random.key(9), b)
+    j = jdeb.init(jrosen, jnp.asarray(x0), jcfg, keys)
+    t = tdeb.init(trosen, torch.from_numpy(x0), tcfg,
+                  draws=torch.tensor(jax_init_draws(keys, n, P, jnp.float64)))
+    assert_states_match(t, j)
+    jstep = jax.jit(lambda s: jdeb.step(jrosen, s, jcfg))
+    for _ in range(4):
+        draws = jax_step_draws(j, jcfg)
+        j = jstep(j)
+        t = tdeb.step(trosen, t, tcfg, draws=draws)
+        assert_states_match(t, j)
+    agents = t.agents.numpy()
+    np.testing.assert_allclose(t.scores.numpy(), [[float(trosen(torch.from_numpy(a[:, p])))
+                                                   for p in range(P)] for a in agents],
+                               rtol=1e-15)

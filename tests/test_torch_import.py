@@ -73,6 +73,19 @@ SCRIPT = textwrap.dedent(
                           method=method, layout="batched", config=cfg,
                           generator=torch.Generator().manual_seed(0))
         assert res.x.shape == (4, 3) and bool(torch.isfinite(res.f_value).all()), method
+    # the single-instance solvers with derivatives, single and batched
+    import nlsolver_torch.deriv, nlsolver_torch.linesearch.armijo  # noqa: F401
+    bowl = lambda x: ((x - 0.5) ** 2).sum()  # noqa: E731
+    for method in ("bfgs", "lbfgs", "lbfgsb", "gd", "cgd", "lm", "coordinate"):
+        cfg = nt.GDConfig(alpha=0.1) if method == "gd" else None
+        one = nt.minimize(bowl, torch.zeros(3, dtype=torch.float64), method=method, config=cfg)
+        many = nt.maximize(lambda x: -bowl(x), torch.zeros(2, 3, dtype=torch.float64),
+                           method=method, layout="batched", config=cfg)
+        assert one.x.shape == (3,) and many.x.shape == (2, 3), method
+        assert float((many.x - 0.5).abs().max()) < 1e-2, method
+    res = nt.minimize(lambda t: (t - 0.25) ** 2, torch.zeros(4, 1, dtype=torch.float64),
+                      method="brent", layout="batched")
+    assert float((res.x - 0.25).abs().max()) < 1e-8
     assert not any(m == "jax" or m.startswith(("jax.", "nlsolver_tpu"))
                    for m in sys.modules if sys.modules[m] is not None)
     print("ok")

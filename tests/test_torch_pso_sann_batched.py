@@ -358,3 +358,58 @@ def test_sann_state_round_trip_from_jax():
     for k, v in fields.items():
         np.testing.assert_array_equal(back[k], v, err_msg=k)
         assert back[k].dtype == v.dtype, k
+
+
+def _jrosen(x):
+    return 100.0 * (x[1] - x[0] ** 2) ** 2 + (1.0 - x[0]) ** 2
+
+
+def _trosen(x):
+    return 100.0 * (x[1] - x[0] ** 2) ** 2 + (1.0 - x[0]) ** 2
+
+
+def test_pso_single_point_objective_at_b_equal_n_matches_jax():
+    """F2: Rosenbrock written on one point (x[0], x[1]) at B = n = 2.  On
+    the whole [P, B, n] batch x[0] would be a slab of particles; scored
+    through vmap as in JAX, every state matches the JAX engine's on its own
+    draws."""
+    b = n = 2
+    x0 = np.random.default_rng(6).uniform(0.5, 2.0, (b, n))
+    cfg = dict(n_particles=P, max_iter=5, best_value_no_change=1 << 30, eps=0.0)
+    jcfg, tcfg = JPSOConfig(**cfg), TPSOConfig(**cfg)
+    keys = jax.random.split(jax.random.key(13), b)
+    lo, hi = -np.abs(x0.T), np.abs(x0.T)
+    js = jpsb.init(_jrosen, jnp.asarray(x0), jcfg, keys, jnp.asarray(lo), jnp.asarray(hi))
+    ts = tpsb.init(_trosen, torch.from_numpy(x0), tcfg, torch.from_numpy(lo), torch.from_numpy(hi),
+                   draws=pso_init_draws(keys, n, P))
+    assert_match(pso_batch_state_to_numpy(ts), js, "init")
+    jstep = jax.jit(lambda s: jpsb.step(_jrosen, s, jcfg, jnp.asarray(lo), jnp.asarray(hi), False))
+    for k in range(4):
+        draws = pso_step_draws(js.keys, n, P, False)
+        js = jstep(js)
+        ts = tpsb.step(_trosen, ts, tcfg, torch.from_numpy(lo), torch.from_numpy(hi), False,
+                       draws=draws)
+        assert_match(pso_batch_state_to_numpy(ts), js, f"step {k}")
+
+
+def test_sann_single_point_objective_at_b_equal_n_matches_jax():
+    """F2: the case ROADMAP.md recorded, Rosenbrock on one point at B = n =
+    2, where a whole-batch call returned another lane's value.  Scored
+    through vmap as in JAX, every state matches the JAX engine's, and each
+    chain's value is the objective at its point."""
+    b = n = 2
+    x0 = np.random.default_rng(8).uniform(-2.0, 2.0, (b, n))
+    kw = dict(max_iter=5, temperature_iter=4)
+    jcfg, tcfg = JSANNConfig(**kw), TSANNConfig(**kw)
+    keys = jax.random.split(jax.random.key(17), b)
+    js = jsnb.init(_jrosen, jnp.asarray(x0), jcfg, keys)
+    ts = tsnb.init(_trosen, torch.from_numpy(x0), tcfg)
+    assert_match(sann_batch_state_to_numpy(ts), js, "init")
+    jstep = jax.jit(lambda s: jsnb.step(_jrosen, s, jcfg))
+    for k in range(5):
+        draws = sann_step_draws(js.keys, kw["temperature_iter"] - 1, n)
+        js = jstep(js)
+        ts = tsnb.step(_trosen, ts, tcfg, draws=draws)
+        assert_match(sann_batch_state_to_numpy(ts), js, f"step {k}")
+    for lane in range(b):
+        assert float(ts.f_p[lane]) == float(_trosen(ts.p[:, lane]))
