@@ -2,7 +2,8 @@
 """Smoke run of nlsolver_torch on one CUDA card: builds the kernels, holds
 each against its plain PyTorch twin, drives the batched-DE fleet, the BFGS
 fleet, the CMA-ES fleet, the PSO and SANN lane fleets and the
-single-instance solvers on lanes through ``nlsolver_torch.minimize``, the
+single-instance solvers on lanes (with derivatives and without, the
+default method and the multistart) through ``nlsolver_torch.minimize``, the
 NLLS fleet through
 ``nlsolver_torch.fit_fleet`` and the root finders through
 ``nlsolver_torch.root`` at full size, and times them.
@@ -205,7 +206,25 @@ Phases, each fatal on failure:
  22. timing: bench_bfgs_batch (median of 5 after 2 warm-ups) beside
      bench_bfgs_fleet on the same 10000 bowls, profile_bfgs_batch, and K4c
      alone at the batch's [10000, 16, 16] against its twin behind a device
-     sleep.
+     sleep;
+ 23. the derivative-free single-instance solvers on lane tensors (no
+     kernel): nelder_mead (both variants), the row-layout de, pso (vanilla,
+     and accelerated in a box), sann and nmpso on 384 lanes of 4-D bowls,
+     Rosenbrock and Rastrigin in float32 and float64 (the reference variant
+     in float64), the draws made from one seed: the card against the same
+     call on the host, by route and kind of problem (the lanes whose
+     counters differ and x, where they agree and where they differ, within
+     free_limits of the readings in FREE_READ32), and lane 0 alone through
+     minimize(fn, x0[n]) against the batch's; minimize(rosen, [-0.5, -0.5])
+     with no method named; restarts=8 on Halton starts for nelder_mead and
+     bfgs against the host, K4c launched once a host step of the bfgs
+     restart lanes;
+ 24. timing (the median of 2 runs): bench_nm_rosenbrock and
+     bench_latency_single (NM, DE, BFGS) as chains of 4 dependent solves
+     (the benches' default is 64), a
+     profile of each single solve, bench_lm_fleet (fit_fleet against
+     fit_batched at B = 4096) and the row-layout arm of bench_pso_sann_100d
+     at B = 256 with its profile.
 
 Every kernel's line also gives its bound: the larger of its compulsory
 bytes over 3.35 TB/s and its floating-point operations over 67 TFLOP/s
@@ -2911,6 +2930,328 @@ def phase_lane_solvers_timing(torch, dev):
     return {"K4c batch": (k, pl, None), "err": err, "bench": r, "fleet": f}
 
 
+# the derivative-free single-instance solvers on lane tensors (phase 23):
+# FREE_B lanes of n = FREE_N, bowls, Rosenbrock and Rastrigin in turn, in
+# float32 and float64, the same draws on the card and the host
+FREE_B, FREE_N, FREE_SEED = 384, 4, 23
+FREE_KINDS = ("bowls", "Rosenbrock", "Rastrigin")   # lane b is of kind b % 3
+# Card against host, by route and kind of problem, read on an NVIDIA H100
+# 80GB HBM3 at 700.00 W, torch 2.11.0+cu128 (PERF.md section 5): the lanes
+# whose iterations, calls or converged flag differ, and |x_card - x_host|
+# relative to max(|x|, 1), the largest where the counters agree and where
+# they differ.  In float64 no lane differs and x agrees to a few ulps grown
+# over a run (0 read but 2.3e-15, the accelerated PSO's pow).  In float32
+# the card's cos rounds another way than the host's on Rastrigin, which
+# moves where a lane stops, the spread test's mean is summed in another
+# order (NM-PSO's Rosenbrock lane), and SANN's chains end a few ulps apart
+# on every kind.  Unlisted: 0 lanes, 0 dx.
+FREE_READ32 = {
+    # (route, kind): (lanes that differ, dx where they agree, dx where they differ)
+    ("nelder_mead", "Rastrigin"): (71, 2.103e-5, 2.062e-4),
+    ("pso", "Rastrigin"): (0, 4.152e-3, 0.0),
+    ("pso accelerated boxed", "Rastrigin"): (0, 2.078e-4, 0.0),
+    ("sann", "bowls"): (0, 1.907e-6, 0.0),
+    ("sann", "Rosenbrock"): (0, 4.470e-7, 0.0),
+    ("sann", "Rastrigin"): (0, 9.984e-7, 0.0),
+    ("nmpso", "Rosenbrock"): (1, 0.0, 1.024e-4),
+    ("nmpso", "Rastrigin"): (74, 5.501e-5, 3.696e-2),
+}
+FREE_KIND_LANES = FREE_B // len(FREE_KINDS)
+FREE_DX64 = 1e-8
+
+
+def free_limits(label, kind, tag):
+    """(lanes that may differ, dx where they agree, dx where they differ)
+    of a route and kind: in float32 twice the reading, at most the reading
+    plus a tenth of the kind's lanes, and dx at least 1e-6 (some eight
+    float32 ulps); in float64 no lane, FREE_DX64."""
+    if tag == "float64":
+        return 0, FREE_DX64, FREE_DX64
+    lanes, dx, dx_differ = FREE_READ32.get((label, kind), (0, 0.0, 0.0))
+    return (min(2 * lanes, lanes + FREE_KIND_LANES // 10), max(2 * dx, 1e-6),
+            max(2 * dx_differ, 1e-6))
+
+
+FREE_RESTARTS = 8
+
+
+def free_lanes(torch, dtype):
+    """FREE_B lanes on the host, from FREE_SEED: x0 [B, n] and the data
+    (kind, center, weight) of f = a bowl sum(w (x - c)^2) (kind 0),
+    Rosenbrock (1) or Rastrigin (2)."""
+    g = torch.Generator().manual_seed(FREE_SEED)
+    kind = torch.arange(FREE_B) % 3
+    width = torch.tensor([2.0, 1.5, 0.6], dtype=torch.float64)[kind]
+    x0 = (2.0 * torch.rand((FREE_B, FREE_N), generator=g, dtype=torch.float64) - 1.0) * width[:, None]
+    c = torch.randn((FREE_B, FREE_N), generator=g, dtype=torch.float64)
+    w = 0.5 + 2.5 * torch.rand((FREE_B, FREE_N), generator=g, dtype=torch.float64)
+    return x0.to(dtype), (kind, c.to(dtype), w.to(dtype))
+
+
+def free_objective(torch):
+    """f of one lane, its terms added in index order: a ``.sum()`` would
+    add them in another order on the card than on the host in float32,
+    where the last bit of f then decides comparisons of the solvers."""
+    def added(t):
+        acc = t[0]
+        for i in range(1, t.shape[-1]):
+            acc = acc + t[i]
+        return acc
+
+    def fn(x, d):
+        k, c, w = d
+        bowl = added(w * (x - c) ** 2)
+        rosen = added(100.0 * (x[1:] - x[:-1] ** 2) ** 2 + (1.0 - x[:-1]) ** 2)
+        ras = 10.0 * x.shape[-1] + added(x * x - 10.0 * torch.cos(2.0 * torch.pi * x))
+        return torch.where(k == 0, bowl, torch.where(k == 1, rosen, ras))
+    return fn
+
+
+def free_routes(nt):
+    """(label, method, config, bounds, x0 scale) of phase 23's routes."""
+    return (("nelder_mead", "nelder_mead", nt.NelderMeadConfig(), None, 1.0),
+            ("nelder_mead reference", "nelder_mead", nt.NelderMeadConfig(variant="reference"),
+             None, 1.0),
+            ("de", "de", nt.DEConfig(pop_size=16, max_iter=100), None, 3.0),
+            ("pso", "pso", nt.PSOConfig(max_iter=200), None, 1.0),
+            ("pso accelerated boxed", "pso", nt.PSOConfig(max_iter=200, accelerated=True),
+             nt.Bounds(-2.0, 2.0), 1.0),
+            ("sann", "sann", nt.SANNConfig(max_iter=50), None, 1.0),
+            ("nmpso", "nmpso", nt.NMPSOConfig(max_iter=200), None, 1.0))
+
+
+def free_draws(torch, method, cfg, dtype):
+    """A run's draws for FREE_B lanes from one seed, on the host: the
+    ``_lane.Draws`` each solver's ``minimize_batched`` takes, T steps."""
+    from nlsolver_torch.solvers import de, nmpso, pso, sann
+    from nlsolver_torch.solvers._lane import Draws
+
+    g = torch.Generator().manual_seed(FREE_SEED + 1)
+    B, n = FREE_B, FREE_N
+    T = getattr(cfg, "max_iter", 0) + 1
+
+    def u(*shape):
+        return torch.rand(shape, generator=g, dtype=dtype)
+
+    if method == "de":
+        P = cfg.pop_size
+        partners = torch.stack([torch.randint(0, P - 1 - j, (T, B, P), generator=g)
+                                for j in range(3)], dim=-1)
+        return Draws(u(B, P, n), de.StepDraws(partners, torch.randint(0, n, (T, B, P), generator=g),
+                                              u(T, B, P, n)))
+    if method == "pso":
+        P = cfg.n_particles
+        steps = (pso.StepDraws(torch.randn((T, B, P, n), generator=g, dtype=dtype))
+                 if cfg.accelerated else pso.StepDraws(u(T, B, P, n), u(T, B, P, n)))
+        return Draws(pso.InitDraws(u(B, P, n), u(B, P, n)), steps)
+    if method == "sann":
+        m = cfg.temperature_iter - 1
+        return Draws(None, sann.StepDraws(torch.randn((T, B, m, n), generator=g, dtype=dtype),
+                                          u(T, B, m)))
+    if method == "nmpso":
+        return Draws(nmpso.InitDraws(u(B, 2 * n, n), u(B, 2 * n, n)),
+                     nmpso.StepDraws(u(T, B, 2 * n, n), u(T, B, 2 * n, n)))
+    return None
+
+
+def lane_of(draws, b):
+    """Lane b's draws, without the lane axis (what ``minimize`` takes)."""
+    from nlsolver_torch.solvers._lane import Draws, _tree
+
+    if draws is None:
+        return None
+    return Draws(_tree(draws.init, lambda a: a[b]), _tree(draws.steps, lambda a: a[:, b]))
+
+
+def counters_differ(torch, res, ref):
+    same = torch.ones(ref.iterations.shape, dtype=torch.bool)
+    for f in ("iterations", "function_calls", "converged"):
+        same &= getattr(res, f).cpu() == getattr(ref, f)
+    return ~same
+
+
+def phase_free_solvers(torch, dev):
+    """The derivative-free single-instance solvers on lane tensors:
+    each route batched on FREE_B lanes, card against host on the same
+    draws, in float32 and float64, and single on lane 0 against its
+    batch's lane; the default method on the README's example; restarts=8
+    on Halton starts for nelder_mead and bfgs, K4c counted on bfgs."""
+    import importlib
+
+    import nlsolver_torch as nt
+    from nlsolver_torch.api import _halton_unit
+    from nlsolver_torch.solvers import bfgs
+    from nlsolver_torch.solvers._lane import draws_on
+
+    fn = free_objective(torch)
+    reset_counts()
+    readings, failed = {}, []
+    for dtype in (torch.float32, torch.float64):
+        tag = str(dtype).split(".")[1]
+        x0_host, data_host = free_lanes(torch, dtype)
+        kind_of = [FREE_KINDS[int(k)] for k in data_host[0]]
+        data = tuple(d.to(dev) for d in data_host)
+        for label, method, cfg, bounds, scale in free_routes(nt):
+            if label == "nelder_mead reference" and dtype == torch.float32:
+                continue
+            mod = importlib.import_module(f"nlsolver_torch.solvers.{method}")
+            draws = free_draws(torch, method, cfg, dtype)
+            kw = {} if draws is None else {"draws": draws_on(draws, dev)}
+            x0 = (scale * x0_host).to(dev)
+            t0 = time.perf_counter()
+            if method in ("nelder_mead", "nmpso"):   # their batched route
+                res = nt.minimize(fn, x0, method=method, layout="batched", config=cfg,
+                                  bounds=bounds, data=data, **kw)
+            else:
+                res = mod.minimize_batched(fn, x0, cfg, bounds, data=data, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ref = mod.minimize_batched(fn, scale * x0_host, cfg, bounds, data=data_host,
+                                       **({} if draws is None else {"draws": draws}))
+            differ = counters_differ(torch, res, ref)
+            rel = ((res.x.cpu() - ref.x).abs() / ref.x.abs().clamp(min=1.0)).amax(dim=1)
+            key = f"{label} {tag}"
+            readings[key] = int(differ.sum())
+            log(f"[23] {label} [{FREE_B}, {FREE_N}] {tag}: {wall:.3f} s on the card, iterations "
+                f"max {int(res.iterations.max())}, converged {float(res.converged.float().mean()):.4f}"
+                f", f median {float(res.f_value.median()):.4e}")
+            for k, kind in enumerate(FREE_KINDS):
+                mine = data_host[0] == k
+                agree, apart = rel[mine & ~differ], rel[mine & differ]
+                lanes = int(apart.numel())
+                dx = float(agree.max()) if agree.numel() else 0.0
+                dx_apart = float(apart.max()) if lanes else 0.0
+                limits = free_limits(label, kind, tag)
+                log(f"[23]   {kind}, card against host: counters differ on {lanes} of "
+                    f"{int(mine.sum())} lanes (limit {limits[0]}), max relative |dx| {dx:.3e} "
+                    f"where they agree (limit {limits[1]:.1e}), {dx_apart:.3e} where they "
+                    f"differ (limit {limits[2]:.1e})")
+                if lanes > limits[0] or dx > limits[1] or dx_apart > limits[2]:
+                    failed.append(f"{key} {kind}")
+            check(res.x.is_cuda and tuple(res.x.shape) == (FREE_B, FREE_N)
+                  and bool(torch.isfinite(res.f_value).all()), f"{key}: misshapen or off the card")
+            # single: lane 0 alone through minimize(fn, x0[n]), against the
+            # batch's lane on the card
+            for b in (0,):
+                one_kw = {} if draws is None else {"draws": draws_on(lane_of(draws, b), dev)}
+                one = nt.minimize(fn, x0[b], method=method, config=cfg, bounds=bounds,
+                                  data=tuple(d[b] for d in data), **one_kw)
+                ok = all(bool(getattr(one, f) == getattr(res, f)[b])
+                         for f in ("iterations", "function_calls", "converged"))
+                dxb = float(((one.x - res.x[b]).abs() / res.x[b].abs().clamp(min=1.0)).max())
+                check(one.x.shape == (FREE_N,), f"{key}: the single route's x is misshapen")
+                if not (ok and dxb <= free_limits(label, kind_of[b], tag)[1]):
+                    failed.append(f"{key}: the single route against lane {b} of the batch "
+                                  f"({int(one.iterations)} against {int(res.iterations[b])} "
+                                  f"iterations, |dx| {dxb:.3e})")
+    check(not failed, f"the card and the host differ past the limits on {failed}")
+    check(not launched(), f"the derivative-free solvers launched kernels: {launched()}")
+
+    # the README's example through the default method, on the card
+    rosen = lambda x: 100.0 * (x[0] ** 2 - x[1]) ** 2 + (x[0] - 1.0) ** 2  # noqa: E731
+    t0 = time.perf_counter()
+    res = nt.minimize(rosen, [-0.5, -0.5])
+    wall = time.perf_counter() - t0
+    log(f"[23] minimize(rosen, [-0.5, -0.5]): {wall:.3f} s, x {res.x.tolist()}, f "
+        f"{float(res.f_value):.3e}, iterations {int(res.iterations)}, calls "
+        f"{int(res.function_calls)}, on {res.x.device}")
+    check(res.x.is_cuda and float(res.f_value) < 1e-6, "the default method missed Rosenbrock's "
+                                                       "minimum or ran off the card")
+
+    # restarts on Halton starts: nelder_mead, and bfgs with K4c counted
+    x0 = torch.tensor([-0.5, -0.5], device=dev)
+    out = {}
+    for method in ("nelder_mead", "bfgs"):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = nt.minimize(rosen, x0, method=method, restarts=FREE_RESTARTS,
+                          restart_sampler="halton")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launched()
+        ref = nt.minimize(rosen, x0.cpu(), method=method, restarts=FREE_RESTARTS,
+                          restart_sampler="halton")
+        same = all(bool(getattr(res, f).cpu() == getattr(ref, f))
+                   for f in ("iterations", "function_calls", "gradient_calls", "converged"))
+        dx = float((res.x.cpu() - ref.x).abs().max())
+        log(f"[23] minimize(rosen, x0, method={method!r}, restarts={FREE_RESTARTS}, "
+            f"restart_sampler='halton'): {wall:.3f} s, f {float(res.f_value):.3e}, iterations "
+            f"summed {int(res.iterations)}, launches {counts}; against the host: counters equal "
+            f"{same}, |dx| {dx:.3e}")
+        check(float(res.f_value) < 1e-4, f"restarts on {method}: no start reached the minimum")
+        if method == "nelder_mead":
+            check(not counts, f"restarts on nelder_mead launched kernels: {counts}")
+            continue
+        # the restart lanes as one minimize_batched: one K4c launch a host step
+        starts = x0 + 10.0 * (2.0 * torch.as_tensor(_halton_unit(FREE_RESTARTS, 2), dtype=x0.dtype,
+                                                     device=dev) - 1.0)
+        starts[0] = x0
+        reset_counts()
+        lanes = bfgs.minimize_batched(rosen, starts)
+        torch.cuda.synchronize()
+        steps = int(lanes.iterations.max()) + 1
+        k4c = counts.get("rank2_update_batched_kernel", 0)
+        log(f"[23] restarts on bfgs: {steps} host steps over the {FREE_RESTARTS} restart lanes, "
+            f"K4c launched {k4c} times (one a host step), iterations summed "
+            f"{int(lanes.iterations.sum())} = {int(res.iterations)}")
+        check(counts == {"rank2_update_batched_kernel": steps}
+              and int(lanes.iterations.sum()) == int(res.iterations),
+              f"restarts on bfgs: expected K4c once per host step ({steps}), launched {counts}")
+        out["K4c restarts"] = k4c
+    log(f"[23] counters differing, card against host, by route: {readings}")
+    return out
+
+
+def phase_free_timing(torch, dev):
+    """bench_nm_rosenbrock and bench_latency_single (chains of 4 solves,
+    a shorter chain than the benches' default of 64), bench_lm_fleet at
+    B = 4096, the row-layout arm of bench_pso_sann_100d at B = 256, each
+    the median of 2 runs after 1 warm-up (2 for bench_lm_fleet), and a
+    profile of each single solve."""
+    from nlsolver_torch.benches import (bench_latency_single, bench_lm_fleet, bench_nm_rosenbrock,
+                                        bench_pso_sann_100d, profile_latency_single,
+                                        profile_pso_sann_100d)
+
+    r = bench_nm_rosenbrock(runs=2, chain=4, warmup=1)
+    log(f"[24] {r['name']}: {r['nm_solve_time_us']:.1f} us a solve (min "
+        f"{r['nm_min_solve_time_us']:.1f}), {r['nm_iterations']} iterations from (-0.5, -0.5), "
+        f"{r['nm_iters_per_sec']:.6g} iterations/s over a chain of {r['chain']} "
+        f"({r['nm_chain_iterations']} iterations), f {r['nm_f_value']:.3e}")
+    check(r["nm_f_value"] < 1e-6, "bench_nm_rosenbrock: missed the minimum")
+    lat = bench_latency_single(runs=2, chain=4, warmup=1)
+    prof = profile_latency_single()
+    for tag in ("nm", "de", "bfgs"):
+        p = prof[tag]
+        log(f"[24] {lat['name']} {tag}: {lat[f'{tag}_solve_time_us']:.1f} us a solve, "
+            f"{lat[f'{tag}_us_per_iteration']:.1f} us an iteration ({lat[f'{tag}_iterations']} "
+            f"iterations from (-0.5, -0.5), f {lat[f'{tag}_f_value']:.3e}); profile of one solve: "
+            f"wall {p['wall_ms_per_step']:.3f} ms / {p['launches_per_step']:.1f} launches a host "
+            f"step, device busy {p['device_busy_ms']:.3f} of {p['wall_ms']:.3f} ms "
+            f"({p['busy_share']:.1%}); top {p['top_kernels'][:2]}")
+    lm = bench_lm_fleet(B=4096, runs=2)
+    log(f"[24] {lm['name']} B={lm['instances']}: fit_fleet ({lm['engine']}) "
+        f"{lm['fits_per_sec']:.6g} fits/s (median {lm['median_ms']:.3f} ms), fit_batched "
+        f"{lm['vmapped_scalar_fits_per_sec']:.6g} fits/s (median "
+        f"{lm['vmapped_scalar_median_ms']:.3f} ms), fleet {lm['fleet_speedup_vs_vmapped']:.2f}x; "
+        f"solved {lm['solved_frac']:.4f} / {lm['vmapped_scalar_solved_frac']:.4f}")
+    check(lm["solved_frac"] >= 0.99 and lm["vmapped_scalar_solved_frac"] >= 0.99,
+          "bench_lm_fleet: short of solved")
+    row = bench_pso_sann_100d(B=PSO_SANN_BS[0], dim=PSO_SANN_DIM, iters=PSO_SANN_ITERS, runs=2,
+                              fast=False, warmup=1)
+    rprof = profile_pso_sann_100d(B=PSO_SANN_BS[0], dim=PSO_SANN_DIM, iters=20, fast=False)
+    for name in ("pso_rastrigin", "pso_ackley", "sann_rastrigin"):
+        rate = row[f"{name}_{PSO_SANN_DIM}d_iters_per_sec"]
+        p = rprof[name]
+        log(f"[24] bench_pso_sann_100d(fast=False) B={PSO_SANN_BS[0]} {name}: {rate:.6g} instance "
+            f"iterations/s (median {row[f'{name}_median_ms']:.3f} ms for {PSO_SANN_ITERS} "
+            f"iterations), best value median {row[f'{name}_best_median']:.3f}; profile of 20 "
+            f"iterations: wall {p['wall_ms_per_iteration']:.4f} ms / device busy "
+            f"{p['device_busy_ms_per_iteration']:.4f} ms an iteration ({p['busy_share']:.1%}), "
+            f"{p['launches_per_iteration']:.1f} launches an iteration")
+        check(rate > 0 and row[f"{name}_best_median"] < 20.25 * PSO_SANN_DIM,
+              f"row {name}: no descent")
+
+
 def kernel_row(name, source, replaces, launches, max_err, times, bound_ms_by, issue_ms=None,
                shape=None):
     """One entry of the kernels line; ``issue_ms``, where phase 2 found it,
@@ -3082,6 +3423,8 @@ def main():
     phase(20, phase_pso_sann_timing, torch, dev)
     batch_launches = phase(21, phase_lane_solvers, torch, dev)
     batch = phase(22, phase_lane_solvers_timing, torch, dev)
+    phase(23, phase_free_solvers, torch, dev)
+    phase(24, phase_free_timing, torch, dev)
     # K4c on the single-instance BFGS's path (phase 21), beside its row
     # above at the public update's [65536, 16, 16]
     rows.append(kernel_row("rank2_update_batched_kernel", "nlsolver_torch/csrc/rank2.cu",

@@ -19,12 +19,15 @@ L-BFGS, L-BFGS-B, GD, CGD, LM) and the Brent-based ones (Brent,
 coordinate descent) on lane tensors
 (``minimize(fn, x0[n], method="bfgs")``, ``layout="batched"`` for
 ``x0[B, n]``), with their derivative providers (``deriv``) and the Armijo
-search; BFGS's update runs the leading-batch rank-2 kernel on the card.
-The kernels are CUDA C++ in ``csrc/``.  The package
+search; BFGS's update runs the leading-batch rank-2 kernel on the card;
+and the derivative-free single-instance solvers on lane tensors (Nelder-Mead,
+the default method of ``minimize(fn, x0)``, the row-layout DE, PSO and SANN,
+and the NM-PSO hybrid), with the API's ``methods()`` and its multistart
+(``restarts=``).  The kernels are CUDA C++ in ``csrc/``.  The package
 imports ``torch`` and never ``jax``.
 """
 from .api import (curve_fit, fit, fit_batched, fit_fleet, fit_fleet_sharded, fit_sharded,
-                  maximize, minimize, root, root_methods)
+                  maximize, methods, minimize, root, root_methods)
 from .core import Bounds, SolverResult
 from .problems import PROBLEMS
 from .deriv import Deriv
@@ -40,8 +43,10 @@ from .solvers.gd import GDConfig
 from .solvers.lbfgs import LBFGSConfig
 from .solvers.lbfgsb import LBFGSBConfig
 from .solvers.lm import LMConfig
+from .solvers.nelder_mead import NelderMeadConfig
 from .solvers.nlls import NLLSConfig
 from .solvers.nlls_fleet import NLLSFleetConfig
+from .solvers.nmpso import NMPSOConfig
 from .solvers.pso import PSOConfig
 from .solvers.rootfind import RootResult
 from .solvers.sann import SANNConfig
@@ -61,6 +66,8 @@ __all__ = [
     "LBFGSBConfig",
     "LBFGSConfig",
     "LMConfig",
+    "NMPSOConfig",
+    "NelderMeadConfig",
     "NLLSConfig",
     "NLLSFleetConfig",
     "PROBLEMS",
@@ -75,6 +82,7 @@ __all__ = [
     "fit_fleet_sharded",
     "fit_sharded",
     "maximize",
+    "methods",
     "minimize",
     "root",
     "root_methods",

@@ -1,52 +1,59 @@
 """Top-level user API (counterpart of ``nlsolver_tpu.api``).
 
+    result = nlsolver_torch.minimize(fn, x0[n])            # Nelder-Mead, the default
+
+    result = nlsolver_torch.minimize(fn, x0[n], method="bfgs", restarts=8,
+                                     restart_sampler="halton")
+
+    result = nlsolver_torch.minimize(fn, x0[B, n], method="nelder_mead", layout="batched")
+
     result = nlsolver_torch.minimize(fn, x0[B, n], method="de", layout="batched")
 
     result = nlsolver_torch.minimize(fn, x0[n, B], method="bfgs", layout="fleet")
 
     result = nlsolver_torch.minimize(fn, x0[n, B], method="cmaes", layout="fleet")
 
-    result = nlsolver_torch.minimize(fn, x0[B, n], method="pso", layout="batched")
-
-    result = nlsolver_torch.minimize(fn, x0[B, n], method="sann", layout="batched")
-
-    result = nlsolver_torch.minimize(fn, x0[n], method="bfgs")
-
-    result = nlsolver_torch.minimize(fn, x0[B, n], method="bfgs", layout="batched")
-
     result = nlsolver_torch.root(fn, lower[B], upper[B], method="brent")
 
-``minimize`` routes the engines listed in ``PORTED_ROUTES`` so far (the
-batched Differential Evolution fleet ``solvers.de_batched``, the
-batch-minor BFGS fleet ``solvers.bfgs_fleet``, the batch-minor CMA-ES
-fleet ``solvers.cmaes_fleet``, the lane fleets of PSO and SANN,
-``solvers.pso_batched`` and ``solvers.sann_batched``, and the
-single-instance solvers with derivatives and their Brent-based kin,
-``bfgs``, ``lbfgs``, ``lbfgsb``, ``gd``, ``cgd``, ``lm``, ``brent`` and
-``coordinate``, under ``layout="single"`` (one point ``x0 [n]``) and
-``layout="batched"`` (``x0 [B, n]``, every lane at once, as the JAX
-package's ``vmap`` of the single solver)); every other method or layout
-raises ``NotImplementedError`` naming the ported routes and the ROADMAP.md
-queue item that ports the one asked for.  The single-point objective of
-these routes may take per-lane data: ``data=`` (a tensor or tuple of
-tensors with the lane axis leading) makes it ``fn(x, data_b)``.  ``root``
-runs the seven 1-D root finders of ``solvers.rootfind`` on lane tensors.
-Start points that are a ``torch.Tensor`` keep their device (a CPU tensor
-asks for the CPU); anything else goes to the CUDA card, and raises when
-there is none.
-Nonlinear least squares is ``fit`` / ``fit_batched`` / ``curve_fit``
-(re-exported from ``solvers.nlls``) plus ``fit_fleet``, the batch-minor
-lane fleet with its ``solve`` backends (solvers/nlls_fleet.py).
+``methods()`` lists the solver modules, as the JAX package's does, and an
+unknown method raises its ``ValueError``.  ``layout="single"`` (one point
+``x0 [n]``) runs every method with a single-instance ``minimize``:
+``nelder_mead``, ``de``, ``pso``, ``sann``, ``nmpso``, ``cmaes`` and the
+solvers with derivatives and their Brent-based kin (``bfgs``, ``lbfgs``,
+``lbfgsb``, ``gd``, ``cgd``, ``lm``, ``brent``, ``coordinate``), each on
+lane tensors at B = 1.  ``restarts=k`` there is the multistart: x0 and
+k - 1 more starts (uniform in ``bounds``, else ``x0 +- restart_spread``,
+or on the Halton sequence with ``restart_sampler="halton"``) run as the
+lanes of one ``minimize_batched`` call (``cmaes``, which has no lane form,
+as a loop of single solves), the best final value picked, the counters
+summed.  ``layout="batched"`` (``x0 [B, n]``) takes ``de``, ``pso`` and
+``sann`` to their lane fleets (``solvers.de_batched``, ``pso_batched``,
+``sann_batched``) and every other single-instance solver but ``cmaes`` to
+its ``minimize_batched``, every lane at once as the JAX package's ``vmap``
+of the single solver; ``layout="fleet"`` (``x0 [n, B]``) takes ``bfgs`` and
+``cmaes`` to the batch-minor fleets.  The mesh layouts and ``cmaes`` under
+``"batched"`` raise ``NotImplementedError`` naming the ROADMAP.md item that
+ports them.  The single-point objective of the lane solvers may take
+per-lane data: ``data=`` (a tensor or tuple of tensors with the lane axis
+leading) makes it ``fn(x, data_b)``.  ``generator`` (a ``torch.Generator``
+on ``x0``'s device) takes the place of the JAX package's ``key``.  Start
+points that are a ``torch.Tensor`` keep their device (a CPU tensor asks for
+the CPU); anything else goes to the CUDA card, and raises when there is
+none.  ``root`` runs the seven 1-D root finders of ``solvers.rootfind`` on
+lane tensors.  Nonlinear least squares is ``fit`` / ``fit_batched`` /
+``curve_fit`` (re-exported from ``solvers.nlls``) plus ``fit_fleet``, the
+batch-minor lane fleet with its ``solve`` backends (solvers/nlls_fleet.py).
 """
 from __future__ import annotations
 
+import importlib
 from typing import Optional
 
 import torch
 
-from .core import Bounds, SolverResult, signed, start_points
-from .solvers import (bfgs, bfgs_fleet, brent, cgd, cmaes_fleet, coordinate, de_batched, gd, lbfgs,
-                      lbfgsb, lm, pso_batched, rootfind, sann_batched)
+from .core import Bounds, SolverResult, resolve_bounds, signed, start_points
+from .solvers import bfgs_fleet, cmaes_fleet, de_batched, pso_batched, rootfind, sann_batched
+from .solvers._lane import _each
 from .solvers.bfgs_fleet import BFGSFleetConfig
 from .solvers.cmaes_fleet import CMAESFleetConfig
 from .solvers.de import DEConfig
@@ -56,17 +63,152 @@ from .solvers.pso import PSOConfig
 from .solvers.sann import SANNConfig
 
 _LAYOUTS = ("single", "batched", "fleet", "sharded", "islands")
+# the solver modules by method name, the JAX package's list
+_METHODS = {name: importlib.import_module(f".solvers.{name}", __package__) for name in (
+    "nelder_mead", "de", "de_batched", "pso", "pso_batched", "sann", "sann_batched", "nmpso", "gd",
+    "cgd", "bfgs", "bfgs_fleet", "lm", "nlls", "brent", "cmaes", "cmaes_fleet", "lbfgs", "lbfgsb",
+    "coordinate")}
 
-# the single-instance solvers on lane tensors, by method: each takes
-# layout="single" (minimize, x0 [n]) and layout="batched"
-# (minimize_batched, x0 [B, n])
-_LANE_SOLVERS = {"bfgs": bfgs, "lbfgs": lbfgs, "lbfgsb": lbfgsb, "gd": gd, "cgd": cgd, "lm": lm,
-                 "brent": brent, "coordinate": coordinate}
-# the (method, layout) routes that minimize and maximize take; the module
-# docstring and the NotImplementedError text name them from here
+
+def methods():
+    return sorted(_METHODS)
+
+
+def _resolve(method: str):
+    try:
+        return _METHODS[method]
+    except KeyError:
+        raise ValueError(
+            f"unknown method {method!r}; available methods: "
+            f"{', '.join(sorted(_METHODS))}"
+        ) from None
+
+
+# the single-instance solvers on lane tensors: minimize (x0 [n]) and
+# minimize_batched (x0 [B, n]); those that draw take generator=
+_LANE_SOLVERS = ("nelder_mead", "de", "pso", "sann", "nmpso", "bfgs", "lbfgs", "lbfgsb", "gd",
+                 "cgd", "lm", "brent", "coordinate")
+_DRAWING = ("de", "pso", "sann", "nmpso", "gd", "cmaes")
+# layout="batched": the lane-axis fleet and its default config, by method
+_BATCHED = {
+    "de": (de_batched, DEConfig),
+    "de_batched": (de_batched, DEConfig),
+    "pso": (pso_batched, PSOConfig),
+    "pso_batched": (pso_batched, PSOConfig),
+    "sann": (sann_batched, SANNConfig),
+    "sann_batched": (sann_batched, SANNConfig),
+}
+# the (method, layout) routes that minimize and maximize take; the
+# NotImplementedError text names them from here
 PORTED_ROUTES = ((("de", "batched"), ("bfgs", "fleet"), ("cmaes", "fleet"), ("pso", "batched"),
-                  ("sann", "batched"))
-                 + tuple((m, lay) for m in _LANE_SOLVERS for lay in ("single", "batched")))
+                  ("sann", "batched"), ("cmaes", "single"))
+                 + tuple((m, "single") for m in _LANE_SOLVERS)
+                 + tuple((m, "batched") for m in _LANE_SOLVERS if m not in _BATCHED))
+
+
+def _halton_unit(k: int, n: int):
+    """Static [k, n] Halton points in (0, 1)^n: the reference's own
+    low-discrepancy generator (nlsolver::rng::halton, prime-base radical
+    inverse), used to place restart starts; stratified, deterministic, so
+    the starts do not depend on the generator."""
+    import numpy as np
+
+    primes = []
+    c = 2
+    while len(primes) < n:
+        if all(c % p for p in primes):
+            primes.append(c)
+        c += 1
+
+    def radical_inverse(i, base):
+        f, r = 1.0, 0.0
+        while i > 0:
+            f /= base
+            r += f * (i % base)
+            i //= base
+        return r
+
+    return np.asarray(
+        [[radical_inverse(i + 1, p) for p in primes] for i in range(k)],
+        dtype=np.float64,
+    )
+
+
+def _single_hint(method: str) -> str:
+    return {
+        "de_batched": "use method='de' with layout='batched'",
+        "pso_batched": "use method='pso' with layout='batched'",
+        "sann_batched": "use method='sann' with layout='batched'",
+        "bfgs_fleet": "use method='bfgs' with layout='fleet'",
+        "nlls": "use nlsolver_torch.fit / fit_batched / curve_fit",
+    }.get(method, "see nlsolver_torch.methods()")
+
+
+def _lane_call(method, mod, fn, x0, config, bounds, generator, layout, _minimize, kwargs):
+    if method in _DRAWING:
+        kwargs = dict(kwargs, generator=generator)
+    if config is not None:
+        kwargs = dict(kwargs, config=config)
+    if layout == "single":
+        if method == "cmaes":
+            x0 = start_points(x0)
+            if x0.ndim != 1:
+                raise ValueError(f"a single start point is [n], got {tuple(x0.shape)}")
+        return mod.minimize(fn, x0, bounds=bounds, _minimize=_minimize, **kwargs)
+    return mod.minimize_batched(fn, x0, bounds=bounds, _minimize=_minimize, **kwargs)
+
+
+def _multistart(method, mod, fn, x0, config, bounds, generator, restarts, spread, sampler,
+                _minimize, kwargs) -> SolverResult:
+    """Best-of-``restarts``: the user's x0 plus ``restarts - 1`` starts, as
+    the lanes of one ``minimize_batched`` call where the method has a lane
+    form (``cmaes``, which has none, as a loop of single solves), reduced
+    by the best final value.  Starts are uniform inside ``bounds`` when
+    given, else ``x0 + U(-spread, spread)^n``, or placed on the Halton
+    sequence (``sampler="halton"``).  The counters are summed over every
+    start (``solver_status.add``, nlsolver.h:2084-2091); ``x``,
+    ``f_value`` and ``converged`` are the winning start's, a NaN value
+    never winning."""
+    if restarts < 2:
+        raise ValueError(f"restarts must be >= 2, got {restarts}")
+    if sampler not in ("uniform", "halton"):
+        raise ValueError(
+            f"restart_sampler must be 'uniform' or 'halton', got {sampler!r}"
+        )
+    x0 = start_points(x0)
+    if generator is None:
+        generator = torch.Generator(device=x0.device).manual_seed(0)
+    n = x0.shape[-1] if x0.ndim else 1
+    shape = (restarts,) + tuple(x0.shape)
+    if sampler == "halton":
+        unit = torch.as_tensor(_halton_unit(restarts, n).reshape(shape), dtype=x0.dtype,
+                               device=x0.device)
+    else:
+        unit = torch.rand(shape, generator=generator, dtype=x0.dtype, device=x0.device)
+    if bounds is not None:
+        lo, hi, _ = resolve_bounds(bounds, x0)
+        starts = lo + (hi - lo) * unit
+    else:
+        starts = x0 + spread * (2.0 * unit - 1.0)
+    starts[0] = x0
+    if method in _LANE_SOLVERS:
+        if "data" in kwargs:
+            kwargs = dict(kwargs, data=_each(kwargs["data"], lambda d: torch.as_tensor(d)[None]
+                                             .expand((restarts,) + tuple(torch.as_tensor(d).shape))))
+        res = _lane_call(method, mod, fn, starts, config, bounds, generator, "batched",
+                         _minimize, kwargs)
+    else:
+        runs = [_lane_call(method, mod, fn, starts[i], config, bounds, generator, "single",
+                           _minimize, kwargs) for i in range(restarts)]
+        res = SolverResult(*(torch.stack(f) for f in zip(*runs)))
+    fv = res.f_value
+    if _minimize:
+        pick = torch.where(torch.isnan(fv), torch.inf, fv).argmin()
+    else:
+        pick = torch.where(torch.isnan(fv), -torch.inf, fv).argmax()
+    total = {f: getattr(res, f).sum().to(torch.int32)
+             for f in ("iterations", "function_calls", "gradient_calls", "hessian_calls")}
+    return SolverResult(*(f[pick] for f in res))._replace(**total)
 
 
 def _bfgs_fleet(fn, x0, config, bounds, _minimize, kwargs):
@@ -101,36 +243,20 @@ def _cmaes_fleet(fn, x0, config, bounds, generator, _minimize, kwargs):
     return res if _minimize else res._replace(f_value=-res.f_value)
 
 
-# layout="batched": the lane-axis engine and its default config, by method
-_BATCHED = {
-    "de": (de_batched, DEConfig),
-    "de_batched": (de_batched, DEConfig),
-    "pso": (pso_batched, PSOConfig),
-    "pso_batched": (pso_batched, PSOConfig),
-    "sann": (sann_batched, SANNConfig),
-    "sann_batched": (sann_batched, SANNConfig),
-}
-
-
-def _lane_solver(fn, x0, method, config, bounds, generator, layout, _minimize, restarts, kwargs):
-    if restarts > 1:
-        raise NotImplementedError(
-            "restarts= (the single-instance multistart) is not ported to nlsolver_torch yet; "
-            "ROADMAP.md Queue 1 item 6 (single-instance solvers and the API) ports it")
-    mod = _LANE_SOLVERS[method]
-    if method == "gd":
-        kwargs = dict(kwargs, generator=generator)
-    if config is not None:
-        kwargs = dict(kwargs, config=config)
-    run = mod.minimize if layout == "single" else mod.minimize_batched
-    return run(fn, x0, bounds=bounds, _minimize=_minimize, **kwargs)
+def _not_ported(method, layout, where):
+    raise NotImplementedError(
+        f"method={method!r} with layout={layout!r} is not ported to "
+        f"nlsolver_torch yet; ROADMAP.md {where} ports it. Ported: "
+        + ", ".join(f"method={m!r} with layout={lay!r}" for m, lay in PORTED_ROUTES)
+    )
 
 
 def _dispatch(fn, x0, method, config, bounds, generator, layout, _minimize, kwargs):
-    # the single-instance multistart options, which only layout="single" runs
+    mod = _resolve(method)
+    verb = "minimize" if _minimize else "maximize"
     restarts = kwargs.pop("restarts", 1)
-    kwargs.pop("restart_spread", None)
-    kwargs.pop("restart_sampler", None)
+    spread = kwargs.pop("restart_spread", 10.0)
+    sampler = kwargs.pop("restart_sampler", "uniform")
     if layout not in _LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; one of {_LAYOUTS}")
     if restarts > 1 and layout != "single":
@@ -139,6 +265,16 @@ def _dispatch(fn, x0, method, config, bounds, generator, layout, _minimize, kwar
             f"layout={layout!r} is already multi-instance — run it with "
             "more lanes instead"
         )
+    if layout == "single":
+        if getattr(mod, verb, None) is None:
+            raise ValueError(
+                f"method {method!r} has no single-instance {verb}; {_single_hint(method)}"
+            )
+        if restarts > 1:
+            return _multistart(method, mod, fn, x0, config, bounds, generator, restarts, spread,
+                               sampler, _minimize, kwargs)
+        return _lane_call(method, mod, fn, x0, config, bounds, generator, layout, _minimize,
+                          kwargs)
     if layout == "fleet" and method not in ("cmaes", "cmaes_fleet", "bfgs", "bfgs_fleet"):
         raise ValueError(
             f"layout='fleet' supports method='bfgs' (batch-minor lane "
@@ -148,12 +284,12 @@ def _dispatch(fn, x0, method, config, bounds, generator, layout, _minimize, kwar
         )
     if layout == "fleet" and method in ("cmaes", "cmaes_fleet"):
         return _cmaes_fleet(fn, x0, config, bounds, generator, _minimize, kwargs)
-    if layout == "fleet" and method in ("bfgs", "bfgs_fleet"):
+    if layout == "fleet":
         return _bfgs_fleet(fn, x0, config, bounds, _minimize, kwargs)
-    if layout in ("single", "batched") and method in _LANE_SOLVERS:
-        return _lane_solver(fn, x0, method, config, bounds, generator, layout, _minimize,
-                            restarts, kwargs)
-    if layout == "batched" and method in _BATCHED:
+    if layout in ("sharded", "islands"):
+        _not_ported(method, layout, "Queue 1 item 9 (mesh engines)")
+    # layout="batched"
+    if method in _BATCHED:
         x0 = start_points(x0)
         if x0.ndim != 2:
             raise ValueError(f"layout='batched' expects a 2-D x0, got {tuple(x0.shape)}")
@@ -162,15 +298,13 @@ def _dispatch(fn, x0, method, config, bounds, generator, layout, _minimize, kwar
         return engine.minimize_batched(
             fn, x0, cfg, bounds, generator=generator, _minimize=_minimize, **kwargs
         )
-    if layout in ("sharded", "islands"):
-        where = "Queue 1 item 9 (mesh engines)"
-    else:
-        where = "Queue 1 item 6 (single-instance solvers and the API)"
-    raise NotImplementedError(
-        f"method={method!r} with layout={layout!r} is not ported to "
-        f"nlsolver_torch yet; ROADMAP.md {where} ports it. Ported: "
-        + ", ".join(f"method={m!r} with layout={lay!r}" for m, lay in PORTED_ROUTES)
-    )
+    if method in _LANE_SOLVERS:
+        return _lane_call(method, mod, fn, x0, config, bounds, generator, layout, _minimize,
+                          kwargs)
+    if method == "cmaes":
+        _not_ported(method, layout, "Queue 1 item 11 (the CMA-ES on lane tensors; many "
+                                    "strategies at once run on layout='fleet')")
+    raise ValueError(f"method {method!r} has no batched {verb}; {_single_hint(method)}")
 
 
 def minimize(

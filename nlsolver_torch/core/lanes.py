@@ -42,6 +42,24 @@ class Lanes:
         """``[B, n] -> [B]``."""
         return self.map(_same, X)
 
+    def points(self, X: torch.Tensor) -> torch.Tensor:
+        """Several points of each lane, ``[B, K, n] -> [B, K]``: a simplex,
+        a population.  Without data, one ``vmap`` over all B K points."""
+        B, K, n = X.shape
+        if self.data is None:
+            return vmap(self.fn)(X.reshape(B * K, n)).reshape(B, K)
+        fn = self.fn
+        return vmap(lambda xs, d: vmap(lambda p: fn(p, d))(xs))(X, self.data)
+
+    def grid(self, A: torch.Tensor) -> torch.Tensor:
+        """Several points of each lane, batch-minor as the lane fleets keep
+        them: ``[n, K, B] -> [K, B]``.  Without data, one ``vmap`` over the
+        K B columns."""
+        n, K, B = A.shape
+        if self.data is None:
+            return vmap(self.fn, in_dims=1)(A.reshape(n, K * B)).reshape(K, B)
+        return self.points(A.permute(2, 1, 0)).T
+
     def columns(self, make_point: Optional[Callable] = None):
         """The column form of the fleets' line search: ``[n, B] -> [B]``,
         and with ``make_point`` (a single-point gradient maker)

@@ -22,7 +22,12 @@ state under ``jax.vmap`` (a leading lane axis): ``bfgs_state_*``,
 ``lbfgs_state_*``, ``lbfgsb_state_*``, ``gd_state_*`` (the JAX state's
 per-lane ``key`` has no counterpart and is dropped: ``gd.step`` takes its
 draws or a generator), ``cgd_state_*``, ``lm_state_*`` and ``cd_state_*``
-(coordinate descent).  None of them imports JAX.
+(coordinate descent).  So do those of the derivative-free ones:
+``nm_state_*`` (Nelder-Mead's ``NMState``), ``de_row_state_*`` (the
+row-layout DE's ``DEState``), ``pso_state_*``, ``sann_state_*`` and
+``nmpso_state_*``; the JAX states' per-lane ``key`` has no counterpart and
+is dropped (their ``step`` takes its draws or a generator).  None of them
+imports JAX.
 """
 from __future__ import annotations
 
@@ -38,6 +43,11 @@ from .solvers.lbfgs import LBFGSState
 from .solvers.lbfgsb import LBFGSBState
 from .solvers.lm import LMState
 from .solvers.cmaes_fleet import CMAESFleetState
+from .solvers.de import DEState
+from .solvers.nelder_mead import NMState
+from .solvers.nmpso import NMPSOState
+from .solvers.pso import PSOState
+from .solvers.sann import SANNState
 from .solvers.de_batched import DEBatchState
 from .solvers.nlls_fleet import NLLSFleetState
 from .solvers.pso_batched import PSOBatchState
@@ -183,4 +193,49 @@ def cd_state_from_numpy(fields: dict, device) -> CDState:
 
 
 def cd_state_to_numpy(state: CDState) -> dict:
+    return _state_to_numpy(state)
+
+
+def nm_state_from_numpy(fields: dict, device) -> NMState:
+    return _state_from_numpy(NMState, "Nelder-Mead", fields, device)
+
+
+def nm_state_to_numpy(state: NMState) -> dict:
+    return _state_to_numpy(state)
+
+
+def de_row_state_from_numpy(fields: dict, device) -> DEState:
+    """The JAX row-layout ``DEState``'s fields less its ``key``, which is
+    dropped."""
+    return _state_from_numpy(DEState, "DE", fields, device)
+
+
+def de_row_state_to_numpy(state: DEState) -> dict:
+    return _state_to_numpy(state)
+
+
+def pso_state_from_numpy(fields: dict, device) -> PSOState:
+    """The JAX ``PSOState``'s fields less its ``key``, which is dropped."""
+    return _state_from_numpy(PSOState, "PSO", fields, device)
+
+
+def pso_state_to_numpy(state: PSOState) -> dict:
+    return _state_to_numpy(state)
+
+
+def sann_state_from_numpy(fields: dict, device) -> SANNState:
+    """The JAX ``SANNState``'s fields less its ``key``, which is dropped."""
+    return _state_from_numpy(SANNState, "SANN", fields, device)
+
+
+def sann_state_to_numpy(state: SANNState) -> dict:
+    return _state_to_numpy(state)
+
+
+def nmpso_state_from_numpy(fields: dict, device) -> NMPSOState:
+    """The JAX ``NMPSOState``'s fields less its ``key``, which is dropped."""
+    return _state_from_numpy(NMPSOState, "NM-PSO", fields, device)
+
+
+def nmpso_state_to_numpy(state: NMPSOState) -> dict:
     return _state_to_numpy(state)

@@ -24,6 +24,7 @@ def distinct_indices(
     pop_size: int,
     fixed: torch.Tensor,
     k: int = 3,
+    raw: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Draw ``k`` mutually distinct indices in ``[0, pop_size)``, each also
     distinct from ``fixed``.
@@ -36,6 +37,10 @@ def distinct_indices(
 
     Args:
       fixed: integer tensor of reserved indices, any shape.
+      raw: the draws before the shift, ``fixed.shape + (k,)``, draw j
+        uniform in ``[0, pop_size - 1 - j)`` (the JAX sampler's
+        ``randint`` draws of ``split(key, k)``); ``generator`` draws them
+        when it is None.
     Returns:
       int64 tensor of shape ``fixed.shape + (k,)``.
     """
@@ -45,10 +50,13 @@ def distinct_indices(
     exclusions = fixed[..., None]
     out = []
     for j in range(k):
-        r = torch.randint(
-            0, pop_size - 1 - j, fixed.shape, generator=generator,
-            device=fixed.device,
-        )
+        if raw is None:
+            r = torch.randint(
+                0, pop_size - 1 - j, fixed.shape, generator=generator,
+                device=fixed.device,
+            )
+        else:
+            r = raw[..., j].to(torch.int64)
         sorted_ex = exclusions.sort(dim=-1).values
         for e in range(sorted_ex.shape[-1]):
             r = r + (r >= sorted_ex[..., e]).to(torch.int64)

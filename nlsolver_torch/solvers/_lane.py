@@ -4,6 +4,8 @@ batch (``minimize_batched``, ``jax.vmap`` of the JAX ``minimize``), the
 result, and the refusal of ``bounds`` by the unconstrained solvers."""
 from __future__ import annotations
 
+from typing import Any, NamedTuple
+
 import torch
 
 from ..core import SolverResult, make_result, start_points
@@ -59,6 +61,75 @@ def finalize(lanes: Lanes, state, flip_sign: bool, *, function_calls, gradient_c
         hessian_calls=per_lane(hessian_calls),
         converged=state.converged,
     )
+
+
+def lane_result(x, f_val, state, flip_sign: bool) -> SolverResult:
+    """The result of every lane of a derivative-free solver: ``x [B, n]``,
+    ``f_val [B]``, the state's iterations, calls and flag, no gradient or
+    Hessian calls."""
+    zeros = torch.zeros_like(state.iteration)
+    return make_result(x=x, f_value=-f_val if flip_sign else f_val, iterations=state.iteration,
+                       function_calls=state.nfev, gradient_calls=zeros, hessian_calls=zeros,
+                       converged=state.converged)
+
+
+def gather_lanes(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row ``idx[b]`` of each lane: ``a [B, K, ...]``, ``idx [B]`` ->
+    ``[B, ...]`` (``a[idx]`` of one lane under ``jax.vmap``)."""
+    return a[torch.arange(a.shape[0], device=a.device), idx]
+
+
+class Draws(NamedTuple):
+    """A run's draws, injected to replay a trajectory: ``init`` what the
+    solver's ``init`` takes (lane axis leading), ``steps`` its ``step``
+    draws with a leading axis T, lane b reading row ``iteration[b]`` (in
+    the JAX package, lane b's key chain: its key splits only on the steps
+    the lane takes)."""
+
+    init: Any
+    steps: Any
+
+
+def _tree(x, fn):
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        return type(x)(*(_tree(a, fn) for a in x)) if hasattr(x, "_fields") else \
+            tuple(_tree(a, fn) for a in x)
+    return fn(x)
+
+
+def step_rows(steps, iteration: torch.Tensor):
+    """This step's draws of every lane: row ``iteration[b]`` of each
+    ``[T, B, ...]`` tensor of ``steps`` for lane b."""
+    lane = torch.arange(iteration.shape[0], device=iteration.device)
+
+    def pick(a):
+        return a[iteration.long().clamp(max=a.shape[0] - 1), lane]
+
+    return _tree(steps, pick)
+
+
+def reversed_axes(tree):
+    """Every tensor of ``tree`` with its axes in reverse order, a view: a
+    lane-leading ``[B, P, n]`` as the batch-minor fleets' ``[n, P, B]``, and
+    back."""
+    return _tree(tree, lambda a: a.permute(*range(a.ndim - 1, -1, -1)))
+
+
+def draws_on(draws, device):
+    """``draws`` with every tensor on ``device``."""
+    return _tree(draws, lambda a: torch.as_tensor(a).to(device))
+
+
+def one_lane(draws):
+    """The draws of one start point (no lane axis) as a batch of one
+    lane: ``init`` tensors gain a leading axis, ``steps`` tensors one after
+    T."""
+    if draws is None:
+        return None
+    return Draws(_tree(draws.init, lambda a: torch.as_tensor(a)[None]),
+                 _tree(draws.steps, lambda a: torch.as_tensor(a)[:, None]))
 
 
 def _each(data, fn):

@@ -237,8 +237,8 @@ def minimize_batched(
     ``max_iter + 1`` generations: by then every lane has stopped."""
     if bounds is not None:
         raise ValueError(
-            "the lane-axis DE engine is unbounded; bounded batches wait "
-            "for the single-instance DE solver (ROADMAP.md Queue 1 item 6)"
+            "the lane-axis DE engine is unbounded, as is the row-layout DE (x0 is a "
+            "per-dimension width); for a box use method='pso' or 'nmpso' with bounds="
         )
     if generator is None:
         generator = torch.Generator(device=x0.device).manual_seed(0)

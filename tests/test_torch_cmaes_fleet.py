@@ -307,7 +307,15 @@ def test_api_route_minimizes_and_maximizes():
     assert bool(res.converged.all()) and float(res.x.abs().max()) <= 1e-2
     with pytest.raises(ValueError, match="expects a 2-D x0"):
         nt.minimize(rosen, X0[0], method="cmaes", layout="fleet")
-    with pytest.raises(NotImplementedError, match="method='cmaes' with layout='fleet'"):
+    # layout="single" is the single-instance CMA-ES on one point [n]
+    from nlsolver_torch.solvers import cmaes as tc
+
+    one = nt.minimize(rosen, X0[:, 0], method="cmaes", layout="single",
+                      config=nt.CMAESConfig(max_iter=50), generator=torch.Generator().manual_seed(5))
+    want = tc.minimize(rosen, X0[:, 0], nt.CMAESConfig(max_iter=50),
+                       generator=torch.Generator().manual_seed(5))
+    assert all(torch.equal(a, b) for a, b in zip(one, want))
+    with pytest.raises(ValueError, match="a single start point is"):
         nt.minimize(rosen, X0, method="cmaes", layout="single")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="x0 is not a torch.Tensor and there is no CUDA"):

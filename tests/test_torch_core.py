@@ -235,3 +235,34 @@ def test_objective_contract_takes_what_jax_users_write():
                 got = tc.batch_eval(prob.fn, t).numpy()
                 np.testing.assert_allclose(got, [float(prob.fn(row)) for row in t], rtol=1e-15,
                                            err_msg=name)
+
+
+@pytest.mark.parametrize("with_data", [False, True])
+def test_lanes_points_score_each_lanes_points(with_data):
+    """``Lanes.points`` ([B, K, n] -> [B, K]) against the objective called
+    point by point, with per-lane data and without."""
+    from nlsolver_torch.core.lanes import Lanes
+
+    rng = np.random.default_rng(3)
+    X = torch.from_numpy(rng.standard_normal((4, 5, 3)))
+    c = torch.from_numpy(rng.standard_normal((4, 3)))
+    if with_data:
+        lanes = Lanes(lambda x, d: ((x - d) ** 2).sum(), c)
+        want = torch.stack([torch.stack([((X[b, k] - c[b]) ** 2).sum() for k in range(5)])
+                            for b in range(4)])
+    else:
+        lanes = Lanes(lambda x: (x ** 2).sum() + x[0])
+        want = torch.stack([torch.stack([(X[b, k] ** 2).sum() + X[b, k, 0] for k in range(5)])
+                            for b in range(4)])
+    assert torch.equal(lanes.points(X), want)
+
+
+def test_vertex_sum_adds_in_index_order_as_jax_sums():
+    """The simplex's vertices added in index order equal ``jnp.sum`` over
+    the vertex axis bit for bit on the CPU (the order the card keeps too)."""
+    from nlsolver_torch.solvers.nelder_mead import vertex_sum
+
+    rng = np.random.default_rng(4)
+    X = rng.standard_normal((64, 6, 5)) * np.logspace(-8, 8, 6)[None, :, None]
+    want = np.asarray(jax.vmap(lambda s: jnp.sum(s, axis=0))(X))
+    np.testing.assert_array_equal(vertex_sum(torch.from_numpy(X)).numpy(), want)

@@ -190,14 +190,17 @@ def test_minimize_fused_route_and_maximize():
 
 
 def test_route_rejects_bounds_and_unported_methods():
+    """The lane fleet refuses bounds and names routes that take a box;
+    Nelder-Mead runs under both layouts."""
     x0 = torch.full((4, 2), -0.5)
     fn = nt.PROBLEMS["sphere"].fn
-    with pytest.raises(ValueError, match="unbounded"):
+    with pytest.raises(ValueError, match="unbounded") as refused:
         nt.minimize(fn, x0, method="de", layout="batched", bounds=(-1.0, 1.0))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        nt.minimize(fn, x0, method="nelder_mead", layout="batched")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        nt.minimize(fn, x0[0], method="nelder_mead")
+    assert "method='pso' or 'nmpso' with bounds=" in str(refused.value)
+    many = nt.minimize(fn, x0, method="nelder_mead", layout="batched")
+    one = nt.minimize(fn, x0[0], method="nelder_mead")
+    assert many.x.shape == (4, 2) and one.x.shape == (2,)
+    assert float(many.f_value.max()) < 1e-8 and float(one.f_value) < 1e-8
     with pytest.raises(ValueError, match="layout"):
         nt.minimize(fn, x0, method="de", layout="diagonal")
 

@@ -86,6 +86,25 @@ SCRIPT = textwrap.dedent(
     res = nt.minimize(lambda t: (t - 0.25) ** 2, torch.zeros(4, 1, dtype=torch.float64),
                       method="brent", layout="batched")
     assert float((res.x - 0.25).abs().max()) < 1e-8
+    # the derivative-free single-instance solvers, the default method, the
+    # multistart and methods()
+    rosen = lambda x: 100.0 * (x[0] ** 2 - x[1]) ** 2 + (x[0] - 1.0) ** 2  # noqa: E731
+    res = nt.minimize(rosen, torch.tensor([-0.5, -0.5], dtype=torch.float64))
+    assert float(res.f_value) < 1e-8 and int(res.iterations) > 0
+    res = nt.minimize(rosen, torch.tensor([-0.5, -0.5], dtype=torch.float64), method="bfgs",
+                      restarts=4, restart_sampler="halton")
+    assert res.x.shape == (2,) and bool(torch.isfinite(res.f_value))
+    for method, cfg in (("de", nt.DEConfig(pop_size=8, max_iter=20)),
+                        ("pso", nt.PSOConfig(max_iter=20)), ("sann", nt.SANNConfig(max_iter=5)),
+                        ("nmpso", nt.NMPSOConfig(max_iter=20)), ("nelder_mead", None),
+                        ("cmaes", nt.CMAESConfig(max_iter=10))):
+        one = nt.minimize(bowl, torch.zeros(3, dtype=torch.float64), method=method, config=cfg)
+        assert one.x.shape == (3,) and bool(torch.isfinite(one.f_value)), method
+    for method in ("nelder_mead", "nmpso"):
+        many = nt.maximize(lambda x: -bowl(x), torch.ones(2, 3, dtype=torch.float64),
+                           method=method, layout="batched")
+        assert float((many.x - 0.5).abs().max()) < 1e-2, method
+    assert "nelder_mead" in nt.methods() and len(nt.methods()) == 20
     assert not any(m == "jax" or m.startswith(("jax.", "nlsolver_tpu"))
                    for m in sys.modules if sys.modules[m] is not None)
     print("ok")
