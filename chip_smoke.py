@@ -119,8 +119,17 @@ Phases, each fatal on failure:
      K4b at n = 16 where it must equal K4a bit for bit, at n = 45 and at
      the first n past K4b-t's range; the dispatcher's choice at both ends of
      K4b-c's range and of K4b-t's on 5, 256 and 4096 lanes (it shrinks as B
-     grows); K4c (leading-batch update) at [65536, 16,
-     16] and [4096, 64, 64]; a non-contiguous and an f16 input refused;
+     grows); K4c (leading-batch update) through the dispatcher in each
+     of its forms, each against its twin and, by a direct call of another
+     form that takes n, bit for bit: K4c-r (a thread a row in registers)
+     at the single-instance BFGS's [10000, 16, 16] f32, at [65536, 16, 16]
+     f32 (equal to K4a off the reset lanes), at the restarts' [8, 2, 2] f32
+     and at [8, 2, 2] f64, each equal to K4c-w (a warp an instance) and to
+     its own other way (rows staged or straight); K4c-w at [1001, 16,
+     16] f64, equal to K4c-r, and at [1001, 33, 33] f64, equal to K4c-g
+     (two passes through device memory); K4c-g at [4096, 64, 64] f32,
+     equal to K4c-w, and at [256, 256, 256] f32 and [64, 200, 200] f64; a
+     non-contiguous and an f16 input refused;
  12. the BFGS slice: minimize(method="bfgs", layout="fleet") on 65536
      16-D bowls with more_thuente and with speculative, K4a launches equal
      to the host steps, every lane halted by a tolerance before max_iter,
@@ -130,12 +139,15 @@ Phases, each fatal on failure:
      (n=128, B=4096) that reaches K4b-c through the dispatcher, and two past
      K4b-c's range (n=225 and n=320, B=256) that reach K4b-t; K4b once by a
      direct call at [225, 225, 256];
-     one leading-batch update through ops.rank2_update_batched (K4c);
+     one leading-batch update through ops.rank2_update_batched (K4c-r);
+     K4c-w by a direct call at [10000, 16, 16];
  13. BFGS timing: bench_bfgs_fleet per line search (median of 3 after 1
      warm-up, ABBA order), and K4a, K4b-c (at [128, 128, 4096], and on
      clusters of 16 at [225, 225, 256]), K4b-t and K4b (at [225, 225, 256]
-     and [320, 320, 256], and K4b beside K4b-c) and K4c alone against their
-     twins from CUDA events;
+     and [320, 320, 256], and K4b beside K4b-c), K4c-r (both of its ways,
+     staged and straight) and K4c-w at [10000, 16, 16] and [65536, 16,
+     16] and K4c-g at [256, 256, 256] alone against their twins from CUDA
+     events;
  14. K5 (batched Jacobi eigensolver) equal to its twin bit for bit in all
      four forms: K5r (registers) at [16, 16, 65536] f32 with 8 sweeps,
      [17, 17, 4096], [2, 2, 65536], [8, 8, 4096] f64, [16, 16, 4099] in f32
@@ -195,8 +207,10 @@ Phases, each fatal on failure:
  21. the single-instance solvers on lane tensors: minimize(method="bfgs",
      layout="batched") on config #4a's 10000 16-D bowls (f32, max_iter=30,
      the centers and scales through data=), K4c launched once a host step
-     and no other kernel, solved share at least 0.999, its first 2048
-     lanes against the same call on the host; lbfgs, lbfgsb (in a box that
+     in its form K4c-r and no other kernel, solved share at least 0.999,
+     its first 2048 lanes against the same call on the host; a wide arm of
+     256 bowls of 256 dimensions, K4c-g once a host step and no other
+     kernel, 4 lanes against the host; lbfgs, lbfgsb (in a box that
      binds), gd, cgd, lm and coordinate on 1024 of the bowls, each to its
      minimum, and on 256 in f64 against the host (counters equal but
      coordinate's function calls, which are reported); brent on 1024 1-D
@@ -204,9 +218,8 @@ Phases, each fatal on failure:
      DE routes on Rosenbrock written on one point at B = n = 2, f_value
      the objective at x;
  22. timing: bench_bfgs_batch (median of 5 after 2 warm-ups) beside
-     bench_bfgs_fleet on the same 10000 bowls, profile_bfgs_batch, and K4c
-     alone at the batch's [10000, 16, 16] against its twin behind a device
-     sleep;
+     bench_bfgs_fleet on the same 10000 bowls, profile_bfgs_batch, and
+     its wide arm (256 bowls of 256 dimensions, K4c-g);
  23. the derivative-free single-instance solvers on lane tensors (no
      kernel): nelder_mead (both variants), the row-layout de, pso (vanilla,
      and accelerated in a box), sann and nmpso on 384 lanes of 4-D bowls,
@@ -217,8 +230,8 @@ Phases, each fatal on failure:
      free_limits of the readings in FREE_READ32), and lane 0 alone through
      minimize(fn, x0[n]) against the batch's; minimize(rosen, [-0.5, -0.5])
      with no method named; restarts=8 on Halton starts for nelder_mead and
-     bfgs against the host, K4c launched once a host step of the bfgs
-     restart lanes;
+     bfgs against the host, K4c (K4c-r) launched once a host step of the
+     bfgs restart lanes;
  24. timing (the median of 2 runs): bench_nm_rosenbrock and
      bench_latency_single (NM, DE, BFGS) as chains of 4 dependent solves
      (the benches' default is 64), a
@@ -254,6 +267,8 @@ BFGS_B, BFGS_N = 65536, 16     # the BFGS fleet: bowls, dimensions
 WIDE_B, WIDE_N = 4096, 128     # the wide BFGS fleet, beyond K4a's resident slab (K4b-c)
 WIDE_K4B_B, WIDE_K4B_N = 256, 225  # a wide BFGS fleet past K4b-c's range in f32 (K4b-t)
 STREAM_N = 320                 # a wide BFGS fleet past a cluster of 16's rows (B = WIDE_K4B_B)
+K4CG_N, K4CG_B = 256, 256      # the single-instance BFGS's wide arm, past K4c-w's block (K4c-g)
+K4C = {"rows": "K4c-r", "warp": "K4c-w", "global": "K4c-g"}  # K4c's forms by batched_form's names
 CHEB_SHARED = (12, 32, 16384)  # Chebyshev NLLS fleets: coefficients, points, fits; through
 CHEB_WARP = (30, 48, 4096)     # K2b's shared-memory and warp forms (float32), and past the
 CHEB_CLUSTER = (120, 128, 256)  # warp form's range in float64 through its cluster form
@@ -626,9 +641,11 @@ def phase_build():
              "least_squares_distributed_kernel": ("K2b-d", "IdE"),        # <double>, its path's
              "chol_distributed_kernel": ("K3-d", "IdE"),                  # <double>, its path's
              "qr_cluster_kernel": ("K2a-c", "IfE"),                       # <float>, its path's
-             "qr_distributed_kernel": ("K2a-d", "IdE")}                   # <double>, its path's
+             "qr_distributed_kernel": ("K2a-d", "IdE"),                   # <double>, its path's
+             "rank2_batched_rows_kernel": ("K4c-r", "IfLi16ELi4ELb0E")}   # <float, 16, float4, straight>
     used, main, local = {"K5r": [], "K2b": [], "K2b-w": [], "K3-r": [], "K2b-c": [],
-                         "K3-c": [], "K2b-d": [], "K3-d": [], "K2a-c": [], "K2a-d": []}, {}, []
+                         "K3-c": [], "K2b-d": [], "K3-d": [], "K2a-c": [], "K2a-d": [],
+                         "K4c-r": []}, {}, []
     for short, spill, regs in entries:
         kind = next((v for k, v in kinds.items() if short.startswith(k)), None)
         count = int(regs.split("Used")[1].split()[0]) if "Used" in regs else -1
@@ -642,9 +659,16 @@ def phase_build():
         if "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" not in spill:
             local.append(f"{short}: {spill}")
     if out:
-        check(not local, "register kernels of K5, K2b or K3, or the warp, cluster or "
+        check(not local, "register kernels of K5, K2b, K3 or K4c, or the warp, cluster or "
               "distributed form of K2b, the cluster or distributed form of K2a or K3, use local "
               "memory: " + "; ".join(local))
+        # K4c-r: one kernel per room of 4, 8, 16 or 32 words a row, way in
+        # (straight by 16-byte or one-word accesses, or staged), and dtype
+        k4cr = used["K4c-r"]
+        check(len(k4cr) == 24, f"ptxas reported {len(k4cr)} kernels of K4c-r, expected 24")
+        log(f"[2] ptxas: rank2_batched_rows_kernel, {len(k4cr)} kernels: {min(k4cr)} to "
+            f"{max(k4cr)} registers a thread, {main.get('K4c-r')} at n = {BFGS_N} in float32, "
+            "0 bytes of stack frame, 0 bytes spilled")
         for kid in ("K2b-c", "K3-c", "K2b-d", "K3-d", "K2a-c", "K2a-d"):
             check(len(used[kid]) == 2, f"ptxas reported {len(used[kid])} kernels of {kid}, "
                   "expected one per dtype")
@@ -1457,7 +1481,8 @@ def kernel_wrappers():
             smallchol.solve_spd_distributed, smallchol.solve_spd_batchminor_global,
             rank2.rank2_direction_batchminor_resident, rank2.rank2_direction_batchminor_cluster,
             rank2.rank2_direction_batchminor_streamed, rank2.rank2_direction_batchminor_rowsplit,
-            rank2.rank2_update_batched_kernel)
+            rank2.rank2_update_batched_kernel, rank2.rank2_update_batched_rows,
+            rank2.rank2_update_batched_warp, rank2.rank2_update_batched_global)
 
 
 def reset_counts():
@@ -1780,7 +1805,7 @@ def leading_batch(case):
 def phase_rank2(torch, dev):
     from nlsolver_torch.ops import rank2 as tr
 
-    worst = {"K4a": 0.0, "K4b-c": 0.0, "K4b-t": 0.0, "K4b": 0.0, "K4c": 0.0}
+    worst = {}  # (kid, label) -> the largest |kernel - twin| there
 
     def hold(kid, kernel, twin, args, n, label):
         """One counted launch of ``kernel`` (or of the wrapper a partial
@@ -1802,7 +1827,7 @@ def phase_rank2(torch, dev):
                      tr.KERNEL_TOL_ULPS * n * torch.finfo(b.dtype).eps * float(b.abs().max()))
             check(err <= limit, f"{kid} {label}: {what} differs from the twin by {err:.3e}, "
                   f"limit {limit:.3e}")
-            worst[kid] = max(worst[kid], err)
+            worst[kid, label] = max(worst.get((kid, label), 0.0), err)
             notes.append(f"max |{what} - twin| {err:.3e} (limit {limit:.3e})")
         log(f"[11] {kid} {label}: " + ", ".join(notes))
         return got
@@ -1885,16 +1910,45 @@ def phase_rank2(torch, dev):
             f"{last}, K4b-t past it to n = "
             + ", ".join(f"{e if e > last else 'none'} on {b} lanes" for b, e in ends.items())
             + f" (its plan to {most}), K4b beyond ({kind})")
-    batched, b_twin = tr.rank2_update_batched_kernel, tr.rank2_update_batched_reference
-    Hb = hold("K4c", batched, b_twin, leading_batch(main), BFGS_N,
-              f"[{BFGS_B}, {BFGS_N}, {BFGS_N}] f32")[0]
-    # the two layouts hold the same update off the reset lanes
-    check(torch.equal(Hb.permute(1, 2, 0)[:, :, ~reset], Hn[:, :, ~reset]),
-          "K4c differs from K4a on the same update")
-    hold("K4c", batched, b_twin, leading_batch(rank2_case(torch, dev, 64, 4096)), 64,
-         "[4096, 64, 64] f32")
-    hold("K4c", batched, b_twin, leading_batch(rank2_case(torch, dev, 33, 1001, torch.float64)), 33,
-         "[1001, 33, 33] f64")
+    # K4c through the dispatcher in each of its forms, held against the
+    # twin and, where two forms take n, against the other bit for bit (the
+    # same sums in the same order); K4c-r also against its other way; K4c-g
+    # past K4c-w's block
+    b_twin = tr.rank2_update_batched_reference
+    taken = []
+    for n, b, dtype, also in ((BFGS_N, BATCH_B, torch.float32, "warp"),
+                              (BFGS_N, BFGS_B, torch.float32, "warp"),
+                              (2, 8, torch.float32, "warp"),
+                              (2, 8, torch.float64, "warp"),
+                              (16, 1001, torch.float64, "rows"),
+                              (64, 4096, torch.float32, "warp"),
+                              (33, 1001, torch.float64, "global"),
+                              (K4CG_N, K4CG_B, torch.float32, None),
+                              (200, 64, torch.float64, None)):
+        args = leading_batch(rank2_case(torch, dev, n, b, dtype))
+        form = tr.batched_form(n, dtype)
+        kid, wrapper = K4C[form], tr.BATCHED_FORMS[form]
+        label = f"[{b}, {n}, {n}] {'f32' if dtype == torch.float32 else 'f64'}"
+        before = wrapper.launches
+        got = hold(kid, tr.rank2_update_batched_kernel, b_twin, args, n, label)[0]
+        check(wrapper.launches == before + 1, f"the dispatcher did not take {kid} at {label}")
+        taken.append(f"{kid} at {label}")
+        if (n, b) == (BFGS_N, BFGS_B):  # the two layouts: the same update off the reset lanes
+            check(torch.equal(got.permute(1, 2, 0)[:, :, ~reset], Hn[:, :, ~reset]),
+                  "K4c-r differs from K4a on the same update")
+            log(f"[11] K4c-r == K4a off the reset lanes at {label}")
+        if kid == "K4c-r":  # the way rows_staged does not take at this n and B
+            staged = not tr.rows_staged(n, dtype, b)
+            way = "staged" if staged else "straight"
+            check(torch.equal(got, tr.rank2_update_batched_rows(*args, _staged=staged)),
+                  f"K4c-r's two ways differ at {label}")
+            log(f"[11] K4c-r == K4c-r {way} bit for bit at {label}")
+        if also:
+            other = K4C[also]
+            check(torch.equal(got, hold(other, tr.BATCHED_FORMS[also], b_twin, args, n, label)[0]),
+                  f"{kid} and {other} differ at {label}")
+            log(f"[11] {kid} == {other} bit for bit at {label}")
+    log("[11] the dispatcher takes " + ", ".join(taken))
     small = rank2_case(torch, dev, 4, 64)
     half = tuple(t if t.dtype == torch.bool else t.half() for t in small)
     refused = (
@@ -1921,7 +1975,10 @@ def rank2_counts():
             "K4b-c": tr.rank2_direction_batchminor_cluster.launches,
             "K4b-t": tr.rank2_direction_batchminor_streamed.launches,
             "K4b": tr.rank2_direction_batchminor_rowsplit.launches,
-            "K4c": tr.rank2_update_batched_kernel.launches}
+            "K4c": tr.rank2_update_batched_kernel.launches,
+            "K4c-r": tr.rank2_update_batched_rows.launches,
+            "K4c-w": tr.rank2_update_batched_warp.launches,
+            "K4c-g": tr.rank2_update_batched_global.launches}
 
 
 def phase_bfgs_slice(torch, dev):
@@ -2018,18 +2075,24 @@ def phase_bfgs_slice(torch, dev):
     torch.cuda.synchronize()
     launches["K4b"] = rank2_counts()["K4b"]
     check(launches["K4b"] == 1, f"K4b's direct call counted {launches['K4b']}")
-    # K4c's path: the public leading-batch update (no solver calls it)
+    # the public leading-batch update through the dispatcher (K4c-r at
+    # this n), and K4c-w, the form before, by a direct call at the
+    # single-instance BFGS's shape
     args = leading_batch(rank2_case(torch, dev, BFGS_N, BFGS_B, seed=12))
     reset_counts()
     out = ops.rank2_update_batched(*args)
     torch.cuda.synchronize()
     counts = rank2_counts()
-    check(counts == {"K4a": 0, "K4b-c": 0, "K4b-t": 0, "K4b": 0, "K4c": 1},
-          f"ops.rank2_update_batched launched {counts}")
+    want = dict.fromkeys(counts, 0) | {"K4c": 1, "K4c-r": 1}
+    check(counts == want, f"ops.rank2_update_batched launched {counts}")
     check(tuple(out.shape) == (BFGS_B, BFGS_N, BFGS_N) and bool(torch.isfinite(out).all()),
           "ops.rank2_update_batched: non-finite or misshapen")
     log(f"[12] ops.rank2_update_batched [{BFGS_B}, {BFGS_N}, {BFGS_N}]: launches {counts}")
-    launches["K4c"] = counts["K4c"]
+    reset_counts()
+    ops.rank2_update_batched_warp(*leading_batch(rank2_case(torch, dev, BFGS_N, BATCH_B, seed=12)))
+    torch.cuda.synchronize()
+    launches["K4c-w"] = rank2_counts()["K4c-w"]
+    check(launches["K4c-w"] == 1, f"K4c-w's direct call counted {launches['K4c-w']}")
     return launches
 
 
@@ -2050,7 +2113,11 @@ def phase_bfgs_timing(torch, dev):
     past = rank2_case(torch, dev, WIDE_K4B_N, WIDE_K4B_B)
     far = rank2_case(torch, dev, STREAM_N, WIDE_K4B_B)
     lead = leading_batch(main)
+    batch = leading_batch(rank2_case(torch, dev, BFGS_N, BATCH_B))
+    wide_lead = leading_batch(rank2_case(torch, dev, K4CG_N, K4CG_B))
+    b_twin = tr.rank2_update_batched_reference
     bm_twin = tr.rank2_direction_batchminor_reference
+    staged = [tr.rows_staged(BFGS_N, torch.float32, b) for b in (BATCH_B, BFGS_B)]
     # K4b-t at the wide fleets' [225, 225, 256] and [320, 320, 256] (phase
     # 12), K4b (the form before) and K4b-c on clusters of 16 (the widening
     # alone) beside it; K4b beside K4b-c at [128, 128, 4096]
@@ -2067,8 +2134,19 @@ def phase_bfgs_timing(torch, dev):
                       lambda: bm_twin(*wide)),
         "K4b-c": (lambda: tr.rank2_direction_batchminor_cluster(*wide), lambda: bm_twin(*wide)),
         "K4b n=16": (lambda: tr.rank2_direction_batchminor_rowsplit(*main), lambda: bm_twin(*main)),
-        "K4c": (lambda: tr.rank2_update_batched_kernel(*lead),
-                lambda: tr.rank2_update_batched_reference(*lead)),
+        # K4c's forms: K4c-r (the way rows_staged takes, then the other)
+        # and K4c-w at the single-instance BFGS's [10000, 16, 16] and at
+        # [65536, 16, 16], K4c-g at [256, 256, 256]
+        "K4c-r": (lambda: tr.rank2_update_batched_rows(*batch), lambda: b_twin(*batch)),
+        "K4c-r other way": (lambda: tr.rank2_update_batched_rows(*batch, _staged=not staged[0]),
+                            lambda: b_twin(*batch)),
+        "K4c-w": (lambda: tr.rank2_update_batched_warp(*batch), lambda: b_twin(*batch)),
+        "K4c-r B=65536": (lambda: tr.rank2_update_batched_rows(*lead), lambda: b_twin(*lead)),
+        "K4c-r other way B=65536": (
+            lambda: tr.rank2_update_batched_rows(*lead, _staged=not staged[1]),
+            lambda: b_twin(*lead)),
+        "K4c-w B=65536": (lambda: tr.rank2_update_batched_warp(*lead), lambda: b_twin(*lead)),
+        "K4c-g": (lambda: tr.rank2_update_batched_global(*wide_lead), lambda: b_twin(*wide_lead)),
     }
     alone = {}
     for name, (kern, plain) in times.items():
@@ -2077,6 +2155,11 @@ def phase_bfgs_timing(torch, dev):
         log(f"[13] {name} alone: kernel {k * 1e3:.2f} us of device time, plain twin "
             f"{p * 1e3:.2f} us per chained call (CUDA events; kernel "
             f"{k1 * 1e3:.2f}/{k2 * 1e3:.2f}, twin {p1 * 1e3:.2f}/{p2 * 1e3:.2f})")
+    for b, way, key in ((BATCH_B, staged[0], ""), (BFGS_B, staged[1], " B=65536")):
+        ways = ("straight", "staged") if way else ("staged", "straight")
+        log(f"[13] K4c-r at [{b}, {BFGS_N}, {BFGS_N}] f32: rows_staged takes the {ways[1]} way, "
+            f"{alone['K4c-r' + key][0] * 1e3:.2f} us; the {ways[0]} way "
+            f"{alone['K4c-r other way' + key][0] * 1e3:.2f} us")
     for ls, rs in runs.items():
         best = max(rs, key=lambda r: r["iters_per_sec"])
         log(f"[13] fleet {ls}: {best['iters_per_sec']:.6g} instance iterations/s "
@@ -2748,6 +2831,7 @@ BATCH_B = 10000
 BATCH_CPU = 2048
 LANE_B = 1024
 LANE_CPU = 256
+WIDE_CPU = 4      # the single-instance BFGS's wide arm: lanes held against the host
 # card against host on the same lanes, f32: |x_card - x_host| within
 # 2e-3 (the stopping rules leave x within some 5e-3 of the minimum, and a
 # last-bit difference moves where inside that a lane stops), and the share
@@ -2825,14 +2909,47 @@ def phase_lane_solvers(torch, dev):
         f"{float(res.converged.float().mean()):.6f}, solved {solved:.6f} (limit 0.999)")
     check(res.x.is_cuda and tuple(res.x.shape) == (BATCH_B, BFGS_N)
           and bool(torch.isfinite(res.f_value).all()), "bfgs batch: x misshapen or off the card")
-    check(counts == {"rank2_update_batched_kernel": steps},
-          f"bfgs batch: expected K4c once per host step ({steps}), launched {counts}")
+    check(counts == {"rank2_update_batched_kernel": steps, "rank2_update_batched_rows": steps},
+          f"bfgs batch: expected K4c (K4c-r) once per host step ({steps}), launched {counts}")
     check(solved >= 0.999, f"bfgs batch: solved share {solved} below 0.999")
     host = tuple(d[:BATCH_CPU].cpu() for d in data)
     ref = nt.minimize(fn, x0[:BATCH_CPU].cpu(), method="bfgs", layout="batched", config=cfg,
                       data=host)
     card_against_host(torch, "bfgs batch", res, ref, BATCH_CPU)
-    launches = {"K4c batch": tr.rank2_update_batched_kernel.launches}
+    launches = {"K4c-r": tr.rank2_update_batched_rows.launches}
+
+    # (a') the wide arm: K4CG_B bowls of K4CG_N dimensions, where K4c-g
+    # takes the update; WIDE_CPU lanes against the host, |x_card - x_host|
+    # within LANE_DX (the stopping rules and float32's last bit, as above)
+    wfn, wdata = bowls_lanes(K4CG_B, K4CG_N, seed=4, device=dev)
+    wx0 = torch.zeros(K4CG_B, K4CG_N, device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = nt.minimize(wfn, wx0, method="bfgs", layout="batched", config=cfg, data=wdata)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launched()
+    steps = int(res.iterations.max()) + 1
+    solved = float((res.f_value < 1e-4).float().mean())
+    off = float((res.x - wdata[0]).abs().max())
+    log(f"[21] minimize(bowls, x0[{K4CG_B}, {K4CG_N}], method='bfgs', layout='batched'): "
+        f"{wall:.3f} s, host steps {steps}, launches {counts}, iterations median "
+        f"{float(res.iterations.float().median()):.0f} max {int(res.iterations.max())}, converged "
+        f"{float(res.converged.float().mean()):.6f}, solved {solved:.6f}, max |x - center| "
+        f"{off:.3e} (limit 1e-2)")
+    check(res.x.is_cuda and bool(torch.isfinite(res.f_value).all()) and off < 1e-2,
+          "bfgs wide arm: x off the card, non-finite or off its centers")
+    check(counts == {"rank2_update_batched_kernel": steps, "rank2_update_batched_global": steps},
+          f"bfgs wide arm: expected K4c (K4c-g) once per host step ({steps}), launched {counts}")
+    ref = nt.minimize(wfn, wx0[:WIDE_CPU].cpu(), method="bfgs", layout="batched", config=cfg,
+                      data=tuple(d[:WIDE_CPU].cpu() for d in wdata))
+    dx = float((res.x[:WIDE_CPU].cpu() - ref.x).abs().max())
+    same = all(bool((getattr(res, f)[:WIDE_CPU].cpu() == getattr(ref, f)).all())
+               for f in ("iterations", "function_calls", "gradient_calls", "converged"))
+    log(f"[21] bfgs wide arm, card against host on {WIDE_CPU} lanes: max |dx| {dx:.3e} (limit "
+        f"{LANE_DX}), counters equal {same}")
+    check(dx <= LANE_DX, "bfgs wide arm: the card and the host differ")
+    launches["K4c-g"] = tr.rank2_update_batched_global.launches
 
     # (b) the other methods on LANE_B of the bowls, each to its minimum
     # (the bowls are separable: the bounded minimum is the clipped center);
@@ -2895,18 +3012,18 @@ def phase_lane_solvers(torch, dev):
 
 
 def phase_lane_solvers_timing(torch, dev):
-    """bench_bfgs_batch beside bench_bfgs_fleet on the same 10000 bowls;
-    K4c alone at the batch's [10000, 16, 16] against its twin."""
+    """bench_bfgs_batch beside bench_bfgs_fleet on the same 10000 bowls,
+    and its wide arm (K4CG_B bowls of K4CG_N dimensions, K4c-g)."""
     from nlsolver_torch.benches import bench_bfgs_batch, bench_bfgs_fleet, profile_bfgs_batch
-    from nlsolver_torch.ops import rank2 as tr
 
     r = bench_bfgs_batch(B=BATCH_B, dim=BFGS_N, runs=5, warmup=2)
     log(f"[22] {r['name']}: median {r['median_ms']:.3f} ms / {r['host_steps']} host steps, min "
         f"{r['min_ms']:.3f} ms, {r['iters_per_sec']:.6g} instance iterations/s, solved "
         f"{r['solved_frac']:.6f}, converged {r['converged_frac']:.6f}, K4c launches a run "
-        f"{r['k4c_launches']}")
-    check(r["k4c_launches"] == r["host_steps"] and r["solved_frac"] >= 0.999,
-          "bench_bfgs_batch: K4c not once a host step, or short of solved")
+        f"{r['k4c_launches']} ({r['k4c_form']}: {r['k4c_form_launches']})")
+    check(r["k4c_launches"] == r["host_steps"] == r["k4c_form_launches"]
+          and r["k4c_form"] == "rows" and r["solved_frac"] >= 0.999,
+          "bench_bfgs_batch: K4c-r not once a host step, or short of solved")
     f = bench_bfgs_fleet(B=BATCH_B, dim=BFGS_N, runs=3)
     log(f"[22] {f['name']} on the same {BATCH_B} bowls: median {f['median_ms']:.3f} ms / "
         f"{f['host_steps']} host steps, {f['iters_per_sec']:.6g} instance iterations/s; the "
@@ -2915,19 +3032,14 @@ def phase_lane_solvers_timing(torch, dev):
     log(f"[22] profile_bfgs_batch: wall {p['wall_ms']:.3f} ms, device busy "
         f"{p['device_busy_ms']:.3f} ms ({p['busy_share']:.1%}), {p['launches_per_step']:.1f} "
         f"launches a host step over {p['host_steps']}; top {p['top_kernels'][:4]}")
-    args = leading_batch(rank2_case(torch, dev, BFGS_N, BATCH_B, seed=21))
-    want = tr.rank2_update_batched_reference(*args)
-    err = max_diff(tr.rank2_update_batched_kernel(*args), want)
-    limit = tr.KERNEL_TOL_ULPS * BFGS_N * torch.finfo(want.dtype).eps * float(want.abs().max())
-    (k, pl), (k1, k2, p1, p2) = abba(torch, lambda: tr.rank2_update_batched_kernel(*args), 30,
-                                     lambda: tr.rank2_update_batched_reference(*args), 5)
-    bnd = rank2_bound(BFGS_N, BATCH_B, direction=False)
-    log(f"[22] K4c alone at [{BATCH_B}, {BFGS_N}, {BFGS_N}] f32: kernel {k * 1e3:.2f} us of "
-        f"device time (bound {bnd[0] * 1e3:.2f} us by {bnd[1]}), plain twin {pl * 1e3:.2f} us "
-        f"(kernel {k1 * 1e3:.2f}/{k2 * 1e3:.2f}, twin {p1 * 1e3:.2f}/{p2 * 1e3:.2f}); max |kernel "
-        f"- twin| {err:.3e} (limit {limit:.3e})")
-    check(err <= limit, f"K4c at the batch's shape: |kernel - twin| {err:.3e} above {limit:.3e}")
-    return {"K4c batch": (k, pl, None), "err": err, "bench": r, "fleet": f}
+    w = bench_bfgs_batch(B=K4CG_B, dim=K4CG_N, runs=3, warmup=1)
+    log(f"[22] {w['name']} wide arm [{K4CG_B}, {K4CG_N}]: median {w['median_ms']:.3f} ms / "
+        f"{w['host_steps']} host steps, {w['iters_per_sec']:.6g} instance iterations/s, solved "
+        f"{w['solved_frac']:.6f}, K4c launches a run {w['k4c_launches']} ({w['k4c_form']}: "
+        f"{w['k4c_form_launches']})")
+    check(w["k4c_launches"] == w["host_steps"] == w["k4c_form_launches"]
+          and w["k4c_form"] == "global", "bench_bfgs_batch's wide arm: K4c-g not once a host step")
+    return {"bench": r, "fleet": f, "wide": w}
 
 
 # the derivative-free single-instance solvers on lane tensors (phase 23):
@@ -3194,9 +3306,10 @@ def phase_free_solvers(torch, dev):
         log(f"[23] restarts on bfgs: {steps} host steps over the {FREE_RESTARTS} restart lanes, "
             f"K4c launched {k4c} times (one a host step), iterations summed "
             f"{int(lanes.iterations.sum())} = {int(res.iterations)}")
-        check(counts == {"rank2_update_batched_kernel": steps}
+        check(counts == {"rank2_update_batched_kernel": steps, "rank2_update_batched_rows": steps}
               and int(lanes.iterations.sum()) == int(res.iterations),
-              f"restarts on bfgs: expected K4c once per host step ({steps}), launched {counts}")
+              f"restarts on bfgs: expected K4c (K4c-r) once per host step ({steps}), launched "
+              f"{counts}")
         out["K4c restarts"] = k4c
     log(f"[23] counters differing, card against host, by route: {readings}")
     return out
@@ -3267,6 +3380,14 @@ def kernel_row(name, source, replaces, launches, max_err, times, bound_ms_by, is
     return row
 
 
+def err_at(err, kid, shape):
+    """The largest |kernel - twin| phase 11 found for ``kid`` at ``shape``
+    (its labels there begin with the shape)."""
+    found = [e for (k, label), e in err.items() if k == kid and label.startswith(shape)]
+    check(bool(found), f"phase 11 held {kid} nowhere at {shape}")
+    return max(found)
+
+
 def phases_earlier(torch, dev):
     max_err = phase(3, phase_injected, torch, dev)
     phase(4, phase_philox, torch, dev)
@@ -3292,6 +3413,11 @@ def phases_earlier(torch, dev):
     m = FLEET_M + 2  # rows of the NLLS fleet's augmented system [J; sqrt(lam) I]
     csrc, tpu = "nlsolver_torch/csrc/", "nlsolver_tpu/ops/"
     k2b = tpu + "qr_wavefront.py:207"
+    # the shapes of phase 11's labels at which the K4 rows are held
+    main = f"[{BFGS_N}, {BFGS_N}, {BFGS_B}] f32"
+    wide = f"[{WIDE_N}, {WIDE_N}, {WIDE_B}] f32"
+    wide_k4b = f"[{WIDE_K4B_N}, {WIDE_K4B_N}, {WIDE_K4B_B}] float32"
+    batch = f"[{BATCH_B}, {BFGS_N}, {BFGS_N}] f32"
     return [
         # agents in and out, scores in and out, the active mask; 30
         # floating-point operations a coordinate (mutation, crossover, a
@@ -3368,26 +3494,29 @@ def phases_earlier(torch, dev):
                    tpu + "smallchol.py:101", k3_launches["K3-g"], chol_err["K3-g"], alone["K3-g"],
                    spd_bound(K3D_N, 2, True)),
         kernel_row("rank2_direction_batchminor_resident", csrc + "rank2.cu", tpu + "rank2.py:280",
-                   bfgs_launches["K4a"], rank2_err["K4a"], alone["K4a"],
+                   bfgs_launches["K4a"], err_at(rank2_err, "K4a", main), alone["K4a"],
                    rank2_bound(BFGS_N, BFGS_B)),
         # each at the wide fleet it serves: K4b-c at [128, 128, 4096], K4b-t
         # past K4b-c's range at [225, 225, 256]; K4b, the form there before,
         # by a direct call at that shape
         kernel_row("rank2_direction_batchminor_cluster", csrc + "rank2.cu", tpu + "rank2.py:214",
-                   bfgs_launches["K4b-c"], rank2_err["K4b-c"], alone["K4b-c"],
+                   bfgs_launches["K4b-c"], err_at(rank2_err, "K4b-c", wide), alone["K4b-c"],
                    rank2_bound(WIDE_N, WIDE_B), FLOORS["K4b-c"], shape="[128, 128, 4096] f32"),
         kernel_row("rank2_direction_batchminor_streamed", csrc + "rank2.cu", tpu + "rank2.py:214",
-                   bfgs_launches["K4b-t"], rank2_err["K4b-t"], alone["K4b-t"],
+                   bfgs_launches["K4b-t"], err_at(rank2_err, "K4b-t", wide_k4b), alone["K4b-t"],
                    rank2_bound(WIDE_K4B_N, WIDE_K4B_B), FLOORS["K4b-t"],
                    shape="[225, 225, 256] f32"),
         kernel_row("rank2_direction_batchminor_rowsplit", csrc + "rank2.cu", tpu + "rank2.py:214",
-                   bfgs_launches["K4b"], rank2_err["K4b"], alone["K4b"],
+                   bfgs_launches["K4b"], err_at(rank2_err, "K4b", wide_k4b), alone["K4b"],
                    rank2_bound(WIDE_K4B_N, WIDE_K4B_B), FLOORS["K4b"],
                    shape="[225, 225, 256] f32, a direct call"),
-        kernel_row("rank2_update_batched_kernel", csrc + "rank2.cu", tpu + "rank2.py:66",
-                   bfgs_launches["K4c"], rank2_err["K4c"], alone["K4c"],
-                   rank2_bound(BFGS_N, BFGS_B, direction=False)),
-    ]
+        # K4c-w, the form the single-instance BFGS's [10000, 16, 16] took
+        # before K4c-r, by a direct call there
+        kernel_row("rank2_update_batched_warp", csrc + "rank2.cu", tpu + "rank2.py:66",
+                   bfgs_launches["K4c-w"], err_at(rank2_err, "K4c-w", batch), alone["K4c-w"],
+                   rank2_bound(BFGS_N, BATCH_B, direction=False),
+                   shape=f"[{BATCH_B}, {BFGS_N}, {BFGS_N}] f32, a direct call"),
+    ], {"alone": alone, "err": rank2_err}
 
 
 def eigh_rows(launches, err, alone):
@@ -3413,7 +3542,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase(2, phase_build)
-    rows = phases_earlier(torch, dev)
+    rows, k4c = phases_earlier(torch, dev)
     eigh_err = phase(14, phase_eigh, torch, dev)
     cmaes_launches = phase(15, phase_cmaes_slice, torch, dev)
     rows += eigh_rows(cmaes_launches, eigh_err, phase(16, phase_cmaes_timing, torch, dev))
@@ -3422,16 +3551,22 @@ def main():
     phase(19, phase_pso_sann_slice, torch, dev)
     phase(20, phase_pso_sann_timing, torch, dev)
     batch_launches = phase(21, phase_lane_solvers, torch, dev)
-    batch = phase(22, phase_lane_solvers_timing, torch, dev)
+    phase(22, phase_lane_solvers_timing, torch, dev)
     phase(23, phase_free_solvers, torch, dev)
     phase(24, phase_free_timing, torch, dev)
-    # K4c on the single-instance BFGS's path (phase 21), beside its row
-    # above at the public update's [65536, 16, 16]
-    rows.append(kernel_row("rank2_update_batched_kernel", "nlsolver_torch/csrc/rank2.cu",
-                           "nlsolver_tpu/ops/rank2.py:66", batch_launches["K4c batch"],
-                           batch["err"], batch["K4c batch"],
+    # K4c-r on the single-instance BFGS's path, K4c-g on its wide arm's
+    # (phase 21), each timed alone in phase 13
+    csrc, tpu = "nlsolver_torch/csrc/rank2.cu", "nlsolver_tpu/ops/rank2.py:66"
+    rows.append(kernel_row("rank2_update_batched_rows", csrc, tpu, batch_launches["K4c-r"],
+                           err_at(k4c["err"], "K4c-r", f"[{BATCH_B}, {BFGS_N}, {BFGS_N}] f32"),
+                           k4c["alone"]["K4c-r"],
                            rank2_bound(BFGS_N, BATCH_B, direction=False),
                            shape=f"[{BATCH_B}, {BFGS_N}, {BFGS_N}] f32, bench_bfgs_batch's path"))
+    rows.append(kernel_row("rank2_update_batched_global", csrc, tpu, batch_launches["K4c-g"],
+                           err_at(k4c["err"], "K4c-g", f"[{K4CG_B}, {K4CG_N}, {K4CG_N}] f32"),
+                           k4c["alone"]["K4c-g"],
+                           rank2_bound(K4CG_N, K4CG_B, direction=False),
+                           shape=f"[{K4CG_B}, {K4CG_N}, {K4CG_N}] f32, the wide arm's path"))
     print(f"seconds a phase: {PHASE_SECONDS}; {time.perf_counter() - start:.1f} s in all",
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

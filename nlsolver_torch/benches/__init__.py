@@ -2,9 +2,9 @@
 ``nlsolver_tpu.benches``): the batched-DE headline, the NLLS fleet, the
 BFGS fleet, the batched eigensolvers, the CMA-ES fleet, the batched root
 finders, the PSO and SANN lane fleets (and their row-layout arm), the
-single-instance solvers (``bench_bfgs_batch``, ``bench_nm_rosenbrock``,
-``bench_latency_single``, ``bench_lm_fleet``), and the probes and sweeps of
-the kernels' forms.
+single-instance solvers (``bench_bfgs_batch`` and its wide arm,
+``bench_nm_rosenbrock``, ``bench_latency_single``, ``bench_lm_fleet``), and
+the probes and sweeps of the kernels' forms.
 
 Method, as in the JAX package: a fixed-trip run so every run does the
 same work, warm-up runs, then the median of the timed runs, each fenced
@@ -21,7 +21,7 @@ import torch
 
 from .. import api
 from ..core.driver import drive_fleet_scan, drive_scan
-from ..ops.rank2 import rank2_update_batched_kernel
+from ..ops import rank2 as _rank2
 from ..problems import PROBLEMS
 from ..solvers import bfgs_fleet as bf
 from ..solvers import cmaes_fleet as cf
@@ -1144,6 +1144,100 @@ def sweep_rank2_streamed(ns=STREAMED_SWEEP, Bs=(256, 2048), reps=5, most_bytes=8
     return rows
 
 
+def rank2_batched_scenario(n: int, B: int, seed: int = 0, device="cuda", dtype=torch.float32):
+    """``rank2_scenario``'s update in K4c's leading-batch layout: H [B, n,
+    n], s, y [B, n], rho [B]."""
+    H, s, y, _, rho, _ = rank2_scenario(n, B, seed, device, dtype)
+    return H.permute(2, 0, 1).contiguous(), s.t().contiguous(), y.t().contiguous(), rho
+
+
+def probe_rank2_batched(shapes=((16, 10000), (16, 65536), (256, 256)), reps=30):
+    """K4c's forms at the paths' shapes ``(n, B)`` (``rank2_batched_scenario``,
+    f32): K4c-r staged and straight where it takes n, K4c-w where one
+    instance fits a block, K4c-g whole, in probe mode 1 (its first pass and
+    the coefficient) and mode 2 (its first pass alone), and one ``copy_`` of
+    H (read once, written once: the card's rate at this size).  Device
+    time in us behind a device sleep, the least of two."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("probe_rank2_batched measures a CUDA card; none is available")
+
+    def timed(fn, *args, **kw):
+        return min(device_ms(lambda: fn(*args, **kw), reps) for _ in range(2)) * 1e3
+
+    rows = []
+    for n, B in shapes:
+        case = rank2_batched_scenario(n, B)
+        H = case[0]
+        copy = torch.empty_like(H)
+        row = {"n": n, "B": B}
+        if _rank2.rows_takes(n):
+            row["rows_staged_us"] = timed(_rank2.rank2_update_batched_rows, *case, _staged=True)
+            row["rows_straight_us"] = timed(_rank2.rank2_update_batched_rows, *case, _staged=False)
+        if _rank2.batched_fits(n, H.dtype):
+            row["warp_us"] = timed(_rank2.rank2_update_batched_warp, *case)
+        for mode in (0, 1, 2):
+            row[f"global_mode{mode}_us"] = timed(_rank2.rank2_update_batched_global, *case,
+                                                 _mode=mode)
+        row["copy_us"] = timed(copy.copy_, H)
+        rows.append(row)
+        del case, H, copy
+    return rows
+
+
+# n of ``sweep_rank2_batched`` by dtype: K4c-r's whole range, then K4c-w's
+# to its end (``batched_fits``); K4c-r's range alone, to be swept on more
+# lanes than the whole range fits on the card (``ROWS_STAGED``'s bounds)
+BATCHED_SWEEP = {torch.float32: tuple(range(1, 33)) + (40, 48, 64, 96, 128, 160, 200, 239),
+                 torch.float64: tuple(range(1, 33)) + (40, 48, 64, 96, 128, 168)}
+ROWS_SWEEP = {torch.float32: tuple(range(1, 33)), torch.float64: tuple(range(1, 33))}
+
+
+def sweep_rank2_batched(ns=BATCHED_SWEEP, Bs=(256, 10000), reps=5):
+    """Every form of K4c that takes n (``rank2_batched_scenario(n, B)``,
+    each dtype of ``ns``, each B of ``Bs``): K4c-r staged through shared
+    memory and straight from device memory (n <= 32), K4c-w (while
+    ``batched_fits``) and K4c-g.  Device time in ms behind a device sleep,
+    the least of two, each form's result bit-equal to the first's;
+    ``best`` the fastest.  ``ROWS_LAST`` and ``WARP_LAST`` (``ops.rank2``)
+    come from it, and ``ROWS_STAGED`` from ``sweep_rank2_batched(ROWS_SWEEP,
+    Bs=(256, 10000, 65536))``: the n where ``rows_staged`` beat
+    ``rows_straight`` on each B."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("sweep_rank2_batched measures a CUDA card; none is available")
+
+    def timed(run):
+        return min(device_ms(run, reps, warmup=1) for _ in range(2))
+
+    forms = {"rows_staged": functools.partial(_rank2.rank2_update_batched_rows, _staged=True),
+             "rows_straight": functools.partial(_rank2.rank2_update_batched_rows, _staged=False),
+             "warp": _rank2.rank2_update_batched_warp,
+             "global": _rank2.rank2_update_batched_global}
+    takes = {"rows_staged": lambda n, dtype: _rank2.rows_takes(n),
+             "rows_straight": lambda n, dtype: _rank2.rows_takes(n),
+             "warp": _rank2.batched_fits, "global": lambda n, dtype: True}
+    rows = []
+    for dtype, sizes in ns.items():
+        for B in Bs:
+            for n in sizes:
+                case = rank2_batched_scenario(n, B, dtype=dtype)
+                row, first = {"dtype": str(dtype)[6:], "n": n, "B": B}, None
+                for name, fn in forms.items():
+                    if not takes[name](n, dtype):
+                        continue
+                    got = fn(*case)
+                    if first is None:
+                        first = got
+                    elif not torch.equal(got, first):
+                        raise RuntimeError(f"sweep_rank2_batched: {name} differs at [{B}, {n}, "
+                                           f"{n}] {dtype}")
+                    row[f"{name}_ms"] = timed(lambda: fn(*case))
+                row["best"] = min((k for k in row if k.endswith("_ms")), key=row.get)[:-3]
+                rows.append(row)
+                del case, first, got
+                torch.cuda.empty_cache()
+    return rows
+
+
 def sweep_qr(ns=(4, 8, 16, 32, 64), Bs=(1024, 4096, 16384, 65536), reps=5, global_up_to=32):
     """K2a's forms with Q across shapes, f32, ``A [n, n, B]`` ~ N(0, 1): the
     device time in ms of the warp form, of the device-memory form (up to n =
@@ -1813,10 +1907,12 @@ def bench_bfgs_batch(B=10000, dim=16, runs=5, warmup=2):
     """Config #4a through the single-instance BFGS on lane tensors:
     ``minimize(fn, zeros[B, dim], method="bfgs", layout="batched")`` on
     ``B`` bowls (``bowls_lanes``), f32, ``max_iter=30``, run until every
-    lane halts; its rank-2 update is kernel K4c, one launch a host step.
-    The median of ``runs`` after ``warmup`` runs; iterations per second
-    count every lane's iterations, and ``solved_frac`` is the share of
-    lanes with f < 1e-4 (the JAX bench's)."""
+    lane halts; its rank-2 update is kernel K4c, one call a host step, in
+    the form ``batched_form(dim)`` names (K4c-r at the default 16-D; the
+    wide arm ``B=256, dim=256`` takes K4c-g).  The median of ``runs``
+    after ``warmup`` runs; iterations per second count every lane's
+    iterations, and ``solved_frac`` is the share of lanes with f < 1e-4
+    (the JAX bench's)."""
     if not torch.cuda.is_available():
         raise RuntimeError("bench_bfgs_batch measures a CUDA card; none is available")
 
@@ -1824,14 +1920,16 @@ def bench_bfgs_batch(B=10000, dim=16, runs=5, warmup=2):
     fn, data = bowls_lanes(B, dim, device=device)
     cfg = BFGSConfig(max_iter=30)
     x0 = torch.zeros(B, dim, dtype=torch.float32, device=device)
+    form = _rank2.batched_form(dim, torch.float32)
+    counter = _rank2.BATCHED_FORMS[form]
 
     def run():
         return api.minimize(fn, x0, method="bfgs", config=cfg, layout="batched", data=data)
 
     med, mn = _timed(run, runs, warmup=warmup)
-    before = rank2_update_batched_kernel.launches
+    before = _rank2.rank2_update_batched_kernel.launches, counter.launches
     res = run()
-    launches = rank2_update_batched_kernel.launches - before
+    launches = _rank2.rank2_update_batched_kernel.launches - before[0]
     total_iters = int(res.iterations.sum())
     return {
         "name": "bfgs_batch_torch",
@@ -1841,6 +1939,8 @@ def bench_bfgs_batch(B=10000, dim=16, runs=5, warmup=2):
         # the last lane to finish halts on step max(iterations) + 1
         "host_steps": int(res.iterations.max()) + 1,
         "k4c_launches": launches,
+        "k4c_form": form,
+        "k4c_form_launches": counter.launches - before[1],
         "total_iterations": total_iters,
         "iters_per_sec": total_iters / med,
         "median_ms": med * 1e3,

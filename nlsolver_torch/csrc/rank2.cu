@@ -1,20 +1,25 @@
-// BFGS rank-2 inverse-Hessian update for Hopper (sm_90a), five kernels:
+// BFGS rank-2 inverse-Hessian update for Hopper (sm_90a), seven kernels:
 //
-//   K4a    rank2_resident   batch-minor update + next direction, H read once
-//   K4b-c  rank2_cluster    the same for n past K4a's slab, over a cluster
-//   K4b-t  rank2_streamed   the same for n past K4b-c's, rows streamed twice
-//   K4b    rank2_rowsplit   the same for n past K4b-t's, H read twice
-//   K4c    rank2_batched    the update alone on the leading-batch layout
+//   K4a    rank2_resident        batch-minor update + next direction, H read once
+//   K4b-c  rank2_cluster         the same for n past K4a's slab, over a cluster
+//   K4b-t  rank2_streamed        the same for n past K4b-c's, rows streamed twice
+//   K4b    rank2_rowsplit        the same for n past K4b-t's, H read twice
+//   K4c-r  rank2_batched_rows    the update alone on the leading-batch layout,
+//                                a thread a row in registers (n <= 32)
+//   K4c-w  rank2_batched_warp    the same, a warp an instance in shared memory
+//   K4c-g  rank2_batched_global  the same for any n, H read twice
 //
 // They replace nlsolver_tpu/ops/rank2.py: rank2_direction_batchminor_pallas
 // (_bm_kernel), rank2_direction_batchminor_pallas_rowtiled
 // (_bm_rowtiled_kernel; K4b-c, K4b-t and K4b) and rank2_update_batched_pallas
-// (_kernel).  Per lane b
+// (_kernel; K4c-r, K4c-w and K4c-g).  Per lane b
 //
 //   Heff = I where reset[b] else H
 //   Hy   = Heff y,   coef = rho (1 + rho y^T Hy)
 //   H'   = Heff - rho (s Hy^T + Hy s^T) + coef s s^T
 //   d'   = -H' g                                   (K4a, K4b-c, K4b-t, K4b)
+//
+// (K4c's lanes never reset: Heff = H.)
 //
 // What bounds them: bytes.  Each lane moves 2 n^2 + 4 n words (H in and out,
 // s, y, g in, d' out) against some 13 n^2 floating-point operations, far
@@ -71,11 +76,43 @@
 // H, s, Hy, rho and coef.  H is read twice and written once; s, Hy and g
 // are re-read by every row of a lane and come from L1/L2.
 //
-// K4c: leading-batch, a lane's matrix is contiguous.  One warp per
-// instance: it stages H [n, n] (rows padded by one word against bank
-// conflicts), s and y in shared memory with coalesced loads over the
-// flattened (i, j), forms Hy with one row per thread, and writes H' over
-// the flattened (i, j) again.  H is read once and written once.
+// K4c: leading-batch, a lane's matrix is contiguous; it moves 2 n^2 + 2 n
+// + 1 words against some 11 n^2 operations, so bytes bound it too.  Every
+// form sums Hy_i over ascending j and y^T Hy over ascending i, so the three
+// equal each other bit for bit (and K4a off its reset lanes).
+//
+// K4c-r (n <= 32): thread i of an instance holds row i of H in registers,
+// and a warp packs floor(32 / n) instances, so at n = 16 a warp takes two
+// and the grid fits the card in one wave where a warp an instance needed
+// more.  A row comes in and goes out straight, by 16-byte accesses where n
+// words and the pointers keep every row on 16 bytes (one word an access
+// otherwise), or staged: a warp's instances, one run of memory, pass
+// through its slab of shared memory by coalesced one-word accesses, where
+// a straight access would touch as many lines as the warp has rows (the
+// wrapper picks by n, dtype and B, as measured).  No division on the way.
+// Hy_i is formed in the thread with y_j shuffled from lane j; y^T Hy is
+// gathered from the instance's lanes by shuffles in ascending i, so every
+// lane holds the same coefficient; s_j and Hy_j come by shuffle for the
+// row of H'.  H is read once and written once, with no barrier beyond the
+// warp.  One kernel per room of 4, 8, 16 or 32 words a row, so the row
+// stays in registers.
+//
+// K4c-w (n up to what one instance's H, padded rows, s, y and Hy fit in a
+// block's shared memory: 239 in f32, 168 in f64; the dispatcher's to n =
+// 48): one warp per instance, up to 8 a block; it stages H [n, n] (rows
+// padded by one word against bank conflicts), s and y in shared memory
+// with coalesced loads over the flattened (i, j), forms Hy with one row per
+// thread, and writes H' over the flattened (i, j) again.  H is read once
+// and written once.
+//
+// K4c-g (any n; the dispatcher's past K4c-w): three launches on one stream.
+// Hy [B, n] by blocks of 128 rows of one instance, each column tile of 32
+// words staged in shared memory by coalesced (16-byte where aligned)
+// loads, a thread summing its row in ascending j; y^T Hy and the
+// coefficient [B] by a warp an instance, 32 products at a time shuffled in
+// ascending i; then H' by a warp a row, its lanes over the columns.  H is
+// read twice and written once: 3 n^2 words a lane against the 2 n^2
+// compulsory, at best two thirds of the bound.
 //
 // Arithmetic: every operation is rounded on its own through the _rn
 // intrinsics (no FMA), and the elementwise update follows the plain
@@ -89,6 +126,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <initializer_list>
 #include <type_traits>
 
 #include "rn_math.cuh"
@@ -754,8 +792,9 @@ int launch_streamed(const void* H, const void* s, const void* y, const void* g, 
                                      st);
 }
 
-// ---------------------------------------------------------------- K4c
+// ---------------------------------------------------------------- K4c-w
 
+// One warp an instance, up to 8 a block: H [n, n] staged in shared memory
 template <typename T>
 __global__ void rank2_batched_kernel(const T* __restrict__ H, const T* __restrict__ s,
                                      const T* __restrict__ y, const T* __restrict__ rho,
@@ -814,11 +853,374 @@ int launch_batched(const void* H, const void* s, const void* y, const void* rho,
   return static_cast<int>(cudaGetLastError());
 }
 
+// W consecutive words of T moved by one access: 16 bytes (float4, double2)
+// or one word; ``load`` and ``store`` take a thread's words by constant
+// index, so that an unrolled caller keeps them in registers
+template <typename T, int W>
+struct Words {
+  static_assert(W == 1, "a vector access moves 16 bytes");
+  __device__ static void load(T* dst, const T* src) { dst[0] = src[0]; }
+  __device__ static void store(T* dst, const T* src) { dst[0] = src[0]; }
+};
+template <>
+struct Words<float, 4> {
+  __device__ static void load(float* dst, const float* src) {
+    const float4 v = *reinterpret_cast<const float4*>(src);
+    dst[0] = v.x;
+    dst[1] = v.y;
+    dst[2] = v.z;
+    dst[3] = v.w;
+  }
+  __device__ static void store(float* dst, const float* src) {
+    *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2], src[3]);
+  }
+};
+template <>
+struct Words<double, 2> {
+  __device__ static void load(double* dst, const double* src) {
+    const double2 v = *reinterpret_cast<const double2*>(src);
+    dst[0] = v.x;
+    dst[1] = v.y;
+  }
+  __device__ static void store(double* dst, const double* src) {
+    *reinterpret_cast<double2*>(dst) = make_double2(src[0], src[1]);
+  }
+};
+
+// 16-byte accesses where n words and every pointer keep each row of every
+// instance on 16 bytes, else one word an access
+template <typename T>
+bool rows_aligned(int n, std::initializer_list<const void*> pointers) {
+  if ((static_cast<size_t>(n) * sizeof(T)) % 16 != 0) return false;
+  for (const void* p : pointers)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
+}
+
+// ---------------------------------------------------------------- K4c-r
+
+constexpr unsigned kFullWarp = 0xffffffffu;
+constexpr int kRowsThreads = 256;  // threads a block of K4c-r
+constexpr int kRowsMost = 32;      // K4c-r's largest n: an instance's rows within a warp
+
+// Calls f(e, at) for the words e = lane, lane + 32, ... below ``words`` of
+// a warp's span of instances (one run of memory) and the place of word e
+// in the warp's slab in shared memory, row e / n of ld words at ``at`` =
+// (e / n) ld + e % n; the row and column are carried from one word to the
+// next without a division
+template <typename F>
+__device__ inline void walk_span(int words, int n, int ld, int lane, F&& f) {
+  const int dr = 32 / n, dc = 32 - dr * n;
+  int r = lane / n, c = lane - r * n;
+  for (int e = lane; e < words; e += 32) {
+    f(e, r * ld + c);
+    r += dr;
+    c += dc;
+    if (c >= n) {
+      c -= n;
+      ++r;
+    }
+  }
+}
+
+// Thread i of an instance holds row i of H in registers (NMAX >= n words);
+// a warp packs floor(32 / n) instances, lanes q n .. q n + n - 1 for
+// instance q, and the lanes past the last instance (or past B) run along
+// without loading or storing, so that every shuffle finds the whole warp.
+// A row comes from device memory (W words an access), or with STAGED
+// through the warp's slab in shared memory: the warp's instances, one run
+// of memory, are copied in and out by coalesced one-word accesses, rows
+// n | 1 words apart (odd, so that the lanes' rows fall in distinct banks),
+// ordered by __syncwarp alone.  Hy_i over ascending j with y_j shuffled
+// from lane j; y^T Hy over ascending i from the lanes' products, the same
+// sum in every lane; then row i of H' with s_j and Hy_j shuffled from lane
+// j.
+template <typename T, int NMAX, int W, bool STAGED>
+__global__ void __launch_bounds__(kRowsThreads)
+    rank2_batched_rows_kernel(const T* __restrict__ H, const T* __restrict__ s,
+                              const T* __restrict__ y, const T* __restrict__ rho,
+                              T* __restrict__ Hout, int n, int64_t B) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31;
+  const int per = 32 / n;                     // instances a warp
+  const int q = lane / n, i = lane - q * n;   // instance of the warp, row
+  const int base = q * n;                     // the instance's first lane
+  const int64_t warp = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int64_t b0 = warp * per, b = b0 + q;
+  const bool live = q < per && b < B;
+  const int64_t row = (b * n + i) * n;
+  const int ld = n | 1;
+  // the warp's slab, [per n][ld], and the words of its instances
+  T* slab = reinterpret_cast<T*>(smem_raw) + (threadIdx.x >> 5) * per * n * ld;
+  const int words = static_cast<int>(max(int64_t(0), min(int64_t(per), B - b0))) * n * n;
+  T h[NMAX];
+  T yi = T(0), si = T(0), rb = T(0);
+#pragma unroll
+  for (int j = 0; j < NMAX; ++j) h[j] = T(0);
+  if (STAGED) {
+    const T* span = H + b0 * n * n;
+    walk_span(words, n, ld, lane, [&](int e, int at) { slab[at] = span[e]; });
+    __syncwarp();
+  }
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < NMAX; j += W) {
+      if (j >= n) break;
+      if (STAGED)
+        for (int k = 0; k < W; ++k) h[j + k] = slab[lane * ld + j + k];
+      else
+        Words<T, W>::load(h + j, H + row + j);
+    }
+    yi = y[b * n + i];
+    si = s[b * n + i];
+    rb = rho[b];
+  }
+  T hyi = T(0);
+#pragma unroll
+  for (int j = 0; j < NMAX; ++j) {
+    if (j >= n) break;
+    hyi = rn::add(hyi, rn::mul(h[j], __shfl_sync(kFullWarp, yi, base + j)));
+  }
+  const T p = rn::mul(yi, hyi);
+  T yHy = T(0);
+#pragma unroll
+  for (int k = 0; k < NMAX; ++k) {
+    if (k >= n) break;
+    yHy = rn::add(yHy, __shfl_sync(kFullWarp, p, base + k));
+  }
+  const T cb = coefficient(rb, yHy);
+#pragma unroll
+  for (int j = 0; j < NMAX; ++j) {
+    if (j >= n) break;
+    const T sj = __shfl_sync(kFullWarp, si, base + j);
+    const T hyj = __shfl_sync(kFullWarp, hyi, base + j);
+    h[j] = updated(h[j], rb, cb, si, sj, hyi, hyj);
+  }
+  if (STAGED) {
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < NMAX; ++j) {
+        if (j >= n) break;
+        slab[lane * ld + j] = h[j];
+      }
+    }
+    __syncwarp();
+    T* span = Hout + b0 * n * n;
+    walk_span(words, n, ld, lane, [&](int e, int at) { span[e] = slab[at]; });
+    return;
+  }
+  if (!live) return;
+#pragma unroll
+  for (int j = 0; j < NMAX; j += W) {
+    if (j >= n) break;
+    Words<T, W>::store(Hout + row + j, h + j);
+  }
+}
+
+template <typename T, int NMAX, int W, bool STAGED>
+int launch_rows_width(const T* H, const T* s, const T* y, const T* rho, T* Hout, int n, int64_t B,
+                      cudaStream_t st) {
+  const int per = 32 / n;
+  const int64_t warps = (B + per - 1) / per;
+  const int64_t blocks = (warps * 32 + kRowsThreads - 1) / kRowsThreads;
+  const size_t bytes =
+      STAGED ? static_cast<size_t>(kRowsThreads / 32) * per * n * (n | 1) * sizeof(T) : 0;
+  const auto kernel = rank2_batched_rows_kernel<T, NMAX, W, STAGED>;
+  if (bytes > static_cast<size_t>(kOptInAbove)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<static_cast<unsigned>(blocks), kRowsThreads, bytes, st>>>(H, s, y, rho, Hout, n, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// staged (one-word accesses through shared memory), or straight from
+// device memory by 16-byte accesses where every row lies on 16 bytes
+template <typename T, int NMAX>
+int launch_rows_room(const T* H, const T* s, const T* y, const T* rho, T* Hout, int n, int64_t B,
+                     bool staged, cudaStream_t st) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (staged) return launch_rows_width<T, NMAX, 1, true>(H, s, y, rho, Hout, n, B, st);
+  if (rows_aligned<T>(n, {H, Hout}))
+    return launch_rows_width<T, NMAX, kVec, false>(H, s, y, rho, Hout, n, B, st);
+  return launch_rows_width<T, NMAX, 1, false>(H, s, y, rho, Hout, n, B, st);
+}
+
+// the least room of 4, 8, 16 or 32 words that holds n
+template <typename T>
+int launch_rows(const void* H, const void* s, const void* y, const void* rho, void* Hout, int n,
+                int64_t B, int staged, void* stream) {
+  if (n < 1 || n > kRowsMost || B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto Hp = static_cast<const T*>(H);
+  const auto sp = static_cast<const T*>(s);
+  const auto yp = static_cast<const T*>(y);
+  const auto rp = static_cast<const T*>(rho);
+  const auto Op = static_cast<T*>(Hout);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool sg = staged != 0;
+  if (n <= 4) return launch_rows_room<T, 4>(Hp, sp, yp, rp, Op, n, B, sg, st);
+  if (n <= 8) return launch_rows_room<T, 8>(Hp, sp, yp, rp, Op, n, B, sg, st);
+  if (n <= 16) return launch_rows_room<T, 16>(Hp, sp, yp, rp, Op, n, B, sg, st);
+  return launch_rows_room<T, 32>(Hp, sp, yp, rp, Op, n, B, sg, st);
+}
+
+// ---------------------------------------------------------------- K4c-g
+
+constexpr int kGlobalRows = 128;  // rows a block of the first pass, a thread each
+constexpr int kGlobalCols = 32;   // columns of a staged tile
+constexpr int kApplyRows = 8;     // rows a block of the second pass, a warp each
+
+// Pass 1: Hy [B, n].  A block takes kGlobalRows rows of one instance and
+// walks their columns in tiles of kGlobalCols, each tile staged in shared
+// memory by coalesced accesses of W words (a row's tile is one run of
+// memory), each thread then summing its row's tile in ascending j.  A
+// thread's share of the next tile (kPer accesses, one column group of
+// rows kGlobalRows / kPer apart) is loaded into registers while the tile
+// in shared memory is summed.
+template <typename T, int W>
+__global__ void __launch_bounds__(kGlobalRows)
+    rank2_batched_hy_kernel(const T* __restrict__ H, const T* __restrict__ y, T* __restrict__ Hy,
+                            int n, int tiles) {
+  __shared__ T tile[kGlobalRows][kGlobalCols + 1];
+  __shared__ T ty[kGlobalCols];
+  constexpr int kPer = kGlobalCols / W;      // accesses a row's tile, and a thread's
+  constexpr int kStep = kGlobalRows / kPer;  // rows between a thread's accesses
+  const int64_t b = blockIdx.x / tiles;
+  const int r0 = static_cast<int>(blockIdx.x - b * tiles) * kGlobalRows;
+  const int rows = min(kGlobalRows, n - r0), t = threadIdx.x;
+  const int r1 = t / kPer, c = (t - r1 * kPer) * W;  // this thread's first row and its column
+  const T* Hb = H + (b * n + r0) * n;
+  const T* yb = y + b * n;
+  T next[kPer][W], ynext = T(0);
+  const auto fetch = [&](int j0) {
+    const int width = min(kGlobalCols, n - j0);
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int r = r1 + k * kStep;
+      if (r < rows && c < width)
+        Words<T, W>::load(next[k], Hb + static_cast<int64_t>(r) * n + j0 + c);
+    }
+    if (t < width) ynext = yb[j0 + t];
+  };
+  fetch(0);
+  T acc = T(0);
+  for (int j0 = 0; j0 < n; j0 += kGlobalCols) {
+    const int width = min(kGlobalCols, n - j0);
+#pragma unroll
+    for (int k = 0; k < kPer; ++k)
+#pragma unroll
+      for (int w = 0; w < W; ++w) tile[r1 + k * kStep][c + w] = next[k][w];
+    if (t < width) ty[t] = ynext;
+    __syncthreads();
+    if (j0 + kGlobalCols < n) fetch(j0 + kGlobalCols);
+    if (t < rows)
+      for (int j = 0; j < width; ++j) acc = rn::add(acc, rn::mul(tile[t][j], ty[j]));
+    __syncthreads();
+  }
+  if (t < rows) Hy[b * n + r0 + t] = acc;
+}
+
+// y^T Hy and the coefficient, a warp an instance: the products of 32 rows
+// at a time by coalesced loads, the next 32 loaded while these are summed
+// in ascending i, every product shuffled to every lane ahead of the chain
+// of additions
+template <typename T>
+__global__ void rank2_batched_coef_kernel(const T* __restrict__ y, const T* __restrict__ Hy,
+                                          const T* __restrict__ rho, T* __restrict__ coef, int n,
+                                          int64_t B) {
+  const int lane = threadIdx.x & 31;
+  const int64_t b = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  if (b >= B) return;  // a whole warp leaves
+  const auto product = [&](int i) {
+    return i < n ? rn::mul(y[b * n + i], Hy[b * n + i]) : T(0);
+  };
+  T yHy = T(0), p = product(lane);
+  for (int i0 = 0; i0 < n; i0 += 32) {
+    const T q = product(i0 + 32 + lane);
+    T all[32];
+#pragma unroll
+    for (int k = 0; k < 32; ++k) all[k] = __shfl_sync(kFullWarp, p, k);
+    const int m = min(32, n - i0);
+#pragma unroll
+    for (int k = 0; k < 32; ++k)
+      if (k < m) yHy = rn::add(yHy, all[k]);
+    p = q;
+  }
+  if (lane == 0) coef[b] = coefficient(rho[b], yHy);
+}
+
+// Pass 2: H' [B, n, n], a warp a row, its lanes over the row's columns W
+// words at a time; H read again, s and Hy from L1
+template <typename T, int W>
+__global__ void __launch_bounds__(32 * kApplyRows)
+    rank2_batched_apply_kernel(const T* __restrict__ H, const T* __restrict__ s,
+                               const T* __restrict__ rho, const T* __restrict__ coef,
+                               const T* __restrict__ Hy, T* __restrict__ Hout, int n, int tiles) {
+  const int64_t b = blockIdx.x / tiles;
+  const int i = static_cast<int>(blockIdx.x - b * tiles) * kApplyRows + threadIdx.y;
+  if (i >= n) return;
+  const T rb = rho[b], cb = coef[b];
+  const T* sb = s + b * n;
+  const T* hb = Hy + b * n;
+  const T si = sb[i], hyi = hb[i];
+  const int64_t row = (b * n + i) * n;
+  for (int j = threadIdx.x * W; j < n; j += 32 * W) {
+    T h[W], sj[W], hyj[W];
+    Words<T, W>::load(h, H + row + j);
+    Words<T, W>::load(sj, sb + j);
+    Words<T, W>::load(hyj, hb + j);
+#pragma unroll
+    for (int k = 0; k < W; ++k) h[k] = updated(h[k], rb, cb, si, sj[k], hyi, hyj[k]);
+    Words<T, W>::store(Hout + row + j, h);
+  }
+}
+
+template <typename T, int W>
+int launch_global_width(const T* H, const T* s, const T* y, const T* rho, T* Hy, T* coef,
+                        T* Hout, int n, int64_t B, int mode, cudaStream_t st) {
+  const int tiles = (n + kGlobalRows - 1) / kGlobalRows;
+  rank2_batched_hy_kernel<T, W><<<static_cast<unsigned>(B * tiles), kGlobalRows, 0, st>>>(
+      H, y, Hy, n, tiles);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || mode == 2) return static_cast<int>(err);
+  rank2_batched_coef_kernel<T><<<static_cast<unsigned>((B + 7) / 8), 256, 0, st>>>(
+      y, Hy, rho, coef, n, B);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || mode == 1) return static_cast<int>(err);
+  const int rows = (n + kApplyRows - 1) / kApplyRows;
+  const dim3 block(32, kApplyRows);
+  rank2_batched_apply_kernel<T, W><<<static_cast<unsigned>(B * rows), block, 0, st>>>(
+      H, s, rho, coef, Hy, Hout, n, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// probe modes: 1 the first pass and the coefficient alone (H' unwritten),
+// 2 the first pass alone
+template <typename T>
+int launch_global(const void* H, const void* s, const void* y, const void* rho, void* Hy,
+                  void* coef, void* Hout, int n, int64_t B, int mode, void* stream) {
+  if (n < 1 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kVec = 16 / sizeof(T);
+  const auto Hp = static_cast<const T*>(H);
+  const auto sp = static_cast<const T*>(s);
+  const auto yp = static_cast<const T*>(y);
+  const auto rp = static_cast<const T*>(rho);
+  const auto hy = static_cast<T*>(Hy);
+  const auto cf = static_cast<T*>(coef);
+  const auto Op = static_cast<T*>(Hout);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rows_aligned<T>(n, {H, s, Hy, Hout}))
+    return launch_global_width<T, kVec>(Hp, sp, yp, rp, hy, cf, Op, n, B, mode, st);
+  return launch_global_width<T, 1>(Hp, sp, yp, rp, hy, cf, Op, n, B, mode, st);
+}
+
 }  // namespace
 
 // Batch-minor: H, Hout [n, n, B]; s, y, g, dout [n, B]; rho [B]; reset [B]
 // bytes (non-zero: use the identity for H).  Leading-batch: H, Hout
-// [B, n, n]; s, y [B, n]; rho [B].  Hy [n, B] and coef [B] are scratch.
+// [B, n, n]; s, y [B, n]; rho [B].  Hy ([n, B], or [B, n] for K4c-g) and
+// coef [B] are scratch.
 // The cluster form takes C CTAs a cluster (1 .. 16) and TB lanes a tile (a
 // power of two, 1 .. 32); the streamed form C, TB, CW columns a chunk and a
 // probe mode (0: the update).  Each returns cudaGetLastError().
@@ -848,10 +1250,21 @@ int launch_batched(const void* H, const void* s, const void* y, const void* rho,
                                          int64_t B, void* stream) {                           \
     return launch_rowsplit<T>(H, s, y, g, rho, reset, Hy, coef, Hout, dout, n, B, stream);    \
   }                                                                                           \
-  extern "C" int rank2_batched_##SUFFIX(const void* H, const void* s, const void* y,          \
-                                        const void* rho, void* Hout, int n, int64_t B,        \
-                                        void* stream) {                                       \
+  extern "C" int rank2_batched_warp_##SUFFIX(const void* H, const void* s, const void* y,     \
+                                             const void* rho, void* Hout, int n, int64_t B,   \
+                                             void* stream) {                                  \
     return launch_batched<T>(H, s, y, rho, Hout, n, B, stream);                               \
+  }                                                                                           \
+  extern "C" int rank2_batched_rows_##SUFFIX(const void* H, const void* s, const void* y,     \
+                                             const void* rho, void* Hout, int n, int64_t B,   \
+                                             int staged, void* stream) {                      \
+    return launch_rows<T>(H, s, y, rho, Hout, n, B, staged, stream);                          \
+  }                                                                                           \
+  extern "C" int rank2_batched_global_##SUFFIX(const void* H, const void* s, const void* y,   \
+                                               const void* rho, void* Hy, void* coef,         \
+                                               void* Hout, int n, int64_t B, int mode,        \
+                                               void* stream) {                                \
+    return launch_global<T>(H, s, y, rho, Hy, coef, Hout, n, B, mode, stream);                \
   }
 
 RANK2_ENTRY_POINTS(float, f32)

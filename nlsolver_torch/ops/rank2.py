@@ -27,16 +27,26 @@ Counterpart of ``nlsolver_tpu.ops.rank2``.  For B instances at once
   beyond; ``rank2_direction_batchminor_kernel`` picks by n, dtype and B
   (``direction_form``).
 * ``rank2_update_batched(H [B, n, n], s, y [B, n], rho [B])`` is the
-  leading-batch update alone: kernel K4c (``rank2_update_batched_kernel``)
-  on CUDA tensors, the twin ``rank2_update_batched_reference`` on CPU
-  tensors.
+  leading-batch update alone, the single-instance BFGS's: kernel K4c on
+  CUDA tensors, the twin ``rank2_update_batched_reference`` on CPU
+  tensors.  ``rank2_update_batched_kernel`` gives every n in float32 and
+  float64 one of three forms (``batched_form``, its limits from
+  ``benches.sweep_rank2_batched``): K4c-r (``rank2_update_batched_rows``: a
+  thread a row in registers, floor(32 / n) instances a warp, H read once)
+  up to ``ROWS_LAST`` (n <= 32 in float32, 15 in float64), K4c-w
+  (``rank2_update_batched_warp``: a warp an instance staged in shared
+  memory, H read once; it takes n while one instance fits a block,
+  ``batched_fits``: n <= 239 in float32, 168 in float64) up to
+  ``WARP_LAST`` (48), and K4c-g (``rank2_update_batched_global``: Hy in a
+  first pass, then H' in a second, H read twice) beyond.
 * ``rank2_update_reference`` is the single-instance formulation.
 
 The kernels sum in ascending index order with every operation rounded on
 its own, which is not ``torch.sum``'s order: they agree with the twins to a
 few ulp times n relative to max|H'| and max|d'| (``KERNEL_TOL_ULPS``), and
 bit for bit where n <= 2.  K4b-c and K4b-t take K4b's steps and equal it
-bit for bit.
+bit for bit; K4c-r, K4c-w and K4c-g take the same sums in the same order
+and equal each other bit for bit.
 """
 from __future__ import annotations
 
@@ -71,6 +81,31 @@ STREAMED_CHUNK = 32
 # (``benches.sweep_rank2_streamed``)
 STREAMED_LAST = {torch.float32: ((64, 1024), (256, 512), (1024, 320), (16384, 225)),
                  torch.float64: ((16, 1415), (64, 992), (256, 352), (1024, 192))}
+# K4c-r's largest n: an instance's rows are the lanes of one warp
+# (csrc/rank2.cu's kRowsMost)
+ROWS_MOST = 32
+# The dispatcher's limits by dtype, from benches.sweep_rank2_batched on an
+# H100 at B = 256 and 10000: K4c-r up to ROWS_LAST (in float64 K4c-w was
+# faster from n = 16 at B = 10000), K4c-w up to WARP_LAST (K4c-g was faster
+# from n = 64 at B = 10000, from n = 40 at B = 256), K4c-g beyond
+ROWS_LAST = {torch.float32: 32, torch.float64: 15}
+WARP_LAST = {torch.float32: 48, torch.float64: 48}
+# the n at which K4c-r stages a warp's instances through shared memory, by
+# dtype: (most lanes, those n) for B up to each bound in turn, the last
+# entry's n for every B beyond.  Staging measured faster at those n on an
+# H100 at B = 256, 10000 and 65536 (``benches.sweep_rank2_batched`` over
+# ``ROWS_SWEEP``); at every other n the rows come straight from device
+# memory, 16 bytes an access where they allow
+ROWS_STAGED = {
+    torch.float32: ((256, frozenset({10, 13, 14, 15, 17, 18, 19, 21, 22, 23, 25, 26, 27, 29, 30,
+                                     31})),
+                    (10000, frozenset(range(5, 33)) - {8, 12, 20, 24}),
+                    (65536, frozenset(range(5, 33)) - {8, 12, 16, 20, 24, 28})),
+    torch.float64: ((256, frozenset({8, 13, 15, 16, 17, 19, 21, 23, 24, 25, 27, 28, 29, 30, 31,
+                                     32})),
+                    (10000, frozenset(range(5, 33)) - {18, 20, 22}),
+                    (65536, frozenset(range(5, 33)) - {6, 8, 10, 12, 18, 20, 22, 24})),
+}
 # kernel against twin: |diff| <= KERNEL_TOL_ULPS * n * eps * max|twin|
 KERNEL_TOL_ULPS = 2
 
@@ -219,17 +254,42 @@ def direction_form(n: int, dtype: torch.dtype, B: int) -> str:
 
 
 def batched_fits(n: int, dtype: torch.dtype) -> bool:
-    """Whether one instance of K4c (H with padded rows, s, y, Hy) fits a
+    """Whether one instance of K4c-w (H with padded rows, s, y, Hy) fits a
     block's shared memory: n <= 239 in float32, n <= 168 in float64."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     return (n * (n + 1) + 3 * n) * itemsize <= MAX_DYNAMIC_SMEM
 
 
+def rows_staged(n: int, dtype: torch.dtype, B: int) -> bool:
+    """Whether K4c-r passes n in ``dtype`` on B lanes through shared memory
+    (``ROWS_STAGED``) rather than straight from device memory."""
+    table = ROWS_STAGED.get(dtype, ((0, frozenset()),))
+    return n in next((ns for most, ns in table if B <= most), table[-1][1])
+
+
+def rows_takes(n: int) -> bool:
+    """Whether K4c-r takes n: an instance's n rows are lanes of one warp."""
+    return 1 <= n <= ROWS_MOST
+
+
+def batched_form(n: int, dtype: torch.dtype) -> str:
+    """The form of K4c the dispatcher gives n in ``dtype``: "rows" (K4c-r)
+    up to ``ROWS_LAST[dtype]``, "warp" (K4c-w) up to ``WARP_LAST[dtype]``,
+    "global" (K4c-g) beyond: n <= 32, 33-48 and 49 on in float32; n <= 15,
+    16-48 and 49 on in float64."""
+    if rows_takes(n) and n <= ROWS_LAST.get(dtype, 0):
+        return "rows"
+    return "warp" if n <= WARP_LAST.get(dtype, 0) and batched_fits(n, dtype) else "global"
+
+
 @functools.lru_cache(maxsize=None)
-def _launcher(name: str, n_pointers: int):
+def _launcher(name: str, n_pointers: int, n_options: int = 0):
+    """An entry point taking pointers, n, B, ``n_options`` ints and the stream."""
     fn = getattr(_build.load_library(), name)
-    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    ci = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ci, ctypes.c_int64] + [ci] * n_options
+                   + [ctypes.c_void_p])
+    fn.restype = ci
     return fn
 
 
@@ -242,12 +302,12 @@ def _cluster_launcher(suffix: str):
     return fn
 
 
-def _launch(name, tensors, n, B):
+def _launch(name, tensors, n, B, *options):
     first = tensors[0]
     with torch.cuda.device(first.device):
         stream = torch.cuda.current_stream(first.device).cuda_stream
-        err = _launcher(f"{name}_{_build.DTYPE_SUFFIX[first.dtype]}", len(tensors))(
-            *(t.data_ptr() for t in tensors), n, B, stream
+        err = _launcher(f"{name}_{_build.DTYPE_SUFFIX[first.dtype]}", len(tensors), len(options))(
+            *(t.data_ptr() for t in tensors), n, B, *options, stream
         )
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
@@ -402,16 +462,81 @@ def rank2_direction_batchminor(H, s, y, g, rho, reset):
     return rank2_direction_batchminor_kernel(*tensors)
 
 
-def rank2_update_batched_kernel(H, s, y, rho):
-    """Kernel K4c on CUDA tensors (float32 or float64, contiguous):
-    H [B, n, n]; s, y [B, n]; rho [B] -> H' [B, n, n]."""
-    name = "rank2_update_batched_kernel"
+def _check_cuda_batched(name, H, s, y, rho):
     B, n = _check_batched(name, H, s, y, rho)
     _build.check_cuda_inputs(name, {"H": H, "s": s, "y": y, "rho": rho})
-    if not batched_fits(n, H.dtype):
-        raise ValueError(f"{name}: n={n} in {H.dtype} does not fit the shared memory of a block")
+    return B, n
+
+
+def rank2_update_batched_rows(H, s, y, rho, _staged=None):
+    """Kernel K4c-r on CUDA tensors (float32 or float64, contiguous):
+    thread i of an instance holds row i of H in registers, floor(32 / n)
+    instances a warp; H read once.  Where ``rows_staged(n, dtype, B)`` a
+    warp's instances pass through its slab of shared memory by coalesced
+    one-word accesses, else each row comes straight from device memory, 16
+    bytes an access where the rows allow; ``_staged`` (for tests and
+    sweeps) takes one way or the other.  Raises past n = ``ROWS_MOST``."""
+    name = "rank2_update_batched_rows"
+    B, n = _check_cuda_batched(name, H, s, y, rho)
+    if not rows_takes(n):
+        raise ValueError(f"{name}: n={n} passes the {ROWS_MOST} rows of a warp; "
+                         "rank2_update_batched_warp or rank2_update_batched_global takes it")
+    staged = rows_staged(n, H.dtype, B) if _staged is None else _staged
     Hn = torch.empty_like(H)
-    _launch("rank2_batched", (H, s, y, rho, Hn), n, B)
+    _launch("rank2_batched_rows", (H, s, y, rho, Hn), n, B, int(bool(staged)))
+    rank2_update_batched_rows.launches += 1
+    return Hn
+
+
+rank2_update_batched_rows.launches = 0
+
+
+def rank2_update_batched_warp(H, s, y, rho):
+    """Kernel K4c-w on CUDA tensors (float32 or float64, contiguous): a
+    warp an instance, H, s, y and Hy in shared memory; H read once.
+    Raises where one instance does not fit a block (``batched_fits``)."""
+    name = "rank2_update_batched_warp"
+    B, n = _check_cuda_batched(name, H, s, y, rho)
+    if not batched_fits(n, H.dtype):
+        raise ValueError(f"{name}: n={n} in {H.dtype} does not fit the shared memory of a block; "
+                         "rank2_update_batched_global takes it")
+    Hn = torch.empty_like(H)
+    _launch("rank2_batched_warp", (H, s, y, rho, Hn), n, B)
+    rank2_update_batched_warp.launches += 1
+    return Hn
+
+
+rank2_update_batched_warp.launches = 0
+
+
+def rank2_update_batched_global(H, s, y, rho, _mode=0):
+    """Kernel K4c-g on CUDA tensors (float32 or float64, contiguous), any
+    n: Hy [B, n] and the coefficient [B] into scratch, then H'; three
+    launches on the current stream, counted as one.  ``_mode`` (for
+    probes): 1 runs the first pass and the coefficient alone, H' unwritten,
+    2 the first pass alone."""
+    name = "rank2_update_batched_global"
+    B, n = _check_cuda_batched(name, H, s, y, rho)
+    Hn, Hy, coef = torch.empty_like(H), torch.empty_like(y), torch.empty_like(rho)
+    _launch("rank2_batched_global", (H, s, y, rho, Hy, coef, Hn), n, B, _mode)
+    rank2_update_batched_global.launches += 1
+    return Hn
+
+
+rank2_update_batched_global.launches = 0
+
+# K4c's forms by the names ``batched_form`` gives them
+BATCHED_FORMS = {"rows": rank2_update_batched_rows, "warp": rank2_update_batched_warp,
+                 "global": rank2_update_batched_global}
+
+
+def rank2_update_batched_kernel(H, s, y, rho):
+    """Kernel K4c on CUDA tensors (float32 or float64, contiguous):
+    H [B, n, n]; s, y [B, n]; rho [B] -> H' [B, n, n] through the form
+    ``batched_form`` names.  ``launches`` counts its calls; each form
+    counts its own."""
+    B, n = _check_batched("rank2_update_batched_kernel", H, s, y, rho)
+    Hn = BATCHED_FORMS[batched_form(n, H.dtype)](H, s, y, rho)
     rank2_update_batched_kernel.launches += 1
     return Hn
 

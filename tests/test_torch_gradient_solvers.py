@@ -217,20 +217,46 @@ def test_rank2_update_through_ops_matches_jax():
 
 
 def test_update_plan_names_the_kernel_range():
-    """K4c where one instance fits a block's shared memory (n <= 239 in
-    float32, 168 in float64), plain torch past it; the quirk formula is
-    its own function at every n."""
-    for n, dtype, plan in ((16, torch.float32, "kernel"), (239, torch.float32, "kernel"),
-                           (240, torch.float32, "plain"), (168, torch.float64, "kernel"),
-                           (169, torch.float64, "plain")):
-        assert tb.update_plan(n, dtype, False) == plan, (n, dtype)
+    """K4c at every n (``ops.rank2.batched_form`` names its form: K4c-r up
+    to n = 32 in float32 and 15 in float64, K4c-w to 48, K4c-g beyond, past
+    one instance's block at n = 240 in float32 and 169 in float64 too); the
+    quirk formula is its own function at every n."""
+    for n, dtype, form in ((16, torch.float32, "rows"), (48, torch.float32, "warp"),
+                           (239, torch.float32, "global"), (240, torch.float32, "global"),
+                           (16, torch.float64, "warp"), (168, torch.float64, "global"),
+                           (169, torch.float64, "global")):
+        assert tb.update_plan(n, dtype, False) == "kernel", (n, dtype)
         assert tb.update_plan(n, dtype, True) == "reference"
+        assert tr.batched_form(n, dtype) == form, (n, dtype)
     rng = np.random.default_rng(6)
     H = torch.from_numpy(np.tile(np.eye(4), (3, 1, 1)))
     s, y = (torch.from_numpy(rng.standard_normal((3, 4))) for _ in range(2))
     rho = torch.full((3,), 0.5, dtype=torch.float64)
-    assert torch.equal(tb._apply_update(H, s, y, rho, "plain"),
-                       tb._apply_update(H, s, y, rho, "kernel"))
+    assert torch.equal(tb._apply_update(H, s, y, rho, "kernel"),
+                       tr.rank2_update_batched_reference(H, s, y, rho))
+
+
+def test_bfgs_past_the_block_matches_jax_vmap():
+    """Two 169-D bowls in float64, the first n past one instance's block
+    (K4c-g on a card; the twin here): ``minimize_batched`` against
+    ``jax.vmap`` of the JAX BFGS, counters equal lane by lane, x within
+    1e-9."""
+    rng = np.random.default_rng(169)
+    n, lanes2 = 169, 2
+    x0 = rng.uniform(-2.0, 2.0, (lanes2, n))
+    k = np.zeros(lanes2, np.int64)
+    c = rng.standard_normal((lanes2, n))
+    w = rng.uniform(0.5, 3.0, (lanes2, n))
+    cfg = dict(max_iter=30)
+    want = fields(jax_batched(jb.minimize, jb.BFGSConfig(**cfg))(x0, k, c, w))
+    got = fields(tb.minimize_batched(t_objective, torch.from_numpy(x0), tb.BFGSConfig(**cfg),
+                                     data=torch_data(k, c, w)))
+    assert tb.update_plan(n, torch.float64, False) == "kernel"
+    assert tr.batched_form(n, torch.float64) == "global"
+    for f in COUNTERS:
+        assert np.array_equal(got[f], want[f]), (f, got[f], want[f])
+    assert int(got["iterations"].min()) > 1
+    hold(got, want, 0, 1e-9)
 
 
 @pytest.mark.gpu

@@ -1,9 +1,10 @@
-"""Kernels K4a, K4b-c, K4b and K4c of nlsolver_torch (``ops.rank2``): the
-three plain twins against the JAX package's jnp formulations (f64, rtol
-1e-12) and against its Pallas kernels in interpret mode (f32), a
-plain-tensor emulation of K4b-c's order, the CPU routes, the shapes
-refused, the shared-memory envelopes and the dispatcher's choice, and the
-CUDA kernels against their twins (on a card only).
+"""Kernels K4a, K4b-c, K4b and K4c (K4c-r, K4c-w, K4c-g) of nlsolver_torch
+(``ops.rank2``): the three plain twins against the JAX package's jnp
+formulations (f64, rtol 1e-12) and against its Pallas kernels in interpret
+mode (f32), K4c's twin also past one block's shared memory, a plain-tensor
+emulation of K4b-c's order, the CPU routes, the shapes refused, the
+shared-memory envelopes and the dispatchers' choices, and the CUDA kernels
+against their twins and each other (on a card only).
 
 JAX is imported only inside the tests that compare with it, so that the
 card's tests run where JAX is not installed:
@@ -120,7 +121,8 @@ def test_cpu_routes_are_the_twins_and_errors():
     H, s, y, g, rho, reset = case
     counters = (tr.rank2_direction_batchminor_resident, tr.rank2_direction_batchminor_cluster,
                 tr.rank2_direction_batchminor_streamed, tr.rank2_direction_batchminor_rowsplit,
-                tr.rank2_update_batched_kernel)
+                tr.rank2_update_batched_kernel, tr.rank2_update_batched_rows,
+                tr.rank2_update_batched_warp, tr.rank2_update_batched_global)
     before = [f.launches for f in counters]
     Hn, d = tr.rank2_direction_batchminor(*case)
     tH, td = tr.rank2_direction_batchminor_reference(*case)
@@ -151,6 +153,68 @@ def test_shared_memory_envelopes():
     assert tr.resident_fits(28, torch.float64) and not tr.resident_fits(29, torch.float64)
     assert tr.batched_fits(239, torch.float32) and not tr.batched_fits(240, torch.float32)
     assert tr.batched_fits(168, torch.float64) and not tr.batched_fits(169, torch.float64)
+
+
+def test_batched_form_envelopes():
+    """K4c's forms by n: K4c-r while an instance's rows are lanes of one
+    warp (n <= 32) and n is at most ``ROWS_LAST``, K4c-w to ``WARP_LAST``,
+    within the n whose instance, (n (n + 1) + 3 n) words, fits a block's
+    232448 bytes (n <= 239 in float32, 168 in float64), K4c-g beyond; every
+    n takes a form."""
+    assert tr.ROWS_MOST == 32
+    assert [n for n in range(0, 40) if tr.rows_takes(n)] == list(range(1, 33))
+    for dtype, item, last, rows, warp in ((torch.float32, 4, 239, 32, 48),
+                                          (torch.float64, 8, 168, 15, 48)):
+        words = [n * (n + 1) + 3 * n for n in (last, last + 1)]
+        assert words[0] * item <= 232448 < words[1] * item
+        assert tr.batched_fits(last, dtype) and not tr.batched_fits(last + 1, dtype)
+        assert (tr.ROWS_LAST[dtype], tr.WARP_LAST[dtype]) == (rows, warp)
+        forms = [tr.batched_form(n, dtype) for n in range(1, 2 * last)]
+        assert forms == (["rows"] * rows + ["warp"] * (warp - rows)
+                         + ["global"] * (2 * last - 1 - warp)), dtype
+        assert tr.batched_form(5000, dtype) == "global"
+    assert set(tr.BATCHED_FORMS) == {"rows", "warp", "global"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rows_staged_by_lanes(dtype):
+    """K4c-r's way by n and B: staged through shared memory at the n
+    ``ROWS_STAGED`` lists for the first bound that B is at most, the last
+    bound's n for every B beyond, straight from device memory elsewhere."""
+    table = tr.ROWS_STAGED[dtype]
+    assert [most for most, _ in table] == [256, 10000, 65536]
+    for (most, staged), fewer in zip(table, (1, 257, 10001)):
+        assert staged <= set(range(1, tr.ROWS_MOST + 1))
+        for B in (fewer, most):
+            assert {n for n in range(1, 40) if tr.rows_staged(n, dtype, B)} == staged, B
+    beyond = {n for n in range(1, 40) if tr.rows_staged(n, dtype, 10 ** 6)}
+    assert beyond == table[-1][1]
+    if dtype == torch.float32:  # the single-instance BFGS's n = 16: staged on 10000 lanes only
+        assert [tr.rows_staged(16, dtype, B) for B in (256, 10000, 65536)] == [False, True, False]
+        assert [n for n in range(1, 33) if not tr.rows_staged(n, dtype, 10000)] == [
+            1, 2, 3, 4, 8, 12, 20, 24]
+        assert [n for n in range(1, 33) if not tr.rows_staged(n, dtype, 65536)] == [
+            1, 2, 3, 4, 8, 12, 16, 20, 24, 28]
+
+
+@pytest.mark.parametrize("n,dtype", [(240, np.float32), (169, np.float64)])
+def test_batched_twin_past_the_block_matches_jax(n, dtype):
+    """The first n past K4c-w's block, K4c-g's on a card: the twin on 3
+    lanes against the JAX jnp formulation and the Pallas kernel in
+    interpret mode (tile 32, here the 3 lanes).  The sums run in another
+    order: within ``KERNEL_TOL_ULPS`` n ulp of the largest entry."""
+    import jax
+    from nlsolver_tpu.ops.rank2 import rank2_update_batched_jnp, rank2_update_batched_pallas
+
+    H, s, y, _, rho, _ = _batchminor_case(8, n, 3, dtype)
+    Hb, sb, yb = (np.ascontiguousarray(a) for a in (H.transpose(2, 0, 1), s.T, y.T))
+    got = tr.rank2_update_batched(*_t(Hb, sb, yb, rho))
+    assert got.dtype == torch.from_numpy(Hb).dtype and tuple(got.shape) == (3, n, n)
+    for want in (jax.jit(rank2_update_batched_jnp)(Hb, sb, yb, rho),
+                 rank2_update_batched_pallas(Hb, sb, yb, rho, tile=32, interpret=True)):
+        want = np.asarray(want)
+        tol = tr.KERNEL_TOL_ULPS * n * np.finfo(dtype).eps * float(np.abs(want).max())
+        assert float(np.abs(got.numpy() - want).max()) <= tol
 
 
 def ascending_reference(H, s, y, g, rho, reset):
@@ -534,6 +598,73 @@ def test_batched_kernel_matches_twin_on_card(n, dtype):
     _assert_within(Hn, tr.rank2_update_batched_reference(*args), n, "H'")
 
 
+def _batched_on_card(n, B, dtype, dev, offset=0):
+    """K4c's inputs on the card; with ``offset`` H starts that many words
+    into its storage (off 16 bytes: the forms' one-word accesses)."""
+    H, s, y, _, rho, _ = _batchminor_case(n, n, B)
+    H = torch.from_numpy(np.ascontiguousarray(H.transpose(2, 0, 1))).to(dev, dtype)
+    if offset:
+        H = torch.empty(H.numel() + offset, device=dev, dtype=dtype)[offset:].view_as(H).copy_(H)
+    return (H, *(t.to(dev, dtype) for t in _t(s.T, y.T, rho)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,B,offset", [(1, 777, 0), (2, 777, 0), (10, 1001, 0), (16, 4097, 0),
+                                        (16, 1001, 1), (31, 333, 0), (32, 333, 0)])
+def test_rows_kernel_bit_equal_to_warp_on_card(n, B, offset, dtype):
+    """K4c-r equals K4c-w bit for bit (the same sums in the same order),
+    staged through shared memory and straight from device memory with
+    16-byte and one-word accesses; the dispatcher takes the form
+    ``batched_form`` names."""
+    dev = _on_card()
+    args = _batched_on_card(n, B, dtype, dev, offset)
+    before = tr.rank2_update_batched_rows.launches
+    got = tr.rank2_update_batched_rows(*args)
+    torch.cuda.synchronize()
+    assert tr.rank2_update_batched_rows.launches == before + 1
+    assert torch.equal(got, tr.rank2_update_batched_warp(*args))
+    for staged in (False, True):  # straight from device memory and through shared memory
+        assert torch.equal(got, tr.rank2_update_batched_rows(*args, _staged=staged)), staged
+    _assert_within(got, tr.rank2_update_batched_reference(*args), n, "H'")
+    form = tr.BATCHED_FORMS[tr.batched_form(n, dtype)]
+    before = form.launches, tr.rank2_update_batched_kernel.launches
+    assert torch.equal(got, tr.rank2_update_batched(*args))
+    assert (form.launches, tr.rank2_update_batched_kernel.launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,dtype,offset", [(64, torch.float32, 0), (63, torch.float32, 0),
+                                            (64, torch.float32, 1), (33, torch.float64, 0),
+                                            (34, torch.float64, 0), (16, torch.float32, 0)])
+def test_global_kernel_bit_equal_to_warp_on_card(n, dtype, offset):
+    """K4c-g equals K4c-w bit for bit where both take n."""
+    dev = _on_card()
+    args = _batched_on_card(n, 1001, dtype, dev, offset)
+    before = tr.rank2_update_batched_global.launches
+    got = tr.rank2_update_batched_global(*args)
+    torch.cuda.synchronize()
+    assert tr.rank2_update_batched_global.launches == before + 1
+    assert torch.equal(got, tr.rank2_update_batched_warp(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,dtype", [(240, torch.float32), (169, torch.float64),
+                                     (300, torch.float32)])
+def test_global_kernel_past_the_block_on_card(n, dtype):
+    """Past K4c-w's block the dispatcher takes K4c-g, within tolerance of
+    the twin."""
+    dev = _on_card()
+    args = _batched_on_card(n, 5, dtype, dev)
+    assert tr.batched_form(n, dtype) == "global"
+    before = tr.rank2_update_batched_global.launches
+    got = tr.rank2_update_batched(*args)
+    torch.cuda.synchronize()
+    assert tr.rank2_update_batched_global.launches == before + 1
+    _assert_within(got, tr.rank2_update_batched_reference(*args), n, "H'")
+
+
 @pytest.mark.gpu
 def test_kernels_refuse_what_they_do_not_take_on_card():
     dev = _on_card()
@@ -550,6 +681,12 @@ def test_kernels_refuse_what_they_do_not_take_on_card():
         v = torch.zeros(41, 8, device=dev)
         tr.rank2_direction_batchminor_resident(big, v, v, v, torch.zeros(8, device=dev),
                                                torch.zeros(8, dtype=torch.bool, device=dev))
+    with pytest.raises(ValueError, match="passes the 32 rows of a warp"):
+        tr.rank2_update_batched_rows(*_batched_on_card(33, 4, torch.float32, dev))
+    with pytest.raises(ValueError, match="does not fit"):
+        tr.rank2_update_batched_warp(*_batched_on_card(240, 2, torch.float32, dev))
+    with pytest.raises(ValueError, match="float32 or float64"):
+        tr.rank2_update_batched(*(t.half() for t in _batched_on_card(4, 8, torch.float32, dev)))
 
 
 def _cluster_on_card(n, B, dtype, dev):
