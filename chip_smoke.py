@@ -237,7 +237,29 @@ Phases, each fatal on failure:
      (the benches' default is 64), a
      profile of each single solve, bench_lm_fleet (fit_fleet against
      fit_batched at B = 4096) and the row-layout arm of bench_pso_sann_100d
-     at B = 256 with its profile.
+     at B = 256 with its profile;
+ 25. the CMA-ES on lane tensors (no kernel): minimize(rastrigin,
+     x0[65536, 16] = -0.5, method="cmaes", layout="batched") with
+     pop_size=12, 50 generations and every other termination rule off, in
+     float32, under eigh_method="xla" and "jacobi" (the median best value
+     from 324, below the fleet's limit of 80), and cmaes.step on the same
+     lanes timed (ms a generation over 50 generations, 10 with "jacobi",
+     beside the fleet's); 256 lanes of 4-D bowls, Rosenbrock and bounded bowls in
+     float64 with "jacobi", pop_size=8 and injected draws for 30
+     generations, against the same call on the host (counters equal, the
+     floats within rtol 1e-10); restarts=8 on the CMA-ES as one batch (one
+     drive, B = 8);
+ 26. the reference replays and trajectories (no kernel): every pair of
+     tests/data/reference_trajectories.tsv on the card through
+     nlsolver_torch.parity (trace.trajectory for the traced families,
+     minimize per k for gd_anneal, brent_min and the root finders) under
+     the JAX suite's DX_TOL and counter rules, the 30 exact pairs bit-exact;
+     the first 4096 variates of each reference generator in float32 and
+     float64 and of mt19937(42) bit-equal to the host's; a DE replay on
+     10-D Rosenbrock (pop_size=50, 20 generations) bit-equal to the host's,
+     with the seconds a generation of each replay on the card and on the
+     host; how often the card's log, exp, cos, sin and sqrt part from the
+     C library's (which the replays, and McCormick's golden runs, take).
 
 Every kernel's line also gives its bound: the larger of its compulsory
 bytes over 3.35 TB/s and its floating-point operations over 67 TFLOP/s
@@ -3365,6 +3387,258 @@ def phase_free_timing(torch, dev):
               f"row {name}: no descent")
 
 
+# the CMA-ES on lane tensors (phase 25): the card against the host on LANE_CMA
+# lanes of three kinds, n = 4, pop_size 8 (mu = 4 >= n), LANE_CMA_GENS generations
+LANE_CMA, LANE_CMA_N, LANE_CMA_POP, LANE_CMA_GENS = 256, 4, 8, 30
+LANE_CMA_RTOL = 1e-10
+
+
+def cma_bench_config(method):
+    """The fleet bench's scenario for the lane CMA-ES: lam = 12, 50
+    generations, every other termination rule and the kick off."""
+    from nlsolver_torch.solvers.cmaes import CMAESConfig
+
+    return CMAESConfig(pop_size=12, max_iter=CMA_GENS, best_value_no_change=1 << 30, f_tol=0.0,
+                       kick_tol=0.0, cond_max=float("inf"), eigh_method=method)
+
+
+def cma_lanes_close(torch, got, want, rtol):
+    """Counters equal and floats within ``rtol`` of the host's (scaled by
+    each field's largest entry); returns the worst relative difference."""
+    worst = 0.0
+    for f in ("iterations", "function_calls", "gradient_calls", "hessian_calls", "converged"):
+        check(torch.equal(getattr(got, f).cpu(), getattr(want, f)),
+              f"the lane CMA-ES: {f} differs between the card and the host")
+    for f in ("x", "f_value"):
+        a, b = getattr(got, f).cpu(), getattr(want, f)
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max()) / max(scale, 1e-300)
+        worst = max(worst, err)
+        check(err <= rtol, f"the lane CMA-ES: {f} off the host's by {err:.3e} (rtol {rtol})")
+    return worst
+
+
+def phase_cmaes_lanes(torch, dev):
+    """The CMA-ES on lane tensors: the bench scenario through minimize and
+    timed a generation; 256 float64 lanes against the host; restarts=8 as
+    one batch."""
+    import nlsolver_torch as nt
+    from nlsolver_torch.core import Bounds
+    from nlsolver_torch.solvers import cmaes
+    from nlsolver_torch.solvers._lane import Draws
+
+    fn = nt.PROBLEMS["rastrigin"].fn
+    x0 = torch.full((CMA_B, CMA_N), -0.5, device=dev)
+    reset_counts()
+    for method in ("xla", "jacobi"):
+        cfg = cma_bench_config(method)
+        g = torch.Generator(device=dev).manual_seed(0)
+        t0 = time.perf_counter()
+        res = nt.minimize(fn, x0, method="cmaes", layout="batched", config=cfg, generator=g)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        med = float(res.f_value.median())
+        # generations by cmaes.step alone: no drive, no frozen steps (10 of
+        # the Jacobi twin's, at some 0.14 s each)
+        timed = CMA_GENS if method == "xla" else 10
+        state = cmaes.init(fn, x0, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(timed):
+            state = cmaes.step(fn, state, cfg, generator=g)
+        torch.cuda.synchronize()
+        per_gen = (time.perf_counter() - t1) / timed * 1e3
+        log(f"[25] minimize(rastrigin, x0[{CMA_B}, {CMA_N}], method='cmaes', layout='batched', "
+            f"eigh_method={method!r}) f32: {wall:.3f} s for {CMA_GENS} generations (the drive's "
+            f"{-(-(CMA_GENS + 1) // 16) * 16} steps), best value median {med:.4f} from 324.0 "
+            f"(limit 80.0), max {float(res.f_value.max()):.4f}; cmaes.step alone {per_gen:.3f} ms "
+            f"a generation of {CMA_B} lanes, {CMA_B / per_gen * 1e3:.6g} instance generations/s "
+            f"(the fleet: 5.9-6.1 ms through K5r, PERF.md)")
+        check(res.x.is_cuda and tuple(res.x.shape) == (CMA_B, CMA_N)
+              and bool(torch.isfinite(res.x).all()) and bool((res.iterations == CMA_GENS).all()),
+              f"{method}: misshapen, off the card, non-finite or short of {CMA_GENS} generations")
+        check(med < 80.0 and float(res.f_value.max()) < 324.0,
+              f"{method}: the lanes did not descend as the fleet does")
+        del res, state
+    check(not launched(), f"the lane CMA-ES launched kernels: {launched()}")
+
+    # 256 float64 lanes against the host, on injected draws: bowls, Rosenbrock, bounded bowls
+    gen = torch.Generator().manual_seed(25)
+    n, lam = LANE_CMA_N, LANE_CMA_POP
+    x0_host = torch.rand((LANE_CMA, n), generator=gen, dtype=torch.float64) * 3.0 - 1.5
+    centers = torch.randn((LANE_CMA, n), generator=gen, dtype=torch.float64)
+    z = torch.randn((LANE_CMA_GENS + 1, LANE_CMA, lam, n), generator=gen, dtype=torch.float64)
+    draws = Draws(None, z)
+    box = (torch.full((n,), -0.5, dtype=torch.float64), torch.full((n,), 1.0, dtype=torch.float64))
+    kinds = {
+        "bowls": (lambda x, c: ((x - c) ** 2).sum(), None),
+        "Rosenbrock": (lambda x, c: (100.0 * (x[1:] - x[:-1] ** 2) ** 2
+                                     + (1.0 - x[:-1]) ** 2).sum(), None),
+        "bounded bowls": (lambda x, c: ((x - c) ** 2).sum(), box),
+    }
+    cfg = cmaes.CMAESConfig(pop_size=lam, max_iter=LANE_CMA_GENS, eigh_method="jacobi")
+    for label, (f, bounds) in kinds.items():
+        t0 = time.perf_counter()
+        got = cmaes.minimize_batched(
+            f, x0_host.to(dev), cfg,
+            None if bounds is None else Bounds(*(b.to(dev) for b in bounds)),
+            draws=Draws(None, z.to(dev)), data=centers.to(dev))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        want = cmaes.minimize_batched(f, x0_host, cfg, None if bounds is None else Bounds(*bounds),
+                                      draws=draws, data=centers)
+        host = time.perf_counter() - t1
+        worst = cma_lanes_close(torch, got, want, LANE_CMA_RTOL)
+        log(f"[25] {label} [{LANE_CMA}, {n}] f64, jacobi, {LANE_CMA_GENS} generations on "
+            f"injected draws: {wall:.3f} s on the card, {host:.3f} s on the host; counters equal, "
+            f"worst relative difference {worst:.3e} (rtol {LANE_CMA_RTOL:g}), f median "
+            f"{float(got.f_value.median()):.3e}")
+        if bounds is not None:
+            check(float(got.x.min()) >= -0.5 and float(got.x.max()) <= 1.0,
+                  "the bounded lanes left their box")
+    check(not launched(), f"the lane CMA-ES launched kernels: {launched()}")
+
+    # restarts=8 on the CMA-ES: the starts as the lanes of one batch, one drive
+    seen, drives = [], []
+    real_batched, real_drive = cmaes.minimize_batched, cmaes.drive
+
+    def spy_batched(fn, x0, *a, **kw):
+        seen.append(tuple(x0.shape))
+        return real_batched(fn, x0, *a, **kw)
+
+    def spy_drive(*a, **kw):
+        drives.append(1)
+        return real_drive(*a, **kw)
+
+    rosen = lambda x: 100.0 * (x[0] ** 2 - x[1]) ** 2 + (x[0] - 1.0) ** 2  # noqa: E731
+    cmaes.minimize_batched, cmaes.drive = spy_batched, spy_drive
+    try:
+        t0 = time.perf_counter()
+        res = nt.minimize(rosen, torch.tensor([-0.5, -0.5], device=dev), method="cmaes",
+                          restarts=8, restart_sampler="halton")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        cmaes.minimize_batched, cmaes.drive = real_batched, real_drive
+    log(f"[25] minimize(rosen, x0, method='cmaes', restarts=8): {wall:.3f} s, batches {seen}, "
+        f"drives {len(drives)}, f {float(res.f_value):.3e}, iterations summed "
+        f"{int(res.iterations)}")
+    check(seen == [(8, 2)] and len(drives) == 1,
+          f"restarts=8 ran as {seen} in {len(drives)} drives")
+    check(res.x.is_cuda and float(res.f_value) < 1e-8, "restarts=8 missed Rosenbrock's minimum")
+    check(not launched(), f"the lane CMA-ES launched kernels: {launched()}")
+
+
+def rosen_sequential(torch):
+    """N-D Rosenbrock with its terms added one by one in index order, so the
+    card and the host round the sum alike (a ``.sum()`` orders it by
+    device)."""
+    def fn(x):
+        t = 100.0 * (x[1:] - x[:-1] ** 2) ** 2 + (1.0 - x[:-1]) ** 2
+        acc = t[0]
+        for i in range(1, t.shape[0]):
+            acc = acc + t[i]
+        return acc
+
+    return fn
+
+
+def phase_replays(torch, dev):
+    """The golden trajectories on the card, the generators and a 10-D DE
+    replay card against host, and the card's libm against the C library's."""
+    import math
+    import os
+
+    from nlsolver_torch import parity
+    from nlsolver_torch.random import mt19937, reference_rngs
+    from nlsolver_torch.solvers import de_reference
+
+    reset_counts()
+    golden = parity.load_golden(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                              "tests", "data", "reference_trajectories.tsv"))
+    check(sorted(golden) == sorted(parity.DX_TOL), "the golden file's pairs are not DX_TOL's")
+    failed, exact, seconds = [], 0, {}
+    for (solver, problem), rows in sorted(golden.items()):
+        t0 = time.perf_counter()
+        per_k = parity.compare_pair(solver, problem, rows, device=dev)
+        seconds[(solver, problem)] = time.perf_counter() - t0
+        bad = parity.check_pair(solver, problem, per_k)
+        dx = max(r["dx"] for r in per_k)
+        tol = parity.DX_TOL[(solver, problem)][0]
+        exact += int(tol == 0.0 and not bad)
+        if bad:
+            failed.append(f"{solver}/{problem}: {bad[:3]}")
+        log(f"[26] {solver}/{problem} on the card: {len(rows)} prefixes, max dx {dx:.3e} (tol "
+            f"{tol:g}), {'ok' if not bad else bad[:2]}, {seconds[(solver, problem)]:.2f} s")
+    log(f"[26] golden pairs: {len(golden) - len(failed)} of {len(golden)} pass on the card, "
+        f"{exact} of 30 exact pairs bit-exact, {sum(seconds.values()):.1f} s in all")
+    check(not failed and exact == 30, f"golden pairs failed on the card: {failed}")
+
+    # the generators: the first 4096 variates card against host, bit for bit
+    def draws(kind, dtype, device):
+        with mt19937.registered_mt("mt", seed=42):
+            state, nxt = reference_rngs.make(kind, dtype, device)
+            return reference_rngs.sample(state, nxt, 4096)[0]
+
+    for kind in ("splitmix", "xoshiro", "xorshift", "halton", "recurrent", "mt"):
+        for dtype in (torch.float32, torch.float64):
+            t0 = time.perf_counter()
+            card = draws(kind, dtype, dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            host = draws(kind, dtype, "cpu")
+            same = torch.equal(card.cpu(), host) and card.dtype == dtype
+            log(f"[26] {kind} {str(dtype)[6:]}: 4096 variates {wall:.2f} s on the card, "
+                f"bit-equal to the host's: {same}")
+            check(same, f"{kind} {dtype}: the card's variates differ from the host's")
+
+    # a DE replay on 10-D Rosenbrock, card against host
+    fn = rosen_sequential(torch)
+    cfg = de_reference.DEReferenceConfig(pop_size=50, max_iter=1000)
+    x0 = torch.full((10,), 2.0, dtype=torch.float64)
+    runs = {}
+    for where in (dev, "cpu"):
+        state = de_reference.init(fn, x0.to(where), cfg)
+        if where != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            state = de_reference.step(fn, state, cfg)
+        if where != "cpu":
+            torch.cuda.synchronize()
+        runs[str(where)] = (state, (time.perf_counter() - t0) / 20)
+    card, host = runs[str(dev)][0], runs["cpu"][0]
+    same = all(torch.equal(getattr(card, f).cpu(), getattr(host, f))
+               for f in ("agents", "scores", "best_id", "iteration", "nfev"))
+    log(f"[26] de_reference [50, 10] Rosenbrock, 20 generations: {runs[str(dev)][1]:.3f} s a "
+        f"generation on the card, {runs['cpu'][1]:.3f} s on the host; agents bit-equal: {same}; "
+        f"best score {float(card.scores.min()):.6e}")
+    check(same and int(card.iteration) == 20, "the DE replay's agents differ card against host")
+
+    # seconds a generation of each replay on the golden pairs, card and host
+    for solver, problem in (("sann_xorshift", "rosenbrock"), ("pso_acc_xorshift", "rosenbrock"),
+                            ("nmpso_xorshift", "rosenbrock"), ("de_rand_xorshift", "rosenbrock")):
+        rows = golden[(solver, problem)]
+        t0 = time.perf_counter()
+        parity.compare_pair(solver, problem, rows, device="cpu")
+        host = time.perf_counter() - t0
+        k = max(r["k"] for r in rows)
+        log(f"[26] {solver}/{problem}: {seconds[(solver, problem)] / k:.4f} s a generation on "
+            f"the card, {host / k:.4f} on the host ({k} generations)")
+
+    # how often the card's own libm parts from the C library's, which the replays take
+    u = torch.rand(10000, generator=torch.Generator().manual_seed(26), dtype=torch.float64)
+    rates = {}
+    for name, arg in (("log", u), ("exp", 4.0 * u - 2.0), ("cos", 6.283186 * u),
+                      ("sin", 6.283186 * u - 3.141593), ("sqrt", 9.0 * u)):
+        card = getattr(torch, name)(arg.to(dev)).cpu().tolist()
+        rates[name] = sum(c != getattr(math, name)(v) for c, v in zip(card, arg.tolist())) / 1e4
+    log(f"[26] the card's float64 log, exp, cos, sin, sqrt against the C library's on 10^4 inputs: "
+        f"shares that differ {rates}")
+    check(not launched(), f"the replays launched kernels: {launched()}")
+
+
 def kernel_row(name, source, replaces, launches, max_err, times, bound_ms_by, issue_ms=None,
                shape=None):
     """One entry of the kernels line; ``issue_ms``, where phase 2 found it,
@@ -3554,6 +3828,8 @@ def main():
     phase(22, phase_lane_solvers_timing, torch, dev)
     phase(23, phase_free_solvers, torch, dev)
     phase(24, phase_free_timing, torch, dev)
+    phase(25, phase_cmaes_lanes, torch, dev)
+    phase(26, phase_replays, torch, dev)
     # K4c-r on the single-instance BFGS's path, K4c-g on its wide arm's
     # (phase 21), each timed alone in phase 13
     csrc, tpu = "nlsolver_torch/csrc/rank2.cu", "nlsolver_tpu/ops/rank2.py:66"

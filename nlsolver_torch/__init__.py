@@ -23,7 +23,13 @@ search; BFGS's update runs the leading-batch rank-2 kernel on the card;
 and the derivative-free single-instance solvers on lane tensors (Nelder-Mead,
 the default method of ``minimize(fn, x0)``, the row-layout DE, PSO and SANN,
 and the NM-PSO hybrid), with the API's ``methods()`` and its multistart
-(``restarts=``).  The kernels are CUDA C++ in ``csrc/``.  The package
+(``restarts=``); the CMA-ES on lane tensors
+(``minimize(fn, x0[B, n], method="cmaes", layout="batched")``), the
+reference generators and the bit-exact replays of the reference DE, SANN,
+accelerated PSO and NM-PSO (``random.reference_rngs``, ``random.mt19937``,
+``solvers.*_reference``), trajectory capture (``nlsolver_torch.trace``)
+and the golden-trajectory runners (``nlsolver_torch.parity``).  The
+kernels are CUDA C++ in ``csrc/``.  The package
 imports ``torch`` and never ``jax``.
 """
 from .api import (curve_fit, fit, fit_batched, fit_fleet, fit_fleet_sharded, fit_sharded,

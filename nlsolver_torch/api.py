@@ -11,6 +11,8 @@
 
     result = nlsolver_torch.minimize(fn, x0[n, B], method="bfgs", layout="fleet")
 
+    result = nlsolver_torch.minimize(fn, x0[B, n], method="cmaes", layout="batched")
+
     result = nlsolver_torch.minimize(fn, x0[n, B], method="cmaes", layout="fleet")
 
     result = nlsolver_torch.root(fn, lower[B], upper[B], method="brent")
@@ -24,18 +26,18 @@ solvers with derivatives and their Brent-based kin (``bfgs``, ``lbfgs``,
 lane tensors at B = 1.  ``restarts=k`` there is the multistart: x0 and
 k - 1 more starts (uniform in ``bounds``, else ``x0 +- restart_spread``,
 or on the Halton sequence with ``restart_sampler="halton"``) run as the
-lanes of one ``minimize_batched`` call (``cmaes``, which has no lane form,
-as a loop of single solves), the best final value picked, the counters
-summed.  ``layout="batched"`` (``x0 [B, n]``) takes ``de``, ``pso`` and
-``sann`` to their lane fleets (``solvers.de_batched``, ``pso_batched``,
-``sann_batched``) and every other single-instance solver but ``cmaes`` to
-its ``minimize_batched``, every lane at once as the JAX package's ``vmap``
-of the single solver; ``layout="fleet"`` (``x0 [n, B]``) takes ``bfgs`` and
-``cmaes`` to the batch-minor fleets.  The mesh layouts and ``cmaes`` under
-``"batched"`` raise ``NotImplementedError`` naming the ROADMAP.md item that
-ports them.  The single-point objective of the lane solvers may take
-per-lane data: ``data=`` (a tensor or tuple of tensors with the lane axis
-leading) makes it ``fn(x, data_b)``.  ``generator`` (a ``torch.Generator``
+lanes of one ``minimize_batched`` call, the best final value picked, the
+counters summed.  ``layout="batched"`` (``x0 [B, n]``) takes ``de``,
+``pso`` and ``sann`` to their lane fleets (``solvers.de_batched``,
+``pso_batched``, ``sann_batched``) and every other single-instance solver,
+``cmaes`` too, to its ``minimize_batched``, every lane at once as the JAX
+package's ``vmap`` of the single solver; ``layout="fleet"`` (``x0 [n, B]``)
+takes ``bfgs`` and ``cmaes`` to the batch-minor fleets.  The mesh layouts
+(``"sharded"``, ``"islands"``) raise ``NotImplementedError`` naming the
+ROADMAP.md item that ports them (Queue 1 item 9).  The single-point
+objective of the lane solvers may take per-lane data: ``data=`` (a tensor
+or tuple of tensors with the lane axis leading) makes it
+``fn(x, data_b)``.  ``generator`` (a ``torch.Generator``
 on ``x0``'s device) takes the place of the JAX package's ``key``.  Start
 points that are a ``torch.Tensor`` keep their device (a CPU tensor asks for
 the CPU); anything else goes to the CUDA card, and raises when there is
@@ -86,8 +88,8 @@ def _resolve(method: str):
 
 # the single-instance solvers on lane tensors: minimize (x0 [n]) and
 # minimize_batched (x0 [B, n]); those that draw take generator=
-_LANE_SOLVERS = ("nelder_mead", "de", "pso", "sann", "nmpso", "bfgs", "lbfgs", "lbfgsb", "gd",
-                 "cgd", "lm", "brent", "coordinate")
+_LANE_SOLVERS = ("nelder_mead", "de", "pso", "sann", "nmpso", "cmaes", "bfgs", "lbfgs", "lbfgsb",
+                 "gd", "cgd", "lm", "brent", "coordinate")
 _DRAWING = ("de", "pso", "sann", "nmpso", "gd", "cmaes")
 # layout="batched": the lane-axis fleet and its default config, by method
 _BATCHED = {
@@ -101,7 +103,7 @@ _BATCHED = {
 # the (method, layout) routes that minimize and maximize take; the
 # NotImplementedError text names them from here
 PORTED_ROUTES = ((("de", "batched"), ("bfgs", "fleet"), ("cmaes", "fleet"), ("pso", "batched"),
-                  ("sann", "batched"), ("cmaes", "single"))
+                  ("sann", "batched"))
                  + tuple((m, "single") for m in _LANE_SOLVERS)
                  + tuple((m, "batched") for m in _LANE_SOLVERS if m not in _BATCHED))
 
@@ -150,10 +152,6 @@ def _lane_call(method, mod, fn, x0, config, bounds, generator, layout, _minimize
     if config is not None:
         kwargs = dict(kwargs, config=config)
     if layout == "single":
-        if method == "cmaes":
-            x0 = start_points(x0)
-            if x0.ndim != 1:
-                raise ValueError(f"a single start point is [n], got {tuple(x0.shape)}")
         return mod.minimize(fn, x0, bounds=bounds, _minimize=_minimize, **kwargs)
     return mod.minimize_batched(fn, x0, bounds=bounds, _minimize=_minimize, **kwargs)
 
@@ -162,8 +160,8 @@ def _multistart(method, mod, fn, x0, config, bounds, generator, restarts, spread
                 _minimize, kwargs) -> SolverResult:
     """Best-of-``restarts``: the user's x0 plus ``restarts - 1`` starts, as
     the lanes of one ``minimize_batched`` call where the method has a lane
-    form (``cmaes``, which has none, as a loop of single solves), reduced
-    by the best final value.  Starts are uniform inside ``bounds`` when
+    form (every method with a single-instance ``minimize``), reduced by
+    the best final value.  Starts are uniform inside ``bounds`` when
     given, else ``x0 + U(-spread, spread)^n``, or placed on the Halton
     sequence (``sampler="halton"``).  The counters are summed over every
     start (``solver_status.add``, nlsolver.h:2084-2091); ``x``,
@@ -191,16 +189,11 @@ def _multistart(method, mod, fn, x0, config, bounds, generator, restarts, spread
     else:
         starts = x0 + spread * (2.0 * unit - 1.0)
     starts[0] = x0
-    if method in _LANE_SOLVERS:
-        if "data" in kwargs:
-            kwargs = dict(kwargs, data=_each(kwargs["data"], lambda d: torch.as_tensor(d)[None]
-                                             .expand((restarts,) + tuple(torch.as_tensor(d).shape))))
-        res = _lane_call(method, mod, fn, starts, config, bounds, generator, "batched",
-                         _minimize, kwargs)
-    else:
-        runs = [_lane_call(method, mod, fn, starts[i], config, bounds, generator, "single",
-                           _minimize, kwargs) for i in range(restarts)]
-        res = SolverResult(*(torch.stack(f) for f in zip(*runs)))
+    if "data" in kwargs:
+        kwargs = dict(kwargs, data=_each(kwargs["data"], lambda d: torch.as_tensor(d)[None]
+                                         .expand((restarts,) + tuple(torch.as_tensor(d).shape))))
+    res = _lane_call(method, mod, fn, starts, config, bounds, generator, "batched", _minimize,
+                     kwargs)
     fv = res.f_value
     if _minimize:
         pick = torch.where(torch.isnan(fv), torch.inf, fv).argmin()
@@ -301,9 +294,6 @@ def _dispatch(fn, x0, method, config, bounds, generator, layout, _minimize, kwar
     if method in _LANE_SOLVERS:
         return _lane_call(method, mod, fn, x0, config, bounds, generator, layout, _minimize,
                           kwargs)
-    if method == "cmaes":
-        _not_ported(method, layout, "Queue 1 item 11 (the CMA-ES on lane tensors; many "
-                                    "strategies at once run on layout='fleet')")
     raise ValueError(f"method {method!r} has no batched {verb}; {_single_hint(method)}")
 
 

@@ -9,7 +9,9 @@ looks at ``done`` on the host only once every ``check_every`` steps.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, TypeVar
+from typing import Callable, Optional, Tuple, TypeVar
+
+import torch
 
 from .utils import where_lanes
 
@@ -57,3 +59,32 @@ def drive_scan(step_fn: Callable[[S], S], init_state: S, num_steps: int) -> S:
     for _ in range(num_steps):
         state = where_lanes(state.done, state, step_fn(state))
     return state
+
+
+def _stack(states):
+    """The states of a trace as one state: each tensor field stacked on a
+    new leading axis, a tuple field (a generator state) field by field."""
+    first = states[0]
+    if not isinstance(first, tuple):
+        return torch.stack(states)
+    fields = [_stack([s[i] for s in states]) for i in range(len(first))]
+    return type(first)(*fields) if hasattr(first, "_fields") else tuple(fields)
+
+
+def drive_trace(step_fn: Callable[[S], S], init_state: S, num_steps: int) -> Tuple[S, S]:
+    """Fixed-trip driver that also returns every state on the way.
+
+    Returns ``(final_state, trace)``: each tensor of ``trace`` has a leading
+    ``[num_steps]`` axis, and ``trace[i]`` is the state after ``i + 1``
+    steps, finished lanes frozen exactly as in :func:`drive_scan`.  The
+    observability hook behind :mod:`nlsolver_torch.trace` (the reference's
+    per-iteration state lives in solver-local vectors and is destroyed on
+    return, nlsolver.h:2166-2299).
+    """
+    if num_steps < 1:
+        raise ValueError(f"num_steps must be >= 1, got {num_steps}")
+    state, states = init_state, []
+    for _ in range(num_steps):
+        state = where_lanes(state.done, state, step_fn(state))
+        states.append(state)
+    return state, _stack(states)

@@ -2,6 +2,8 @@
 ``nlsolver_tpu.core.utils``)."""
 from __future__ import annotations
 
+import math
+from functools import lru_cache
 from typing import TypeVar
 
 import torch
@@ -24,6 +26,60 @@ def std_err(scores: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return var.sqrt()
 
 
+def exact_product(x: torch.Tensor) -> torch.Tensor:
+    """The identity.  The JAX package wraps a product in it so that XLA:CPU
+    does not contract ``a + w*b`` into one FMA, which the reference binary
+    (baseline x86-64, no FMA) never does.  Eager PyTorch runs ``*`` and
+    ``+`` as separate kernels on the CPU and on the card, so each product
+    is rounded on its own already; the replays call it where the JAX
+    package does, and write such sums elementwise in the reference's order
+    (no ``addcmul``, ``lerp``, ``addmm``, ``alpha=`` or small ``matmul``,
+    each of which may fuse the two roundings into one)."""
+    return x
+
+
+def _c_library(name: str, x: torch.Tensor) -> torch.Tensor:
+    f = getattr(math, name)
+    vals = x.detach().to("cpu", torch.float64).reshape(-1)
+    out = []
+    for i, v in enumerate(vals.tolist()):
+        try:
+            out.append(f(v))
+        except (ValueError, OverflowError):
+            out.append(float(getattr(torch, name)(vals[i])))
+    return torch.tensor(out, dtype=x.dtype, device=x.device).reshape(x.shape)
+
+
+@lru_cache(maxsize=None)
+def _c_math_op():
+    """``_c_library`` as a custom op with a ``vmap`` rule (the op maps
+    values one by one, so a batched input is one bigger input), so that
+    an objective that calls ``c_math`` runs under ``torch.func.vmap`` as
+    the solvers score it.  Registered at first use."""
+    op = torch.library.custom_op("nlsolver_torch::c_math", _c_library, mutates_args=())
+    op.register_fake(lambda name, x: torch.empty_like(x))
+    torch.library.register_vmap(op, lambda info, in_dims, name, x: (op(name, x), in_dims[1]))
+    return op
+
+
+def c_math(name: str, x: torch.Tensor) -> torch.Tensor:
+    """The C library's function ``name`` (``log``, ``exp``, ``cos``,
+    ``sin``, ``sqrt``, ...: Python's ``math``) on every value of ``x``, the
+    result in ``x``'s dtype on its device; it runs under
+    ``torch.func.vmap`` too.
+
+    The reference binary's transcendental functions are the C library's.
+    PyTorch's kernels round other ways: on the CPU its float64 ``sqrt``,
+    ``log``, ``cos``, ``sin`` and ``exp`` miss the C library's results by
+    an ulp on 0.2-4 % of inputs (a torch 2.13 CPU build, AVX512), and the
+    card's ``sin`` on 9.4 % of inputs near -2 (an H100, torch 2.11).  A
+    replay that must land where the reference lands takes them from here:
+    one read of ``x`` to the host and one copy back a call.  Where the C
+    library raises (``log(0)``, an ``exp`` that overflows) the value is
+    PyTorch's (-inf, inf or nan)."""
+    return _c_math_op()(name, x)
+
+
 def where_lanes(pred: torch.Tensor, on_true: T, on_false: T) -> T:
     """Lane-wise select over a NamedTuple state (``tree_where`` of the JAX
     package): each tensor field takes ``on_true`` where ``pred[lane]`` holds.
@@ -33,11 +89,15 @@ def where_lanes(pred: torch.Tensor, on_true: T, on_false: T) -> T:
     rather than broadcasting against the lanes (a batch-minor ``[n, B]``
     fleet selects with its own trailing-lane helper).  A field that is not
     a tensor (a fleet-global host counter) belongs to no lane and is taken
-    from ``on_false``, the state being advanced.
+    from ``on_false``, the state being advanced.  A field that is itself a
+    tuple of such fields (a replay's generator state) is selected field by
+    field.
     """
     out = []
     for a, b in zip(on_true, on_false):
-        if isinstance(b, torch.Tensor):
+        if isinstance(b, tuple):
+            out.append(where_lanes(pred, a, b))
+        elif isinstance(b, torch.Tensor):
             if tuple(b.shape[:pred.ndim]) != tuple(pred.shape):
                 raise ValueError(
                     f"where_lanes: a field of shape {tuple(b.shape)} does not lead "
@@ -47,7 +107,7 @@ def where_lanes(pred: torch.Tensor, on_true: T, on_false: T) -> T:
             out.append(torch.where(m, a, b))
         else:
             out.append(b)
-    return type(on_false)(*out)
+    return type(on_false)(*out) if hasattr(on_false, "_fields") else type(on_false)(out)
 
 
 def lane_where(pred: torch.Tensor, on_true: T, on_false: T) -> T:

@@ -1,3 +1,3 @@
-from .sampling import distinct_indices, uniform_like
+from .sampling import box_muller_parity, distinct_indices, rnorm, uniform_like
 
-__all__ = ["distinct_indices", "uniform_like"]
+__all__ = ["box_muller_parity", "distinct_indices", "rnorm", "uniform_like"]

@@ -63,3 +63,23 @@ def distinct_indices(
         out.append(r)
         exclusions = torch.cat([exclusions, r[..., None]], dim=-1)
     return torch.stack(out, dim=-1)
+
+
+def rnorm(generator: Optional[torch.Generator], shape=(), dtype=torch.float32,
+          device=None) -> torch.Tensor:
+    """Standard normal draws from ``generator`` (the JAX package's
+    ``jax.random.normal`` of a key).  The reference uses a Box-Muller
+    transform with pi truncated to 3.141593 (nlsolver.h:2479-2494);
+    ``box_muller_parity`` reproduces it for the replays."""
+    return torch.randn(shape, generator=generator, dtype=dtype, device=device)
+
+
+def box_muller_parity(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+    """The reference's Box-Muller (nlsolver.h:2479-2485): given two
+    uniforms, ``sqrt(-2 log u1) * cos(2 pi_ u2)`` with pi_ = 3.141593, its
+    arithmetic in the uniforms' dtype and its ``log``, ``cos`` and ``sqrt``
+    the C library's (``core.utils.c_math``), as the reference binary's."""
+    from ..core.utils import c_math
+
+    pi_trunc = 3.141593
+    return c_math("sqrt", -2.0 * c_math("log", u1)) * c_math("cos", 2.0 * pi_trunc * u2)

@@ -73,6 +73,18 @@ def lane_result(x, f_val, state, flip_sign: bool) -> SolverResult:
                        converged=state.converged)
 
 
+def scalar(value, like: torch.Tensor, dtype=torch.int32) -> torch.Tensor:
+    """A 0-d tensor of ``value`` on ``like``'s device: one instance's
+    counter or flag."""
+    return torch.tensor(value, dtype=dtype, device=like.device)
+
+
+def gather_rows(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx [B, K]`` of each lane of ``a [B, P, ...]``: ``[B, K, ...]``."""
+    return torch.gather(a, 1, idx.reshape(idx.shape + (1,) * (a.ndim - 2)).expand(
+        idx.shape + a.shape[2:]))
+
+
 def gather_lanes(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Row ``idx[b]`` of each lane: ``a [B, K, ...]``, ``idx [B]`` ->
     ``[B, ...]`` (``a[idx]`` of one lane under ``jax.vmap``)."""

@@ -1,14 +1,19 @@
-"""CMA-ES (covariance matrix adaptation evolution strategy), one instance
-(counterpart of ``nlsolver_tpu.solvers.cmaes``).
+"""CMA-ES (covariance matrix adaptation evolution strategy) on lane
+tensors (counterpart of ``nlsolver_tpu.solvers.cmaes``).
 
 The standard algorithm (Hansen, "The CMA Evolution Strategy: A Tutorial",
-arXiv:1604.00772): the population is one ``[lambda, n]`` matrix; default
-hyperparameters follow the tutorial (lambda = 4 + 3 ln n, mu = lambda/2
-with log-weights, standard cc/cs/c1/cmu/damps).  The eigendecomposition
-C = B diag(D^2) B^T is ``torch.linalg.eigh`` (``eigh_method="xla"``, the
-JAX package's name for the library call) or the parallel-order Jacobi.
-For many instances at once use ``solvers.cmaes_fleet``, which shares
-``_params`` with this module.
+arXiv:1604.00772); default hyperparameters follow the tutorial (lambda =
+4 + 3 ln n, mu = lambda/2 with log-weights, standard cc/cs/c1/cmu/damps).
+The JAX solver runs one instance, ``[lambda, n]`` a generation, and is
+batched with ``jax.vmap``; here every lane runs at once: the means
+``[B, n]``, the covariances ``[B, n, n]``, the population ``[B, lambda, n]``,
+every scalar a ``[B]`` vector, the lanes done when a step begins frozen by
+``core.drive``.  One instance (``x0 [n]``, a state without the lane axis)
+is the case B = 1.  The eigendecomposition C = B diag(D^2) B^T is
+``torch.linalg.eigh`` (``eigh_method="xla"``, the JAX package's name for
+the library call) or the parallel-order Jacobi, on the batch.  For many
+strategies on one problem at once see ``solvers.cmaes_fleet``, which
+shares ``_params`` with this module.
 
 Termination: max_iter, stagnation of the best value, condition-number
 explosion, or step-size collapse (nlsolver.h:4566-4574).  Bounds are
@@ -19,8 +24,11 @@ top-mu costs collapse within ``kick_tol`` after ``kick_patience``
 stagnant generations, sigma is multiplied by ``exp(0.2 + cs/damps)``.
 
 Randomness is an input: ``step`` takes the generation's normal draws
-``z [lambda, n]`` or makes them from a ``torch.Generator``; the state has
-no key.
+``z [B, lambda, n]`` or makes them from a ``torch.Generator``, and
+``minimize_batched`` a run's draws (``_lane.Draws``); the state has no
+key.  After the first generation C has an eigenvalue of multiplicity
+n - mu when n > mu, whose eigenvectors follow the last bit of C: runs
+that must agree step by step take ``pop_size`` with mu >= n.
 """
 from __future__ import annotations
 
@@ -33,8 +41,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..core import (Bounds, Objective, SolverResult, batch_eval, clamp, drive, make_result,
-                    signed, where_lanes)
+from ..core import Bounds, Objective, SolverResult, drive, resolve_bounds, where_lanes
+from ..core.lanes import Lanes, as_lanes, matvec
+from ._lane import (Draws, _each, draws_on, gather_lanes, gather_rows, lane_full, lane_result,
+                    one_lane, run_batched, run_single, step_rows)
 
 
 @dataclass(frozen=True)
@@ -57,19 +67,19 @@ class CMAESConfig:
 
 
 class CMAESState(NamedTuple):
-    mean: torch.Tensor          # [n]
-    sigma: torch.Tensor
-    C: torch.Tensor             # [n, n] covariance
-    p_sigma: torch.Tensor       # [n] step-size path
-    p_c: torch.Tensor           # [n] covariance path
-    best_x: torch.Tensor
-    best_value: torch.Tensor
-    prev_best: torch.Tensor
-    iteration: torch.Tensor
-    nfev: torch.Tensor
-    no_change: torch.Tensor
-    done: torch.Tensor
-    converged: torch.Tensor
+    mean: torch.Tensor          # [B, n] ([n] for one instance)
+    sigma: torch.Tensor         # [B]
+    C: torch.Tensor             # [B, n, n] covariance
+    p_sigma: torch.Tensor       # [B, n] step-size path
+    p_c: torch.Tensor           # [B, n] covariance path
+    best_x: torch.Tensor        # [B, n]
+    best_value: torch.Tensor    # [B]
+    prev_best: torch.Tensor     # [B]
+    iteration: torch.Tensor     # [B] int32
+    nfev: torch.Tensor          # [B] int32
+    no_change: torch.Tensor     # [B] int32
+    done: torch.Tensor          # [B] bool
+    converged: torch.Tensor     # [B] bool
 
 
 @lru_cache(maxsize=None)
@@ -90,25 +100,55 @@ def _params(n: int, pop_size: int):
     return lam, mu, weights, mu_eff, cc, cs, c1, cmu, damps, chi_n
 
 
-def init(fn: Objective, x0: torch.Tensor, config: CMAESConfig) -> CMAESState:
-    n = x0.shape[-1]
+def _lift(state: CMAESState) -> CMAESState:
+    """One instance's state as a batch of one lane."""
+    return CMAESState(*(f[None] for f in state))
+
+
+def _drop(state: CMAESState) -> CMAESState:
+    return CMAESState(*(f[0] for f in state))
+
+
+def init(fn: Objective, x0: torch.Tensor, config: CMAESConfig, *, data=None) -> CMAESState:
+    """The state of every lane of ``x0 [B, n]``, or of one instance from
+    ``x0 [n]`` (every field without the lane axis)."""
+    if x0.ndim == 1:
+        return _drop(init(fn, x0[None], config,
+                          data=_each(data, lambda d: torch.as_tensor(d)[None])))
+    B, n = x0.shape
     kw = {"dtype": x0.dtype, "device": x0.device}
-    ikw = {"dtype": torch.int32, "device": x0.device}
+    i32 = torch.int32
     return CMAESState(
         mean=x0,
-        sigma=torch.tensor(config.sigma0, **kw),
-        C=torch.eye(n, **kw),
-        p_sigma=torch.zeros(n, **kw),
-        p_c=torch.zeros(n, **kw),
+        sigma=torch.full((B,), config.sigma0, **kw),
+        C=torch.eye(n, **kw).expand(B, n, n).clone(),
+        p_sigma=torch.zeros_like(x0),
+        p_c=torch.zeros_like(x0),
         best_x=x0,
-        best_value=fn(x0),
-        prev_best=torch.tensor(float("inf"), **kw),
-        iteration=torch.tensor(0, **ikw),
-        nfev=torch.tensor(1, **ikw),
-        no_change=torch.tensor(0, **ikw),
-        done=torch.tensor(False, device=x0.device),
-        converged=torch.tensor(False, device=x0.device),
+        best_value=as_lanes(fn, data).values(x0),
+        prev_best=torch.full((B,), float("inf"), **kw),
+        iteration=lane_full(x0, 0, i32),
+        nfev=lane_full(x0, 1, i32),
+        no_change=lane_full(x0, 0, i32),
+        done=lane_full(x0, False, torch.bool),
+        converged=lane_full(x0, False, torch.bool),
     )
+
+
+def eigh_lanes(C: torch.Tensor, method: str):
+    """``C [B, n, n] = V diag(w) V^T`` of every lane: ``(w [B, n] ascending,
+    V [B, n, n])``.  ``"jacobi"`` is the parallel-order Jacobi on the batch
+    (the JAX package's ``vmap`` of it: the same operations lane by lane);
+    anything else the library's ``torch.linalg.eigh``, in pieces of
+    ``eigh_qr.LIBRARY_EIGH_MAX_BATCH`` matrices."""
+    if method == "jacobi":
+        from ..linalg.jacobi import eigh_jacobi
+
+        w, V = eigh_jacobi(C.permute(1, 2, 0))
+        return w.T, V.permute(2, 0, 1)
+    from ..linalg.eigh_qr import eigh_library_batched
+
+    return tuple(eigh_library_batched(C))
 
 
 def step(
@@ -119,24 +159,27 @@ def step(
     *,
     generator: Optional[torch.Generator] = None,
     z: Optional[torch.Tensor] = None,
+    data=None,
 ) -> CMAESState:
-    """One generation.  ``z [lambda, n]`` are its standard normal draws;
-    left out, they come from ``generator`` on the state's device."""
-    n = state.mean.shape[-1]
+    """One generation of every lane.  ``z [B, lambda, n]`` are its
+    standard normal draws (``[lambda, n]`` for one instance's state);
+    left out, they come from ``generator`` on the state's device.  The
+    lanes that are or become done keep their state."""
+    if state.mean.ndim == 1:
+        return _drop(step(fn, _lift(state), config, bounds, generator=generator,
+                          z=None if z is None else z[None],
+                          data=_each(data, lambda d: torch.as_tensor(d)[None])))
+    lanes = as_lanes(fn, data)
+    B, n = state.mean.shape
     dtype, dev = state.mean.dtype, state.mean.device
     lam, mu, weights, mu_eff, cc, cs, c1, cmu, damps, chi_n = _params(n, config.pop_size)
     weights = torch.as_tensor(weights, dtype=dtype, device=dev)
 
     # eigendecomposition C = B D^2 B^T
-    if config.eigh_method == "jacobi":
-        from ..linalg.jacobi import eigh_jacobi
-
-        eigvals, Bm = eigh_jacobi(state.C)
-    else:
-        eigvals, Bm = torch.linalg.eigh(state.C)
+    eigvals, Bm = eigh_lanes(state.C, config.eigh_method)
     eigvals = eigvals.clamp_min(1e-20)
     D = torch.sqrt(eigvals)
-    cond = eigvals[-1] / eigvals[0]
+    cond = eigvals[:, -1] / eigvals[:, 0]
 
     improved = state.best_value < state.prev_best - config.f_tol
     no_change = torch.where(improved, torch.zeros_like(state.no_change), state.no_change + 1)
@@ -152,53 +195,56 @@ def step(
     )
 
     if z is None:
-        z = torch.randn((lam, n), generator=generator, dtype=dtype, device=dev)
-    y = (z * D[None, :]) @ Bm.T                            # ~ N(0, C)
-    xs = state.mean[None, :] + state.sigma * y
+        z = torch.randn((B, lam, n), generator=generator, dtype=dtype, device=dev)
+    BmT = Bm.transpose(-1, -2)
+    sigma = state.sigma[:, None, None]
+    y = (z * D[:, None, :]) @ BmT                            # ~ N(0, C)
+    xs = state.mean[:, None, :] + sigma * y
     if bounds is not None:
         # projection repair: clamp into the box and let the repaired steps
         # drive every update (the mean stays feasible: it is a convex
         # combination of repaired candidates)
-        xs = clamp(xs, bounds.lower, bounds.upper)
-        y = (xs - state.mean[None, :]) / state.sigma
-    values = batch_eval(fn, xs)
+        lower, upper, _ = resolve_bounds(bounds, state.mean)
+        xs = torch.minimum(torch.maximum(xs, lower[:, None]), upper[:, None])
+        y = (xs - state.mean[:, None, :]) / sigma
+    values = lanes.points(xs)                                # [B, lam]
 
-    order = torch.argsort(values, stable=True)
-    top = order[:mu]
-    y_w = weights @ y[top]                                 # [n] weighted step
-    new_mean = state.mean + state.sigma * y_w
+    order = torch.argsort(values, dim=1, stable=True)
+    y_top = gather_rows(y, order[:, :mu])                    # [B, mu, n]
+    y_w = weights @ y_top                                    # [B, n] weighted step
+    new_mean = state.mean + state.sigma[:, None] * y_w
 
     # step-size path: C^{-1/2} y_w = B D^-1 B^T y_w
-    c_inv_sqrt_yw = Bm @ ((Bm.T @ y_w) / D)
+    c_inv_sqrt_yw = matvec(Bm, matvec(BmT, y_w) / D)
     p_sigma = (1 - cs) * state.p_sigma + math.sqrt(cs * (2 - cs) * mu_eff) * c_inv_sqrt_yw
-    ps_norm = torch.linalg.norm(p_sigma)
-    sigma = state.sigma * torch.exp((cs / damps) * (ps_norm / chi_n - 1))
+    ps_norm = torch.linalg.norm(p_sigma, dim=-1)
+    new_sigma = state.sigma * torch.exp((cs / damps) * (ps_norm / chi_n - 1))
     if config.kick_tol > 0:
-        collapsed = (
-            (values[order[0]] - values[order[mu - 1]]).abs() < config.kick_tol
-        ) & (no_change >= config.kick_patience)
-        sigma = torch.where(collapsed, sigma * math.exp(0.2 + cs / damps), sigma)
+        ranked = gather_lanes(values, order[:, 0]), gather_lanes(values, order[:, mu - 1])
+        collapsed = ((ranked[0] - ranked[1]).abs() < config.kick_tol) & (
+            no_change >= config.kick_patience)
+        new_sigma = torch.where(collapsed, new_sigma * math.exp(0.2 + cs / damps), new_sigma)
 
     # covariance path + rank-1 / rank-mu update
     hsig = (
         ps_norm / torch.sqrt(1 - (1 - cs) ** (2 * (state.iteration.to(dtype) + 1))) / chi_n
     ) < (1.4 + 2 / (n + 1))
     hsig = hsig.to(dtype)   # a bool times a Python float would drop to float32
-    p_c = (1 - cc) * state.p_c + hsig * math.sqrt(cc * (2 - cc) * mu_eff) * y_w
-    rank1 = torch.outer(p_c, p_c)
-    rank_mu = (y[top] * weights[:, None]).T @ y[top]
-    delta_hsig = (1 - hsig) * cc * (2 - cc)
+    p_c = (1 - cc) * state.p_c + (hsig * math.sqrt(cc * (2 - cc) * mu_eff))[:, None] * y_w
+    rank1 = p_c[:, :, None] * p_c[:, None, :]
+    rank_mu = (y_top * weights[:, None]).transpose(-1, -2) @ y_top
+    delta_hsig = ((1 - hsig) * cc * (2 - cc))[:, None, None]
     C = (1 - c1 - cmu) * state.C + c1 * (rank1 + delta_hsig * state.C) + cmu * rank_mu
-    C = (C + C.T) / 2
+    C = (C + C.transpose(-1, -2)) / 2
 
-    gen_best = values[order[0]]
+    gen_best = gather_lanes(values, order[:, 0])
     better = gen_best < state.best_value
-    best_x = torch.where(better, xs[order[0]], state.best_x)
+    best_x = torch.where(better[:, None], gather_lanes(xs, order[:, 0]), state.best_x)
     best_value = torch.where(better, gen_best, state.best_value)
 
     worked = CMAESState(
         mean=new_mean,
-        sigma=sigma,
+        sigma=new_sigma,
         C=C,
         p_sigma=p_sigma,
         p_c=p_c,
@@ -214,15 +260,38 @@ def step(
     return where_lanes(done_now, halted, worked)
 
 
-def _finalize(state: CMAESState, flip_sign: bool) -> SolverResult:
-    f_val = state.best_value
-    return make_result(
-        x=state.best_x,
-        f_value=-f_val if flip_sign else f_val,
-        iterations=state.iteration,
-        function_calls=state.nfev,
-        converged=state.converged,
-    )
+# generations between two reads of done.all()
+CHECK_EVERY = 16
+
+
+def _run(lanes: Lanes, x0: torch.Tensor, config: CMAESConfig, _minimize: bool, bounds, draws,
+         generator) -> SolverResult:
+    if draws is None and generator is None:
+        generator = torch.Generator(device=x0.device).manual_seed(0)
+    draws = draws_on(draws, x0.device)
+    if bounds is not None:
+        lower, upper, _ = resolve_bounds(bounds, x0)
+        x0 = torch.minimum(torch.maximum(x0, lower), upper)
+    state = init(lanes, x0, config)
+
+    def advance(s):
+        z = None if draws is None else step_rows(draws.steps, s.iteration)
+        return step(lanes, s, config, bounds, generator=generator, z=z)
+
+    state = drive(advance, state, check_every=CHECK_EVERY)
+    return lane_result(state.best_x, state.best_value, state, not _minimize)
+
+
+def minimize_batched(fn: Objective, x0: torch.Tensor, config: CMAESConfig = CMAESConfig(),
+                     bounds: Optional[Bounds] = None, *, draws: Optional[Draws] = None,
+                     generator: Optional[torch.Generator] = None, data=None,
+                     _minimize: bool = True) -> SolverResult:
+    """Every lane of ``x0 [B, n]`` (``jax.vmap`` of the JAX ``minimize``):
+    ``core.drive`` with the lanes frozen when done; ``bounds`` broadcast
+    against ``x0``.  The draws come from ``draws`` (``Draws(None, z of
+    [T, B, lambda, n])``, lane b reading row ``iteration[b]``) or from
+    ``generator`` (on ``x0``'s device, seed 0 by default)."""
+    return run_batched(_run, fn, x0, config, data, _minimize, bounds, draws, generator)
 
 
 def minimize(
@@ -231,24 +300,22 @@ def minimize(
     config: CMAESConfig = CMAESConfig(),
     bounds: Optional[Bounds] = None,
     *,
+    draws: Optional[Draws] = None,
     generator: Optional[torch.Generator] = None,
+    data=None,
     _minimize: bool = True,
 ) -> SolverResult:
-    """Minimize one instance from ``x0 [n]``; ``generator`` (on ``x0``'s
-    device) takes the place of the JAX package's ``key`` and defaults to
-    seed 0."""
-    if generator is None:
-        generator = torch.Generator(device=x0.device).manual_seed(0)
-    sfn = signed(fn, _minimize)
-    if bounds is not None:
-        x0 = clamp(x0, bounds.lower, bounds.upper)
-    state = init(sfn, x0, config)
-    state = drive(lambda s: step(sfn, s, config, bounds, generator=generator), state)
-    return _finalize(state, flip_sign=not _minimize)
+    """Minimize one instance from ``x0 [n]``: the lane engine at B = 1,
+    squeezed; ``generator`` (on ``x0``'s device) takes the place of the
+    JAX package's ``key`` and defaults to seed 0, ``draws`` is a run's
+    ``z`` without the lane axis."""
+    return run_single(_run, fn, x0, config, data, _minimize, bounds, one_lane(draws), generator)
 
 
-def maximize(fn, x0, config: CMAESConfig = CMAESConfig(), bounds=None, *, generator=None):
-    return minimize(fn, x0, config, bounds, generator=generator, _minimize=False)
+def maximize(fn, x0, config: CMAESConfig = CMAESConfig(), bounds=None, *, draws=None,
+             generator=None, data=None):
+    return minimize(fn, x0, config, bounds, draws=draws, generator=generator, data=data,
+                    _minimize=False)
 
 
 def minimize_ipop(

@@ -37,7 +37,7 @@ import torch
 
 from ..core import Bounds, SolverResult, clamp, drive, resolve_bounds, std_err, where_lanes
 from ..core.lanes import Lanes, as_lanes
-from ._lane import (Draws, draws_on, gather_lanes, lane_full, lane_result, one_lane,
+from ._lane import (Draws, draws_on, gather_lanes, gather_rows, lane_full, lane_result, one_lane,
                     run_batched, run_single, step_rows, true_div)
 from .nelder_mead import init_simplex, move, vertex_sum
 
@@ -122,12 +122,6 @@ def init(fn, x0: torch.Tensor, config: NMPSOConfig, lower: torch.Tensor, upper: 
     )
 
 
-def _rows(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows ``idx [B, K]`` of each lane of ``a [B, P, ...]``."""
-    return torch.gather(a, 1, idx.reshape(idx.shape + (1,) * (a.ndim - 2)).expand(
-        idx.shape + a.shape[2:]))
-
-
 def _put(a: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """``a`` with rows ``idx [B, K]`` of each lane set to ``rows``."""
     return torch.scatter(a, 1, idx.reshape(idx.shape + (1,) * (a.ndim - 2)).expand(rows.shape),
@@ -144,7 +138,7 @@ def step(fn, state: NMPSOState, config: NMPSOConfig, lower: torch.Tensor, upper:
     order = torch.argsort(state.values, dim=1, stable=True)
     best_now = gather_lanes(state.values, order[:, 0])
     no_change = torch.where(best_now == state.best_value, state.no_change + 1, 0)
-    simplex_vals = _rows(state.values, order[:, :n_simplex])
+    simplex_vals = gather_rows(state.values, order[:, :n_simplex])
     hit_tol = (no_change >= config.no_change_best_iter) | (
         std_err(simplex_vals, dim=1) < config.eps
     )
@@ -163,11 +157,12 @@ def step(fn, state: NMPSOState, config: NMPSOConfig, lower: torch.Tensor, upper:
     f_second = gather_lanes(values, order[:, n_simplex - 2])
     f_worst = gather_lanes(values, worst_id)
     x_worst = gather_lanes(positions, worst_id)
-    centroid = true_div(vertex_sum(_rows(positions, order[:, :n_simplex - 1])), n)
+    centroid = true_div(vertex_sum(gather_rows(positions, order[:, :n_simplex - 1])), n)
 
     x_best = gather_lanes(positions, best_id)
     ranked_ids = order[:, 1:n_simplex]
-    shrunk_pts = x_best[:, None] + config.sigma * (_rows(positions, ranked_ids) - x_best[:, None])
+    shrunk_pts = x_best[:, None] + config.sigma * (gather_rows(positions, ranked_ids)
+                                                   - x_best[:, None])
     # textbook orientation: simplex_transform<reflect=false> computes
     # c + rho*(point - c) (nlsolver.h:3786-3796)
     m = move(lanes, config, centroid, x_worst, f_best, f_second, f_worst, shrunk_pts, _clamp,
@@ -185,10 +180,10 @@ def step(fn, state: NMPSOState, config: NMPSOConfig, lower: torch.Tensor, upper:
     global_best = gather_lanes(positions, values.argmin(dim=1))
     if draws is None:
         draws = _uniforms(B, n, positions, generator, StepDraws)
-    cur = _rows(positions, pso_ids)
+    cur = gather_rows(positions, pso_ids)
     new_vel = (
-        config.inertia * _rows(state.velocities, pso_ids)
-        + config.cognitive_coef * draws.r_p * (_rows(positions, pair_best_ids) - cur)
+        config.inertia * gather_rows(state.velocities, pso_ids)
+        + config.cognitive_coef * draws.r_p * (gather_rows(positions, pair_best_ids) - cur)
         + config.social_coef * draws.r_g * (global_best[:, None] - cur)
     )
     new_pos = _clamp(cur + new_vel)

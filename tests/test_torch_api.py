@@ -197,23 +197,26 @@ def test_unconstrained_routes_refuse_what_the_reference_ignores(method):
 
 
 def test_ported_routes_and_what_is_left():
-    """Every single-instance method is ported under layout="single", and
-    all but the CMA-ES under "batched"; the default method and the
-    multistart run; the CMA-ES under "batched" names the ROADMAP.md item
-    that ports it."""
+    """Every single-instance method is ported under layout="single" and
+    "batched", the CMA-ES too; the default method and the multistart run;
+    what is left, the mesh layouts, names the ROADMAP.md item that ports
+    it."""
     from nlsolver_torch.api import PORTED_ROUTES
 
-    for method in ("nelder_mead", "de", "pso", "sann", "nmpso", "bfgs", "lbfgs", "lbfgsb", "gd",
-                   "cgd", "lm", "brent", "coordinate"):
+    for method in ("nelder_mead", "de", "pso", "sann", "nmpso", "cmaes", "bfgs", "lbfgs",
+                   "lbfgsb", "gd", "cgd", "lm", "brent", "coordinate"):
         assert (method, "single") in PORTED_ROUTES and (method, "batched") in PORTED_ROUTES
-    assert ("cmaes", "single") in PORTED_ROUTES and ("cmaes", "batched") not in PORTED_ROUTES
     x0 = torch.full((2,), 0.5, dtype=torch.float64)
     for call in (lambda: nt.minimize(_sphere, x0),
                  lambda: nt.minimize(_sphere, x0, method="bfgs", restarts=3)):
         res = call()
         assert res.x.shape == (2,) and float(res.f_value) < 1e-8
-    got, msg = _raised(lambda: nt.minimize(_sphere, x0[None], method="cmaes", layout="batched"))
-    assert got is NotImplementedError and "Queue 1 item 11" in msg
+    res = nt.minimize(_sphere, x0[None].repeat(3, 1), method="cmaes", layout="batched",
+                      config=nt.CMAESConfig(max_iter=200))
+    assert res.x.shape == (3, 2) and bool(res.converged.all()) and float(res.f_value.max()) < 1e-8
+    for layout in ("sharded", "islands"):
+        got, msg = _raised(lambda: nt.minimize(_sphere, x0[None], method="cmaes", layout=layout))
+        assert got is NotImplementedError and "Queue 1 item 9" in msg and "item 11" not in msg
 
 
 def test_methods_match_the_reference():
@@ -278,8 +281,8 @@ def test_restarts_never_pick_a_nan_start():
 
 
 def test_restarts_uniform_in_bounds_and_the_cmaes_loop():
-    """Uniform starts inside ``bounds``; the CMA-ES, which has no lane
-    form, runs the starts one after the other, its counters summed."""
+    """Uniform starts inside ``bounds``; the CMA-ES runs the starts as the
+    lanes of one batch, its counters summed."""
     from nlsolver_torch.solvers import cmaes
 
     box = nt.Bounds(torch.tensor([-1.0, 0.0], dtype=torch.float64),
@@ -299,8 +302,8 @@ def test_restarts_uniform_in_bounds_and_the_cmaes_loop():
 
 @pytest.mark.parametrize("layout", ["single", "batched"])
 def test_derivative_free_routes_run_their_modules(layout):
-    """``minimize`` and ``maximize`` with Nelder-Mead and NM-PSO under both
-    layouts, and with the row-layout DE, PSO and SANN and the CMA-ES under
+    """``minimize`` and ``maximize`` with Nelder-Mead, NM-PSO and the CMA-ES
+    under both layouts, and with the row-layout DE, PSO and SANN under
     ``layout="single"``, give what the solver module gives on the same
     generator seed; ``maximize`` flips f_value back."""
     import importlib
@@ -309,8 +312,8 @@ def test_derivative_free_routes_run_their_modules(layout):
     x0 = x0[1] if layout == "single" else x0
     small = {"de": nt.DEConfig(pop_size=8, max_iter=40), "pso": nt.PSOConfig(max_iter=40),
              "sann": nt.SANNConfig(max_iter=10), "cmaes": nt.CMAESConfig(max_iter=30)}
-    routed = ["nelder_mead", "nmpso"] + (["de", "pso", "sann", "cmaes"] if layout == "single"
-                                         else [])
+    routed = ["nelder_mead", "nmpso", "cmaes"] + (["de", "pso", "sann"] if layout == "single"
+                                                  else [])
     for method in routed:
         mod = importlib.import_module(f"nlsolver_torch.solvers.{method}")
         kw = {"config": small[method]} if method in small else {}

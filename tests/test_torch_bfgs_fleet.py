@@ -274,13 +274,13 @@ def test_api_route_refuses_bounds_shapes_and_unported_methods():
         nt.minimize(sphere, X0[0], method="bfgs", layout="fleet")
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         nt.minimize(sphere, X0, method="cmaes", layout="sharded")
-    # Nelder-Mead's single route runs; the CMA-ES has no
-    # lane form and names the item that ports it, beside the ported routes
+    # Nelder-Mead's single route runs; a mesh layout, not ported, names
+    # the item that ports it, beside the ported routes
     res = nt.minimize(sphere, X0[0] + 1.0, method="nelder_mead", layout="single")
     assert res.x.shape == (4,) and float(res.f_value) < 1e-8
     with pytest.raises(NotImplementedError, match="method='bfgs' with layout='fleet'") as raised:
-        nt.minimize(sphere, X0.T, method="cmaes", layout="batched")
-    assert "Queue 1 item 11" in str(raised.value)
+        nt.minimize(sphere, X0.T, method="cmaes", layout="islands")
+    assert "Queue 1 item 9" in str(raised.value)
     # layout="single" of bfgs is ported: it takes one start point [n]
     with pytest.raises(ValueError, match="a single start point is"):
         nt.minimize(sphere, X0, method="bfgs", layout="single")

@@ -105,6 +105,23 @@ SCRIPT = textwrap.dedent(
                            method=method, layout="batched")
         assert float((many.x - 0.5).abs().max()) < 1e-2, method
     assert "nelder_mead" in nt.methods() and len(nt.methods()) == 20
+    # the CMA-ES on lane tensors, the reference-RNG replays and trajectory capture
+    import nlsolver_torch.parity, nlsolver_torch.trace  # noqa: F401
+    from nlsolver_torch.random import mt19937, reference_rngs
+    from nlsolver_torch.solvers import (de_reference, nmpso_reference, pso_reference,  # noqa: F401
+                                        sann_reference)
+    many = nt.minimize(bowl, torch.zeros(3, 2, dtype=torch.float64), method="cmaes",
+                       layout="batched", config=nt.CMAESConfig(eigh_method="jacobi"))
+    assert many.x.shape == (3, 2) and bool(many.converged.all())
+    us, _ = reference_rngs.sample(*reference_rngs.make("xorshift", torch.float64), 3)
+    with mt19937.registered_mt("mt"):
+        res = de_reference.minimize(rosen, torch.tensor([-0.5, -0.5], dtype=torch.float64),
+                                    de_reference.DEReferenceConfig(max_iter=3, rng="mt"))
+    assert int(res.iterations) == 3 and us.shape == (3,)
+    tr = nlsolver_torch.trace.trajectory("sann_reference", rosen,
+                                         torch.tensor([-0.5, -0.5], dtype=torch.float64),
+                                         num_steps=2)
+    assert tr["x"].shape == (2, 2)
     assert not any(m == "jax" or m.startswith(("jax.", "nlsolver_tpu"))
                    for m in sys.modules if sys.modules[m] is not None)
     print("ok")
