@@ -6,7 +6,9 @@ single-instance solvers on lanes (with derivatives and without, the
 default method and the multistart) through ``nlsolver_torch.minimize``, the
 NLLS fleet through
 ``nlsolver_torch.fit_fleet`` and the root finders through
-``nlsolver_torch.root`` at full size, and times them.
+``nlsolver_torch.root`` at full size, the mesh engines (``layout="sharded"``,
+``fit_fleet_sharded``, ``fit_sharded``) on a world of one rank, and times
+them.
 
     python3 chip_smoke.py
 
@@ -259,7 +261,27 @@ Phases, each fatal on failure:
      10-D Rosenbrock (pop_size=50, 20 generations) bit-equal to the host's,
      with the seconds a generation of each replay on the card and on the
      host; how often the card's log, exp, cos, sin and sqrt part from the
-     C library's (which the replays, and McCormick's golden runs, take).
+     C library's (which the replays, and McCormick's golden runs, take);
+ 27. the mesh engines on a world of one NCCL rank (parallel.distributed,
+     make_mesh(dp=1, pop=1); gloo beside it for the host's mesh), each after
+     a warm-up against its unsharded engine on the same inputs (unsharded,
+     sharded, sharded, unsharded; the result bit-equal, the same launches,
+     no plain twin called, the wrapper's (sharded - unsharded) / unsharded
+     printed; benches.mesh.run_routes): minimize(method="bfgs",
+     layout="sharded") on 65536 16-D bowls (a scale a coordinate, the
+     centers as start points; K4a), fit_fleet_sharded on the 262144 exp fits through
+     "qr_pallas" (K2b-r) and "cholesky" (K3-r), minimize(method="cmaes",
+     layout="sharded") on 65536 16-D Rastrigin strategies for 50
+     generations (K5r), the PSO and SANN sharded fleets on 8192 100-D
+     Rastrigin instances for 100 iterations, fit_sharded on 8192 exp fits
+     (no kernel), and de_sharded on 8192 10-D Rastrigin instances of 64
+     agents (Philox draws, no kernel) to convergence, its 256 first lanes
+     in float64 against the same run on the host; the process group is
+     destroyed at the end;
+ 28. bench_qr_shapes (K2a-w, K2b's register and shared forms, the library's
+     QR and the plain wavefront; 5 chained calls a run) and
+     bench_de_fused_sweep (P = 128, 256, 512 at 2^18 agents, 50 generations,
+     K1's staged form against the plain step), their launches counted.
 
 Every kernel's line also gives its bound: the larger of its compulsory
 bytes over 3.35 TB/s and its floating-point operations over 67 TFLOP/s
@@ -268,6 +290,9 @@ computed from the run's shapes; K1's
 staged, cluster and global forms, K2b's register and warp forms, K2a-w,
 K4b-c, K4b-t, K4b and K3's register and warp forms also the floor of their
 instruction issue (``issue_ms``), which must lie below their time.
+
+The rows of K4a, K2b-r, K3-r, K5r, K2a-w and K1s also name the launches of
+phases 27 and 28 (``more_launches``).
 
 Prints a JSON line of kernels, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -3190,11 +3215,11 @@ def free_draws(torch, method, cfg, dtype):
 
 def lane_of(draws, b):
     """Lane b's draws, without the lane axis (what ``minimize`` takes)."""
-    from nlsolver_torch.solvers._lane import Draws, _tree
+    from nlsolver_torch.solvers._lane import Draws, tree_map
 
     if draws is None:
         return None
-    return Draws(_tree(draws.init, lambda a: a[b]), _tree(draws.steps, lambda a: a[:, b]))
+    return Draws(tree_map(draws.init, lambda a: a[b]), tree_map(draws.steps, lambda a: a[:, b]))
 
 
 def counters_differ(torch, res, ref):
@@ -3639,6 +3664,108 @@ def phase_replays(torch, dev):
     check(not launched(), f"the replays launched kernels: {launched()}")
 
 
+SHARD_DE_CPU = 256   # de_sharded's lanes held against its own run on the host in float64
+
+
+def timed_counted(torch, run):
+    """``run()`` once from zeroed counts: its result, seconds and launches."""
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, launched()
+
+
+def phase_sharded(torch, dev):
+    """The mesh routes on a world of one NCCL rank (``parallel.distributed``,
+    ``make_mesh(dp=1, pop=1)``), each against its unsharded engine through
+    ``benches.mesh.run_routes``, and de_sharded."""
+    import torch.distributed as dist
+
+    import nlsolver_torch as nt
+    from nlsolver_torch.benches import mesh as mesh_bench
+    from nlsolver_torch.parallel import distributed, make_mesh
+
+    distributed.initialize()                 # no launcher here: a world of its own
+    mesh = make_mesh(dp=1, pop=1)
+    check(dist.get_world_size() == 1 and mesh.device_type == "cuda",
+          f"the mesh is {mesh}, world {dist.get_world_size()}")
+    log(f"[27] mesh {mesh}, backend {dist.get_backend()}")
+    try:
+        # raises where a route's kernel did not run or a plain twin did
+        rows = mesh_bench.run_routes(mesh, dev)
+        overhead = {}
+        for name, r in rows.items():
+            overhead[name] = 1.0 / r["speedup"] - 1.0
+            log(f"[27] {name}: unsharded {' '.join(f'{t:.4f}' for t in r['unsharded_s'])} s, "
+                f"sharded {' '.join(f'{t:.4f}' for t in r['sharded_s'])} s (after a warm-up of "
+                f"each; pairs u s, s u, u s, s u), launches {r['launches_sharded']}, (sharded - "
+                f"unsharded) / unsharded of the medians {overhead[name]:+.4f}")
+            check(r["bit_equal"], f"{name}: the sharded result is not the unsharded one")
+            check(r["launches_sharded"] == r["launches_unsharded"],
+                  f"{name}: launches {r['launches_sharded']}, unsharded {r['launches_unsharded']}")
+        launches = {kid: n for r in rows.values() for kid, n in r["launches_sharded"].items()}
+
+        # de_sharded on 8192 10-D Rastrigin instances of 64 agents: no
+        # unsharded engine draws as it does, so it is held to its own run
+        # on the host in float64
+        (name, de), = mesh_bench.run_de(1, dev).items()
+        de = de["1x1"]
+        log(f"[27] {name}: {de['s']:.3f} s, {de['generations']} generations at most "
+            f"({de['ms_a_generation']:.2f} ms a generation), converged {de['converged']:.6f}")
+        check(de["converged"] >= 0.99, f"de_sharded: converged share {de['converged']}")
+        host_mesh = make_mesh(dp=1, pop=1, device_type="cpu")
+        w64 = torch.full((SHARD_DE_CPU, 10), 10.24, dtype=torch.float64, device=dev)
+        cfg = nt.DEConfig(pop_size=64, max_iter=1000)
+        rastrigin = nt.PROBLEMS["rastrigin"].fn
+        card, _, counts = timed_counted(torch, lambda: nt.minimize(
+            rastrigin, w64, method="de", layout="sharded", mesh=mesh, config=cfg))
+        host = nt.minimize(rastrigin, w64.cpu(), method="de", layout="sharded", mesh=host_mesh,
+                           config=cfg)
+        agree = (card.iterations.cpu() == host.iterations) & (card.converged.cpu() == host.converged)
+        rel = ((card.f_value.cpu() - host.f_value).abs()
+               / host.f_value.abs().clamp_min(1.0))[agree]
+        log(f"[27] de_sharded f64 on {SHARD_DE_CPU} lanes, card against host: counters equal on "
+            f"{int(agree.sum())} lanes, largest |f card - f host| / max(|f|, 1) there "
+            f"{float(rel.max()):.3e}; launches {counts}")
+        check(not counts, f"de_sharded launched {counts}")
+        check(float(agree.float().mean()) >= 0.9 and float(rel.max()) < 1e-9,
+              "de_sharded: the card's f64 run parts from the host's")
+    finally:
+        dist.destroy_process_group()
+    log(f"[27] overhead of the sharded wrapper on one rank, (sharded - unsharded) / unsharded: "
+        f"{json.dumps({k: round(v, 4) for k, v in overhead.items()})}")
+    return launches
+
+
+def phase_benches_port(torch, dev):
+    """bench_qr_shapes and bench_de_fused_sweep, their kernels counted."""
+    from nlsolver_torch.benches import bench_de_fused_sweep, bench_qr_shapes
+
+    # reps=5 (the bench's default is 20): torch.linalg.qr takes some 0.18 s
+    # a call at [4096, 16, 16] on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md)
+    out, wall, counts = timed_counted(torch, lambda: bench_qr_shapes(B=4096, runs=3, reps=5))
+    for row in out["rows"]:
+        log(f"[28] bench_qr_shapes [{row['m']}, {row['n']}, 4096]: " + json.dumps(
+            {k: (round(v, 6) if isinstance(v, float) else v) for k, v in row.items()}))
+        check(row["recon_rel_err"] < 1e-5 and row["kernel_recon_rel_err"] < 1e-5,
+              f"bench_qr_shapes [{row['m']}, {row['n']}]: Q R is not A")
+    log(f"[28] bench_qr_shapes: {wall:.1f} s, launches {counts}")
+    check({"qr_wavefront_warp", "least_squares_wavefront_shared",
+           "least_squares_wavefront_registers"} <= set(counts),
+          f"bench_qr_shapes launched {counts}")
+    launches = {"K2a-w": counts["qr_wavefront_warp"]}
+    out, wall, counts = timed_counted(torch, lambda: bench_de_fused_sweep(iters=50, runs=3))
+    for row in out["rows"]:
+        log("[28] bench_de_fused_sweep " + json.dumps(
+            {k: (round(v, 3) if isinstance(v, float) else v) for k, v in row.items()}))
+    log(f"[28] bench_de_fused_sweep: {wall:.1f} s, launches {counts}, fused wins "
+        f"{out['fused_wins']}")
+    check(set(counts) == {"de_generation_staged"}, f"bench_de_fused_sweep launched {counts}")
+    launches["K1s"] = counts["de_generation_staged"]
+    return launches
+
+
 def kernel_row(name, source, replaces, launches, max_err, times, bound_ms_by, issue_ms=None,
                shape=None):
     """One entry of the kernels line; ``issue_ms``, where phase 2 found it,
@@ -3830,6 +3957,8 @@ def main():
     phase(24, phase_free_timing, torch, dev)
     phase(25, phase_cmaes_lanes, torch, dev)
     phase(26, phase_replays, torch, dev)
+    sharded = phase(27, phase_sharded, torch, dev)
+    benched = phase(28, phase_benches_port, torch, dev)
     # K4c-r on the single-instance BFGS's path, K4c-g on its wide arm's
     # (phase 21), each timed alone in phase 13
     csrc, tpu = "nlsolver_torch/csrc/rank2.cu", "nlsolver_tpu/ops/rank2.py:66"
@@ -3843,6 +3972,20 @@ def main():
                            k4c["alone"]["K4c-g"],
                            rank2_bound(K4CG_N, K4CG_B, direction=False),
                            shape=f"[{K4CG_B}, {K4CG_N}, {K4CG_N}] f32, the wide arm's path"))
+    # the launches of the sharded paths (phase 27) and of the benches of
+    # phase 28, beside each row's main-path launches
+    more = {"rank2_direction_batchminor_resident": {
+                f"minimize(layout='sharded') bowls [{BFGS_N}, {BFGS_B}]": sharded["K4a"]},
+            "least_squares_wavefront_registers": {
+                f"fit_fleet_sharded qr_pallas [2, {FLEET_B}]": sharded["K2b-r"]},
+            "solve_spd_registers": {f"fit_fleet_sharded cholesky [2, {FLEET_B}]": sharded["K3-r"]},
+            "eigh_jacobi_registers": {
+                f"minimize(layout='sharded') cmaes [{CMA_N}, {CMA_B}]": sharded["K5r"]},
+            "qr_wavefront_warp": {"bench_qr_shapes": benched["K2a-w"]},
+            "de_generation_staged": {"bench_de_fused_sweep": benched["K1s"]}}
+    for row in rows:
+        if row["name"] in more:
+            row["more_launches"] = more[row["name"]]
     print(f"seconds a phase: {PHASE_SECONDS}; {time.perf_counter() - start:.1f} s in all",
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

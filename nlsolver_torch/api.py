@@ -32,9 +32,16 @@ counters summed.  ``layout="batched"`` (``x0 [B, n]``) takes ``de``,
 ``pso_batched``, ``sann_batched``) and every other single-instance solver,
 ``cmaes`` too, to its ``minimize_batched``, every lane at once as the JAX
 package's ``vmap`` of the single solver; ``layout="fleet"`` (``x0 [n, B]``)
-takes ``bfgs`` and ``cmaes`` to the batch-minor fleets.  The mesh layouts
-(``"sharded"``, ``"islands"``) raise ``NotImplementedError`` naming the
-ROADMAP.md item that ports them (Queue 1 item 9).  The single-point
+takes ``bfgs`` and ``cmaes`` to the batch-minor fleets.  ``layout="sharded"``
+with ``mesh=`` (a ``parallel.make_mesh`` mesh; every rank of the world
+calls with the same global inputs and gets the global result) takes
+``bfgs`` and ``cmaes`` (``x0 [n, B]``), ``pso_batched`` and ``sann``
+(``x0 [B, n]``) to the lane fleets sharded over every device
+(``parallel.fleet_sharded``, ``parallel.cmaes_sharded``) and ``de`` to the
+population-sharded DE (``parallel.de_sharded``).  The population-sharded
+PSO (``method="pso"``), the dimension-sharded L-BFGS and
+``layout="islands"`` raise ``NotImplementedError`` naming the ROADMAP.md
+item that ports them (Queue 1 item 9b).  The single-point
 objective of the lane solvers may take per-lane data: ``data=`` (a tensor
 or tuple of tensors with the lane axis leading) makes it
 ``fn(x, data_b)``.  ``generator`` (a ``torch.Generator``
@@ -44,7 +51,8 @@ the CPU); anything else goes to the CUDA card, and raises when there is
 none.  ``root`` runs the seven 1-D root finders of ``solvers.rootfind`` on
 lane tensors.  Nonlinear least squares is ``fit`` / ``fit_batched`` /
 ``curve_fit`` (re-exported from ``solvers.nlls``) plus ``fit_fleet``, the
-batch-minor lane fleet with its ``solve`` backends (solvers/nlls_fleet.py).
+batch-minor lane fleet with its ``solve`` backends (solvers/nlls_fleet.py),
+and their mesh routes ``fit_fleet_sharded`` and ``fit_sharded``.
 """
 from __future__ import annotations
 
@@ -103,7 +111,8 @@ _BATCHED = {
 # the (method, layout) routes that minimize and maximize take; the
 # NotImplementedError text names them from here
 PORTED_ROUTES = ((("de", "batched"), ("bfgs", "fleet"), ("cmaes", "fleet"), ("pso", "batched"),
-                  ("sann", "batched"))
+                  ("sann", "batched"), ("bfgs", "sharded"), ("cmaes", "sharded"),
+                  ("pso_batched", "sharded"), ("sann", "sharded"), ("de", "sharded"))
                  + tuple((m, "single") for m in _LANE_SOLVERS)
                  + tuple((m, "batched") for m in _LANE_SOLVERS if m not in _BATCHED))
 
@@ -244,7 +253,68 @@ def _not_ported(method, layout, where):
     )
 
 
-def _dispatch(fn, x0, method, config, bounds, generator, layout, _minimize, kwargs):
+_MESH_LEFT = "Queue 1 item 9b (the rest of the mesh engines)"
+
+
+def _sharded(fn, x0, method, config, bounds, generator, mesh, _minimize, kwargs):
+    """``layout="sharded"``: the mesh engines (nlsolver_tpu/api.py:420-490)."""
+    from .parallel import cmaes_sharded, de_sharded, fleet_sharded
+
+    x0 = start_points(x0)
+    if x0.ndim != 2:
+        raise ValueError(f"layout='sharded' expects a 2-D x0, got {tuple(x0.shape)}")
+    if mesh is None:
+        raise ValueError("layout='sharded' requires a mesh= argument")
+    unflip = (lambda r: r) if _minimize else (lambda r: r._replace(f_value=-r.f_value))
+    if method in ("bfgs", "bfgs_fleet"):
+        if bounds is not None:
+            raise ValueError(
+                "the BFGS fleet is unconstrained; use method='lbfgsb' for box constraints"
+            )
+        fn_cols = kwargs.pop("fn_cols", None)
+        if fn_cols is None:
+            fn_cols = bfgs_fleet.colwise(signed(fn, _minimize))
+        elif not _minimize:
+            user_cols = fn_cols
+            fn_cols = lambda X: -user_cols(X)  # noqa: E731
+        if kwargs:
+            raise TypeError(
+                f"unexpected arguments for the sharded BFGS fleet: {sorted(kwargs)}"
+            )
+        cfg = config if config is not None else BFGSFleetConfig()
+        return unflip(fleet_sharded.minimize_fleet_sharded(fn_cols, x0, cfg, mesh))
+    if method in ("cmaes", "cmaes_fleet"):
+        cfg = config if config is not None else CMAESFleetConfig()
+        return unflip(cmaes_sharded.minimize_fleet_sharded(
+            signed(fn, _minimize), x0, cfg, mesh, bounds, generator=generator, **kwargs))
+    if method == "pso_batched":
+        cfg = config if config is not None else PSOConfig()
+        return fleet_sharded.minimize_pso_fleet_sharded(
+            fn, x0, cfg, mesh, generator=generator, bounds=bounds, _minimize=_minimize, **kwargs)
+    if method in ("sann", "sann_batched"):
+        sann_batched.no_bounds(bounds)
+        cfg = config if config is not None else SANNConfig()
+        return fleet_sharded.minimize_sann_fleet_sharded(
+            fn, x0, cfg, mesh, generator=generator, _minimize=_minimize, **kwargs)
+    if method == "de":
+        if bounds is not None:
+            raise ValueError(
+                "the population-sharded DE is unbounded, as the lane-axis DE engine is (x0 is a "
+                "per-dimension width); for a box use method='pso_batched' with bounds="
+            )
+        cfg = config if config is not None else DEConfig()
+        return unflip(de_sharded.minimize_sharded(signed(fn, _minimize), x0, cfg, mesh,
+                                                  generator=generator, **kwargs))
+    raise ValueError(
+        f"layout='sharded' supports method='de', 'pso' (population "
+        f"sharding), 'pso_batched'/'sann' (lane-sharded instance "
+        f"fleets, x0=[B, n]), 'cmaes'/'bfgs' (lane-sharded fleets, "
+        f"x0=[n, B]) or 'lbfgs' (dimension-sharded, x0=[n] + "
+        f"grad_local=), got {method!r}"
+    )
+
+
+def _dispatch(fn, x0, method, config, bounds, generator, layout, mesh, _minimize, kwargs):
     mod = _resolve(method)
     verb = "minimize" if _minimize else "maximize"
     restarts = kwargs.pop("restarts", 1)
@@ -279,8 +349,11 @@ def _dispatch(fn, x0, method, config, bounds, generator, layout, _minimize, kwar
         return _cmaes_fleet(fn, x0, config, bounds, generator, _minimize, kwargs)
     if layout == "fleet":
         return _bfgs_fleet(fn, x0, config, bounds, _minimize, kwargs)
-    if layout in ("sharded", "islands"):
-        _not_ported(method, layout, "Queue 1 item 9 (mesh engines)")
+    if layout == "islands" or (layout == "sharded"
+                               and method in ("pso", "lbfgs", "lbfgs_sharded")):
+        _not_ported(method, layout, _MESH_LEFT)
+    if layout == "sharded":
+        return _sharded(fn, x0, method, config, bounds, generator, mesh, _minimize, kwargs)
     # layout="batched"
     if method in _BATCHED:
         x0 = start_points(x0)
@@ -306,11 +379,13 @@ def minimize(
     *,
     generator: Optional[torch.Generator] = None,
     layout: str = "single",
+    mesh=None,
     **kwargs,
 ) -> SolverResult:
     """Minimize ``fn``; ``generator`` takes the place of the JAX package's
-    ``key`` and lives on ``x0``'s device."""
-    return _dispatch(fn, x0, method, config, bounds, generator, layout, True, kwargs)
+    ``key`` and lives on ``x0``'s device; ``mesh`` is the device mesh of
+    ``layout="sharded"``."""
+    return _dispatch(fn, x0, method, config, bounds, generator, layout, mesh, True, kwargs)
 
 
 def maximize(
@@ -322,10 +397,11 @@ def maximize(
     *,
     generator: Optional[torch.Generator] = None,
     layout: str = "single",
+    mesh=None,
     **kwargs,
 ) -> SolverResult:
     """Maximize ``fn`` by minimizing ``-fn``; ``f_value`` is ``fn``'s own value."""
-    return _dispatch(fn, x0, method, config, bounds, generator, layout, False, kwargs)
+    return _dispatch(fn, x0, method, config, bounds, generator, layout, mesh, False, kwargs)
 
 
 _ROOT_METHODS = (
@@ -363,20 +439,21 @@ def root_methods():
     return list(_ROOT_METHODS)
 
 
-def _mesh_route(name: str):
-    raise NotImplementedError(
-        f"{name} is not ported to nlsolver_torch yet; ROADMAP.md Queue 1 item 9 "
-        "(mesh engines) ports it. Ported: fit_fleet on one device"
-    )
-
-
 def fit_fleet_sharded(residual_fn, X0, config=None, mesh=None, data=None):
-    """``fit_fleet`` with the lane axis sharded over a device mesh: not
-    ported yet (ROADMAP.md Queue 1 item 9)."""
-    _mesh_route("fit_fleet_sharded")
+    """``fit_fleet`` with the lane axis sharded over every device of
+    ``mesh`` (parallel/fleet_sharded.py): the mesh route of the batch-minor
+    NLLS fleet, no collective inside its loop."""
+    from .parallel import fleet_sharded
+
+    return fleet_sharded.fit_fleet_sharded(residual_fn, X0, config, mesh, data=data)
 
 
 def fit_sharded(residual_fn, x0s, config=None, mesh=None, data=None):
-    """``fit_batched`` with the fit batch sharded over a mesh: not ported
-    yet (ROADMAP.md Queue 1 item 9)."""
-    _mesh_route("fit_sharded")
+    """``fit_batched`` with the fit batch sharded over the mesh's dp axis
+    (parallel/nlls_sharded.py)."""
+    if mesh is None:
+        raise ValueError("fit_sharded requires a mesh= argument")
+    from .parallel import nlls_sharded
+
+    cfg = config if config is not None else NLLSConfig()
+    return nlls_sharded.fit_sharded(residual_fn, x0s, cfg, mesh, data=data)

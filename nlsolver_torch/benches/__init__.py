@@ -2102,3 +2102,234 @@ def bench_lm_fleet(B=4096, m=32, runs=5, solve="qr_pallas"):
         "vmapped_scalar_solved_frac": float((res_v.f_value < 1e-6).float().mean()),
         "iterations_max": int(res.iterations.max()),
     }
+
+
+def _median_s(run, runs) -> float:
+    """Median seconds of ``run`` after one warm-up, fenced on whatever device
+    its output lies (``utils.benchmark``): these benches also run on the
+    CPU, at a tiny size, where they take ``device="cpu"``."""
+    from ..utils.timing import benchmark
+
+    return benchmark(run, runs=runs, warmup=1)["median_us"] / 1e6
+
+
+def _device_name(device) -> str:
+    device = torch.device(device)
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+
+
+def bench_qr_batched(B=4096, m=16, n=16, runs=5, reps=20, device="cuda"):
+    """Batched small-matrix QR (tinyqr.h:253-310's role at fleet scale; the
+    JAX package's ``bench_qr_batched``): ``torch.linalg.qr`` on ``[B, m,
+    n]`` against the plain Sameh-Kuck wavefront (``linalg.qr_parallel``)
+    and kernel K2a through ``ops.qr_wavefront_kernel`` (the JAX bench's
+    "pallas" arm, R only) on ``[m, n, B]``, and the implicit-Q^T least
+    squares (``least_squares_parallel``) against kernel K2b
+    (``least_squares_wavefront_kernel``).  Each run chains ``reps`` calls,
+    each input nudged by the last output, f32, the median of ``runs``.  On
+    a CPU tensor the kernels' arms run their plain twins.
+    ``recon_rel_err`` (the wavefront's Q R against A) is the anchor, and
+    ``kernel_recon_rel_err`` the kernel's with Q."""
+    from ..linalg.qr_parallel import least_squares_parallel, qr_parallel
+    from ..ops.qr_wavefront import least_squares_wavefront_kernel, qr_wavefront_kernel
+
+    g = torch.Generator(device=device).manual_seed(0)
+    A_batch = torch.randn((B, m, n), generator=g, dtype=torch.float32, device=device)
+    A_bm = A_batch.permute(1, 2, 0).contiguous()                  # [m, n, B]
+    y = torch.randn((m, B), generator=g, dtype=torch.float32, device=device)
+
+    def chain(run_one, A):
+        def run():
+            x, tops = A, []
+            for _ in range(reps):
+                r = run_one(x)
+                x = x + 1e-6 * r.abs().max()
+                tops.append(r.max())
+            return torch.stack(tops)
+        return run
+
+    med_x = _median_s(chain(lambda A: torch.linalg.qr(A)[1], A_batch), runs)
+    med_p = _median_s(chain(lambda A: qr_parallel(A, compute_q=False).R, A_bm), runs)
+    med_k = _median_s(chain(lambda A: qr_wavefront_kernel(A)[0], A_bm), runs)
+    med_ls = _median_s(chain(lambda A: least_squares_parallel(A, y), A_bm), runs)
+    med_kls = _median_s(chain(lambda A: least_squares_wavefront_kernel(A, y), A_bm), runs)
+
+    def recon(Q, R):
+        rec = torch.einsum("ik...,kj...->ij...", Q.double(), R.double())
+        return float((rec - A_bm.double()).abs().max() / A_bm.double().abs().max())
+
+    Q, R = qr_parallel(A_bm)
+    Rk, Qk = qr_wavefront_kernel(A_bm, compute_q=True)
+    return {
+        "name": "qr_batched_torch", "device": _device_name(device), "B": B, "m": m, "n": n,
+        "library_qr_per_sec": B * reps / med_x,
+        "parallel_qr_per_sec": B * reps / med_p,
+        "parallel_speedup_vs_library": med_x / med_p,
+        "kernel_qr_per_sec": B * reps / med_k,
+        "kernel_speedup_vs_library": med_x / med_k,
+        "kernel_speedup_vs_parallel": med_p / med_k,
+        "parallel_lstsq_per_sec": B * reps / med_ls,
+        "kernel_lstsq_per_sec": B * reps / med_kls,
+        "kernel_lstsq_speedup_vs_parallel": med_ls / med_kls,
+        "recon_rel_err": recon(Q, R),
+        "kernel_recon_rel_err": recon(Qk, Rk),
+    }
+
+
+def bench_qr_shapes(B=4096, runs=5, reps=20, device="cuda"):
+    """``bench_qr_batched`` at the JAX bench's three shapes: [16, 16] (K2a-w
+    and K2b's shared-memory form), [16, 8] and [32, 8] (K2b's register
+    form)."""
+    rows = [bench_qr_batched(B=B, m=m, n=n, runs=runs, reps=reps, device=device)
+            for (m, n) in ((16, 16), (16, 8), (32, 8))]
+    return {"name": "qr_shapes_torch", "device": _device_name(device), "rows": rows}
+
+
+def bench_de_fused_sweep(iters=50, runs=3, total_agents=1 << 18, pops=(128, 256, 512),
+                         device="cuda"):
+    """The DE generation over P in ``pops`` at ``total_agents`` agents (B =
+    total_agents / P, at least 128 instances), us a generation of a
+    fixed-trip run of ``iters`` generations (init included, as in the JAX
+    package's ``bench_de_fused_sweep``): on Rastrigin-10 through the plain
+    rotation step and through kernel K1 (``use_fused_kernel``), and on the
+    NLLS 2x64 objective (an exp-decay residual over 64 points, not in K1's
+    registry) through the plain step alone.  On a CPU tensor K1's arm runs
+    its plain twin."""
+    m = 64
+
+    def nlls(x):  # x: [2] -> scalar
+        t = torch.arange(m, dtype=x.dtype, device=x.device) * (2.0 / (m - 1))
+        r = x[0] * torch.exp(-x[1] * t) - 2.0 * torch.exp(-1.3 * t)
+        return (r * r).sum()
+
+    out = {"name": "de_fused_sweep_torch", "device": _device_name(device), "generations": iters,
+           "rows": []}
+    for pname, fn, dim in (("rastrigin10", PROBLEMS["rastrigin"].fn, 10), ("nlls2x64", nlls, 2)):
+        for P in pops:
+            B = max(total_agents // P, 128)
+            x0 = torch.full((B, dim), 1.0, dtype=torch.float32, device=device)
+            row = {"objective": pname, "P": P, "B": B}
+            for fused in ((False,) if pname == "nlls2x64" else (False, True)):
+                cfg = DEConfig(pop_size=P, max_iter=1 << 30, best_value_no_change=1 << 30,
+                               eps=0.0, partner_sampling="rotation", use_fused_kernel=fused)
+
+                def run(cfg=cfg, fn=fn, x0=x0):
+                    g = torch.Generator(device=device).manual_seed(0)
+                    state = deb.init(fn, x0, cfg, generator=g)
+                    final = drive_scan(lambda s: deb.step(fn, s, cfg, generator=g), state, iters)
+                    return final.scores.amin(dim=-1)
+
+                med = _median_s(run, runs)
+                row["fused_us_per_gen" if fused else "plain_us_per_gen"] = med * 1e6 / iters
+            if "fused_us_per_gen" in row:
+                row["fused_speedup"] = row["plain_us_per_gen"] / row["fused_us_per_gen"]
+            out["rows"].append(row)
+    out["fused_wins"] = [f"{r['objective']}/P={r['P']}" for r in out["rows"]
+                         if r.get("fused_speedup", 0.0) > 1.0]
+    return out
+
+
+def _knee(rows, bkey, tkey, frac=0.8):
+    """Smallest batch whose throughput reaches ``frac`` of the sweep's best
+    (the JAX package's ``_knee``)."""
+    best = max(r[tkey] for r in rows)
+    for r in sorted(rows, key=lambda r: r[bkey]):
+        if r[tkey] >= frac * best:
+            return r[bkey], r[tkey], r[tkey] / best
+    return rows[-1][bkey], rows[-1][tkey], 1.0
+
+
+SATURATION_LADDERS = {
+    "bfgs_fleet": (1024, 4096, 16384, 65536),
+    "lm_fleet": (1024, 4096, 16384, 65536),
+    "rootfinder": (20000, 100000, 500000, 2000000),
+    "pso_sann_100d": (256, 2048, 8192, 32768),
+    "nlls_fleet": (4096, 16384, 65536, 262144),
+}
+
+
+def bench_saturation(runs=3):
+    """Each latency-bound scenario's batch swept to its throughput knee (the
+    smallest B within 80 % of the sweep's best, ``_knee``), from the port's
+    own benches (the JAX package's ``bench_saturation``): the BFGS fleet
+    under both line searches (and the speculative one's speedup at each B),
+    the LM fit fleet, Brent and ITP, the 100-D PSO and SANN lane fleets
+    (and their row-layout arm up to B = 8192), and the NLLS
+    fleet's best backend.  Needs a CUDA card."""
+    out = {"name": "saturation_torch", "sweeps": {}}
+
+    rows = []
+    for B in SATURATION_LADDERS["bfgs_fleet"]:
+        for ls in ("more_thuente", "speculative"):
+            r = bench_bfgs_fleet(B=B, runs=runs, linesearch=ls)
+            out.setdefault("device", r["device"])
+            rows.append({"B": B, "linesearch": ls, "iters_per_sec": r["iters_per_sec"],
+                         "median_ms": r["median_ms"], "solved_frac": r["solved_frac"]})
+    mt = [r for r in rows if r["linesearch"] == "more_thuente"]
+    sp = [r for r in rows if r["linesearch"] == "speculative"]
+    kb, kt, _ = _knee(mt, "B", "iters_per_sec")
+    out["sweeps"]["bfgs_fleet"] = {
+        "rows": rows, "knee_B": kb, "knee_iters_per_sec": kt,
+        "speculative_speedup_at_B": {str(a["B"]): b["median_ms"] / a["median_ms"]
+                                     for a, b in zip(sp, mt)},
+    }
+
+    rows = []
+    for B in SATURATION_LADDERS["lm_fleet"]:
+        r = bench_lm_fleet(B=B, runs=runs)
+        rows.append({"B": B, "fits_per_sec": r["fits_per_sec"], "median_ms": r["median_ms"]})
+    kb, kt, _ = _knee(rows, "B", "fits_per_sec")
+    out["sweeps"]["lm_fleet"] = {"rows": rows, "knee_B": kb, "knee_fits_per_sec": kt}
+
+    rows = []
+    for B in SATURATION_LADDERS["rootfinder"]:
+        r = bench_rootfinder_batch(B=B, runs=runs)
+        rows.append({"B": B, "brent_roots_per_sec": r["brent_roots_per_sec"],
+                     "itp_roots_per_sec": r["itp_roots_per_sec"]})
+    kb, kt, _ = _knee(rows, "B", "brent_roots_per_sec")
+    out["sweeps"]["rootfinder"] = {"rows": rows, "knee_B": kb, "knee_brent_roots_per_sec": kt}
+
+    rows = []
+    for B in SATURATION_LADDERS["pso_sann_100d"]:
+        r = bench_pso_sann_100d(B=B, runs=runs, fast=True)
+        row = {"B": B, "engine": "lane_fleet",
+               "pso_rastrigin_iters_per_sec": r["pso_rastrigin_100d_iters_per_sec"],
+               "sann_iters_per_sec": r["sann_rastrigin_100d_iters_per_sec"]}
+        if B <= 8192:
+            rr = bench_pso_sann_100d(B=B, runs=runs, fast=False)
+            row["row_pso_iters_per_sec"] = rr["pso_rastrigin_100d_iters_per_sec"]
+            row["row_sann_iters_per_sec"] = rr["sann_rastrigin_100d_iters_per_sec"]
+        rows.append(row)
+    kb, kt, _ = _knee(rows, "B", "pso_rastrigin_iters_per_sec")
+    kbs, kts, _ = _knee(rows, "B", "sann_iters_per_sec")
+    out["sweeps"]["pso_sann_100d"] = {"rows": rows, "knee_B": kb, "knee_pso_iters_per_sec": kt,
+                                      "sann_knee_B": kbs, "sann_knee_iters_per_sec": kts}
+
+    rows = []
+    for B in SATURATION_LADDERS["nlls_fleet"]:
+        per = {solve: bench_nlls_fleet(B=B, runs=runs, solve=solve)["fits_per_sec"]
+               for solve in ("qr_pallas", "cholesky", "qr")}
+        best = max(per, key=per.get)
+        rows.append({"B": B, **{f"{s}_fits_per_sec": v for s, v in per.items()},
+                     "best_backend": best, "best_fits_per_sec": per[best]})
+    kb, kt, _ = _knee(rows, "B", "best_fits_per_sec")
+    out["sweeps"]["nlls_fleet"] = {"rows": rows, "knee_B": kb, "knee_fits_per_sec": kt}
+    return out
+
+
+# the JAX package's bench table (nlsolver_tpu/benches:1012), entry for entry
+ALL_BENCHES = {
+    "nm_rosenbrock": bench_nm_rosenbrock,
+    "de_batched": bench_de_batched,
+    "pso_sann_100d": bench_pso_sann_100d,
+    "bfgs_batch": bench_bfgs_batch,
+    "bfgs_fleet": bench_bfgs_fleet,
+    "rootfinder_batch": bench_rootfinder_batch,
+    "lm_fleet": bench_lm_fleet,
+    "eigh_batched": bench_eigh_batched,
+    "cmaes_fleet": bench_cmaes_fleet,
+    "qr_batched": bench_qr_batched,
+    "nlls_fleet": bench_nlls_fleet,
+    "latency_single": bench_latency_single,
+    "saturation": bench_saturation,
+}

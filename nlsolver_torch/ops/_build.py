@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
@@ -21,6 +22,9 @@ from pathlib import Path
 
 import torch
 
+# each build and load of the library is logged here at INFO
+# (utils.log_compiles shows them)
+LOG = logging.getLogger(__name__)
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nlsolver_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -130,6 +134,7 @@ def ensure_built() -> tuple[Path, str]:
         link = nvcc_command(nvcc, objs, tmp)
         finish(link, start(link))
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        LOG.info("built %s from %d sources", out, len(objs))
     finally:
         for proc in procs:  # after a failure, stop the compiles still running
             if proc.poll() is None:
@@ -144,6 +149,7 @@ def ensure_built() -> tuple[Path, str]:
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     path, _ = ensure_built()
+    LOG.info("loaded %s", path)
     return ctypes.CDLL(str(path))
 
 

@@ -102,12 +102,14 @@ class Draws(NamedTuple):
     steps: Any
 
 
-def _tree(x, fn):
+def tree_map(x, fn):
+    """``fn`` on every tensor of ``x`` (NamedTuples and tuples of tensors,
+    None left as it is)."""
     if x is None:
         return None
     if isinstance(x, tuple):
-        return type(x)(*(_tree(a, fn) for a in x)) if hasattr(x, "_fields") else \
-            tuple(_tree(a, fn) for a in x)
+        return type(x)(*(tree_map(a, fn) for a in x)) if hasattr(x, "_fields") else \
+            tuple(tree_map(a, fn) for a in x)
     return fn(x)
 
 
@@ -119,19 +121,19 @@ def step_rows(steps, iteration: torch.Tensor):
     def pick(a):
         return a[iteration.long().clamp(max=a.shape[0] - 1), lane]
 
-    return _tree(steps, pick)
+    return tree_map(steps, pick)
 
 
 def reversed_axes(tree):
     """Every tensor of ``tree`` with its axes in reverse order, a view: a
     lane-leading ``[B, P, n]`` as the batch-minor fleets' ``[n, P, B]``, and
     back."""
-    return _tree(tree, lambda a: a.permute(*range(a.ndim - 1, -1, -1)))
+    return tree_map(tree, lambda a: a.permute(*range(a.ndim - 1, -1, -1)))
 
 
 def draws_on(draws, device):
     """``draws`` with every tensor on ``device``."""
-    return _tree(draws, lambda a: torch.as_tensor(a).to(device))
+    return tree_map(draws, lambda a: torch.as_tensor(a).to(device))
 
 
 def one_lane(draws):
@@ -140,8 +142,8 @@ def one_lane(draws):
     T."""
     if draws is None:
         return None
-    return Draws(_tree(draws.init, lambda a: torch.as_tensor(a)[None]),
-                 _tree(draws.steps, lambda a: torch.as_tensor(a)[:, None]))
+    return Draws(tree_map(draws.init, lambda a: torch.as_tensor(a)[None]),
+                 tree_map(draws.steps, lambda a: torch.as_tensor(a)[:, None]))
 
 
 def _each(data, fn):

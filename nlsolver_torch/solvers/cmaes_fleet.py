@@ -26,8 +26,9 @@ state has no ``key``); ``gen`` and ``filled`` are host ints and the two
 ``lax.cond``s on fleet-global predicates are Python branches, so a stale
 generation launches no eigensolver at all; ``kicked`` stays on the device
 and is read on the host only on a generation that would not refresh
-anyway; ``drive_fleet`` is a host loop that reads ``any(~done)`` after
-every step and so runs exactly the reference's steps.  ``step`` builds new
+anyway; ``minimize_fleet``'s loop (as ``drive_fleet``) reads
+``any(~done)`` on the host after every step and so runs exactly the
+reference's steps.  ``step`` builds new
 tensors and never writes into its input state.
 """
 from __future__ import annotations
@@ -204,6 +205,13 @@ def _set_slot(buf: torch.Tensor, slot: int, value: torch.Tensor) -> torch.Tensor
     return torch.cat([buf[:slot], value[None], buf[slot + 1:]])
 
 
+def step_draws(n: int, lam: int, B: int, generator: torch.Generator, dtype,
+               device) -> torch.Tensor:
+    """A generation's standard normal draws ``z [n, lam, B]`` from
+    ``generator``."""
+    return torch.randn((n, lam, B), generator=generator, dtype=dtype, device=device)
+
+
 def step(
     fn,
     state: CMAESFleetState,
@@ -254,7 +262,7 @@ def step(
     )
 
     if z is None:
-        z = torch.randn((n, lam, B), generator=generator, dtype=dtype, device=dev)
+        z = step_draws(n, lam, B, generator, dtype, dev)
     Dz = D[:, None, :] * z                                 # [n, lam, B]
     # y = B (D z): contraction over the small k axis, unrolled
     y = torch.zeros((n, lam, B), dtype=dtype, device=dev)
@@ -390,13 +398,34 @@ def minimize_fleet(
     The fleet runs on ``X0``'s device; ``generator`` lives there too, takes
     the place of the JAX package's ``key`` and defaults to seed 0.  Returns
     a SolverResult with per-lane fields; ``x`` stays [n, B]."""
+    return _run(fn, X0, config, bounds, generator)
+
+
+def _run(fn, X0: torch.Tensor, config: CMAESFleetConfig, bounds: Optional[Bounds],
+         generator: Optional[torch.Generator], part: slice = slice(None),
+         anywhere=lambda flags: flags):
+    """The lanes ``part`` of the fleet ``X0`` to their end (by default the
+    whole fleet; ``parallel.cmaes_sharded`` runs a rank's block).  Every
+    generation's draws are made for the whole width and cut to ``part``,
+    so each lane draws what it draws in the whole fleet.  ``anywhere``
+    turns the flags [any lane running, ``kicked``] of these lanes into the
+    whole fleet's (an OR over the ranks); the loop reads them once a
+    generation, as ``drive_fleet`` reads ``any(~done)``."""
     if generator is None:
         generator = torch.Generator(device=X0.device).manual_seed(0)
+    n, B = X0.shape
     if bounds is not None:
-        lo, hi = _box(bounds, X0.shape[0], X0.dtype, X0.device)
+        lo, hi = _box(bounds, n, X0.dtype, X0.device)
         X0 = torch.clamp(X0, lo, hi)
-    state = init(fn, X0, config)
-    state = drive_fleet(lambda s: step(fn, s, config, bounds, generator=generator), state)
+    lam = _params(n, config.pop_size)[0]
+    state = init(fn, X0[:, part].contiguous(), config)
+    while True:
+        running, kicked = anywhere(torch.stack([(~state.done).any(), state.kicked]))
+        if not bool(running):
+            break
+        z = step_draws(n, lam, B, generator, X0.dtype, X0.device)[..., part].contiguous()
+        state = state._replace(kicked=kicked)
+        state = lane_where(state.done, state, step(fn, state, config, bounds, z=z))
     return make_result(
         x=state.best_x,
         f_value=state.best_value,

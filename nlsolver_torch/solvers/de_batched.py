@@ -30,6 +30,7 @@ import torch
 from ..core import Bounds, SolverResult, drive, make_result, signed, std_err
 from ..ops.de_fused import de_generation_fused, eval_columns
 from ..random.sampling import distinct_indices
+from ._lane import Draws
 from .de import DEConfig
 
 
@@ -224,7 +225,10 @@ def minimize_batched(
     bounds: Optional[Bounds] = None,
     *,
     generator: Optional[torch.Generator] = None,
+    draws: Optional[Draws] = None,
     check_every: int = 16,
+    progress=None,
+    progress_every: int = 50,
     _minimize: bool = True,
 ) -> SolverResult:
     """Run the fleet until every lane is done.  The fleet is unbounded:
@@ -232,9 +236,16 @@ def minimize_batched(
 
     ``generator`` (on ``x0``'s device) draws the initial agents and the
     plain path's randomness; its initial seed keys the ring offsets and the
-    kernel's Philox.  The driver looks at ``done`` on the host once every
-    ``check_every`` generations, and never runs more than
-    ``max_iter + 1`` generations: by then every lane has stopped."""
+    kernel's Philox.  ``draws`` replays a run instead: ``Draws(u [B, n, P],
+    steps)``, the initial uniforms and a sequence of ``DEDraws``,
+    generation g taking ``steps[g]`` (at least ``max_iter + 1`` of them).
+    The driver looks at ``done`` on the host once every ``check_every``
+    generations, and never runs more than ``max_iter + 1`` generations: by
+    then every lane has stopped.  ``progress`` (optional) is called on the
+    host as ``progress(iteration=, best=, active=)`` every
+    ``progress_every`` generations and once when every lane has stopped
+    (``core.driver.attach_progress``); on the kernel's path it reads the
+    fleet after each generation's launch."""
     if bounds is not None:
         raise ValueError(
             "the lane-axis DE engine is unbounded, as is the row-layout DE (x0 is a "
@@ -243,11 +254,16 @@ def minimize_batched(
     if generator is None:
         generator = torch.Generator(device=x0.device).manual_seed(0)
     sfn = signed(fn, _minimize)
-    state = init(sfn, x0, config, generator=generator, seed=generator.initial_seed())
+    state = init(sfn, x0, config, generator=generator, seed=generator.initial_seed(),
+                 draws=None if draws is None else draws.init)
+    steps = None if draws is None else draws.steps
     state = drive(
-        lambda s: step(sfn, s, config, generator=generator),
+        lambda s: step(sfn, s, config, generator=generator,
+                       draws=None if steps is None else steps[s.generation]),
         state,
         check_every=check_every,
         max_steps=config.max_iter + 1,
+        progress=progress,
+        progress_every=progress_every,
     )
     return _finalize(state, flip_sign=not _minimize)

@@ -147,6 +147,19 @@ def fit(residual_fn: Callable, x0: torch.Tensor, config: NLLSConfig = NLLSConfig
     return _finalize(state)
 
 
+def batch(residual_fn: Callable, x0s: torch.Tensor, config: NLLSConfig, data=None):
+    """The initial state of a leading-axis batch of fits and its step (a
+    ``vmap`` of :func:`step`, each lane on its slice of ``data``)."""
+    if data is None:
+        costs = vmap(lambda x: _cost(residual_fn, x))(x0s)
+        batch_step = vmap(lambda s: step(residual_fn, s, config))
+    else:
+        costs = vmap(lambda x, d: _cost(lambda p: residual_fn(p, d), x))(x0s, data)
+        each = vmap(lambda s, d: step(lambda p: residual_fn(p, d), s, config))
+        batch_step = lambda s: each(s, data)  # noqa: E731
+    return _fresh_state(x0s, costs, config, shape=(x0s.shape[0],)), batch_step
+
+
 def fit_batched(
     residual_fn: Callable,
     x0s: torch.Tensor,              # [B, n]
@@ -160,14 +173,7 @@ def fit_batched(
     ``vmap``-ed over the batch; every lane runs until all are done, with
     finished lanes frozen, as the JAX package's ``vmap`` of a while loop
     does."""
-    if data is None:
-        costs = vmap(lambda x: _cost(residual_fn, x))(x0s)
-        batch_step = vmap(lambda s: step(residual_fn, s, config))
-    else:
-        costs = vmap(lambda x, d: _cost(lambda p: residual_fn(p, d), x))(x0s, data)
-        each = vmap(lambda s, d: step(lambda p: residual_fn(p, d), s, config))
-        batch_step = lambda s: each(s, data)  # noqa: E731
-    state = _fresh_state(x0s, costs, config, shape=(x0s.shape[0],))
+    state, batch_step = batch(residual_fn, x0s, config, data)
     return _finalize(drive(batch_step, state))
 
 

@@ -40,7 +40,7 @@ import torch
 
 from ..core import Bounds, SolverResult, resolve_bounds, std_err
 from ..core.lanes import Lanes, as_lanes
-from ._lane import Draws, draws_on, lane_result, reversed_axes, run_batched, step_rows
+from ._lane import Draws, draws_on, lane_result, reversed_axes, run_batched, step_rows, tree_map
 
 # host loop: steps between two reads of done.all() in minimize_batched
 CHECK_EVERY = 16
@@ -93,6 +93,24 @@ class PSODraws(NamedTuple):
     rb: Optional[torch.Tensor] = None  # [n, P, B] uniforms (vanilla only)
 
 
+def init_draws(config: PSOConfig, n: int, B: int, generator: torch.Generator, dtype,
+               device) -> PSOInitDraws:
+    """``init``'s draws from ``generator``: two uniform arrays ``[n, P, B]``."""
+    return PSOInitDraws(*(torch.rand((n, config.n_particles, B), generator=generator,
+                                     dtype=dtype, device=device) for _ in range(2)))
+
+
+def step_draws(config: PSOConfig, n: int, B: int, generator: torch.Generator, dtype,
+               device) -> PSODraws:
+    """A ``step``'s draws from ``generator``: normals (accelerated) or two
+    uniform arrays (vanilla), ``[n, P, B]``."""
+    shape = (n, config.n_particles, B)
+    if config.accelerated:
+        return PSODraws(torch.randn(shape, generator=generator, dtype=dtype, device=device))
+    return PSODraws(*(torch.rand(shape, generator=generator, dtype=dtype, device=device)
+                      for _ in range(2)))
+
+
 def eval_columns(fn, A: torch.Tensor) -> torch.Tensor:
     """Score every particle column: ``[n, P, B] -> [P, B]``, ``fn`` on one
     point ``[n]`` (or a ``Lanes``) through ``vmap``, as the JAX engine's
@@ -128,8 +146,7 @@ def init(
     if draws is None:
         if generator is None:
             raise ValueError("init needs draws= or generator=")
-        draws = PSOInitDraws(*(torch.rand((n, P, B), generator=generator, dtype=x0.dtype,
-                                          device=dev) for _ in range(2)))
+        draws = init_draws(config, n, B, generator, x0.dtype, dev)
     positions = lower[:, None, :] + (upper - lower)[:, None, :] * draws.u
     span = (upper - lower).abs()
     # symmetric initial velocities (the reference draws from [-span, 0),
@@ -182,12 +199,7 @@ def step(
     if draws is None:
         if generator is None:
             raise ValueError("step needs draws= or generator=")
-        shape = (n, P, B)
-        if config.accelerated:
-            draws = PSODraws(torch.randn(shape, generator=generator, dtype=dtype, device=dev))
-        else:
-            draws = PSODraws(*(torch.rand(shape, generator=generator, dtype=dtype, device=dev)
-                               for _ in range(2)))
+        draws = step_draws(config, n, B, generator, dtype, dev)
 
     if config.accelerated:
         # inertia = inertia0^iter, per instance (nlsolver.h:2613)
@@ -247,21 +259,32 @@ def _finalize(state, flip_sign: bool) -> SolverResult:
 
 
 def _run(lanes: Lanes, x0: torch.Tensor, config: PSOConfig, _minimize: bool, bounds, draws,
-         generator) -> SolverResult:
+         generator, shard=None) -> SolverResult:
+    """The fleet of ``x0`` to its end.  ``shard = (width, part)`` runs the
+    lanes ``part`` of a fleet of ``width`` (``parallel.fleet_sharded``; by
+    default the whole fleet): the generator's draws are made for the whole
+    width and cut to ``part``, so each lane draws what it draws in the
+    whole fleet."""
     if draws is None and generator is None:
         generator = torch.Generator(device=x0.device).manual_seed(0)
     draws = draws_on(draws, x0.device)
+    width, part = shard if shard is not None else (x0.shape[0], slice(None))
     lower, upper, clamp = resolve_bounds(bounds, x0)
     if not clamp:
         lower, upper = _derived_bounds(x0)  # they only seed the swarm (nlsolver.h:2562)
     lower, upper = lower.T, upper.T
-    state = init(lanes, x0, config, lower, upper, generator=generator,
-                 draws=None if draws is None else reversed_axes(draws.init))
+
+    def fresh(make):
+        return tree_map(make(config, x0.shape[1], width, generator, x0.dtype, x0.device),
+                        lambda a: a[..., part])
+
+    state = init(lanes, x0, config, lower, upper,
+                 draws=fresh(init_draws) if draws is None else reversed_axes(draws.init))
     while not bool(state.done.all()):
         for _ in range(CHECK_EVERY):
             rows = None if draws is None else step_rows(draws.steps, state.iteration)
-            state = step(lanes, state, config, lower, upper, clamp, generator=generator,
-                         draws=reversed_axes(rows))
+            state = step(lanes, state, config, lower, upper, clamp,
+                         draws=fresh(step_draws) if draws is None else reversed_axes(rows))
     return _finalize(state, flip_sign=not _minimize)
 
 

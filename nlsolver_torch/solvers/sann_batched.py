@@ -36,7 +36,7 @@ import torch
 
 from ..core import Bounds, SolverResult
 from ..core.lanes import Lanes, as_lanes
-from ._lane import Draws, draws_on, lane_result, run_batched, step_rows
+from ._lane import Draws, draws_on, lane_result, run_batched, step_rows, tree_map
 
 # host loop: steps between two reads of done.all() in minimize_batched
 CHECK_EVERY = 16
@@ -80,6 +80,17 @@ def eval_columns(fn, X: torch.Tensor) -> torch.Tensor:
     ``[n]`` (or a ``Lanes``) through ``vmap`` (the JAX engine's
     ``_eval_cols``)."""
     return as_lanes(fn).columns()(X)
+
+
+def step_draws(config: SANNConfig, n: int, B: int, generator: torch.Generator, dtype,
+               device) -> SANNDraws:
+    """A ``step``'s draws from ``generator``: the noise ``[n_inner, n, B]``,
+    then the acceptance uniforms ``[n_inner, B]``."""
+    n_inner = config.temperature_iter - 1
+    return SANNDraws(
+        torch.randn((n_inner, n, B), generator=generator, dtype=dtype, device=device),
+        torch.rand((n_inner, B), generator=generator, dtype=dtype, device=device),
+    )
 
 
 def from_rows(draws):
@@ -135,10 +146,7 @@ def step(
     if draws is None:
         if generator is None:
             raise ValueError("step needs draws= or generator=")
-        draws = SANNDraws(
-            torch.randn((n_inner, n, B), generator=generator, dtype=dtype, device=dev),
-            torch.rand((n_inner, B), generator=generator, dtype=dtype, device=dev),
-        )
+        draws = step_draws(config, n, B, generator, dtype, dev)
 
     p, f_p, x_best, best_value = state.p, state.f_p, state.x_best, state.best_value
     for j in range(n_inner):
@@ -172,15 +180,27 @@ def _finalize(state, flip_sign: bool) -> SolverResult:
 
 
 def _run(lanes: Lanes, x0: torch.Tensor, config: SANNConfig, _minimize: bool, draws,
-         generator) -> SolverResult:
+         generator, shard=None) -> SolverResult:
+    """The chains of ``x0`` to their end.  ``shard = (width, part)`` runs
+    the lanes ``part`` of a fleet of ``width`` (``parallel.fleet_sharded``;
+    by default the whole fleet): the generator's draws are made for the
+    whole width and cut to ``part``, so each lane draws what it draws in
+    the whole fleet."""
     if draws is None and generator is None:
         generator = torch.Generator(device=x0.device).manual_seed(0)
     draws = draws_on(draws, x0.device)
+    width, part = shard if shard is not None else (x0.shape[0], slice(None))
+
+    def fresh():
+        return tree_map(step_draws(config, x0.shape[1], width, generator, x0.dtype, x0.device),
+                        lambda a: a[..., part])
+
     state = init(lanes, x0, config)
     while not bool(state.done.all()):
         for _ in range(CHECK_EVERY):
             rows = None if draws is None else step_rows(draws.steps, state.iteration)
-            state = step(lanes, state, config, generator=generator, draws=from_rows(rows))
+            state = step(lanes, state, config,
+                         draws=fresh() if draws is None else from_rows(rows))
     return _finalize(state, flip_sign=not _minimize)
 
 

@@ -199,8 +199,10 @@ def test_unconstrained_routes_refuse_what_the_reference_ignores(method):
 def test_ported_routes_and_what_is_left():
     """Every single-instance method is ported under layout="single" and
     "batched", the CMA-ES too; the default method and the multistart run;
-    what is left, the mesh layouts, names the ROADMAP.md item that ports
-    it."""
+    the lane-sharded and population-sharded routes of layout="sharded" are
+    ported; what is left of the mesh routes (the population-sharded PSO,
+    the dimension-sharded L-BFGS, layout="islands") names the ROADMAP.md
+    item that ports it."""
     from nlsolver_torch.api import PORTED_ROUTES
 
     for method in ("nelder_mead", "de", "pso", "sann", "nmpso", "cmaes", "bfgs", "lbfgs",
@@ -214,8 +216,11 @@ def test_ported_routes_and_what_is_left():
     res = nt.minimize(_sphere, x0[None].repeat(3, 1), method="cmaes", layout="batched",
                       config=nt.CMAESConfig(max_iter=200))
     assert res.x.shape == (3, 2) and bool(res.converged.all()) and float(res.f_value.max()) < 1e-8
-    for layout in ("sharded", "islands"):
-        got, msg = _raised(lambda: nt.minimize(_sphere, x0[None], method="cmaes", layout=layout))
+    for method in ("bfgs", "cmaes", "pso_batched", "sann", "de"):
+        assert (method, "sharded") in PORTED_ROUTES
+    for method, layout, start in (("pso", "sharded", x0[None]), ("lbfgs", "sharded", x0),
+                                  ("cmaes", "islands", x0[None]), ("de", "islands", x0[None])):
+        got, msg = _raised(lambda: nt.minimize(_sphere, start, method=method, layout=layout))
         assert got is NotImplementedError and "Queue 1 item 9" in msg and "item 11" not in msg
 
 

@@ -272,8 +272,15 @@ def test_api_route_refuses_bounds_shapes_and_unported_methods():
         nt.minimize(sphere, X0, method="bfgs", layout="fleet", bounds=(-1.0, 1.0))
     with pytest.raises(ValueError, match="expects a 2-D x0"):
         nt.minimize(sphere, X0[0], method="bfgs", layout="fleet")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    # the sharded routes refuse what the JAX package's refuse: no mesh, and
+    # bounds on the BFGS fleet; the population-sharded PSO is not ported
+    with pytest.raises(ValueError, match="requires a mesh= argument"):
         nt.minimize(sphere, X0, method="cmaes", layout="sharded")
+    with pytest.raises(ValueError, match="the BFGS fleet is unconstrained"):
+        nt.minimize(sphere, X0, method="bfgs", layout="sharded", bounds=(-1.0, 1.0),
+                    mesh=object())
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        nt.minimize(sphere, X0.T, method="pso", layout="sharded")
     # Nelder-Mead's single route runs; a mesh layout, not ported, names
     # the item that ports it, beside the ported routes
     res = nt.minimize(sphere, X0[0] + 1.0, method="nelder_mead", layout="single")

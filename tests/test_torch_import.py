@@ -147,3 +147,79 @@ def test_no_jax_import_in_package_sources():
                 for banned in ("import jax", "from jax", "nlsolver_tpu import",
                                "from nlsolver_tpu"):
                     assert banned not in src, (f, banned)
+
+
+MESH_SCRIPT = textwrap.dedent(
+    """
+    import sys
+    sys.modules["jax"] = None              # `import jax` raises ImportError
+    sys.modules["nlsolver_tpu"] = None     # and so does the JAX package
+    import torch
+    torch.set_num_threads(1)
+    import nlsolver_torch as nt
+    from nlsolver_torch import parallel, utils
+    from nlsolver_torch.parallel import distributed
+
+    distributed.initialize()               # no launcher: stays local
+    mesh = parallel.make_mesh(device_type="cpu")
+    x0 = torch.full((4, 3), 1.5, dtype=torch.float64)
+    res = nt.minimize(nt.PROBLEMS["sphere"].fn, x0, method="de", layout="sharded", mesh=mesh,
+                      config=nt.DEConfig(pop_size=8, max_iter=30))
+    assert res.x.shape == (4, 3) and bool(torch.isfinite(res.f_value).all())
+    res = nt.fit_sharded(lambda p: p - 2.0, x0, mesh=mesh)
+    assert float((res.x - 2.0).abs().max()) < 1e-6
+    res = nt.fit_fleet_sharded(lambda p: p - 2.0, x0.T.contiguous(), mesh=mesh)
+    assert float((res.x - 2.0).abs().max()) < 1e-6
+    with utils.debug_nans(), utils.log_compiles():
+        utils.benchmark(lambda: x0 * 2.0, runs=2, warmup=0)
+    assert not any(m == "jax" or m.startswith(("jax.", "nlsolver_tpu"))
+                   for m in sys.modules if sys.modules[m] is not None)
+    print("ok")
+    """
+)
+
+
+def test_parallel_and_utils_import_without_jax_or_the_jax_package():
+    out = subprocess.run(
+        [sys.executable, "-c", MESH_SCRIPT], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_parallel_and_utils_names_and_fields_follow_jax():
+    """The mesh engines ported so far carry the JAX package's names; what
+    it has beyond them is ROADMAP.md Queue 1 item 9b; the utilities are
+    the JAX package's but the orbax pair."""
+    import nlsolver_torch as nt
+    import nlsolver_torch.parallel as tpar
+    import nlsolver_torch.utils as tutils
+    import nlsolver_tpu as nj
+    import nlsolver_tpu.parallel as jpar
+    import nlsolver_tpu.utils as jutils
+
+    assert set(tpar.__all__) - {"distributed"} <= set(jpar.__all__)
+    assert set(jpar.__all__) - set(tpar.__all__) == {"minimize_islands", "pso_minimize_sharded"}
+    assert set(jutils.__all__) <= set(tutils.__all__)
+    assert nt.SolverResult._fields == nj.SolverResult._fields
+    import inspect
+
+    def positional(fn):
+        return [p.name for p in inspect.signature(fn).parameters.values()
+                if p.kind == p.POSITIONAL_OR_KEYWORD]
+
+    # the same positional parameters; the JAX package's per-instance keys
+    # are the port's keyword-only generator or draws
+    for name in ("make_mesh", "fit_sharded", "fit_fleet_sharded", "minimize_sharded",
+                 "minimize_fleet_sharded", "bfgs_minimize_fleet_sharded",
+                 "minimize_pso_fleet_sharded", "minimize_sann_fleet_sharded"):
+        jp = [p for p in positional(getattr(jpar, name)) if p != "keys"]
+        assert positional(getattr(tpar, name))[:len(jp)] == jp, name
+
+
+def test_chip_smoke_imports_no_jax():
+    with open(os.path.join(ROOT, "chip_smoke.py")) as fh:
+        src = fh.read()
+    for banned in ("import jax", "from jax", "nlsolver_tpu import", "from nlsolver_tpu",
+                   "import nlsolver_tpu"):
+        assert banned not in src, banned
