@@ -276,8 +276,17 @@ Phases, each fatal on failure:
      Rastrigin instances for 100 iterations, fit_sharded on 8192 exp fits
      (no kernel), and de_sharded on 8192 10-D Rastrigin instances of 64
      agents (Philox draws, no kernel) to convergence, its 256 first lanes
-     in float64 against the same run on the host; the process group is
-     destroyed at the end;
+     in float64 against the same run on the host; then at full width with
+     no kernel and no plain twin (benches.mesh.run_pso, run_islands,
+     run_lbfgs): the population-sharded PSO on the same instances in their
+     box of width 10.24 (PSOConfig(n_particles=64, max_iter=1000)), the
+     island DE on them, eager and fused (DEConfig(pop_size=64,
+     max_iter=1000), a migration every 10 generations), each in float32
+     and on its 256 first lanes in float64 (300 generations at most)
+     against the same run on the host,
+     and the dimension-sharded L-BFGS on the coupled quadratic at n = 2^23
+     in float64 (max |x - t| < 1e-4), against the host at n = 2^16; the
+     process group is destroyed at the end;
  28. bench_qr_shapes (K2a-w, K2b's register and shared forms, the library's
      QR and the plain wavefront; 5 chained calls a run) and
      bench_de_fused_sweep (P = 128, 256, 512 at 2^18 agents, 50 generations,
@@ -3665,6 +3674,26 @@ def phase_replays(torch, dev):
 
 
 SHARD_DE_CPU = 256   # de_sharded's lanes held against its own run on the host in float64
+SHARD_LBFGS_CPU = 1 << 16   # the L-BFGS's n held against its own run on the host
+# the PSO's and the islands' float64 runs against the host stop here (their
+# full-width runs take up to 1000): the host's run is the phase's longest
+SHARD_HOST_ITER = 300
+
+
+def card_against_host_f64(torch, label, card, host, counts):
+    """A mesh engine's float64 run on the card against the same run on the
+    host: the counters equal on at least 90 % of the lanes, and |f card -
+    f host| / max(|f|, 1) < 1e-9 on those; no kernel launched."""
+    agree = ((card.iterations.cpu() == host.iterations) & (card.converged.cpu() == host.converged)
+             & (card.function_calls.cpu() == host.function_calls)).reshape(-1)
+    rel = ((card.f_value.cpu() - host.f_value).abs()
+           / host.f_value.abs().clamp_min(1.0)).reshape(-1)[agree]
+    log(f"[27] {label} f64, card against host: counters equal on {int(agree.sum())} of "
+        f"{agree.numel()} lanes, largest |f card - f host| / max(|f|, 1) there "
+        f"{float(rel.max()) if rel.numel() else float('nan'):.3e}; launches {counts}")
+    check(not counts, f"{label} launched {counts}")
+    check(float(agree.float().mean()) >= 0.9 and rel.numel() > 0 and float(rel.max()) < 1e-9,
+          f"{label}: the card's f64 run parts from the host's")
 
 
 def timed_counted(torch, run):
@@ -3722,20 +3751,47 @@ def phase_sharded(torch, dev):
             rastrigin, w64, method="de", layout="sharded", mesh=mesh, config=cfg))
         host = nt.minimize(rastrigin, w64.cpu(), method="de", layout="sharded", mesh=host_mesh,
                            config=cfg)
-        agree = (card.iterations.cpu() == host.iterations) & (card.converged.cpu() == host.converged)
-        rel = ((card.f_value.cpu() - host.f_value).abs()
-               / host.f_value.abs().clamp_min(1.0))[agree]
-        log(f"[27] de_sharded f64 on {SHARD_DE_CPU} lanes, card against host: counters equal on "
-            f"{int(agree.sum())} lanes, largest |f card - f host| / max(|f|, 1) there "
-            f"{float(rel.max()):.3e}; launches {counts}")
-        check(not counts, f"de_sharded launched {counts}")
-        check(float(agree.float().mean()) >= 0.9 and float(rel.max()) < 1e-9,
-              "de_sharded: the card's f64 run parts from the host's")
+        card_against_host_f64(torch, f"de_sharded on {SHARD_DE_CPU} lanes", card, host, counts)
+        phase_sharded_engines(torch, dev)
     finally:
         dist.destroy_process_group()
     log(f"[27] overhead of the sharded wrapper on one rank, (sharded - unsharded) / unsharded: "
         f"{json.dumps({k: round(v, 4) for k, v in overhead.items()})}")
     return launches
+
+
+def phase_sharded_engines(torch, dev):
+    """Phase 27's engines with no unsharded twin, at full width on the one
+    NCCL rank, then each held to its own run on the host in float64."""
+    from nlsolver_torch.benches import mesh as mesh_bench
+
+    runs = {"pso": mesh_bench.run_pso, "islands": mesh_bench.run_islands,
+            "lbfgs": mesh_bench.run_lbfgs}
+    with mesh_bench.counted_twins() as twins:
+        for kind, run in runs.items():
+            out, _, counts = timed_counted(torch, lambda: run(1, dev))
+            check(not counts, f"{kind}: launched {counts}")
+            for name, rows in out.items():
+                row = rows["1x1"]
+                res = row["result"]
+                log(f"[27] {name}: {row['s']:.3f} s, {row['generations']} "
+                    f"{'iterations' if kind == 'lbfgs' else 'generations'} at most "
+                    f"({row['ms_a_generation']:.2f} ms each), converged "
+                    f"{row['converged']:.6f}" + (f", max |x - t| {row['x_err']:.3e}"
+                                                  if kind == "lbfgs" else ""))
+                check(bool(torch.isfinite(res.f_value).all()) and row["ranks_agree"],
+                      f"{name}: a value that is not finite")
+                if kind == "lbfgs":
+                    check(row["converged"] == 1.0 and row["x_err"] < 1e-4,
+                          f"{name}: not converged to the targets ({row['x_err']})")
+        f64 = dict(dtype=torch.float64, B=SHARD_DE_CPU, max_iter=SHARD_HOST_ITER)
+        for kind, kw in (("pso", f64), ("islands", f64), ("lbfgs", dict(n=SHARD_LBFGS_CPU))):
+            card, _, counts = timed_counted(torch, lambda: runs[kind](1, dev, **kw))
+            host = runs[kind](1, torch.device("cpu"), device_type="cpu", **kw)
+            for name in card:
+                card_against_host_f64(torch, name, card[name]["1x1"]["result"],
+                                      host[name]["1x1"]["result"], counts)
+    check(not any(twins.values()), f"a plain twin ran on the mesh engines: {twins}")
 
 
 def phase_benches_port(torch, dev):

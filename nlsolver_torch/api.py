@@ -37,12 +37,14 @@ with ``mesh=`` (a ``parallel.make_mesh`` mesh; every rank of the world
 calls with the same global inputs and gets the global result) takes
 ``bfgs`` and ``cmaes`` (``x0 [n, B]``), ``pso_batched`` and ``sann``
 (``x0 [B, n]``) to the lane fleets sharded over every device
-(``parallel.fleet_sharded``, ``parallel.cmaes_sharded``) and ``de`` to the
-population-sharded DE (``parallel.de_sharded``).  The population-sharded
-PSO (``method="pso"``), the dimension-sharded L-BFGS and
-``layout="islands"`` raise ``NotImplementedError`` naming the ROADMAP.md
-item that ports them (Queue 1 item 9b).  The single-point
-objective of the lane solvers may take per-lane data: ``data=`` (a tensor
+(``parallel.fleet_sharded``, ``parallel.cmaes_sharded``), ``de`` to the
+population-sharded DE (``parallel.de_sharded``), ``pso`` to the
+population-sharded PSO (``parallel.pso_sharded``) and ``lbfgs`` with a
+single ``x0 [n]`` and ``grad_local=`` to the dimension-sharded L-BFGS
+(``parallel.lbfgs_sharded``, whose objective is shard-local);
+``layout="islands"`` takes ``de`` to the island DE
+(``parallel.de_island``, ``fused=`` for its collective-free intervals).
+The single-point objective of the lane solvers may take per-lane data: ``data=`` (a tensor
 or tuple of tensors with the lane axis leading) makes it
 ``fn(x, data_b)``.  ``generator`` (a ``torch.Generator``
 on ``x0``'s device) takes the place of the JAX package's ``key``.  Start
@@ -108,11 +110,12 @@ _BATCHED = {
     "sann": (sann_batched, SANNConfig),
     "sann_batched": (sann_batched, SANNConfig),
 }
-# the (method, layout) routes that minimize and maximize take; the
-# NotImplementedError text names them from here
+# the (method, layout) routes that minimize and maximize take: every route
+# of nlsolver_tpu.minimize
 PORTED_ROUTES = ((("de", "batched"), ("bfgs", "fleet"), ("cmaes", "fleet"), ("pso", "batched"),
                   ("sann", "batched"), ("bfgs", "sharded"), ("cmaes", "sharded"),
-                  ("pso_batched", "sharded"), ("sann", "sharded"), ("de", "sharded"))
+                  ("pso_batched", "sharded"), ("sann", "sharded"), ("de", "sharded"),
+                  ("pso", "sharded"), ("lbfgs", "sharded"), ("de", "islands"))
                  + tuple((m, "single") for m in _LANE_SOLVERS)
                  + tuple((m, "batched") for m in _LANE_SOLVERS if m not in _BATCHED))
 
@@ -245,20 +248,64 @@ def _cmaes_fleet(fn, x0, config, bounds, generator, _minimize, kwargs):
     return res if _minimize else res._replace(f_value=-res.f_value)
 
 
-def _not_ported(method, layout, where):
-    raise NotImplementedError(
-        f"method={method!r} with layout={layout!r} is not ported to "
-        f"nlsolver_torch yet; ROADMAP.md {where} ports it. Ported: "
-        + ", ".join(f"method={m!r} with layout={lay!r}" for m, lay in PORTED_ROUTES)
-    )
+def _dim_sharded(fn, x0, config, bounds, mesh, _minimize, kwargs):
+    """``method="lbfgs", layout="sharded"``: the dimension-sharded L-BFGS
+    (nlsolver_tpu/api.py:288-316); ``fn`` is the shard-local objective."""
+    from .parallel import lbfgs_sharded
+
+    if mesh is None:
+        raise ValueError("layout='sharded' requires a mesh= argument")
+    x0 = start_points(x0)
+    if x0.ndim != 1:
+        raise ValueError(
+            f"dimension-sharded L-BFGS takes a single [n] start point, got {tuple(x0.shape)}"
+        )
+    grad_local = kwargs.pop("grad_local", None)
+    if grad_local is None:
+        raise ValueError(
+            "method='lbfgs' with layout='sharded' shards the DIMENSION "
+            "axis: pass fn as the shard-local objective contribution "
+            "and grad_local= as d(global objective)/d(x_local) — see "
+            "parallel/lbfgs_sharded.py"
+        )
+    if not _minimize:
+        raise ValueError(
+            "dimension-sharded L-BFGS only minimizes; negate the "
+            "shard-local objective and gradient to maximize"
+        )
+    if bounds is not None or config is not None:
+        raise ValueError(
+            "the dimension-sharded L-BFGS takes no bounds and no config; pass its settings "
+            "(memory=, max_iter=, grad_eps=, ls_shrink=, ls_max=) as keywords"
+        )
+    return lbfgs_sharded.minimize_dim_sharded(fn, grad_local, x0, mesh, **kwargs)
 
 
-_MESH_LEFT = "Queue 1 item 9b (the rest of the mesh engines)"
+def _islands(fn, x0, method, config, bounds, generator, mesh, _minimize, kwargs):
+    """``layout="islands"``: the island DE (nlsolver_tpu/api.py:424-430)."""
+    from .parallel import de_island
+
+    x0 = start_points(x0)
+    if x0.ndim != 2:
+        raise ValueError(f"layout='islands' expects a 2-D x0, got {tuple(x0.shape)}")
+    if mesh is None:
+        raise ValueError("layout='islands' requires a mesh= argument")
+    if method != "de":
+        raise ValueError(f"layout='islands' supports method='de', got {method!r}")
+    if bounds is not None:
+        raise ValueError(
+            "the island DE is unbounded, as the lane-axis DE engine is (x0 is a "
+            "per-dimension width); for a box use method='pso_batched' with bounds="
+        )
+    cfg = config if config is not None else DEConfig()
+    res = de_island.minimize_islands(signed(fn, _minimize), x0, cfg, mesh, generator=generator,
+                                     **kwargs)
+    return res if _minimize else res._replace(f_value=-res.f_value)
 
 
 def _sharded(fn, x0, method, config, bounds, generator, mesh, _minimize, kwargs):
     """``layout="sharded"``: the mesh engines (nlsolver_tpu/api.py:420-490)."""
-    from .parallel import cmaes_sharded, de_sharded, fleet_sharded
+    from .parallel import cmaes_sharded, de_sharded, fleet_sharded, pso_sharded
 
     x0 = start_points(x0)
     if x0.ndim != 2:
@@ -305,6 +352,15 @@ def _sharded(fn, x0, method, config, bounds, generator, mesh, _minimize, kwargs)
         cfg = config if config is not None else DEConfig()
         return unflip(de_sharded.minimize_sharded(signed(fn, _minimize), x0, cfg, mesh,
                                                   generator=generator, **kwargs))
+    if method == "pso":
+        if bounds is not None:
+            raise ValueError(
+                "the population-sharded PSO is unbounded (its swarm starts in +-|x0|); for a "
+                "box use method='pso_batched' with bounds="
+            )
+        cfg = config if config is not None else PSOConfig()
+        return unflip(pso_sharded.minimize_sharded(signed(fn, _minimize), x0, cfg, mesh,
+                                                   generator=generator, **kwargs))
     raise ValueError(
         f"layout='sharded' supports method='de', 'pso' (population "
         f"sharding), 'pso_batched'/'sann' (lane-sharded instance "
@@ -349,9 +405,10 @@ def _dispatch(fn, x0, method, config, bounds, generator, layout, mesh, _minimize
         return _cmaes_fleet(fn, x0, config, bounds, generator, _minimize, kwargs)
     if layout == "fleet":
         return _bfgs_fleet(fn, x0, config, bounds, _minimize, kwargs)
-    if layout == "islands" or (layout == "sharded"
-                               and method in ("pso", "lbfgs", "lbfgs_sharded")):
-        _not_ported(method, layout, _MESH_LEFT)
+    if layout == "sharded" and method in ("lbfgs", "lbfgs_sharded"):
+        return _dim_sharded(fn, x0, config, bounds, mesh, _minimize, kwargs)
+    if layout == "islands":
+        return _islands(fn, x0, method, config, bounds, generator, mesh, _minimize, kwargs)
     if layout == "sharded":
         return _sharded(fn, x0, method, config, bounds, generator, mesh, _minimize, kwargs)
     # layout="batched"

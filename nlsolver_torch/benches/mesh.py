@@ -21,10 +21,22 @@ the world and is compared across them.  Rank 0 prints one JSON object
 taken, its speedup (the median unsharded run over the median sharded one:
 the whole fleet on one device against its lanes spread over the world),
 its launches on rank 0 and the comparison.
+
+The population engines with no unsharded twin run on every split of the
+world too, each row with its seconds, generations (iterations), ms a
+generation, converged share and whether every rank returned the same
+bits: ``pso_sharded`` (its draws keyed by particle, so every split must
+give the first's bits), both forms of the island DE (the island count is
+the split's pop, and it changes the algorithm by design: no two splits of
+one world share it, so none is compared with another) and the
+dimension-sharded L-BFGS on the coupled quadratic of the JAX package's
+tests (a split of another pop adds its partial sums in another order: its
+counters and values are compared with the first's, not its bits).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -36,6 +48,7 @@ import torch.distributed as dist
 from .. import api
 from ..core import SolverResult
 from ..parallel import distributed, make_mesh
+from ..parallel.mesh import all_gather, coordinate
 from ..problems import PROBLEMS
 
 
@@ -53,6 +66,28 @@ def _twins():
     return ((rank2, "rank2_direction_batchminor_reference"),
             (qr_wavefront, "least_squares_wavefront_reference"),
             (smallchol, "_chol_solve_batchminor"), (eigh_jacobi, "eigh_jacobi"))
+
+
+@contextlib.contextmanager
+def counted_twins():
+    """Within the block, the calls of the plain twins of the routes'
+    kernels are counted, by name."""
+    twins = {name: 0 for _, name in _twins()}
+    saved = []
+    for mod, name in _twins():
+        twin = getattr(mod, name)
+        saved.append((mod, name, twin))
+
+        def counted(*a, _twin=twin, _name=name, **k):
+            twins[_name] += 1
+            return _twin(*a, **k)
+
+        setattr(mod, name, counted)
+    try:
+        yield twins
+    finally:
+        for mod, name, twin in saved:
+            setattr(mod, name, twin)
 
 
 def _compare(a: SolverResult, b: SolverResult) -> dict:
@@ -152,19 +187,8 @@ def run_routes(mesh, device, scale: int = 1) -> dict:
     """Every route against its unsharded engine on ``mesh``: see the module
     docstring.  Raises on a result that differs, a twin that ran or a
     kernel that did not."""
-    twins = {name: 0 for _, name in _twins()}
-    saved = []
-    for mod, name in _twins():
-        twin = getattr(mod, name)
-        saved.append((mod, name, twin))
-
-        def counted(*a, _twin=twin, _name=name, **k):
-            twins[_name] += 1
-            return _twin(*a, **k)
-
-        setattr(mod, name, counted)
     rows = {}
-    try:
+    with counted_twins() as twins:
         for name, (kid, unsharded, sharded) in routes(device, scale).items():
             arms = {"unsharded": unsharded, "sharded": lambda: sharded(mesh)}
             ref, _, launched_u = _timed(arms["unsharded"], device)
@@ -182,10 +206,29 @@ def run_routes(mesh, device, scale: int = 1) -> dict:
                                       / statistics.median(walls["sharded"])),
                           "launches_sharded": launched_s, "launches_unsharded": launched_u,
                           **_compare(res, ref)}
-    finally:
-        for mod, name, twin in saved:
-            setattr(mod, name, twin)
     return rows
+
+
+def _splits(world: int):
+    return [(dp, world // dp) for dp in range(1, world + 1) if world % dp == 0]
+
+
+def ranks_agree(res: SolverResult) -> bool:
+    """Whether every rank of the world holds the same bits of ``res`` (one
+    gather of its fields, packed as float64)."""
+    packed = torch.cat([torch.nan_to_num(f.reshape(-1).to(torch.float64)) for f in res])
+    g = all_gather(packed[None], None, dim=0)
+    return bool((g == g[0]).all())
+
+
+def _row(res: SolverResult, wall: float) -> dict:
+    gens = int(res.iterations.max())
+    return {"s": wall, "generations": gens, "ms_a_generation": wall / max(gens, 1) * 1e3,
+            "converged": float(res.converged.float().mean()), "ranks_agree": ranks_agree(res)}
+
+
+def _gen(device):
+    return torch.Generator(device=device).manual_seed(0)
 
 
 def run_de(world: int, device, scale: int = 1, device_type=None) -> dict:
@@ -195,18 +238,104 @@ def run_de(world: int, device, scale: int = 1, device_type=None) -> dict:
     widths = torch.full((B, 10), 10.24, device=device)
     cfg = api.DEConfig(pop_size=64, max_iter=1000)
     rows, first = {}, None
-    for dp in [d for d in range(1, world + 1) if world % d == 0]:
-        mesh = make_mesh(world, dp=dp, pop=world // dp, device_type=device_type)
+    for dp, pop in _splits(world):
+        mesh = make_mesh(world, dp=dp, pop=pop, device_type=device_type)
         res, wall, _ = _timed(lambda: api.minimize(
             PROBLEMS["rastrigin"].fn, widths, method="de", layout="sharded", mesh=mesh,
-            config=cfg, generator=torch.Generator(device=device).manual_seed(0)), device)
+            config=cfg, generator=_gen(device)), device)
         first = res if first is None else first
-        gens = int(res.iterations.max())
-        rows[f"{dp}x{world // dp}"] = {"s": wall, "generations": gens,
-                                       "ms_a_generation": wall / max(gens, 1) * 1e3,
-                                       "converged": float(res.converged.float().mean()),
-                                       **_compare(res, first)}
+        rows[f"{dp}x{pop}"] = {**_row(res, wall), **_compare(res, first)}
     return {f"de_sharded [{B}, 10] P=64": rows}
+
+
+def run_pso(world: int, device, scale: int = 1, device_type=None, dtype=torch.float32,
+            B=None, max_iter: int = 1000) -> dict:
+    """``pso_sharded`` on 8192 / scale (or ``B``) 10-D Rastrigin instances,
+    64 particles starting in [-5.12, 5.12] (the DE's box, of width 10.24),
+    on every split, each compared with the first: bit-equal, as the draws
+    are keyed by particle."""
+    B = B or max(8192 // scale, world)
+    x0 = torch.full((B, 10), 5.12, device=device, dtype=dtype)
+    cfg = api.PSOConfig(n_particles=64, max_iter=max_iter)
+    rows, first = {}, None
+    for dp, pop in _splits(world):
+        mesh = make_mesh(world, dp=dp, pop=pop, device_type=device_type)
+        res, wall, _ = _timed(lambda: api.minimize(
+            PROBLEMS["rastrigin"].fn, x0, method="pso", layout="sharded", mesh=mesh,
+            config=cfg, generator=_gen(device)), device)
+        first = res if first is None else first
+        rows[f"{dp}x{pop}"] = {**_row(res, wall), **_compare(res, first), "result": res}
+    return {f"pso_sharded [{B}, 10] P=64": rows}
+
+
+def run_islands(world: int, device, scale: int = 1, device_type=None, dtype=torch.float32,
+                B=None, max_iter: int = 1000) -> dict:
+    """The island DE on the DE's instances (8192 / scale, or ``B``), 64
+    agents, a migration every 10 generations, eager and fused, on every
+    split: the island count is the split's pop."""
+    B = B or max(8192 // scale, world)
+    widths = torch.full((B, 10), 10.24, device=device, dtype=dtype)
+    cfg = api.DEConfig(pop_size=64, max_iter=max_iter)
+    out = {}
+    for fused in (False, True):
+        rows = out[f"de_island{' fused' if fused else ''} [{B}, 10] P=64"] = {}
+        for dp, pop in _splits(world):
+            mesh = make_mesh(world, dp=dp, pop=pop, device_type=device_type)
+            res, wall, _ = _timed(lambda: api.minimize(
+                PROBLEMS["rastrigin"].fn, widths, method="de", layout="islands", mesh=mesh,
+                config=cfg, generator=_gen(device), migration_interval=10, fused=fused), device)
+            rows[f"{dp}x{pop}"] = {**_row(res, wall), "islands": pop, "result": res}
+    return out
+
+
+def coupled_quadratic(n: int, mesh, device):
+    """The coupled quadratic of the JAX package's tests
+    (tests/test_parallel.py:72-106), sum (x - t)^2 + mean(x)^2 with t =
+    linspace(-1, 1, n) (made on the host, so every device holds the same
+    bits), in float64, shard-local as ``parallel.lbfgs_sharded`` asks:
+    (t's block, fn_local, grad_local).  Its minimum is x = t."""
+    from ..parallel.lbfgs_sharded import dim_block, dim_sum
+
+    t = torch.linspace(-1.0, 1.0, n, dtype=torch.float64)[dim_block(n, mesh)].to(device)
+    first = coordinate(mesh)[1] == 0
+
+    def fn_local(x):
+        mean_x = dim_sum(x.sum(), mesh) / n
+        base = ((x - t) ** 2).sum()
+        return base + mean_x ** 2 if first else base
+
+    def grad_local(x):
+        mean_x = dim_sum(x.sum(), mesh) / n
+        return 2.0 * (x - t) + 2.0 * mean_x / n
+
+    return t, fn_local, grad_local
+
+
+def run_lbfgs(world: int, device, scale: int = 1, device_type=None, n=None) -> dict:
+    """The dimension-sharded L-BFGS on the coupled quadratic at n = 2^23 /
+    scale (or ``n``) in float64 on every split, each compared with the
+    first (its counters and value; a split of another pop sums in another
+    order), with the largest |x - t|."""
+    n = n or max((1 << 23) // scale, world)
+    rows, first = {}, None
+    for dp, pop in _splits(world):
+        mesh = make_mesh(world, dp=dp, pop=pop, device_type=device_type)
+        _, fn_local, grad_local = coupled_quadratic(n, mesh, device)
+        x0 = torch.zeros(n, dtype=torch.float64, device=device)
+        res, wall, _ = _timed(lambda: api.minimize(
+            fn_local, x0, method="lbfgs", layout="sharded", mesh=mesh, grad_local=grad_local),
+            device)
+        first = res if first is None else first
+        t = torch.linspace(-1.0, 1.0, n, dtype=torch.float64).to(device)
+        rows[f"{dp}x{pop}"] = {**_row(res, wall), **_compare(res, first),
+                               "x_err": float((res.x - t).abs().max()), "result": res}
+    return {f"lbfgs_sharded n={n}": rows}
+
+
+def _public(rows: dict) -> dict:
+    """``rows`` without the results they keep for a caller in the process."""
+    return {name: {split: {k: v for k, v in row.items() if k != "result"}
+                   for split, row in by_split.items()} for name, by_split in rows.items()}
 
 
 def main(argv=None):
@@ -215,7 +344,7 @@ def main(argv=None):
     parser.add_argument("--scale", type=int, default=1, help="cut every batch by this factor")
     parser.add_argument("--out", default=None, help="rank 0 writes its JSON object here")
     args = parser.parse_args(argv)
-    distributed.initialize()
+    distributed.initialize(args.device)
     mesh = distributed.global_mesh(device_type=args.device)
     rank, world = dist.get_rank(), dist.get_world_size()
     device = (torch.device("cuda", torch.cuda.current_device()) if args.device == "cuda"
@@ -224,7 +353,10 @@ def main(argv=None):
         out = {"world": world, "mesh": str(mesh), "backend": str(dist.get_backend()),
                "device": (torch.cuda.get_device_name(device) if args.device == "cuda" else "cpu"),
                "routes": run_routes(mesh, device, args.scale),
-               **run_de(world, device, args.scale, args.device)}
+               **run_de(world, device, args.scale, args.device),
+               **_public(run_pso(world, device, args.scale, args.device)),
+               **_public(run_islands(world, device, args.scale, args.device)),
+               **_public(run_lbfgs(world, device, args.scale, args.device))}
     finally:
         dist.destroy_process_group()
     if rank == 0:

@@ -56,11 +56,10 @@ _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
 
 def _mulhilo(m: int, c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    # 32x32 -> 64-bit product on int64 without overflow: split m in halves
-    p0 = c * (m & 0xFFFF)
-    p1 = c * (m >> 16)
-    t = p0 + ((p1 & 0xFFFF) << 16)
-    return (p1 >> 16) + (t >> 32), t & _MASK32
+    # the 32x32 -> 64-bit product wraps modulo 2^64 in int64 (two's
+    # complement), so its high and low 32-bit words are exact
+    p = c * m
+    return (p >> 32) & _MASK32, p & _MASK32
 
 
 def philox4x32_10(ctr: Sequence[torch.Tensor], k0: int, k1: int):

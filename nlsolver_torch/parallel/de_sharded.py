@@ -18,9 +18,9 @@ over a (dp, pop) mesh:
 
 The draws are layout-invariant: each comes from Philox4x32-10 keyed by the
 run's seed and counted by (instance, global agent id, iteration), never by
-rank (the JAX package folds the same three into its keys): the initial
-uniforms, the crossover uniforms, the forced dimension and the raw draws
-of the three partners (``random.sampling.distinct_indices(raw=...)``).
+rank (the JAX package folds the same three into its keys; ``_draws``):
+the initial uniforms, the crossover uniforms, the forced dimension and the
+raw draws of the three partners (``random.sampling.distinct_indices(raw=...)``).
 ``draws=`` injects all of them instead (``ShardedDraws``), which is how the
 tests hand the port the JAX package's own.
 """
@@ -32,14 +32,11 @@ import torch
 from torch.func import vmap
 
 from ..core import SolverResult, make_result, start_points, std_err
-from ..ops.de_fused import philox4x32_10
 from ..random.sampling import distinct_indices
 from ..solvers.de import DEConfig
+from ._draws import de_draws
 from .mesh import DP_AXIS, POP_AXIS, all_gather, all_sum, block, check_device, coordinate
 from .mesh import gather_result
-
-# the Philox streams, in the high byte of the first counter word
-_INIT, _CROSS, _INDEX = 0, 1, 2
 
 
 class ShardedDraws(NamedTuple):
@@ -52,42 +49,6 @@ class ShardedDraws(NamedTuple):
     raw: torch.Tensor     # [T, B, P, 3] partner draws before the shift, j-th in [0, P-1-j)
 
 
-def _words(seed: int, stream: int, groups: int, inst: torch.Tensor, agents: torch.Tensor,
-           iteration: torch.Tensor) -> torch.Tensor:
-    """Philox words ``[b, p, 4 groups]`` counted by (stream and group,
-    agent, instance, iteration) and keyed by the seed."""
-    g = torch.arange(groups, dtype=torch.int64, device=inst.device)[None, None, :]
-    ctr = torch.broadcast_tensors((stream << 24) | g, agents[None, :, None],
-                                  inst[:, None, None], iteration[:, None, None])
-    words = philox4x32_10(ctr, seed, seed >> 32)
-    return torch.stack(words, dim=-1).reshape(inst.shape[0], agents.shape[0], 4 * groups)
-
-
-def _uniform(words: torch.Tensor, dtype) -> torch.Tensor:
-    """[0, 1) from 32-bit words: 24 bits in float32, 32 in float64."""
-    if dtype == torch.float64:
-        return words.to(dtype) * 2.0**-32
-    return (words >> 8).to(dtype) * 2.0**-24
-
-
-def _below(words: torch.Tensor, m: int) -> torch.Tensor:
-    """An integer in [0, m) from each 32-bit word (multiply and shift)."""
-    return (words * m) >> 32
-
-
-def _init_uniforms(seed, inst, agents, n, dtype):
-    return _uniform(_words(seed, _INIT, (n + 3) // 4, inst, agents, torch.zeros_like(inst))[..., :n],
-                    dtype)
-
-
-def _step_draws(seed, inst, agents, iteration, n, P, dtype):
-    """(u [b, p, n], fdim [b, p], raw [b, p, 3]) of a generation."""
-    u = _uniform(_words(seed, _CROSS, (n + 3) // 4, inst, agents, iteration)[..., :n], dtype)
-    w = _words(seed, _INDEX, 1, inst, agents, iteration)
-    raw = torch.stack([_below(w[..., 1 + j], P - 1 - j) for j in range(3)], dim=-1)
-    return u, _below(w[..., 0], n), raw
-
-
 def gather_population(agents: torch.Tensor, scores: torch.Tensor, group):
     """ONE packed gather over the pop subgroup: ``[b, p_loc, n+1]`` in the
     promoted dtype (exact for both), cast back on unpacking."""
@@ -96,6 +57,16 @@ def gather_population(agents: torch.Tensor, scores: torch.Tensor, group):
     packed = torch.cat([agents.to(pdt), scores[..., None].to(pdt)], dim=-1)
     g = all_gather(packed, group, dim=1)
     return g[..., :n].to(agents.dtype), g[..., n].to(scores.dtype)
+
+
+def best_member(agents: torch.Tensor, scores: torch.Tensor, group):
+    """The best agent ``[b, n]`` and its score ``[b]`` over the pop
+    subgroup's agents (the first of equal scores), by one packed gather."""
+    agents_g, scores_g = gather_population(agents, scores, group)
+    b, _, n = agents_g.shape
+    best = scores_g.argmin(dim=1)
+    x_best = torch.gather(agents_g, 1, best[:, None, None].expand(b, 1, n))[:, 0, :]
+    return x_best, torch.gather(scores_g, 1, best[:, None])[:, 0]
 
 
 def _generation(fn, state: dict, config: DEConfig, P: int, agent_ids, draws_of, group) -> dict:
@@ -183,22 +154,7 @@ def minimize_sharded(
     x0_loc = x0[inst_part]
     b, p_loc = inst.shape[0], agent_ids.shape[0]
 
-    if draws is None:
-        u0 = _init_uniforms(seed, inst, agent_ids, n, dtype)
-
-        def draws_of(iteration):
-            return _step_draws(seed, inst, agent_ids, iteration.to(torch.int64), n, P, dtype)
-    else:
-        own = (slice(None), inst_part, agent_part)
-        u0 = torch.as_tensor(draws.init, device=dev)[inst_part, agent_part].to(dtype)
-        steps = [torch.as_tensor(a, device=dev)[own] for a in (draws.u, draws.fdim, draws.raw)]
-        lane = torch.arange(b, device=dev)
-
-        def draws_of(iteration):
-            row = iteration.to(torch.int64).clamp(max=steps[0].shape[0] - 1)
-            u, fdim, raw = (a[row, lane] for a in steps)
-            return u.to(dtype), fdim.to(torch.int64), raw
-
+    u0, draws_of = de_draws(seed, inst, agent_ids, n, P, dtype, draws, inst_part, agent_part)
     agents = (u0 - 0.5) * x0_loc[:, None, :]        # nlsolver.h:2302-2323
     scores = vmap(fn)(agents.reshape(b * p_loc, n)).reshape(b, p_loc)
     zeros = torch.zeros((b,), dtype=torch.int32, device=dev)
@@ -210,10 +166,7 @@ def minimize_sharded(
     group = mesh.get_group(POP_AXIS)
     while all_sum((~state["done"]).sum()):
         state = _generation(fn, state, config, P, agent_ids, draws_of, group)
-    agents_g, scores_g = gather_population(state["agents"], state["scores"], group)
-    best = scores_g.argmin(dim=1)
-    x_best = torch.gather(agents_g, 1, best[:, None, None].expand(b, 1, n))[:, 0, :]
-    f_best = torch.gather(scores_g, 1, best[:, None])[:, 0]
+    x_best, f_best = best_member(state["agents"], state["scores"], group)
     res = make_result(x=x_best, f_value=f_best, iterations=state["iteration"],
                       function_calls=state["nfev"], converged=state["converged"])
     return gather_result(res, mesh.get_group(DP_AXIS), x_lane_dim=0)

@@ -23,24 +23,28 @@ from typing import Optional, Tuple
 
 import torch.distributed as dist
 
-from .mesh import backend_for, default_device_type, make_mesh
+from .mesh import backend_for, make_mesh, resolve_device_type
 
 
-def initialize(**kwargs) -> None:
+def initialize(device_type: Optional[str] = None, **kwargs) -> None:
     """Start the default process group (``init_process_group``).
 
     With keyword arguments (``init_method``, ``world_size``, ``rank``,
     ``backend``, ``store``, ``timeout``) they go to ``init_process_group``
     and its errors propagate.  Without them the launcher's environment is
     used where it is set (``env://``); a process with neither stays local,
-    and so does one whose group exists already."""
+    and so does one whose group exists already.  The backend is the one of
+    ``device_type`` (``"cuda"`` unless given: NCCL beside gloo), unless
+    ``backend=`` names one; starting a CUDA group on a machine with no card
+    raises ``RuntimeError``."""
     if kwargs:
-        kwargs.setdefault("backend", backend_for(default_device_type()))
+        if "backend" not in kwargs:
+            kwargs["backend"] = backend_for(resolve_device_type(device_type))
         dist.init_process_group(**kwargs)
         return
     if dist.is_initialized() or "WORLD_SIZE" not in os.environ:
         return
-    dist.init_process_group(backend_for(default_device_type()), init_method="env://")
+    dist.init_process_group(backend_for(resolve_device_type(device_type)), init_method="env://")
 
 
 def global_mesh(dp: Optional[int] = None, pop: Optional[int] = None,
@@ -50,10 +54,11 @@ def global_mesh(dp: Optional[int] = None, pop: Optional[int] = None,
     ``pop`` defaults to the ranks a host shares with the world
     (``LOCAL_WORLD_SIZE``, set by ``torchrun``), so the population
     collectives of ``de_sharded`` stay within a host and the dp axis,
-    which carries only the termination sum, spans hosts."""
-    device_type = device_type or default_device_type()
+    which carries only the termination sum, spans hosts.  A CUDA mesh
+    unless ``device_type`` says otherwise."""
+    device_type = resolve_device_type(device_type)
     if not dist.is_initialized():
-        initialize()
+        initialize(device_type)
     n = dist.get_world_size() if dist.is_initialized() else 1
     if pop is None and dp is None:
         pop = math.gcd(int(os.environ.get("LOCAL_WORLD_SIZE", 1)), n)

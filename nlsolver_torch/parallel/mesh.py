@@ -12,7 +12,9 @@ over ``dp``, a population's agents over ``pop``.  The backend is NCCL on
 CUDA and gloo on the CPU.
 
 A world of one rank needs no launcher: ``make_mesh`` then builds the
-one-rank process group itself, on an in-process store.
+one-rank process group itself, on an in-process store.  A mesh is on the
+CUDA card unless the caller asks for the CPU (``device_type="cpu"``); on a
+machine with no card, asking for none raises.
 """
 from __future__ import annotations
 
@@ -27,8 +29,16 @@ DP_AXIS = "dp"     # problem-instance (batch) axis
 POP_AXIS = "pop"   # population / agent axis within one problem
 
 
-def default_device_type() -> str:
-    return "cuda" if torch.cuda.is_available() else "cpu"
+def resolve_device_type(device_type: Optional[str] = None) -> str:
+    """``device_type``, ``"cuda"`` when None; a CUDA mesh on a machine with
+    no card raises ``RuntimeError``, as ``core.start_points`` does."""
+    device_type = device_type or "cuda"
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "there is no CUDA card for the mesh; nlsolver_torch runs on the card unless "
+            "device_type='cpu' is passed"
+        )
+    return device_type
 
 
 def backend_for(device_type: str) -> str:
@@ -61,10 +71,11 @@ def make_mesh(
 
     Default split: as square as possible, favouring the dp axis, as the JAX
     package's.  ``n_devices`` must be the world size (one process a
-    device); ``dp * pop`` must equal it."""
+    device); ``dp * pop`` must equal it.  ``device_type`` is ``"cuda"``
+    unless given (:func:`resolve_device_type`)."""
     from torch.distributed.device_mesh import DeviceMesh
 
-    device_type = device_type or default_device_type()
+    device_type = resolve_device_type(device_type)
     ensure_process_group(device_type)
     world = dist.get_world_size()
     n = world if n_devices is None else n_devices

@@ -12,11 +12,19 @@ loaded state.
 The port's states carry no PRNG key: the draws come from a
 ``torch.Generator``.  ``save`` and ``load`` take it too (its
 ``get_state()`` goes into the file beside the leaves), so a resumed run
-draws the same stream as the run that was saved.  The JAX package's
-``save_orbax`` / ``load_orbax`` (sharded states) have no counterpart yet.
+draws the same stream as the run that was saved.
+
+``save_orbax`` / ``load_orbax`` (the JAX package's names, there on orbax)
+write and read the same states, generator and all, through
+``torch.distributed.checkpoint``: a directory that every rank of a world
+writes and reads together.  Each rank keeps its own state under keys of its
+own (``rank{r}/...``), so the blocks of a sharded run, which differ by
+rank, are each kept whole and never taken for copies of one another.
 """
 from __future__ import annotations
 
+import os
+import warnings
 from typing import Any, Optional
 
 import numpy as np
@@ -90,4 +98,73 @@ def load(path: str, like: Any, generator: Optional[torch.Generator] = None) -> A
             if _GENERATOR not in data:
                 raise ValueError(f"{path} holds no generator state")
             generator.set_state(torch.from_numpy(np.array(data[_GENERATOR])))
+    return _rebuild(like, iter(out))
+
+
+def _in_world() -> bool:
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+def _rank_prefix() -> str:
+    import torch.distributed as dist
+
+    return f"rank{dist.get_rank() if _in_world() else 0}"
+
+
+def _as_tensor(leaf) -> torch.Tensor:
+    """A tensor leaf, or a Python scalar as a 0-d tensor (bool, int64 or
+    float64: exact)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach()
+    return torch.tensor(leaf, dtype=torch.float64 if isinstance(leaf, float) else None)
+
+
+def _dcp(call, tensors, path):
+    """``torch.distributed.checkpoint``'s ``save`` or ``load``: in this
+    process alone where no process group exists (its warning that it
+    assumes so silenced), else over the default group."""
+    import torch.distributed.checkpoint as dcp
+
+    alone = not _in_world()
+    with warnings.catch_warnings():
+        if alone:
+            warnings.filterwarnings("ignore", message="torch.distributed is disabled")
+        getattr(dcp, call)(tensors, checkpoint_id=path, no_dist=alone)
+
+
+def save_orbax(path: str, state: Any, generator: Optional[torch.Generator] = None) -> None:
+    """Write ``state`` (and ``generator``'s state, when given) to the
+    directory ``path`` with ``torch.distributed.checkpoint``; in a world of
+    several ranks every rank calls it with its own state."""
+    key = _rank_prefix()
+    tensors = {f"{key}/leaf_{i}": _as_tensor(leaf)
+               for i, leaf in enumerate(_leaves(state)) if leaf is not None}
+    if generator is not None:
+        tensors[f"{key}/{_GENERATOR}"] = generator.get_state()
+    _dcp("save", tensors, os.path.abspath(path))
+
+
+def load_orbax(path: str, like: Any, generator: Optional[torch.Generator] = None) -> Any:
+    """Read the state this rank saved with :func:`save_orbax`; ``like`` gives
+    the structure, devices and dtypes, as for :func:`load`."""
+    import torch.distributed.checkpoint as dcp
+
+    path, key = os.path.abspath(path), _rank_prefix()
+    leaves = _leaves(like)
+    tensors = {f"{key}/leaf_{i}": torch.empty_like(_as_tensor(leaf))
+               for i, leaf in enumerate(leaves) if leaf is not None}
+    if generator is not None:
+        if f"{key}/{_GENERATOR}" not in dcp.FileSystemReader(path).read_metadata() \
+                .state_dict_metadata:
+            raise ValueError(f"{path} holds no generator state")
+        tensors[f"{key}/{_GENERATOR}"] = torch.empty_like(generator.get_state())
+    _dcp("load", tensors, path)
+    if generator is not None:
+        generator.set_state(tensors[f"{key}/{_GENERATOR}"])
+    out = [None if leaf is None
+           else tensors[f"{key}/leaf_{i}"] if isinstance(leaf, torch.Tensor)
+           else type(leaf)(tensors[f"{key}/leaf_{i}"].item())
+           for i, leaf in enumerate(leaves)]
     return _rebuild(like, iter(out))

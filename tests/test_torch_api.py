@@ -199,12 +199,19 @@ def test_unconstrained_routes_refuse_what_the_reference_ignores(method):
 def test_ported_routes_and_what_is_left():
     """Every single-instance method is ported under layout="single" and
     "batched", the CMA-ES too; the default method and the multistart run;
-    the lane-sharded and population-sharded routes of layout="sharded" are
-    ported; what is left of the mesh routes (the population-sharded PSO,
-    the dimension-sharded L-BFGS, layout="islands") names the ROADMAP.md
-    item that ports it."""
-    from nlsolver_torch.api import PORTED_ROUTES
+    every mesh route of layout="sharded" and "islands" is ported and runs
+    on a world of one gloo rank, ``maximize`` too; ("cmaes", "islands")
+    raises the JAX package's ValueError; nothing raises
+    NotImplementedError."""
+    import inspect
 
+    import torch.distributed as dist
+
+    import nlsolver_torch.api as tapi
+    from nlsolver_torch.api import PORTED_ROUTES
+    from nlsolver_torch.parallel import lbfgs_sharded, make_mesh
+
+    assert "NotImplementedError" not in inspect.getsource(tapi)
     for method in ("nelder_mead", "de", "pso", "sann", "nmpso", "cmaes", "bfgs", "lbfgs",
                    "lbfgsb", "gd", "cgd", "lm", "brent", "coordinate"):
         assert (method, "single") in PORTED_ROUTES and (method, "batched") in PORTED_ROUTES
@@ -216,12 +223,87 @@ def test_ported_routes_and_what_is_left():
     res = nt.minimize(_sphere, x0[None].repeat(3, 1), method="cmaes", layout="batched",
                       config=nt.CMAESConfig(max_iter=200))
     assert res.x.shape == (3, 2) and bool(res.converged.all()) and float(res.f_value.max()) < 1e-8
-    for method in ("bfgs", "cmaes", "pso_batched", "sann", "de"):
-        assert (method, "sharded") in PORTED_ROUTES
-    for method, layout, start in (("pso", "sharded", x0[None]), ("lbfgs", "sharded", x0),
-                                  ("cmaes", "islands", x0[None]), ("de", "islands", x0[None])):
-        got, msg = _raised(lambda: nt.minimize(_sphere, start, method=method, layout=layout))
-        assert got is NotImplementedError and "Queue 1 item 9" in msg and "item 11" not in msg
+    for route in (("bfgs", "sharded"), ("cmaes", "sharded"), ("pso_batched", "sharded"),
+                  ("sann", "sharded"), ("de", "sharded"), ("pso", "sharded"),
+                  ("lbfgs", "sharded"), ("de", "islands")):
+        assert route in PORTED_ROUTES
+    want, want_msg = _raised(lambda: nj.minimize(_sphere, np.zeros((1, 2)), method="cmaes",
+                                                 layout="islands", mesh=object()))
+    got, msg = _raised(lambda: nt.minimize(_sphere, x0[None], method="cmaes", layout="islands",
+                                           mesh=object()))
+    assert want is ValueError and (got, msg) == (want, want_msg)
+    widths = torch.full((4, 2), 2.0, dtype=torch.float64)
+    up = lambda x: -_sphere(x)  # noqa: E731
+    mesh = make_mesh(device_type="cpu")
+    try:
+        for method, layout, kw in (("pso", "sharded", dict(config=nt.PSOConfig(n_particles=8))),
+                                   ("de", "islands", dict(config=nt.DEConfig(pop_size=8))),
+                                   ("de", "islands", dict(config=nt.DEConfig(pop_size=8),
+                                                          fused=True))):
+            res = nt.minimize(_sphere, widths, method=method, layout=layout, mesh=mesh, **kw)
+            assert res.x.shape == (4, 2) and float(res.f_value.max()) < 1e-2
+            flipped = nt.maximize(up, widths, method=method, layout=layout, mesh=mesh, **kw)
+            assert torch.equal(flipped.x, res.x) and torch.equal(flipped.f_value, -res.f_value)
+
+        def fn_local(x):
+            return ((x - 1.0) ** 2).sum()
+
+        res = nt.minimize(fn_local, torch.zeros(8, dtype=torch.float64), method="lbfgs",
+                          layout="sharded", mesh=mesh, grad_local=lambda x: 2.0 * (x - 1.0))
+        assert bool(res.converged) and float((res.x - 1.0).abs().max()) < 1e-8
+        assert lbfgs_sharded.dim_sum(torch.tensor(2.0), mesh) == 2.0
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("case", ["no mesh", "2-D x0", "no grad_local", "maximize"])
+def test_dim_sharded_lbfgs_refuses_as_jax_refuses(case):
+    """nlsolver_tpu/api.py:288-316, word for word."""
+    x0 = np.zeros((2, 2) if case == "2-D x0" else 4)
+    kw = {} if case == "no mesh" else dict(mesh=object())
+    if case != "no grad_local":
+        kw["grad_local"] = lambda x: x
+    verb = "maximize" if case == "maximize" else "minimize"
+    want = _raised(lambda: getattr(nj, verb)(_sphere, x0, method="lbfgs", layout="sharded", **kw))
+    got = _raised(lambda: getattr(nt, verb)(_sphere, torch.from_numpy(x0), method="lbfgs",
+                                            layout="sharded", **kw))
+    assert got == want and want[0] is ValueError
+
+
+@pytest.mark.parametrize("method,layout", [("de", "sharded"), ("sann", "sharded"),
+                                           ("pso", "sharded"), ("de", "islands"),
+                                           ("lbfgs", "sharded")])
+def test_mesh_routes_refuse_what_the_reference_drops(method, layout):
+    """The JAX package passes ``bounds`` to none of these engines and drops
+    them without a word (nlsolver_tpu/api.py:420-503); the port refuses
+    them, and a config the dimension-sharded L-BFGS would drop."""
+    x0 = torch.ones(4, dtype=torch.float64) if method == "lbfgs" else \
+        torch.ones(4, 2, dtype=torch.float64)
+    kw = dict(grad_local=lambda x: x) if method == "lbfgs" else {}
+    got, msg = _raised(lambda: nt.minimize(_sphere, x0, method=method, layout=layout,
+                                           mesh=object(), bounds=nt.Bounds(-1.0, 1.0), **kw))
+    assert got is ValueError and ("unbounded" in msg or "no bounds" in msg), msg
+    if method == "lbfgs":
+        got, msg = _raised(lambda: nt.minimize(_sphere, x0, method=method, layout=layout,
+                                               mesh=object(), config=nt.LBFGSConfig(), **kw))
+        assert got is ValueError and "no config" in msg
+
+
+def test_population_sharded_pso_refuses_the_accelerated_update():
+    """The JAX engine runs the vanilla update whatever ``accelerated`` says
+    (nlsolver_tpu/parallel/pso_sharded.py:169-175); the port refuses it."""
+    import torch.distributed as dist
+
+    from nlsolver_torch.parallel import make_mesh
+
+    mesh = make_mesh(device_type="cpu")
+    try:
+        got, msg = _raised(lambda: nt.minimize(
+            _sphere, torch.ones(4, 2, dtype=torch.float64), method="pso", layout="sharded",
+            mesh=mesh, config=nt.PSOConfig(accelerated=True)))
+    finally:
+        dist.destroy_process_group()
+    assert got is ValueError and "vanilla update only" in msg
 
 
 def test_methods_match_the_reference():

@@ -272,22 +272,19 @@ def test_api_route_refuses_bounds_shapes_and_unported_methods():
         nt.minimize(sphere, X0, method="bfgs", layout="fleet", bounds=(-1.0, 1.0))
     with pytest.raises(ValueError, match="expects a 2-D x0"):
         nt.minimize(sphere, X0[0], method="bfgs", layout="fleet")
-    # the sharded routes refuse what the JAX package's refuse: no mesh, and
-    # bounds on the BFGS fleet; the population-sharded PSO is not ported
+    # the mesh routes refuse what the JAX package's refuse: no mesh, bounds
+    # on the BFGS fleet, a method the islands do not run
     with pytest.raises(ValueError, match="requires a mesh= argument"):
         nt.minimize(sphere, X0, method="cmaes", layout="sharded")
     with pytest.raises(ValueError, match="the BFGS fleet is unconstrained"):
         nt.minimize(sphere, X0, method="bfgs", layout="sharded", bounds=(-1.0, 1.0),
                     mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(ValueError, match="requires a mesh= argument"):
         nt.minimize(sphere, X0.T, method="pso", layout="sharded")
-    # Nelder-Mead's single route runs; a mesh layout, not ported, names
-    # the item that ports it, beside the ported routes
     res = nt.minimize(sphere, X0[0] + 1.0, method="nelder_mead", layout="single")
     assert res.x.shape == (4,) and float(res.f_value) < 1e-8
-    with pytest.raises(NotImplementedError, match="method='bfgs' with layout='fleet'") as raised:
-        nt.minimize(sphere, X0.T, method="cmaes", layout="islands")
-    assert "Queue 1 item 9" in str(raised.value)
+    with pytest.raises(ValueError, match="layout='islands' supports method='de', got 'cmaes'"):
+        nt.minimize(sphere, X0.T, method="cmaes", layout="islands", mesh=object())
     # layout="single" of bfgs is ported: it takes one start point [n]
     with pytest.raises(ValueError, match="a single start point is"):
         nt.minimize(sphere, X0, method="bfgs", layout="single")

@@ -55,8 +55,33 @@ def test_one_rank_world_needs_no_launcher(no_launcher):
     assert tuple(distributed.global_mesh(device_type="cpu").shape) == (1, 1)
     # a second mesh joins the group the first made
     res = nt.minimize(lambda x: (x ** 2).sum(), torch.full((2, 4), 0.5, dtype=torch.float64),
-                      method="bfgs", layout="sharded", mesh=tmesh.make_mesh(1, dp=1, pop=1))
+                      method="bfgs", layout="sharded",
+                      mesh=tmesh.make_mesh(1, dp=1, pop=1, device_type="cpu"))
     assert res.x.shape == (2, 4) and float(res.f_value.max()) < 1e-6
+
+
+def test_the_mesh_is_on_the_card_unless_asked_for_the_cpu(no_launcher, monkeypatch):
+    """``make_mesh``, ``global_mesh`` and ``initialize`` default to CUDA and
+    raise without a card, as ``core.start_points`` does; they start no
+    group doing so.  ``initialize()`` with no launcher stays local."""
+    if torch.cuda.is_available():
+        pytest.skip("asks what happens on a machine with no CUDA card")
+    for call in (tmesh.make_mesh, distributed.global_mesh,
+                 lambda: tmesh.make_mesh(1, dp=1, pop=1)):
+        with pytest.raises(RuntimeError, match="no CUDA card for the mesh"):
+            call()
+        assert not dist.is_initialized()
+    distributed.initialize()
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="no CUDA card for the mesh"):
+        distributed.initialize(world_size=1, rank=0, store=dist.HashStore())
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    with pytest.raises(RuntimeError, match="no CUDA card for the mesh"):
+        distributed.initialize()
+    assert not dist.is_initialized()
+    distributed.initialize(device_type="cpu", world_size=1, rank=0, store=dist.HashStore())
+    assert dist.get_backend() == "gloo"
+    assert tuple(tmesh.make_mesh(device_type="cpu").shape) == (1, 1)
 
 
 def test_make_mesh_refuses_as_jax_does(no_launcher):
@@ -117,3 +142,12 @@ def test_mesh_bench_runs_on_a_one_rank_world(no_launcher, tmp_path):
     assert all(r["bit_equal"] and r["counters_agree"] == 1.0 for r in got["routes"].values())
     (de,) = [v for k, v in got.items() if k.startswith("de_sharded")]
     assert list(de) == ["1x1"] and de["1x1"]["bit_equal"] and de["1x1"]["generations"] > 0
+    # the engines with no unsharded twin, on the one split: the PSO, both
+    # forms of the island DE (one island) and the dimension-sharded L-BFGS
+    for prefix in ("pso_sharded", "de_island [", "de_island fused", "lbfgs_sharded"):
+        (rows,) = [v for k, v in got.items() if k.startswith(prefix)]
+        row = rows["1x1"]
+        assert list(rows) == ["1x1"] and row["ranks_agree"] and row["generations"] > 0
+        assert row["converged"] == 1.0 and row.get("bit_equal", True)
+    (lbfgs,) = [v for k, v in got.items() if k.startswith("lbfgs_sharded")]
+    assert lbfgs["1x1"]["x_err"] < 1e-4

@@ -170,6 +170,19 @@ MESH_SCRIPT = textwrap.dedent(
     assert float((res.x - 2.0).abs().max()) < 1e-6
     res = nt.fit_fleet_sharded(lambda p: p - 2.0, x0.T.contiguous(), mesh=mesh)
     assert float((res.x - 2.0).abs().max()) < 1e-6
+    res = nt.minimize(nt.PROBLEMS["sphere"].fn, x0, method="pso", layout="sharded", mesh=mesh,
+                      config=nt.PSOConfig(n_particles=8, max_iter=30))
+    assert res.x.shape == (4, 3) and bool(torch.isfinite(res.f_value).all())
+    for fused in (False, True):
+        res = nt.minimize(nt.PROBLEMS["sphere"].fn, x0, method="de", layout="islands", mesh=mesh,
+                          config=nt.DEConfig(pop_size=8, max_iter=30), fused=fused)
+        assert res.x.shape == (4, 3) and bool(torch.isfinite(res.f_value).all())
+    res = nt.minimize(lambda x: ((x - 2.0) ** 2).sum(), torch.zeros(6, dtype=torch.float64),
+                      method="lbfgs", layout="sharded", mesh=mesh,
+                      grad_local=lambda x: 2.0 * (x - 2.0))
+    assert bool(res.converged) and float((res.x - 2.0).abs().max()) < 1e-8
+    utils.checkpoint.save_orbax(sys.argv[1], {"x": x0}, torch.Generator())
+    assert torch.equal(utils.checkpoint.load_orbax(sys.argv[1], {"x": x0 * 0})["x"], x0)
     with utils.debug_nans(), utils.log_compiles():
         utils.benchmark(lambda: x0 * 2.0, runs=2, warmup=0)
     assert not any(m == "jax" or m.startswith(("jax.", "nlsolver_tpu"))
@@ -179,18 +192,19 @@ MESH_SCRIPT = textwrap.dedent(
 )
 
 
-def test_parallel_and_utils_import_without_jax_or_the_jax_package():
+def test_parallel_and_utils_import_without_jax_or_the_jax_package(tmp_path):
     out = subprocess.run(
-        [sys.executable, "-c", MESH_SCRIPT], cwd=ROOT, capture_output=True, text=True, timeout=120
+        [sys.executable, "-c", MESH_SCRIPT, str(tmp_path / "orbax")], cwd=ROOT,
+        capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
 
 
 def test_parallel_and_utils_names_and_fields_follow_jax():
-    """The mesh engines ported so far carry the JAX package's names; what
-    it has beyond them is ROADMAP.md Queue 1 item 9b; the utilities are
-    the JAX package's but the orbax pair."""
+    """The mesh engines carry the JAX package's names, every one of them
+    ported; the utilities are the JAX package's, and the orbax pair sits in
+    ``utils.checkpoint`` as there."""
     import nlsolver_torch as nt
     import nlsolver_torch.parallel as tpar
     import nlsolver_torch.utils as tutils
@@ -198,9 +212,14 @@ def test_parallel_and_utils_names_and_fields_follow_jax():
     import nlsolver_tpu.parallel as jpar
     import nlsolver_tpu.utils as jutils
 
-    assert set(tpar.__all__) - {"distributed"} <= set(jpar.__all__)
-    assert set(jpar.__all__) - set(tpar.__all__) == {"minimize_islands", "pso_minimize_sharded"}
+    import nlsolver_torch.parallel.lbfgs_sharded as tlbfgs
+    import nlsolver_torch.utils.checkpoint as tck
+    import nlsolver_tpu.parallel.lbfgs_sharded as jlbfgs
+    import nlsolver_tpu.utils.checkpoint as jck
+
+    assert set(tpar.__all__) - {"distributed"} == set(jpar.__all__)
     assert set(jutils.__all__) <= set(tutils.__all__)
+    assert hasattr(jck, "save_orbax") and hasattr(tck, "save_orbax") and hasattr(tck, "load_orbax")
     assert nt.SolverResult._fields == nj.SolverResult._fields
     import inspect
 
@@ -212,9 +231,11 @@ def test_parallel_and_utils_names_and_fields_follow_jax():
     # are the port's keyword-only generator or draws
     for name in ("make_mesh", "fit_sharded", "fit_fleet_sharded", "minimize_sharded",
                  "minimize_fleet_sharded", "bfgs_minimize_fleet_sharded",
-                 "minimize_pso_fleet_sharded", "minimize_sann_fleet_sharded"):
+                 "minimize_pso_fleet_sharded", "minimize_sann_fleet_sharded",
+                 "minimize_islands", "pso_minimize_sharded"):
         jp = [p for p in positional(getattr(jpar, name)) if p != "keys"]
         assert positional(getattr(tpar, name))[:len(jp)] == jp, name
+    assert positional(tlbfgs.minimize_dim_sharded) == positional(jlbfgs.minimize_dim_sharded)
 
 
 def test_chip_smoke_imports_no_jax():

@@ -20,10 +20,67 @@ from nlsolver_torch.solvers import bfgs_fleet, cmaes_fleet, de_batched
 torch.set_num_threads(1)
 
 
-def test_exports_match_jax_but_the_orbax_pair():
+def test_exports_match_jax_but_the_orbax_pair(tmp_path):
+    """The exports are the JAX package's (the orbax pair sits in
+    ``utils.checkpoint`` there too, out of ``__all__``); the port's pair, on
+    torch.distributed.checkpoint, round-trips a DE fleet's state and
+    generator in one process, and the resumed run is the one that went on.
+    A world of gloo ranks whose states differ is in
+    tests/test_torch_parallel.py::test_orbax_pair_resumes_every_rank_bit_for_bit."""
+    import inspect
+
+    import nlsolver_tpu.utils.checkpoint as jck
+    from nlsolver_torch.utils import checkpoint as tck
+
     want = set(jutils.__all__)
     assert set(tutils.__all__) - {"benchmark_versions"} == want
-    assert not hasattr(tutils, "save_orbax")
+    for name in ("save_orbax", "load_orbax"):
+        jp = list(inspect.signature(getattr(jck, name)).parameters)
+        assert list(inspect.signature(getattr(tck, name)).parameters)[:len(jp)] == jp
+    fn = nt.PROBLEMS["rastrigin"].fn
+    cfg = nt.DEConfig(pop_size=12, partner_sampling="uniform")
+
+    def make():
+        gen = torch.Generator().manual_seed(7)
+        x0 = torch.linspace(0.5, 2.0, 12, dtype=torch.float64).reshape(4, 3)
+        return de_batched.init(fn, x0, cfg, generator=gen, seed=7), gen
+
+    step = lambda s, g: de_batched.step(fn, s, cfg, generator=g)  # noqa: E731
+    state, gen = make()
+    for _ in range(5):
+        state = step(state, gen)
+    path = str(tmp_path / "orbax")
+    tck.save_orbax(path, state, gen)
+    went_on = state
+    for _ in range(5):
+        went_on = step(went_on, gen)
+    like, fresh = make()
+    fresh.manual_seed(12345)
+    restored = tck.load_orbax(path, like, fresh)
+    _fields_equal(restored, state)
+    for _ in range(5):
+        restored = step(restored, fresh)
+    _fields_equal(restored, went_on)
+    assert restored.generation == 10
+    tck.save_orbax(path, state)
+    with pytest.raises(ValueError, match="no generator"):
+        tck.load_orbax(path, like, torch.Generator())
+
+
+def test_orbax_pair_keeps_every_leaf_kind(tmp_path):
+    """The leaves ``save`` takes: bfloat16 and integer tensors, Python
+    ints, floats and bools (exact), None, inside dicts and tuples."""
+    from nlsolver_torch.utils import checkpoint as tck
+
+    state = {"a": torch.tensor([1.0 + 2.0**-7, -3.0], dtype=torch.bfloat16), "n": 2**40 + 1,
+             "f": 0.1, "yes": True, "none": None, "t": (torch.arange(3, dtype=torch.int32),)}
+    like = {"a": torch.zeros(2, dtype=torch.bfloat16), "n": 0, "f": 0.0, "yes": False,
+            "none": None, "t": (torch.zeros(3, dtype=torch.int32),)}
+    tck.save_orbax(str(tmp_path / "leaves"), state)
+    back = tck.load_orbax(str(tmp_path / "leaves"), like)
+    assert torch.equal(back["a"], state["a"]) and back["a"].dtype == torch.bfloat16
+    assert back["n"] == 2**40 + 1 and back["f"] == 0.1 and back["yes"] is True
+    assert back["none"] is None and torch.equal(back["t"][0], state["t"][0])
 
 
 def test_stopwatch(capsys):

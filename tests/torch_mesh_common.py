@@ -19,10 +19,13 @@ from pathlib import Path
 
 import numpy as np
 
-# the (dp, pop) meshes a world runs the engines on
+# the (dp, pop) meshes a world runs the engines on; the dimension-sharded
+# L-BFGS also runs on (1, world), so that it meets pop = 4
 MESHES = {1: ((1, 1),), 2: ((2, 1), (1, 2)), 4: ((2, 2),)}
 DE_STRATEGIES = ("random", "best")
+ISLAND_FORMS = ("eager", "fused")
 NLLS_SOLVES = ("cholesky", "qr_pallas")
+LBFGS_OBJECTIVES = ("coupled", "weighted")
 RANK_TIMEOUT = 300
 
 
@@ -53,7 +56,22 @@ def inputs() -> dict:
         "cmaes_cfg": dict(max_iter=40, eigen_interval=3, kick_tol=1e-3, kick_patience=2),
         "de_x0": np.abs(rng.uniform(0.5, 3.0, (4, 3))),
         "de_cfg": dict(pop_size=8, max_iter=40, eps=5e-2, best_value_no_change=8),
+        "migration_interval": 3,
+        "lbfgs_n": 64,
+        "lbfgs_cfg": dict(memory=5, max_iter=100, grad_eps=1e-8),
     }
+
+
+def lbfgs_meshes(world: int):
+    return MESHES[world] + (((1, world),) if (1, world) not in MESHES[world] else ())
+
+
+def lbfgs_problem(kind: str, n: int):
+    """The coupled quadratic of tests/test_parallel.py:72-106, sum w (x - t)^2
+    + mean(x)^2 with w = 1 (``"coupled"``) or w from 1 to 10
+    (``"weighted"``, which takes L-BFGS some iterations): (t, w)."""
+    t = np.linspace(-1.0, 1.0, n)
+    return t, (np.ones(n) if kind == "coupled" else np.linspace(1.0, 10.0, n))
 
 
 # ----------------------------------------------------------------- a rank
@@ -83,7 +101,104 @@ def _raised(call):
     return None, ""
 
 
-def run_engines(inp: dict, world: int, de_draws: dict) -> dict:
+def lbfgs_local(kind: str, n: int, mesh):
+    """The shard-local objective and gradient of ``lbfgs_problem`` on
+    ``mesh`` (``parallel.lbfgs_sharded``'s contract): the coupling term on
+    the first block only."""
+    import torch
+
+    from nlsolver_torch.parallel import lbfgs_sharded as ls
+    from nlsolver_torch.parallel.mesh import coordinate
+
+    t, w = (torch.as_tensor(a)[ls.dim_block(n, mesh)] for a in lbfgs_problem(kind, n))
+    first = coordinate(mesh)[1] == 0
+
+    def fn_local(x):
+        mean_x = ls.dim_sum(x.sum(), mesh) / n
+        base = (w * (x - t) ** 2).sum()
+        return base + mean_x ** 2 if first else base
+
+    def grad_local(x):
+        mean_x = ls.dim_sum(x.sum(), mesh) / n
+        return 2.0 * w * (x - t) + 2.0 * mean_x / n
+
+    return fn_local, grad_local
+
+
+class Counted:
+    """Within the block, calls of the named functions of ``module`` are
+    logged in order in ``log`` (by name)."""
+
+    def __init__(self, module, names, log):
+        self.module, self.names, self.log = module, names, log
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.module, n) for n in self.names}
+        for name, f in self.saved.items():
+            def counted(*a, _f=f, _name=name, **k):
+                self.log.append(_name)
+                return _f(*a, **k)
+            setattr(self.module, name, counted)
+        return self.log
+
+    def __exit__(self, *exc):
+        for name, f in self.saved.items():
+            setattr(self.module, name, f)
+
+
+def run_new_engines(inp: dict, draws: dict, mesh, pop: int) -> dict:
+    """The population-sharded PSO, both forms of the island DE and their
+    API routes on ``mesh``, their calls of the gather, the ring and the
+    world count logged."""
+    import torch
+
+    import nlsolver_torch as nt
+    from nlsolver_torch.parallel import de_island, de_sharded, minimize_islands, pso_sharded
+
+    _, _, rastrigin, rosenbrock = _objectives()
+    T = lambda a: torch.as_tensor(a, dtype=torch.float64)  # noqa: E731
+    got = {}
+    pso_cfg = nt.PSOConfig(**inp["pso_cfg"])
+    log = []
+    with Counted(pso_sharded, ("gather_swarm", "_generation"), log):
+        got["pso"] = fields(pso_sharded.minimize_sharded(
+            rastrigin, T(inp["free_x0"]), pso_cfg, mesh,
+            draws=pso_sharded.PSOShardedDraws(*(torch.as_tensor(a) for a in draws["pso"]))))
+    got["pso_calls"] = log
+    g = lambda: torch.Generator().manual_seed(5)  # noqa: E731
+    got["pso_philox"] = fields(nt.minimize(rastrigin, T(inp["free_x0"]), method="pso",
+                                           layout="sharded", config=pso_cfg, mesh=mesh,
+                                           generator=g()))
+    got["pso_max"] = fields(nt.maximize(lambda x: -rastrigin(x), T(inp["free_x0"]),
+                                        method="pso", layout="sharded", config=pso_cfg,
+                                        mesh=mesh, generator=g()))
+    island_draws = de_sharded.ShardedDraws(*(torch.as_tensor(a)
+                                             for a in draws[f"island{pop}"]))
+    every = inp["migration_interval"]
+    for strategy in DE_STRATEGIES:
+        cfg = nt.DEConfig(strategy=strategy, **inp["de_cfg"])
+        for form in ISLAND_FORMS:
+            log = []
+            with Counted(de_island, ("_generation", "_local_generation", "island_stats",
+                                     "ring_exchange", "all_sum", "best_member"), log):
+                got[f"islands_{form}_{strategy}"] = fields(minimize_islands(
+                    rosenbrock, T(inp["de_x0"]), cfg, mesh, every, fused=form == "fused",
+                    draws=island_draws))
+            got[f"islands_{form}_{strategy}_calls"] = log
+        got[f"islands_sync3_{strategy}"] = fields(minimize_islands(
+            rosenbrock, T(inp["de_x0"]), cfg, mesh, every, 3, draws=island_draws))
+        for form in ISLAND_FORMS:
+            got[f"islands_{form}_{strategy}_philox"] = fields(nt.minimize(
+                rosenbrock, T(inp["de_x0"]), method="de", layout="islands", config=cfg,
+                mesh=mesh, generator=g(), migration_interval=every, fused=form == "fused"))
+    got["islands_max"] = fields(nt.maximize(lambda x: -rosenbrock(x), T(inp["de_x0"]),
+                                            method="de", layout="islands",
+                                            config=nt.DEConfig(**inp["de_cfg"]), mesh=mesh,
+                                            generator=g(), migration_interval=every))
+    return got
+
+
+def run_engines(inp: dict, world: int, draws: dict) -> dict:
     """Every engine on every mesh of ``world``; each rank returns what it
     got (the global results)."""
     import torch
@@ -91,8 +206,11 @@ def run_engines(inp: dict, world: int, de_draws: dict) -> dict:
     import nlsolver_torch as nt
     from nlsolver_torch.parallel import (bfgs_minimize_fleet_sharded, de_sharded,
                                          distributed, fit_fleet_sharded, fit_sharded, make_mesh,
-                                         minimize_fleet_sharded, minimize_pso_fleet_sharded,
-                                         minimize_sann_fleet_sharded, minimize_sharded)
+                                         minimize_fleet_sharded, minimize_islands,
+                                         minimize_pso_fleet_sharded,
+                                         minimize_sann_fleet_sharded, minimize_sharded,
+                                         pso_minimize_sharded)
+    from nlsolver_torch.parallel.lbfgs_sharded import minimize_dim_sharded
 
     rosen_cols, make_residual, rastrigin, rosenbrock = _objectives()
     T = lambda a: torch.as_tensor(a, dtype=torch.float64)  # noqa: E731
@@ -120,18 +238,32 @@ def run_engines(inp: dict, world: int, de_draws: dict) -> dict:
             de_sharded.gather_population, de_sharded._generation = counted_gather, \
                 counted_generation
             try:
-                draws = de_sharded.ShardedDraws(*(torch.as_tensor(a) for a in de_draws[strategy]))
+                de_draws = de_sharded.ShardedDraws(*(torch.as_tensor(a) for a in draws["de"]))
                 got[f"de_{strategy}"] = fields(minimize_sharded(rosenbrock, T(inp["de_x0"]), cfg,
-                                                                mesh, draws=draws))
+                                                                mesh, draws=de_draws))
             finally:
                 de_sharded.gather_population, de_sharded._generation = gather, generation
             got[f"de_{strategy}_calls"] = calls
             got[f"de_{strategy}_philox"] = fields(nt.minimize(
                 rosenbrock, T(inp["de_x0"]), method="de", layout="sharded", config=cfg,
                 mesh=mesh, generator=torch.Generator().manual_seed(5)))
+        got.update(run_new_engines(inp, draws, mesh, pop))
         # refusals (the JAX package's messages at this mesh's shape): widths
         # that do not divide over the mesh
         got["errors"] = {}
+        x2 = torch.ones(2, 2, dtype=torch.float64)
+        got["errors"]["islands_small"] = _raised(lambda: minimize_islands(
+            rosenbrock, x2[:dp], nt.DEConfig(pop_size=3 * pop), mesh))
+        if world > 1:
+            got["errors"]["pso_width"] = _raised(lambda: pso_minimize_sharded(
+                rastrigin, torch.ones(dp + 1 if dp > 1 else 2, 2, dtype=torch.float64),
+                nt.PSOConfig(n_particles=pop + 5 if pop > 1 else 6), mesh))
+            got["errors"]["islands_width"] = _raised(lambda: minimize_islands(
+                rosenbrock, torch.ones(dp + 1 if dp > 1 else 2, 2, dtype=torch.float64),
+                nt.DEConfig(pop_size=4 * pop + 1 if pop > 1 else 8), mesh))
+        if pop > 1:
+            got["errors"]["lbfgs_dim"] = _raised(lambda: minimize_dim_sharded(
+                lambda x: x.sum(), lambda x: x, torch.zeros(pop + 1, dtype=torch.float64), mesh))
         if world > 1:
             got["errors"]["fleet_width"] = _raised(lambda: bfgs_minimize_fleet_sharded(
                 rosen_cols, torch.zeros(2, 2 * world + 1, dtype=torch.float64),
@@ -142,6 +274,15 @@ def run_engines(inp: dict, world: int, de_draws: dict) -> dict:
         if dp > 1:
             got["errors"]["fit_batch"] = _raised(lambda: fit_sharded(
                 residual, torch.ones(dp + 1, 2, dtype=torch.float64), nt.NLLSConfig(), mesh))
+    for dp, pop in lbfgs_meshes(world):
+        mesh = make_mesh(world, dp=dp, pop=pop, device_type="cpu")
+        got = out.setdefault((dp, pop), {})
+        n = inp["lbfgs_n"]
+        for kind in LBFGS_OBJECTIVES:
+            fn_local, grad_local = lbfgs_local(kind, n, mesh)
+            got[f"lbfgs_{kind}"] = fields(nt.minimize(
+                fn_local, torch.zeros(n, dtype=torch.float64), method="lbfgs",
+                layout="sharded", mesh=mesh, grad_local=grad_local, **inp["lbfgs_cfg"]))
     # the lane fleets shard over every device: the first mesh of the world
     mesh = make_mesh(world, *MESHES[world][0], device_type="cpu")
     fleets = out["fleets"] = {}
@@ -170,6 +311,43 @@ def run_engines(inp: dict, world: int, de_draws: dict) -> dict:
                                              layout="sharded", config=cma_cfg, mesh=mesh,
                                              generator=g()))
     return out
+
+
+def orbax_round_trip(path) -> dict:
+    """A DE fleet on this rank's block of lanes (its own start points and
+    generator): 5 steps, ``save_orbax`` with the generator, 5 more; then a
+    fresh state and generator, ``load_orbax`` and the same 5 steps."""
+    import torch
+    import torch.distributed as dist
+
+    import nlsolver_torch as nt
+    from nlsolver_torch.parallel import distributed
+    from nlsolver_torch.solvers import de_batched
+    from nlsolver_torch.utils import checkpoint
+
+    rastrigin = nt.PROBLEMS["rastrigin"].fn
+    lo, hi = distributed.process_slice(8)
+    x0 = torch.linspace(0.5, 2.0, 24, dtype=torch.float64).reshape(8, 3)[lo:hi]
+    cfg = nt.DEConfig(pop_size=12, partner_sampling="uniform")
+
+    def make():
+        gen = torch.Generator().manual_seed(7 + dist.get_rank())
+        return de_batched.init(rastrigin, x0, cfg, generator=gen, seed=7), gen
+
+    def steps(state, gen):
+        for _ in range(5):
+            state = de_batched.step(rastrigin, state, cfg, generator=gen)
+        return state
+
+    state, gen = make()
+    state = steps(state, gen)
+    checkpoint.save_orbax(str(path), state, gen)
+    went_on = steps(state, gen)
+    like, fresh = make()
+    fresh.manual_seed(12345)          # another stream until the checkpoint sets it
+    restored = checkpoint.load_orbax(str(path), like, fresh)
+    return {"saved": fields(state), "restored": fields(restored),
+            "went_on": fields(went_on), "resumed": fields(steps(restored, fresh))}
 
 
 def unsharded(inp: dict) -> dict:
@@ -208,11 +386,12 @@ def rank_main(rank: int, world: int, workdir: str) -> None:
 
     work = Path(workdir)
     with open(work / "inputs.pkl", "rb") as f:
-        inp, de_draws = pickle.load(f)
-    distributed.initialize(init_method=f"file://{work / 'store'}", world_size=world, rank=rank,
-                           backend="gloo")
+        inp, draws = pickle.load(f)
+    distributed.initialize(device_type="cpu", init_method=f"file://{work / 'store'}",
+                           world_size=world, rank=rank)
     try:
-        out = run_engines(inp, world, de_draws)
+        out = run_engines(inp, world, draws)
+        out["orbax"] = orbax_round_trip(work / "orbax")
         if rank == 0:
             out["unsharded"] = unsharded(inp)
     finally:
@@ -224,9 +403,10 @@ def rank_main(rank: int, world: int, workdir: str) -> None:
 # ----------------------------------------------------------------- the parent
 
 
-def run_worlds(worlds, root: Path, inp: dict, de_draws: dict) -> dict:
+def run_worlds(worlds, root: Path, inp: dict, draws: dict) -> dict:
     """Every rank of every world at once; returns ``{world: [out of rank
-    r]}``."""
+    r]}``.  ``draws`` holds the JAX package's draws by engine: ``"de"``,
+    ``"pso"`` and ``"island{k}"`` for k islands."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(Path(__file__).resolve().parent.parent), os.environ.get("PYTHONPATH", "")]))
     procs = []
@@ -234,7 +414,7 @@ def run_worlds(worlds, root: Path, inp: dict, de_draws: dict) -> dict:
         work = root / f"world{world}"
         work.mkdir(parents=True, exist_ok=True)
         with open(work / "inputs.pkl", "wb") as f:
-            pickle.dump((inp, de_draws), f)
+            pickle.dump((inp, draws), f)
         for rank in range(world):
             procs.append((world, rank, work, subprocess.Popen(
                 [sys.executable, __file__, str(rank), str(world), str(work)],
