@@ -282,11 +282,11 @@ Phases, each fatal on failure:
      box of width 10.24 (PSOConfig(n_particles=64, max_iter=1000)), the
      island DE on them, eager and fused (DEConfig(pop_size=64,
      max_iter=1000), a migration every 10 generations), each in float32
-     and on its 256 first lanes in float64 (300 generations at most)
-     against the same run on the host,
-     and the dimension-sharded L-BFGS on the coupled quadratic at n = 2^23
-     in float64 (max |x - t| < 1e-4), against the host at n = 2^16; the
-     process group is destroyed at the end;
+     and on its first lanes in float64 (256 for the PSO, 128 for the
+     islands; to max_iter) against the same run on the host, and the dimension-sharded L-BFGS on the coupled
+     quadratic and its weighted form at n = 2^23 in float64 (max |x - t|
+     < 1e-4), against the host at n = 2^16; each engine is timed after a
+     short warm-up; the process group is destroyed at the end;
  28. bench_qr_shapes (K2a-w, K2b's register and shared forms, the library's
      QR and the plain wavefront; 5 chained calls a run) and
      bench_de_fused_sweep (P = 128, 256, 512 at 2^18 agents, 50 generations,
@@ -3673,11 +3673,11 @@ def phase_replays(torch, dev):
     check(not launched(), f"the replays launched kernels: {launched()}")
 
 
-SHARD_DE_CPU = 256   # de_sharded's lanes held against its own run on the host in float64
+SHARD_DE_CPU = 256   # de_sharded's and the PSO's lanes held against their own run on the host in f64
+# the island DE's: its two forms on 256 lanes to max_iter took about a
+# minute each on a host of 8 cores, on 128 some 10 s
+SHARD_ISLANDS_CPU = 128
 SHARD_LBFGS_CPU = 1 << 16   # the L-BFGS's n held against its own run on the host
-# the PSO's and the islands' float64 runs against the host stop here (their
-# full-width runs take up to 1000): the host's run is the phase's longest
-SHARD_HOST_ITER = 300
 
 
 def card_against_host_f64(torch, label, card, host, counts):
@@ -3690,7 +3690,10 @@ def card_against_host_f64(torch, label, card, host, counts):
            / host.f_value.abs().clamp_min(1.0)).reshape(-1)[agree]
     log(f"[27] {label} f64, card against host: counters equal on {int(agree.sum())} of "
         f"{agree.numel()} lanes, largest |f card - f host| / max(|f|, 1) there "
-        f"{float(rel.max()) if rel.numel() else float('nan'):.3e}; launches {counts}")
+        f"{float(rel.max()) if rel.numel() else float('nan'):.3e}; converged (halted by a "
+        f"tolerance) card {float(card.converged.float().mean()):.6f}, host "
+        f"{float(host.converged.float().mean()):.6f}, iterations at most card "
+        f"{int(card.iterations.max())}, host {int(host.iterations.max())}; launches {counts}")
     check(not counts, f"{label} launched {counts}")
     check(float(agree.float().mean()) >= 0.9 and rel.numel() > 0 and float(rel.max()) < 1e-9,
           f"{label}: the card's f64 run parts from the host's")
@@ -3784,10 +3787,16 @@ def phase_sharded_engines(torch, dev):
                 if kind == "lbfgs":
                     check(row["converged"] == 1.0 and row["x_err"] < 1e-4,
                           f"{name}: not converged to the targets ({row['x_err']})")
-        f64 = dict(dtype=torch.float64, B=SHARD_DE_CPU, max_iter=SHARD_HOST_ITER)
-        for kind, kw in (("pso", f64), ("islands", f64), ("lbfgs", dict(n=SHARD_LBFGS_CPU))):
-            card, _, counts = timed_counted(torch, lambda: runs[kind](1, dev, **kw))
+        # to the configs' own max_iter, as de_sharded is held
+        f64 = dict(dtype=torch.float64)
+        for kind, kw in (("pso", dict(f64, scale=8192 // SHARD_DE_CPU)),
+                         ("islands", dict(f64, scale=8192 // SHARD_ISLANDS_CPU)),
+                         ("lbfgs", dict(scale=(1 << 23) // SHARD_LBFGS_CPU))):
+            card, card_s, counts = timed_counted(torch, lambda: runs[kind](1, dev, **kw))
+            t0 = time.perf_counter()
             host = runs[kind](1, torch.device("cpu"), device_type="cpu", **kw)
+            log(f"[27] {kind} f64 against the host: {card_s:.1f} s on the card, "
+                f"{time.perf_counter() - t0:.1f} s on the host (each with its warm-ups)")
             for name in card:
                 card_against_host_f64(torch, name, card[name]["1x1"]["result"],
                                       host[name]["1x1"]["result"], counts)

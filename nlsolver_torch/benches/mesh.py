@@ -23,15 +23,19 @@ the whole fleet on one device against its lanes spread over the world),
 its launches on rank 0 and the comparison.
 
 The population engines with no unsharded twin run on every split of the
-world too, each row with its seconds, generations (iterations), ms a
-generation, converged share and whether every rank returned the same
-bits: ``pso_sharded`` (its draws keyed by particle, so every split must
-give the first's bits), both forms of the island DE (the island count is
-the split's pop, and it changes the algorithm by design: no two splits of
-one world share it, so none is compared with another) and the
-dimension-sharded L-BFGS on the coupled quadratic of the JAX package's
-tests (a split of another pop adds its partial sums in another order: its
-counters and values are compared with the first's, not its bits).
+world too, each timed once after a short warm-up at the same shapes (its
+first generations or iterations: the subgroups' communicators and the
+allocator's blocks are made there), each row with its seconds,
+generations (iterations), ms a generation, converged share and whether
+every rank returned the same bits: ``pso_sharded`` (its draws keyed by
+particle, so every split must give the first's bits), both forms of the
+island DE (the island count is the split's pop, and it changes the
+algorithm by design: no two splits of one world share it, so none is
+compared with another) and the dimension-sharded L-BFGS on the coupled
+quadratic of the JAX package's tests and on its weighted form, which
+takes it through its history (a split of another pop adds its partial
+sums in another order: its counters and values are compared with the
+first's, not its bits).
 """
 from __future__ import annotations
 
@@ -231,6 +235,16 @@ def _gen(device):
     return torch.Generator(device=device).manual_seed(0)
 
 
+WARM_GENERATIONS = 20   # a population engine's warm-up: two migration intervals
+
+
+def _warm_timed(run, warm, device):
+    """``_timed(run)`` after one call of ``warm``."""
+    warm()
+    _sync(device)
+    return _timed(run, device)
+
+
 def run_de(world: int, device, scale: int = 1, device_type=None) -> dict:
     """``de_sharded`` on 8192 / scale 10-D Rastrigin instances of 64 agents
     on every (dp, pop) split of the world, each compared with the first."""
@@ -244,92 +258,155 @@ def run_de(world: int, device, scale: int = 1, device_type=None) -> dict:
             PROBLEMS["rastrigin"].fn, widths, method="de", layout="sharded", mesh=mesh,
             config=cfg, generator=_gen(device)), device)
         first = res if first is None else first
-        rows[f"{dp}x{pop}"] = {**_row(res, wall), **_compare(res, first)}
+        rows[f"{dp}x{pop}"] = {**_row(res, wall), **_compare(res, first), "result": res}
     return {f"de_sharded [{B}, 10] P=64": rows}
 
 
-def run_pso(world: int, device, scale: int = 1, device_type=None, dtype=torch.float32,
-            B=None, max_iter: int = 1000) -> dict:
-    """``pso_sharded`` on 8192 / scale (or ``B``) 10-D Rastrigin instances,
-    64 particles starting in [-5.12, 5.12] (the DE's box, of width 10.24),
-    on every split, each compared with the first: bit-equal, as the draws
-    are keyed by particle."""
-    B = B or max(8192 // scale, world)
+def run_pso(world: int, device, scale: int = 1, device_type=None,
+            dtype=torch.float32) -> dict:
+    """``pso_sharded`` on 8192 / scale 10-D Rastrigin instances, 64
+    particles starting in [-5.12, 5.12] (the DE's box, of width 10.24), on
+    every split, each compared with the first: bit-equal, as the draws are
+    keyed by particle."""
+    B = max(8192 // scale, world)
     x0 = torch.full((B, 10), 5.12, device=device, dtype=dtype)
-    cfg = api.PSOConfig(n_particles=64, max_iter=max_iter)
+    cfg = api.PSOConfig(n_particles=64, max_iter=1000)
     rows, first = {}, None
     for dp, pop in _splits(world):
         mesh = make_mesh(world, dp=dp, pop=pop, device_type=device_type)
-        res, wall, _ = _timed(lambda: api.minimize(
-            PROBLEMS["rastrigin"].fn, x0, method="pso", layout="sharded", mesh=mesh,
-            config=cfg, generator=_gen(device)), device)
+
+        def run(cfg=cfg):
+            return api.minimize(PROBLEMS["rastrigin"].fn, x0, method="pso", layout="sharded",
+                                mesh=mesh, config=cfg, generator=_gen(device))
+
+        res, wall, _ = _warm_timed(run, lambda: run(dataclasses.replace(
+            cfg, max_iter=WARM_GENERATIONS)), device)
         first = res if first is None else first
         rows[f"{dp}x{pop}"] = {**_row(res, wall), **_compare(res, first), "result": res}
     return {f"pso_sharded [{B}, 10] P=64": rows}
 
 
-def run_islands(world: int, device, scale: int = 1, device_type=None, dtype=torch.float32,
-                B=None, max_iter: int = 1000) -> dict:
-    """The island DE on the DE's instances (8192 / scale, or ``B``), 64
-    agents, a migration every 10 generations, eager and fused, on every
-    split: the island count is the split's pop."""
-    B = B or max(8192 // scale, world)
+def run_islands(world: int, device, scale: int = 1, device_type=None,
+                dtype=torch.float32) -> dict:
+    """The island DE on the DE's instances (8192 / scale), 64 agents, a
+    migration every 10 generations, eager and fused, on every split: the
+    island count is the split's pop."""
+    B = max(8192 // scale, world)
     widths = torch.full((B, 10), 10.24, device=device, dtype=dtype)
-    cfg = api.DEConfig(pop_size=64, max_iter=max_iter)
+    cfg = api.DEConfig(pop_size=64, max_iter=1000)
     out = {}
     for fused in (False, True):
         rows = out[f"de_island{' fused' if fused else ''} [{B}, 10] P=64"] = {}
         for dp, pop in _splits(world):
             mesh = make_mesh(world, dp=dp, pop=pop, device_type=device_type)
-            res, wall, _ = _timed(lambda: api.minimize(
-                PROBLEMS["rastrigin"].fn, widths, method="de", layout="islands", mesh=mesh,
-                config=cfg, generator=_gen(device), migration_interval=10, fused=fused), device)
+
+            def run(cfg=cfg):
+                return api.minimize(PROBLEMS["rastrigin"].fn, widths, method="de",
+                                    layout="islands", mesh=mesh, config=cfg,
+                                    generator=_gen(device), migration_interval=10, fused=fused)
+
+            res, wall, _ = _warm_timed(run, lambda: run(dataclasses.replace(
+                cfg, max_iter=WARM_GENERATIONS)), device)
             rows[f"{dp}x{pop}"] = {**_row(res, wall), "islands": pop, "result": res}
     return out
 
 
-def coupled_quadratic(n: int, mesh, device):
+LBFGS_OBJECTIVES = ("coupled", "weighted")
+
+
+def coupled_quadratic(n: int, mesh, device, weighted: bool = False):
     """The coupled quadratic of the JAX package's tests
-    (tests/test_parallel.py:72-106), sum (x - t)^2 + mean(x)^2 with t =
-    linspace(-1, 1, n) (made on the host, so every device holds the same
-    bits), in float64, shard-local as ``parallel.lbfgs_sharded`` asks:
-    (t's block, fn_local, grad_local).  Its minimum is x = t."""
+    (tests/test_parallel.py:72-106), sum w (x - t)^2 + mean(x)^2 with t =
+    linspace(-1, 1, n) and w = 1, or w = linspace(1, 10, n) where
+    ``weighted`` (which takes the L-BFGS through its history; from x = 0
+    the unweighted one ends in its first step), made on the host so every
+    device holds the same bits, in float64, shard-local as
+    ``parallel.lbfgs_sharded`` asks: (t's block, fn_local, grad_local).
+    As t sums to 0, the minimum of both is x = t."""
     from ..parallel.lbfgs_sharded import dim_block, dim_sum
 
-    t = torch.linspace(-1.0, 1.0, n, dtype=torch.float64)[dim_block(n, mesh)].to(device)
+    block = dim_block(n, mesh)
+    t = torch.linspace(-1.0, 1.0, n, dtype=torch.float64)[block].to(device)
+    w = (torch.linspace(1.0, 10.0, n, dtype=torch.float64)[block].to(device) if weighted
+         else 1.0)
     first = coordinate(mesh)[1] == 0
 
     def fn_local(x):
         mean_x = dim_sum(x.sum(), mesh) / n
-        base = ((x - t) ** 2).sum()
+        base = (w * (x - t) ** 2).sum()
         return base + mean_x ** 2 if first else base
 
     def grad_local(x):
         mean_x = dim_sum(x.sum(), mesh) / n
-        return 2.0 * (x - t) + 2.0 * mean_x / n
+        return 2.0 * w * (x - t) + 2.0 * mean_x / n
 
     return t, fn_local, grad_local
 
 
-def run_lbfgs(world: int, device, scale: int = 1, device_type=None, n=None) -> dict:
-    """The dimension-sharded L-BFGS on the coupled quadratic at n = 2^23 /
-    scale (or ``n``) in float64 on every split, each compared with the
-    first (its counters and value; a split of another pop sums in another
-    order), with the largest |x - t|."""
-    n = n or max((1 << 23) // scale, world)
-    rows, first = {}, None
-    for dp, pop in _splits(world):
-        mesh = make_mesh(world, dp=dp, pop=pop, device_type=device_type)
-        _, fn_local, grad_local = coupled_quadratic(n, mesh, device)
-        x0 = torch.zeros(n, dtype=torch.float64, device=device)
-        res, wall, _ = _timed(lambda: api.minimize(
-            fn_local, x0, method="lbfgs", layout="sharded", mesh=mesh, grad_local=grad_local),
-            device)
-        first = res if first is None else first
-        t = torch.linspace(-1.0, 1.0, n, dtype=torch.float64).to(device)
-        rows[f"{dp}x{pop}"] = {**_row(res, wall), **_compare(res, first),
-                               "x_err": float((res.x - t).abs().max()), "result": res}
-    return {f"lbfgs_sharded n={n}": rows}
+def run_lbfgs(world: int, device, scale: int = 1, device_type=None) -> dict:
+    """The dimension-sharded L-BFGS on the coupled quadratic and its
+    weighted form at n = 2^23 / scale in float64 on every split, each
+    compared with the first (its counters and value; a split of another
+    pop sums in another order), with the largest |x - t|."""
+    n = max((1 << 23) // scale, world)
+    t = torch.linspace(-1.0, 1.0, n, dtype=torch.float64).to(device)
+    out = {}
+    for kind in LBFGS_OBJECTIVES:
+        rows = out[f"lbfgs_sharded {kind} n={n}"] = {}
+        first = None
+        for dp, pop in _splits(world):
+            mesh = make_mesh(world, dp=dp, pop=pop, device_type=device_type)
+            _, fn_local, grad_local = coupled_quadratic(n, mesh, device, kind == "weighted")
+            x0 = torch.zeros(n, dtype=torch.float64, device=device)
+
+            def run(max_iter=100):
+                return api.minimize(fn_local, x0, method="lbfgs", layout="sharded", mesh=mesh,
+                                    grad_local=grad_local, max_iter=max_iter)
+
+            res, wall, _ = _warm_timed(run, lambda: run(2), device)
+            first = res if first is None else first
+            rows[f"{dp}x{pop}"] = {**_row(res, wall), **_compare(res, first),
+                                   "x_err": float((res.x - t).abs().max()), "result": res}
+    return out
+
+
+def _split_product(m: int, c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    # the 32x32 -> 64-bit product of ``ops.de_fused._mulhilo`` from m's
+    # 16-bit halves: no partial product reaches 2^63
+    p0 = c * (m & 0xFFFF)
+    p1 = c * (m >> 16)
+    t = p0 + ((p1 & 0xFFFF) << 16)
+    return (p1 >> 16) + (t >> 32), t & 0xFFFFFFFF
+
+
+def probe_philox_product(device, scale: int = 1, pairs: int = 2, device_type=None) -> dict:
+    """``de_sharded`` and ``pso_sharded`` on a world of one rank, their
+    Philox draws' product taken as one wrapping int64 multiply
+    (``ops.de_fused._mulhilo``, 4 element ops) and from 16-bit halves (7),
+    after a warm-up, in ``pairs`` pairs that take turns at going first:
+    each arm's ms a generation, by engine, and whether the arms' results
+    are bit-equal."""
+    from ..ops import de_fused
+
+    arms = {"wrapping": de_fused._mulhilo, "split": _split_product}
+    ms = {arm: {"de_sharded": [], "pso_sharded": []} for arm in arms}
+    results = {arm: {} for arm in arms}
+    engines = {"de_sharded": run_de, "pso_sharded": run_pso}
+    try:
+        for run in engines.values():
+            run(1, device, scale, device_type)
+        for pair in range(pairs):
+            for arm in (("wrapping", "split") if pair % 2 == 0 else ("split", "wrapping")):
+                de_fused._mulhilo = arms[arm]
+                for name, run in engines.items():
+                    (rows,) = run(1, device, scale, device_type).values()
+                    ms[arm][name].append(rows["1x1"]["ms_a_generation"])
+                    results[arm][name] = rows["1x1"]["result"]
+    finally:
+        de_fused._mulhilo = arms["wrapping"]
+    return {"ms_a_generation": ms, "bit_equal": {
+        name: _compare(results["wrapping"][name], results["split"][name])["bit_equal"]
+        for name in engines}}
 
 
 def _public(rows: dict) -> dict:
@@ -353,7 +430,7 @@ def main(argv=None):
         out = {"world": world, "mesh": str(mesh), "backend": str(dist.get_backend()),
                "device": (torch.cuda.get_device_name(device) if args.device == "cuda" else "cpu"),
                "routes": run_routes(mesh, device, args.scale),
-               **run_de(world, device, args.scale, args.device),
+               **_public(run_de(world, device, args.scale, args.device)),
                **_public(run_pso(world, device, args.scale, args.device)),
                **_public(run_islands(world, device, args.scale, args.device)),
                **_public(run_lbfgs(world, device, args.scale, args.device))}

@@ -257,6 +257,20 @@ def test_philox_known_answers():
         assert [int(w) for w in got] == list(want)
 
 
+def test_philox_product_is_the_exact_one():
+    """The twin's 32x32 -> 64-bit product, one int64 multiply that wraps
+    modulo 2^64, gives the exact high and low words (Python's integers) of
+    both Philox multipliers, at the ends of the word's range and between."""
+    rng = np.random.default_rng(5)
+    words = [0, 1, 2, 0xFFFF, 0x10000, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE, 0xFFFFFFFF]
+    words += [int(w) for w in rng.integers(0, 1 << 32, 4096, dtype=np.uint64)]
+    c = torch.tensor(words, dtype=torch.int64)
+    for m in tdf._PHILOX_M:
+        hi, lo = tdf._mulhilo(m, c)
+        assert hi.tolist() == [w * m >> 32 for w in words]
+        assert lo.tolist() == [w * m & 0xFFFFFFFF for w in words]
+
+
 def test_philox_draws_statistics():
     u, fdim = tdf.philox_draws(7, 0, 64, 10, 64, torch.float32, "cpu")
     assert u.shape == (64, 10, 64) and fdim.shape == (64, 64)

@@ -144,10 +144,31 @@ def test_mesh_bench_runs_on_a_one_rank_world(no_launcher, tmp_path):
     assert list(de) == ["1x1"] and de["1x1"]["bit_equal"] and de["1x1"]["generations"] > 0
     # the engines with no unsharded twin, on the one split: the PSO, both
     # forms of the island DE (one island) and the dimension-sharded L-BFGS
-    for prefix in ("pso_sharded", "de_island [", "de_island fused", "lbfgs_sharded"):
+    # on both quadratics, the weighted one through its history
+    for prefix in ("pso_sharded", "de_island [", "de_island fused", "lbfgs_sharded coupled",
+                   "lbfgs_sharded weighted"):
         (rows,) = [v for k, v in got.items() if k.startswith(prefix)]
         row = rows["1x1"]
         assert list(rows) == ["1x1"] and row["ranks_agree"] and row["generations"] > 0
         assert row["converged"] == 1.0 and row.get("bit_equal", True)
-    (lbfgs,) = [v for k, v in got.items() if k.startswith("lbfgs_sharded")]
-    assert lbfgs["1x1"]["x_err"] < 1e-4
+        if prefix.startswith("lbfgs"):
+            assert row["x_err"] < 1e-4
+    (weighted,) = [v for k, v in got.items() if k.startswith("lbfgs_sharded weighted")]
+    assert weighted["1x1"]["generations"] > 10
+
+
+def test_philox_product_probe_on_a_one_rank_world(no_launcher):
+    """``benches.mesh.probe_philox_product`` at a tiny size: both products
+    give de_sharded and pso_sharded the same bits, each arm timed once a
+    pair."""
+    from nlsolver_torch.benches import mesh as bench
+
+    distributed.initialize(device_type="cpu")
+    try:
+        got = bench.probe_philox_product(torch.device("cpu"), scale=1024, pairs=1,
+                                         device_type="cpu")
+    finally:
+        dist.destroy_process_group()
+    assert got["bit_equal"] == {"de_sharded": True, "pso_sharded": True}
+    assert all(len(v) == 1 and v[0] > 0 for arm in got["ms_a_generation"].values()
+               for v in arm.values())
