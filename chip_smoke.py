@@ -16,8 +16,9 @@ Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc over nlsolver_torch/csrc for sm_90a, one process per source;
      no register kernel of K5, K2b or K3 (one per n and dtype each), and no
-     kernel of K2b's warp form or of the cluster and distributed forms of K2b,
-     K3 and K2a, may spill or keep a stack frame; the issue
+     kernel of K2b's warp form, of the cluster and distributed forms of K2b,
+     K3 and K2a, of K2a's panel form or of K3-b (its main path's kernel),
+     may spill or keep a stack frame; the issue
      floors of K1's staged form, K2b's register and warp forms, K2a's warp
      form, K4b-c and K3's register and warp forms from their SASS, and of
      K1c, K1g, K4b-t and K4b (benches.issue_floors);
@@ -41,8 +42,8 @@ Phases, each fatal on failure:
      plain step (median of 5 after 2 warm-ups), and each form of K1 alone
      behind a device sleep against its twin from CUDA events (K1c and K1g
      at the wide fleet's shape);
-  7. K3 (batch-minor Cholesky solve) in its five forms (registers, a warp
-     a lane, a cluster a lane, a lane over the whole card, device memory)
+  7. K3 (batch-minor Cholesky solve) in its forms (registers, a warp a
+     lane, a cluster a lane, a lane over the whole card, device memory)
      bit-equal to its twin on SPD
      systems by direct call, each form that takes n, at n in {1, 2, 8, 12,
      16, 30, 33} at B=16384 in f32 and n=8 in f64, at the shapes phase 10
@@ -57,8 +58,13 @@ Phases, each fatal on failure:
      chol_solve_right_looking and the residual |Ax - b| / |b| below 1e-12;
      past K3-c's range, [646, 646, 2] in f64 through K3-d (66 CTAs a lane),
      counted, bit-equal; K3-g, past K3-d's range, by a direct call on the
-     same systems, counted, bit-equal, timed once; a non-contiguous and an
-     f16 input refused;
+     same systems, counted, bit-equal, timed once; K3-b (a lane over the
+     card, its triangle packed in device memory, factored by panels, the
+     back solve by columns) by a direct call there, bit-equal to its plain
+     version; its path, the first n past K3-d's range, [2458, 2458, 2] f64
+     and [3600, 3600, 2] f32, through the dispatcher, counted, x bit-equal
+     to its plain version on the card and |Ax - b| / (|A| |x|) beside the
+     twin's order's; a non-contiguous and an f16 input refused;
   8. K2b (wavefront least squares) in its six forms (registers, shared
      memory, a warp a lane, a cluster a lane, a lane over the whole card,
      device memory) bit-equal to
@@ -84,7 +90,14 @@ Phases, each fatal on failure:
      K2a-c once at [170, 170, 32] and K2a-d once at [333, 333, 2] f64, the
      first square shape past K2a-c's range, and no other form of K2a, each
      reconstructing A within 1e-4; K2a-g by a direct call at [170, 170, 32],
-     counted, bit-equal;
+     counted, bit-equal; linalg.qr(method="pallas") launches K2a-p (R over
+     the card with each rotation logged, Q^T rebuilt from the log; a kernel
+     a panel, then a replay of the log a panel but the last and one for
+     Q^T, each counted) and no other form of K2a at the first square shapes
+     past K2a-d's range with Q, [1875, 1875, 2] f32
+     and [1321, 1321, 2] f64, at [1817, 1817, 1] f64 and at its first shape
+     in two panels, [1849, 1849, 1] f64, R and Q bit-equal to the twin on
+     the card; K2a-p by a direct call at [333, 333, 2] f64, bit-equal;
   9. the NLLS slice: fit_fleet on 262144 exp-decay fits through
      solve="qr_pallas" (K2b's register form), "cholesky" (K3's register
      form) and "qr" (plain), launches counted; solved share, recovered
@@ -107,7 +120,11 @@ Phases, each fatal on failure:
      same function (torch.linalg.qr, torch.linalg.lstsq, Cholesky factor
      and solve); K2b-g at [330, 330, 2] f64 and K3-g at [646, 646, 2] f64
      (the first n past the cluster forms' ranges), and beside each the form
-     that takes those shapes now, K2b-d and K3-d;
+     that takes those shapes now, K2b-d and K3-d; K2a-p at [333, 333, 2]
+     f64, [1321, 1321, 2] f64 and [1875, 1875, 2] f32 with Q beside
+     torch.linalg.qr, and K3-b at [646, 646, 2] f64, [2458, 2458, 2] f64 and
+     [3600, 3600, 2] f32 beside cholesky_ex + cholesky_solve, the median of 5
+     calls after 2 warm-ups from CUDA events around each;
  11. K4a (resident rank-2 update + direction) against its twin at
      [16, 16, 65536] f32 with a third of the lanes on reset and a fifth at
      rho = 0, at n in {1, 2, 8, 33} with a ragged B, and once in f64; K4b-c
@@ -301,7 +318,8 @@ K4b-c, K4b-t, K4b and K3's register and warp forms also the floor of their
 instruction issue (``issue_ms``), which must lie below their time.
 
 The rows of K4a, K2b-r, K3-r, K5r, K2a-w and K1s also name the launches of
-phases 27 and 28 (``more_launches``).
+phases 27 and 28 (``more_launches``); those of K2a-p and K3-b their times
+at their other shapes (``more_shapes``).
 
 Prints a JSON line of kernels, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -331,6 +349,11 @@ CHEB_CLUSTER = (120, 128, 256)  # warp form's range in float64 through its clust
 K3G_N, K3G_B = 240, 16         # an SPD solve past K3-w's range in float64 (K3-c)
 K3D_N, K2BD_N = 646, 330       # the first n past K3-c's and K2b-c's ranges in float64 (K3-d, K2b-d)
 K2AD_N = 333                   # the first square m = n past K2a-c's range in float64 with Q (K2a-d)
+# the first square m = n past K2a-d's range with Q (K2a-p), by dtype, and
+# the first that K2a-p forms in two panels in float64 (on one lane)
+K2AP_N = {"float32": 1875, "float64": 1321}
+K2AP_PANELS_N = 1849
+K3B_N = {"float64": 2458, "float32": 3600}  # the first n past K3-d's range (K3-b), by dtype
 CMA_B, CMA_N, CMA_GENS = 65536, 16, 50   # the CMA-ES fleet: strategies, dimensions, generations
 CMA_WIDE_B = 4096              # the wide CMA-ES fleets: n = 56 and n = 64 (K5a)
 CMA_EDGE_N, CMA_EDGE_B = 170, 256  # the first n that K5a refuses in f32 (K5c), the fleet's B there
@@ -381,6 +404,12 @@ def de_bound(b, n, p):
 def lstsq_bound(m, n, b, f64=False):
     """K2b's bound in f32 (or f64): A and y in, x out; givens_ops a lane."""
     return bound((m * n + m + n) * b * (8 if f64 else 4), givens_ops(m, n, 1) * b, f64)
+
+
+def qr_bound(n, b, f64=False):
+    """K2a's bound with Q on [n, n, b] in f32 (or f64): A in, R and Q out;
+    givens_ops a lane with Q's n columns."""
+    return bound(3 * n * n * b * (8 if f64 else 4), givens_ops(n, n, n) * b, f64)
 
 
 def spd_bound(n, b, f64=False):
@@ -698,10 +727,13 @@ def phase_build():
              "chol_distributed_kernel": ("K3-d", "IdE"),                  # <double>, its path's
              "qr_cluster_kernel": ("K2a-c", "IfE"),                       # <float>, its path's
              "qr_distributed_kernel": ("K2a-d", "IdE"),                   # <double>, its path's
+             "qr_panel_kernel": ("K2a-p", "IdE"),                         # <double>, its path's
+             "qr_replay_kernel": ("K2a-p's replay", "IdE"),               # <double>, its path's
+             "chol_blocked_kernel": ("K3-b", "IdLb0E"),                   # <double, main path's>
              "rank2_batched_rows_kernel": ("K4c-r", "IfLi16ELi4ELb0E")}   # <float, 16, float4, straight>
     used, main, local = {"K5r": [], "K2b": [], "K2b-w": [], "K3-r": [], "K2b-c": [],
                          "K3-c": [], "K2b-d": [], "K3-d": [], "K2a-c": [], "K2a-d": [],
-                         "K4c-r": []}, {}, []
+                         "K2a-p": [], "K2a-p's replay": [], "K3-b": [], "K4c-r": []}, {}, []
     for short, spill, regs in entries:
         kind = next((v for k, v in kinds.items() if short.startswith(k)), None)
         count = int(regs.split("Used")[1].split()[0]) if "Used" in regs else -1
@@ -712,12 +744,20 @@ def phase_build():
         used[kind[0]].append(count)
         if kind[1] in short:
             main[kind[0]] = count
-        if "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" not in spill:
+        # K3-b's probes' kernel (<T, true>) is not held
+        probe = kind[0] == "K3-b" and "Lb1E" in short
+        if not probe and "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" not in spill:
             local.append(f"{short}: {spill}")
     if out:
         check(not local, "register kernels of K5, K2b, K3 or K4c, or the warp, cluster or "
-              "distributed form of K2b, the cluster or distributed form of K2a or K3, use local "
-              "memory: " + "; ".join(local))
+              "distributed form of K2b, the cluster, distributed or panel form of K2a or the "
+              "cluster, distributed or blocked form of K3 use local memory: " + "; ".join(local))
+        check(len(used["K3-b"]) == 4, f"ptxas reported {len(used['K3-b'])} kernels of K3-b, "
+              "expected the main path's and the probes' per dtype")
+        log(f"[2] ptxas: K3-b, 4 kernels (float32, float64; the main path's and the probes'): "
+            f"{min(used['K3-b'])} to {max(used['K3-b'])} registers a thread, {main.get('K3-b')} "
+            "in the main path's float64; the main path's 0 bytes of stack frame, 0 bytes "
+            "spilled")
         # K4c-r: one kernel per room of 4, 8, 16 or 32 words a row, way in
         # (straight by 16-byte or one-word accesses, or staged), and dtype
         k4cr = used["K4c-r"]
@@ -725,7 +765,7 @@ def phase_build():
         log(f"[2] ptxas: rank2_batched_rows_kernel, {len(k4cr)} kernels: {min(k4cr)} to "
             f"{max(k4cr)} registers a thread, {main.get('K4c-r')} at n = {BFGS_N} in float32, "
             "0 bytes of stack frame, 0 bytes spilled")
-        for kid in ("K2b-c", "K3-c", "K2b-d", "K3-d", "K2a-c", "K2a-d"):
+        for kid in ("K2b-c", "K3-c", "K2b-d", "K3-d", "K2a-c", "K2a-d", "K2a-p", "K2a-p's replay"):
             check(len(used[kid]) == 2, f"ptxas reported {len(used[kid])} kernels of {kid}, "
                   "expected one per dtype")
             log(f"[2] ptxas: {kid}, {len(used[kid])} kernels (float32, float64): "
@@ -1075,18 +1115,29 @@ def spd_forms():
 
     return {"K3-r": tsc.solve_spd_registers, "K3-w": tsc.solve_spd_warp,
             "K3-c": tsc.solve_spd_cluster, "K3-d": tsc.solve_spd_distributed,
-            "K3-g": tsc.solve_spd_batchminor_global}
+            "K3-b": tsc.solve_spd_blocked, "K3-g": tsc.solve_spd_batchminor_global}
 
 
 K3_OF_PLAN = {"registers": "K3-r", "warp": "K3-w", "cluster": "K3-c", "distributed": "K3-d",
-              "global": "K3-g"}
+              "blocked": "K3-b", "global": "K3-g"}
 
 
 def spd_takes(kid, n, dtype):
+    """Whether ``kid`` takes order n and gives the twin's x there: K3-b,
+    whose back solve is not the twin's order, is held against its own plain
+    version apart."""
     from nlsolver_torch.ops import smallchol as tsc
 
     return {"K3-r": tsc.registers_fit, "K3-w": tsc.warp_fits, "K3-c": tsc.cluster_fits,
-            "K3-d": tsc.distributed_fits}.get(kid, lambda n, d: True)(n, dtype)
+            "K3-d": tsc.distributed_fits,
+            "K3-b": lambda n, d: False}.get(kid, lambda n, d: True)(n, dtype)
+
+
+def spd_residual(torch, A, x, rhs):
+    """max over lanes of |A x - b| / (|A| |x|), the 2-norm of vectors and
+    Frobenius norm of A."""
+    r = torch.einsum("ijb,jb->ib", A, x) - rhs
+    return float((r.norm(dim=0) / (A.flatten(0, 1).norm(dim=0) * x.norm(dim=0))).max())
 
 
 def spd_case(torch, dev, n, b, dtype=None, seed=7):
@@ -1200,21 +1251,22 @@ def phase_smallchol(torch, dev):
             _, _, _, ms = dispatch(kid, A, rhs, f"[{n}, {n}, 3] {kind}")
             log(f"[7] solve_spd_batchminor([{n}, {n}, 3] {kind}) through {kid}: bit-equal to "
                 f"the twin, {ms:.3f} ms")
-        check(tsc.plan(far, dtype) == "distributed" and tsc.plan(far + 1, dtype) == "global",
+        check(tsc.plan(far, dtype) == "distributed" and tsc.plan(far + 1, dtype) == "blocked",
               f"the plan does not end K3-d at n={far} in {kind}")
         log(f"[7] the dispatcher takes K3-r for n <= {reg}, K3-w for {reg + 1} <= n <= {warp}, "
             f"K3-c for {warp + 1} <= n <= {last}, K3-d for {last + 1} <= n <= {far} (by the "
-            f"plan past {last + 1}), K3-g beyond ({kind}), each bit-equal to the twin")
+            f"plan past {last + 1}), each bit-equal to the twin, K3-b beyond ({kind})")
     # K3-c's path: the dispatcher past K3-w's range in float64, counted and
     # held bit for bit against the twin's order on the card (the twin's
     # square roots taken there: the host's float64 torch.sqrt may be off by
     # an ulp where the card's is not)
     n, b = K3G_N, K3G_B
     A, rhs = spd_case(torch, dev, n, b, torch.float64)
-    x, counts, twin_ms, _ = dispatch("K3-c", A, rhs, f"[{n}, {n}, {b}] float64")
+    x, counts, path_twin_ms, _ = dispatch("K3-c", A, rhs, f"[{n}, {n}, {b}] float64")
+    twin_ms = {}
     res = float(((torch.einsum("ijb,jb->ib", A, x) - rhs).norm(dim=0) / rhs.norm(dim=0)).max())
     log(f"[7] solve_spd_batchminor([{n}, {n}, {b}] float64): launches {counts}; bit-equal to "
-        f"the twin's order (chol_solve_right_looking, {twin_ms:.0f} ms); max over lanes of "
+        f"the twin's order (chol_solve_right_looking, {path_twin_ms:.0f} ms); max over lanes of "
         f"|Ax-b|/|b| {res:.3e}")
     check(bool(torch.isfinite(x).all()) and res < 1e-12, "K3-c's residual above 1e-12")
     launches = {"K3-c": counts["K3-c"]}
@@ -1245,6 +1297,60 @@ def phase_smallchol(torch, dev):
     log(f"[7] solve_spd_batchminor_global([{n}, {n}, 2] float64) (K3-g): bit-equal to the "
         f"twin, {start.elapsed_time(end):.3f} ms")
     launches["K3-g"] = counts["K3-g"]
+    # K3-b, past K3-d's range, by a direct call on the same systems: its x
+    # bit-equal to its plain version's (L and z the twin's, the back solve by
+    # columns, descending), and within a few ulps of the twin's
+    reset_counts()
+    xb = tsc.solve_spd_blocked(A, rhs)
+    torch.cuda.synchronize()
+    counts = {k: f.launches for k, f in forms.items()}
+    check(counts == {k: int(k == "K3-b") for k in forms},
+          f"solve_spd_blocked([{n}, {n}, 2] float64) launched {counts}")
+    want = tsc.solve_spd_blocked_reference(A, rhs)
+    check(torch.equal(xb, want), f"K3-b differs from its plain version at [{n}, {n}, 2] float64: "
+          f"max |diff| {max_diff(xb, want):.3e}")
+    log(f"[7] solve_spd_blocked([{n}, {n}, 2] float64) (K3-b) by a direct call: bit-equal to "
+        f"its plain version, max |x - x_twin| / max |x_twin| {max_diff(xb, x) / max_diff(x, 0 * x):.3e}")
+    worst["K3-b"] = max(worst["K3-b"], max_diff(xb, want))
+    # K3-b's path: the first n past K3-d's range in float64 and in float32,
+    # on 2 lanes, through the dispatcher, counted, x bit-equal to its plain
+    # version run on the card; the residual beside that of the twin's order
+    # (chol_solve_right_looking: the twin's factor on the card, its back
+    # solve, ascending in k, on the host)
+    launches["K3-b"] = 0
+    for dtype in (torch.float64, torch.float32):
+        kind = str(dtype)[6:]
+        n = K3B_N[kind]
+        check(tsc.plan(n - 1, dtype) == "distributed" and tsc.plan(n, dtype) == "blocked",
+              f"K3-d's range in {kind} does not end at n={n - 1}")
+        A, rhs = spd_case(torch, dev, n, 2, dtype)
+        reset_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        xb = tsc.solve_spd_batchminor(A, rhs)
+        end.record()
+        torch.cuda.synchronize()
+        counts = {k: f.launches for k, f in forms.items()}
+        check(counts == {k: int(k == "K3-b") for k in forms},
+              f"solve_spd_batchminor([{n}, {n}, 2] {kind}) launched {counts}, not K3-b once")
+        t0 = time.perf_counter()
+        want = tsc.solve_spd_blocked_reference(A, rhs)
+        torch.cuda.synchronize()
+        twin_ms[f"K3-b {kind}"] = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(xb, want), f"K3-b differs from its plain version at [{n}, {n}, 2] "
+              f"{kind}: max |diff| {max_diff(xb, want):.3e}")
+        worst["K3-b"] = max(worst["K3-b"], max_diff(xb, want))
+        xt = tsc.chol_solve_right_looking(A, rhs)
+        res, res_t = spd_residual(torch, A, xb, rhs), spd_residual(torch, A, xt, rhs)
+        log(f"[7] solve_spd_batchminor([{n}, {n}, 2] {kind}): launches {counts}; through K3-b "
+            f"({tsc.blocked_plan(n, dtype, 2)} CTAs a lane, panels of {tsc.BLOCKED_NB}) "
+            f"bit-equal to its plain version ({twin_ms[f'K3-b {kind}']:.0f} ms), "
+            f"{start.elapsed_time(end):.3f} ms; max over lanes of |Ax-b| / (|A| |x|) {res:.3e}, "
+            f"the twin's order's {res_t:.3e}, max |x - x_twin| {max_diff(xb, xt):.3e}")
+        check(bool(torch.isfinite(xb).all())
+              and res < (1e-5 if dtype == torch.float32 else 1e-13) and res < 10 * res_t + 1e-16,
+              f"K3-b's residual at [{n}, {n}, 2] {kind} is too large")
+        launches["K3-b"] += counts["K3-b"]
     A32 = torch.eye(3, device=dev).reshape(3, 3, 1).expand(3, 3, 64).contiguous()
     for what, args in (("non-contiguous", (A32.transpose(0, 1), torch.ones(3, 64, device=dev))),
                        ("f16", (A32.half(), torch.ones(3, 64, device=dev).half()))):
@@ -1254,7 +1360,8 @@ def phase_smallchol(torch, dev):
             log(f"[7] K3 refuses a {what} input: {e}")
         else:
             check(False, f"K3 took a {what} input")
-    return worst, launches, {"K3-c": twin_ms, "K3-d": far_twin_ms}
+    twin_ms.update({"K3-c": path_twin_ms, "K3-d": far_twin_ms})
+    return worst, launches, twin_ms
 
 
 def first_system(torch, dev, scenario, n, X0_value):
@@ -1409,18 +1516,20 @@ def phase_qr(torch, dev):
             path_launches[kid] = path(A, y, twin, kid, f"[{n}, {n}, 2] {str(dtype)[6:]}" + (
                 f" ({tqw.distributed_plan(n, dtype, 2)} CTAs a lane)" if kid == "K2b-d" else ""))
     log(f"[8] the twin at [{n}, {n}, 2] float64: {twin_ms:.0f} ms")
+    twin_ms = {"K2b": twin_ms}
     # K2a-w and K2a-g, bit for bit against the twin, and a factorization
     qr_forms = qr_forms_of()
 
-    def hold_qr(kid, qr, A, compute_q, label):
-        """One counted launch of K2a's form ``kid`` through ``qr`` (the form
-        itself, or the dispatcher) against the twin."""
+    def hold_qr(kid, qr, A, compute_q, label, launches=1):
+        """``launches`` counted launches of K2a's form ``kid`` through ``qr``
+        (the form itself, or the dispatcher) against the twin."""
         nonlocal worst
         tR, tQ = tqw.qr_wavefront_reference(A, compute_q)
         before = qr_forms[kid].launches
         R, Q = qr(A, compute_q=compute_q)
         torch.cuda.synchronize()
-        check(qr_forms[kid].launches == before + 1, f"{kid} {label}: no launch counted")
+        check(qr_forms[kid].launches == before + launches,
+              f"{kid} {label}: {qr_forms[kid].launches - before} launches counted, not {launches}")
         check(torch.equal(R, tR) and (not compute_q or torch.equal(Q, tQ)),
               f"{kid} differs from its twin at {label}: R {max_diff(R, tR):.3e}"
               + (f", Q {max_diff(Q, tQ):.3e}" if compute_q else ""))
@@ -1459,12 +1568,12 @@ def phase_qr(torch, dev):
                             f"[{m}, {n}, {b}] {str(dtype)[6:]}{' with Q' if q else ''}, the "
                             "dispatcher")
             last = ends["K2a-d"][1][0]
-            check(tqw.qr_form(last + 1, last + 1, dtype, q) == "global",
+            check(tqw.qr_form(last + 1, last + 1, dtype, q) == "panel",
                   f"the dispatcher does not end K2a-d at [{last}, {last}] in {dtype}")
             log(f"[8] {str(dtype)[6:]}{' with Q' if q else ''}: bit-equal to the twin through the "
                 "dispatcher, each form at its first and last square shape and with one row more: "
                 + "; ".join(f"{kid} {[list(e) for e in shapes]}" for kid, shapes in ends.items())
-                + f"; K2a-g from [{last + 1}, {last + 1}]")
+                + f"; K2a-p from [{last + 1}, {last + 1}]")
     # K2a's path: linalg.qr(method="pallas"), counted, through K2a-w at the
     # timed shape, K2a-c past K2a-w's range, K2a-d at the first square shape
     # past K2a-c's in float64; K2a-g by a direct call at K2a-c's shape
@@ -1496,6 +1605,55 @@ def phase_qr(torch, dev):
             + (", bit-equal to the twin" if kid == "K2a-g" else ""))
         launches[kid] = counts[kid]
     launches.update(path_launches)
+    # K2a-p's path: linalg.qr(method="pallas") at the first square shapes
+    # past K2a-d's range with Q (one panel; 2 lanes), counted, R and Q
+    # bit-equal to the twin run on the card; then at [1817, 1817, 1] f64,
+    # past K2a-d's range without Q, and at the first shape that K2a-p forms
+    # in two panels, [1849, 1849, 1] f64
+    launches["K2a-p"] = 0
+    for (m, n, b), dtype in (((K2AP_N["float32"],) * 2 + (2,), torch.float32),
+                             ((K2AP_N["float64"],) * 2 + (2,), torch.float64),
+                             ((1817, 1817, 1), torch.float64),
+                             ((K2AP_PANELS_N, K2AP_PANELS_N, 1), torch.float64)):
+        kind = str(dtype)[6:]
+        check(tqw.qr_form(m, n, dtype, True) == "panel", f"K2a-p does not take [{m}, {n}] {kind}")
+        A = torch.randn((m, n, b), generator=g, device=dev, dtype=dtype)
+        reset_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = linalg.qr(A, method="pallas")
+        end.record()
+        torch.cuda.synchronize()
+        counts = {k: f.launches for k, f in qr_forms.items()}
+        want = tqw.qr_panel_launches(m, n, dtype, True)
+        check(counts == {k: want * (k == "K2a-p") for k in qr_forms},
+              f"linalg.qr([{m}, {n}, {b}] {kind}) launched {counts}, not K2a-p's {want} kernels")
+        t0 = time.perf_counter()
+        tR, tQ = tqw.qr_wavefront_reference(A, True)
+        torch.cuda.synchronize()
+        twin_ms[f"K2a-p [{m}, {n}, {b}] {kind}"] = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(out.R, tR) and torch.equal(out.Q, tQ),
+              f"K2a-p differs from its twin at [{m}, {n}, {b}] {kind}: R "
+              f"{max_diff(out.R, tR):.3e}, Q {max_diff(out.Q, tQ):.3e}")
+        err = float(linalg.validate_qr(
+            linalg.QR(out.Q.permute(2, 0, 1), out.R.permute(2, 0, 1)), A.permute(2, 0, 1)))
+        check(err < (1e-3 if dtype == torch.float32 else 1e-10),
+              f"K2a-p [{m}, {n}, {b}] {kind} does not reconstruct A ({err:.3e})")
+        panels = tqw.qr_panel_plan(m, n, dtype, b)
+        log(f"[8] linalg.qr(A[{m}, {n}, {b}] {kind}): launches {counts}; through K2a-p "
+            f"({len(panels)} panel{'s' * (len(panels) > 1)} over {panels[0][2]} CTAs a lane), "
+            f"bit-equal to the twin ({twin_ms[f'K2a-p [{m}, {n}, {b}] {kind}']:.0f} ms), "
+            f"{start.elapsed_time(end):.3f} ms, max|QR - A| {err:.3e}")
+        if b == 2:
+            launches["K2a-p"] += counts["K2a-p"]
+        del A, out, tR, tQ
+    # K2a-p by a direct call at K2a-d's path, [333, 333, 2] f64 with Q
+    A = torch.randn((K2AD_N, K2AD_N, 2), generator=g, device=dev, dtype=torch.float64)
+    want = tqw.qr_panel_launches(K2AD_N, K2AD_N, torch.float64, True)
+    hold_qr("K2a-p", qr_forms["K2a-p"], A, True, f"[{K2AD_N}, {K2AD_N}, 2] float64, a direct call",
+            want)
+    log(f"[8] K2a-p by a direct call at [{K2AD_N}, {K2AD_N}, 2] float64 with Q: {want} launches, "
+        "bit-equal to the twin")
     return worst, launches, twin_ms
 
 
@@ -1514,7 +1672,8 @@ def qr_forms_of():
     from nlsolver_torch.ops import qr_wavefront as tqw
 
     return {"K2a-w": tqw.qr_wavefront_warp, "K2a-c": tqw.qr_wavefront_cluster,
-            "K2a-d": tqw.qr_wavefront_distributed, "K2a-g": tqw.qr_wavefront_global}
+            "K2a-d": tqw.qr_wavefront_distributed, "K2a-p": tqw.qr_wavefront_panel,
+            "K2a-g": tqw.qr_wavefront_global}
 
 
 def kernel_wrappers():
@@ -1526,7 +1685,8 @@ def kernel_wrappers():
             de_fused.de_generation_staged, de_fused.de_generation_cluster,
             de_fused.de_generation_global,
             qr_wavefront.qr_wavefront_warp, qr_wavefront.qr_wavefront_cluster,
-            qr_wavefront.qr_wavefront_distributed, qr_wavefront.qr_wavefront_global,
+            qr_wavefront.qr_wavefront_distributed, qr_wavefront.qr_wavefront_panel,
+            qr_wavefront.qr_wavefront_global,
             qr_wavefront.least_squares_wavefront_registers,
             qr_wavefront.least_squares_wavefront_shared,
             qr_wavefront.least_squares_wavefront_warp,
@@ -1534,7 +1694,8 @@ def kernel_wrappers():
             qr_wavefront.least_squares_wavefront_distributed,
             qr_wavefront.least_squares_wavefront_global, smallchol.solve_spd_registers,
             smallchol.solve_spd_warp, smallchol.solve_spd_cluster,
-            smallchol.solve_spd_distributed, smallchol.solve_spd_batchminor_global,
+            smallchol.solve_spd_distributed, smallchol.solve_spd_blocked,
+            smallchol.solve_spd_batchminor_global,
             rank2.rank2_direction_batchminor_resident, rank2.rank2_direction_batchminor_cluster,
             rank2.rank2_direction_batchminor_streamed, rank2.rank2_direction_batchminor_rowsplit,
             rank2.rank2_update_batched_kernel, rank2.rank2_update_batched_rows,
@@ -1679,12 +1840,13 @@ def abba(torch, kern, kreps, plain, preps, warmup=3):
     return (min(k1, k2), min(p1, p2)), (k1, k2, p1, p2)
 
 
-def phase_nlls_timing(torch, dev, spd_twin_ms, lstsq_twin_ms):
+def phase_nlls_timing(torch, dev, spd_twin_ms, qr_twin_ms):
     """NLLS fleets per backend, and K2a, K2b and K3 alone against their
     twins and library calls; ``spd_twin_ms`` holds the times at K3-c's and
     K3-d's paths of the twin's order as whole trailing blocks
-    (chol_solve_right_looking), taken in phase 7, ``lstsq_twin_ms`` the
-    twin's at K2b-d's path, taken in phase 8."""
+    (chol_solve_right_looking) and at K3-b's of its plain version, taken in
+    phase 7, ``qr_twin_ms`` the twin's at K2b-d's path and at K2a-p's,
+    taken in phase 8.  K2a-p and K3-b are timed by ``median_ms``."""
     from nlsolver_torch.benches import bench_nlls_fleet, device_ms
     from nlsolver_torch.ops import qr_wavefront as tqw
     from nlsolver_torch.ops import smallchol as tsc
@@ -1762,8 +1924,8 @@ def phase_nlls_timing(torch, dev, spd_twin_ms, lstsq_twin_ms):
         "K2b-c": lstsq_case("K2b-c", *sys_c, 10, preps=1),
         "K2b-g n=120": lstsq_case("K2b-g", *sys_c, 1, preps=1),
         # K2b-g at its first n past K2b-c's range, and K2b-d, which takes it
-        "K2b-g": lstsq_case("K2b-g", *sys_d, 1, twin=lstsq_twin_ms),
-        "K2b-d": lstsq_case("K2b-d", *sys_d, 10, twin=lstsq_twin_ms),
+        "K2b-g": lstsq_case("K2b-g", *sys_d, 1, twin=qr_twin_ms["K2b"]),
+        "K2b-d": lstsq_case("K2b-d", *sys_d, 10, twin=qr_twin_ms["K2b"]),
         # K3: K3-r at the exp fleet's shape, the planned form at the 12-
         # coefficient Chebyshev fleet's, K3-w at the 30-coefficient one's,
         # each beside K3-g (the form every shape took before the others)
@@ -1834,7 +1996,83 @@ def phase_nlls_timing(torch, dev, spd_twin_ms, lstsq_twin_ms):
         best = max(rs, key=lambda r: r["fits_per_sec"])
         log(f"[10] fleet {solve}: {best['fits_per_sec']:.6g} fits/s "
             f"({best['median_ms']:.3f} ms per {best['steps']}-step fit of {FLEET_B} lanes)")
+    alone.update(time_past_distributed(torch, dev, spd_twin_ms, qr_twin_ms))
+    for new, old in (("K2a-p n=333", "K2a-g n=333"), ("K2a-p n=333", "K2a-d"),
+                     ("K3-b n=646", "K3-g"), ("K3-b n=646", "K3-d")):
+        log(f"[10] {new}: {alone[new][0]:.3f} ms against {old.split()[0]}'s {alone[old][0]:.3f} "
+            f"ms at the same shape ({alone[old][0] / alone[new][0]:.2f}x)")
     return alone
+
+
+def median_ms(torch, fn, reps=5, warmup=2):
+    """The median over ``reps`` calls of ``fn`` of its time in ms, from CUDA
+    events around each call, after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[reps // 2]
+
+
+def time_past_distributed(torch, dev, spd_twin_ms, qr_twin_ms):
+    """K2a-p and K3-b, each at its direct call's shape (K2a-d's and K3-d's
+    paths, [333, 333, 2] and [646, 646, 2] f64) and at the first shapes of
+    its range, beside the library call that computes the same function
+    (torch.linalg.qr, complete; cholesky_ex + cholesky_solve), each the
+    median of 5 calls after 2 warm-ups; the plain version timed once there
+    (phases 7 and 8 at the first shapes).  Returns (ms, plain ms, library
+    ms) by name: "K2a-p" and "K3-b" at the float64 first shape, "... n=N"
+    at the others."""
+    from nlsolver_torch.ops import qr_wavefront as tqw
+    from nlsolver_torch.ops import smallchol as tsc
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    out = {}
+
+    def once_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    for n, b, dtype in ((K2AD_N, 2, torch.float64), (K2AP_N["float64"], 2, torch.float64),
+                        (K2AP_N["float32"], 2, torch.float32)):
+        kind = str(dtype)[6:]
+        A = torch.randn((n, n, b), generator=g, device=dev, dtype=dtype)
+        Al = A.permute(2, 0, 1).contiguous()
+        ms = median_ms(torch, lambda: tqw.qr_wavefront_panel(A, compute_q=True))
+        lib = median_ms(torch, lambda: torch.linalg.qr(Al, mode="complete"))
+        plain = qr_twin_ms.get(f"K2a-p [{n}, {n}, {b}] {kind}") or once_ms(
+            lambda: tqw.qr_wavefront_reference(A, True))
+        name = "K2a-p" if n == K2AP_N["float64"] else f"K2a-p n={n}"
+        out[name] = (ms, plain, lib)
+        log(f"[10] {name} ([{n}, {n}, {b}] {kind} with Q): {ms:.3f} ms (median of 5 after 2), "
+            f"the twin {plain:.1f} ms, torch.linalg.qr {lib:.3f} ms: {ms / lib:.2f}x the library")
+        del A, Al
+    for n, dtype in ((K3D_N, torch.float64), (K3B_N["float64"], torch.float64),
+                     (K3B_N["float32"], torch.float32)):
+        kind = str(dtype)[6:]
+        A, rhs = spd_case(torch, dev, n, 2, dtype, seed=9)
+        Al, bl = A.permute(2, 0, 1).contiguous(), rhs.t().contiguous()[:, :, None]
+        ms = median_ms(torch, lambda: tsc.solve_spd_blocked(A, rhs))
+        lib = median_ms(torch, lambda: torch.cholesky_solve(bl, torch.linalg.cholesky_ex(Al).L))
+        plain = spd_twin_ms.get(f"K3-b {kind}") if n != K3D_N else None
+        plain = plain or once_ms(lambda: tsc.solve_spd_blocked_reference(A, rhs))
+        name = "K3-b" if n == K3B_N["float64"] else f"K3-b n={n}"
+        out[name] = (ms, plain, lib)
+        log(f"[10] {name} ([{n}, {n}, 2] {kind}): {ms:.3f} ms (median of 5 after 2), its plain "
+            f"version {plain:.1f} ms, cholesky_ex + cholesky_solve {lib:.3f} ms: "
+            f"{ms / lib:.2f}x the library")
+        del A, rhs, Al, bl
+    return out
 
 
 def rank2_case(torch, dev, n, b, dtype=None, seed=11):
@@ -3860,9 +4098,9 @@ def phases_earlier(torch, dev):
     de_launches = phase(5, phase_slice, torch, dev)
     de_times = phase(6, phase_timing, torch, dev)
     chol_err, k3_launches, spd_twin_ms = phase(7, phase_smallchol, torch, dev)
-    qr_err, qr_launches, lstsq_twin_ms = phase(8, phase_qr, torch, dev)
+    qr_err, qr_launches, qr_twin_ms = phase(8, phase_qr, torch, dev)
     fleet_launches = phase(9, phase_nlls_slice, torch, dev)
-    alone = phase(10, phase_nlls_timing, torch, dev, spd_twin_ms, lstsq_twin_ms)
+    alone = phase(10, phase_nlls_timing, torch, dev, spd_twin_ms, qr_twin_ms)
     rank2_err = phase(11, phase_rank2, torch, dev)
     bfgs_launches = phase(12, phase_bfgs_slice, torch, dev)
     alone.update(phase(13, phase_bfgs_timing, torch, dev))
@@ -3919,6 +4157,11 @@ def phases_earlier(torch, dev):
                    qr_launches["K2a-g"], qr_err, alone["K2a-g"],
                    bound(3 * 170 * 170 * 32 * 4, givens_ops(170, 170, 170) * 32),
                    shape="[170, 170, 32] f32 with Q, a direct call"),
+        # past K2a-d's range: linalg.qr at the first square shapes with Q in
+        # f64 (the row's time) and f32, one launch each (phase 8)
+        kernel_row("qr_wavefront_panel", csrc + "qr_wavefront.cu", tpu + "qr_wavefront.py:150",
+                   qr_launches["K2a-p"], qr_err, alone["K2a-p"], qr_bound(K2AP_N["float64"], 2, True),
+                   shape=f"[{K2AP_N['float64']}, {K2AP_N['float64']}, 2] f64 with Q"),
         # A and y in, x out; each form at the fleet it serves
         kernel_row("least_squares_wavefront_registers", csrc + "qr_wavefront.cu", k2b,
                    fleet_launches["K2b-r"], qr_err, alone["K2b-r"], lstsq_bound(m, 2, FLEET_B),
@@ -3959,6 +4202,13 @@ def phases_earlier(torch, dev):
         kernel_row("solve_spd_batchminor_global", csrc + "smallchol.cu",
                    tpu + "smallchol.py:101", k3_launches["K3-g"], chol_err["K3-g"], alone["K3-g"],
                    spd_bound(K3D_N, 2, True)),
+        # past K3-d's range: solve_spd_batchminor at the first n in f64 (the
+        # row's time) and f32, one launch each (phase 7); max_abs_err against
+        # its plain version, whose back solve is not the twin's order
+        kernel_row("solve_spd_blocked", csrc + "smallchol.cu", tpu + "smallchol.py:101",
+                   k3_launches["K3-b"], chol_err["K3-b"], alone["K3-b"],
+                   spd_bound(K3B_N["float64"], 2, True),
+                   shape=f"[{K3B_N['float64']}, {K3B_N['float64']}, 2] f64"),
         kernel_row("rank2_direction_batchminor_resident", csrc + "rank2.cu", tpu + "rank2.py:280",
                    bfgs_launches["K4a"], err_at(rank2_err, "K4a", main), alone["K4a"],
                    rank2_bound(BFGS_N, BFGS_B)),
@@ -4051,6 +4301,25 @@ def main():
     for row in rows:
         if row["name"] in more:
             row["more_launches"] = more[row["name"]]
+    # K2a-p's and K3-b's other shapes: the other dtype's first shape and the
+    # direct call's at K2a-d's and K3-d's paths (phase 10)
+    alone = k4c["alone"]
+    others = {"qr_wavefront_panel": [
+                  (f"[{K2AP_N['float32']}, {K2AP_N['float32']}, 2] f32 with Q", "K2a-p n=1875",
+                   qr_bound(K2AP_N["float32"], 2)),
+                  (f"[{K2AD_N}, {K2AD_N}, 2] f64 with Q, a direct call", "K2a-p n=333",
+                   qr_bound(K2AD_N, 2, True))],
+              "solve_spd_blocked": [
+                  (f"[{K3B_N['float32']}, {K3B_N['float32']}, 2] f32", "K3-b n=3600",
+                   spd_bound(K3B_N["float32"], 2)),
+                  (f"[{K3D_N}, {K3D_N}, 2] f64, a direct call", "K3-b n=646",
+                   spd_bound(K3D_N, 2, True))]}
+    for row in rows:
+        for shape, key, (bound_ms, bound_by) in others.get(row["name"], ()):
+            ms, plain_ms, library_ms = alone[key]
+            row.setdefault("more_shapes", {})[shape] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by}
     print(f"seconds a phase: {PHASE_SECONDS}; {time.perf_counter() - start:.1f} s in all",
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

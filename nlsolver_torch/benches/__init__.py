@@ -869,6 +869,78 @@ def probe_qr_distributed(m=333, n=333, B=2, dtype=torch.float64, sizes=None, rep
     return out
 
 
+def probe_past_distributed(qr_cases=((1321, 2, torch.float64), (1875, 2, torch.float32),
+                                      (1849, 1, torch.float64)),
+                           spd_cases=((2458, 2, torch.float64), (3600, 2, torch.float32)),
+                           nbs=(4, 8), reps=3, top=4):
+    """K2a-p with Q on ``[n, n, B]`` ~ N(0, 1) for each (n, B, dtype) of
+    ``qr_cases`` and K3-b on ``spd_systems(n, B)`` for each of ``spd_cases``,
+    past K2a-d's and K3-d's ranges: one call of each under
+    ``torch.profiler`` (``_profiled``: the device time of its kernels, R's
+    panels against the log's replay), each also with the card's every SM a
+    lane (the lanes one after another), K3-b's device time with panels of
+    each width of ``nbs``, each result bit-equal to the twin's (K2a-p) or
+    to its plain version's (K3-b), and in its probe modes (no back solve,
+    the barriers alone, no trailing update, the trailing update alone, no
+    factorization of the next panel, no update of it).
+    Device time in ms behind a device sleep, the least of two."""
+    from ..ops import qr_wavefront as tqw
+    from ..ops import smallchol as tsc
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("probe_past_distributed measures a CUDA card; none is available")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for n, B, dtype in qr_cases:
+        A = torch.randn((n, n, B), generator=g, device="cuda", dtype=dtype)
+        run = functools.partial(tqw.qr_wavefront_panel, A, True)
+        prof = _profiled_or_not(run, top)
+        R, Q = run()
+        tR, tQ = tqw.qr_wavefront_reference(A, True)
+        if not (torch.equal(R, tR) and torch.equal(Q, tQ)):
+            raise RuntimeError(f"probe_past_distributed: K2a-p [{n}, {n}, {B}] differs")
+        del R, Q, tR, tQ
+        row = {"form": "K2a-p", "n": n, "B": B, "dtype": str(dtype)[6:],
+               "panels": tqw.qr_panel_plan(n, n, dtype, B),
+               "ms": min(device_ms(run, reps, warmup=1) for _ in range(2))}
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        run = functools.partial(tqw.qr_wavefront_panel, A, True, size=sms)
+        row[f"size{sms}_ms"] = min(device_ms(run, reps, warmup=1) for _ in range(2))
+        rows.append({**row, **prof})
+    for n, B, dtype in spd_cases:
+        A, b = spd_systems(n, B, dtype=dtype)
+        want = tsc.solve_spd_blocked_reference(A, b)
+        row = {"form": "K3-b", "n": n, "B": B, "dtype": str(dtype)[6:],
+               "size": tsc.blocked_plan(n, dtype, B)}
+        for nb in nbs:
+            run = functools.partial(tsc.solve_spd_blocked, A, b, _nb=nb)
+            if not torch.equal(run(), want):
+                raise RuntimeError(f"probe_past_distributed: K3-b [{n}, {n}, {B}] differs")
+            row[f"nb{nb}_ms"] = min(device_ms(run, reps, warmup=1) for _ in range(2))
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        run = functools.partial(tsc.solve_spd_blocked, A, b, size=sms)
+        if not torch.equal(run(), want):
+            raise RuntimeError(f"probe_past_distributed: K3-b [{n}, {n}, {B}] differs")
+        row[f"size{sms}_ms"] = min(device_ms(run, reps, warmup=1) for _ in range(2))
+        for mode, what in ((1, "no_back_solve"), (2, "barriers"), (3, "no_trailing"),
+                           (4, "trailing_alone"), (5, "no_panel_factor"),
+                           (6, "no_panel_update")):
+            run = functools.partial(tsc.solve_spd_blocked, A, b, _mode=mode)
+            row[f"{what}_ms"] = min(device_ms(run, reps, warmup=1) for _ in range(2))
+        rows.append({**row, **_profiled_or_not(functools.partial(tsc.solve_spd_blocked, A, b),
+                                               top)})
+    return rows
+
+
+def _profiled_or_not(run, top):
+    """``_profiled``'s numbers, or a note that the profiler recorded no
+    device time (it has, on the card, after many launches in one process)."""
+    try:
+        return _profiled(run, top)[1]
+    except RuntimeError as e:
+        return {"profile": f"not measured: {e}"}
+
+
 def probe_chain_latency(n=8192, reps=3):
     """Clocks a step of one thread's chain of dependent rounded f64
     subtractions (``csrc/chain_probe.cu``), the chain of a back solve's row

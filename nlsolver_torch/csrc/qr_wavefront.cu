@@ -48,15 +48,19 @@
 //     device memory (the scratch R and qty the wrapper allocates), read and
 //     written some 330 times a lane at [34, 2]; every n, for n past the
 //     distributed form's.
-// K2a comes in four forms, chosen by (m, n), dtype and Q in
+// K2a comes in five forms, chosen by (m, n), dtype and Q in
 // ops/qr_wavefront.py: qr_warp_kernel<T, kQ, Q> (K2a-w, below) gives a
 // lane a warp and keeps its [R | Q^T] in shared memory; past its range
 // qr_cluster_kernel<T> (K2a-c) splits the array's columns over the shared
 // memory of a thread-block cluster of 2, 4 or 8 CTAs, and past that
 // qr_distributed_kernel<T> (K2a-d) over P CTAs of the whole card, as far as
-// 132 CTAs hold it; beyond, qr_wavefront_kernel (no kSolve) writes all of
-// R and, with Q, Q^T [m, m, B] in device memory, a thread a lane, bound by
-// each thread's chain of dependent rotations through L2.
+// 132 CTAs hold it; beyond, qr_panel_kernel and qr_replay_kernel (K2a-p,
+// below) form R over the whole card with each rotation logged, then
+// rebuild Q^T from the log.  qr_wavefront_kernel (no kSolve, K2a-g) writes
+// all of R and, with Q, Q^T [m, m, B] in device memory, a thread a lane,
+// bound by each thread's chain of dependent rotations through L2: the
+// dispatcher's only where one column of m words and a stage's coefficients
+// no longer fit a CTA (m = n past 29055 in f32, 14527 in f64).
 //
 // Arithmetic: each step is rounded as the plain PyTorch twin
 // (nlsolver_torch/linalg/qr_parallel.py) rounds it: the Givens
@@ -1320,6 +1324,272 @@ int launch_qr_distributed(const T* A, T* R, T* Qt, T* coef, unsigned* counts, in
   return static_cast<int>(cudaGetLastError());
 }
 
+// K2a-p, past K2a-d's range: R's rotations logged, Q^T rebuilt from the
+// log.  Replaces qr_wavefront_pallas (nlsolver_tpu/ops/qr_wavefront.py:114)
+// where 132 CTAs' shared memory no longer holds a lane's [R | Q^T] (m = n
+// from 1875 in f32 and 1321 in f64 with Q, 2641 and 1817 without).  What
+// bounds K2a-g there: one thread carries a lane's chain of some m n
+// rotations, each a round trip of two rows of n + m words through L2 (some
+// 6 minutes for two f64 lanes at m = n = 1321).  Two facts shape K2a-p:
+// Q^T never forms a rotation, it only receives them in stage order; and
+// for a fixed row r pivot j turns it at stages m - 2 + 2 j - r and m - 1 +
+// 2 j - r, so every element receives the rotations of lower pivots before
+// those of higher ones, and pivot j's coefficients read rows that no
+// higher pivot has turned yet.  So:
+//   * phase 1 (qr_panel_kernel, one cooperative launch a panel): a panel
+//     of R's columns j0 .. j1 - 1 lies over P CTAs' shared memory, column c
+//     in CTA (c - j0) % P, as K2a-d lays out [R | Q^T].  At each stage up to
+//     the last one with a pivot below j1, the owners of the panel's pivots
+//     form (c, s) and append them to the lane's rotation log in device
+//     memory (stage k's pivots j_lo .. j_hi at pairs log_offset(k) + j -
+//     j_lo), one barrier in device memory follows, and every CTA turns its
+//     columns by the stage's pivots below j1, read from the log.  A pivot's
+//     two rows take only two of the stage before's rotations, so its owner
+//     forms its (c, s) a stage ahead, right after that stage's
+//     coefficients arrive, and the CTA arrives at the barrier before it
+//     turns its columns: the barrier's latency hides behind the turns, as
+//     K2b-d's and K3-d's do.  The stages before the panel's first pivot (2
+//     j0) only replay earlier panels' pivots from the log: no barrier.  A stage's coefficients are copied
+//     into shared memory, at most min(n, m / 2 + 1) pairs.  R fits one
+//     panel up to m = n = 2641 in f32, 1848 in f64; past that, panels as
+//     wide as the card holds;
+//   * phase 2 (qr_replay_kernel, one plain launch): each CTA takes a tile
+//     of w columns, all m rows, in shared memory (Q^T from the identity, or
+//     an earlier panel's columns of R, which still lack the rotations of
+//     pivots from j1 on), streams the log in stage order and writes the
+//     tile once.  A warp takes 32 pivots of a stage, their (c, s) in
+//     registers, and turns them over a share of the tile's columns; rows
+//     are kept by parity, so the 32 row pairs of a warp are 32 neighbouring
+//     words of each half.  One block barrier a stage, no barrier across
+//     the card.
+// The log holds n (m - 1) - n (n - 1) / 2 pairs a lane, 14.1 MB at m = n =
+// 1875 in f32: it stays in the 50 MB L2 between the phases.  What bounds
+// K2a-p on an H100: phase 1's m + n - 2 stages, each a wait on the card's
+// L2 for the stage's coefficients (some 2.7 us a stage at [1321, 1321, 2]
+// in f64 over 132 CTAs), far above its operations; phase 2's turns through
+// shared memory, a block barrier a stage (PERF.md).  Every element
+// receives the twin's rotations in stage order, each rounded as
+// rotate_rows rounds it, all m columns of Q^T included, so R and Q equal
+// the twin's bit for bit.
+__host__ __device__ inline int64_t log_offset(int k, int m, int n) {
+  // stage k' < k turns pivots max(0, k' - m + 2) .. min(n - 1, k' / 2)
+  const int64_t K = k < 2 * n ? k : 2 * n, a = K / 2, r = K % 2;
+  int64_t below = (a + 1) * (a + r) + (k > 2 * n ? static_cast<int64_t>(k - 2 * n) * n : 0);
+  const int64_t t = static_cast<int64_t>(k) - (m - 2);
+  return below - (t > 0 ? t * (t - 1) / 2 : 0);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(1024, 1)
+    qr_panel_kernel(const T* __restrict__ A, T* __restrict__ R, T* rlog, unsigned* counts,
+                    int m, int n, int j0, int j1, int P, int64_t B, int64_t pairs) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int G = blockDim.y, g = threadIdx.y, tc = threadIdx.x;
+  const int lin = g * blockDim.x + tc, NT = blockDim.x * G;
+  const int teams = static_cast<int>(gridDim.x) / P, team = blockIdx.x / P;
+  const int rank = blockIdx.x % P;
+  const int Lc = (j1 - j0 + P - 1) / P;  // CTA 0's columns, the most
+  T* X = reinterpret_cast<T*>(smem);     // [m][Lc]
+  T* cs = X + m * Lc;                    // the stage's (c, s), pivot j at 2 (j - j_lo)
+  unsigned* count = counts + team;
+  unsigned epoch = 0;
+  const int c = j0 + rank + P * tc;  // this thread's column of R
+  const bool owns = tc < Lc && c < j1;
+  T* mine = X + tc;
+  const int k_end = min(m + n - 3, m - 3 + j1);  // the last stage with a pivot below j1
+  // whether stage k has pivots of this panel, j0 .. j1 - 1
+  auto own = [&](int k) { return min(min(n - 1, k / 2), j1 - 1) >= max(max(0, k - m + 2), j0); };
+
+#pragma unroll 1
+  for (int64_t b = team; b < B; b += teams) {
+    T* lg = rlog + b * 2 * pairs;
+    if (owns) load_column(mine, A, m, n, c, Lc, g, G, B, b);
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    if (k_end >= 0 && own(0)) {
+      // stage 0's one pivot, column 0's rows m - 2 and m - 1
+      if (owns && g == 0 && c == 0) {
+        T cc, ss;
+        givens(mine[(m - 2) * Lc], mine[(m - 1) * Lc], cc, ss);
+        __stcg(lg, cc);
+        __stcg(lg + 1, ss);
+      }
+      lane::arrive(count);
+    }
+    int64_t off = 0;  // log_offset(k)
+#pragma unroll 1
+    for (int k = 0; k <= k_end; ++k) {
+      const int j_lo = max(0, k - m + 2), j_hi = min(n - 1, k / 2), hi = min(j_hi, j1 - 1);
+      const int p0 = m - 2 - k;  // pivot j turns rows (p0 + 2 j, p0 + 2 j + 1)
+      if (own(k)) lane::wait(count, ++epoch * static_cast<unsigned>(P));
+      for (int e = lin; e < 2 * (hi - j_lo + 1); e += NT) cs[e] = __ldcg(lg + 2 * off + e);
+      __syncthreads();
+      const int64_t next = off + j_hi - j_lo + 1;  // log_offset(k + 1)
+      if (k < k_end && own(k + 1)) {
+        // stage k + 1's pivots ahead of the rest of stage k: pivot c reads
+        // rows (p0 - 1 + 2 c, p0 + 2 c), which stage k's rotations c - 1
+        // (its second row) and c (its first) turn, each as turn_column
+        // will, so its (c, s) go into the log and the CTA arrives before it
+        // turns its columns, and the barrier's wait hides behind that work
+        const int lo1 = max(max(0, k + 1 - m + 2), j0), hi1 = min(min(n - 1, (k + 1) / 2), j1 - 1);
+        if (owns && g == 0 && c >= lo1 && c <= hi1) {
+          const int ra = p0 - 1 + 2 * c, rb = ra + 1;
+          T va = mine[ra * Lc], vb = mine[rb * Lc];
+          if (c - 1 >= j_lo && c - 1 <= hi) {
+            const T cc = cs[2 * (c - 1 - j_lo)], ss = cs[2 * (c - 1 - j_lo) + 1];
+            va = rn::add(rn::mul(cc, va), rn::mul(-ss, mine[(ra - 1) * Lc]));
+          }
+          if (c >= j_lo && c <= hi) {
+            const T cc = cs[2 * (c - j_lo)], ss = cs[2 * (c - j_lo) + 1];
+            vb = rn::add(rn::mul(cc, vb), rn::mul(ss, mine[(rb + 1) * Lc]));
+          }
+          T cc, ss;
+          givens(va, vb, cc, ss);
+          const int j_lo1 = max(0, k + 1 - m + 2);
+          __stcg(lg + 2 * (next + c - j_lo1), cc);
+          __stcg(lg + 2 * (next + c - j_lo1) + 1, ss);
+        }
+        lane::arrive(count);  // its block barrier first: the reads above precede the turns
+      }
+      if (owns) turn_column(mine, cs - 2 * j_lo, Lc, p0, j_lo + g, hi, G);
+      __syncthreads();
+      off = next;
+    }
+    if (owns) {
+      for (int i = g; i < m; i += G) R[(static_cast<int64_t>(i) * n + c) * B + b] = mine[i * Lc];
+    }
+    __syncthreads();  // the next lane's columns overwrite these
+  }
+}
+
+// columns c0 .. c0 + cols - 1 of X [m, ld, B] receive the rotations of
+// pivots jfrom .. n - 1 from their lane's log, a tile of w columns a CTA:
+// X starts as the identity (``identity``, Q^T) or as stored
+template <typename T>
+__global__ void __launch_bounds__(512)
+    qr_replay_kernel(T* __restrict__ X, const T* __restrict__ rlog, int m, int n, int ld, int c0,
+                     int cols, int w, int jfrom, int identity, int64_t B, int64_t pairs) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tiles = (cols + w - 1) / w;
+  const int64_t b = blockIdx.x / tiles;
+  const int first = c0 + static_cast<int>(blockIdx.x % tiles) * w;
+  const int wt = min(w, c0 + cols - first);
+  const int half = (m + 1) / 2;
+  const int t = threadIdx.x, NT = blockDim.x, lane = t & 31, warp = t >> 5, W = NT >> 5;
+  T* Xs = reinterpret_cast<T*>(smem);  // local column l, row r at l 2 half + (r & 1) half + r / 2
+  auto at = [&](int l, int r) { return l * 2 * half + (r & 1) * half + (r >> 1); };
+  for (int e = t; e < wt * m; e += NT) {
+    const int l = e % wt, r = e / wt;
+    Xs[at(l, r)] = identity ? T(r == first + l)
+                            : X[(static_cast<int64_t>(r) * ld + first + l) * B + b];
+  }
+  __syncthreads();
+  const T* lg = rlog + b * 2 * pairs;
+  int64_t off = log_offset(2 * jfrom, m, n);
+#pragma unroll 1
+  for (int k = 2 * jfrom; k <= m + n - 3; ++k) {
+    const int j_lo = max(0, k - m + 2), j_hi = min(n - 1, k / 2), lo = max(j_lo, jfrom);
+    const int p0 = m - 2 - k;
+    const int chunks = (j_hi - lo + 32) / 32;
+    // a warp a chunk of 32 pivots and a share of the columns: ``split``
+    // warps share a chunk's columns where the chunks are fewer than the warps
+    const int split = chunks ? max(1, W / chunks) : 1;
+#pragma unroll 1
+    for (int item = warp; item < chunks * split; item += W) {
+      const int j = lo + (item % chunks) * 32 + lane;
+      if (j <= j_hi) {
+        const int64_t e = 2 * (off + j - j_lo);
+        const T cc = lg[e], ss = lg[e + 1];
+        const int p = p0 + 2 * j;
+        const int ip = (p & 1) * half + (p >> 1), iq = ((p + 1) & 1) * half + ((p + 1) >> 1);
+#pragma unroll 4
+        for (int l = item / chunks; l < wt; l += split) {
+          T* x = Xs + l * 2 * half;
+          const T vp = x[ip], vq = x[iq];
+          x[ip] = rn::add(rn::mul(cc, vp), rn::mul(ss, vq));
+          x[iq] = rn::add(rn::mul(cc, vq), rn::mul(-ss, vp));
+        }
+      }
+    }
+    off += j_hi - j_lo + 1;
+    __syncthreads();
+  }
+  for (int e = t; e < wt * m; e += NT) {
+    const int l = e % wt, r = e / wt;
+    X[(static_cast<int64_t>(r) * ld + first + l) * B + b] = Xs[at(l, r)];
+  }
+}
+
+// K2a-p's shared memory a CTA of phase 1 with P CTAs on a panel of
+// ``width`` columns: m rows of ceil(width / P) words, and the (c, s) of a
+// stage's pivots, at most min(n, m / 2 + 1) (ops/qr_wavefront.py's
+// qr_panel_bytes)
+template <typename T>
+int64_t qr_panel_smem(int m, int n, int width, int P) {
+  const int most = n < m / 2 + 1 ? n : m / 2 + 1;
+  return (static_cast<int64_t>(m) * ((width + P - 1) / P) + 2 * most) * sizeof(T);
+}
+
+// K2a-p's phase 1: blocks of (ceil(width / P), groups) threads an SM holds
+// at once, into ``blocks``
+template <typename T>
+int qr_panel_occupancy(int m, int n, int width, int P, int groups, int* blocks) {
+  const int64_t smem = qr_panel_smem<T>(m, n, width, P);
+  const int columns = (width + P - 1) / P;
+  if (n < 1 || m < n || width < 1 || P < 1 || groups < 1 || columns * groups > 1024 ||
+      !blocks || smem > kMaxDynamicSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = qr_panel_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel, columns * groups, static_cast<size_t>(smem)));
+}
+
+// K2a-p's phase 1 on the panel j0 .. j1 - 1: ``teams`` teams of P CTAs in one
+// cooperative launch; rlog 2 ``pairs`` words a lane, counts one zeroed
+// counter a team
+template <typename T>
+int launch_qr_panel(const T* A, T* R, T* rlog, unsigned* counts, int m, int n, int64_t B, int j0,
+                    int j1, int P, int teams, int groups, int64_t pairs, cudaStream_t st) {
+  const int64_t smem = qr_panel_smem<T>(m, n, j1 - j0, P);
+  const int columns = (j1 - j0 + P - 1) / P;
+  if (n < 1 || m < n || B < 1 || j0 < 0 || j1 <= j0 || j1 > n || P < 1 || teams < 1 ||
+      groups < 1 || columns * groups > 1024 || smem > kMaxDynamicSmem ||
+      pairs != log_offset(m + n - 2, m, n) || static_cast<int64_t>(teams) * P > (1 << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = qr_panel_kernel<T>;
+  const cudaError_t set = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (set != cudaSuccess) return static_cast<int>(set);
+  void* args[] = {&A, &R, &rlog, &counts, &m, &n, &j0, &j1, &P, &B, &pairs};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel), dim3(static_cast<unsigned>(teams * P)),
+      dim3(columns, groups), args, static_cast<size_t>(smem), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2a-p's phase 2: B lanes of ceil(cols / w) tiles, 512 threads a tile
+template <typename T>
+int launch_qr_replay(T* X, const T* rlog, int m, int n, int ld, int c0, int cols, int w,
+                     int jfrom, int identity, int64_t B, int64_t pairs, cudaStream_t st) {
+  const int64_t smem = static_cast<int64_t>(w) * 2 * ((m + 1) / 2) * sizeof(T);
+  const int64_t blocks = B * ((cols + w - 1) / w);
+  if (n < 1 || m < n || B < 1 || cols < 1 || w < 1 || c0 < 0 || c0 + cols > ld || jfrom < 0 ||
+      jfrom >= n || smem > kMaxDynamicSmem || pairs != log_offset(m + n - 2, m, n) ||
+      blocks > (int64_t{1} << 31) - 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = qr_replay_kernel<T>;
+  const cudaError_t set = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (set != cudaSuccess) return static_cast<int>(set);
+  kernel<<<static_cast<unsigned>(blocks), 512, static_cast<size_t>(smem), st>>>(
+      X, rlog, m, n, ld, c0, cols, w, jfrom, identity, B, pairs);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int N>
 int launch_registers(const T* A, const T* y, T* x, int m, int n, int64_t B,
                      cudaStream_t s) {
@@ -1423,6 +1693,40 @@ NLSOLVER_QR_WARP_LAUNCHER(f64, double, kQrWarpMaxQ64, kQrWarpMaxR64)
 
 NLSOLVER_QR_SPREAD_LAUNCHERS(f32, float)
 NLSOLVER_QR_SPREAD_LAUNCHERS(f64, double)
+
+// K2a-p, phase 1 on the panel of R's columns j0 .. j1 - 1: A [m, n, B] ->
+// those columns of R [m, n, B] and their pivots' rotations into rlog (2
+// ``pairs`` words a lane), ``size`` CTAs a lane of (ceil((j1 - j0) / size),
+// ``groups``) threads in ``teams`` teams (counts, one zeroed counter a
+// team), and its occupancy, the blocks an SM holds, into ``blocks``.
+// Phase 2: columns c0 .. c0 + cols - 1 of X [m, ld, B] (from the identity
+// where ``identity``) receive the rotations of pivots jfrom .. n - 1 from
+// rlog, ``w`` columns a CTA.  Return cudaGetLastError() (the occupancy
+// entry, the occupancy query's error).
+#define NLSOLVER_QR_PANEL_LAUNCHERS(SUFFIX, T)                                                   \
+  extern "C" int qr_wavefront_panel_##SUFFIX(const void* A, void* R, void* rlog, void* counts,  \
+                                             int m, int n, int64_t B, int j0, int j1, int size, \
+                                             int teams, int groups, int64_t pairs,              \
+                                             void* stream) {                                    \
+    return launch_qr_panel<T>(static_cast<const T*>(A), static_cast<T*>(R),                     \
+                              static_cast<T*>(rlog), static_cast<unsigned*>(counts), m, n, B,   \
+                              j0, j1, size, teams, groups, pairs,                               \
+                              static_cast<cudaStream_t>(stream));                               \
+  }                                                                                             \
+  extern "C" int qr_wavefront_panel_occupancy_##SUFFIX(int m, int n, int width, int size,       \
+                                                       int groups, int* blocks) {               \
+    return qr_panel_occupancy<T>(m, n, width, size, groups, blocks);                            \
+  }                                                                                             \
+  extern "C" int qr_wavefront_replay_##SUFFIX(void* X, const void* rlog, int m, int n, int ld,  \
+                                              int c0, int cols, int w, int jfrom, int identity, \
+                                              int64_t B, int64_t pairs, void* stream) {         \
+    return launch_qr_replay<T>(static_cast<T*>(X), static_cast<const T*>(rlog), m, n, ld, c0,   \
+                               cols, w, jfrom, identity, B, pairs,                              \
+                               static_cast<cudaStream_t>(stream));                              \
+  }
+
+NLSOLVER_QR_PANEL_LAUNCHERS(f32, float)
+NLSOLVER_QR_PANEL_LAUNCHERS(f64, double)
 
 // K2b's register form, n = 1 .. kRegisterMaxN, its shared-memory form
 // with ``lanes`` threads a block and ``smem`` bytes of dynamic shared memory,

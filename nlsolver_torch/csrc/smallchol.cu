@@ -16,7 +16,7 @@
 // (about n^3 / 6 multiply-subtracts, n (n + 1) / 2 divisions and square
 // roots, then n (n - 1) / 2 steps of the back solve), so what holds a
 // kernel back is how much of that chain waits on memory and how many
-// chains the card runs at once.  Five forms, chosen by n and dtype in
+// chains the card runs at once.  Six forms, chosen by n and dtype in
 // ops/smallchol.py (``plan``):
 //   * chol_registers_kernel<T, N> (K3-r): one thread a lane, L, z and x
 //     in registers.  Every index is a compile-time constant, so nothing goes
@@ -35,18 +35,23 @@
 //     a store in device memory, a barrier in device memory a step, one
 //     cooperative launch (below); past K3-c's n, as far as 132 CTAs hold
 //     the rows (ops/smallchol.py's distributed_fits).
+//   * chol_blocked_kernel<T> (K3-b): one lane over P CTAs of the whole
+//     card, its triangle packed in device memory, factored by panels with
+//     one barrier in device memory a panel, the back solve by columns
+//     (below); every n past K3-d's.
 //   * chol_global_kernel<T> (K3-g): one thread a lane, L in a batch-minor
-//     scratch of n (n + 1) / 2 rows in device memory; any n, for n past
-//     K3-d's.  Every l(i, k) is a load from device memory.
+//     scratch of n (n + 1) / 2 rows in device memory; any n, by a direct
+//     call.  Every l(i, k) is a load from device memory.
 //
 // Arithmetic: each operation is rounded as the plain PyTorch twin
 // (nlsolver_torch/linalg/solve.py:_solve_spd_unrolled, imported by
 // ops/smallchol.py as _chol_solve_batchminor) rounds it, in its order,
-// through the _rn intrinsics, so every form is bit-equal to it: entry
+// through the _rn intrinsics, so every form but K3-b is bit-equal to it: entry
 // (i, j) of L is A[i, j] less L[i][k] L[j][k] for k = 0 .. j - 1 in
 // ascending k, then its square root or its quotient by L[j][j]; z[i] is
 // b[i] less L[i][k] z[k] in ascending k, over L[i][i]; x[i] is z[i] less
-// L[k][i] x[k] for k = i + 1 .. n - 1 in ascending k, over L[i][i].
+// L[k][i] x[k] for k = i + 1 .. n - 1 in ascending k, over L[i][i].  K3-b
+// keeps the twin's L and z, and takes x[i]'s terms in descending k.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -780,6 +785,430 @@ __global__ void chol_global_kernel(const T* __restrict__ A, const T* __restrict_
   }
 }
 
+// K3-b, past K3-d's range: blocked over the whole card, the back solve by
+// columns.  Replaces solve_spd_batched_pallas (nlsolver_tpu/ops/smallchol.py:89)
+// for n past K3-d's, where 132 CTAs' shared memory no longer holds one
+// lane's packed triangle (n from 3600 in f32, 2458 in f64).  What bounds
+// K3-g there: one thread carries a lane's chain of some n^3 / 6 dependent
+// multiply-subtracts, each with two loads from L2 (some 3 minutes a lane at
+// n = 2458 in f64), and the twin's back solve is one chain of n (n - 1) / 2
+// dependent subtractions: x[i] takes L[k][i] x[k] in ascending k, so its
+// first term waits on x[i + 1], the last value formed.  So:
+//   * a team of P CTAs takes a lane, and first copies its lower triangle
+//     and b into a store in device memory packed by columns, column j (rows
+//     j .. n, b as row n) at col(j), through 32 x 32 tiles in shared memory
+//     so that both sides coalesce (one pass of the compulsory bytes; 24 MB a
+//     lane at n = 2458 in f64, kept in L2).  A column's rows lie side by
+//     side, so a warp's 32 rows of a column are one or two 128-byte
+//     requests wherever the factorization reads or writes them;
+//   * the factorization runs right-looking by panels of nb columns, b as
+//     row n, with one barrier in device memory a panel: CTA 0 holds the
+//     current panel's rows as nb columns of n + 1 words in shared memory
+//     (in a device-memory scratch where that does not fit), and while the
+//     other CTAs subtract the panel's terms from the trailing columns past
+//     the next panel (a warp a tile of 32 rows by 32 columns, a lane a row,
+//     its nb terms in registers), it updates the next panel by them and
+//     factors it (lookahead), so the critical path is a panel's update and
+//     factorization, not the trailing work;
+//   * each entry subtracts L[i][k] L[j][k] in ascending k, the product and
+//     the difference each rounded on its own, then takes its square root or
+//     its quotient by L[j][j]: L and z are the twin's bit for bit;
+//   * the back solve runs by columns, descending: once x[k] is known every
+//     i < k subtracts L[k][i] x[k], so acc[i] takes its terms in descending
+//     k and the critical path is n steps, not n (n - 1) / 2.  In blocks of
+//     32 rows: CTA 0's first warp solves a diagonal block (a lane a row,
+//     x[k] by a shuffle), and while the other CTAs subtract the block's
+//     terms from every row before the next block, it subtracts them from
+//     the next block's rows and solves that block; one barrier a block.
+//     acc lives in n words past the columns, z first, and takes x as it
+//     forms.
+// What bounds K3-b on an H100: the latency of the card's L2, a panel's
+// chain on the first CTA and a trailing tile's fetches on the others, each
+// alone near the whole time at [2458, 2458, 2] in f64, some 2 % of its
+// operations bound (PERF.md).  The back solve's order is not the twin's: x
+// is that of solve_spd_blocked_reference (ops/smallchol.py), the twin's
+// factor followed by the back solve by columns, bit for bit.
+constexpr int kBlockedNb = 8;      // K3-b's panel: its columns (a probe's may be fewer)
+constexpr int kBackRows = 32;      // K3-b's back solve: rows a block
+// K3-b's threads a CTA: 128 registers a thread (at 384 threads and 168
+// registers ptxas still kept words on the stack)
+constexpr int kBlockedThreads = 512;
+// K3-b's trailing update: the columns of a tile whose entries a lane loads
+// at once
+constexpr int kTileBatch = 8;
+// K3-b's first CTA: the rows of a thread whose quotients it forms at once
+constexpr int kFactorRows = 2;
+// K3-b's other CTAs: the words of a warp's slab, the terms of a tile's 32
+// columns, or a tile of 32 x 33 words of the copy
+constexpr int kWarpSlab = 32 * 33;
+
+// K3-b's column j of the store (rows j .. n) at packed_col(j) + i; its
+// columns end at packed_col(n) + n = n (n + 3) / 2, acc's n words follow
+__host__ __device__ inline int64_t packed_col(int j, int n) {
+  return static_cast<int64_t>(j) * n - static_cast<int64_t>(j) * (j - 1) / 2;
+}
+
+// the tile (ib, jb <= ib) of a lower triangle of tiles numbered by rows
+__device__ inline void tri_tile(int64_t it, int& ib, int& jb) {
+  ib = static_cast<int>((sqrt(8.0 * static_cast<double>(it) + 1.0) - 1.0) / 2.0);
+  while (static_cast<int64_t>(ib) * (ib + 1) / 2 > it) --ib;
+  while (static_cast<int64_t>(ib + 1) * (ib + 2) / 2 <= it) ++ib;
+  jb = static_cast<int>(it - static_cast<int64_t>(ib) * (ib + 1) / 2);
+}
+
+// kProbe: the probes' and tests' instantiation, which takes a panel of
+// probe_nb <= kBlockedNb columns and a probe_mode (launch_blocked); the
+// main path's has kBlockedNb and mode 0 built in
+template <typename T, bool kProbe>
+__global__ void __launch_bounds__(kBlockedThreads, 1)
+    chol_blocked_kernel(const T* __restrict__ A, const T* __restrict__ rhs, T* __restrict__ x,
+                        T* store, T* spill, unsigned* counts, int n, int P, int probe_nb,
+                        int64_t B, int probe_mode) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nb = kProbe ? probe_nb : kBlockedNb, mode = kProbe ? probe_mode : 0;
+  const int t = threadIdx.x, NT = blockDim.x, lane = t & 31, warp = t >> 5, W = NT >> 5;
+  const int teams = static_cast<int>(gridDim.x) / P, team = blockIdx.x / P;
+  const int rank = blockIdx.x % P;
+  const int64_t columns = packed_col(n, n) + n;  // n (n + 3) / 2
+  T* S = store + static_cast<int64_t>(team) * (columns + n);
+  T* zacc = S + columns;                 // z, then acc and x
+  T* blk = reinterpret_cast<T*>(smem);   // L[k1 + r][k0 + c] at r nb + c (CTA 0)
+  T* D = blk + nb * nb;                  // a diagonal block of the back solve, row r at r 33
+  T* xs = D + kBackRows * (kBackRows + 1);  // its x
+  T* slab = xs + kBackRows + warp * kWarpSlab;  // the other CTAs' warp's slab
+  // the panel, column c (L[.][k0 + c]) at c (n + 1), every row i at + i
+  T* Pn = spill ? spill + static_cast<int64_t>(team) * nb * (n + 1) : xs + kBackRows;
+  unsigned* count = counts + team;
+  unsigned epoch = 0;
+  auto barrier = [&]() {
+    lane::arrive(count);
+    lane::wait(count, ++epoch * static_cast<unsigned>(P));
+  };
+  auto pn = [&](int c, int i) -> T& { return Pn[static_cast<int64_t>(c) * (n + 1) + i]; };
+  auto at = [&](int i, int j) -> T* { return S + packed_col(j, n) + i; };  // entry (i, j)
+  // the panel of columns k0 .. k1 - 1, rows k0 .. n, from the store into Pn
+  auto load_panel = [&](int k0, int k1) {
+#pragma unroll 1
+    for (int i = k0 + t; i <= n; i += NT) {
+#pragma unroll
+      for (int c = 0; c < kBlockedNb; ++c)
+        if (k0 + c < k1 && k0 + c <= i) pn(c, i) = __ldcg(at(i, k0 + c));
+    }
+    __syncthreads();
+  };
+  // column by column: its square root, its quotients, their products off
+  // the panel's later columns, in ascending k (a thread's rows kFactorRows
+  // at a time for the quotients, a row's entries at once for the products,
+  // so that their latencies overlap)
+  auto factor_panel = [&](int k0, int k1) {
+    const int wc = k1 - k0;
+#pragma unroll 1
+    for (int c = 0; c < wc; ++c) {
+      const int kc = k0 + c;
+      const T d = rn::sqrt(pn(c, kc));
+#pragma unroll 1
+      for (int i0 = kc + 1 + t; i0 <= n; i0 += kFactorRows * NT) {
+        T v[kFactorRows];
+#pragma unroll
+        for (int u = 0; u < kFactorRows; ++u)
+          if (i0 + u * NT <= n) v[u] = pn(c, i0 + u * NT);
+#pragma unroll
+        for (int u = 0; u < kFactorRows; ++u)
+          if (i0 + u * NT <= n) pn(c, i0 + u * NT) = rn::div(v[u], d);
+      }
+      __syncthreads();
+      if (t == 0) pn(c, kc) = d;
+      T q[kBlockedNb];  // L[k0 + c2][kc], the later columns' own rows
+#pragma unroll
+      for (int c2 = 0; c2 < kBlockedNb; ++c2)
+        if (c2 > c && c2 < wc) q[c2] = pn(c, k0 + c2);
+#pragma unroll 1
+      for (int i = kc + 1 + t; i <= n; i += NT) {
+        const T li = pn(c, i);
+        T v[kBlockedNb];
+#pragma unroll
+        for (int c2 = 0; c2 < kBlockedNb; ++c2)
+          if (c2 > c && c2 < wc && k0 + c2 <= i) v[c2] = pn(c2, i);
+#pragma unroll
+        for (int c2 = 0; c2 < kBlockedNb; ++c2)
+          if (c2 > c && c2 < wc && k0 + c2 <= i) pn(c2, i) = rn::sub(v[c2], rn::mul(li, q[c2]));
+      }
+      __syncthreads();
+    }
+  };
+  // the panel into the store, z (its row n) into acc too
+  auto store_panel = [&](int k0, int k1) {
+#pragma unroll 1
+    for (int i = k0 + t; i <= n; i += NT) {
+#pragma unroll
+      for (int c = 0; c < kBlockedNb; ++c) {
+        if (k0 + c < k1 && k0 + c <= i) __stcg(at(i, k0 + c), pn(c, i));
+        if (k0 + c < k1 && i == n) __stcg(zacc + k0 + c, pn(c, i));
+      }
+    }
+  };
+
+  const int np = (n + nb - 1) / nb, nq = (n + kBackRows - 1) / kBackRows;
+#pragma unroll 1
+  for (int64_t b = team; b < B; b += teams) {
+    if (mode == 2) {
+#pragma unroll 1
+      for (int e = 0; e < np + nq + 1; ++e) barrier();
+      continue;
+    }
+    {
+      // the lane's lower triangle into the store by tiles of 32 x 32 (ti,
+      // tj <= ti), a warp a tile: its rows of A into the slab (r 33 + c),
+      // then its columns out of it; b into row n
+      const int nt = (n + 31) / 32;
+      const int64_t tiles = static_cast<int64_t>(nt) * (nt + 1) / 2;
+#pragma unroll 1
+      for (int64_t it = static_cast<int64_t>(rank) * W + warp; it < tiles;
+           it += static_cast<int64_t>(P) * W) {
+        int ti, tj;
+        tri_tile(it, ti, tj);
+        const int i0 = 32 * ti, j0 = 32 * tj, j = j0 + lane;
+#pragma unroll 4
+        for (int r = 0; r < 32; ++r)
+          if (i0 + r < n && j <= i0 + r)
+            slab[r * 33 + lane] = A[(static_cast<int64_t>(i0 + r) * n + j) * B + b];
+        __syncwarp();
+        const int i = i0 + lane;
+#pragma unroll 4
+        for (int c = 0; c < 32; ++c)
+          if (i < n && j0 + c <= i) __stcg(at(i, j0 + c), slab[lane * 33 + c]);
+        __syncwarp();
+      }
+#pragma unroll 1
+      for (int j = rank * NT + t; j < n; j += P * NT) __stcg(at(n, j), rhs[static_cast<int64_t>(j) * B + b]);
+    }
+    barrier();
+    if (rank == 0) {
+      load_panel(0, min(nb, n));
+      factor_panel(0, min(nb, n));
+      store_panel(0, min(nb, n));
+    }
+    barrier();
+#pragma unroll 1
+    for (int p = 0; p + 1 < np; ++p) {
+      const int k0 = p * nb, k1 = k0 + nb, k2 = min(k1 + nb, n), w = nb;
+      if (rank == 0 && mode != 4) {
+        // panel p + 1 (columns k1 .. k2 - 1, rows k1 .. n) less panel p's
+        // terms, into Pn over panel p; then its factorization
+#pragma unroll 1
+        for (int e = t; e < (k2 - k1) * nb; e += NT) blk[e] = pn(e % nb, k1 + e / nb);
+        __syncthreads();
+#pragma unroll 1
+        for (int i = k1 + t; i <= n && mode != 6; i += NT) {
+          // the row's entries first, all in flight at once, then panel p's
+          // terms in ascending k, each of the row's entries one at a step
+          T acc[kBlockedNb];
+#pragma unroll
+          for (int jj = 0; jj < kBlockedNb; ++jj)
+            acc[jj] = k1 + jj < k2 && k1 + jj <= i ? __ldcg(at(i, k1 + jj)) : T(0);
+#pragma unroll 1
+          for (int c = 0; c < w; ++c) {
+            const T li = pn(c, i);
+#pragma unroll
+            for (int jj = 0; jj < kBlockedNb; ++jj)
+              acc[jj] = rn::sub(acc[jj], rn::mul(li, blk[jj * nb + c]));
+          }
+          // the row's entries over panel p's (its own row alone reads them)
+#pragma unroll
+          for (int jj = 0; jj < kBlockedNb; ++jj)
+            if (k1 + jj < k2 && k1 + jj <= i) pn(jj, i) = acc[jj];
+        }
+        __syncthreads();
+        if (mode != 5) factor_panel(k1, k2);
+        store_panel(k1, k2);
+      } else if (rank > 0 && mode != 3) {
+        // the trailing columns k2 .. n - 1, rows j .. n, less panel p's
+        // terms: tiles of 32 rows (ib) by 32 columns (jb <= ib), a warp a
+        // tile, a lane a row; the terms of the tile's columns (c 32 + r) and
+        // rows (at 256 + c 32 + r) in the warp's slab, its entries
+        // kTileBatch columns at a time
+        const int rows = n + 1 - k2, nrb = (rows + 31) / 32, ncb = (n - k2 + 31) / 32;
+        const int64_t tiles = static_cast<int64_t>(nrb) * (nrb + 1) / 2;
+#pragma unroll 1
+        for (int64_t it = static_cast<int64_t>(rank - 1) * W + warp; it < tiles;
+             it += static_cast<int64_t>(P - 1) * W) {
+          int ib, jb;
+          tri_tile(it, ib, jb);
+          if (jb >= ncb) continue;
+          const int i = k2 + 32 * ib + lane, j0 = k2 + 32 * jb, cols = min(32, n - j0);
+          T* li = slab + 32 * kBlockedNb;
+          // every column's two loads in flight at once in f64, four columns'
+          // in f32, where all eight took 40 bytes of stack at 128 registers
+#pragma unroll(sizeof(T) == 8 ? kBlockedNb : 4)
+          for (int c = 0; c < kBlockedNb; ++c) {
+            if (c < w && i <= n) li[c * 32 + lane] = __ldcg(at(i, k0 + c));
+            if (c < w && lane < cols) slab[c * 32 + lane] = __ldcg(at(j0 + lane, k0 + c));
+          }
+          __syncwarp();
+#pragma unroll 1
+          for (int c0 = 0; c0 < cols; c0 += kTileBatch) {
+            T acc[kTileBatch];
+#pragma unroll
+            for (int u = 0; u < kTileBatch; ++u)
+              acc[u] = c0 + u < cols && j0 + c0 + u <= i && i <= n ? __ldcg(at(i, j0 + c0 + u))
+                                                                 : T(0);
+#pragma unroll 1
+            for (int c = 0; c < w; ++c) {
+              const T lic = li[c * 32 + lane];
+#pragma unroll
+              for (int u = 0; u < kTileBatch; ++u)
+                acc[u] = rn::sub(acc[u], rn::mul(lic, slab[c * 32 + c0 + u]));
+            }
+#pragma unroll
+            for (int u = 0; u < kTileBatch; ++u)
+              if (c0 + u < cols && j0 + c0 + u <= i && i <= n) __stcg(at(i, j0 + c0 + u), acc[u]);
+          }
+          __syncwarp();  // the slab is the warp's next tile's
+        }
+      }
+      barrier();
+    }
+    if (mode == 1) continue;
+    // the back solve: acc = z; block q is rows 32 q .. 32 q + 31
+    // the diagonal block q by CTA 0's first warp, a lane a row: x into acc,
+    // into xs and into x
+    auto solve_block = [&](int q) {
+      const int kb = q * kBackRows, rows = min(kBackRows, n - kb);
+      // a lane's column of the block, its rows kb + lane .. kb + rows - 1
+#pragma unroll 1
+      for (int r0 = 0; r0 < rows; r0 += 8) {
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (r0 + u < rows && lane <= r0 + u)
+            D[(r0 + u) * (kBackRows + 1) + lane] = __ldcg(at(kb + r0 + u, kb + lane));
+      }
+      __syncwarp();
+      T acc = lane < rows ? __ldcg(zacc + kb + lane) : T(0), xv = T(0);
+#pragma unroll 1
+      for (int r = rows - 1; r >= 0; --r) {
+        if (lane == r) xv = rn::div(acc, D[r * (kBackRows + 1) + r]);
+        const T xr = __shfl_sync(0xffffffffu, xv, r);
+        if (lane < r) acc = rn::sub(acc, rn::mul(D[r * (kBackRows + 1) + lane], xr));
+      }
+      if (lane < rows) {
+        xs[lane] = xv;
+        __stcg(zacc + kb + lane, xv);
+        x[static_cast<int64_t>(kb + lane) * B + b] = xv;
+      }
+      __syncwarp();
+    };
+    if (rank == 0 && warp == 0) solve_block(nq - 1);
+    barrier();
+#pragma unroll 1
+    for (int q = nq - 1; q > 0; --q) {
+      const int kb = q * kBackRows, ke = min(kb + kBackRows, n), kb2 = kb - kBackRows;
+      if (rank == 0) {
+        if (warp == 0) {
+          // the next block's rows less this block's terms, in descending k
+          const int i = kb2 + lane;
+          T acc = __ldcg(zacc + i);
+#pragma unroll 1
+          for (int r0 = kBackRows - 8; r0 >= 0; r0 -= 8) {
+#pragma unroll
+            for (int u = 7; u >= 0; --u)
+              if (kb + r0 + u < ke)
+                acc = rn::sub(acc, rn::mul(__ldcg(at(kb + r0 + u, i)), xs[r0 + u]));
+          }
+          __stcg(zacc + i, acc);
+          __syncwarp();
+          solve_block(q - 1);
+        }
+      } else {
+        // every row before the next block less this block's terms
+#pragma unroll 1
+        for (int r = t; r < ke - kb; r += NT) xs[r] = __ldcg(zacc + kb + r);
+        __syncthreads();
+#pragma unroll 1
+        for (int i = (rank - 1) * NT + t; i < kb2; i += (P - 1) * NT) {
+          T acc = __ldcg(zacc + i);
+#pragma unroll 1
+          for (int r0 = kBackRows - 8; r0 >= 0; r0 -= 8) {
+#pragma unroll
+            for (int u = 7; u >= 0; --u)
+              if (kb + r0 + u < ke)
+                acc = rn::sub(acc, rn::mul(__ldcg(at(kb + r0 + u, i)), xs[r0 + u]));
+          }
+          __stcg(zacc + i, acc);
+        }
+      }
+      barrier();
+    }
+  }
+}
+
+// K3-b's shared memory a CTA: the panel's block of nb x nb, the back
+// solve's diagonal block and its x, then the panel (nb columns of n + 1
+// words; CTA 0), unless it spills to device memory, or the warps' slabs
+// (the other CTAs), whichever is larger (ops/smallchol.py's blocked_bytes)
+template <typename T>
+int64_t blocked_smem(int n, int nb, int spill) {
+  const int64_t panel = spill ? 0 : static_cast<int64_t>(nb) * (n + 1);
+  const int64_t slabs = kBlockedThreads / 32 * kWarpSlab;
+  return (static_cast<int64_t>(nb) * nb + kBackRows * (kBackRows + 2) +
+          (panel > slabs ? panel : slabs)) * sizeof(T);
+}
+
+// K3-b's kernel: the main path's, or the probes' where ``probe``
+template <typename T>
+auto blocked_kernel(bool probe) {
+  return probe ? chol_blocked_kernel<T, true> : chol_blocked_kernel<T, false>;
+}
+
+// K3-b (the probes' instantiation where ``probe``): blocks of
+// kBlockedThreads an SM holds at once, into ``blocks``
+template <typename T>
+int blocked_occupancy(int n, int nb, int spill, int probe, int* blocks) {
+  const int64_t smem = blocked_smem<T>(n, nb, spill);
+  if (n < 1 || nb < 1 || nb > kBlockedNb || !blocks || smem > kMaxDynamicSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = blocked_kernel<T>(probe);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel, kBlockedThreads, static_cast<size_t>(smem)));
+}
+
+// K3-b's launch: ``teams`` teams of P >= 2 CTAs of kBlockedThreads threads in
+// one cooperative launch; store n (n + 3) / 2 + n words a team, spill (or
+// null) nb (n + 1) words a team, counts one zeroed counter a team.
+// ``mode`` 1 skips the back solve, 2 runs the barriers alone, 3 skips the
+// trailing update (CTA 0's chain of panels alone), 4 skips CTA 0's update
+// and factorization of the next panel (the trailing update alone), 5 and 6
+// CTA 0's factorization or its update of the next panel alone: the
+// probes' split of what each costs.  A panel of kBlockedNb columns and mode
+// 0 run the main path's instantiation, anything else the probes'
+template <typename T>
+int launch_blocked(const void* A, const void* b, void* x, void* store, void* spill, void* counts,
+                   int n, int64_t B, int P, int teams, int nb, int mode, void* stream) {
+  const int64_t smem = blocked_smem<T>(n, nb, spill != nullptr);
+  if (n < 1 || B < 1 || P < 2 || teams < 1 || nb < 1 || nb > kBlockedNb || mode < 0 ||
+      mode > 6 || smem > kMaxDynamicSmem ||
+      static_cast<int64_t>(teams) * P > (1 << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = blocked_kernel<T>(nb != kBlockedNb || mode != 0);
+  const cudaError_t set = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const T* a = static_cast<const T*>(A);
+  const T* r = static_cast<const T*>(b);
+  T* xx = static_cast<T*>(x);
+  T* s = static_cast<T*>(store);
+  T* sp = static_cast<T*>(spill);
+  unsigned* c = static_cast<unsigned*>(counts);
+  void* args[] = {&a, &r, &xx, &s, &sp, &c, &n, &P, &nb, &B, &mode};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel), dim3(static_cast<unsigned>(teams * P)),
+      dim3(kBlockedThreads), args, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int N>
 int launch_registers(const void* A, const void* b, void* x, int n, int64_t B, void* stream) {
   if constexpr (N > 1) {
@@ -827,7 +1256,12 @@ int launch_global(const void* A, const void* b, void* L, void* x, int n, int64_t
 // threads; K3-d with ``size`` CTAs a lane of ``threads`` threads, in
 // ``teams`` teams (L, its column store of n (n + 3) / 2 words a team;
 // counts, one zeroed counter a team; ``mode`` 0, or the probe's 1 and 2),
-// and its occupancy, the blocks an SM holds, into ``blocks``; K3-g with L,
+// and its occupancy, the blocks an SM holds, into ``blocks``; K3-b with
+// ``size`` >= 2 CTAs a lane of kBlockedThreads threads, panels of ``nb``
+// columns, in ``teams`` teams (store, n (n + 3) / 2 + n words a team;
+// spill, null or the panel's nb (n + 1) words a team in device memory;
+// counts, one zeroed counter a team; ``mode`` 0, or the probe's 1 to 6),
+// and its occupancy (of the probes' instantiation where ``probe``); K3-g with L,
 // scratch of n (n + 1) / 2 * B words.  Each returns cudaGetLastError()
 // (the occupancy entry, the occupancy query's error).
 #define NLSOLVER_CHOL_LAUNCHERS(SUFFIX, T, MAXN)                                           \
@@ -854,6 +1288,17 @@ int launch_global(const void* A, const void* b, void* L, void* x, int n, int64_t
   extern "C" int chol_solve_distributed_occupancy_##SUFFIX(int n, int size, int threads,     \
                                                            int* blocks) {                    \
     return distributed_occupancy<T>(n, size, threads, blocks);                               \
+  }                                                                                          \
+  extern "C" int chol_solve_blocked_##SUFFIX(const void* A, const void* b, void* x,          \
+                                             void* store, void* spill, void* counts, int n,  \
+                                             int64_t B, int size, int teams, int nb,         \
+                                             int mode, void* stream) {                       \
+    return launch_blocked<T>(A, b, x, store, spill, counts, n, B, size, teams, nb, mode,     \
+                             stream);                                                        \
+  }                                                                                          \
+  extern "C" int chol_solve_blocked_occupancy_##SUFFIX(int n, int nb, int spill, int probe,  \
+                                                       int* blocks) {                        \
+    return blocked_occupancy<T>(n, nb, spill, probe, blocks);                                \
   }                                                                                          \
   extern "C" int chol_solve_batchminor_##SUFFIX(const void* A, const void* b, void* L,       \
                                                 void* x, int n, int64_t B, void* stream) {   \

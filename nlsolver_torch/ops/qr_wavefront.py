@@ -9,7 +9,7 @@ tensors launch a kernel (float32 or float64, contiguous) or raise.  The
 JAX kernels' fallback to the jnp wavefront when VMEM is short, and their
 padding lanes, have no counterpart: K2a and K2b take every m >= n and B.
 
-K2a comes in four forms, chosen by (m, n), dtype and whether Q is formed
+K2a comes in five forms, chosen by (m, n), dtype and whether Q is formed
 (``qr_form``): ``qr_wavefront_warp`` (K2a-w) gives a lane a warp and keeps
 its ``[R | Q^T]`` in shared memory (``qr_warp_fits``: m = n <= 169 in
 float32 and 120 in float64 with Q, 240 and 169 without);
@@ -20,9 +20,14 @@ float32 and 120 in float64 with Q, 240 and 169 without);
 over P CTAs of the whole card, a stage's rotations through device memory,
 in one cooperative launch (``qr_distributed_fits``: m = n <= 1874 in
 float32 and 1320 in float64 with Q, 2640 and 1816 without);
-``qr_wavefront_global`` works in device memory, a thread a lane, any
-shape.  All four are bit-equal to the twin; a failed build or launch, or a
-shape that a form does not take, raises.
+``qr_wavefront_panel`` (K2a-p) forms R over the whole card with every
+rotation appended to a log in device memory, in panels of columns past
+m = n = 2641 in float32 and 1848 in float64, then rebuilds Q^T from the log
+(``qr_panel_fits``: every shape past the distributed form's to m = n =
+29055 in float32, 14527 in float64); ``qr_wavefront_global`` (K2a-g) works
+in device memory, a thread a lane, any shape, the dispatcher's only past
+K2a-p's range.  All five are bit-equal to the twin; a failed build or
+launch, or a shape that a form does not take, raises.
 
 K2b keeps only the 2 n rows of the system that a stage of the wavefront
 touches, a window that slides down one row a stage, and comes in six
@@ -86,6 +91,9 @@ DISTRIBUTED_THREADS = 256
 QR_CLUSTER_GROUPS = 4
 # K2a's distributed form: threads a CTA, about (its columns times the groups)
 QR_DISTRIBUTED_THREADS = 256
+# K2a's panel form, its first phase: the most threads a CTA (its columns
+# times the groups that share out a stage's rotations)
+QR_PANEL_THREADS = 1024
 
 
 def qr_wavefront_reference(A: torch.Tensor, compute_q: bool = False):
@@ -366,12 +374,129 @@ def qr_distributed_groups(m: int, n: int, compute_q: bool, size: int) -> int:
     return max(1, QR_DISTRIBUTED_THREADS // -(-qr_columns(m, n, compute_q) // size))
 
 
+def qr_log_offset(k: int, m: int, n: int) -> int:
+    """The pairs of K2a-p's rotation log before stage k's (csrc's
+    log_offset): stage k' turns pivots max(0, k' - m + 2) .. min(n - 1, k' /
+    2); stage k's pivot j lies at pair ``qr_log_offset(k) + j - j_lo``."""
+    a, r = divmod(min(k, 2 * n), 2)
+    below = (a + 1) * (a + r) + max(0, k - 2 * n) * n
+    t = k - (m - 2)
+    return below - (t * (t - 1) // 2 if t > 0 else 0)
+
+
+def qr_log_pairs(m: int, n: int) -> int:
+    """Pairs (c, s) in a lane's rotation log of K2a-p: every rotation of the
+    m + n - 2 stages, n (m - 1) - n (n - 1) / 2 for m >= n."""
+    return qr_log_offset(m + n - 2, m, n)
+
+
+def qr_stage_most(m: int, n: int) -> int:
+    """A bound on the pivots of one stage of the wavefront on [m, n]:
+    min(n, m / 2 + 1)."""
+    return min(n, m // 2 + 1)
+
+
+def qr_panel_columns(m: int, n: int, dtype: torch.dtype) -> int:
+    """Columns of R that one CTA of K2a-p's first phase holds: m words each
+    beside a stage's coefficients, 2 ``qr_stage_most`` words, in a block's
+    shared memory; 0 where not one."""
+    if dtype not in _build.DTYPE_SUFFIX or not 1 <= n <= m:
+        return 0
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return max(0, (MAX_DYNAMIC_SMEM // itemsize - 2 * qr_stage_most(m, n)) // m)
+
+
+def qr_panel_fits(m: int, n: int, dtype: torch.dtype, compute_q: bool) -> bool:
+    """Whether K2a-p takes [m, n] in ``dtype``, with or without Q: a CTA
+    holds a column of R beside a stage's coefficients (and the second phase
+    a column of Q^T): m = n <= 29055 in float32, 14527 in float64."""
+    return qr_panel_columns(m, n, dtype) > 0
+
+
+def qr_panel_bounds(n: int, width: int) -> list[tuple[int, int]]:
+    """R's n columns as K2a-p's panels ``(j0, j1)``, left to right: as few
+    as hold at most ``width`` columns each, of widths that differ by one at
+    most."""
+    count = -(-n // width)
+    base, extra = divmod(n, count)
+    bounds, j0 = [], 0
+    for p in range(count):
+        j1 = j0 + base + (p < extra)
+        bounds.append((j0, j1))
+        j0 = j1
+    return bounds
+
+
+def qr_panel_plan(m: int, n: int, dtype: torch.dtype, lanes: int | None = None,
+                  sms: int = SMS, width: int | None = None) -> list[tuple[int, int, int]]:
+    """K2a-p's panels for [m, n] in ``dtype`` on a card of ``sms`` SMs:
+    ``(j0, j1, P)`` each, the fewest panels whose columns ``sms`` CTAs hold
+    (``qr_panel_columns`` a CTA; at most ``width`` columns a panel where
+    given), and P CTAs a lane: the card's SMs shared out over the lanes that
+    it holds at once, as many teams of the fewest CTAs that hold the panel
+    (at most 1024 columns a CTA) as fit, at most ``lanes`` (at most a column
+    a CTA).  On an H100 at [1321, 1321, 2] in float64, where two teams of 67
+    do not fit, one lane after the other over 132 CTAs took 19.07 ms
+    against 21.65 over 67; at [1875, 1875, 2] in float32 two lanes at once
+    over 66 each 21.48 against 27.97 over 132 (PERF.md).  One panel up to m
+    = n = 2641 in float32 and 1848 in float64 on 132 SMs, two from there.
+    [] where K2a-p does not take [m, n]."""
+    per = min(qr_panel_columns(m, n, dtype), 1024)
+    if not per:
+        return []
+    most = sms * per if width is None else min(sms * per, width)
+    out = []
+    for j0, j1 in qr_panel_bounds(n, most):
+        least = -(-(j1 - j0) // per)
+        teams = max(1, min(lanes, sms // least)) if lanes else 1
+        out.append((j0, j1, least if not lanes else max(least, min(j1 - j0, sms // teams))))
+    return out
+
+
+def qr_panel_launches(m: int, n: int, dtype: torch.dtype, compute_q: bool, sms: int = SMS,
+                      width: int | None = None) -> int:
+    """Kernels that one call of K2a-p launches on a lane or more, each
+    counted in its ``launches``: one a panel of ``qr_panel_plan``, one
+    replay of the log a panel but the last (its columns of R take the later
+    pivots' rotations) and, where ``compute_q``, one that rebuilds Q^T.  On
+    132 SMs with Q: 2 to m = n = 2641 in float32 and 1848 in float64, 4 from
+    there."""
+    panels = len(qr_panel_plan(m, n, dtype, None, sms, width))
+    return 2 * panels - 1 + int(compute_q) if panels else 0
+
+
+def qr_panel_bytes(m: int, n: int, dtype: torch.dtype, width: int, size: int) -> int:
+    """Shared memory of one CTA of K2a-p's first phase with ``size`` CTAs on
+    a panel of ``width`` columns: m rows of ceil(width / size) words (CTA 0
+    holds the most) and the (c, s) of a stage's pivots, 2
+    ``qr_stage_most`` words."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return (m * -(-width // size) + 2 * qr_stage_most(m, n)) * itemsize
+
+
+def qr_panel_groups(width: int, size: int) -> int:
+    """Groups of threads a CTA of K2a-p's first phase, each of one thread a
+    local column, that share out a stage's rotations: as many as
+    ``QR_PANEL_THREADS`` threads hold."""
+    return max(1, QR_PANEL_THREADS // -(-width // size))
+
+
+def qr_replay_width(m: int, cols: int, dtype: torch.dtype, lanes: int, sms: int = SMS) -> int:
+    """Columns a CTA of K2a-p's second phase takes of the ``cols`` columns a
+    lane that it rebuilds: enough that ``lanes`` lanes' tiles about fill
+    ``sms`` SMs, at most what a block's shared memory holds (m + 1 words a
+    column)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    most = MAX_DYNAMIC_SMEM // (2 * ((m + 1) // 2) * itemsize)
+    return max(1, min(most, -(-lanes * cols // sms)))
+
+
 def qr_form(m: int, n: int, dtype: torch.dtype, compute_q: bool) -> str:
     """The form of K2a that the dispatcher gives [m, n] in ``dtype``: the
-    first of "warp", "cluster" and "distributed" that takes it, else
-    "global"."""
+    first of "warp", "cluster", "distributed" and "panel" that takes it,
+    else "global" (m = n past 29055 in float32, 14527 in float64)."""
     for form, fits in (("warp", qr_warp_fits), ("cluster", qr_cluster_fits),
-                       ("distributed", qr_distributed_fits)):
+                       ("distributed", qr_distributed_fits), ("panel", qr_panel_fits)):
         if fits(m, n, dtype, compute_q):
             return form
     return "global"
@@ -382,6 +507,7 @@ def _launcher(entry: str, suffix: str):
     """The C entry point: ``qr_wavefront`` (K2a's and K2b's device-memory
     forms), ``qr_wavefront_warp``, ``qr_wavefront_cluster``,
     ``qr_wavefront_distributed`` (and its ``_occupancy``),
+    ``qr_wavefront_panel`` (and its ``_occupancy``), ``qr_wavefront_replay``,
     ``least_squares_registers``,
     ``least_squares_shared``, ``least_squares_warp``,
     ``least_squares_cluster`` or ``least_squares_distributed`` (and its
@@ -389,6 +515,9 @@ def _launcher(entry: str, suffix: str):
     fn = getattr(_build.load_library(), f"{entry}_{suffix}")
     vp, ci, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     fn.argtypes = {"qr_wavefront": [vp] * 6 + [ci, ci, i64, ci, ci, vp],
+                   "qr_wavefront_panel": [vp] * 4 + [ci, ci, i64] + [ci] * 5 + [i64, vp],
+                   "qr_wavefront_panel_occupancy": [ci] * 5 + [ctypes.POINTER(ci)],
+                   "qr_wavefront_replay": [vp] * 2 + [ci] * 8 + [i64, i64, vp],
                    "qr_wavefront_warp": [vp] * 3 + [ci, ci, i64, ci, ci, vp],
                    "qr_wavefront_cluster": [vp] * 3 + [ci, ci, i64] + [ci] * 5 + [vp],
                    "qr_wavefront_distributed": [vp] * 5 + [ci, ci, i64] + [ci] * 5 + [vp],
@@ -533,7 +662,7 @@ def qr_wavefront_distributed(A: torch.Tensor, compute_q: bool = False, size: int
         size = qr_distributed_plan(m, n, A.dtype, compute_q, B, sms)
     if size < 1 or qr_distributed_bytes(m, n, A.dtype, compute_q, size) > MAX_DYNAMIC_SMEM:
         raise ValueError(f"{name}: [{m}, {n}] in {A.dtype} does not fit {size or sms} CTAs' "
-                         "shared memory; qr_wavefront_global takes it")
+                         "shared memory; qr_wavefront_panel takes it")
     R = torch.empty_like(A)
     Qt = A.new_empty((m, m, B)) if compute_q else None
     if B:
@@ -557,11 +686,94 @@ def qr_wavefront_distributed(A: torch.Tensor, compute_q: bool = False, size: int
     return R, (Qt.transpose(0, 1) if compute_q else None)
 
 
+def qr_panel_occupancy(dtype: torch.dtype, m: int, n: int, width: int, size: int,
+                       groups: int) -> int:
+    """CTAs of K2a-p's first phase (``size`` CTAs on a panel of ``width``
+    columns, ``groups`` groups of threads) that an SM of the current card
+    holds at once, from the CUDA occupancy query."""
+    found = ctypes.c_int(0)
+    err = _launcher("qr_wavefront_panel_occupancy", _build.DTYPE_SUFFIX[dtype])(
+        m, n, width, size, groups, ctypes.byref(found))
+    if err != 0:
+        raise RuntimeError(f"qr_wavefront_panel: occupancy query failed (cudaError {err})")
+    return found.value
+
+
+def qr_wavefront_panel(A: torch.Tensor, compute_q: bool = False, size: int | None = None,
+                       _width: int | None = None, _groups: int | None = None):
+    """K2a's panel form (K2a-p), the dispatcher's past the distributed
+    form's range.  First R, panel by panel (``qr_panel_plan``): a panel's
+    columns over ``size`` CTAs' shared memory (the plan's P by default), each
+    stage's rotations formed by the pivots' owners and appended to the
+    lane's rotation log in device memory, one barrier in device memory a
+    stage with a pivot in the panel, the stages before the panel's first
+    pivot replayed from the log; one cooperative launch a panel.  Then one
+    launch rebuilds Q^T from the identity and gives the earlier panels'
+    columns of R the later pivots' rotations, tiles of columns in shared
+    memory (``qr_replay_width``), the log streamed in stage order.  Returns
+    ``(R [m, n, B], Q [m, m, B] | None)``, bit-equal to the twin; its
+    ``launches`` count grows by one a kernel launched (``qr_panel_launches``
+    a call).  CPU tensors run the twin; on a
+    card it raises where a CTA does not hold one column (``qr_panel_fits``)
+    or the card cannot hold a panel's CTAs at once.  ``_width`` (the most
+    columns a panel) and ``_groups`` are for the tests and probes only."""
+    name = "qr_wavefront_panel"
+    _check_shape(A, name)
+    if A.device.type == "cpu":
+        return qr_wavefront_reference(A, compute_q)
+    _build.check_cuda_inputs(name, {"A": A})
+    m, n, B = A.shape
+    if not qr_panel_fits(m, n, A.dtype, compute_q):
+        raise ValueError(f"{name}: a column of [{m}, {n}] in {A.dtype} does not fit a block's "
+                         "shared memory; qr_wavefront_global takes it")
+    R = torch.empty_like(A)
+    Qt = A.new_empty((m, m, B)) if compute_q else None
+    if B:
+        sms = torch.cuda.get_device_properties(A.device).multi_processor_count
+        panels = qr_panel_plan(m, n, A.dtype, B, sms, _width)
+        pairs = qr_log_pairs(m, n)
+        suffix = _build.DTYPE_SUFFIX[A.dtype]
+        with torch.cuda.device(A.device):
+            rlog = A.new_empty((B, 2 * pairs))
+            stream = torch.cuda.current_stream(A.device).cuda_stream
+            for j0, j1, P in panels:
+                P = size or P
+                width = j1 - j0
+                if P < 1 or qr_panel_bytes(m, n, A.dtype, width, P) > MAX_DYNAMIC_SMEM:
+                    raise ValueError(f"{name}: a panel of {width} columns of [{m}, {n}] in "
+                                     f"{A.dtype} does not fit {P} CTAs' shared memory")
+                groups = _groups or qr_panel_groups(width, P)
+                teams = min(B, qr_panel_occupancy(A.dtype, m, n, width, P, groups) * sms // P)
+                if teams < 1:
+                    raise ValueError(f"{name}: the card does not hold {P} CTAs of {groups} groups "
+                                     f"at once for [{m}, {n}] in {A.dtype}")
+                counts = torch.zeros(teams, dtype=torch.int32, device=A.device)
+                err = _launcher("qr_wavefront_panel", suffix)(
+                    A.data_ptr(), R.data_ptr(), rlog.data_ptr(), counts.data_ptr(), m, n, B, j0,
+                    j1, P, teams, groups, pairs, stream)
+                if err != 0:
+                    raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+                qr_wavefront_panel.launches += 1
+            # the earlier panels' columns of R take the later pivots' rotations;
+            # Q^T takes every rotation
+            replays = [(R, n, j0, j1 - j0, j1, 0) for j0, j1, _ in panels[:-1]]
+            if compute_q:
+                replays.append((Qt, m, 0, m, 0, 1))
+            for X, ld, c0, cols, jfrom, identity in replays:
+                err = _launcher("qr_wavefront_replay", suffix)(
+                    X.data_ptr(), rlog.data_ptr(), m, n, ld, c0, cols,
+                    qr_replay_width(m, cols, A.dtype, B, sms), jfrom, identity, B, pairs, stream)
+                if err != 0:
+                    raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+                qr_wavefront_panel.launches += 1
+    return R, (Qt.transpose(0, 1) if compute_q else None)
+
+
 def qr_wavefront_global(A: torch.Tensor, compute_q: bool = False):
-    """K2a's device-memory form, any shape (the dispatcher's past the
-    distributed form's): a thread a lane works on R and Q^T in device
-    memory.  Returns ``(R [m, n, B], Q [m, m, B] | None)``.  CPU tensors
-    run the twin."""
+    """K2a's device-memory form (K2a-g), any shape: a thread a lane works on
+    R and Q^T in device memory.  The dispatcher's only past K2a-p's range;
+    elsewhere a direct call.  Returns ``(R [m, n, B], Q [m, m, B] |
+    None)``.  CPU tensors run the twin."""
     _check_shape(A, "qr_wavefront_global")
     if A.device.type == "cpu":
         return qr_wavefront_reference(A, compute_q)
@@ -578,14 +790,15 @@ def qr_wavefront_kernel(A: torch.Tensor, compute_q: bool = False):
     """Batched QR of ``A [m, n, B]``: ``(R [m, n, B], Q [m, m, B] | None)``,
     the schedule and rotations of ``linalg.qr_parallel``.  CUDA tensors run
     K2a in its warp form where [m, n] fits it, else its cluster form, else
-    its distributed form, else in device memory (``qr_form``); CPU tensors
-    its twin."""
+    its distributed form, else its panel form, else in device memory
+    (``qr_form``); CPU tensors its twin."""
     _check_shape(A, "qr_wavefront_kernel")
     if A.device.type == "cpu":
         return qr_wavefront_reference(A, compute_q)
     m, n, _ = A.shape
     form = {"warp": qr_wavefront_warp, "cluster": qr_wavefront_cluster,
-            "distributed": qr_wavefront_distributed, "global": qr_wavefront_global}
+            "distributed": qr_wavefront_distributed, "panel": qr_wavefront_panel,
+            "global": qr_wavefront_global}
     return form[qr_form(m, n, A.dtype, compute_q)](A, compute_q)
 
 
@@ -805,6 +1018,7 @@ def least_squares_wavefront_kernel(A: torch.Tensor, y: torch.Tensor) -> torch.Te
 qr_wavefront_warp.launches = 0
 qr_wavefront_cluster.launches = 0
 qr_wavefront_distributed.launches = 0
+qr_wavefront_panel.launches = 0
 qr_wavefront_global.launches = 0
 least_squares_wavefront_registers.launches = 0
 least_squares_wavefront_shared.launches = 0

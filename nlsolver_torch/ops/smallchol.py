@@ -12,7 +12,7 @@ work over the fleet.
   runs the plain twin ``_chol_solve_batchminor``
   (``linalg.solve._solve_spd_unrolled``, which takes the batch on trailing
   axes).  The forms, each with its own ``launches`` count and bit-equal to
-  the twin:
+  the twin but K3-b:
 
   - ``solve_spd_registers`` (K3-r): a thread a lane, everything in
     registers, one kernel per n and dtype (``registers_fit``: n <= 19 in
@@ -28,8 +28,14 @@ work over the fleet.
     K3-c's rows over their shared memory, the columns of L through device
     memory, one barrier in device memory a step, one cooperative launch
     (``distributed_fits``: n <= 3599 in float32, 2457 in float64);
+  - ``solve_spd_blocked`` (K3-b): a lane over P CTAs of the whole card, its
+    triangle packed in device memory, factored by panels with one barrier
+    in device memory a panel, the back solve by columns (``blocked_fits``:
+    every n, the dispatcher's past K3-d's range).  L and z are the twin's;
+    x takes its back solve's terms in descending k, as its plain version
+    ``solve_spd_blocked_reference`` does, bit for bit;
   - ``solve_spd_batchminor_global`` (K3-g): a thread a lane, L in a scratch
-    in device memory, any n.
+    in device memory, any n, by a direct call.
 
   A failed build or launch, or a shape that no form takes, raises; nothing
   falls back to another form or to the twin.
@@ -69,6 +75,13 @@ CLUSTER_THREADS = 256
 # 2.51 ms at [646, 646, 2] f64 with 66 CTAs a lane, 25.9, 19.9 and 17.5 at
 # [700, 700, 64] with 9
 DISTRIBUTED_THREADS = 512
+# K3-b: threads a CTA (csrc/smallchol.cu's kBlockedThreads, which sizes the
+# warps' slabs), the columns of a panel, built into the main path's kernel
+# and the most a probe's takes (kBlockedNb), rows a block of the back solve
+# (kBackRows)
+BLOCKED_THREADS = 512
+BLOCKED_NB = 8
+BACK_ROWS = 32
 
 
 def registers_fit(n: int, dtype: torch.dtype) -> bool:
@@ -189,10 +202,52 @@ def distributed_plan(n: int, dtype: torch.dtype, lanes: int | None = None,
     return max(least, min(n + 1, sms // lanes))
 
 
+def blocked_store_words(n: int) -> int:
+    """Words of K3-b's store a team: the lower triangle and b packed by
+    columns (column j, rows j .. n), n (n + 3) / 2, then acc's n."""
+    return n * (n + 3) // 2 + n
+
+
+def blocked_bytes(n: int, dtype: torch.dtype, nb: int = BLOCKED_NB, spill: bool = False) -> int:
+    """Shared memory of one CTA of K3-b: a panel's diagonal block of nb x nb,
+    the back solve's diagonal block of 32 x 33 and its x, then the panel
+    itself, nb columns of n + 1 words (unless it spills to device memory),
+    or the warps' slabs of 32 x 33 words (``BLOCKED_THREADS`` / 32 of them),
+    whichever is larger."""
+    slabs = BLOCKED_THREADS // 32 * 32 * 33
+    rest = max(0 if spill else nb * (n + 1), slabs)
+    words = nb * nb + BACK_ROWS * (BACK_ROWS + 2) + rest
+    return words * torch.empty((), dtype=dtype).element_size()
+
+
+def blocked_spills(n: int, dtype: torch.dtype, nb: int = BLOCKED_NB) -> bool:
+    """Whether K3-b keeps its panel in device memory, the panel of nb
+    columns of n + 1 words no longer fitting a block's shared memory beside
+    the rest: with nb = 8, past n = 7119 in float32 and 3487 in float64."""
+    return blocked_bytes(n, dtype, nb) > MAX_DYNAMIC_SMEM
+
+
+def blocked_fits(n: int, dtype: torch.dtype) -> bool:
+    """Whether K3-b takes order n in ``dtype``: every n >= 1 in float32 and
+    float64 (its triangle lies in device memory)."""
+    return dtype in _build.DTYPE_SUFFIX and n >= 1
+
+
+def blocked_plan(n: int, dtype: torch.dtype, lanes: int | None = None, sms: int = SMS) -> int:
+    """K3-b's CTAs a lane, P, for order n in ``dtype`` and ``lanes`` lanes:
+    the card's ``sms`` SMs shared out over the lanes, at least 2 (the first
+    CTA factors the panels, the others take the trailing work); 0 where K3-b
+    does not take n."""
+    if not blocked_fits(n, dtype):
+        return 0
+    return max(2, sms // (lanes or 1))
+
+
 def plan(n: int, dtype: torch.dtype) -> str:
     """The form of K3 that the dispatcher gives order n in ``dtype``, the
     first that takes it: "registers" (K3-r), "warp" (K3-w), "cluster"
-    (K3-c), "distributed" (K3-d), "global" (K3-g).  On an H100 K3-r is the
+    (K3-c), "distributed" (K3-d), "blocked" (K3-b, every n past K3-d's);
+    "global" (K3-g) is a direct call's alone.  On an H100 K3-r is the
     fastest form wherever it fits, and K3-w past it at every B of
     ``benches.sweep_spd_solve`` but one point, [20, 20, 262144] in float32,
     which no path runs.  Raises ``ValueError`` where no form takes the
@@ -207,7 +262,25 @@ def plan(n: int, dtype: torch.dtype) -> str:
         return "warp"
     if cluster_fits(n, dtype):
         return "cluster"
-    return "distributed" if distributed_fits(n, dtype) else "global"
+    return "distributed" if distributed_fits(n, dtype) else "blocked"
+
+
+def _blocked_factor(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The twin's L and z as K3-b forms them: right-looking, as whole
+    trailing blocks on A's device, b as row n (each entry's products
+    subtracted in ascending k, then its square root or quotient).  Returns
+    S [n + 1, n + 1, B] whose lower triangle holds L, z in row n."""
+    n, _, B = A.shape
+    S = A.new_zeros((n + 1, n + 1, B))
+    S[:n, :n] = A
+    S[n, :n] = b
+    for j in range(n):
+        d = torch.sqrt(S[j, j])
+        S[j + 1:, j] = S[j + 1:, j] / d
+        S[j, j] = d
+        col = S[j + 1:, j]
+        S[j + 1:, j + 1:].sub_(col[:, None] * col[None, :])
+    return S
 
 
 def chol_solve_right_looking(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -222,16 +295,7 @@ def chol_solve_right_looking(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     import numpy as np
 
     n, _, B = A.shape
-    S = A.new_zeros((n + 1, n + 1, B))
-    S[:n, :n] = A
-    S[n, :n] = b
-    for j in range(n):
-        d = torch.sqrt(S[j, j])
-        S[j + 1:, j] = S[j + 1:, j] / d
-        S[j, j] = d
-        col = S[j + 1:, j]
-        S[j + 1:, j + 1:] = S[j + 1:, j + 1:] - col[:, None] * col[None, :]
-    L = S[:, :n].cpu().numpy()
+    L = _blocked_factor(A, b)[:, :n].cpu().numpy()
     x = np.empty((n, B), L.dtype)
     for i in reversed(range(n)):
         acc = L[n, i]
@@ -241,11 +305,34 @@ def chol_solve_right_looking(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(x).to(A.device)
 
 
+def solve_spd_blocked_reference(A: torch.Tensor, b: torch.Tensor, _factors: bool = False):
+    """Plain version of K3-b: the twin's factor (``_blocked_factor``), then
+    the back solve by columns, descending: x[k] = acc[k] / L[k][k], then
+    acc[:k] less L[k][:k] x[k], a multiply and a subtraction each rounded,
+    as n tensor steps.  acc starts as z, so each x[i] takes its terms in
+    descending k, where the twin's takes them ascending: the one place the
+    port leaves the twin's rounding (tests/test_torch_smallchol.py holds x
+    to the JAX function within n eps kappa(A)).  A [n, n, B], b [n, B] -> x
+    [n, B] on A's device; ``_factors`` (for the tests) returns (L [n, n, B]
+    lower-triangular, z [n, B]) instead."""
+    S = _blocked_factor(A, b)
+    n = A.shape[0]
+    if _factors:
+        return torch.tril(S[:n, :n].movedim(-1, 0)).movedim(0, -1), S[n, :n].clone()
+    acc = S[n, :n].clone()
+    x = torch.empty_like(acc)
+    for k in reversed(range(n)):
+        x[k] = acc[k] / S[k, k]
+        acc[:k] = acc[:k] - S[k, :k] * x[k]
+    return x
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher(entry: str, suffix: str):
     """The C entry point: ``chol_solve_registers``, ``chol_solve_warp``,
     ``chol_solve_cluster``, ``chol_solve_distributed`` (and its
-    ``_occupancy``) or ``chol_solve_batchminor`` (K3-g)."""
+    ``_occupancy``), ``chol_solve_blocked`` (and its ``_occupancy``) or
+    ``chol_solve_batchminor`` (K3-g)."""
     fn = getattr(_build.load_library(), f"{entry}_{suffix}")
     vp, ci, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     fn.argtypes = {"chol_solve_registers": [vp] * 3 + [ci, i64, vp],
@@ -253,6 +340,8 @@ def _launcher(entry: str, suffix: str):
                    "chol_solve_cluster": [vp] * 3 + [ci, i64, ci, ci, vp],
                    "chol_solve_distributed": [vp] * 5 + [ci, i64, ci, ci, ci, ci, vp],
                    "chol_solve_distributed_occupancy": [ci, ci, ci, ctypes.POINTER(ci)],
+                   "chol_solve_blocked": [vp] * 6 + [ci, i64, ci, ci, ci, ci, vp],
+                   "chol_solve_blocked_occupancy": [ci] * 4 + [ctypes.POINTER(ci)],
                    "chol_solve_batchminor": [vp] * 4 + [ci, i64, vp]}[entry]
     fn.restype = ci
     return fn
@@ -393,7 +482,7 @@ def solve_spd_distributed(A: torch.Tensor, b: torch.Tensor, size: int | None = N
         size = distributed_plan(n, A.dtype, B, sms)
     if size < 1 or distributed_bytes(n, A.dtype, size) > MAX_DYNAMIC_SMEM:
         raise ValueError(f"{name}: n={n} in {A.dtype} does not fit {size or sms} CTAs' shared "
-                         "memory; solve_spd_batchminor_global takes it")
+                         "memory; solve_spd_blocked takes it")
     if B == 0:
         return torch.empty_like(b)
     threads = _threads or DISTRIBUTED_THREADS
@@ -415,11 +504,79 @@ def solve_spd_distributed(A: torch.Tensor, b: torch.Tensor, size: int | None = N
     return x
 
 
+def blocked_occupancy(dtype: torch.dtype, n: int, nb: int, spill: bool, probe: bool) -> int:
+    """CTAs of K3-b (panels of ``nb`` columns, in device memory where
+    ``spill``; the probes' instantiation where ``probe``) that an SM of the
+    current card holds at once, from the CUDA occupancy query."""
+    found = ctypes.c_int(0)
+    err = _launcher("chol_solve_blocked_occupancy", _build.DTYPE_SUFFIX[dtype])(
+        n, nb, int(spill), int(probe), ctypes.byref(found))
+    if err != 0:
+        raise RuntimeError(f"solve_spd_blocked: occupancy query failed (cudaError {err})")
+    return found.value
+
+
+def solve_spd_blocked(A: torch.Tensor, b: torch.Tensor, size: int | None = None,
+                      _nb: int | None = None, _mode: int = 0) -> torch.Tensor:
+    """K3-b: A [n, n, B], b [n, B] -> x [n, B], a lane over ``size`` CTAs
+    (``blocked_plan`` for B lanes and the card's SMs by default, at least 2)
+    of ``BLOCKED_THREADS`` threads: the lane's lower triangle and b copied
+    into a packed store in device memory, factored right-looking by panels
+    of ``BLOCKED_NB`` columns with one barrier in device memory a panel (the
+    first CTA updates and factors the next panel while the others update
+    the trailing columns), then the back solve by columns in blocks of 32
+    rows, one barrier a block; one cooperative launch of as many teams of
+    ``size`` CTAs as the card holds at once (at most B), each team walking
+    its share of the lanes.  x is ``solve_spd_blocked_reference``'s bit for
+    bit (L and z are the twin's; the back solve's order is not).  CPU
+    tensors run that plain version; on a card it raises where the card
+    cannot hold ``size`` CTAs at once.  ``_nb`` (1 to ``BLOCKED_NB`` columns
+    a panel) and ``_mode`` (1: no back solve, x left unwritten; 2: the
+    barriers alone; 3: no trailing update; 4: no update and factorization of
+    the next panel; 5: no factorization of it; 6: no update of it; x then
+    holds no solution) are for the tests and probes only: any but the
+    defaults run the kernel's probe instantiation."""
+    name = "solve_spd_blocked"
+    n, B = _check(name, A, b)
+    if A.device.type == "cpu" and b.device.type == "cpu":
+        return solve_spd_blocked_reference(A, b)
+    _build.check_cuda_inputs(name, {"A": A, "b": b})
+    nb = _nb or BLOCKED_NB
+    if not 1 <= nb <= BLOCKED_NB:
+        raise ValueError(f"{name}: panels of {nb} columns; it is built for 1 to {BLOCKED_NB}")
+    if B == 0:
+        return torch.empty_like(b)
+    sms = torch.cuda.get_device_properties(A.device).multi_processor_count
+    size = size or blocked_plan(n, A.dtype, B, sms)
+    if not 2 <= size <= sms:
+        raise ValueError(f"{name}: {size} CTAs a lane; it takes 2 to {sms}")
+    spill = blocked_spills(n, A.dtype, nb)
+    x = torch.empty_like(b)
+    with torch.cuda.device(A.device):
+        probe = nb != BLOCKED_NB or _mode != 0
+        teams = min(B, blocked_occupancy(A.dtype, n, nb, spill, probe) * sms // size)
+        if teams < 1:
+            raise ValueError(f"{name}: the card does not hold {size} CTAs at once for n={n} in "
+                             f"{A.dtype}")
+        store = A.new_empty((teams, blocked_store_words(n)))
+        panel = A.new_empty((teams, nb * (n + 1))) if spill else None
+        counts = torch.zeros(teams, dtype=torch.int32, device=A.device)
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        err = _launcher("chol_solve_blocked", _build.DTYPE_SUFFIX[A.dtype])(
+            A.data_ptr(), b.data_ptr(), x.data_ptr(), store.data_ptr(),
+            None if panel is None else panel.data_ptr(), counts.data_ptr(), n, B, size, teams,
+            nb, _mode, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+    solve_spd_blocked.launches += 1
+    return x
+
+
 def solve_spd_batchminor_global(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K3-g: A [n, n, B], b [n, B] -> x [n, B], a thread a lane with L in a
     scratch of n (n + 1) / 2 rows in device memory, allocated for this
-    launch; any n (the dispatcher's past K3-d's range).  CPU tensors run
-    the twin."""
+    launch; any n, by a direct call (the dispatcher's past K3-d's range
+    until K3-b took it).  CPU tensors run the twin."""
     name = "solve_spd_batchminor_global"
     n, B = _check(name, A, b)
     if A.device.type == "cpu" and b.device.type == "cpu":
@@ -442,7 +599,7 @@ def solve_spd_batchminor(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _build.check_cuda_inputs("solve_spd_batchminor", {"A": A, "b": b})
     forms = {"registers": solve_spd_registers, "warp": solve_spd_warp,
              "cluster": solve_spd_cluster, "distributed": solve_spd_distributed,
-             "global": solve_spd_batchminor_global}
+             "blocked": solve_spd_blocked}
     return forms[plan(n, A.dtype)](A, b)
 
 
@@ -450,6 +607,7 @@ solve_spd_registers.launches = 0
 solve_spd_warp.launches = 0
 solve_spd_cluster.launches = 0
 solve_spd_distributed.launches = 0
+solve_spd_blocked.launches = 0
 solve_spd_batchminor_global.launches = 0
 
 

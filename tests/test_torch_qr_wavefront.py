@@ -1,7 +1,8 @@
 """Kernels K2a and K2b of nlsolver_torch (``ops.qr_wavefront``): the CPU
 route (the plain twins) against the JAX package's Pallas kernels in
 interpret mode and its jnp wavefront, plain-tensor emulations of the
-order of K2a's warp, cluster and distributed forms and of K2b's window,
+order of K2a's warp, cluster, distributed and panel forms (the last with
+its rotation log) and of K2b's window,
 warp, cluster and distributed forms, the shapes each form takes and
 refuses, and the CUDA kernels against their twins (on a card only).
 
@@ -65,7 +66,7 @@ LSTSQ_FORMS = (tqw.least_squares_wavefront_registers, tqw.least_squares_wavefron
 
 
 QR_FORMS = (tqw.qr_wavefront_warp, tqw.qr_wavefront_cluster, tqw.qr_wavefront_distributed,
-            tqw.qr_wavefront_global)
+            tqw.qr_wavefront_panel, tqw.qr_wavefront_global)
 
 
 def _counts():
@@ -436,20 +437,221 @@ def test_qr_distributed_plans():
 
 @pytest.mark.parametrize("dtype,compute_q", list(QR_DISTRIBUTED_END))
 def test_qr_form_hands_over_at_each_end(dtype, compute_q):
-    """The dispatcher's four ranges over square m = n, and its choice at each
-    end, square and with one row more."""
+    """The dispatcher's five ranges over square m = n, and its choice at each
+    end, square and with one row more: K2a-p from the end of K2a-d's range,
+    K2a-g only past K2a-p's."""
     warp = max(n for n in range(1, 300) if tqw.qr_warp_fits(n, n, dtype, compute_q))
     cluster, dist = QR_CLUSTER_ENDS[dtype, compute_q][-1], QR_DISTRIBUTED_END[dtype, compute_q]
     forms = [tqw.qr_form(n, n, dtype, compute_q) for n in range(1, dist + 3)]
     assert forms == ["warp"] * warp + ["cluster"] * (cluster - warp) + \
-        ["distributed"] * (dist - cluster) + ["global"] * 2
+        ["distributed"] * (dist - cluster) + ["panel"] * 2
+    panel = QR_PANEL_END[dtype]
     for last, form, after in ((warp, "warp", "cluster"), (cluster, "cluster", "distributed"),
-                              (dist, "distributed", "global")):
+                              (dist, "distributed", "panel"), (panel, "panel", "global")):
         assert tqw.qr_form(last, last, dtype, compute_q) == form
         assert tqw.qr_form(last + 1, last + 1, dtype, compute_q) == after
         tall = max(n for n in range(last - 2, last + 1)
                    if tqw.qr_form(n + 1, n, dtype, compute_q) == form)
         assert tqw.qr_form(tall + 2, tall + 1, dtype, compute_q) == after
+
+
+def qr_panel_emulation(A, compute_q, width):
+    """K2a-p in plain torch ops, in the kernel's order.  Phase 1, panel by
+    panel (``qr_panel_bounds`` of at most ``width`` columns), each panel's
+    columns of A alone: at each stage up to the last with a pivot below the
+    panel's end j1, the panel's pivots form (c, s) from their own columns
+    into the rotation log (poisoned with NaN first: no pair is read before
+    it is written) at ``qr_log_offset(k) + j - j_lo``, then the stage's
+    pivots below j1, earlier panels' and its own, turn the panel's columns
+    from the log (the stages before 2 j0 replay the log alone).  Phase 2:
+    each earlier panel's columns take the pivots from j1 on, and Q^T from
+    the identity takes every pivot, from the log in stage order.  Within a
+    stage the row pairs are disjoint, so how the kernel shares them out
+    over CTAs and groups of threads leaves these values as they are."""
+    from nlsolver_torch.linalg.givens import givens_rotation
+
+    m, n, B = A.shape
+    log = torch.full((2, tqw.qr_log_pairs(m, n), B), float("nan"), dtype=A.dtype)
+    panels = tqw.qr_panel_bounds(n, width)
+
+    def turn(X, k, lo, hi):
+        j_lo, off, p0 = max(0, k - m + 2), tqw.qr_log_offset(k, m, n), m - 2 - k
+        for j in range(lo, hi + 1):
+            c, s = log[0, off + j - j_lo], log[1, off + j - j_lo]
+            p = p0 + 2 * j
+            vp, vq = X[p].clone(), X[p + 1].clone()
+            X[p], X[p + 1] = c * vp + s * vq, c * vq + (-s) * vp
+
+    R = torch.empty_like(A)
+    for j0, j1 in panels:
+        X = A[:, j0:j1].clone()
+        for k in range(min(m + n - 3, m - 3 + j1) + 1):
+            j_lo, j_hi = max(0, k - m + 2), min(n - 1, k // 2)
+            hi, off = min(j_hi, j1 - 1), tqw.qr_log_offset(k, m, n)
+            for j in range(max(j_lo, j0), hi + 1):
+                p = m - 2 - k + 2 * j
+                log[:, off + j - j_lo] = torch.stack(
+                    givens_rotation(X[p, j - j0], X[p + 1, j - j0]))
+            turn(X, k, j_lo, hi)
+        R[:, j0:j1] = X
+
+    def replay(X, jfrom):
+        for k in range(2 * jfrom, m + n - 2):
+            turn(X, k, max(jfrom, k - m + 2), min(n - 1, k // 2))
+        return X
+
+    for j0, j1 in panels[:-1]:
+        R[:, j0:j1] = replay(R[:, j0:j1].clone(), j1)
+    if not compute_q:
+        return R, None
+    eye = torch.eye(m, dtype=A.dtype)[:, :, None].repeat(1, 1, B)
+    return R, replay(eye, 0).transpose(0, 1)
+
+
+# (m, n, the most columns a panel): three panels of 4, tall with panels of
+# 5 (3 panels, the last of 3), panels of 2 and of 1, one panel, m = n = 1
+# (no stage), m = 2 (one), a tall [5, 3] in two panels
+QR_PANEL_CASES = [(12, 12, 4), (20, 13, 5), (9, 9, 2), (7, 5, 1), (12, 11, 12), (1, 1, 1),
+                  (2, 1, 1), (5, 3, 2)]
+
+
+@pytest.mark.parametrize("deficient", [False, True])
+@pytest.mark.parametrize("compute_q", [True, False])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("m,n,width", QR_PANEL_CASES)
+def test_qr_panel_order_equals_twin(m, n, width, dtype, compute_q, deficient):
+    """K2a-p's order (R by panels with every rotation logged, the earlier
+    panels' replay of the log, Q^T rebuilt from it) is the twin's bit for
+    bit, R below the diagonal and Q included; a zero column makes a = b = 0,
+    the identity select."""
+    A = torch.from_numpy(_system(24, m, n, 4, dtype)[0])
+    if deficient:
+        A[:, n // 2] = 0.0
+    _hold_qr_order(*qr_panel_emulation(A, compute_q, width), A, compute_q)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_qr_panel_order_matches_jax(dtype):
+    """K2a-p's order against the JAX package: its Pallas kernel in interpret
+    mode and, in float64, its jitted wavefront, with Q, at [12, 12, 4] in
+    three panels of 4 columns and at [13, 9, 4] in three of 3."""
+    import jax
+    from nlsolver_tpu.linalg.qr_parallel import qr_parallel
+    from nlsolver_tpu.ops.qr_wavefront import qr_wavefront_pallas
+
+    for m, n, width in ((12, 12, 4), (13, 9, 3)):
+        A = _system(25, m, n, 4, dtype)[0]
+        R, Q = qr_panel_emulation(torch.from_numpy(A), True, width)
+        jR, jQ = (np.asarray(a) for a in qr_wavefront_pallas(A, compute_q=True, interpret=True))
+        if dtype == np.float32:
+            np.testing.assert_allclose(R.numpy(), jR, atol=1e-5)
+            np.testing.assert_allclose(Q.numpy(), jQ, atol=1e-5)
+        else:
+            want = jax.jit(qr_parallel)(A)
+            for r, q in ((jR, jQ), (np.asarray(want.R), np.asarray(want.Q))):
+                # the annihilated entries hold rounding residue: absolute slack for them
+                np.testing.assert_allclose(R.numpy(), r, rtol=1e-12, atol=1e-13)
+                np.testing.assert_allclose(Q.numpy(), q, rtol=1e-12, atol=1e-13)
+
+
+@pytest.mark.parametrize("m,n", [(1, 1), (2, 1), (2, 2), (5, 3), (12, 12), (20, 13), (40, 1),
+                                 (1875, 1875), (1321, 1321), (2000, 700)])
+def test_qr_log_offset_counts_every_rotation(m, n):
+    """The log's closed form: stage k's first pair lies past every rotation
+    of the stages before it, and the log holds n (m - 1) - n (n - 1) / 2
+    pairs, one a zeroed entry below the diagonal."""
+    off = 0
+    for k in range(m + n - 2):
+        assert tqw.qr_log_offset(k, m, n) == off
+        off += min(n - 1, k // 2) - max(0, k - m + 2) + 1
+    assert tqw.qr_log_pairs(m, n) == off == sum(m - 1 - j for j in range(min(n, m - 1)))
+    assert off == n * (m - 1) - n * (n - 1) // 2
+
+
+# the last square m = n that K2a-p takes (a CTA holds one column beside a
+# stage's coefficients), and the last it forms as one panel on 132 SMs
+QR_PANEL_END = {torch.float32: 29055, torch.float64: 14527}
+QR_ONE_PANEL_END = {torch.float32: 2641, torch.float64: 1848}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_qr_panel_limits(dtype):
+    """K2a-p's range, worked out from 232448 bytes a CTA: m words a column
+    of R beside a stage's (c, s), at most 2 min(n, m / 2 + 1) words, from
+    K2a-d's end with and without Q to the last m = n at which a CTA holds
+    one column; one panel as far as 132 CTAs hold R, then panels of widths
+    within one of each other, each over the fewest CTAs that hold it (at
+    most 1024 columns a CTA), spread over the card for few lanes."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    last, one = QR_PANEL_END[dtype], QR_ONE_PANEL_END[dtype]
+    for q in (True, False):
+        first = QR_DISTRIBUTED_END[dtype, q] + 1
+        assert tqw.qr_form(first, first, dtype, q) == "panel"
+        assert tqw.qr_panel_fits(first, first, dtype, q)
+        assert tqw.qr_panel_fits(last, last, dtype, q)
+        assert not tqw.qr_panel_fits(last + 1, last + 1, dtype, q)
+    assert tqw.qr_panel_columns(last, last, dtype) == 1
+    assert last + 2 * (last // 2 + 1) <= 232448 // itemsize < (last + 1) + 2 * (last // 2 + 2)
+    assert tqw.qr_panel_plan(last + 1, last + 1, dtype) == []
+    assert [(j0, j1) for j0, j1, _ in tqw.qr_panel_plan(one, one, dtype, 1)] == [(0, one)]
+    assert [(j0, j1) for j0, j1, _ in tqw.qr_panel_plan(one + 1, one + 1, dtype, 1)] == \
+        [(0, (one + 2) // 2), ((one + 2) // 2, one + 1)]
+    for m, n in ((one, one), (one + 1, one + 1), (3000, 2000), (5000, 5000), (last, last),
+                 (40, 33), (1875, 1875), (1321, 1321)):
+        per = min(tqw.qr_panel_columns(m, n, dtype), 1024)
+        plan = tqw.qr_panel_plan(m, n, dtype, 2)
+        assert plan[0][0] == 0 and plan[-1][1] == n
+        assert all(a[1] == b[0] for a, b in zip(plan, plan[1:]))
+        widths = [j1 - j0 for j0, j1, _ in plan]
+        assert max(widths) - min(widths) <= 1 and max(widths) <= 132 * per
+        for j0, j1, P in plan:
+            assert tqw.qr_panel_bytes(m, n, dtype, j1 - j0, P) <= 232448
+            assert -(-(j1 - j0) // P) <= per and 1 <= P <= 132
+            G = tqw.qr_panel_groups(j1 - j0, P)
+            assert 1 <= -(-(j1 - j0) // P) * G <= 1024
+        w = tqw.qr_replay_width(m, m, dtype, 2)
+        assert 1 <= w and w * 2 * ((m + 1) // 2) * itemsize <= 232448
+    assert tqw.qr_panel_plan(4, 4, torch.float16) == [] and tqw.qr_panel_plan(3, 4, dtype) == []
+
+
+def test_qr_panel_plans():
+    """The plans at K2a-p's paths: [1875, 1875] in float32 on 2 lanes, one
+    panel over 66 CTAs a lane (29 columns and 35 groups a CTA), two lanes at
+    once (on 3 lanes too, in two rounds); [1321, 1321] in float64, where the
+    fewest CTAs that hold a lane are 67 (20 columns; 66 would need 21), so
+    two teams do not fit: one lane at a time over the card's 132, on any
+    number of lanes; [1817, 1817] in float64 on 1 lane over 132; the first
+    shape of two panels in float64, [1849, 1849], 925 and 924 columns;
+    forced panels of 4 at [12, 12]; many lanes of [333, 333] in float64, 33
+    teams of the fewest, 4 CTAs."""
+    f32, f64 = torch.float32, torch.float64
+    assert tqw.qr_panel_plan(1875, 1875, f32, 2) == [(0, 1875, 66)]
+    assert tqw.qr_panel_plan(1875, 1875, f32, 3) == [(0, 1875, 66)]
+    assert tqw.qr_panel_bytes(1875, 1875, f32, 1875, 66) == (1875 * 29 + 2 * 938) * 4
+    assert tqw.qr_panel_groups(1875, 66) == 35
+    assert tqw.qr_panel_plan(1321, 1321, f64, 2) == [(0, 1321, 132)]
+    assert tqw.qr_panel_plan(1321, 1321, f64, 64) == [(0, 1321, 132)]
+    assert tqw.qr_panel_bytes(1321, 1321, f64, 1321, 67) <= 232448
+    assert tqw.qr_panel_bytes(1321, 1321, f64, 1321, 66) > 232448
+    assert tqw.qr_panel_plan(333, 333, f64, 64) == [(0, 333, 4)]
+    assert tqw.qr_panel_plan(1817, 1817, f64, 1) == [(0, 1817, 132)]
+    assert tqw.qr_panel_plan(1849, 1849, f64, 1) == [(0, 925, 132), (925, 1849, 132)]
+    assert tqw.qr_panel_plan(12, 12, f64, 4, width=4) == [(0, 4, 4), (4, 8, 4), (8, 12, 4)]
+    assert tqw.qr_panel_bounds(13, 5) == [(0, 5), (5, 9), (9, 13)]
+    assert tqw.qr_replay_width(1875, 1875, f32, 2) == 29
+    assert tqw.qr_replay_width(1321, 1321, f64, 2) == 21
+
+
+@pytest.mark.parametrize("m,n,dtype,compute_q,width,launches", [
+    (1875, 1875, torch.float32, True, None, 2), (2641, 2641, torch.float32, False, None, 1),
+    (2642, 2642, torch.float32, True, None, 4), (1321, 1321, torch.float64, True, None, 2),
+    (1849, 1849, torch.float64, True, None, 4), (1849, 1849, torch.float64, False, None, 3),
+    (12, 12, torch.float64, True, 4, 6), (7, 5, torch.float32, False, 1, 9),
+    (3, 4, torch.float64, True, None, 0)])
+def test_qr_panel_launches(m, n, dtype, compute_q, width, launches):
+    """The kernels that one call of K2a-p launches, each counted: one a
+    panel, one replay of the log a panel but the last, one for Q^T."""
+    assert tqw.qr_panel_launches(m, n, dtype, compute_q, width=width) == launches
 
 
 def window_emulation(A, y):
@@ -1253,10 +1455,10 @@ def test_qr_spread_forms_refuse_what_they_do_not_take_on_card():
     with pytest.raises(ValueError, match="CTAs' shared memory"):
         tqw.qr_wavefront_distributed(A, compute_q=True,
                                      size=tqw.qr_distributed_least(473, 473, A.dtype, True) - 1)
-    # past K2a-d's range the dispatcher names K2a-g and K2a-d refuses
+    # past K2a-d's range the dispatcher names K2a-p and K2a-d refuses
     A = torch.zeros(1321, 1321, 1, device=dev, dtype=torch.float64)
-    assert tqw.qr_form(1321, 1321, torch.float64, True) == "global"
-    with pytest.raises(ValueError, match="CTAs' shared memory"):
+    assert tqw.qr_form(1321, 1321, torch.float64, True) == "panel"
+    with pytest.raises(ValueError, match="qr_wavefront_panel takes it"):
         tqw.qr_wavefront_distributed(A, compute_q=True)
     R, Q = tqw.qr_wavefront_cluster(torch.zeros(200, 200, 0, device=dev), compute_q=True)
     assert R.shape == (200, 200, 0) and Q.shape == (200, 200, 0)
@@ -1272,3 +1474,63 @@ def test_qr_warp_form_refuses_what_it_does_not_take_on_card():
         tqw.qr_wavefront_warp(A.transpose(0, 1), compute_q=True)
     with pytest.raises(ValueError, match="shared memory"):
         tqw.qr_wavefront_warp(torch.zeros(170, 170, 4, device=dev), compute_q=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,B,dtype,compute_q", [
+    (1875, 1875, 2, torch.float32, True), (1321, 1321, 2, torch.float64, True),
+    (2641, 2641, 1, torch.float32, False), (1817, 1817, 1, torch.float64, False),
+    (1849, 1849, 1, torch.float64, True)])
+def test_qr_panel_form_at_its_first_shapes_on_card(m, n, B, dtype, compute_q):
+    """K2a-p through the dispatcher at the first square shapes of its range
+    with and without Q, and at the first of two panels in float64: each of
+    its kernels counted (``qr_panel_launches``), no other form's, the twin's
+    R and Q bit for bit."""
+    dev = _on_card()
+    A = torch.from_numpy(_system(26, m, n, B)[0]).to(dev, dtype)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    before = _counts()
+    R, Q = tqw.qr_wavefront_kernel(A, compute_q=compute_q)
+    torch.cuda.synchronize()
+    launched = [a - b for a, b in zip(_counts(), before)]
+    want = tqw.qr_panel_launches(m, n, dtype, compute_q, sms)
+    assert launched == [want * (f is tqw.qr_wavefront_panel) for f in QR_FORMS + LSTSQ_FORMS]
+    tR, tQ = tqw.qr_wavefront_reference(A, compute_q)
+    assert torch.equal(R, tR) and (not compute_q or torch.equal(Q, tQ))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("m,n,B,width", [(12, 12, 4, 4), (20, 13, 3, 5), (333, 333, 2, 100),
+                                         (300, 200, 5, 64), (40, 33, 70, 7), (7, 5, 9, 1)])
+def test_qr_panel_form_with_small_panels_on_card(m, n, B, width, dtype):
+    """K2a-p with forced small panels (the earlier panels' replay of the log
+    at every stage before their first pivot, and their second phase), on
+    more lanes than a team, a zero column below n = 64, with and without Q,
+    and with a CTA a column where the card holds that many: the twin's
+    bits."""
+    dev = _on_card()
+    A = torch.from_numpy(_system(27, m, n, B)[0]).to(dev, dtype)
+    if n < 64:
+        A[:, n // 2] = 0.0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for compute_q in (True, False):
+        tR, tQ = tqw.qr_wavefront_reference(A, compute_q)
+        want = tqw.qr_panel_launches(m, n, dtype, compute_q, sms, width)
+        for size in (None, min(width, 132)):
+            before = tqw.qr_wavefront_panel.launches
+            R, Q = tqw.qr_wavefront_panel(A, compute_q, size=size, _width=width)
+            torch.cuda.synchronize()
+            assert tqw.qr_wavefront_panel.launches == before + want
+            assert torch.equal(R, tR) and (not compute_q or torch.equal(Q, tQ)), (compute_q, size)
+
+
+@pytest.mark.gpu
+def test_qr_panel_form_refuses_what_it_does_not_take_on_card():
+    dev = _on_card()
+    with pytest.raises(ValueError, match="qr_wavefront_global takes it"):
+        tqw.qr_wavefront_panel(torch.zeros(29100, 1, 1, device=dev, dtype=torch.float64))
+    with pytest.raises(ValueError, match="CTAs' shared memory"):
+        tqw.qr_wavefront_panel(torch.zeros(1875, 1875, 1, device=dev), size=60)
+    R, Q = tqw.qr_wavefront_panel(torch.zeros(200, 200, 0, device=dev), compute_q=True)
+    assert R.shape == (200, 200, 0) and Q.shape == (200, 200, 0)

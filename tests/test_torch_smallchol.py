@@ -4,10 +4,12 @@ Pallas kernel in interpret mode, the standard-layout solves, plain-tensor
 emulations of K3-w's order (right-looking, the forward solve as one more
 row, the back solve row by row), of K3-c's (the rows split over a
 cluster's CTAs) and of K3-d's (the rows split over any number of CTAs, the
-columns through a store in device memory) bit-equal to the twin, the
-dispatcher's plan, the shapes refused, and each CUDA form against the twin and
-``fit_fleet``'s default backend given numpy start points (on a card
-only).
+columns through a store in device memory) bit-equal to the twin, K3-b's
+plain version (the twin's L and z, the back solve by columns) and its
+order, held to the twin's factors and to the JAX solve, the dispatcher's
+plan, the shapes refused, and each CUDA form against the twin (K3-b against
+its plain version) and ``fit_fleet``'s default backend given numpy start
+points (on a card only).
 
 JAX is imported only inside the tests that compare with it, so that the
 card's tests run where JAX is not installed:
@@ -409,14 +411,15 @@ def test_warp_form_range():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_plan_takes_each_form_in_its_range(dtype):
     """The first form that takes n: K3-r, then K3-w, then K3-c, then K3-d,
-    then K3-g."""
+    then K3-b, which takes every n (K3-g is a direct call's alone)."""
     reg = tsc.REGISTER_MAX_N[dtype]
     warp = max(n for n in range(1, 400) if tsc.warp_fits(n, dtype))
     cluster = max(n for n in range(1, 1000) if tsc.cluster_fits(n, dtype))
     last = DISTRIBUTED_RANGE[dtype][1]
     want = {1: "registers", 2: "registers", reg: "registers", reg + 1: "warp", 30: "warp",
             warp: "warp", warp + 1: "cluster", cluster: "cluster", cluster + 1: "distributed",
-            1200: "distributed", last: "distributed", last + 1: "global", 5000: "global"}
+            1200: "distributed", last: "distributed", last + 1: "blocked", 5000: "blocked",
+            100000: "blocked"}
     assert {n: tsc.plan(n, dtype) for n in want} == want
     assert all(tsc.plan(n, dtype) == ("registers" if tsc.registers_fit(n, dtype) else "warp")
                for n in range(1, warp + 1))
@@ -427,6 +430,157 @@ def test_plan_takes_each_form_in_its_range(dtype):
 def test_plan_refuses_what_no_form_takes(n, dtype):
     with pytest.raises(ValueError):
         tsc.plan(n, dtype)
+
+
+def twin_factors(A, b):
+    """The twin's L and z: the loops of ``linalg.solve._solve_spd_unrolled``
+    up to its back solve, as they stand there."""
+    n = A.shape[0]
+    L = [[None] * n for _ in range(n)]
+    for i in range(n):
+        for j in range(i + 1):
+            acc = A[i, j]
+            for k in range(j):
+                acc = acc - L[i][k] * L[j][k]
+            L[i][j] = torch.sqrt(acc) if i == j else acc / L[j][j]
+    z = [None] * n
+    for i in range(n):
+        acc = b[i]
+        for k in range(i):
+            acc = acc - L[i][k] * z[k]
+        z[i] = acc / L[i][i]
+    zero = torch.zeros_like(b[0])
+    return (torch.stack([torch.stack([L[i][j] if j <= i else zero for j in range(n)])
+                         for i in range(n)]), torch.stack(z))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 3, 9, 17, 30])
+def test_blocked_reference_factors_bit_equal_to_twin(n, dtype):
+    """K3-b's plain version forms the twin's L and z bit for bit (its
+    factor as whole trailing blocks, b as row n), and the twin's back solve
+    from them, ascending in k, gives the twin's x: only K3-b's back solve,
+    descending in k, differs."""
+    A, b = (torch.from_numpy(a).to(dtype) for a in _spd_batchminor(80 + n, n, 7))
+    L, z = tsc.solve_spd_blocked_reference(A, b, _factors=True)
+    tL, tz = twin_factors(A, b)
+    assert torch.equal(L, tL) and torch.equal(z, tz)
+    x = [None] * n
+    for i in reversed(range(n)):
+        acc = z[i]
+        for k in range(i + 1, n):
+            acc = acc - L[k, i] * x[k]
+        x[i] = acc / L[i, i]
+    assert torch.equal(torch.stack(x), tsc._chol_solve_batchminor(A, b))
+
+
+def _kappa(A):
+    """kappa_2 of each lane of A [n, n, B], the largest over the lanes."""
+    s = np.linalg.svd(np.moveaxis(A, -1, 0), compute_uv=False)
+    return float((s[:, 0] / s[:, -1]).max())
+
+
+@pytest.mark.parametrize("n", [1, 2, 8, 17, 24])
+def test_blocked_reference_matches_jax_f64(n):
+    """K3-b's plain version (and, on the CPU, K3-b) against the JAX
+    package's Pallas kernel in interpret mode and its batch-minor solve in
+    f64: |x - x_jax|_inf / |x_jax|_inf <= n eps kappa_2(A), kappa computed
+    here from the singular values.  Both are backward-stable Cholesky
+    solves of the same systems, each within some n eps kappa of the exact x
+    by the usual bound; here they share L and z to the last bit and differ
+    only in the order of the back solve's n (n - 1) / 2 terms, a smaller
+    perturbation, so n eps kappa holds them with room (at n = 8 to 40 the
+    readings lie some 30x below eps kappa)."""
+    import jax
+    from nlsolver_tpu.ops.smallchol import solve_spd_batched_pallas, solve_spd_batchminor
+
+    A, b = _spd_batchminor(90 + n, n, 64)
+    tol = n * np.finfo(np.float64).eps * _kappa(A)
+    want_bm = np.asarray(jax.jit(solve_spd_batchminor)(A, b))
+    A_std, b_std = np.ascontiguousarray(A.transpose(2, 0, 1)), np.ascontiguousarray(b.T)
+    want_pallas = np.asarray(solve_spd_batched_pallas(A_std, b_std, tile=128, interpret=True)).T
+    x = tsc.solve_spd_blocked_reference(torch.from_numpy(A), torch.from_numpy(b))
+    assert torch.equal(tsc.solve_spd_blocked(torch.from_numpy(A), torch.from_numpy(b)), x)
+    twin = tsc._chol_solve_batchminor(torch.from_numpy(A), torch.from_numpy(b)).numpy()
+    for want in (want_bm, want_pallas, twin):
+        err = np.abs(x.numpy() - want).max() / np.abs(want).max()
+        assert err <= tol, (err, tol)
+
+
+def emulate_blocked(A, b, nb, back=32):
+    """K3-b in plain torch ops, in the kernel's order, one step at a time:
+    the panels of nb columns, b as row n; the next panel's columns take the
+    current panel's terms (ascending k) before it is factored column by
+    column (its square root, its quotients, their products off its later
+    columns), the trailing columns past the next panel take them after;
+    then the back solve by blocks of ``back`` rows from the last, each
+    solved from its diagonal block in descending k, and its terms taken off
+    the rows before it, descending in k, the next block's first."""
+    n, _, B = A.shape
+    S = torch.zeros((n + 1, n + 1, B), dtype=A.dtype)
+    S[:n, :n] = A
+    S[n, :n] = b
+
+    def factor(k0, k1):
+        for kc in range(k0, k1):
+            d = torch.sqrt(S[kc, kc])
+            S[kc + 1:, kc] = S[kc + 1:, kc] / d
+            S[kc, kc] = d
+            for c2 in range(kc + 1, k1):
+                S[c2:, c2] = S[c2:, c2] - S[c2:, kc] * S[c2, kc]
+
+    def take(k0, k1, cols):
+        for j in cols:
+            for k in range(k0, k1):
+                S[j:, j] = S[j:, j] - S[j:, k] * S[j, k]
+
+    np_ = -(-n // nb)
+    factor(0, min(nb, n))
+    for p in range(np_ - 1):
+        k0, k1 = p * nb, (p + 1) * nb
+        k2 = min(k1 + nb, n)
+        take(k0, k1, range(k1, k2))
+        factor(k1, k2)
+        take(k0, k1, range(k2, n))
+    acc, x = S[n, :n].clone(), torch.empty((n, B), dtype=A.dtype)
+    for q in reversed(range(-(-n // back))):
+        kb, ke = q * back, min(q * back + back, n)
+        for k in reversed(range(kb, ke)):
+            x[k] = acc[k] / S[k, k]
+            acc[kb:k] = acc[kb:k] - S[k, kb:k] * x[k]
+        for k in reversed(range(kb, ke)):
+            acc[:kb] = acc[:kb] - S[k, :kb] * x[k]
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,nb,back", [(1, 8, 32), (9, 8, 32), (40, 4, 32), (33, 8, 32),
+                                       (70, 1, 32), (37, 3, 5), (12, 8, 4)])
+def test_blocked_order_bit_equal_to_its_reference(n, nb, back, dtype):
+    """K3-b's order (panels with the next one taken first, the back solve in
+    blocks whose diagonal block is solved before its terms leave the rows
+    before it) is its plain version's bit for bit, whatever the panel's
+    width and the back solve's block."""
+    A, b = (torch.from_numpy(a).to(dtype) for a in _spd_batchminor(60 + n, n, 5))
+    assert torch.equal(emulate_blocked(A, b, nb, back), tsc.solve_spd_blocked_reference(A, b))
+
+
+def test_blocked_form_range():
+    """K3-b takes every n >= 1 in f32 and f64; its panel of 8 columns of n +
+    1 words stays in shared memory to n = 7119 in f32 and 3487 in f64, in
+    device memory past them; a lane gets the card's SMs shared out over the
+    lanes, at least 2 CTAs; its store packs the triangle by columns."""
+    f32, f64 = torch.float32, torch.float64
+    for dtype, last in ((f32, 7119), (f64, 3487)):
+        assert tsc.blocked_fits(1, dtype) and tsc.blocked_fits(100000, dtype)
+        assert not tsc.blocked_spills(last, dtype) and tsc.blocked_spills(last + 1, dtype)
+        assert tsc.blocked_bytes(last, dtype) <= tsc.MAX_DYNAMIC_SMEM
+        assert tsc.blocked_bytes(last + 1, dtype, spill=True) <= tsc.MAX_DYNAMIC_SMEM
+    assert not tsc.blocked_fits(0, f32) and not tsc.blocked_fits(5, torch.float16)
+    assert [tsc.blocked_plan(2458, f64, lanes) for lanes in (None, 1, 2, 3, 64, 1000)] == \
+        [132, 132, 66, 44, 2, 2]
+    assert tsc.blocked_plan(0, f64) == 0
+    assert [tsc.blocked_store_words(n) for n in (1, 2, 2458)] == [3, 7, 2458 * 2461 // 2 + 2458]
 
 
 def _on_card():
@@ -505,13 +659,12 @@ def test_forms_refuse_what_they_do_not_take_on_card():
         assert torch.equal(x, b)
         with pytest.raises(ValueError, match="CTAs' shared memory"):
             tsc.solve_spd_distributed(A, b, size=tsc.distributed_least(n, dtype) - 1)
-        # past K3-d's range the plan names K3-g and K3-d refuses (K3-g's
-        # thread a lane would take minutes there)
+        # past K3-d's range the plan names K3-b and K3-d refuses
         n = DISTRIBUTED_RANGE[dtype][1] + 1
         A, b = torch.eye(n, device=dev, dtype=dtype)[:, :, None], torch.ones(n, 1, device=dev,
                                                                               dtype=dtype)
-        assert tsc.plan(n, dtype) == "global"
-        with pytest.raises(ValueError, match="CTAs' shared memory"):
+        assert tsc.plan(n, dtype) == "blocked"
+        with pytest.raises(ValueError, match="solve_spd_blocked takes it"):
             tsc.solve_spd_distributed(A, b)
 
 
@@ -606,3 +759,52 @@ def test_fit_fleet_numpy_start_points_land_on_the_card():
     in_dict = nt.fit_fleet(lambda p, d: p[0] * torch.exp(-p[1] * t) - d["y"], np.ones((2, 64)),
                            nt.NLLSFleetConfig(max_iter=30), data={"y": ys})
     assert torch.equal(in_dict.x, out.x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, B, dtype", [(2458, 2, torch.float64), (3600, 2, torch.float32),
+                                         (3488, 1, torch.float64)])
+def test_blocked_form_at_its_first_n_on_card(n, B, dtype):
+    """K3-b through the dispatcher at the first n of its range in both
+    dtypes and at the first n whose panel lies in device memory in f64: one
+    launch, no other form's, x bit-equal to its plain version on the card."""
+    dev = _on_card()
+    A, b = (torch.from_numpy(a).to(dev, dtype) for a in _spd_batchminor(n, n, B))
+    before = _launches()
+    blocked = tsc.solve_spd_blocked.launches
+    x = tsc.solve_spd_batchminor(A, b)
+    torch.cuda.synchronize()
+    assert _launches() == before and tsc.solve_spd_blocked.launches == blocked + 1
+    assert torch.equal(x, tsc.solve_spd_blocked_reference(A, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n, B", [(646, 2), (100, 3), (40, 70), (33, 5), (1, 4), (300, 1)])
+def test_blocked_form_with_small_panels_on_card(n, B, dtype):
+    """K3-b by a direct call below its range with every panel width 1 to 8,
+    on 2, 3, 66 CTAs a lane and the plan's, on more lanes than the card's
+    teams: its plain version's bits."""
+    dev = _on_card()
+    A, b = (torch.from_numpy(a).to(dev, dtype) for a in _spd_batchminor(n + 11, n, B))
+    want = tsc.solve_spd_blocked_reference(A, b)
+    for nb in range(1, tsc.BLOCKED_NB + 1):
+        for size in (None, 2, 3, 66):
+            before = tsc.solve_spd_blocked.launches
+            x = tsc.solve_spd_blocked(A, b, size=size, _nb=nb)
+            torch.cuda.synchronize()
+            assert tsc.solve_spd_blocked.launches == before + 1
+            assert torch.equal(x, want), (nb, size)
+
+
+@pytest.mark.gpu
+def test_blocked_form_refuses_what_it_does_not_take_on_card():
+    dev = _on_card()
+    A, b = torch.eye(8, device=dev)[:, :, None], torch.ones(8, 1, device=dev)
+    with pytest.raises(ValueError, match="panels of 9 columns"):
+        tsc.solve_spd_blocked(A, b, _nb=9)
+    with pytest.raises(ValueError, match="1 CTAs a lane"):
+        tsc.solve_spd_blocked(A, b, size=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tsc.solve_spd_blocked(A.transpose(0, 1), b)
+    assert tsc.solve_spd_blocked(A[:, :, :0].contiguous(), b[:, :0].contiguous()).shape == (8, 0)
