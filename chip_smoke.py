@@ -17,8 +17,9 @@ Phases, each fatal on failure:
   2. build: nvcc over nlsolver_torch/csrc for sm_90a, one process per source;
      no register kernel of K5, K2b or K3 (one per n and dtype each), and no
      kernel of K2b's warp form, of the cluster and distributed forms of K2b,
-     K3 and K2a, of K2a's panel form or of K3-b (its main path's kernel),
-     may spill or keep a stack frame; the issue
+     K3 and K2a, of the panel forms of K2a and K2b (K2b-p's back solve
+     too) or of K3-b (its main path's kernel), may spill or keep a stack
+     frame; the issue
      floors of K1's staged form, K2b's register and warp forms, K2a's warp
      form, K4b-c and K3's register and warp forms from their SASS, and of
      K1c, K1g, K4b-t and K4b (benches.issue_floors);
@@ -65,9 +66,9 @@ Phases, each fatal on failure:
      and [3600, 3600, 2] f32, through the dispatcher, counted, x bit-equal
      to its plain version on the card and |Ax - b| / (|A| |x|) beside the
      twin's order's; a non-contiguous and an f16 input refused;
-  8. K2b (wavefront least squares) in its six forms (registers, shared
+  8. K2b (wavefront least squares) in its seven forms (registers, shared
      memory, a warp a lane, a cluster a lane, a lane over the whole card,
-     device memory) bit-equal to
+     panels over the whole card, device memory) bit-equal to
      its twin on the NLLS fleet's augmented system [J; sqrt(lam) I] at [34,
      2, 262144] in f32 and f64, the shared, warp, cluster and device-memory
      forms on the Chebyshev fleets' first systems, [44, 12, 16384], [78,
@@ -79,8 +80,17 @@ Phases, each fatal on failure:
      first n in f32 the same way, its last n by the dispatcher's choice
      alone; the device-memory form, past the distributed form's range, by a
      direct call on the same f64 systems, counted, bit-equal, timed once;
-     K2a (wavefront QR) in its warp form (K2a-w) and its device-memory form
-     (K2a-g) bit-equal to its twin at [16, 16, 4096] and [32, 8, 4096] with
+     K2b-p (R over the card as K2a-p forms it, y carried as one more
+     column, then a back solve a CTA a lane) by a direct call there, and
+     through the dispatcher past K2b-d's range, at [1263, 1263, 2] f64,
+     [1848, 1848, 2] f32, [1849, 1849, 1] f64 (two panels) and the
+     augmented system of a Chebyshev fit of 1263 coefficients on 1280
+     points, [2543, 1263, 2] f64, each counted (a kernel a panel and the
+     back solve), x bit-equal to the twin run on the card at [1263, 1263,
+     2] f64 and to the twin's order (the twin's stages on the card, its
+     back solve on the host; bit-equal to the twin there and at [330, 330,
+     2]) at the other three; the dispatcher's ends of K2b-d and K2b-p; K2a (wavefront QR) in its warp form (K2a-w)
+     and its device-memory form (K2a-g) bit-equal to its twin at [16, 16, 4096] and [32, 8, 4096] with
      Q, and a factorization; K2a-w, its cluster form (K2a-c) and its form
      over P CTAs of the card (K2a-d) at the first and last square shapes
      of their ranges and with one row more, with and without Q, in f32 and
@@ -106,6 +116,9 @@ Phases, each fatal on failure:
      and warp forms, and of 120 in f64 through its cluster form; the
      same fits of 12 and 30 coefficients through solve="cholesky" (K3 in
      the form its plan names, K3-w at 30), K3 launched once a host step;
+     two fits of 1263 coefficients on 1280 points in f64 through
+     "qr_pallas" (K2b-p once a host step) and "cholesky" (K3-d), each
+     recovering its coefficients, the two within 1e-9 of each other;
      numpy start points and data land on the card;
  10. NLLS timing: bench_nlls_fleet per backend (median of 3 after 1
      warm-up, ABBA order), and K2a in its four forms (K2a-w at [16, 16,
@@ -123,8 +136,10 @@ Phases, each fatal on failure:
      that takes those shapes now, K2b-d and K3-d; K2a-p at [333, 333, 2]
      f64, [1321, 1321, 2] f64 and [1875, 1875, 2] f32 with Q beside
      torch.linalg.qr, and K3-b at [646, 646, 2] f64, [2458, 2458, 2] f64 and
-     [3600, 3600, 2] f32 beside cholesky_ex + cholesky_solve, the median of 5
-     calls after 2 warm-ups from CUDA events around each;
+     [3600, 3600, 2] f32 beside cholesky_ex + cholesky_solve, K2b-p at
+     [1263, 1263, 2] f64 and [1848, 1848, 2] f32 beside torch.linalg.lstsq
+     and at [330, 330, 2] f64 beside K2b-d, the median of 5 calls after 2
+     warm-ups from CUDA events around each;
  11. K4a (resident rank-2 update + direction) against its twin at
      [16, 16, 65536] f32 with a third of the lanes on reset and a fifth at
      rho = 0, at n in {1, 2, 8, 33} with a ragged B, and once in f64; K4b-c
@@ -354,6 +369,13 @@ K2AD_N = 333                   # the first square m = n past K2a-c's range in fl
 K2AP_N = {"float32": 1875, "float64": 1321}
 K2AP_PANELS_N = 1849
 K3B_N = {"float64": 2458, "float32": 3600}  # the first n past K3-d's range (K3-b), by dtype
+# the first n past K2b-d's range (K2b-p), by dtype; K2b-p's first square
+# shape in two panels in float64 (on one lane); a Chebyshev fleet of 1263
+# coefficients on 1280 points in float64, its augmented system [2543, 1263,
+# 2] through K2b-p: coefficients, points, fits
+K2BP_N = {"float64": 1263, "float32": 1848}
+K2BP_PANELS_N = 1849
+CHEB_PANEL = (1263, 1280, 2)
 CMA_B, CMA_N, CMA_GENS = 65536, 16, 50   # the CMA-ES fleet: strategies, dimensions, generations
 CMA_WIDE_B = 4096              # the wide CMA-ES fleets: n = 56 and n = 64 (K5a)
 CMA_EDGE_N, CMA_EDGE_B = 170, 256  # the first n that K5a refuses in f32 (K5c), the fleet's B there
@@ -616,6 +638,9 @@ def phase_build():
     path, out = _build.ensure_built()
     _build.load_library()
     log(f"[2] built {path.name} in {time.perf_counter() - t0:.2f} s")
+    t1 = time.perf_counter()
+    sass = sass_functions(path)
+    log(f"[2] the library's SASS, {len(sass)} kernels, listed in {time.perf_counter() - t1:.1f} s")
     # the issue floors of the timed launches (benches.issue_instructions).
     # K1's staged form at the headline, Rastrigin on Philox draws (the
     # kernel built for them): at n = 10 a lane passes back through no loop.
@@ -624,7 +649,6 @@ def phase_build():
     # rotates and the ramp where column 0 is done, run 2 n - 2, m - 2 n + 1
     # and n - 1 stages, so their backward branches are taken at least 1, 30
     # and 0 times
-    sass = sass_functions(path)
     m = FLEET_M + 2
     # K3-r at the NLLS fleet, n = 2: no loop
     for kid, key, back, threads in (
@@ -729,11 +753,14 @@ def phase_build():
              "qr_distributed_kernel": ("K2a-d", "IdE"),                   # <double>, its path's
              "qr_panel_kernel": ("K2a-p", "IdE"),                         # <double>, its path's
              "qr_replay_kernel": ("K2a-p's replay", "IdE"),               # <double>, its path's
+             "lstsq_panel_kernel": ("K2b-p", "IdE"),                      # <double>, its path's
+             "lstsq_backsolve_kernel": ("K2b-p's back solve", "IdE"),     # <double>, its path's
              "chol_blocked_kernel": ("K3-b", "IdLb0E"),                   # <double, main path's>
              "rank2_batched_rows_kernel": ("K4c-r", "IfLi16ELi4ELb0E")}   # <float, 16, float4, straight>
     used, main, local = {"K5r": [], "K2b": [], "K2b-w": [], "K3-r": [], "K2b-c": [],
                          "K3-c": [], "K2b-d": [], "K3-d": [], "K2a-c": [], "K2a-d": [],
-                         "K2a-p": [], "K2a-p's replay": [], "K3-b": [], "K4c-r": []}, {}, []
+                         "K2a-p": [], "K2a-p's replay": [], "K2b-p": [], "K2b-p's back solve": [],
+                         "K3-b": [], "K4c-r": []}, {}, []
     for short, spill, regs in entries:
         kind = next((v for k, v in kinds.items() if short.startswith(k)), None)
         count = int(regs.split("Used")[1].split()[0]) if "Used" in regs else -1
@@ -749,9 +776,10 @@ def phase_build():
         if not probe and "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" not in spill:
             local.append(f"{short}: {spill}")
     if out:
-        check(not local, "register kernels of K5, K2b, K3 or K4c, or the warp, cluster or "
-              "distributed form of K2b, the cluster, distributed or panel form of K2a or the "
-              "cluster, distributed or blocked form of K3 use local memory: " + "; ".join(local))
+        check(not local, "register kernels of K5, K2b, K3 or K4c, or the warp, cluster, "
+              "distributed or panel form of K2b, the cluster, distributed or panel form of K2a "
+              "or the cluster, distributed or blocked form of K3 use local memory: "
+              + "; ".join(local))
         check(len(used["K3-b"]) == 4, f"ptxas reported {len(used['K3-b'])} kernels of K3-b, "
               "expected the main path's and the probes' per dtype")
         log(f"[2] ptxas: K3-b, 4 kernels (float32, float64; the main path's and the probes'): "
@@ -765,7 +793,8 @@ def phase_build():
         log(f"[2] ptxas: rank2_batched_rows_kernel, {len(k4cr)} kernels: {min(k4cr)} to "
             f"{max(k4cr)} registers a thread, {main.get('K4c-r')} at n = {BFGS_N} in float32, "
             "0 bytes of stack frame, 0 bytes spilled")
-        for kid in ("K2b-c", "K3-c", "K2b-d", "K3-d", "K2a-c", "K2a-d", "K2a-p", "K2a-p's replay"):
+        for kid in ("K2b-c", "K3-c", "K2b-d", "K3-d", "K2a-c", "K2a-d", "K2a-p", "K2a-p's replay",
+                    "K2b-p", "K2b-p's back solve"):
             check(len(used[kid]) == 2, f"ptxas reported {len(used[kid])} kernels of {kid}, "
                   "expected one per dtype")
             log(f"[2] ptxas: {kid}, {len(used[kid])} kernels (float32, float64): "
@@ -1399,7 +1428,21 @@ def lstsq_forms():
             "K2b-w": tqw.least_squares_wavefront_warp,
             "K2b-c": tqw.least_squares_wavefront_cluster,
             "K2b-d": tqw.least_squares_wavefront_distributed,
+            "K2b-p": tqw.least_squares_wavefront_panel,
             "K2b-g": tqw.least_squares_wavefront_global}
+
+
+def lstsq_calls(torch, kid, A):
+    """The launches that one call of K2b's form ``kid`` counts on ``A``: one,
+    but K2b-p's ``lstsq_panel_launches`` (a kernel a panel and the back
+    solve)."""
+    from nlsolver_torch.ops import qr_wavefront as tqw
+
+    if kid != "K2b-p":
+        return 1
+    m, n, _ = A.shape
+    sms = torch.cuda.get_device_properties(A.device).multi_processor_count
+    return tqw.lstsq_panel_launches(m, n, A.dtype, sms)
 
 
 def lstsq_takes(kid, n, dtype):
@@ -1412,6 +1455,7 @@ def lstsq_takes(kid, n, dtype):
 
 def phase_qr(torch, dev):
     from nlsolver_torch import linalg
+    from nlsolver_torch.benches import least_squares_twin_order
     from nlsolver_torch.ops import qr_wavefront as tqw
 
     g = torch.Generator(device=dev).manual_seed(8)
@@ -1428,7 +1472,8 @@ def phase_qr(torch, dev):
             before = kernel.launches
             x = kernel(A, y)
             torch.cuda.synchronize()
-            check(kernel.launches == before + 1, f"{kid} {label}: no launch counted")
+            check(kernel.launches == before + lstsq_calls(torch, kid, A),
+                  f"{kid} {label}: {kernel.launches - before} launches counted")
             check(bool(torch.isfinite(x).all()), f"{kid} {label}: non-finite x")
             check(torch.equal(x, twin), f"{kid} differs from the twin at {label}: "
                   f"max |diff| {max_diff(x, twin):.3e}")
@@ -1473,17 +1518,23 @@ def phase_qr(torch, dev):
                     check(forms[kid].launches == before + 1,
                           f"the dispatcher did not take {kid} at n={n} in {dtype}")
         far = last_fitting(lambda n: tqw.distributed_fits(n, dtype), last + 1)
-        check(tqw.least_squares_form(far, dtype) == "distributed"
-              and tqw.least_squares_form(far + 1, dtype) == "global",
+        check(far + 1 == K2BP_N[str(dtype)[6:]], f"K2b-d's range in {dtype} ends at n={far}")
+        check(tqw.least_squares_form(far, far, dtype) == "distributed"
+              and tqw.least_squares_form(far + 1, far + 1, dtype) == "panel",
               f"the dispatcher does not end K2b-d at n={far} in {dtype}")
+        end = last_fitting(lambda n: tqw.qr_panel_fits(n, n, dtype, False), far + 1)
+        check(tqw.least_squares_form(end, end, dtype) == "panel"
+              and tqw.least_squares_form(end + 1, end + 1, dtype) == "global",
+              f"the dispatcher does not end K2b-p at [{end}, {end}] in {dtype}")
         log(f"[8] the dispatcher takes K2b-r for n <= {reg}, K2b-s for {reg + 1} <= n <= {shared}, "
             f"K2b-w for {shared + 1} <= n <= {warp}, K2b-c for {warp + 1} <= n <= {last}, K2b-d "
-            f"for {last + 1} <= n <= {far}, K2b-g beyond ({str(dtype)[6:]})")
+            f"for {last + 1} <= n <= {far}, K2b-p for [m, n] past it whose column fits a CTA "
+            f"(square to [{end}, {end}]), K2b-g beyond ({str(dtype)[6:]})")
 
-    def path(A, y, twin, kid, label):
+    def path(A, y, twin, kid, label, ref="the twin"):
         """One counted launch of ``kid`` on (A, y) through the dispatcher
         (K2b-g: by a direct call, minutes a lane at its first n), bit for
-        bit against the twin's ``twin``; its launches."""
+        bit against ``twin``, the twin's x (or ``ref``'s); its launches."""
         reset_counts()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1491,10 +1542,11 @@ def phase_qr(torch, dev):
         end.record()
         torch.cuda.synchronize()
         counts = {k: f.launches for k, f in forms.items()}
-        check(counts == {k: int(k == kid) for k in forms}, f"{kid} {label}: launched {counts}")
-        check(torch.equal(x, twin), f"{kid} differs from the twin at {label}: "
+        want = lstsq_calls(torch, kid, A)
+        check(counts == {k: want * (k == kid) for k in forms}, f"{kid} {label}: launched {counts}")
+        check(torch.equal(x, twin), f"{kid} differs from {ref} at {label}: "
               f"max |diff| {max_diff(x, twin):.3e}")
-        log(f"[8] {kid} {label}: launches {counts}, bit-equal to the twin, "
+        log(f"[8] {kid} {label}: launches {counts}, bit-equal to {ref}, "
             f"{start.elapsed_time(end):.3f} ms")
         return counts[kid]
 
@@ -1516,7 +1568,60 @@ def phase_qr(torch, dev):
             path_launches[kid] = path(A, y, twin, kid, f"[{n}, {n}, 2] {str(dtype)[6:]}" + (
                 f" ({tqw.distributed_plan(n, dtype, 2)} CTAs a lane)" if kid == "K2b-d" else ""))
     log(f"[8] the twin at [{n}, {n}, 2] float64: {twin_ms:.0f} ms")
+    # K2b-p by a direct call at K2b-d's path, [330, 330, 2] f64; there the
+    # twin's order with its back solve on the host (least_squares_twin_order,
+    # K2b-p's reference at its later shapes below) gives the twin's bits too
+    kid = "K2b-p"
+    before = forms[kid].launches
+    x = forms[kid](A, y)
+    torch.cuda.synchronize()
+    want = lstsq_calls(torch, kid, A)
+    check(forms[kid].launches == before + want and torch.equal(x, twin),
+          f"K2b-p by a direct call at [{n}, {n}, 2] float64: {forms[kid].launches - before} "
+          f"launches, max |diff| {max_diff(x, twin):.3e}")
+    check(torch.equal(least_squares_twin_order(A, y), twin),
+          f"least_squares_twin_order differs from the twin at [{n}, {n}, 2] float64")
+    log(f"[8] K2b-p by a direct call at [{n}, {n}, 2] float64: {want} launches, bit-equal to the "
+        "twin; least_squares_twin_order bit-equal to the twin there")
     twin_ms = {"K2b": twin_ms}
+    # K2b-p's path: the dispatcher at the first n past K2b-d's range in
+    # float64 and float32 (one panel, 2 lanes), at its first square shape
+    # in two panels (1 lane), and at a Chebyshev fit's augmented system of
+    # 1263 coefficients on 1280 points (phase 9's), each counted; x
+    # bit-equal to the twin run on the card at the first, [1263, 1263, 2]
+    # f64, where least_squares_twin_order must give the twin's bits too, and
+    # to least_squares_twin_order at the other three (the twin's stages on
+    # the card, its back solve on the host: the twin's own, some n^2 eager
+    # launches, takes 30-60 s a shape there)
+    for k, ((m, n, b), dtype) in enumerate((
+            ((K2BP_N["float64"],) * 2 + (2,), torch.float64),
+            ((K2BP_N["float32"],) * 2 + (2,), torch.float32),
+            ((K2BP_PANELS_N, K2BP_PANELS_N, 1), torch.float64),
+            ((CHEB_PANEL[0] + CHEB_PANEL[1], CHEB_PANEL[0], 2), torch.float64))):
+        kind = str(dtype)[6:]
+        check(tqw.least_squares_form(m, n, dtype) == "panel", f"K2b-p does not take [{m}, {n}] {kind}")
+        if m == n:
+            A, y = (torch.randn((m, n, b), generator=g, device=dev, dtype=dtype),
+                    torch.randn((m, b), generator=g, device=dev, dtype=dtype))
+        else:
+            A, y = chebyshev_system(torch, dev, *CHEB_PANEL, dtype)
+        first = k == 0
+        ref = "the twin" if first else "the twin's order"
+        t0 = time.perf_counter()
+        twin = (tqw.least_squares_wavefront_reference if first else least_squares_twin_order)(A, y)
+        torch.cuda.synchronize()
+        label = f"[{m}, {n}, {b}] {kind}"
+        twin_ms[f"K2b-p {label}"] = (time.perf_counter() - t0) * 1e3
+        panels = tqw.lstsq_panel_plan(m, n, dtype, b)
+        path_launches[kid] = path_launches.get(kid, 0) + path(
+            A, y, twin, kid, f"{label} ({len(panels)} panel{'s' * (len(panels) > 1)} over "
+            f"{panels[0][2]} CTAs a lane)", ref)
+        log(f"[8] {ref} at {label}: {twin_ms[f'K2b-p {label}']:.0f} ms")
+        if first:
+            check(torch.equal(least_squares_twin_order(A, y), twin),
+                  f"least_squares_twin_order differs from the twin at {label}")
+            log(f"[8] least_squares_twin_order bit-equal to the twin at {label}")
+        del A, y, twin
     # K2a-w and K2a-g, bit for bit against the twin, and a factorization
     qr_forms = qr_forms_of()
 
@@ -1692,6 +1797,7 @@ def kernel_wrappers():
             qr_wavefront.least_squares_wavefront_warp,
             qr_wavefront.least_squares_wavefront_cluster,
             qr_wavefront.least_squares_wavefront_distributed,
+            qr_wavefront.least_squares_wavefront_panel,
             qr_wavefront.least_squares_wavefront_global, smallchol.solve_spd_registers,
             smallchol.solve_spd_warp, smallchol.solve_spd_cluster,
             smallchol.solve_spd_distributed, smallchol.solve_spd_blocked,
@@ -1718,9 +1824,11 @@ def nlls_counts():
             **{kid: f.launches for kid, f in spd_forms().items()}}
 
 
-def fit_counted(torch, residual, X0, cfg, ys, kernel, label):
-    """One NLLS fleet through fit_fleet: ``kernel`` launched once per host
-    step, the other solve kernels never.  Returns the result and launches."""
+def fit_counted(torch, residual, X0, cfg, ys, kernel, label, per_step=1):
+    """One NLLS fleet through fit_fleet: ``kernel`` called once per host
+    step, ``per_step`` launches a call (K2b-p: a kernel a panel and the back
+    solve), the other solve kernels never.  Returns the result and
+    launches."""
     import nlsolver_torch
     from nlsolver_torch.solvers.nlls_fleet import CHECK_EVERY
 
@@ -1735,11 +1843,11 @@ def fit_counted(torch, residual, X0, cfg, ys, kernel, label):
     steps = -(-(int(out.iterations.max()) + 1) // CHECK_EVERY) * CHECK_EVERY
     log(f"[9] {label}: {wall:.3f} s, host steps {steps}, launches {counts}, iterations median "
         f"{float(out.iterations.float().median()):.0f} max {int(out.iterations.max())}")
-    for k in counts:  # one launch per host step of this backend's kernel, none of the others
-        want = steps if k == kernel else 0
+    for k in counts:  # one call per host step of this backend's kernel, none of the others
+        want = steps * per_step if k == kernel else 0
         check(counts[k] == want, f"{label}: {k} launched {counts[k]} times, "
               f"expected {want} in {steps} host steps")
-    return out, steps
+    return out, steps * per_step
 
 
 def phase_nlls_slice(torch, dev):
@@ -1810,6 +1918,37 @@ def phase_nlls_slice(torch, dev):
         check(bool(torch.isfinite(out.x).all()) and solved >= 0.999 and err <= 1e-4,
               f"the cholesky Chebyshev fleet at n={n} did not recover its coefficients")
         launches[f"K3 n={n}"] = steps
+    # two Chebyshev fits of CHEB_PANEL's 1263 coefficients in float64, past
+    # K2b-d's range: through solve="qr_pallas" (K2b-p on the augmented
+    # systems [2543, 1263, 2], two launches a host step) and through
+    # "cholesky" (K3-d on the damped normal equations); each recovers the
+    # coefficients within 1e-9 and the two fits agree within 1e-9 (the
+    # Chebyshev basis is orthogonal on the nodes: J^T J is diagonal, its
+    # condition number 2)
+    from nlsolver_torch.ops import qr_wavefront as tqw
+
+    n, m, b = CHEB_PANEL
+    residual, ys, truth = chebyshev_scenario(b, n, m, device=dev, dtype=torch.float64)
+    fits = {}
+    for solve, kernel in (("qr_pallas", "K2b-p"),
+                          ("cholesky", K3_OF_PLAN[tsc.plan(n, torch.float64)])):
+        per = tqw.lstsq_panel_launches(m + n, n, torch.float64, torch.cuda.get_device_properties(
+            dev).multi_processor_count) if kernel == "K2b-p" else 1
+        cfg = nlsolver_torch.NLLSFleetConfig(max_iter=30, solve=solve)
+        out, count = fit_counted(torch, residual, torch.zeros(n, b, device=dev, dtype=torch.float64),
+                                 cfg, ys, kernel, f"Chebyshev fits [{n}, {b}], {m} points, float64, "
+                                 f"{solve}", per)
+        err = float((out.x - truth).abs().max())
+        log(f"[9] Chebyshev fits [{n}, {b}] float64 {solve} ({kernel}): max |c - truth| {err:.3e}, "
+            f"cost {float(out.f_value.max()):.3e}")
+        check(bool(torch.isfinite(out.x).all()) and err <= 1e-9,
+              f"the {solve} Chebyshev fleet at n={n} did not recover its coefficients ({err:.3e})")
+        fits[solve] = out.x
+        launches[kernel if kernel == "K2b-p" else f"K3 n={n}"] = count
+    d = float((fits["qr_pallas"] - fits["cholesky"]).abs().max())
+    log(f"[9] Chebyshev fits [{n}, {b}] float64: qr_pallas (K2b-p) against cholesky, max |dc| "
+        f"{d:.3e}")
+    check(d <= 1e-9, f"the K2b-p and K3 Chebyshev fits of {n} coefficients differ by {d:.3e}")
     # start points and data given as numpy arrays land on the card
     residual, ys, truth = expfit_scenario(1024, FLEET_M, device=dev)
     out = nlsolver_torch.fit_fleet(residual, np.ones((2, 1024), np.float32),
@@ -1998,7 +2137,8 @@ def phase_nlls_timing(torch, dev, spd_twin_ms, qr_twin_ms):
             f"({best['median_ms']:.3f} ms per {best['steps']}-step fit of {FLEET_B} lanes)")
     alone.update(time_past_distributed(torch, dev, spd_twin_ms, qr_twin_ms))
     for new, old in (("K2a-p n=333", "K2a-g n=333"), ("K2a-p n=333", "K2a-d"),
-                     ("K3-b n=646", "K3-g"), ("K3-b n=646", "K3-d")):
+                     ("K3-b n=646", "K3-g"), ("K3-b n=646", "K3-d"), ("K2b-p n=330", "K2b-g"),
+                     ("K2b-p n=330", "K2b-d")):
         log(f"[10] {new}: {alone[new][0]:.3f} ms against {old.split()[0]}'s {alone[old][0]:.3f} "
             f"ms at the same shape ({alone[old][0] / alone[new][0]:.2f}x)")
     return alone
@@ -2022,14 +2162,15 @@ def median_ms(torch, fn, reps=5, warmup=2):
 
 
 def time_past_distributed(torch, dev, spd_twin_ms, qr_twin_ms):
-    """K2a-p and K3-b, each at its direct call's shape (K2a-d's and K3-d's
-    paths, [333, 333, 2] and [646, 646, 2] f64) and at the first shapes of
-    its range, beside the library call that computes the same function
-    (torch.linalg.qr, complete; cholesky_ex + cholesky_solve), each the
-    median of 5 calls after 2 warm-ups; the plain version timed once there
-    (phases 7 and 8 at the first shapes).  Returns (ms, plain ms, library
-    ms) by name: "K2a-p" and "K3-b" at the float64 first shape, "... n=N"
-    at the others."""
+    """K2a-p, K3-b and K2b-p, each at its direct call's shape (K2a-d's,
+    K3-d's and K2b-d's paths, [333, 333, 2], [646, 646, 2] and [330, 330, 2]
+    f64) and at the first shapes of its range, beside the library call that
+    computes the same function (torch.linalg.qr, complete; cholesky_ex +
+    cholesky_solve; torch.linalg.lstsq), each the median of 5 calls after 2
+    warm-ups; the plain version timed once there (phases 7 and 8 at the
+    first shapes; K2b-d's twin at [330, 330, 2]).  Returns (ms, plain ms,
+    library ms) by name: "K2a-p", "K3-b" and "K2b-p" at the float64 first
+    shape, "... n=N" at the others."""
     from nlsolver_torch.ops import qr_wavefront as tqw
     from nlsolver_torch.ops import smallchol as tsc
 
@@ -2072,6 +2213,30 @@ def time_past_distributed(torch, dev, spd_twin_ms, qr_twin_ms):
             f"version {plain:.1f} ms, cholesky_ex + cholesky_solve {lib:.3f} ms: "
             f"{ms / lib:.2f}x the library")
         del A, rhs, Al, bl
+    # K2b-p at the first n past K2b-d's range in float64 and float32 beside
+    # torch.linalg.lstsq on the same systems as [B, m, n], the twin (float64)
+    # and the twin's order (least_squares_twin_order, float32) timed in
+    # phase 8; at K2b-d's path, [330, 330, 2] f64, beside K2b-d, the twin
+    # timed there
+    for n, dtype in ((K2BP_N["float64"], torch.float64), (K2BP_N["float32"], torch.float32),
+                     (K2BD_N, torch.float64)):
+        kind = str(dtype)[6:]
+        A = torch.randn((n, n, 2), generator=g, device=dev, dtype=dtype)
+        y = torch.randn((n, 2), generator=g, device=dev, dtype=dtype)
+        Al, yl = A.permute(2, 0, 1).contiguous(), y.t().contiguous()[:, :, None]
+        ms = median_ms(torch, lambda: tqw.least_squares_wavefront_panel(A, y))
+        lib = median_ms(torch, lambda: torch.linalg.lstsq(Al, yl))
+        plain = qr_twin_ms.get(f"K2b-p [{n}, {n}, 2] {kind}") or qr_twin_ms["K2b"]
+        name = "K2b-p" if n == K2BP_N["float64"] else f"K2b-p n={n}"
+        out[name] = (ms, plain, lib)
+        ref = "the twin" if dtype == torch.float64 else "the twin's order"
+        log(f"[10] {name} ([{n}, {n}, 2] {kind}): {ms:.3f} ms (median of 5 after 2), {ref} "
+            f"{plain:.1f} ms, torch.linalg.lstsq {lib:.3f} ms: {ms / lib:.2f}x the library")
+        if n == K2BD_N:
+            d_ms = median_ms(torch, lambda: tqw.least_squares_wavefront_distributed(A, y))
+            log(f"[10] K2b-p at K2b-d's path [{n}, {n}, 2] {kind}: {ms:.3f} ms against K2b-d's "
+                f"{d_ms:.3f} ms (medians of 5 after 2; K2b-d {ms / d_ms:.2f}x faster)")
+        del A, y, Al, yl
     return out
 
 
@@ -4184,6 +4349,13 @@ def phases_earlier(torch, dev):
         kernel_row("least_squares_wavefront_global", csrc + "qr_wavefront.cu", k2b,
                    qr_launches["K2b-g"], qr_err, alone["K2b-g"],
                    lstsq_bound(K2BD_N, K2BD_N, 2, True)),
+        # past K2b-d's range: its launches on the Chebyshev fits of 1263
+        # coefficients in f64 (phase 9), its time at the first n in f64
+        # (phase 10)
+        kernel_row("least_squares_wavefront_panel", csrc + "qr_wavefront.cu", k2b,
+                   fleet_launches["K2b-p"], qr_err, alone["K2b-p"],
+                   lstsq_bound(K2BP_N["float64"], K2BP_N["float64"], 2, True),
+                   shape=f"[{K2BP_N['float64']}, {K2BP_N['float64']}, 2] f64"),
         # A's lower triangle and b in, x out; each form at the fleet it
         # serves, K3-c at its path past K3-w's range, past K3-c's range K3-d
         # through the dispatcher and K3-g by a direct call, both at [646,
@@ -4232,7 +4404,7 @@ def phases_earlier(torch, dev):
                    bfgs_launches["K4c-w"], err_at(rank2_err, "K4c-w", batch), alone["K4c-w"],
                    rank2_bound(BFGS_N, BATCH_B, direction=False),
                    shape=f"[{BATCH_B}, {BFGS_N}, {BFGS_N}] f32, a direct call"),
-    ], {"alone": alone, "err": rank2_err}
+    ], {"alone": alone, "err": rank2_err, "qr_launches": qr_launches}
 
 
 def eigh_rows(launches, err, alone):
@@ -4293,6 +4465,8 @@ def main():
                 f"minimize(layout='sharded') bowls [{BFGS_N}, {BFGS_B}]": sharded["K4a"]},
             "least_squares_wavefront_registers": {
                 f"fit_fleet_sharded qr_pallas [2, {FLEET_B}]": sharded["K2b-r"]},
+            "least_squares_wavefront_panel": {
+                "phase 8's dispatcher calls at its first shapes": k4c["qr_launches"]["K2b-p"]},
             "solve_spd_registers": {f"fit_fleet_sharded cholesky [2, {FLEET_B}]": sharded["K3-r"]},
             "eigh_jacobi_registers": {
                 f"minimize(layout='sharded') cmaes [{CMA_N}, {CMA_B}]": sharded["K5r"]},
@@ -4301,8 +4475,9 @@ def main():
     for row in rows:
         if row["name"] in more:
             row["more_launches"] = more[row["name"]]
-    # K2a-p's and K3-b's other shapes: the other dtype's first shape and the
-    # direct call's at K2a-d's and K3-d's paths (phase 10)
+    # K2a-p's, K3-b's and K2b-p's other shapes: the other dtype's first
+    # shape and the direct call's at K2a-d's, K3-d's and K2b-d's paths
+    # (phase 10)
     alone = k4c["alone"]
     others = {"qr_wavefront_panel": [
                   (f"[{K2AP_N['float32']}, {K2AP_N['float32']}, 2] f32 with Q", "K2a-p n=1875",
@@ -4313,7 +4488,13 @@ def main():
                   (f"[{K3B_N['float32']}, {K3B_N['float32']}, 2] f32", "K3-b n=3600",
                    spd_bound(K3B_N["float32"], 2)),
                   (f"[{K3D_N}, {K3D_N}, 2] f64, a direct call", "K3-b n=646",
-                   spd_bound(K3D_N, 2, True))]}
+                   spd_bound(K3D_N, 2, True))],
+              "least_squares_wavefront_panel": [
+                  (f"[{K2BP_N['float32']}, {K2BP_N['float32']}, 2] f32",
+                   f"K2b-p n={K2BP_N['float32']}",
+                   lstsq_bound(K2BP_N["float32"], K2BP_N["float32"], 2)),
+                  (f"[{K2BD_N}, {K2BD_N}, 2] f64, a direct call", f"K2b-p n={K2BD_N}",
+                   lstsq_bound(K2BD_N, K2BD_N, 2, True))]}
     for row in rows:
         for shape, key, (bound_ms, bound_by) in others.get(row["name"], ()):
             ms, plain_ms, library_ms = alone[key]

@@ -71,11 +71,14 @@ def device_ms(fn, reps, warmup=3, sleep=True, strict=True):
     return start.elapsed_time(end) / reps
 
 
+@functools.lru_cache(maxsize=None)
 def sass_functions(library) -> dict:
     """Each kernel of a built library as ``cuobjdump -sass`` lists it: its
     mangled name to its instructions ``[(address, text)]`` up to the branch
     to itself that ends its body (the out-of-line subroutines after it, the
-    slow paths of division and square root, are left out), NOPs dropped."""
+    slow paths of division and square root, are left out), NOPs dropped.
+    Listed once a library (its name is the digest of its sources; some 20 s
+    on an H100's host): callers read it and do not change it."""
     import re
     import shutil
     import subprocess
@@ -93,7 +96,7 @@ def sass_functions(library) -> dict:
             addr, op = int(m.group(1), 16), m.group(2).strip()
             if op.startswith("NOP"):
                 continue
-            if re.fullmatch(rf"BRA (?:0x)?{addr:x}", op) or op == f"BRA 0x{addr:x}":
+            if op in (f"BRA {addr:x}", f"BRA 0x{addr:x}"):
                 break
             ins.append((addr, op))
         out[name.strip()] = ins
@@ -929,6 +932,100 @@ def probe_past_distributed(qr_cases=((1321, 2, torch.float64), (1875, 2, torch.f
             row[f"{what}_ms"] = min(device_ms(run, reps, warmup=1) for _ in range(2))
         rows.append({**row, **_profiled_or_not(functools.partial(tsc.solve_spd_blocked, A, b),
                                                top)})
+    return rows
+
+
+def least_squares_twin_order(A: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The twin's least squares with each value's operations in the twin's
+    order: its stages on A's device (``linalg.qr_parallel``'s own, y
+    carried), then its back solve, one chain of [B] vectors in its order, on
+    the host, a lane at a time on numpy scalars of the dtype (a multiply, a
+    subtraction and a division round there as on the card).  Bit-equal to
+    the twin; a reference for K2b-p's shapes, where the twin's back solve,
+    some n^2 eager launches, takes a minute.  A [m, n, B], y [m, B] -> x
+    [n, B] on A's device."""
+    import numpy as np
+
+    from ..linalg.qr_parallel import _apply_stages
+
+    m, n, B = A.shape
+    R, (qty,) = _apply_stages(m, n, A, [y])
+    R, b = R[:n, :n].cpu().numpy(), qty[:n].cpu().numpy()
+    x = np.empty((n, B), R.dtype)
+    with np.errstate(all="ignore"):
+        for lane in range(B):
+            r, xl = R[:, :, lane].copy(), x[:, lane]
+            for i in reversed(range(n)):
+                ri, acc = r[i], b[i, lane]
+                for j in range(i + 1, n):
+                    acc = acc - ri[j] * xl[j]
+                xl[i] = acc / ri[i]
+    return torch.from_numpy(x).to(A.device)
+
+
+def probe_lstsq_panel(cases=((1263, 1263, 2, torch.float64), (1848, 1848, 2, torch.float32),
+                             (1849, 1849, 1, torch.float64), (2543, 1263, 2, torch.float64)),
+                      reps=3, top=4, check=True, global_at=(1263, 2)):
+    """K2b-p on ``[m, n, B]`` ~ N(0, 1) (A and y) for each (m, n, B, dtype) of
+    ``cases``, past K2b-d's range: its device time behind a device sleep
+    (the least of two runs of ``reps`` calls), one call under
+    ``torch.profiler`` for the split between its panels' kernel
+    (``lstsq_panel_kernel``, phase 1) and its back solve
+    (``lstsq_backsolve_kernel``), torch.linalg.lstsq on the same systems as
+    [B, m, n] (the median of 5 after 2 warm-ups), and with ``check`` its x
+    bit-equal to the twin's order (``least_squares_twin_order``, the twin's
+    bits).  With ``global_at`` = (n, B), K2b-g by a
+    direct call on one such f64 system, timed once (a thread a lane:
+    seconds to minutes)."""
+    from ..ops import qr_wavefront as tqw
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("probe_lstsq_panel measures a CUDA card; none is available")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+
+    def median_ms(fn, runs=5, warmup=2):
+        for _ in range(warmup):
+            fn()
+        times = []
+        for _ in range(runs):
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return sorted(times)[runs // 2]
+
+    for m, n, B, dtype in cases:
+        A = torch.randn((m, n, B), generator=g, device="cuda", dtype=dtype)
+        y = torch.randn((m, B), generator=g, device="cuda", dtype=dtype)
+        run = functools.partial(tqw.least_squares_wavefront_panel, A, y)
+        if check and not torch.equal(run(), least_squares_twin_order(A, y)):
+            raise RuntimeError(f"probe_lstsq_panel: K2b-p [{m}, {n}, {B}] differs from the twin")
+        Al, yl = A.permute(2, 0, 1).contiguous(), y.t().contiguous()[:, :, None]
+        row = {"form": "K2b-p", "m": m, "n": n, "B": B, "dtype": str(dtype)[6:],
+               "panels": tqw.lstsq_panel_plan(m, n, dtype, B),
+               "ms": min(device_ms(run, reps, warmup=1) for _ in range(2)),
+               "median_ms": median_ms(run),
+               "lstsq_ms": median_ms(lambda: torch.linalg.lstsq(Al, yl))}
+        prof = _profiled_or_not(run, top)
+        for key, ms in (("phase1_ms", "lstsq_panel_kernel"), ("back_solve_ms",
+                                                              "lstsq_backsolve_kernel")):
+            row[key] = sum(t for name, _, t in prof.get("top_kernels", ()) if ms in name)
+        rows.append({**row, **prof})
+        del A, y, Al, yl
+    if global_at:
+        n, B = global_at
+        A = torch.randn((n, n, B), generator=g, device="cuda", dtype=torch.float64)
+        y = torch.randn((n, B), generator=g, device="cuda", dtype=torch.float64)
+        # its kernel loaded ahead: a first launch's lazy load would wait out
+        # the device sleep
+        tqw.least_squares_wavefront_global(A[:2, :2, :1].contiguous(), y[:2, :1].contiguous())
+        rows.append({"form": "K2b-g", "m": n, "n": n, "B": B, "dtype": "float64",
+                     "ms": device_ms(functools.partial(tqw.least_squares_wavefront_global, A, y),
+                                     1, warmup=0)})
     return rows
 
 

@@ -22,7 +22,8 @@
 // only 2 n rows of n + 1 words (R's columns, then Q^T y) are live at a
 // stage, and A and y are read once, row by row, one stage ahead, and only x
 // is written: 109 MB at [34, 2, 262144] in f32, some 33 us at 3.35 TB/s.
-// Six forms, chosen by n and dtype in ops/qr_wavefront.py:
+// Seven forms, chosen by n and dtype (and m, for K2b-p) in
+// ops/qr_wavefront.py:
 //   * least_squares_registers_kernel<T, N>: the window in the thread's
 //     registers.  Every index is a compile-time constant (a register array
 //     takes no runtime index), so the window shifts by one row a stage by
@@ -44,10 +45,14 @@
 //     stage, one cooperative launch (below); past the cluster form's n, as
 //     far as 132 CTAs hold the ring (ops/qr_wavefront.py's
 //     distributed_fits).
+//   * lstsq_panel_kernel<T> and lstsq_backsolve_kernel<T> (K2b-p): R over
+//     the whole card as K2a-p's first phase forms it, y carried as one more
+//     column, then a CTA a lane back-substitutes (below); past the
+//     distributed form's n, as far as a CTA holds a column of m words;
 //   * qr_wavefront_kernel<T, false, true>: a working copy of [A | y] in
 //     device memory (the scratch R and qty the wrapper allocates), read and
-//     written some 330 times a lane at [34, 2]; every n, for n past the
-//     distributed form's.
+//     written some 330 times a lane at [34, 2]; every n, the dispatcher's
+//     past K2b-p's range, elsewhere a direct call.
 // K2a comes in five forms, chosen by (m, n), dtype and Q in
 // ops/qr_wavefront.py: qr_warp_kernel<T, kQ, Q> (K2a-w, below) gives a
 // lane a warp and keeps its [R | Q^T] in shared memory; past its range
@@ -1379,10 +1384,19 @@ __host__ __device__ inline int64_t log_offset(int k, int m, int n) {
   return below - (t > 0 ? t * (t - 1) / 2 : 0);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(1024, 1)
-    qr_panel_kernel(const T* __restrict__ A, T* __restrict__ R, T* rlog, unsigned* counts,
-                    int m, int n, int j0, int j1, int P, int64_t B, int64_t pairs) {
+// Phase 1 of K2a-p (kSolve false) and of K2b-p (kSolve true, below) on the
+// panel of columns j0 .. j1 - 1.  K2b-p's columns are those of [A | y]: y is
+// column n, in the last panel (j1 = n + 1), and forms no pivot; a column
+// takes only the pivots up to its own (the rest turn entries below R's
+// diagonal, zero by then, which x never reads), and its entries on and
+// above the diagonal go to the lane's store (R's row i, columns i .. n, at
+// i (n + 1) - i (i - 1) / 2); K2a-p's columns take every pivot and all of
+// R is written.
+template <typename T, bool kSolve>
+__device__ __forceinline__ void panel_stages(const T* __restrict__ A, const T* __restrict__ y,
+                                             T* __restrict__ R, T* rlog, unsigned* counts, int m,
+                                             int n, int j0, int j1, int P, int64_t B,
+                                             int64_t pairs) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = blockDim.y, g = threadIdx.y, tc = threadIdx.x;
   const int lin = g * blockDim.x + tc, NT = blockDim.x * G;
@@ -1403,7 +1417,15 @@ __global__ void __launch_bounds__(1024, 1)
 #pragma unroll 1
   for (int64_t b = team; b < B; b += teams) {
     T* lg = rlog + b * 2 * pairs;
-    if (owns) load_column(mine, A, m, n, c, Lc, g, G, B, b);
+    if (owns) {
+      if (kSolve && c == n) {
+        for (int i = g; i < m; i += G)
+          __pipeline_memcpy_async(mine + i * Lc, y + static_cast<int64_t>(i) * B + b, sizeof(T));
+        __pipeline_commit();
+      } else {
+        load_column(mine, A, m, n, c, Lc, g, G, B, b);
+      }
+    }
     __pipeline_wait_prior(0);
     __syncthreads();
     if (k_end >= 0 && own(0)) {
@@ -1451,14 +1473,108 @@ __global__ void __launch_bounds__(1024, 1)
         }
         lane::arrive(count);  // its block barrier first: the reads above precede the turns
       }
-      if (owns) turn_column(mine, cs - 2 * j_lo, Lc, p0, j_lo + g, hi, G);
+      if (owns) turn_column(mine, cs - 2 * j_lo, Lc, p0, j_lo + g, kSolve ? min(hi, c) : hi, G);
       __syncthreads();
       off = next;
     }
-    if (owns) {
+    if (owns && kSolve) {
+      T* Rg = R + b * (static_cast<int64_t>(n) * (n + 3) / 2);
+      for (int i = g; i <= c && i < n; i += G)
+        Rg[static_cast<int64_t>(i) * (n + 1) - static_cast<int64_t>(i) * (i - 1) / 2 - i + c] =
+            mine[i * Lc];
+    } else if (owns) {
       for (int i = g; i < m; i += G) R[(static_cast<int64_t>(i) * n + c) * B + b] = mine[i * Lc];
     }
     __syncthreads();  // the next lane's columns overwrite these
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(1024, 1)
+    qr_panel_kernel(const T* __restrict__ A, T* __restrict__ R, T* rlog, unsigned* counts,
+                    int m, int n, int j0, int j1, int P, int64_t B, int64_t pairs) {
+  panel_stages<T, false>(A, nullptr, R, rlog, counts, m, n, j0, j1, P, B, pairs);
+}
+
+// K2b-p, past K2b-d's range.  Replaces least_squares_wavefront_pallas
+// (nlsolver_tpu/ops/qr_wavefront.py:168) where 132 CTAs' shared memory no
+// longer holds a lane's window (n from 1848 in f32, 1263 in f64).  What
+// bounds K2b-g there: one thread carries a lane's chain of some m n
+// rotations, each a round trip of two rows through L2, and the card's other
+// SMs sit idle (1.25 s at [330, 330, 2] f64, some n^3 growth past it).
+// K2a-p's first phase on the columns of [A | y] (panel_stages<T, true>):
+//   * R forms over the whole card, a panel of columns over P CTAs' shared
+//     memory, each stage's (c, s) appended to the lane's log in device
+//     memory, one barrier in device memory a stage, the next stage's pivots
+//     formed ahead of it, one cooperative launch a panel;
+//   * y is column n of the last panel, whose stages before its first pivot
+//     replay the earlier panels' pivots from the log, so y holds Q^T y when
+//     the last panel ends: no replay launch.  The earlier panels' columns
+//     are not replayed at all: the later pivots turn only their entries
+//     below R's diagonal, which x never reads;
+//   * each panel stores its columns' rows 0 .. n - 1 on and above the
+//     diagonal into the lane's store in device memory; then
+//     lstsq_backsolve_kernel, a CTA a lane, solves R[:n, :n] x = (Q^T y)[:n]
+//     in the twin's order (linalg/qr_parallel.py's backsolve_bm): for i from
+//     n - 1 down, acc = (Q^T y)[i], less R[i][j] x[j] for j ascending, over
+//     R[i][i].  Its first thread runs row i's chain of rounded
+//     subtractions (rn::sub_each, unrolled by 16) while the other warps
+//     fetch row i - 1 from L2 and form its products with x off the chain,
+//     as K2b-d's back solve does; the lanes' solves run at once, a CTA
+//     each, after every panel, where inside the last panel's launch they
+//     would hold up the team's next lane.
+// What bounds K2b-p on an H100: phase 1's m + n - 2 stages, each a wait on
+// the card's L2 (K2a-p's), and the back solve's chain of n (n - 1) / 2
+// dependent subtractions (some 10 clocks each), both far above the
+// operations.  Every value goes through the twin's operations in its
+// order, so x is the twin's bit for bit.
+template <typename T>
+__global__ void __launch_bounds__(1024, 1)
+    lstsq_panel_kernel(const T* __restrict__ A, const T* __restrict__ y, T* __restrict__ Rstore,
+                       T* rlog, unsigned* counts, int m, int n, int j0, int j1, int P, int64_t B,
+                       int64_t pairs) {
+  panel_stages<T, true>(A, y, Rstore, rlog, counts, m, n, j0, j1, P, B, pairs);
+}
+
+constexpr int kBacksolveThreads = 512;
+
+// K2b-p's back solve, a CTA a lane: R's rows and Q^T y from the lane's
+// store, x [n, B] through L2 (__stcg by the first thread, __ldcg by the
+// other warps past a block barrier), row i gathered into r = rows + (i & 1)
+// (n + 1): r[i] = R[i][i], r[i + 1] = R[i][i + 1], r[col] = R[i][col]
+// x[col] for col > i + 1 (those x known by then), r[n] = (Q^T y)[i].  The
+// chain forms only R[i][i + 1] x[i + 1] itself
+template <typename T>
+__global__ void __launch_bounds__(kBacksolveThreads)
+    lstsq_backsolve_kernel(const T* __restrict__ Rstore, T* x, int n, int64_t B) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* rows = reinterpret_cast<T*>(smem);  // [2][n + 1]
+  const int64_t b = blockIdx.x;
+  const T* Rg = Rstore + b * (static_cast<int64_t>(n) * (n + 3) / 2);
+  const int t = threadIdx.x, NT = blockDim.x;
+  auto gather = [&](int i) {
+    T* r = rows + (i & 1) * (n + 1);
+    const T* gi = Rg + static_cast<int64_t>(i) * (n + 1) - static_cast<int64_t>(i) * (i - 1) / 2 - i;
+    for (int col = i + t - 32; col <= n; col += NT - 32) {
+      const T v = __ldcg(gi + col);
+      r[col] = col > i + 1 && col < n ? rn::mul(v, __ldcg(x + static_cast<int64_t>(col) * B + b))
+                                      : v;
+    }
+  };
+  if (t >= 32) gather(n - 1);
+  T x1 = T(0);  // x[i + 1]
+#pragma unroll 1
+  for (int i = n - 1; i >= 0; --i) {
+    __syncthreads();  // row i gathered, x[i + 1] in place
+    if (t >= 32) {
+      if (i > 0) gather(i - 1);
+    } else if (t == 0) {
+      const T* r = rows + (i & 1) * (n + 1);
+      T acc = r[n];
+      if (i + 1 < n) acc = rn::sub(acc, rn::mul(r[i + 1], x1));
+      x1 = rn::div(rn::sub_each(acc, r, i + 2, n), r[i]);
+      __stcg(x + static_cast<int64_t>(i) * B + b, x1);
+    }
   }
 }
 
@@ -1530,16 +1646,24 @@ int64_t qr_panel_smem(int m, int n, int width, int P) {
   return (static_cast<int64_t>(m) * ((width + P - 1) / P) + 2 * most) * sizeof(T);
 }
 
-// K2a-p's phase 1: blocks of (ceil(width / P), groups) threads an SM holds
-// at once, into ``blocks``
-template <typename T>
-int qr_panel_occupancy(int m, int n, int width, int P, int groups, int* blocks) {
+// The first phase's kernel of K2a-p (kSolve false) or of K2b-p
+template <typename T, bool kSolve>
+const void* panel_kernel() {
+  if constexpr (kSolve) return reinterpret_cast<const void*>(lstsq_panel_kernel<T>);
+  else return reinterpret_cast<const void*>(qr_panel_kernel<T>);
+}
+
+// The first phase of K2a-p (kSolve false; panels of R's n columns) or of
+// K2b-p (panels of [A | y]'s n + 1): blocks of (ceil(width / P), groups)
+// threads an SM holds at once, into ``blocks``
+template <typename T, bool kSolve>
+int panel_occupancy(int m, int n, int width, int P, int groups, int* blocks) {
   const int64_t smem = qr_panel_smem<T>(m, n, width, P);
   const int columns = (width + P - 1) / P;
-  if (n < 1 || m < n || width < 1 || P < 1 || groups < 1 || columns * groups > 1024 ||
-      !blocks || smem > kMaxDynamicSmem)
+  if (n < 1 || m < n || width < 1 || width > n + kSolve || P < 1 || groups < 1 ||
+      columns * groups > 1024 || !blocks || smem > kMaxDynamicSmem)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = qr_panel_kernel<T>;
+  const void* kernel = panel_kernel<T, kSolve>();
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1547,26 +1671,28 @@ int qr_panel_occupancy(int m, int n, int width, int P, int groups, int* blocks) 
       blocks, kernel, columns * groups, static_cast<size_t>(smem)));
 }
 
-// K2a-p's phase 1 on the panel j0 .. j1 - 1: ``teams`` teams of P CTAs in one
-// cooperative launch; rlog 2 ``pairs`` words a lane, counts one zeroed
-// counter a team
-template <typename T>
-int launch_qr_panel(const T* A, T* R, T* rlog, unsigned* counts, int m, int n, int64_t B, int j0,
-                    int j1, int P, int teams, int groups, int64_t pairs, cudaStream_t st) {
+// The first phase of K2a-p or K2b-p on the panel j0 .. j1 - 1: ``teams``
+// teams of P CTAs in one cooperative launch; R all of R [m, n, B] (K2a-p)
+// or the store of n (n + 3) / 2 words a lane (K2b-p, whose y is column n),
+// rlog 2 ``pairs`` words a lane, counts one zeroed counter a team
+template <typename T, bool kSolve>
+int launch_panel(const T* A, const T* y, T* R, T* rlog, unsigned* counts, int m, int n, int64_t B,
+                 int j0, int j1, int P, int teams, int groups, int64_t pairs, cudaStream_t st) {
   const int64_t smem = qr_panel_smem<T>(m, n, j1 - j0, P);
   const int columns = (j1 - j0 + P - 1) / P;
-  if (n < 1 || m < n || B < 1 || j0 < 0 || j1 <= j0 || j1 > n || P < 1 || teams < 1 ||
+  if (n < 1 || m < n || B < 1 || j0 < 0 || j1 <= j0 || j1 > n + kSolve || P < 1 || teams < 1 ||
       groups < 1 || columns * groups > 1024 || smem > kMaxDynamicSmem ||
       pairs != log_offset(m + n - 2, m, n) || static_cast<int64_t>(teams) * P > (1 << 30))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = qr_panel_kernel<T>;
+  const void* kernel = panel_kernel<T, kSolve>();
   const cudaError_t set = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (set != cudaSuccess) return static_cast<int>(set);
-  void* args[] = {&A, &R, &rlog, &counts, &m, &n, &j0, &j1, &P, &B, &pairs};
+  void* qr_args[] = {&A, &R, &rlog, &counts, &m, &n, &j0, &j1, &P, &B, &pairs};
+  void* lstsq_args[] = {&A, &y, &R, &rlog, &counts, &m, &n, &j0, &j1, &P, &B, &pairs};
   const cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(kernel), dim3(static_cast<unsigned>(teams * P)),
-      dim3(columns, groups), args, static_cast<size_t>(smem), st);
+      kernel, dim3(static_cast<unsigned>(teams * P)), dim3(columns, groups),
+      kSolve ? lstsq_args : qr_args, static_cast<size_t>(smem), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1587,6 +1713,22 @@ int launch_qr_replay(T* X, const T* rlog, int m, int n, int ld, int c0, int cols
   if (set != cudaSuccess) return static_cast<int>(set);
   kernel<<<static_cast<unsigned>(blocks), 512, static_cast<size_t>(smem), st>>>(
       X, rlog, m, n, ld, c0, cols, w, jfrom, identity, B, pairs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2b-p's back solve: B CTAs of kBacksolveThreads, two rows of n + 1 words
+// of shared memory each
+template <typename T>
+int launch_lstsq_backsolve(const T* Rstore, T* x, int n, int64_t B, cudaStream_t st) {
+  const int64_t smem = 2 * (static_cast<int64_t>(n) + 1) * sizeof(T);
+  if (n < 1 || B < 1 || B > (int64_t{1} << 31) - 1 || smem > kMaxDynamicSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = lstsq_backsolve_kernel<T>;
+  const cudaError_t set = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (set != cudaSuccess) return static_cast<int>(set);
+  kernel<<<static_cast<unsigned>(B), kBacksolveThreads, static_cast<size_t>(smem), st>>>(
+      Rstore, x, n, B);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1708,14 +1850,14 @@ NLSOLVER_QR_SPREAD_LAUNCHERS(f64, double)
                                              int m, int n, int64_t B, int j0, int j1, int size, \
                                              int teams, int groups, int64_t pairs,              \
                                              void* stream) {                                    \
-    return launch_qr_panel<T>(static_cast<const T*>(A), static_cast<T*>(R),                     \
-                              static_cast<T*>(rlog), static_cast<unsigned*>(counts), m, n, B,   \
-                              j0, j1, size, teams, groups, pairs,                               \
-                              static_cast<cudaStream_t>(stream));                               \
+    return launch_panel<T, false>(static_cast<const T*>(A), nullptr, static_cast<T*>(R),        \
+                                  static_cast<T*>(rlog), static_cast<unsigned*>(counts), m, n, B, \
+                                  j0, j1, size, teams, groups, pairs,                           \
+                                  static_cast<cudaStream_t>(stream));                           \
   }                                                                                             \
   extern "C" int qr_wavefront_panel_occupancy_##SUFFIX(int m, int n, int width, int size,       \
                                                        int groups, int* blocks) {               \
-    return qr_panel_occupancy<T>(m, n, width, size, groups, blocks);                            \
+    return panel_occupancy<T, false>(m, n, width, size, groups, blocks);                        \
   }                                                                                             \
   extern "C" int qr_wavefront_replay_##SUFFIX(void* X, const void* rlog, int m, int n, int ld,  \
                                               int c0, int cols, int w, int jfrom, int identity, \
@@ -1799,6 +1941,37 @@ NLSOLVER_LSQ_CLUSTER_LAUNCHER(f64, double)
 
 NLSOLVER_LSQ_DISTRIBUTED_LAUNCHERS(f32, float)
 NLSOLVER_LSQ_DISTRIBUTED_LAUNCHERS(f64, double)
+
+// K2b-p, phase 1 on the panel of [A | y]'s columns j0 .. j1 - 1 (y column
+// n): A [m, n, B], y [m, B] -> those columns' rows on and above R's
+// diagonal into Rstore (n (n + 3) / 2 words a lane) and their pivots'
+// rotations into rlog (2 ``pairs`` words a lane), ``size`` CTAs a lane of
+// (ceil((j1 - j0) / size), ``groups``) threads in ``teams`` teams (counts,
+// one zeroed counter a team), and its occupancy, the blocks an SM holds,
+// into ``blocks``; the back solve: Rstore -> x [n, B], a CTA a lane.
+// Return cudaGetLastError() (the occupancy entry, the occupancy query's
+// error).
+#define NLSOLVER_LSQ_PANEL_LAUNCHERS(SUFFIX, T)                                                  \
+  extern "C" int least_squares_panel_##SUFFIX(                                                  \
+      const void* A, const void* y, void* Rstore, void* rlog, void* counts, int m, int n,       \
+      int64_t B, int j0, int j1, int size, int teams, int groups, int64_t pairs, void* stream) { \
+    return launch_panel<T, true>(static_cast<const T*>(A), static_cast<const T*>(y),           \
+                                 static_cast<T*>(Rstore), static_cast<T*>(rlog),                \
+                                 static_cast<unsigned*>(counts), m, n, B, j0, j1, size, teams,  \
+                                 groups, pairs, static_cast<cudaStream_t>(stream));             \
+  }                                                                                             \
+  extern "C" int least_squares_panel_occupancy_##SUFFIX(int m, int n, int width, int size,      \
+                                                        int groups, int* blocks) {              \
+    return panel_occupancy<T, true>(m, n, width, size, groups, blocks);                         \
+  }                                                                                             \
+  extern "C" int least_squares_backsolve_##SUFFIX(const void* Rstore, void* x, int n,          \
+                                                  int64_t B, void* stream) {                    \
+    return launch_lstsq_backsolve<T>(static_cast<const T*>(Rstore), static_cast<T*>(x), n, B,  \
+                                     static_cast<cudaStream_t>(stream));                        \
+  }
+
+NLSOLVER_LSQ_PANEL_LAUNCHERS(f32, float)
+NLSOLVER_LSQ_PANEL_LAUNCHERS(f64, double)
 
 NLSOLVER_LSQ_LAUNCHERS(f32, float, kRegisterMaxN32, kWarpMaxQ32)
 NLSOLVER_LSQ_LAUNCHERS(f64, double, kRegisterMaxN64, kWarpMaxQ64)

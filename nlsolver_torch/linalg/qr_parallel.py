@@ -103,13 +103,16 @@ def qr_parallel(A: torch.Tensor, compute_q: bool = True) -> QR:
 
 def backsolve_bm(R: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve R x = b for upper-triangular R [n, n, *batch], b [n, *batch]
-    by unrolled back-substitution on the trailing-batch layout."""
+    by unrolled back-substitution on the trailing-batch layout.  Row i's
+    products R[i, j] x[j] come from one multiply, each rounded on its own;
+    the subtractions then take them one at a time by ascending j."""
     n = R.shape[0]
     xs = [None] * n
     for i in range(n - 1, -1, -1):
         acc = b[i]
-        for j in range(i + 1, n):
-            acc = acc - R[i, j] * xs[j]
+        if i + 1 < n:
+            for term in R[i, i + 1:] * torch.stack(xs[i + 1:]):
+                acc = acc - term
         xs[i] = acc / R[i, i]
     return torch.stack(xs, dim=0)
 

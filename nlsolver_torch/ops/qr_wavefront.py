@@ -29,9 +29,10 @@ in device memory, a thread a lane, any shape, the dispatcher's only past
 K2a-p's range.  All five are bit-equal to the twin; a failed build or
 launch, or a shape that a form does not take, raises.
 
-K2b keeps only the 2 n rows of the system that a stage of the wavefront
-touches, a window that slides down one row a stage, and comes in six
-forms, chosen by n and dtype alone (``least_squares_wavefront_kernel``):
+K2b comes in seven forms (``least_squares_wavefront_kernel``,
+``least_squares_form``).  The first five keep only the 2 n rows of the
+system that a stage of the wavefront touches, a window that slides down
+one row a stage, and are chosen by n and dtype alone:
 ``least_squares_wavefront_registers`` holds the window in a thread's
 registers (n <= 8 in float32, 5 in float64: ``registers_fit``);
 ``least_squares_wavefront_shared`` holds it in shared memory, 32 lanes a
@@ -46,10 +47,16 @@ over its threads, in shared memory (n <= 169 in float32, 119 in float64:
 over P CTAs of the whole card, the window's columns over their shared
 memory and a stage's rotations through device memory, in one cooperative
 launch (n <= 1847 in float32, 1262 in float64: ``distributed_fits``; the
-dispatcher's from n = 472 and 330); ``least_squares_wavefront_global``
-works on a copy of the system in device memory, any n.  The first five
-read A and y once and write only x.  All six are bit-equal to the twin; a
-failed build or launch, or an n that a form does not take, raises.
+dispatcher's from n = 472 and 330).  They read A and y once and write
+only x.  Past them, ``least_squares_wavefront_panel`` (K2b-p) forms R over
+the whole card as K2a-p does, y carried as one more column of the last
+panel, then back-substitutes a CTA a lane (K2a-p's ``qr_panel_fits``: [m,
+n] whose column of m words fits a CTA beside a stage's coefficients, m = n
+<= 29055 in float32, 14527 in float64; the dispatcher's from n = 1848 and
+1263); ``least_squares_wavefront_global`` works on a copy of the system in
+device memory, any shape, the dispatcher's only past K2b-p's range.  All
+seven are bit-equal to the twin; a failed build or launch, or a shape that
+a form does not take, raises.
 """
 from __future__ import annotations
 
@@ -242,15 +249,17 @@ def distributed_groups(n: int, size: int) -> int:
     return min(1024 // columns, max(-(-64 // columns), DISTRIBUTED_THREADS // columns))
 
 
-def least_squares_form(n: int, dtype: torch.dtype) -> str:
-    """The form of K2b that the dispatcher gives n in ``dtype``: the first
-    of "registers", "shared", "warp", "cluster" and "distributed" that
-    takes it, else "global"."""
+def least_squares_form(m: int, n: int, dtype: torch.dtype) -> str:
+    """The form of K2b that the dispatcher gives [m, n] in ``dtype``: the
+    first of "registers", "shared", "warp", "cluster" and "distributed" that
+    takes n, else "panel" where it takes [m, n] (``qr_panel_fits``: K2a-p's
+    range, its back solve's two rows of n + 1 words then fit a CTA too),
+    else "global"."""
     for form, fits in (("registers", registers_fit), ("shared", shared_fits), ("warp", warp_fits),
                        ("cluster", cluster_fits), ("distributed", distributed_fits)):
         if fits(n, dtype):
             return form
-    return "global"
+    return "panel" if qr_panel_fits(m, n, dtype, False) else "global"
 
 
 def qr_warp_bytes(m: int, n: int, dtype: torch.dtype, compute_q: bool) -> int:
@@ -441,12 +450,19 @@ def qr_panel_plan(m: int, n: int, dtype: torch.dtype, lanes: int | None = None,
     over 66 each 21.48 against 27.97 over 132 (PERF.md).  One panel up to m
     = n = 2641 in float32 and 1848 in float64 on 132 SMs, two from there.
     [] where K2a-p does not take [m, n]."""
+    return _panel_plan(m, n, n, dtype, lanes, sms, width)
+
+
+def _panel_plan(m: int, n: int, cols: int, dtype: torch.dtype, lanes: int | None, sms: int,
+                width: int | None) -> list[tuple[int, int, int]]:
+    """``qr_panel_plan`` over ``cols`` columns of a CTA's ``qr_panel_columns(m,
+    n)``: R's n (K2a-p) or [A | y]'s n + 1 (K2b-p)."""
     per = min(qr_panel_columns(m, n, dtype), 1024)
     if not per:
         return []
     most = sms * per if width is None else min(sms * per, width)
     out = []
-    for j0, j1 in qr_panel_bounds(n, most):
+    for j0, j1 in qr_panel_bounds(cols, most):
         least = -(-(j1 - j0) // per)
         teams = max(1, min(lanes, sms // least)) if lanes else 1
         out.append((j0, j1, least if not lanes else max(least, min(j1 - j0, sms // teams))))
@@ -463,6 +479,25 @@ def qr_panel_launches(m: int, n: int, dtype: torch.dtype, compute_q: bool, sms: 
     there."""
     panels = len(qr_panel_plan(m, n, dtype, None, sms, width))
     return 2 * panels - 1 + int(compute_q) if panels else 0
+
+
+def lstsq_panel_plan(m: int, n: int, dtype: torch.dtype, lanes: int | None = None,
+                     sms: int = SMS, width: int | None = None) -> list[tuple[int, int, int]]:
+    """K2b-p's panels for [m, n] in ``dtype``: ``qr_panel_plan``'s over the n
+    + 1 columns of [A | y], y the last column of the last panel; [] where
+    K2b-p does not take [m, n].  One panel up to m = n = 2641 in float32 and
+    1847 in float64 on 132 SMs, two from there."""
+    return _panel_plan(m, n, n + 1, dtype, lanes, sms, width)
+
+
+def lstsq_panel_launches(m: int, n: int, dtype: torch.dtype, sms: int = SMS,
+                         width: int | None = None) -> int:
+    """Kernels that one call of K2b-p launches on a lane or more, each
+    counted in its ``launches``: one a panel of ``lstsq_panel_plan`` and the
+    back solve; 2 on 132 SMs to m = n = 2641 in float32 and 1847 in float64,
+    3 from there."""
+    panels = len(lstsq_panel_plan(m, n, dtype, None, sms, width))
+    return panels + 1 if panels else 0
 
 
 def qr_panel_bytes(m: int, n: int, dtype: torch.dtype, width: int, size: int) -> int:
@@ -510,8 +545,9 @@ def _launcher(entry: str, suffix: str):
     ``qr_wavefront_panel`` (and its ``_occupancy``), ``qr_wavefront_replay``,
     ``least_squares_registers``,
     ``least_squares_shared``, ``least_squares_warp``,
-    ``least_squares_cluster`` or ``least_squares_distributed`` (and its
-    ``_occupancy``)."""
+    ``least_squares_cluster``, ``least_squares_distributed`` or
+    ``least_squares_panel`` (each with its ``_occupancy``), or
+    ``least_squares_backsolve``."""
     fn = getattr(_build.load_library(), f"{entry}_{suffix}")
     vp, ci, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     fn.argtypes = {"qr_wavefront": [vp] * 6 + [ci, ci, i64, ci, ci, vp],
@@ -527,7 +563,10 @@ def _launcher(entry: str, suffix: str):
                    "least_squares_warp": [vp] * 3 + [ci, ci, i64, ci, vp],
                    "least_squares_cluster": [vp] * 3 + [ci, ci, i64, ci, ci, ci, vp],
                    "least_squares_distributed": [vp] * 6 + [ci, ci, i64, ci, ci, ci, ci, vp],
-                   "least_squares_distributed_occupancy": [ci, ci, ci, ctypes.POINTER(ci)]
+                   "least_squares_distributed_occupancy": [ci, ci, ci, ctypes.POINTER(ci)],
+                   "least_squares_panel": [vp] * 5 + [ci, ci, i64] + [ci] * 5 + [i64, vp],
+                   "least_squares_panel_occupancy": [ci] * 5 + [ctypes.POINTER(ci)],
+                   "least_squares_backsolve": [vp, vp, ci, i64, vp],
                    }[entry]
     fn.restype = ci
     return fn
@@ -686,17 +725,36 @@ def qr_wavefront_distributed(A: torch.Tensor, compute_q: bool = False, size: int
     return R, (Qt.transpose(0, 1) if compute_q else None)
 
 
-def qr_panel_occupancy(dtype: torch.dtype, m: int, n: int, width: int, size: int,
-                       groups: int) -> int:
-    """CTAs of K2a-p's first phase (``size`` CTAs on a panel of ``width``
-    columns, ``groups`` groups of threads) that an SM of the current card
-    holds at once, from the CUDA occupancy query."""
+def _launch_panel(name: str, entry: str, ptrs: tuple, A: torch.Tensor, j0: int, j1: int,
+                  size: int, groups: int | None, pairs: int, stream: int) -> None:
+    """One cooperative launch of the first phase of K2a-p (``entry``
+    "qr_wavefront_panel") or K2b-p ("least_squares_panel") on the panel of
+    columns j0 .. j1 - 1, over ``size`` CTAs a lane of ``groups`` groups of
+    threads (``qr_panel_groups`` by default), as many teams as the card
+    holds at once (at most B); ``ptrs`` are the kernel's pointers ahead of
+    its counters.  Raises where the panel does not fit ``size`` CTAs'
+    shared memory or the card cannot hold them at once."""
+    m, n, B = A.shape
+    width = j1 - j0
+    if size < 1 or qr_panel_bytes(m, n, A.dtype, width, size) > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"{name}: a panel of {width} columns of [{m}, {n}] in {A.dtype} does "
+                         f"not fit {size} CTAs' shared memory")
+    groups = groups or qr_panel_groups(width, size)
+    suffix = _build.DTYPE_SUFFIX[A.dtype]
     found = ctypes.c_int(0)
-    err = _launcher("qr_wavefront_panel_occupancy", _build.DTYPE_SUFFIX[dtype])(
-        m, n, width, size, groups, ctypes.byref(found))
+    err = _launcher(f"{entry}_occupancy", suffix)(m, n, width, size, groups, ctypes.byref(found))
     if err != 0:
-        raise RuntimeError(f"qr_wavefront_panel: occupancy query failed (cudaError {err})")
-    return found.value
+        raise RuntimeError(f"{name}: occupancy query failed (cudaError {err})")
+    sms = torch.cuda.get_device_properties(A.device).multi_processor_count
+    teams = min(B, found.value * sms // size)
+    if teams < 1:
+        raise ValueError(f"{name}: the card does not hold {size} CTAs of {groups} groups at once "
+                         f"for [{m}, {n}] in {A.dtype}")
+    counts = torch.zeros(teams, dtype=torch.int32, device=A.device)
+    err = _launcher(entry, suffix)(*ptrs, counts.data_ptr(), m, n, B, j0, j1, size, teams, groups,
+                                   pairs, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
 
 
 def qr_wavefront_panel(A: torch.Tensor, compute_q: bool = False, size: int | None = None,
@@ -737,22 +795,9 @@ def qr_wavefront_panel(A: torch.Tensor, compute_q: bool = False, size: int | Non
             rlog = A.new_empty((B, 2 * pairs))
             stream = torch.cuda.current_stream(A.device).cuda_stream
             for j0, j1, P in panels:
-                P = size or P
-                width = j1 - j0
-                if P < 1 or qr_panel_bytes(m, n, A.dtype, width, P) > MAX_DYNAMIC_SMEM:
-                    raise ValueError(f"{name}: a panel of {width} columns of [{m}, {n}] in "
-                                     f"{A.dtype} does not fit {P} CTAs' shared memory")
-                groups = _groups or qr_panel_groups(width, P)
-                teams = min(B, qr_panel_occupancy(A.dtype, m, n, width, P, groups) * sms // P)
-                if teams < 1:
-                    raise ValueError(f"{name}: the card does not hold {P} CTAs of {groups} groups "
-                                     f"at once for [{m}, {n}] in {A.dtype}")
-                counts = torch.zeros(teams, dtype=torch.int32, device=A.device)
-                err = _launcher("qr_wavefront_panel", suffix)(
-                    A.data_ptr(), R.data_ptr(), rlog.data_ptr(), counts.data_ptr(), m, n, B, j0,
-                    j1, P, teams, groups, pairs, stream)
-                if err != 0:
-                    raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+                _launch_panel(name, "qr_wavefront_panel",
+                              (A.data_ptr(), R.data_ptr(), rlog.data_ptr()), A, j0, j1, size or P,
+                              _groups, pairs, stream)
                 qr_wavefront_panel.launches += 1
             # the earlier panels' columns of R take the later pivots' rotations;
             # Q^T takes every rotation
@@ -980,10 +1025,60 @@ def least_squares_wavefront_distributed(A: torch.Tensor, y: torch.Tensor,
     return x
 
 
+def least_squares_wavefront_panel(A: torch.Tensor, y: torch.Tensor, size: int | None = None,
+                                  _width: int | None = None) -> torch.Tensor:
+    """K2b's panel form (K2b-p), the dispatcher's past the distributed
+    form's range.  R forms as K2a-p's first phase forms it, on the columns
+    of [A | y], panel by panel (``lstsq_panel_plan``): a panel's columns
+    over ``size`` CTAs' shared memory (the plan's P by default), each
+    stage's rotations formed by the pivots' owners and appended to the
+    lane's rotation log in device memory, one barrier in device memory a
+    stage, one cooperative launch a panel; y, the last panel's last column,
+    takes every rotation and forms none.  Each panel stores its columns'
+    entries on and above R's diagonal; then one launch back-substitutes, a
+    CTA a lane, in the twin's order.  Returns ``x [n, B]``, bit-equal to
+    the twin; its ``launches`` count grows by one a kernel launched
+    (``lstsq_panel_launches`` a call).  CPU tensors run the twin; on a card
+    it raises where [m, n] is past its range (``qr_panel_fits``) or the
+    card cannot hold a panel's CTAs at once.  ``_width`` (the most columns a
+    panel) is for the tests only."""
+    name = "least_squares_wavefront_panel"
+    m, n, B = _check_lstsq(name, A, y)
+    if A.device.type == "cpu" and y.device.type == "cpu":
+        return least_squares_wavefront_reference(A, y)
+    _build.check_cuda_inputs(name, {"A": A, "y": y})
+    if not qr_panel_fits(m, n, A.dtype, False):
+        raise ValueError(f"{name}: a column of [{m}, {n}] in {A.dtype} does not fit a block's "
+                         "shared memory; least_squares_wavefront_global takes it")
+    if B == 0:
+        return A.new_empty((n, 0))
+    sms = torch.cuda.get_device_properties(A.device).multi_processor_count
+    panels = lstsq_panel_plan(m, n, A.dtype, B, sms, _width)
+    pairs = qr_log_pairs(m, n)
+    suffix = _build.DTYPE_SUFFIX[A.dtype]
+    x = A.new_empty((n, B))
+    with torch.cuda.device(A.device):
+        rlog = A.new_empty((B, 2 * pairs))
+        store = A.new_empty((B, n * (n + 3) // 2))
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        for j0, j1, P in panels:
+            _launch_panel(name, "least_squares_panel",
+                          (A.data_ptr(), y.data_ptr(), store.data_ptr(), rlog.data_ptr()), A, j0,
+                          j1, size or P, None, pairs, stream)
+            least_squares_wavefront_panel.launches += 1
+        err = _launcher("least_squares_backsolve", suffix)(
+            store.data_ptr(), x.data_ptr(), n, B, stream)
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+        least_squares_wavefront_panel.launches += 1
+    return x
+
+
 def least_squares_wavefront_global(A: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """K2b's device-memory form, any n (the dispatcher's past the distributed
-    form's): the rotations run on a working copy of A and y (scratch ``R``,
-    ``qty``) in device memory.  CPU tensors run the twin."""
+    """K2b's device-memory form, any shape (the dispatcher's past K2b-p's
+    range, elsewhere a direct call): the rotations run on a working copy of
+    A and y (scratch ``R``, ``qty``) in device memory.  CPU tensors run the
+    twin."""
     name = "least_squares_wavefront_global"
     m, n, B = _check_lstsq(name, A, y)
     if A.device.type == "cpu" and y.device.type == "cpu":
@@ -1003,7 +1098,8 @@ def least_squares_wavefront_kernel(A: torch.Tensor, y: torch.Tensor) -> torch.Te
     the kernel; only ``x [n, B]`` is written.  CUDA tensors run K2b in the
     register form where n fits it, else the shared-memory form, else the
     warp form, else the cluster form, else the distributed form, else the
-    device-memory form; CPU tensors its twin."""
+    panel form where [m, n] fits it, else the device-memory form
+    (``least_squares_form``); CPU tensors its twin."""
     m, n, B = _check_lstsq("least_squares_wavefront_kernel", A, y)
     if A.device.type == "cpu" and y.device.type == "cpu":
         return least_squares_wavefront_reference(A, y)
@@ -1011,8 +1107,9 @@ def least_squares_wavefront_kernel(A: torch.Tensor, y: torch.Tensor) -> torch.Te
              "shared": least_squares_wavefront_shared,
              "warp": least_squares_wavefront_warp, "cluster": least_squares_wavefront_cluster,
              "distributed": least_squares_wavefront_distributed,
+             "panel": least_squares_wavefront_panel,
              "global": least_squares_wavefront_global}
-    return forms[least_squares_form(n, A.dtype)](A, y)
+    return forms[least_squares_form(m, n, A.dtype)](A, y)
 
 
 qr_wavefront_warp.launches = 0
@@ -1025,4 +1122,5 @@ least_squares_wavefront_shared.launches = 0
 least_squares_wavefront_warp.launches = 0
 least_squares_wavefront_cluster.launches = 0
 least_squares_wavefront_distributed.launches = 0
+least_squares_wavefront_panel.launches = 0
 least_squares_wavefront_global.launches = 0

@@ -62,7 +62,8 @@ def test_cpu_route_matches_jax_wavefront_f64(m, n, B):
 
 LSTSQ_FORMS = (tqw.least_squares_wavefront_registers, tqw.least_squares_wavefront_shared,
                tqw.least_squares_wavefront_warp, tqw.least_squares_wavefront_cluster,
-               tqw.least_squares_wavefront_distributed, tqw.least_squares_wavefront_global)
+               tqw.least_squares_wavefront_distributed, tqw.least_squares_wavefront_panel,
+               tqw.least_squares_wavefront_global)
 
 
 QR_FORMS = (tqw.qr_wavefront_warp, tqw.qr_wavefront_cluster, tqw.qr_wavefront_distributed,
@@ -1077,19 +1078,20 @@ def test_form_limits():
         assert [tqw.warp_lanes(n, dtype) for n in edges] == [8, 4, 4, 2, 2, 1]
         assert all(tqw.warp_lanes(n, dtype) * tqw.warp_bytes(n, dtype) <= 232448
                    for n in range(1, 170) if tqw.warp_fits(n, dtype))
-    # the dispatcher's six ranges, by n and dtype alone
+    # the dispatcher's ranges on square systems: five by n and dtype alone,
+    # then K2b-p as far as a CTA holds a column (tests/test_torch_lstsq_panel.py)
     for dtype, ends in ((f32, (8, 29, 169, 471, 1847)), (f64, (5, 20, 119, 329, 1262))):
-        forms = [tqw.least_squares_form(n, dtype) for n in range(1, 2000)]
+        forms = [tqw.least_squares_form(n, n, dtype) for n in range(1, 2000)]
         want = ["registers"] * ends[0] + ["shared"] * (ends[1] - ends[0]) + \
             ["warp"] * (ends[2] - ends[1]) + ["cluster"] * (ends[3] - ends[2]) + \
-            ["distributed"] * (ends[4] - ends[3]) + ["global"] * (1999 - ends[4])
+            ["distributed"] * (ends[4] - ends[3]) + ["panel"] * (1999 - ends[4])
         assert forms == want
         # the edges: the last n of K2b-w, the first and last of K2b-c and of
-        # K2b-d, the first of K2b-g
-        assert [tqw.least_squares_form(n, dtype) for n in (ends[2], ends[2] + 1, ends[3],
-                                                            ends[3] + 1, ends[4],
-                                                            ends[4] + 1)] == \
-            ["warp", "cluster", "cluster", "distributed", "distributed", "global"]
+        # K2b-d, the first of K2b-p
+        assert [tqw.least_squares_form(n, n, dtype) for n in (ends[2], ends[2] + 1, ends[3],
+                                                               ends[3] + 1, ends[4],
+                                                               ends[4] + 1)] == \
+            ["warp", "cluster", "cluster", "distributed", "distributed", "panel"]
 
 
 def test_shape_and_device_errors():
@@ -1189,10 +1191,10 @@ def test_forms_refuse_what_they_do_not_take_on_card():
                                             size=4)
     with pytest.raises(ValueError, match="CTAs' shared memory"):
         tqw.least_squares_wavefront_distributed(A, y, size=tqw.distributed_least(472, A.dtype) - 1)
-    # past K2b-d's range the dispatcher names K2b-g and K2b-d refuses
+    # past K2b-d's range the dispatcher names K2b-p and K2b-d refuses
     A, y = torch.zeros(1263, 1263, 2, device=dev, dtype=torch.float64), torch.zeros(
         1263, 2, device=dev, dtype=torch.float64)
-    assert tqw.least_squares_form(1263, torch.float64) == "global"
+    assert tqw.least_squares_form(1263, 1263, torch.float64) == "panel"
     with pytest.raises(ValueError, match="CTAs' shared memory"):
         tqw.least_squares_wavefront_distributed(A, y)
 
