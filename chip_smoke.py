@@ -17,9 +17,9 @@ Phases, each fatal on failure:
   2. build: nvcc over nlsolver_torch/csrc for sm_90a, one process per source;
      no register kernel of K5, K2b or K3 (one per n and dtype each), and no
      kernel of K2b's warp form, of the cluster and distributed forms of K2b,
-     K3 and K2a, of the panel forms of K2a and K2b (K2b-p's back solve
-     too) or of K3-b (its main path's kernel), may spill or keep a stack
-     frame; the issue
+     K3 and K2a (K3-c's probes' kernel too), of the panel forms of K2a and
+     K2b (K2b-p's back solve too) or of K3-b (its main path's kernel), may
+     spill or keep a stack frame; the issue
      floors of K1's staged form, K2b's register and warp forms, K2a's warp
      form, K4b-c and K3's register and warp forms from their SASS, and of
      K1c, K1g, K4b-t and K4b (benches.issue_floors);
@@ -51,21 +51,24 @@ Phases, each fatal on failure:
      times ([2, 2, 262144], [12, 12, 16384], [30, 30, 4096]) and on the
      first damped normal equations of the exp fleet and the two Chebyshev
      fleets of phase 9; the dispatcher's choice at each edge of K3-r's,
-     K3-w's and K3-c's ranges and at the first n of K3-d's in f32 and f64,
-     its x bit-equal to the twin (past n = 64 to chol_solve_right_looking,
-     the twin's operations in its order as whole blocks), and K3-d's last n
-     by the plan alone; its path past K3-w's range, [240, 240, 16] in f64
-     through K3-c (clusters of 8), launches counted, x bit-equal to
+     K3-w's and K3-c's ranges in f32 and f64, its x bit-equal to the twin
+     (past n = 64 to chol_solve_right_looking, the twin's operations in its
+     order as whole blocks); its path past K3-w's range, [240, 240, 16] in
+     f64 through K3-c (clusters of 8), launches counted, x bit-equal to
      chol_solve_right_looking and the residual |Ax - b| / |b| below 1e-12;
-     past K3-c's range, [646, 646, 2] in f64 through K3-d (66 CTAs a lane),
-     counted, bit-equal; K3-g, past K3-d's range, by a direct call on the
-     same systems, counted, bit-equal, timed once; K3-b (a lane over the
-     card, its triangle packed in device memory, factored by panels, the
-     back solve by columns) by a direct call there, bit-equal to its plain
-     version; its path, the first n past K3-d's range, [2458, 2458, 2] f64
-     and [3600, 3600, 2] f32, through the dispatcher, counted, x bit-equal
-     to its plain version on the card and |Ax - b| / (|A| |x|) beside the
-     twin's order's; a non-contiguous and an f16 input refused;
+     past K3-c's range K3-b (a lane over the card, its triangle packed in
+     device memory, factored by panels, the back solve by columns), K3-d's
+     old range included: the plan's hand-over from K3-c to K3-b and K3-d's
+     last n, and the dispatcher at the first n, [646, 646, 2] f64 and [928,
+     928, 2] f32, and at the first n past K3-d's range, [2458, 2458, 2] f64
+     and [3600, 3600, 2] f32, each K3-b once and no other form, x bit-equal
+     to its plain version on the card and |Ax - b| / (|A| |x|) within 10x
+     the twin's order's; on the same systems at the first n, K3-d (a lane
+     over P CTAs of the card, one barrier in device memory a step) by direct
+     calls, counted, bit-equal to the twin's order, and at [646, 646, 2] f64
+     K3-g (device memory), bit-equal, timed once, and K3-b, bit-equal to its
+     plain version, by direct calls; a non-contiguous and an f16 input
+     refused;
   8. K2b (wavefront least squares) in its seven forms (registers, shared
      memory, a warp a lane, a cluster a lane, a lane over the whole card,
      panels over the whole card, device memory) bit-equal to
@@ -117,8 +120,9 @@ Phases, each fatal on failure:
      same fits of 12 and 30 coefficients through solve="cholesky" (K3 in
      the form its plan names, K3-w at 30), K3 launched once a host step;
      two fits of 1263 coefficients on 1280 points in f64 through
-     "qr_pallas" (K2b-p once a host step) and "cholesky" (K3-d), each
-     recovering its coefficients, the two within 1e-9 of each other;
+     "qr_pallas" (K2b-p once a host step) and "cholesky" (K3-b once a host
+     step), each recovering its coefficients, the two within 1e-9 of each
+     other;
      numpy start points and data land on the card;
  10. NLLS timing: bench_nlls_fleet per backend (median of 3 after 1
      warm-up, ABBA order), and K2a in its four forms (K2a-w at [16, 16,
@@ -135,8 +139,10 @@ Phases, each fatal on failure:
      (the first n past the cluster forms' ranges), and beside each the form
      that takes those shapes now, K2b-d and K3-d; K2a-p at [333, 333, 2]
      f64, [1321, 1321, 2] f64 and [1875, 1875, 2] f32 with Q beside
-     torch.linalg.qr, and K3-b at [646, 646, 2] f64, [2458, 2458, 2] f64 and
-     [3600, 3600, 2] f32 beside cholesky_ex + cholesky_solve, K2b-p at
+     torch.linalg.qr, and K3-b through the dispatcher at [646, 646, 2] f64,
+     [1263, 1263, 2] f64 (K3-d beside both by a direct call), [2458, 2458,
+     2] f64 and [3600, 3600, 2] f32 beside cholesky_ex + cholesky_solve,
+     K2b-p at
      [1263, 1263, 2] f64 and [1848, 1848, 2] f32 beside torch.linalg.lstsq
      and at [330, 330, 2] f64 beside K2b-d, the median of 5 calls after 2
      warm-ups from CUDA events around each;
@@ -333,8 +339,9 @@ K4b-c, K4b-t, K4b and K3's register and warp forms also the floor of their
 instruction issue (``issue_ms``), which must lie below their time.
 
 The rows of K4a, K2b-r, K3-r, K5r, K2a-w and K1s also name the launches of
-phases 27 and 28 (``more_launches``); those of K2a-p and K3-b their times
-at their other shapes (``more_shapes``).
+phases 27 and 28, those of K2b-p and K3-b the dispatcher calls of phases 8
+and 7 (``more_launches``); those of K2a-p, K2b-p and K3-b their times at
+their other shapes (``more_shapes``).
 
 Prints a JSON line of kernels, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -746,7 +753,7 @@ def phase_build():
              "least_squares_warp_kernel": ("K2b-w", "IfLi1E"),            # <float, a word a row>
              "chol_registers_kernel": ("K3-r", "IfLi2E"),                 # <float, the fleet's n>
              "least_squares_cluster_kernel": ("K2b-c", "IdE"),            # <double>, its fleet's
-             "chol_cluster_kernel": ("K3-c", "IdE"),                      # <double>, its path's
+             "chol_cluster_kernel": ("K3-c", "IdLb0E"),                   # <double, main path's>
              "least_squares_distributed_kernel": ("K2b-d", "IdE"),        # <double>, its path's
              "chol_distributed_kernel": ("K3-d", "IdE"),                  # <double>, its path's
              "qr_cluster_kernel": ("K2a-c", "IfE"),                       # <float>, its path's
@@ -780,12 +787,14 @@ def phase_build():
               "distributed or panel form of K2b, the cluster, distributed or panel form of K2a "
               "or the cluster, distributed or blocked form of K3 use local memory: "
               + "; ".join(local))
-        check(len(used["K3-b"]) == 4, f"ptxas reported {len(used['K3-b'])} kernels of K3-b, "
-              "expected the main path's and the probes' per dtype")
-        log(f"[2] ptxas: K3-b, 4 kernels (float32, float64; the main path's and the probes'): "
-            f"{min(used['K3-b'])} to {max(used['K3-b'])} registers a thread, {main.get('K3-b')} "
-            "in the main path's float64; the main path's 0 bytes of stack frame, 0 bytes "
-            "spilled")
+        for kid in ("K3-b", "K3-c"):
+            check(len(used[kid]) == 4, f"ptxas reported {len(used[kid])} kernels of {kid}, "
+                  "expected the main path's and the probes' per dtype")
+            log(f"[2] ptxas: {kid}, 4 kernels (float32, float64; the main path's and the "
+                f"probes'): {min(used[kid])} to {max(used[kid])} registers a thread, "
+                f"{main.get(kid)} in the main path's float64; "
+                + ("the main path's" if kid == "K3-b" else "each") + " 0 bytes of stack frame, "
+                "0 bytes spilled")
         # K4c-r: one kernel per room of 4, 8, 16 or 32 words a row, way in
         # (straight by 16-byte or one-word accesses, or staged), and dtype
         k4cr = used["K4c-r"]
@@ -793,7 +802,7 @@ def phase_build():
         log(f"[2] ptxas: rank2_batched_rows_kernel, {len(k4cr)} kernels: {min(k4cr)} to "
             f"{max(k4cr)} registers a thread, {main.get('K4c-r')} at n = {BFGS_N} in float32, "
             "0 bytes of stack frame, 0 bytes spilled")
-        for kid in ("K2b-c", "K3-c", "K2b-d", "K3-d", "K2a-c", "K2a-d", "K2a-p", "K2a-p's replay",
+        for kid in ("K2b-c", "K2b-d", "K3-d", "K2a-c", "K2a-d", "K2a-p", "K2a-p's replay",
                     "K2b-p", "K2b-p's back solve"):
             check(len(used[kid]) == 2, f"ptxas reported {len(used[kid])} kernels of {kid}, "
                   "expected one per dtype")
@@ -1152,9 +1161,10 @@ K3_OF_PLAN = {"registers": "K3-r", "warp": "K3-w", "cluster": "K3-c", "distribut
 
 
 def spd_takes(kid, n, dtype):
-    """Whether ``kid`` takes order n and gives the twin's x there: K3-b,
-    whose back solve is not the twin's order, is held against its own plain
-    version apart."""
+    """Whether ``kid`` takes order n and gives the twin's x there, by a
+    direct call (K3-d up to its last n, though the dispatcher gives its
+    range to K3-b): K3-b, whose back solve is not the twin's order, is held
+    against its own plain version apart, past K3-c's range."""
     from nlsolver_torch.ops import smallchol as tsc
 
     return {"K3-r": tsc.registers_fit, "K3-w": tsc.warp_fits, "K3-c": tsc.cluster_fits,
@@ -1193,11 +1203,13 @@ def normal_system(torch, dev, scenario, n, X0_value):
 
 def phase_smallchol(torch, dev):
     """K3's forms bit for bit against the twin, the dispatcher's choice at
-    each boundary, its path past K3-w's range (K3-c) and past K3-c's (K3-d),
-    K3-g by a direct call there, refusals.  Returns the largest difference
-    from the twin per form, the launches of K3-c, K3-d and K3-g on their
-    paths and the times in ms of the twin's order (chol_solve_right_looking)
-    at K3-c's and K3-d's paths."""
+    each boundary, its path past K3-w's range (K3-c) and past K3-c's (K3-b,
+    K3-d's range included, its x bit-equal to its plain version), K3-d and
+    K3-g by direct calls there, refusals.  Returns the largest difference
+    from the twin (K3-b: from its plain version) per form, the launches of
+    each form on its path or direct call, and the times in ms of the twin's
+    order (chol_solve_right_looking) at K3-c's path and at [646, 646, 2]
+    f64, and of K3-b's plain version at its first shapes."""
     from nlsolver_torch.benches import chebyshev_scenario, expfit_scenario
     from nlsolver_torch.ops import smallchol as tsc
 
@@ -1263,6 +1275,47 @@ def phase_smallchol(torch, dev):
         worst[kid] = max(worst[kid], max_diff(x.cpu(), twin))
         return x, counts, twin_ms, start.elapsed_time(end)
 
+    def dispatch_blocked(A, rhs, label):
+        """The dispatcher past K3-c's range: K3-b once and no other form,
+        its x bit-equal to its plain version run on the card (the twin's L
+        and z, the back solve by columns), its |Ax - b| / (|A| |x|) within
+        10x that of the twin's order (chol_solve_right_looking: the twin's
+        factor on the card, its back solve, ascending in k, on the host).
+        Returns x, the launches, the dispatcher's ms, the plain version's,
+        and the twin's order's x and ms."""
+        dtype = A.dtype
+        reset_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        x = tsc.solve_spd_batchminor(A, rhs)
+        end.record()
+        torch.cuda.synchronize()
+        counts = {k: f.launches for k, f in forms.items()}
+        check(counts == {k: int(k == "K3-b") for k in forms},
+              f"solve_spd_batchminor({label}) launched {counts}, not K3-b once")
+        t0 = time.perf_counter()
+        want = tsc.solve_spd_blocked_reference(A, rhs)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(x, want), f"K3-b differs from its plain version at {label}: max "
+              f"|diff| {max_diff(x, want):.3e}")
+        worst["K3-b"] = max(worst["K3-b"], max_diff(x, want))
+        t0 = time.perf_counter()
+        xt = tsc.chol_solve_right_looking(A, rhs)
+        twin_ms = (time.perf_counter() - t0) * 1e3
+        res, res_t = spd_residual(torch, A, x, rhs), spd_residual(torch, A, xt, rhs)
+        log(f"[7] solve_spd_batchminor({label}): launches {counts}; through K3-b "
+            f"({tsc.blocked_plan(A.shape[0], dtype, A.shape[2])} CTAs a lane, panels of "
+            f"{tsc.BLOCKED_NB}) bit-equal to its plain version ({plain_ms:.0f} ms), "
+            f"{start.elapsed_time(end):.3f} ms; max over lanes of |Ax-b| / (|A| |x|) {res:.3e}, "
+            f"the twin's order's {res_t:.3e}, max |x - x_twin| {max_diff(x, xt):.3e}")
+        check(bool(torch.isfinite(x).all())
+              and res < (1e-5 if dtype == torch.float32 else 1e-13) and res < 10 * res_t + 1e-16,
+              f"K3-b's residual at {label} is too large")
+        return {"x": x, "counts": counts, "ms": start.elapsed_time(end), "plain_ms": plain_ms,
+                "twin": xt, "twin_ms": twin_ms}
+
+    launches, first = {"K3-b": 0}, {}
     for dtype in (torch.float32, torch.float64):
         kind = str(dtype)[6:]
         reg = tsc.REGISTER_MAX_N[dtype]
@@ -1273,18 +1326,28 @@ def phase_smallchol(torch, dev):
             A, rhs = spd_case(torch, dev, n, 999, dtype)
             hold([kid], A, rhs, f"[{n}, {n}, 999] {kind}")
             dispatch(kid, A, rhs, f"[{n}, {n}, 999] {kind}")
-        # the ends of K3-w's and K3-c's ranges and K3-d's first n on a few
-        # lanes (clusters of 8 there, 44 CTAs a lane past them)
-        for n, kid in ((warp, "K3-w"), (warp + 1, "K3-c"), (last, "K3-c"), (last + 1, "K3-d")):
+        # the ends of K3-w's and K3-c's ranges on a few lanes (clusters of 8
+        # there)
+        for n, kid in ((warp, "K3-w"), (warp + 1, "K3-c"), (last, "K3-c")):
             A, rhs = spd_case(torch, dev, n, 3, dtype)
             _, _, _, ms = dispatch(kid, A, rhs, f"[{n}, {n}, 3] {kind}")
             log(f"[7] solve_spd_batchminor([{n}, {n}, 3] {kind}) through {kid}: bit-equal to "
                 f"the twin, {ms:.3f} ms")
-        check(tsc.plan(far, dtype) == "distributed" and tsc.plan(far + 1, dtype) == "blocked",
-              f"the plan does not end K3-d at n={far} in {kind}")
+        # past K3-c's range K3-b, K3-d's range (now a direct call's) included:
+        # the dispatcher at the first n on 2 lanes (in float64 K3-d's path
+        # before, [646, 646, 2]; K3-d and K3-g by direct calls below)
+        check(tsc.plan(last, dtype) == "cluster" and tsc.plan(last + 1, dtype) == "blocked",
+              f"the plan does not hand K3-c's last n, {last}, to K3-b in {kind}")
+        check(tsc.plan(far, dtype) == "blocked" and tsc.distributed_fits(far, dtype)
+              and not tsc.distributed_fits(far + 1, dtype),
+              f"K3-d's range does not end at n={far} in {kind}, or the plan does not give it K3-b")
+        n = last + 1
+        A, rhs = spd_case(torch, dev, n, 2, dtype)
+        first[kind] = (A, rhs, dispatch_blocked(A, rhs, f"[{n}, {n}, 2] {kind}"))
+        launches["K3-b"] += first[kind][2]["counts"]["K3-b"]
         log(f"[7] the dispatcher takes K3-r for n <= {reg}, K3-w for {reg + 1} <= n <= {warp}, "
-            f"K3-c for {warp + 1} <= n <= {last}, K3-d for {last + 1} <= n <= {far} (by the "
-            f"plan past {last + 1}), each bit-equal to the twin, K3-b beyond ({kind})")
+            f"K3-c for {warp + 1} <= n <= {last}, K3-b beyond, K3-d's range {last + 1} <= n <= "
+            f"{far} included ({kind})")
     # K3-c's path: the dispatcher past K3-w's range in float64, counted and
     # held bit for bit against the twin's order on the card (the twin's
     # square roots taken there: the host's float64 torch.sqrt may be off by
@@ -1298,20 +1361,38 @@ def phase_smallchol(torch, dev):
         f"the twin's order (chol_solve_right_looking, {path_twin_ms:.0f} ms); max over lanes of "
         f"|Ax-b|/|b| {res:.3e}")
     check(bool(torch.isfinite(x).all()) and res < 1e-12, "K3-c's residual above 1e-12")
-    launches = {"K3-c": counts["K3-c"]}
-    # K3-d's path: the first n past K3-c's range in float64, on 2 lanes,
-    # through the dispatcher
-    n = K3D_N
-    check(tsc.cluster_fits(n - 1, torch.float64) and not tsc.cluster_fits(n, torch.float64),
-          f"K3-c's range in float64 does not end at n={n - 1}")
-    A, rhs = spd_case(torch, dev, n, 2, torch.float64)
-    x, counts, far_twin_ms, ms = dispatch("K3-d", A, rhs, f"[{n}, {n}, 2] float64")
-    log(f"[7] solve_spd_batchminor([{n}, {n}, 2] float64): launches {counts}; through K3-d ("
-        f"{tsc.distributed_plan(n, torch.float64, 2)} CTAs a lane) bit-equal to the twin's order "
-        f"(chol_solve_right_looking, {far_twin_ms:.0f} ms), {ms:.3f} ms")
-    launches["K3-d"] = counts["K3-d"]
-    # K3-g, the dispatcher's past K3-d's range (minutes a lane there), by a
-    # direct call on the same systems, counted, timed once
+    launches["K3-c"] = counts["K3-c"]
+    # K3-d, the dispatcher's at the first n past K3-c's range until K3-b took
+    # its range, by a direct call on the same 2 lanes as the dispatcher's
+    # K3-b above in float32 and float64 ([646, 646, 2], its path before),
+    # counted, bit-equal to the twin's order
+    check(tsc.cluster_fits(K3D_N - 1, torch.float64) and not tsc.cluster_fits(K3D_N, torch.float64),
+          f"K3-c's range in float64 does not end at n={K3D_N - 1}")
+    launches["K3-d"] = 0
+    for kind in ("float32", "float64"):
+        A, rhs, found = first[kind]
+        n, twin = A.shape[0], found["twin"]
+        reset_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        x = tsc.solve_spd_distributed(A, rhs)
+        end.record()
+        torch.cuda.synchronize()
+        counts = {k: f.launches for k, f in forms.items()}
+        check(counts == {k: int(k == "K3-d") for k in forms},
+              f"solve_spd_distributed([{n}, {n}, 2] {kind}) launched {counts}")
+        check(torch.equal(x, twin), f"K3-d differs from the twin's order at [{n}, {n}, 2] {kind}: "
+              f"max |diff| {max_diff(x, twin):.3e}")
+        worst["K3-d"] = max(worst["K3-d"], max_diff(x, twin))
+        log(f"[7] solve_spd_distributed([{n}, {n}, 2] {kind}) (K3-d) by a direct call "
+            f"({tsc.distributed_plan(n, A.dtype, 2)} CTAs a lane): bit-equal to the twin's order "
+            f"(chol_solve_right_looking, {found['twin_ms']:.0f} ms), "
+            f"{start.elapsed_time(end):.3f} ms")
+        launches["K3-d"] += counts["K3-d"]
+    n, far_twin_ms = K3D_N, first["float64"][2]["twin_ms"]
+    # K3-g, the dispatcher's past K3-c's range before K3-d (minutes a lane
+    # past K3-d's range), by a direct call on the same systems, counted,
+    # timed once
     reset_counts()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1326,9 +1407,9 @@ def phase_smallchol(torch, dev):
     log(f"[7] solve_spd_batchminor_global([{n}, {n}, 2] float64) (K3-g): bit-equal to the "
         f"twin, {start.elapsed_time(end):.3f} ms")
     launches["K3-g"] = counts["K3-g"]
-    # K3-b, past K3-d's range, by a direct call on the same systems: its x
-    # bit-equal to its plain version's (L and z the twin's, the back solve by
-    # columns, descending), and within a few ulps of the twin's
+    # K3-b by a direct call on the same systems: its x bit-equal to its
+    # plain version's (L and z the twin's, the back solve by columns,
+    # descending), and within a few ulps of the twin's
     reset_counts()
     xb = tsc.solve_spd_blocked(A, rhs)
     torch.cuda.synchronize()
@@ -1341,45 +1422,18 @@ def phase_smallchol(torch, dev):
     log(f"[7] solve_spd_blocked([{n}, {n}, 2] float64) (K3-b) by a direct call: bit-equal to "
         f"its plain version, max |x - x_twin| / max |x_twin| {max_diff(xb, x) / max_diff(x, 0 * x):.3e}")
     worst["K3-b"] = max(worst["K3-b"], max_diff(xb, want))
-    # K3-b's path: the first n past K3-d's range in float64 and in float32,
-    # on 2 lanes, through the dispatcher, counted, x bit-equal to its plain
-    # version run on the card; the residual beside that of the twin's order
-    # (chol_solve_right_looking: the twin's factor on the card, its back
-    # solve, ascending in k, on the host)
-    launches["K3-b"] = 0
+    # K3-b's range past K3-d's: the first n in float64 and in float32, on 2
+    # lanes, through the dispatcher, as at its first n above
     for dtype in (torch.float64, torch.float32):
         kind = str(dtype)[6:]
         n = K3B_N[kind]
-        check(tsc.plan(n - 1, dtype) == "distributed" and tsc.plan(n, dtype) == "blocked",
+        check(tsc.plan(n, dtype) == "blocked" and not tsc.distributed_fits(n, dtype)
+              and tsc.distributed_fits(n - 1, dtype),
               f"K3-d's range in {kind} does not end at n={n - 1}")
         A, rhs = spd_case(torch, dev, n, 2, dtype)
-        reset_counts()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        xb = tsc.solve_spd_batchminor(A, rhs)
-        end.record()
-        torch.cuda.synchronize()
-        counts = {k: f.launches for k, f in forms.items()}
-        check(counts == {k: int(k == "K3-b") for k in forms},
-              f"solve_spd_batchminor([{n}, {n}, 2] {kind}) launched {counts}, not K3-b once")
-        t0 = time.perf_counter()
-        want = tsc.solve_spd_blocked_reference(A, rhs)
-        torch.cuda.synchronize()
-        twin_ms[f"K3-b {kind}"] = (time.perf_counter() - t0) * 1e3
-        check(torch.equal(xb, want), f"K3-b differs from its plain version at [{n}, {n}, 2] "
-              f"{kind}: max |diff| {max_diff(xb, want):.3e}")
-        worst["K3-b"] = max(worst["K3-b"], max_diff(xb, want))
-        xt = tsc.chol_solve_right_looking(A, rhs)
-        res, res_t = spd_residual(torch, A, xb, rhs), spd_residual(torch, A, xt, rhs)
-        log(f"[7] solve_spd_batchminor([{n}, {n}, 2] {kind}): launches {counts}; through K3-b "
-            f"({tsc.blocked_plan(n, dtype, 2)} CTAs a lane, panels of {tsc.BLOCKED_NB}) "
-            f"bit-equal to its plain version ({twin_ms[f'K3-b {kind}']:.0f} ms), "
-            f"{start.elapsed_time(end):.3f} ms; max over lanes of |Ax-b| / (|A| |x|) {res:.3e}, "
-            f"the twin's order's {res_t:.3e}, max |x - x_twin| {max_diff(xb, xt):.3e}")
-        check(bool(torch.isfinite(xb).all())
-              and res < (1e-5 if dtype == torch.float32 else 1e-13) and res < 10 * res_t + 1e-16,
-              f"K3-b's residual at [{n}, {n}, 2] {kind} is too large")
-        launches["K3-b"] += counts["K3-b"]
+        found = dispatch_blocked(A, rhs, f"[{n}, {n}, 2] {kind}")
+        twin_ms[f"K3-b {kind}"] = found["plain_ms"]
+        launches["K3-b"] += found["counts"]["K3-b"]
     A32 = torch.eye(3, device=dev).reshape(3, 3, 1).expand(3, 3, 64).contiguous()
     for what, args in (("non-contiguous", (A32.transpose(0, 1), torch.ones(3, 64, device=dev))),
                        ("f16", (A32.half(), torch.ones(3, 64, device=dev).half()))):
@@ -1389,7 +1443,8 @@ def phase_smallchol(torch, dev):
             log(f"[7] K3 refuses a {what} input: {e}")
         else:
             check(False, f"K3 took a {what} input")
-    twin_ms.update({"K3-c": path_twin_ms, "K3-d": far_twin_ms})
+    twin_ms.update({"K3-c": path_twin_ms, "K3-d": far_twin_ms,
+                    f"K3-b n={K3D_N}": first["float64"][2]["plain_ms"]})
     return worst, launches, twin_ms
 
 
@@ -1921,7 +1976,8 @@ def phase_nlls_slice(torch, dev):
     # two Chebyshev fits of CHEB_PANEL's 1263 coefficients in float64, past
     # K2b-d's range: through solve="qr_pallas" (K2b-p on the augmented
     # systems [2543, 1263, 2], two launches a host step) and through
-    # "cholesky" (K3-d on the damped normal equations); each recovers the
+    # "cholesky" (K3-b on the damped normal equations, the form the plan
+    # names past K3-c's range); each recovers the
     # coefficients within 1e-9 and the two fits agree within 1e-9 (the
     # Chebyshev basis is orthogonal on the nodes: J^T J is diagonal, its
     # condition number 2)
@@ -2077,10 +2133,9 @@ def phase_nlls_timing(torch, dev, spd_twin_ms, qr_twin_ms):
         # K3-c at its path's [240, 240, 16] f64 (phase 7), beside K3-g
         "K3-c": spd_timing("K3-c", K3G_N, K3G_B, 20, torch.float64, spd_twin_ms["K3-c"]),
         "K3-g n=240": spd_timing("K3-g", K3G_N, K3G_B, 1, torch.float64, spd_twin_ms["K3-c"]),
-        # K3-g at its first n past K3-c's range, [646, 646, 2] f64, and K3-d,
-        # which takes it (phase 7)
+        # K3-g at its first n past K3-c's range, [646, 646, 2] f64 (K3-d by a
+        # direct call is timed there beside the dispatcher, below)
         "K3-g": spd_timing("K3-g", K3D_N, 2, 1, torch.float64, spd_twin_ms["K3-d"]),
-        "K3-d": spd_timing("K3-d", K3D_N, 2, 10, torch.float64, spd_twin_ms["K3-d"]),
         "K2a-g n=16": (lambda: tqw.qr_wavefront_global(Aq, compute_q=True), 50,
                        lambda: tqw.qr_wavefront_reference(Aq, compute_q=True), 5,
                        lambda: torch.linalg.qr(Aql, mode="complete")),
@@ -2119,6 +2174,9 @@ def phase_nlls_timing(torch, dev, spd_twin_ms, qr_twin_ms):
             f"{p * 1e3:.2f} us per chained call (CUDA events; kernel "
             f"{k1 * 1e3:.2f}/{k2 * 1e3:.2f}, twin {p1 * 1e3:.2f}/{p2 * 1e3:.2f})"
             + ("" if lib is None else f"; library call {lib * 1e3:.2f} us"))
+    alone.update(time_past_distributed(torch, dev, spd_twin_ms, qr_twin_ms))
+    # K3-d at its old path is timed once, in the dispatcher's loop
+    alone["K3-d"] = alone.pop(f"K3-d n={K3D_N}")
     for new, old in (("K3-r", "K3-g n=2"), ("K3 n=12", "K3-g n=12"), ("K3-w", "K3-g n=30"),
                      ("K3-c", "K3-g n=240"), ("K2b-c", "K2b-g n=120"), ("K3-d", "K3-g"),
                      ("K2b-d", "K2b-g"), ("K2a-c", "K2a-g"), ("K2a-d", "K2a-g n=333")):
@@ -2135,10 +2193,10 @@ def phase_nlls_timing(torch, dev, spd_twin_ms, qr_twin_ms):
         best = max(rs, key=lambda r: r["fits_per_sec"])
         log(f"[10] fleet {solve}: {best['fits_per_sec']:.6g} fits/s "
             f"({best['median_ms']:.3f} ms per {best['steps']}-step fit of {FLEET_B} lanes)")
-    alone.update(time_past_distributed(torch, dev, spd_twin_ms, qr_twin_ms))
     for new, old in (("K2a-p n=333", "K2a-g n=333"), ("K2a-p n=333", "K2a-d"),
-                     ("K3-b n=646", "K3-g"), ("K3-b n=646", "K3-d"), ("K2b-p n=330", "K2b-g"),
-                     ("K2b-p n=330", "K2b-d")):
+                     ("K3-b n=646", "K3-g"), ("K3-b n=646", "K3-d"),
+                     (f"K3-b n={CHEB_PANEL[0]}", f"K3-d n={CHEB_PANEL[0]}"),
+                     ("K2b-p n=330", "K2b-g"), ("K2b-p n=330", "K2b-d")):
         log(f"[10] {new}: {alone[new][0]:.3f} ms against {old.split()[0]}'s {alone[old][0]:.3f} "
             f"ms at the same shape ({alone[old][0] / alone[new][0]:.2f}x)")
     return alone
@@ -2162,15 +2220,17 @@ def median_ms(torch, fn, reps=5, warmup=2):
 
 
 def time_past_distributed(torch, dev, spd_twin_ms, qr_twin_ms):
-    """K2a-p, K3-b and K2b-p, each at its direct call's shape (K2a-d's,
-    K3-d's and K2b-d's paths, [333, 333, 2], [646, 646, 2] and [330, 330, 2]
-    f64) and at the first shapes of its range, beside the library call that
-    computes the same function (torch.linalg.qr, complete; cholesky_ex +
-    cholesky_solve; torch.linalg.lstsq), each the median of 5 calls after 2
-    warm-ups; the plain version timed once there (phases 7 and 8 at the
-    first shapes; K2b-d's twin at [330, 330, 2]).  Returns (ms, plain ms,
-    library ms) by name: "K2a-p", "K3-b" and "K2b-p" at the float64 first
-    shape, "... n=N" at the others."""
+    """K2a-p and K2b-p, each at its direct call's shape (K2a-d's and K2b-d's
+    paths, [333, 333, 2] and [330, 330, 2] f64), and K3-b through the
+    dispatcher at K3-d's old path, [646, 646, 2] f64, and at [1263, 1263, 2]
+    f64 (K3-d beside both by a direct call), each also at the first shapes
+    of its range, beside the library call that computes the same function
+    (torch.linalg.qr, complete; cholesky_ex + cholesky_solve;
+    torch.linalg.lstsq), each the median of 5 calls after 2 warm-ups; the
+    plain version timed once there (phases 7 and 8 at the first shapes;
+    K2b-d's twin at [330, 330, 2]).  Returns (ms, plain ms, library ms) by
+    name: "K2a-p", "K3-b" and "K2b-p" at the float64 first shape, "... n=N"
+    at the others, "K3-d n=N" beside K3-b."""
     from nlsolver_torch.ops import qr_wavefront as tqw
     from nlsolver_torch.ops import smallchol as tsc
 
@@ -2198,20 +2258,31 @@ def time_past_distributed(torch, dev, spd_twin_ms, qr_twin_ms):
         log(f"[10] {name} ([{n}, {n}, {b}] {kind} with Q): {ms:.3f} ms (median of 5 after 2), "
             f"the twin {plain:.1f} ms, torch.linalg.qr {lib:.3f} ms: {ms / lib:.2f}x the library")
         del A, Al
-    for n, dtype in ((K3D_N, torch.float64), (K3B_N["float64"], torch.float64),
-                     (K3B_N["float32"], torch.float32)):
+    # K3-b through the dispatcher at K3-d's old path, [646, 646, 2] f64, and
+    # at the Chebyshev fits' 1263 coefficients inside K3-d's old range,
+    # [1263, 1263, 2] f64, each beside K3-d by a direct call; at the first n
+    # past K3-d's range in float64 and float32
+    for n, dtype in ((K3D_N, torch.float64), (CHEB_PANEL[0], torch.float64),
+                     (K3B_N["float64"], torch.float64), (K3B_N["float32"], torch.float32)):
         kind = str(dtype)[6:]
         A, rhs = spd_case(torch, dev, n, 2, dtype, seed=9)
         Al, bl = A.permute(2, 0, 1).contiguous(), rhs.t().contiguous()[:, :, None]
-        ms = median_ms(torch, lambda: tsc.solve_spd_blocked(A, rhs))
+        check(tsc.plan(n, dtype) == "blocked", f"the plan does not give n={n} in {kind} to K3-b")
+        ms = median_ms(torch, lambda: tsc.solve_spd_batchminor(A, rhs))
         lib = median_ms(torch, lambda: torch.cholesky_solve(bl, torch.linalg.cholesky_ex(Al).L))
-        plain = spd_twin_ms.get(f"K3-b {kind}") if n != K3D_N else None
-        plain = plain or once_ms(lambda: tsc.solve_spd_blocked_reference(A, rhs))
         name = "K3-b" if n == K3B_N["float64"] else f"K3-b n={n}"
+        plain = (spd_twin_ms.get(f"K3-b {kind}") if n in K3B_N.values()
+                 else spd_twin_ms.get(name)) or once_ms(
+                     lambda: tsc.solve_spd_blocked_reference(A, rhs))
         out[name] = (ms, plain, lib)
-        log(f"[10] {name} ([{n}, {n}, 2] {kind}): {ms:.3f} ms (median of 5 after 2), its plain "
-            f"version {plain:.1f} ms, cholesky_ex + cholesky_solve {lib:.3f} ms: "
-            f"{ms / lib:.2f}x the library")
+        d_ms = ""
+        if tsc.distributed_fits(n, dtype):
+            d = median_ms(torch, lambda: tsc.solve_spd_distributed(A, rhs))
+            out[f"K3-d n={n}"] = (d, spd_twin_ms["K3-d"] if n == K3D_N else None, lib)
+            d_ms = f", K3-d by a direct call {d:.3f} ms"
+        log(f"[10] {name} ([{n}, {n}, 2] {kind}, solve_spd_batchminor): {ms:.3f} ms (median of 5 "
+            f"after 2), its plain version {plain:.1f} ms, cholesky_ex + cholesky_solve "
+            f"{lib:.3f} ms{d_ms}: {ms / lib:.2f}x the library")
         del A, rhs, Al, bl
     # K2b-p at the first n past K2b-d's range in float64 and float32 beside
     # torch.linalg.lstsq on the same systems as [B, m, n], the twin (float64)
@@ -4358,8 +4429,8 @@ def phases_earlier(torch, dev):
                    shape=f"[{K2BP_N['float64']}, {K2BP_N['float64']}, 2] f64"),
         # A's lower triangle and b in, x out; each form at the fleet it
         # serves, K3-c at its path past K3-w's range, past K3-c's range K3-d
-        # through the dispatcher and K3-g by a direct call, both at [646,
-        # 646, 2] f64
+        # and K3-g by direct calls, both at [646, 646, 2] f64, where the
+        # dispatcher takes K3-b
         kernel_row("solve_spd_registers", csrc + "smallchol.cu", tpu + "smallchol.py:101",
                    fleet_launches["K3-r"], chol_err["K3-r"], alone["K3-r"],
                    spd_bound(2, FLEET_B), FLOORS["K3-r"]),
@@ -4370,17 +4441,19 @@ def phases_earlier(torch, dev):
                    k3_launches["K3-c"], chol_err["K3-c"], alone["K3-c"],
                    spd_bound(K3G_N, K3G_B, True)),
         kernel_row("solve_spd_distributed", csrc + "smallchol.cu", tpu + "smallchol.py:101",
-                   k3_launches["K3-d"], chol_err["K3-d"], alone["K3-d"], spd_bound(K3D_N, 2, True)),
+                   k3_launches["K3-d"], chol_err["K3-d"], alone["K3-d"], spd_bound(K3D_N, 2, True),
+                   shape=f"[{K3D_N}, {K3D_N}, 2] f64, a direct call"),
         kernel_row("solve_spd_batchminor_global", csrc + "smallchol.cu",
                    tpu + "smallchol.py:101", k3_launches["K3-g"], chol_err["K3-g"], alone["K3-g"],
                    spd_bound(K3D_N, 2, True)),
-        # past K3-d's range: solve_spd_batchminor at the first n in f64 (the
-        # row's time) and f32, one launch each (phase 7); max_abs_err against
-        # its plain version, whose back solve is not the twin's order
+        # past K3-c's range: its launches on the Chebyshev fits of 1263
+        # coefficients in f64 (phase 9; phase 7's dispatcher calls beside
+        # them), its time there through the dispatcher (phase 10); max_abs_err
+        # against its plain version, whose back solve is not the twin's order
         kernel_row("solve_spd_blocked", csrc + "smallchol.cu", tpu + "smallchol.py:101",
-                   k3_launches["K3-b"], chol_err["K3-b"], alone["K3-b"],
-                   spd_bound(K3B_N["float64"], 2, True),
-                   shape=f"[{K3B_N['float64']}, {K3B_N['float64']}, 2] f64"),
+                   fleet_launches[f"K3 n={CHEB_PANEL[0]}"], chol_err["K3-b"],
+                   alone[f"K3-b n={CHEB_PANEL[0]}"], spd_bound(CHEB_PANEL[0], 2, True),
+                   shape=f"[{CHEB_PANEL[0]}, {CHEB_PANEL[0]}, 2] f64"),
         kernel_row("rank2_direction_batchminor_resident", csrc + "rank2.cu", tpu + "rank2.py:280",
                    bfgs_launches["K4a"], err_at(rank2_err, "K4a", main), alone["K4a"],
                    rank2_bound(BFGS_N, BFGS_B)),
@@ -4404,7 +4477,7 @@ def phases_earlier(torch, dev):
                    bfgs_launches["K4c-w"], err_at(rank2_err, "K4c-w", batch), alone["K4c-w"],
                    rank2_bound(BFGS_N, BATCH_B, direction=False),
                    shape=f"[{BATCH_B}, {BFGS_N}, {BFGS_N}] f32, a direct call"),
-    ], {"alone": alone, "err": rank2_err, "qr_launches": qr_launches}
+    ], {"alone": alone, "err": rank2_err, "qr_launches": qr_launches, "k3_launches": k3_launches}
 
 
 def eigh_rows(launches, err, alone):
@@ -4468,6 +4541,8 @@ def main():
             "least_squares_wavefront_panel": {
                 "phase 8's dispatcher calls at its first shapes": k4c["qr_launches"]["K2b-p"]},
             "solve_spd_registers": {f"fit_fleet_sharded cholesky [2, {FLEET_B}]": sharded["K3-r"]},
+            "solve_spd_blocked": {
+                "phase 7's dispatcher calls at its first shapes": k4c["k3_launches"]["K3-b"]},
             "eigh_jacobi_registers": {
                 f"minimize(layout='sharded') cmaes [{CMA_N}, {CMA_B}]": sharded["K5r"]},
             "qr_wavefront_warp": {"bench_qr_shapes": benched["K2a-w"]},
@@ -4475,9 +4550,10 @@ def main():
     for row in rows:
         if row["name"] in more:
             row["more_launches"] = more[row["name"]]
-    # K2a-p's, K3-b's and K2b-p's other shapes: the other dtype's first
-    # shape and the direct call's at K2a-d's, K3-d's and K2b-d's paths
-    # (phase 10)
+    # K2a-p's and K2b-p's other shapes: the other dtype's first shape and
+    # the direct call's at K2a-d's and K2b-d's paths; K3-b's through the
+    # dispatcher at K3-d's old path and at the first shapes past K3-d's
+    # range (phase 10)
     alone = k4c["alone"]
     others = {"qr_wavefront_panel": [
                   (f"[{K2AP_N['float32']}, {K2AP_N['float32']}, 2] f32 with Q", "K2a-p n=1875",
@@ -4485,10 +4561,11 @@ def main():
                   (f"[{K2AD_N}, {K2AD_N}, 2] f64 with Q, a direct call", "K2a-p n=333",
                    qr_bound(K2AD_N, 2, True))],
               "solve_spd_blocked": [
+                  (f"[{K3D_N}, {K3D_N}, 2] f64", f"K3-b n={K3D_N}", spd_bound(K3D_N, 2, True)),
+                  (f"[{K3B_N['float64']}, {K3B_N['float64']}, 2] f64", "K3-b",
+                   spd_bound(K3B_N["float64"], 2, True)),
                   (f"[{K3B_N['float32']}, {K3B_N['float32']}, 2] f32", "K3-b n=3600",
-                   spd_bound(K3B_N["float32"], 2)),
-                  (f"[{K3D_N}, {K3D_N}, 2] f64, a direct call", "K3-b n=646",
-                   spd_bound(K3D_N, 2, True))],
+                   spd_bound(K3B_N["float32"], 2))],
               "least_squares_wavefront_panel": [
                   (f"[{K2BP_N['float32']}, {K2BP_N['float32']}, 2] f32",
                    f"K2b-p n={K2BP_N['float32']}",

@@ -701,10 +701,8 @@ def probe_spd_cluster(n=240, B=16, dtype=torch.float64, sizes=(2, 4, 8),
             if not torch.equal(run(), want):
                 raise RuntimeError(f"probe_spd_cluster: C={size}, {t} threads differ")
             out[f"C{size}_T{t}_ms"] = min(device_ms(run, reps) for _ in range(2))
-    Al, bl = A.permute(2, 0, 1).contiguous(), b.t().contiguous()[:, :, None]
-    out["library_ms"] = min(device_ms(
-        lambda: torch.cholesky_solve(bl, torch.linalg.cholesky_ex(Al).L), reps, strict=False)
-        for _ in range(2))
+    library = _spd_library(A, b)
+    out["library_ms"] = min(device_ms(library, reps, strict=False) for _ in range(2))
     return out
 
 
@@ -744,11 +742,113 @@ def probe_spd_distributed(n=646, B=2, dtype=torch.float64, sizes=None, threads=(
     for mode, what in ((1, "no_back_solve"), (2, "barriers")):
         run = functools.partial(tsc.solve_spd_distributed, A, b, _mode=mode)
         out[f"{what}_ms"] = min(device_ms(run, reps, warmup=1) for _ in range(2))
-    Al, bl = A.permute(2, 0, 1).contiguous(), b.t().contiguous()[:, :, None]
-    out["library_ms"] = min(device_ms(
-        lambda: torch.cholesky_solve(bl, torch.linalg.cholesky_ex(Al).L), reps, strict=False)
-        for _ in range(2))
+    library = _spd_library(A, b)
+    out["library_ms"] = min(device_ms(library, reps, strict=False) for _ in range(2))
     return out
+
+
+def median_device_ms(fn, runs=5, warmup=2, strict=True):
+    """The median over ``runs`` calls of ``fn`` of its device time in ms,
+    each call behind a device sleep of its own (``device_ms`` of one call),
+    after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    return statistics.median(device_ms(fn, 1, warmup=0, strict=strict) for _ in range(runs))
+
+
+def _spd_library(A, b):
+    """``cholesky_ex`` + ``cholesky_solve`` on batch-minor ``A``'s and
+    ``b``'s lanes as ``[B, n, n]`` and ``[B, n, 1]``."""
+    Al, bl = A.permute(2, 0, 1).contiguous(), b.t().contiguous()[:, :, None]
+    return lambda: torch.cholesky_solve(bl, torch.linalg.cholesky_ex(Al).L)
+
+
+def sweep_spd_past_cluster(cases=((torch.float64, (646, 1263, 2457)),
+                                  (torch.float32, (928, 1848, 3599))),
+                           Bs=(1, 2, 16, 64), runs=5, warmup=2, twin_up_to=1300,
+                           sizes=(2, 4, 8, 16, 33, 66, 132)):
+    """K3's range past K3-c's, where K3-d and K3-b both take n: on
+    ``spd_systems(n, B)`` for each dtype and n of ``cases`` and each B of
+    ``Bs``, K3-d and K3-b at their plans' CTAs a lane and ``cholesky_ex`` +
+    ``cholesky_solve``, each the median of ``runs`` calls after ``warmup``,
+    device time behind a device sleep a call (``median_device_ms``); K3-b
+    also at each other count of CTAs a lane of ``sizes`` that leaves no SM
+    idle (at least the card's SMs over B), the median of 3 after 1.  K3-b's
+    x bit-equal to ``solve_spd_blocked_reference`` at every point, K3-d's
+    to ``chol_solve_right_looking`` (the twin's order; its back solve runs
+    on the host) up to n = ``twin_up_to``.  One row a point."""
+    from ..ops import smallchol as tsc
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("sweep_spd_past_cluster measures a CUDA card; none is available")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for dtype, ns in cases:
+        for n in ns:
+            for B in Bs:
+                A, b = spd_systems(n, B, dtype=dtype)
+                row = {"dtype": str(dtype)[6:], "n": n, "B": B, "plan": tsc.plan(n, dtype),
+                       "blocked_P": tsc.blocked_plan(n, dtype, B, sms),
+                       "distributed_P": tsc.distributed_plan(n, dtype, B, sms)}
+                want = tsc.solve_spd_blocked_reference(A, b)
+                if not torch.equal(tsc.solve_spd_blocked(A, b), want):
+                    raise RuntimeError(f"sweep_spd_past_cluster: K3-b differs at n={n}, B={B}")
+                xd = tsc.solve_spd_distributed(A, b)
+                row["twin_checked"] = n <= twin_up_to
+                if n <= twin_up_to and not torch.equal(xd, tsc.chol_solve_right_looking(A, b)):
+                    raise RuntimeError(f"sweep_spd_past_cluster: K3-d differs at n={n}, B={B}")
+                del want, xd
+                row["blocked_ms"] = median_device_ms(lambda: tsc.solve_spd_blocked(A, b), runs,
+                                                     warmup)
+                row["distributed_ms"] = median_device_ms(
+                    lambda: tsc.solve_spd_distributed(A, b), runs, warmup)
+                row["library_ms"] = median_device_ms(_spd_library(A, b), runs, warmup,
+                                                     strict=False)
+                for size in sizes:
+                    if size != row["blocked_P"] and max(2, sms // B) <= size <= sms:
+                        row[f"blocked_P{size}_ms"] = median_device_ms(
+                            lambda: tsc.solve_spd_blocked(A, b, size=size), 3, 1)
+                row["blocked_over_distributed"] = row["blocked_ms"] / row["distributed_ms"]
+                row["blocked_over_library"] = row["blocked_ms"] / row["library_ms"]
+                del A, b
+                rows.append(row)
+    return rows
+
+
+def probe_spd_cluster_split(cases=((240, 16), (239, 256), (645, 2)), dtype=torch.float64,
+                            runs=5, warmup=2):
+    """K3-c at its plan's cluster on ``spd_systems(n, B)`` for each (n, B)
+    of ``cases``, whole, without its back solve and with its cluster
+    barriers alone (its probe instantiation's modes 1 and 2), which split
+    its time into the barriers, the rest of the factorization and the back
+    solve in CTA 0; beside it K3-b by a direct call (its plan) and
+    ``cholesky_ex`` + ``cholesky_solve`` on the same systems.  Each the
+    median of ``runs`` calls after ``warmup``, device time behind a device
+    sleep a call; K3-c's x bit-equal to ``chol_solve_right_looking``, K3-b's
+    to ``solve_spd_blocked_reference``."""
+    from ..ops import smallchol as tsc
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("probe_spd_cluster_split measures a CUDA card; none is available")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for n, B in cases:
+        A, b = spd_systems(n, B, dtype=dtype)
+        if not torch.equal(tsc.solve_spd_cluster(A, b), tsc.chol_solve_right_looking(A, b)):
+            raise RuntimeError(f"probe_spd_cluster_split: K3-c differs at n={n}, B={B}")
+        if not torch.equal(tsc.solve_spd_blocked(A, b), tsc.solve_spd_blocked_reference(A, b)):
+            raise RuntimeError(f"probe_spd_cluster_split: K3-b differs at n={n}, B={B}")
+        row = {"n": n, "B": B, "dtype": str(dtype)[6:], "C": tsc.cluster_plan(n, dtype, B, sms),
+               "blocked_P": tsc.blocked_plan(n, dtype, B, sms)}
+        for key, mode in (("cluster_ms", 0), ("no_back_solve_ms", 1), ("barriers_ms", 2)):
+            row[key] = median_device_ms(lambda: tsc.solve_spd_cluster(A, b, _mode=mode), runs,
+                                        warmup)
+        row["factor_ms"] = row["no_back_solve_ms"] - row["barriers_ms"]
+        row["back_solve_ms"] = row["cluster_ms"] - row["no_back_solve_ms"]
+        row["blocked_ms"] = median_device_ms(lambda: tsc.solve_spd_blocked(A, b), runs, warmup)
+        row["library_ms"] = median_device_ms(_spd_library(A, b), runs, warmup, strict=False)
+        rows.append(row)
+    return rows
 
 
 def probe_least_squares_distributed(n=330, m=330, B=2, dtype=torch.float64, sizes=None, reps=3):
@@ -1113,11 +1213,9 @@ def sweep_spd_solve(ns=(1, 2, 4, 8, 12, 16, 20, 24, 30, 48, 64),
             if not all(torch.equal(x, first) for x in xs.values()):
                 raise RuntimeError(f"sweep_spd_solve: the forms differ at n={n}, B={B}")
             del xs, first
-            Al, bl = A.permute(2, 0, 1).contiguous(), b.t().contiguous()[:, :, None]
-            row["library_ms"] = min(device_ms(
-                lambda: torch.cholesky_solve(bl, torch.linalg.cholesky_ex(Al).L), reps,
-                strict=False) for _ in range(2))
-            del A, b, Al, bl
+            library = _spd_library(A, b)
+            row["library_ms"] = min(device_ms(library, reps, strict=False) for _ in range(2))
+            del A, b, library
             rows.append(row)
     f64 = torch.float64
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1134,11 +1232,9 @@ def sweep_spd_solve(ns=(1, 2, 4, 8, 12, 16, 20, 24, 30, 48, 64),
                                      for _ in range(2))
             row["cluster_ms"] = min(device_ms(lambda: tsc.solve_spd_cluster(A, b), reps)
                                     for _ in range(2))
-            Al, bl = A.permute(2, 0, 1).contiguous(), b.t().contiguous()[:, :, None]
-            row["library_ms"] = min(device_ms(
-                lambda: torch.cholesky_solve(bl, torch.linalg.cholesky_ex(Al).L), reps,
-                strict=False) for _ in range(2))
-            del A, b, Al, bl, x
+            library = _spd_library(A, b)
+            row["library_ms"] = min(device_ms(library, reps, strict=False) for _ in range(2))
+            del A, b, library, x
             rows.append(row)
     return rows
 

@@ -34,11 +34,11 @@
 //     card, K3-c's rows over their shared memory, the columns of L through
 //     a store in device memory, a barrier in device memory a step, one
 //     cooperative launch (below); past K3-c's n, as far as 132 CTAs hold
-//     the rows (ops/smallchol.py's distributed_fits).
+//     the rows (ops/smallchol.py's distributed_fits), by a direct call.
 //   * chol_blocked_kernel<T> (K3-b): one lane over P CTAs of the whole
 //     card, its triangle packed in device memory, factored by panels with
 //     one barrier in device memory a panel, the back solve by columns
-//     (below); every n past K3-d's.
+//     (below); every n past K3-c's.
 //   * chol_global_kernel<T> (K3-g): one thread a lane, L in a batch-minor
 //     scratch of n (n + 1) / 2 rows in device memory; any n, by a direct
 //     call.  Every l(i, k) is a load from device memory.
@@ -345,16 +345,31 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
-template <typename T>
+// kProbe: the probes' instantiation, which takes a probe_mode (1: no back
+// solve, x left unwritten; 2: the cluster barriers alone), the benches'
+// split of a solve into its barriers, its factorization and its back
+// solve; the main path's has mode 0 built in.
+template <typename T, bool kProbe>
 __global__ void __launch_bounds__(1024)
     chol_cluster_kernel(const T* __restrict__ A, const T* __restrict__ rhs,
-                        T* __restrict__ x, int n, int words, int64_t B) {
+                        T* __restrict__ x, int n, int words, int64_t B, int probe_mode) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   const int t = threadIdx.x, NT = blockDim.x, lane = t & 31, warp = t >> 5, W = NT >> 5;
   const int64_t b = blockIdx.x / C;
+  const int mode = kProbe ? probe_mode : 0;
+  if (mode == 2) {
+    cluster.sync();
+#pragma unroll 1
+    for (int j = 0; j <= n; ++j) {
+      cluster_arrive();
+      cluster_wait();
+    }
+    cluster.sync();
+    return;
+  }
   T* S = reinterpret_cast<T*>(smem);  // this CTA's rows, packed: ``words`` words
   T* diag = S + words;                // S[i][i] of every row i < n
   T* col = diag + n;                  // [3][n + 1]: column j in row j % 3
@@ -435,7 +450,7 @@ __global__ void __launch_bounds__(1024)
   // gathered column i in col[n + (i & 1) (n + 1) + k], k = i .. n (L[i][i],
   // L[k][i], z[i]), which the first warp turns into the products L[k][i]
   // x[k] in place
-  if (rank == 0 && warp < 2) {
+  if (mode == 0 && rank == 0 && warp < 2) {
     T* xs = col;
     auto gather = [&](int i) {
       T* g = col + n + (i & 1) * (n + 1);
@@ -470,12 +485,14 @@ __global__ void __launch_bounds__(1024)
 
 // K3-c's launch: C CTAs a lane (2, 4 or 8) of ``threads`` threads (a
 // multiple of 32, at least 64: the back solve takes two warps), ``words``
-// the most words of packed rows a CTA holds
+// the most words of packed rows a CTA holds.  ``mode`` 0 runs the main
+// path's instantiation, 1 (no back solve) and 2 (the barriers alone) the
+// probes'
 template <typename T>
 int launch_cluster(const void* A, const void* b, void* x, int n, int64_t B, int C, int threads,
-                   void* stream) {
+                   int mode, void* stream) {
   if (n < 1 || B < 1 || (C != 2 && C != 4 && C != 8) || threads < 64 || threads > 1024 ||
-      threads % 32)
+      threads % 32 || mode < 0 || mode > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   int words = 0;
   for (int r = 0; r < C && r <= n; ++r) {
@@ -485,7 +502,7 @@ int launch_cluster(const void* A, const void* b, void* x, int n, int64_t B, int 
   }
   const int64_t smem = (static_cast<int64_t>(words) + n + 3 * (n + 1)) * sizeof(T);
   if (smem > kMaxDynamicSmem) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = chol_cluster_kernel<T>;
+  const auto kernel = mode ? chol_cluster_kernel<T, true> : chol_cluster_kernel<T, false>;
   const cudaError_t set = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (set != cudaSuccess) return static_cast<int>(set);
@@ -503,7 +520,7 @@ int launch_cluster(const void* A, const void* b, void* x, int n, int64_t B, int 
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(A),
                                              static_cast<const T*>(b), static_cast<T*>(x), n,
-                                             words, B);
+                                             words, B, mode);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -537,8 +554,10 @@ int launch_cluster(const void* A, const void* b, void* x, int n, int64_t B, int 
 //     products L[k][i - 1] x[k] but the first, while its first thread runs
 //     column i's chain, subtracting in ascending k.  Its n (n - 1) / 2
 //     dependent subtractions are this form's floor (8.4 clocks each in f64
-//     on an H100); a last barrier keeps the next lane's first column out of
-//     the store until the solve has read it;
+//     on an H100), above the library's whole solve across the range, so the
+//     dispatcher gives the range to K3-b and K3-d runs by a direct call; a
+//     last barrier keeps the next lane's first column out of the store
+//     until the solve has read it;
 //   * a grid of ``teams`` teams of P CTAs walks the lanes, team g taking
 //     lanes g, g + teams, ..
 // ``mode`` 1 skips the back solve and 2 runs the barriers alone (the
@@ -785,15 +804,19 @@ __global__ void chol_global_kernel(const T* __restrict__ A, const T* __restrict_
   }
 }
 
-// K3-b, past K3-d's range: blocked over the whole card, the back solve by
+// K3-b, past K3-c's range: blocked over the whole card, the back solve by
 // columns.  Replaces solve_spd_batched_pallas (nlsolver_tpu/ops/smallchol.py:89)
-// for n past K3-d's, where 132 CTAs' shared memory no longer holds one
-// lane's packed triangle (n from 3600 in f32, 2458 in f64).  What bounds
-// K3-g there: one thread carries a lane's chain of some n^3 / 6 dependent
-// multiply-subtracts, each with two loads from L2 (some 3 minutes a lane at
-// n = 2458 in f64), and the twin's back solve is one chain of n (n - 1) / 2
-// dependent subtractions: x[i] takes L[k][i] x[k] in ascending k, so its
-// first term waits on x[i + 1], the last value formed.  So:
+// for n past K3-c's (n from 928 in f32, 646 in f64): first past K3-d's,
+// where 132 CTAs' shared memory no longer holds one lane's packed triangle
+// (n from 3600 in f32, 2458 in f64), then over K3-d's range too, where
+// K3-d's back solve in the twin's order, one chain of n (n - 1) / 2
+// dependent subtractions, left it 1.8-8.3 times slower than K3-b on 1 to
+// 64 lanes (PERF.md).  What bounds K3-g there: one thread carries a lane's
+// chain of some n^3 / 6 dependent multiply-subtracts, each with two loads
+// from L2 (some 3 minutes a lane at n = 2458 in f64), and the twin's back
+// solve is one chain of n (n - 1) / 2 dependent subtractions: x[i] takes
+// L[k][i] x[k] in ascending k, so its first term waits on x[i + 1], the
+// last value formed.  So:
 //   * a team of P CTAs takes a lane, and first copies its lower triangle
 //     and b into a store in device memory packed by columns, column j (rows
 //     j .. n, b as row n) at col(j), through 32 x 32 tiles in shared memory
@@ -825,7 +848,8 @@ __global__ void chol_global_kernel(const T* __restrict__ A, const T* __restrict_
 // What bounds K3-b on an H100: the latency of the card's L2, a panel's
 // chain on the first CTA and a trailing tile's fetches on the others, each
 // alone near the whole time at [2458, 2458, 2] in f64, some 2 % of its
-// operations bound (PERF.md).  The back solve's order is not the twin's: x
+// operations bound; the chain alone on one lane, the trailing tiles alone
+// on 64 (PERF.md).  The back solve's order is not the twin's: x
 // is that of solve_spd_blocked_reference (ops/smallchol.py), the twin's
 // factor followed by the back solve by columns, bit for bit.
 constexpr int kBlockedNb = 8;      // K3-b's panel: its columns (a probe's may be fewer)
@@ -1253,8 +1277,9 @@ int launch_global(const void* A, const void* b, void* L, void* x, int n, int64_t
 // A [n, n, B], b [n, B] -> x [n, B].  K3-r, n = 1 .. its most; K3-w with
 // ``lanes`` warps a block (a power of two, 1 .. 32, whose triangles fit
 // 232448 bytes); K3-c with ``size`` CTAs a lane (2, 4 or 8) of ``threads``
-// threads; K3-d with ``size`` CTAs a lane of ``threads`` threads, in
-// ``teams`` teams (L, its column store of n (n + 3) / 2 words a team;
+// threads (``mode`` 0, or the probe's 1 and 2); K3-d with ``size`` CTAs a
+// lane of ``threads`` threads, in ``teams`` teams (L, its column store of
+// n (n + 3) / 2 words a team;
 // counts, one zeroed counter a team; ``mode`` 0, or the probe's 1 and 2),
 // and its occupancy, the blocks an SM holds, into ``blocks``; K3-b with
 // ``size`` >= 2 CTAs a lane of kBlockedThreads threads, panels of ``nb``
@@ -1274,9 +1299,9 @@ int launch_global(const void* A, const void* b, void* L, void* x, int n, int64_t
     return launch_warp<T>(A, b, x, n, B, lanes, stream);                                     \
   }                                                                                          \
   extern "C" int chol_solve_cluster_##SUFFIX(const void* A, const void* b, void* x, int n,   \
-                                             int64_t B, int size, int threads,               \
+                                             int64_t B, int size, int threads, int mode,     \
                                              void* stream) {                                 \
-    return launch_cluster<T>(A, b, x, n, B, size, threads, stream);                          \
+    return launch_cluster<T>(A, b, x, n, B, size, threads, mode, stream);                    \
   }                                                                                          \
   extern "C" int chol_solve_distributed_##SUFFIX(const void* A, const void* b, void* x,      \
                                                  void* L, void* counts, int n, int64_t B,    \

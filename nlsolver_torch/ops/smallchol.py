@@ -12,7 +12,7 @@ work over the fleet.
   runs the plain twin ``_chol_solve_batchminor``
   (``linalg.solve._solve_spd_unrolled``, which takes the batch on trailing
   axes).  The forms, each with its own ``launches`` count and bit-equal to
-  the twin but K3-b:
+  the twin but K3-b, the dispatcher's past K3-c's range:
 
   - ``solve_spd_registers`` (K3-r): a thread a lane, everything in
     registers, one kernel per n and dtype (``registers_fit``: n <= 19 in
@@ -24,16 +24,21 @@ work over the fleet.
   - ``solve_spd_cluster`` (K3-c): a lane a thread-block cluster of 2, 4 or 8
     CTAs, K3-w's packed rows split over their shared memory, row i in CTA i
     % C (``cluster_fits``: n <= 927 in float32, 645 in float64);
-  - ``solve_spd_distributed`` (K3-d): a lane over P CTAs of the whole card,
-    K3-c's rows over their shared memory, the columns of L through device
-    memory, one barrier in device memory a step, one cooperative launch
-    (``distributed_fits``: n <= 3599 in float32, 2457 in float64);
   - ``solve_spd_blocked`` (K3-b): a lane over P CTAs of the whole card, its
     triangle packed in device memory, factored by panels with one barrier
     in device memory a panel, the back solve by columns (``blocked_fits``:
-    every n, the dispatcher's past K3-d's range).  L and z are the twin's;
-    x takes its back solve's terms in descending k, as its plain version
-    ``solve_spd_blocked_reference`` does, bit for bit;
+    every n; the dispatcher's for every n past K3-c's range, from 928 in
+    float32 and 646 in float64).  L and z are the twin's; x takes its back
+    solve's terms in descending k, as its plain version
+    ``solve_spd_blocked_reference`` does, bit for bit.  So up to K3-c's
+    range the dispatcher's x is the twin's bit for bit, and past it K3-b's
+    plain version's, within n eps kappa_2(A) of the twin's;
+  - ``solve_spd_distributed`` (K3-d): a lane over P CTAs of the whole card,
+    K3-c's rows over their shared memory, the columns of L through device
+    memory, one barrier in device memory a step, one cooperative launch
+    (``distributed_fits``: n <= 3599 in float32, 2457 in float64), by a
+    direct call: its back solve, in the twin's order, is one chain of n (n
+    - 1) / 2 dependent subtractions, which K3-b outruns across this range;
   - ``solve_spd_batchminor_global`` (K3-g): a thread a lane, L in a scratch
     in device memory, any n, by a direct call.
 
@@ -82,6 +87,12 @@ DISTRIBUTED_THREADS = 512
 BLOCKED_THREADS = 512
 BLOCKED_NB = 8
 BACK_ROWS = 32
+# K3-b: the fewest CTAs a lane its plan gives many lanes.  On an H100 at 64
+# lanes 4 CTAs a lane took 8-32 % less time than 2 at every n of
+# benches.sweep_spd_past_cluster (n = 646-2457 f64, 928-3599 f32), where 2
+# leave half the card's SMs to the first CTA's chain of panels; 8 took 7 %
+# less than 4 at n = 3599 f32 and 15 % more at 646 f64
+BLOCKED_LEAST = 4
 
 
 def registers_fit(n: int, dtype: torch.dtype) -> bool:
@@ -235,23 +246,29 @@ def blocked_fits(n: int, dtype: torch.dtype) -> bool:
 
 def blocked_plan(n: int, dtype: torch.dtype, lanes: int | None = None, sms: int = SMS) -> int:
     """K3-b's CTAs a lane, P, for order n in ``dtype`` and ``lanes`` lanes:
-    the card's ``sms`` SMs shared out over the lanes, at least 2 (the first
-    CTA factors the panels, the others take the trailing work); 0 where K3-b
-    does not take n."""
+    the card's ``sms`` SMs shared out over the lanes, at least
+    ``BLOCKED_LEAST`` (the first CTA factors the panels, the others take the
+    trailing work); 0 where K3-b does not take n."""
     if not blocked_fits(n, dtype):
         return 0
-    return max(2, sms // (lanes or 1))
+    return max(BLOCKED_LEAST, sms // (lanes or 1))
 
 
+@functools.lru_cache(maxsize=None)
 def plan(n: int, dtype: torch.dtype) -> str:
     """The form of K3 that the dispatcher gives order n in ``dtype``, the
     first that takes it: "registers" (K3-r), "warp" (K3-w), "cluster"
-    (K3-c), "distributed" (K3-d), "blocked" (K3-b, every n past K3-d's);
-    "global" (K3-g) is a direct call's alone.  On an H100 K3-r is the
+    (K3-c), "blocked" (K3-b, every n past K3-c's); "distributed" (K3-d)
+    and "global" (K3-g) are direct calls' alone.  On an H100 K3-r is the
     fastest form wherever it fits, and K3-w past it at every B of
     ``benches.sweep_spd_solve`` but one point, [20, 20, 262144] in float32,
-    which no path runs.  Raises ``ValueError`` where no form takes the
-    order (n < 1, a dtype other than float32 and float64)."""
+    which no path runs; past K3-c's range K3-b is faster than K3-d, whose
+    back solve in the twin's order is one chain of n (n - 1) / 2 dependent
+    subtractions, at every point of ``benches.sweep_spd_past_cluster``.
+    Raises ``ValueError`` where no form takes the order (n < 1, a dtype
+    other than float32 and float64).  Cached by (n, dtype): the range tests
+    walk the packed rows of K3-c's layout, host time of the order of K3-b's
+    own time on the card at these n."""
     if dtype not in _build.DTYPE_SUFFIX:
         raise ValueError(f"solve_spd_batchminor: A must be float32 or float64, got {dtype}")
     if n < 1:
@@ -260,9 +277,7 @@ def plan(n: int, dtype: torch.dtype) -> str:
         return "registers"
     if warp_fits(n, dtype):
         return "warp"
-    if cluster_fits(n, dtype):
-        return "cluster"
-    return "distributed" if distributed_fits(n, dtype) else "blocked"
+    return "cluster" if cluster_fits(n, dtype) else "blocked"
 
 
 def _blocked_factor(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -337,7 +352,7 @@ def _launcher(entry: str, suffix: str):
     vp, ci, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     fn.argtypes = {"chol_solve_registers": [vp] * 3 + [ci, i64, vp],
                    "chol_solve_warp": [vp] * 3 + [ci, i64, ci, vp],
-                   "chol_solve_cluster": [vp] * 3 + [ci, i64, ci, ci, vp],
+                   "chol_solve_cluster": [vp] * 3 + [ci, i64, ci, ci, ci, vp],
                    "chol_solve_distributed": [vp] * 5 + [ci, i64, ci, ci, ci, ci, vp],
                    "chol_solve_distributed_occupancy": [ci, ci, ci, ctypes.POINTER(ci)],
                    "chol_solve_blocked": [vp] * 6 + [ci, i64, ci, ci, ci, ci, vp],
@@ -418,7 +433,7 @@ def solve_spd_warp(A: torch.Tensor, b: torch.Tensor, lanes: int | None = None) -
 
 
 def solve_spd_cluster(A: torch.Tensor, b: torch.Tensor, size: int | None = None,
-                      _threads: int | None = None) -> torch.Tensor:
+                      _threads: int | None = None, _mode: int = 0) -> torch.Tensor:
     """K3-c: A [n, n, B], b [n, B] -> x [n, B], a lane a thread-block cluster
     of ``size`` CTAs (``cluster_plan`` for B lanes and the card's SMs by
     default) of ``CLUSTER_THREADS`` threads, row i of the packed triangle (b
@@ -426,8 +441,9 @@ def solve_spd_cluster(A: torch.Tensor, b: torch.Tensor, size: int | None = None,
     each column formed a step ahead and one cluster barrier a step, the back
     solve in CTA 0.  CPU tensors run the twin; on a card it raises where
     ``size`` CTAs do not hold the rows (``cluster_fits``).  ``_threads``
-    sets another count of threads a CTA (at least 64) for the tests and
-    probes only."""
+    (another count of threads a CTA, at least 64) and ``_mode`` (1: no back
+    solve, x left unwritten; 2: the cluster barriers alone; either runs the
+    kernel's probe instantiation) are for the tests and probes only."""
     name = "solve_spd_cluster"
     n, B = _check(name, A, b)
     if A.device.type == "cpu" and b.device.type == "cpu":
@@ -441,7 +457,7 @@ def solve_spd_cluster(A: torch.Tensor, b: torch.Tensor, size: int | None = None,
                          "CTAs' shared memory; solve_spd_batchminor_global takes it")
     if B == 0:
         return torch.empty_like(b)
-    x = _launch(name, "chol_solve_cluster", A, b, size, _threads or CLUSTER_THREADS)
+    x = _launch(name, "chol_solve_cluster", A, b, size, _threads or CLUSTER_THREADS, _mode)
     solve_spd_cluster.launches += 1
     return x
 
@@ -598,8 +614,7 @@ def solve_spd_batchminor(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return _chol_solve_batchminor(A, b)
     _build.check_cuda_inputs("solve_spd_batchminor", {"A": A, "b": b})
     forms = {"registers": solve_spd_registers, "warp": solve_spd_warp,
-             "cluster": solve_spd_cluster, "distributed": solve_spd_distributed,
-             "blocked": solve_spd_blocked}
+             "cluster": solve_spd_cluster, "blocked": solve_spd_blocked}
     return forms[plan(n, A.dtype)](A, b)
 
 

@@ -354,15 +354,19 @@ DISTRIBUTED_RANGE = {torch.float32: (928, 3599), torch.float64: (646, 2457)}
 def test_distributed_form_range():
     """K3-d's CTA holds its packed rows (K3-c's layout over P CTAs), the
     diagonal and a column, at least the back solve's 3 n + 2 words, within
-    a block's shared memory; its range runs from K3-c's end to the last n
-    that 132 CTAs hold; the plan takes the fewest CTAs that hold the rows,
-    spread over the card's SMs where few lanes leave them idle."""
+    a block's shared memory; its range, a direct call's, runs from K3-c's
+    end to the last n that 132 CTAs hold, and the dispatcher gives K3-b
+    all of it; the plan takes the fewest CTAs that hold the rows, spread
+    over the card's SMs where few lanes leave them idle."""
     f32, f64 = torch.float32, torch.float64
     assert tsc.distributed_bytes(646, f64, 66) == (tsc.cluster_words(646, 66) + 1293) * 8
     assert tsc.distributed_bytes(3, f32, 12) == 11 * 4  # the back solve's words
     for dtype, (first, last) in DISTRIBUTED_RANGE.items():
         assert not tsc.cluster_fits(first, dtype) and tsc.cluster_fits(first - 1, dtype)
         assert tsc.distributed_fits(first, dtype) and tsc.distributed_fits(last, dtype)
+        assert tsc.plan(first - 1, dtype) == "cluster"
+        assert {tsc.plan(n, dtype) for n in (first, first + 1, 1000, last, last + 1)} == \
+            {"blocked"}
         assert not tsc.distributed_fits(last + 1, dtype)
         assert tsc.distributed_least(last, dtype) == 132
         assert tsc.distributed_bytes(last, dtype, 132) <= tsc.MAX_DYNAMIC_SMEM < \
@@ -410,15 +414,16 @@ def test_warp_form_range():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_plan_takes_each_form_in_its_range(dtype):
-    """The first form that takes n: K3-r, then K3-w, then K3-c, then K3-d,
-    then K3-b, which takes every n (K3-g is a direct call's alone)."""
+    """The first form that takes n: K3-r, then K3-w, then K3-c, then K3-b,
+    which takes every n past K3-c's range, K3-d's included (K3-d and K3-g
+    are direct calls' alone)."""
     reg = tsc.REGISTER_MAX_N[dtype]
     warp = max(n for n in range(1, 400) if tsc.warp_fits(n, dtype))
     cluster = max(n for n in range(1, 1000) if tsc.cluster_fits(n, dtype))
     last = DISTRIBUTED_RANGE[dtype][1]
     want = {1: "registers", 2: "registers", reg: "registers", reg + 1: "warp", 30: "warp",
-            warp: "warp", warp + 1: "cluster", cluster: "cluster", cluster + 1: "distributed",
-            1200: "distributed", last: "distributed", last + 1: "blocked", 5000: "blocked",
+            warp: "warp", warp + 1: "cluster", cluster: "cluster", cluster + 1: "blocked",
+            1200: "blocked", last: "blocked", last + 1: "blocked", 5000: "blocked",
             100000: "blocked"}
     assert {n: tsc.plan(n, dtype) for n in want} == want
     assert all(tsc.plan(n, dtype) == ("registers" if tsc.registers_fit(n, dtype) else "warp")
@@ -507,6 +512,62 @@ def test_blocked_reference_matches_jax_f64(n):
         assert err <= tol, (err, tol)
 
 
+def _left_looking_factors(A, b, cols):
+    """The twin's L and z in its first ``cols`` columns, arranged by
+    columns, in numpy: column j of [A; b^T] (rows j .. n) less L[.][k]
+    L[j][k] for k = 0 .. j - 1 in ascending k, each product and difference
+    rounded on its own, then its square root (torch's, as the twin takes
+    it) and its quotients by it.  Another arrangement of the twin's
+    operations in its order than ``_blocked_factor``'s whole trailing
+    blocks.  Returns (L [n, cols, B] below its diagonal, z [cols, B])."""
+    n, _, B = A.shape
+    S = np.zeros((n + 1, cols, B), A.dtype)
+    S[:n], S[n] = A[:, :cols], b[:cols]
+    for j in range(cols):
+        c = S[j:, j]
+        for k in range(j):
+            c = c - S[j:, k] * S[j, k]
+        d = torch.sqrt(torch.from_numpy(c[0])).numpy()
+        S[j, j], S[j + 1:, j] = d, c[1:] / d
+        S[:j, j] = 0
+    return S[:n], S[n]
+
+
+@pytest.mark.parametrize("n, dtype", [(646, torch.float64), (928, torch.float32)])
+def test_blocked_reference_at_the_first_n_past_cluster(n, dtype):
+    """At the first n past K3-c's range on 2 lanes, where the dispatcher
+    gives K3-b what K3-d took before: K3-b's plain version has the twin's
+    L and z bit for bit (``_blocked_factor``'s, whose first 256 columns a
+    left-looking arrangement of the twin's operations gives too), and its x
+    lies within n eps kappa_2(A) of the twin's order's
+    (``chol_solve_right_looking``, bit-equal to the twin), kappa from the
+    eigenvalues.  The JAX solve unrolls some n^3 / 6 operations, so it is
+    held at small n alone (``test_blocked_reference_matches_jax_f64``)."""
+    A, b = (torch.from_numpy(a).to(dtype) for a in _spd_batchminor(n, n, 2))
+    L, z = tsc.solve_spd_blocked_reference(A, b, _factors=True)
+    S = tsc._blocked_factor(A, b)
+    assert torch.equal(L, torch.tril(S[:n, :n].movedim(-1, 0)).movedim(0, -1))
+    assert torch.equal(z, S[n, :n])
+    tL, tz = _left_looking_factors(A.numpy(), b.numpy(), 256)
+    assert np.array_equal(L[:, :256].numpy(), tL) and np.array_equal(z[:256].numpy(), tz)
+    w = np.linalg.eigvalsh(np.moveaxis(A.double().numpy(), -1, 0))
+    tol = n * np.finfo(A.numpy().dtype).eps * float((w[:, -1] / w[:, 0]).max())
+    x = tsc.solve_spd_blocked_reference(A, b)
+    twin = tsc.chol_solve_right_looking(A, b)
+    err = float((x - twin).abs().max() / twin.abs().max())
+    assert err <= tol, (err, tol)
+    assert not torch.equal(x, twin)  # the back solve's order is not the twin's
+    # kappa_2(A) near 2 n leaves the bound above loose in f32: hold each
+    # back solve also to the triangular solve's componentwise backward error,
+    # |L^T x - z| <= n eps |L^T| |x|, which a dropped or doubled term breaks
+    Ld, zd = L.double().numpy(), z.double().numpy()
+    for xs in (x, twin):
+        xd = xs.double().numpy()
+        r = np.abs(np.einsum("kil,kl->il", Ld, xd) - zd)
+        scale = np.einsum("kil,kl->il", np.abs(Ld), np.abs(xd))
+        assert (r <= n * np.finfo(A.numpy().dtype).eps * scale).all(), float((r / scale).max())
+
+
 def emulate_blocked(A, b, nb, back=32):
     """K3-b in plain torch ops, in the kernel's order, one step at a time:
     the panels of nb columns, b as row n; the next panel's columns take the
@@ -569,7 +630,7 @@ def test_blocked_form_range():
     """K3-b takes every n >= 1 in f32 and f64; its panel of 8 columns of n +
     1 words stays in shared memory to n = 7119 in f32 and 3487 in f64, in
     device memory past them; a lane gets the card's SMs shared out over the
-    lanes, at least 2 CTAs; its store packs the triangle by columns."""
+    lanes, at least 4 CTAs; its store packs the triangle by columns."""
     f32, f64 = torch.float32, torch.float64
     for dtype, last in ((f32, 7119), (f64, 3487)):
         assert tsc.blocked_fits(1, dtype) and tsc.blocked_fits(100000, dtype)
@@ -577,8 +638,9 @@ def test_blocked_form_range():
         assert tsc.blocked_bytes(last, dtype) <= tsc.MAX_DYNAMIC_SMEM
         assert tsc.blocked_bytes(last + 1, dtype, spill=True) <= tsc.MAX_DYNAMIC_SMEM
     assert not tsc.blocked_fits(0, f32) and not tsc.blocked_fits(5, torch.float16)
-    assert [tsc.blocked_plan(2458, f64, lanes) for lanes in (None, 1, 2, 3, 64, 1000)] == \
-        [132, 132, 66, 44, 2, 2]
+    assert [tsc.blocked_plan(2458, f64, lanes) for lanes in (None, 1, 2, 3, 33, 34, 64, 1000)] \
+        == [132, 132, 66, 44, 4, 4, 4, 4]
+    assert tsc.blocked_plan(646, f64, 16) == 8 and tsc.blocked_plan(646, f64, 64, sms=8) == 4
     assert tsc.blocked_plan(0, f64) == 0
     assert [tsc.blocked_store_words(n) for n in (1, 2, 2458)] == [3, 7, 2458 * 2461 // 2 + 2458]
 
@@ -653,9 +715,9 @@ def test_forms_refuse_what_they_do_not_take_on_card():
                                                                               dtype=dtype)
         with pytest.raises(ValueError, match="cluster"):
             tsc.solve_spd_cluster(A, b)
-        before = _launches()
+        before, blocked = _launches(), tsc.solve_spd_blocked.launches
         x = tsc.solve_spd_batchminor(A, b)
-        assert _launches()["distributed"] == before["distributed"] + 1
+        assert _launches() == before and tsc.solve_spd_blocked.launches == blocked + 1
         assert torch.equal(x, b)
         with pytest.raises(ValueError, match="CTAs' shared memory"):
             tsc.solve_spd_distributed(A, b, size=tsc.distributed_least(n, dtype) - 1)
@@ -776,6 +838,39 @@ def test_blocked_form_at_its_first_n_on_card(n, B, dtype):
     torch.cuda.synchronize()
     assert _launches() == before and tsc.solve_spd_blocked.launches == blocked + 1
     assert torch.equal(x, tsc.solve_spd_blocked_reference(A, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, B, dtype", [(646, 2, torch.float64), (646, 64, torch.float64),
+                                         (928, 2, torch.float32), (928, 64, torch.float32)])
+def test_blocked_form_at_the_first_n_past_cluster_on_card(n, B, dtype):
+    """K3-b through the dispatcher at the first n past K3-c's range in both
+    dtypes (K3-d's before), on 2 lanes and on 64: one launch, no other
+    form's, x bit-equal to its plain version on the card."""
+    dev = _on_card()
+    A, b = (torch.from_numpy(a).to(dev, dtype) for a in _spd_batchminor(n + 3, n, B))
+    before = _launches()
+    blocked = tsc.solve_spd_blocked.launches
+    x = tsc.solve_spd_batchminor(A, b)
+    torch.cuda.synchronize()
+    assert _launches() == before and tsc.solve_spd_blocked.launches == blocked + 1
+    assert torch.equal(x, tsc.solve_spd_blocked_reference(A, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", [1, 2])
+def test_cluster_form_probe_modes_on_card(mode):
+    """K3-c's probe instantiation at its path's [240, 240, 16] f64: it
+    launches and is counted; without its back solve (1) or with its
+    barriers alone (2) x holds no solution, and the main path's kernel
+    afterwards still gives the twin's bits."""
+    dev = _on_card()
+    A, b = (torch.from_numpy(a).to(dev) for a in _spd_batchminor(247, 240, 16))
+    before = tsc.solve_spd_cluster.launches
+    tsc.solve_spd_cluster(A, b, _mode=mode)
+    torch.cuda.synchronize()
+    assert tsc.solve_spd_cluster.launches == before + 1
+    assert torch.equal(tsc.solve_spd_cluster(A, b), tsc.chol_solve_right_looking(A, b))
 
 
 @pytest.mark.gpu
